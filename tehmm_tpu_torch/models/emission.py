@@ -1,0 +1,57 @@
+"""Independent categorical emissions — tensor ops.
+
+Counterpart of ``tehmm_tpu/models/emission.py``.  The per-position
+observation log-likelihood
+
+    obs[l, s] = sum_t log_em[s, t, x[l, t]]
+
+is a gather-sum over tracks here.  The JAX package computes it as a
+one-hot x table matmul because the TPU's matrix unit beats its gathers;
+on a GPU the gather is the plain form.  The T terms are summed in track
+order t = 0..T-1 in float32, the same order the CUDA decode kernel uses
+in-kernel (``csrc/viterbi.cu``), so the two agree bit for bit.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+
+from tehmm_tpu.utils.common import EPSILON
+
+
+def track_log_likelihoods(log_em: torch.Tensor,
+                          symbols: torch.Tensor) -> torch.Tensor:
+    """f32[S, T, V] table, int[..., L, T] symbols -> f32[..., L, S]."""
+    S, T, V = log_em.shape
+    sym = symbols.long()
+    obs = log_em[:, 0, :].T[sym[..., 0]]
+    for t in range(1, T):
+        obs = obs + log_em[:, t, :].T[sym[..., t]]
+    return obs
+
+
+def normalize_log_em(
+    counts: torch.Tensor,
+    alphabet_sizes: Sequence[int],
+    epsilon: float = EPSILON,
+) -> torch.Tensor:
+    """Counts f32[S, T, V] -> normalized log emission table, with EPSILON
+    pseudo-counts over each track's real (non-missing, non-pad) symbols;
+    the missing column and pads come out 0.0.  ``1e-300`` underflows to 0
+    in float32, exactly as in the reference (which runs with x64 off)."""
+    S, T, V = counts.shape
+    v_idx = torch.arange(V, device=counts.device)[None, :]
+    sizes = torch.as_tensor(
+        list(alphabet_sizes), device=counts.device
+    )[:, None]
+    real = (v_idx >= 1) & (v_idx < sizes)                     # [T, V]
+    realf = real.to(torch.float32)[None]                      # [1, T, V]
+    smoothed = (counts + epsilon) * realf
+    denom = smoothed.sum(dim=2, keepdim=True)
+    probs = smoothed / torch.clamp(denom, min=1e-300)
+    return torch.where(
+        realf > 0, torch.log(torch.clamp(probs, min=1e-300)),
+        torch.zeros((), device=counts.device),
+    )

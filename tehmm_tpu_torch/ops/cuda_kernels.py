@@ -1,0 +1,421 @@
+"""The decode path's CUDA kernels: build, ctypes binding, wrappers.
+
+``csrc/viterbi.cu`` holds three hand-written Hopper kernels that replace
+the TPU kernels the Viterbi decode reaches (see that file's header for
+what bounds each on an H100 and how its design answers it):
+
+  ===================== ============================================
+  wrapper               replaces (tehmm_tpu/ops/pallas_kernels.py)
+  ===================== ============================================
+  viterbi_fwd           K2 forward, ``_make_viterbi_fwd_kernel_v4``
+  viterbi_backtrace     K2 backtrace, ``_viterbi_backtrace_kernel_v4``
+  viterbi_chunk_values  K3, ``viterbi_chunk_values_pallas``
+  (and viterbi_carry)   (its ``carry_only`` mode)
+  ===================== ============================================
+
+``viterbi_fused`` composes the first two into the symbols-in/path-out
+decode of ``viterbi_fused_pallas_v4``.
+
+Each wrapper checks device, dtype, shape and contiguity, and sits beside
+its plain-torch version.  A tensor on the CPU takes the plain version; a
+CUDA tensor launches the kernel or raises — there is no fallback.  Each
+launch adds one to ``LAUNCHES[name]``, so a run can show that its path
+went through the kernels.
+
+The library is built with ``nvcc`` for ``sm_90a`` at first use, into
+``build/tehmm_tpu_torch/`` beside the package (keyed by a hash of the
+source), and loaded with ctypes.  Nothing is built or imported from a
+CUDA toolchain when this module is imported.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+
+import torch
+
+from tehmm_tpu_torch.models.emission import track_log_likelihoods
+from tehmm_tpu_torch.ops import dp
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SOURCE = os.path.join(_PKG, "csrc", "viterbi.cu")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "tehmm_tpu_torch")
+
+# Launch counts per kernel (plain integers; reset_launch_counts zeroes).
+LAUNCHES = {
+    "viterbi_fwd": 0,
+    "viterbi_backtrace": 0,
+    "viterbi_chunk_values": 0,
+}
+
+# The kernels' envelope: one warp holds a row with up to 8 states per
+# lane, and every table lives in one block's shared memory (227 KB
+# opt-in on an H100).  Outside it the wrappers raise.
+MAX_STATES = 256
+_SMEM_LIMIT = 232448
+_WARPS_PER_BLOCK = 4            # kWarpsPerBlock in viterbi.cu
+_ENVELOPE_ITEM = (
+    "ROADMAP Queue 2: K2/K3 beyond the shared-memory envelope"
+)
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = os.path.join(home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError(
+            "nvcc not found on PATH or under $CUDA_HOME; the CUDA kernels "
+            "cannot be built"
+        )
+    return path
+
+
+def library_path() -> str:
+    """Where the build for the current source goes."""
+    with open(SOURCE, "rb") as fh:
+        digest = hashlib.sha256(fh.read()).hexdigest()[:16]
+    return os.path.join(BUILD_DIR, f"viterbi-{digest}.so")
+
+
+def _build(so_path: str) -> None:
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = so_path + f".tmp{os.getpid()}"
+    cmd = [
+        _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+        "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+        "-Xptxas", "-v", "-o", tmp, SOURCE,
+    ]
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+    with open(so_path + ".log", "w") as fh:
+        fh.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed with exit code {proc.returncode}:\n{proc.stderr}"
+        )
+    os.replace(tmp, so_path)
+
+
+def load_library() -> ctypes.CDLL:
+    """Build (once per source hash) and load the kernel library."""
+    global _lib
+    with _lock:
+        if _lib is not None:
+            return _lib
+        so_path = library_path()
+        if not os.path.exists(so_path):
+            _build(so_path)
+        lib = ctypes.CDLL(so_path)
+        ptr, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+        lib.tehmm_cuda_error_string.restype = ctypes.c_char_p
+        lib.tehmm_cuda_error_string.argtypes = [i32]
+        lib.tehmm_viterbi_fwd.restype = i32
+        lib.tehmm_viterbi_fwd.argtypes = (
+            [ptr] * 7 + [i64, i64, i32, i32, i32, ptr]
+        )
+        lib.tehmm_viterbi_chunk_values.restype = i32
+        lib.tehmm_viterbi_chunk_values.argtypes = (
+            [ptr] * 6 + [i64, i64, i32, ptr]
+        )
+        lib.tehmm_viterbi_backtrace.restype = i32
+        lib.tehmm_viterbi_backtrace.argtypes = [
+            ptr, ptr, i64, ptr, i64, ptr, ptr, ptr, ptr, i64, i64, i32, ptr,
+        ]
+        _lib = lib
+        return lib
+
+
+# ---------------------------------------------------------------------
+# argument checks
+# ---------------------------------------------------------------------
+
+def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(
+            f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}"
+        )
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+
+
+def _check_contiguous(t: torch.Tensor, name: str) -> None:
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _row_stride(t: torch.Tensor, name: str) -> int:
+    """Batch stride of a [B, ..., S] tensor whose rows are dense (the
+    leading dimension may be a slice of a larger tensor)."""
+    dense = t[0] if t.shape[0] else t
+    if dense.numel() and not dense.is_contiguous():
+        raise ValueError(f"{name}: each batch row must be contiguous")
+    return t.stride(0)
+
+
+def _check_envelope(S: int, smem_floats: int, what: str) -> None:
+    if S > MAX_STATES or 4 * smem_floats > _SMEM_LIMIT:
+        raise NotImplementedError(
+            f"{what}: S={S} needs {4 * smem_floats} bytes of shared "
+            f"memory per block (limit {_SMEM_LIMIT}, and S <= "
+            f"{MAX_STATES}); not ported yet ({_ENVELOPE_ITEM})"
+        )
+
+
+def _check_index_range(t: torch.Tensor, hi: int, name: str) -> None:
+    """Values of an int tensor the kernel indexes with must be in
+    [0, hi): an out-of-range value would read past a shared table."""
+    if t.numel() == 0:
+        return
+    lo_v, hi_v = torch.aminmax(t)
+    if int(lo_v) < 0 or int(hi_v) >= hi:
+        raise ValueError(
+            f"{name}: values must lie in [0, {hi}), got "
+            f"[{int(lo_v)}, {int(hi_v)}]"
+        )
+
+
+def _device_kind(device: torch.device) -> str:
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {device}")
+    return device.type
+
+
+def _stream(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _raise_on(rc: int, lib: ctypes.CDLL, what: str) -> None:
+    if rc != 0:
+        msg = lib.tehmm_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{what} launch failed: CUDA error {rc} ({msg})")
+
+
+# ---------------------------------------------------------------------
+# K2 forward
+# ---------------------------------------------------------------------
+
+def viterbi_fwd_plain(log_start, log_trans, log_em, symbols, lengths):
+    """Plain version of ``viterbi_fwd``: obs by the track-order
+    gather-sum, then the max-plus forward of ``dp.viterbi`` with K2's
+    masking (zero-length rows carry a zero row)."""
+    obs = track_log_likelihoods(log_em, symbols)
+    B, L, S = obs.shape
+    lens = lengths.to(torch.int64)
+    v_hat = torch.zeros((B, S), dtype=torch.float32, device=obs.device)
+    rows, dms = [], []
+    for t in range(L):
+        if t == 0:
+            base = log_start[None, :]
+        else:
+            base = (v_hat[:, :, None] + log_trans[None, :, :]).amax(dim=1)
+        new_hat, m = dp._renorm(base + obs[:, t])
+        valid_t = t < lens
+        v_hat = dp._mask_carry(new_hat, v_hat, valid_t)
+        rows.append(v_hat)
+        dms.append(torch.where(valid_t, m, 0.0))
+    return torch.stack(rows, dim=1), torch.stack(dms, dim=1)
+
+
+def viterbi_fwd(log_start, log_trans, log_em, symbols, lengths):
+    """K2 forward: (v_hats f32[B, L, S], dm f32[B, L]) from int32
+    symbols [B, L, T] and int32 lengths [B].  Row t is the
+    max-normalized value row at position t; dm[b, t] is its normalizer
+    (0 at padding).
+
+    Replaces ``_make_viterbi_fwd_kernel_v4`` (pallas_kernels.py:2386).
+    Bound on an H100: the latency of one dependent max-plus step per
+    position (S x S shared-memory max-reduction, T symbol loads, a warp
+    shuffle), not bytes or flops.  Design: one warp per row, lane <->
+    state, tables in shared memory, obs formed in registers and never
+    written out."""
+    B, L, T = symbols.shape
+    S, _, V = log_em.shape
+    dev = symbols.device
+    _check(symbols, "symbols", torch.int32, (B, L, T), dev)
+    _check(lengths, "lengths", torch.int32, (B,), dev)
+    _check(log_start, "log_start", torch.float32, (S,), dev)
+    _check(log_trans, "log_trans", torch.float32, (S, S), dev)
+    _check(log_em, "log_em", torch.float32, (S, T, V), dev)
+    for t, name in ((symbols, "symbols"), (lengths, "lengths"),
+                    (log_start, "log_start"), (log_trans, "log_trans"),
+                    (log_em, "log_em")):
+        _check_contiguous(t, name)
+    if _device_kind(dev) == "cpu":
+        return viterbi_fwd_plain(log_start, log_trans, log_em, symbols,
+                                 lengths)
+    _check_envelope(
+        S, S * S + S * T * V + S + _WARPS_PER_BLOCK * S, "viterbi_fwd"
+    )
+    _check_index_range(symbols, V, "symbols")
+    v_hats = torch.empty((B, L, S), dtype=torch.float32, device=dev)
+    dm = torch.empty((B, L), dtype=torch.float32, device=dev)
+    if B == 0 or L == 0:
+        return v_hats, dm
+    lib = load_library()
+    rc = lib.tehmm_viterbi_fwd(
+        symbols.data_ptr(), lengths.data_ptr(), log_start.data_ptr(),
+        log_trans.data_ptr(), log_em.data_ptr(), v_hats.data_ptr(),
+        dm.data_ptr(), B, L, S, T, V, _stream(dev),
+    )
+    _raise_on(rc, lib, "viterbi_fwd")
+    LAUNCHES["viterbi_fwd"] += 1
+    return v_hats, dm
+
+
+# ---------------------------------------------------------------------
+# K2 backtrace (also the exact decoder's per-chunk backtrace)
+# ---------------------------------------------------------------------
+
+viterbi_backtrace_plain = dp.viterbi_backtrace_chunk
+
+
+def viterbi_backtrace(log_trans, rows, entry, end_state, lengths):
+    """Walk one block of value rows back from ``end_state``.
+
+    Args:
+      rows: f32[B, L, S] value rows at positions 0..L-1 (each batch row
+        dense; the batch stride may be larger, e.g. a slice).
+      entry: f32[B, S] value row at position -1 (batch row dense).
+      end_state: int32[B] state at position L-1.
+      lengths: int32[B] valid positions.
+
+    Returns (path int32[B, L], entry_state int32[B]) — the state at
+    position -1 — with the semantics of ``dp.viterbi_backtrace_chunk``.
+
+    Replaces ``_viterbi_backtrace_kernel_v4`` (pallas_kernels.py:2517)
+    and the exact decoder's per-position backtrace loop.  Bound: the
+    latency of a dependent chain of S-wide argmaxes over value rows read
+    from HBM/L2.  Design: one thread per row, trans in shared memory,
+    strided batch rows so the fused caller passes slices without
+    copying.
+    """
+    B, L, S = rows.shape
+    dev = rows.device
+    _check(log_trans, "log_trans", torch.float32, (S, S), dev)
+    _check(rows, "rows", torch.float32, (B, L, S), dev)
+    _check(entry, "entry", torch.float32, (B, S), dev)
+    _check(end_state, "end_state", torch.int32, (B,), dev)
+    _check(lengths, "lengths", torch.int32, (B,), dev)
+    for t, name in ((log_trans, "log_trans"), (end_state, "end_state"),
+                    (lengths, "lengths")):
+        _check_contiguous(t, name)
+    row_stride = _row_stride(rows, "rows")
+    entry_stride = _row_stride(entry, "entry")
+    if _device_kind(dev) == "cpu":
+        return viterbi_backtrace_plain(log_trans, rows, entry, end_state,
+                                       lengths)
+    _check_envelope(S, S * S, "viterbi_backtrace")
+    _check_index_range(end_state, S, "end_state")
+    path = torch.empty((B, L), dtype=torch.int32, device=dev)
+    entry_state = torch.empty((B,), dtype=torch.int32, device=dev)
+    if B == 0:
+        return path, entry_state
+    lib = load_library()
+    rc = lib.tehmm_viterbi_backtrace(
+        log_trans.data_ptr(), rows.data_ptr(), row_stride,
+        entry.data_ptr(), entry_stride, end_state.data_ptr(),
+        lengths.data_ptr(), path.data_ptr(), entry_state.data_ptr(),
+        B, L, S, _stream(dev),
+    )
+    _raise_on(rc, lib, "viterbi_backtrace")
+    LAUNCHES["viterbi_backtrace"] += 1
+    return path, entry_state
+
+
+# ---------------------------------------------------------------------
+# K3 (values, or only the final carry)
+# ---------------------------------------------------------------------
+
+def _chunk_values(log_trans, obs, v_hat_init, lengths, carry_only):
+    B, L, S = obs.shape
+    dev = obs.device
+    _check(log_trans, "log_trans", torch.float32, (S, S), dev)
+    _check(obs, "obs", torch.float32, (B, L, S), dev)
+    _check(v_hat_init, "v_hat_init", torch.float32, (B, S), dev)
+    _check(lengths, "lengths", torch.int32, (B,), dev)
+    for t, name in ((log_trans, "log_trans"), (obs, "obs"),
+                    (v_hat_init, "v_hat_init"), (lengths, "lengths")):
+        _check_contiguous(t, name)
+    if _device_kind(dev) == "cpu":
+        plain = dp.viterbi_carry if carry_only else dp.viterbi_chunk_values
+        return plain(log_trans, obs, v_hat_init, lengths)
+    _check_envelope(S, S * S + _WARPS_PER_BLOCK * S,
+                    "viterbi_chunk_values")
+    if carry_only:
+        out = torch.empty((B, S), dtype=torch.float32, device=dev)
+        v_ptr, carry_ptr = None, out.data_ptr()
+    else:
+        out = torch.empty((B, L, S), dtype=torch.float32, device=dev)
+        v_ptr, carry_ptr = out.data_ptr(), None
+    if B == 0:
+        return out
+    lib = load_library()
+    rc = lib.tehmm_viterbi_chunk_values(
+        obs.data_ptr(), v_hat_init.data_ptr(), lengths.data_ptr(),
+        log_trans.data_ptr(), v_ptr, carry_ptr, B, L, S, _stream(dev),
+    )
+    _raise_on(rc, lib, "viterbi_chunk_values")
+    LAUNCHES["viterbi_chunk_values"] += 1
+    return out
+
+
+def viterbi_chunk_values(log_trans, obs, v_hat_init, lengths):
+    """K3: every value row f32[B, Lc, S] of one chunk from its incoming
+    carry (``dp.viterbi_chunk_values`` semantics; int32 lengths).
+
+    Replaces ``viterbi_chunk_values_pallas`` (pallas_kernels.py:1492,
+    kernel ``_make_viterbi_kernel_v3`` :1284).  Bound and design as
+    ``viterbi_fwd``, over precomputed obs."""
+    return _chunk_values(log_trans, obs, v_hat_init, lengths, False)
+
+
+def viterbi_carry(log_trans, obs, v_hat_init, lengths):
+    """K3 in carry-only mode: the final carry f32[B, S]
+    (``dp.viterbi_carry`` semantics; int32 lengths)."""
+    return _chunk_values(log_trans, obs, v_hat_init, lengths, True)
+
+
+# ---------------------------------------------------------------------
+# K2 as a whole
+# ---------------------------------------------------------------------
+
+def viterbi_fused(log_start, log_trans, log_em, symbols, lengths):
+    """Symbols-in/path-out Viterbi: (path int32[B, L], score f32[B]).
+
+    The forward writes value rows; the backtrace starts from the
+    first-hit argmax of the last row and walks positions L-1..1 against
+    rows 0..L-2, so position 0's state comes back as the entry state.
+    Paths equal ``dp.viterbi``'s; the score is max(last row) + sum(dm)
+    (a tree-order sum, so it matches ``dp.viterbi``'s sequential one to
+    float32 rounding).  Zero-length rows get path 0 and score 0."""
+    B, L, _T = symbols.shape
+    v_hats, dm = viterbi_fwd(log_start, log_trans, log_em, symbols,
+                             lengths)
+    last = v_hats[:, L - 1]
+    end_state = torch.argmax(last, dim=-1).to(torch.int32)
+    body_lens = torch.clamp(lengths - 1, min=0).to(torch.int32)
+    body, first = viterbi_backtrace(
+        log_trans, v_hats[:, 1:], v_hats[:, 0], end_state, body_lens
+    )
+    path = torch.cat([first[:, None], body], dim=1)
+    nonempty = lengths > 0
+    score = torch.where(nonempty, last.amax(dim=-1) + dm.sum(dim=1), 0.0)
+    path = torch.where(nonempty[:, None], path, 0)
+    return path, score

@@ -1,0 +1,166 @@
+"""Max-plus Viterbi dynamic programming in plain torch.
+
+Counterpart of the Viterbi half of ``tehmm_tpu/ops/dp.py``, step for
+step: the same max-rescaled value carry, the same masking (positions
+``t >= length`` carry the state through and add a zero normalizer) and
+the same first-hit argmax (ties go to the lowest state index).  Every
+operation is an exact float32 max, add or subtract, so fed the same obs
+these functions give the JAX package's value rows and paths bit for bit.
+
+This is the CPU path and the reference every CUDA kernel is checked
+against (``ops/cuda_kernels.py``).  The time loops are Python loops over
+positions: on the GPU the decoders call the kernels instead.
+
+All functions take batch-major ``obs[B, L, S]``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from tehmm_tpu.utils.common import LOG_ZERO
+
+
+def _lengths(lengths, B: int, L: int, device) -> torch.Tensor:
+    if lengths is None:
+        return torch.full((B,), L, dtype=torch.int64, device=device)
+    return lengths.to(device=device, dtype=torch.int64)
+
+
+def _renorm(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Split x[B,S] into (x - max, max); max clamped to stay finite."""
+    m = torch.clamp(x.amax(dim=-1), min=LOG_ZERO)              # [B]
+    return x - m[:, None], m
+
+
+def _mask_carry(new: torch.Tensor, old: torch.Tensor,
+                valid_t: torch.Tensor) -> torch.Tensor:
+    """Carry ``old`` through for batch rows whose position t is padding."""
+    return torch.where(valid_t[:, None], new, old)
+
+
+def _maxplus_step(log_trans: torch.Tensor, v_hat: torch.Tensor,
+                  obs_row: torch.Tensor, valid_t: torch.Tensor
+                  ) -> torch.Tensor:
+    """The canonical max-plus step shared by viterbi_carry and
+    viterbi_chunk_values: best_j = max_i(v_i + trans[i, j]), add obs,
+    renormalize, mask."""
+    best = (v_hat[:, :, None] + log_trans[None, :, :]).amax(dim=1)
+    new_hat, _ = _renorm(best + obs_row)
+    return _mask_carry(new_hat, v_hat, valid_t)
+
+
+def _backtrace_step(log_trans: torch.Tensor, v_prev: torch.Tensor,
+                    state: torch.Tensor, valid_t: torch.Tensor
+                    ) -> torch.Tensor:
+    """argmax_i(v_prev[i] + trans[i, state]), first hit; held at
+    ``state`` where the position is padding."""
+    col = log_trans.T[state]                                  # [B, S]
+    prev = torch.argmax(v_prev + col, dim=-1)
+    return torch.where(valid_t, prev, state)
+
+
+def viterbi(
+    log_start: torch.Tensor,
+    log_trans: torch.Tensor,
+    obs: torch.Tensor,
+    lengths: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Max-plus Viterbi DP + backtrace.
+
+    Returns (path int32[B, L], score f32[B]).  Entries at t >= length
+    replicate the state at length-1; zero-length rows get path 0 and
+    score 0."""
+    B, L, S = obs.shape
+    lengths = _lengths(lengths, B, L, obs.device)
+    nonempty = lengths > 0
+
+    v0 = log_start[None, :] + obs[:, 0]
+    v0_hat, m = _renorm(v0)
+
+    if L == 1:
+        # no transitions: the path is the best start-weighted state
+        score = torch.where(nonempty, v0.amax(dim=-1), 0.0)
+        path = torch.where(nonempty, torch.argmax(v0, dim=-1), 0)
+        return path.to(torch.int32)[:, None], score
+
+    rows = [v0_hat]
+    v_hat = v0_hat
+    for t in range(1, L):
+        best = (v_hat[:, :, None] + log_trans[None, :, :]).amax(dim=1)
+        new_hat, dm = _renorm(best + obs[:, t])
+        valid_t = t < lengths
+        v_hat = _mask_carry(new_hat, v_hat, valid_t)
+        m = torch.where(valid_t, m + dm, m)
+        rows.append(v_hat)
+    score = v_hat.amax(dim=-1) + m
+
+    state = torch.argmax(v_hat, dim=-1)
+    path = torch.empty((B, L), dtype=torch.int64, device=obs.device)
+    for t in range(L - 1, 0, -1):
+        path[:, t] = state
+        state = _backtrace_step(log_trans, rows[t - 1], state,
+                                t < lengths)
+    path[:, 0] = state
+    score = torch.where(nonempty, score, 0.0)
+    path = torch.where(nonempty[:, None], path, 0)
+    return path.to(torch.int32), score
+
+
+def viterbi_carry(
+    log_trans: torch.Tensor,
+    obs: torch.Tensor,
+    v_hat_init: torch.Tensor,
+    lengths: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Max-plus forward continuation: only the final carry f32[B, S]
+    (the cheap first sweep of checkpointed Viterbi)."""
+    B, Lc, S = obs.shape
+    lengths = _lengths(lengths, B, Lc, obs.device)
+    v_hat = v_hat_init
+    for t in range(Lc):
+        v_hat = _maxplus_step(log_trans, v_hat, obs[:, t], t < lengths)
+    return v_hat
+
+
+def viterbi_chunk_values(
+    log_trans: torch.Tensor,
+    obs: torch.Tensor,
+    v_hat_init: torch.Tensor,
+    lengths: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Every per-position max-plus value row of one chunk from its
+    incoming carry: f32[B, Lc, S], where row t holds the values AT chunk
+    position t (position 0 already includes one transition from the
+    carry)."""
+    B, Lc, S = obs.shape
+    lengths = _lengths(lengths, B, Lc, obs.device)
+    v_hat = v_hat_init
+    rows = []
+    for t in range(Lc):
+        v_hat = _maxplus_step(log_trans, v_hat, obs[:, t], t < lengths)
+        rows.append(v_hat)
+    return torch.stack(rows, dim=1)
+
+
+def viterbi_backtrace_chunk(
+    log_trans: torch.Tensor,
+    v_hats: torch.Tensor,       # [B, Lc, S] from viterbi_chunk_values
+    v_carry_in: torch.Tensor,   # [B, S] carry that entered this chunk
+    end_state: torch.Tensor,    # int[B] state at the last valid position
+    lengths: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Backtrace one chunk given its end state.
+
+    Returns (path int32[B, Lc], entry_state int32[B]) where entry_state
+    is the optimal state at the previous chunk's last position (computed
+    against ``v_carry_in``)."""
+    B, Lc, S = v_hats.shape
+    lengths = _lengths(lengths, B, Lc, v_hats.device)
+    state = end_state.to(torch.int64)
+    path = torch.empty((B, Lc), dtype=torch.int64, device=v_hats.device)
+    for t in range(Lc - 1, -1, -1):
+        path[:, t] = state
+        v_prev = v_hats[:, t - 1] if t > 0 else v_carry_in
+        state = _backtrace_step(log_trans, v_prev, state, t < lengths)
+    return path.to(torch.int32), state.to(torch.int32)

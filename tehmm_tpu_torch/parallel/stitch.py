@@ -1,0 +1,315 @@
+"""Chunked Viterbi decoding: halo stitching and the exact decoder.
+
+Counterpart of the Viterbi half of ``tehmm_tpu/parallel/stitch.py``.  A
+chromosome is decoded as fixed-size chunks, each extended by a halo on
+both sides; only each chunk's core is kept.  Neighbouring decodes are
+compared on a window around every boundary, and a disagreeing boundary
+doubles only its adjacent chunks' halos and re-decodes them, up to
+``max_halo``; persistent disagreement falls back to the checkpointed
+EXACT decoder (``viterbi_exact``), which equals the monolithic decode
+unconditionally and is also available directly (eval ``--exact``).
+
+On CUDA tensors the decoders run the hand-written kernels
+(``ops/cuda_kernels``): the stitched decoder the fused K2
+(``viterbi_fused``), the exact decoder K3 (``viterbi_carry``,
+``viterbi_chunk_values``) and the backtrace kernel.  On the CPU the same
+calls take the plain-torch versions.
+
+Left out of the port, because they served a TPU runtime whose
+device-to-host link ran at tens of MB/s and results are identical
+without them: the device-resident decoder, run-length path transport
+and pipelined row groups.  Row groups are decoded in turn, int32 paths
+are downloaded as they are, and no group is padded to a fixed shape
+(PyTorch runs eagerly; there is no compiled shape to keep).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from tehmm_tpu.utils.common import logger
+from tehmm_tpu_torch.models.emission import track_log_likelihoods
+from tehmm_tpu_torch.models.params import HmmParams
+from tehmm_tpu_torch.ops import cuda_kernels as ck
+from tehmm_tpu_torch.parallel.chunking import batch_chunks, plan_chunks
+
+
+@dataclasses.dataclass
+class StitchReport:
+    """Diagnostics from a chunked decode."""
+
+    n_chunks: int
+    final_halo: int
+    retries: int
+    boundaries_checked: int
+    boundaries_ok: bool
+
+
+def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """Host int array -> int32 tensor on ``device``."""
+    return torch.from_numpy(
+        np.ascontiguousarray(a, dtype=np.int32)
+    ).to(device)
+
+
+def _decode_batch(
+    params: HmmParams,
+    symbols: np.ndarray,
+    lengths: np.ndarray,
+    rows_per_pass: int,
+) -> np.ndarray:
+    """Viterbi over a chunk batch [n, L, T], ``rows_per_pass`` rows per
+    kernel launch.  Returns int32 paths [n, L], 0 beyond each length."""
+    n, L, _T = symbols.shape
+    out = np.zeros((n, L), dtype=np.int32)
+    dev = params.device
+    for lo in range(0, n, rows_per_pass):
+        hi = min(lo + rows_per_pass, n)
+        lens = _to_device(lengths[lo:hi], dev)
+        paths, _ = ck.viterbi_fused(
+            params.log_start, params.log_trans, params.log_em,
+            _to_device(symbols[lo:hi], dev), lens,
+        )
+        rows = paths.cpu().numpy()
+        valid = np.arange(L)[None, :] < lengths[lo:hi, None]
+        out[lo:hi] = np.where(valid, rows, 0)
+    return out
+
+
+def _stitched_decode(
+    params: HmmParams,
+    tables: Sequence,
+    chunk_len: int,
+    halo: int,
+    max_halo: int,
+    agree_frac: float,
+    decode_rows,          # (symbols, lengths) chunk batch -> int32 rows
+    exact_fn,             # exact whole-input fallback
+    name: str,
+) -> tuple[list[np.ndarray], StitchReport]:
+    """Halo-stitching driver.
+
+    Chunk CORES are fixed by ``chunk_len`` (plan_chunks: halo only widens
+    the loads), so widening is TARGETED: after the initial decode, every
+    internal boundary is checked, and each retry re-decodes ONLY the
+    chunks adjacent to still-disagreeing boundaries at their doubled
+    halo.  Boundaries touching a re-decoded chunk are re-checked.
+
+    Boundary agreement is a strong heuristic for monolithic equality,
+    not a proof; persistent disagreement falls back to ``exact_fn``, and
+    callers needing the unconditional guarantee use ``viterbi_exact``.
+    """
+    mats = [getattr(t, "symbols", t) for t in tables]
+    lengths = [len(m) for m in mats]
+
+    def decode_at(chunk_list):
+        batch = batch_chunks(mats, chunk_list)
+        return decode_rows(batch.symbols, batch.lengths)
+
+    base = plan_chunks(lengths, chunk_len, 0)     # halo-free cores
+    h0 = min(halo, max_halo)
+
+    def with_halo(c, h):
+        L = lengths[c.table_idx]
+        return dataclasses.replace(
+            c,
+            load_start=max(0, c.core_start - h),
+            load_end=min(L, c.core_end + h),
+        )
+
+    chunk_halo = [h0] * len(base)
+    chunks = [with_halo(c, h0) for c in base]
+    rows = list(decode_at(chunks))                # per-chunk decoded row
+
+    # internal boundaries: (left chunk idx, right chunk idx)
+    bounds = [
+        (i, i + 1)
+        for i in range(len(base) - 1)
+        if base[i].table_idx == base[i + 1].table_idx
+    ]
+
+    def agree(i, j):
+        a, b = chunks[i], chunks[j]
+        x = a.core_end                 # == b.core_start
+        w = max(1, int(min(chunk_halo[i], chunk_halo[j]) * agree_frac))
+        lo = max(x - w, a.load_start, b.load_start)
+        hi = min(x + w, a.load_end, b.load_end)
+        if lo >= hi:
+            return True
+        seg_a = rows[i][lo - a.load_start : hi - a.load_start]
+        seg_b = rows[j][lo - b.load_start : hi - b.load_start]
+        return np.array_equal(seg_a, seg_b)
+
+    failing = {bd for bd in bounds if not agree(*bd)}
+    retries = 0
+    while failing and any(
+        min(chunk_halo[i], chunk_halo[j]) < max_halo for i, j in failing
+    ):
+        retries += 1
+        affected = sorted({
+            i for bd in failing for i in bd
+            if chunk_halo[i] < max_halo      # capped: same decode again
+        })
+        for i in affected:
+            chunk_halo[i] = min(chunk_halo[i] * 2, max_halo)
+            chunks[i] = with_halo(base[i], chunk_halo[i])
+        logger.info(
+            "%s: re-decoding %d chunk(s) around %d disagreeing "
+            "boundary(ies) at halo<=%d (retry %d)",
+            name, len(affected), len(failing),
+            max(chunk_halo[i] for i in affected), retries,
+        )
+        fresh = decode_at([chunks[i] for i in affected])
+        for k, i in enumerate(affected):
+            rows[i] = fresh[k]
+        # update membership ONLY for boundaries whose rows changed;
+        # untouched failing boundaries (e.g. both chunks capped) must
+        # STAY failing, or the exact fallback would be skipped
+        touched = set(affected)
+        recheck = {
+            bd for bd in bounds if bd[0] in touched or bd[1] in touched
+        }
+        for bd in recheck:
+            if agree(*bd):
+                failing.discard(bd)
+            else:
+                failing.add(bd)
+
+    ok = not failing
+    if ok:
+        paths = [np.zeros(L, dtype=np.int32) for L in lengths]
+        for c, row in zip(chunks, rows):
+            paths[c.table_idx][c.core_start : c.core_end] = \
+                row[c.core_offset : c.core_offset + c.core_len]
+    else:
+        logger.warning(
+            "%s: boundary disagreement persists at max_halo=%d; "
+            "falling back to the exact decoder", name, max_halo,
+        )
+        paths = exact_fn(params, tables, chunk_len)
+        # boundaries_ok reports whether the FINAL paths carry the
+        # guarantee; the exact decoder's output is unconditional
+        ok = True
+    return paths, StitchReport(
+        n_chunks=len(chunks),
+        final_halo=max(chunk_halo, default=h0),
+        retries=retries,
+        boundaries_checked=len(bounds),
+        boundaries_ok=ok,
+    )
+
+
+def viterbi_chunked(
+    params: HmmParams,
+    tables: Sequence,
+    chunk_len: int = 4096,
+    halo: int = 256,
+    max_halo: int = 1 << 14,
+    agree_frac: float = 0.5,
+    rows_per_pass: int = 512,
+) -> tuple[list[np.ndarray], StitchReport]:
+    """Decode each table's full span via halo chunks (see
+    _stitched_decode for the stitching/widening/guarantee contract).
+
+    Args:
+      tables: TrackTables (or raw [L, T] symbol arrays).
+      chunk_len: core window size per chunk.
+      halo: initial halo width; doubled per disagreeing boundary up to
+        max_halo (targeted: only adjacent chunks re-decode).
+      agree_frac: fraction of the halo used as the agreement window.
+      rows_per_pass: chunks decoded per kernel launch.
+
+    Returns:
+      (paths, report): one int32[L] state path per input table.
+    """
+    def decode_rows(symbols, lens):
+        return _decode_batch(params, symbols, lens, rows_per_pass)
+
+    return _stitched_decode(
+        params, tables, chunk_len, halo, max_halo, agree_frac,
+        decode_rows, viterbi_exact, "viterbi_chunked",
+    )
+
+
+def _first_rows(arrays, width, dtype):
+    """Row 0 of every array, with an all-zero stand-in for EMPTY tables
+    (every consumer masks them via true_lens > 0)."""
+    return np.stack([
+        a[0] if len(a) else np.zeros(width, dtype) for a in arrays
+    ])
+
+
+def viterbi_exact(
+    params: HmmParams,
+    tables: Sequence,
+    chunk_len: int = 1 << 14,
+) -> list[np.ndarray]:
+    """EXACT chunked Viterbi via checkpointed carries: a forward sweep
+    stores only the O(S) carry entering every chunk; the backtrace sweep
+    recomputes each chunk's value rows from its stored carry and walks
+    the optimal path backwards through them.  Bit-identical to the
+    monolithic decode for ANY model, with device memory bounded by one
+    chunk.  Sequential over chunks, batched across tables."""
+    mats = [np.ascontiguousarray(getattr(t, "symbols", t)) for t in tables]
+    dev = params.device
+    B = len(mats)
+    true_lens = np.asarray([len(m) for m in mats], np.int64)
+    T = mats[0].shape[1]
+    Lb = int(true_lens.max()) - 1          # body = positions 1..L-1
+    Lc = min(chunk_len, max(Lb, 1))
+    n_chunks = max(0, -(-Lb // Lc))
+
+    def obs_chunk(c):
+        """obs for body positions [1 + c*Lc, 1 + (c+1)*Lc) padded."""
+        lo = 1 + c * Lc
+        block = np.zeros((B, Lc, T), dtype=mats[0].dtype)
+        for b, m in enumerate(mats):
+            piece = m[lo : lo + Lc]
+            block[b, : len(piece)] = piece
+        obs = track_log_likelihoods(params.log_em, _to_device(block, dev))
+        lens = _to_device(np.clip(true_lens - lo, 0, Lc), dev)
+        return obs, lens
+
+    # position 0 values (empty tables get inert zero rows — masked by
+    # true_lens > 0 in the assembly below)
+    block0 = _first_rows(mats, T, mats[0].dtype)
+    obs0 = track_log_likelihoods(
+        params.log_em, _to_device(block0[:, None, :], dev)
+    )[:, 0, :]
+    v0 = params.log_start[None, :] + obs0
+    m0 = torch.clamp(v0.amax(dim=-1, keepdim=True), min=-1e30)
+    carry = v0 - m0
+
+    # ---- forward sweep: store the carry entering each chunk ----
+    entry_carries = []
+    for c in range(n_chunks):
+        entry_carries.append(carry)
+        obs, lens = obs_chunk(c)
+        carry = ck.viterbi_carry(params.log_trans, obs, carry, lens)
+
+    # ---- backtrace sweep ----
+    end_state = torch.argmax(carry, dim=-1).to(torch.int32)
+    max_len = int(true_lens.max())
+    if max_len == 0:                  # every table empty
+        return [np.zeros(0, np.int32) for _ in range(B)]
+    paths = np.zeros((B, max_len), np.int32)
+    for c in reversed(range(n_chunks)):
+        obs, lens = obs_chunk(c)
+        v_hats = ck.viterbi_chunk_values(
+            params.log_trans, obs, entry_carries[c], lens
+        )
+        chunk_path, end_state = ck.viterbi_backtrace(
+            params.log_trans, v_hats, entry_carries[c], end_state, lens
+        )
+        lo = 1 + c * Lc
+        cp = chunk_path.cpu().numpy()
+        for b in range(B):
+            hi = min(lo + Lc, int(true_lens[b]))
+            if hi > lo:
+                paths[b, lo:hi] = cp[b, : hi - lo]
+    paths[:, 0] = end_state.cpu().numpy()
+    return [paths[b, : int(true_lens[b])].copy() for b in range(B)]
