@@ -6,11 +6,18 @@
 Phases (any failure raises, and the run exits non-zero):
 
 1. Device and build: the card's name and power limit, and the build of
-   the CUDA kernels from ``tehmm_tpu_torch/csrc/viterbi.cu``.
-2. Each kernel against its plain-torch version on the card, at the
-   decode's shapes (S=10 states, T=5 tracks, V=9 symbols, B=512 rows of
-   L=4608 = chunk 4096 + 2 x 256 halo, ragged lengths incl. 0 and 1):
-   value rows, normalizers, carries and paths bit-equal; times of both.
+   the CUDA kernels from ``tehmm_tpu_torch/csrc/*.cu`` (one nvcc per
+   source, in parallel).
+2. Each kernel against its plain-torch version on the card.  The decode
+   kernels (K2, K3) at the decode's shapes (S=10 states, T=5 tracks, V=9
+   symbols, B=512 rows of L=4608 = chunk 4096 + 2 x 256 halo, ragged
+   lengths incl. 0 and 1): value rows, normalizers, carries and paths
+   bit-equal.  The E-step kernels (K1) at bench.py's shape (S=20, T=5,
+   V=8, B=2048, L=1024, ragged lengths incl. 0, 1 and 2): statistics and
+   logliks within the JAX package's engine tolerances of the plain
+   version and of the plain log-space E-step, and bit-identical across
+   two launches.  Times of both sides.  (K1 is checked again at the EM
+   run's own shape in 3b.)
 3. End to end through the port's CLIs, in-process, at the width of the
    10-state / 5-track supervised decode configuration: a planted
    20,000,000-position chromosome (4 categorical BED tracks + FASTA),
@@ -19,8 +26,21 @@ Phases (any failure raises, and the run exits non-zero):
    accuracy against the planted truth is >= 0.9.  On a 1,000,000-position
    region ``--exact`` and ``--no-exact`` write the same BED, and on a
    20,000-position region the card's BED equals the CPU's (plain torch).
-4. The launch counters, zeroed before phase 3, show every kernel ran on
-   the main path.
+3b. Unsupervised EM through ``train`` (no ``--supervised``) on the same
+   chromosome, 10 states, 15 iterations, chunks of 16384: every logged
+   loglik finite and non-decreasing within 1e-4 |loglik|; K1 against
+   its plain version at this shape (the learned model, 256 of the
+   staged rows of 16384, ragged lengths), at phase 2's tolerances; the
+   model decoded with ``eval --bed``; base accuracy after mapping each learned
+   state to its majority planted state (printed, not asserted); stage
+   times.
+3c. The card against the CPU on a 50,000-position region: the same EM
+   command on both; per-iteration logliks within 1e-5 relative, learned
+   probabilities within 1e-4, decoded BED agreeing on >= 99.9% of bases;
+   then ``--reps 2`` on the card, through K1 for both restarts.
+4. The launch counters, zeroed just before phase 3 and again just before
+   3b's training run and read just after it, show every kernel of each
+   path ran on it.
 
 The last lines are a JSON object of per-kernel results, the card's name
 and power limit, and ``{"ok": true, "device": {...}}``.  Without CUDA it
@@ -48,12 +68,25 @@ B_ROWS, L_ROWS = 512, 4096 + 2 * 256  # one decode group
 GC = np.linspace(0.3, 0.7, S)        # per-state GC content
 N_CATS, BLOCK = 8, 50                # BED categories, bases per record
 RUN_MEAN = 2000                      # mean planted run length
-SOURCE = "tehmm_tpu_torch/csrc/viterbi.cu"
+K1_S, K1_T, K1_V, K1_B, K1_L = 20, 5, 8, 2048, 1024   # bench.py's E-step
+EM_STATES, EM_ITERS, EM_CHUNK = 10, 15, 16384
+K1_EM_ROWS = 256                     # rows of the K1 check at EM's shape
+SOURCES = {
+    "viterbi_fwd": "tehmm_tpu_torch/csrc/viterbi.cu",
+    "viterbi_backtrace": "tehmm_tpu_torch/csrc/viterbi.cu",
+    "viterbi_chunk_values": "tehmm_tpu_torch/csrc/viterbi.cu",
+    "em_fwd": "tehmm_tpu_torch/csrc/em_estep.cu",
+    "em_bwd_stats": "tehmm_tpu_torch/csrc/em_estep.cu",
+}
 REPLACES = {
     "viterbi_fwd": "tehmm_tpu/ops/pallas_kernels.py:2386",
     "viterbi_backtrace": "tehmm_tpu/ops/pallas_kernels.py:2517",
     "viterbi_chunk_values": "tehmm_tpu/ops/pallas_kernels.py:1284",
+    "em_fwd": "tehmm_tpu/ops/pallas_kernels.py:1777",
+    "em_bwd_stats": "tehmm_tpu/ops/pallas_kernels.py:1931",
 }
+DECODE_KERNELS = ("viterbi_fwd", "viterbi_backtrace", "viterbi_chunk_values")
+EM_KERNELS = ("em_fwd", "em_bwd_stats")
 
 
 def _smi() -> str:
@@ -167,6 +200,124 @@ def phase_kernels(device, rng) -> dict:
     return out
 
 
+def _assert_close(name, got, want, rtol, atol):
+    err = (got - want).abs()
+    bad = err > atol + rtol * want.abs()
+    assert not bool(bad.any()), (
+        f"{name}: {int(bad.sum())} values outside rtol {rtol} / atol "
+        f"{atol}; max abs err {float(err.max()):.4g}")
+    return float(err.max()) if err.numel() else 0.0
+
+
+def _k1_against_plain(p, sym, lens):
+    """em_fwd, em_bwd_stats and their composition against the plain
+    versions on one input, within the stated tolerances, and two
+    composed launches bit-identical.  Returns ({kernel: max abs err},
+    {call: ms of that one synchronised call})."""
+    import torch
+
+    from tehmm_tpu_torch.ops import cuda_kernels as ck
+
+    once = {}
+
+    def timed(name, fn, *a):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = fn(*a)
+        torch.cuda.synchronize()
+        once[name] = (time.perf_counter() - t0) * 1e3
+        return result
+
+    args = (p.log_start, p.log_trans, p.log_em, sym, lens)
+    alpha, dm, m_raw = timed("em_fwd", ck.em_fwd, *args)
+    p_alpha, p_dm, p_m = timed("em_fwd plain", ck.em_fwd_plain, *args)
+    err = {"em_fwd": max(
+        _assert_close("em_fwd alpha", alpha, p_alpha, 1e-5, 1e-6),
+        _assert_close("em_fwd m_raw", m_raw, p_m, 1e-5, 0.0),
+        _assert_close("em_fwd dm", dm, p_dm, 1e-5, 1e-5))}
+    bwd_args = (p.log_trans, p.log_em, sym, lens, alpha, m_raw)
+    got = timed("em_bwd_stats", ck.em_bwd_stats, *bwd_args)
+    want = timed("em_bwd_stats plain", ck.em_bwd_stats_plain, *bwd_args)
+    err["em_bwd_stats"] = max(
+        _assert_close(f"em_bwd_stats {n}", g, w, 1e-4, a)
+        for n, g, w, a in zip(("start", "pair", "em"), got, want,
+                              (1e-5, 1e-5, 1e-4)))
+    # the composed E-step, twice bit-identical, against the plain parts
+    first = ck.em_counts_fused(*args)
+    again = ck.em_counts_fused(*args)
+    assert all(torch.equal(a, b) for a, b in zip(first, again)), \
+        "two K1 runs on the same input differ"
+    want = (*want, ck._loglik_rows(p_alpha, p_dm, lens))
+    for n, g, w, r, a in zip(("start", "pair", "em", "loglik"), first,
+                             want, (1e-4, 1e-4, 1e-4, 1e-5),
+                             (1e-5, 1e-5, 1e-4, 1e-4)):
+        _assert_close(f"em_counts_fused {n}", g, w, r, a)
+    return err, once
+
+
+def phase_k1(device, rng) -> dict:
+    """K1 against its plain version (and the plain log-space E-step) at
+    bench.py's shape, on a random model with dirichlet rows."""
+    import torch
+
+    from tehmm_tpu_torch.models.params import from_numpy
+    from tehmm_tpu_torch.ops import cuda_kernels as ck
+    from tehmm_tpu_torch.ops import em
+
+    S, T, V, B, L = K1_S, K1_T, K1_V, K1_B, K1_L
+    log_em = np.zeros((S, T, V))
+    for t in range(T):
+        log_em[:, t, 1:] = np.log(rng.dirichlet(np.ones(V - 1), size=S))
+    p = from_numpy(np.log(rng.dirichlet(np.ones(S))),
+                   np.log(rng.dirichlet(np.ones(S), size=S)), log_em,
+                   device)
+    lengths = rng.randint(0, L + 1, size=B).astype(np.int32)
+    lengths[:4] = [L, 0, 1, 2]
+    sym = torch.from_numpy(
+        rng.randint(0, V, size=(B, L, T)).astype(np.int32)).to(device)
+    lens = torch.from_numpy(lengths).to(device)
+    args = (p.log_start, p.log_trans, p.log_em, sym, lens)
+    err, _once = _k1_against_plain(p, sym, lens)
+    alpha, _dm, m_raw = ck.em_fwd(*args)
+    bwd_args = (p.log_trans, p.log_em, sym, lens, alpha, m_raw)
+    out = {
+        "em_fwd": dict(
+            max_abs_err=err["em_fwd"],
+            ms=_median_ms(lambda: ck.em_fwd(*args), 5),
+            plain_ms=_median_ms(lambda: ck.em_fwd_plain(*args), 3)),
+        "em_bwd_stats": dict(
+            max_abs_err=err["em_bwd_stats"],
+            ms=_median_ms(lambda: ck.em_bwd_stats(*bwd_args), 5),
+            plain_ms=_median_ms(
+                lambda: ck.em_bwd_stats_plain(*bwd_args), 3)),
+    }
+
+    # the whole E-step against the plain log-space engine
+    # (tests/test_pallas.py's limits)
+    k1 = em.em_sufficient_stats(p, sym, lens, engine="cuda")
+    plain = em.em_sufficient_stats(p, sym, lens, engine="plain")
+    rel = abs(float(k1.loglik) - float(plain.loglik)) \
+        / abs(float(plain.loglik))
+    assert rel < 1e-5, f"E-step loglik rel err {rel}"
+    for n, r, a in (("start", 1e-4, 1e-5), ("trans", 1e-4, 1e-5),
+                    ("em", 1e-4, 1e-4)):
+        _assert_close(f"engine cuda vs plain {n}", getattr(k1, n),
+                      getattr(plain, n), r, a)
+    estep_ms = _median_ms(lambda: ck.em_counts_fused(*args), 5)
+    estep_plain_ms = _median_ms(lambda: ck.em_counts_fused_plain(*args), 3)
+    print(f"[kernels] K1 at S={S} T={T} V={V} B={B} L={L}: repeat runs "
+          f"bit-identical; E-step loglik rel err vs plain log-space "
+          f"engine {rel:.3g}", flush=True)
+    print(f"[kernels] {'E-step (em_counts_fused)':22s} kernels "
+          f"{estep_ms:10.3f} ms  plain {estep_plain_ms:10.3f} ms",
+          flush=True)
+    for name, r in out.items():
+        print(f"[kernels] {name:22s} max_abs_err {r['max_abs_err']:.3g}  "
+              f"kernel {r['ms']:10.3f} ms  plain {r['plain_ms']:10.3f} ms",
+              flush=True)
+    return out
+
+
 # ---------------------------------------------------------------------
 # phase 3: end to end through the CLIs
 # ---------------------------------------------------------------------
@@ -245,19 +396,30 @@ class _Stages:
 
     def __init__(self):
         self.seconds: dict[str, float] = {}
+        self.calls: dict[str, int] = {}
         self.last: dict[str, object] = {}
         self._undo = []
 
-    def wrap(self, owner, attr, stage):
+    def wrap(self, owner, attr, stage, sync=False, keep=False):
+        """``sync``: end the span with torch.cuda.synchronize(), so a
+        call that only queues work on the card is charged its work.
+        ``keep``: hold the last result in ``self.last`` (only for stages
+        read afterwards, so the spans hold no other tensor alive)."""
         fn = getattr(owner, attr)
         original = vars(owner)[attr]      # e.g. the classmethod itself
 
         def timed(*args, **kwargs):
             t0 = time.perf_counter()
             result = fn(*args, **kwargs)
+            if sync:
+                import torch
+
+                torch.cuda.synchronize()
             self.seconds[stage] = self.seconds.get(stage, 0.0) \
                 + time.perf_counter() - t0
-            self.last[stage] = result
+            self.calls[stage] = self.calls.get(stage, 0) + 1
+            if keep:
+                self.last[stage] = result
             return result
 
         setattr(owner, attr, timed)
@@ -291,15 +453,20 @@ def _paint(bed_path, n, names):
     return out
 
 
-def phase_end_to_end(work, rng, n, region, small, device="cuda"):
+def _region_bed(work, name, lo, hi):
+    path = os.path.join(work, name)
+    with open(path, "w") as fh:
+        fh.write(f"chr1\t{lo}\t{hi}\n")
+    return path
+
+
+def phase_end_to_end(work, xml, truth_bed, truth, region, small,
+                     device="cuda"):
     from tehmm_tpu_torch.cli import eval as port_eval
     from tehmm_tpu_torch.cli import train as port_train
     from tehmm_tpu_torch.models.hmm import MultitrackHmm
 
-    t0 = time.perf_counter()
-    xml, truth_bed, truth = make_dataset(work, rng, n)
-    print(f"[e2e] dataset: {n} positions, {T} tracks, "
-          f"{time.perf_counter() - t0:.1f} s to write", flush=True)
+    n = len(truth)
     regions = os.path.join(work, "regions.bed")
     with open(regions, "w") as fh:
         fh.write(f"chr1\t0\t{n}\n")
@@ -311,7 +478,7 @@ def phase_end_to_end(work, rng, n, region, small, device="cuda"):
     stages.wrap(MultitrackHmm, "supervised", "train: count + M-step")
     stages.wrap(MultitrackHmm, "save", "train: save")
     stages.wrap(port_eval, "load_track_data", "eval: load")
-    stages.wrap(MultitrackHmm, "decode_tables", "eval: decode")
+    stages.wrap(MultitrackHmm, "decode_tables", "eval: decode", keep=True)
     stages.wrap(port_eval, "path_log_score", "eval: path score")
     stages.wrap(port_eval, "write_bed_intervals", "eval: write")
     try:
@@ -377,6 +544,197 @@ def phase_end_to_end(work, rng, n, region, small, device="cuda"):
     return acc
 
 
+def _em_log(path):
+    with open(path) as fh:
+        return [json.loads(line) for line in fh]
+
+
+def _majority_accuracy(decoded, truth, n_learned):
+    """Base accuracy after mapping each learned state to the planted
+    state it covers most."""
+    counts = np.zeros((n_learned, S), np.int64)
+    np.add.at(counts, (decoded.astype(np.int64), truth.astype(np.int64)), 1)
+    return float(counts.max(axis=1).sum() / len(truth))
+
+
+def phase_em(work, xml, truth, seed, device="cuda"):
+    """3b: unsupervised EM through the CLI on the whole chromosome, K1
+    against its plain version at this run's shape, then the decode of
+    the learned model.  Returns (the training run's launch counts, K1's
+    errors at this shape)."""
+    import torch
+
+    from tehmm_tpu_torch.cli import eval as port_eval
+    from tehmm_tpu_torch.cli import train as port_train
+    from tehmm_tpu_torch.models import hmm as port_hmm
+    from tehmm_tpu_torch.ops import cuda_kernels as ck
+    from tehmm_tpu_torch.ops import em as port_em
+
+    n = len(truth)
+    regions = _region_bed(work, "em_regions.bed", 0, n)
+    model = os.path.join(work, "em_model.npz")
+    log = os.path.join(work, "em_log.jsonl")
+    out_bed = os.path.join(work, "em_decoded.bed")
+    stages = _Stages()
+    stages.wrap(port_train, "load_track_data", "load")
+    stages.wrap(port_hmm, "batch_chunks", "chunk batching")
+    stages.wrap(port_hmm, "_stage", "stage batch (H2D)", sync=True,
+                keep=True)
+    stages.wrap(port_em, "em_sufficient_stats", "E-step (K1)", sync=True)
+    stages.wrap(ck, "em_fwd", "  of which em_fwd", sync=True)
+    stages.wrap(ck, "em_bwd_stats", "  of which em_bwd_stats", sync=True)
+    stages.wrap(port_em, "em_m_step", "M-step", sync=True)
+    stages.wrap(port_hmm.MultitrackHmm, "save", "save")
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        t0 = time.perf_counter()
+        _run_cli(port_train, [
+            xml, regions, model, "--numStates", str(EM_STATES),
+            "--iter", str(EM_ITERS), "--chunk", str(EM_CHUNK),
+            "--seed", str(seed), "--device", device, "--logJson", log,
+        ])
+        t_train = time.perf_counter() - t0
+    finally:
+        stages.restore()
+    launches = dict(ck.LAUNCHES)        # the training run's own launches
+    peak = torch.cuda.max_memory_allocated() / 1e6
+    lls = [r["loglik"] for r in _em_log(log)]
+    assert lls and np.isfinite(lls).all(), f"non-finite loglik: {lls}"
+    for i, (a, b) in enumerate(zip(lls, lls[1:])):
+        assert b >= a - 1e-4 * abs(a), \
+            f"loglik fell at iteration {i + 1}: {a} -> {b}"
+    print(f"[em] {n} positions, {EM_STATES} states, chunk {EM_CHUNK}: "
+          f"{len(lls)} logged iterations, loglik {lls[0]:.6g} -> "
+          f"{lls[-1]:.6g} (non-decreasing within 1e-4 |loglik|)",
+          flush=True)
+    print(f"[em] loglik trace: {lls}", flush=True)
+    k1_err = _k1_at_em_shape(model, stages.last["stage batch (H2D)"][0],
+                             np.random.RandomState(seed))
+
+    t0 = time.perf_counter()
+    _run_cli(port_eval, [xml, model, regions, "--bed", out_bed,
+                         "--device", device])
+    t_eval = time.perf_counter() - t0
+    names = port_hmm.MultitrackHmm.load(model, "cpu").state_names
+    decoded = _paint(out_bed, n, names)
+    acc = _majority_accuracy(decoded, truth, len(names))
+    print(f"[em] decoded with eval --bed: base accuracy {acc:.6f} after "
+          f"mapping each learned state to its majority planted state",
+          flush=True)
+    e_steps = stages.calls["E-step (K1)"]
+    per_iter = (stages.seconds["E-step (K1)"]
+                + stages.seconds["M-step"]) / max(e_steps, 1)
+    print("[em] stage                    seconds", flush=True)
+    for stage, sec in stages.seconds.items():
+        print(f"[em] {stage:24s} {sec:9.3f}  ({stages.calls[stage]} calls)",
+              flush=True)
+    print(f"[em] {'E-step + M-step / iter':24s} {per_iter:9.4f}",
+          flush=True)
+    print(f"[em] {'train CLI total':24s} {t_train:9.3f}", flush=True)
+    print(f"[em] {'eval CLI total':24s} {t_eval:9.3f}", flush=True)
+    print(f"[em] peak device memory allocated during training: "
+          f"{peak:.1f} MB", flush=True)
+    return launches, k1_err
+
+
+def _k1_at_em_shape(model_path, symbols, rng, rows=K1_EM_ROWS):
+    """K1 against its plain version at the EM run's own shape: the
+    learned model on the first ``rows`` staged rows (chunks of
+    EM_CHUNK), with ragged lengths.  Each warp sums up to EM_CHUNK
+    positions into its float32 statistics."""
+    import torch
+
+    from tehmm_tpu_torch.models.hmm import MultitrackHmm
+
+    p = MultitrackHmm.load(model_path, "cuda").params
+    sym = symbols[:rows].contiguous()
+    B, L, T = sym.shape
+    lengths = rng.randint(0, L + 1, size=B).astype(np.int32)
+    lengths[:4] = [L, 0, 1, 2]
+    lens = torch.from_numpy(lengths).to(sym.device)
+    err, once = _k1_against_plain(p, sym, lens)
+    S, _T, V = p.log_em.shape
+    print(f"[em] K1 at this run's shape (learned model, S={S} T={T} V={V}, "
+          f"{B} rows of L={L}, ragged): within tolerance of the plain "
+          f"version, repeat runs bit-identical", flush=True)
+    for name in EM_KERNELS:
+        print(f"[em] {name:22s} max_abs_err {err[name]:.3g}  kernel "
+              f"{once[name]:10.3f} ms  plain {once[name + ' plain']:10.3f} "
+              f"ms (one call each)", flush=True)
+    return err
+
+
+def phase_em_card_vs_cpu(work, xml, n, region, seed, device="cuda"):
+    """3c: the same EM on the card (K1) and on the CPU (plain torch)."""
+    from tehmm_tpu_torch.cli import eval as port_eval
+    from tehmm_tpu_torch.cli import train as port_train
+    from tehmm_tpu_torch.ops import cuda_kernels as ck
+
+    lo = n // 2
+    bed = _region_bed(work, "em_small.bed", lo, lo + region)
+    runs = {}
+    for dev in (device, "cpu"):
+        model = os.path.join(work, f"em_small_{dev}.npz")
+        log = os.path.join(work, f"em_small_{dev}.jsonl")
+        t0 = time.perf_counter()
+        _run_cli(port_train, [xml, bed, model, "--iter", "5", "--chunk",
+                              "4096", "--seed", str(seed), "--numStates",
+                              str(EM_STATES), "--device", dev,
+                              "--logJson", log])
+        wall = time.perf_counter() - t0
+        out = os.path.join(work, f"em_small_{dev}.bed")
+        _run_cli(port_eval, [xml, model, bed, "--bed", out,
+                             "--device", dev])
+        runs[dev] = (np.load(model), _em_log(log), out)
+        print(f"[em-small] {region}-position region on {dev}: train CLI "
+              f"{wall:.2f} s", flush=True)
+    (gz, glog, gbed), (cz, clog, cbed) = runs[device], runs["cpu"]
+    assert len(glog) == len(clog), (len(glog), len(clog))
+    g_ll = np.asarray([r["loglik"] for r in glog])
+    c_ll = np.asarray([r["loglik"] for r in clog])
+    rel = float(np.max(np.abs(g_ll - c_ll) / np.abs(c_ll)))
+    assert rel <= 1e-5, f"card and CPU logliks differ by {rel} relative"
+    prob_err = max(float(np.abs(np.exp(gz[k]) - np.exp(cz[k])).max())
+                   for k in ("log_start", "log_trans", "log_em"))
+    assert prob_err <= 1e-4, f"card and CPU probabilities differ by " \
+        f"{prob_err}"
+    names = [str(i) for i in range(EM_STATES)]
+    g_path = _paint_region(gbed, lo, region, names)
+    c_path = _paint_region(cbed, lo, region, names)
+    agree = float((g_path == c_path).mean())
+    assert agree >= 0.999, f"card and CPU BED agree on {agree} of bases"
+    print(f"[em-small] card vs CPU: {len(glog)} iterations each, loglik "
+          f"rel err {rel:.3g}, probability abs err {prob_err:.3g}, BED "
+          f"agrees on {agree:.6f} of bases", flush=True)
+
+    # two restarts on the card: K1 runs for each, every E-step
+    ck.reset_launch_counts()
+    log = os.path.join(work, "em_reps.jsonl")
+    _run_cli(port_train, [xml, bed, os.path.join(work, "em_reps.npz"),
+                          "--iter", "3", "--chunk", "4096", "--seed",
+                          str(seed), "--numStates", str(EM_STATES),
+                          "--reps", "2", "--device", device,
+                          "--logJson", log])
+    logged = len(_em_log(log))
+    fwd, bwd = ck.LAUNCHES["em_fwd"], ck.LAUNCHES["em_bwd_stats"]
+    assert fwd == bwd and fwd in (2 * logged, 2 * (logged + 1)), \
+        f"--reps 2: {fwd}/{bwd} K1 launches for {logged} iterations"
+    print(f"[em-small] --reps 2 on the card: {fwd} em_fwd and {bwd} "
+          f"em_bwd_stats launches over {logged} logged iterations "
+          f"(one pair per restart per E-step)", flush=True)
+    return rel, prob_err, agree
+
+
+def _paint_region(bed_path, lo, n, names):
+    from tehmm_tpu.io import read_bed_intervals
+
+    out = np.full(n, -1, np.int16)
+    for _chrom, s, e, name in read_bed_intervals(bed_path, ncol=4):
+        out[s - lo:e - lo] = names.index(name)
+    assert (out >= 0).all(), f"{bed_path} does not tile the region"
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -396,27 +754,47 @@ def main(argv=None) -> int:
           f"{torch.version.cuda}", flush=True)
     t0 = time.perf_counter()
     ck.load_library()
-    print(f"[build] {SOURCE}: {time.perf_counter() - t0:.2f} s "
-          f"-> {ck.library_path()}", flush=True)
+    print(f"[build] {len(ck.SOURCES)} sources: "
+          f"{time.perf_counter() - t0:.2f} s -> {ck.library_path()}",
+          flush=True)
 
     rng = np.random.RandomState(args.seed)
     kernels = phase_kernels(device, rng)
+    kernels.update(phase_k1(device, rng))
 
-    ck.reset_launch_counts()
-    torch.cuda.reset_peak_memory_stats()
+    n = 20_000_000
     with tempfile.TemporaryDirectory(prefix="tehmm_chip_smoke_") as work:
-        phase_end_to_end(work, rng, 20_000_000, 1_000_000, 20_000)
-    launches = dict(ck.LAUNCHES)
-    print(f"[e2e] peak device memory allocated: "
-          f"{torch.cuda.max_memory_allocated() / 1e6:.1f} MB", flush=True)
-    print(f"[launches] main path: {launches}", flush=True)
-    missing = [k for k, n in launches.items() if n == 0]
-    assert not missing, f"kernels never launched on the main path: {missing}"
+        t0 = time.perf_counter()
+        xml, truth_bed, truth = make_dataset(work, rng, n)
+        print(f"[e2e] dataset: {n} positions, {T} tracks, "
+              f"{time.perf_counter() - t0:.1f} s to write", flush=True)
+
+        ck.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        phase_end_to_end(work, xml, truth_bed, truth, 1_000_000, 20_000)
+        decode_launches = dict(ck.LAUNCHES)
+        print(f"[e2e] peak device memory allocated: "
+              f"{torch.cuda.max_memory_allocated() / 1e6:.1f} MB",
+              flush=True)
+
+        ck.reset_launch_counts()
+        em_launches, k1_em_err = phase_em(work, xml, truth, args.seed)
+        for name, e in k1_em_err.items():
+            kernels[name]["max_abs_err_em_run_shape"] = e
+
+        phase_em_card_vs_cpu(work, xml, n, 50_000, args.seed)
+    print(f"[launches] decode path (phase 3): {decode_launches}",
+          flush=True)
+    print(f"[launches] EM path (phase 3b): {em_launches}", flush=True)
+    launches = {k: decode_launches[k] for k in DECODE_KERNELS}
+    launches.update({k: em_launches[k] for k in EM_KERNELS})
+    missing = [k for k, c in launches.items() if c == 0]
+    assert not missing, f"kernels never launched on their path: {missing}"
     assert not any(m.split(".")[0] in ("jax", "jaxlib")
                    for m in sys.modules), "jax was imported"
 
     print(json.dumps({"kernels": [
-        dict(name=name, route="cuda", source=SOURCE,
+        dict(name=name, route="cuda", source=SOURCES[name],
              replaces=REPLACES[name], launches=launches[name], **r)
         for name, r in kernels.items()
     ]}))

@@ -101,7 +101,7 @@ def main(argv=None) -> int:
     if opts.bed is None:
         raise SystemExit(
             f"scoring without --bed is not ported to tehmm_tpu_torch yet "
-            f"({up.SLICE_EM})"
+            f"({up.SLICE_POST})"
         )
     set_logging_from_options(opts)
     device = resolve_device(opts.device)

@@ -9,8 +9,9 @@ from __future__ import annotations
 
 import argparse
 
-SLICE_EM = "ROADMAP Queue 1, slice 2: unsupervised EM + K1"
-SLICE_POST = "ROADMAP Queue 1, slice 3: max-posterior decoding + K4"
+SLICE_POST = (
+    "ROADMAP Queue 1, slice 3: max-posterior decoding and scoring + K4"
+)
 SLICE_SEGMENT = (
     "ROADMAP Queue 1, slice 4: gaussian tracks and segment weights"
 )

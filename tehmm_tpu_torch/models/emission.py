@@ -20,6 +20,8 @@ import torch
 
 from tehmm_tpu.utils.common import EPSILON
 
+_COUNT_BLOCK = 1 << 16     # positions per one-hot block of the counts
+
 
 def track_log_likelihoods(log_em: torch.Tensor,
                           symbols: torch.Tensor) -> torch.Tensor:
@@ -30,6 +32,51 @@ def track_log_likelihoods(log_em: torch.Tensor,
     for t in range(1, T):
         obs = obs + log_em[:, t, :].T[sym[..., t]]
     return obs
+
+
+def expected_emission_counts(
+    log_em_shape: tuple[int, int, int],
+    symbols: torch.Tensor,
+    gamma: torch.Tensor,
+    valid: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Posterior-weighted symbol counts for the M-step:
+    counts[s, t, v] = sum_l gamma[l, s] * [x[l, t] == v], summed over
+    every leading batch dim.
+
+    As in the JAX package, a gamma^T @ one-hot product, taken over
+    blocks of ``_COUNT_BLOCK`` positions so the one-hot stays small: the
+    matrix product sums in blocks, where a scatter-add would pile
+    millions of adds into one float32 accumulator per cell.
+
+    symbols int[..., L, T]; gamma f32[..., L, S]; valid optional
+    bool/f32[..., L] mask.  Returns f32[S, T, V]."""
+    S, T, V = log_em_shape
+    if valid is not None:
+        gamma = gamma * valid[..., None].to(gamma.dtype)
+    g = gamma.reshape(-1, S)
+    sym = symbols.reshape(-1, T).long()
+    counts = torch.zeros((S, T * V), dtype=torch.float32,
+                         device=gamma.device)
+    for lo in range(0, g.shape[0], _COUNT_BLOCK):
+        oh = torch.nn.functional.one_hot(sym[lo:lo + _COUNT_BLOCK], V)
+        counts += g[lo:lo + _COUNT_BLOCK].T \
+            @ oh.reshape(-1, T * V).to(torch.float32)
+    return counts.reshape(S, T, V)
+
+
+def supervised_emission_counts(
+    log_em_shape: tuple[int, int, int],
+    symbols: torch.Tensor,
+    states: torch.Tensor,
+    valid: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Hard-label symbol counts: EM counts with a one-hot gamma of the
+    int[..., L] ``states``."""
+    gamma = torch.nn.functional.one_hot(
+        states.long(), log_em_shape[0]
+    ).to(torch.float32)
+    return expected_emission_counts(log_em_shape, symbols, gamma, valid)
 
 
 def normalize_log_em(

@@ -1,21 +1,30 @@
-"""MultitrackHmm: the user-facing model API (supervised training,
-Viterbi decoding, persistence).
+"""MultitrackHmm: the user-facing model API (training, Viterbi
+decoding, persistence).
 
-Counterpart of part of ``tehmm_tpu/models/hmm.py``: the constructor,
-``supervised``, ``decode_tables``, ``decode_to_bed``, ``save`` and
-``load``, plus the NumPy helpers ``path_log_score``,
-``path_to_intervals``, ``label_tables`` and ``_labeled_runs`` (copied,
-because the original module imports JAX).  Supervised counting stays
-host-side, through the shared native counters; only the M-step and the
-decode touch the device.
+Counterpart of part of ``tehmm_tpu/models/hmm.py``: the constructors
+(``initialized``, ``supervised``), Baum-Welch EM (``fit``, and
+``fit_restarts`` for random restarts), ``decode_tables``,
+``decode_to_bed``, ``save`` and ``load``, plus the NumPy helpers
+``path_log_score``, ``path_to_intervals``, ``label_tables`` and
+``_labeled_runs`` (copied, because the original module imports JAX).
+Supervised counting stays host-side, through the shared native counters.
 
-Unsupervised EM (``fit``, ``fit_restarts``), posterior decoding,
-scoring and gaussian tracks are later slices of the port (ROADMAP,
+EM stages the chunked training batch on the model's device (int32
+symbols) once, or streams host pass-blocks when it exceeds the device
+budget; on the card every E-step runs through K1.  The fit loop keeps
+the reference's lagged convergence check, so both packages take the
+same E/M steps and log the same logliks.
+
+Posterior decoding, scoring, gaussian tracks, the mesh and the
+train -> decode staging cache are later slices of the port (ROADMAP,
 Queue 1).
 """
 
 from __future__ import annotations
 
+import dataclasses
+import os
+import time
 from typing import Sequence
 
 import numpy as np
@@ -25,14 +34,108 @@ from tehmm_tpu import native
 from tehmm_tpu.io.category import CategoryMap
 from tehmm_tpu.io.trackdata import TrackData, TrackTable
 from tehmm_tpu.io.trackxml import TrackList
-from tehmm_tpu.utils.common import EPSILON
-from tehmm_tpu_torch.models.params import HmmParams, load_model, save_model
+from tehmm_tpu.utils.common import EPSILON, JsonlMetrics, logger
+from tehmm_tpu_torch.models.params import (
+    HmmParams,
+    init_flat,
+    init_random,
+    load_model,
+    save_model,
+)
 from tehmm_tpu_torch.ops import em as em_ops
+from tehmm_tpu_torch.parallel.chunking import batch_chunks, plan_chunks
 from tehmm_tpu_torch.parallel.stitch import StitchReport, viterbi_chunked
 
 _GAUSS_ITEM = (
     "ROADMAP Queue 1, slice 4: gaussian tracks and segment weights"
 )
+
+# E-step pass budget: positions per E-step call.  The plain E-step holds
+# several [B, L, S] tensors per pass (~400 bytes/position at S=20); K1
+# holds only alpha_p, dm, m_raw and the symbols, so its passes can be
+# much larger.  Module-level so tests and tight deployments can tune it.
+_MAX_PASS_POSITIONS = 4 << 20
+_MAX_PASS_POSITIONS_FUSED = 32 << 20
+
+
+def _env_int(name: str) -> int | None:
+    """Integer env var accepting float forms ('40e9'); unset/empty ->
+    None; anything else -> an error naming the variable."""
+    v = os.environ.get(name, "").strip()
+    if not v:
+        return None
+    try:
+        return int(float(v))
+    except ValueError:
+        raise ValueError(
+            f"{name}={v!r} is not a number (examples: 8589934592, 40e9)"
+        ) from None
+
+
+def _device_input_budget(device: torch.device) -> int:
+    """Byte budget for staging the training inputs on ``device``:
+    ``TEHMM_MAX_DEVICE_BYTES``, else 40% of the card's memory (the rest
+    is the E-step's working set), else 6 GiB on the CPU.  Larger inputs
+    train identically through host-streamed pass blocks."""
+    env = _env_int("TEHMM_MAX_DEVICE_BYTES")
+    if env is not None:
+        return env
+    if device.type == "cuda":
+        _free, total = torch.cuda.mem_get_info(device)
+        return int(total * 0.4)
+    return 6 << 30
+
+
+def _make_host_passes(symbols: np.ndarray, lengths: np.ndarray,
+                      rows_per_pass: int) -> list[tuple]:
+    """Host (NumPy) pass blocks of ``rows_per_pass`` rows for inputs
+    too large to stage: the last one zero-padded (padded rows have
+    length 0), uploaded one at a time by the fit loop."""
+    n_rows = symbols.shape[0]
+    rows_per_pass = min(rows_per_pass, n_rows)
+    blocks = []
+    for lo in range(0, n_rows, rows_per_pass):
+        hi = min(lo + rows_per_pass, n_rows)
+        pad = rows_per_pass - (hi - lo)
+        blocks.append(tuple(
+            a[lo:hi] if pad == 0 else np.concatenate(
+                [a[lo:hi], np.zeros((pad,) + a.shape[1:], a.dtype)])
+            for a in (symbols, lengths)
+        ))
+    return blocks
+
+
+def _make_passes(symbols: torch.Tensor, lengths: torch.Tensor,
+                 rows_per_pass: int):
+    """The staged batch cut into pass blocks of ``rows_per_pass`` rows
+    (zero-padded rows have length 0): (sym[P, r, L, T], len[P, r]), or
+    None when one pass suffices."""
+    n_rows = symbols.shape[0]
+    if n_rows <= rows_per_pass:
+        return None
+    P = -(-n_rows // rows_per_pass)
+    pad = P * rows_per_pass - n_rows
+    sym_p = torch.nn.functional.pad(symbols, (0, 0, 0, 0, 0, pad))
+    len_p = torch.nn.functional.pad(lengths, (0, pad))
+    return (sym_p.reshape(P, rows_per_pass, *symbols.shape[1:]),
+            len_p.reshape(P, rows_per_pass))
+
+
+def _stage(batch, device: torch.device):
+    """int32 symbols [rows, L, T] and lengths [rows] on ``device``."""
+    symbols = torch.from_numpy(
+        np.ascontiguousarray(batch.symbols, np.int32)).to(device)
+    lengths = torch.from_numpy(
+        np.ascontiguousarray(batch.lengths, np.int32)).to(device)
+    return symbols, lengths
+
+
+@dataclasses.dataclass
+class FitResult:
+    logliks: list[float]
+    iterations: int
+    converged: bool
+    wall_seconds: float
 
 
 class MultitrackHmm:
@@ -57,6 +160,47 @@ class MultitrackHmm:
             )
 
     # ------------------------------------------------------------------
+    @property
+    def num_states(self) -> int:
+        return self.params.num_states
+
+    @property
+    def alphabet_sizes(self) -> list[int]:
+        return [len(self.category_maps[t.name]) for t in self.track_list]
+
+    def state_index(self, name: str) -> int:
+        return self.state_names.index(name)
+
+    # ------------------------------------------------------------------
+    @classmethod
+    def initialized(
+        cls,
+        num_states: int,
+        track_data: TrackData,
+        device: str | torch.device,
+        init: str = "flat",
+        seed: int = 0,
+        rand_range: tuple[float, float] = (0.1, 0.9),
+        state_names: list[str] | None = None,
+    ) -> "MultitrackHmm":
+        """Fresh model over loaded track data (``--flatEm``, or random
+        emissions from ``numpy.random.RandomState(seed)`` as in the JAX
+        package)."""
+        if track_data.gauss_track_indices:
+            raise NotImplementedError(
+                f"gaussian tracks are not ported yet ({_GAUSS_ITEM})"
+            )
+        sizes = track_data.alphabet_sizes
+        if init == "flat":
+            params = init_flat(num_states, sizes, device)
+        elif init == "random":
+            params = init_random(num_states, sizes, seed, device,
+                                 rand_range)
+        else:
+            raise ValueError(f"unknown init {init!r}")
+        return cls(params, track_data.track_list, track_data.category_maps,
+                   state_names)
+
     @classmethod
     def supervised(
         cls,
@@ -126,11 +270,168 @@ class MultitrackHmm:
             start=f32(start_c), trans=f32(trans_c), em=f32(em_c),
             loglik=f32(0.0), n_obs=f32(float(n_pos)),
         )
-        params = em_ops.em_m_step(stats, sizes, epsilon=epsilon)
+        params = em_ops.em_m_step(stats, init_flat(S, sizes, device),
+                                  sizes, epsilon=epsilon)
         return cls(
             params, track_data.track_list, track_data.category_maps,
             state_names,
         )
+
+    # ------------------------------------------------------------------
+    # unsupervised / semi-supervised EM
+    # ------------------------------------------------------------------
+    def fit(
+        self,
+        tables: Sequence[TrackTable],
+        max_iterations: int = 100,
+        convergence_tol: float = 1e-3,
+        masks: em_ops.ParamMasks | None = None,
+        epsilon: float = EPSILON,
+        chunk_len: int = 1 << 14,
+        metrics: JsonlMetrics | None = None,
+        checkpoint_path: str | None = None,
+        checkpoint_every: int = 10,
+        obs_weight_arrays: Sequence[np.ndarray] | None = None,
+        device_loop: bool = False,
+        max_device_bytes: int | None = None,
+    ) -> FitResult:
+        """Baum-Welch EM on the model's device.
+
+        Tables are cut into independent chunks of ``chunk_len``.  The
+        batch is staged once (or, past ``max_device_bytes`` — default
+        ``_device_input_budget`` — streamed as host pass blocks) and cut
+        into pass blocks; each E-step sums the blocks' statistics.
+        ``device_loop`` runs ``ops.em.em_run`` over the whole batch (no
+        per-iteration logging or checkpoints).
+
+        Iteration i's loglik is logged and checked only after iteration
+        i+1's E- and M-step, exactly as the JAX package's pipelined loop
+        does, so the model returned has had one M-step more than its
+        last logged loglik when EM converges."""
+        if obs_weight_arrays is not None:
+            raise NotImplementedError(
+                f"segment weights are not ported yet ({_GAUSS_ITEM})"
+            )
+        device = self.params.device
+        mats = [t.symbols for t in tables]
+        chunks = plan_chunks([len(m) for m in mats], chunk_len, halo=0)
+        batch = batch_chunks(mats, chunks)
+        sizes = self.alphabet_sizes
+        n_rows, Lr = batch.symbols.shape[:2]
+        n_positions = int(batch.lengths.sum())
+        logliks: list[float] = []
+        converged = False
+        t0 = time.time()
+
+        pass_positions = (_MAX_PASS_POSITIONS_FUSED if device.type == "cuda"
+                          else _MAX_PASS_POSITIONS)
+        rows_per_pass = max(1, pass_positions // max(Lr, 1))
+        staged_bytes = n_rows * Lr * batch.symbols.shape[2] * 4   # int32
+        budget = (max_device_bytes if max_device_bytes is not None
+                  else _device_input_budget(device))
+        host_passes = passes = symbols = lengths = None
+        if not device_loop and staged_bytes > budget:
+            bytes_per_row = max(1, staged_bytes // max(n_rows, 1))
+            rows_per_pass = max(1, min(
+                rows_per_pass, int(budget // (2 * bytes_per_row))))
+            host_passes = _make_host_passes(
+                np.ascontiguousarray(batch.symbols, np.int32),
+                batch.lengths, rows_per_pass,
+            )
+            logger.info(
+                "training inputs (%.2f GB) exceed the device staging "
+                "budget — streaming %d host pass-blocks per iteration",
+                staged_bytes / 1e9, len(host_passes),
+            )
+        else:
+            stage_t0 = time.time()
+            symbols, lengths = _stage(batch, device)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            stage_dt = time.time() - stage_t0
+            logger.info(
+                "staged %.2f GB of training inputs in %.1fs (%.2f GB/s "
+                "H2D)", staged_bytes / 1e9, stage_dt,
+                staged_bytes / 1e9 / max(stage_dt, 1e-9),
+            )
+            if not device_loop:
+                passes = _make_passes(symbols, lengths, rows_per_pass)
+
+        if device_loop:
+            new_params, hist, n = em_ops.em_run(
+                self.params, symbols, sizes, lengths,
+                max_iterations=max_iterations,
+                convergence_tol=convergence_tol, masks=masks,
+                epsilon=epsilon,
+            )
+            self.params = new_params
+            logliks = [float(x) for x in hist[:n].cpu()]
+            wall = time.time() - t0
+            logger.info(
+                "EM device loop: %d iters in %.2fs (%.3g pos/s), final "
+                "loglik %.4f", n, wall, n * n_positions / max(wall, 1e-9),
+                logliks[-1] if logliks else float("nan"),
+            )
+            if metrics is not None:
+                for i, ll in enumerate(logliks):
+                    metrics.write(iter=i, loglik=ll)
+            if checkpoint_path:
+                self.save(checkpoint_path, extra={"iteration": n - 1})
+            return FitResult(logliks=logliks, iterations=n,
+                             converged=n < max_iterations,
+                             wall_seconds=wall)
+
+        def estep() -> em_ops.EmStats:
+            if host_passes is not None:
+                blocks = (tuple(torch.from_numpy(a).to(device) for a in blk)
+                          for blk in host_passes)
+            elif passes is not None:
+                blocks = zip(passes[0], passes[1])
+            else:
+                blocks = [(symbols, lengths)]
+            stats = None
+            for sym_b, len_b in blocks:
+                s = em_ops.em_sufficient_stats(self.params, sym_b, len_b)
+                stats = s if stats is None else stats + s
+            return stats
+
+        pending = None  # (iter_idx, device loglik, dispatch time)
+
+        def drain() -> bool:
+            nonlocal converged
+            if pending is None:
+                return False
+            it, dev_ll, dispatch_t0 = pending
+            ll = float(dev_ll)
+            logliks.append(ll)
+            wall = time.time() - dispatch_t0
+            logger.info("EM iter %d: loglik %.4f (%.2fs, %.3g pos/s)",
+                        it, ll, wall, n_positions / max(wall, 1e-9))
+            if metrics is not None:
+                metrics.write(
+                    iter=it, loglik=ll, wall=wall,
+                    positions_per_sec=n_positions / max(wall, 1e-9),
+                )
+            if len(logliks) >= 2 and \
+                    abs(logliks[-1] - logliks[-2]) < convergence_tol:
+                converged = True
+            return converged
+
+        for it in range(max_iterations):
+            it_t0 = time.time()
+            stats = estep()
+            self.params = em_ops.em_m_step(stats, self.params, sizes, masks,
+                                           epsilon)
+            if drain():  # the previous iteration's loglik
+                break
+            pending = (it, stats.loglik, it_t0)
+            if checkpoint_path and (it + 1) % checkpoint_every == 0:
+                self.save(checkpoint_path, extra={"iteration": it})
+        if not converged:
+            drain()
+        return FitResult(logliks=logliks, iterations=len(logliks),
+                         converged=converged,
+                         wall_seconds=time.time() - t0)
 
     # ------------------------------------------------------------------
     def decode_tables(
@@ -197,6 +498,101 @@ class MultitrackHmm:
         model = cls(params, track_list, maps, meta["state_names"])
         model.extra = meta.get("extra", {})
         return model
+
+
+def fit_restarts(
+    models: Sequence[MultitrackHmm],
+    tables: Sequence[TrackTable],
+    max_iterations: int = 100,
+    convergence_tol: float = 1e-3,
+    masks: em_ops.ParamMasks | None = None,
+    epsilon: float = EPSILON,
+    chunk_len: int = 1 << 14,
+    metrics: JsonlMetrics | None = None,
+    obs_weight_arrays: Sequence[np.ndarray] | None = None,
+) -> tuple[int, list[FitResult]]:
+    """EM over R restarts sharing one staged batch: each iteration runs
+    R E-steps (on the card, R K1 launch pairs per pass block) and R
+    M-steps, one per restart.  The same lagged convergence check
+    as ``fit``; converged when every restart's |delta loglik| < tol.
+
+    Each model gets its restart's parameters back.  Returns
+    (index of the best final loglik, per-restart FitResults)."""
+    if obs_weight_arrays is not None:
+        raise NotImplementedError(
+            f"segment weights are not ported yet ({_GAUSS_ITEM})"
+        )
+    R = len(models)
+    device = models[0].params.device
+    mats = [t.symbols for t in tables]
+    chunks = plan_chunks([len(m) for m in mats], chunk_len, halo=0)
+    batch = batch_chunks(mats, chunks)
+    symbols, lengths = _stage(batch, device)
+    sizes = models[0].alphabet_sizes
+    params = [m.params for m in models]
+    # pass blocks: R restarts' E-steps per block
+    Lr = symbols.shape[1]
+    budget = (_MAX_PASS_POSITIONS_FUSED if device.type == "cuda"
+              else _MAX_PASS_POSITIONS)
+    rows_per_pass = max(1, budget // max(Lr, 1) // R)
+    passes = _make_passes(symbols, lengths, rows_per_pass)
+    blocks = [(symbols, lengths)] if passes is None \
+        else list(zip(passes[0], passes[1]))
+
+    t0 = time.time()
+    hist: list[np.ndarray] = []          # per-iteration f32[R]
+    n_positions = int(batch.lengths.sum())
+    pending = None
+
+    def drain() -> bool:
+        if pending is None:
+            return False
+        it, dev_ll, it_t0 = pending
+        ll = dev_ll.cpu().numpy()
+        hist.append(ll)
+        wall = time.time() - it_t0
+        logger.info(
+            "EM[reps=%d] iter %d: best loglik %.4f (%.2fs, %.3g pos/s "
+            "aggregate)", R, it, float(ll.max()), wall,
+            R * n_positions / max(wall, 1e-9),
+        )
+        if metrics is not None:
+            metrics.write(iter=it, logliks=[float(x) for x in ll],
+                          wall=wall)
+        if len(hist) >= 2:
+            return bool(
+                np.all(np.abs(hist[-1] - hist[-2]) < convergence_tol))
+        return False
+
+    converged = False
+    for it in range(max_iterations):
+        it_t0 = time.time()
+        stats = [None] * R
+        for sym_b, len_b in blocks:
+            for r in range(R):
+                s = em_ops.em_sufficient_stats(params[r], sym_b, len_b)
+                stats[r] = s if stats[r] is None else stats[r] + s
+        params = [em_ops.em_m_step(s, p, sizes, masks, epsilon)
+                  for s, p in zip(stats, params)]
+        if drain():
+            converged = True
+            break
+        pending = (it, torch.stack([s.loglik for s in stats]), it_t0)
+    if not converged and drain():
+        converged = True
+
+    wall = time.time() - t0
+    lls = np.stack(hist) if hist else np.zeros((0, R), np.float32)
+    best = int(np.argmax(lls[-1])) if len(lls) else 0
+    for m, p in zip(models, params):
+        m.params = p
+    results = [
+        FitResult(logliks=[float(x) for x in lls[:, r]],
+                  iterations=len(lls), converged=converged,
+                  wall_seconds=wall)
+        for r in range(R)
+    ]
+    return best, results
 
 
 def path_log_score(params: HmmParams, symbols: np.ndarray,

@@ -1,20 +1,24 @@
-"""The decode path's CUDA kernels: build, ctypes binding, wrappers.
+"""The port's CUDA kernels: build, ctypes binding, wrappers.
 
-``csrc/viterbi.cu`` holds three hand-written Hopper kernels that replace
-the TPU kernels the Viterbi decode reaches (see that file's header for
-what bounds each on an H100 and how its design answers it):
+``csrc/`` holds the hand-written Hopper kernels that replace the TPU
+kernels the port's paths reach (see each source's header for what
+bounds each on an H100 and how its design answers it):
 
-  ===================== ============================================
+  ===================== ==============================================
   wrapper               replaces (tehmm_tpu/ops/pallas_kernels.py)
-  ===================== ============================================
+  ===================== ==============================================
   viterbi_fwd           K2 forward, ``_make_viterbi_fwd_kernel_v4``
   viterbi_backtrace     K2 backtrace, ``_viterbi_backtrace_kernel_v4``
   viterbi_chunk_values  K3, ``viterbi_chunk_values_pallas``
   (and viterbi_carry)   (its ``carry_only`` mode)
-  ===================== ============================================
+  em_fwd                K1 forward, ``_make_forward_kernel_v4``
+  em_bwd_stats          K1 reverse, ``_make_bwd_stats_kernel_v4``
+  ===================== ==============================================
 
 ``viterbi_fused`` composes the first two into the symbols-in/path-out
-decode of ``viterbi_fused_pallas_v4``.
+decode of ``viterbi_fused_pallas_v4``; ``em_counts_fused`` composes the
+last two into the symbols-in/statistics-out E-step of
+``em_counts_fused_pallas_v4``.
 
 Each wrapper checks device, dtype, shape and contiguity, and sits beside
 its plain-torch version.  A tensor on the CPU takes the plain version; a
@@ -23,14 +27,16 @@ launch adds one to ``LAUNCHES[name]``, so a run can show that its path
 went through the kernels.
 
 The library is built with ``nvcc`` for ``sm_90a`` at first use, into
-``build/tehmm_tpu_torch/`` beside the package (keyed by a hash of the
-source), and loaded with ctypes.  Nothing is built or imported from a
-CUDA toolchain when this module is imported.
+``build/tehmm_tpu_torch/`` beside the package (keyed by a hash over
+every ``csrc/*.cu``): one ``nvcc -c`` per source, all started together,
+then one link.  It is loaded with ctypes.  Nothing is built or imported
+from a CUDA toolchain when this module is imported.
 """
 
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -39,11 +45,14 @@ import threading
 
 import torch
 
-from tehmm_tpu_torch.models.emission import track_log_likelihoods
+from tehmm_tpu_torch.models.emission import (
+    expected_emission_counts,
+    track_log_likelihoods,
+)
 from tehmm_tpu_torch.ops import dp
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG, "csrc", "viterbi.cu")
+SOURCES = sorted(glob.glob(os.path.join(_PKG, "csrc", "*.cu")))
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "tehmm_tpu_torch")
 
 # Launch counts per kernel (plain integers; reset_launch_counts zeroes).
@@ -51,6 +60,8 @@ LAUNCHES = {
     "viterbi_fwd": 0,
     "viterbi_backtrace": 0,
     "viterbi_chunk_values": 0,
+    "em_fwd": 0,
+    "em_bwd_stats": 0,
 }
 
 # The kernels' envelope: one warp holds a row with up to 8 states per
@@ -61,6 +72,9 @@ _SMEM_LIMIT = 232448
 _WARPS_PER_BLOCK = 4            # kWarpsPerBlock in viterbi.cu
 _ENVELOPE_ITEM = (
     "ROADMAP Queue 2: K2/K3 beyond the shared-memory envelope"
+)
+_K1_ENVELOPE_ITEM = (
+    "ROADMAP Queue 2: K1 beyond the shared-memory envelope"
 )
 
 _lock = threading.Lock()
@@ -87,27 +101,56 @@ def _nvcc() -> str:
 
 
 def library_path() -> str:
-    """Where the build for the current source goes."""
-    with open(SOURCE, "rb") as fh:
-        digest = hashlib.sha256(fh.read()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"viterbi-{digest}.so")
+    """Where the build for the current sources goes."""
+    digest = hashlib.sha256()
+    for src in SOURCES:
+        digest.update(os.path.basename(src).encode() + b"\0")
+        with open(src, "rb") as fh:
+            digest.update(fh.read())
+    return os.path.join(BUILD_DIR,
+                        f"tehmm_cuda-{digest.hexdigest()[:16]}.so")
 
 
 def _build(so_path: str) -> None:
+    """One ``nvcc -c`` per source, run in parallel, then one link; the
+    compilers' output (``-Xptxas -v``: registers, shared memory, spills)
+    goes to ``<library>.log``."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = so_path + f".tmp{os.getpid()}"
-    cmd = [
-        _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-        "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-        "-Xptxas", "-v", "-o", tmp, SOURCE,
-    ]
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+    nvcc = _nvcc()
+    jobs = []
+    for src in SOURCES:
+        obj = f"{tmp}.{os.path.basename(src)}.o"
+        cmd = [
+            nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+            "-O3", "-c", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+            "-o", obj, src,
+        ]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True,
+        )))
+    log, failed = [], []
+    for cmd, _obj, proc in jobs:
+        out, _ = proc.communicate(timeout=900)
+        log.append(" ".join(cmd) + "\n" + out)
+        if proc.returncode != 0:
+            failed.append(f"{cmd[-1]} (exit {proc.returncode}):\n{out}")
+    if not failed:
+        cmd = [nvcc, "-shared", "-o", tmp] + [obj for _c, obj, _p in jobs]
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              timeout=900)
+        log.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed.append(f"link (exit {proc.returncode}):\n"
+                          f"{proc.stderr}")
+    for _c, obj, _p in jobs:
+        if os.path.exists(obj):
+            os.remove(obj)
     with open(so_path + ".log", "w") as fh:
-        fh.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed with exit code {proc.returncode}:\n{proc.stderr}"
-        )
+        fh.write("\n".join(log))
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
     os.replace(tmp, so_path)
 
 
@@ -136,6 +179,14 @@ def load_library() -> ctypes.CDLL:
         lib.tehmm_viterbi_backtrace.argtypes = [
             ptr, ptr, i64, ptr, i64, ptr, ptr, ptr, ptr, i64, i64, i32, ptr,
         ]
+        lib.tehmm_em_fwd.restype = i32
+        lib.tehmm_em_fwd.argtypes = (
+            [ptr] * 8 + [i64, i64, i32, i32, i32, ptr]
+        )
+        lib.tehmm_em_bwd_stats.restype = i32
+        lib.tehmm_em_bwd_stats.argtypes = (
+            [ptr] * 9 + [i64, i64, i32, i32, i32, i32, ptr]
+        )
         _lib = lib
         return lib
 
@@ -169,12 +220,13 @@ def _row_stride(t: torch.Tensor, name: str) -> int:
     return t.stride(0)
 
 
-def _check_envelope(S: int, smem_floats: int, what: str) -> None:
+def _check_envelope(S: int, smem_floats: int, what: str,
+                    item: str = _ENVELOPE_ITEM) -> None:
     if S > MAX_STATES or 4 * smem_floats > _SMEM_LIMIT:
         raise NotImplementedError(
             f"{what}: S={S} needs {4 * smem_floats} bytes of shared "
             f"memory per block (limit {_SMEM_LIMIT}, and S <= "
-            f"{MAX_STATES}); not ported yet ({_ENVELOPE_ITEM})"
+            f"{MAX_STATES}); not ported yet ({item})"
         )
 
 
@@ -419,3 +471,219 @@ def viterbi_fused(log_start, log_trans, log_em, symbols, lengths):
     score = torch.where(nonempty, last.amax(dim=-1) + dm.sum(dim=1), 0.0)
     path = torch.where(nonempty[:, None], path, 0)
     return path, score
+
+
+# ---------------------------------------------------------------------
+# K1: the fused E-step (forward, then reverse sweep with statistics)
+# ---------------------------------------------------------------------
+
+def _k1_smem_floats(S: int, T: int, V: int,
+                    bwd_warps: int = 1) -> tuple[int, int]:
+    """Shared-memory floats per block of (em_fwd, em_bwd_stats): the
+    tables, plus per warp a probability row (forward) or the statistics
+    accumulators and three state rows (reverse, ``bwd_warps`` warps)."""
+    tables = S * S + S * T * V
+    return (tables + S + _WARPS_PER_BLOCK * S,
+            tables + bwd_warps * (S * S + S * T * V + 3 * S))
+
+
+def _k1_bwd_warps(S: int, T: int, V: int) -> int:
+    """Warps per block of em_bwd_stats: 4, 2 or 1, the most whose
+    private statistics fit in shared memory (1 when none fits, and the
+    envelope check then raises)."""
+    for warps in (_WARPS_PER_BLOCK, 2):
+        if 4 * _k1_smem_floats(S, T, V, warps)[1] <= _SMEM_LIMIT:
+            return warps
+    return 1
+
+
+def _check_k1_inputs(log_em, symbols, lengths, **tables) -> torch.device:
+    B, L, T = symbols.shape
+    S, _, V = log_em.shape
+    dev = symbols.device
+    _check(symbols, "symbols", torch.int32, (B, L, T), dev)
+    _check(lengths, "lengths", torch.int32, (B,), dev)
+    _check(log_em, "log_em", torch.float32, (S, T, V), dev)
+    shapes = {"log_start": (S,), "log_trans": (S, S), "alpha": (B, L, S),
+              "m_raw": (B, L)}
+    for name, t in tables.items():
+        _check(t, name, torch.float32, shapes[name], dev)
+    for name, t in (("symbols", symbols), ("lengths", lengths),
+                    ("log_em", log_em), *tables.items()):
+        _check_contiguous(t, name)
+    return dev
+
+
+def em_fwd_plain(log_start, log_trans, log_em, symbols, lengths):
+    """Plain version of ``em_fwd``: K1's probability-space forward as a
+    loop over positions, batched over rows."""
+    obs = track_log_likelihoods(log_em, symbols)              # [B, L, S]
+    B, L, S = obs.shape
+    o_m = obs.amax(dim=-1)
+    obs_p = torch.exp(obs - o_m[..., None])
+    start_p, trans_p = torch.exp(log_start), torch.exp(log_trans)
+    lens = lengths.to(torch.int64)
+    p = torch.ones((B, S), dtype=torch.float32, device=obs.device)
+    alpha = torch.empty((B, L, S), dtype=torch.float32, device=obs.device)
+    dm = torch.empty((B, L), dtype=torch.float32, device=obs.device)
+    m_raw = torch.empty_like(dm)
+    for t in range(L):
+        base = start_p[None, :] if t == 0 else p @ trans_p
+        u = base * obs_p[:, t]
+        m = torch.clamp(u.amax(dim=-1), min=1e-37)
+        valid = t < lens
+        p = torch.where(valid[:, None], u / m[:, None], p)
+        alpha[:, t] = p
+        dm[:, t] = torch.where(valid, torch.log(m) + o_m[:, t], 0.0)
+        m_raw[:, t] = torch.where(valid, m, 1.0)
+    return alpha, dm, m_raw
+
+
+def em_fwd(log_start, log_trans, log_em, symbols, lengths):
+    """K1 forward: (alpha_p f32[B, L, S], dm f32[B, L], m_raw f32[B, L])
+    from int32 symbols [B, L, T] and int32 lengths [B].  Row t of
+    alpha_p is the forward probability row scaled to max 1 (a row of
+    ones for zero-length rows; carried at padding); dm[b, t] is its
+    loglik increment log m + max obs_log (0 at padding) and m_raw[b, t]
+    the scale m itself (1 at padding), which the reverse sweep uses.
+
+    Replaces ``_make_forward_kernel_v4`` (pallas_kernels.py:1777).
+    Bound on an H100: the latency of one dependent step per position (an
+    S x S matrix-vector product from shared memory, two warp max
+    reductions, T table lookups), not bytes or flops.  Design: one warp
+    per row, lane <-> state, exp(trans), log_em and exp(start) in shared
+    memory, obs formed in registers and never written out."""
+    S, T, V = log_em.shape
+    B, L, _T = symbols.shape
+    dev = _check_k1_inputs(log_em, symbols, lengths, log_start=log_start,
+                           log_trans=log_trans)
+    if _device_kind(dev) == "cpu":
+        return em_fwd_plain(log_start, log_trans, log_em, symbols, lengths)
+    _check_envelope(S, _k1_smem_floats(S, T, V)[0], "em_fwd",
+                    _K1_ENVELOPE_ITEM)
+    _check_index_range(symbols, V, "symbols")
+    alpha = torch.empty((B, L, S), dtype=torch.float32, device=dev)
+    dm = torch.empty((B, L), dtype=torch.float32, device=dev)
+    m_raw = torch.empty((B, L), dtype=torch.float32, device=dev)
+    if B == 0 or L == 0:
+        return alpha, dm, m_raw
+    start_p, trans_p = torch.exp(log_start), torch.exp(log_trans)
+    lib = load_library()
+    rc = lib.tehmm_em_fwd(
+        symbols.data_ptr(), lengths.data_ptr(), start_p.data_ptr(),
+        trans_p.data_ptr(), log_em.data_ptr(), alpha.data_ptr(),
+        dm.data_ptr(), m_raw.data_ptr(), B, L, S, T, V, _stream(dev),
+    )
+    _raise_on(rc, lib, "em_fwd")
+    LAUNCHES["em_fwd"] += 1
+    return alpha, dm, m_raw
+
+
+def em_bwd_stats_plain(log_trans, log_em, symbols, lengths, alpha, m_raw):
+    """Plain version of ``em_bwd_stats``: K1's reverse sweep as a loop
+    over positions, batched over rows, then the three contractions."""
+    obs = track_log_likelihoods(log_em, symbols)
+    B, L, S = obs.shape
+    dev = obs.device
+    obs_p = torch.exp(obs - obs.amax(dim=-1, keepdim=True))
+    trans_p = torch.exp(log_trans)
+    lens = lengths.to(torch.int64)
+    b = torch.ones((B, S), dtype=torch.float32, device=dev)
+    gamma = torch.zeros((B, L, S), dtype=torch.float32, device=dev)
+    xn_all = torch.zeros_like(gamma)
+    w_all = torch.zeros((B, L), dtype=torch.float32, device=dev)
+    for p in range(L - 1, -1, -1):
+        valid = p < lens
+        x = obs_p[:, p] * b
+        xm = torch.clamp(x.amax(dim=-1), min=1e-37)
+        xn = x / xm[:, None]
+        ab = alpha[:, p] * b
+        gden = torch.clamp(ab.sum(dim=-1), min=1e-30)
+        gamma[:, p] = torch.where(valid[:, None], ab / gden[:, None], 0.0)
+        z = m_raw[:, p] * gden / xm
+        w_all[:, p] = torch.where(valid, 1.0 / torch.clamp(z, min=1e-30),
+                                  0.0)
+        xn_all[:, p] = xn
+        sb = xn @ trans_p.T
+        nm = torch.clamp(sb.amax(dim=-1), min=1e-37)
+        b = torch.where(valid[:, None], sb / nm[:, None], b)
+    start = gamma[:, 0].sum(dim=0) if L else torch.zeros(S, device=dev)
+    em = expected_emission_counts(tuple(log_em.shape), symbols, gamma)
+    # pair[i, j] = sum over transitions into p >= 1 of
+    # alpha_{p-1}[i] * w_p * xn_p[j]
+    pair = torch.einsum(
+        "bli,blj->ij", alpha[:, :-1] * w_all[:, 1:, None], xn_all[:, 1:]
+    )
+    return start, pair, em
+
+
+def em_bwd_stats(log_trans, log_em, symbols, lengths, alpha, m_raw):
+    """K1 reverse: (start f32[S], pair f32[S, S], em f32[S, T, V]) from
+    the forward's alpha_p and m_raw.  ``pair`` excludes the transition
+    factor: expected transition counts are pair * exp(log_trans).
+
+    Replaces ``_make_bwd_stats_kernel_v4`` (pallas_kernels.py:1931).
+    Bound: as ``em_fwd``, with a second S x S product per position (the
+    pair update) and T scattered shared-memory adds.  Design: one warp
+    per row walking from its last valid position down, obs recomputed
+    from the symbols, each warp's statistics in its own shared-memory
+    accumulators (4, 2 or 1 warps per block, the most that fit); each
+    block writes one partial, summed here over blocks in a fixed order
+    (no atomics: two runs give the same bits)."""
+    S, T, V = log_em.shape
+    B, L, _T = symbols.shape
+    dev = _check_k1_inputs(log_em, symbols, lengths, log_trans=log_trans,
+                           alpha=alpha, m_raw=m_raw)
+    if _device_kind(dev) == "cpu":
+        return em_bwd_stats_plain(log_trans, log_em, symbols, lengths,
+                                  alpha, m_raw)
+    warps = _k1_bwd_warps(S, T, V)
+    _check_envelope(S, _k1_smem_floats(S, T, V, warps)[1], "em_bwd_stats",
+                    _K1_ENVELOPE_ITEM)
+    _check_index_range(symbols, V, "symbols")
+    n_blocks = -(-B // warps)
+    pair = torch.empty((n_blocks, S, S), dtype=torch.float32, device=dev)
+    em = torch.empty((n_blocks, S, T, V), dtype=torch.float32, device=dev)
+    start = torch.empty((n_blocks, S), dtype=torch.float32, device=dev)
+    if B == 0 or L == 0:
+        return start.sum(0), pair.sum(0), em.sum(0)
+    trans_p = torch.exp(log_trans)
+    lib = load_library()
+    rc = lib.tehmm_em_bwd_stats(
+        symbols.data_ptr(), lengths.data_ptr(), trans_p.data_ptr(),
+        log_em.data_ptr(), alpha.data_ptr(), m_raw.data_ptr(),
+        pair.data_ptr(), em.data_ptr(), start.data_ptr(), B, L, S, T, V,
+        warps, _stream(dev),
+    )
+    _raise_on(rc, lib, "em_bwd_stats")
+    LAUNCHES["em_bwd_stats"] += 1
+    return start.sum(0), pair.sum(0), em.sum(0)
+
+
+def _loglik_rows(alpha, dm, lengths):
+    """Per-row loglik: log sum of the last alpha_p row plus the summed
+    increments (one reduction), 0 for zero-length rows."""
+    ll = torch.log(alpha[:, -1].sum(dim=-1)) + dm.sum(dim=1)
+    return torch.where(lengths > 0, ll, 0.0)
+
+
+def em_counts_fused_plain(log_start, log_trans, log_em, symbols, lengths):
+    """Plain version of ``em_counts_fused``."""
+    alpha, dm, m_raw = em_fwd_plain(log_start, log_trans, log_em, symbols,
+                                    lengths)
+    start, pair, em = em_bwd_stats_plain(log_trans, log_em, symbols,
+                                         lengths, alpha, m_raw)
+    return start, pair, em, _loglik_rows(alpha, dm, lengths)
+
+
+def em_counts_fused(log_start, log_trans, log_em, symbols, lengths):
+    """Symbols-in/statistics-out E-step with the JAX signature of
+    ``em_counts_fused_pallas_v4``: (start f32[S], pair f32[S, S],
+    em f32[S, T, V], loglik f32[B]).  The card holds the batch's alpha_p
+    between the two kernels; the finish (sums over blocks, per-row
+    loglik) is a few small torch reductions, as on the TPU."""
+    alpha, dm, m_raw = em_fwd(log_start, log_trans, log_em, symbols,
+                              lengths)
+    start, pair, em = em_bwd_stats(log_trans, log_em, symbols, lengths,
+                                   alpha, m_raw)
+    return start, pair, em, _loglik_rows(alpha, dm, lengths)

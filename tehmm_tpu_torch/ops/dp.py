@@ -1,15 +1,20 @@
-"""Max-plus Viterbi dynamic programming in plain torch.
+"""HMM dynamic programming in plain torch: the scaled forward/backward
+scans and posteriors of the E-step, and max-plus Viterbi.
 
-Counterpart of the Viterbi half of ``tehmm_tpu/ops/dp.py``, step for
-step: the same max-rescaled value carry, the same masking (positions
-``t >= length`` carry the state through and add a zero normalizer) and
-the same first-hit argmax (ties go to the lowest state index).  Every
-operation is an exact float32 max, add or subtract, so fed the same obs
-these functions give the JAX package's value rows and paths bit for bit.
+Counterpart of ``tehmm_tpu/ops/dp.py``, step for step: the same
+max-rescaled carries, the same masking (positions ``t >= length`` carry
+the state through and add a zero normalizer), the same two forms of the
+log-sum-exp step (``matmul=True``: exp, matrix product, log;
+``matmul=False``: a broadcast logsumexp) and the same first-hit argmax
+(ties go to the lowest state index).  The Viterbi operations are exact
+float32 max, add or subtract, so fed the same obs they give the JAX
+package's value rows and paths bit for bit; the forward/backward scans
+agree with it to float32 rounding.
 
 This is the CPU path and the reference every CUDA kernel is checked
 against (``ops/cuda_kernels.py``).  The time loops are Python loops over
-positions: on the GPU the decoders call the kernels instead.
+positions: on the GPU the E-step and the decoders call the kernels
+instead.
 
 All functions take batch-major ``obs[B, L, S]``.
 """
@@ -37,6 +42,104 @@ def _mask_carry(new: torch.Tensor, old: torch.Tensor,
                 valid_t: torch.Tensor) -> torch.Tensor:
     """Carry ``old`` through for batch rows whose position t is padding."""
     return torch.where(valid_t[:, None], new, old)
+
+
+def _logdot(x: torch.Tensor, log_mat: torch.Tensor, mat_exp: torch.Tensor,
+            matmul: bool) -> torch.Tensor:
+    """LSE_i(x[b,i] + log_mat[i,j]) for x [B,S] -> [B,S].
+
+    ``mat_exp`` must equal exp(log_mat); ``x`` is pre-normalized to max
+    0 (scaled scan), so exp is safe."""
+    if matmul:
+        s = torch.exp(x) @ mat_exp
+        return torch.where(s > 0, torch.log(s), LOG_ZERO)
+    y = x[:, :, None] + log_mat[None, :, :]                   # [B,S,S]
+    m_safe = torch.clamp(y.amax(dim=1, keepdim=True), min=LOG_ZERO)
+    s = torch.exp(y - m_safe).sum(dim=1)
+    return torch.where(s > 0, torch.log(s), LOG_ZERO) + m_safe[:, 0, :]
+
+
+def _fwd_step(log_trans, trans_exp, a_hat, obs_row, valid_t, matmul):
+    """The forward step: (new_hat, dm), masked at padding."""
+    new = _logdot(a_hat, log_trans, trans_exp, matmul) + obs_row
+    new_hat, dm = _renorm(new)
+    return (_mask_carry(new_hat, a_hat, valid_t),
+            torch.where(valid_t, dm, 0.0))
+
+
+def _bwd_step(log_trans_T, trans_exp_T, b_hat, obs_next, valid_next,
+              matmul):
+    """The backward step from position t+1 to t: (new_hat, dm)."""
+    x_hat, xm = _renorm(obs_next + b_hat)
+    new_hat, nm = _renorm(_logdot(x_hat, log_trans_T, trans_exp_T, matmul))
+    return (_mask_carry(new_hat, b_hat, valid_next),
+            torch.where(valid_next, xm + nm, 0.0))
+
+
+def forward_scaled(
+    log_start: torch.Tensor,
+    log_trans: torch.Tensor,
+    obs: torch.Tensor,
+    lengths: torch.Tensor | None = None,
+    matmul: bool = True,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Scaled forward pass: (alpha_hat[B,L,S], log_c[B,L], loglik[B])
+    with ``log_alpha = alpha_hat + log_c`` and every alpha_hat row at
+    max 0.  The loglik sums the per-step increments in one reduction
+    (not a running carry); zero-length rows get loglik 0."""
+    B, L, S = obs.shape
+    lengths = _lengths(lengths, B, L, obs.device)
+    trans_exp = torch.exp(log_trans)
+    a0 = log_start[None, :] + obs[:, 0]
+    a0 = torch.where((lengths > 0)[:, None], a0, LOG_ZERO)
+    a_hat, c0 = _renorm(a0)
+    hats, incs = [a_hat], [c0]
+    for t in range(1, L):
+        a_hat, dm = _fwd_step(log_trans, trans_exp, a_hat, obs[:, t],
+                              t < lengths, matmul)
+        hats.append(a_hat)
+        incs.append(dm)
+    incs = torch.stack(incs, dim=1)                           # [B,L]
+    loglik = (torch.log(torch.exp(a_hat).sum(dim=-1))
+              + incs.sum(dim=1))
+    loglik = torch.where(lengths > 0, loglik, 0.0)
+    return torch.stack(hats, dim=1), torch.cumsum(incs, dim=1), loglik
+
+
+def backward_scaled(
+    log_trans: torch.Tensor,
+    obs: torch.Tensor,
+    lengths: torch.Tensor | None = None,
+    matmul: bool = True,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Scaled backward pass: (beta_hat[B,L,S], log_d[B,L]) with
+    ``log_beta = beta_hat + log_d``; beta at the last valid position is
+    exactly 0."""
+    B, L, S = obs.shape
+    lengths = _lengths(lengths, B, L, obs.device)
+    log_trans_T = log_trans.T.contiguous()
+    trans_exp_T = torch.exp(log_trans_T)
+    b_hat = torch.zeros((B, S), dtype=obs.dtype, device=obs.device)
+    hats = [b_hat]
+    incs = [torch.zeros((B,), dtype=obs.dtype, device=obs.device)]
+    for t in range(L - 2, -1, -1):
+        b_hat, dm = _bwd_step(log_trans_T, trans_exp_T, b_hat,
+                              obs[:, t + 1], t + 1 < lengths, matmul)
+        hats.append(b_hat)
+        incs.append(dm)
+    beta_hat = torch.stack(hats[::-1], dim=1)
+    incs = torch.stack(incs[::-1], dim=1)                     # [B,L]
+    log_d = torch.flip(torch.cumsum(torch.flip(incs, [1]), dim=1), [1])
+    return beta_hat, log_d
+
+
+def posterior_scaled(alpha_hat: torch.Tensor,
+                     beta_hat: torch.Tensor) -> torch.Tensor:
+    """gamma from scaled quantities by per-position normalization, so no
+    cumulative normalizer enters (accuracy independent of length)."""
+    x = alpha_hat + beta_hat
+    p = torch.exp(x - x.amax(dim=-1, keepdim=True))
+    return p / p.sum(dim=-1, keepdim=True)
 
 
 def _maxplus_step(log_trans: torch.Tensor, v_hat: torch.Tensor,

@@ -151,3 +151,80 @@ def test_wrappers_check_their_arguments(rng, make_hmm):
         ck.viterbi_chunk_values(_t(lt), obs.transpose(0, 1),
                                 torch.zeros((6, lt.shape[0])),
                                 torch.zeros(6, dtype=torch.int32))
+
+
+def _k1_close(got, want):
+    """K1's plain version against the Pallas kernel, at the JAX
+    package's engine tolerances (tests/test_pallas.py): loglik 1e-5
+    relative, statistics 1e-4 relative with 1e-5 / 1e-4 absolute."""
+    start, pair, em_c, ll = (np.asarray(x) for x in got)
+    w_start, w_pair, w_em, w_ll = (np.asarray(x) for x in want)
+    np.testing.assert_allclose(ll, w_ll, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(start, w_start, rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(pair, w_pair, rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(em_c, w_em, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("zero_frac", [0.0, 0.3])
+def test_k1_plain_matches_pallas_v4(rng, make_hmm, zero_frac):
+    """K1: em_counts_fused on CPU tensors (its plain version) against
+    em_counts_fused_pallas_v4 in interpret mode, ragged lengths."""
+    ls, lt, lem = (x.astype(np.float32)
+                   for x in make_hmm(5, 3, 6, zero_trans_frac=zero_frac))
+    sym = rng.randint(0, 6, size=(4, 37, 3)).astype(np.int32)
+    lens = np.asarray([37, 20, 1, 0], np.int32)
+    want = pk.em_counts_fused_pallas_v4(
+        jnp.asarray(ls), jnp.asarray(lt), jnp.asarray(lem),
+        jnp.asarray(sym), jnp.asarray(lens),
+    )
+    got = ck.em_counts_fused(_t(ls), _t(lt), _t(lem), _t(sym), _t(lens))
+    _k1_close([g.numpy() for g in got], want)
+    assert got[3].numpy()[3] == 0.0             # zero-length row
+
+
+def test_k1_plain_multigroup_column_order(rng, make_hmm, monkeypatch):
+    """More rows than one Pallas batch group (G = 3): per-row logliks
+    come back in the original row order in both."""
+    monkeypatch.setattr(pk, "_pick_batch_group_v4", lambda *a, **k: 128)
+    ls, lt, lem, _, _ = _setup(rng, make_hmm, S=3, T=2, V=5)
+    sym = rng.randint(1, 5, size=(257, 9, 2)).astype(np.int32)
+    lens = rng.randint(0, 10, size=(257,)).astype(np.int32)
+    want = pk.em_counts_fused_pallas_v4(
+        jnp.asarray(ls), jnp.asarray(lt), jnp.asarray(lem),
+        jnp.asarray(sym), jnp.asarray(lens),
+    )
+    got = ck.em_counts_fused(_t(ls), _t(lt), _t(lem), _t(sym), _t(lens))
+    _k1_close([g.numpy() for g in got], want)
+
+
+def test_k1_cpu_tensors_take_the_plain_version(rng, make_hmm):
+    ls, lt, lem, sym, lens = _setup(rng, make_hmm)
+    args = (_t(ls), _t(lt), _t(lem), _t(sym), _t(lens))
+    got = ck.em_counts_fused(*args)
+    want = ck.em_counts_fused_plain(*args)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    alpha, dm, m_raw = ck.em_fwd(*args)
+    assert all(torch.equal(g, w) for g, w in
+               zip((alpha, dm, m_raw), ck.em_fwd_plain(*args)))
+    assert all(torch.equal(g, w) for g, w in zip(
+        ck.em_bwd_stats(args[1], args[2], args[3], args[4], alpha, m_raw),
+        ck.em_bwd_stats_plain(args[1], args[2], args[3], args[4], alpha,
+                              m_raw),
+    ))
+    assert ck._lib is None
+
+
+def test_k1_wrappers_check_their_arguments(rng, make_hmm):
+    ls, lt, lem, sym, lens = _setup(rng, make_hmm)
+    good = [_t(ls), _t(lt), _t(lem), _t(sym), _t(lens)]
+    with pytest.raises(TypeError, match="lengths"):
+        ck.em_fwd(*good[:4], good[4].to(torch.int64))
+    with pytest.raises(ValueError, match="log_start"):
+        ck.em_fwd(good[0][:-1], *good[1:])
+    alpha, _, m_raw = ck.em_fwd(*good)
+    with pytest.raises(ValueError, match="alpha"):
+        ck.em_bwd_stats(good[1], good[2], good[3], good[4], alpha[:, :-1],
+                        m_raw)
+    with pytest.raises(ValueError, match="m_raw"):
+        ck.em_bwd_stats(good[1], good[2], good[3], good[4], alpha,
+                        m_raw.T.contiguous().T)

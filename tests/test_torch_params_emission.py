@@ -135,7 +135,8 @@ def test_em_m_step_matches_reference(rng):
         em=torch.from_numpy(em), loglik=torch.zeros(()),
         n_obs=torch.tensor(100.0),
     )
-    got = tem_ops.em_m_step(tstats, SIZES)
+    got = tem_ops.em_m_step(tstats, tparams.init_flat(S, SIZES, CPU),
+                            SIZES)
     for g, w in zip(_np(got), _np(want)):
         assert g.dtype == np.float32
         np.testing.assert_allclose(g, w, rtol=1e-6, atol=1e-6)

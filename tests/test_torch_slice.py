@@ -104,16 +104,16 @@ def test_model_files_decode_alike_in_both_packages(workdir, capsys):
 
 def test_cli_refuses_what_is_not_ported(workdir, monkeypatch):
     xml, bed = str(workdir / "tracks.xml"), str(workdir / "truth.bed")
-    with pytest.raises(SystemExit, match="ROADMAP"):
-        port_train.main([xml, bed, str(workdir / "m.npz")])
-    with pytest.raises(SystemExit, match="--numStates.*ROADMAP"):
-        port_train.main([xml, bed, str(workdir / "m.npz"), "--supervised",
-                         "--numStates", "3"])
+    with pytest.raises(SystemExit, match="--cfg.*ROADMAP.*slice 5"):
+        port_train.main([xml, bed, str(workdir / "m.npz"), "--cfg"])
+    with pytest.raises(SystemExit, match="--mesh.*ROADMAP.*slice 6"):
+        port_train.main([xml, bed, str(workdir / "m.npz"), "--numStates",
+                         "3", "--mesh", "2"])
     model = _train(port_train, workdir, "m.npz", ["--device", "cpu"])
     regions = str(workdir / "regions.bed")
     with pytest.raises(SystemExit, match="--maxPost.*ROADMAP"):
         port_eval.main([xml, model, regions, "--bed", "o.bed", "--maxPost"])
-    with pytest.raises(SystemExit, match="ROADMAP"):
+    with pytest.raises(SystemExit, match="ROADMAP.*slice 3"):
         port_eval.main([xml, model, regions, "--device", "cpu"])
     # CUDA asked for on a host without it raises; nothing picks the CPU
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
