@@ -16,8 +16,15 @@ Phases (any failure raises, and the run exits non-zero):
    V=8, B=2048, L=1024, ragged lengths incl. 0, 1 and 2): statistics and
    logliks within the JAX package's engine tolerances of the plain
    version and of the plain log-space E-step, and bit-identical across
-   two launches.  Times of both sides.  (K1 is checked again at the EM
-   run's own shape in 3b.)
+   two launches.  (K1 is checked again at the EM run's own shape in 3b.)
+   The K4 decode at the stitched max-posterior decode's shape (S=10,
+   T=5, V=9, 64 rows of L=4608, ragged lengths incl. 0 and 1): paths
+   agree on >= 99.999% of positions, every differing position a
+   near-tie (the plain version's top two alpha_p * b within 1e-5
+   relative), two launches bit-identical.  The chunk sweeps X1 and X2
+   on obs of 4 rows of 4096 (ragged): hats within 1e-5 absolute,
+   carries, x_out and the summed normalizers within 1e-6 relative, two
+   launches bit-identical.  Times of both sides for every kernel.
 3. End to end through the port's CLIs, in-process, at the width of the
    10-state / 5-track supervised decode configuration: a planted
    20,000,000-position chromosome (4 categorical BED tracks + FASTA),
@@ -26,6 +33,19 @@ Phases (any failure raises, and the run exits non-zero):
    accuracy against the planted truth is >= 0.9.  On a 1,000,000-position
    region ``--exact`` and ``--no-exact`` write the same BED, and on a
    20,000-position region the card's BED equals the CPU's (plain torch).
+3d. Max-posterior decoding, ``--pd`` and scoring through ``eval`` with
+   phase 3's model: stitched ``--maxPost --bed`` on the whole chromosome
+   (K4, and the printed forward loglik through X1): the BED tiles it,
+   every stitch boundary agrees, base accuracy >= 0.9, and the loglik is
+   finite and at least phase 3's Viterbi path score (less 1e-6 of it).
+   On the 1,000,000-position region ``--maxPost --exact`` (X1/X2) and
+   ``--no-exact`` (K4) agree on >= 99.999% of bases; on the
+   20,000-position region the card and the CPU agree for ``--maxPost``
+   (both decoders: >= 99.999% of bases), ``--pd`` (same rows,
+   probabilities within 1e-5) and every printed score (1e-5 relative);
+   on a 100,000-position region the card's ``--pd`` rows sum to 1
+   within 1e-5 and their argmax is the ``--maxPost --exact`` BED.  Stage
+   times: load, decode, score, ``--pd`` write.
 3b. Unsupervised EM through ``train`` (no ``--supervised``) on the same
    chromosome, 10 states, 15 iterations, chunks of 16384: every logged
    loglik finite and non-decreasing within 1e-4 |loglik|; K1 against
@@ -38,9 +58,9 @@ Phases (any failure raises, and the run exits non-zero):
    command on both; per-iteration logliks within 1e-5 relative, learned
    probabilities within 1e-4, decoded BED agreeing on >= 99.9% of bases;
    then ``--reps 2`` on the card, through K1 for both restarts.
-4. The launch counters, zeroed just before phase 3 and again just before
-   3b's training run and read just after it, show every kernel of each
-   path ran on it.
+4. The launch counters, zeroed just before phase 3, 3d and 3b's
+   training run and read just after each, show every kernel of each path
+   ran on it.
 
 The last lines are a JSON object of per-kernel results, the card's name
 and power limit, and ``{"ok": true, "device": {...}}``.  Without CUDA it
@@ -71,12 +91,18 @@ RUN_MEAN = 2000                      # mean planted run length
 K1_S, K1_T, K1_V, K1_B, K1_L = 20, 5, 8, 2048, 1024   # bench.py's E-step
 EM_STATES, EM_ITERS, EM_CHUNK = 10, 15, 16384
 K1_EM_ROWS = 256                     # rows of the K1 check at EM's shape
+K4_B, K4_L = 64, 4096 + 2 * 256      # one stitched max-posterior group
+X_B, X_L = 4, 4096                   # the chunk sweeps' check
+NEAR_TIE = 1e-5                      # K4: relative gap of a near-tie
 SOURCES = {
     "viterbi_fwd": "tehmm_tpu_torch/csrc/viterbi.cu",
     "viterbi_backtrace": "tehmm_tpu_torch/csrc/viterbi.cu",
     "viterbi_chunk_values": "tehmm_tpu_torch/csrc/viterbi.cu",
     "em_fwd": "tehmm_tpu_torch/csrc/em_estep.cu",
     "em_bwd_stats": "tehmm_tpu_torch/csrc/em_estep.cu",
+    "post_decode": "tehmm_tpu_torch/csrc/posterior.cu",
+    "fwd_chunk": "tehmm_tpu_torch/csrc/posterior.cu",
+    "bwd_chunk": "tehmm_tpu_torch/csrc/posterior.cu",
 }
 REPLACES = {
     "viterbi_fwd": "tehmm_tpu/ops/pallas_kernels.py:2386",
@@ -84,9 +110,14 @@ REPLACES = {
     "viterbi_chunk_values": "tehmm_tpu/ops/pallas_kernels.py:1284",
     "em_fwd": "tehmm_tpu/ops/pallas_kernels.py:1777",
     "em_bwd_stats": "tehmm_tpu/ops/pallas_kernels.py:1931",
+    "post_decode": "tehmm_tpu/ops/pallas_kernels.py:2765",
+    # X1 and X2 have no Pallas counterpart: the XLA scans they replace
+    "fwd_chunk": "tehmm_tpu/ops/dp.py:378",
+    "bwd_chunk": "tehmm_tpu/ops/dp.py:507",
 }
 DECODE_KERNELS = ("viterbi_fwd", "viterbi_backtrace", "viterbi_chunk_values")
 EM_KERNELS = ("em_fwd", "em_bwd_stats")
+POST_KERNELS = ("em_fwd", "post_decode", "fwd_chunk", "bwd_chunk")
 
 
 def _smi() -> str:
@@ -115,20 +146,26 @@ def _median_ms(fn, runs: int) -> float:
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------
 
-def phase_kernels(device, rng) -> dict:
-    import torch
-
-    from tehmm_tpu_torch.models.emission import track_log_likelihoods
+def _decode_model(rng, device):
+    """A sticky random model at the decode configuration's width."""
     from tehmm_tpu_torch.models.params import from_numpy
-    from tehmm_tpu_torch.ops import cuda_kernels as ck
-    from tehmm_tpu_torch.ops import dp
 
     trans = rng.dirichlet(np.ones(S), size=S) * 0.05 + np.eye(S) * 0.95
     log_em = np.zeros((S, T, V))
     for t in range(T):
         log_em[:, t, 1:] = np.log(rng.dirichlet(np.ones(V - 1), size=S))
-    p = from_numpy(np.log(np.full(S, 1.0 / S)), np.log(trans), log_em,
-                   device)
+    return from_numpy(np.log(np.full(S, 1.0 / S)), np.log(trans), log_em,
+                      device)
+
+
+def phase_kernels(device, rng) -> dict:
+    import torch
+
+    from tehmm_tpu_torch.models.emission import track_log_likelihoods
+    from tehmm_tpu_torch.ops import cuda_kernels as ck
+    from tehmm_tpu_torch.ops import dp
+
+    p = _decode_model(rng, device)
     lengths = rng.randint(0, L_ROWS + 1, size=B_ROWS).astype(np.int32)
     lengths[:4] = [L_ROWS, 0, 1, 2]
     sym = torch.from_numpy(
@@ -311,6 +348,113 @@ def phase_k1(device, rng) -> dict:
     print(f"[kernels] {'E-step (em_counts_fused)':22s} kernels "
           f"{estep_ms:10.3f} ms  plain {estep_plain_ms:10.3f} ms",
           flush=True)
+    for name, r in out.items():
+        print(f"[kernels] {name:22s} max_abs_err {r['max_abs_err']:.3g}  "
+              f"kernel {r['ms']:10.3f} ms  plain {r['plain_ms']:10.3f} ms",
+              flush=True)
+    return out
+
+
+def phase_post_kernels(device, rng) -> dict:
+    """K4's decode and the chunk sweeps X1, X2 against their plain
+    versions, at the shapes the max-posterior path gives them."""
+    import torch
+
+    from tehmm_tpu_torch.models.emission import track_log_likelihoods
+    from tehmm_tpu_torch.ops import cuda_kernels as ck
+    from tehmm_tpu_torch.ops import dp
+
+    p = _decode_model(rng, device)
+    lengths = rng.randint(0, K4_L + 1, size=K4_B).astype(np.int32)
+    lengths[:4] = [K4_L, 0, 1, 2]
+    sym = torch.from_numpy(
+        rng.randint(0, V, size=(K4_B, K4_L, T)).astype(np.int32)
+    ).to(device)
+    lens = torch.from_numpy(lengths).to(device)
+    args = (p.log_start, p.log_trans, p.log_em, sym, lens)
+    out = {}
+
+    # K4: the decode on K1's forward rows, as posterior_decode_fused
+    # calls it
+    alpha = ck.em_fwd(*args)[0]
+    dec_args = (p.log_trans, p.log_em, sym, lens, alpha)
+    got = ck.post_decode(*dec_args)
+    assert torch.equal(got, ck.post_decode(*dec_args)), \
+        "two post_decode launches differ"
+    assert torch.equal(got, ck.posterior_decode_fused(*args)), \
+        "posterior_decode_fused differs from em_fwd + post_decode"
+    want, margin = ck.post_decode_plain(*dec_args, with_margin=True)
+    valid = torch.arange(K4_L, device=device)[None, :] < lens[:, None]
+    assert not bool((got[~valid] != 0).any()), "K4 path not 0 at padding"
+    differ = (got != want) & valid
+    n_diff, n_valid = int(differ.sum()), int(valid.sum())
+    agree = 1.0 - n_diff / n_valid
+    worst = float(margin[differ].max()) if n_diff else 0.0
+    assert agree >= 0.99999, f"K4 agrees with plain on {agree} of positions"
+    assert worst <= NEAR_TIE, \
+        f"K4 differs from plain where the top two are {worst} apart"
+    print(f"[kernels] K4 decode at S={S} T={T} V={V}, {K4_B} rows of "
+          f"L={K4_L} (ragged): {n_diff} of {n_valid} positions differ from "
+          f"the plain version, each a near-tie (largest top-two gap "
+          f"{worst:.3g} relative); repeat launches bit-identical",
+          flush=True)
+    out["post_decode"] = dict(
+        max_abs_err=float((got - want).abs().max()),
+        differing_positions=n_diff,
+        ms=_median_ms(lambda: ck.post_decode(*dec_args), 5),
+        plain_ms=_median_ms(lambda: ck.post_decode_plain(*dec_args), 3),
+        fused_ms=_median_ms(lambda: ck.posterior_decode_fused(*args), 5),
+    )
+
+    # X1 and X2 on obs of a few long rows, ragged
+    x_lens = np.asarray([X_L, 0, 1, rng.randint(2, X_L)], np.int32)
+    x_sym = torch.from_numpy(
+        rng.randint(0, V, size=(X_B, X_L, T)).astype(np.int32)).to(device)
+    obs = track_log_likelihoods(p.log_em, x_sym)
+    xl = torch.from_numpy(x_lens).to(device)
+    init = torch.from_numpy(rng.randn(X_B, S).astype(np.float32)).to(device)
+    init = init - init.amax(dim=-1, keepdim=True)
+    cont = torch.tensor([True, False, False, False], device=device)
+    lt = p.log_trans
+    hats, carry = ck.forward_chunk_values(lt, obs, init, xl)
+    assert torch.equal(hats, ck.forward_chunk_values(lt, obs, init, xl)[0])
+    p_hats, p_carry = dp.forward_chunk_values(lt, obs, init, xl)
+    final, dm_sum = ck.forward_final(lt, obs, init, xl)
+    assert torch.equal(dm_sum, ck.forward_final(lt, obs, init, xl)[1])
+    assert torch.equal(final, carry), "X1's two modes end in other carries"
+    p_final, p_dm = dp.forward_final(lt, obs, init, xl)
+    out["fwd_chunk"] = dict(max_abs_err=max(
+        _assert_close("X1 hats", hats, p_hats, 0.0, 1e-5),
+        _assert_close("X1 carry", carry, p_carry, 1e-6, 1e-6),
+        _assert_close("X1 dm sum", dm_sum, p_dm, 1e-6, 1e-6)))
+    beta, x_out = ck.backward_chunk_values(lt, obs, init, cont, xl)
+    assert torch.equal(
+        beta, ck.backward_chunk_values(lt, obs, init, cont, xl)[0])
+    p_beta, p_x = dp.backward_chunk_values(lt, obs, init, cont, xl)
+    out["bwd_chunk"] = dict(max_abs_err=max(
+        _assert_close("X2 beta", beta, p_beta, 0.0, 1e-5),
+        _assert_close("X2 x_out", x_out, p_x, 1e-6, 1e-6)))
+    out["fwd_chunk"].update(
+        ms=_median_ms(lambda: ck.forward_chunk_values(lt, obs, init, xl), 5),
+        plain_ms=_median_ms(
+            lambda: dp.forward_chunk_values(lt, obs, init, xl), 3),
+        carry_only_ms=_median_ms(
+            lambda: ck.forward_final(lt, obs, init, xl), 5),
+        carry_only_plain_ms=_median_ms(
+            lambda: dp.forward_final(lt, obs, init, xl), 3),
+    )
+    out["bwd_chunk"].update(
+        ms=_median_ms(
+            lambda: ck.backward_chunk_values(lt, obs, init, cont, xl), 5),
+        plain_ms=_median_ms(
+            lambda: dp.backward_chunk_values(lt, obs, init, cont, xl), 3),
+    )
+    print(f"[kernels] X1/X2 at S={S}, {X_B} rows of {X_L} (ragged): within "
+          f"tolerance of the plain versions, repeat launches "
+          f"bit-identical; K4 fused (em_fwd + decode) "
+          f"{out['post_decode']['fused_ms']:.3f} ms, X1 carry-only "
+          f"{out['fwd_chunk']['carry_only_ms']:.3f} ms (plain "
+          f"{out['fwd_chunk']['carry_only_plain_ms']:.3f} ms)", flush=True)
     for name, r in out.items():
         print(f"[kernels] {name:22s} max_abs_err {r['max_abs_err']:.3g}  "
               f"kernel {r['ms']:10.3f} ms  plain {r['plain_ms']:10.3f} ms",
@@ -541,7 +685,153 @@ def phase_end_to_end(work, xml, truth_bed, truth, region, small,
         print(f"[e2e] {stage:24s} {sec:9.3f}", flush=True)
     print(f"[e2e] {'train CLI total':24s} {t_train:9.3f}", flush=True)
     print(f"[e2e] {'eval CLI total':24s} {t_eval:9.3f}", flush=True)
-    return acc
+    return acc, float(score)
+
+
+def _read_pd(path):
+    """--pd rows: ([start], f32[n, S]) as written (%.6g)."""
+    starts, probs = [], []
+    with open(path) as fh:
+        for line in fh:
+            _chrom, s, _e, p = line.rstrip("\n").split("\t")
+            starts.append(int(s))
+            probs.append(np.array(p.split(","), dtype=np.float64))
+    return np.asarray(starts), np.stack(probs)
+
+
+def phase_max_posterior(work, xml, truth, viterbi_score, region, small,
+                        pd_region, device="cuda"):
+    """3d: max-posterior decoding, --pd and scoring through eval with
+    phase 3's supervised model."""
+    from tehmm_tpu_torch.cli import eval as port_eval
+    from tehmm_tpu_torch.models import hmm as port_hmm
+    from tehmm_tpu_torch.ops import cuda_kernels as ck
+
+    n = len(truth)
+    lo = n // 4
+    model = os.path.join(work, "model.npz")
+    names = port_hmm.MultitrackHmm.load(model, "cpu").state_names
+    name_idx = np.asarray([int(s[1:]) for s in names])
+    regions = _region_bed(work, "post_regions.bed", 0, n)
+    out_bed = os.path.join(work, "maxpost.bed")
+
+    stages = _Stages()
+    stages.wrap(port_eval, "load_track_data", "load")
+    stages.wrap(port_hmm, "posterior_chunked", "decode (stitched, K4)",
+                sync=True, keep=True)
+    stages.wrap(port_eval, "posterior_exact", "decode (exact, X1/X2)",
+                sync=True)
+    stages.wrap(port_hmm.MultitrackHmm, "score", "score (X1)", sync=True)
+    stages.wrap(port_eval, "write_bed_intervals", "write BED")
+    stages.wrap(port_eval, "_write_pd_streaming", "--pd write", sync=True)
+
+    def run(bed_path, *flags, dev=device):
+        t0 = time.perf_counter()
+        printed = _run_cli(port_eval, [xml, model, bed_path, *flags,
+                                       "--device", dev])
+        return float(printed), time.perf_counter() - t0
+
+    try:
+        # the whole chromosome: stitched (automatic past 256K positions)
+        score, wall = run(regions, "--bed", out_bed, "--maxPost")
+        _paths, report = stages.last["decode (stitched, K4)"]
+        assert report.boundaries_ok, report
+        print(f"[post] {n}-position --maxPost: printed loglik {score!r} "
+              f"(Viterbi "
+              f"path score {viterbi_score!r}); {report}; eval CLI "
+              f"{wall:.3f} s", flush=True)
+        assert np.isfinite(score), score
+        assert score >= viterbi_score - 1e-6 * abs(viterbi_score), \
+            f"log P(x) {score} < Viterbi log P(x, path) {viterbi_score}"
+        decoded = _paint(out_bed, n, names)
+        acc = float((name_idx[decoded] == truth).mean())
+        print(f"[post] base accuracy vs planted truth: {acc:.6f}",
+              flush=True)
+        assert acc >= 0.9, f"max-posterior base accuracy {acc} < 0.9"
+        seconds_20mb = dict(stages.seconds)
+
+        # stitched (K4) against exact (X1/X2) on a region
+        region_bed = _region_bed(work, "post_region.bed", lo, lo + region)
+        paths = {}
+        for flag in ("--exact", "--no-exact"):
+            out = os.path.join(work, f"post_region{flag}.bed")
+            _, wall = run(region_bed, "--bed", out, "--maxPost", flag)
+            paths[flag] = _paint_region(out, lo, region, names)
+            print(f"[post] {region}-position region --maxPost {flag}: "
+                  f"{wall:.3f} s", flush=True)
+        n_diff = int((paths["--exact"] != paths["--no-exact"]).sum())
+        assert n_diff <= 1e-5 * region, \
+            f"--exact and --no-exact differ on {n_diff} bases"
+        print(f"[post] {region}-position region: --maxPost --exact and "
+              f"--no-exact differ on {n_diff} bases", flush=True)
+
+        # the card's --pd against its --maxPost --exact on a region
+        pd_bed = _region_bed(work, "post_pd.bed", lo, lo + pd_region)
+        pd_out = os.path.join(work, "post_pd_rows.bed")
+        run(pd_bed, "--pd", pd_out)
+        exact_out = os.path.join(work, "post_pd_exact.bed")
+        run(pd_bed, "--bed", exact_out, "--maxPost", "--exact")
+        starts, probs = _read_pd(pd_out)
+        assert np.array_equal(starts, lo + np.arange(pd_region))
+        sums = np.abs(probs.sum(axis=1) - 1.0).max()
+        assert sums <= 1e-5, f"--pd rows sum to 1 within {sums}"
+        arg = probs.argmax(axis=1)
+        bed_path = _paint_region(exact_out, lo, pd_region, names)
+        differ = arg != bed_path
+        # a printed row whose top two round to the same %.6g value has
+        # no argmax of its own: only those may differ
+        top2 = np.sort(probs, axis=1)[:, -2:]
+        ties = int((differ & (top2[:, 0] == top2[:, 1])).sum())
+        assert int(differ.sum()) == ties, \
+            f"--pd argmax differs from the BED on {int(differ.sum())} rows"
+        print(f"[post] {pd_region}-position region: --pd rows sum to 1 "
+              f"within {sums:.3g}; their argmax is the --maxPost --exact "
+              f"BED on every row ({ties} printed ties)", flush=True)
+    finally:
+        stages.restore()
+    launches = dict(ck.LAUNCHES)          # the card's runs of this phase
+
+    # the card against the CPU on a small region: every mode
+    small_bed = _region_bed(work, "post_small.bed", lo, lo + small)
+    got = {}
+    for dev in (device, "cpu"):
+        r = got[dev] = {}
+        for flag in ("--exact", "--no-exact"):
+            out = os.path.join(work, f"post_small{flag}_{dev}.bed")
+            r[f"score {flag}"], _ = run(small_bed, "--bed", out,
+                                        "--maxPost", flag, dev=dev)
+            r[flag] = _paint_region(out, lo, small, names)
+        pd_out = os.path.join(work, f"post_small_pd_{dev}.bed")
+        r["score --pd"], _ = run(small_bed, "--pd", pd_out, dev=dev)
+        r["pd"] = _read_pd(pd_out)
+        r["score"], _ = run(small_bed, dev=dev)
+    card, cpu = got[device], got["cpu"]
+    for flag in ("--exact", "--no-exact"):
+        n_diff = int((card[flag] != cpu[flag]).sum())
+        assert n_diff <= 1e-5 * small, \
+            f"card and CPU --maxPost {flag} differ on {n_diff} bases"
+        print(f"[post] {small}-position region --maxPost {flag}: card and "
+              f"CPU differ on {n_diff} bases", flush=True)
+    score_rel = max(abs(card[k] - cpu[k]) / abs(cpu[k])
+                    for k in card if k.startswith("score"))
+    assert score_rel <= 1e-5, f"card and CPU scores differ by {score_rel}"
+    assert np.array_equal(card["pd"][0], cpu["pd"][0])
+    pd_err = float(np.abs(card["pd"][1] - cpu["pd"][1]).max())
+    assert pd_err <= 1e-5, f"card and CPU --pd differ by {pd_err}"
+    print(f"[post] {small}-position region: printed scores within "
+          f"{score_rel:.3g} relative, --pd probabilities within {pd_err:.3g}",
+          flush=True)
+
+    print(f"[post] stage ({n}-position --maxPost run)  seconds",
+          flush=True)
+    for stage, sec in seconds_20mb.items():
+        print(f"[post] {stage:28s} {sec:9.3f}", flush=True)
+    print("[post] stage (the card's runs of 3d)  seconds  calls",
+          flush=True)
+    for stage, sec in stages.seconds.items():
+        print(f"[post] {stage:28s} {sec:9.3f}  {stages.calls[stage]}",
+              flush=True)
+    return launches
 
 
 def _em_log(path):
@@ -761,6 +1051,7 @@ def main(argv=None) -> int:
     rng = np.random.RandomState(args.seed)
     kernels = phase_kernels(device, rng)
     kernels.update(phase_k1(device, rng))
+    kernels.update(phase_post_kernels(device, rng))
 
     n = 20_000_000
     with tempfile.TemporaryDirectory(prefix="tehmm_chip_smoke_") as work:
@@ -771,9 +1062,18 @@ def main(argv=None) -> int:
 
         ck.reset_launch_counts()
         torch.cuda.reset_peak_memory_stats()
-        phase_end_to_end(work, xml, truth_bed, truth, 1_000_000, 20_000)
+        _acc, viterbi_score = phase_end_to_end(work, xml, truth_bed, truth,
+                                               1_000_000, 20_000)
         decode_launches = dict(ck.LAUNCHES)
         print(f"[e2e] peak device memory allocated: "
+              f"{torch.cuda.max_memory_allocated() / 1e6:.1f} MB",
+              flush=True)
+
+        ck.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        post_launches = phase_max_posterior(work, xml, truth, viterbi_score,
+                                            1_000_000, 20_000, 100_000)
+        print(f"[post] peak device memory allocated: "
               f"{torch.cuda.max_memory_allocated() / 1e6:.1f} MB",
               flush=True)
 
@@ -786,10 +1086,16 @@ def main(argv=None) -> int:
     print(f"[launches] decode path (phase 3): {decode_launches}",
           flush=True)
     print(f"[launches] EM path (phase 3b): {em_launches}", flush=True)
+    print(f"[launches] max-posterior path (phase 3d): {post_launches}",
+          flush=True)
+    missing = [k for k in DECODE_KERNELS if decode_launches[k] == 0]
+    missing += [k for k in EM_KERNELS if em_launches[k] == 0]
+    missing += [f"{k} (3d)" for k in POST_KERNELS if post_launches[k] == 0]
+    assert not missing, f"kernels never launched on their path: {missing}"
     launches = {k: decode_launches[k] for k in DECODE_KERNELS}
     launches.update({k: em_launches[k] for k in EM_KERNELS})
-    missing = [k for k, c in launches.items() if c == 0]
-    assert not missing, f"kernels never launched on their path: {missing}"
+    launches.update({k: post_launches[k] for k in POST_KERNELS
+                     if k not in launches})
     assert not any(m.split(".")[0] in ("jax", "jaxlib")
                    for m in sys.modules), "jax was imported"
 

@@ -1,22 +1,35 @@
-"""tehmm-eval on the port: Viterbi decoding to BED.
+"""tehmm-eval on the port: Viterbi or max-posterior decoding to BED,
+posterior distributions, and the data's log-likelihood.
 
-Counterpart of ``tehmm_tpu/cli/eval.py`` for ``--bed`` Viterbi
-annotation: category maps and track semantics come FROM THE MODEL so
+Counterpart of ``tehmm_tpu/cli/eval.py`` for HMM models at base
+resolution: category maps and track semantics come FROM THE MODEL so
 symbols match training; the eval-time XML supplies data paths only.
-Prints the decoded path's joint log-probability (reference behavior)
-and writes the merged state runs as BED.  Other modes of the JAX CLI
-are recognized and exit naming their ROADMAP item.
+
+- ``--bed``: Viterbi annotation (stitched, or ``--exact``), printing the
+  decoded path's joint log-probability (reference behavior);
+- ``--bed --maxPost``: max-posterior annotation (stitched, or
+  ``--exact``);
+- ``--pd``: per-position posterior distributions, streamed from the
+  exact chunk sweep through per-chunk spool files;
+- every mode but Viterbi, and a run with no ``--bed``, prints the
+  forward log-likelihood of the whole input (``MultitrackHmm.score``).
+
+``--segment``, ``--segLen``, ``--maxSpan`` and ``--mesh`` are recognized
+and exit naming their ROADMAP item.
 
 Usage:
   python -m tehmm_tpu_torch.cli.eval tracks.xml model.npz query.bed \
-      --bed out.bed [--device cuda|cpu]
+      [--bed out.bed [--maxPost]] [--pd post.bed] [--device cuda|cpu]
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
+import shutil
 import sys
+import tempfile
 
 import numpy as np
 
@@ -37,12 +50,14 @@ from tehmm_tpu_torch.models.hmm import (
     path_log_score,
     path_to_intervals,
 )
-from tehmm_tpu_torch.parallel.stitch import viterbi_exact
+from tehmm_tpu_torch.parallel.stitch import (
+    posterior_exact,
+    posterior_sweep,
+    viterbi_exact,
+)
 from tehmm_tpu_torch.utils.device import resolve_device
 
 UNPORTED = {
-    "--maxPost": (False, up.SLICE_POST),
-    "--pd": (True, up.SLICE_POST),
     "--segment": (False, up.SLICE_SEGMENT),
     "--segLen": (False, up.SLICE_SEGMENT),
     "--maxSpan": (True, up.SLICE_CFG),
@@ -58,14 +73,20 @@ _EXACT_AUTO_LIMIT = 1 << 18
 def make_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="tehmm-eval (torch)",
-        description="Viterbi decoding of genomic regions (PyTorch port)",
+        description="Viterbi/posterior decoding of genomic regions "
+                    "(PyTorch port)",
     )
     p.add_argument("tracksInfo", help="tracks XML config file")
     p.add_argument("inputModel", help="trained model (.npz)")
     p.add_argument("bedRegions", help="query regions BED")
     p.add_argument("--bed", default=None,
                    help="write Viterbi annotations to this BED file "
-                        "(required: scoring alone is not ported yet)")
+                        "(without it, and without --pd, eval only prints "
+                        "the data's log-likelihood)")
+    p.add_argument("--maxPost", action="store_true",
+                   help="max-posterior decoding instead of Viterbi")
+    p.add_argument("--pd", default=None,
+                   help="write per-position posterior distribution BED")
     p.add_argument("--chunk", type=int, default=4096,
                    help="decode chunk length")
     p.add_argument("--halo", type=int, default=256,
@@ -98,11 +119,6 @@ def _resolve_exact(opts, tables) -> None:
 def main(argv=None) -> int:
     opts = make_parser().parse_args(argv)
     up.reject_unported(opts, UNPORTED)
-    if opts.bed is None:
-        raise SystemExit(
-            f"scoring without --bed is not ported to tehmm_tpu_torch yet "
-            f"({up.SLICE_POST})"
-        )
     set_logging_from_options(opts)
     device = resolve_device(opts.device)
 
@@ -130,36 +146,85 @@ def main(argv=None) -> int:
     track_data = load_track_data(
         eval_list, regions, category_maps=model.category_maps
     )
-    _resolve_exact(opts, track_data.tables)
-    if opts.exact:
-        paths = viterbi_exact(
-            model.params, track_data.tables, chunk_len=opts.chunk
+    tables = track_data.tables
+    _resolve_exact(opts, tables)
+
+    paths = None
+    if opts.bed:
+        if opts.maxPost:
+            if opts.exact:
+                paths = posterior_exact(model.params, tables,
+                                        chunk_len=opts.chunk)
+            else:
+                paths = model.posterior_decode_tables(
+                    tables, chunk_len=opts.chunk, halo=opts.halo
+                )
+        elif opts.exact:
+            paths = viterbi_exact(model.params, tables, chunk_len=opts.chunk)
+        else:
+            paths, report = model.decode_tables(
+                tables, chunk_len=opts.chunk, halo=opts.halo
+            )
+            logger.info(
+                "decoded %d chunks (halo %d, retries %d, boundaries ok=%s)",
+                report.n_chunks, report.final_halo, report.retries,
+                report.boundaries_ok,
+            )
+
+    # printed score (reference behavior): the Viterbi path's joint
+    # log-prob, from the host; every other mode prints the forward
+    # log-likelihood of the whole input
+    if paths is not None and not opts.maxPost:
+        total_ll = sum(
+            path_log_score(model.params, tab.symbols, p)
+            for tab, p in zip(tables, paths)
         )
     else:
-        paths, report = model.decode_tables(
-            track_data.tables, chunk_len=opts.chunk, halo=opts.halo
-        )
-        logger.info(
-            "decoded %d chunks (halo %d, retries %d, boundaries ok=%s)",
-            report.n_chunks, report.final_halo, report.retries,
-            report.boundaries_ok,
-        )
-
-    # printed score: the Viterbi path's joint log-prob, from the host
-    total_ll = sum(
-        path_log_score(model.params, tab.symbols, p)
-        for tab, p in zip(track_data.tables, paths)
-    )
+        total_ll = model.score(tables, chunk_len=opts.chunk)
     print(f"{total_ll}")
 
-    out = []
-    for tab, path in zip(track_data.tables, paths):
-        out.extend(path_to_intervals(
-            tab.chrom, tab.start, np.asarray(path), model.state_names,
-        ))
-    write_bed_intervals(out, opts.bed)
-    logger.info("wrote %d intervals to %s", len(out), opts.bed)
+    if opts.bed:
+        out = []
+        for tab, path in zip(tables, paths):
+            out.extend(path_to_intervals(
+                tab.chrom, tab.start, np.asarray(path), model.state_names,
+            ))
+        write_bed_intervals(out, opts.bed)
+        logger.info("wrote %d intervals to %s", len(out), opts.bed)
+    if opts.pd:
+        _write_pd_streaming(opts, model, tables)
     return 0
+
+
+def _write_pd_streaming(opts, model, tables) -> None:
+    """--pd at base resolution in bounded host memory: gamma chunks come
+    out of the exact chunk sweep in REVERSE time order into per-chunk
+    spool files (beside the output), concatenated in order at the end.
+    One line per base: chrom, start, end, the S probabilities as %.6g."""
+    tmpdir = tempfile.mkdtemp(
+        prefix="tehmm_pd_", dir=os.path.dirname(os.path.abspath(opts.pd))
+    )
+    spool: dict[tuple[int, int], str] = {}
+    try:
+        def consume(b, start, gamma):
+            tab = tables[b]
+            fn = os.path.join(tmpdir, f"{b}_{start}.part")
+            base = tab.start + start
+            with open(fn, "w") as fh:
+                for i, row in enumerate(gamma.tolist()):
+                    probs = ",".join(f"{p:.6g}" for p in row)
+                    fh.write(f"{tab.chrom}\t{base + i}\t{base + i + 1}"
+                             f"\t{probs}\n")
+            spool[(b, start)] = fn
+
+        posterior_sweep(model.params, tables, chunk_len=opts.chunk,
+                        consume=consume)
+        with open(opts.pd, "w") as out_fh:
+            for key in sorted(spool):
+                with open(spool[key]) as fh:
+                    shutil.copyfileobj(fh, out_fh)
+    finally:
+        shutil.rmtree(tmpdir, ignore_errors=True)
 
 
 if __name__ == "__main__":

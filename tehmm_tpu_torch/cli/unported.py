@@ -9,9 +9,6 @@ from __future__ import annotations
 
 import argparse
 
-SLICE_POST = (
-    "ROADMAP Queue 1, slice 3: max-posterior decoding and scoring + K4"
-)
 SLICE_SEGMENT = (
     "ROADMAP Queue 1, slice 4: gaussian tracks and segment weights"
 )

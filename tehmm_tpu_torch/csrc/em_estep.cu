@@ -1,8 +1,9 @@
 // Hand-written Hopper (sm_90a) kernels for the fused Baum-Welch E-step.
 //
-// Built with viterbi.cu into one shared library with a plain C interface
-// (tehmm_tpu_torch/ops/cuda_kernels.py: one nvcc -c per source, then one
-// link), loaded with ctypes.  Every entry point launches on the stream it
+// Built with viterbi.cu and posterior.cu into one shared library with a
+// plain C interface (tehmm_tpu_torch/ops/cuda_kernels.py: one nvcc -c per
+// source, then one link), loaded with ctypes; common.cuh holds the
+// helpers the three share.  Every entry point launches on the stream it
 // is given, allocates nothing (the Python wrapper allocates outputs with
 // torch.empty) and returns the cudaGetLastError() that follows its launch.
 //
@@ -55,68 +56,15 @@
 // with zero transitions behaves as it does there.  All index arithmetic
 // is 64-bit.
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace {
-
-constexpr int kWarpsPerBlock = 4;  // one warp per batch row (at most)
-
-// states per lane for one warp: S <= 32 * SPL
-int states_per_lane(int S) {
-  if (S <= 32) return 1;
-  if (S <= 64) return 2;
-  if (S <= 128) return 4;
-  if (S <= 256) return 8;
-  return 0;
-}
-
-__device__ __forceinline__ void stage(float* dst, const float* src,
-                                      int64_t n) {
-  for (int64_t i = threadIdx.x; i < n; i += blockDim.x) dst[i] = src[i];
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
 
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     x += __shfl_xor_sync(0xffffffffu, x, off);
   return x;
-}
-
-// obs_p[k] = exp(obs_log[j] - max_s obs_log[s]) for this lane's states
-// j = lane + 32k, obs_log summed in track order t = 0..T-1 (as
-// models/emission.track_log_likelihoods does).  Returns the max.
-template <int SPL>
-__device__ __forceinline__ float obs_probs(const float* s_em,
-                                           const int32_t* x, int S, int T,
-                                           int V, int lane,
-                                           float (&obs_p)[SPL]) {
-  const int64_t TV = (int64_t)T * V;
-  float lmax = -INFINITY;
-#pragma unroll
-  for (int k = 0; k < SPL; ++k) {
-    const int j = lane + 32 * k;
-    if (j < S) {
-      const float* row = s_em + j * TV;
-      float o = row[x[0]];
-      for (int tt = 1; tt < T; ++tt) o += row[tt * V + x[tt]];
-      obs_p[k] = o;
-      lmax = fmaxf(lmax, o);
-    }
-  }
-  const float o_m = warp_max(lmax);
-#pragma unroll
-  for (int k = 0; k < SPL; ++k)
-    if (lane + 32 * k < S) obs_p[k] = expf(obs_p[k] - o_m);
-  return o_m;
 }
 
 // K1 forward: symbols in; alpha_p [B, L, S], dm [B, L], m_raw [B, L] out.
@@ -231,8 +179,7 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32)
   float* s_xn = acc_start + S;
   float* s_a = s_xn + S;
 
-  for (int64_t n = threadIdx.x; n < SS; n += blockDim.x)
-    s_transT[(n % S) * S + n / S] = trans_p[n];
+  stage_transposed(s_transT, trans_p, S);
   stage(s_em, em, S * TV);
   for (int64_t n = threadIdx.x; n < warps * region; n += blockDim.x)
     s_warps[n] = 0.0f;
@@ -337,12 +284,6 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32)
     else
       outs[2][n - SS - S * TV] = s;
   }
-}
-
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t smem) {
-  return cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
 template <int SPL>

@@ -1,0 +1,458 @@
+// Hand-written Hopper (sm_90a) kernels for max-posterior decoding and the
+// carried forward/backward chunk sweeps (whole-chromosome scoring, the
+// exact chunked posteriors and --pd).
+//
+// Built with viterbi.cu and em_estep.cu into one shared library with a
+// plain C interface (tehmm_tpu_torch/ops/cuda_kernels.py: one nvcc -c per
+// source, then one link), loaded with ctypes; common.cuh holds the
+// helpers the three share.  Every entry point launches
+// on the stream it is given, allocates nothing (the Python wrapper
+// allocates outputs with torch.empty) and returns the cudaGetLastError()
+// that follows its launch.
+//
+// Kernels and what they replace:
+//
+//   post_decode_kernel  K4 decode, _make_post_decode_kernel_v4
+//                       (tehmm_tpu/ops/pallas_kernels.py:2765, launched at
+//                       :3015 under posterior_decode_fused_pallas_v4
+//                       :2911).  K4's forward is K1's em_fwd_kernel
+//                       (em_estep.cu), whose alpha_p rows it reads.
+//   fwd_chunk_kernel    X1: the XLA scans of dp.forward_chunk_values
+//                       (tehmm_tpu/ops/dp.py:480) and, in carry-only
+//                       mode, dp.forward_final (:378).
+//   bwd_chunk_kernel    X2: the XLA scan of dp.backward_chunk_values
+//                       (tehmm_tpu/ops/dp.py:507).
+//   X1 and X2 have no Pallas counterpart.
+//
+// What they compute, per batch row (one independent sequence):
+//
+//   decode, p = len-1..0, with b = 1 at the last valid position:
+//     path[p] = first-hit argmax (lowest state on ties) of alpha_p[p] * b;
+//     x = obs_p * b with obs_p = exp(obs_log - max obs_log),
+//     xm = max(max x, 1e-37);  b <- T (x / xm) / max(max T (x / xm), 1e-37).
+//     Positions at or past the row's length get path 0.
+//   X1, t = 0..Lc-1, from the carry a (max 0):  s_j = sum_i exp(a_i) T[i, j];
+//     new_j = (s_j > 0 ? log s_j : LOG_ZERO) + obs_j;
+//     m = max(max new, LOG_ZERO);  a <- new - m and dm = m where t < len,
+//     else a is carried and dm = 0.  Values mode writes every a; carry-only
+//     mode writes dm (the wrapper sums it in one reduction); both write
+//     the final carry.
+//   X2, t = Lc-1..0, from x_carry (the next chunk's normalized obs + beta
+//     row):  the step from x is  s_i = sum_j exp(x_j) T[i, j],
+//     l_i = s_i > 0 ? log s_i : LOG_ZERO,  beta = l - max(max l, LOG_ZERO);
+//     the step to x is  x = (obs + beta) - max(max(obs + beta), LOG_ZERO).
+//     At t = Lc-1 beta comes from x_carry where the row continues past the
+//     chunk, else beta = 0; at t < Lc-1 it comes from the x of position
+//     t+1 where t+1 < len, else it is carried.  x at position 0 is x_out.
+//
+// One step, one copy of its code: each kernel runs its step in a single
+// loop, and X2 takes the boundary step (beta from x_carry) and x_out in
+// that same loop, so a sweep cut into chunks executes the same
+// instructions on the same values as one chunk over the whole row and is
+// bit-identical to it (the carries pass through memory exactly).
+//
+// What bounds them on an H100: each row is a chain of dependent steps (an
+// S x S product from shared memory, S expf and, in X1/X2, S logf, one or
+// two warp reductions), so per-step latency sets the time, not bytes or
+// flops: at S = 10 a step is ~2*S*S = 200 flops against 4*S bytes of
+// obs/alpha read and 4*S of values written.  The design is K1's: one warp
+// per row with lane <-> state (up to 8 states per lane), exp(trans) and
+// (decode) log_em in shared memory, the row's state in registers and one
+// S-float exchange row per warp in shared memory.  A single chromosome is
+// one row, so one warp walks it; splitting a row is later work.
+//
+// Numerics: FP32 FMA on the CUDA cores, full-precision expf/logf (no
+// fast-math intrinsics), IEEE division, every clamp of the reference
+// (1e-37, LOG_ZERO) kept, so a model with zero transitions behaves as it
+// does there; every sum in a fixed order and no atomics, so two runs give
+// the same bits.  All index arithmetic is 64-bit.
+
+#include "common.cuh"
+
+namespace {
+
+// The state of argmax_j v[j] with the lowest j among equal maxima, over
+// the whole warp (every lane gets it).
+template <int SPL>
+__device__ __forceinline__ int first_hit_argmax(const float (&v)[SPL], int S,
+                                                int lane) {
+  float best = -INFINITY;
+  int arg = S;
+#pragma unroll
+  for (int k = 0; k < SPL; ++k) {
+    const int j = lane + 32 * k;
+    if (j < S && v[k] > best) {
+      best = v[k];
+      arg = j;
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const float ob = __shfl_xor_sync(0xffffffffu, best, off);
+    const int oa = __shfl_xor_sync(0xffffffffu, arg, off);
+    if (ob > best || (ob == best && oa < arg)) {
+      best = ob;
+      arg = oa;
+    }
+  }
+  return arg;
+}
+
+// out_k = log(sum_i exp(in_i) M[i, j]) (LOG_ZERO where the sum is 0) for
+// this lane's states j = lane + 32k, with s_m[i * S + j] = M[i, j]; then
+// renormalized to max 0.  Returns the normalizer max(max out, LOG_ZERO).
+// ``add`` (may be nullptr) is added to each log-sum before the max.
+template <int SPL>
+__device__ __forceinline__ float logdot_renorm(float* s_row, const float* s_m,
+                                               const float (&in)[SPL],
+                                               const float* add, int S,
+                                               int lane, float (&out)[SPL]) {
+#pragma unroll
+  for (int k = 0; k < SPL; ++k) {
+    const int j = lane + 32 * k;
+    if (j < S) s_row[j] = expf(in[k]);
+  }
+  __syncwarp();
+  float lmax = -INFINITY;
+#pragma unroll
+  for (int k = 0; k < SPL; ++k) {
+    const int j = lane + 32 * k;
+    if (j < S) {
+      float s = 0.0f;
+      for (int i = 0; i < S; ++i)
+        s = fmaf(s_row[i], s_m[(int64_t)i * S + j], s);
+      float l = s > 0.0f ? logf(s) : kLogZero;
+      if (add != nullptr) l = l + add[j];
+      out[k] = l;
+      lmax = fmaxf(lmax, l);
+    }
+  }
+  const float m = fmaxf(warp_max(lmax), kLogZero);
+  __syncwarp();  // every lane has read s_row for this step
+#pragma unroll
+  for (int k = 0; k < SPL; ++k)
+    if (lane + 32 * k < S) out[k] = out[k] - m;
+  return m;
+}
+
+// K4 decode: symbols, alpha_p [B, L, S] in; int32 path [B, L] out.
+template <int SPL>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+    post_decode_kernel(const int32_t* __restrict__ sym,
+                       const int32_t* __restrict__ lens,
+                       const float* __restrict__ trans_p,
+                       const float* __restrict__ em,
+                       const float* __restrict__ alpha,
+                       int32_t* __restrict__ path, int64_t B, int64_t L,
+                       int S, int T, int V) {
+  extern __shared__ float smem[];
+  const int64_t TV = (int64_t)T * V;
+  float* s_transT = smem;                      // exp(log_trans).T [S, S]
+  float* s_em = s_transT + (int64_t)S * S;     // log_em [S, T, V]
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  float* s_xn = s_em + S * TV + (int64_t)warp * S;
+  stage_transposed(s_transT, trans_p, S);
+  stage(s_em, em, S * TV);
+  __syncthreads();
+
+  const int64_t b = (int64_t)blockIdx.x * kWarpsPerBlock + warp;
+  if (b >= B) return;
+  const int64_t len = lens[b] < 0 ? 0 : (lens[b] < L ? (int64_t)lens[b] : L);
+  int32_t* prow = path + b * L;
+  for (int64_t p = len + lane; p < L; p += 32) prow[p] = 0;
+  float bv[SPL];
+#pragma unroll
+  for (int k = 0; k < SPL; ++k) bv[k] = 1.0f;
+
+  for (int64_t p = len - 1; p >= 0; --p) {
+    const int64_t pos = b * L + p;
+    float ab[SPL];
+#pragma unroll
+    for (int k = 0; k < SPL; ++k) {
+      const int j = lane + 32 * k;
+      if (j < S) ab[k] = alpha[pos * S + j] * bv[k];
+    }
+    const int state = first_hit_argmax<SPL>(ab, S, lane);
+    if (lane == 0) prow[p] = state;
+
+    float x[SPL];
+    obs_probs<SPL>(s_em, sym + pos * T, S, T, V, lane, x);
+    float xmax = 0.0f;
+#pragma unroll
+    for (int k = 0; k < SPL; ++k) {
+      if (lane + 32 * k < S) {
+        x[k] = x[k] * bv[k];
+        xmax = fmaxf(xmax, x[k]);
+      }
+    }
+    const float xm = fmaxf(warp_max(xmax), 1e-37f);
+#pragma unroll
+    for (int k = 0; k < SPL; ++k) {
+      const int j = lane + 32 * k;
+      if (j < S) s_xn[j] = x[k] / xm;
+    }
+    __syncwarp();
+    // b <- T xn / max(max T xn, 1e-37)
+    float sb[SPL];
+    float smax = 0.0f;
+#pragma unroll
+    for (int k = 0; k < SPL; ++k) {
+      const int i = lane + 32 * k;
+      if (i < S) {
+        float acc = 0.0f;
+        for (int j = 0; j < S; ++j)
+          acc = fmaf(s_transT[(int64_t)j * S + i], s_xn[j], acc);
+        sb[k] = acc;
+        smax = fmaxf(smax, acc);
+      }
+    }
+    const float nm = fmaxf(warp_max(smax), 1e-37f);
+#pragma unroll
+    for (int k = 0; k < SPL; ++k)
+      if (lane + 32 * k < S) bv[k] = sb[k] / nm;
+    __syncwarp();  // s_xn is free for the next step
+  }
+}
+
+// X1: the log-space forward continuation over obs [B, Lc, S] from
+// carry_in [B, S].  hats (may be nullptr) [B, Lc, S] and dm (may be
+// nullptr) [B, Lc]; carry_out [B, S].
+template <int SPL>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+    fwd_chunk_kernel(const float* __restrict__ obs,
+                     const float* __restrict__ carry_in,
+                     const int32_t* __restrict__ lens,
+                     const float* __restrict__ trans_p,
+                     float* __restrict__ hats, float* __restrict__ carry_out,
+                     float* __restrict__ dm, int64_t B, int64_t L, int S) {
+  extern __shared__ float smem[];
+  float* s_trans = smem;                       // exp(log_trans) [S, S]
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  float* s_row = s_trans + (int64_t)S * S + (int64_t)warp * S;
+  stage(s_trans, trans_p, (int64_t)S * S);
+  __syncthreads();
+
+  const int64_t b = (int64_t)blockIdx.x * kWarpsPerBlock + warp;
+  if (b >= B) return;
+  const int64_t len = lens[b];
+  float a[SPL];
+#pragma unroll
+  for (int k = 0; k < SPL; ++k) {
+    const int j = lane + 32 * k;
+    if (j < S) a[k] = carry_in[b * S + j];
+  }
+  for (int64_t t = 0; t < L; ++t) {
+    const int64_t pos = b * L + t;
+    float m = 0.0f;
+    if (t < len) {                             // warp-uniform
+      float nv[SPL];
+      m = logdot_renorm<SPL>(s_row, s_trans, a, obs + pos * S, S, lane, nv);
+#pragma unroll
+      for (int k = 0; k < SPL; ++k) a[k] = nv[k];
+    }
+    if (hats != nullptr) {
+#pragma unroll
+      for (int k = 0; k < SPL; ++k) {
+        const int j = lane + 32 * k;
+        if (j < S) hats[pos * S + j] = a[k];
+      }
+    }
+    if (dm != nullptr && lane == 0) dm[pos] = m;
+  }
+#pragma unroll
+  for (int k = 0; k < SPL; ++k) {
+    const int j = lane + 32 * k;
+    if (j < S) carry_out[b * S + j] = a[k];
+  }
+}
+
+// X2: the log-space backward continuation over obs [B, Lc, S] from
+// x_carry [B, S]; continuing [B] (0/1).  beta [B, Lc, S], x_out [B, S].
+template <int SPL>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+    bwd_chunk_kernel(const float* __restrict__ obs,
+                     const float* __restrict__ x_carry,
+                     const int32_t* __restrict__ continuing,
+                     const int32_t* __restrict__ lens,
+                     const float* __restrict__ trans_p,
+                     float* __restrict__ beta, float* __restrict__ x_out,
+                     int64_t B, int64_t L, int S) {
+  extern __shared__ float smem[];
+  float* s_transT = smem;                      // exp(log_trans).T [S, S]
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  float* s_row = s_transT + (int64_t)S * S + (int64_t)warp * S;
+  stage_transposed(s_transT, trans_p, S);
+  __syncthreads();
+
+  const int64_t b = (int64_t)blockIdx.x * kWarpsPerBlock + warp;
+  if (b >= B) return;
+  const int64_t len = lens[b];
+  float x[SPL], bv[SPL];
+#pragma unroll
+  for (int k = 0; k < SPL; ++k) {
+    const int j = lane + 32 * k;
+    bv[k] = 0.0f;
+    if (j < S) x[k] = x_carry[b * S + j];
+  }
+  for (int64_t t = L - 1; t >= 0; --t) {
+    // the step from x (taken at position t+1, or x_carry) to beta at t
+    const bool valid = t == L - 1 ? continuing[b] != 0 : t + 1 < len;
+    if (valid) {                               // warp-uniform
+      logdot_renorm<SPL>(s_row, s_transT, x, nullptr, S, lane, bv);
+    }
+    const int64_t pos = b * L + t;
+#pragma unroll
+    for (int k = 0; k < SPL; ++k) {
+      const int j = lane + 32 * k;
+      if (j < S) beta[pos * S + j] = bv[k];
+    }
+    // the step to x at t: obs + beta, renormalized
+    float lmax = -INFINITY;
+#pragma unroll
+    for (int k = 0; k < SPL; ++k) {
+      const int j = lane + 32 * k;
+      if (j < S) {
+        x[k] = obs[pos * S + j] + bv[k];
+        lmax = fmaxf(lmax, x[k]);
+      }
+    }
+    const float xm = fmaxf(warp_max(lmax), kLogZero);
+#pragma unroll
+    for (int k = 0; k < SPL; ++k)
+      if (lane + 32 * k < S) x[k] = x[k] - xm;
+  }
+#pragma unroll
+  for (int k = 0; k < SPL; ++k) {
+    const int j = lane + 32 * k;
+    if (j < S) x_out[b * S + j] = x[k];
+  }
+}
+
+unsigned grid_for(int64_t B) {
+  return (unsigned)((B + kWarpsPerBlock - 1) / kWarpsPerBlock);
+}
+
+template <int SPL>
+int launch_decode(const void* sym, const void* lens, const void* trans_p,
+                  const void* em, const void* alpha, void* path, int64_t B,
+                  int64_t L, int S, int T, int V, cudaStream_t stream) {
+  const size_t smem =
+      sizeof(float) * ((size_t)S * S + (size_t)S * T * V +
+                       (size_t)kWarpsPerBlock * S);
+  cudaError_t err = allow_smem(post_decode_kernel<SPL>, smem);
+  if (err != cudaSuccess) return (int)err;
+  post_decode_kernel<SPL><<<grid_for(B), kWarpsPerBlock * 32, smem, stream>>>(
+      (const int32_t*)sym, (const int32_t*)lens, (const float*)trans_p,
+      (const float*)em, (const float*)alpha, (int32_t*)path, B, L, S, T, V);
+  return (int)cudaGetLastError();
+}
+
+size_t sweep_smem(int S) {
+  return sizeof(float) * ((size_t)S * S + (size_t)kWarpsPerBlock * S);
+}
+
+template <int SPL>
+int launch_fwd_chunk(const void* obs, const void* carry_in, const void* lens,
+                     const void* trans_p, void* hats, void* carry_out,
+                     void* dm, int64_t B, int64_t L, int S,
+                     cudaStream_t stream) {
+  const size_t smem = sweep_smem(S);
+  cudaError_t err = allow_smem(fwd_chunk_kernel<SPL>, smem);
+  if (err != cudaSuccess) return (int)err;
+  fwd_chunk_kernel<SPL><<<grid_for(B), kWarpsPerBlock * 32, smem, stream>>>(
+      (const float*)obs, (const float*)carry_in, (const int32_t*)lens,
+      (const float*)trans_p, (float*)hats, (float*)carry_out, (float*)dm, B,
+      L, S);
+  return (int)cudaGetLastError();
+}
+
+template <int SPL>
+int launch_bwd_chunk(const void* obs, const void* x_carry,
+                     const void* continuing, const void* lens,
+                     const void* trans_p, void* beta, void* x_out, int64_t B,
+                     int64_t L, int S, cudaStream_t stream) {
+  const size_t smem = sweep_smem(S);
+  cudaError_t err = allow_smem(bwd_chunk_kernel<SPL>, smem);
+  if (err != cudaSuccess) return (int)err;
+  bwd_chunk_kernel<SPL><<<grid_for(B), kWarpsPerBlock * 32, smem, stream>>>(
+      (const float*)obs, (const float*)x_carry, (const int32_t*)continuing,
+      (const int32_t*)lens, (const float*)trans_p, (float*)beta,
+      (float*)x_out, B, L, S);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+int tehmm_post_decode(const void* sym, const void* lens, const void* trans_p,
+                      const void* em, const void* alpha, void* path, int64_t B,
+                      int64_t L, int S, int T, int V, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (states_per_lane(S)) {
+    case 1:
+      return launch_decode<1>(sym, lens, trans_p, em, alpha, path, B, L, S,
+                              T, V, st);
+    case 2:
+      return launch_decode<2>(sym, lens, trans_p, em, alpha, path, B, L, S,
+                              T, V, st);
+    case 4:
+      return launch_decode<4>(sym, lens, trans_p, em, alpha, path, B, L, S,
+                              T, V, st);
+    case 8:
+      return launch_decode<8>(sym, lens, trans_p, em, alpha, path, B, L, S,
+                              T, V, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+int tehmm_fwd_chunk(const void* obs, const void* carry_in, const void* lens,
+                    const void* trans_p, void* hats, void* carry_out,
+                    void* dm, int64_t B, int64_t L, int S, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (states_per_lane(S)) {
+    case 1:
+      return launch_fwd_chunk<1>(obs, carry_in, lens, trans_p, hats,
+                                 carry_out, dm, B, L, S, st);
+    case 2:
+      return launch_fwd_chunk<2>(obs, carry_in, lens, trans_p, hats,
+                                 carry_out, dm, B, L, S, st);
+    case 4:
+      return launch_fwd_chunk<4>(obs, carry_in, lens, trans_p, hats,
+                                 carry_out, dm, B, L, S, st);
+    case 8:
+      return launch_fwd_chunk<8>(obs, carry_in, lens, trans_p, hats,
+                                 carry_out, dm, B, L, S, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+int tehmm_bwd_chunk(const void* obs, const void* x_carry,
+                    const void* continuing, const void* lens,
+                    const void* trans_p, void* beta, void* x_out, int64_t B,
+                    int64_t L, int S, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (states_per_lane(S)) {
+    case 1:
+      return launch_bwd_chunk<1>(obs, x_carry, continuing, lens, trans_p,
+                                 beta, x_out, B, L, S, st);
+    case 2:
+      return launch_bwd_chunk<2>(obs, x_carry, continuing, lens, trans_p,
+                                 beta, x_out, B, L, S, st);
+    case 4:
+      return launch_bwd_chunk<4>(obs, x_carry, continuing, lens, trans_p,
+                                 beta, x_out, B, L, S, st);
+    case 8:
+      return launch_bwd_chunk<8>(obs, x_carry, continuing, lens, trans_p,
+                                 beta, x_out, B, L, S, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // extern "C"

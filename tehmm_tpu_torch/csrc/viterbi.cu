@@ -1,12 +1,12 @@
 // Hand-written Hopper (sm_90a) kernels for the Viterbi decode path.
 //
-// Built by tehmm_tpu_torch/ops/cuda_kernels.py with
-//   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-//        -Xcompiler -fPIC
-// into a shared library with a plain C interface, loaded with ctypes.
-// Every entry point launches on the stream it is given, allocates
-// nothing (the Python wrapper allocates outputs with torch.empty) and
-// returns the cudaGetLastError() that follows its launch.
+// Built with em_estep.cu and posterior.cu into one shared library with a
+// plain C interface (tehmm_tpu_torch/ops/cuda_kernels.py: one
+// nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -c per source,
+// then one link), loaded with ctypes; common.cuh holds the helpers the
+// three share.  Every entry point launches on the stream it is given,
+// allocates nothing (the Python wrapper allocates outputs with
+// torch.empty) and returns the cudaGetLastError() that follows its launch.
 //
 // Kernels and the TPU kernels they replace
 // (tehmm_tpu/ops/pallas_kernels.py):
@@ -44,36 +44,11 @@
 //
 // All index arithmetic is 64-bit.
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace {
 
-constexpr float kLogZero = -1e30f;  // tehmm_tpu.utils.common.LOG_ZERO
-constexpr int kWarpsPerBlock = 4;   // one warp per batch row
 constexpr int kBacktraceThreads = 32;
-
-// states per lane for one warp: S <= 32 * SPL
-int states_per_lane(int S) {
-  if (S <= 32) return 1;
-  if (S <= 64) return 2;
-  if (S <= 128) return 4;
-  if (S <= 256) return 8;
-  return 0;
-}
-
-__device__ __forceinline__ void stage(float* dst, const float* src,
-                                      int64_t n) {
-  for (int64_t i = threadIdx.x; i < n; i += blockDim.x) dst[i] = src[i];
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
 
 // best[k] = max_i(v[i] + trans[i, j]) for this lane's states j
 template <int SPL>
@@ -261,12 +236,6 @@ __global__ void __launch_bounds__(kBacktraceThreads)
     }
   }
   entry_state[b] = state;
-}
-
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t smem) {
-  return cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
 template <int SPL>

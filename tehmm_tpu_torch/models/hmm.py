@@ -3,11 +3,14 @@ decoding, persistence).
 
 Counterpart of part of ``tehmm_tpu/models/hmm.py``: the constructors
 (``initialized``, ``supervised``), Baum-Welch EM (``fit``, and
-``fit_restarts`` for random restarts), ``decode_tables``,
-``decode_to_bed``, ``save`` and ``load``, plus the NumPy helpers
-``path_log_score``, ``path_to_intervals``, ``label_tables`` and
-``_labeled_runs`` (copied, because the original module imports JAX).
-Supervised counting stays host-side, through the shared native counters.
+``fit_restarts`` for random restarts), Viterbi decoding
+(``decode_tables``, ``decode_to_bed``), max-posterior decoding
+(``posterior_decode_tables``), posterior distributions
+(``posterior_distributions``), the data's log-likelihood (``score``),
+``save`` and ``load``, plus the NumPy helpers ``path_log_score``,
+``path_to_intervals``, ``label_tables`` and ``_labeled_runs`` (copied,
+because the original module imports JAX).  Supervised counting stays
+host-side, through the shared native counters.
 
 EM stages the chunked training batch on the model's device (int32
 symbols) once, or streams host pass-blocks when it exceeds the device
@@ -15,9 +18,8 @@ budget; on the card every E-step runs through K1.  The fit loop keeps
 the reference's lagged convergence check, so both packages take the
 same E/M steps and log the same logliks.
 
-Posterior decoding, scoring, gaussian tracks, the mesh and the
-train -> decode staging cache are later slices of the port (ROADMAP,
-Queue 1).
+Gaussian tracks, segment weights, the mesh and the train -> decode
+staging cache are later slices of the port (ROADMAP, Queue 1).
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ from tehmm_tpu.io.category import CategoryMap
 from tehmm_tpu.io.trackdata import TrackData, TrackTable
 from tehmm_tpu.io.trackxml import TrackList
 from tehmm_tpu.utils.common import EPSILON, JsonlMetrics, logger
+from tehmm_tpu_torch.models.emission import track_log_likelihoods
 from tehmm_tpu_torch.models.params import (
     HmmParams,
     init_flat,
@@ -42,13 +45,21 @@ from tehmm_tpu_torch.models.params import (
     load_model,
     save_model,
 )
+from tehmm_tpu_torch.ops import cuda_kernels as ck
+from tehmm_tpu_torch.ops import dp
 from tehmm_tpu_torch.ops import em as em_ops
 from tehmm_tpu_torch.parallel.chunking import batch_chunks, plan_chunks
-from tehmm_tpu_torch.parallel.stitch import StitchReport, viterbi_chunked
+from tehmm_tpu_torch.parallel.stitch import (
+    StitchReport,
+    posterior_chunked,
+    posterior_sweep,
+    viterbi_chunked,
+)
 
 _GAUSS_ITEM = (
     "ROADMAP Queue 1, slice 4: gaussian tracks and segment weights"
 )
+_MESH_ITEM = "ROADMAP Queue 1, slice 6: sharding"
 
 # E-step pass budget: positions per E-step call.  The plain E-step holds
 # several [B, L, S] tensors per pass (~400 bytes/position at S=20); K1
@@ -462,6 +473,95 @@ class MultitrackHmm:
                 tab.chrom, tab.start, path, self.state_names
             ))
         return out
+
+    def posterior_decode_tables(
+        self,
+        tables: Sequence[TrackTable],
+        chunk_len: int = 1 << 14,
+        halo: int = 256,
+        rows_per_pass: int = 64,
+        weight_arrays: Sequence[np.ndarray] | None = None,
+    ) -> list[np.ndarray]:
+        """Max-posterior (per-position argmax gamma) paths for each
+        table: halo chunks with the Viterbi stitcher's boundary check and
+        targeted widening, falling back to the exact carried-alpha/beta
+        decoder (``parallel.stitch.posterior_chunked``)."""
+        if weight_arrays is not None:
+            raise NotImplementedError(
+                f"segment weights are not ported yet ({_GAUSS_ITEM})"
+            )
+        paths, _report = posterior_chunked(
+            self.params, tables, chunk_len=chunk_len, halo=halo,
+            rows_per_pass=rows_per_pass,
+        )
+        return paths
+
+    def posterior_distributions(
+        self,
+        tables: Sequence[TrackTable],
+        chunk_len: int = 1 << 14,
+        weight_arrays: Sequence[np.ndarray] | None = None,
+    ) -> list[np.ndarray]:
+        """Per-position posterior state distributions f32[L, S] for each
+        table, from the exact chunk sweep (bit-identical to a monolithic
+        pass; the device holds one chunk at a time)."""
+        if weight_arrays is not None:
+            raise NotImplementedError(
+                f"segment weights are not ported yet ({_GAUSS_ITEM})"
+            )
+        S = self.params.num_states
+        out = [np.zeros((len(tab), S), np.float32) for tab in tables]
+
+        def consume(b, start, gamma):
+            out[b][start : start + len(gamma)] = gamma
+
+        posterior_sweep(self.params, tables, chunk_len=chunk_len,
+                        consume=consume)
+        return out
+
+    def score(
+        self, tables: Sequence[TrackTable], chunk_len: int = 1 << 14,
+        mesh=None,
+    ) -> float:
+        """Total log-likelihood of the data (reference: basehmm.score).
+
+        Exact for arbitrarily long tables: the forward alpha is carried
+        across chunks of ``chunk_len`` (``dp.streaming_loglik``; on the
+        card one X1 launch in carry-only mode per chunk), so device
+        memory is O(tables x states) beside one chunk of obs.  ``mesh``
+        (the JAX package's sequence-parallel forward) raises: it comes
+        with the sharding slice."""
+        if mesh is not None:
+            raise NotImplementedError(
+                f"score over a device mesh is not ported yet ({_MESH_ITEM})"
+            )
+        mats = [t.symbols for t in tables]
+        true_lens = np.asarray([len(m) for m in mats], np.int64)
+        L = int(true_lens.max()) if len(mats) else 0
+        if L == 0:
+            return 0.0                 # every table empty: empty product
+        T = mats[0].shape[1]
+        n_chunks = -(-L // chunk_len)
+        device = self.params.device
+
+        def obs_chunks():
+            for c in range(n_chunks):
+                lo = c * chunk_len
+                block = np.zeros((len(mats), chunk_len, T), np.int32)
+                for b, m in enumerate(mats):
+                    piece = m[lo : lo + chunk_len]
+                    block[b, : len(piece)] = piece
+                yield track_log_likelihoods(
+                    self.params.log_em, torch.from_numpy(block).to(device)
+                )
+
+        lens = [np.clip(true_lens - c * chunk_len, 0, chunk_len)
+                for c in range(n_chunks)]
+        ll = dp.streaming_loglik(
+            self.params.log_start, self.params.log_trans, obs_chunks(),
+            lens, final_fn=ck.forward_final,
+        )
+        return float(ll.sum())
 
     # ------------------------------------------------------------------
     # persistence: the JAX package's npz + JSON format

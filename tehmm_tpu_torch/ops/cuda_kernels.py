@@ -13,12 +13,18 @@ bounds each on an H100 and how its design answers it):
   (and viterbi_carry)   (its ``carry_only`` mode)
   em_fwd                K1 forward, ``_make_forward_kernel_v4``
   em_bwd_stats          K1 reverse, ``_make_bwd_stats_kernel_v4``
+  post_decode           K4 decode, ``_make_post_decode_kernel_v4``
+  forward_chunk_values  X1: no Pallas kernel; the XLA scans of
+  (and forward_final)   ``dp.forward_chunk_values`` (``dp.forward_final``)
+  backward_chunk_values X2: no Pallas kernel; ``dp.backward_chunk_values``
   ===================== ==============================================
 
 ``viterbi_fused`` composes the first two into the symbols-in/path-out
-decode of ``viterbi_fused_pallas_v4``; ``em_counts_fused`` composes the
-last two into the symbols-in/statistics-out E-step of
-``em_counts_fused_pallas_v4``.
+decode of ``viterbi_fused_pallas_v4``; ``em_counts_fused`` composes
+K1's two into the symbols-in/statistics-out E-step of
+``em_counts_fused_pallas_v4``; ``posterior_decode_fused`` composes K1's
+forward with the K4 decode into the symbols-in/path-out max-posterior
+decode of ``posterior_decode_fused_pallas_v4``.
 
 Each wrapper checks device, dtype, shape and contiguity, and sits beside
 its plain-torch version.  A tensor on the CPU takes the plain version; a
@@ -28,9 +34,10 @@ went through the kernels.
 
 The library is built with ``nvcc`` for ``sm_90a`` at first use, into
 ``build/tehmm_tpu_torch/`` beside the package (keyed by a hash over
-every ``csrc/*.cu``): one ``nvcc -c`` per source, all started together,
-then one link.  It is loaded with ctypes.  Nothing is built or imported
-from a CUDA toolchain when this module is imported.
+every ``csrc/*.cu`` and the ``csrc/*.cuh`` they include): one
+``nvcc -c`` per source, all started together, then one link.  It is
+loaded with ctypes.  Nothing is built or imported from a CUDA toolchain
+when this module is imported.
 """
 
 from __future__ import annotations
@@ -53,6 +60,7 @@ from tehmm_tpu_torch.ops import dp
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = sorted(glob.glob(os.path.join(_PKG, "csrc", "*.cu")))
+HEADERS = sorted(glob.glob(os.path.join(_PKG, "csrc", "*.cuh")))
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "tehmm_tpu_torch")
 
 # Launch counts per kernel (plain integers; reset_launch_counts zeroes).
@@ -62,6 +70,9 @@ LAUNCHES = {
     "viterbi_chunk_values": 0,
     "em_fwd": 0,
     "em_bwd_stats": 0,
+    "post_decode": 0,
+    "fwd_chunk": 0,
+    "bwd_chunk": 0,
 }
 
 # The kernels' envelope: one warp holds a row with up to 8 states per
@@ -75,6 +86,9 @@ _ENVELOPE_ITEM = (
 )
 _K1_ENVELOPE_ITEM = (
     "ROADMAP Queue 2: K1 beyond the shared-memory envelope"
+)
+_POST_ENVELOPE_ITEM = (
+    "ROADMAP Queue 2: K4, X1 and X2 beyond the shared-memory envelope"
 )
 
 _lock = threading.Lock()
@@ -103,7 +117,7 @@ def _nvcc() -> str:
 def library_path() -> str:
     """Where the build for the current sources goes."""
     digest = hashlib.sha256()
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
         digest.update(os.path.basename(src).encode() + b"\0")
         with open(src, "rb") as fh:
             digest.update(fh.read())
@@ -187,6 +201,14 @@ def load_library() -> ctypes.CDLL:
         lib.tehmm_em_bwd_stats.argtypes = (
             [ptr] * 9 + [i64, i64, i32, i32, i32, i32, ptr]
         )
+        lib.tehmm_post_decode.restype = i32
+        lib.tehmm_post_decode.argtypes = (
+            [ptr] * 6 + [i64, i64, i32, i32, i32, ptr]
+        )
+        lib.tehmm_fwd_chunk.restype = i32
+        lib.tehmm_fwd_chunk.argtypes = [ptr] * 7 + [i64, i64, i32, ptr]
+        lib.tehmm_bwd_chunk.restype = i32
+        lib.tehmm_bwd_chunk.argtypes = [ptr] * 7 + [i64, i64, i32, ptr]
         _lib = lib
         return lib
 
@@ -687,3 +709,197 @@ def em_counts_fused(log_start, log_trans, log_em, symbols, lengths):
     start, pair, em = em_bwd_stats(log_trans, log_em, symbols, lengths,
                                    alpha, m_raw)
     return start, pair, em, _loglik_rows(alpha, dm, lengths)
+
+
+# ---------------------------------------------------------------------
+# K4: the fused max-posterior decode (K1's forward, then the decode)
+# ---------------------------------------------------------------------
+
+def post_decode_plain(log_trans, log_em, symbols, lengths, alpha,
+                      with_margin=False):
+    """Plain version of ``post_decode``: the reverse walk as a loop over
+    positions, batched over rows.  ``with_margin`` also returns, per
+    position, how close the decision was: (top1 - top2) / top1 of
+    alpha_p * b (1 at padding and for S = 1)."""
+    obs = track_log_likelihoods(log_em, symbols)
+    B, L, S = obs.shape
+    dev = obs.device
+    obs_p = torch.exp(obs - obs.amax(dim=-1, keepdim=True))
+    trans_p = torch.exp(log_trans)
+    lens = lengths.to(torch.int64)
+    b = torch.ones((B, S), dtype=torch.float32, device=dev)
+    path = torch.zeros((B, L), dtype=torch.int32, device=dev)
+    margin = torch.ones((B, L), dtype=torch.float32, device=dev)
+    for p in range(L - 1, -1, -1):
+        valid = p < lens
+        ab = alpha[:, p] * b
+        path[:, p] = torch.where(valid, torch.argmax(ab, dim=-1), 0)
+        if with_margin and S > 1:
+            top = torch.topk(ab, 2, dim=-1).values
+            gap = (top[:, 0] - top[:, 1]) / torch.clamp(top[:, 0],
+                                                         min=1e-37)
+            margin[:, p] = torch.where(valid, gap, 1.0)
+        x = obs_p[:, p] * b
+        xm = torch.clamp(x.amax(dim=-1), min=1e-37)
+        sb = (x / xm[:, None]) @ trans_p.T
+        nm = torch.clamp(sb.amax(dim=-1), min=1e-37)
+        b = torch.where(valid[:, None], sb / nm[:, None], b)
+    return (path, margin) if with_margin else path
+
+
+def post_decode(log_trans, log_em, symbols, lengths, alpha):
+    """K4 decode: int32 path [B, L] from K1's forward rows alpha_p
+    f32[B, L, S] (``em_fwd``).  Each row walks from its last valid
+    position down with b = 1; position p takes the first-hit argmax
+    (lowest state on ties) of alpha_p[p] * b, then b steps back through
+    obs_p and the transitions, rescaled to max 1.  Positions at or past
+    a row's length get 0.
+
+    Replaces ``_make_post_decode_kernel_v4`` (pallas_kernels.py:2765).
+    Bound on an H100: the latency of one dependent step per position (an
+    S x S product from shared memory, an argmax and two max reductions
+    across the warp, T table lookups), not bytes or flops.  Design: K1's
+    reverse kernel without the statistics: one warp per row, lane <->
+    state, exp(trans) and log_em in shared memory, obs recomputed from
+    the symbols, alpha_p read once; true float32 where the TPU kernel
+    split its dots into bf16 passes."""
+    S, T, V = log_em.shape
+    B, L, _T = symbols.shape
+    dev = _check_k1_inputs(log_em, symbols, lengths, log_trans=log_trans,
+                           alpha=alpha)
+    if _device_kind(dev) == "cpu":
+        return post_decode_plain(log_trans, log_em, symbols, lengths, alpha)
+    _check_envelope(S, S * S + S * T * V + _WARPS_PER_BLOCK * S,
+                    "post_decode", _POST_ENVELOPE_ITEM)
+    _check_index_range(symbols, V, "symbols")
+    path = torch.empty((B, L), dtype=torch.int32, device=dev)
+    if B == 0 or L == 0:
+        return path
+    trans_p = torch.exp(log_trans)
+    lib = load_library()
+    rc = lib.tehmm_post_decode(
+        symbols.data_ptr(), lengths.data_ptr(), trans_p.data_ptr(),
+        log_em.data_ptr(), alpha.data_ptr(), path.data_ptr(), B, L, S, T,
+        V, _stream(dev),
+    )
+    _raise_on(rc, lib, "post_decode")
+    LAUNCHES["post_decode"] += 1
+    return path
+
+
+def posterior_decode_fused(log_start, log_trans, log_em, symbols, lengths):
+    """Symbols-in/path-out max-posterior decode with the JAX signature of
+    ``posterior_decode_fused_pallas_v4``: int32 argmax-gamma path [B, L],
+    0 at padding and for zero-length rows.  ``em_fwd`` writes alpha_p,
+    and also its dm and m_raw rows, which the decode does not read (kept:
+    8 bytes a position beside alpha_p's 4*S, and K1's forward stays one
+    kernel).  Normalizers cancel in the per-position argmax, so no loglik
+    is formed."""
+    alpha, _dm, _m_raw = em_fwd(log_start, log_trans, log_em, symbols,
+                                lengths)
+    return post_decode(log_trans, log_em, symbols, lengths, alpha)
+
+
+# ---------------------------------------------------------------------
+# X1, X2: the carried forward/backward chunk sweeps
+# ---------------------------------------------------------------------
+
+def _check_sweep(log_trans, obs, carry, lengths, carry_name):
+    B, L, S = obs.shape
+    dev = obs.device
+    _check(log_trans, "log_trans", torch.float32, (S, S), dev)
+    _check(obs, "obs", torch.float32, (B, L, S), dev)
+    _check(carry, carry_name, torch.float32, (B, S), dev)
+    _check(lengths, "lengths", torch.int32, (B,), dev)
+    for t, name in ((log_trans, "log_trans"), (obs, "obs"),
+                    (carry, carry_name), (lengths, "lengths")):
+        _check_contiguous(t, name)
+    return dev
+
+
+def _fwd_chunk(log_trans, obs, a_hat_init, lengths, values):
+    B, L, S = obs.shape
+    dev = _check_sweep(log_trans, obs, a_hat_init, lengths, "a_hat_init")
+    if _device_kind(dev) == "cpu":
+        plain = dp.forward_chunk_values if values else dp.forward_final
+        return plain(log_trans, obs, a_hat_init, lengths)
+    _check_envelope(S, S * S + _WARPS_PER_BLOCK * S, "forward chunk sweep",
+                    _POST_ENVELOPE_ITEM)
+    carry = torch.empty((B, S), dtype=torch.float32, device=dev)
+    hats = torch.empty((B, L, S), dtype=torch.float32, device=dev) \
+        if values else None
+    dm = None if values else torch.empty((B, L), dtype=torch.float32,
+                                         device=dev)
+    if B:
+        trans_p = torch.exp(log_trans)
+        lib = load_library()
+        rc = lib.tehmm_fwd_chunk(
+            obs.data_ptr(), a_hat_init.data_ptr(), lengths.data_ptr(),
+            trans_p.data_ptr(), None if hats is None else hats.data_ptr(),
+            carry.data_ptr(), None if dm is None else dm.data_ptr(), B, L,
+            S, _stream(dev),
+        )
+        _raise_on(rc, lib, "fwd_chunk")
+        LAUNCHES["fwd_chunk"] += 1
+    if values:
+        return hats, carry
+    return carry, dm.sum(dim=1)
+
+
+def forward_chunk_values(log_trans, obs, a_hat_init, lengths):
+    """X1: every scaled alpha row f32[B, Lc, S] of one chunk and the
+    final carry f32[B, S], from the incoming carry
+    (``dp.forward_chunk_values`` semantics; int32 lengths).
+
+    No Pallas counterpart: on the TPU this is the XLA scan of
+    ``tehmm_tpu/ops/dp.py:480``.  Bound on an H100: the latency of one
+    dependent log-space step per position (S expf, an S x S product from
+    shared memory, S logf, a warp max).  Design: one warp per row, lane
+    <-> state, exp(trans) in shared memory, the carry in registers."""
+    return _fwd_chunk(log_trans, obs, a_hat_init, lengths, True)
+
+
+def forward_final(log_trans, obs, a_hat_init, lengths):
+    """X1 in carry-only mode: (final carry f32[B, S], the chunk's summed
+    normalizer increments f32[B]) (``dp.forward_final`` semantics, JAX
+    ``ops/dp.py:378``; int32 lengths).  The kernel writes each position's
+    increment; they are summed here in one reduction, not as a running
+    sum in the warp, which keeps the loglik's accuracy on long inputs."""
+    return _fwd_chunk(log_trans, obs, a_hat_init, lengths, False)
+
+
+def backward_chunk_values(log_trans, obs, x_carry, continuing, lengths):
+    """X2: every scaled beta row f32[B, Lc, S] of one chunk and x_out
+    f32[B, S] (``dp.backward_chunk_values`` semantics; bool continuing,
+    int32 lengths).  The boundary step from ``x_carry`` and ``x_out`` run
+    inside the kernel, in the same loop as the in-chunk steps, so a sweep
+    cut into chunks gives the bits of one chunk over the whole row.
+
+    No Pallas counterpart: on the TPU this is the XLA scan of
+    ``tehmm_tpu/ops/dp.py:507``.  Bound and design as
+    ``forward_chunk_values``, walking the chunk from its end."""
+    B, L, S = obs.shape
+    dev = _check_sweep(log_trans, obs, x_carry, lengths, "x_carry")
+    _check(continuing, "continuing", torch.bool, (B,), dev)
+    if L == 0:
+        raise ValueError("obs: a chunk needs at least one position")
+    if _device_kind(dev) == "cpu":
+        return dp.backward_chunk_values(log_trans, obs, x_carry, continuing,
+                                        lengths)
+    _check_envelope(S, S * S + _WARPS_PER_BLOCK * S, "backward chunk sweep",
+                    _POST_ENVELOPE_ITEM)
+    beta = torch.empty((B, L, S), dtype=torch.float32, device=dev)
+    x_out = torch.empty((B, S), dtype=torch.float32, device=dev)
+    if B == 0:
+        return beta, x_out
+    trans_p = torch.exp(log_trans)
+    cont = continuing.to(torch.int32)
+    lib = load_library()
+    rc = lib.tehmm_bwd_chunk(
+        obs.data_ptr(), x_carry.data_ptr(), cont.data_ptr(),
+        lengths.data_ptr(), trans_p.data_ptr(), beta.data_ptr(),
+        x_out.data_ptr(), B, L, S, _stream(dev),
+    )
+    _raise_on(rc, lib, "bwd_chunk")
+    LAUNCHES["bwd_chunk"] += 1
+    return beta, x_out

@@ -1,5 +1,7 @@
 """HMM dynamic programming in plain torch: the scaled forward/backward
-scans and posteriors of the E-step, and max-plus Viterbi.
+scans and posteriors of the E-step, their carried chunk continuations
+(whole-chromosome scoring and the exact chunked posteriors), and
+max-plus Viterbi.
 
 Counterpart of ``tehmm_tpu/ops/dp.py``, step for step: the same
 max-rescaled carries, the same masking (positions ``t >= length`` carry
@@ -13,8 +15,8 @@ agree with it to float32 rounding.
 
 This is the CPU path and the reference every CUDA kernel is checked
 against (``ops/cuda_kernels.py``).  The time loops are Python loops over
-positions: on the GPU the E-step and the decoders call the kernels
-instead.
+positions: on the GPU the E-step, the decoders and the chunk sweeps
+call the kernels instead.
 
 All functions take batch-major ``obs[B, L, S]``.
 """
@@ -140,6 +142,150 @@ def posterior_scaled(alpha_hat: torch.Tensor,
     x = alpha_hat + beta_hat
     p = torch.exp(x - x.amax(dim=-1, keepdim=True))
     return p / p.sum(dim=-1, keepdim=True)
+
+
+# ---------------------------------------------------------------------
+# carried chunk continuations (whole-chromosome scoring and the exact
+# chunked posteriors).  Each runs the same _fwd_step / _bwd_step as the
+# monolithic scans, so a chunked sweep is bit-identical to
+# forward_scaled / backward_scaled over the whole row.
+# ---------------------------------------------------------------------
+
+def forward_final(
+    log_trans: torch.Tensor,
+    obs: torch.Tensor,
+    alpha_hat_init: torch.Tensor,
+    lengths: torch.Tensor | None = None,
+    matmul: bool = True,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Forward continuation from a carry: every position of the chunk
+    applies a transition first.  Returns (final carry f32[B, S], the
+    chunk's summed normalizer increments f32[B]); the increments are
+    summed in one reduction, not a running carry."""
+    B, Lc, S = obs.shape
+    lengths = _lengths(lengths, B, Lc, obs.device)
+    trans_exp = torch.exp(log_trans)
+    a_hat = alpha_hat_init
+    dms = []
+    for t in range(Lc):
+        a_hat, dm = _fwd_step(log_trans, trans_exp, a_hat, obs[:, t],
+                              t < lengths, matmul)
+        dms.append(dm)
+    if not dms:
+        return a_hat, torch.zeros((B,), dtype=obs.dtype, device=obs.device)
+    return a_hat, torch.stack(dms, dim=1).sum(dim=1)
+
+
+def streaming_loglik(
+    log_start: torch.Tensor,
+    log_trans: torch.Tensor,
+    obs_chunks,
+    lengths_per_chunk=None,
+    final_fn=None,
+) -> torch.Tensor:
+    """Exact log-likelihood f32[B] of arbitrarily long rows from an
+    iterator of obs chunks (each f32[B, Lc, S]), in O(B·S) memory.
+
+    ``lengths_per_chunk``: optional iterable of int[B] valid lengths per
+    chunk (rows may end mid-stream); zero-length rows get loglik 0.
+    ``final_fn``: the forward continuation, ``forward_final`` by default
+    (the CUDA path passes ``ops.cuda_kernels.forward_final``, which
+    takes int32 lengths)."""
+    final_fn = final_fn or forward_final
+    it = iter(obs_chunks)
+    lens_it = iter(lengths_per_chunk) if lengths_per_chunk is not None \
+        else None
+    first = next(it)
+    dev = first.device
+
+    def as_lens(x):
+        return torch.as_tensor(x, device=dev).to(torch.int32)
+
+    lens0 = as_lens(next(lens_it)) if lens_it is not None else None
+    a0 = log_start[None, :] + first[:, 0, :]
+    row_lens = None
+    if lens0 is not None:
+        row_lens = lens0.to(torch.int64)
+        a0 = torch.where((row_lens > 0)[:, None], a0, LOG_ZERO)
+    a_hat, m0 = _renorm(a0)
+    rest_lens = None if lens0 is None else torch.clamp(lens0 - 1, min=0)
+    if rest_lens is None:
+        rest_lens = torch.full((first.shape[0],), first.shape[1] - 1,
+                               dtype=torch.int32, device=dev)
+    a_hat, dm = final_fn(log_trans, first[:, 1:, :].contiguous(), a_hat,
+                         rest_lens)
+    total = m0 + dm
+    for chunk in it:
+        if lens_it is not None:
+            lens = as_lens(next(lens_it))
+            row_lens = row_lens + lens
+        else:
+            lens = torch.full((chunk.shape[0],), chunk.shape[1],
+                              dtype=torch.int32, device=dev)
+        a_hat, dm = final_fn(log_trans, chunk, a_hat, lens)
+        total = total + dm
+    total = total + torch.log(torch.exp(a_hat).sum(dim=-1))
+    if row_lens is not None:
+        total = torch.where(row_lens > 0, total, 0.0)
+    return total
+
+
+def forward_chunk_values(
+    log_trans: torch.Tensor,
+    obs: torch.Tensor,
+    a_hat_init: torch.Tensor,
+    lengths: torch.Tensor | None = None,
+    matmul: bool = True,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-position scaled alphas of one chunk from its incoming carry
+    (every position applies a transition first).  Returns
+    (alpha_hats f32[B, Lc, S], final carry f32[B, S])."""
+    B, Lc, S = obs.shape
+    lengths = _lengths(lengths, B, Lc, obs.device)
+    trans_exp = torch.exp(log_trans)
+    a_hat = a_hat_init
+    hats = []
+    for t in range(Lc):
+        a_hat, _ = _fwd_step(log_trans, trans_exp, a_hat, obs[:, t],
+                             t < lengths, matmul)
+        hats.append(a_hat)
+    return torch.stack(hats, dim=1), a_hat
+
+
+def backward_chunk_values(
+    log_trans: torch.Tensor,
+    obs: torch.Tensor,
+    x_carry: torch.Tensor,
+    continuing: torch.Tensor,
+    lengths: torch.Tensor | None = None,
+    matmul: bool = True,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-position scaled betas of one chunk from its incoming carry.
+
+    ``x_carry`` f32[B, S] is the max-normalized ``obs + beta`` row at the
+    NEXT chunk's first position; ``continuing`` bool[B] marks rows that
+    extend past this chunk (the others start from beta = 0 at their last
+    valid position, as the monolithic scan does); ``lengths`` are the
+    valid positions within this chunk.  The boundary step and ``x_out``
+    are the two halves of ``_bwd_step``.
+
+    Returns (beta_hats f32[B, Lc, S], x_out f32[B, S]: the carry for the
+    previous chunk, taken at this chunk's first position)."""
+    B, Lc, S = obs.shape
+    lengths = _lengths(lengths, B, Lc, obs.device)
+    log_trans_T = log_trans.T.contiguous()
+    trans_exp_T = torch.exp(log_trans_T)
+    b_cont, _ = _renorm(_logdot(x_carry, log_trans_T, trans_exp_T, matmul))
+    b_hat = torch.where(continuing.to(torch.bool)[:, None], b_cont,
+                        torch.zeros_like(b_cont))
+    hats = [b_hat]
+    for t in range(Lc - 2, -1, -1):
+        b_hat, _ = _bwd_step(log_trans_T, trans_exp_T, b_hat,
+                             obs[:, t + 1], t + 1 < lengths, matmul)
+        hats.append(b_hat)
+    beta_hat = torch.stack(hats[::-1], dim=1)
+    x_out, _ = _renorm(obs[:, 0] + beta_hat[:, 0])
+    return beta_hat, x_out
 
 
 def _maxplus_step(log_trans: torch.Tensor, v_hat: torch.Tensor,

@@ -1,19 +1,26 @@
-"""Chunked Viterbi decoding: halo stitching and the exact decoder.
+"""Chunked Viterbi and max-posterior decoding: halo stitching and the
+exact decoders.
 
-Counterpart of the Viterbi half of ``tehmm_tpu/parallel/stitch.py``.  A
-chromosome is decoded as fixed-size chunks, each extended by a halo on
-both sides; only each chunk's core is kept.  Neighbouring decodes are
-compared on a window around every boundary, and a disagreeing boundary
-doubles only its adjacent chunks' halos and re-decodes them, up to
-``max_halo``; persistent disagreement falls back to the checkpointed
-EXACT decoder (``viterbi_exact``), which equals the monolithic decode
-unconditionally and is also available directly (eval ``--exact``).
+Counterpart of ``tehmm_tpu/parallel/stitch.py``.  A chromosome is
+decoded as fixed-size chunks, each extended by a halo on both sides;
+only each chunk's core is kept.  Neighbouring decodes are compared on a
+window around every boundary, and a disagreeing boundary doubles only
+its adjacent chunks' halos and re-decodes them, up to ``max_halo``;
+persistent disagreement falls back to the checkpointed EXACT decoder
+(``viterbi_exact``, ``posterior_exact``), which equals the monolithic
+decode unconditionally and is also available directly (eval
+``--exact``).  ``posterior_sweep`` is the exact posterior machinery
+itself: it also streams per-chunk gamma to a consumer (eval ``--pd``).
 
 On CUDA tensors the decoders run the hand-written kernels
-(``ops/cuda_kernels``): the stitched decoder the fused K2
-(``viterbi_fused``), the exact decoder K3 (``viterbi_carry``,
-``viterbi_chunk_values``) and the backtrace kernel.  On the CPU the same
-calls take the plain-torch versions.
+(``ops/cuda_kernels``): stitched Viterbi the fused K2
+(``viterbi_fused``), exact Viterbi K3 (``viterbi_carry``,
+``viterbi_chunk_values``) and the backtrace kernel, stitched
+max-posterior K4 (``posterior_decode_fused``), and the exact posteriors
+the chunk sweeps X1 (``forward_final``, ``forward_chunk_values``) and X2
+(``backward_chunk_values``).  On the CPU the same calls take the
+plain-torch versions, and the stitched max-posterior decode runs the
+log-space scans, as the JAX package does off the TPU.
 
 Left out of the port, because they served a TPU runtime whose
 device-to-host link ran at tens of MB/s and results are identical
@@ -35,6 +42,7 @@ from tehmm_tpu.utils.common import logger
 from tehmm_tpu_torch.models.emission import track_log_likelihoods
 from tehmm_tpu_torch.models.params import HmmParams
 from tehmm_tpu_torch.ops import cuda_kernels as ck
+from tehmm_tpu_torch.ops import dp
 from tehmm_tpu_torch.parallel.chunking import batch_chunks, plan_chunks
 
 
@@ -313,3 +321,170 @@ def viterbi_exact(
                 paths[b, lo:hi] = cp[b, : hi - lo]
     paths[:, 0] = end_state.cpu().numpy()
     return [paths[b, : int(true_lens[b])].copy() for b in range(B)]
+
+
+# ---------------------------------------------------------------------
+# max-posterior decoding
+# ---------------------------------------------------------------------
+
+def _posterior_batch(
+    params: HmmParams,
+    symbols: np.ndarray,
+    lengths: np.ndarray,
+    rows_per_pass: int,
+) -> np.ndarray:
+    """argmax-gamma over a chunk batch [n, L, T], ``rows_per_pass`` rows
+    per pass.  On the card each pass is K4 (``posterior_decode_fused``:
+    symbols in, path out, no gamma in memory); on the CPU it is the
+    log-space scans and ``posterior_scaled``, as the JAX package runs
+    off the TPU.  Returns int32 paths [n, L], 0 beyond each length."""
+    n, L, _T = symbols.shape
+    out = np.zeros((n, L), dtype=np.int32)
+    dev = params.device
+    for lo in range(0, n, rows_per_pass):
+        hi = min(lo + rows_per_pass, n)
+        lens = _to_device(lengths[lo:hi], dev)
+        sym = _to_device(symbols[lo:hi], dev)
+        if dev.type == "cuda":
+            paths = ck.posterior_decode_fused(
+                params.log_start, params.log_trans, params.log_em, sym, lens,
+            )
+        else:
+            obs = track_log_likelihoods(params.log_em, sym)
+            ah, _, _ = dp.forward_scaled(params.log_start, params.log_trans,
+                                         obs, lens)
+            bh, _ = dp.backward_scaled(params.log_trans, obs, lens)
+            paths = torch.argmax(dp.posterior_scaled(ah, bh), dim=-1)
+        rows = paths.cpu().numpy()
+        valid = np.arange(L)[None, :] < lengths[lo:hi, None]
+        out[lo:hi] = np.where(valid, rows, 0)
+    return out
+
+
+def posterior_chunked(
+    params: HmmParams,
+    tables: Sequence,
+    chunk_len: int = 1 << 14,
+    halo: int = 256,
+    max_halo: int = 1 << 14,
+    agree_frac: float = 0.5,
+    rows_per_pass: int = 64,
+) -> tuple[list[np.ndarray], StitchReport]:
+    """Max-posterior decoding with the stitching contract of
+    ``viterbi_chunked`` (see _stitched_decode): halo chunks, the
+    all-boundary agreement check, targeted widening, and the exact
+    carried-alpha/beta decoder (``posterior_exact``) as the fallback.
+    Returns one int32[L] argmax-gamma path per table."""
+    def decode_rows(symbols, lens):
+        return _posterior_batch(params, symbols, lens, rows_per_pass)
+
+    return _stitched_decode(
+        params, tables, chunk_len, halo, max_halo, agree_frac,
+        decode_rows, posterior_exact, "posterior_chunked",
+    )
+
+
+def posterior_sweep(
+    params: HmmParams,
+    tables: Sequence,
+    chunk_len: int = 1 << 14,
+    consume=None,
+) -> list[np.ndarray]:
+    """EXACT chunked posteriors: a forward sweep stores the O(S) alpha
+    carry entering every chunk; the backward sweep carries beta from
+    chunk to chunk and recomputes each chunk's alphas from its stored
+    carry.  The steps are those of the monolithic scans, so gamma (and
+    its argmax) is bit-identical to a whole-table pass, with device
+    memory bounded by one chunk.  Sequential over chunks, batched across
+    tables; on the card the sweeps are X1 (``forward_final``,
+    ``forward_chunk_values``) and X2 (``backward_chunk_values``).
+
+    ``consume(table_idx, start, gamma_chunk)`` is called for every chunk
+    in REVERSE time order with gamma f32[valid, S] (NumPy); the default
+    consumer collects argmax paths.  Returns the argmax paths."""
+    mats = [np.ascontiguousarray(getattr(t, "symbols", t)) for t in tables]
+    dev = params.device
+    B = len(mats)
+    true_lens = np.asarray([len(m) for m in mats], np.int64)
+    T = mats[0].shape[1]
+    Lb = int(true_lens.max()) - 1          # body = positions 1..L-1
+    Lc = min(chunk_len, max(Lb, 1))
+    n_chunks = max(0, -(-Lb // Lc))
+
+    def obs_chunk(c):
+        """obs for body positions [1 + c*Lc, 1 + (c+1)*Lc) padded."""
+        lo = 1 + c * Lc
+        block = np.zeros((B, Lc, T), dtype=mats[0].dtype)
+        for b, m in enumerate(mats):
+            piece = m[lo : lo + Lc]
+            block[b, : len(piece)] = piece
+        obs = track_log_likelihoods(params.log_em, _to_device(block, dev))
+        lens = np.clip(true_lens - lo, 0, Lc)
+        return obs, _to_device(lens, dev), lens
+
+    # position 0 values (empty tables get inert zero rows — masked by
+    # true_lens > 0 below)
+    block0 = _first_rows(mats, T, mats[0].dtype)
+    obs0 = track_log_likelihoods(
+        params.log_em, _to_device(block0[:, None, :], dev)
+    )[:, 0, :]
+    a0 = params.log_start[None, :] + obs0
+    m0 = torch.clamp(a0.amax(dim=-1, keepdim=True), min=-1e30)
+    a0_hat = a0 - m0
+
+    # ---- forward sweep: store the carry entering each chunk ----
+    entry_carries = []
+    carry = a0_hat
+    for c in range(n_chunks):
+        entry_carries.append(carry)
+        obs, lens, _ = obs_chunk(c)
+        carry, _ = ck.forward_final(params.log_trans, obs, carry, lens)
+
+    paths = [np.zeros(L, np.int32) for L in map(int, true_lens)]
+
+    def default_consume(b, start, gamma):
+        paths[b][start : start + len(gamma)] = np.argmax(gamma, axis=-1)
+
+    consume = consume or default_consume
+
+    # ---- backward sweep with per-chunk gamma ----
+    S = params.num_states
+    x_carry = torch.zeros((B, S), dtype=torch.float32, device=dev)
+    for c in reversed(range(n_chunks)):
+        obs, lens, lens_np = obs_chunk(c)
+        lo = 1 + c * Lc
+        continuing = torch.from_numpy(true_lens > lo + Lc).to(dev)
+        a_hats, _ = ck.forward_chunk_values(
+            params.log_trans, obs, entry_carries[c], lens
+        )
+        b_hats, x_carry = ck.backward_chunk_values(
+            params.log_trans, obs, x_carry, continuing, lens
+        )
+        gamma = dp.posterior_scaled(a_hats, b_hats).cpu().numpy()
+        for b in range(B):
+            if lens_np[b] > 0:
+                consume(b, lo, gamma[b, : lens_np[b]])
+
+    # ---- position 0: gamma from a0 and the final x_carry ----
+    # beta at position 0 = the step from x_carry, for rows longer than 1
+    beta0 = ck.backward_chunk_values(
+        params.log_trans,
+        torch.zeros((B, 1, S), dtype=torch.float32, device=dev), x_carry,
+        torch.from_numpy(true_lens > 1).to(dev),
+        torch.ones((B,), dtype=torch.int32, device=dev),
+    )[0][:, 0, :]
+    gamma0 = dp.posterior_scaled(a0_hat, beta0).cpu().numpy()
+    for b in range(B):
+        if true_lens[b] > 0:
+            consume(b, 0, gamma0[b : b + 1])
+    return paths
+
+
+def posterior_exact(
+    params: HmmParams,
+    tables: Sequence,
+    chunk_len: int = 1 << 14,
+) -> list[np.ndarray]:
+    """Exact max-posterior paths (argmax of the bit-exact chunked
+    gamma)."""
+    return posterior_sweep(params, tables, chunk_len)

@@ -111,10 +111,11 @@ def test_cli_refuses_what_is_not_ported(workdir, monkeypatch):
                          "3", "--mesh", "2"])
     model = _train(port_train, workdir, "m.npz", ["--device", "cpu"])
     regions = str(workdir / "regions.bed")
-    with pytest.raises(SystemExit, match="--maxPost.*ROADMAP"):
-        port_eval.main([xml, model, regions, "--bed", "o.bed", "--maxPost"])
-    with pytest.raises(SystemExit, match="ROADMAP.*slice 3"):
-        port_eval.main([xml, model, regions, "--device", "cpu"])
+    with pytest.raises(SystemExit, match="--segment.*ROADMAP.*slice 4"):
+        port_eval.main([xml, model, regions, "--bed", "o.bed", "--segment"])
+    with pytest.raises(SystemExit, match="--mesh.*ROADMAP.*slice 6"):
+        port_eval.main([xml, model, regions, "--device", "cpu", "--mesh",
+                        "2"])
     # CUDA asked for on a host without it raises; nothing picks the CPU
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):
