@@ -24,7 +24,14 @@ Phases (any failure raises, and the run exits non-zero):
    relative), two launches bit-identical.  The chunk sweeps X1 and X2
    on obs of 4 rows of 4096 (ragged): hats within 1e-5 absolute,
    carries, x_out and the summed normalizers within 1e-6 relative, two
-   launches bit-identical.  Times of both sides for every kernel.
+   launches bit-identical.  Then K2's forward, K1 and the K4 decode
+   with each optional observation stream (segment weights in [1, 64],
+   2 gaussian tracks with 10% missing values, both) at the same shapes:
+   K2's value rows, normalizers and paths bit-equal, K1 at the same
+   tolerances (gaussian moments within 1e-4 of each moment's largest
+   entry) and bit-identical across two launches, K4 as above.  Times of
+   both sides for every kernel and variant, beside the least time the
+   card could take for the same work.
 3. End to end through the port's CLIs, in-process, at the width of the
    10-state / 5-track supervised decode configuration: a planted
    20,000,000-position chromosome (4 categorical BED tracks + FASTA),
@@ -58,9 +65,30 @@ Phases (any failure raises, and the run exits non-zero):
    command on both; per-iteration logliks within 1e-5 relative, learned
    probabilities within 1e-4, decoded BED agreeing on >= 99.9% of bases;
    then ``--reps 2`` on the card, through K1 for both restarts.
-4. The launch counters, zeroed just before phase 3, 3d and 3b's
-   training run and read just after each, show every kernel of each path
-   ran on it.
+3e. Gaussian tracks and segment mode on the same chromosome, with one
+   gaussian BED track (a record per 500 bases, its value ~ N(mu[state],
+   1)).  Base resolution (the phase-3 tracks and the gaussian track):
+   ``train --supervised`` and stitched ``eval --bed`` (K2 with the
+   gaussian stream); every boundary agrees and base accuracy >= 0.9;
+   stitched ``--maxPost`` on the 1,000,000-position region (K1's forward
+   and K4 with the gaussian stream; base accuracy >= 0.9); EM on a
+   50,000-position region (K1 with the gaussian stream) on the card and
+   the CPU, logliks within 1e-5 relative; on the 20,000-position region
+   the card's BED and printed score equal the CPU's (1e-5 relative).  Segment mode (the 4 BED tracks and the
+   gaussian track): ``segment_tracks`` on the whole chromosome (segment
+   count and compression printed), ``train --segment --segLen`` (10
+   states, 15 iterations; K1 with both streams; every loglik finite and
+   non-decreasing within 1e-4 |loglik|), ``eval --segment --segLen
+   --bed`` stitched (K2 with both streams) and ``--maxPost`` (K4 with
+   both streams), base accuracy after the majority mapping and the
+   printed scores.  On a 200,000-position region the card against the
+   CPU in segment mode, with the gaussian track and with the categorical
+   tracks only (the weight stream alone): EM logliks within 1e-5
+   relative, BED agreeing on >= 99.9% of bases.  Stage times.
+4. The launch counters, zeroed just before phase 3, 3d, 3b's training
+   run, and 3e's base-resolution, segment and categorical segment runs
+   and read just after each, show every kernel and stream variant of
+   each path ran on it.
 
 The last lines are a JSON object of per-kernel results, the card's name
 and power limit, and ``{"ok": true, "device": {...}}``.  Without CUDA it
@@ -88,12 +116,22 @@ B_ROWS, L_ROWS = 512, 4096 + 2 * 256  # one decode group
 GC = np.linspace(0.3, 0.7, S)        # per-state GC content
 N_CATS, BLOCK = 8, 50                # BED categories, bases per record
 RUN_MEAN = 2000                      # mean planted run length
+N_POSITIONS = 20_000_000             # the planted chromosome of phase 3
 K1_S, K1_T, K1_V, K1_B, K1_L = 20, 5, 8, 2048, 1024   # bench.py's E-step
 EM_STATES, EM_ITERS, EM_CHUNK = 10, 15, 16384
 K1_EM_ROWS = 256                     # rows of the K1 check at EM's shape
 K4_B, K4_L = 64, 4096 + 2 * 256      # one stitched max-posterior group
 X_B, X_L = 4, 4096                   # the chunk sweeps' check
 NEAR_TIE = 1e-5                      # K4: relative gap of a near-tie
+STREAM_VARIANTS = ("+w", "+g", "+wg")  # weights, gaussian tracks, both
+STREAM_G = 2                         # gaussian tracks of phase 2's streams
+W_LO, W_HI = 1.0, 64.0               # phase 2's segment weights
+GAUSS_RECORD = 500                   # 3e: bases per gaussian-track record
+GAUSS_MU = np.linspace(-4.5, 4.5, S)  # 3e: that track's per-state mean
+SEG_STATES, SEG_ITERS = 10, 15       # 3e: segment-mode EM
+# the card's published peaks (H100 SXM datasheet: HBM3
+# at 3.35 TB/s, float32 outside the tensor cores at 67 TFLOP/s)
+H100_BYTES_PER_S, H100_F32_PER_S = 3.35e12, 67e12
 SOURCES = {
     "viterbi_fwd": "tehmm_tpu_torch/csrc/viterbi.cu",
     "viterbi_backtrace": "tehmm_tpu_torch/csrc/viterbi.cu",
@@ -118,6 +156,11 @@ REPLACES = {
 DECODE_KERNELS = ("viterbi_fwd", "viterbi_backtrace", "viterbi_chunk_values")
 EM_KERNELS = ("em_fwd", "em_bwd_stats")
 POST_KERNELS = ("em_fwd", "post_decode", "fwd_chunk", "bwd_chunk")
+# 3e's paths: base resolution with a gaussian track (+g), segment mode
+# with the gaussian track (+wg) and with categorical tracks only (+w)
+GAUSS_BASE_KERNELS = ("viterbi_fwd+g", "viterbi_backtrace", "em_fwd+g",
+                      "em_bwd_stats+g", "post_decode+g")
+SEGMENT_KERNELS = ("em_fwd", "em_bwd_stats", "viterbi_fwd", "post_decode")
 
 
 def _smi() -> str:
@@ -140,6 +183,66 @@ def _median_ms(fn, runs: int) -> float:
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     return float(np.median(times))
+
+
+def _obs_ops(S, T, G, weighted):
+    """float32 operations of one position's obs for all S states: T-1
+    adds per state; with G gaussian tracks 3G feature products, then per
+    state 3G coefficient products, 3G-3 block adds and 2 more; with
+    weights one product per state."""
+    ops = S * (T - 1)
+    if G:
+        ops += 3 * G + S * (6 * G - 1)
+    if weighted:
+        ops += S
+    return ops
+
+
+def _bound(name, shape, valid, G=0, weighted=False) -> dict:
+    """bound_ms and bound_by of one call of kernel ``name`` at ``shape`` =
+    (B, L, S, T, V) with ``valid`` valid positions: the larger of the
+    bytes the function must move (each input read once, each output
+    written once) over the HBM rate and its float32 operations (an exp
+    or log counted as one) over the card's float32 peak; and library_ms:
+    no single PyTorch call computes any of these functions."""
+    B, L, S, T, V = shape
+    f = 4
+    tables = (S * S + S * T * V) * f
+    streams = (B * L * f if weighted else 0) + \
+        ((B * L * G + 2 * S * G) * f if G else 0)
+    sym = (B * L * T + B) * f
+    rows = B * L * S * f
+    obs = _obs_ops(S, T, G, weighted)
+    base = name.split("+")[0]
+    if base == "viterbi_fwd":          # max-plus step, obs, renormalise
+        nbytes = sym + tables + S * f + streams + rows + B * L * f
+        ops = 2 * S * S + obs + 2 * S
+    elif base == "viterbi_backtrace":  # S adds and compares a position
+        nbytes = S * S * f + rows + (B * S + 3 * B + B * L) * f
+        ops = 2 * S
+    elif base == "viterbi_chunk_values":
+        nbytes = 2 * rows + (B * S + B + S * S) * f
+        ops = 2 * S * S + 3 * S
+    elif base == "em_fwd":             # obs_p, S x S product, scale
+        nbytes = sym + tables + S * f + streams + rows + 2 * B * L * f
+        ops = 2 * S * S + obs + 6 * S
+    elif base == "em_bwd_stats":       # obs_p, b step, pair, counts
+        nbytes = (sym + tables + streams + rows + B * L * f
+                  + (S + S * S + S * T * V + 3 * S * G) * f)
+        ops = 4 * S * S + obs + S * T + 6 * S * G + 10 * S
+    elif base == "post_decode":        # obs_p, b step, argmax
+        nbytes = sym + tables + streams + rows + B * L * f
+        ops = 2 * S * S + obs + 8 * S
+    elif base in ("fwd_chunk", "bwd_chunk"):   # log-space step
+        nbytes = 2 * rows + (2 * B * S + 2 * B + S * S) * f
+        ops = 2 * S * S + 4 * S
+    else:
+        raise KeyError(name)
+    t_bytes = nbytes / H100_BYTES_PER_S
+    t_ops = valid * ops / H100_F32_PER_S
+    return dict(bound_ms=max(t_bytes, t_ops) * 1e3,
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                library_ms=None)
 
 
 # ---------------------------------------------------------------------
@@ -231,6 +334,13 @@ def phase_kernels(device, rng) -> dict:
         ms=_median_ms(lambda: ck.viterbi_chunk_values(*k3_args), 5),
         plain_ms=_median_ms(lambda: dp.viterbi_chunk_values(*k3_args), 3),
     )
+    shape, valid = (B_ROWS, L_ROWS, S, T, V), int(lengths.sum())
+    out["viterbi_fwd"].update(_bound("viterbi_fwd", shape, valid))
+    out["viterbi_backtrace"].update(_bound(
+        "viterbi_backtrace", (B_ROWS, L_ROWS - 1, S, T, V),
+        int(np.clip(lengths - 1, 0, None).sum())))
+    out["viterbi_chunk_values"].update(
+        _bound("viterbi_chunk_values", shape, valid))
     for name, r in out.items():
         print(f"[kernels] {name:22s} bit-equal  kernel {r['ms']:10.3f} ms"
               f"  plain {r['plain_ms']:10.3f} ms", flush=True)
@@ -328,6 +438,8 @@ def phase_k1(device, rng) -> dict:
             plain_ms=_median_ms(
                 lambda: ck.em_bwd_stats_plain(*bwd_args), 3)),
     }
+    for name in EM_KERNELS:
+        out[name].update(_bound(name, (B, L, S, T, V), int(lengths.sum())))
 
     # the whole E-step against the plain log-space engine
     # (tests/test_pallas.py's limits)
@@ -449,6 +561,11 @@ def phase_post_kernels(device, rng) -> dict:
         plain_ms=_median_ms(
             lambda: dp.backward_chunk_values(lt, obs, init, cont, xl), 3),
     )
+    out["post_decode"].update(_bound("post_decode", (K4_B, K4_L, S, T, V),
+                                     int(lengths.sum())))
+    for name in ("fwd_chunk", "bwd_chunk"):
+        out[name].update(_bound(name, (X_B, X_L, S, T, V),
+                                int(x_lens.sum())))
     print(f"[kernels] X1/X2 at S={S}, {X_B} rows of {X_L} (ragged): within "
           f"tolerance of the plain versions, repeat launches "
           f"bit-identical; K4 fused (em_fwd + decode) "
@@ -457,6 +574,196 @@ def phase_post_kernels(device, rng) -> dict:
           f"{out['fwd_chunk']['carry_only_plain_ms']:.3f} ms)", flush=True)
     for name, r in out.items():
         print(f"[kernels] {name:22s} max_abs_err {r['max_abs_err']:.3g}  "
+              f"kernel {r['ms']:10.3f} ms  plain {r['plain_ms']:10.3f} ms",
+              flush=True)
+    return out
+
+
+def _stream_inputs(rng, device, variant, B, L, S):
+    """One variant's optional streams: segment weights drawn in
+    [W_LO, W_HI] (+w), STREAM_G gaussian tracks with 10% of the values
+    missing and random means and variances (+g)."""
+    import torch
+
+    from tehmm_tpu_torch.models.gauss import from_numpy as gauss_from_numpy
+
+    w = vals = gauss = None
+    if "w" in variant:
+        w = torch.from_numpy(
+            rng.uniform(W_LO, W_HI, (B, L)).astype(np.float32)).to(device)
+    if "g" in variant:
+        v = (rng.randn(B, L, STREAM_G) * 2.0).astype(np.float32)
+        v[rng.rand(B, L, STREAM_G) < 0.1] = np.nan
+        vals = torch.from_numpy(v).to(device)
+        gauss = gauss_from_numpy(rng.randn(S, STREAM_G) * 2.0,
+                                 rng.randn(S, STREAM_G) * 0.5, device)
+    return dict(obs_weights=w, gauss_params=gauss, gauss_values=vals)
+
+
+def _ragged(rng, B, L):
+    lengths = rng.randint(0, L + 1, size=B).astype(np.int32)
+    lengths[:4] = [L, 0, 1, 2]
+    return lengths
+
+
+def phase_stream_kernels(device, rng) -> dict:
+    """K2's forward, K1 and K4's decode with each optional observation
+    stream (+w, +g, +wg) against their plain versions, at the shapes of
+    phase 2's streamless checks."""
+    import torch
+
+    from tehmm_tpu_torch.models.emission import obs_log_likelihoods
+    from tehmm_tpu_torch.models.params import from_numpy
+    from tehmm_tpu_torch.ops import cuda_kernels as ck
+    from tehmm_tpu_torch.ops import dp
+
+    out = {}
+
+    # K2's forward at the decode's shape: value rows, normalizers and
+    # paths bit-equal
+    p = _decode_model(rng, device)
+    lengths = _ragged(rng, B_ROWS, L_ROWS)
+    sym = torch.from_numpy(
+        rng.randint(0, V, size=(B_ROWS, L_ROWS, T)).astype(np.int32)
+    ).to(device)
+    lens = torch.from_numpy(lengths).to(device)
+    args = (p.log_start, p.log_trans, p.log_em, sym, lens)
+    for variant in STREAM_VARIANTS:
+        st = _stream_inputs(rng, device, variant, B_ROWS, L_ROWS, S)
+        v, dm = ck.viterbi_fwd(*args, **st)
+        pv, pdm = ck.viterbi_fwd_plain(*args, **st)
+        assert torch.equal(v, pv) and torch.equal(dm, pdm), \
+            f"viterbi_fwd{variant} disagrees with its plain version"
+        path, _score = ck.viterbi_fused(*args, **st)
+        obs = obs_log_likelihoods(p.log_em, sym, st["gauss_params"],
+                                  st["gauss_values"], st["obs_weights"])
+        want_p, _ = dp.viterbi(p.log_start, p.log_trans, obs, lens)
+        assert torch.equal(path, want_p), \
+            f"viterbi_fused{variant} path != dp.viterbi"
+        del obs, want_p
+        out["viterbi_fwd" + variant] = dict(
+            max_abs_err=float(max((v - pv).abs().max(),
+                                  (dm - pdm).abs().max())),
+            ms=_median_ms(lambda: ck.viterbi_fwd(*args, **st), 5),
+            plain_ms=_median_ms(lambda: ck.viterbi_fwd_plain(*args, **st),
+                                3),
+            **_bound("viterbi_fwd" + variant, (B_ROWS, L_ROWS, S, T, V),
+                     int(lengths.sum()), STREAM_G if "g" in variant else 0,
+                     "w" in variant),
+        )
+        del v, pv, dm, pdm
+    print(f"[streams] K2 forward at S={S} T={T} V={V}, {B_ROWS} rows of "
+          f"L={L_ROWS} (ragged), weights in [{W_LO:g}, {W_HI:g}], "
+          f"{STREAM_G} gaussian tracks (10% missing): value rows, "
+          f"normalizers and paths bit-equal to plain for "
+          f"{', '.join(STREAM_VARIANTS)}", flush=True)
+
+    # K1 at bench.py's shape
+    S1, T1, V1, B1, L1 = K1_S, K1_T, K1_V, K1_B, K1_L
+    log_em = np.zeros((S1, T1, V1))
+    for t in range(T1):
+        log_em[:, t, 1:] = np.log(rng.dirichlet(np.ones(V1 - 1), size=S1))
+    p1 = from_numpy(np.log(rng.dirichlet(np.ones(S1))),
+                    np.log(rng.dirichlet(np.ones(S1), size=S1)), log_em,
+                    device)
+    lengths1 = _ragged(rng, B1, L1)
+    sym1 = torch.from_numpy(
+        rng.randint(0, V1, size=(B1, L1, T1)).astype(np.int32)).to(device)
+    lens1 = torch.from_numpy(lengths1).to(device)
+    args1 = (p1.log_start, p1.log_trans, p1.log_em, sym1, lens1)
+    for variant in STREAM_VARIANTS:
+        st = _stream_inputs(rng, device, variant, B1, L1, S1)
+        alpha, dm, m_raw = ck.em_fwd(*args1, **st)
+        pa, pdm, pm = ck.em_fwd_plain(*args1, **st)
+        err_fwd = max(
+            _assert_close(f"em_fwd{variant} alpha", alpha, pa, 1e-5, 1e-6),
+            _assert_close(f"em_fwd{variant} m_raw", m_raw, pm, 1e-5, 0.0),
+            _assert_close(f"em_fwd{variant} dm", dm, pdm, 1e-5, 1e-5))
+        bwd = (p1.log_trans, p1.log_em, sym1, lens1, alpha, m_raw)
+        got = ck.em_bwd_stats(*bwd, **st)
+        want = ck.em_bwd_stats_plain(*bwd, **st)
+        err_bwd = max(
+            _assert_close(f"em_bwd_stats{variant} {n}", g, w, 1e-4, a)
+            for n, g, w, a in zip(("start", "pair", "em"), got, want,
+                                  (1e-5, 1e-5, 1e-4)))
+        if "g" in variant:
+            # moments at 1e-4 of each moment's largest entry: gx sums
+            # values of both signs, so an entry may cancel to ~0
+            for n, g, w in zip(("gn", "gx", "gx2"), got[3], want[3]):
+                _assert_close(f"em_bwd_stats{variant} {n}", g, w, 1e-4,
+                              1e-4 * float(w.abs().max()))
+        first = ck.em_counts_fused(*args1, **st)
+        again = ck.em_counts_fused(*args1, **st)
+        flat = (lambda r: list(r[:4]) + (list(r[4]) if len(r) > 4 else []))
+        assert all(torch.equal(a, b) for a, b in zip(flat(first),
+                                                     flat(again))), \
+            f"two K1{variant} runs on the same input differ"
+        _assert_close(f"em_counts_fused{variant} loglik", first[3],
+                      ck._loglik_rows(pa, pdm, lens1), 1e-5, 1e-4)
+        shape1 = (B1, L1, S1, T1, V1)
+        G = STREAM_G if "g" in variant else 0
+        out["em_fwd" + variant] = dict(
+            max_abs_err=err_fwd,
+            ms=_median_ms(lambda: ck.em_fwd(*args1, **st), 5),
+            plain_ms=_median_ms(lambda: ck.em_fwd_plain(*args1, **st), 3),
+            **_bound("em_fwd", shape1, int(lengths1.sum()), G,
+                     "w" in variant))
+        out["em_bwd_stats" + variant] = dict(
+            max_abs_err=err_bwd,
+            ms=_median_ms(lambda: ck.em_bwd_stats(*bwd, **st), 5),
+            plain_ms=_median_ms(lambda: ck.em_bwd_stats_plain(*bwd, **st),
+                                3),
+            **_bound("em_bwd_stats", shape1, int(lengths1.sum()), G,
+                     "w" in variant))
+        del alpha, pa, dm, pdm, m_raw, pm, bwd
+    print(f"[streams] K1 at S={S1} T={T1} V={V1} B={B1} L={L1} (ragged): "
+          f"within tolerance of plain (moments within 1e-4 of their "
+          f"largest entry), repeat runs bit-identical, for "
+          f"{', '.join(STREAM_VARIANTS)}", flush=True)
+
+    # K4's decode at the stitched max-posterior decode's shape
+    lengths4 = _ragged(rng, K4_B, K4_L)
+    sym4 = torch.from_numpy(
+        rng.randint(0, V, size=(K4_B, K4_L, T)).astype(np.int32)
+    ).to(device)
+    lens4 = torch.from_numpy(lengths4).to(device)
+    args4 = (p.log_start, p.log_trans, p.log_em, sym4, lens4)
+    valid = torch.arange(K4_L, device=device)[None, :] < lens4[:, None]
+    for variant in STREAM_VARIANTS:
+        st = _stream_inputs(rng, device, variant, K4_B, K4_L, S)
+        alpha = ck.em_fwd(*args4, **st)[0]
+        dec = (p.log_trans, p.log_em, sym4, lens4, alpha)
+        got = ck.post_decode(*dec, **st)
+        assert torch.equal(got, ck.post_decode(*dec, **st)), \
+            f"two post_decode{variant} launches differ"
+        assert torch.equal(got, ck.posterior_decode_fused(*args4, **st))
+        want, margin = ck.post_decode_plain(*dec, with_margin=True, **st)
+        assert not bool((got[~valid] != 0).any())
+        differ = (got != want) & valid
+        n_diff, n_valid = int(differ.sum()), int(valid.sum())
+        worst = float(margin[differ].max()) if n_diff else 0.0
+        assert 1.0 - n_diff / n_valid >= 0.99999, \
+            f"post_decode{variant} differs from plain on {n_diff} positions"
+        assert worst <= NEAR_TIE, \
+            f"post_decode{variant} differs where the top two are {worst} " \
+            f"apart"
+        out["post_decode" + variant] = dict(
+            max_abs_err=float((got - want).abs().max()),
+            differing_positions=n_diff,
+            ms=_median_ms(lambda: ck.post_decode(*dec, **st), 5),
+            plain_ms=_median_ms(
+                lambda: ck.post_decode_plain(*dec, **st), 3),
+            fused_ms=_median_ms(
+                lambda: ck.posterior_decode_fused(*args4, **st), 5),
+            **_bound("post_decode", (K4_B, K4_L, S, T, V),
+                     int(lengths4.sum()), STREAM_G if "g" in variant else 0,
+                     "w" in variant))
+        print(f"[streams] K4 decode{variant}: {n_diff} of {n_valid} "
+              f"positions differ from plain, each a near-tie (largest "
+              f"top-two gap {worst:.3g}); repeat launches bit-identical",
+              flush=True)
+    for name, r in out.items():
+        print(f"[streams] {name:22s} max_abs_err {r['max_abs_err']:.3g}  "
               f"kernel {r['ms']:10.3f} ms  plain {r['plain_ms']:10.3f} ms",
               flush=True)
     return out
@@ -584,7 +891,7 @@ def _run_cli(cli, argv) -> str:
 
 
 def _paint(bed_path, n, names):
-    from tehmm_tpu.io import read_bed_intervals
+    from tehmm_tpu_torch.io import read_bed_intervals
 
     out = np.full(n, -1, np.int16)
     prev_end = 0
@@ -1016,13 +1323,311 @@ def phase_em_card_vs_cpu(work, xml, n, region, seed, device="cuda"):
 
 
 def _paint_region(bed_path, lo, n, names):
-    from tehmm_tpu.io import read_bed_intervals
+    from tehmm_tpu_torch.io import read_bed_intervals
 
     out = np.full(n, -1, np.int16)
     for _chrom, s, e, name in read_bed_intervals(bed_path, ncol=4):
         out[s - lo:e - lo] = names.index(name)
     assert (out >= 0).all(), f"{bed_path} does not tile the region"
     return out
+
+
+# ---------------------------------------------------------------------
+# phase 3e: gaussian tracks and segment mode
+# ---------------------------------------------------------------------
+
+def make_gauss_track(work, rng, truth):
+    """3e's gaussian BED track (one record per GAUSS_RECORD bases, its
+    value ~ N(GAUSS_MU[state at the record's first base], 1) in column 4)
+    and three track lists over phase 3's files: base resolution (the 4
+    BED tracks, FASTA and the gaussian track), segment mode (the 4 BED
+    tracks and the gaussian track: a per-base sequence column would make
+    every base its own segment) and categorical segment mode (the 4 BED
+    tracks)."""
+    n = len(truth)
+    starts = np.arange(0, n, GAUSS_RECORD, dtype=np.int64)
+    ends = np.minimum(starts + GAUSS_RECORD, n)
+    vals = rng.normal(GAUSS_MU[truth[starts]], 1.0)
+    with open(os.path.join(work, "gauss.bed"), "w") as fh:
+        fh.write("".join(
+            f"chr1\t{s}\t{e}\tg\t{v:.4f}\n"
+            for s, e, v in zip(starts.tolist(), ends.tolist(), vals.tolist())
+        ))
+    bed = [f'  <track name="bed{k}" path="bed{k}.bed"/>'
+           for k in range(T - 1)]
+    seq = '  <track name="seq" path="genome.fa"/>'
+    gauss = ('  <track name="score" path="gauss.bed" '
+             'distribution="gaussian" valCol="4"/>')
+    paths = []
+    for name, lines in (("tracks_gauss.xml", bed + [seq, gauss]),
+                        ("tracks_seg.xml", bed + [gauss]),
+                        ("tracks_cat.xml", bed)):
+        paths.append(os.path.join(work, name))
+        with open(paths[-1], "w") as fh:
+            fh.write("<teModelConfig>\n" + "\n".join(lines)
+                     + "\n</teModelConfig>\n")
+    return paths
+
+
+def phase_gauss_base(work, xml, truth_bed, truth, small, region, em_region,
+                     seed, device="cuda"):
+    """3e, base resolution: ``train --supervised`` and the stitched
+    ``eval --bed`` of the whole chromosome with the gaussian track (K2
+    with the gaussian stream), stitched ``--maxPost`` on a region (K1's
+    forward and K4 with it) and EM on a smaller region (K1 with it); then
+    the card against the CPU for the Viterbi decode and the EM.  Returns
+    the main path's launch counts."""
+    from tehmm_tpu_torch.cli import eval as port_eval
+    from tehmm_tpu_torch.cli import train as port_train
+    from tehmm_tpu_torch.models.hmm import MultitrackHmm
+    from tehmm_tpu_torch.ops import cuda_kernels as ck
+
+    n = len(truth)
+    lo = n // 4
+    regions = _region_bed(work, "gauss_regions.bed", 0, n)
+    model = os.path.join(work, "gauss_model.npz")
+    out_bed = os.path.join(work, "gauss_decoded.bed")
+    stages = _Stages()
+    stages.wrap(port_train, "load_track_data", "train: load")
+    stages.wrap(MultitrackHmm, "supervised", "train: count + M-step")
+    stages.wrap(port_eval, "load_track_data", "eval: load")
+    stages.wrap(MultitrackHmm, "decode_tables", "eval: decode (K2 +g)",
+                sync=True, keep=True)
+    stages.wrap(port_eval, "path_log_score", "eval: path score")
+    stages.wrap(port_eval, "write_bed_intervals", "eval: write")
+    try:
+        t0 = time.perf_counter()
+        _run_cli(port_train, [xml, truth_bed, model, "--supervised",
+                              "--device", device])
+        t_train = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        score = float(_run_cli(port_eval, [xml, model, regions, "--bed",
+                                           out_bed, "--device", device]))
+        t_eval = time.perf_counter() - t0
+    finally:
+        stages.restore()
+    # --maxPost (K4 with the gaussian stream) on a region
+    mp_out = os.path.join(work, "gauss_maxpost.bed")
+    t0 = time.perf_counter()
+    mp_score = float(_run_cli(port_eval, [
+        xml, model, _region_bed(work, "gauss_mp.bed", lo, lo + region),
+        "--bed", mp_out, "--maxPost", "--no-exact", "--device", device]))
+    t_mp = time.perf_counter() - t0
+    # EM with the gaussian track (K1 with the gaussian stream)
+    em_bed = _region_bed(work, "gauss_em.bed", lo, lo + em_region)
+    em_logs = {}
+    for dev in (device, "cpu"):
+        em_logs[dev] = os.path.join(work, f"gauss_em_{dev}.jsonl")
+        t0 = time.perf_counter()
+        _run_cli(port_train, [
+            xml, em_bed, os.path.join(work, f"gauss_em_{dev}.npz"),
+            "--iter", "5", "--chunk", "4096", "--seed", str(seed),
+            "--numStates", str(EM_STATES), "--device", dev,
+            "--logJson", em_logs[dev]])
+        if dev == device:
+            t_em = time.perf_counter() - t0
+            launches = dict(ck.LAUNCHES)
+    _paths, report = stages.last["eval: decode (K2 +g)"]
+    assert report.boundaries_ok, report
+    assert np.isfinite(score), score
+    m = MultitrackHmm.load(model, "cpu")
+    assert m.gauss is not None and tuple(m.gauss.mu.shape) == (S, 1)
+    names = m.state_names
+    decoded = _paint(out_bed, n, names)
+    name_idx = np.asarray([int(s[1:]) for s in names])
+    acc = float((name_idx[decoded] == truth).mean())
+    print(f"[gauss] {n} positions, T={T + 1} (the gaussian track keeps an "
+          f"all-missing symbol column), G=1: printed path score {score!r}; "
+          f"{report}; base accuracy {acc:.6f}", flush=True)
+    assert acc >= 0.9, f"base accuracy with the gaussian track {acc} < 0.9"
+    mp = _paint_region(mp_out, lo, region, names)
+    mp_acc = float((name_idx[mp] == truth[lo:lo + region]).mean())
+    assert np.isfinite(mp_score) and mp_acc >= 0.9, (mp_score, mp_acc)
+    print(f"[gauss] {region}-position region --maxPost (stitched): printed "
+          f"loglik {mp_score!r}, base accuracy {mp_acc:.6f}, eval CLI "
+          f"{t_mp:.3f} s", flush=True)
+    g_ll, c_ll = ([r["loglik"] for r in _em_log(em_logs[d])]
+                  for d in (device, "cpu"))
+    assert len(g_ll) == len(c_ll) and np.isfinite(g_ll).all()
+    em_rel = float(np.max(np.abs(np.subtract(g_ll, c_ll)) / np.abs(c_ll)))
+    assert em_rel <= 1e-5, \
+        f"gaussian EM: card and CPU logliks differ by {em_rel} relative"
+    print(f"[gauss] {em_region}-position region EM ({EM_STATES} states): "
+          f"{len(g_ll)} iterations on the card and the CPU, logliks within "
+          f"{em_rel:.3g} relative; card train CLI {t_em:.3f} s", flush=True)
+
+    small_bed = _region_bed(work, "gauss_small.bed", lo, lo + small)
+    got = {}
+    for dev in (device, "cpu"):
+        out = os.path.join(work, f"gauss_small_{dev}.bed")
+        s = float(_run_cli(port_eval, [xml, model, small_bed, "--bed", out,
+                                       "--no-exact", "--device", dev]))
+        got[dev] = (open(out).read(), s)
+    assert got[device][0] == got["cpu"][0], \
+        "card and CPU BED differ on the small region (gaussian track)"
+    rel = abs(got[device][1] - got["cpu"][1]) / abs(got["cpu"][1])
+    assert rel <= 1e-5, f"card and CPU scores differ by {rel} relative"
+    print(f"[gauss] {small}-position region: card BED == CPU BED, printed "
+          f"scores within {rel:.3g} relative", flush=True)
+    print("[gauss] stage                      seconds", flush=True)
+    for stage, sec in stages.seconds.items():
+        print(f"[gauss] {stage:26s} {sec:9.3f}", flush=True)
+    print(f"[gauss] {'train CLI total':26s} {t_train:9.3f}", flush=True)
+    print(f"[gauss] {'eval CLI total':26s} {t_eval:9.3f}", flush=True)
+    return launches
+
+
+def _segment(work, xml, lo, hi, name):
+    """segment_tracks over [lo, hi); returns (segments BED, count)."""
+    from tehmm_tpu_torch.cli import segment_tracks as port_seg
+
+    segs = os.path.join(work, name)
+    with contextlib.redirect_stderr(io.StringIO()):
+        _run_cli(port_seg, [xml, _region_bed(work, name + ".region", lo,
+                                             hi), segs])
+    with open(segs) as fh:
+        return segs, sum(1 for _ in fh)
+
+
+def phase_segments(work, xml, truth, seed, device="cuda"):
+    """3e, segment mode on the whole chromosome: ``segment_tracks``,
+    ``train --segment --segLen`` (K1 with both streams), ``eval
+    --segment --segLen --bed`` (K2 with both) and ``--maxPost`` (K4 with
+    both).  Returns the main path's launch counts."""
+    from tehmm_tpu_torch.cli import eval as port_eval
+    from tehmm_tpu_torch.cli import segment_tracks as port_seg
+    from tehmm_tpu_torch.cli import train as port_train
+    from tehmm_tpu_torch.models import hmm as port_hmm
+    from tehmm_tpu_torch.ops import cuda_kernels as ck
+    from tehmm_tpu_torch.ops import em as port_em
+
+    n = len(truth)
+    stages = _Stages()
+    stages.wrap(port_seg, "load_track_data", "segment_tracks: load")
+    stages.wrap(port_seg, "segment_table", "segment_tracks: segment")
+    stages.wrap(port_train, "load_segment_data", "train: load segments")
+    stages.wrap(port_em, "em_sufficient_stats", "train: E-step (K1 +wg)",
+                sync=True)
+    stages.wrap(port_em, "em_m_step", "train: M-step", sync=True)
+    stages.wrap(port_eval, "load_segment_data", "eval: load segments")
+    stages.wrap(port_eval, "viterbi_chunked", "eval: decode (K2 +wg)",
+                sync=True, keep=True)
+    stages.wrap(port_hmm, "posterior_chunked", "eval: decode (K4 +wg)",
+                sync=True, keep=True)
+    stages.wrap(port_eval, "path_log_score", "eval: path score")
+    stages.wrap(port_hmm.MultitrackHmm, "score", "eval: score (X1)",
+                sync=True)
+    stages.wrap(port_eval, "write_bed_intervals", "eval: write")
+    model = os.path.join(work, "seg_model.npz")
+    log = os.path.join(work, "seg_log.jsonl")
+    walls = {}
+    try:
+        t0 = time.perf_counter()
+        segs, n_segs = _segment(work, xml, 0, n, "segments.bed")
+        walls["segment_tracks CLI"] = time.perf_counter() - t0
+        print(f"[seg] segment_tracks: {n_segs} segments from {n} positions "
+              f"({n / n_segs:.1f}x compression)", flush=True)
+        t0 = time.perf_counter()
+        _run_cli(port_train, [
+            xml, segs, model, "--segment", "--segLen", "--numStates",
+            str(SEG_STATES), "--iter", str(SEG_ITERS), "--seed", str(seed),
+            "--device", device, "--logJson", log])
+        walls["train CLI"] = time.perf_counter() - t0
+        scores = {}
+        for mode, flags in (("Viterbi", []), ("--maxPost", ["--maxPost"])):
+            out = os.path.join(work, f"seg_decoded{len(scores)}.bed")
+            t0 = time.perf_counter()
+            scores[mode] = float(_run_cli(port_eval, [
+                xml, model, segs, "--segment", "--segLen", "--bed", out,
+                "--no-exact", "--device", device, *flags]))
+            walls[f"eval {mode} CLI"] = time.perf_counter() - t0
+            scores[mode + " bed"] = out
+    finally:
+        stages.restore()
+    launches = dict(ck.LAUNCHES)
+    lls = [r["loglik"] for r in _em_log(log)]
+    assert lls and np.isfinite(lls).all(), f"non-finite loglik: {lls}"
+    for i, (a, b) in enumerate(zip(lls, lls[1:])):
+        assert b >= a - 1e-4 * abs(a), \
+            f"segment loglik fell at iteration {i + 1}: {a} -> {b}"
+    print(f"[seg] train --segment --segLen, {SEG_STATES} states: "
+          f"{len(lls)} logged iterations, loglik {lls[0]:.6g} -> "
+          f"{lls[-1]:.6g} (non-decreasing within 1e-4 |loglik|)",
+          flush=True)
+    print(f"[seg] loglik trace: {lls}", flush=True)
+    _paths, report = stages.last["eval: decode (K2 +wg)"]
+    assert report.boundaries_ok, report
+    names = port_hmm.MultitrackHmm.load(model, "cpu").state_names
+    for mode in ("Viterbi", "--maxPost"):
+        assert np.isfinite(scores[mode]), scores
+        decoded = _paint(scores[mode + " bed"], n, names)
+        acc = _majority_accuracy(decoded, truth, len(names))
+        print(f"[seg] eval --segment --segLen {mode}: printed score "
+              f"{scores[mode]!r}, base accuracy {acc:.6f} after mapping "
+              f"each learned state to its majority planted state",
+              flush=True)
+    print(f"[seg] Viterbi decode: {report}", flush=True)
+    print("[seg] stage                      seconds  calls", flush=True)
+    for stage, sec in stages.seconds.items():
+        print(f"[seg] {stage:26s} {sec:9.3f}  {stages.calls[stage]}",
+              flush=True)
+    for name, sec in walls.items():
+        print(f"[seg] {name:26s} {sec:9.3f}", flush=True)
+    return launches
+
+
+def phase_segments_card_vs_cpu(work, xml_seg, xml_cat, n, region, seed,
+                               device="cuda"):
+    """3e, segment mode on the card against the CPU on a region: the
+    same ``train --segment --segLen`` and ``eval --segment --segLen``
+    (Viterbi and ``--maxPost``, stitched) with the gaussian track, then
+    with the categorical tracks only.  Returns the launch counts of the
+    categorical card runs (their own path: the weight stream alone)."""
+    from tehmm_tpu_torch.cli import eval as port_eval
+    from tehmm_tpu_torch.cli import train as port_train
+    from tehmm_tpu_torch.ops import cuda_kernels as ck
+
+    lo = n // 2
+    names = [str(i) for i in range(SEG_STATES)]
+    cat_launches = None
+    for tag, xml in (("gauss", xml_seg), ("categorical", xml_cat)):
+        segs, n_segs = _segment(work, xml, lo, lo + region,
+                                f"seg_small_{tag}.bed")
+        runs = {}
+        for dev in (device, "cpu"):
+            if tag == "categorical" and dev == device:
+                ck.reset_launch_counts()
+            model = os.path.join(work, f"seg_small_{tag}_{dev}.npz")
+            log = os.path.join(work, f"seg_small_{tag}_{dev}.jsonl")
+            _run_cli(port_train, [
+                xml, segs, model, "--segment", "--segLen", "--iter", "5",
+                "--chunk", "1024", "--seed", str(seed), "--numStates",
+                str(SEG_STATES), "--device", dev, "--logJson", log])
+            paths = []
+            for flags in ([], ["--maxPost"]):
+                out = os.path.join(work, f"seg_small_{tag}_{dev}"
+                                         f"{len(paths)}.bed")
+                _run_cli(port_eval, [xml, model, segs, "--segment",
+                                     "--segLen", "--bed", out, "--no-exact",
+                                     "--device", dev, *flags])
+                paths.append(_paint_region(out, lo, region, names))
+            if tag == "categorical" and dev == device:
+                cat_launches = dict(ck.LAUNCHES)
+            runs[dev] = ([r["loglik"] for r in _em_log(log)], paths)
+        (g_ll, g_paths), (c_ll, c_paths) = runs[device], runs["cpu"]
+        assert len(g_ll) == len(c_ll), (len(g_ll), len(c_ll))
+        rel = float(np.max(np.abs(np.subtract(g_ll, c_ll))
+                           / np.abs(c_ll)))
+        assert rel <= 1e-5, f"{tag}: card and CPU segment logliks differ " \
+            f"by {rel} relative"
+        agree = [float((g == c).mean()) for g, c in zip(g_paths, c_paths)]
+        assert min(agree) >= 0.999, \
+            f"{tag}: card and CPU segment BED agree on {agree} of bases"
+        print(f"[seg-small] {region}-position region, {tag} tracks, "
+              f"{n_segs} segments: {len(g_ll)} EM iterations each, loglik "
+              f"rel err {rel:.3g}; BED agrees on {agree[0]:.6f} (Viterbi) "
+              f"and {agree[1]:.6f} (--maxPost) of bases", flush=True)
+    return cat_launches
 
 
 def main(argv=None) -> int:
@@ -1052,8 +1657,13 @@ def main(argv=None) -> int:
     kernels = phase_kernels(device, rng)
     kernels.update(phase_k1(device, rng))
     kernels.update(phase_post_kernels(device, rng))
+    # the stream checks draw from their own generator, so the data of
+    # phase 3 on are the same draws with and without them
+    kernels.update(phase_stream_kernels(
+        device, np.random.RandomState(args.seed + 1)))
+    torch.cuda.empty_cache()
 
-    n = 20_000_000
+    n = N_POSITIONS
     with tempfile.TemporaryDirectory(prefix="tehmm_chip_smoke_") as work:
         t0 = time.perf_counter()
         xml, truth_bed, truth = make_dataset(work, rng, n)
@@ -1083,25 +1693,55 @@ def main(argv=None) -> int:
             kernels[name]["max_abs_err_em_run_shape"] = e
 
         phase_em_card_vs_cpu(work, xml, n, 50_000, args.seed)
+
+        t0 = time.perf_counter()
+        xml_g, xml_seg, xml_cat = make_gauss_track(work, rng, truth)
+        print(f"[gauss] gaussian track: {n // GAUSS_RECORD} records, "
+              f"{time.perf_counter() - t0:.1f} s to write", flush=True)
+        ck.reset_launch_counts()
+        gauss_launches = phase_gauss_base(work, xml_g, truth_bed, truth,
+                                          20_000, 1_000_000, 50_000,
+                                          args.seed)
+        ck.reset_launch_counts()
+        seg_launches = phase_segments(work, xml_seg, truth, args.seed)
+        cat_launches = phase_segments_card_vs_cpu(work, xml_seg, xml_cat, n,
+                                                  200_000, args.seed)
     print(f"[launches] decode path (phase 3): {decode_launches}",
           flush=True)
     print(f"[launches] EM path (phase 3b): {em_launches}", flush=True)
     print(f"[launches] max-posterior path (phase 3d): {post_launches}",
           flush=True)
+    print(f"[launches] gaussian base-resolution path (3e): "
+          f"{gauss_launches}", flush=True)
+    print(f"[launches] segment path (3e): {seg_launches}", flush=True)
+    print(f"[launches] categorical segment path (3e, card runs): "
+          f"{cat_launches}", flush=True)
     missing = [k for k in DECODE_KERNELS if decode_launches[k] == 0]
     missing += [k for k in EM_KERNELS if em_launches[k] == 0]
     missing += [f"{k} (3d)" for k in POST_KERNELS if post_launches[k] == 0]
+    missing += [f"{k} (3e)" for k in GAUSS_BASE_KERNELS
+                if gauss_launches[k] == 0]
+    missing += [f"{k}+wg (3e)" for k in SEGMENT_KERNELS
+                if seg_launches[k + "+wg"] == 0]
+    missing += [f"{k}+w (3e)" for k in SEGMENT_KERNELS
+                if cat_launches[k + "+w"] == 0]
     assert not missing, f"kernels never launched on their path: {missing}"
     launches = {k: decode_launches[k] for k in DECODE_KERNELS}
     launches.update({k: em_launches[k] for k in EM_KERNELS})
     launches.update({k: post_launches[k] for k in POST_KERNELS
                      if k not in launches})
-    assert not any(m.split(".")[0] in ("jax", "jaxlib")
-                   for m in sys.modules), "jax was imported"
+    by_variant = {"+g": gauss_launches, "+wg": seg_launches,
+                  "+w": cat_launches}
+    for name in kernels:
+        if "+" in name:
+            launches[name] = by_variant["+" + name.split("+")[1]][name]
+    assert not any(m.split(".")[0] in ("jax", "jaxlib", "tehmm_tpu")
+                   for m in sys.modules), "jax or tehmm_tpu was imported"
 
     print(json.dumps({"kernels": [
-        dict(name=name, route="cuda", source=SOURCES[name],
-             replaces=REPLACES[name], launches=launches[name], **r)
+        dict(name=name, route="cuda", source=SOURCES[name.split("+")[0]],
+             replaces=REPLACES[name.split("+")[0]], launches=launches[name],
+             **r)
         for name, r in kernels.items()
     ]}))
     print(smi)

@@ -1,9 +1,10 @@
 """tehmm-eval on the port: Viterbi or max-posterior decoding to BED,
 posterior distributions, and the data's log-likelihood.
 
-Counterpart of ``tehmm_tpu/cli/eval.py`` for HMM models at base
-resolution: category maps and track semantics come FROM THE MODEL so
-symbols match training; the eval-time XML supplies data paths only.
+Counterpart of ``tehmm_tpu/cli/eval.py`` for HMM models, with
+categorical and gaussian tracks: category maps and track semantics come
+FROM THE MODEL so symbols match training; the eval-time XML supplies data
+paths only.
 
 - ``--bed``: Viterbi annotation (stitched, or ``--exact``), printing the
   decoded path's joint log-probability (reference behavior);
@@ -12,14 +13,20 @@ symbols match training; the eval-time XML supplies data paths only.
 - ``--pd``: per-position posterior distributions, streamed from the
   exact chunk sweep through per-chunk spool files;
 - every mode but Viterbi, and a run with no ``--bed``, prints the
-  forward log-likelihood of the whole input (``MultitrackHmm.score``).
+  forward log-likelihood of the whole input (``MultitrackHmm.score``);
+- ``--segment`` (the query BED is ``segment_tracks`` output): the same
+  modes at segment resolution, one observation per segment, with
+  ``--segLen`` each segment's emission raised to the power of its length;
+  paths expand back to base-space BED and ``--pd`` writes one row per
+  segment.
 
-``--segment``, ``--segLen``, ``--maxSpan`` and ``--mesh`` are recognized
-and exit naming their ROADMAP item.
+``--maxSpan`` and ``--mesh`` are recognized and exit naming their
+ROADMAP item.
 
 Usage:
   python -m tehmm_tpu_torch.cli.eval tracks.xml model.npz query.bed \
-      [--bed out.bed [--maxPost]] [--pd post.bed] [--device cuda|cpu]
+      [--bed out.bed [--maxPost]] [--pd post.bed] [--segment [--segLen]] \
+      [--device cuda|cpu]
 """
 
 from __future__ import annotations
@@ -33,13 +40,14 @@ import tempfile
 
 import numpy as np
 
-from tehmm_tpu.io import (
+from tehmm_tpu_torch.io import (
     TrackList,
     load_track_data,
     read_bed_intervals,
     write_bed_intervals,
 )
-from tehmm_tpu.utils.common import (
+from tehmm_tpu_torch.io.segments import expand_path, load_segment_data
+from tehmm_tpu_torch.utils.common import (
     add_logging_options,
     logger,
     set_logging_from_options,
@@ -53,13 +61,12 @@ from tehmm_tpu_torch.models.hmm import (
 from tehmm_tpu_torch.parallel.stitch import (
     posterior_exact,
     posterior_sweep,
+    viterbi_chunked,
     viterbi_exact,
 )
 from tehmm_tpu_torch.utils.device import resolve_device
 
 UNPORTED = {
-    "--segment": (False, up.SLICE_SEGMENT),
-    "--segLen": (False, up.SLICE_SEGMENT),
     "--maxSpan": (True, up.SLICE_CFG),
     "--mesh": (True, up.SLICE_SHARDING),
 }
@@ -97,6 +104,13 @@ def make_parser() -> argparse.ArgumentParser:
                         "instead of halo stitching. Default: AUTO — exact "
                         "for inputs of <= 256K positions, stitched beyond; "
                         "--no-exact forces stitching")
+    p.add_argument("--segment", action="store_true",
+                   help="query BED contains segment-tracks output: one "
+                        "observation per segment (reference: teHmmEval "
+                        "--segment)")
+    p.add_argument("--segLen", action="store_true",
+                   help="with --segment: length-weighted emissions "
+                        "(must match training)")
     p.add_argument("--device", default="cuda",
                    help="torch device: cuda (default) or cpu")
     add_logging_options(p)
@@ -143,6 +157,12 @@ def main(argv=None) -> int:
         eval_list.add(dataclasses.replace(t, path=src.path, number=-1))
 
     regions = read_bed_intervals(opts.bedRegions, ncol=3)
+    if opts.segment:
+        _track_data, seg_tables = load_segment_data(
+            eval_list, regions, category_maps=model.category_maps
+        )
+        _resolve_exact(opts, seg_tables)
+        return _eval_segments(opts, model, seg_tables)
     track_data = load_track_data(
         eval_list, regions, category_maps=model.category_maps
     )
@@ -154,13 +174,15 @@ def main(argv=None) -> int:
         if opts.maxPost:
             if opts.exact:
                 paths = posterior_exact(model.params, tables,
-                                        chunk_len=opts.chunk)
+                                        chunk_len=opts.chunk,
+                                        gauss_params=model.gauss)
             else:
                 paths = model.posterior_decode_tables(
                     tables, chunk_len=opts.chunk, halo=opts.halo
                 )
         elif opts.exact:
-            paths = viterbi_exact(model.params, tables, chunk_len=opts.chunk)
+            paths = viterbi_exact(model.params, tables, chunk_len=opts.chunk,
+                                  gauss_params=model.gauss)
         else:
             paths, report = model.decode_tables(
                 tables, chunk_len=opts.chunk, halo=opts.halo
@@ -176,7 +198,8 @@ def main(argv=None) -> int:
     # log-likelihood of the whole input
     if paths is not None and not opts.maxPost:
         total_ll = sum(
-            path_log_score(model.params, tab.symbols, p)
+            path_log_score(model.params, tab.symbols, p, gauss=model.gauss,
+                           values=tab.values)
             for tab, p in zip(tables, paths)
         )
     else:
@@ -218,13 +241,87 @@ def _write_pd_streaming(opts, model, tables) -> None:
             spool[(b, start)] = fn
 
         posterior_sweep(model.params, tables, chunk_len=opts.chunk,
-                        consume=consume)
+                        consume=consume, gauss_params=model.gauss)
         with open(opts.pd, "w") as out_fh:
             for key in sorted(spool):
                 with open(spool[key]) as fh:
                     shutil.copyfileobj(fh, out_fh)
     finally:
         shutil.rmtree(tmpdir, ignore_errors=True)
+
+
+def _eval_segments(opts, model, seg_tables) -> int:
+    """Segment-resolution decode: Viterbi (default), max-posterior
+    (``--maxPost``), or posterior distributions (``--pd``) over
+    per-segment observations, expanded back to base-space BED; the
+    printed score has the base-resolution semantics (the Viterbi path's
+    joint log-prob, else the forward log-likelihood), with the segment
+    weights under ``--segLen``."""
+    weights = None
+    if opts.segLen:
+        weights = [t.lengths.astype(np.float32) for t in seg_tables]
+    dists = None
+    if opts.pd:
+        dists = model.posterior_distributions(
+            seg_tables, chunk_len=opts.chunk, weight_arrays=weights,
+        )
+    paths = None
+    if opts.bed and opts.maxPost:
+        if dists is not None:
+            # --pd computed the exact posteriors: the path is their argmax
+            paths = [np.argmax(d, axis=-1).astype(np.int32) for d in dists]
+        elif opts.exact:
+            paths = posterior_exact(
+                model.params, seg_tables, chunk_len=opts.chunk,
+                gauss_params=model.gauss, weight_arrays=weights,
+            )
+        else:
+            paths = model.posterior_decode_tables(
+                seg_tables, chunk_len=opts.chunk, halo=opts.halo,
+                weight_arrays=weights,
+            )
+    elif opts.bed and opts.exact:
+        paths = viterbi_exact(
+            model.params, seg_tables, chunk_len=opts.chunk,
+            gauss_params=model.gauss, weight_arrays=weights,
+        )
+    elif opts.bed:
+        paths, report = viterbi_chunked(
+            model.params, seg_tables, chunk_len=opts.chunk, halo=opts.halo,
+            weight_arrays=weights, gauss_params=model.gauss,
+        )
+        logger.info("segment decode: %d chunks, boundaries ok=%s",
+                    report.n_chunks, report.boundaries_ok)
+    if dists is not None:
+        rows = []
+        for tab, pd in zip(seg_tables, dists):
+            for i, row in enumerate(pd.tolist()):
+                rows.append((
+                    tab.chrom, int(tab.seg_bounds[i]),
+                    int(tab.seg_bounds[i + 1]),
+                    ",".join(f"{p:.6g}" for p in row),
+                ))
+        write_bed_intervals(rows, opts.pd)
+    if opts.bed:
+        out = []
+        for tab, path in zip(seg_tables, paths):
+            out.extend(expand_path(tab, path, model.state_names))
+        write_bed_intervals(out, opts.bed)
+        logger.info("wrote %d intervals to %s", len(out), opts.bed)
+    if paths is not None and not opts.maxPost:
+        total = sum(
+            path_log_score(
+                model.params, tab.symbols, p, gauss=model.gauss,
+                values=tab.values,
+                obs_weights=None if weights is None else weights[i],
+            )
+            for i, (tab, p) in enumerate(zip(seg_tables, paths))
+        )
+    else:
+        total = model.score(seg_tables, chunk_len=opts.chunk,
+                            weight_arrays=weights)
+    print(f"{total}")
+    return 0
 
 
 if __name__ == "__main__":

@@ -10,11 +10,16 @@ Counterpart of ``tehmm_tpu/cli/train.py``:
                     --initModel resume, --checkpoint and --logJson
   semi-supervised   --initTransProbs/--initEmProbs priors, pinned by
                     --fixTrans/--fixEm/--forceTransProbs/--forceEmProbs
+  --segment         EM over segment_tracks output, one observation per
+                    segment; --segLen raises each segment's emission to
+                    the power of its length
 
-On ``--device cuda`` every E-step runs through K1 (the fused E-step
-kernels); on ``--device cpu`` through the plain-torch engine.  The model
-file is the JAX package's format.  The CFG, segment, sharding and
-profiling flags are recognized and exit naming their ROADMAP item.
+Tracks declared ``distribution="gaussian"`` train normal emissions beside
+the categorical ones.  On ``--device cuda`` every E-step runs through K1
+(the fused E-step kernels, with their weight and gaussian streams); on
+``--device cpu`` through the plain-torch engine.  The model file is the
+JAX package's format.  The CFG, sharding and profiling flags are
+recognized and exit naming their ROADMAP item.
 
 Usage:
   python -m tehmm_tpu_torch.cli.train tracks.xml training.bed out.npz \\
@@ -29,10 +34,11 @@ import sys
 import numpy as np
 import torch
 
-from tehmm_tpu.io import TrackList, load_track_data, read_bed_intervals
-from tehmm_tpu.io import priors as priors_io
-from tehmm_tpu.io.bed import get_merged_bed_intervals
-from tehmm_tpu.utils.common import (
+from tehmm_tpu_torch.io import TrackList, load_track_data, read_bed_intervals
+from tehmm_tpu_torch.io import priors as priors_io
+from tehmm_tpu_torch.io.bed import get_merged_bed_intervals
+from tehmm_tpu_torch.io.segments import load_segment_data
+from tehmm_tpu_torch.utils.common import (
     LOG_ZERO,
     JsonlMetrics,
     add_logging_options,
@@ -40,6 +46,7 @@ from tehmm_tpu.utils.common import (
     set_logging_from_options,
 )
 from tehmm_tpu_torch.cli import unported as up
+from tehmm_tpu_torch.models.gauss import init_gauss
 from tehmm_tpu_torch.models.hmm import MultitrackHmm, fit_restarts
 from tehmm_tpu_torch.models.params import (
     HmmParams,
@@ -55,8 +62,6 @@ UNPORTED = {
     "--matchBonus": (True, up.SLICE_CFG),
     "--cfgEm": (True, up.SLICE_CFG),
     "--saPrior": (True, up.SLICE_CFG),
-    "--segment": (False, up.SLICE_SEGMENT),
-    "--segLen": (False, up.SLICE_SEGMENT),
     "--mesh": (True, up.SLICE_SHARDING),
     "--coordinatorAddress": (True, up.SLICE_SHARDING),
     "--numProcesses": (True, up.SLICE_SHARDING),
@@ -106,6 +111,14 @@ def make_parser() -> argparse.ArgumentParser:
                    help="freeze emissions at their initial values")
     p.add_argument("--forceEmProbs", default=None,
                    help="emission text file applied after every M-step")
+    p.add_argument("--segment", action="store_true",
+                   help="training BED contains segment-tracks output: "
+                        "one observation per segment interval "
+                        "(reference: teHmmTrain.py --segment)")
+    p.add_argument("--segLen", action="store_true",
+                   help="with --segment: weight each segment's emission "
+                        "log-probability by its base length "
+                        "(reference: effectiveSegmentLength scaling)")
     p.add_argument("--chunk", type=int, default=1 << 14,
                    help="EM chunk length (positions per sequence)")
     p.add_argument("--checkpoint", default=None,
@@ -138,6 +151,10 @@ def main(argv=None) -> int:
     regions = get_merged_bed_intervals(opts.trainingBed)
     logger.info("loading %d tracks over %d regions",
                 len(track_list), len(regions))
+    if opts.segment and opts.supervised:
+        raise SystemExit("--segment is an EM-mode option; combine the "
+                         "segments with labels via --supervised training "
+                         "on base-resolution data instead")
     init_model = None
     init_maps = None
     if opts.initModel and not opts.supervised:
@@ -145,14 +162,23 @@ def main(argv=None) -> int:
         # values map to missing, as at eval time)
         init_model = MultitrackHmm.load(opts.initModel, device)
         init_maps = init_model.category_maps
-    track_data = load_track_data(track_list, regions,
-                                 category_maps=init_maps)
+    seg_tables = None
+    if opts.segment:
+        seg_ivs = read_bed_intervals(opts.trainingBed, ncol=3)
+        track_data, seg_tables = load_segment_data(
+            track_list, seg_ivs, category_maps=init_maps
+        )
+        logger.info("segment mode: %d segments in %d chains",
+                    sum(len(t) for t in seg_tables), len(seg_tables))
+    else:
+        track_data = load_track_data(track_list, regions,
+                                     category_maps=init_maps)
     if opts.supervised:
         labeled = read_bed_intervals(opts.trainingBed, ncol=4)
         model = MultitrackHmm.supervised(track_data, labeled, device)
     else:
         model = _train_unsupervised(opts, track_data, metrics, device,
-                                    init_model)
+                                    init_model, seg_tables)
     model.save(opts.outputModel)
     logger.info("saved model to %s", opts.outputModel)
     metrics.close()
@@ -160,7 +186,7 @@ def main(argv=None) -> int:
 
 
 def _train_unsupervised(opts, track_data, metrics, device,
-                        init_model=None) -> MultitrackHmm:
+                        init_model=None, seg_tables=None) -> MultitrackHmm:
     trans_paths = [
         p for p in (opts.initTransProbs, opts.forceTransProbs) if p
     ]
@@ -189,7 +215,10 @@ def _train_unsupervised(opts, track_data, metrics, device,
         model = _init_model(opts, track_data, state_names, n_states, init,
                             opts.seed, rand_range, device)
     masks = _build_masks(opts, model, track_data, state_names, device)
-    tables = track_data.tables
+    tables = seg_tables if seg_tables is not None else track_data.tables
+    weights = None
+    if seg_tables is not None and opts.segLen:
+        weights = [t.lengths.astype(np.float32) for t in seg_tables]
 
     n_reps = max(1, opts.reps)
     if n_reps > 1 and opts.deviceLoop:
@@ -208,6 +237,7 @@ def _train_unsupervised(opts, track_data, metrics, device,
             rep_models, tables, max_iterations=opts.iter,
             convergence_tol=opts.emThresh, masks=masks,
             chunk_len=opts.chunk, metrics=metrics,
+            obs_weight_arrays=weights,
         )
         for rep, res in enumerate(results):
             logger.info(
@@ -234,7 +264,7 @@ def _train_unsupervised(opts, track_data, metrics, device,
             chunk_len=opts.chunk, metrics=metrics,
             checkpoint_path=opts.checkpoint,
             checkpoint_every=opts.checkpointEvery,
-            device_loop=opts.deviceLoop,
+            obs_weight_arrays=weights, device_loop=opts.deviceLoop,
         )
         final = result.logliks[-1] if result.logliks else -np.inf
         logger.info("rep %d: loglik %.4f after %d iters (converged=%s)",
@@ -258,6 +288,11 @@ def _init_model(opts, track_data, state_names, n_states, init, seed,
         n_states, track_data, device, init=init, seed=seed,
         rand_range=rand_range, state_names=state_names,
     )
+    if track_data.gauss_track_indices:
+        model.gauss = init_gauss(
+            n_states, [t.values for t in track_data.tables], device,
+            seed=seed,
+        )
     _apply_init_priors(opts, model, track_data, state_names)
     return model
 

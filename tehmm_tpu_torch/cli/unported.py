@@ -9,9 +9,6 @@ from __future__ import annotations
 
 import argparse
 
-SLICE_SEGMENT = (
-    "ROADMAP Queue 1, slice 4: gaussian tracks and segment weights"
-)
 SLICE_CFG = "ROADMAP Queue 1, slice 5: pair-grammar CFG"
 SLICE_SHARDING = "ROADMAP Queue 1, slice 6: sharding"
 SLICE_TOOLS = "ROADMAP Queue 1, slice 8: utilities"

@@ -30,6 +30,11 @@
 //     sum_ij alpha_{p-1}[i] T[i, j] xn[j] == m_p * sum_j alpha_p b / xm);
 //     then b <- T xn / max(max T xn, 1e-37).
 //   Positions t >= length carry p (and b) unchanged and count nothing.
+//   With segment weights w and gaussian tracks (the optional streams of
+//   common.cuh): obs_log is the categorical sum plus the gaussian term,
+//   times w (obs_log); the emission counts take gamma * w, and the
+//   gaussian moments (gn, gx, gx2)[j, g] sum gamma * w times (mask, x,
+//   x^2) of track g; start counts and pairs stay unweighted.
 //
 // What bounds them on an H100: like the Viterbi kernels, each row is a
 // chain of dependent steps (an S x S matrix-vector product from shared
@@ -43,8 +48,13 @@
 // statistics in its own shared-memory accumulators (lane j owns column j
 // of pair and row j of the emission counts, so no atomics).  The reverse
 // kernel runs 4, 2 or 1 warps per block, the most whose accumulators fit
-// in shared memory (the caller picks, from S, T and V), so the state
-// envelope is set by one warp's copy of the statistics.  Each block sums
+// in shared memory (the caller picks, from S, T, V and the gaussian track
+// count G), so the state envelope is set by one warp's copy of the
+// statistics.  The gaussian coefficients [S, 3G] sit in shared memory
+// beside log_em; the values (f32[B, L, G]) and weights (f32[B, L]) are
+// read straight from global memory and mask, x and x^2 formed in
+// registers, so the gaussian moments [S, 3G] accumulate like the
+// emission counts (lane j owns row j).  Each block sums
 // its warps' accumulators in warp order and writes one partial per block;
 // the wrapper sums the partials over blocks.  Every sum has a fixed order,
 // so two runs give the same bits.
@@ -77,18 +87,21 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32)
                   const float* __restrict__ em,
                   float* __restrict__ alpha, float* __restrict__ dm_out,
                   float* __restrict__ mraw_out, int64_t B, int64_t L, int S,
-                  int T, int V) {
+                  int T, int V, ObsStreams st) {
   extern __shared__ float smem[];
   const int64_t TV = (int64_t)T * V;
   float* s_trans = smem;                       // exp(log_trans) [S, S]
   float* s_em = s_trans + (int64_t)S * S;      // log_em [S, T, V]
   float* s_start = s_em + S * TV;              // exp(log_start) [S]
+  st.s_coef = s_start + S;                     // gaussian coefficients
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  float* s_p = s_start + S + (int64_t)warp * S;
+  float* s_p = st.s_coef + coef_floats(S, st.values, st.G) +
+               (int64_t)warp * S;
   stage(s_trans, trans_p, (int64_t)S * S);
   stage(s_em, em, S * TV);
   stage(s_start, start_p, S);
+  stage_coef(st, S);
   __syncthreads();
 
   const int64_t b = (int64_t)blockIdx.x * kWarpsPerBlock + warp;
@@ -102,7 +115,7 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32)
     const int64_t pos = b * L + t;
     float obs_p[SPL];
     const float o_m = obs_probs<SPL>(s_em, sym + pos * T, S, T, V, lane,
-                                     obs_p);
+                                     pos, st, obs_p);
     float u[SPL];
     float lmax = 0.0f;
 #pragma unroll
@@ -142,14 +155,17 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 }
 
 // per-warp shared-memory region of the reverse kernel:
-// pair [S, S] | em [S, T, V] | start [S] | xn [S] | alpha_{p-1} [S]
-__host__ __device__ __forceinline__ int64_t warp_region(int S, int T,
-                                                        int V) {
-  return (int64_t)S * S + (int64_t)S * T * V + 3 * (int64_t)S;
+// pair [S, S] | em [S, T, V] | start [S] | gaussian moments [S, 3G] |
+// xn [S] | alpha_{p-1} [S]  (G3 = 3G, 0 without gaussian tracks)
+__host__ __device__ __forceinline__ int64_t warp_region(int S, int T, int V,
+                                                        int G3) {
+  return (int64_t)S * S + (int64_t)S * T * V + (int64_t)S * G3 +
+         3 * (int64_t)S;
 }
 
 // K1 reverse: alpha_p and m_raw in; per-block partial statistics out:
-// pair_out [grid, S, S], em_out [grid, S, T, V], start_out [grid, S].
+// pair_out [grid, S, S], em_out [grid, S, T, V], start_out [grid, S] and,
+// with gaussian tracks, gmom_out [grid, S, 3G] (gn | gx | gx2).
 // blockDim.x is 32 x (1, 2 or 4) warps, one row per warp.
 template <int SPL>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
@@ -161,26 +177,32 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32)
                         const float* __restrict__ mraw,
                         float* __restrict__ pair_out,
                         float* __restrict__ em_out,
-                        float* __restrict__ start_out, int64_t B, int64_t L,
-                        int S, int T, int V) {
+                        float* __restrict__ start_out,
+                        float* __restrict__ gmom_out, int64_t B, int64_t L,
+                        int S, int T, int V, ObsStreams st) {
   extern __shared__ float smem[];
   const int64_t TV = (int64_t)T * V;
   const int64_t SS = (int64_t)S * S;
-  const int64_t region = warp_region(S, T, V);
+  const int G = st.values != nullptr ? st.G : 0;
+  const int64_t SG3 = (int64_t)S * 3 * G;
+  const int64_t region = warp_region(S, T, V, 3 * G);
   float* s_transT = smem;                      // exp(log_trans).T [S, S]
   float* s_em = s_transT + SS;                 // log_em [S, T, V]
-  float* s_warps = s_em + S * TV;              // one region per warp
+  st.s_coef = s_em + S * TV;                   // gaussian coefficients
+  float* s_warps = st.s_coef + SG3;            // one region per warp
   const int warps = blockDim.x >> 5;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   float* acc_pair = s_warps + warp * region;
   float* acc_em = acc_pair + SS;
   float* acc_start = acc_em + S * TV;
-  float* s_xn = acc_start + S;
+  float* acc_g = acc_start + S;
+  float* s_xn = acc_g + SG3;
   float* s_a = s_xn + S;
 
   stage_transposed(s_transT, trans_p, S);
   stage(s_em, em, S * TV);
+  stage_coef(st, S);
   for (int64_t n = threadIdx.x; n < warps * region; n += blockDim.x)
     s_warps[n] = 0.0f;
   __syncthreads();
@@ -196,7 +218,7 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32)
       const int64_t pos = b * L + p;
       const int32_t* x = sym + pos * T;
       float xn[SPL];
-      obs_probs<SPL>(s_em, x, S, T, V, lane, xn);
+      obs_probs<SPL>(s_em, x, S, T, V, lane, pos, st, xn);
       float ab[SPL];
       float xmax = 0.0f, abs_ = 0.0f;
 #pragma unroll
@@ -211,14 +233,28 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32)
       }
       const float xm = fmaxf(warp_max(xmax), 1e-37f);
       const float gden = fmaxf(warp_sum(abs_), 1e-30f);
-      // gamma -> emission counts (+ start counts at p == 0)
+      // gamma -> emission counts and gaussian moments (weighted by the
+      // segment weight), start counts at p == 0 (unweighted)
+      const float wp = st.w != nullptr ? st.w[pos] : 1.0f;
 #pragma unroll
       for (int k = 0; k < SPL; ++k) {
         const int j = lane + 32 * k;
         if (j < S) {
           const float gamma = ab[k] / gden;
+          const float gw = st.w != nullptr ? gamma * wp : gamma;
           float* row = acc_em + j * TV;
-          for (int tt = 0; tt < T; ++tt) row[tt * V + x[tt]] += gamma;
+          for (int tt = 0; tt < T; ++tt) row[tt * V + x[tt]] += gw;
+          if (G > 0) {
+            const float* v = st.values + pos * G;
+            float* mom = acc_g + (int64_t)j * 3 * G;
+            for (int g = 0; g < G; ++g) {
+              float m, xm, x2m;
+              gauss_feats(v[g], m, xm, x2m);
+              mom[g] += gw * m;
+              mom[G + g] += gw * xm;
+              mom[2 * G + g] += gw * x2m;
+            }
+          }
           if (p == 0) acc_start[j] += gamma;
           xn[k] = xn[k] / xm;
           s_xn[j] = xn[k];
@@ -270,19 +306,19 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32)
   __syncthreads();
 
   // the block's partial: each entry summed over its warps in order
-  const int64_t n_stats = SS + S * TV + S;
+  const int64_t n_stats = SS + S * TV + S + SG3;
   const int64_t blk = blockIdx.x;
-  float* outs[3] = {pair_out + blk * SS, em_out + blk * S * TV,
-                    start_out + blk * S};
   for (int64_t n = threadIdx.x; n < n_stats; n += blockDim.x) {
     float s = 0.0f;
     for (int w = 0; w < warps; ++w) s += s_warps[w * region + n];
     if (n < SS)
-      outs[0][n] = s;
+      pair_out[blk * SS + n] = s;
     else if (n < SS + S * TV)
-      outs[1][n - SS] = s;
+      em_out[blk * S * TV + n - SS] = s;
+    else if (n < SS + S * TV + S)
+      start_out[blk * S + n - SS - S * TV] = s;
     else
-      outs[2][n - SS - S * TV] = s;
+      gmom_out[blk * SG3 + n - SS - S * TV - S] = s;
   }
 }
 
@@ -290,9 +326,10 @@ template <int SPL>
 int launch_fwd(const void* sym, const void* lens, const void* start_p,
                const void* trans_p, const void* em, void* alpha, void* dm,
                void* mraw, int64_t B, int64_t L, int S, int T, int V,
-               cudaStream_t stream) {
+               const ObsStreams& st, cudaStream_t stream) {
   const size_t smem =
       sizeof(float) * ((size_t)S * S + (size_t)S * T * V + (size_t)S +
+                       coef_floats(S, st.values, st.G) +
                        (size_t)kWarpsPerBlock * S);
   cudaError_t err = allow_smem(em_fwd_kernel<SPL>, smem);
   if (err != cudaSuccess) return (int)err;
@@ -300,26 +337,28 @@ int launch_fwd(const void* sym, const void* lens, const void* start_p,
   em_fwd_kernel<SPL><<<(unsigned)grid, kWarpsPerBlock * 32, smem, stream>>>(
       (const int32_t*)sym, (const int32_t*)lens, (const float*)start_p,
       (const float*)trans_p, (const float*)em, (float*)alpha, (float*)dm,
-      (float*)mraw, B, L, S, T, V);
+      (float*)mraw, B, L, S, T, V, st);
   return (int)cudaGetLastError();
 }
 
 template <int SPL>
 int launch_bwd(const void* sym, const void* lens, const void* trans_p,
                const void* em, const void* alpha, const void* mraw,
-               void* pair_out, void* em_out, void* start_out, int64_t B,
-               int64_t L, int S, int T, int V, int warps,
-               cudaStream_t stream) {
+               void* pair_out, void* em_out, void* start_out, void* gmom_out,
+               int64_t B, int64_t L, int S, int T, int V, int warps,
+               const ObsStreams& st, cudaStream_t stream) {
+  const int G3 = (int)coef_floats(1, st.values, st.G);
   const size_t smem =
-      sizeof(float) * ((size_t)S * S + (size_t)S * T * V +
-                       (size_t)warps * warp_region(S, T, V));
+      sizeof(float) * ((size_t)S * S + (size_t)S * T * V + (size_t)S * G3 +
+                       (size_t)warps * warp_region(S, T, V, G3));
   cudaError_t err = allow_smem(em_bwd_stats_kernel<SPL>, smem);
   if (err != cudaSuccess) return (int)err;
   const int64_t grid = (B + warps - 1) / warps;
   em_bwd_stats_kernel<SPL><<<(unsigned)grid, warps * 32, smem, stream>>>(
       (const int32_t*)sym, (const int32_t*)lens, (const float*)trans_p,
       (const float*)em, (const float*)alpha, (const float*)mraw,
-      (float*)pair_out, (float*)em_out, (float*)start_out, B, L, S, T, V);
+      (float*)pair_out, (float*)em_out, (float*)start_out, (float*)gmom_out,
+      B, L, S, T, V, st);
   return (int)cudaGetLastError();
 }
 
@@ -327,50 +366,62 @@ int launch_bwd(const void* sym, const void* lens, const void* trans_p,
 
 extern "C" {
 
+// w, values and coef may be null (no segment weights / gaussian tracks).
 int tehmm_em_fwd(const void* sym, const void* lens, const void* start_p,
                  const void* trans_p, const void* em, void* alpha, void* dm,
                  void* mraw, int64_t B, int64_t L, int S, int T, int V,
+                 const void* w, const void* values, const void* coef, int G,
                  void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
+  cudaStream_t cs = (cudaStream_t)stream;
+  const ObsStreams st = make_streams(w, values, coef, G);
   switch (states_per_lane(S)) {
     case 1:
       return launch_fwd<1>(sym, lens, start_p, trans_p, em, alpha, dm, mraw,
-                           B, L, S, T, V, st);
+                           B, L, S, T, V, st, cs);
     case 2:
       return launch_fwd<2>(sym, lens, start_p, trans_p, em, alpha, dm, mraw,
-                           B, L, S, T, V, st);
+                           B, L, S, T, V, st, cs);
     case 4:
       return launch_fwd<4>(sym, lens, start_p, trans_p, em, alpha, dm, mraw,
-                           B, L, S, T, V, st);
+                           B, L, S, T, V, st, cs);
     case 8:
       return launch_fwd<8>(sym, lens, start_p, trans_p, em, alpha, dm, mraw,
-                           B, L, S, T, V, st);
+                           B, L, S, T, V, st, cs);
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
 
+// w, values, coef and gmom_out may be null (no segment weights /
+// gaussian tracks).
 int tehmm_em_bwd_stats(const void* sym, const void* lens,
                        const void* trans_p, const void* em,
                        const void* alpha, const void* mraw, void* pair_out,
-                       void* em_out, void* start_out, int64_t B, int64_t L,
-                       int S, int T, int V, int warps, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
+                       void* em_out, void* start_out, void* gmom_out,
+                       int64_t B, int64_t L, int S, int T, int V, int warps,
+                       const void* w, const void* values, const void* coef,
+                       int G, void* stream) {
+  cudaStream_t cs = (cudaStream_t)stream;
+  const ObsStreams st = make_streams(w, values, coef, G);
   if (warps != 1 && warps != 2 && warps != kWarpsPerBlock)
     return (int)cudaErrorInvalidValue;
   switch (states_per_lane(S)) {
     case 1:
       return launch_bwd<1>(sym, lens, trans_p, em, alpha, mraw, pair_out,
-                           em_out, start_out, B, L, S, T, V, warps, st);
+                           em_out, start_out, gmom_out, B, L, S, T, V, warps,
+                           st, cs);
     case 2:
       return launch_bwd<2>(sym, lens, trans_p, em, alpha, mraw, pair_out,
-                           em_out, start_out, B, L, S, T, V, warps, st);
+                           em_out, start_out, gmom_out, B, L, S, T, V, warps,
+                           st, cs);
     case 4:
       return launch_bwd<4>(sym, lens, trans_p, em, alpha, mraw, pair_out,
-                           em_out, start_out, B, L, S, T, V, warps, st);
+                           em_out, start_out, gmom_out, B, L, S, T, V, warps,
+                           st, cs);
     case 8:
       return launch_bwd<8>(sym, lens, trans_p, em, alpha, mraw, pair_out,
-                           em_out, start_out, B, L, S, T, V, warps, st);
+                           em_out, start_out, gmom_out, B, L, S, T, V, warps,
+                           st, cs);
     default:
       return (int)cudaErrorInvalidValue;
   }

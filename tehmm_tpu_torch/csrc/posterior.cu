@@ -28,7 +28,8 @@
 //
 //   decode, p = len-1..0, with b = 1 at the last valid position:
 //     path[p] = first-hit argmax (lowest state on ties) of alpha_p[p] * b;
-//     x = obs_p * b with obs_p = exp(obs_log - max obs_log),
+//     x = obs_p * b with obs_p = exp(obs_log - max obs_log) (common.cuh
+//     obs_log, with the optional segment-weight and gaussian streams),
 //     xm = max(max x, 1e-37);  b <- T (x / xm) / max(max T (x / xm), 1e-37).
 //     Positions at or past the row's length get path 0.
 //   X1, t = 0..Lc-1, from the carry a (max 0):  s_j = sum_i exp(a_i) T[i, j];
@@ -144,16 +145,19 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32)
                        const float* __restrict__ em,
                        const float* __restrict__ alpha,
                        int32_t* __restrict__ path, int64_t B, int64_t L,
-                       int S, int T, int V) {
+                       int S, int T, int V, ObsStreams st) {
   extern __shared__ float smem[];
   const int64_t TV = (int64_t)T * V;
   float* s_transT = smem;                      // exp(log_trans).T [S, S]
   float* s_em = s_transT + (int64_t)S * S;     // log_em [S, T, V]
+  st.s_coef = s_em + S * TV;                   // gaussian coefficients
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  float* s_xn = s_em + S * TV + (int64_t)warp * S;
+  float* s_xn = st.s_coef + coef_floats(S, st.values, st.G) +
+                (int64_t)warp * S;
   stage_transposed(s_transT, trans_p, S);
   stage(s_em, em, S * TV);
+  stage_coef(st, S);
   __syncthreads();
 
   const int64_t b = (int64_t)blockIdx.x * kWarpsPerBlock + warp;
@@ -177,7 +181,7 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32)
     if (lane == 0) prow[p] = state;
 
     float x[SPL];
-    obs_probs<SPL>(s_em, sym + pos * T, S, T, V, lane, x);
+    obs_probs<SPL>(s_em, sym + pos * T, S, T, V, lane, pos, st, x);
     float xmax = 0.0f;
 #pragma unroll
     for (int k = 0; k < SPL; ++k) {
@@ -338,15 +342,18 @@ unsigned grid_for(int64_t B) {
 template <int SPL>
 int launch_decode(const void* sym, const void* lens, const void* trans_p,
                   const void* em, const void* alpha, void* path, int64_t B,
-                  int64_t L, int S, int T, int V, cudaStream_t stream) {
+                  int64_t L, int S, int T, int V, const ObsStreams& st,
+                  cudaStream_t stream) {
   const size_t smem =
       sizeof(float) * ((size_t)S * S + (size_t)S * T * V +
+                       coef_floats(S, st.values, st.G) +
                        (size_t)kWarpsPerBlock * S);
   cudaError_t err = allow_smem(post_decode_kernel<SPL>, smem);
   if (err != cudaSuccess) return (int)err;
   post_decode_kernel<SPL><<<grid_for(B), kWarpsPerBlock * 32, smem, stream>>>(
       (const int32_t*)sym, (const int32_t*)lens, (const float*)trans_p,
-      (const float*)em, (const float*)alpha, (int32_t*)path, B, L, S, T, V);
+      (const float*)em, (const float*)alpha, (int32_t*)path, B, L, S, T, V,
+      st);
   return (int)cudaGetLastError();
 }
 
@@ -388,23 +395,27 @@ int launch_bwd_chunk(const void* obs, const void* x_carry,
 
 extern "C" {
 
+// w, values and coef may be null (no segment weights / gaussian tracks).
 int tehmm_post_decode(const void* sym, const void* lens, const void* trans_p,
                       const void* em, const void* alpha, void* path, int64_t B,
-                      int64_t L, int S, int T, int V, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
+                      int64_t L, int S, int T, int V, const void* w,
+                      const void* values, const void* coef, int G,
+                      void* stream) {
+  cudaStream_t cs = (cudaStream_t)stream;
+  const ObsStreams st = make_streams(w, values, coef, G);
   switch (states_per_lane(S)) {
     case 1:
       return launch_decode<1>(sym, lens, trans_p, em, alpha, path, B, L, S,
-                              T, V, st);
+                              T, V, st, cs);
     case 2:
       return launch_decode<2>(sym, lens, trans_p, em, alpha, path, B, L, S,
-                              T, V, st);
+                              T, V, st, cs);
     case 4:
       return launch_decode<4>(sym, lens, trans_p, em, alpha, path, B, L, S,
-                              T, V, st);
+                              T, V, st, cs);
     case 8:
       return launch_decode<8>(sym, lens, trans_p, em, alpha, path, B, L, S,
-                              T, V, st);
+                              T, V, st, cs);
     default:
       return (int)cudaErrorInvalidValue;
   }

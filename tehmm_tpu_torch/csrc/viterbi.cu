@@ -35,11 +35,14 @@
 // simple right design; many rows per warp, cp.async/TMA staging of
 // symbols and uint8 symbols are later work.
 //
-// Numerics: every operation on the value path is an exact float32 add,
-// subtract or max, and the in-kernel obs sums the T track terms in track
-// order t = 0..T-1, as models/emission.track_log_likelihoods does.  So
-// the kernels agree bit for bit with the plain torch versions in
-// ops/dp.py and ops/cuda_kernels.py.  Argmax is first-hit (strict '>'
+// Numerics: every operation on the value path is a float32 add,
+// subtract, max or (with the optional streams) a product rounded on its
+// own, and the in-kernel obs is common.cuh's obs_log: the T track terms
+// summed in track order t = 0..T-1, as models/emission.
+// track_log_likelihoods does, plus the gaussian tracks' term in the order
+// of models/gauss, times the segment weight.  So the kernels agree bit
+// for bit with the plain torch versions in ops/dp.py and
+// ops/cuda_kernels.py.  Argmax is first-hit (strict '>'
 // scanning states upward): ties go to the lowest state index.
 //
 // All index arithmetic is 64-bit.
@@ -94,7 +97,8 @@ __device__ __forceinline__ void renorm_store(const float (&nv)[SPL],
 }
 
 // K2 forward: symbols in, max-normalized value rows + normalizers out.
-// obs_j = sum_t log_em[j, t, x_t] is formed per step in registers and
+// obs_j (common.cuh obs_log: sum_t log_em[j, t, x_t], plus the gaussian
+// term, times the segment weight) is formed per step in registers and
 // never written to memory.
 template <int SPL>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
@@ -105,18 +109,21 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32)
                        const float* __restrict__ em,
                        float* __restrict__ v_out,
                        float* __restrict__ dm_out, int64_t B, int64_t L,
-                       int S, int T, int V) {
+                       int S, int T, int V, ObsStreams st) {
   extern __shared__ float smem[];
   const int64_t TV = (int64_t)T * V;
   float* s_trans = smem;
   float* s_em = s_trans + (int64_t)S * S;
   float* s_start = s_em + S * TV;
+  st.s_coef = s_start + S;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  float* s_v = s_start + S + (int64_t)warp * S;
+  float* s_v = st.s_coef + coef_floats(S, st.values, st.G) +
+               (int64_t)warp * S;
   stage(s_trans, trans, (int64_t)S * S);
   stage(s_em, em, S * TV);
   stage(s_start, start, S);
+  stage_coef(st, S);
   __syncthreads();
 
   const int64_t b = (int64_t)blockIdx.x * kWarpsPerBlock + warp;
@@ -140,12 +147,7 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 #pragma unroll
     for (int k = 0; k < SPL; ++k) {
       const int j = lane + 32 * k;
-      if (j < S) {
-        const float* row = s_em + j * TV;
-        float o = row[x[0]];
-        for (int tt = 1; tt < T; ++tt) o += row[tt * V + x[tt]];
-        nv[k] = nv[k] + o;
-      }
+      if (j < S) nv[k] = nv[k] + obs_log(s_em, x, T, V, j, pos, st);
     }
     renorm_store<SPL>(nv, s_v, S, lane, t < len, v_out + pos * S,
                       dm_out + pos);
@@ -242,9 +244,10 @@ template <int SPL>
 int launch_fwd(const void* sym, const void* lens, const void* start,
                const void* trans, const void* em, void* v_out,
                void* dm_out, int64_t B, int64_t L, int S, int T, int V,
-               cudaStream_t stream) {
+               const ObsStreams& st, cudaStream_t stream) {
   const size_t smem =
       sizeof(float) * ((size_t)S * S + (size_t)S * T * V + (size_t)S +
+                       coef_floats(S, st.values, st.G) +
                        (size_t)kWarpsPerBlock * S);
   cudaError_t err = allow_smem(viterbi_fwd_kernel<SPL>, smem);
   if (err != cudaSuccess) return (int)err;
@@ -253,7 +256,7 @@ int launch_fwd(const void* sym, const void* lens, const void* start,
                             stream>>>(
       (const int32_t*)sym, (const int32_t*)lens, (const float*)start,
       (const float*)trans, (const float*)em, (float*)v_out,
-      (float*)dm_out, B, L, S, T, V);
+      (float*)dm_out, B, L, S, T, V, st);
   return (int)cudaGetLastError();
 }
 
@@ -282,24 +285,27 @@ const char* tehmm_cuda_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
+// w, values and coef may be null (no segment weights / gaussian tracks).
 int tehmm_viterbi_fwd(const void* sym, const void* lens, const void* start,
                       const void* trans, const void* em, void* v_out,
                       void* dm_out, int64_t B, int64_t L, int S, int T,
-                      int V, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
+                      int V, const void* w, const void* values,
+                      const void* coef, int G, void* stream) {
+  cudaStream_t cs = (cudaStream_t)stream;
+  const ObsStreams st = make_streams(w, values, coef, G);
   switch (states_per_lane(S)) {
     case 1:
       return launch_fwd<1>(sym, lens, start, trans, em, v_out, dm_out, B,
-                           L, S, T, V, st);
+                           L, S, T, V, st, cs);
     case 2:
       return launch_fwd<2>(sym, lens, start, trans, em, v_out, dm_out, B,
-                           L, S, T, V, st);
+                           L, S, T, V, st, cs);
     case 4:
       return launch_fwd<4>(sym, lens, start, trans, em, v_out, dm_out, B,
-                           L, S, T, V, st);
+                           L, S, T, V, st, cs);
     case 8:
       return launch_fwd<8>(sym, lens, start, trans, em, v_out, dm_out, B,
-                           L, S, T, V, st);
+                           L, S, T, V, st, cs);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -18,7 +18,8 @@ from typing import Sequence
 
 import torch
 
-from tehmm_tpu.utils.common import EPSILON
+from tehmm_tpu_torch.models.gauss import gauss_log_likelihoods
+from tehmm_tpu_torch.utils.common import EPSILON
 
 _COUNT_BLOCK = 1 << 16     # positions per one-hot block of the counts
 
@@ -31,6 +32,25 @@ def track_log_likelihoods(log_em: torch.Tensor,
     obs = log_em[:, 0, :].T[sym[..., 0]]
     for t in range(1, T):
         obs = obs + log_em[:, t, :].T[sym[..., t]]
+    return obs
+
+
+def obs_log_likelihoods(log_em: torch.Tensor, symbols: torch.Tensor,
+                        gauss_params=None,
+                        values: torch.Tensor | None = None,
+                        weights: torch.Tensor | None = None
+                        ) -> torch.Tensor:
+    """The full observation log-likelihood f32[..., L, S]: categorical
+    tracks, plus the gaussian tracks' log-densities when ``gauss_params``
+    and ``values`` f32[..., L, G] are given, times the segment weights
+    ``weights`` f32[..., L] when given (a segment standing for w
+    positions emits P(obs | state)^w).  The order of the JAX package's
+    XLA paths, and of the kernels' in-register obs."""
+    obs = track_log_likelihoods(log_em, symbols)
+    if gauss_params is not None and values is not None:
+        obs = obs + gauss_log_likelihoods(gauss_params, values)
+    if weights is not None:
+        obs = obs * weights[..., None]
     return obs
 
 

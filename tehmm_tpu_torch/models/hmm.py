@@ -18,8 +18,12 @@ budget; on the card every E-step runs through K1.  The fit loop keeps
 the reference's lagged convergence check, so both packages take the
 same E/M steps and log the same logliks.
 
-Gaussian tracks, segment weights, the mesh and the train -> decode
-staging cache are later slices of the port (ROADMAP, Queue 1).
+Gaussian tracks (``self.gauss``, ``models/gauss.py``) and segment
+weights (``obs_weight_arrays`` / ``weight_arrays``, ``--segment
+--segLen``) ride along every path: their values and weights are chunked
+and staged beside the symbols, and on the card reach the kernels as
+their optional streams.  The mesh and the train -> decode staging cache
+are later slices of the port (ROADMAP, Queue 1).
 """
 
 from __future__ import annotations
@@ -32,12 +36,19 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from tehmm_tpu import native
-from tehmm_tpu.io.category import CategoryMap
-from tehmm_tpu.io.trackdata import TrackData, TrackTable
-from tehmm_tpu.io.trackxml import TrackList
-from tehmm_tpu.utils.common import EPSILON, JsonlMetrics, logger
-from tehmm_tpu_torch.models.emission import track_log_likelihoods
+from tehmm_tpu_torch import native
+from tehmm_tpu_torch.io.category import CategoryMap
+from tehmm_tpu_torch.io.trackdata import TrackData, TrackTable
+from tehmm_tpu_torch.io.trackxml import TrackList
+from tehmm_tpu_torch.utils.common import EPSILON, JsonlMetrics, logger
+from tehmm_tpu_torch.models.emission import obs_log_likelihoods
+from tehmm_tpu_torch.models.gauss import (
+    LOG_2PI,
+    GaussParams,
+    gauss_m_step,
+    supervised_gauss,
+)
+from tehmm_tpu_torch.models import gauss as gauss_ops
 from tehmm_tpu_torch.models.params import (
     HmmParams,
     init_flat,
@@ -51,14 +62,12 @@ from tehmm_tpu_torch.ops import em as em_ops
 from tehmm_tpu_torch.parallel.chunking import batch_chunks, plan_chunks
 from tehmm_tpu_torch.parallel.stitch import (
     StitchReport,
+    _weight_batch,
     posterior_chunked,
     posterior_sweep,
     viterbi_chunked,
 )
 
-_GAUSS_ITEM = (
-    "ROADMAP Queue 1, slice 4: gaussian tracks and segment weights"
-)
 _MESH_ITEM = "ROADMAP Queue 1, slice 6: sharding"
 
 # E-step pass budget: positions per E-step call.  The plain E-step holds
@@ -97,48 +106,75 @@ def _device_input_budget(device: torch.device) -> int:
     return 6 << 30
 
 
-def _make_host_passes(symbols: np.ndarray, lengths: np.ndarray,
-                      rows_per_pass: int) -> list[tuple]:
-    """Host (NumPy) pass blocks of ``rows_per_pass`` rows for inputs
-    too large to stage: the last one zero-padded (padded rows have
-    length 0), uploaded one at a time by the fit loop."""
-    n_rows = symbols.shape[0]
+def _make_host_passes(arrays: tuple, rows_per_pass: int) -> list[tuple]:
+    """Host (NumPy) pass blocks of ``rows_per_pass`` rows of each array
+    (symbols, lengths, weights, values; None stays None) for inputs too
+    large to stage: the last one zero-padded (padded rows have length
+    0), uploaded one at a time by the fit loop."""
+    n_rows = arrays[0].shape[0]
     rows_per_pass = min(rows_per_pass, n_rows)
     blocks = []
     for lo in range(0, n_rows, rows_per_pass):
         hi = min(lo + rows_per_pass, n_rows)
         pad = rows_per_pass - (hi - lo)
         blocks.append(tuple(
-            a[lo:hi] if pad == 0 else np.concatenate(
+            None if a is None else a[lo:hi] if pad == 0 else
+            np.concatenate(
                 [a[lo:hi], np.zeros((pad,) + a.shape[1:], a.dtype)])
-            for a in (symbols, lengths)
+            for a in arrays
         ))
     return blocks
 
 
-def _make_passes(symbols: torch.Tensor, lengths: torch.Tensor,
-                 rows_per_pass: int):
-    """The staged batch cut into pass blocks of ``rows_per_pass`` rows
-    (zero-padded rows have length 0): (sym[P, r, L, T], len[P, r]), or
-    None when one pass suffices."""
-    n_rows = symbols.shape[0]
+def _make_passes(arrays: tuple, rows_per_pass: int):
+    """The staged batch (symbols, lengths, weights, values; None stays
+    None) cut into pass blocks of ``rows_per_pass`` rows (zero-padded rows
+    have length 0): a list of per-pass tuples, or None when one pass
+    suffices."""
+    n_rows = arrays[0].shape[0]
     if n_rows <= rows_per_pass:
         return None
     P = -(-n_rows // rows_per_pass)
     pad = P * rows_per_pass - n_rows
-    sym_p = torch.nn.functional.pad(symbols, (0, 0, 0, 0, 0, pad))
-    len_p = torch.nn.functional.pad(lengths, (0, pad))
-    return (sym_p.reshape(P, rows_per_pass, *symbols.shape[1:]),
-            len_p.reshape(P, rows_per_pass))
+
+    def split(a):
+        if a is None:
+            return [None] * P
+        a = torch.nn.functional.pad(a, (0, 0) * (a.dim() - 1) + (0, pad))
+        return list(a.reshape(P, rows_per_pass, *a.shape[1:]))
+
+    return list(zip(*(split(a) for a in arrays)))
 
 
-def _stage(batch, device: torch.device):
-    """int32 symbols [rows, L, T] and lengths [rows] on ``device``."""
-    symbols = torch.from_numpy(
-        np.ascontiguousarray(batch.symbols, np.int32)).to(device)
-    lengths = torch.from_numpy(
-        np.ascontiguousarray(batch.lengths, np.int32)).to(device)
-    return symbols, lengths
+def _to_device(a: np.ndarray | None, dtype, device: torch.device):
+    if a is None:
+        return None
+    return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(device)
+
+
+def _train_arrays(tables, chunks, batch, gauss: bool,
+                  obs_weight_arrays) -> tuple:
+    """The chunked training inputs on the host: (int32 symbols [rows, L,
+    T], int32 lengths [rows], f32 weights [rows, L] or None, f32 values
+    [rows, L, G] or None)."""
+    w_np = gv_np = None
+    if obs_weight_arrays is not None:
+        w_np = _weight_batch(obs_weight_arrays, chunks)
+    if gauss:
+        gv_np = batch_chunks(
+            [np.asarray(t.values, np.float32) for t in tables], chunks
+        ).symbols
+    return (np.ascontiguousarray(batch.symbols, np.int32),
+            np.ascontiguousarray(batch.lengths, np.int32), w_np, gv_np)
+
+
+def _stage(arrays: tuple, device: torch.device) -> tuple:
+    """The host training inputs (``_train_arrays``) on ``device``."""
+    sym, lens, w, gv = arrays
+    return (_to_device(sym, np.int32, device),
+            _to_device(lens, np.int32, device),
+            _to_device(w, np.float32, device),
+            _to_device(gv, np.float32, device))
 
 
 @dataclasses.dataclass
@@ -150,7 +186,9 @@ class FitResult:
 
 
 class MultitrackHmm:
-    """Multi-track HMM with independent categorical emissions."""
+    """Multi-track HMM with independent categorical emissions, and
+    normal emissions for the tracks declared ``distribution="gaussian"``
+    (``self.gauss``)."""
 
     def __init__(
         self,
@@ -163,6 +201,9 @@ class MultitrackHmm:
         self.track_list = track_list
         self.category_maps = category_maps
         self.extra: dict = {}  # free-form persisted metadata (e.g. cfg)
+        # gaussian-track normal emissions (models/gauss.GaussParams);
+        # None when no track declares distribution="gaussian"
+        self.gauss: GaussParams | None = None
         S = params.num_states
         self.state_names = state_names or [str(i) for i in range(S)]
         if len(self.state_names) != S:
@@ -196,11 +237,8 @@ class MultitrackHmm:
     ) -> "MultitrackHmm":
         """Fresh model over loaded track data (``--flatEm``, or random
         emissions from ``numpy.random.RandomState(seed)`` as in the JAX
-        package)."""
-        if track_data.gauss_track_indices:
-            raise NotImplementedError(
-                f"gaussian tracks are not ported yet ({_GAUSS_ITEM})"
-            )
+        package).  Gaussian tracks get their parameters from
+        ``models.gauss.init_gauss`` (the train CLI's ``_init_model``)."""
         sizes = track_data.alphabet_sizes
         if init == "flat":
             params = init_flat(num_states, sizes, device)
@@ -226,12 +264,9 @@ class MultitrackHmm:
         ``labeled_intervals`` are (chrom, start, end, stateName) covering
         the loaded tables; state names are assigned indices in first-seen
         order.  Counting is host-side (float64); the M-step runs on
-        ``device`` in float32.
+        ``device`` in float32.  Gaussian tracks get per-state moments of
+        their labeled finite values (``models.gauss.supervised_gauss``).
         """
-        if track_data.gauss_track_indices:
-            raise NotImplementedError(
-                f"gaussian tracks are not ported yet ({_GAUSS_ITEM})"
-            )
         state_names: list[str] = []
         name_to_idx: dict[str, int] = {}
         for iv in labeled_intervals:
@@ -283,10 +318,16 @@ class MultitrackHmm:
         )
         params = em_ops.em_m_step(stats, init_flat(S, sizes, device),
                                   sizes, epsilon=epsilon)
-        return cls(
+        model = cls(
             params, track_data.track_list, track_data.category_maps,
             state_names,
         )
+        if track_data.gauss_track_indices:
+            model.gauss = supervised_gauss(
+                S, [t.values for t in track_data.tables], states_per_table,
+                device,
+            )
+        return model
 
     # ------------------------------------------------------------------
     # unsupervised / semi-supervised EM
@@ -309,46 +350,47 @@ class MultitrackHmm:
         """Baum-Welch EM on the model's device.
 
         Tables are cut into independent chunks of ``chunk_len``.  The
-        batch is staged once (or, past ``max_device_bytes`` — default
+        batch (symbols, and the segment weights ``obs_weight_arrays`` —
+        per-table f32[L] — and gaussian values when there are any) is
+        staged once (or, past ``max_device_bytes`` — default
         ``_device_input_budget`` — streamed as host pass blocks) and cut
         into pass blocks; each E-step sums the blocks' statistics.
         ``device_loop`` runs ``ops.em.em_run`` over the whole batch (no
-        per-iteration logging or checkpoints).
+        per-iteration logging or checkpoints).  Gaussian parameters take
+        their M-step after the categorical one, with ``--fixEm``'s states
+        frozen.
 
         Iteration i's loglik is logged and checked only after iteration
         i+1's E- and M-step, exactly as the JAX package's pipelined loop
         does, so the model returned has had one M-step more than its
         last logged loglik when EM converges."""
-        if obs_weight_arrays is not None:
-            raise NotImplementedError(
-                f"segment weights are not ported yet ({_GAUSS_ITEM})"
-            )
         device = self.params.device
         mats = [t.symbols for t in tables]
         chunks = plan_chunks([len(m) for m in mats], chunk_len, halo=0)
         batch = batch_chunks(mats, chunks)
+        host = _train_arrays(tables, chunks, batch, self.gauss is not None,
+                             obs_weight_arrays)
         sizes = self.alphabet_sizes
         n_rows, Lr = batch.symbols.shape[:2]
         n_positions = int(batch.lengths.sum())
         logliks: list[float] = []
         converged = False
         t0 = time.time()
+        fix = masks.fix_em_states if masks is not None else None
 
         pass_positions = (_MAX_PASS_POSITIONS_FUSED if device.type == "cuda"
                           else _MAX_PASS_POSITIONS)
         rows_per_pass = max(1, pass_positions // max(Lr, 1))
-        staged_bytes = n_rows * Lr * batch.symbols.shape[2] * 4   # int32
+        staged_bytes = sum(a.nbytes for a in host if a is not None) \
+            - host[1].nbytes
         budget = (max_device_bytes if max_device_bytes is not None
                   else _device_input_budget(device))
-        host_passes = passes = symbols = lengths = None
+        host_passes = passes = staged = None
         if not device_loop and staged_bytes > budget:
             bytes_per_row = max(1, staged_bytes // max(n_rows, 1))
             rows_per_pass = max(1, min(
                 rows_per_pass, int(budget // (2 * bytes_per_row))))
-            host_passes = _make_host_passes(
-                np.ascontiguousarray(batch.symbols, np.int32),
-                batch.lengths, rows_per_pass,
-            )
+            host_passes = _make_host_passes(host, rows_per_pass)
             logger.info(
                 "training inputs (%.2f GB) exceed the device staging "
                 "budget — streaming %d host pass-blocks per iteration",
@@ -356,7 +398,7 @@ class MultitrackHmm:
             )
         else:
             stage_t0 = time.time()
-            symbols, lengths = _stage(batch, device)
+            staged = _stage(host, device)
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
             stage_dt = time.time() - stage_t0
@@ -366,16 +408,20 @@ class MultitrackHmm:
                 staged_bytes / 1e9 / max(stage_dt, 1e-9),
             )
             if not device_loop:
-                passes = _make_passes(symbols, lengths, rows_per_pass)
+                passes = _make_passes(staged, rows_per_pass)
 
         if device_loop:
-            new_params, hist, n = em_ops.em_run(
+            symbols, lengths, weights, values = staged
+            out = em_ops.em_run(
                 self.params, symbols, sizes, lengths,
                 max_iterations=max_iterations,
                 convergence_tol=convergence_tol, masks=masks,
-                epsilon=epsilon,
+                epsilon=epsilon, obs_weights=weights,
+                gauss_params=self.gauss, gauss_values=values,
             )
-            self.params = new_params
+            self.params, hist, n = out[:3]
+            if self.gauss is not None:
+                self.gauss = out[3]
             logliks = [float(x) for x in hist[:n].cpu()]
             wall = time.time() - t0
             logger.info(
@@ -394,15 +440,17 @@ class MultitrackHmm:
 
         def estep() -> em_ops.EmStats:
             if host_passes is not None:
-                blocks = (tuple(torch.from_numpy(a).to(device) for a in blk)
-                          for blk in host_passes)
+                blocks = (_stage(blk, device) for blk in host_passes)
             elif passes is not None:
-                blocks = zip(passes[0], passes[1])
+                blocks = passes
             else:
-                blocks = [(symbols, lengths)]
+                blocks = [staged]
             stats = None
-            for sym_b, len_b in blocks:
-                s = em_ops.em_sufficient_stats(self.params, sym_b, len_b)
+            for sym_b, len_b, w_b, v_b in blocks:
+                s = em_ops.em_sufficient_stats(
+                    self.params, sym_b, len_b, obs_weights=w_b,
+                    gauss_params=self.gauss, gauss_values=v_b,
+                )
                 stats = s if stats is None else stats + s
             return stats
 
@@ -433,6 +481,10 @@ class MultitrackHmm:
             stats = estep()
             self.params = em_ops.em_m_step(stats, self.params, sizes, masks,
                                            epsilon)
+            if self.gauss is not None:
+                self.gauss = gauss_m_step(stats.gauss_n, stats.gauss_x,
+                                          stats.gauss_x2, self.gauss,
+                                          fix_states=fix)
             if drain():  # the previous iteration's loglik
                 break
             pending = (it, stats.loglik, it_t0)
@@ -451,12 +503,15 @@ class MultitrackHmm:
         chunk_len: int = 4096,
         halo: int = 256,
         rows_per_pass: int = 512,
+        weight_arrays: Sequence[np.ndarray] | None = None,
     ) -> tuple[list[np.ndarray], StitchReport]:
         """Viterbi state paths for each table (halo-stitched, with the
-        exact decoder as fallback)."""
+        exact decoder as fallback); ``weight_arrays``: per-table f32[L]
+        segment weights (``--segment --segLen``)."""
         return viterbi_chunked(
             self.params, tables, chunk_len=chunk_len, halo=halo,
-            rows_per_pass=rows_per_pass,
+            rows_per_pass=rows_per_pass, weight_arrays=weight_arrays,
+            gauss_params=self.gauss,
         )
 
     def decode_to_bed(
@@ -485,14 +540,12 @@ class MultitrackHmm:
         """Max-posterior (per-position argmax gamma) paths for each
         table: halo chunks with the Viterbi stitcher's boundary check and
         targeted widening, falling back to the exact carried-alpha/beta
-        decoder (``parallel.stitch.posterior_chunked``)."""
-        if weight_arrays is not None:
-            raise NotImplementedError(
-                f"segment weights are not ported yet ({_GAUSS_ITEM})"
-            )
+        decoder (``parallel.stitch.posterior_chunked``).
+        ``weight_arrays``: segment weights (``--segment --segLen``)."""
         paths, _report = posterior_chunked(
             self.params, tables, chunk_len=chunk_len, halo=halo,
-            rows_per_pass=rows_per_pass,
+            rows_per_pass=rows_per_pass, gauss_params=self.gauss,
+            weight_arrays=weight_arrays,
         )
         return paths
 
@@ -504,11 +557,8 @@ class MultitrackHmm:
     ) -> list[np.ndarray]:
         """Per-position posterior state distributions f32[L, S] for each
         table, from the exact chunk sweep (bit-identical to a monolithic
-        pass; the device holds one chunk at a time)."""
-        if weight_arrays is not None:
-            raise NotImplementedError(
-                f"segment weights are not ported yet ({_GAUSS_ITEM})"
-            )
+        pass; the device holds one chunk at a time).
+        ``weight_arrays``: segment weights (``--segment --segLen``)."""
         S = self.params.num_states
         out = [np.zeros((len(tab), S), np.float32) for tab in tables]
 
@@ -516,21 +566,24 @@ class MultitrackHmm:
             out[b][start : start + len(gamma)] = gamma
 
         posterior_sweep(self.params, tables, chunk_len=chunk_len,
-                        consume=consume)
+                        consume=consume, gauss_params=self.gauss,
+                        weight_arrays=weight_arrays)
         return out
 
     def score(
         self, tables: Sequence[TrackTable], chunk_len: int = 1 << 14,
-        mesh=None,
+        mesh=None, weight_arrays: Sequence[np.ndarray] | None = None,
     ) -> float:
         """Total log-likelihood of the data (reference: basehmm.score).
 
         Exact for arbitrarily long tables: the forward alpha is carried
         across chunks of ``chunk_len`` (``dp.streaming_loglik``; on the
         card one X1 launch in carry-only mode per chunk), so device
-        memory is O(tables x states) beside one chunk of obs.  ``mesh``
-        (the JAX package's sequence-parallel forward) raises: it comes
-        with the sharding slice."""
+        memory is O(tables x states) beside one chunk of obs (with the
+        gaussian tracks' term, and times the segment weights
+        ``weight_arrays`` when given: the segment eval's printed score).
+        ``mesh`` (the JAX package's sequence-parallel forward) raises: it
+        comes with the sharding slice."""
         if mesh is not None:
             raise NotImplementedError(
                 f"score over a device mesh is not ported yet ({_MESH_ITEM})"
@@ -543,16 +596,28 @@ class MultitrackHmm:
         T = mats[0].shape[1]
         n_chunks = -(-L // chunk_len)
         device = self.params.device
+        vmats = (None if self.gauss is None
+                 else [np.asarray(t.values, np.float32) for t in tables])
+        wmats = (None if weight_arrays is None
+                 else [np.asarray(w, np.float32) for w in weight_arrays])
+
+        def block_of(arrays, lo, shape, dtype):
+            block = np.zeros((len(arrays), chunk_len) + shape, dtype)
+            for b, m in enumerate(arrays):
+                piece = m[lo : lo + chunk_len]
+                block[b, : len(piece)] = piece
+            return torch.from_numpy(block).to(device)
 
         def obs_chunks():
             for c in range(n_chunks):
                 lo = c * chunk_len
-                block = np.zeros((len(mats), chunk_len, T), np.int32)
-                for b, m in enumerate(mats):
-                    piece = m[lo : lo + chunk_len]
-                    block[b, : len(piece)] = piece
-                yield track_log_likelihoods(
-                    self.params.log_em, torch.from_numpy(block).to(device)
+                yield obs_log_likelihoods(
+                    self.params.log_em,
+                    block_of(mats, lo, (T,), np.int32), self.gauss,
+                    None if vmats is None else block_of(
+                        vmats, lo, (vmats[0].shape[1],), np.float32),
+                    None if wmats is None else block_of(
+                        wmats, lo, (), np.float32),
                 )
 
         lens = [np.clip(true_lens - c * chunk_len, 0, chunk_len)
@@ -579,17 +644,16 @@ class MultitrackHmm:
             self.extra.update(extra)
         if self.extra:
             meta["extra"] = self.extra
-        save_model(path, self.params, meta)
+        arrays = None
+        if self.gauss is not None:
+            arrays = {"gauss_mu": self.gauss.mu.cpu().numpy(),
+                      "gauss_log_var": self.gauss.log_var.cpu().numpy()}
+        save_model(path, self.params, meta, extra_arrays=arrays)
 
     @classmethod
     def load(cls, path: str, device: str | torch.device
              ) -> "MultitrackHmm":
         params, meta, arrays = load_model(path, device)
-        if "gauss_mu" in arrays:
-            raise NotImplementedError(
-                f"{path}: models with gaussian tracks are not ported yet "
-                f"({_GAUSS_ITEM})"
-            )
         track_list = TrackList.from_dicts(meta["tracks"])
         maps = {
             name: CategoryMap.from_dict(d)
@@ -597,6 +661,9 @@ class MultitrackHmm:
         }
         model = cls(params, track_list, maps, meta["state_names"])
         model.extra = meta.get("extra", {})
+        if "gauss_mu" in arrays:
+            model.gauss = gauss_ops.from_numpy(
+                arrays["gauss_mu"], arrays["gauss_log_var"], device)
         return model
 
 
@@ -611,33 +678,33 @@ def fit_restarts(
     metrics: JsonlMetrics | None = None,
     obs_weight_arrays: Sequence[np.ndarray] | None = None,
 ) -> tuple[int, list[FitResult]]:
-    """EM over R restarts sharing one staged batch: each iteration runs
-    R E-steps (on the card, R K1 launch pairs per pass block) and R
-    M-steps, one per restart.  The same lagged convergence check
-    as ``fit``; converged when every restart's |delta loglik| < tol.
+    """EM over R restarts sharing one staged batch (symbols, segment
+    weights and gaussian values): each iteration runs R E-steps (on the
+    card, R K1 launch pairs per pass block) and R M-steps, one per
+    restart, each restart with its own gaussian parameters when the
+    models have gaussian tracks.  The same lagged convergence check as
+    ``fit``; converged when every restart's |delta loglik| < tol.
 
     Each model gets its restart's parameters back.  Returns
     (index of the best final loglik, per-restart FitResults)."""
-    if obs_weight_arrays is not None:
-        raise NotImplementedError(
-            f"segment weights are not ported yet ({_GAUSS_ITEM})"
-        )
     R = len(models)
     device = models[0].params.device
     mats = [t.symbols for t in tables]
     chunks = plan_chunks([len(m) for m in mats], chunk_len, halo=0)
     batch = batch_chunks(mats, chunks)
-    symbols, lengths = _stage(batch, device)
+    has_gauss = models[0].gauss is not None
+    staged = _stage(_train_arrays(tables, chunks, batch, has_gauss,
+                                  obs_weight_arrays), device)
     sizes = models[0].alphabet_sizes
     params = [m.params for m in models]
+    gauss = [m.gauss for m in models]
+    fix = masks.fix_em_states if masks is not None else None
     # pass blocks: R restarts' E-steps per block
-    Lr = symbols.shape[1]
+    Lr = staged[0].shape[1]
     budget = (_MAX_PASS_POSITIONS_FUSED if device.type == "cuda"
               else _MAX_PASS_POSITIONS)
     rows_per_pass = max(1, budget // max(Lr, 1) // R)
-    passes = _make_passes(symbols, lengths, rows_per_pass)
-    blocks = [(symbols, lengths)] if passes is None \
-        else list(zip(passes[0], passes[1]))
+    blocks = _make_passes(staged, rows_per_pass) or [staged]
 
     t0 = time.time()
     hist: list[np.ndarray] = []          # per-iteration f32[R]
@@ -668,12 +735,19 @@ def fit_restarts(
     for it in range(max_iterations):
         it_t0 = time.time()
         stats = [None] * R
-        for sym_b, len_b in blocks:
+        for sym_b, len_b, w_b, v_b in blocks:
             for r in range(R):
-                s = em_ops.em_sufficient_stats(params[r], sym_b, len_b)
+                s = em_ops.em_sufficient_stats(
+                    params[r], sym_b, len_b, obs_weights=w_b,
+                    gauss_params=gauss[r], gauss_values=v_b,
+                )
                 stats[r] = s if stats[r] is None else stats[r] + s
         params = [em_ops.em_m_step(s, p, sizes, masks, epsilon)
                   for s, p in zip(stats, params)]
+        if has_gauss:
+            gauss = [gauss_m_step(s.gauss_n, s.gauss_x, s.gauss_x2, g,
+                                  fix_states=fix)
+                     for s, g in zip(stats, gauss)]
         if drain():
             converged = True
             break
@@ -684,8 +758,9 @@ def fit_restarts(
     wall = time.time() - t0
     lls = np.stack(hist) if hist else np.zeros((0, R), np.float32)
     best = int(np.argmax(lls[-1])) if len(lls) else 0
-    for m, p in zip(models, params):
+    for m, p, g in zip(models, params, gauss):
         m.params = p
+        m.gauss = g
     results = [
         FitResult(logliks=[float(x) for x in lls[:, r]],
                   iterations=len(lls), converged=converged,
@@ -696,10 +771,18 @@ def fit_restarts(
 
 
 def path_log_score(params: HmmParams, symbols: np.ndarray,
-                   path: np.ndarray) -> float:
+                   path: np.ndarray, gauss: GaussParams | None = None,
+                   values: np.ndarray | None = None,
+                   obs_weights: np.ndarray | None = None) -> float:
     """Joint log-probability log P(obs, path) of a decoded state path
     (the quantity the reference's ``decode()`` returns).  Host gathers in
-    float64, O(L·T): no device pass."""
+    float64, O(L·T): no device pass.
+
+    ``gauss``/``values``: gaussian-track emissions (each position's
+    normal log-density under its path state).  ``obs_weights`` (f32[L],
+    segment mode ``--segLen``): scales every position's emission
+    log-probability (categorical + gaussian) by its weight, as the
+    decode kernels' ``obs * w``; transitions are unweighted."""
     log_em = params.log_em.cpu().numpy().astype(np.float64)
     log_trans = params.log_trans.cpu().numpy().astype(np.float64)
     log_start = params.log_start.cpu().numpy().astype(np.float64)
@@ -712,6 +795,14 @@ def path_log_score(params: HmmParams, symbols: np.ndarray,
     em_pos = np.zeros(len(path), np.float64)
     for t in range(symbols.shape[1]):
         em_pos += log_em[path, t, symbols[:, t].astype(np.int64)]
+    if gauss is not None and values is not None:
+        mu = gauss.mu.cpu().numpy().astype(np.float64)[path]      # [L, G]
+        lv = gauss.log_var.cpu().numpy().astype(np.float64)[path]
+        x = np.asarray(values, np.float64)
+        ll = -0.5 * ((x - mu) ** 2 / np.exp(lv) + lv + LOG_2PI)
+        em_pos += np.where(np.isfinite(x), ll, 0.0).sum(axis=1)
+    if obs_weights is not None:
+        em_pos = em_pos * np.asarray(obs_weights, np.float64)
     return s + float(em_pos.sum())
 
 

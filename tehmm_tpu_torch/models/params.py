@@ -4,7 +4,7 @@ Counterpart of ``tehmm_tpu/models/params.py``; the conventions are the
 same:
 
 * All probabilities are stored in natural-log space, float32.
-* "log zero" is the finite ``LOG_ZERO`` (``tehmm_tpu.utils.common``) —
+* "log zero" is the finite ``LOG_ZERO`` (``tehmm_tpu_torch.utils.common``) —
   never IEEE -inf.
 * ``log_em`` is padded to the largest alphabet across tracks; entries for
   symbols ``v >= alphabet_size[t]`` are stored as 0.0 and never selected.

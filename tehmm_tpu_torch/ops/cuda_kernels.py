@@ -32,6 +32,15 @@ CUDA tensor launches the kernel or raises — there is no fallback.  Each
 launch adds one to ``LAUNCHES[name]``, so a run can show that its path
 went through the kernels.
 
+The fused kernels (``em_fwd``, ``em_bwd_stats``, ``viterbi_fwd``,
+``post_decode`` and their compositions) take the JAX signatures' two
+optional observation streams, ``obs_weights`` f32[B, L] (segment
+weights) and ``gauss_params`` with ``gauss_values`` f32[B, L, G]
+(gaussian tracks, NaN missing).  The kernels read them straight from
+global memory, the coefficients [c0 | c1 | c2] (``models.gauss.
+coeff_table``) from shared memory, and count a launch with streams under
+``name+w``, ``name+g`` or ``name+wg``.
+
 The library is built with ``nvcc`` for ``sm_90a`` at first use, into
 ``build/tehmm_tpu_torch/`` beside the package (keyed by a hash over
 every ``csrc/*.cu`` and the ``csrc/*.cuh`` they include): one
@@ -43,6 +52,7 @@ when this module is imported.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import glob
 import hashlib
 import os
@@ -54,8 +64,9 @@ import torch
 
 from tehmm_tpu_torch.models.emission import (
     expected_emission_counts,
-    track_log_likelihoods,
+    obs_log_likelihoods,
 )
+from tehmm_tpu_torch.models.gauss import coeff_table, gauss_stats
 from tehmm_tpu_torch.ops import dp
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -64,15 +75,15 @@ HEADERS = sorted(glob.glob(os.path.join(_PKG, "csrc", "*.cuh")))
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "tehmm_tpu_torch")
 
 # Launch counts per kernel (plain integers; reset_launch_counts zeroes).
+# The kernels with the optional streams count each variant apart.
+STREAM_KERNELS = ("viterbi_fwd", "em_fwd", "em_bwd_stats", "post_decode")
+STREAM_VARIANTS = ("", "+w", "+g", "+wg")
 LAUNCHES = {
-    "viterbi_fwd": 0,
-    "viterbi_backtrace": 0,
-    "viterbi_chunk_values": 0,
-    "em_fwd": 0,
-    "em_bwd_stats": 0,
-    "post_decode": 0,
-    "fwd_chunk": 0,
-    "bwd_chunk": 0,
+    name: 0 for name in (
+        [k + v for k in STREAM_KERNELS for v in STREAM_VARIANTS]
+        + ["viterbi_backtrace", "viterbi_chunk_values", "fwd_chunk",
+           "bwd_chunk"]
+    )
 }
 
 # The kernels' envelope: one warp holds a row with up to 8 states per
@@ -181,9 +192,10 @@ def load_library() -> ctypes.CDLL:
         ptr, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
         lib.tehmm_cuda_error_string.restype = ctypes.c_char_p
         lib.tehmm_cuda_error_string.argtypes = [i32]
+        streams = [ptr, ptr, ptr, i32]        # w, values, coef, G
         lib.tehmm_viterbi_fwd.restype = i32
         lib.tehmm_viterbi_fwd.argtypes = (
-            [ptr] * 7 + [i64, i64, i32, i32, i32, ptr]
+            [ptr] * 7 + [i64, i64, i32, i32, i32] + streams + [ptr]
         )
         lib.tehmm_viterbi_chunk_values.restype = i32
         lib.tehmm_viterbi_chunk_values.argtypes = (
@@ -195,15 +207,15 @@ def load_library() -> ctypes.CDLL:
         ]
         lib.tehmm_em_fwd.restype = i32
         lib.tehmm_em_fwd.argtypes = (
-            [ptr] * 8 + [i64, i64, i32, i32, i32, ptr]
+            [ptr] * 8 + [i64, i64, i32, i32, i32] + streams + [ptr]
         )
         lib.tehmm_em_bwd_stats.restype = i32
         lib.tehmm_em_bwd_stats.argtypes = (
-            [ptr] * 9 + [i64, i64, i32, i32, i32, i32, ptr]
+            [ptr] * 10 + [i64, i64, i32, i32, i32, i32] + streams + [ptr]
         )
         lib.tehmm_post_decode.restype = i32
         lib.tehmm_post_decode.argtypes = (
-            [ptr] * 6 + [i64, i64, i32, i32, i32, ptr]
+            [ptr] * 6 + [i64, i64, i32, i32, i32] + streams + [ptr]
         )
         lib.tehmm_fwd_chunk.restype = i32
         lib.tehmm_fwd_chunk.argtypes = [ptr] * 7 + [i64, i64, i32, ptr]
@@ -281,15 +293,79 @@ def _raise_on(rc: int, lib: ctypes.CDLL, what: str) -> None:
         raise RuntimeError(f"{what} launch failed: CUDA error {rc} ({msg})")
 
 
+@dataclasses.dataclass(frozen=True)
+class _Streams:
+    """The optional observation streams of one fused-kernel call."""
+
+    w: torch.Tensor | None = None        # f32[B, L] segment weights
+    values: torch.Tensor | None = None   # f32[B, L, G], NaN missing
+    gauss: object = None                 # models.gauss.GaussParams
+
+    @property
+    def G(self) -> int:
+        return 0 if self.values is None else self.values.shape[-1]
+
+    @property
+    def suffix(self) -> str:
+        """The launch-count key's variant: "", "+w", "+g" or "+wg"."""
+        tag = ("w" if self.w is not None else "") + \
+            ("g" if self.values is not None else "")
+        return "+" + tag if tag else ""
+
+    def coef_floats(self, S: int) -> int:
+        """Shared-memory floats of the coefficient table [S, 3G]."""
+        return 3 * S * self.G
+
+    def obs(self, log_em, symbols):
+        """The plain versions' observation log-likelihoods."""
+        return obs_log_likelihoods(log_em, symbols, self.gauss, self.values,
+                                   self.w)
+
+    def args(self):
+        """(w, values, coef, G) as the C entry points take them; the
+        coefficient tensor is returned too, to live until the launch."""
+        if self.values is None:
+            coef = None
+        else:
+            coef = coeff_table(self.gauss)
+        ptr = (lambda t: None if t is None else t.data_ptr())
+        return coef, [ptr(self.w), ptr(self.values), ptr(coef), self.G]
+
+
+def _streams(symbols, S, obs_weights=None, gauss_params=None,
+             gauss_values=None) -> _Streams:
+    """Check the optional streams against symbols [B, L, T] (gaussian
+    tracks need both ``gauss_params`` and ``gauss_values``, as in the
+    JAX package)."""
+    B, L, _T = symbols.shape
+    dev = symbols.device
+    if obs_weights is not None:
+        _check(obs_weights, "obs_weights", torch.float32, (B, L), dev)
+        _check_contiguous(obs_weights, "obs_weights")
+    if gauss_params is None or gauss_values is None:
+        return _Streams(w=obs_weights)
+    G = gauss_values.shape[-1]
+    _check(gauss_values, "gauss_values", torch.float32, (B, L, G), dev)
+    _check_contiguous(gauss_values, "gauss_values")
+    _check(gauss_params.mu, "gauss_params.mu", torch.float32, (S, G), dev)
+    _check(gauss_params.log_var, "gauss_params.log_var", torch.float32,
+           (S, G), dev)
+    return _Streams(w=obs_weights, values=gauss_values, gauss=gauss_params)
+
+
 # ---------------------------------------------------------------------
 # K2 forward
 # ---------------------------------------------------------------------
 
-def viterbi_fwd_plain(log_start, log_trans, log_em, symbols, lengths):
+def viterbi_fwd_plain(log_start, log_trans, log_em, symbols, lengths,
+                      obs_weights=None, gauss_params=None,
+                      gauss_values=None):
     """Plain version of ``viterbi_fwd``: obs by the track-order
-    gather-sum, then the max-plus forward of ``dp.viterbi`` with K2's
-    masking (zero-length rows carry a zero row)."""
-    obs = track_log_likelihoods(log_em, symbols)
+    gather-sum (plus the gaussian term, times the weights), then the
+    max-plus forward of ``dp.viterbi`` with K2's masking (zero-length rows
+    carry a zero row)."""
+    obs = _streams(symbols, log_em.shape[0], obs_weights, gauss_params,
+                   gauss_values).obs(log_em, symbols)
     B, L, S = obs.shape
     lens = lengths.to(torch.int64)
     v_hat = torch.zeros((B, S), dtype=torch.float32, device=obs.device)
@@ -307,11 +383,12 @@ def viterbi_fwd_plain(log_start, log_trans, log_em, symbols, lengths):
     return torch.stack(rows, dim=1), torch.stack(dms, dim=1)
 
 
-def viterbi_fwd(log_start, log_trans, log_em, symbols, lengths):
+def viterbi_fwd(log_start, log_trans, log_em, symbols, lengths,
+                obs_weights=None, gauss_params=None, gauss_values=None):
     """K2 forward: (v_hats f32[B, L, S], dm f32[B, L]) from int32
-    symbols [B, L, T] and int32 lengths [B].  Row t is the
-    max-normalized value row at position t; dm[b, t] is its normalizer
-    (0 at padding).
+    symbols [B, L, T] and int32 lengths [B], with the optional segment
+    weights and gaussian tracks.  Row t is the max-normalized value row
+    at position t; dm[b, t] is its normalizer (0 at padding).
 
     Replaces ``_make_viterbi_fwd_kernel_v4`` (pallas_kernels.py:2386).
     Bound on an H100: the latency of one dependent max-plus step per
@@ -331,11 +408,13 @@ def viterbi_fwd(log_start, log_trans, log_em, symbols, lengths):
                     (log_start, "log_start"), (log_trans, "log_trans"),
                     (log_em, "log_em")):
         _check_contiguous(t, name)
+    st = _streams(symbols, S, obs_weights, gauss_params, gauss_values)
     if _device_kind(dev) == "cpu":
         return viterbi_fwd_plain(log_start, log_trans, log_em, symbols,
-                                 lengths)
+                                 lengths, st.w, st.gauss, st.values)
     _check_envelope(
-        S, S * S + S * T * V + S + _WARPS_PER_BLOCK * S, "viterbi_fwd"
+        S, S * S + S * T * V + S + st.coef_floats(S) + _WARPS_PER_BLOCK * S,
+        "viterbi_fwd"
     )
     _check_index_range(symbols, V, "symbols")
     v_hats = torch.empty((B, L, S), dtype=torch.float32, device=dev)
@@ -343,13 +422,14 @@ def viterbi_fwd(log_start, log_trans, log_em, symbols, lengths):
     if B == 0 or L == 0:
         return v_hats, dm
     lib = load_library()
+    _coef, stream_args = st.args()
     rc = lib.tehmm_viterbi_fwd(
         symbols.data_ptr(), lengths.data_ptr(), log_start.data_ptr(),
         log_trans.data_ptr(), log_em.data_ptr(), v_hats.data_ptr(),
-        dm.data_ptr(), B, L, S, T, V, _stream(dev),
+        dm.data_ptr(), B, L, S, T, V, *stream_args, _stream(dev),
     )
     _raise_on(rc, lib, "viterbi_fwd")
-    LAUNCHES["viterbi_fwd"] += 1
+    LAUNCHES["viterbi_fwd" + st.suffix] += 1
     return v_hats, dm
 
 
@@ -470,8 +550,11 @@ def viterbi_carry(log_trans, obs, v_hat_init, lengths):
 # K2 as a whole
 # ---------------------------------------------------------------------
 
-def viterbi_fused(log_start, log_trans, log_em, symbols, lengths):
-    """Symbols-in/path-out Viterbi: (path int32[B, L], score f32[B]).
+def viterbi_fused(log_start, log_trans, log_em, symbols, lengths,
+                  obs_weights=None, gauss_params=None, gauss_values=None):
+    """Symbols-in/path-out Viterbi with the JAX signature of
+    ``viterbi_fused_pallas_v4``: (path int32[B, L], score f32[B]).  The
+    optional streams reach the forward; the backtrace reads no obs.
 
     The forward writes value rows; the backtrace starts from the
     first-hit argmax of the last row and walks positions L-1..1 against
@@ -481,7 +564,8 @@ def viterbi_fused(log_start, log_trans, log_em, symbols, lengths):
     float32 rounding).  Zero-length rows get path 0 and score 0."""
     B, L, _T = symbols.shape
     v_hats, dm = viterbi_fwd(log_start, log_trans, log_em, symbols,
-                             lengths)
+                             lengths, obs_weights, gauss_params,
+                             gauss_values)
     last = v_hats[:, L - 1]
     end_state = torch.argmax(last, dim=-1).to(torch.int32)
     body_lens = torch.clamp(lengths - 1, min=0).to(torch.int32)
@@ -499,22 +583,24 @@ def viterbi_fused(log_start, log_trans, log_em, symbols, lengths):
 # K1: the fused E-step (forward, then reverse sweep with statistics)
 # ---------------------------------------------------------------------
 
-def _k1_smem_floats(S: int, T: int, V: int,
-                    bwd_warps: int = 1) -> tuple[int, int]:
+def _k1_smem_floats(S: int, T: int, V: int, bwd_warps: int = 1,
+                    G: int = 0) -> tuple[int, int]:
     """Shared-memory floats per block of (em_fwd, em_bwd_stats): the
-    tables, plus per warp a probability row (forward) or the statistics
-    accumulators and three state rows (reverse, ``bwd_warps`` warps)."""
-    tables = S * S + S * T * V
+    tables (with G gaussian tracks, their coefficients [S, 3G]), plus per
+    warp a probability row (forward) or the statistics accumulators
+    (with the gaussian moments [S, 3G]) and three state rows (reverse,
+    ``bwd_warps`` warps)."""
+    tables = S * S + S * T * V + 3 * S * G
     return (tables + S + _WARPS_PER_BLOCK * S,
-            tables + bwd_warps * (S * S + S * T * V + 3 * S))
+            tables + bwd_warps * (S * S + S * T * V + 3 * S * G + 3 * S))
 
 
-def _k1_bwd_warps(S: int, T: int, V: int) -> int:
+def _k1_bwd_warps(S: int, T: int, V: int, G: int = 0) -> int:
     """Warps per block of em_bwd_stats: 4, 2 or 1, the most whose
     private statistics fit in shared memory (1 when none fits, and the
     envelope check then raises)."""
     for warps in (_WARPS_PER_BLOCK, 2):
-        if 4 * _k1_smem_floats(S, T, V, warps)[1] <= _SMEM_LIMIT:
+        if 4 * _k1_smem_floats(S, T, V, warps, G)[1] <= _SMEM_LIMIT:
             return warps
     return 1
 
@@ -536,10 +622,12 @@ def _check_k1_inputs(log_em, symbols, lengths, **tables) -> torch.device:
     return dev
 
 
-def em_fwd_plain(log_start, log_trans, log_em, symbols, lengths):
+def em_fwd_plain(log_start, log_trans, log_em, symbols, lengths,
+                 obs_weights=None, gauss_params=None, gauss_values=None):
     """Plain version of ``em_fwd``: K1's probability-space forward as a
     loop over positions, batched over rows."""
-    obs = track_log_likelihoods(log_em, symbols)              # [B, L, S]
+    obs = _streams(symbols, log_em.shape[0], obs_weights, gauss_params,
+                   gauss_values).obs(log_em, symbols)         # [B, L, S]
     B, L, S = obs.shape
     o_m = obs.amax(dim=-1)
     obs_p = torch.exp(obs - o_m[..., None])
@@ -561,27 +649,33 @@ def em_fwd_plain(log_start, log_trans, log_em, symbols, lengths):
     return alpha, dm, m_raw
 
 
-def em_fwd(log_start, log_trans, log_em, symbols, lengths):
+def em_fwd(log_start, log_trans, log_em, symbols, lengths,
+           obs_weights=None, gauss_params=None, gauss_values=None):
     """K1 forward: (alpha_p f32[B, L, S], dm f32[B, L], m_raw f32[B, L])
-    from int32 symbols [B, L, T] and int32 lengths [B].  Row t of
-    alpha_p is the forward probability row scaled to max 1 (a row of
-    ones for zero-length rows; carried at padding); dm[b, t] is its
-    loglik increment log m + max obs_log (0 at padding) and m_raw[b, t]
-    the scale m itself (1 at padding), which the reverse sweep uses.
+    from int32 symbols [B, L, T] and int32 lengths [B], with the optional
+    segment weights and gaussian tracks.  Row t of alpha_p is the forward
+    probability row scaled to max 1 (a row of ones for zero-length rows;
+    carried at padding); dm[b, t] is its loglik increment log m + max
+    obs_log (0 at padding) and m_raw[b, t] the scale m itself (1 at
+    padding), which the reverse sweep uses.
 
     Replaces ``_make_forward_kernel_v4`` (pallas_kernels.py:1777).
     Bound on an H100: the latency of one dependent step per position (an
     S x S matrix-vector product from shared memory, two warp max
-    reductions, T table lookups), not bytes or flops.  Design: one warp
-    per row, lane <-> state, exp(trans), log_em and exp(start) in shared
-    memory, obs formed in registers and never written out."""
+    reductions, T table lookups and 3G gaussian products), not bytes or
+    flops.  Design: one warp per row, lane <-> state, exp(trans), log_em,
+    exp(start) and the gaussian coefficients in shared memory, obs formed
+    in registers (weights and values read from global memory) and never
+    written out."""
     S, T, V = log_em.shape
     B, L, _T = symbols.shape
     dev = _check_k1_inputs(log_em, symbols, lengths, log_start=log_start,
                            log_trans=log_trans)
+    st = _streams(symbols, S, obs_weights, gauss_params, gauss_values)
     if _device_kind(dev) == "cpu":
-        return em_fwd_plain(log_start, log_trans, log_em, symbols, lengths)
-    _check_envelope(S, _k1_smem_floats(S, T, V)[0], "em_fwd",
+        return em_fwd_plain(log_start, log_trans, log_em, symbols, lengths,
+                            st.w, st.gauss, st.values)
+    _check_envelope(S, _k1_smem_floats(S, T, V, G=st.G)[0], "em_fwd",
                     _K1_ENVELOPE_ITEM)
     _check_index_range(symbols, V, "symbols")
     alpha = torch.empty((B, L, S), dtype=torch.float32, device=dev)
@@ -591,20 +685,31 @@ def em_fwd(log_start, log_trans, log_em, symbols, lengths):
         return alpha, dm, m_raw
     start_p, trans_p = torch.exp(log_start), torch.exp(log_trans)
     lib = load_library()
+    _coef, stream_args = st.args()
     rc = lib.tehmm_em_fwd(
         symbols.data_ptr(), lengths.data_ptr(), start_p.data_ptr(),
         trans_p.data_ptr(), log_em.data_ptr(), alpha.data_ptr(),
-        dm.data_ptr(), m_raw.data_ptr(), B, L, S, T, V, _stream(dev),
+        dm.data_ptr(), m_raw.data_ptr(), B, L, S, T, V, *stream_args,
+        _stream(dev),
     )
     _raise_on(rc, lib, "em_fwd")
-    LAUNCHES["em_fwd"] += 1
+    LAUNCHES["em_fwd" + st.suffix] += 1
     return alpha, dm, m_raw
 
 
-def em_bwd_stats_plain(log_trans, log_em, symbols, lengths, alpha, m_raw):
+def _split_moments(gmom: torch.Tensor, G: int):
+    """[S, 3G] -> (gn, gx, gx2), each [S, G]."""
+    return gmom[:, :G], gmom[:, G:2 * G], gmom[:, 2 * G:]
+
+
+def em_bwd_stats_plain(log_trans, log_em, symbols, lengths, alpha, m_raw,
+                       obs_weights=None, gauss_params=None,
+                       gauss_values=None):
     """Plain version of ``em_bwd_stats``: K1's reverse sweep as a loop
-    over positions, batched over rows, then the three contractions."""
-    obs = track_log_likelihoods(log_em, symbols)
+    over positions, batched over rows, then the contractions."""
+    st = _streams(symbols, log_em.shape[0], obs_weights, gauss_params,
+                  gauss_values)
+    obs = st.obs(log_em, symbols)
     B, L, S = obs.shape
     dev = obs.device
     obs_p = torch.exp(obs - obs.amax(dim=-1, keepdim=True))
@@ -630,56 +735,75 @@ def em_bwd_stats_plain(log_trans, log_em, symbols, lengths, alpha, m_raw):
         nm = torch.clamp(sb.amax(dim=-1), min=1e-37)
         b = torch.where(valid[:, None], sb / nm[:, None], b)
     start = gamma[:, 0].sum(dim=0) if L else torch.zeros(S, device=dev)
-    em = expected_emission_counts(tuple(log_em.shape), symbols, gamma)
+    gamma_w = gamma if st.w is None else gamma * st.w[..., None]
+    em = expected_emission_counts(tuple(log_em.shape), symbols, gamma_w)
     # pair[i, j] = sum over transitions into p >= 1 of
     # alpha_{p-1}[i] * w_p * xn_p[j]
     pair = torch.einsum(
         "bli,blj->ij", alpha[:, :-1] * w_all[:, 1:, None], xn_all[:, 1:]
     )
-    return start, pair, em
+    if st.values is None:
+        return start, pair, em
+    return start, pair, em, gauss_stats(gamma_w, st.values)
 
 
-def em_bwd_stats(log_trans, log_em, symbols, lengths, alpha, m_raw):
+def em_bwd_stats(log_trans, log_em, symbols, lengths, alpha, m_raw,
+                 obs_weights=None, gauss_params=None, gauss_values=None):
     """K1 reverse: (start f32[S], pair f32[S, S], em f32[S, T, V]) from
-    the forward's alpha_p and m_raw.  ``pair`` excludes the transition
-    factor: expected transition counts are pair * exp(log_trans).
+    the forward's alpha_p and m_raw, and with gaussian tracks a fourth
+    element, the moments (gn, gx, gx2) each f32[S, G].  ``pair``
+    excludes the transition factor: expected transition counts are
+    pair * exp(log_trans).  Segment weights scale the emission counts and
+    the moments; start counts and pairs are unweighted.
 
     Replaces ``_make_bwd_stats_kernel_v4`` (pallas_kernels.py:1931).
     Bound: as ``em_fwd``, with a second S x S product per position (the
-    pair update) and T scattered shared-memory adds.  Design: one warp
-    per row walking from its last valid position down, obs recomputed
-    from the symbols, each warp's statistics in its own shared-memory
-    accumulators (4, 2 or 1 warps per block, the most that fit); each
-    block writes one partial, summed here over blocks in a fixed order
-    (no atomics: two runs give the same bits)."""
+    pair update), T scattered shared-memory adds and 3G moment adds.
+    Design: one warp per row walking from its last valid position down,
+    obs recomputed from the symbols (and the streams), each warp's
+    statistics in its own shared-memory accumulators (4, 2 or 1 warps per
+    block, the most that fit; lane j owns row j of the emission counts
+    and the moments); each block writes one partial, summed here over
+    blocks in a fixed order (no atomics: two runs give the same bits)."""
     S, T, V = log_em.shape
     B, L, _T = symbols.shape
     dev = _check_k1_inputs(log_em, symbols, lengths, log_trans=log_trans,
                            alpha=alpha, m_raw=m_raw)
+    st = _streams(symbols, S, obs_weights, gauss_params, gauss_values)
     if _device_kind(dev) == "cpu":
         return em_bwd_stats_plain(log_trans, log_em, symbols, lengths,
-                                  alpha, m_raw)
-    warps = _k1_bwd_warps(S, T, V)
-    _check_envelope(S, _k1_smem_floats(S, T, V, warps)[1], "em_bwd_stats",
+                                  alpha, m_raw, st.w, st.gauss, st.values)
+    G = st.G
+    warps = _k1_bwd_warps(S, T, V, G)
+    _check_envelope(S, _k1_smem_floats(S, T, V, warps, G)[1], "em_bwd_stats",
                     _K1_ENVELOPE_ITEM)
     _check_index_range(symbols, V, "symbols")
     n_blocks = -(-B // warps)
     pair = torch.empty((n_blocks, S, S), dtype=torch.float32, device=dev)
     em = torch.empty((n_blocks, S, T, V), dtype=torch.float32, device=dev)
     start = torch.empty((n_blocks, S), dtype=torch.float32, device=dev)
-    if B == 0 or L == 0:
-        return start.sum(0), pair.sum(0), em.sum(0)
-    trans_p = torch.exp(log_trans)
-    lib = load_library()
-    rc = lib.tehmm_em_bwd_stats(
-        symbols.data_ptr(), lengths.data_ptr(), trans_p.data_ptr(),
-        log_em.data_ptr(), alpha.data_ptr(), m_raw.data_ptr(),
-        pair.data_ptr(), em.data_ptr(), start.data_ptr(), B, L, S, T, V,
-        warps, _stream(dev),
-    )
-    _raise_on(rc, lib, "em_bwd_stats")
-    LAUNCHES["em_bwd_stats"] += 1
-    return start.sum(0), pair.sum(0), em.sum(0)
+    gmom = torch.empty((n_blocks, S, 3 * G), dtype=torch.float32,
+                       device=dev)
+    if B and L:
+        trans_p = torch.exp(log_trans)
+        lib = load_library()
+        _coef, stream_args = st.args()
+        rc = lib.tehmm_em_bwd_stats(
+            symbols.data_ptr(), lengths.data_ptr(), trans_p.data_ptr(),
+            log_em.data_ptr(), alpha.data_ptr(), m_raw.data_ptr(),
+            pair.data_ptr(), em.data_ptr(), start.data_ptr(),
+            gmom.data_ptr() if G else None, B, L, S, T, V, warps,
+            *stream_args, _stream(dev),
+        )
+        _raise_on(rc, lib, "em_bwd_stats")
+        LAUNCHES["em_bwd_stats" + st.suffix] += 1
+    elif B:
+        pair, em, start, gmom = (torch.zeros_like(x)
+                                 for x in (pair, em, start, gmom))
+    out = (start.sum(0), pair.sum(0), em.sum(0))
+    if st.values is None:
+        return out
+    return out + (_split_moments(gmom.sum(0), G),)
 
 
 def _loglik_rows(alpha, dm, lengths):
@@ -689,26 +813,33 @@ def _loglik_rows(alpha, dm, lengths):
     return torch.where(lengths > 0, ll, 0.0)
 
 
-def em_counts_fused_plain(log_start, log_trans, log_em, symbols, lengths):
+def em_counts_fused_plain(log_start, log_trans, log_em, symbols, lengths,
+                          obs_weights=None, gauss_params=None,
+                          gauss_values=None):
     """Plain version of ``em_counts_fused``."""
     alpha, dm, m_raw = em_fwd_plain(log_start, log_trans, log_em, symbols,
-                                    lengths)
-    start, pair, em = em_bwd_stats_plain(log_trans, log_em, symbols,
-                                         lengths, alpha, m_raw)
-    return start, pair, em, _loglik_rows(alpha, dm, lengths)
+                                    lengths, obs_weights, gauss_params,
+                                    gauss_values)
+    stats = em_bwd_stats_plain(log_trans, log_em, symbols, lengths, alpha,
+                               m_raw, obs_weights, gauss_params,
+                               gauss_values)
+    return stats[:3] + (_loglik_rows(alpha, dm, lengths),) + stats[3:]
 
 
-def em_counts_fused(log_start, log_trans, log_em, symbols, lengths):
+def em_counts_fused(log_start, log_trans, log_em, symbols, lengths,
+                    obs_weights=None, gauss_params=None, gauss_values=None):
     """Symbols-in/statistics-out E-step with the JAX signature of
     ``em_counts_fused_pallas_v4``: (start f32[S], pair f32[S, S],
-    em f32[S, T, V], loglik f32[B]).  The card holds the batch's alpha_p
-    between the two kernels; the finish (sums over blocks, per-row
-    loglik) is a few small torch reductions, as on the TPU."""
+    em f32[S, T, V], loglik f32[B]) and, with gaussian tracks, a fifth
+    element (gn, gx, gx2).  The card holds the batch's alpha_p between
+    the two kernels; the finish (sums over blocks, per-row loglik) is a
+    few small torch reductions, as on the TPU."""
     alpha, dm, m_raw = em_fwd(log_start, log_trans, log_em, symbols,
-                              lengths)
-    start, pair, em = em_bwd_stats(log_trans, log_em, symbols, lengths,
-                                   alpha, m_raw)
-    return start, pair, em, _loglik_rows(alpha, dm, lengths)
+                              lengths, obs_weights, gauss_params,
+                              gauss_values)
+    stats = em_bwd_stats(log_trans, log_em, symbols, lengths, alpha, m_raw,
+                         obs_weights, gauss_params, gauss_values)
+    return stats[:3] + (_loglik_rows(alpha, dm, lengths),) + stats[3:]
 
 
 # ---------------------------------------------------------------------
@@ -716,12 +847,14 @@ def em_counts_fused(log_start, log_trans, log_em, symbols, lengths):
 # ---------------------------------------------------------------------
 
 def post_decode_plain(log_trans, log_em, symbols, lengths, alpha,
-                      with_margin=False):
+                      with_margin=False, obs_weights=None,
+                      gauss_params=None, gauss_values=None):
     """Plain version of ``post_decode``: the reverse walk as a loop over
     positions, batched over rows.  ``with_margin`` also returns, per
     position, how close the decision was: (top1 - top2) / top1 of
     alpha_p * b (1 at padding and for S = 1)."""
-    obs = track_log_likelihoods(log_em, symbols)
+    obs = _streams(symbols, log_em.shape[0], obs_weights, gauss_params,
+                   gauss_values).obs(log_em, symbols)
     B, L, S = obs.shape
     dev = obs.device
     obs_p = torch.exp(obs - obs.amax(dim=-1, keepdim=True))
@@ -747,57 +880,69 @@ def post_decode_plain(log_trans, log_em, symbols, lengths, alpha,
     return (path, margin) if with_margin else path
 
 
-def post_decode(log_trans, log_em, symbols, lengths, alpha):
+def post_decode(log_trans, log_em, symbols, lengths, alpha,
+                obs_weights=None, gauss_params=None, gauss_values=None):
     """K4 decode: int32 path [B, L] from K1's forward rows alpha_p
-    f32[B, L, S] (``em_fwd``).  Each row walks from its last valid
-    position down with b = 1; position p takes the first-hit argmax
-    (lowest state on ties) of alpha_p[p] * b, then b steps back through
-    obs_p and the transitions, rescaled to max 1.  Positions at or past
-    a row's length get 0.
+    f32[B, L, S] (``em_fwd``, given the same streams).  Each row walks
+    from its last valid position down with b = 1; position p takes the
+    first-hit argmax (lowest state on ties) of alpha_p[p] * b, then b
+    steps back through obs_p and the transitions, rescaled to max 1.
+    Positions at or past a row's length get 0.
 
     Replaces ``_make_post_decode_kernel_v4`` (pallas_kernels.py:2765).
     Bound on an H100: the latency of one dependent step per position (an
     S x S product from shared memory, an argmax and two max reductions
-    across the warp, T table lookups), not bytes or flops.  Design: K1's
-    reverse kernel without the statistics: one warp per row, lane <->
-    state, exp(trans) and log_em in shared memory, obs recomputed from
-    the symbols, alpha_p read once; true float32 where the TPU kernel
-    split its dots into bf16 passes."""
+    across the warp, T table lookups and 3G gaussian products), not bytes
+    or flops.  Design: K1's reverse kernel without the statistics: one
+    warp per row, lane <-> state, exp(trans), log_em and the gaussian
+    coefficients in shared memory, obs recomputed from the symbols and
+    streams, alpha_p read once; true float32 where the TPU kernel split
+    its dots into bf16 passes."""
     S, T, V = log_em.shape
     B, L, _T = symbols.shape
     dev = _check_k1_inputs(log_em, symbols, lengths, log_trans=log_trans,
                            alpha=alpha)
+    st = _streams(symbols, S, obs_weights, gauss_params, gauss_values)
     if _device_kind(dev) == "cpu":
-        return post_decode_plain(log_trans, log_em, symbols, lengths, alpha)
-    _check_envelope(S, S * S + S * T * V + _WARPS_PER_BLOCK * S,
-                    "post_decode", _POST_ENVELOPE_ITEM)
+        return post_decode_plain(log_trans, log_em, symbols, lengths, alpha,
+                                 obs_weights=st.w, gauss_params=st.gauss,
+                                 gauss_values=st.values)
+    _check_envelope(
+        S, S * S + S * T * V + st.coef_floats(S) + _WARPS_PER_BLOCK * S,
+        "post_decode", _POST_ENVELOPE_ITEM,
+    )
     _check_index_range(symbols, V, "symbols")
     path = torch.empty((B, L), dtype=torch.int32, device=dev)
     if B == 0 or L == 0:
         return path
     trans_p = torch.exp(log_trans)
     lib = load_library()
+    _coef, stream_args = st.args()
     rc = lib.tehmm_post_decode(
         symbols.data_ptr(), lengths.data_ptr(), trans_p.data_ptr(),
         log_em.data_ptr(), alpha.data_ptr(), path.data_ptr(), B, L, S, T,
-        V, _stream(dev),
+        V, *stream_args, _stream(dev),
     )
     _raise_on(rc, lib, "post_decode")
-    LAUNCHES["post_decode"] += 1
+    LAUNCHES["post_decode" + st.suffix] += 1
     return path
 
 
-def posterior_decode_fused(log_start, log_trans, log_em, symbols, lengths):
+def posterior_decode_fused(log_start, log_trans, log_em, symbols, lengths,
+                           obs_weights=None, gauss_params=None,
+                           gauss_values=None):
     """Symbols-in/path-out max-posterior decode with the JAX signature of
     ``posterior_decode_fused_pallas_v4``: int32 argmax-gamma path [B, L],
     0 at padding and for zero-length rows.  ``em_fwd`` writes alpha_p,
     and also its dm and m_raw rows, which the decode does not read (kept:
     8 bytes a position beside alpha_p's 4*S, and K1's forward stays one
     kernel).  Normalizers cancel in the per-position argmax, so no loglik
-    is formed."""
+    is formed.  Both kernels take the optional streams."""
     alpha, _dm, _m_raw = em_fwd(log_start, log_trans, log_em, symbols,
-                                lengths)
-    return post_decode(log_trans, log_em, symbols, lengths, alpha)
+                                lengths, obs_weights, gauss_params,
+                                gauss_values)
+    return post_decode(log_trans, log_em, symbols, lengths, alpha,
+                       obs_weights, gauss_params, gauss_values)
 
 
 # ---------------------------------------------------------------------

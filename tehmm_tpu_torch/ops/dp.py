@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import torch
 
-from tehmm_tpu.utils.common import LOG_ZERO
+from tehmm_tpu_torch.utils.common import LOG_ZERO
 
 
 def _lengths(lengths, B: int, L: int, device) -> torch.Tensor:

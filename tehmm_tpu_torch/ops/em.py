@@ -18,6 +18,13 @@ engines:
 ``"auto"`` is ``"cuda"`` for a CUDA tensor, else ``"plain"``: on the card
 training never runs a plain E-step.
 
+Segment weights (``obs_weights``, ``--segment --segLen``) scale each
+position's observation log-likelihood and its emission counts and
+gaussian moments; start counts and transition pairs stay unweighted.
+Gaussian tracks (``gauss_params``, ``gauss_values``) add their normal
+log-densities to the observations and return posterior moment sums in
+``EmStats.gauss_*`` for ``models.gauss.gauss_m_step``.
+
 The M-step renormalizes with EPSILON pseudo-counts in float32, then
 applies fix masks before force masks, as the reference does.  Restarts
 (``em_stats_reps``) are a leading R axis written out as a loop; the
@@ -32,21 +39,20 @@ from typing import Sequence
 
 import torch
 
-from tehmm_tpu.utils.common import EPSILON
+from tehmm_tpu_torch.utils.common import EPSILON
 from tehmm_tpu_torch.models.emission import (
     expected_emission_counts,
     normalize_log_em,
+    obs_log_likelihoods,
     supervised_emission_counts,
-    track_log_likelihoods,
+    track_log_likelihoods,  # noqa: F401  (part of this module's API)
 )
+from tehmm_tpu_torch.models.gauss import GaussParams, gauss_m_step, gauss_stats
 from tehmm_tpu_torch.models.params import HmmParams
 from tehmm_tpu_torch.ops import cuda_kernels as ck
 from tehmm_tpu_torch.ops import dp
 
 _CLIP = 60.0  # exp-range guard of the factored transition counts
-_GAUSS_ITEM = (
-    "ROADMAP Queue 1, slice 4: gaussian tracks and segment weights"
-)
 _K6_ITEM = "ROADMAP Queue 2: K6, the pallas_v3 engine"
 
 
@@ -59,6 +65,8 @@ class EmStats:
     em:     f32[S,T,V]  expected symbol counts
     loglik: f32[]       total data log-likelihood
     n_obs:  f32[]       number of (valid) observed positions
+    gauss_n, gauss_x, gauss_x2: f32[S, G] gaussian-track moment sums
+                        (models/gauss.py); None without gaussian tracks
     """
 
     start: torch.Tensor
@@ -66,37 +74,33 @@ class EmStats:
     em: torch.Tensor
     loglik: torch.Tensor
     n_obs: torch.Tensor
+    gauss_n: torch.Tensor | None = None
+    gauss_x: torch.Tensor | None = None
+    gauss_x2: torch.Tensor | None = None
 
     def __add__(self, other: "EmStats") -> "EmStats":
         return EmStats(*(
-            getattr(self, f.name) + getattr(other, f.name)
+            None if getattr(self, f.name) is None
+            else getattr(self, f.name) + getattr(other, f.name)
             for f in dataclasses.fields(self)
         ))
 
 
 def stack_reps(items: Sequence, cls):
     """Stack the tensor fields of dataclass instances (HmmParams,
-    EmStats) on a new leading R axis."""
+    EmStats, GaussParams) on a new leading R axis (None stays None)."""
     return cls(*(
-        torch.stack([getattr(x, f.name) for x in items])
+        None if getattr(items[0], f.name) is None
+        else torch.stack([getattr(x, f.name) for x in items])
         for f in dataclasses.fields(cls)
     ))
 
 
 def unstack_rep(stacked, cls, r: int):
     """Restart r of a ``stack_reps`` result."""
-    return cls(*(getattr(stacked, f.name)[r]
+    return cls(*(None if getattr(stacked, f.name) is None
+                 else getattr(stacked, f.name)[r]
                  for f in dataclasses.fields(cls)))
-
-
-def _reject_unported(obs_weights=None, gauss_params=None,
-                     gauss_values=None) -> None:
-    if obs_weights is not None or gauss_params is not None \
-            or gauss_values is not None:
-        raise NotImplementedError(
-            f"segment weights and gaussian tracks are not ported yet "
-            f"({_GAUSS_ITEM})"
-        )
 
 
 def em_sufficient_stats(
@@ -115,10 +119,15 @@ def em_sufficient_stats(
       symbols: int[B, L, T] discretized observations.
       lengths: optional int[B]; positions >= length are padding.
       matmul: the plain engine's log-sum-exp form (``dp._logdot``).
+      obs_weights: optional f32[B, L] segment weights.
       engine: "auto", "plain" or "cuda" (see the module docstring).
+      gauss_params / gauss_values: gaussian-track emissions, values
+        f32[B, L, G] with NaN missing.
 
     Returns EmStats summed over the batch."""
-    _reject_unported(obs_weights, gauss_params, gauss_values)
+    has_gauss = gauss_params is not None and gauss_values is not None
+    if not has_gauss:
+        gauss_params = gauss_values = None
     B, L, T = symbols.shape
     dev = symbols.device
     lengths = dp._lengths(lengths, B, L, dev)
@@ -131,19 +140,26 @@ def em_sufficient_stats(
             f"engine 'pallas_v3' is not ported yet ({_K6_ITEM})"
         )
     if engine == "cuda":
-        start, pair, em, loglik_b = ck.em_counts_fused(
+        out = ck.em_counts_fused(
             params.log_start.contiguous(), params.log_trans.contiguous(),
             params.log_em.contiguous(),
             symbols.to(torch.int32).contiguous(),
             lengths.to(torch.int32).contiguous(),
+            obs_weights=None if obs_weights is None
+            else obs_weights.to(torch.float32).contiguous(),
+            gauss_params=gauss_params,
+            gauss_values=None if gauss_values is None
+            else gauss_values.to(torch.float32).contiguous(),
         )
-        return EmStats(start=start,
-                       trans=pair * torch.exp(params.log_trans), em=em,
-                       loglik=loglik_b.sum(), n_obs=n_obs)
+        start, pair, em, loglik_b = out[:4]
+        moments = out[4] if has_gauss else (None, None, None)
+        return EmStats(start, pair * torch.exp(params.log_trans), em,
+                       loglik_b.sum(), n_obs, *moments)
     if engine != "plain":
         raise ValueError(f"unknown engine {engine!r}")
 
-    obs = track_log_likelihoods(params.log_em, symbols)        # [B,L,S]
+    obs = obs_log_likelihoods(params.log_em, symbols, gauss_params,
+                              gauss_values, obs_weights)      # [B,L,S]
     alpha_hat, _, loglik = dp.forward_scaled(
         params.log_start, params.log_trans, obs, lengths, matmul=matmul
     )
@@ -164,13 +180,17 @@ def em_sufficient_stats(
                   < (lengths[:, None] - 1))
     w = torch.where(valid_from, 1.0 / torch.clamp(z, min=1e-30), 0.0)
     pair = torch.einsum("bli,blj->ij", a_fac * w[..., None], b_fac)
+    # a segment standing for w positions contributes w expected emission
+    # counts, and (the density being raised to the power w) w times its
+    # gaussian moments
+    gamma_w = gamma if obs_weights is None else gamma * obs_weights[..., None]
+    moments = (gauss_stats(gamma_w, gauss_values) if has_gauss
+               else (None, None, None))
     return EmStats(
-        start=gamma[:, 0].sum(dim=0),
-        trans=pair * trans_exp,
-        em=expected_emission_counts(tuple(params.log_em.shape), symbols,
-                                    gamma),
-        loglik=loglik.sum(),
-        n_obs=n_obs,
+        gamma[:, 0].sum(dim=0), pair * trans_exp,
+        expected_emission_counts(tuple(params.log_em.shape), symbols,
+                                 gamma_w),
+        loglik.sum(), n_obs, *moments,
     )
 
 
@@ -343,15 +363,22 @@ def em_stats_reps(
     symbols: torch.Tensor,
     lengths: torch.Tensor | None = None,
     obs_weights: torch.Tensor | None = None,
+    gauss_params_stack: GaussParams | None = None,
+    gauss_values: torch.Tensor | None = None,
     engine: str = "auto",
 ) -> EmStats:
     """E-step for R stacked parameter sets (leading R axis on every
-    table) over ONE batch; EmStats with a leading R axis.  One E-step
+    table, and on ``gauss_params_stack`` when the model has gaussian
+    tracks) over ONE batch; EmStats with a leading R axis.  One E-step
     per restart: on the card each is a K1 launch pair."""
-    _reject_unported(obs_weights)
     return stack_reps([
-        em_sufficient_stats(unstack_rep(params_stack, HmmParams, r), symbols,
-                            lengths, engine=engine)
+        em_sufficient_stats(
+            unstack_rep(params_stack, HmmParams, r), symbols, lengths,
+            obs_weights=obs_weights, engine=engine,
+            gauss_params=None if gauss_params_stack is None
+            else unstack_rep(gauss_params_stack, GaussParams, r),
+            gauss_values=gauss_values,
+        )
         for r in range(params_stack.log_start.shape[0])
     ], EmStats)
 
@@ -392,8 +419,10 @@ def em_run(
     float32 as the JAX ``lax.while_loop`` does.
 
     Returns (params, logliks f32[max_iterations] with NaN beyond the
-    last executed iteration, n_iterations)."""
-    _reject_unported(obs_weights, gauss_params, gauss_values)
+    last executed iteration, n_iterations), plus the final GaussParams
+    when ``gauss_params`` is given."""
+    has_gauss = gauss_params is not None and gauss_values is not None
+    fix = masks.fix_em_states if masks is not None else None
     dev = params.device
     prev_ll = torch.tensor(-1e30, dtype=torch.float32, device=dev)
     ll = prev_ll / 2
@@ -402,9 +431,19 @@ def em_run(
                       device=dev)
     it = 0
     while it < max_iterations and bool(torch.abs(ll - prev_ll) >= tol):
-        stats = em_sufficient_stats(params, symbols, lengths, matmul=matmul)
+        stats = em_sufficient_stats(
+            params, symbols, lengths, matmul=matmul, obs_weights=obs_weights,
+            gauss_params=gauss_params if has_gauss else None,
+            gauss_values=gauss_values if has_gauss else None,
+        )
         params = em_m_step(stats, params, alphabet_sizes, masks, epsilon)
+        if has_gauss:
+            gauss_params = gauss_m_step(stats.gauss_n, stats.gauss_x,
+                                        stats.gauss_x2, gauss_params,
+                                        fix_states=fix)
         hist[it] = stats.loglik
         prev_ll, ll = ll, stats.loglik.to(torch.float32)
         it += 1
+    if has_gauss:
+        return params, hist, it, gauss_params
     return params, hist, it

@@ -24,7 +24,7 @@ from typing import Sequence
 
 import numpy as np
 
-from tehmm_tpu.io.trackdata import TrackTable
+from tehmm_tpu_torch.io.trackdata import TrackTable
 
 
 @dataclasses.dataclass(frozen=True)

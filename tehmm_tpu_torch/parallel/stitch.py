@@ -22,6 +22,14 @@ the chunk sweeps X1 (``forward_final``, ``forward_chunk_values``) and X2
 plain-torch versions, and the stitched max-posterior decode runs the
 log-space scans, as the JAX package does off the TPU.
 
+Every decoder takes the gaussian tracks (``gauss_params``; the values
+come from each table's ``.values`` and chunk with the symbols) and the
+segment weights (``weight_arrays``, per-table f32[L]).  The fused
+kernels K2 and K4 take them as their optional streams; K3, X1 and X2
+take obs, computed here as the JAX package's XLA paths compute it
+(``models.emission.obs_log_likelihoods``: track log-likelihoods plus the
+gaussian term, times the weights).
+
 Left out of the port, because they served a TPU runtime whose
 device-to-host link ran at tens of MB/s and results are identical
 without them: the device-resident decoder, run-length path transport
@@ -38,8 +46,8 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from tehmm_tpu.utils.common import logger
-from tehmm_tpu_torch.models.emission import track_log_likelihoods
+from tehmm_tpu_torch.utils.common import logger
+from tehmm_tpu_torch.models.emission import obs_log_likelihoods
 from tehmm_tpu_torch.models.params import HmmParams
 from tehmm_tpu_torch.ops import cuda_kernels as ck
 from tehmm_tpu_torch.ops import dp
@@ -64,13 +72,71 @@ def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
     ).to(device)
 
 
+def _f32_to_device(a: np.ndarray | None, device: torch.device):
+    """Host float array (or None) -> float32 tensor on ``device``."""
+    if a is None:
+        return None
+    return torch.from_numpy(
+        np.ascontiguousarray(a, dtype=np.float32)
+    ).to(device)
+
+
+def _weight_batch(weight_arrays, chunks):
+    """Per-table f32[L] weights -> the chunk batch's [n, Lc] rows
+    (same planning as the symbols; zero-padded, which the lengths mask)."""
+    return batch_chunks(
+        [np.asarray(w, np.float32)[:, None] for w in weight_arrays], chunks,
+    ).symbols[..., 0]
+
+
+def _block(arrays, lo, Lc, fill=0.0):
+    """[B, Lc, ...] f32 slice of each array from position ``lo``, padded
+    with ``fill`` (padded positions are length-masked)."""
+    out = np.full((len(arrays), Lc) + arrays[0].shape[1:], fill, np.float32)
+    for b, a in enumerate(arrays):
+        piece = a[lo : lo + Lc]
+        out[b, : len(piece)] = piece
+    return out
+
+
+def _streams_of(tables, gauss_params, weight_arrays):
+    """(per-table values or None, per-table weights or None)."""
+    vmats = None if gauss_params is None else [
+        np.asarray(t.values, np.float32) for t in tables
+    ]
+    wmats = None if weight_arrays is None else [
+        np.asarray(w, np.float32) for w in weight_arrays
+    ]
+    return vmats, wmats
+
+
+def _first_obs(params, mats, vmats, wmats, gauss_params, dev):
+    """obs f32[B, S] at position 0 of every table (inert zero symbols,
+    values and unit weights for empty tables)."""
+    T = mats[0].shape[1]
+    sym0 = _first_rows(mats, T, mats[0].dtype)[:, None, :]
+    v0 = None if vmats is None else _first_rows(
+        vmats, vmats[0].shape[1], np.float32)[:, None, :]
+    w0 = None if wmats is None else np.stack([
+        w[0] if len(w) else np.float32(1.0) for w in wmats
+    ])[:, None]
+    return obs_log_likelihoods(
+        params.log_em, _to_device(sym0, dev), gauss_params,
+        _f32_to_device(v0, dev), _f32_to_device(w0, dev),
+    )[:, 0, :]
+
+
 def _decode_batch(
     params: HmmParams,
     symbols: np.ndarray,
     lengths: np.ndarray,
     rows_per_pass: int,
+    weights: np.ndarray | None = None,
+    gauss_params=None,
+    values: np.ndarray | None = None,
 ) -> np.ndarray:
-    """Viterbi over a chunk batch [n, L, T], ``rows_per_pass`` rows per
+    """Viterbi over a chunk batch [n, L, T] (with its weight rows [n, L]
+    and value rows [n, L, G] when given), ``rows_per_pass`` rows per
     kernel launch.  Returns int32 paths [n, L], 0 beyond each length."""
     n, L, _T = symbols.shape
     out = np.zeros((n, L), dtype=np.int32)
@@ -81,6 +147,9 @@ def _decode_batch(
         paths, _ = ck.viterbi_fused(
             params.log_start, params.log_trans, params.log_em,
             _to_device(symbols[lo:hi], dev), lens,
+            _f32_to_device(None if weights is None else weights[lo:hi], dev),
+            gauss_params if values is not None else None,
+            _f32_to_device(None if values is None else values[lo:hi], dev),
         )
         rows = paths.cpu().numpy()
         valid = np.arange(L)[None, :] < lengths[lo:hi, None]
@@ -95,9 +164,11 @@ def _stitched_decode(
     halo: int,
     max_halo: int,
     agree_frac: float,
-    decode_rows,          # (symbols, lengths) chunk batch -> int32 rows
+    decode_rows,          # (symbols, lengths, weights, values) -> rows
     exact_fn,             # exact whole-input fallback
     name: str,
+    weight_arrays=None,
+    gauss_params=None,
 ) -> tuple[list[np.ndarray], StitchReport]:
     """Halo-stitching driver.
 
@@ -112,11 +183,16 @@ def _stitched_decode(
     callers needing the unconditional guarantee use ``viterbi_exact``.
     """
     mats = [getattr(t, "symbols", t) for t in tables]
+    value_arrays, _ = _streams_of(tables, gauss_params, None)
     lengths = [len(m) for m in mats]
 
     def decode_at(chunk_list):
         batch = batch_chunks(mats, chunk_list)
-        return decode_rows(batch.symbols, batch.lengths)
+        wb = (None if weight_arrays is None
+              else _weight_batch(weight_arrays, chunk_list))
+        vb = (None if value_arrays is None
+              else batch_chunks(value_arrays, chunk_list).symbols)
+        return decode_rows(batch.symbols, batch.lengths, wb, vb)
 
     base = plan_chunks(lengths, chunk_len, 0)     # halo-free cores
     h0 = min(halo, max_halo)
@@ -198,7 +274,9 @@ def _stitched_decode(
             "%s: boundary disagreement persists at max_halo=%d; "
             "falling back to the exact decoder", name, max_halo,
         )
-        paths = exact_fn(params, tables, chunk_len)
+        paths = exact_fn(params, tables, chunk_len,
+                         gauss_params=gauss_params,
+                         weight_arrays=weight_arrays)
         # boundaries_ok reports whether the FINAL paths carry the
         # guarantee; the exact decoder's output is unconditional
         ok = True
@@ -219,6 +297,8 @@ def viterbi_chunked(
     max_halo: int = 1 << 14,
     agree_frac: float = 0.5,
     rows_per_pass: int = 512,
+    weight_arrays: Sequence[np.ndarray] | None = None,
+    gauss_params=None,
 ) -> tuple[list[np.ndarray], StitchReport]:
     """Decode each table's full span via halo chunks (see
     _stitched_decode for the stitching/widening/guarantee contract).
@@ -230,16 +310,21 @@ def viterbi_chunked(
         max_halo (targeted: only adjacent chunks re-decode).
       agree_frac: fraction of the halo used as the agreement window.
       rows_per_pass: chunks decoded per kernel launch.
+      weight_arrays: optional per-table f32[L] segment weights.
+      gauss_params: gaussian-track emissions; values come from each
+        table's ``.values`` and chunk with the symbols.
 
     Returns:
       (paths, report): one int32[L] state path per input table.
     """
-    def decode_rows(symbols, lens):
-        return _decode_batch(params, symbols, lens, rows_per_pass)
+    def decode_rows(symbols, lens, wbatch, vbatch):
+        return _decode_batch(params, symbols, lens, rows_per_pass, wbatch,
+                             gauss_params, vbatch)
 
     return _stitched_decode(
         params, tables, chunk_len, halo, max_halo, agree_frac,
-        decode_rows, viterbi_exact, "viterbi_chunked",
+        decode_rows, viterbi_exact, "viterbi_chunked", weight_arrays,
+        gauss_params,
     )
 
 
@@ -251,10 +336,44 @@ def _first_rows(arrays, width, dtype):
     ])
 
 
+def _exact_obs(params, mats, tables, gauss_params, weight_arrays, Lc):
+    """The exact decoders' obs: (obs_chunk(c) -> (obs f32[B, Lc, S] of
+    body positions [1 + c*Lc, 1 + (c+1)*Lc), int32 lengths on the
+    device, lengths on the host), obs f32[B, S] of position 0).  Symbols
+    and values are zero-padded, weights one-padded (padding is
+    length-masked), as in the JAX package."""
+    dev = params.device
+    B = len(mats)
+    T = mats[0].shape[1]
+    true_lens = np.asarray([len(m) for m in mats], np.int64)
+    vmats, wmats = _streams_of(tables, gauss_params, weight_arrays)
+
+    def obs_chunk(c):
+        lo = 1 + c * Lc
+        block = np.zeros((B, Lc, T), dtype=mats[0].dtype)
+        for b, m in enumerate(mats):
+            piece = m[lo : lo + Lc]
+            block[b, : len(piece)] = piece
+        obs = obs_log_likelihoods(
+            params.log_em, _to_device(block, dev), gauss_params,
+            None if vmats is None else _f32_to_device(
+                _block(vmats, lo, Lc), dev),
+            None if wmats is None else _f32_to_device(
+                _block(wmats, lo, Lc, 1.0), dev),
+        )
+        lens = np.clip(true_lens - lo, 0, Lc)
+        return obs, _to_device(lens, dev), lens
+
+    return obs_chunk, _first_obs(params, mats, vmats, wmats, gauss_params,
+                                 dev)
+
+
 def viterbi_exact(
     params: HmmParams,
     tables: Sequence,
     chunk_len: int = 1 << 14,
+    gauss_params=None,
+    weight_arrays: Sequence[np.ndarray] | None = None,
 ) -> list[np.ndarray]:
     """EXACT chunked Viterbi via checkpointed carries: a forward sweep
     stores only the O(S) carry entering every chunk; the backtrace sweep
@@ -266,28 +385,14 @@ def viterbi_exact(
     dev = params.device
     B = len(mats)
     true_lens = np.asarray([len(m) for m in mats], np.int64)
-    T = mats[0].shape[1]
     Lb = int(true_lens.max()) - 1          # body = positions 1..L-1
     Lc = min(chunk_len, max(Lb, 1))
     n_chunks = max(0, -(-Lb // Lc))
-
-    def obs_chunk(c):
-        """obs for body positions [1 + c*Lc, 1 + (c+1)*Lc) padded."""
-        lo = 1 + c * Lc
-        block = np.zeros((B, Lc, T), dtype=mats[0].dtype)
-        for b, m in enumerate(mats):
-            piece = m[lo : lo + Lc]
-            block[b, : len(piece)] = piece
-        obs = track_log_likelihoods(params.log_em, _to_device(block, dev))
-        lens = _to_device(np.clip(true_lens - lo, 0, Lc), dev)
-        return obs, lens
+    obs_chunk, obs0 = _exact_obs(params, mats, tables, gauss_params,
+                                 weight_arrays, Lc)
 
     # position 0 values (empty tables get inert zero rows — masked by
     # true_lens > 0 in the assembly below)
-    block0 = _first_rows(mats, T, mats[0].dtype)
-    obs0 = track_log_likelihoods(
-        params.log_em, _to_device(block0[:, None, :], dev)
-    )[:, 0, :]
     v0 = params.log_start[None, :] + obs0
     m0 = torch.clamp(v0.amax(dim=-1, keepdim=True), min=-1e30)
     carry = v0 - m0
@@ -296,7 +401,7 @@ def viterbi_exact(
     entry_carries = []
     for c in range(n_chunks):
         entry_carries.append(carry)
-        obs, lens = obs_chunk(c)
+        obs, lens, _ = obs_chunk(c)
         carry = ck.viterbi_carry(params.log_trans, obs, carry, lens)
 
     # ---- backtrace sweep ----
@@ -306,7 +411,7 @@ def viterbi_exact(
         return [np.zeros(0, np.int32) for _ in range(B)]
     paths = np.zeros((B, max_len), np.int32)
     for c in reversed(range(n_chunks)):
-        obs, lens = obs_chunk(c)
+        obs, lens, _ = obs_chunk(c)
         v_hats = ck.viterbi_chunk_values(
             params.log_trans, obs, entry_carries[c], lens
         )
@@ -332,6 +437,9 @@ def _posterior_batch(
     symbols: np.ndarray,
     lengths: np.ndarray,
     rows_per_pass: int,
+    gauss_params=None,
+    values: np.ndarray | None = None,
+    weights: np.ndarray | None = None,
 ) -> np.ndarray:
     """argmax-gamma over a chunk batch [n, L, T], ``rows_per_pass`` rows
     per pass.  On the card each pass is K4 (``posterior_decode_fused``:
@@ -345,12 +453,16 @@ def _posterior_batch(
         hi = min(lo + rows_per_pass, n)
         lens = _to_device(lengths[lo:hi], dev)
         sym = _to_device(symbols[lo:hi], dev)
+        w = _f32_to_device(None if weights is None else weights[lo:hi], dev)
+        v = _f32_to_device(None if values is None else values[lo:hi], dev)
+        g = gauss_params if v is not None else None
         if dev.type == "cuda":
             paths = ck.posterior_decode_fused(
                 params.log_start, params.log_trans, params.log_em, sym, lens,
+                w, g, v,
             )
         else:
-            obs = track_log_likelihoods(params.log_em, sym)
+            obs = obs_log_likelihoods(params.log_em, sym, g, v, w)
             ah, _, _ = dp.forward_scaled(params.log_start, params.log_trans,
                                          obs, lens)
             bh, _ = dp.backward_scaled(params.log_trans, obs, lens)
@@ -369,18 +481,22 @@ def posterior_chunked(
     max_halo: int = 1 << 14,
     agree_frac: float = 0.5,
     rows_per_pass: int = 64,
+    gauss_params=None,
+    weight_arrays: Sequence[np.ndarray] | None = None,
 ) -> tuple[list[np.ndarray], StitchReport]:
     """Max-posterior decoding with the stitching contract of
     ``viterbi_chunked`` (see _stitched_decode): halo chunks, the
     all-boundary agreement check, targeted widening, and the exact
     carried-alpha/beta decoder (``posterior_exact``) as the fallback.
     Returns one int32[L] argmax-gamma path per table."""
-    def decode_rows(symbols, lens):
-        return _posterior_batch(params, symbols, lens, rows_per_pass)
+    def decode_rows(symbols, lens, wbatch, vbatch):
+        return _posterior_batch(params, symbols, lens, rows_per_pass,
+                                gauss_params, vbatch, wbatch)
 
     return _stitched_decode(
         params, tables, chunk_len, halo, max_halo, agree_frac,
-        decode_rows, posterior_exact, "posterior_chunked",
+        decode_rows, posterior_exact, "posterior_chunked", weight_arrays,
+        gauss_params,
     )
 
 
@@ -389,6 +505,8 @@ def posterior_sweep(
     tables: Sequence,
     chunk_len: int = 1 << 14,
     consume=None,
+    gauss_params=None,
+    weight_arrays: Sequence[np.ndarray] | None = None,
 ) -> list[np.ndarray]:
     """EXACT chunked posteriors: a forward sweep stores the O(S) alpha
     carry entering every chunk; the backward sweep carries beta from
@@ -406,28 +524,14 @@ def posterior_sweep(
     dev = params.device
     B = len(mats)
     true_lens = np.asarray([len(m) for m in mats], np.int64)
-    T = mats[0].shape[1]
     Lb = int(true_lens.max()) - 1          # body = positions 1..L-1
     Lc = min(chunk_len, max(Lb, 1))
     n_chunks = max(0, -(-Lb // Lc))
-
-    def obs_chunk(c):
-        """obs for body positions [1 + c*Lc, 1 + (c+1)*Lc) padded."""
-        lo = 1 + c * Lc
-        block = np.zeros((B, Lc, T), dtype=mats[0].dtype)
-        for b, m in enumerate(mats):
-            piece = m[lo : lo + Lc]
-            block[b, : len(piece)] = piece
-        obs = track_log_likelihoods(params.log_em, _to_device(block, dev))
-        lens = np.clip(true_lens - lo, 0, Lc)
-        return obs, _to_device(lens, dev), lens
+    obs_chunk, obs0 = _exact_obs(params, mats, tables, gauss_params,
+                                 weight_arrays, Lc)
 
     # position 0 values (empty tables get inert zero rows — masked by
     # true_lens > 0 below)
-    block0 = _first_rows(mats, T, mats[0].dtype)
-    obs0 = track_log_likelihoods(
-        params.log_em, _to_device(block0[:, None, :], dev)
-    )[:, 0, :]
     a0 = params.log_start[None, :] + obs0
     m0 = torch.clamp(a0.amax(dim=-1, keepdim=True), min=-1e30)
     a0_hat = a0 - m0
@@ -484,7 +588,11 @@ def posterior_exact(
     params: HmmParams,
     tables: Sequence,
     chunk_len: int = 1 << 14,
+    gauss_params=None,
+    weight_arrays: Sequence[np.ndarray] | None = None,
 ) -> list[np.ndarray]:
     """Exact max-posterior paths (argmax of the bit-exact chunked
     gamma)."""
-    return posterior_sweep(params, tables, chunk_len)
+    return posterior_sweep(params, tables, chunk_len,
+                           gauss_params=gauss_params,
+                           weight_arrays=weight_arrays)

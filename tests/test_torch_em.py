@@ -164,13 +164,20 @@ def test_k1_engine_on_cpu_matches_plain_engine(rng, make_hmm, S):
 
 
 def test_unported_engine_and_streams_raise(rng, make_hmm):
+    """The pallas_v3 engine (K6) raises naming its item; segment
+    weights run and match the JAX package's E-step."""
     tables = _tables(make_hmm, 3, 2, 4)
     sym, lens = _batch(rng, 4, 2)
     args = (_tp(tables), torch.from_numpy(sym), torch.from_numpy(lens))
     with pytest.raises(NotImplementedError, match="K6"):
         tem.em_sufficient_stats(*args, engine="pallas_v3")
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        tem.em_sufficient_stats(*args, obs_weights=torch.ones(4, 23))
+    w = rng.uniform(1.0, 9.0, size=(4, 23)).astype(np.float32)
+    got = tem.em_sufficient_stats(*args, obs_weights=torch.from_numpy(w))
+    want = jem.em_sufficient_stats(
+        _jp(tables), jnp.asarray(sym), jnp.asarray(lens),
+        obs_weights=jnp.asarray(w), engine="xla",
+    )
+    _assert_stats(got, want)
 
 
 SIZES = [4, 3, 6, 1]                 # V = 6: tracks padded to it

@@ -1,8 +1,9 @@
-"""The PyTorch port imports without JAX.
+"""The PyTorch port imports without JAX and without the JAX package.
 
-The machine with the GPU has no JAX, so ``tehmm_tpu_torch`` and every
-submodule must import with ``jax`` blocked, and no source file of the
-port (nor ``chip_smoke.py``) may import it."""
+The machine with the GPU has no JAX, and the port keeps its own copy of
+every host module it needs, so ``tehmm_tpu_torch`` and every submodule
+must import with ``jax`` and ``tehmm_tpu`` blocked, and no source file of
+the port (nor ``chip_smoke.py``) may import either."""
 
 import os
 import pathlib
@@ -22,9 +23,12 @@ import pkgutil
 import sys
 
 
+BLOCKED = ("jax", "jaxlib", "tehmm_tpu")
+
+
 class BlockJax:
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib"):
+        if name.split(".")[0] in BLOCKED:
             raise ImportError("blocked import of " + name)
         return None
 
@@ -36,7 +40,7 @@ names = [m.name for m in pkgutil.walk_packages(
     tehmm_tpu_torch.__path__, "tehmm_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
-loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")]
+loaded = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 assert not loaded, loaded
 print(" ".join(names))
 """
@@ -44,9 +48,12 @@ print(" ".join(names))
 # every module of the slice
 _MODULES = {
     "tehmm_tpu_torch." + m for m in (
-        "utils.device", "models.params", "models.emission", "models.hmm",
-        "ops.em", "ops.dp", "ops.cuda_kernels", "parallel.chunking",
-        "parallel.stitch", "cli.unported", "cli.train", "cli.eval",
+        "utils.device", "utils.common", "native", "models.params",
+        "models.emission", "models.gauss", "models.hmm", "ops.em", "ops.dp",
+        "ops.cuda_kernels", "parallel.chunking", "parallel.stitch",
+        "io", "io.bed", "io.category", "io.fasta", "io.trackxml",
+        "io.trackdata", "io.bigwig", "io.priors", "io.segments",
+        "cli.unported", "cli.train", "cli.eval", "cli.segment_tracks",
     )
 }
 
@@ -74,7 +81,8 @@ _SOURCES = sorted(
 def test_source_never_imports_jax(rel):
     text = pathlib.Path(REPO, rel).read_text()
     assert not re.search(
-        r"^\s*(import|from)\s+(jax|jaxlib|tehmm_tpu\.(models|ops|parallel)"
-        r"|tehmm_tpu\.utils\.platform)\b",
-        text, re.M,
-    ), f"{rel} imports JAX or a JAX-bound module of tehmm_tpu"
+        r"^\s*(import|from)\s+(jax|jaxlib)\b", text, re.M,
+    ), f"{rel} imports JAX"
+    assert not re.search(
+        r"^\s*(import|from)\s+tehmm_tpu(\.|\s|$)", text, re.M,
+    ), f"{rel} imports the JAX package tehmm_tpu"

@@ -392,7 +392,8 @@ def test_posterior_distributions_stream_bitexact(rng):
 def test_score_matches_reference(rng):
     """MultitrackHmm.score over ragged tables (incl. empty and length 1)
     and several chunks, against the JAX package; all-empty gives 0.0;
-    a mesh raises naming its slice."""
+    a mesh raises naming its slice; segment weights give the JAX
+    package's posteriors."""
     jm, tm = _model(_sticky(rng), ["x", "y", "z"], 5)
     tabs = [TrackTable("chr1", 0, n, (rng.randint(0, 5, (n, 1)))
                        .astype(np.uint8)) for n in (1000, 0, 1, 613)]
@@ -404,8 +405,14 @@ def test_score_matches_reference(rng):
     assert tm.score([empty, empty]) == 0.0
     with pytest.raises(NotImplementedError, match="slice 6"):
         tm.score(tabs, mesh=object())
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        tm.posterior_distributions(tabs, weight_arrays=[None] * 4)
+    weights = [rng.uniform(1.0, 5.0, len(t)).astype(np.float32)
+               for t in tabs]
+    got = tm.posterior_distributions(tabs, chunk_len=256,
+                                     weight_arrays=weights)
+    want = jm.posterior_distributions(tabs, chunk_len=256,
+                                      weight_arrays=weights)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, w, rtol=0, atol=1e-5)
 
 
 # ---------------------------------------------------------------------

@@ -111,8 +111,11 @@ def test_cli_refuses_what_is_not_ported(workdir, monkeypatch):
                          "3", "--mesh", "2"])
     model = _train(port_train, workdir, "m.npz", ["--device", "cpu"])
     regions = str(workdir / "regions.bed")
-    with pytest.raises(SystemExit, match="--segment.*ROADMAP.*slice 4"):
-        port_eval.main([xml, model, regions, "--bed", "o.bed", "--segment"])
+    # --segment runs and writes the JAX CLI's BED
+    seg = _eval(port_eval, workdir, model, "seg_port.bed",
+                ["--segment", "--device", "cpu"])
+    assert seg == _eval(jax_eval, workdir, model, "seg_jax.bed",
+                        ["--segment"])
     with pytest.raises(SystemExit, match="--mesh.*ROADMAP.*slice 6"):
         port_eval.main([xml, model, regions, "--device", "cpu", "--mesh",
                         "2"])

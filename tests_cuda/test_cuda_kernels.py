@@ -10,7 +10,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from tehmm_tpu.utils.common import LOG_ZERO  # noqa: E402
+from tehmm_tpu_torch.utils.common import LOG_ZERO  # noqa: E402
 from tehmm_tpu_torch.models import emission  # noqa: E402
 from tehmm_tpu_torch.models.params import from_numpy  # noqa: E402
 from tehmm_tpu_torch.ops import cuda_kernels as ck  # noqa: E402

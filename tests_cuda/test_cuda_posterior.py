@@ -146,7 +146,7 @@ def test_chunked_sweep_bit_equal_one_chunk(device, rng, S):
 def test_decoders_and_score_on_the_card_equal_the_cpu(device, rng):
     """Stitched (K4) and exact (X1/X2) max-posterior paths and the
     streamed score on the card against the CPU's plain torch."""
-    from tehmm_tpu.io.trackdata import TrackTable
+    from tehmm_tpu_torch.io.trackdata import TrackTable
     from tehmm_tpu_torch.models.hmm import MultitrackHmm
 
     tables = _model(rng, 10, 5, 9)
