@@ -31,7 +31,26 @@ Phases (any failure raises, and the run exits non-zero):
    tolerances (gaussian moments within 1e-4 of each moment's largest
    entry) and bit-identical across two launches, K4 as above.  Times of
    both sides for every kernel and variant, beside the least time the
-   card could take for the same work.
+   card could take for the same work.  The streaming kernels K5
+   (``viterbi_values``), K6a (``fwd_prob``) and K6b (``bwd_prob``) on the
+   obs tensors of all four ``bench_engines`` shapes (S=20, T=5, V=8,
+   B=2048; S=64, T=10, V=12, B=1024; S=128, T=15, V=16, B=512; S=256,
+   T=20, V=16, B=256; L=1024, ragged lengths incl. 0, 1 and 2): K5's
+   value rows and normalizers, the backtrace on them and the paths of
+   ``dp.viterbi_streaming`` bit-equal to plain and to ``dp.viterbi``;
+   alpha_p and beta_p within 2e-6 absolute of the plain version carried
+   in float64, normalizers within 1e-5, row logliks within 1e-5
+   relative of the float32 plain version, two launches bit-identical.
+2e. The engine-comparison path through its tools' entry points, at the
+   full width of all four ``bench_engines`` shapes (S=20, 64, 128, 256):
+   ``tools.bench_engines`` with the E-step engines plain, cuda (K1) and
+   cuda_v3 (K6), then ``--decode`` with plain, streaming (K5) and fused
+   (K2), then ``tools.profile_estep`` at S=64.  Every pair of engines that
+   ran agrees on the loglik within 1e-4 relative and on every position
+   of the path; cuda_v3 and streaming ran at all four shapes; a row with
+   an ``error`` is accepted only from cuda or fused at S=128 or S=256 and
+   only with the shared-memory envelope's message; K5, K6 and the
+   backtrace launched at every shape.
 3. End to end through the port's CLIs, in-process, at the width of the
    10-state / 5-track supervised decode configuration: a planted
    20,000,000-position chromosome (4 categorical BED tracks + FASTA),
@@ -63,8 +82,14 @@ Phases (any failure raises, and the run exits non-zero):
    times.
 3c. The card against the CPU on a 50,000-position region: the same EM
    command on both; per-iteration logliks within 1e-5 relative, learned
-   probabilities within 1e-4, decoded BED agreeing on >= 99.9% of bases;
-   then ``--reps 2`` on the card, through K1 for both restarts.
+   start probabilities within 1e-4 and every learned transition and
+   emission probability of state s within 0.5 / n_s clipped to [1e-4,
+   1e-3], n_s the positions the CPU's decode gives the state (half an
+   expected count behind the row); a state with n_s < 500, whose limit
+   would pass 1e-3, is not held and is printed as skipped, and the held
+   states must cover >= 90% of the region; decoded BED agreeing on
+   >= 99.9% of bases; then ``--reps 2`` on the card, through K1 for both
+   restarts.
 3e. Gaussian tracks and segment mode on the same chromosome, with one
    gaussian BED track (a record per 500 bases, its value ~ N(mu[state],
    1)).  Base resolution (the phase-3 tracks and the gaussian track):
@@ -85,10 +110,10 @@ Phases (any failure raises, and the run exits non-zero):
    CPU in segment mode, with the gaussian track and with the categorical
    tracks only (the weight stream alone): EM logliks within 1e-5
    relative, BED agreeing on >= 99.9% of bases.  Stage times.
-4. The launch counters, zeroed just before phase 3, 3d, 3b's training
-   run, and 3e's base-resolution, segment and categorical segment runs
-   and read just after each, show every kernel and stream variant of
-   each path ran on it.
+4. The launch counters, zeroed just before each tool run of 2e, phase
+   3, 3d, 3b's training run, and 3e's base-resolution, segment and
+   categorical segment runs and read just after each, show every kernel
+   and stream variant of each path ran on it.
 
 The last lines are a JSON object of per-kernel results, the card's name
 and power limit, and ``{"ok": true, "device": {...}}``.  Without CUDA it
@@ -141,6 +166,9 @@ SOURCES = {
     "post_decode": "tehmm_tpu_torch/csrc/posterior.cu",
     "fwd_chunk": "tehmm_tpu_torch/csrc/posterior.cu",
     "bwd_chunk": "tehmm_tpu_torch/csrc/posterior.cu",
+    "viterbi_values": "tehmm_tpu_torch/csrc/streaming.cu",
+    "fwd_prob": "tehmm_tpu_torch/csrc/streaming.cu",
+    "bwd_prob": "tehmm_tpu_torch/csrc/streaming.cu",
 }
 REPLACES = {
     "viterbi_fwd": "tehmm_tpu/ops/pallas_kernels.py:2386",
@@ -152,6 +180,10 @@ REPLACES = {
     # X1 and X2 have no Pallas counterpart: the XLA scans they replace
     "fwd_chunk": "tehmm_tpu/ops/dp.py:378",
     "bwd_chunk": "tehmm_tpu/ops/dp.py:507",
+    # K5 (viterbi_pallas_v3's value sweep), K6a, K6b
+    "viterbi_values": "tehmm_tpu/ops/pallas_kernels.py:1374",
+    "fwd_prob": "tehmm_tpu/ops/pallas_kernels.py:815",
+    "bwd_prob": "tehmm_tpu/ops/pallas_kernels.py:885",
 }
 DECODE_KERNELS = ("viterbi_fwd", "viterbi_backtrace", "viterbi_chunk_values")
 EM_KERNELS = ("em_fwd", "em_bwd_stats")
@@ -161,6 +193,12 @@ POST_KERNELS = ("em_fwd", "post_decode", "fwd_chunk", "bwd_chunk")
 GAUSS_BASE_KERNELS = ("viterbi_fwd+g", "viterbi_backtrace", "em_fwd+g",
                       "em_bwd_stats+g", "post_decode+g")
 SEGMENT_KERNELS = ("em_fwd", "em_bwd_stats", "viterbi_fwd", "post_decode")
+# 2e: the engine-comparison path; phase 2 checks K5/K6 and the backtrace
+# under dp.viterbi_streaming at each of its shapes
+STREAMING_KERNELS = ("viterbi_values", "fwd_prob", "bwd_prob")
+ENGINE_CONFIGS = ("S20", "S64", "S128", "S256")
+ENGINE_ITERS = 1                     # marginal_time chains of 1 and 6
+ENVELOPE_MESSAGE = "beyond the shared-memory envelope"
 
 
 def _smi() -> str:
@@ -213,7 +251,7 @@ def _bound(name, shape, valid, G=0, weighted=False) -> dict:
     sym = (B * L * T + B) * f
     rows = B * L * S * f
     obs = _obs_ops(S, T, G, weighted)
-    base = name.split("+")[0]
+    base = name.split("+")[0].split("@")[0]
     if base == "viterbi_fwd":          # max-plus step, obs, renormalise
         nbytes = sym + tables + S * f + streams + rows + B * L * f
         ops = 2 * S * S + obs + 2 * S
@@ -236,6 +274,13 @@ def _bound(name, shape, valid, G=0, weighted=False) -> dict:
     elif base in ("fwd_chunk", "bwd_chunk"):   # log-space step
         nbytes = 2 * rows + (2 * B * S + 2 * B + S * S) * f
         ops = 2 * S * S + 4 * S
+    elif base in ("viterbi_values", "fwd_prob"):
+        # obs in, rows and normalizers out; product, obs, max, rescale
+        nbytes = 2 * rows + (B * L + B + S * S + S) * f
+        ops = 2 * S * S + 4 * S
+    elif base == "bwd_prob":           # two maxes and rescales a step
+        nbytes = 2 * rows + (B + S * S) * f
+        ops = 2 * S * S + 7 * S
     else:
         raise KeyError(name)
     t_bytes = nbytes / H100_BYTES_PER_S
@@ -769,6 +814,200 @@ def phase_stream_kernels(device, rng) -> dict:
     return out
 
 
+def phase_streaming_kernels(device, rng, seed) -> dict:
+    """K5, K6a, K6b and the backtrace of ``dp.viterbi_streaming`` against
+    their plain versions on the obs tensors of every ``bench_engines``
+    shape, ragged: the block layouts differ from shape to shape (12, 4,
+    2 and 1 row groups per block; at S=256 part of the transition matrix
+    is read from global memory).  K6 is held to 2e-6 against the plain
+    version carried in float64, whose own rounding then takes nothing of
+    that limit; the distance to the float32 plain version is printed.
+    The S=20 results of K5 and K6 go under the kernels' names, the
+    others under ``name@config``."""
+    import torch
+
+    from tehmm_tpu_torch.models.emission import track_log_likelihoods
+    from tehmm_tpu_torch.ops import cuda_kernels as ck
+    from tehmm_tpu_torch.ops import dp
+    from tehmm_tpu_torch.tools import bench_engines
+
+    out = {}
+    f64 = torch.float64
+    for config in ENGINE_CONFIGS:
+        S_, T_, V_, B, L = bench_engines.CONFIGS[config]
+        p, sym = bench_engines.make_inputs(S_, T_, V_, B, L, device, seed)
+        lengths = _ragged(rng, B, L)
+        lens = torch.from_numpy(lengths).to(device)
+        obs = track_log_likelihoods(p.log_em, sym)
+        del sym
+        suffix = "" if config == ENGINE_CONFIGS[0] else "@" + config
+        shape, valid = (B, L, S_, T_, V_), int(lengths.sum())
+
+        # K5: bit-equal rows and normalizers, and dp.viterbi's paths
+        v_args = (p.log_start, p.log_trans, obs, lens)
+        v, dm = ck.viterbi_values(*v_args)
+        pv, pdm = ck.viterbi_values_plain(*v_args)
+        assert torch.equal(v, pv) and torch.equal(dm, pdm), \
+            f"viterbi_values disagrees with its plain version at {config}"
+        path, score = dp.viterbi_streaming(*v_args)
+        want_p, want_s = dp.viterbi(*v_args)
+        assert torch.equal(path, want_p), \
+            f"viterbi_streaming path != dp.viterbi at {config}"
+        rel = float(((score - want_s).abs()
+                     / want_s.abs().clamp(min=1.0)).max())
+        assert rel < 1e-5, f"viterbi_streaming score rel err {rel}"
+        out["viterbi_values" + suffix] = dict(
+            max_abs_err=float(max((v - pv).abs().max(),
+                                  (dm - pdm).abs().max())),
+            ms=_median_ms(lambda: ck.viterbi_values(*v_args), 5),
+            plain_ms=_median_ms(lambda: ck.viterbi_values_plain(*v_args), 3),
+            **_bound("viterbi_values", shape, valid))
+        # the backtrace as viterbi_streaming calls it, on K5's rows
+        end = torch.argmax(v[:, L - 1], dim=-1).to(torch.int32)
+        bt_args = (p.log_trans, v[:, 1:], v[:, 0], end,
+                   torch.clamp(lens - 1, min=0))
+        bt_plain = (p.log_trans, v[:, 1:].contiguous(),
+                    v[:, 0].contiguous(), *bt_args[3:])
+        got_bt = ck.viterbi_backtrace(*bt_args)
+        want_bt = ck.viterbi_backtrace_plain(*bt_plain)
+        assert torch.equal(got_bt[0], want_bt[0]) \
+            and torch.equal(got_bt[1], want_bt[1]), \
+            f"viterbi_backtrace disagrees with its plain version at {config}"
+        out["viterbi_backtrace@" + config] = dict(
+            max_abs_err=0.0,
+            ms=_median_ms(lambda: ck.viterbi_backtrace(*bt_args), 5),
+            plain_ms=_median_ms(
+                lambda: ck.viterbi_backtrace_plain(*bt_plain), 3),
+            **_bound("viterbi_backtrace", (B, L - 1, S_, T_, V_),
+                     int(np.maximum(lengths - 1, 0).sum())))
+        del v, pv, dm, pdm, path, want_p, got_bt, want_bt, bt_args, bt_plain
+
+        # K6: within tolerance, repeats bit-identical
+        obs_p, o_m = dp.scaled_obs_prob(obs)
+        del obs
+        f_args = (p.log_start, p.log_trans, obs_p, lens)
+        alpha, dm = ck.forward_prob(*f_args)
+        again = ck.forward_prob(*f_args)
+        assert torch.equal(alpha, again[0]) and torch.equal(dm, again[1]), \
+            f"two forward_prob launches differ at {config}"
+        del again
+        r_alpha, r_dm = ck.forward_prob_plain(*f_args, dtype=f64)
+        err_f = max(
+            _assert_close(f"forward_prob alpha {config}", alpha, r_alpha,
+                          0.0, 2e-6),
+            _assert_close(f"forward_prob dm {config}", dm, r_dm, 0.0, 1e-5))
+        del r_alpha, r_dm
+        p_alpha, p_dm = ck.forward_prob_plain(*f_args)
+        f32_f = float((alpha - p_alpha).abs().max())
+        pad = torch.arange(L, device=device)[None, :] >= lens[:, None]
+        o_sum = o_m.masked_fill(pad, 0.0).sum(dim=1)
+        ll_rel = _assert_close(
+            f"forward_prob loglik {config}",
+            ck._loglik_rows(alpha, dm, lens) + o_sum,
+            ck._loglik_rows(p_alpha, p_dm, lens) + o_sum, 1e-5, 1e-5)
+        empty = lens == 0
+        assert bool((alpha[empty] == 1).all()) \
+            and bool((dm[empty] == 0).all()), "empty rows not ones/zeros"
+        out["fwd_prob" + suffix] = dict(
+            max_abs_err=err_f,
+            ms=_median_ms(lambda: ck.forward_prob(*f_args), 5),
+            plain_ms=_median_ms(lambda: ck.forward_prob_plain(*f_args), 3),
+            **_bound("fwd_prob", shape, valid))
+        del alpha, p_alpha, dm, p_dm
+        b_args = (p.log_trans, obs_p, lens)
+        beta = ck.backward_prob(*b_args)
+        assert torch.equal(beta, ck.backward_prob(*b_args)), \
+            f"two backward_prob launches differ at {config}"
+        r_beta = ck.backward_prob_plain(*b_args, dtype=f64)
+        err_b = _assert_close(f"backward_prob beta {config}", beta, r_beta,
+                              0.0, 2e-6)
+        del r_beta
+        f32_b = float((beta - ck.backward_prob_plain(*b_args)).abs().max())
+        out["bwd_prob" + suffix] = dict(
+            max_abs_err=err_b,
+            ms=_median_ms(lambda: ck.backward_prob(*b_args), 5),
+            plain_ms=_median_ms(lambda: ck.backward_prob_plain(*b_args), 3),
+            **_bound("bwd_prob", shape, valid))
+        del beta, obs_p, o_m
+        print(f"[streaming] K5/K6 at {config} (S={S_} B={B} L={L}, ragged): "
+              f"K5 rows, normalizers, backtrace and paths bit-equal (score "
+              f"rel err {rel:.3g}); K6 within 2e-6 of plain in float64 "
+              f"(alpha_p {err_f:.3g}, beta_p {err_b:.3g}; of plain in "
+              f"float32 {f32_f:.3g}, {f32_b:.3g}; row loglik abs err "
+              f"{ll_rel:.3g}), repeat launches bit-identical", flush=True)
+        torch.cuda.empty_cache()
+    for name, r in out.items():
+        print(f"[streaming] {name:22s} max_abs_err {r['max_abs_err']:.3g}  "
+              f"kernel {r['ms']:9.3f} ms  plain {r['plain_ms']:9.3f} ms  "
+              f"bound {r['bound_ms']:.3f} ms ({r['bound_by']})", flush=True)
+    return out
+
+
+def _tool_rows(text):
+    return [json.loads(line) for line in text.splitlines()
+            if line.startswith("{")]
+
+
+def phase_engines(seed) -> dict:
+    """2e: the engine-comparison path through its tools, at full width.
+    Returns {config: launch counts of that config's two tool runs}."""
+    import torch
+
+    from tehmm_tpu_torch.ops import cuda_kernels as ck
+    from tehmm_tpu_torch.tools import bench_engines, profile_estep
+
+    launches = {}
+    t_phase = time.perf_counter()
+    for config in ENGINE_CONFIGS:
+        counts = {}
+        for mode, engines, needed in (
+                ((), "plain,cuda,cuda_v3", "cuda_v3"),
+                (("--decode",), "plain,streaming,fused", "streaming")):
+            ck.reset_launch_counts()
+            text = _run_cli(bench_engines, [
+                "--configs", config, "--engines", engines, "--iters",
+                str(ENGINE_ITERS), "--seed", str(seed), *mode])
+            for name, n in ck.LAUNCHES.items():
+                counts[name] = counts.get(name, 0) + n
+            for line in text.splitlines():
+                print(f"[engines] {line}", flush=True)
+            rows = {r["engine"]: r for r in _tool_rows(text)}
+            assert list(rows) == engines.split(","), list(rows)
+            for engine, r in rows.items():
+                if "error" in r:
+                    assert engine in ("cuda", "fused") \
+                        and config in ("S128", "S256") \
+                        and ENVELOPE_MESSAGE in r["error"], \
+                        f"{config} {engine}: unexpected error row {r}"
+            ran = {e: r for e, r in rows.items() if "error" not in r}
+            assert needed in ran and "plain" in ran, (config, list(ran))
+            if mode:
+                bad = {e: r["path_agreement"] for e, r in ran.items()
+                       if r["path_agreement"] != 1.0}
+                assert not bad, f"{config}: decode paths differ: {bad}"
+            else:
+                lls = [r["loglik"] for r in ran.values()]
+                assert np.isfinite(lls).all(), lls
+                rel = max(abs(a - b) / abs(a) for a in lls for b in lls)
+                assert rel <= 1e-4, \
+                    f"{config}: E-step logliks differ by {rel} relative"
+            torch.cuda.empty_cache()
+        launches[config] = counts
+    ck.reset_launch_counts()
+    text = _run_cli(profile_estep, ["S64", "--iters", str(ENGINE_ITERS),
+                                    "--seed", str(seed)])
+    for line in text.splitlines():
+        print(f"[engines] profile_estep {line}", flush=True)
+    (stages,) = _tool_rows(text)
+    assert all(stages[k] > 0 for k in ("obs_ms", "obs_p_ms", "fwd_ms",
+                                       "bwd_ms", "epilogue_ms", "sum_ms"))
+    assert ck.LAUNCHES["fwd_prob"] and ck.LAUNCHES["bwd_prob"]
+    torch.cuda.empty_cache()
+    print(f"[engines] phase took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return launches
+
+
 # ---------------------------------------------------------------------
 # phase 3: end to end through the CLIs
 # ---------------------------------------------------------------------
@@ -1291,13 +1530,35 @@ def phase_em_card_vs_cpu(work, xml, n, region, seed, device="cuda"):
     c_ll = np.asarray([r["loglik"] for r in clog])
     rel = float(np.max(np.abs(g_ll - c_ll) / np.abs(c_ll)))
     assert rel <= 1e-5, f"card and CPU logliks differ by {rel} relative"
-    prob_err = max(float(np.abs(np.exp(gz[k]) - np.exp(cz[k])).max())
-                   for k in ("log_start", "log_trans", "log_em"))
-    assert prob_err <= 1e-4, f"card and CPU probabilities differ by " \
-        f"{prob_err}"
     names = [str(i) for i in range(EM_STATES)]
     g_path = _paint_region(gbed, lo, region, names)
     c_path = _paint_region(cbed, lo, region, names)
+    # EM feeds each iteration's float32 rounding back through rows that
+    # few positions support, so each state's learned row is held to half
+    # an expected count of the positions behind it (the CPU decode's
+    # occupancy n_s), never tighter than 1e-4 and never looser than 1e-3:
+    # a state with fewer than 500 positions is left out and said so
+    diff = {k: np.abs(np.exp(gz[k]) - np.exp(cz[k]))
+            for k in ("log_start", "log_trans", "log_em")}
+    start_err = float(diff["log_start"].max())
+    assert start_err <= 1e-4, \
+        f"card and CPU start probabilities differ by {start_err}"
+    occupancy = np.bincount(c_path.astype(np.int64), minlength=EM_STATES)
+    held = occupancy >= 500
+    limit = np.clip(0.5 / np.maximum(occupancy, 1), 1e-4, 1e-3)
+    row_err = np.maximum(diff["log_trans"].max(axis=1),
+                         diff["log_em"].max(axis=(1, 2)))
+    print(f"[em-small] learned rows, card vs CPU: occupancy "
+          f"{occupancy.tolist()}, largest probability difference per "
+          f"state {[float(f'{e:.3g}') for e in row_err]}, limit "
+          f"{[float(f'{x:.3g}') for x in limit]}, states skipped for "
+          f"fewer than 500 positions: {np.flatnonzero(~held).tolist()}",
+          flush=True)
+    assert occupancy[held].sum() >= 0.9 * region, \
+        f"the held states cover only {occupancy[held].sum()} positions"
+    assert (row_err[held] <= limit[held]).all(), \
+        f"card and CPU probabilities differ by {row_err} (limit {limit})"
+    prob_err = max(start_err, float(row_err[held].max()))
     agree = float((g_path == c_path).mean())
     assert agree >= 0.999, f"card and CPU BED agree on {agree} of bases"
     print(f"[em-small] card vs CPU: {len(glog)} iterations each, loglik "
@@ -1662,6 +1923,9 @@ def main(argv=None) -> int:
     kernels.update(phase_stream_kernels(
         device, np.random.RandomState(args.seed + 1)))
     torch.cuda.empty_cache()
+    kernels.update(phase_streaming_kernels(
+        device, np.random.RandomState(args.seed + 2), args.seed))
+    engine_launches = phase_engines(args.seed)
 
     n = N_POSITIONS
     with tempfile.TemporaryDirectory(prefix="tehmm_chip_smoke_") as work:
@@ -1706,6 +1970,9 @@ def main(argv=None) -> int:
         seg_launches = phase_segments(work, xml_seg, truth, args.seed)
         cat_launches = phase_segments_card_vs_cpu(work, xml_seg, xml_cat, n,
                                                   200_000, args.seed)
+    for config, counts in engine_launches.items():
+        print(f"[launches] engine-comparison path (2e) at {config}: "
+              f"{ {k: n for k, n in counts.items() if n} }", flush=True)
     print(f"[launches] decode path (phase 3): {decode_launches}",
           flush=True)
     print(f"[launches] EM path (phase 3b): {em_launches}", flush=True)
@@ -1725,6 +1992,9 @@ def main(argv=None) -> int:
                 if seg_launches[k + "+wg"] == 0]
     missing += [f"{k}+w (3e)" for k in SEGMENT_KERNELS
                 if cat_launches[k + "+w"] == 0]
+    missing += [f"{k} (2e, {config})" for config in ENGINE_CONFIGS
+                for k in STREAMING_KERNELS + ("viterbi_backtrace",)
+                if engine_launches[config][k] == 0]
     assert not missing, f"kernels never launched on their path: {missing}"
     launches = {k: decode_launches[k] for k in DECODE_KERNELS}
     launches.update({k: em_launches[k] for k in EM_KERNELS})
@@ -1733,15 +2003,20 @@ def main(argv=None) -> int:
     by_variant = {"+g": gauss_launches, "+wg": seg_launches,
                   "+w": cat_launches}
     for name in kernels:
+        base, _, config = name.partition("@")
         if "+" in name:
             launches[name] = by_variant["+" + name.split("+")[1]][name]
+        elif config or base in STREAMING_KERNELS:
+            launches[name] = \
+                engine_launches[config or ENGINE_CONFIGS[0]][base]
     assert not any(m.split(".")[0] in ("jax", "jaxlib", "tehmm_tpu")
                    for m in sys.modules), "jax or tehmm_tpu was imported"
 
     print(json.dumps({"kernels": [
-        dict(name=name, route="cuda", source=SOURCES[name.split("+")[0]],
-             replaces=REPLACES[name.split("+")[0]], launches=launches[name],
-             **r)
+        dict(name=name, route="cuda",
+             source=SOURCES[name.split("+")[0].split("@")[0]],
+             replaces=REPLACES[name.split("+")[0].split("@")[0]],
+             launches=launches[name], **r)
         for name, r in kernels.items()
     ]}))
     print(smi)

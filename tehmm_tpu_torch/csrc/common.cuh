@@ -15,6 +15,7 @@ namespace {
 
 constexpr float kLogZero = -1e30f;  // tehmm_tpu_torch.utils.common.LOG_ZERO
 constexpr int kWarpsPerBlock = 4;   // one warp per batch row
+constexpr int kSmemLimit = 232448;  // bytes a block may opt in to (sm_90)
 
 // states per lane for one warp: S <= 32 * SPL (0: S is too large)
 inline int states_per_lane(int S) {

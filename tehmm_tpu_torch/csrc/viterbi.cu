@@ -200,7 +200,9 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 // Backtrace from value rows: one thread per batch row walks back from
 // its end state; prev = argmax_i(v[t-1, i] + trans[i, state]), first
 // hit, held at state for t >= length.  Row t-1 of position 0 is the
-// entry row.  Writes path[b, t] and the state at position -1.
+// entry row.  Writes path[b, t] and the state at position -1.  The first
+// n_s rows of trans are in shared memory (all of them up to S = 241); the
+// rest are read through the read-only path from global memory.
 __global__ void __launch_bounds__(kBacktraceThreads)
     viterbi_backtrace_kernel(const float* __restrict__ trans,
                              const float* __restrict__ rows,
@@ -211,9 +213,9 @@ __global__ void __launch_bounds__(kBacktraceThreads)
                              const int32_t* __restrict__ lens,
                              int32_t* __restrict__ path,
                              int32_t* __restrict__ entry_state, int64_t B,
-                             int64_t L, int S) {
+                             int64_t L, int S, int n_s) {
   extern __shared__ float s_trans[];
-  stage(s_trans, trans, (int64_t)S * S);
+  stage(s_trans, trans, (int64_t)n_s * S);
   __syncthreads();
 
   const int64_t b = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
@@ -227,8 +229,15 @@ __global__ void __launch_bounds__(kBacktraceThreads)
       const float* vp = t > 0 ? rb + (t - 1) * S : entry + b * entry_stride;
       float best = vp[0] + s_trans[state];
       int arg = 0;
-      for (int i = 1; i < S; ++i) {
+      for (int i = 1; i < n_s; ++i) {
         const float c = vp[i] + s_trans[(int64_t)i * S + state];
+        if (c > best) {
+          best = c;
+          arg = i;
+        }
+      }
+      for (int i = n_s; i < S; ++i) {
+        const float c = vp[i] + __ldg(trans + (int64_t)i * S + state);
         if (c > best) {
           best = c;
           arg = i;
@@ -339,7 +348,10 @@ int tehmm_viterbi_backtrace(const void* trans, const void* rows,
                             int64_t entry_stride, const void* end_state,
                             const void* lens, void* path, void* entry_state,
                             int64_t B, int64_t L, int S, void* stream) {
-  const size_t smem = sizeof(float) * (size_t)S * S;
+  if (S < 1) return (int)cudaErrorInvalidValue;
+  const int fit = kSmemLimit / (int)(sizeof(float) * S);
+  const int n_s = fit < S ? fit : S;  // at least 1: row 0 is read from it
+  const size_t smem = sizeof(float) * (size_t)n_s * S;
   cudaError_t err = allow_smem(viterbi_backtrace_kernel, smem);
   if (err != cudaSuccess) return (int)err;
   const int64_t grid = (B + kBacktraceThreads - 1) / kBacktraceThreads;
@@ -348,7 +360,7 @@ int tehmm_viterbi_backtrace(const void* trans, const void* rows,
       (const float*)trans, (const float*)rows, row_stride,
       (const float*)entry, entry_stride, (const int32_t*)end_state,
       (const int32_t*)lens, (int32_t*)path, (int32_t*)entry_state, B, L,
-      S);
+      S, n_s);
   return (int)cudaGetLastError();
 }
 

@@ -17,6 +17,10 @@ bounds each on an H100 and how its design answers it):
   forward_chunk_values  X1: no Pallas kernel; the XLA scans of
   (and forward_final)   ``dp.forward_chunk_values`` (``dp.forward_final``)
   backward_chunk_values X2: no Pallas kernel; ``dp.backward_chunk_values``
+  viterbi_values        K5, ``_viterbi_values_v3(carry_mode=False)`` under
+                        ``viterbi_pallas_v3``
+  forward_prob          K6a, ``forward_prob_pallas_v3``
+  backward_prob         K6b, ``backward_prob_pallas_v3``
   ===================== ==============================================
 
 ``viterbi_fused`` composes the first two into the symbols-in/path-out
@@ -24,7 +28,12 @@ decode of ``viterbi_fused_pallas_v4``; ``em_counts_fused`` composes
 K1's two into the symbols-in/statistics-out E-step of
 ``em_counts_fused_pallas_v4``; ``posterior_decode_fused`` composes K1's
 forward with the K4 decode into the symbols-in/path-out max-posterior
-decode of ``posterior_decode_fused_pallas_v4``.
+decode of ``posterior_decode_fused_pallas_v4``.  The last three
+(``csrc/streaming.cu``) work on a precomputed observation tensor and
+take any S up to 256 (``STREAMING_MAX_STATES``) whatever T and V are:
+they keep only the transition matrix, as far as it fits, and the rows'
+state vectors in shared memory.  ``dp.viterbi_streaming`` and the
+E-step engine ``"cuda_v3"`` of ``ops/em.py`` are built on them.
 
 Each wrapper checks device, dtype, shape and contiguity, and sits beside
 its plain-torch version.  A tensor on the CPU takes the plain version; a
@@ -82,7 +91,7 @@ LAUNCHES = {
     name: 0 for name in (
         [k + v for k in STREAM_KERNELS for v in STREAM_VARIANTS]
         + ["viterbi_backtrace", "viterbi_chunk_values", "fwd_chunk",
-           "bwd_chunk"]
+           "bwd_chunk", "viterbi_values", "fwd_prob", "bwd_prob"]
     )
 }
 
@@ -100,6 +109,11 @@ _K1_ENVELOPE_ITEM = (
 )
 _POST_ENVELOPE_ITEM = (
     "ROADMAP Queue 2: K4, X1 and X2 beyond the shared-memory envelope"
+)
+# The streaming kernels (K5, K6): one thread per state in a block of 256.
+STREAMING_MAX_STATES = 256
+_STREAMING_ENVELOPE_ITEM = (
+    "ROADMAP Queue 2: K5 and K6 beyond 256 states"
 )
 
 _lock = threading.Lock()
@@ -221,6 +235,11 @@ def load_library() -> ctypes.CDLL:
         lib.tehmm_fwd_chunk.argtypes = [ptr] * 7 + [i64, i64, i32, ptr]
         lib.tehmm_bwd_chunk.restype = i32
         lib.tehmm_bwd_chunk.argtypes = [ptr] * 7 + [i64, i64, i32, ptr]
+        for fn in (lib.tehmm_viterbi_values, lib.tehmm_fwd_prob):
+            fn.restype = i32
+            fn.argtypes = [ptr] * 6 + [i64, i64, i32, ptr]
+        lib.tehmm_bwd_prob.restype = i32
+        lib.tehmm_bwd_prob.argtypes = [ptr] * 4 + [i64, i64, i32, ptr]
         _lib = lib
         return lib
 
@@ -361,26 +380,11 @@ def viterbi_fwd_plain(log_start, log_trans, log_em, symbols, lengths,
                       obs_weights=None, gauss_params=None,
                       gauss_values=None):
     """Plain version of ``viterbi_fwd``: obs by the track-order
-    gather-sum (plus the gaussian term, times the weights), then the
-    max-plus forward of ``dp.viterbi`` with K2's masking (zero-length rows
-    carry a zero row)."""
+    gather-sum (plus the gaussian term, times the weights), then
+    ``viterbi_values_plain``."""
     obs = _streams(symbols, log_em.shape[0], obs_weights, gauss_params,
                    gauss_values).obs(log_em, symbols)
-    B, L, S = obs.shape
-    lens = lengths.to(torch.int64)
-    v_hat = torch.zeros((B, S), dtype=torch.float32, device=obs.device)
-    rows, dms = [], []
-    for t in range(L):
-        if t == 0:
-            base = log_start[None, :]
-        else:
-            base = (v_hat[:, :, None] + log_trans[None, :, :]).amax(dim=1)
-        new_hat, m = dp._renorm(base + obs[:, t])
-        valid_t = t < lens
-        v_hat = dp._mask_carry(new_hat, v_hat, valid_t)
-        rows.append(v_hat)
-        dms.append(torch.where(valid_t, m, 0.0))
-    return torch.stack(rows, dim=1), torch.stack(dms, dim=1)
+    return viterbi_values_plain(log_start, log_trans, obs, lengths)
 
 
 def viterbi_fwd(log_start, log_trans, log_em, symbols, lengths,
@@ -456,9 +460,10 @@ def viterbi_backtrace(log_trans, rows, entry, end_state, lengths):
     Replaces ``_viterbi_backtrace_kernel_v4`` (pallas_kernels.py:2517)
     and the exact decoder's per-position backtrace loop.  Bound: the
     latency of a dependent chain of S-wide argmaxes over value rows read
-    from HBM/L2.  Design: one thread per row, trans in shared memory,
-    strided batch rows so the fused caller passes slices without
-    copying.
+    from HBM/L2.  Design: one thread per row, trans in shared memory
+    (what fits of it: beyond S = 241 the last rows are read through the
+    read-only path, so the kernel takes every S <= 256), strided batch
+    rows so the fused caller passes slices without copying.
     """
     B, L, S = rows.shape
     dev = rows.device
@@ -475,7 +480,8 @@ def viterbi_backtrace(log_trans, rows, entry, end_state, lengths):
     if _device_kind(dev) == "cpu":
         return viterbi_backtrace_plain(log_trans, rows, entry, end_state,
                                        lengths)
-    _check_envelope(S, S * S, "viterbi_backtrace")
+    _check_envelope(S, min(S, _SMEM_LIMIT // (4 * S)) * S,
+                    "viterbi_backtrace")
     _check_index_range(end_state, S, "end_state")
     path = torch.empty((B, L), dtype=torch.int32, device=dev)
     entry_state = torch.empty((B,), dtype=torch.int32, device=dev)
@@ -1048,3 +1054,208 @@ def backward_chunk_values(log_trans, obs, x_carry, continuing, lengths):
     _raise_on(rc, lib, "bwd_chunk")
     LAUNCHES["bwd_chunk"] += 1
     return beta, x_out
+
+
+# ---------------------------------------------------------------------
+# K5, K6: the streaming scans over a precomputed observation tensor
+# ---------------------------------------------------------------------
+
+_PROB_FLOOR = 1e-37   # floor of every max the prob-space scans divide by
+
+
+def _check_streaming(log_trans, obs, lengths, obs_name, what,
+                     log_start=None):
+    """Argument checks shared by the three streaming wrappers; returns
+    the device."""
+    B, L, S = obs.shape
+    dev = obs.device
+    tables = [(log_trans, "log_trans", (S, S))]
+    if log_start is not None:
+        tables.append((log_start, "log_start", (S,)))
+    for t, name, shape in tables + [(obs, obs_name, (B, L, S))]:
+        _check(t, name, torch.float32, shape, dev)
+        _check_contiguous(t, name)
+    _check(lengths, "lengths", torch.int32, (B,), dev)
+    _check_contiguous(lengths, "lengths")
+    if L == 0:
+        raise ValueError(f"{obs_name}: a scan needs at least one position")
+    if _device_kind(dev) == "cuda" and S > STREAMING_MAX_STATES:
+        raise NotImplementedError(
+            f"{what}: S={S} is over the {STREAMING_MAX_STATES} states one "
+            f"block of the streaming kernels takes; not ported yet "
+            f"({_STREAMING_ENVELOPE_ITEM})"
+        )
+    return dev
+
+
+def _launch_streaming(name, entry, args, dev):
+    lib = load_library()
+    rc = getattr(lib, entry)(*args, _stream(dev))
+    _raise_on(rc, lib, name)
+    LAUNCHES[name] += 1
+
+
+def viterbi_values_plain(log_start, log_trans, obs, lengths):
+    """Plain version of ``viterbi_values``: the max-plus forward of
+    ``dp.viterbi`` from ``log_start`` as a loop over positions, batched
+    over rows, with the kernels' masking (positions at or past a row's
+    length carry the row and add a zero normalizer, so zero-length rows
+    carry a zero row)."""
+    B, L, S = obs.shape
+    lens = lengths.to(torch.int64)
+    v_hat = torch.zeros((B, S), dtype=torch.float32, device=obs.device)
+    rows, dms = [], []
+    for t in range(L):
+        if t == 0:
+            base = log_start[None, :]
+        else:
+            base = (v_hat[:, :, None] + log_trans[None, :, :]).amax(dim=1)
+        new_hat, m = dp._renorm(base + obs[:, t])
+        valid_t = t < lens
+        v_hat = dp._mask_carry(new_hat, v_hat, valid_t)
+        rows.append(v_hat)
+        dms.append(torch.where(valid_t, m, 0.0))
+    return torch.stack(rows, dim=1), torch.stack(dms, dim=1)
+
+
+def viterbi_values(log_start, log_trans, obs, lengths):
+    """K5: (v_hats f32[B, L, S], dm f32[B, L]) from obs f32[B, L, S] and
+    int32 lengths [B].  Row t is the max-normalized Viterbi value row at
+    position t (position 0 takes ``log_start``), dm[b, t] its normalizer;
+    positions at or past a row's length carry the row with dm 0, so
+    zero-length rows are all zero.  ``dp.viterbi_streaming`` adds the
+    score and the backtrace.
+
+    Replaces ``_viterbi_values_v3(carry_mode=False)``
+    (pallas_kernels.py:1374, kernel ``_make_viterbi_kernel_v3`` :1284)
+    under ``viterbi_pallas_v3`` (:1453); the JAX function returns the
+    rows time-major, [L, B, S] and [L, B].  Bound on an H100: the bytes of
+    obs and the rows at S = 20, the 2 S^2 add-and-max operations per
+    position at S = 256; in practice the chain of L dependent steps.
+    Design (``csrc/streaming.cu``): a block of 256 threads owns a tile of
+    rows for the whole scan, one thread per state and one row per thread
+    (two where the card cannot hold the batch in one wave), the rows'
+    vectors and as much of log_trans as fits in shared memory, the rest
+    of it read through the read-only path.  Takes S <= 256.  Bit-equal to
+    the plain version."""
+    dev = _check_streaming(log_trans, obs, lengths, "obs", "viterbi_values",
+                           log_start)
+    if dev.type == "cpu":
+        return viterbi_values_plain(log_start, log_trans, obs, lengths)
+    B, L, S = obs.shape
+    v_hats = torch.empty((B, L, S), dtype=torch.float32, device=dev)
+    dm = torch.empty((B, L), dtype=torch.float32, device=dev)
+    if B:
+        _launch_streaming(
+            "viterbi_values", "tehmm_viterbi_values",
+            (obs.data_ptr(), lengths.data_ptr(), log_start.data_ptr(),
+             log_trans.data_ptr(), v_hats.data_ptr(), dm.data_ptr(), B, L,
+             S), dev)
+    return v_hats, dm
+
+
+def forward_prob_plain(log_start, log_trans, obs_p, lengths,
+                       dtype=torch.float32):
+    """Plain version of ``forward_prob``: a loop over positions, batched
+    over rows; the step's product is a matrix product.  ``dtype`` is the
+    type the scan is carried and returned in: float64 takes the kernel's
+    float32 inputs (exp of the tables included) and gives a reference
+    whose own rounding is negligible."""
+    B, L, S = obs_p.shape
+    dev = obs_p.device
+    start_p = torch.exp(log_start).to(dtype)
+    trans_p = torch.exp(log_trans).to(dtype)
+    lens = lengths.to(torch.int64)
+    p = torch.ones((B, S), dtype=dtype, device=dev)
+    alpha = torch.empty((B, L, S), dtype=dtype, device=dev)
+    dm = torch.empty((B, L), dtype=dtype, device=dev)
+    for t in range(L):
+        base = start_p[None, :] if t == 0 else p @ trans_p
+        u = base * obs_p[:, t].to(dtype)
+        m = torch.clamp(u.amax(dim=-1), min=_PROB_FLOOR)
+        valid = t < lens
+        p = torch.where(valid[:, None], u * (1.0 / m)[:, None], p)
+        alpha[:, t] = p
+        dm[:, t] = torch.where(valid, torch.log(m), 0.0)
+    return alpha, dm
+
+
+def forward_prob(log_start, log_trans, obs_p, lengths):
+    """K6a: (alpha_p f32[B, L, S], dm f32[B, L]) from obs_p f32[B, L, S]
+    in [0, 1] (``dp.scaled_obs_prob``) and int32 lengths [B].  Row t is
+    the forward probability row scaled to max 1: u = (trans^T p) * obs_p[t]
+    (position 0: start * obs_p[0]), m = max(max u, 1e-37), p' = u * (1/m),
+    dm[b, t] = log m, which excludes the observations' own max.  Positions
+    at or past a row's length carry the row with dm 0, so zero-length rows
+    are all ones.  Scaled probabilities that underflow float32 flush to
+    zero, as in the TPU kernel.
+
+    Replaces ``forward_prob_pallas_v3`` (pallas_kernels.py:815, kernel
+    ``_forward_kernel_v3`` :627).  Bound and design as ``viterbi_values``,
+    with each output's S-term float32 sum as four interleaved FMA chains
+    added pairwise, in an order that depends on S alone (no tensor cores,
+    no TF32, no atomics: repeats give the same bits; within float32
+    rounding of the plain version's matrix product).  Takes S <= 256."""
+    dev = _check_streaming(log_trans, obs_p, lengths, "obs_p",
+                           "forward_prob", log_start)
+    if dev.type == "cpu":
+        return forward_prob_plain(log_start, log_trans, obs_p, lengths)
+    B, L, S = obs_p.shape
+    alpha = torch.empty((B, L, S), dtype=torch.float32, device=dev)
+    dm = torch.empty((B, L), dtype=torch.float32, device=dev)
+    if B:
+        start_p, trans_p = torch.exp(log_start), torch.exp(log_trans)
+        _launch_streaming(
+            "fwd_prob", "tehmm_fwd_prob",
+            (obs_p.data_ptr(), lengths.data_ptr(), start_p.data_ptr(),
+             trans_p.data_ptr(), alpha.data_ptr(), dm.data_ptr(), B, L, S),
+            dev)
+    return alpha, dm
+
+
+def backward_prob_plain(log_trans, obs_p, lengths, dtype=torch.float32):
+    """Plain version of ``backward_prob``: a loop over positions from the
+    end, batched over rows; ``dtype`` as in ``forward_prob_plain``."""
+    B, L, S = obs_p.shape
+    dev = obs_p.device
+    trans_pt = torch.exp(log_trans).T.to(dtype)
+    lens = lengths.to(torch.int64)
+    b = torch.ones((B, S), dtype=dtype, device=dev)
+    beta = torch.empty((B, L, S), dtype=dtype, device=dev)
+    beta[:, L - 1] = b
+    for t in range(L - 2, -1, -1):
+        x = obs_p[:, t + 1].to(dtype) * b
+        xm = torch.clamp(x.amax(dim=-1), min=_PROB_FLOOR)
+        s = (x * (1.0 / xm)[:, None]) @ trans_pt
+        nm = torch.clamp(s.amax(dim=-1), min=_PROB_FLOOR)
+        b = torch.where((t + 1 < lens)[:, None], s * (1.0 / nm)[:, None], b)
+        beta[:, t] = b
+    return beta
+
+
+def backward_prob(log_trans, obs_p, lengths):
+    """K6b: beta_p f32[B, L, S] from obs_p f32[B, L, S] and int32 lengths
+    [B].  beta_p[L - 1] is all ones; beta_p[t] steps back from t + 1
+    where t + 1 < length (x = obs_p[t + 1] * b scaled by 1 / max(max x,
+    1e-37), s = trans x scaled by 1 / max(max s, 1e-37)) and carries
+    beta_p[t + 1] elsewhere, so a row is all ones from its last valid
+    position on.
+
+    Replaces ``backward_prob_pallas_v3`` (pallas_kernels.py:885, kernel
+    ``_backward_kernel_v3`` :712), which streams a reversed, relaid copy
+    of obs_p; this kernel reads obs_p as it is, from the end.  Bound and
+    design as ``forward_prob``, with two max reductions per position.
+    Takes S <= 256."""
+    dev = _check_streaming(log_trans, obs_p, lengths, "obs_p",
+                           "backward_prob")
+    if dev.type == "cpu":
+        return backward_prob_plain(log_trans, obs_p, lengths)
+    B, L, S = obs_p.shape
+    beta = torch.empty((B, L, S), dtype=torch.float32, device=dev)
+    if B:
+        trans_pt = torch.exp(log_trans).T.contiguous()
+        _launch_streaming(
+            "bwd_prob", "tehmm_bwd_prob",
+            (obs_p.data_ptr(), lengths.data_ptr(), trans_pt.data_ptr(),
+             beta.data_ptr(), B, L, S), dev)
+    return beta

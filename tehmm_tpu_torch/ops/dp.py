@@ -16,7 +16,10 @@ agree with it to float32 rounding.
 This is the CPU path and the reference every CUDA kernel is checked
 against (``ops/cuda_kernels.py``).  The time loops are Python loops over
 positions: on the GPU the E-step, the decoders and the chunk sweeps
-call the kernels instead.
+call the kernels instead.  ``viterbi_streaming`` and ``scaled_obs_prob``
+at the end are the obs-space engines' entry points: the first decodes
+through the streaming value kernel, the second makes the
+probability-space observations the E-step engine ``"cuda_v3"`` scans.
 
 All functions take batch-major ``obs[B, L, S]``.
 """
@@ -413,3 +416,52 @@ def viterbi_backtrace_chunk(
         v_prev = v_hats[:, t - 1] if t > 0 else v_carry_in
         state = _backtrace_step(log_trans, v_prev, state, t < lengths)
     return path.to(torch.int32), state.to(torch.int32)
+
+
+# ---------------------------------------------------------------------
+# the obs-space streaming engine (K5) and the prob-space split (K6)
+# ---------------------------------------------------------------------
+
+def scaled_obs_prob(obs: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """obs f32[..., L, S] -> (obs_p, o_m): obs_p = exp(obs - max_s obs)
+    in [0, 1] with a 1 at every position, and o_m f32[..., L] the max the
+    prob-space forward's normalizers leave out."""
+    o_m = obs.amax(dim=-1)
+    return torch.exp(obs - o_m[..., None]), o_m
+
+
+def viterbi_streaming(
+    log_start: torch.Tensor,
+    log_trans: torch.Tensor,
+    obs: torch.Tensor,
+    lengths: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Viterbi over a precomputed obs tensor through the streaming value
+    kernel: (path int32[B, L], score f32[B]) with ``viterbi``'s paths
+    (first-hit argmax, lowest state index) and its score to float32
+    rounding (max of the last row plus the summed normalizers, one
+    reduction).  Zero-length rows get path 0 and score 0.
+
+    Counterpart of ``viterbi_pallas_v3`` (tehmm_tpu/ops/pallas_kernels.py
+    :1452): the value rows come from ``cuda_kernels.viterbi_values`` (K5;
+    its plain version on CPU tensors), any S up to 256.  The backtrace,
+    an XLA scan outside the kernel in the JAX package, is
+    ``cuda_kernels.viterbi_backtrace`` (the K2 backtrace kernel on the
+    card, at every S the value kernel takes; its plain version, the
+    batched torch loop ``viterbi_backtrace_chunk``, on CPU tensors)."""
+    from tehmm_tpu_torch.ops import cuda_kernels as ck
+
+    B, L, S = obs.shape
+    lens = _lengths(lengths, B, L, obs.device).to(torch.int32)
+    v_hats, dm = ck.viterbi_values(log_start.contiguous(),
+                                   log_trans.contiguous(),
+                                   obs.contiguous(), lens)
+    last = v_hats[:, L - 1]
+    nonempty = lens > 0
+    score = torch.where(nonempty, last.amax(dim=-1) + dm.sum(dim=1), 0.0)
+    end_state = torch.argmax(last, dim=-1).to(torch.int32)
+    body_lens = torch.clamp(lens - 1, min=0)
+    body, first = ck.viterbi_backtrace(log_trans.contiguous(), v_hats[:, 1:],
+                                       v_hats[:, 0], end_state, body_lens)
+    path = torch.cat([first[:, None], body], dim=1)
+    return torch.where(nonempty[:, None], path, 0), score

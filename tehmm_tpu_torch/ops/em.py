@@ -1,8 +1,8 @@
 """Baum-Welch EM: E-step sufficient statistics, the M-step with the
 semi-supervised fix/force masks, and the loops over them.
 
-Counterpart of ``tehmm_tpu/ops/em.py``.  ``em_sufficient_stats`` has two
-engines:
+Counterpart of ``tehmm_tpu/ops/em.py``.  ``em_sufficient_stats`` has
+three engines:
 
 * ``"plain"`` ports the JAX package's XLA branch: log-space scaled
   forward/backward (``ops/dp.py``), posteriors, and the factored,
@@ -13,7 +13,19 @@ engines:
 * ``"cuda"`` runs K1, the fused E-step (``ops/cuda_kernels.
   em_counts_fused``: symbols in, statistics out), and finishes as the
   JAX package's ``pallas`` branch does.  On a CPU tensor K1's wrapper
-  takes its plain version.
+  takes its plain version.  K1 keeps its statistics in one block's
+  shared memory, so it takes S up to about 150 at T=5, V=9 and raises
+  beyond that.
+* ``"cuda_v3"`` replaces the JAX package's ``engine="pallas_v3"``, the
+  probability-space streaming engine kept for engine comparisons
+  (``tools/bench_engines.py``): the observation tensor is formed first
+  and split into ``obs_p``/``o_m`` (``dp.scaled_obs_prob``), K6
+  (``ops/cuda_kernels.forward_prob`` and ``backward_prob``) returns
+  alpha_p and beta_p, exactly the factors the contractions consume, and
+  the statistics are the same torch products as the plain engine's.  It
+  takes any S up to 256 at any T and V, and needs several [B, L, S]
+  tensors of device memory where K1 needs one.  Nothing selects it but
+  its name.
 
 ``"auto"`` is ``"cuda"`` for a CUDA tensor, else ``"plain"``: on the card
 training never runs a plain E-step.
@@ -53,7 +65,7 @@ from tehmm_tpu_torch.ops import cuda_kernels as ck
 from tehmm_tpu_torch.ops import dp
 
 _CLIP = 60.0  # exp-range guard of the factored transition counts
-_K6_ITEM = "ROADMAP Queue 2: K6, the pallas_v3 engine"
+ENGINES = ("auto", "plain", "cuda", "cuda_v3")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -120,7 +132,13 @@ def em_sufficient_stats(
       lengths: optional int[B]; positions >= length are padding.
       matmul: the plain engine's log-sum-exp form (``dp._logdot``).
       obs_weights: optional f32[B, L] segment weights.
-      engine: "auto", "plain" or "cuda" (see the module docstring).
+      engine: "auto" (``"cuda"`` for CUDA tensors, else ``"plain"``),
+        "plain" (log-space scans in torch; the CPU path), "cuda" (K1,
+        the fused E-step from symbols) or "cuda_v3" (K6, the
+        probability-space scans over a precomputed obs tensor; the
+        counterpart of ``tehmm_tpu/ops/em.py`` ``engine="pallas_v3"``,
+        for engine comparisons and for S beyond K1's envelope).  See the
+        module docstring.
       gauss_params / gauss_values: gaussian-track emissions, values
         f32[B, L, G] with NaN missing.
 
@@ -135,10 +153,6 @@ def em_sufficient_stats(
     n_obs = valid.sum().to(torch.float32)
     if engine == "auto":
         engine = "cuda" if dev.type == "cuda" else "plain"
-    if engine == "pallas_v3":
-        raise NotImplementedError(
-            f"engine 'pallas_v3' is not ported yet ({_K6_ITEM})"
-        )
     if engine == "cuda":
         out = ck.em_counts_fused(
             params.log_start.contiguous(), params.log_trans.contiguous(),
@@ -155,43 +169,86 @@ def em_sufficient_stats(
         moments = out[4] if has_gauss else (None, None, None)
         return EmStats(start, pair * torch.exp(params.log_trans), em,
                        loglik_b.sum(), n_obs, *moments)
-    if engine != "plain":
-        raise ValueError(f"unknown engine {engine!r}")
+    if engine not in ("plain", "cuda_v3"):
+        raise ValueError(
+            f"unknown engine {engine!r}: choose one of {ENGINES} (the JAX "
+            "package's 'pallas_v3' is \"cuda_v3\" here)"
+        )
 
     obs = obs_log_likelihoods(params.log_em, symbols, gauss_params,
                               gauss_values, obs_weights)      # [B,L,S]
-    alpha_hat, _, loglik = dp.forward_scaled(
-        params.log_start, params.log_trans, obs, lengths, matmul=matmul
-    )
-    beta_hat, _ = dp.backward_scaled(params.log_trans, obs, lengths,
-                                     matmul=matmul)
-    gamma = dp.posterior_scaled(alpha_hat, beta_hat) * valid[..., None]
-    # xi[t,i,j] = a[i] T[i,j] b[j] / z[t] with a = exp(alpha_hat[t]),
-    # b = exp(obs[t+1] + beta_hat[t+1] - max), z = (a @ T) . b: exact per
-    # step, every factor in [0, 1]; trans = T * sum_t (a / z) outer b
-    a_fac = torch.exp(alpha_hat[:, :-1])
-    bb = obs[:, 1:] + beta_hat[:, 1:]
-    bb = bb - bb.amax(dim=-1, keepdim=True)
-    b_fac = torch.exp(torch.clamp(bb, -_CLIP, _CLIP))
+    if engine == "cuda_v3":
+        obs_p, o_m = dp.scaled_obs_prob(obs)
+        del obs
+        lens32 = lengths.to(torch.int32)
+        log_trans = params.log_trans.contiguous()
+        alpha_p, dms = ck.forward_prob(params.log_start.contiguous(),
+                                       log_trans, obs_p, lens32)
+        beta_p = ck.backward_prob(log_trans, obs_p, lens32)
+        loglik = (torch.log(alpha_p[:, -1].sum(dim=-1)) + dms.sum(dim=1)
+                  + torch.where(valid, o_m, 0.0).sum(dim=1))
+        loglik = torch.where(lengths > 0, loglik, 0.0)
+        gamma, a_fac, b_fac = prob_space_factors(alpha_p, beta_p, obs_p)
+    else:
+        alpha_hat, _, loglik = dp.forward_scaled(
+            params.log_start, params.log_trans, obs, lengths, matmul=matmul
+        )
+        beta_hat, _ = dp.backward_scaled(params.log_trans, obs, lengths,
+                                         matmul=matmul)
+        gamma = dp.posterior_scaled(alpha_hat, beta_hat)
+        # xi[t,i,j] = a[i] T[i,j] b[j] / z[t] with a = exp(alpha_hat[t]),
+        # b = exp(obs[t+1] + beta_hat[t+1] - max), z = (a @ T) . b: exact
+        # per step, every factor in [0, 1]; trans = T * sum_t (a / z)
+        # outer b
+        a_fac = torch.exp(alpha_hat[:, :-1])
+        bb = obs[:, 1:] + beta_hat[:, 1:]
+        bb = bb - bb.amax(dim=-1, keepdim=True)
+        b_fac = torch.exp(torch.clamp(bb, -_CLIP, _CLIP))
+    start, trans, em, moments = contract_stats(
+        params, symbols, lengths, gamma, a_fac, b_fac, obs_weights,
+        gauss_values if has_gauss else None)
+    return EmStats(start, trans, em, loglik.sum(), n_obs, *moments)
+
+
+def prob_space_factors(alpha_p, beta_p, obs_p):
+    """(gamma, a_fac, b_fac) from the prob-space scans' rows: gamma =
+    alpha_p beta_p / max(sum, 1e-30), a_fac = alpha_p at positions
+    0..L-2, b_fac = obs_p beta_p at positions 1..L-1 scaled to max 1.
+    Every factor lies in [0, 1]."""
+    ab = alpha_p * beta_p
+    gamma = ab / torch.clamp(ab.sum(dim=-1, keepdim=True), min=1e-30)
+    xb = obs_p[:, 1:] * beta_p[:, 1:]
+    b_fac = xb / torch.clamp(xb.amax(dim=-1, keepdim=True), min=1e-30)
+    return gamma, alpha_p[:, :-1], b_fac
+
+
+def contract_stats(params, symbols, lengths, gamma, a_fac, b_fac,
+                   obs_weights=None, gauss_values=None):
+    """The contractions every obs-space engine ends in: (start f32[S],
+    trans f32[S, S], em f32[S, T, V], moments) from unmasked gamma
+    f32[B, L, S] and the transition factors a_fac, b_fac f32[B, L-1, S]
+    in [0, 1].  Each step's pair is normalized by its own partition
+    value z = (a @ T) . b; ``moments`` is (gn, gx, gx2) with
+    ``gauss_values``, else three Nones."""
+    B, L, _T = symbols.shape
+    dev = symbols.device
+    steps = torch.arange(L, device=dev)[None, :]
+    gamma = gamma * (steps < lengths[:, None])[..., None]
     trans_exp = torch.exp(params.log_trans)
     z = ((a_fac @ trans_exp) * b_fac).sum(dim=-1)             # [B,L-1]
     # transitions OUT of the last valid position don't exist
-    valid_from = (torch.arange(L - 1, device=dev)[None, :]
-                  < (lengths[:, None] - 1))
+    valid_from = steps[:, :L - 1] < (lengths[:, None] - 1)
     w = torch.where(valid_from, 1.0 / torch.clamp(z, min=1e-30), 0.0)
     pair = torch.einsum("bli,blj->ij", a_fac * w[..., None], b_fac)
     # a segment standing for w positions contributes w expected emission
     # counts, and (the density being raised to the power w) w times its
     # gaussian moments
     gamma_w = gamma if obs_weights is None else gamma * obs_weights[..., None]
-    moments = (gauss_stats(gamma_w, gauss_values) if has_gauss
-               else (None, None, None))
-    return EmStats(
-        gamma[:, 0].sum(dim=0), pair * trans_exp,
-        expected_emission_counts(tuple(params.log_em.shape), symbols,
-                                 gamma_w),
-        loglik.sum(), n_obs, *moments,
-    )
+    moments = (gauss_stats(gamma_w, gauss_values)
+               if gauss_values is not None else (None, None, None))
+    em = expected_emission_counts(tuple(params.log_em.shape), symbols,
+                                  gamma_w)
+    return gamma[:, 0].sum(dim=0), pair * trans_exp, em, moments
 
 
 def _normalize_rows(counts: torch.Tensor, epsilon: float) -> torch.Tensor:

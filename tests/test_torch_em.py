@@ -164,13 +164,17 @@ def test_k1_engine_on_cpu_matches_plain_engine(rng, make_hmm, S):
 
 
 def test_unported_engine_and_streams_raise(rng, make_hmm):
-    """The pallas_v3 engine (K6) raises naming its item; segment
-    weights run and match the JAX package's E-step."""
+    """The JAX package's engine names are unknown here, and the error
+    names the port's counterpart of "pallas_v3"; that engine, "cuda_v3"
+    (K6), runs; segment weights run and match the JAX package's
+    E-step."""
     tables = _tables(make_hmm, 3, 2, 4)
     sym, lens = _batch(rng, 4, 2)
     args = (_tp(tables), torch.from_numpy(sym), torch.from_numpy(lens))
-    with pytest.raises(NotImplementedError, match="K6"):
+    with pytest.raises(ValueError, match="cuda_v3"):
         tem.em_sufficient_stats(*args, engine="pallas_v3")
+    _assert_stats(tem.em_sufficient_stats(*args, engine="cuda_v3"),
+                  tem.em_sufficient_stats(*args, engine="plain"))
     w = rng.uniform(1.0, 9.0, size=(4, 23)).astype(np.float32)
     got = tem.em_sufficient_stats(*args, obs_weights=torch.from_numpy(w))
     want = jem.em_sufficient_stats(
@@ -178,6 +182,25 @@ def test_unported_engine_and_streams_raise(rng, make_hmm):
         obs_weights=jnp.asarray(w), engine="xla",
     )
     _assert_stats(got, want)
+
+
+@pytest.mark.parametrize("zero_frac", [0.0, 0.3])
+@pytest.mark.parametrize("S", [3, 10])
+def test_cuda_v3_engine_on_cpu_matches_jax_pallas_v3(rng, make_hmm, S,
+                                                     zero_frac):
+    """engine="cuda_v3" on CPU tensors runs K6's plain versions
+    (launching nothing) and agrees with the JAX package's
+    engine="pallas_v3" (Pallas in interpret mode), ragged lengths with
+    an empty row."""
+    ck.reset_launch_counts()
+    tables = _tables(make_hmm, S, 3, 6, zero_frac)
+    sym, lens = _batch(rng, 6, 3, L=31, lengths=[31, 20, 1, 0, 2])
+    want = jem.em_sufficient_stats(_jp(tables), jnp.asarray(sym),
+                                   jnp.asarray(lens), engine="pallas_v3")
+    got = tem.em_sufficient_stats(_tp(tables), torch.from_numpy(sym),
+                                  torch.from_numpy(lens), engine="cuda_v3")
+    _assert_stats(got, want)
+    assert all(n == 0 for n in ck.LAUNCHES.values())
 
 
 SIZES = [4, 3, 6, 1]                 # V = 6: tracks padded to it

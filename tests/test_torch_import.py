@@ -54,6 +54,8 @@ _MODULES = {
         "io", "io.bed", "io.category", "io.fasta", "io.trackxml",
         "io.trackdata", "io.bigwig", "io.priors", "io.segments",
         "cli.unported", "cli.train", "cli.eval", "cli.segment_tracks",
+        "utils.profiling", "tools", "tools.bench_engines",
+        "tools.profile_estep",
     )
 }
 
