@@ -23,8 +23,10 @@ Phases (any failure raises, and the run exits non-zero):
    near-tie (the plain version's top two alpha_p * b within 1e-5
    relative), two launches bit-identical.  The chunk sweeps X1 and X2
    on obs of 4 rows of 4096 (ragged): hats within 1e-5 absolute,
-   carries, x_out and the summed normalizers within 1e-6 relative, two
-   launches bit-identical.  Then K2's forward, K1 and the K4 decode
+   carries, x_out and the summed normalizers within 1e-6 relative and
+   1e-6 absolute of the plain versions carried in float64 (each
+   check's worst ratio of error to its limit printed), two launches
+   bit-identical.  Then K2's forward, K1 and the K4 decode
    with each optional observation stream (segment weights in [1, 64],
    2 gaussian tracks with 10% missing values, both) at the same shapes:
    K2's value rows, normalizers and paths bit-equal, K1 at the same
@@ -41,16 +43,27 @@ Phases (any failure raises, and the run exits non-zero):
    alpha_p and beta_p within 2e-6 absolute of the plain version carried
    in float64, normalizers within 1e-5, row logliks within 1e-5
    relative of the float32 plain version, two launches bit-identical.
+   On the same obs tensors the log-space scans K7a/K8a (``fwd_scaled``)
+   and K7b/K8b (``bwd_scaled``): alpha_hat and beta_hat within 1e-5 plus
+   4 float32 ulps of the largest |obs| of the plain version carried in
+   float64, log_c and log_d within 1e-5 relative (1e-4 absolute), row
+   logliks within 1e-6 relative, two launches bit-identical; and K8c
+   (``viterbi_ptrs``) with its chase (``pointer_chase``): pointers, last
+   rows, normalizers and paths bit-equal to plain, paths == dp.viterbi.
 2e. The engine-comparison path through its tools' entry points, at the
    full width of all four ``bench_engines`` shapes (S=20, 64, 128, 256):
-   ``tools.bench_engines`` with the E-step engines plain, cuda (K1) and
-   cuda_v3 (K6), then ``--decode`` with plain, streaming (K5) and fused
-   (K2), then ``tools.profile_estep`` at S=64.  Every pair of engines that
-   ran agrees on the loglik within 1e-4 relative and on every position
-   of the path; cuda_v3 and streaming ran at all four shapes; a row with
-   an ``error`` is accepted only from cuda or fused at S=128 or S=256 and
-   only with the shared-memory envelope's message; K5, K6 and the
-   backtrace launched at every shape.
+   ``tools.bench_engines`` with the E-step engines plain, cuda (K1),
+   cuda_v3 (K6) and cuda_log (K7a/K7b), then ``--decode`` with plain,
+   streaming (K5), fused (K2) and pointers (K8c + chase), then
+   ``--maxpost`` with plain, fused (K4) and scans (K7a/K7b), then
+   ``tools.profile_estep`` at S=64 for cuda_v3 and cuda_log.  Every pair
+   of engines that ran agrees on the loglik within 1e-4 relative, on
+   every position of the Viterbi path and on >= 99.999% of the
+   max-posterior path; cuda_v3, cuda_log, streaming, pointers and scans
+   ran at all four shapes; a row with an ``error`` is accepted only from
+   cuda or fused at S=128 or S=256 and only with the shared-memory
+   envelope's message; K5, K6, K7, K8c, the chase and the backtrace
+   launched at every shape.
 3. End to end through the port's CLIs, in-process, at the width of the
    10-state / 5-track supervised decode configuration: a planted
    20,000,000-position chromosome (4 categorical BED tracks + FASTA),
@@ -90,6 +103,14 @@ Phases (any failure raises, and the run exits non-zero):
    states must cover >= 90% of the region; decoded BED agreeing on
    >= 99.9% of bases; then ``--reps 2`` on the card, through K1 for both
    restarts.
+3f. Past the fused kernels' envelopes, card against CPU: ``train`` at
+   160 states on a 20,000-position region (K1 takes 148 at this T and V)
+   through ``"auto"``, which takes cuda_v3 (K6): logliks within 1e-5
+   relative; the stitched Viterbi and max-posterior decoders at 256
+   states (K2 and K4 take 217) with a sticky random model on a
+   1,000,000-position region: Viterbi (obs, K5, backtrace) paths equal,
+   max-posterior (obs, K7a/K7b) on >= 99.999% of positions, each
+   differing position printed with its top-two posterior gap.
 3e. Gaussian tracks and segment mode on the same chromosome, with one
    gaussian BED track (a record per 500 bases, its value ~ N(mu[state],
    1)).  Base resolution (the phase-3 tracks and the gaussian track):
@@ -111,9 +132,10 @@ Phases (any failure raises, and the run exits non-zero):
    tracks only (the weight stream alone): EM logliks within 1e-5
    relative, BED agreeing on >= 99.9% of bases.  Stage times.
 4. The launch counters, zeroed just before each tool run of 2e, phase
-   3, 3d, 3b's training run, and 3e's base-resolution, segment and
-   categorical segment runs and read just after each, show every kernel
-   and stream variant of each path ran on it.
+   3, 3d, 3b's training run, 3f's training run and two decodes, and 3e's
+   base-resolution, segment and categorical segment runs and read just
+   after each, show every kernel and stream variant of each path ran on
+   it.
 
 The last lines are a JSON object of per-kernel results, the card's name
 and power limit, and ``{"ok": true, "device": {...}}``.  Without CUDA it
@@ -154,6 +176,11 @@ W_LO, W_HI = 1.0, 64.0               # phase 2's segment weights
 GAUSS_RECORD = 500                   # 3e: bases per gaussian-track record
 GAUSS_MU = np.linspace(-4.5, 4.5, S)  # 3e: that track's per-state mean
 SEG_STATES, SEG_ITERS = 10, 15       # 3e: segment-mode EM
+# 3f: "auto" past K1's envelope (T=5, V=9: K1 takes S <= 148), and the
+# stitched decoders past K2's and K4's (S <= 217)
+ENV_FIT_STATES, ENV_FIT_REGION, ENV_FIT_ITERS, ENV_FIT_CHUNK = \
+    160, 20_000, 3, 2048
+ENV_DECODE_STATES, ENV_DECODE_REGION = 256, 1_000_000
 # the card's published peaks (H100 SXM datasheet: HBM3
 # at 3.35 TB/s, float32 outside the tensor cores at 67 TFLOP/s)
 H100_BYTES_PER_S, H100_F32_PER_S = 3.35e12, 67e12
@@ -169,6 +196,10 @@ SOURCES = {
     "viterbi_values": "tehmm_tpu_torch/csrc/streaming.cu",
     "fwd_prob": "tehmm_tpu_torch/csrc/streaming.cu",
     "bwd_prob": "tehmm_tpu_torch/csrc/streaming.cu",
+    "fwd_scaled": "tehmm_tpu_torch/csrc/scans.cu",
+    "bwd_scaled": "tehmm_tpu_torch/csrc/scans.cu",
+    "viterbi_ptrs": "tehmm_tpu_torch/csrc/scans.cu",
+    "pointer_chase": "tehmm_tpu_torch/csrc/scans.cu",
 }
 REPLACES = {
     "viterbi_fwd": "tehmm_tpu/ops/pallas_kernels.py:2386",
@@ -184,6 +215,12 @@ REPLACES = {
     "viterbi_values": "tehmm_tpu/ops/pallas_kernels.py:1374",
     "fwd_prob": "tehmm_tpu/ops/pallas_kernels.py:815",
     "bwd_prob": "tehmm_tpu/ops/pallas_kernels.py:885",
+    # K7a (and K8a, forward_scaled_pallas :131), K7b (and K8b,
+    # backward_scaled_pallas :222), K8c, and K8c's XLA backtrace
+    "fwd_scaled": "tehmm_tpu/ops/pallas_kernels.py:493",
+    "bwd_scaled": "tehmm_tpu/ops/pallas_kernels.py:1012",
+    "viterbi_ptrs": "tehmm_tpu/ops/pallas_kernels.py:333",
+    "pointer_chase": "tehmm_tpu/ops/pallas_kernels.py:381",
 }
 DECODE_KERNELS = ("viterbi_fwd", "viterbi_backtrace", "viterbi_chunk_values")
 EM_KERNELS = ("em_fwd", "em_bwd_stats")
@@ -193,12 +230,26 @@ POST_KERNELS = ("em_fwd", "post_decode", "fwd_chunk", "bwd_chunk")
 GAUSS_BASE_KERNELS = ("viterbi_fwd+g", "viterbi_backtrace", "em_fwd+g",
                       "em_bwd_stats+g", "post_decode+g")
 SEGMENT_KERNELS = ("em_fwd", "em_bwd_stats", "viterbi_fwd", "post_decode")
-# 2e: the engine-comparison path; phase 2 checks K5/K6 and the backtrace
-# under dp.viterbi_streaming at each of its shapes
-STREAMING_KERNELS = ("viterbi_values", "fwd_prob", "bwd_prob")
+# 2e: the engine-comparison path; phase 2 checks K5/K6, K7/K8 and the
+# backtrace under dp.viterbi_streaming at each of its shapes
+STREAMING_KERNELS = ("viterbi_values", "fwd_prob", "bwd_prob",
+                     "fwd_scaled", "bwd_scaled", "viterbi_ptrs",
+                     "pointer_chase")
 ENGINE_CONFIGS = ("S20", "S64", "S128", "S256")
+# 3f's paths and the kernels each must run
+ENVELOPE_KERNELS = {"fit": ("fwd_prob", "bwd_prob"),
+                    "viterbi": ("viterbi_values", "viterbi_backtrace"),
+                    "maxpost": ("fwd_scaled", "bwd_scaled")}
 ENGINE_ITERS = 1                     # marginal_time chains of 1 and 6
 ENVELOPE_MESSAGE = "beyond the shared-memory envelope"
+# phase 2's limits for the log-space scans K7/K8 against their plain
+# version carried in float64: log values within SCAN_ATOL plus
+# SCAN_OBS_ULPS float32 ulps of 1 times the largest |obs| (a step rounds
+# obs + log(sum) and its max, each to half an ulp of |obs|), cumulative
+# normalizers within SCAN_CUM_RTOL relative (a float32 running sum of up
+# to 1024 of them) and 1e-4 absolute
+F32_EPS = float(np.finfo(np.float32).eps)
+SCAN_ATOL, SCAN_OBS_ULPS, SCAN_CUM_RTOL = 1e-5, 4, 1e-5
 
 
 def _smi() -> str:
@@ -281,6 +332,18 @@ def _bound(name, shape, valid, G=0, weighted=False) -> dict:
     elif base == "bwd_prob":           # two maxes and rescales a step
         nbytes = 2 * rows + (B + S * S) * f
         ops = 2 * S * S + 7 * S
+    elif base == "fwd_scaled":         # exp, product, log, obs, max, sub
+        nbytes = 2 * rows + (B * L + B + S * S + S) * f
+        ops = 2 * S * S + 6 * S
+    elif base == "bwd_scaled":         # obs, max, sub, exp, product, log,
+        nbytes = 2 * rows + (B * L + B + S * S) * f   # max, sub, dm
+        ops = 2 * S * S + 8 * S
+    elif base == "viterbi_ptrs":       # add-and-compare product, uint8 out
+        nbytes = rows + B * L * S + (B * S + B * L + B + S * S + S) * f
+        ops = 2 * S * S + 4 * S
+    elif base == "pointer_chase":      # one byte read a position
+        nbytes = B * L + (B * S + B + B * L) * f
+        ops = 1 + S / max(L, 1)
     else:
         raise KeyError(name)
     t_bytes = nbytes / H100_BYTES_PER_S
@@ -399,6 +462,23 @@ def _assert_close(name, got, want, rtol, atol):
         f"{name}: {int(bad.sum())} values outside rtol {rtol} / atol "
         f"{atol}; max abs err {float(err.max()):.4g}")
     return float(err.max()) if err.numel() else 0.0
+
+
+def _limit_ratio(got, want, rtol, atol):
+    """The largest ratio of |got - want| to its limit atol + rtol|want|,
+    over the entries (< 1 where ``_assert_close`` passes)."""
+    err = (got - want).abs()
+    return float((err / (atol + rtol * want.abs())).max()) \
+        if err.numel() else 0.0
+
+
+def _ref64(t):
+    """A float64 plain version's output as the kernels are held to it:
+    LOG_ZERO (-1e30) entries, which a float32 kernel can only hold as
+    float32's -1e30, at that value; every other entry as it is."""
+    import torch
+
+    return torch.where(t < -1e29, t.float().double(), t)
 
 
 def _k1_against_plain(p, sym, lens):
@@ -573,24 +653,46 @@ def phase_post_kernels(device, rng) -> dict:
     init = init - init.amax(dim=-1, keepdim=True)
     cont = torch.tensor([True, False, False, False], device=device)
     lt = p.log_trans
+    # held to the plain versions carried in float64, whose own rounding
+    # then takes nothing of the limits; the distance to the float32 plain
+    # versions (two float32 scans summed in other orders) is printed
+    f64 = torch.float64
     hats, carry = ck.forward_chunk_values(lt, obs, init, xl)
     assert torch.equal(hats, ck.forward_chunk_values(lt, obs, init, xl)[0])
-    p_hats, p_carry = dp.forward_chunk_values(lt, obs, init, xl)
+    p_hats, p_carry = (_ref64(x) for x in dp.forward_chunk_values(
+        lt, obs, init, xl, dtype=f64))
     final, dm_sum = ck.forward_final(lt, obs, init, xl)
     assert torch.equal(dm_sum, ck.forward_final(lt, obs, init, xl)[1])
     assert torch.equal(final, carry), "X1's two modes end in other carries"
-    p_final, p_dm = dp.forward_final(lt, obs, init, xl)
-    out["fwd_chunk"] = dict(max_abs_err=max(
-        _assert_close("X1 hats", hats, p_hats, 0.0, 1e-5),
-        _assert_close("X1 carry", carry, p_carry, 1e-6, 1e-6),
-        _assert_close("X1 dm sum", dm_sum, p_dm, 1e-6, 1e-6)))
+    _p_final, p_dm = dp.forward_final(lt, obs, init, xl, dtype=f64)
+    checks = {"X1 hats": (hats, p_hats, 0.0, 1e-5),
+              "X1 carry": (carry, p_carry, 1e-6, 1e-6)}
+    # the summed normalizers (|sum| ~ 4e4) are held relative to their size
+    dm_rel = _assert_close("X1 dm sum", dm_sum, p_dm, 1e-6, 1e-6) \
+        / float(p_dm.abs().max())
     beta, x_out = ck.backward_chunk_values(lt, obs, init, cont, xl)
     assert torch.equal(
         beta, ck.backward_chunk_values(lt, obs, init, cont, xl)[0])
-    p_beta, p_x = dp.backward_chunk_values(lt, obs, init, cont, xl)
-    out["bwd_chunk"] = dict(max_abs_err=max(
-        _assert_close("X2 beta", beta, p_beta, 0.0, 1e-5),
-        _assert_close("X2 x_out", x_out, p_x, 1e-6, 1e-6)))
+    p_beta, p_x = (_ref64(x) for x in dp.backward_chunk_values(
+        lt, obs, init, cont, xl, dtype=f64))
+    checks.update({"X2 beta": (beta, p_beta, 0.0, 1e-5),
+                   "X2 x_out": (x_out, p_x, 1e-6, 1e-6)})
+    err = {k: _assert_close(k, *c) for k, c in checks.items()}
+    ratio = {k: _limit_ratio(*c) for k, c in checks.items()}
+    out["fwd_chunk"] = dict(max_abs_err=max(err["X1 hats"],
+                                            err["X1 carry"]))
+    out["bwd_chunk"] = dict(max_abs_err=max(err["X2 beta"],
+                                            err["X2 x_out"]))
+    f32 = {name: float((a - b).abs().max()) for name, a, b in zip(
+        ("X1 hats", "X1 carry", "X2 beta", "X2 x_out"),
+        (hats, carry, beta, x_out),
+        dp.forward_chunk_values(lt, obs, init, xl)
+        + dp.backward_chunk_values(lt, obs, init, cont, xl))}
+    print("[kernels] X1/X2 against plain in float64 (against plain in "
+          "float32, printed, not held) [worst error/limit]: " + ", ".join(
+              f"{k} {err[k]:.3g} ({f32[k]:.3g}) [{ratio[k]:.3f}]"
+              for k in err)
+          + f", X1 dm sum {dm_rel:.3g} relative", flush=True)
     out["fwd_chunk"].update(
         ms=_median_ms(lambda: ck.forward_chunk_values(lt, obs, init, xl), 5),
         plain_ms=_median_ms(
@@ -815,15 +917,15 @@ def phase_stream_kernels(device, rng) -> dict:
 
 
 def phase_streaming_kernels(device, rng, seed) -> dict:
-    """K5, K6a, K6b and the backtrace of ``dp.viterbi_streaming`` against
-    their plain versions on the obs tensors of every ``bench_engines``
-    shape, ragged: the block layouts differ from shape to shape (12, 4,
-    2 and 1 row groups per block; at S=256 part of the transition matrix
-    is read from global memory).  K6 is held to 2e-6 against the plain
-    version carried in float64, whose own rounding then takes nothing of
-    that limit; the distance to the float32 plain version is printed.
-    The S=20 results of K5 and K6 go under the kernels' names, the
-    others under ``name@config``."""
+    """K5, K6a, K6b, the backtrace of ``dp.viterbi_streaming``, K8c and
+    its chase, K7a/K8a and K7b/K8b against their plain versions on the
+    obs tensors of every ``bench_engines`` shape, ragged: the block
+    layouts differ from shape to shape (12, 4, 2 and 1 row groups per
+    block; at S=256 part of the transition matrix is read from global
+    memory).  K6 and K7 are held against the plain version carried in
+    float64, whose own rounding then takes nothing of the limits; the
+    distance to the float32 plain version is printed.  The S=20 results
+    go under the kernels' names, the others under ``name@config``."""
     import torch
 
     from tehmm_tpu_torch.models.emission import track_log_likelihoods
@@ -880,7 +982,86 @@ def phase_streaming_kernels(device, rng, seed) -> dict:
                 lambda: ck.viterbi_backtrace_plain(*bt_plain), 3),
             **_bound("viterbi_backtrace", (B, L - 1, S_, T_, V_),
                      int(np.maximum(lengths - 1, 0).sum())))
-        del v, pv, dm, pdm, path, want_p, got_bt, want_bt, bt_args, bt_plain
+        del v, pv, dm, pdm, path, got_bt, want_bt, bt_args, bt_plain
+
+        # K8c and its chase: pointers, last rows, normalizers and paths
+        # bit-equal to plain, and the paths dp.viterbi's
+        ptrs = ck.viterbi_pointers(*v_args)
+        assert all(torch.equal(a, b) for a, b in
+                   zip(ptrs, ck.viterbi_pointers_plain(*v_args))), \
+            f"viterbi_pointers disagrees with its plain version at {config}"
+        c_args = (ptrs[0], ptrs[1], lens)
+        chased = ck.pointer_chase(*c_args)
+        assert torch.equal(chased, ck.pointer_chase_plain(*c_args)), \
+            f"pointer_chase disagrees with its plain version at {config}"
+        assert torch.equal(chased, want_p), \
+            f"the chased path != dp.viterbi at {config}"
+        out["viterbi_ptrs" + suffix] = dict(
+            max_abs_err=0.0,
+            ms=_median_ms(lambda: ck.viterbi_pointers(*v_args), 5),
+            plain_ms=_median_ms(lambda: ck.viterbi_pointers_plain(*v_args),
+                                3),
+            **_bound("viterbi_ptrs", shape, valid))
+        out["pointer_chase" + suffix] = dict(
+            max_abs_err=0.0,
+            ms=_median_ms(lambda: ck.pointer_chase(*c_args), 5),
+            plain_ms=_median_ms(lambda: ck.pointer_chase_plain(*c_args), 3),
+            **_bound("pointer_chase", shape, B * L))
+        del ptrs, chased, c_args, want_p
+
+        # K7a/K8a and K7b/K8b: log values within SCAN_ATOL + SCAN_OBS_ULPS
+        # ulps of the largest |obs| of the plain version carried in
+        # float64, log_c and log_d within SCAN_CUM_RTOL, logliks within
+        # 1e-6 relative; repeats bit-identical
+        lim = SCAN_ATOL + SCAN_OBS_ULPS * F32_EPS * float(obs.abs().max())
+        s_args = (p.log_start, p.log_trans, obs, lens)
+        fwd = ck.forward_scaled(*s_args)
+        assert all(torch.equal(a, b) for a, b in
+                   zip(fwd, ck.forward_scaled(*s_args))), \
+            f"two forward_scaled launches differ at {config}"
+        ref = [_ref64(x) for x in ck.forward_scaled_plain(*s_args,
+                                                          dtype=f64)]
+        err_fs = _assert_close(f"forward_scaled alpha_hat {config}", fwd[0],
+                               ref[0], 0.0, lim)
+        _assert_close(f"forward_scaled log_c {config}", fwd[1], ref[1],
+                      SCAN_CUM_RTOL, 1e-4)
+        _assert_close(f"forward_scaled loglik {config}", fwd[2], ref[2],
+                      1e-6, 0.0)
+        del ref
+        f32_fs = float((fwd[0] - ck.forward_scaled_plain(*s_args)[0])
+                       .abs().max())
+        out["fwd_scaled" + suffix] = dict(
+            max_abs_err=err_fs,
+            ms=_median_ms(lambda: ck.forward_scaled(*s_args), 5),
+            plain_ms=_median_ms(lambda: ck.forward_scaled_plain(*s_args), 3),
+            **_bound("fwd_scaled", shape, valid))
+        del fwd
+        bwd = ck.backward_scaled(*s_args[1:])
+        assert all(torch.equal(a, b) for a, b in
+                   zip(bwd, ck.backward_scaled(*s_args[1:]))), \
+            f"two backward_scaled launches differ at {config}"
+        ref = [_ref64(x) for x in ck.backward_scaled_plain(*s_args[1:],
+                                                           dtype=f64)]
+        err_bs = _assert_close(f"backward_scaled beta_hat {config}", bwd[0],
+                               ref[0], 0.0, lim)
+        _assert_close(f"backward_scaled log_d {config}", bwd[1], ref[1],
+                      SCAN_CUM_RTOL, 1e-4)
+        del ref
+        f32_bs = float((bwd[0] - ck.backward_scaled_plain(*s_args[1:])[0])
+                       .abs().max())
+        out["bwd_scaled" + suffix] = dict(
+            max_abs_err=err_bs,
+            ms=_median_ms(lambda: ck.backward_scaled(*s_args[1:]), 5),
+            plain_ms=_median_ms(
+                lambda: ck.backward_scaled_plain(*s_args[1:]), 3),
+            **_bound("bwd_scaled", shape, valid))
+        del bwd, s_args
+        print(f"[streaming] K7/K8 at {config}: pointers, last rows, "
+              f"normalizers and chased paths bit-equal to plain and paths "
+              f"== dp.viterbi; alpha_hat / beta_hat within {lim:.3g} of "
+              f"plain in float64 ({err_fs:.3g}, {err_bs:.3g}; of plain in "
+              f"float32 {f32_fs:.3g}, {f32_bs:.3g}), repeat launches "
+              f"bit-identical", flush=True)
 
         # K6: within tolerance, repeats bit-identical
         obs_p, o_m = dp.scaled_obs_prob(obs)
@@ -950,7 +1131,7 @@ def _tool_rows(text):
 
 def phase_engines(seed) -> dict:
     """2e: the engine-comparison path through its tools, at full width.
-    Returns {config: launch counts of that config's two tool runs}."""
+    Returns {config: launch counts of that config's three tool runs}."""
     import torch
 
     from tehmm_tpu_torch.ops import cuda_kernels as ck
@@ -961,8 +1142,10 @@ def phase_engines(seed) -> dict:
     for config in ENGINE_CONFIGS:
         counts = {}
         for mode, engines, needed in (
-                ((), "plain,cuda,cuda_v3", "cuda_v3"),
-                (("--decode",), "plain,streaming,fused", "streaming")):
+                ((), "plain,cuda,cuda_v3,cuda_log", ("cuda_v3", "cuda_log")),
+                (("--decode",), "plain,streaming,fused,pointers",
+                 ("streaming", "pointers")),
+                (("--maxpost",), "plain,fused,scans", ("scans",))):
             ck.reset_launch_counts()
             text = _run_cli(bench_engines, [
                 "--configs", config, "--engines", engines, "--iters",
@@ -980,11 +1163,18 @@ def phase_engines(seed) -> dict:
                         and ENVELOPE_MESSAGE in r["error"], \
                         f"{config} {engine}: unexpected error row {r}"
             ran = {e: r for e, r in rows.items() if "error" not in r}
-            assert needed in ran and "plain" in ran, (config, list(ran))
-            if mode:
+            assert all(e in ran for e in needed + ("plain",)), \
+                (config, list(ran))
+            if mode == ("--decode",):
                 bad = {e: r["path_agreement"] for e, r in ran.items()
                        if r["path_agreement"] != 1.0}
                 assert not bad, f"{config}: decode paths differ: {bad}"
+            elif mode:
+                # max-posterior paths: argmax near-ties of two float32
+                # posteriors may differ (as K4's against plain)
+                agree = {e: r["path_agreement"] for e, r in ran.items()}
+                assert min(agree.values()) >= 0.99999, \
+                    f"{config}: max-posterior paths differ: {agree}"
             else:
                 lls = [r["loglik"] for r in ran.values()]
                 assert np.isfinite(lls).all(), lls
@@ -993,15 +1183,19 @@ def phase_engines(seed) -> dict:
                     f"{config}: E-step logliks differ by {rel} relative"
             torch.cuda.empty_cache()
         launches[config] = counts
-    ck.reset_launch_counts()
-    text = _run_cli(profile_estep, ["S64", "--iters", str(ENGINE_ITERS),
-                                    "--seed", str(seed)])
-    for line in text.splitlines():
-        print(f"[engines] profile_estep {line}", flush=True)
-    (stages,) = _tool_rows(text)
-    assert all(stages[k] > 0 for k in ("obs_ms", "obs_p_ms", "fwd_ms",
-                                       "bwd_ms", "epilogue_ms", "sum_ms"))
-    assert ck.LAUNCHES["fwd_prob"] and ck.LAUNCHES["bwd_prob"]
+    for engine, kernels in (("cuda_v3", ("fwd_prob", "bwd_prob")),
+                            ("cuda_log", ("fwd_scaled", "bwd_scaled"))):
+        ck.reset_launch_counts()
+        text = _run_cli(profile_estep, [
+            "S64", "--iters", str(ENGINE_ITERS), "--seed", str(seed),
+            "--engine", engine])
+        for line in text.splitlines():
+            print(f"[engines] profile_estep {line}", flush=True)
+        (stages,) = _tool_rows(text)
+        keys = ("obs_ms", "fwd_ms", "bwd_ms", "epilogue_ms", "sum_ms") \
+            + (("obs_p_ms",) if engine == "cuda_v3" else ())
+        assert all(stages[k] > 0 for k in keys), stages
+        assert all(ck.LAUNCHES[k] for k in kernels), (engine, ck.LAUNCHES)
     torch.cuda.empty_cache()
     print(f"[engines] phase took {time.perf_counter() - t_phase:.1f} s",
           flush=True)
@@ -1583,6 +1777,162 @@ def phase_em_card_vs_cpu(work, xml, n, region, seed, device="cuda"):
     return rel, prob_err, agree
 
 
+def _sticky_model(rng, S_, T_, V_):
+    """(log_start, log_trans, log_em) of a sticky random model."""
+    trans = rng.dirichlet(np.ones(S_), size=S_) * 0.05 + np.eye(S_) * 0.95
+    log_em = np.zeros((S_, T_, V_))
+    for t in range(T_):
+        log_em[:, t, 1:] = np.log(rng.dirichlet(np.ones(V_ - 1), size=S_))
+    return np.log(np.full(S_, 1.0 / S_)), np.log(trans), log_em
+
+
+def _windowed_gap(params, table, x, half=2048):
+    """The top-two relative gap of the log-space posterior at position x
+    of ``table``, computed in plain torch on the CPU over the window of
+    ``half`` positions either side (the stitched decoder's own view is a
+    window too)."""
+    import torch
+
+    from tehmm_tpu_torch.models.emission import track_log_likelihoods
+    from tehmm_tpu_torch.ops import dp
+
+    lo, hi = max(0, x - half), min(len(table.symbols), x + half)
+    sym = torch.from_numpy(
+        np.ascontiguousarray(table.symbols[lo:hi], np.int32))[None]
+    obs = track_log_likelihoods(params.log_em, sym)
+    ah, _, _ = dp.forward_scaled(params.log_start, params.log_trans, obs)
+    bh, _ = dp.backward_scaled(params.log_trans, obs)
+    top = torch.topk(dp.posterior_scaled(ah, bh)[0, x - lo], 2).values
+    return float((top[0] - top[1]) / top[0])
+
+
+def phase_envelopes(work, xml, n, seed, device="cuda"):
+    """3f: the routes past the fused kernels' envelopes, on the card
+    against the CPU.  F1: ``train`` (``MultitrackHmm.fit`` through the
+    E-step's ``"auto"``) at ENV_FIT_STATES states, past K1's envelope at
+    this data's T=5, V=9, on a planted region; ``auto`` takes ``cuda_v3``
+    (K6) and sizes its passes for it, not for K1, and the logliks equal
+    the CPU's within 1e-5 relative.  F2: the stitched Viterbi and
+    max-posterior decoders at ENV_DECODE_STATES states (past K2 and K4)
+    on a region of ENV_DECODE_REGION positions with a sticky random
+    model: the Viterbi runs obs, K5 and the
+    backtrace kernel and gives the CPU's paths; the max-posterior runs
+    K7a/K7b and agrees with the CPU on >= 99.999% of positions, each
+    differing position printed with its top-two posterior gap.  Returns
+    the launch counts of the three runs on the card."""
+    import torch
+
+    from tehmm_tpu_torch.cli import train as port_train
+    from tehmm_tpu_torch.io import TrackList, load_track_data
+    from tehmm_tpu_torch.models import hmm as port_hmm
+    from tehmm_tpu_torch.models.params import from_numpy
+    from tehmm_tpu_torch.ops import cuda_kernels as ck
+    from tehmm_tpu_torch.parallel import stitch
+
+    launches = {}
+    # F1
+    lo = n // 3
+    bed = _region_bed(work, "env_fit.bed", lo, lo + ENV_FIT_REGION)
+    logs = {}
+    for dev in (device, "cpu"):
+        log = os.path.join(work, f"env_fit_{dev}.jsonl")
+        ck.reset_launch_counts()
+        t0 = time.perf_counter()
+        _run_cli(port_train, [
+            xml, bed, os.path.join(work, f"env_fit_{dev}.npz"),
+            "--numStates", str(ENV_FIT_STATES), "--iter",
+            str(ENV_FIT_ITERS), "--chunk", str(ENV_FIT_CHUNK), "--seed",
+            str(seed), "--device", dev, "--logJson", log])
+        wall = time.perf_counter() - t0
+        if dev == device:
+            launches["fit"] = dict(ck.LAUNCHES)
+        logs[dev] = np.asarray([r["loglik"] for r in _em_log(log)])
+        print(f"[envelopes] F1: train at S={ENV_FIT_STATES} on "
+              f"{ENV_FIT_REGION} positions on {dev}: {wall:.2f} s, "
+              f"logliks {logs[dev].tolist()}", flush=True)
+    fit = launches["fit"]
+    assert fit["fwd_prob"] and fit["bwd_prob"] and not fit["em_fwd"], \
+        f"auto did not take cuda_v3 past K1's envelope: {fit}"
+    # and sizes its passes for cuda_v3's [B, L, S] tensors, not K1's
+    fit_params = from_numpy(*_sticky_model(np.random.RandomState(seed),
+                                           ENV_FIT_STATES, T, 9), device)
+    assert port_hmm._pass_positions(fit_params, None, fit_params.device) \
+        == port_hmm._MAX_PASS_POSITIONS, "F1: K1's pass budget past K1"
+    del fit_params
+    assert len(logs[device]) == len(logs["cpu"]) >= ENV_FIT_ITERS - 1
+    rel = float(np.max(np.abs(logs[device] - logs["cpu"])
+                       / np.abs(logs["cpu"])))
+    assert rel <= 1e-5, f"F1: card and CPU logliks differ by {rel}"
+    print(f"[envelopes] F1: auto -> cuda_v3 ({fit['fwd_prob']} fwd_prob, "
+          f"{fit['bwd_prob']} bwd_prob, 0 em_fwd launches); loglik rel err "
+          f"card vs CPU {rel:.3g}", flush=True)
+
+    # F2
+    lo = n // 5
+    td = load_track_data(TrackList(xml),
+                         [("chr1", lo, lo + ENV_DECODE_REGION)])
+    tables = td.tables
+    T_ = tables[0].symbols.shape[1]
+    V_ = 9
+    assert T_ == T and max(int(t.symbols.max()) for t in tables) < V_
+    model = _sticky_model(np.random.RandomState(seed + 3),
+                          ENV_DECODE_STATES, T_, V_)
+    assert not ck.k2_fits(ENV_DECODE_STATES, T_, V_) \
+        and not ck.k4_fits(ENV_DECODE_STATES, T_, V_)
+    paths, secs = {}, {}
+    for dev in (device, "cpu"):
+        params = from_numpy(*model, dev)
+        # the CPU's plain max-plus step makes a [rows, S, S] temporary:
+        # at the card's 512 rows a pass (245 here) it leaves the caches
+        # and takes ~10x as long a row, so the CPU decodes 32 rows a pass
+        # (rows are independent: the paths do not depend on it)
+        rows = {} if dev == device else {"rows_per_pass": 32}
+        for name, decode in (("viterbi", stitch.viterbi_chunked),
+                             ("maxpost", stitch.posterior_chunked)):
+            ck.reset_launch_counts()
+            t0 = time.perf_counter()
+            got, report = decode(params, tables, **rows)
+            if dev == device:
+                torch.cuda.synchronize()
+                launches[name] = dict(ck.LAUNCHES)
+            secs[dev, name] = time.perf_counter() - t0
+            assert report.boundaries_ok, report
+            paths[dev, name] = got
+        del params
+        torch.cuda.empty_cache()
+    for name in ("viterbi", "maxpost"):
+        print(f"[envelopes] F2: {name} at S={ENV_DECODE_STATES} on "
+              f"{ENV_DECODE_REGION} positions: card {secs[device, name]:.2f}"
+              f" s, CPU {secs['cpu', name]:.2f} s; launches on the card "
+              f"{ {k: v for k, v in launches[name].items() if v} }",
+              flush=True)
+    vit = launches["viterbi"]
+    assert vit["viterbi_values"] and vit["viterbi_backtrace"] \
+        and not vit["viterbi_fwd"], vit
+    mp = launches["maxpost"]
+    assert mp["fwd_scaled"] and mp["bwd_scaled"] and not mp["post_decode"] \
+        and not mp["em_fwd"], mp
+    for g, c in zip(paths[device, "viterbi"], paths["cpu", "viterbi"]):
+        assert np.array_equal(g, c), "F2: card and CPU Viterbi paths differ"
+    n_diff = 0
+    cpu_params = from_numpy(*model, "cpu")
+    for b, (g, c) in enumerate(zip(paths[device, "maxpost"],
+                                   paths["cpu", "maxpost"])):
+        where = np.flatnonzero(g != c)
+        n_diff += len(where)
+        for x in where[:20].tolist():
+            print(f"[envelopes] F2: max-posterior differs at position "
+                  f"{lo + x} (card state {int(g[x])}, CPU {int(c[x])}): "
+                  f"top-two posterior gap "
+                  f"{_windowed_gap(cpu_params, tables[b], x):.3g} relative",
+                  flush=True)
+    agree = 1.0 - n_diff / ENV_DECODE_REGION
+    assert agree >= 0.99999, f"F2: max-posterior agrees on {agree}"
+    print(f"[envelopes] F2: Viterbi paths card == CPU; max-posterior "
+          f"differs on {n_diff} of {ENV_DECODE_REGION} positions", flush=True)
+    return launches
+
+
 def _paint_region(bed_path, lo, n, names):
     from tehmm_tpu_torch.io import read_bed_intervals
 
@@ -1891,6 +2241,11 @@ def phase_segments_card_vs_cpu(work, xml_seg, xml_cat, n, region, seed,
     return cat_launches
 
 
+def _phase_done(name, t_run):
+    print(f"[time] phase {name} done at {time.perf_counter() - t_run:.1f} s "
+          f"of the run", flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1914,6 +2269,7 @@ def main(argv=None) -> int:
           f"{time.perf_counter() - t0:.2f} s -> {ck.library_path()}",
           flush=True)
 
+    t_run = time.perf_counter()
     rng = np.random.RandomState(args.seed)
     kernels = phase_kernels(device, rng)
     kernels.update(phase_k1(device, rng))
@@ -1925,7 +2281,9 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     kernels.update(phase_streaming_kernels(
         device, np.random.RandomState(args.seed + 2), args.seed))
+    _phase_done("2", t_run)
     engine_launches = phase_engines(args.seed)
+    _phase_done("2e", t_run)
 
     n = N_POSITIONS
     with tempfile.TemporaryDirectory(prefix="tehmm_chip_smoke_") as work:
@@ -1942,6 +2300,7 @@ def main(argv=None) -> int:
         print(f"[e2e] peak device memory allocated: "
               f"{torch.cuda.max_memory_allocated() / 1e6:.1f} MB",
               flush=True)
+        _phase_done("3", t_run)
 
         ck.reset_launch_counts()
         torch.cuda.reset_peak_memory_stats()
@@ -1950,13 +2309,18 @@ def main(argv=None) -> int:
         print(f"[post] peak device memory allocated: "
               f"{torch.cuda.max_memory_allocated() / 1e6:.1f} MB",
               flush=True)
+        _phase_done("3d", t_run)
 
         ck.reset_launch_counts()
         em_launches, k1_em_err = phase_em(work, xml, truth, args.seed)
         for name, e in k1_em_err.items():
             kernels[name]["max_abs_err_em_run_shape"] = e
+        _phase_done("3b", t_run)
 
         phase_em_card_vs_cpu(work, xml, n, 50_000, args.seed)
+        _phase_done("3c", t_run)
+        env_launches = phase_envelopes(work, xml, n, args.seed)
+        _phase_done("3f", t_run)
 
         t0 = time.perf_counter()
         xml_g, xml_seg, xml_cat = make_gauss_track(work, rng, truth)
@@ -1966,10 +2330,12 @@ def main(argv=None) -> int:
         gauss_launches = phase_gauss_base(work, xml_g, truth_bed, truth,
                                           20_000, 1_000_000, 50_000,
                                           args.seed)
+        _phase_done("3e, base resolution", t_run)
         ck.reset_launch_counts()
         seg_launches = phase_segments(work, xml_seg, truth, args.seed)
         cat_launches = phase_segments_card_vs_cpu(work, xml_seg, xml_cat, n,
                                                   200_000, args.seed)
+        _phase_done("3e, segments", t_run)
     for config, counts in engine_launches.items():
         print(f"[launches] engine-comparison path (2e) at {config}: "
               f"{ {k: n for k, n in counts.items() if n} }", flush=True)
@@ -1995,6 +2361,12 @@ def main(argv=None) -> int:
     missing += [f"{k} (2e, {config})" for config in ENGINE_CONFIGS
                 for k in STREAMING_KERNELS + ("viterbi_backtrace",)
                 if engine_launches[config][k] == 0]
+    for path, names in ENVELOPE_KERNELS.items():
+        print(f"[launches] past the envelopes (3f), {path}: "
+              f"{ {k: n for k, n in env_launches[path].items() if n} }",
+              flush=True)
+        missing += [f"{k} (3f, {path})" for k in names
+                    if env_launches[path][k] == 0]
     assert not missing, f"kernels never launched on their path: {missing}"
     launches = {k: decode_launches[k] for k in DECODE_KERNELS}
     launches.update({k: em_launches[k] for k in EM_KERNELS})

@@ -70,12 +70,25 @@ from tehmm_tpu_torch.parallel.stitch import (
 
 _MESH_ITEM = "ROADMAP Queue 1, slice 6: sharding"
 
-# E-step pass budget: positions per E-step call.  The plain E-step holds
-# several [B, L, S] tensors per pass (~400 bytes/position at S=20); K1
-# holds only alpha_p, dm, m_raw and the symbols, so its passes can be
-# much larger.  Module-level so tests and tight deployments can tune it.
+# E-step pass budget: positions per E-step call.  The plain, cuda_v3 and
+# cuda_log E-steps hold several [B, L, S] tensors per pass (~400
+# bytes/position at S=20); K1 holds only alpha_p, dm, m_raw and the
+# symbols, so its passes can be much larger.  Module-level so tests and
+# tight deployments can tune it.
 _MAX_PASS_POSITIONS = 4 << 20
 _MAX_PASS_POSITIONS_FUSED = 32 << 20
+
+
+def _pass_positions(params: HmmParams, gauss: GaussParams | None,
+                    device: torch.device) -> int:
+    """Positions per E-step pass for the engine ``"auto"`` takes
+    (``ops.em.resolve_engine``): K1's budget only where K1 runs, the
+    [B, L, S] engines' budget otherwise."""
+    engine = em_ops.resolve_engine(
+        "auto", *params.log_em.shape,
+        0 if gauss is None else gauss.num_tracks, device)
+    return (_MAX_PASS_POSITIONS_FUSED if engine == "cuda"
+            else _MAX_PASS_POSITIONS)
 
 
 def _env_int(name: str) -> int | None:
@@ -378,8 +391,7 @@ class MultitrackHmm:
         t0 = time.time()
         fix = masks.fix_em_states if masks is not None else None
 
-        pass_positions = (_MAX_PASS_POSITIONS_FUSED if device.type == "cuda"
-                          else _MAX_PASS_POSITIONS)
+        pass_positions = _pass_positions(self.params, self.gauss, device)
         rows_per_pass = max(1, pass_positions // max(Lr, 1))
         staged_bytes = sum(a.nbytes for a in host if a is not None) \
             - host[1].nbytes
@@ -701,8 +713,7 @@ def fit_restarts(
     fix = masks.fix_em_states if masks is not None else None
     # pass blocks: R restarts' E-steps per block
     Lr = staged[0].shape[1]
-    budget = (_MAX_PASS_POSITIONS_FUSED if device.type == "cuda"
-              else _MAX_PASS_POSITIONS)
+    budget = _pass_positions(params[0], gauss[0], device)
     rows_per_pass = max(1, budget // max(Lr, 1) // R)
     blocks = _make_passes(staged, rows_per_pass) or [staged]
 

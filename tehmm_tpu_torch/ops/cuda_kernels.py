@@ -21,6 +21,13 @@ bounds each on an H100 and how its design answers it):
                         ``viterbi_pallas_v3``
   forward_prob          K6a, ``forward_prob_pallas_v3``
   backward_prob         K6b, ``backward_prob_pallas_v3``
+  forward_scaled        K7a ``forward_scaled_pallas_v2`` and K8a
+                        ``forward_scaled_pallas``
+  backward_scaled       K7b ``backward_hat_pallas_v2`` and K8b
+                        ``backward_scaled_pallas``
+  viterbi_pointers      K8c, ``viterbi_pallas``'s kernel
+  pointer_chase         no Pallas kernel: ``viterbi_pallas``'s XLA
+                        backtrace over the pointers
   ===================== ==============================================
 
 ``viterbi_fused`` composes the first two into the symbols-in/path-out
@@ -28,12 +35,16 @@ decode of ``viterbi_fused_pallas_v4``; ``em_counts_fused`` composes
 K1's two into the symbols-in/statistics-out E-step of
 ``em_counts_fused_pallas_v4``; ``posterior_decode_fused`` composes K1's
 forward with the K4 decode into the symbols-in/path-out max-posterior
-decode of ``posterior_decode_fused_pallas_v4``.  The last three
-(``csrc/streaming.cu``) work on a precomputed observation tensor and
-take any S up to 256 (``STREAMING_MAX_STATES``) whatever T and V are:
-they keep only the transition matrix, as far as it fits, and the rows'
-state vectors in shared memory.  ``dp.viterbi_streaming`` and the
-E-step engine ``"cuda_v3"`` of ``ops/em.py`` are built on them.
+decode of ``posterior_decode_fused_pallas_v4``.  The last seven
+(``csrc/streaming.cu``, ``csrc/scans.cu``) work on a precomputed
+observation tensor and take any S up to 256 (``STREAMING_MAX_STATES``)
+whatever T and V are: they keep only the transition matrix, as far as it
+fits, and the rows' state vectors in shared memory.
+``dp.viterbi_streaming``, ``dp.viterbi_backpointers``, the E-step engines
+``"cuda_v3"`` and ``"cuda_log"`` of ``ops/em.py`` and the stitched
+decoders past the fused kernels' envelopes (``parallel/stitch.py``) are
+built on them.  ``k1_fits``, ``k2_fits`` and ``k4_fits`` state the fused
+kernels' envelopes; their wrappers' checks and the routes ask them.
 
 Each wrapper checks device, dtype, shape and contiguity, and sits beside
 its plain-torch version.  A tensor on the CPU takes the plain version; a
@@ -91,7 +102,8 @@ LAUNCHES = {
     name: 0 for name in (
         [k + v for k in STREAM_KERNELS for v in STREAM_VARIANTS]
         + ["viterbi_backtrace", "viterbi_chunk_values", "fwd_chunk",
-           "bwd_chunk", "viterbi_values", "fwd_prob", "bwd_prob"]
+           "bwd_chunk", "viterbi_values", "fwd_prob", "bwd_prob",
+           "fwd_scaled", "bwd_scaled", "viterbi_ptrs", "pointer_chase"]
     )
 }
 
@@ -240,6 +252,14 @@ def load_library() -> ctypes.CDLL:
             fn.argtypes = [ptr] * 6 + [i64, i64, i32, ptr]
         lib.tehmm_bwd_prob.restype = i32
         lib.tehmm_bwd_prob.argtypes = [ptr] * 4 + [i64, i64, i32, ptr]
+        lib.tehmm_fwd_scaled.restype = i32
+        lib.tehmm_fwd_scaled.argtypes = [ptr] * 6 + [i64, i64, i32, ptr]
+        lib.tehmm_bwd_scaled.restype = i32
+        lib.tehmm_bwd_scaled.argtypes = [ptr] * 5 + [i64, i64, i32, ptr]
+        lib.tehmm_viterbi_ptrs.restype = i32
+        lib.tehmm_viterbi_ptrs.argtypes = [ptr] * 7 + [i64, i64, i32, ptr]
+        lib.tehmm_pointer_chase.restype = i32
+        lib.tehmm_pointer_chase.argtypes = [ptr] * 4 + [i64, i64, i32, ptr]
         _lib = lib
         return lib
 
@@ -273,9 +293,16 @@ def _row_stride(t: torch.Tensor, name: str) -> int:
     return t.stride(0)
 
 
+def _fits(S: int, smem_floats: int) -> bool:
+    """Whether a fused kernel (one warp per row, every table in one
+    block's shared memory) takes S states with ``smem_floats`` floats of
+    shared memory per block."""
+    return S <= MAX_STATES and 4 * smem_floats <= _SMEM_LIMIT
+
+
 def _check_envelope(S: int, smem_floats: int, what: str,
                     item: str = _ENVELOPE_ITEM) -> None:
-    if S > MAX_STATES or 4 * smem_floats > _SMEM_LIMIT:
+    if not _fits(S, smem_floats):
         raise NotImplementedError(
             f"{what}: S={S} needs {4 * smem_floats} bytes of shared "
             f"memory per block (limit {_SMEM_LIMIT}, and S <= "
@@ -331,10 +358,6 @@ class _Streams:
             ("g" if self.values is not None else "")
         return "+" + tag if tag else ""
 
-    def coef_floats(self, S: int) -> int:
-        """Shared-memory floats of the coefficient table [S, 3G]."""
-        return 3 * S * self.G
-
     def obs(self, log_em, symbols):
         """The plain versions' observation log-likelihoods."""
         return obs_log_likelihoods(log_em, symbols, self.gauss, self.values,
@@ -376,6 +399,21 @@ def _streams(symbols, S, obs_weights=None, gauss_params=None,
 # K2 forward
 # ---------------------------------------------------------------------
 
+def _k2_smem_floats(S: int, T: int, V: int, G: int = 0) -> int:
+    """Shared-memory floats per block of K2's forward: the tables (with
+    the gaussian coefficients [S, 3G]), the start row and one value row
+    per warp."""
+    return S * S + S * T * V + S + 3 * S * G + _WARPS_PER_BLOCK * S
+
+
+def k2_fits(S: int, T: int, V: int, G: int = 0) -> bool:
+    """K2's envelope: whether ``viterbi_fwd`` (and so ``viterbi_fused``)
+    takes a model of S states, T tracks of V symbols and G gaussian
+    tracks.  ``viterbi_fwd``'s own check and the stitched decoder's route
+    (``parallel/stitch.viterbi_route``) both ask this."""
+    return _fits(S, _k2_smem_floats(S, T, V, G))
+
+
 def viterbi_fwd_plain(log_start, log_trans, log_em, symbols, lengths,
                       obs_weights=None, gauss_params=None,
                       gauss_values=None):
@@ -416,10 +454,7 @@ def viterbi_fwd(log_start, log_trans, log_em, symbols, lengths,
     if _device_kind(dev) == "cpu":
         return viterbi_fwd_plain(log_start, log_trans, log_em, symbols,
                                  lengths, st.w, st.gauss, st.values)
-    _check_envelope(
-        S, S * S + S * T * V + S + st.coef_floats(S) + _WARPS_PER_BLOCK * S,
-        "viterbi_fwd"
-    )
+    _check_envelope(S, _k2_smem_floats(S, T, V, st.G), "viterbi_fwd")
     _check_index_range(symbols, V, "symbols")
     v_hats = torch.empty((B, L, S), dtype=torch.float32, device=dev)
     dm = torch.empty((B, L), dtype=torch.float32, device=dev)
@@ -609,6 +644,31 @@ def _k1_bwd_warps(S: int, T: int, V: int, G: int = 0) -> int:
         if 4 * _k1_smem_floats(S, T, V, warps, G)[1] <= _SMEM_LIMIT:
             return warps
     return 1
+
+
+def k1_fits(S: int, T: int, V: int, G: int = 0) -> bool:
+    """K1's envelope: whether both kernels of the fused E-step
+    (``em_fwd``, and ``em_bwd_stats`` at the warps per block it would
+    run) take a model of S states, T tracks of V symbols and G gaussian
+    tracks.  The kernels' own checks and the E-step's ``"auto"`` engine
+    (``ops/em.resolve_engine``) both ask this."""
+    fwd, bwd = _k1_smem_floats(S, T, V, _k1_bwd_warps(S, T, V, G), G)
+    return _fits(S, fwd) and _fits(S, bwd)
+
+
+def _k4_smem_floats(S: int, T: int, V: int, G: int = 0) -> int:
+    """Shared-memory floats per block of K4's decode: the tables (with
+    the gaussian coefficients) and one state row per warp."""
+    return S * S + S * T * V + 3 * S * G + _WARPS_PER_BLOCK * S
+
+
+def k4_fits(S: int, T: int, V: int, G: int = 0) -> bool:
+    """K4's envelope: whether ``posterior_decode_fused`` (K1's forward,
+    then the decode) takes the model.  The decode's own check and the
+    stitched max-posterior decoder's route (``parallel/stitch.
+    maxpost_route``) both ask this."""
+    fwd = _k1_smem_floats(S, T, V, G=G)[0]
+    return _fits(S, fwd) and _fits(S, _k4_smem_floats(S, T, V, G))
 
 
 def _check_k1_inputs(log_em, symbols, lengths, **tables) -> torch.device:
@@ -913,10 +973,8 @@ def post_decode(log_trans, log_em, symbols, lengths, alpha,
         return post_decode_plain(log_trans, log_em, symbols, lengths, alpha,
                                  obs_weights=st.w, gauss_params=st.gauss,
                                  gauss_values=st.values)
-    _check_envelope(
-        S, S * S + S * T * V + st.coef_floats(S) + _WARPS_PER_BLOCK * S,
-        "post_decode", _POST_ENVELOPE_ITEM,
-    )
+    _check_envelope(S, _k4_smem_floats(S, T, V, st.G), "post_decode",
+                    _POST_ENVELOPE_ITEM)
     _check_index_range(symbols, V, "symbols")
     path = torch.empty((B, L), dtype=torch.int32, device=dev)
     if B == 0 or L == 0:
@@ -1259,3 +1317,204 @@ def backward_prob(log_trans, obs_p, lengths):
             (obs_p.data_ptr(), lengths.data_ptr(), trans_pt.data_ptr(),
              beta.data_ptr(), B, L, S), dev)
     return beta
+
+
+# ---------------------------------------------------------------------
+# K7/K8: the log-space scaled scans and the pointer-writing Viterbi
+# ---------------------------------------------------------------------
+
+def forward_scaled_plain(log_start, log_trans, obs, lengths,
+                         dtype=torch.float32):
+    """Plain version of ``forward_scaled``: ``dp.forward_scaled`` (the
+    matmul form), carried and returned in ``dtype`` (float64 gives a
+    reference whose own rounding is negligible)."""
+    return dp.forward_scaled(log_start, log_trans, obs, lengths,
+                             dtype=dtype)
+
+
+def forward_scaled(log_start, log_trans, obs, lengths):
+    """K7a/K8a: (alpha_hat f32[B, L, S], log_c f32[B, L], loglik f32[B])
+    from obs f32[B, L, S] and int32 lengths [B], with the semantics of
+    ``dp.forward_scaled``: position 0 is log_start + obs[0] (LOG_ZERO for
+    a zero-length row), position t >= 1 log(exp(alpha_hat[t-1]) .
+    exp(log_trans)) + obs[t] (LOG_ZERO where the sum is 0), each row less
+    its max (floored at LOG_ZERO), which is the normalizer dm[t];
+    positions at or past a row's length carry the row with dm 0.  The
+    kernel writes alpha_hat and dm; log_c = cumsum(dm) and loglik = log
+    sum exp(last row) + sum(dm) (0 for zero-length rows) are formed here
+    as ``dp.forward_scaled`` forms them.
+
+    Replaces ``forward_scaled_pallas_v2`` (pallas_kernels.py:493, kernel
+    ``_forward_kernel_v2`` :402) and ``forward_scaled_pallas`` (:131,
+    kernel ``_forward_kernel`` :75), one function in two TPU layouts.
+    Bound on an H100: the chain of L dependent steps, each K6a's S-term
+    product plus one expf and one logf per cell.  Design
+    (``csrc/scans.cu``): K6a's tile (``csrc/scan_tile.cuh``) with the
+    row's log values in registers and their exp as the tile's state
+    vectors; each output's sum is four interleaved FMA chains in an order
+    that depends on S alone (repeats give the same bits).  Takes
+    S <= 256."""
+    dev = _check_streaming(log_trans, obs, lengths, "obs", "forward_scaled",
+                           log_start)
+    if dev.type == "cpu":
+        return forward_scaled_plain(log_start, log_trans, obs, lengths)
+    B, L, S = obs.shape
+    alpha = torch.empty((B, L, S), dtype=torch.float32, device=dev)
+    dm = torch.empty((B, L), dtype=torch.float32, device=dev)
+    if B:
+        trans_p = torch.exp(log_trans)
+        _launch_streaming(
+            "fwd_scaled", "tehmm_fwd_scaled",
+            (obs.data_ptr(), lengths.data_ptr(), log_start.data_ptr(),
+             trans_p.data_ptr(), alpha.data_ptr(), dm.data_ptr(), B, L, S),
+            dev)
+    loglik = torch.log(torch.exp(alpha[:, -1]).sum(dim=-1)) + dm.sum(dim=1)
+    loglik = torch.where(lengths > 0, loglik, 0.0)
+    return alpha, torch.cumsum(dm, dim=1), loglik
+
+
+def backward_scaled_plain(log_trans, obs, lengths, dtype=torch.float32):
+    """Plain version of ``backward_scaled``: ``dp.backward_scaled`` (the
+    matmul form) in ``dtype``."""
+    return dp.backward_scaled(log_trans, obs, lengths, dtype=dtype)
+
+
+def backward_scaled(log_trans, obs, lengths):
+    """K7b/K8b: (beta_hat f32[B, L, S], log_d f32[B, L]) from obs
+    f32[B, L, S] and int32 lengths [B], with the semantics of
+    ``dp.backward_scaled``: beta_hat[L-1] = 0; beta_hat[t] steps back from
+    t + 1 where t + 1 < length (x = obs[t+1] + beta_hat[t+1] less its max
+    xm, log(exp(x) . exp(log_trans)^T) less its max nm, normalizer
+    xm + nm) and carries beta_hat[t+1] with normalizer 0 elsewhere.  The
+    kernel writes beta_hat and the normalizers; log_d, their reversed
+    cumulative sum, is formed here.
+
+    Replaces ``backward_scaled_pallas`` (pallas_kernels.py:222, kernel
+    ``_backward_kernel`` :187) and ``backward_hat_pallas_v2`` (:1012,
+    kernel ``_backward_kernel_v2`` :934), which returns beta_hat only.
+    Bound and design as ``forward_scaled``, with two max reductions a
+    step; the kernel is handed exp(log_trans) transposed and reads obs as
+    it is, from the end.  Takes S <= 256."""
+    dev = _check_streaming(log_trans, obs, lengths, "obs", "backward_scaled")
+    if dev.type == "cpu":
+        return backward_scaled_plain(log_trans, obs, lengths)
+    B, L, S = obs.shape
+    beta = torch.empty((B, L, S), dtype=torch.float32, device=dev)
+    dm = torch.empty((B, L), dtype=torch.float32, device=dev)
+    if B:
+        trans_pt = torch.exp(log_trans).T.contiguous()
+        _launch_streaming(
+            "bwd_scaled", "tehmm_bwd_scaled",
+            (obs.data_ptr(), lengths.data_ptr(), trans_pt.data_ptr(),
+             beta.data_ptr(), dm.data_ptr(), B, L, S), dev)
+    log_d = torch.flip(torch.cumsum(torch.flip(dm, [1]), dim=1), [1])
+    return beta, log_d
+
+
+def viterbi_pointers_plain(log_start, log_trans, obs, lengths):
+    """Plain version of ``viterbi_pointers``: ``viterbi_values_plain``'s
+    loop with the first-hit argmax of every step kept."""
+    B, L, S = obs.shape
+    dev = obs.device
+    lens = lengths.to(torch.int64)
+    ident = torch.arange(S, device=dev).expand(B, S)
+    v_hat = torch.zeros((B, S), dtype=torch.float32, device=dev)
+    ptrs = torch.empty((B, L, S), dtype=torch.uint8, device=dev)
+    dms = []
+    for t in range(L):
+        if t == 0:
+            best, arg = log_start[None, :], ident
+        else:
+            cand = v_hat[:, :, None] + log_trans[None, :, :]
+            best, arg = cand.amax(dim=1), cand.argmax(dim=1)
+        new_hat, m = dp._renorm(best + obs[:, t])
+        valid_t = t < lens
+        v_hat = dp._mask_carry(new_hat, v_hat, valid_t)
+        ptrs[:, t] = torch.where(valid_t[:, None], arg, ident)
+        dms.append(torch.where(valid_t, m, 0.0))
+    return ptrs, v_hat, torch.stack(dms, dim=1)
+
+
+def viterbi_pointers(log_start, log_trans, obs, lengths):
+    """K8c: (ptrs uint8[B, L, S], v_last f32[B, S], dm f32[B, L]) from obs
+    f32[B, L, S] and int32 lengths [B].  ``viterbi_values``' max-plus
+    forward (K5), writing at every position the argmax predecessor of
+    every state, first hit (the lowest index) on ties, and at position 0
+    and at or past a row's length the identity; v_last is the last value
+    row (K5's row L-1), dm the normalizers (0 at padding, so zero-length
+    rows have a zero row).  ``dp.viterbi_backpointers`` chases the
+    pointers (``pointer_chase``) and forms the score.
+
+    Replaces ``viterbi_pallas``'s kernel (pallas_kernels.py:333, kernel
+    ``_viterbi_kernel`` :277), which writes int32 pointers; uint8 holds
+    every state of S <= 256.  Bound on an H100: the chain of L dependent
+    max-plus steps (the bytes of obs and of the pointers at S = 20).
+    Design (``csrc/scans.cu``): K5's tile and loop, its four partial
+    maxima each kept with the index that set it and combined by value,
+    then by the lower index; bit-equal to the plain version.  Takes
+    S <= 256."""
+    dev = _check_streaming(log_trans, obs, lengths, "obs",
+                           "viterbi_pointers", log_start)
+    if dev.type == "cpu":
+        return viterbi_pointers_plain(log_start, log_trans, obs, lengths)
+    B, L, S = obs.shape
+    ptrs = torch.empty((B, L, S), dtype=torch.uint8, device=dev)
+    v_last = torch.empty((B, S), dtype=torch.float32, device=dev)
+    dm = torch.empty((B, L), dtype=torch.float32, device=dev)
+    if B:
+        _launch_streaming(
+            "viterbi_ptrs", "tehmm_viterbi_ptrs",
+            (obs.data_ptr(), lengths.data_ptr(), log_start.data_ptr(),
+             log_trans.data_ptr(), ptrs.data_ptr(), v_last.data_ptr(),
+             dm.data_ptr(), B, L, S), dev)
+    return ptrs, v_last, dm
+
+
+def pointer_chase_plain(ptrs, v_last, lengths):
+    """Plain version of ``pointer_chase``: a loop over positions from the
+    end, batched over rows."""
+    B, L, _S = ptrs.shape
+    state = torch.argmax(v_last, dim=-1)
+    path = torch.empty((B, L), dtype=torch.int32, device=ptrs.device)
+    path[:, L - 1] = state
+    for t in range(L - 1, 0, -1):
+        state = ptrs[:, t].gather(1, state[:, None])[:, 0].to(torch.int64)
+        path[:, t - 1] = state
+    return torch.where((lengths > 0)[:, None], path, 0)
+
+
+def pointer_chase(ptrs, v_last, lengths):
+    """The backtrace of ``viterbi_pointers``: int32 path [B, L] from
+    uint8 pointers [B, L, S], the last value rows f32[B, S] and int32
+    lengths [B].  path[L-1] is the first-hit argmax of v_last, path[t-1]
+    = ptrs[t, path[t]]; zero-length rows get path 0.  Padding pointers
+    are the identity, so a path replicates its last valid state.
+
+    No Pallas counterpart: ``viterbi_pallas`` (pallas_kernels.py:381-388)
+    chases its pointers with an XLA scan.  Bound on an H100: one
+    dependent byte load a position.  Design: one thread per batch row,
+    the argmax and the whole walk in registers."""
+    B, L, S = ptrs.shape
+    dev = ptrs.device
+    _check(ptrs, "ptrs", torch.uint8, (B, L, S), dev)
+    _check(v_last, "v_last", torch.float32, (B, S), dev)
+    _check(lengths, "lengths", torch.int32, (B,), dev)
+    for t, name in ((ptrs, "ptrs"), (v_last, "v_last"),
+                    (lengths, "lengths")):
+        _check_contiguous(t, name)
+    if L == 0:
+        raise ValueError("ptrs: a chase needs at least one position")
+    if _device_kind(dev) == "cpu":
+        return pointer_chase_plain(ptrs, v_last, lengths)
+    if S > STREAMING_MAX_STATES:
+        raise NotImplementedError(
+            f"pointer_chase: S={S} is over the {STREAMING_MAX_STATES} "
+            f"states uint8 pointers hold; not ported yet "
+            f"({_STREAMING_ENVELOPE_ITEM})")
+    path = torch.empty((B, L), dtype=torch.int32, device=dev)
+    if B:
+        _launch_streaming(
+            "pointer_chase", "tehmm_pointer_chase",
+            (ptrs.data_ptr(), v_last.data_ptr(), lengths.data_ptr(),
+             path.data_ptr(), B, L, S), dev)
+    return path

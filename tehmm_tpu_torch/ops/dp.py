@@ -19,7 +19,11 @@ positions: on the GPU the E-step, the decoders and the chunk sweeps
 call the kernels instead.  ``viterbi_streaming`` and ``scaled_obs_prob``
 at the end are the obs-space engines' entry points: the first decodes
 through the streaming value kernel, the second makes the
-probability-space observations the E-step engine ``"cuda_v3"`` scans.
+probability-space observations the E-step engine ``"cuda_v3"`` scans;
+``viterbi_backpointers`` decodes through the pointer-writing kernel.
+``forward_scaled`` and ``backward_scaled`` stay plain torch on every
+device: they are the plain versions the log-space kernels
+(``cuda_kernels.forward_scaled``, ``backward_scaled``) are held against.
 
 All functions take batch-major ``obs[B, L, S]``.
 """
@@ -35,6 +39,15 @@ def _lengths(lengths, B: int, L: int, device) -> torch.Tensor:
     if lengths is None:
         return torch.full((B,), L, dtype=torch.int64, device=device)
     return lengths.to(device=device, dtype=torch.int64)
+
+
+def _cast(dtype, *tensors):
+    """The tensors in ``dtype`` (None: as they are).  The scans' ``dtype``
+    argument: float64 carries a scan of float32 inputs with rounding of
+    its own negligible, the reference the kernels are held against."""
+    if dtype is None:
+        return tensors
+    return tuple(t.to(dtype) for t in tensors)
 
 
 def _renorm(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -87,11 +100,14 @@ def forward_scaled(
     obs: torch.Tensor,
     lengths: torch.Tensor | None = None,
     matmul: bool = True,
+    dtype: torch.dtype | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Scaled forward pass: (alpha_hat[B,L,S], log_c[B,L], loglik[B])
     with ``log_alpha = alpha_hat + log_c`` and every alpha_hat row at
     max 0.  The loglik sums the per-step increments in one reduction
-    (not a running carry); zero-length rows get loglik 0."""
+    (not a running carry); zero-length rows get loglik 0.  ``dtype``:
+    see ``_cast``."""
+    log_start, log_trans, obs = _cast(dtype, log_start, log_trans, obs)
     B, L, S = obs.shape
     lengths = _lengths(lengths, B, L, obs.device)
     trans_exp = torch.exp(log_trans)
@@ -116,10 +132,12 @@ def backward_scaled(
     obs: torch.Tensor,
     lengths: torch.Tensor | None = None,
     matmul: bool = True,
+    dtype: torch.dtype | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Scaled backward pass: (beta_hat[B,L,S], log_d[B,L]) with
     ``log_beta = beta_hat + log_d``; beta at the last valid position is
-    exactly 0."""
+    exactly 0.  ``dtype``: see ``_cast``."""
+    log_trans, obs = _cast(dtype, log_trans, obs)
     B, L, S = obs.shape
     lengths = _lengths(lengths, B, L, obs.device)
     log_trans_T = log_trans.T.contiguous()
@@ -147,6 +165,25 @@ def posterior_scaled(alpha_hat: torch.Tensor,
     return p / p.sum(dim=-1, keepdim=True)
 
 
+def forward(log_start, log_trans, obs, lengths=None, matmul=True):
+    """Unscaled forward: (log_alpha[B,L,S], loglik[B])."""
+    alpha_hat, log_c, loglik = forward_scaled(log_start, log_trans, obs,
+                                              lengths, matmul)
+    return alpha_hat + log_c[:, :, None], loglik
+
+
+def backward(log_trans, obs, lengths=None, matmul=True):
+    """Unscaled backward: log_beta[B,L,S]."""
+    beta_hat, log_d = backward_scaled(log_trans, obs, lengths, matmul)
+    return beta_hat + log_d[:, :, None]
+
+
+def posterior(log_alpha, log_beta, loglik):
+    """gamma[b,l,s] = P(state_l = s | obs) from the unscaled scans."""
+    return torch.exp(torch.clamp(
+        log_alpha + log_beta - loglik[:, None, None], max=0.0))
+
+
 # ---------------------------------------------------------------------
 # carried chunk continuations (whole-chromosome scoring and the exact
 # chunked posteriors).  Each runs the same _fwd_step / _bwd_step as the
@@ -160,11 +197,15 @@ def forward_final(
     alpha_hat_init: torch.Tensor,
     lengths: torch.Tensor | None = None,
     matmul: bool = True,
+    dtype: torch.dtype | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Forward continuation from a carry: every position of the chunk
     applies a transition first.  Returns (final carry f32[B, S], the
     chunk's summed normalizer increments f32[B]); the increments are
-    summed in one reduction, not a running carry."""
+    summed in one reduction, not a running carry.  ``dtype``: see
+    ``_cast``."""
+    log_trans, obs, alpha_hat_init = _cast(dtype, log_trans, obs,
+                                           alpha_hat_init)
     B, Lc, S = obs.shape
     lengths = _lengths(lengths, B, Lc, obs.device)
     trans_exp = torch.exp(log_trans)
@@ -239,10 +280,13 @@ def forward_chunk_values(
     a_hat_init: torch.Tensor,
     lengths: torch.Tensor | None = None,
     matmul: bool = True,
+    dtype: torch.dtype | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-position scaled alphas of one chunk from its incoming carry
     (every position applies a transition first).  Returns
-    (alpha_hats f32[B, Lc, S], final carry f32[B, S])."""
+    (alpha_hats f32[B, Lc, S], final carry f32[B, S]).  ``dtype``: see
+    ``_cast``."""
+    log_trans, obs, a_hat_init = _cast(dtype, log_trans, obs, a_hat_init)
     B, Lc, S = obs.shape
     lengths = _lengths(lengths, B, Lc, obs.device)
     trans_exp = torch.exp(log_trans)
@@ -262,6 +306,7 @@ def backward_chunk_values(
     continuing: torch.Tensor,
     lengths: torch.Tensor | None = None,
     matmul: bool = True,
+    dtype: torch.dtype | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-position scaled betas of one chunk from its incoming carry.
 
@@ -273,7 +318,9 @@ def backward_chunk_values(
     are the two halves of ``_bwd_step``.
 
     Returns (beta_hats f32[B, Lc, S], x_out f32[B, S]: the carry for the
-    previous chunk, taken at this chunk's first position)."""
+    previous chunk, taken at this chunk's first position).  ``dtype``:
+    see ``_cast``."""
+    log_trans, obs, x_carry = _cast(dtype, log_trans, obs, x_carry)
     B, Lc, S = obs.shape
     lengths = _lengths(lengths, B, Lc, obs.device)
     log_trans_T = log_trans.T.contiguous()
@@ -465,3 +512,31 @@ def viterbi_streaming(
                                        v_hats[:, 0], end_state, body_lens)
     path = torch.cat([first[:, None], body], dim=1)
     return torch.where(nonempty[:, None], path, 0), score
+
+
+def viterbi_backpointers(
+    log_start: torch.Tensor,
+    log_trans: torch.Tensor,
+    obs: torch.Tensor,
+    lengths: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Viterbi over a precomputed obs tensor through the pointer-writing
+    kernel: (path int32[B, L], score f32[B]) with ``viterbi``'s paths and
+    its score to float32 rounding (max of the last row plus the summed
+    normalizers, one reduction).  Zero-length rows get path 0 and score
+    0.
+
+    Counterpart of ``viterbi_pallas`` (tehmm_tpu/ops/pallas_kernels.py
+    :333): ``cuda_kernels.viterbi_pointers`` (K8c) writes the argmax
+    predecessors and the last value row, ``cuda_kernels.pointer_chase``
+    follows them back (the XLA scan of the JAX function); their plain
+    versions on CPU tensors.  Any S up to 256."""
+    from tehmm_tpu_torch.ops import cuda_kernels as ck
+
+    B, L, S = obs.shape
+    lens = _lengths(lengths, B, L, obs.device).to(torch.int32)
+    ptrs, v_last, dm = ck.viterbi_pointers(log_start.contiguous(),
+                                           log_trans.contiguous(),
+                                           obs.contiguous(), lens)
+    score = torch.where(lens > 0, v_last.amax(dim=-1) + dm.sum(dim=1), 0.0)
+    return ck.pointer_chase(ptrs, v_last, lens), score

@@ -2,7 +2,7 @@
 semi-supervised fix/force masks, and the loops over them.
 
 Counterpart of ``tehmm_tpu/ops/em.py``.  ``em_sufficient_stats`` has
-three engines:
+four engines:
 
 * ``"plain"`` ports the JAX package's XLA branch: log-space scaled
   forward/backward (``ops/dp.py``), posteriors, and the factored,
@@ -15,7 +15,7 @@ three engines:
   JAX package's ``pallas`` branch does.  On a CPU tensor K1's wrapper
   takes its plain version.  K1 keeps its statistics in one block's
   shared memory, so it takes S up to about 150 at T=5, V=9 and raises
-  beyond that.
+  beyond that (``cuda_kernels.k1_fits`` states the envelope).
 * ``"cuda_v3"`` replaces the JAX package's ``engine="pallas_v3"``, the
   probability-space streaming engine kept for engine comparisons
   (``tools/bench_engines.py``): the observation tensor is formed first
@@ -24,11 +24,19 @@ three engines:
   alpha_p and beta_p, exactly the factors the contractions consume, and
   the statistics are the same torch products as the plain engine's.  It
   takes any S up to 256 at any T and V, and needs several [B, L, S]
-  tensors of device memory where K1 needs one.  Nothing selects it but
+  tensors of device memory where K1 needs one.  ``"auto"`` takes it past
+  K1's envelope.
+* ``"cuda_log"`` is the JAX package's ``engine="xla"`` run on a card: the
+  plain engine's log-space scans as kernels (``ops/cuda_kernels.
+  forward_scaled`` and ``backward_scaled``, K7a/K8a and K7b/K8b), then
+  the plain engine's epilogue.  On the CPU it is ``"plain"`` (the matmul
+  form).  It takes any S up to 256 at any T and V; nothing selects it but
   its name.
 
-``"auto"`` is ``"cuda"`` for a CUDA tensor, else ``"plain"``: on the card
-training never runs a plain E-step.
+``"auto"`` (``resolve_engine``) is ``"plain"`` on the CPU; on the card it
+is ``"cuda"`` where K1's kernels take the model and ``"cuda_v3"`` beyond,
+as the JAX package takes its fused kernel where it fits and another
+engine beyond: on the card training never runs a plain E-step.
 
 Segment weights (``obs_weights``, ``--segment --segLen``) scale each
 position's observation log-likelihood and its emission counts and
@@ -65,7 +73,7 @@ from tehmm_tpu_torch.ops import cuda_kernels as ck
 from tehmm_tpu_torch.ops import dp
 
 _CLIP = 60.0  # exp-range guard of the factored transition counts
-ENGINES = ("auto", "plain", "cuda", "cuda_v3")
+ENGINES = ("auto", "plain", "cuda", "cuda_v3", "cuda_log")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -132,13 +140,13 @@ def em_sufficient_stats(
       lengths: optional int[B]; positions >= length are padding.
       matmul: the plain engine's log-sum-exp form (``dp._logdot``).
       obs_weights: optional f32[B, L] segment weights.
-      engine: "auto" (``"cuda"`` for CUDA tensors, else ``"plain"``),
-        "plain" (log-space scans in torch; the CPU path), "cuda" (K1,
-        the fused E-step from symbols) or "cuda_v3" (K6, the
-        probability-space scans over a precomputed obs tensor; the
-        counterpart of ``tehmm_tpu/ops/em.py`` ``engine="pallas_v3"``,
-        for engine comparisons and for S beyond K1's envelope).  See the
-        module docstring.
+      engine: "auto" (``resolve_engine``), "plain" (log-space scans in
+        torch; the CPU path), "cuda" (K1, the fused E-step from symbols),
+        "cuda_v3" (K6, the probability-space scans over a precomputed obs
+        tensor; the counterpart of ``tehmm_tpu/ops/em.py``
+        ``engine="pallas_v3"``) or "cuda_log" (K7/K8, the log-space scans
+        over obs; the JAX package's ``engine="xla"``).  See the module
+        docstring.
       gauss_params / gauss_values: gaussian-track emissions, values
         f32[B, L, G] with NaN missing.
 
@@ -151,8 +159,8 @@ def em_sufficient_stats(
     lengths = dp._lengths(lengths, B, L, dev)
     valid = torch.arange(L, device=dev)[None, :] < lengths[:, None]
     n_obs = valid.sum().to(torch.float32)
-    if engine == "auto":
-        engine = "cuda" if dev.type == "cuda" else "plain"
+    engine = resolve_engine(engine, *params.log_em.shape,
+                            gauss_values.shape[-1] if has_gauss else 0, dev)
     if engine == "cuda":
         out = ck.em_counts_fused(
             params.log_start.contiguous(), params.log_trans.contiguous(),
@@ -169,10 +177,11 @@ def em_sufficient_stats(
         moments = out[4] if has_gauss else (None, None, None)
         return EmStats(start, pair * torch.exp(params.log_trans), em,
                        loglik_b.sum(), n_obs, *moments)
-    if engine not in ("plain", "cuda_v3"):
+    if engine not in ("plain", "cuda_v3", "cuda_log"):
         raise ValueError(
             f"unknown engine {engine!r}: choose one of {ENGINES} (the JAX "
-            "package's 'pallas_v3' is \"cuda_v3\" here)"
+            "package's 'pallas_v3' is \"cuda_v3\" here, its 'xla' on a "
+            "card \"cuda_log\")"
         )
 
     obs = obs_log_likelihoods(params.log_em, symbols, gauss_params,
@@ -190,24 +199,49 @@ def em_sufficient_stats(
         loglik = torch.where(lengths > 0, loglik, 0.0)
         gamma, a_fac, b_fac = prob_space_factors(alpha_p, beta_p, obs_p)
     else:
-        alpha_hat, _, loglik = dp.forward_scaled(
-            params.log_start, params.log_trans, obs, lengths, matmul=matmul
-        )
-        beta_hat, _ = dp.backward_scaled(params.log_trans, obs, lengths,
-                                         matmul=matmul)
+        if engine == "cuda_log":
+            lens32 = lengths.to(torch.int32)
+            log_trans = params.log_trans.contiguous()
+            alpha_hat, _, loglik = ck.forward_scaled(
+                params.log_start.contiguous(), log_trans, obs, lens32)
+            beta_hat, _ = ck.backward_scaled(log_trans, obs, lens32)
+        else:
+            alpha_hat, _, loglik = dp.forward_scaled(
+                params.log_start, params.log_trans, obs, lengths,
+                matmul=matmul)
+            beta_hat, _ = dp.backward_scaled(params.log_trans, obs, lengths,
+                                             matmul=matmul)
         gamma = dp.posterior_scaled(alpha_hat, beta_hat)
-        # xi[t,i,j] = a[i] T[i,j] b[j] / z[t] with a = exp(alpha_hat[t]),
-        # b = exp(obs[t+1] + beta_hat[t+1] - max), z = (a @ T) . b: exact
-        # per step, every factor in [0, 1]; trans = T * sum_t (a / z)
-        # outer b
-        a_fac = torch.exp(alpha_hat[:, :-1])
-        bb = obs[:, 1:] + beta_hat[:, 1:]
-        bb = bb - bb.amax(dim=-1, keepdim=True)
-        b_fac = torch.exp(torch.clamp(bb, -_CLIP, _CLIP))
+        a_fac, b_fac = log_space_factors(alpha_hat, beta_hat, obs)
     start, trans, em, moments = contract_stats(
         params, symbols, lengths, gamma, a_fac, b_fac, obs_weights,
         gauss_values if has_gauss else None)
     return EmStats(start, trans, em, loglik.sum(), n_obs, *moments)
+
+
+def resolve_engine(engine: str, S: int, T: int, V: int, G: int,
+                   device: torch.device) -> str:
+    """The engine ``"auto"`` stands for: ``"plain"`` off the card; on the
+    card ``"cuda"`` where K1's kernels take S states, T tracks of V
+    symbols and G gaussian tracks (``cuda_kernels.k1_fits``), else
+    ``"cuda_v3"`` (which raises its own envelope item past 256 states).
+    Any other engine is returned as it is."""
+    if engine != "auto":
+        return engine
+    if device.type != "cuda":
+        return "plain"
+    return "cuda" if ck.k1_fits(S, T, V, G) else "cuda_v3"
+
+
+def log_space_factors(alpha_hat, beta_hat, obs):
+    """(a_fac, b_fac) of the log-space scans: xi[t,i,j] = a[i] T[i,j]
+    b[j] / z[t] with a = exp(alpha_hat[t]), b = exp(obs[t+1] +
+    beta_hat[t+1] - max), z = (a @ T) . b: exact per step, every factor
+    in [0, 1]; trans = T * sum_t (a / z) outer b (``contract_stats``)."""
+    bb = obs[:, 1:] + beta_hat[:, 1:]
+    bb = bb - bb.amax(dim=-1, keepdim=True)
+    return (torch.exp(alpha_hat[:, :-1]),
+            torch.exp(torch.clamp(bb, -_CLIP, _CLIP)))
 
 
 def prob_space_factors(alpha_p, beta_p, obs_p):

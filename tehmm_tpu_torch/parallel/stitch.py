@@ -14,13 +14,20 @@ itself: it also streams per-chunk gamma to a consumer (eval ``--pd``).
 
 On CUDA tensors the decoders run the hand-written kernels
 (``ops/cuda_kernels``): stitched Viterbi the fused K2
-(``viterbi_fused``), exact Viterbi K3 (``viterbi_carry``,
-``viterbi_chunk_values``) and the backtrace kernel, stitched
-max-posterior K4 (``posterior_decode_fused``), and the exact posteriors
-the chunk sweeps X1 (``forward_final``, ``forward_chunk_values``) and X2
-(``backward_chunk_values``).  On the CPU the same calls take the
-plain-torch versions, and the stitched max-posterior decode runs the
-log-space scans, as the JAX package does off the TPU.
+(``viterbi_fused``) where K2 takes the model and, beyond its envelope,
+obs and ``dp.viterbi_streaming`` (K5 and the backtrace kernel;
+``viterbi_route``); exact Viterbi K3 (``viterbi_carry``,
+``viterbi_chunk_values``) and the backtrace kernel; stitched
+max-posterior K4 (``posterior_decode_fused``) where K4 takes the model
+and, beyond, obs and the log-space scans K7a/K7b (``forward_scaled``,
+``backward_scaled``) with ``dp.posterior_scaled`` (``maxpost_route``);
+and the exact posteriors the chunk sweeps X1 (``forward_final``,
+``forward_chunk_values``) and X2 (``backward_chunk_values``).  On the CPU
+the same calls take the plain-torch versions: the stitched Viterbi
+decode always K2's, the stitched max-posterior decode the log-space
+scans, as the JAX package does off the TPU.  The streaming routes take
+up to 256 states; the exact decoders stop at their kernels' envelopes
+and raise naming it.
 
 Every decoder takes the gaussian tracks (``gauss_params``; the values
 come from each table's ``.values`` and chunk with the symbols) and the
@@ -126,6 +133,33 @@ def _first_obs(params, mats, vmats, wmats, gauss_params, dev):
     )[:, 0, :]
 
 
+def viterbi_route(S: int, T: int, V: int, G: int,
+                  device: torch.device) -> str:
+    """The stitched Viterbi decode's path for a model of S states, T
+    tracks of V symbols and G gaussian tracks: ``"fused"`` (K2, symbols
+    in: ``cuda_kernels.viterbi_fused``) off the card and on it where K2
+    takes the model (``cuda_kernels.k2_fits``), else ``"streaming"``
+    (obs, then ``dp.viterbi_streaming``: K5 and K2's backtrace).  The JAX
+    package's ``_use_fused_viterbi`` / ``_viterbi_engine`` split."""
+    if device.type == "cuda" and not ck.k2_fits(S, T, V, G):
+        return "streaming"
+    return "fused"
+
+
+def maxpost_route(S: int, T: int, V: int, G: int,
+                  device: torch.device) -> str:
+    """The stitched max-posterior decode's path: ``"fused"`` (K4:
+    ``cuda_kernels.posterior_decode_fused``) on the card where K4 takes
+    the model (``cuda_kernels.k4_fits``), else ``"scans"`` (obs, the
+    log-space scans ``cuda_kernels.forward_scaled`` and
+    ``backward_scaled``, ``dp.posterior_scaled`` and a first-hit argmax),
+    which is also the CPU's path, as the JAX package's off the TPU.  The
+    JAX package's ``_use_fused_maxpost`` split."""
+    if device.type == "cuda" and ck.k4_fits(S, T, V, G):
+        return "fused"
+    return "scans"
+
+
 def _decode_batch(
     params: HmmParams,
     symbols: np.ndarray,
@@ -137,20 +171,29 @@ def _decode_batch(
 ) -> np.ndarray:
     """Viterbi over a chunk batch [n, L, T] (with its weight rows [n, L]
     and value rows [n, L, G] when given), ``rows_per_pass`` rows per
-    kernel launch.  Returns int32 paths [n, L], 0 beyond each length."""
-    n, L, _T = symbols.shape
+    pass, along ``viterbi_route``.  Returns int32 paths [n, L], 0 beyond
+    each length."""
+    n, L, T = symbols.shape
     out = np.zeros((n, L), dtype=np.int32)
     dev = params.device
+    G = 0 if values is None else values.shape[-1]
+    route = viterbi_route(params.num_states, T, params.log_em.shape[2], G,
+                          dev)
     for lo in range(0, n, rows_per_pass):
         hi = min(lo + rows_per_pass, n)
         lens = _to_device(lengths[lo:hi], dev)
-        paths, _ = ck.viterbi_fused(
-            params.log_start, params.log_trans, params.log_em,
-            _to_device(symbols[lo:hi], dev), lens,
-            _f32_to_device(None if weights is None else weights[lo:hi], dev),
-            gauss_params if values is not None else None,
-            _f32_to_device(None if values is None else values[lo:hi], dev),
-        )
+        sym = _to_device(symbols[lo:hi], dev)
+        w = _f32_to_device(None if weights is None else weights[lo:hi], dev)
+        v = _f32_to_device(None if values is None else values[lo:hi], dev)
+        g = gauss_params if v is not None else None
+        if route == "fused":
+            paths, _ = ck.viterbi_fused(
+                params.log_start, params.log_trans, params.log_em, sym,
+                lens, w, g, v)
+        else:
+            obs = obs_log_likelihoods(params.log_em, sym, g, v, w)
+            paths, _ = dp.viterbi_streaming(params.log_start,
+                                            params.log_trans, obs, lens)
         rows = paths.cpu().numpy()
         valid = np.arange(L)[None, :] < lengths[lo:hi, None]
         out[lo:hi] = np.where(valid, rows, 0)
@@ -442,13 +485,16 @@ def _posterior_batch(
     weights: np.ndarray | None = None,
 ) -> np.ndarray:
     """argmax-gamma over a chunk batch [n, L, T], ``rows_per_pass`` rows
-    per pass.  On the card each pass is K4 (``posterior_decode_fused``:
-    symbols in, path out, no gamma in memory); on the CPU it is the
-    log-space scans and ``posterior_scaled``, as the JAX package runs
-    off the TPU.  Returns int32 paths [n, L], 0 beyond each length."""
-    n, L, _T = symbols.shape
+    per pass, along ``maxpost_route``: K4 (``posterior_decode_fused``:
+    symbols in, path out, no gamma in memory), or the log-space scans and
+    ``posterior_scaled`` (kernels on the card, plain on the CPU).
+    Returns int32 paths [n, L], 0 beyond each length."""
+    n, L, T = symbols.shape
     out = np.zeros((n, L), dtype=np.int32)
     dev = params.device
+    G = 0 if values is None else values.shape[-1]
+    route = maxpost_route(params.num_states, T, params.log_em.shape[2], G,
+                          dev)
     for lo in range(0, n, rows_per_pass):
         hi = min(lo + rows_per_pass, n)
         lens = _to_device(lengths[lo:hi], dev)
@@ -456,17 +502,19 @@ def _posterior_batch(
         w = _f32_to_device(None if weights is None else weights[lo:hi], dev)
         v = _f32_to_device(None if values is None else values[lo:hi], dev)
         g = gauss_params if v is not None else None
-        if dev.type == "cuda":
+        if route == "fused":
             paths = ck.posterior_decode_fused(
                 params.log_start, params.log_trans, params.log_em, sym, lens,
                 w, g, v,
             )
         else:
             obs = obs_log_likelihoods(params.log_em, sym, g, v, w)
-            ah, _, _ = dp.forward_scaled(params.log_start, params.log_trans,
-                                         obs, lens)
-            bh, _ = dp.backward_scaled(params.log_trans, obs, lens)
+            log_trans = params.log_trans.contiguous()
+            ah, _, _ = ck.forward_scaled(params.log_start.contiguous(),
+                                         log_trans, obs, lens)
+            bh, _ = ck.backward_scaled(log_trans, obs, lens)
             paths = torch.argmax(dp.posterior_scaled(ah, bh), dim=-1)
+            del obs, ah, bh
         rows = paths.cpu().numpy()
         valid = np.arange(L)[None, :] < lengths[lo:hi, None]
         out[lo:hi] = np.where(valid, rows, 0)

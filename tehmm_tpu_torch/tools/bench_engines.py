@@ -1,7 +1,8 @@
 """E-step and decode engines side by side, with a parity check.
 
     python -m tehmm_tpu_torch.tools.bench_engines [--configs S20,S64,...]
-        [--engines plain,cuda,cuda_v3] [--iters N] [--decode | --maxpost]
+        [--engines plain,cuda,cuda_v3,cuda_log] [--iters N]
+        [--decode | --maxpost]
         [--device cuda|cpu] [--seed N]
 
 Counterpart of ``tools/bench_engines.py``: the same configurations and the
@@ -12,12 +13,15 @@ package is computed on the same data), timed with
 
 * E-step (default): ``plain`` (log-space torch scans), ``cuda`` (K1, the
   fused E-step), ``cuda_v3`` (K6, the probability-space scans over a
-  precomputed obs tensor);
+  precomputed obs tensor), ``cuda_log`` (K7a/K7b, the log-space scans
+  over obs);
 * ``--decode``: ``plain`` (``dp.viterbi`` on the obs tensor),
   ``streaming`` (K5, ``dp.viterbi_streaming``), ``fused`` (K2, symbols
-  in);
+  in), ``pointers`` (K8c and the pointer chase,
+  ``dp.viterbi_backpointers``);
 * ``--maxpost``: ``plain`` (the log-space posteriors' argmax), ``fused``
-  (K4).
+  (K4), ``scans`` (the same posteriors through K7a/K7b: the stitched
+  decoder's route past K4's envelope).
 
 The first line names the device (on a card: its name and power limit as
 ``nvidia-smi`` gives them).  Then one JSON line per (configuration,
@@ -58,9 +62,9 @@ CONFIGS = {
     "S128": (128, 15, 16, 512, 1024),
     "S256": (256, 20, 16, 256, 1024),
 }
-ESTEP_ENGINES = ("plain", "cuda", "cuda_v3")
-DECODE_ENGINES = ("plain", "streaming", "fused")
-MAXPOST_ENGINES = ("plain", "fused")
+ESTEP_ENGINES = ("plain", "cuda", "cuda_v3", "cuda_log")
+DECODE_ENGINES = ("plain", "streaming", "fused", "pointers")
+MAXPOST_ENGINES = ("plain", "fused", "scans")
 
 
 def make_inputs(S, T, V, B, L, device, seed=0):
@@ -119,8 +123,9 @@ def time_decode(params, symbols, engine, iters):
         def run():
             return ck.viterbi_fused(params.log_start, params.log_trans,
                                     params.log_em, symbols, lengths)
-    elif engine in ("plain", "streaming"):
-        fn = dp.viterbi if engine == "plain" else dp.viterbi_streaming
+    elif engine in ("plain", "streaming", "pointers"):
+        fn = {"plain": dp.viterbi, "streaming": dp.viterbi_streaming,
+              "pointers": dp.viterbi_backpointers}[engine]
 
         def run():
             obs = track_log_likelihoods(params.log_em, symbols)
@@ -147,12 +152,17 @@ def time_maxpost(params, symbols, engine, iters):
             return ck.posterior_decode_fused(
                 params.log_start, params.log_trans, params.log_em, symbols,
                 lengths)
-    elif engine == "plain":
+    elif engine in ("plain", "scans"):
+        lengths = torch.full((symbols.shape[0],), symbols.shape[1],
+                             dtype=torch.int32, device=symbols.device)
+        fwd, bwd = ((dp.forward_scaled, dp.backward_scaled)
+                    if engine == "plain"
+                    else (ck.forward_scaled, ck.backward_scaled))
+
         def run():
             obs = track_log_likelihoods(params.log_em, symbols)
-            ah, _, _ = dp.forward_scaled(params.log_start, params.log_trans,
-                                         obs)
-            bh, _ = dp.backward_scaled(params.log_trans, obs)
+            ah, _, _ = fwd(params.log_start, params.log_trans, obs, lengths)
+            bh, _ = bwd(params.log_trans, obs, lengths)
             return torch.argmax(dp.posterior_scaled(ah, bh), dim=-1) \
                 .to(torch.int32)
     else:

@@ -24,6 +24,7 @@ from tehmm_tpu.models import params as jparams  # noqa: E402
 from tehmm_tpu.ops import dp as jdp  # noqa: E402
 from tehmm_tpu.ops import em as jem  # noqa: E402
 from tehmm_tpu.utils.common import LOG_ZERO  # noqa: E402
+from tehmm_tpu_torch.models import gauss as tgauss  # noqa: E402
 from tehmm_tpu_torch.models import hmm as thmm  # noqa: E402
 from tehmm_tpu_torch.models import params as tparams  # noqa: E402
 from tehmm_tpu_torch.ops import cuda_kernels as ck  # noqa: E402
@@ -380,6 +381,61 @@ def test_fit_restarts_matches_sequential_and_jax(rng):
     for got, want in zip(results, j_results):
         np.testing.assert_allclose(got.logliks, want.logliks, rtol=1e-5)
         assert got.iterations == want.iterations
+
+
+@pytest.mark.parametrize("S,T,V,G,dev,fused", [
+    (20, 5, 9, 0, "cuda", True), (10, 5, 9, 2, "cuda", True),
+    (160, 5, 9, 0, "cuda", False), (128, 15, 16, 0, "cuda", False),
+    (20, 5, 9, 0, "cpu", False)])
+def test_pass_budget_follows_the_engine(S, T, V, G, dev, fused):
+    """E-step passes take K1's budget only where ``"auto"`` takes K1
+    (a CUDA-typed device, nothing run on it); past K1's envelope, and off
+    the card, the [B, L, S] engines' smaller one, as the JAX package sizes
+    them by engine."""
+    params = tparams.from_numpy(np.zeros(S, np.float32),
+                                np.zeros((S, S), np.float32),
+                                np.zeros((S, T, V), np.float32), "cpu")
+    gauss = (tgauss.from_numpy(np.zeros((S, G), np.float32),
+                               np.zeros((S, G), np.float32), "cpu")
+             if G else None)
+    assert (tem.resolve_engine("auto", S, T, V, G, torch.device(dev))
+            == "cuda") == fused
+    assert thmm._pass_positions(params, gauss, torch.device(dev)) == (
+        thmm._MAX_PASS_POSITIONS_FUSED if fused
+        else thmm._MAX_PASS_POSITIONS)
+
+
+@pytest.mark.parametrize("entry", ["fit", "fit_restarts"])
+def test_fit_passes_take_the_pass_budget(rng, monkeypatch, entry):
+    """``fit`` and ``fit_restarts`` cut their E-step passes by
+    ``_pass_positions`` for the model they train (per restart for
+    ``fit_restarts``): 200 positions of 100-position chunks are 2 rows
+    a pass, so 5 chunks take passes of 2, 2 and 1 (padded) rows."""
+    S, T, V = 3, 2, 5
+    tab = _table(rng, 500, T, V)
+    asked, rows = [], []
+
+    def budget(params, gauss, device):
+        asked.append((params.num_states, gauss, device.type))
+        return 200 * (2 if entry == "fit_restarts" else 1)
+
+    real = tem.em_sufficient_stats
+
+    def spy(params, symbols, *a, **k):
+        rows.append(symbols.shape[0])
+        return real(params, symbols, *a, **k)
+
+    monkeypatch.setattr(thmm, "_pass_positions", budget)
+    monkeypatch.setattr(tem, "em_sufficient_stats", spy)
+    kw = dict(max_iterations=1, convergence_tol=0.0, chunk_len=100)
+    if entry == "fit":
+        (m,) = _models("torch", [0], S, T, V)
+        m.fit([tab], **kw)
+    else:
+        thmm.fit_restarts(_models("torch", [0, 1], S, T, V), [tab], **kw)
+    assert asked == [(S, None, "cpu")]
+    per_pass = 2 if entry == "fit_restarts" else 1
+    assert rows == [r for r in (2, 2, 2) for _ in range(per_pass)]
 
 
 @pytest.mark.parametrize("masked", [False, True])

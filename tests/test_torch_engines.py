@@ -180,6 +180,51 @@ def test_viterbi_values_plain_matches_pallas_v3(rng, make_hmm, case):
                                rtol=1e-6, atol=1e-6)
 
 
+@pytest.mark.parametrize("case", sorted(VITERBI_CASES))
+def test_viterbi_values_plain_matches_pallas_v2(rng, make_hmm, case,
+                                                monkeypatch):
+    """K7c's value rows and normalizers (``viterbi_pallas_v2``'s kernel,
+    whose function K5's kernel computes) against ``viterbi_values``' plain
+    version on valid positions.  The JAX function returns only the path
+    and the score, so its kernel's outputs are read off its pallas_call
+    by a host callback (in a fresh trace of the function)."""
+    import jax
+
+    ls, lt, obs, lens = _obs_case(rng, make_hmm, **VITERBI_CASES[case])
+    seen = {}
+    real = pk.pl.pallas_call
+
+    def spy(kernel, **kw):
+        call = real(kernel, **kw)
+
+        def run(*args):
+            out = call(*args)
+            if kernel is pk._viterbi_kernel_v2:
+                jax.debug.callback(
+                    lambda *o: seen.update(out=[np.asarray(x) for x in o]),
+                    *out)
+            return out
+        return run
+
+    monkeypatch.setattr(pk.pl, "pallas_call", spy)
+    path, _ = jax.jit(pk.viterbi_pallas_v2.__wrapped__)(
+        jnp.asarray(ls), jnp.asarray(lt), jnp.asarray(obs),
+        jnp.asarray(lens))
+    jax.block_until_ready(path)
+    v_pad, dm_pad = seen["out"]
+    B, L, S = obs.shape
+    # [NB, K, Sp, Bp] and [NB, K, 8, Bp] -> [B, L, S] and [B, L]
+    want_v = v_pad.reshape(-1, v_pad.shape[2], v_pad.shape[3])[:L, :S, :B]
+    want_v = np.transpose(want_v, (2, 0, 1))
+    want_dm = dm_pad.reshape(-1, 8, dm_pad.shape[3])[:L, 0, :B].T
+    v, dm = ck.viterbi_values(_t(ls), _t(lt), _t(obs), _t(lens))
+    for b, n in enumerate(lens):
+        np.testing.assert_allclose(v.numpy()[b, :n], want_v[b, :n],
+                                   rtol=1e-6, atol=1e-6, err_msg=f"row {b}")
+        np.testing.assert_allclose(dm.numpy()[b, :n], want_dm[b, :n],
+                                   rtol=1e-6, atol=1e-6, err_msg=f"row {b}")
+
+
 @pytest.mark.parametrize("jax_viterbi", ["viterbi_pallas_v3",
                                          "viterbi_pallas_v2",
                                          "viterbi_pallas", "dp.viterbi"])
@@ -315,7 +360,8 @@ def test_bench_engines_estep_rows(tiny_config, capsys):
     out = capsys.readouterr().out
     assert out.splitlines()[0] == "# device: cpu"
     rows = _rows(out)
-    assert [r["engine"] for r in rows] == ["plain", "cuda", "cuda_v3"]
+    assert [r["engine"] for r in rows] == ["plain", "cuda", "cuda_v3",
+                                           "cuda_log"]
     for r in rows:
         assert r["estep_ms"] > 0 and r["positions_per_s"] > 0
         assert r["cellupdates_per_s"] > 0
@@ -326,8 +372,8 @@ def test_bench_engines_estep_rows(tiny_config, capsys):
 
 
 @pytest.mark.parametrize("mode,engines", [
-    ("--decode", ["plain", "streaming", "fused"]),
-    ("--maxpost", ["plain", "fused"]),
+    ("--decode", ["plain", "streaming", "fused", "pointers"]),
+    ("--maxpost", ["plain", "fused", "scans"]),
 ])
 def test_bench_engines_decode_rows(tiny_config, capsys, mode, engines):
     assert bench_engines.main(["--configs", tiny_config, "--device", "cpu",
@@ -353,9 +399,10 @@ def test_bench_engines_reports_an_envelope_error(tiny_config, capsys,
     rows = {r["engine"]: r for r in _rows(capsys.readouterr().out)}
     assert "K1 beyond" in rows["cuda"]["error"]
     assert "estep_ms" not in rows["cuda"] and "loglik" not in rows["cuda"]
-    assert "error" not in rows["plain"] and "error" not in rows["cuda_v3"]
-    assert abs(rows["plain"]["loglik"] - rows["cuda_v3"]["loglik"]) \
-        <= 1e-5 * abs(rows["plain"]["loglik"])
+    for engine in ("plain", "cuda_v3", "cuda_log"):
+        assert "error" not in rows[engine]
+        assert abs(rows["plain"]["loglik"] - rows[engine]["loglik"]) \
+            <= 1e-5 * abs(rows["plain"]["loglik"])
 
 
 def test_bench_engines_other_failures_propagate(tiny_config, monkeypatch):
@@ -399,9 +446,23 @@ def test_profile_estep_rows(tiny_config, capsys, n_configs):
     stages = ("obs_ms", "obs_p_ms", "fwd_ms", "bwd_ms", "epilogue_ms")
     for row in rows:
         assert row["config"] == tiny_config
+        assert row["engine"] == "cuda_v3"
         assert all(row[k] > 0 for k in stages)
         assert row["sum_ms"] == pytest.approx(
             sum(row[k] for k in stages[1:]), abs=2e-3)
+
+
+def test_profile_estep_cuda_log_rows(tiny_config, capsys):
+    """``--engine cuda_log``: obs, the two log-space kernels and the
+    plain engine's epilogue, which sum to one E-step."""
+    assert profile_estep.main([tiny_config, "--device", "cpu", "--iters",
+                               "1", "--engine", "cuda_log"]) == 0
+    (row,) = _rows(capsys.readouterr().out)
+    stages = ("obs_ms", "fwd_ms", "bwd_ms", "epilogue_ms")
+    assert row["engine"] == "cuda_log" and "obs_p_ms" not in row
+    assert all(row[k] > 0 for k in stages)
+    assert row["sum_ms"] == pytest.approx(sum(row[k] for k in stages),
+                                          abs=2e-3)
 
 
 def test_tools_refuse_cuda_without_a_card():

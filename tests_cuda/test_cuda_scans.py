@@ -1,0 +1,244 @@
+"""The log-space scans K7a/K8a (``forward_scaled``) and K7b/K8b
+(``backward_scaled``), the pointer-writing Viterbi K8c
+(``viterbi_pointers``) and its chase (``pointer_chase``) against their
+plain-torch versions on the card, and the paths built on them: the
+E-step engine ``"cuda_log"``, ``"auto"`` past K1's envelope and the
+stitched decoders past K2's and K4's.
+
+The scans sum each S-term product as four interleaved FMA chains where
+the plain version calls a matrix product, and take accurate expf/logf, so
+they are held, as ``tests/test_pallas.py`` holds the Pallas kernels, to
+the plain version carried in float64: alpha_hat and beta_hat within 1e-5
+absolute, log_c and log_d within 1e-4 absolute, logliks within 1e-6
+relative (and 1e-6 absolute); two launches give the same bits.  K8c is
+float32 add, subtract and max only: its pointers, last rows, normalizers
+and the chased paths are bit-equal to the plain versions and the paths
+to ``dp.viterbi``'s.
+
+S = 5 and 72 have several row groups per block, 239 and 240 one; at one
+row per thread every matrix row of S <= 240 sits in shared memory, at two
+rows per thread S = 240 reads 4 rows through the read-only path and
+S = 256 reads 32 (one row) or 36 (two)."""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from tehmm_tpu_torch.models import emission  # noqa: E402
+from tehmm_tpu_torch.models.params import HmmParams, from_numpy  # noqa: E402
+from tehmm_tpu_torch.ops import cuda_kernels as ck  # noqa: E402
+from tehmm_tpu_torch.ops import dp  # noqa: E402
+from tehmm_tpu_torch.ops import em  # noqa: E402
+from tehmm_tpu_torch.parallel import stitch  # noqa: E402
+
+from test_cuda_kernels import _inputs, _model  # noqa: E402
+
+pytestmark = pytest.mark.cuda
+
+STATES = [5, 72, 239, 240, 256]
+F64 = torch.float64
+
+
+def _obs_inputs(rng, device, S, L, zero_frac=0.0, rows=1):
+    """(log_start, log_trans, obs, lengths); ``rows`` copies of
+    test_cuda_kernels' five ragged rows (lengths L, L-5, 1, 0, 2)."""
+    ls, lt, lem, sym, lens = _inputs(rng, device, S, L, zero_frac=zero_frac)
+    if rows > 1:
+        sym = torch.from_numpy(rng.randint(
+            0, lem.shape[2], size=(5 * rows, L, sym.shape[2])
+        ).astype(np.int32)).to(device)
+        lens = lens.repeat(rows)
+    return ls, lt, emission.track_log_likelihoods(lem, sym), lens
+
+
+def _close_scaled(got, want):
+    """The forward's or the backward's outputs within the stated limits of
+    the float64 plain version."""
+    rows, cum = got[0], got[1]
+    torch.testing.assert_close(rows, want[0].float(), rtol=0, atol=1e-5)
+    torch.testing.assert_close(cum, want[1].float(), rtol=0, atol=1e-4)
+    if len(got) == 3:
+        # atol: a one-position row of missing symbols has loglik
+        # logsumexp(log_start) = 0, which float32 holds to ~1e-9
+        torch.testing.assert_close(got[2], want[2].float(), rtol=1e-6,
+                                   atol=1e-6)
+
+
+@pytest.mark.parametrize("zero_frac", [0.0, 0.3])
+@pytest.mark.parametrize("L", [1, 37])
+@pytest.mark.parametrize("S", STATES)
+def test_log_scans_match_plain(device, rng, S, L, zero_frac):
+    ls, lt, obs, lens = _obs_inputs(rng, device, S, L, zero_frac)
+    before = dict(ck.LAUNCHES)
+    fwd = ck.forward_scaled(ls, lt, obs, lens)
+    bwd = ck.backward_scaled(lt, obs, lens)
+    assert ck.LAUNCHES["fwd_scaled"] == before["fwd_scaled"] + 1
+    assert ck.LAUNCHES["bwd_scaled"] == before["bwd_scaled"] + 1
+    _close_scaled(fwd, ck.forward_scaled_plain(ls, lt, obs, lens, dtype=F64))
+    _close_scaled(bwd, ck.backward_scaled_plain(lt, obs, lens, dtype=F64))
+    # the reference's carries: a zero-length row is zeros with log_c at
+    # LOG_ZERO and loglik 0; beta_hat is 0 from each row's last valid
+    # position on
+    empty = lens == 0
+    assert bool((fwd[0][empty] == 0).all())
+    assert bool((fwd[2][empty] == 0).all())
+    for b, n in enumerate(lens.tolist()):
+        assert bool((bwd[0][b, max(n - 1, 0):] == 0).all())
+        assert bool((bwd[1][b, max(n - 1, 0):] == 0).all())
+    # repeats give the same bits
+    again = ck.forward_scaled(ls, lt, obs, lens)
+    assert all(torch.equal(a, b) for a, b in zip(fwd, again))
+    assert all(torch.equal(a, b)
+               for a, b in zip(bwd, ck.backward_scaled(lt, obs, lens)))
+
+
+@pytest.mark.parametrize("zero_frac", [0.0, 0.3])
+@pytest.mark.parametrize("L", [1, 37])
+@pytest.mark.parametrize("S", STATES)
+def test_viterbi_pointers_bit_equal(device, rng, S, L, zero_frac):
+    ls, lt, obs, lens = _obs_inputs(rng, device, S, L, zero_frac)
+    before = dict(ck.LAUNCHES)
+    ptrs, v_last, dm = ck.viterbi_pointers(ls, lt, obs, lens)
+    want = ck.viterbi_pointers_plain(ls, lt, obs, lens)
+    assert ptrs.dtype == torch.uint8
+    assert torch.equal(ptrs, want[0]) and torch.equal(v_last, want[1]) \
+        and torch.equal(dm, want[2])
+    # the last row and the normalizers are K5's
+    v, vdm = ck.viterbi_values(ls, lt, obs, lens)
+    assert torch.equal(v_last, v[:, -1]) and torch.equal(dm, vdm)
+    path = ck.pointer_chase(ptrs, v_last, lens)
+    assert torch.equal(path, ck.pointer_chase_plain(ptrs, v_last, lens))
+    assert ck.LAUNCHES["viterbi_ptrs"] == before["viterbi_ptrs"] + 1
+    assert ck.LAUNCHES["pointer_chase"] == before["pointer_chase"] + 1
+    got_p, got_s = dp.viterbi_backpointers(ls, lt, obs, lens)
+    want_p, want_s = dp.viterbi(ls, lt, obs, lens)
+    assert torch.equal(got_p, path) and torch.equal(got_p, want_p)
+    torch.testing.assert_close(got_s, want_s, rtol=1e-5, atol=1e-4)
+
+
+def test_pointers_take_the_lowest_state_on_ties(device):
+    """Equal candidates (a uniform matrix, equal observations): every
+    pointer is state 0, as the plain version's first-hit argmax."""
+    S, L = 72, 6
+    lt = torch.full((S, S), float(np.log(1.0 / S)), device=device)
+    ls = torch.full((S,), float(np.log(1.0 / S)), device=device)
+    obs = torch.zeros((3, L, S), device=device)
+    lens = torch.tensor([L, 3, 0], dtype=torch.int32, device=device)
+    ptrs, v_last, dm = ck.viterbi_pointers(ls, lt, obs, lens)
+    want = ck.viterbi_pointers_plain(ls, lt, obs, lens)
+    assert torch.equal(ptrs, want[0]) and torch.equal(v_last, want[1])
+    assert bool((ptrs[0, 1:] == 0).all())
+    ident = torch.arange(S, device=device, dtype=torch.uint8)
+    assert bool((ptrs[1, 3:] == ident).all())
+    assert bool((ptrs[2] == ident).all())
+
+
+# (S, copies of the five ragged rows): batches past one wave of blocks
+# (two rows per thread) beside the first five rows alone (one)
+WAVES = [(5, 12000), (72, 700), (240, 28), (256, 28)]
+
+
+@pytest.mark.parametrize("S,rows", WAVES)
+def test_batches_within_and_beyond_one_wave(device, rng, S, rows):
+    """Past one wave the launcher takes two rows per thread: the results
+    stay the plain versions', and the same bits as one row per thread
+    gives the first five rows."""
+    L = 9
+    ls, lt, obs, lens = _obs_inputs(rng, device, S, L, zero_frac=0.3,
+                                    rows=rows)
+    fwd = ck.forward_scaled(ls, lt, obs, lens)
+    _close_scaled(fwd, ck.forward_scaled_plain(ls, lt, obs, lens, dtype=F64))
+    bwd = ck.backward_scaled(lt, obs, lens)
+    _close_scaled(bwd, ck.backward_scaled_plain(lt, obs, lens, dtype=F64))
+    ptrs, v_last, dm = ck.viterbi_pointers(ls, lt, obs, lens)
+    want = ck.viterbi_pointers_plain(ls, lt, obs, lens)
+    assert torch.equal(ptrs, want[0]) and torch.equal(v_last, want[1]) \
+        and torch.equal(dm, want[2])
+    # the kernels' rows are the same bits; log_c, log_d and the logliks
+    # are torch's reductions over them, whose order may follow the
+    # batch's size, so they are held to float32 rounding
+    few = slice(0, 5)
+    obs5, lens5 = obs[few].contiguous(), lens[few]
+    for whole, part in ((fwd, ck.forward_scaled(ls, lt, obs5, lens5)),
+                        (bwd, ck.backward_scaled(lt, obs5, lens5))):
+        assert torch.equal(whole[0][few], part[0])
+        for a, b in zip(whole[1:], part[1:]):
+            torch.testing.assert_close(a[few], b, rtol=1e-6, atol=1e-5)
+    p5 = ck.viterbi_pointers(ls, lt, obs5, lens5)
+    assert torch.equal(ptrs[few], p5[0]) and torch.equal(v_last[few], p5[1])
+
+
+def test_envelope_raises_naming_its_item(device):
+    S = ck.STREAMING_MAX_STATES + 1
+    obs = torch.zeros((2, 3, S), device=device)
+    lt = torch.zeros((S, S), device=device)
+    ls = torch.zeros((S,), device=device)
+    lens = torch.full((2,), 3, dtype=torch.int32, device=device)
+    for call in (lambda: ck.forward_scaled(ls, lt, obs, lens),
+                 lambda: ck.backward_scaled(lt, obs, lens),
+                 lambda: ck.viterbi_pointers(ls, lt, obs, lens)):
+        with pytest.raises(NotImplementedError, match="K5 and K6 beyond"):
+            call()
+
+
+@pytest.mark.parametrize("S", [10, 200, 256])
+def test_cuda_log_engine_matches_plain_engine(device, rng, S):
+    """The E-step through K7a/K7b against the log-space engine in plain
+    torch on the card, at the engine tolerances."""
+    ls, lt, lem, sym, lens = _inputs(rng, device, S, 37, zero_frac=0.3)
+    p = HmmParams(ls, lt, lem)
+    before = dict(ck.LAUNCHES)
+    got = em.em_sufficient_stats(p, sym, lens, engine="cuda_log")
+    assert ck.LAUNCHES["fwd_scaled"] == before["fwd_scaled"] + 1
+    assert ck.LAUNCHES["bwd_scaled"] == before["bwd_scaled"] + 1
+    want = em.em_sufficient_stats(p, sym, lens, engine="plain")
+    torch.testing.assert_close(got.loglik, want.loglik, rtol=1e-5, atol=0)
+    for name, atol in (("start", 1e-5), ("trans", 1e-5), ("em", 1e-4)):
+        torch.testing.assert_close(getattr(got, name), getattr(want, name),
+                                   rtol=1e-4, atol=atol)
+
+
+@pytest.mark.parametrize("S", [148, 160])
+def test_auto_takes_k1_where_it_fits_and_cuda_v3_beyond(device, rng, S):
+    """At T=5, V=9 K1 takes S <= 148: ``"auto"`` runs it there and the
+    probability-space scans beyond, never the plain engine."""
+    ls, lt, lem, sym, lens = _inputs(rng, device, S, 37, T=5, V=9)
+    p = HmmParams(ls, lt, lem)
+    before = dict(ck.LAUNCHES)
+    got = em.em_sufficient_stats(p, sym, lens)
+    fits = S <= 148
+    assert ck.k1_fits(S, 5, 9) == fits
+    assert (ck.LAUNCHES["em_fwd"] > before["em_fwd"]) == fits
+    assert (ck.LAUNCHES["fwd_prob"] > before["fwd_prob"]) == (not fits)
+    want = em.em_sufficient_stats(p, sym, lens, engine="plain")
+    torch.testing.assert_close(got.loglik, want.loglik, rtol=1e-5, atol=0)
+    torch.testing.assert_close(got.trans, want.trans, rtol=1e-4, atol=1e-5)
+
+
+def test_stitched_decoders_past_the_fused_envelopes(device, rng):
+    """At S = 256 K2 and K4 do not fit: the stitched Viterbi runs obs, K5
+    and the backtrace kernel and gives the CPU's paths; the stitched
+    max-posterior runs K7a/K7b and agrees with the CPU on >= 99.9% of
+    positions."""
+    S = 256
+    tables = _model(rng, S, 3, 6)
+    assert not ck.k2_fits(S, 3, 6) and not ck.k4_fits(S, 3, 6)
+    syms = [rng.randint(1, 6, size=(n, 3)).astype(np.uint8)
+            for n in (3000, 1201)]
+    on_gpu = from_numpy(*tables, device)
+    on_cpu = from_numpy(*tables, "cpu")
+    before = dict(ck.LAUNCHES)
+    got = stitch.viterbi_chunked(on_gpu, syms, chunk_len=512, halo=32)[0]
+    assert ck.LAUNCHES["viterbi_values"] > before["viterbi_values"]
+    assert ck.LAUNCHES["viterbi_fwd"] == before["viterbi_fwd"]
+    for g, c in zip(got, stitch.viterbi_chunked(on_cpu, syms, chunk_len=512,
+                                                halo=32)[0]):
+        np.testing.assert_array_equal(g, c)
+    got = stitch.posterior_chunked(on_gpu, syms, chunk_len=512, halo=32)[0]
+    assert ck.LAUNCHES["fwd_scaled"] > before["fwd_scaled"]
+    assert ck.LAUNCHES["post_decode"] == before["post_decode"]
+    for g, c in zip(got, stitch.posterior_chunked(on_cpu, syms,
+                                                  chunk_len=512,
+                                                  halo=32)[0]):
+        assert (g == c).mean() >= 0.999
