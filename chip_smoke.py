@@ -22,13 +22,16 @@ Phases (any failure raises, and the run exits non-zero):
    agree on >= 99.999% of positions, every differing position a
    near-tie (the plain version's top two alpha_p * b within 1e-5
    relative), two launches bit-identical.  The chunk sweeps X1 and X2
-   on obs of 4 rows of 4096 (ragged): hats within 1e-5 absolute,
-   carries, x_out and the summed normalizers within 1e-6 relative and
-   1e-6 absolute of the plain versions carried in float64 (each
-   check's worst ratio of error to its limit printed), two launches
-   bit-identical.  Then K2's forward, K1 and the K4 decode
-   with each optional observation stream (segment weights in [1, 64],
-   2 gaussian tracks with 10% missing values, both) at the same shapes:
+   on obs of 4 rows of 4096 (ragged): hats, carries, betas and x_out
+   within 1e-5 plus 4 float32 ulps of the largest |obs| of the plain
+   versions carried in float64 (the F3 limit; the float32 plain version
+   held to it too), the summed normalizers within 1e-6 relative and
+   1e-6 absolute (each check's worst ratio of error to its limit
+   printed), two launches bit-identical; the same X1/X2 check again on
+   8 draws, seeds 0-7 of its own generator.  Then K2's forward, K1 and
+   the K4 decode with each optional observation stream (segment weights
+   in [1, 64], 2 gaussian tracks with 10% missing values, both) at the
+   same shapes:
    K2's value rows, normalizers and paths bit-equal, K1 at the same
    tolerances (gaussian moments within 1e-4 of each moment's largest
    entry) and bit-identical across two launches, K4 as above.  Times of
@@ -50,6 +53,15 @@ Phases (any failure raises, and the run exits non-zero):
    logliks within 1e-6 relative, two launches bit-identical; and K8c
    (``viterbi_ptrs``) with its chase (``pointer_chase``): pointers, last
    rows, normalizers and paths bit-equal to plain, paths == dp.viterbi.
+   All of this also at bench_engines' S512 (T=20, V=16, B=128) and S1024
+   (B=64) shapes, past 256 states (uint16 pointers).  K9
+   (``maxplus_sweeps``) at Sp=256, 512, 1024 x Bg=128 on the JAX tool's
+   draw: both layouts (the blocks layout at 8, 16 and 32 rows a block)
+   bit-equal to plain, timed.  The carried sweeps past their one-warp
+   kernels, K3, X1 and X2 on the tile's carry modes at S=512 and 1024
+   (4 rows of 4096): K3 bit-equal, X1/X2 at the F3 limit of plain in
+   float64, X1's two modes one carry, a sweep cut into three chunks
+   bit-equal to one.
 2e. The engine-comparison path through its tools' entry points, at the
    full width of all four ``bench_engines`` shapes (S=20, 64, 128, 256):
    ``tools.bench_engines`` with the E-step engines plain, cuda (K1),
@@ -63,7 +75,11 @@ Phases (any failure raises, and the run exits non-zero):
    ran at all four shapes; a row with an ``error`` is accepted only from
    cuda or fused at S=128 or S=256 and only with the shared-memory
    envelope's message; K5, K6, K7, K8c, the chase and the backtrace
-   launched at every shape.
+   launched at every shape.  The same at S512 and S1024 with the engines
+   that run there (E-step plain, cuda_v3, cuda_log; decode plain,
+   streaming, pointers; max-posterior plain, scans).
+2m. The K9 tool (``tools.exp_maxplus_s256``) at Sp=256, 512, 1024: every
+   formulation ok with max|delta| 0.
 3. End to end through the port's CLIs, in-process, at the width of the
    10-state / 5-track supervised decode configuration: a planted
    20,000,000-position chromosome (4 categorical BED tracks + FASTA),
@@ -103,14 +119,20 @@ Phases (any failure raises, and the run exits non-zero):
    states must cover >= 90% of the region; decoded BED agreeing on
    >= 99.9% of bases; then ``--reps 2`` on the card, through K1 for both
    restarts.
-3f. Past the fused kernels' envelopes, card against CPU: ``train`` at
-   160 states on a 20,000-position region (K1 takes 148 at this T and V)
-   through ``"auto"``, which takes cuda_v3 (K6): logliks within 1e-5
-   relative; the stitched Viterbi and max-posterior decoders at 256
-   states (K2 and K4 take 217) with a sticky random model on a
-   1,000,000-position region: Viterbi (obs, K5, backtrace) paths equal,
-   max-posterior (obs, K7a/K7b) on >= 99.999% of positions, each
-   differing position printed with its top-two posterior gap.
+3f. Past the fused kernels' envelopes at the scan tile's full width,
+   1024 states, card against CPU: ``train`` on a 20,000-position region
+   through ``"auto"``, which takes cuda_v3 (K6) with passes of 1M
+   positions (4M x 256 / S): logliks within 1e-5 relative; with a sticky
+   random model on 64 regions of 15,625 positions (1,000,000) the
+   stitched Viterbi (obs, K5, backtrace), the exact Viterbi (K3 on the
+   tile; == the stitched paths), the stitched max-posterior (K7a/K7b),
+   ``posterior_sweep`` (``--pd``'s path: X1/X2 on the tile) and the
+   score (X1 on the tile); the CPU on 46,875 of those positions (15,625
+   for ``--pd`` and the score): Viterbi paths equal; max-posterior and
+   ``--pd``'s argmax (against the CPU's, and on the card against each
+   other) equal on >= 99.999% of positions, every differing one a
+   near-tie (printed with its gap); gammas within 1e-5, scores within
+   1e-5 relative.
 3e. Gaussian tracks and segment mode on the same chromosome, with one
    gaussian BED track (a record per 500 bases, its value ~ N(mu[state],
    1)).  Base resolution (the phase-3 tracks and the gaussian track):
@@ -131,8 +153,9 @@ Phases (any failure raises, and the run exits non-zero):
    CPU in segment mode, with the gaussian track and with the categorical
    tracks only (the weight stream alone): EM logliks within 1e-5
    relative, BED agreeing on >= 99.9% of bases.  Stage times.
-4. The launch counters, zeroed just before each tool run of 2e, phase
-   3, 3d, 3b's training run, 3f's training run and two decodes, and 3e's
+4. The launch counters, zeroed just before each tool run of 2e and 2m,
+   phase 3, 3d, 3b's training run, 3f's training run and five decodes,
+   and 3e's
    base-resolution, segment and categorical segment runs and read just
    after each, show every kernel and stream variant of each path ran on
    it.
@@ -169,6 +192,7 @@ EM_STATES, EM_ITERS, EM_CHUNK = 10, 15, 16384
 K1_EM_ROWS = 256                     # rows of the K1 check at EM's shape
 K4_B, K4_L = 64, 4096 + 2 * 256      # one stitched max-posterior group
 X_B, X_L = 4, 4096                   # the chunk sweeps' check
+F3_SEEDS = 8                         # further draws of that check
 NEAR_TIE = 1e-5                      # K4: relative gap of a near-tie
 STREAM_VARIANTS = ("+w", "+g", "+wg")  # weights, gaussian tracks, both
 STREAM_G = 2                         # gaussian tracks of phase 2's streams
@@ -176,11 +200,17 @@ W_LO, W_HI = 1.0, 64.0               # phase 2's segment weights
 GAUSS_RECORD = 500                   # 3e: bases per gaussian-track record
 GAUSS_MU = np.linspace(-4.5, 4.5, S)  # 3e: that track's per-state mean
 SEG_STATES, SEG_ITERS = 10, 15       # 3e: segment-mode EM
-# 3f: "auto" past K1's envelope (T=5, V=9: K1 takes S <= 148), and the
-# stitched decoders past K2's and K4's (S <= 217)
-ENV_FIT_STATES, ENV_FIT_REGION, ENV_FIT_ITERS, ENV_FIT_CHUNK = \
-    160, 20_000, 3, 2048
-ENV_DECODE_STATES, ENV_DECODE_REGION = 256, 1_000_000
+# 3f: every route past the fused kernels' envelopes at the scan tile's
+# full width: "auto" training (-> cuda_v3) on a region, the decoders and
+# the score on ENV_TABLES regions of ENV_TABLE_LEN positions, the CPU on
+# the first ENV_CPU_TABLES of them (ENV_PD_TABLES for --pd's gammas)
+ENV_STATES = 1024
+ENV_FIT_REGION, ENV_FIT_ITERS, ENV_FIT_CHUNK = 20_000, 3, 20_000
+ENV_TABLES, ENV_TABLE_LEN = 64, 15_625
+ENV_CPU_TABLES, ENV_PD_TABLES, ENV_PD_CHUNK = 3, 1, 4096
+# the CPU's rows a pass at ENV_STATES (256 / S of it: one): its plain
+# steps make [rows, S, S] temporaries that leave the caches past a row
+ENV_CPU_ROWS = 4
 # the card's published peaks (H100 SXM datasheet: HBM3
 # at 3.35 TB/s, float32 outside the tensor cores at 67 TFLOP/s)
 H100_BYTES_PER_S, H100_F32_PER_S = 3.35e12, 67e12
@@ -200,6 +230,11 @@ SOURCES = {
     "bwd_scaled": "tehmm_tpu_torch/csrc/scans.cu",
     "viterbi_ptrs": "tehmm_tpu_torch/csrc/scans.cu",
     "pointer_chase": "tehmm_tpu_torch/csrc/scans.cu",
+    "viterbi_chunk_tile": "tehmm_tpu_torch/csrc/streaming.cu",
+    "fwd_chunk_tile": "tehmm_tpu_torch/csrc/scans.cu",
+    "bwd_chunk_tile": "tehmm_tpu_torch/csrc/scans.cu",
+    "maxplus_resident": "tehmm_tpu_torch/csrc/maxplus.cu",
+    "maxplus_blocks": "tehmm_tpu_torch/csrc/maxplus.cu",
 }
 REPLACES = {
     "viterbi_fwd": "tehmm_tpu/ops/pallas_kernels.py:2386",
@@ -221,6 +256,13 @@ REPLACES = {
     "bwd_scaled": "tehmm_tpu/ops/pallas_kernels.py:1012",
     "viterbi_ptrs": "tehmm_tpu/ops/pallas_kernels.py:333",
     "pointer_chase": "tehmm_tpu/ops/pallas_kernels.py:381",
+    # K3, X1 and X2 past their one-warp kernels: the tile's carry modes
+    "viterbi_chunk_tile": "tehmm_tpu/ops/pallas_kernels.py:1284",
+    "fwd_chunk_tile": "tehmm_tpu/ops/dp.py:378",
+    "bwd_chunk_tile": "tehmm_tpu/ops/dp.py:507",
+    # K9's two layouts
+    "maxplus_resident": "tools/exp_maxplus_s256.py:115",
+    "maxplus_blocks": "tools/exp_maxplus_s256.py:120",
 }
 DECODE_KERNELS = ("viterbi_fwd", "viterbi_backtrace", "viterbi_chunk_values")
 EM_KERNELS = ("em_fwd", "em_bwd_stats")
@@ -236,10 +278,24 @@ STREAMING_KERNELS = ("viterbi_values", "fwd_prob", "bwd_prob",
                      "fwd_scaled", "bwd_scaled", "viterbi_ptrs",
                      "pointer_chase")
 ENGINE_CONFIGS = ("S20", "S64", "S128", "S256")
+# the scan tile past 256 states (bench_engines' extra configurations):
+# phase 2 holds its kernels to plain there, 2e runs the tools there
+WIDE_CONFIGS = ("S512", "S1024")
+WIDE_ENGINES = ("plain,cuda_v3,cuda_log", "plain,streaming,pointers",
+                "plain,scans")
+# K9: phase 2 at Sp x MAXPLUS_BG, bit-equal to plain; 2m runs the tool at
+# each Sp
+MAXPLUS_SP, MAXPLUS_BG, MAXPLUS_BLKS = (256, 512, 1024), 128, (8, 16, 32)
+# the carried sweeps on the tile's carry modes, X_B rows of X_L
+WIDE_SWEEP_STATES = (512, 1024)
+SWEEP_CUTS = (0, 1000, 2500, X_L)    # a sweep cut into three chunks
 # 3f's paths and the kernels each must run
 ENVELOPE_KERNELS = {"fit": ("fwd_prob", "bwd_prob"),
                     "viterbi": ("viterbi_values", "viterbi_backtrace"),
-                    "maxpost": ("fwd_scaled", "bwd_scaled")}
+                    "exact": ("viterbi_chunk_tile", "viterbi_backtrace"),
+                    "maxpost": ("fwd_scaled", "bwd_scaled"),
+                    "pd": ("fwd_chunk_tile", "bwd_chunk_tile"),
+                    "score": ("fwd_chunk_tile",)}
 ENGINE_ITERS = 1                     # marginal_time chains of 1 and 6
 ENVELOPE_MESSAGE = "beyond the shared-memory envelope"
 # phase 2's limits for the log-space scans K7/K8 against their plain
@@ -322,7 +378,23 @@ def _bound(name, shape, valid, G=0, weighted=False) -> dict:
     elif base == "post_decode":        # obs_p, b step, argmax
         nbytes = sym + tables + streams + rows + B * L * f
         ops = 2 * S * S + obs + 8 * S
-    elif base in ("fwd_chunk", "bwd_chunk"):   # log-space step
+    elif base in ("maxplus_resident", "maxplus_blocks"):
+        # shape = (Bg, sweeps, Sp): v and T in, v out; an add and a max a
+        # term (one float32 instruction each, at half the FMA-counted
+        # peak) and a subtraction a cell
+        Bg, sweeps, Sp = B, L, S
+        nbytes = (2 * Sp * Bg + Sp * Sp) * f
+        t_ops = sweeps * (2 * Sp * Sp * Bg + Sp * Bg) \
+            / (H100_F32_PER_S / 2)
+        t_bytes = nbytes / H100_BYTES_PER_S
+        return dict(bound_ms=max(t_bytes, t_ops) * 1e3,
+                    bound_by="bytes" if t_bytes >= t_ops else "operations",
+                    library_ms=None)
+    elif base == "viterbi_chunk_tile":
+        nbytes = 2 * rows + (B * S + B + S * S) * f
+        ops = 2 * S * S + 3 * S
+    elif base in ("fwd_chunk", "bwd_chunk", "fwd_chunk_tile",
+                  "bwd_chunk_tile"):   # log-space step
         nbytes = 2 * rows + (2 * B * S + 2 * B + S * S) * f
         ops = 2 * S * S + 4 * S
     elif base in ("viterbi_values", "fwd_prob"):
@@ -338,11 +410,12 @@ def _bound(name, shape, valid, G=0, weighted=False) -> dict:
     elif base == "bwd_scaled":         # obs, max, sub, exp, product, log,
         nbytes = 2 * rows + (B * L + B + S * S) * f   # max, sub, dm
         ops = 2 * S * S + 8 * S
-    elif base == "viterbi_ptrs":       # add-and-compare product, uint8 out
-        nbytes = rows + B * L * S + (B * S + B * L + B + S * S + S) * f
+    elif base == "viterbi_ptrs":       # add-and-compare product, pointers
+        ptr = 1 if S <= 256 else 2     # out (uint8, or uint16 past 256)
+        nbytes = rows + ptr * B * L * S + (B * S + B * L + B + S * S + S) * f
         ops = 2 * S * S + 4 * S
-    elif base == "pointer_chase":      # one byte read a position
-        nbytes = B * L + (B * S + B + B * L) * f
+    elif base == "pointer_chase":      # one pointer read a position
+        nbytes = (1 if S <= 256 else 2) * B * L + (B * S + B + B * L) * f
         ops = 1 + S / max(L, 1)
     else:
         raise KeyError(name)
@@ -592,12 +665,71 @@ def phase_k1(device, rng) -> dict:
     return out
 
 
+def _sweep_check(p, device, rng, label="X1/X2"):
+    """X1 (``forward_chunk_values``, ``forward_final``) and X2
+    (``backward_chunk_values``) at S on X_B rows of X_L (ragged: full,
+    0, 1, random) drawn from ``rng``, against the plain versions carried
+    in float64: rows and carries alike within the F3 limit, SCAN_ATOL
+    plus SCAN_OBS_ULPS float32 ulps of the input's largest |obs| (each
+    step rounds obs + log(sum) and its max, each to half an ulp of
+    |obs|).  The float32 plain version is held to the same limit, so the
+    limit is one float32 arithmetic can meet.  X1's two modes end in one
+    carry; repeat launches bit-identical.  Prints each check's worst
+    error / limit, the kernel's and the float32 plain version's.
+    Returns ((obs, init, cont, lengths, lengths on the host), errors,
+    ratios, float32 ratios)."""
+    import torch
+
+    from tehmm_tpu_torch.models.emission import track_log_likelihoods
+    from tehmm_tpu_torch.ops import cuda_kernels as ck
+    from tehmm_tpu_torch.ops import dp
+
+    x_lens = np.asarray([X_L, 0, 1, rng.randint(2, X_L)], np.int32)
+    x_sym = torch.from_numpy(
+        rng.randint(0, V, size=(X_B, X_L, T)).astype(np.int32)).to(device)
+    obs = track_log_likelihoods(p.log_em, x_sym)
+    xl = torch.from_numpy(x_lens).to(device)
+    init = torch.from_numpy(rng.randn(X_B, S).astype(np.float32)).to(device)
+    init = init - init.amax(dim=-1, keepdim=True)
+    cont = torch.tensor([True, False, False, False], device=device)
+    lt = p.log_trans
+    lim = SCAN_ATOL + SCAN_OBS_ULPS * F32_EPS * float(obs.abs().max())
+    hats, carry = ck.forward_chunk_values(lt, obs, init, xl)
+    assert torch.equal(hats, ck.forward_chunk_values(lt, obs, init, xl)[0])
+    final, _dm = ck.forward_final(lt, obs, init, xl)
+    assert torch.equal(final, carry), "X1's two modes end in other carries"
+    beta, x_out = ck.backward_chunk_values(lt, obs, init, cont, xl)
+    assert torch.equal(
+        beta, ck.backward_chunk_values(lt, obs, init, cont, xl)[0])
+    ref = [_ref64(x) for x in
+           dp.forward_chunk_values(lt, obs, init, xl, dtype=torch.float64)
+           + dp.backward_chunk_values(lt, obs, init, cont, xl,
+                                      dtype=torch.float64)]
+    plain = (dp.forward_chunk_values(lt, obs, init, xl)
+             + dp.backward_chunk_values(lt, obs, init, cont, xl))
+    names = ("X1 hats", "X1 carry", "X2 beta", "X2 x_out")
+    err, ratio, f32 = {}, {}, {}
+    for name, got, want, fl in zip(names, (hats, carry, beta, x_out), ref,
+                                   plain):
+        f32[name] = _limit_ratio(fl, want, 0.0, lim)
+        assert f32[name] <= 1.0, \
+            f"{label} {name}: float32 plain at {f32[name]:.3f} of the limit"
+        err[name] = _assert_close(f"{label} {name}", got, want, 0.0, lim)
+        ratio[name] = _limit_ratio(got, want, 0.0, lim)
+    print(f"[kernels] {label} X1/X2 at S={S}, {X_B} rows of {X_L}, against "
+          f"plain in float64 within {lim:.3g} [worst error/limit: kernel; "
+          f"float32 plain]: " + ", ".join(
+              f"{k} {err[k]:.3g} [{ratio[k]:.3f}; {f32[k]:.3f}]"
+              for k in names), flush=True)
+    return (obs, init, cont, xl, x_lens), err, ratio, f32
+
+
+
 def phase_post_kernels(device, rng) -> dict:
     """K4's decode and the chunk sweeps X1, X2 against their plain
     versions, at the shapes the max-posterior path gives them."""
     import torch
 
-    from tehmm_tpu_torch.models.emission import track_log_likelihoods
     from tehmm_tpu_torch.ops import cuda_kernels as ck
     from tehmm_tpu_torch.ops import dp
 
@@ -643,56 +775,27 @@ def phase_post_kernels(device, rng) -> dict:
         fused_ms=_median_ms(lambda: ck.posterior_decode_fused(*args), 5),
     )
 
-    # X1 and X2 on obs of a few long rows, ragged
-    x_lens = np.asarray([X_L, 0, 1, rng.randint(2, X_L)], np.int32)
-    x_sym = torch.from_numpy(
-        rng.randint(0, V, size=(X_B, X_L, T)).astype(np.int32)).to(device)
-    obs = track_log_likelihoods(p.log_em, x_sym)
-    xl = torch.from_numpy(x_lens).to(device)
-    init = torch.from_numpy(rng.randn(X_B, S).astype(np.float32)).to(device)
-    init = init - init.amax(dim=-1, keepdim=True)
-    cont = torch.tensor([True, False, False, False], device=device)
+    # X1 and X2 on obs of a few long rows, ragged, against the plain
+    # versions carried in float64 at the F3 limit; then the same check on
+    # F3_SEEDS further draws, each from its own generator
+    (obs, init, cont, xl, x_lens), err, ratio, f32 = _sweep_check(
+        p, device, rng)
     lt = p.log_trans
-    # held to the plain versions carried in float64, whose own rounding
-    # then takes nothing of the limits; the distance to the float32 plain
-    # versions (two float32 scans summed in other orders) is printed
-    f64 = torch.float64
-    hats, carry = ck.forward_chunk_values(lt, obs, init, xl)
-    assert torch.equal(hats, ck.forward_chunk_values(lt, obs, init, xl)[0])
-    p_hats, p_carry = (_ref64(x) for x in dp.forward_chunk_values(
-        lt, obs, init, xl, dtype=f64))
     final, dm_sum = ck.forward_final(lt, obs, init, xl)
     assert torch.equal(dm_sum, ck.forward_final(lt, obs, init, xl)[1])
-    assert torch.equal(final, carry), "X1's two modes end in other carries"
-    _p_final, p_dm = dp.forward_final(lt, obs, init, xl, dtype=f64)
-    checks = {"X1 hats": (hats, p_hats, 0.0, 1e-5),
-              "X1 carry": (carry, p_carry, 1e-6, 1e-6)}
+    _p_final, p_dm = dp.forward_final(lt, obs, init, xl, dtype=torch.float64)
     # the summed normalizers (|sum| ~ 4e4) are held relative to their size
     dm_rel = _assert_close("X1 dm sum", dm_sum, p_dm, 1e-6, 1e-6) \
         / float(p_dm.abs().max())
-    beta, x_out = ck.backward_chunk_values(lt, obs, init, cont, xl)
-    assert torch.equal(
-        beta, ck.backward_chunk_values(lt, obs, init, cont, xl)[0])
-    p_beta, p_x = (_ref64(x) for x in dp.backward_chunk_values(
-        lt, obs, init, cont, xl, dtype=f64))
-    checks.update({"X2 beta": (beta, p_beta, 0.0, 1e-5),
-                   "X2 x_out": (x_out, p_x, 1e-6, 1e-6)})
-    err = {k: _assert_close(k, *c) for k, c in checks.items()}
-    ratio = {k: _limit_ratio(*c) for k, c in checks.items()}
     out["fwd_chunk"] = dict(max_abs_err=max(err["X1 hats"],
                                             err["X1 carry"]))
     out["bwd_chunk"] = dict(max_abs_err=max(err["X2 beta"],
                                             err["X2 x_out"]))
-    f32 = {name: float((a - b).abs().max()) for name, a, b in zip(
-        ("X1 hats", "X1 carry", "X2 beta", "X2 x_out"),
-        (hats, carry, beta, x_out),
-        dp.forward_chunk_values(lt, obs, init, xl)
-        + dp.backward_chunk_values(lt, obs, init, cont, xl))}
-    print("[kernels] X1/X2 against plain in float64 (against plain in "
-          "float32, printed, not held) [worst error/limit]: " + ", ".join(
-              f"{k} {err[k]:.3g} ({f32[k]:.3g}) [{ratio[k]:.3f}]"
-              for k in err)
-          + f", X1 dm sum {dm_rel:.3g} relative", flush=True)
+    print(f"[kernels] X1 dm sum {dm_rel:.3g} relative", flush=True)
+    for seed in range(F3_SEEDS):
+        srng = np.random.RandomState(seed)
+        _sweep_check(_decode_model(srng, device), device, srng,
+                     f"F3 seed {seed}")
     out["fwd_chunk"].update(
         ms=_median_ms(lambda: ck.forward_chunk_values(lt, obs, init, xl), 5),
         plain_ms=_median_ms(
@@ -935,7 +1038,7 @@ def phase_streaming_kernels(device, rng, seed) -> dict:
 
     out = {}
     f64 = torch.float64
-    for config in ENGINE_CONFIGS:
+    for config in ENGINE_CONFIGS + WIDE_CONFIGS:
         S_, T_, V_, B, L = bench_engines.CONFIGS[config]
         p, sym = bench_engines.make_inputs(S_, T_, V_, B, L, device, seed)
         lengths = _ragged(rng, B, L)
@@ -1124,6 +1227,190 @@ def phase_streaming_kernels(device, rng, seed) -> dict:
     return out
 
 
+def phase_maxplus(device) -> dict:
+    """K9: ``maxplus_sweeps`` in both layouts (the blocks layout at each
+    row-block size) against the plain version at Sp x MAXPLUS_BG on the
+    JAX tool's draw (seed 0): bit-equal, every operation an exact max or
+    one rounded add or subtract.  Times at every Sp; the Sp=256 results
+    go under the kernels' names, the others under ``name@S<Sp>``; the
+    blocks layout's row is its fastest row-block size."""
+    import torch
+
+    from tehmm_tpu_torch.ops import cuda_kernels as ck
+    from tehmm_tpu_torch.tools import exp_maxplus_s256 as tool
+
+    out = {}
+    for Sp in MAXPLUS_SP:
+        v, t = tool.make_inputs(Sp, MAXPLUS_BG, device)
+        want = ck.maxplus_sweeps_plain(v, t)
+        plain_ms = _median_ms(lambda: ck.maxplus_sweeps_plain(v, t), 3)
+        suffix = "" if Sp == MAXPLUS_SP[0] else f"@S{Sp}"
+        times = {}
+        for layout, blk in [("resident", None)] + [
+                ("blocks", b) for b in MAXPLUS_BLKS]:
+            got = ck.maxplus_sweeps(v, t, layout, blk)
+            assert torch.equal(got, want), \
+                f"maxplus_sweeps {layout} blk={blk} != plain at Sp={Sp}"
+            assert torch.equal(got, ck.maxplus_sweeps(v, t, layout, blk))
+            times[layout, blk] = _median_ms(
+                lambda: ck.maxplus_sweeps(v, t, layout, blk), 20)
+        bound = _bound("maxplus_blocks", (MAXPLUS_BG, ck.MAXPLUS_SWEEPS, Sp,
+                                          0, 0), 0)
+        best = min(MAXPLUS_BLKS, key=lambda b: times["blocks", b])
+        out["maxplus_resident" + suffix] = dict(
+            max_abs_err=0.0, ms=times["resident", None], plain_ms=plain_ms,
+            **bound)
+        out["maxplus_blocks" + suffix] = dict(
+            max_abs_err=0.0, ms=times["blocks", best], blk=best,
+            plain_ms=plain_ms,
+            **{f"ms_blk{b}": times["blocks", b] for b in MAXPLUS_BLKS},
+            **bound)
+        print(f"[maxplus] K9 at Sp={Sp} Bg={MAXPLUS_BG}, "
+              f"{ck.MAXPLUS_SWEEPS} sweeps: both layouts bit-equal to plain; "
+              f"resident {times['resident', None]:.3f} ms, blocks " +
+              ", ".join(f"blk={b} {times['blocks', b]:.3f} ms"
+                        for b in MAXPLUS_BLKS) +
+              f"; plain {plain_ms:.3f} ms; bound {bound['bound_ms']:.4f} ms "
+              f"({bound['bound_by']})", flush=True)
+        del v, t, want
+    return out
+
+
+def phase_maxplus_tool() -> dict:
+    """2m: the K9 tool through its entry point at each Sp of phase 2 (its
+    own rows: every formulation ok with max|delta| 0).  Returns {Sp:
+    launch counts of that run}."""
+    from tehmm_tpu_torch.ops import cuda_kernels as ck
+    from tehmm_tpu_torch.tools import exp_maxplus_s256 as tool
+
+    launches = {}
+    for Sp in MAXPLUS_SP:
+        ck.reset_launch_counts()
+        text = _run_cli(tool, ["--device", "cuda", "--sp", str(Sp),
+                               "--bg", str(MAXPLUS_BG)])
+        launches[Sp] = dict(ck.LAUNCHES)
+        for line in text.splitlines():
+            print(f"[maxplus] tool {line}", flush=True)
+        rows = [line for line in text.splitlines()
+                if not line.startswith("#")]
+        assert len(rows) == 1 + len(MAXPLUS_BLKS) and all(
+            " ok " in r and "max|delta| 0.00e+00" in r for r in rows), rows
+    return launches
+
+
+def phase_wide_sweeps(device, rng) -> dict:
+    """The carried sweeps past their one-warp kernels (``ck.sweep_fits``
+    is False from 240 states): K3 (``viterbi_chunk_values``,
+    ``viterbi_carry``), X1 and X2 on the scan tile's carry modes at
+    WIDE_SWEEP_STATES, on obs of X_B rows of X_L (ragged: full, 0, 1,
+    random) of a sticky random model at T, V.  K3 bit-equal to plain; X1
+    and X2 against plain in float64 at the F3 limit; X1's two modes end
+    in one carry; each sweep cut at SWEEP_CUTS gives the bits of one
+    chunk.  Results under ``name@S<S>``."""
+    import torch
+
+    from tehmm_tpu_torch.models.emission import track_log_likelihoods
+    from tehmm_tpu_torch.models.params import from_numpy
+    from tehmm_tpu_torch.ops import cuda_kernels as ck
+    from tehmm_tpu_torch.ops import dp
+
+    out = {}
+    f64 = torch.float64
+    for S_ in WIDE_SWEEP_STATES:
+        assert not ck.sweep_fits(S_)
+        p = from_numpy(*_sticky_model(rng, S_, T, V), device)
+        lengths = np.asarray([X_L, 0, 1, rng.randint(2, X_L)], np.int32)
+        sym = torch.from_numpy(
+            rng.randint(0, V, size=(X_B, X_L, T)).astype(np.int32)
+        ).to(device)
+        obs = track_log_likelihoods(p.log_em, sym)
+        lens = torch.from_numpy(lengths).to(device)
+        init = torch.from_numpy(
+            rng.randn(X_B, S_).astype(np.float32)).to(device)
+        init = init - init.amax(dim=-1, keepdim=True)
+        cont = torch.tensor([True, False, False, False], device=device)
+        lt = p.log_trans
+        lim = SCAN_ATOL + SCAN_OBS_ULPS * F32_EPS * float(obs.abs().max())
+        suffix = f"@S{S_}"
+        # K3: bit-equal, chunked == one chunk
+        v = ck.viterbi_chunk_values(lt, obs, init, lens)
+        assert torch.equal(v, dp.viterbi_chunk_values(lt, obs, init, lens))
+        carry = ck.viterbi_carry(lt, obs, init, lens)
+        assert torch.equal(carry, v[:, -1])
+        # X1, X2 against plain in float64
+        hats, a_carry = ck.forward_chunk_values(lt, obs, init, lens)
+        final, dm_sum = ck.forward_final(lt, obs, init, lens)
+        assert torch.equal(final, a_carry), "X1's two modes end apart"
+        beta, x_out = ck.backward_chunk_values(lt, obs, init, cont, lens)
+        ref = [_ref64(x) for x in
+               dp.forward_chunk_values(lt, obs, init, lens, dtype=f64)
+               + dp.backward_chunk_values(lt, obs, init, cont, lens,
+                                          dtype=f64)]
+        names = ("X1 hats", "X1 carry", "X2 beta", "X2 x_out")
+        err = {n: _assert_close(f"{n} S={S_}", g, w, 0.0, lim)
+               for n, g, w in zip(names, (hats, a_carry, beta, x_out), ref)}
+        ratio = {n: _limit_ratio(g, w, 0.0, lim)
+                 for n, g, w in zip(names, (hats, a_carry, beta, x_out),
+                                    ref)}
+        del ref
+        # a sweep cut into chunks: the bits of one chunk
+        v_c, a_c, x_c, c_c = init, init, init, cont
+        for lo, hi in zip(SWEEP_CUTS[:-1], SWEEP_CUTS[1:]):
+            o = obs[:, lo:hi].contiguous()
+            pl = torch.clamp(lens - lo, 0, hi - lo).to(torch.int32)
+            assert torch.equal(ck.viterbi_chunk_values(lt, o, v_c, pl),
+                               v[:, lo:hi]), f"K3 chunked S={S_}"
+            v_c = ck.viterbi_carry(lt, o, v_c, pl)
+            h, a_c = ck.forward_chunk_values(lt, o, a_c, pl)
+            assert torch.equal(h, hats[:, lo:hi]), f"X1 chunked S={S_}"
+        assert torch.equal(v_c, carry) and torch.equal(a_c, a_carry)
+        for lo, hi in reversed(list(zip(SWEEP_CUTS[:-1], SWEEP_CUTS[1:]))):
+            o = obs[:, lo:hi].contiguous()
+            pl = torch.clamp(lens - lo, 0, hi - lo).to(torch.int32)
+            b, x_c = ck.backward_chunk_values(lt, o, x_c, c_c, pl)
+            assert torch.equal(b, beta[:, lo:hi]), f"X2 chunked S={S_}"
+            c_c = lens > lo
+        assert torch.equal(x_c, x_out)
+        valid = int(lengths.sum())
+        shape = (X_B, X_L, S_, T, V)
+        out["viterbi_chunk_tile" + suffix] = dict(
+            max_abs_err=0.0,
+            ms=_median_ms(lambda: ck.viterbi_chunk_values(lt, obs, init,
+                                                          lens), 5),
+            plain_ms=_median_ms(
+                lambda: dp.viterbi_chunk_values(lt, obs, init, lens), 3),
+            **_bound("viterbi_chunk_tile", shape, valid))
+        out["fwd_chunk_tile" + suffix] = dict(
+            max_abs_err=max(err["X1 hats"], err["X1 carry"]),
+            ms=_median_ms(lambda: ck.forward_chunk_values(lt, obs, init,
+                                                          lens), 5),
+            plain_ms=_median_ms(
+                lambda: dp.forward_chunk_values(lt, obs, init, lens), 3),
+            **_bound("fwd_chunk_tile", shape, valid))
+        out["bwd_chunk_tile" + suffix] = dict(
+            max_abs_err=max(err["X2 beta"], err["X2 x_out"]),
+            ms=_median_ms(lambda: ck.backward_chunk_values(
+                lt, obs, init, cont, lens), 5),
+            plain_ms=_median_ms(lambda: dp.backward_chunk_values(
+                lt, obs, init, cont, lens), 3),
+            **_bound("bwd_chunk_tile", shape, valid))
+        print(f"[sweeps] K3/X1/X2 on the tile at S={S_}, {X_B} rows of "
+              f"{X_L} (ragged): K3 bit-equal to plain; X1/X2 within {lim:.3g}"
+              f" of plain in float64 [worst error/limit]: " + ", ".join(
+                  f"{n} {err[n]:.3g} [{ratio[n]:.3f}]" for n in names)
+              + f"; X1's two modes one carry; cut at {SWEEP_CUTS[1:-1]} "
+              f"== one chunk, bit for bit", flush=True)
+        for name in ("viterbi_chunk_tile", "fwd_chunk_tile",
+                     "bwd_chunk_tile"):
+            r = out[name + suffix]
+            print(f"[sweeps] {name + suffix:26s} kernel {r['ms']:9.3f} ms  "
+                  f"plain {r['plain_ms']:9.3f} ms  bound "
+                  f"{r['bound_ms']:.3f} ms ({r['bound_by']})", flush=True)
+        del p, sym, obs, v, hats, beta
+        torch.cuda.empty_cache()
+    return out
+
+
 def _tool_rows(text):
     return [json.loads(line) for line in text.splitlines()
             if line.startswith("{")]
@@ -1139,13 +1426,15 @@ def phase_engines(seed) -> dict:
 
     launches = {}
     t_phase = time.perf_counter()
-    for config in ENGINE_CONFIGS:
+    for config in ENGINE_CONFIGS + WIDE_CONFIGS:
         counts = {}
-        for mode, engines, needed in (
-                ((), "plain,cuda,cuda_v3,cuda_log", ("cuda_v3", "cuda_log")),
-                (("--decode",), "plain,streaming,fused,pointers",
-                 ("streaming", "pointers")),
-                (("--maxpost",), "plain,fused,scans", ("scans",))):
+        lists = WIDE_ENGINES if config in WIDE_CONFIGS else (
+            "plain,cuda,cuda_v3,cuda_log", "plain,streaming,fused,pointers",
+            "plain,fused,scans")
+        for mode, engines, needed in zip(
+                ((), ("--decode",), ("--maxpost",)), lists,
+                (("cuda_v3", "cuda_log"), ("streaming", "pointers"),
+                 ("scans",))):
             ck.reset_launch_counts()
             text = _run_cli(bench_engines, [
                 "--configs", config, "--engines", engines, "--iters",
@@ -1807,19 +2096,29 @@ def _windowed_gap(params, table, x, half=2048):
 
 
 def phase_envelopes(work, xml, n, seed, device="cuda"):
-    """3f: the routes past the fused kernels' envelopes, on the card
-    against the CPU.  F1: ``train`` (``MultitrackHmm.fit`` through the
-    E-step's ``"auto"``) at ENV_FIT_STATES states, past K1's envelope at
-    this data's T=5, V=9, on a planted region; ``auto`` takes ``cuda_v3``
-    (K6) and sizes its passes for it, not for K1, and the logliks equal
-    the CPU's within 1e-5 relative.  F2: the stitched Viterbi and
-    max-posterior decoders at ENV_DECODE_STATES states (past K2 and K4)
-    on a region of ENV_DECODE_REGION positions with a sticky random
-    model: the Viterbi runs obs, K5 and the
-    backtrace kernel and gives the CPU's paths; the max-posterior runs
-    K7a/K7b and agrees with the CPU on >= 99.999% of positions, each
-    differing position printed with its top-two posterior gap.  Returns
-    the launch counts of the three runs on the card."""
+    """3f: every route past the fused kernels' envelopes at the scan
+    tile's full width, ENV_STATES states, on the planted chromosome (T=5,
+    V=9), card against CPU.  ``train`` through the E-step's ``"auto"`` on
+    a region of ENV_FIT_REGION positions: ``auto`` takes ``cuda_v3`` (K6)
+    and sizes its passes for it, scaled to 256 / S (asserted), and the
+    logliks equal the CPU's within 1e-5 relative.  Then, with a sticky
+    random model, on ENV_TABLES regions of ENV_TABLE_LEN positions on the
+    card: the stitched Viterbi (obs, K5 and the backtrace kernel), the
+    exact Viterbi (``--exact``: K3 on the tile and the backtrace; its
+    paths equal the stitched ones), the stitched max-posterior (K7a/K7b),
+    ``posterior_sweep`` in chunks of ENV_PD_CHUNK (``--pd``'s path: X1
+    and X2 on the tile; its argmax equal to the stitched max-posterior on
+    >= 99.999% of the positions, each differing one a near-tie) and
+    ``MultitrackHmm.score`` (X1 on the tile).
+    The CPU runs the stitched decoders on the first ENV_CPU_TABLES
+    regions and ``--pd``'s sweep and the score on the first
+    ENV_PD_TABLES, ENV_CPU_ROWS rows a pass (the exact Viterbi is held
+    through the card's: exact == stitched on the card, stitched == the
+    CPU's): Viterbi paths equal; max-posterior paths and --pd's argmax
+    equal on >= 99.999% of the positions, every differing position printed
+    with its top-two posterior gap, which must be under NEAR_TIE; gammas
+    within 1e-5, scores within 1e-5 relative.  Returns the launch counts
+    of each run on the card."""
     import torch
 
     from tehmm_tpu_torch.cli import train as port_train
@@ -1830,7 +2129,7 @@ def phase_envelopes(work, xml, n, seed, device="cuda"):
     from tehmm_tpu_torch.parallel import stitch
 
     launches = {}
-    # F1
+    # train through "auto"
     lo = n // 3
     bed = _region_bed(work, "env_fit.bed", lo, lo + ENV_FIT_REGION)
     logs = {}
@@ -1840,97 +2139,171 @@ def phase_envelopes(work, xml, n, seed, device="cuda"):
         t0 = time.perf_counter()
         _run_cli(port_train, [
             xml, bed, os.path.join(work, f"env_fit_{dev}.npz"),
-            "--numStates", str(ENV_FIT_STATES), "--iter",
-            str(ENV_FIT_ITERS), "--chunk", str(ENV_FIT_CHUNK), "--seed",
-            str(seed), "--device", dev, "--logJson", log])
+            "--numStates", str(ENV_STATES), "--iter", str(ENV_FIT_ITERS),
+            "--chunk", str(ENV_FIT_CHUNK), "--seed", str(seed), "--device",
+            dev, "--logJson", log])
         wall = time.perf_counter() - t0
         if dev == device:
             launches["fit"] = dict(ck.LAUNCHES)
         logs[dev] = np.asarray([r["loglik"] for r in _em_log(log)])
-        print(f"[envelopes] F1: train at S={ENV_FIT_STATES} on "
-              f"{ENV_FIT_REGION} positions on {dev}: {wall:.2f} s, "
-              f"logliks {logs[dev].tolist()}", flush=True)
+        print(f"[envelopes] train at S={ENV_STATES} on {ENV_FIT_REGION} "
+              f"positions on {dev}: {wall:.2f} s, logliks "
+              f"{logs[dev].tolist()}", flush=True)
     fit = launches["fit"]
     assert fit["fwd_prob"] and fit["bwd_prob"] and not fit["em_fwd"], \
         f"auto did not take cuda_v3 past K1's envelope: {fit}"
-    # and sizes its passes for cuda_v3's [B, L, S] tensors, not K1's
+    # and sizes its passes for cuda_v3's [B, L, S] tensors at this S
     fit_params = from_numpy(*_sticky_model(np.random.RandomState(seed),
-                                           ENV_FIT_STATES, T, 9), device)
-    assert port_hmm._pass_positions(fit_params, None, fit_params.device) \
-        == port_hmm._MAX_PASS_POSITIONS, "F1: K1's pass budget past K1"
+                                           ENV_STATES, T, 9), device)
+    budget = port_hmm._pass_positions(fit_params, None, fit_params.device)
+    assert budget == port_hmm._MAX_PASS_POSITIONS * 256 // ENV_STATES, \
+        f"pass budget {budget} at S={ENV_STATES}"
     del fit_params
     assert len(logs[device]) == len(logs["cpu"]) >= ENV_FIT_ITERS - 1
     rel = float(np.max(np.abs(logs[device] - logs["cpu"])
                        / np.abs(logs["cpu"])))
-    assert rel <= 1e-5, f"F1: card and CPU logliks differ by {rel}"
-    print(f"[envelopes] F1: auto -> cuda_v3 ({fit['fwd_prob']} fwd_prob, "
-          f"{fit['bwd_prob']} bwd_prob, 0 em_fwd launches); loglik rel err "
-          f"card vs CPU {rel:.3g}", flush=True)
+    assert rel <= 1e-5, f"train: card and CPU logliks differ by {rel}"
+    print(f"[envelopes] auto -> cuda_v3 ({fit['fwd_prob']} fwd_prob, "
+          f"{fit['bwd_prob']} bwd_prob, 0 em_fwd launches), {budget} "
+          f"positions a pass; loglik rel err card vs CPU {rel:.3g}",
+          flush=True)
 
-    # F2
+    # the decoders, --pd's sweep and the score
     lo = n // 5
-    td = load_track_data(TrackList(xml),
-                         [("chr1", lo, lo + ENV_DECODE_REGION)])
-    tables = td.tables
-    T_ = tables[0].symbols.shape[1]
-    V_ = 9
+    regions = [("chr1", lo + k * ENV_TABLE_LEN, lo + (k + 1) * ENV_TABLE_LEN)
+               for k in range(ENV_TABLES)]
+    tables = load_track_data(TrackList(xml), regions).tables
+    T_, V_ = tables[0].symbols.shape[1], 9
     assert T_ == T and max(int(t.symbols.max()) for t in tables) < V_
-    model = _sticky_model(np.random.RandomState(seed + 3),
-                          ENV_DECODE_STATES, T_, V_)
-    assert not ck.k2_fits(ENV_DECODE_STATES, T_, V_) \
-        and not ck.k4_fits(ENV_DECODE_STATES, T_, V_)
-    paths, secs = {}, {}
-    for dev in (device, "cpu"):
+    model = _sticky_model(np.random.RandomState(seed + 3), ENV_STATES, T_,
+                          V_)
+    assert not ck.k2_fits(ENV_STATES, T_, V_) \
+        and not ck.k4_fits(ENV_STATES, T_, V_) \
+        and not ck.sweep_fits(ENV_STATES)
+
+    def runs(dev, tabs, pd_tabs, exact=True):
+        """(name -> (result, seconds)) of every decoder on ``tabs``;
+        ``--pd``'s sweep and the score on ``pd_tabs``."""
         params = from_numpy(*model, dev)
-        # the CPU's plain max-plus step makes a [rows, S, S] temporary:
-        # at the card's 512 rows a pass (245 here) it leaves the caches
-        # and takes ~10x as long a row, so the CPU decodes 32 rows a pass
-        # (rows are independent: the paths do not depend on it)
-        rows = {} if dev == device else {"rows_per_pass": 32}
-        for name, decode in (("viterbi", stitch.viterbi_chunked),
-                             ("maxpost", stitch.posterior_chunked)):
+        hmm_model = port_hmm.MultitrackHmm(params, None, {}, None)
+        rows = {} if dev == device else {"rows_per_pass": ENV_CPU_ROWS}
+
+        def pd(tb):
+            paths = [np.zeros(len(t.symbols), np.int32) for t in tb]
+            keep = [np.zeros((len(t.symbols), ENV_STATES), np.float32)
+                    for t in tb[:ENV_PD_TABLES]]
+
+            def consume(b, start, gamma):
+                paths[b][start : start + len(gamma)] = gamma.argmax(axis=-1)
+                if b < ENV_PD_TABLES:
+                    keep[b][start : start + len(gamma)] = gamma
+
+            stitch.posterior_sweep(params, tb, ENV_PD_CHUNK, consume)
+            return paths, keep
+
+        calls = [
+            ("viterbi", lambda: _checked(stitch.viterbi_chunked(
+                params, tabs, **rows))),
+            ("exact", lambda: stitch.viterbi_exact(params, tabs)),
+            ("maxpost", lambda: _checked(stitch.posterior_chunked(
+                params, tabs, **rows))),
+            ("pd", lambda: pd(pd_tabs)),
+            ("score", lambda: hmm_model.score(pd_tabs)),
+        ]
+        got = {}
+        for name, call in calls:
+            if name == "exact" and not exact:
+                continue
             ck.reset_launch_counts()
             t0 = time.perf_counter()
-            got, report = decode(params, tables, **rows)
+            result = call()
             if dev == device:
                 torch.cuda.synchronize()
                 launches[name] = dict(ck.LAUNCHES)
-            secs[dev, name] = time.perf_counter() - t0
-            assert report.boundaries_ok, report
-            paths[dev, name] = got
-        del params
+            got[name] = (result, time.perf_counter() - t0)
+        del params, hmm_model
         torch.cuda.empty_cache()
-    for name in ("viterbi", "maxpost"):
-        print(f"[envelopes] F2: {name} at S={ENV_DECODE_STATES} on "
-              f"{ENV_DECODE_REGION} positions: card {secs[device, name]:.2f}"
-              f" s, CPU {secs['cpu', name]:.2f} s; launches on the card "
+        return got
+
+    card = runs(device, tables, tables)
+    n_card = ENV_TABLES * ENV_TABLE_LEN
+    for name, (_r, secs) in card.items():
+        print(f"[envelopes] {name} at S={ENV_STATES} on {ENV_TABLES} regions"
+              f" of {ENV_TABLE_LEN} ({n_card} positions) on the card: "
+              f"{secs:.2f} s; launches "
               f"{ {k: v for k, v in launches[name].items() if v} }",
               flush=True)
-    vit = launches["viterbi"]
-    assert vit["viterbi_values"] and vit["viterbi_backtrace"] \
-        and not vit["viterbi_fwd"], vit
-    mp = launches["maxpost"]
-    assert mp["fwd_scaled"] and mp["bwd_scaled"] and not mp["post_decode"] \
-        and not mp["em_fwd"], mp
-    for g, c in zip(paths[device, "viterbi"], paths["cpu", "viterbi"]):
-        assert np.array_equal(g, c), "F2: card and CPU Viterbi paths differ"
-    n_diff = 0
+    for path, names in ENVELOPE_KERNELS.items():
+        assert all(launches[path][k] for k in names), (path, launches[path])
+    assert not launches["viterbi"]["viterbi_fwd"] \
+        and not launches["maxpost"]["post_decode"] \
+        and not launches["maxpost"]["em_fwd"]
+    # on the card: the exact Viterbi == the stitched one; --pd's argmax ==
+    # the stitched max-posterior but at near-ties
+    for g, e in zip(card["viterbi"][0], card["exact"][0]):
+        assert np.array_equal(g, e), "exact and stitched Viterbi differ"
+    pd_card_paths, pd_card_gamma = card["pd"][0]
     cpu_params = from_numpy(*model, "cpu")
-    for b, (g, c) in enumerate(zip(paths[device, "maxpost"],
-                                   paths["cpu", "maxpost"])):
-        where = np.flatnonzero(g != c)
-        n_diff += len(where)
-        for x in where[:20].tolist():
-            print(f"[envelopes] F2: max-posterior differs at position "
-                  f"{lo + x} (card state {int(g[x])}, CPU {int(c[x])}): "
-                  f"top-two posterior gap "
-                  f"{_windowed_gap(cpu_params, tables[b], x):.3g} relative",
-                  flush=True)
-    agree = 1.0 - n_diff / ENV_DECODE_REGION
-    assert agree >= 0.99999, f"F2: max-posterior agrees on {agree}"
-    print(f"[envelopes] F2: Viterbi paths card == CPU; max-posterior "
-          f"differs on {n_diff} of {ENV_DECODE_REGION} positions", flush=True)
+
+    def near_ties(what, mine, theirs, tabs):
+        """Positions where two argmax paths differ: >= 99.999% agree, and
+        every differing position is a near-tie (printed with its gap)."""
+        wheres = [np.flatnonzero(g != c) for g, c in zip(mine, theirs)]
+        n_diff = sum(len(w) for w in wheres)
+        n_pos = sum(len(c) for c in theirs)
+        assert 1.0 - n_diff / n_pos >= 0.99999, \
+            f"{what}: {n_diff} of {n_pos} positions differ"
+        for b, where in enumerate(wheres):
+            for x in where.tolist():
+                gap = _windowed_gap(cpu_params, tabs[b], x)
+                print(f"[envelopes] {what} differs at region {b} position "
+                      f"{x} ({int(mine[b][x])} against {int(theirs[b][x])})"
+                      f": top-two posterior gap {gap:.3g} relative",
+                      flush=True)
+                assert gap <= NEAR_TIE, f"{what}: not a near-tie ({gap})"
+        return n_diff
+
+    mp_diff = near_ties("card --pd argmax vs stitched max-posterior",
+                        pd_card_paths, card["maxpost"][0], tables)
+    print(f"[envelopes] card: exact Viterbi == stitched on every position;"
+          f" --pd's argmax differs from the stitched max-posterior on "
+          f"{mp_diff} of {n_card} positions, each a near-tie; score "
+          f"{card['score'][0]:.6f}", flush=True)
+
+    # the CPU on the first regions (the exact Viterbi through the card's:
+    # exact == stitched on the card, stitched == the CPU's)
+    sub = tables[:ENV_CPU_TABLES]
+    cpu = runs("cpu", sub, sub[:ENV_PD_TABLES], exact=False)
+    for name, (_r, secs) in cpu.items():
+        print(f"[envelopes] {name} on the CPU, {len(sub)} regions: "
+              f"{secs:.2f} s", flush=True)
+    for g, c in zip(card["viterbi"][0], cpu["viterbi"][0]):
+        assert np.array_equal(g, c), "card and CPU Viterbi paths differ"
+    n_sub = sum(len(t.symbols) for t in sub)
+    n_diff = (near_ties("maxpost card vs CPU", card["maxpost"][0],
+                        cpu["maxpost"][0], sub)
+              + near_ties("pd argmax card vs CPU", pd_card_paths,
+                          cpu["pd"][0][0], sub))
+    for g, c in zip(pd_card_gamma, cpu["pd"][0][1]):
+        _assert_close("--pd gamma card vs CPU", torch.from_numpy(g),
+                      torch.from_numpy(c), 0.0, 1e-5)
+    sub_score = port_hmm.MultitrackHmm(from_numpy(*model, device), None,
+                                       {}, None).score(sub[:ENV_PD_TABLES])
+    s_rel = abs(sub_score - cpu["score"][0]) / abs(cpu["score"][0])
+    assert s_rel <= 1e-5, f"scores differ by {s_rel} relative"
+    print(f"[envelopes] CPU on {n_sub} positions ({ENV_PD_TABLES} "
+          f"region(s) for --pd and the score): Viterbi == card; "
+          f"max-posterior and --pd argmax differ on {n_diff} positions, "
+          f"each a near-tie; --pd gammas within 1e-5; "
+          f"score rel err {s_rel:.3g}", flush=True)
     return launches
+
+
+def _checked(result):
+    """The paths of a stitched decode whose every boundary agreed."""
+    paths, report = result
+    assert report.boundaries_ok, report
+    return paths
 
 
 def _paint_region(bed_path, lo, n, names):
@@ -2281,9 +2654,18 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     kernels.update(phase_streaming_kernels(
         device, np.random.RandomState(args.seed + 2), args.seed))
+    torch.cuda.empty_cache()
+    kernels.update(phase_maxplus(device))
+    sweep_rows = phase_wide_sweeps(device,
+                                   np.random.RandomState(args.seed + 4))
+    kernels.update({k: r for k, r in sweep_rows.items()
+                    if k.endswith(f"@S{ENV_STATES}")})
+    torch.cuda.empty_cache()
     _phase_done("2", t_run)
     engine_launches = phase_engines(args.seed)
     _phase_done("2e", t_run)
+    maxplus_launches = phase_maxplus_tool()
+    _phase_done("2m", t_run)
 
     n = N_POSITIONS
     with tempfile.TemporaryDirectory(prefix="tehmm_chip_smoke_") as work:
@@ -2358,9 +2740,16 @@ def main(argv=None) -> int:
                 if seg_launches[k + "+wg"] == 0]
     missing += [f"{k}+w (3e)" for k in SEGMENT_KERNELS
                 if cat_launches[k + "+w"] == 0]
-    missing += [f"{k} (2e, {config})" for config in ENGINE_CONFIGS
+    missing += [f"{k} (2e, {config})"
+                for config in ENGINE_CONFIGS + WIDE_CONFIGS
                 for k in STREAMING_KERNELS + ("viterbi_backtrace",)
                 if engine_launches[config][k] == 0]
+    for Sp, counts in maxplus_launches.items():
+        print(f"[launches] K9 tool (2m) at Sp={Sp}: "
+              f"{ {k: n for k, n in counts.items() if n} }", flush=True)
+        missing += [f"{k} (2m, Sp={Sp})"
+                    for k in ("maxplus_resident", "maxplus_blocks")
+                    if counts[k] == 0]
     for path, names in ENVELOPE_KERNELS.items():
         print(f"[launches] past the envelopes (3f), {path}: "
               f"{ {k: n for k, n in env_launches[path].items() if n} }",
@@ -2374,10 +2763,20 @@ def main(argv=None) -> int:
                      if k not in launches})
     by_variant = {"+g": gauss_launches, "+wg": seg_launches,
                   "+w": cat_launches}
+    # the tile's carry modes at ENV_STATES: 3f's exact Viterbi, --pd's
+    # sweep and the score
+    tile_paths = {"viterbi_chunk_tile": ("exact",),
+                  "fwd_chunk_tile": ("pd", "score"), "bwd_chunk_tile": ("pd",)}
     for name in kernels:
         base, _, config = name.partition("@")
         if "+" in name:
             launches[name] = by_variant["+" + name.split("+")[1]][name]
+        elif base.startswith("maxplus_"):
+            Sp = int(config[1:]) if config else MAXPLUS_SP[0]
+            launches[name] = maxplus_launches[Sp][base]
+        elif base in tile_paths:
+            launches[name] = sum(env_launches[path][base]
+                                 for path in tile_paths[base])
         elif config or base in STREAMING_KERNELS:
             launches[name] = \
                 engine_launches[config or ENGINE_CONFIGS[0]][base]

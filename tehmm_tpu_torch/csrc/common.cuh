@@ -1,8 +1,10 @@
 // Helpers shared by the port's kernels (viterbi.cu, em_estep.cu,
-// posterior.cu): one warp per batch row with lane <-> state, up to 8
+// posterior.cu; through scan_tile.cuh streaming.cu and scans.cu;
+// maxplus.cu): one warp per batch row with lane <-> state, up to 8
 // states per lane, tables staged into shared memory by the whole block,
-// and the one in-register observation routine (obs_log) with its optional
-// segment-weight and gaussian streams.  Everything is in an anonymous
+// the one in-register observation routine (obs_log) with its optional
+// segment-weight and gaussian streams, and the cp.async staging of
+// matrix rows.  Everything is in an anonymous
 // namespace: each source gets its own copy.
 
 #pragma once
@@ -161,6 +163,80 @@ __host__ __device__ __forceinline__ size_t coef_floats(int S,
                                                       const void* values,
                                                       int G) {
   return values != nullptr ? (size_t)S * 3 * G : 0;
+}
+
+// cp.async: copies from global into shared memory that the thread does
+// not wait for until cp_async_wait (sm_80 and later).
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Issue the copy of T's rows [i0, min(i0 + blk, Sp)) into dst (16-byte
+// pieces where Sp is a multiple of 4 and T 16-byte aligned, else 4-byte
+// ones) and commit it.  dst must be 16-byte aligned.
+__device__ __forceinline__ void stage_rows_async(float* dst, const float* T,
+                                                 int i0, int blk, int Sp) {
+  const int rows = min(blk, Sp - i0);
+  const float* src = T + (int64_t)i0 * Sp;
+  const int n = rows * Sp;
+  if ((Sp & 3) == 0 && (reinterpret_cast<uintptr_t>(T) & 15) == 0) {
+    for (int k = threadIdx.x * 4; k < n; k += blockDim.x * 4)
+      cp_async16(dst + k, src + k);
+  } else {
+    for (int k = threadIdx.x; k < n; k += blockDim.x)
+      cp_async4(dst + k, src + k);
+  }
+  cp_async_commit();
+}
+
+// The staging ring: fold(cur, i0, i1) for the blocks of blk rows of T
+// [Sp][Sp] in order, cur the rows [i0, i1) in shared memory (dst holds
+// n_slots slots of blk * Sp floats).  With two slots block k + 1 is in
+// flight while block k is folded; with one the next copy starts after the
+// fold.  Call with the whole block; it synchronizes.
+template <typename Fold>
+__device__ __forceinline__ void for_each_staged_block(float* dst,
+                                                      const float* T, int Sp,
+                                                      int blk, int n_slots,
+                                                      Fold fold) {
+  const int n_blk = (Sp + blk - 1) / blk;
+  const int slot = blk * Sp;
+  stage_rows_async(dst, T, 0, blk, Sp);
+  for (int k = 0; k < n_blk; ++k) {
+    const float* cur = dst + (n_slots == 2 ? (k & 1) * slot : 0);
+    if (n_slots == 2 && k + 1 < n_blk) {
+      // the other slot was last read by block k - 1, which every thread
+      // finished before the barrier that ended its fold
+      stage_rows_async(dst + ((k + 1) & 1) * slot, T, (k + 1) * blk, blk,
+                       Sp);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // block k is in shared memory for every thread
+    const int i0 = k * blk;
+    fold(cur, i0, min(i0 + blk, Sp));
+    __syncthreads();  // the slot may be refilled
+    if (n_slots == 1 && k + 1 < n_blk)
+      stage_rows_async(dst, T, (k + 1) * blk, blk, Sp);
+  }
 }
 
 // Opt a kernel in to ``smem`` bytes of dynamic shared memory (above 48 KB

@@ -38,26 +38,35 @@
 //             by its max nm; dm[t] = xm + nm.
 //   Viterbi   K5's max-plus forward (streaming.cu), writing at every
 //             position the argmax predecessor of every state, first hit
-//             (the lowest index) on ties, as uint8 (S <= 256); only the
-//             last value row is kept.  The chase walks the pointers back
-//             from the first-hit argmax of that row.
+//             (the lowest index) on ties, as uint8 (S <= 256) or
+//             uint16 (to S = 1024); only the last value row is kept.
+//             The chase walks the pointers back from the first-hit
+//             argmax of that row.
 // Positions at or past a row's length carry the row with a zero normalizer
 // (the forward's position 0 excepted, as in the reference) and, in the
 // Viterbi, the identity pointer, so paths replicate the last valid state.
 //
 // What bounds them on an H100: as streaming.cu's scans, the chain of L
 // dependent steps; each step adds one expf and one logf per cell (the
-// backward: a second max reduction) to K6's S-term product.  The chase is
-// one dependent byte load per position.
+// backward: a second max reduction) to K6's S-term product; past 256
+// states the re-read of the matrix from L2 every step.  The chase is one
+// dependent pointer load per position.
 //
 // Design: scan_tile.cuh's tile (a block of 256 threads owns a tile of rows
-// for the whole scan, one thread per state, one or two rows per thread, as
-// many matrix rows as fit in shared memory and the rest through the
-// read-only path).  The log-space scans keep the row's log values in
-// registers and put its exp in the tile's state vectors, so the product
-// is K6's (ProbOps) loop on the same matrix layout; the Viterbi's product
-// tracks, beside each of its four partial maxima, the index that set it.
-// The chase is one thread per batch row.
+// for the whole scan, one thread per state to S = 256 and 2 or 4 beyond,
+// one or two rows per thread (beyond, two or four rows a block, all of
+// them the thread's); as many matrix rows as fit in shared memory and the
+// rest through the read-only path, or past 256 states the matrix staged
+// block by block every step).  The log-space scans keep the row's
+// log values in registers and put its exp in the tile's state vectors, so
+// the product is K6's (ProbOps) loop on the same matrix layout; the
+// Viterbi's product tracks, beside each of its four partial maxima (one
+// chain in row order past 256 states), the index that set it.  The chase
+// is one thread per batch row.  The carry modes of X1 (K7a started from
+// each row's carry, every position a product step) and X2 (K7b, whose
+// step at the chunk's last position takes exp of the carry and whose
+// x_out is renormalized after position 0) run the same loops, so a sweep
+// cut into chunks executes the same instructions as one chunk.
 //
 // Numerics: each product is summed in K6's fixed order, four interleaved
 // FMA chains added pairwise, that depends on S alone (no atomics, no
@@ -70,67 +79,98 @@
 //
 // All global index arithmetic is 64-bit.
 
+#include <type_traits>
+
 #include "scan_tile.cuh"
 
 namespace {
 
 constexpr int kChaseThreads = 32;  // threads per block of the chase
 
-// K7a/K8a: log-space scaled forward values and their normalizers.
-template <int RT>
+// K7a/K8a: log-space scaled forward values and their normalizers.  With
+// ``carry_in``, X1's carry mode: the row's carry is the value row before
+// position 0, every position applies the product, and ``alpha_out``
+// (values), ``dm_out`` (carry-only mode) and ``carry_out`` (the last row)
+// may each be nullptr.
+template <int SPT, int RT>
 __global__ void __launch_bounds__(kThreads)
     fwd_scaled_kernel(const float* __restrict__ obs,
                       const int32_t* __restrict__ lens,
                       const float* __restrict__ log_start,
+                      const float* __restrict__ carry_in,
                       const float* __restrict__ trans_p,
                       float* __restrict__ alpha_out,
-                      float* __restrict__ dm_out, int64_t B, int64_t L,
-                      int S, int n_s) {
+                      float* __restrict__ dm_out,
+                      float* __restrict__ carry_out, int64_t B, int64_t L,
+                      int S, int n_s, int n_slots) {
   extern __shared__ __align__(16) float smem[];
-  Tile<RT> tl(smem, trans_p, lens, B, L, S, n_s);
-  const int j = tl.j;
-  float a[RT], o_next[RT];
+  Tile<SPT, RT> tl(smem, trans_p, lens, B, L, S, n_s);
+  const bool carried = carry_in != nullptr;
+  float a[SPT][RT], o_next[SPT][RT], start_j[SPT];
 #pragma unroll
-  for (int k = 0; k < RT; ++k) {
-    a[k] = 0.0f;
-    o_next[k] = tl.len[k] > 0 ? obs[(tl.b0 + k) * L * S + j] : 0.0f;
+  for (int q = 0; q < SPT; ++q) {
+    const int jq = tl.jq(q);
+    const bool has = tl.has(q, S);
+    start_j[q] = has && !carried ? log_start[jq] : 0.0f;
+#pragma unroll
+    for (int k = 0; k < RT; ++k) {
+      a[q][k] = carried && has && tl.live[k]
+                    ? carry_in[(tl.b0 + k) * S + jq]
+                    : 0.0f;
+      if (carried && has) tl.s_p[jq * tl.R + tl.row + k] = expf(a[q][k]);
+      o_next[q][k] =
+          has && tl.len[k] > 0 ? obs[(tl.b0 + k) * L * S + jq] : 0.0f;
+    }
   }
-  const float start_j = tl.active ? log_start[j] : 0.0f;
+  if (carried) __syncthreads();
 
   for (int64_t t = 0; t < L; ++t) {
-    if (t > 0 && t >= tl.max_len) {
+    if ((t > 0 || carried) && t >= tl.max_len) {
       // every row of the block is past its end: carried rows, zeros
 #pragma unroll
       for (int k = 0; k < RT; ++k) {
         if (!tl.live[k]) continue;
         const int64_t pos = (tl.b0 + k) * L + t;
-        alpha_out[pos * S + j] = a[k];
-        if (j == 0) dm_out[pos] = 0.0f;
+        if (alpha_out != nullptr)
+#pragma unroll
+          for (int q = 0; q < SPT; ++q)
+            if (tl.has(q, S)) alpha_out[pos * S + tl.jq(q)] = a[q][k];
+        if (tl.j == 0 && dm_out != nullptr) dm_out[pos] = 0.0f;
       }
       continue;
     }
-    float o[RT], u[RT];
+    float o[SPT][RT], u[SPT][RT];
 #pragma unroll
-    for (int k = 0; k < RT; ++k) {
-      o[k] = o_next[k];
-      o_next[k] = t + 1 < tl.len[k]
-                      ? obs[((tl.b0 + k) * L + t + 1) * S + j]
-                      : 0.0f;
-    }
-    if (t == 0) {
+    for (int q = 0; q < SPT; ++q)
 #pragma unroll
-      for (int k = 0; k < RT; ++k)
-        u[k] = tl.len[k] > 0 ? start_j + o[k] : kLogZero;
+      for (int k = 0; k < RT; ++k) {
+        o[q][k] = o_next[q][k];
+        o_next[q][k] = tl.has(q, S) && t + 1 < tl.len[k]
+                           ? obs[((tl.b0 + k) * L + t + 1) * S + tl.jq(q)]
+                           : 0.0f;
+      }
+    const bool first = t == 0 && !carried;
+    if (first) {
+#pragma unroll
+      for (int q = 0; q < SPT; ++q)
+#pragma unroll
+        for (int k = 0; k < RT; ++k)
+          u[q][k] = tl.len[k] > 0 ? start_j[q] + o[q][k] : kLogZero;
     } else if (tl.active) {
-      float s[RT];
-      tl.template product<ProbOps>(trans_p, S, n_s, s);
+      float s[SPT][RT];
+      tl.template product<ProbOps>(trans_p, S, n_s, n_slots, s);
 #pragma unroll
-      for (int k = 0; k < RT; ++k)
-        u[k] = (s[k] > 0.0f ? logf(s[k]) : kLogZero) + o[k];
+      for (int q = 0; q < SPT; ++q)
+#pragma unroll
+        for (int k = 0; k < RT; ++k)
+          u[q][k] = (s[q][k] > 0.0f ? logf(s[q][k]) : kLogZero) + o[q][k];
     }
     if (tl.active) {
 #pragma unroll
-      for (int k = 0; k < RT; ++k) tl.s_u[(tl.row + k) * S + j] = u[k];
+      for (int q = 0; q < SPT; ++q)
+#pragma unroll
+        for (int k = 0; k < RT; ++k)
+          if (tl.has(q, S)) tl.s_u[(tl.row + k) * S + tl.jq(q)] = u[q][k];
     }
     __syncthreads();
     tl.rows_max(S, kLogZero);
@@ -141,70 +181,137 @@ __global__ void __launch_bounds__(kThreads)
         const float m = tl.s_m[tl.row + k];
         // position 0 is renormalized in every row, as the reference
         // does (a zero-length row: all LOG_ZERO, so a = 0, dm = LOG_ZERO)
-        const bool valid = t == 0 || t < tl.len[k];
-        if (valid) a[k] = u[k] - m;
-        tl.s_p[j * tl.R + tl.row + k] = expf(a[k]);
-        if (tl.live[k]) {
-          const int64_t pos = (tl.b0 + k) * L + t;
-          alpha_out[pos * S + j] = a[k];
-          if (j == 0) dm_out[pos] = valid ? m : 0.0f;
+        const bool valid = first || t < tl.len[k];
+        const int64_t pos = (tl.b0 + k) * L + t;
+#pragma unroll
+        for (int q = 0; q < SPT; ++q) {
+          if (!tl.has(q, S)) continue;
+          if (valid) a[q][k] = u[q][k] - m;
+          tl.s_p[tl.jq(q) * tl.R + tl.row + k] = expf(a[q][k]);
+          if (tl.live[k] && alpha_out != nullptr)
+            alpha_out[pos * S + tl.jq(q)] = a[q][k];
         }
+        if (tl.live[k] && tl.j == 0 && dm_out != nullptr)
+          dm_out[pos] = valid ? m : 0.0f;
       }
     }
     __syncthreads();
+  }
+  if (carry_out != nullptr) {
+#pragma unroll
+    for (int q = 0; q < SPT; ++q)
+#pragma unroll
+      for (int k = 0; k < RT; ++k)
+        if (tl.has(q, S) && tl.live[k])
+          carry_out[(tl.b0 + k) * S + tl.jq(q)] = a[q][k];
   }
 }
 
 // K7b/K8b: log-space scaled backward values and their normalizers.
 // ``trans_t`` is exp(log_trans) transposed, so that
 // s_i = sum_j trans[i][j] exp(x_j) runs through the tile's product loop.
-template <int RT>
+// With ``x_carry``, X2's carry mode: position L - 1 takes the step from
+// the carry (the next chunk's normalized obs + beta row, exponentiated as
+// it is) where ``continuing`` says the row goes on, and after position 0
+// x_out = obs[0] + beta[0] less its max goes out; ``dm_out`` may then be
+// nullptr.
+template <int SPT, int RT>
 __global__ void __launch_bounds__(kThreads)
     bwd_scaled_kernel(const float* __restrict__ obs,
                       const int32_t* __restrict__ lens,
+                      const float* __restrict__ x_carry,
+                      const int32_t* __restrict__ continuing,
                       const float* __restrict__ trans_t,
                       float* __restrict__ beta_out,
-                      float* __restrict__ dm_out, int64_t B, int64_t L,
-                      int S, int n_s) {
+                      float* __restrict__ dm_out,
+                      float* __restrict__ x_out, int64_t B, int64_t L,
+                      int S, int n_s, int n_slots) {
   extern __shared__ __align__(16) float smem[];
-  Tile<RT> tl(smem, trans_t, lens, B, L, S, n_s);
-  const int j = tl.j;
+  Tile<SPT, RT> tl(smem, trans_t, lens, B, L, S, n_s);
+  const bool carried = x_carry != nullptr;
   // A step consumes its observation row first thing, so the rows are
   // loaded two steps ahead (as in streaming.cu's backward).
-  float b[RT], o_next[RT], o_next2[RT];
+  float b[SPT][RT], o_next[SPT][RT], o_next2[SPT][RT];
+  bool cont[RT];
+  // the first in-chunk step that runs reads position max_len - 1
+  const int64_t t1 = tl.max_len - 1;
 #pragma unroll
-  for (int k = 0; k < RT; ++k) {
-    b[k] = 0.0f;
-    // the first step that runs reads position max_len - 1
-    const int64_t t1 = tl.max_len - 1;
-    o_next[k] = t1 >= 1 && t1 < tl.len[k]
-                    ? obs[((tl.b0 + k) * L + t1) * S + j]
-                    : 0.0f;
-    o_next2[k] = t1 >= 2 && t1 - 1 < tl.len[k]
-                     ? obs[((tl.b0 + k) * L + t1 - 1) * S + j]
-                     : 0.0f;
-  }
+  for (int k = 0; k < RT; ++k)
+    cont[k] = carried && tl.live[k] && continuing[tl.b0 + k] != 0;
+#pragma unroll
+  for (int q = 0; q < SPT; ++q)
+#pragma unroll
+    for (int k = 0; k < RT; ++k) {
+      const int64_t base = (tl.b0 + k) * L * S + tl.jq(q);
+      b[q][k] = 0.0f;
+      o_next[q][k] = tl.has(q, S) && t1 >= 1 && t1 < tl.len[k]
+                         ? obs[base + t1 * S]
+                         : 0.0f;
+      o_next2[q][k] = tl.has(q, S) && t1 >= 2 && t1 - 1 < tl.len[k]
+                          ? obs[base + (t1 - 1) * S]
+                          : 0.0f;
+    }
 
   for (int64_t t = L - 1; t >= 0; --t) {
     float d[RT];
 #pragma unroll
     for (int k = 0; k < RT; ++k) d[k] = 0.0f;
-    if (t + 1 < tl.max_len) {
-      float o[RT], x[RT], xm[RT], s[RT];
-#pragma unroll
-      for (int k = 0; k < RT; ++k) {
-        o[k] = o_next[k];
-        o_next[k] = o_next2[k];
-        o_next2[k] = t >= 2 && t - 1 < tl.len[k]
-                         ? obs[((tl.b0 + k) * L + t - 1) * S + j]
-                         : 0.0f;
-      }
+    if (carried && t == L - 1) {
+      // the boundary step: exp(x_carry) through the product
+      float s[SPT][RT];
       if (tl.active) {
 #pragma unroll
+        for (int q = 0; q < SPT; ++q)
+#pragma unroll
+          for (int k = 0; k < RT; ++k)
+            if (tl.has(q, S))
+              tl.s_p[tl.jq(q) * tl.R + tl.row + k] = expf(
+                  tl.live[k] ? x_carry[(tl.b0 + k) * S + tl.jq(q)] : 0.0f);
+      }
+      __syncthreads();
+      if (tl.active) {
+        tl.template product<ProbOps>(trans_t, S, n_s, n_slots, s);
+#pragma unroll
+        for (int q = 0; q < SPT; ++q)
+#pragma unroll
+          for (int k = 0; k < RT; ++k) {
+            s[q][k] = s[q][k] > 0.0f ? logf(s[q][k]) : kLogZero;
+            if (tl.has(q, S)) tl.s_u[(tl.row + k) * S + tl.jq(q)] = s[q][k];
+          }
+      }
+      __syncthreads();
+      tl.rows_max(S, kLogZero);
+      __syncthreads();
+      if (tl.active) {
+#pragma unroll
+        for (int k = 0; k < RT; ++k)
+          if (cont[k])
+#pragma unroll
+            for (int q = 0; q < SPT; ++q)
+              b[q][k] = s[q][k] - tl.s_m[tl.row + k];
+      }
+    } else if (t + 1 < tl.max_len) {
+      float o[SPT][RT], x[SPT][RT], xm[RT], s[SPT][RT];
+#pragma unroll
+      for (int q = 0; q < SPT; ++q)
+#pragma unroll
         for (int k = 0; k < RT; ++k) {
-          x[k] = o[k] + b[k];
-          tl.s_u[(tl.row + k) * S + j] = x[k];
+          o[q][k] = o_next[q][k];
+          o_next[q][k] = o_next2[q][k];
+          o_next2[q][k] =
+              tl.has(q, S) && t >= 2 && t - 1 < tl.len[k]
+                  ? obs[((tl.b0 + k) * L + t - 1) * S + tl.jq(q)]
+                  : 0.0f;
         }
+      if (tl.active) {
+#pragma unroll
+        for (int q = 0; q < SPT; ++q)
+#pragma unroll
+          for (int k = 0; k < RT; ++k) {
+            if (!tl.has(q, S)) continue;
+            x[q][k] = o[q][k] + b[q][k];
+            tl.s_u[(tl.row + k) * S + tl.jq(q)] = x[q][k];
+          }
       }
       __syncthreads();
       tl.rows_max(S, kLogZero);
@@ -213,17 +320,22 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
         for (int k = 0; k < RT; ++k) {
           xm[k] = tl.s_m[tl.row + k];
-          tl.s_p[j * tl.R + tl.row + k] = expf(x[k] - xm[k]);
+#pragma unroll
+          for (int q = 0; q < SPT; ++q)
+            if (tl.has(q, S))
+              tl.s_p[tl.jq(q) * tl.R + tl.row + k] = expf(x[q][k] - xm[k]);
         }
       }
       __syncthreads();
       if (tl.active) {
-        tl.template product<ProbOps>(trans_t, S, n_s, s);
+        tl.template product<ProbOps>(trans_t, S, n_s, n_slots, s);
 #pragma unroll
-        for (int k = 0; k < RT; ++k) {
-          s[k] = s[k] > 0.0f ? logf(s[k]) : kLogZero;
-          tl.s_u[(tl.row + k) * S + j] = s[k];
-        }
+        for (int q = 0; q < SPT; ++q)
+#pragma unroll
+          for (int k = 0; k < RT; ++k) {
+            s[q][k] = s[q][k] > 0.0f ? logf(s[q][k]) : kLogZero;
+            if (tl.has(q, S)) tl.s_u[(tl.row + k) * S + tl.jq(q)] = s[q][k];
+          }
       }
       __syncthreads();
       tl.rows_max(S, kLogZero);
@@ -233,7 +345,8 @@ __global__ void __launch_bounds__(kThreads)
         for (int k = 0; k < RT; ++k) {
           if (t + 1 < tl.len[k]) {
             const float nm = tl.s_m[tl.row + k];
-            b[k] = s[k] - nm;
+#pragma unroll
+            for (int q = 0; q < SPT; ++q) b[q][k] = s[q][k] - nm;
             d[k] = xm[k] + nm;
           }
         }
@@ -243,117 +356,179 @@ __global__ void __launch_bounds__(kThreads)
     for (int k = 0; k < RT; ++k) {
       if (!tl.live[k]) continue;
       const int64_t pos = (tl.b0 + k) * L + t;
-      beta_out[pos * S + j] = b[k];
-      if (j == 0) dm_out[pos] = d[k];
+#pragma unroll
+      for (int q = 0; q < SPT; ++q)
+        if (tl.has(q, S)) beta_out[pos * S + tl.jq(q)] = b[q][k];
+      if (tl.j == 0 && dm_out != nullptr) dm_out[pos] = d[k];
+    }
+  }
+  if (carried) {
+    // x_out = obs[0] + beta[0], less its max
+    float x[SPT][RT];
+    __syncthreads();  // s_u's last readers are done
+    if (tl.active) {
+#pragma unroll
+      for (int q = 0; q < SPT; ++q)
+#pragma unroll
+        for (int k = 0; k < RT; ++k) {
+          if (!tl.has(q, S)) continue;
+          x[q][k] = (tl.live[k] ? obs[(tl.b0 + k) * L * S + tl.jq(q)]
+                                : 0.0f) +
+                    b[q][k];
+          tl.s_u[(tl.row + k) * S + tl.jq(q)] = x[q][k];
+        }
+    }
+    __syncthreads();
+    tl.rows_max(S, kLogZero);
+    __syncthreads();
+    if (tl.active) {
+#pragma unroll
+      for (int q = 0; q < SPT; ++q)
+#pragma unroll
+        for (int k = 0; k < RT; ++k)
+          if (tl.has(q, S) && tl.live[k])
+            x_out[(tl.b0 + k) * S + tl.jq(q)] =
+                x[q][k] - tl.s_m[tl.row + k];
     }
   }
 }
 
-// best[k] = max_i (s_p[i][row + k] + M[i][j]) and arg[k] its first-hit i,
-// over the rows of M below n_s from shared memory and the rest through the
-// read-only path: four partial maxima over i = 0, 1, 2, 3 (mod 4), each
-// with the index that set it (strict >, so the lowest within a chain),
-// combined by value and then by the lower index.
-template <int RT>
-__device__ __forceinline__ void maxplus_argmax(const Tile<RT>& tl,
-                                               const float* __restrict__ mat,
-                                               int S, int n_s,
-                                               float (&best)[RT],
-                                               int (&arg)[RT]) {
-  float a[RT][4];
-  int ia[RT][4];
+// best[q][k] = max_i (s_p[i][row + k] + M[i][jq(q)]) and arg[q][k] its
+// first-hit i.  Narrow: the rows of M below n_s from shared memory and the
+// rest through the read-only path, four partial maxima over i = 0, 1, 2, 3
+// (mod 4), each with the index that set it (strict >, so the lowest within
+// a chain), combined by value and then by the lower index.  Wide: one
+// chain in row order with a strict >, which is the same first hit.
+template <int SPT, int RT>
+__device__ __forceinline__ void maxplus_argmax(
+    const Tile<SPT, RT>& tl, const float* __restrict__ mat, int S, int n_s,
+    int n_slots, float (&best)[SPT][RT], int (&arg)[SPT][RT]) {
+  if constexpr (SPT > 1) {
 #pragma unroll
-  for (int k = 0; k < RT; ++k)
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      a[k][q] = -INFINITY;
-      ia[k][q] = S;
-    }
-  const int j = tl.j;
-  const float* p = tl.s_p + tl.row;
-  const int S4 = S & ~3;
-  const int n4 = n_s < S ? n_s : S4;
-  float pv[RT];
-  for (int i = 0; i < n4; i += 4) {
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const float tv = tl.s_T[(i + q) * S + j];
-      load_rows<RT>(p + (i + q) * tl.R, pv);
+    for (int q = 0; q < SPT; ++q)
 #pragma unroll
       for (int k = 0; k < RT; ++k) {
-        const float c = pv[k] + tv;
-        if (c > a[k][q]) {
-          a[k][q] = c;
-          ia[k][q] = i + q;
+        best[q][k] = -INFINITY;
+        arg[q][k] = S;
+      }
+    tl.sweep_rows(mat, S, n_s, n_slots, [&](int i, int,
+                                            const float (&pv)[RT],
+                           const float (&tv)[SPT]) {
+#pragma unroll
+      for (int q = 0; q < SPT; ++q)
+#pragma unroll
+        for (int k = 0; k < RT; ++k) {
+          const float c = pv[k] + tv[q];
+          if (c > best[q][k]) {
+            best[q][k] = c;
+            arg[q][k] = i;
+          }
+        }
+    });
+  } else {
+    float a[RT][4];
+    int ia[RT][4];
+#pragma unroll
+    for (int k = 0; k < RT; ++k)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        a[k][q] = -INFINITY;
+        ia[k][q] = S;
+      }
+    const int j = tl.j;
+    const float* p = tl.s_p + tl.row;
+    const int S4 = S & ~3;
+    const int n4 = n_s < S ? n_s : S4;
+    // as Tile::product: a group's operands are loaded before its steps
+    float tv[4], pv4[4][RT];
+    auto steps = [&](int i) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+#pragma unroll
+        for (int k = 0; k < RT; ++k) {
+          const float c = pv4[q][k] + tv[q];
+          if (c > a[k][q]) {
+            a[k][q] = c;
+            ia[k][q] = i + q;
+          }
+        }
+    };
+    for (int i = 0; i < n4; i += 4) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        tv[q] = tl.s_T[(i + q) * S + j];
+        load_rows<RT>(p + (i + q) * tl.R, pv4[q]);
+      }
+      steps(i);
+    }
+    for (int i = n4; i < S4; i += 4) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        tv[q] = __ldg(mat + (int64_t)(i + q) * S + j);
+        load_rows<RT>(p + (i + q) * tl.R, pv4[q]);
+      }
+      steps(i);
+    }
+    float pv[RT];
+    for (int i = S4; i < S; ++i) {
+      const float t1 =
+          i < n_s ? tl.s_T[i * S + j] : __ldg(mat + (int64_t)i * S + j);
+      load_rows<RT>(p + i * tl.R, pv);
+#pragma unroll
+      for (int k = 0; k < RT; ++k) {
+        const float c = pv[k] + t1;
+        if (c > a[k][0]) {
+          a[k][0] = c;
+          ia[k][0] = i;
         }
       }
     }
-  }
-  for (int i = n4; i < S4; i += 4) {
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const float tv = __ldg(mat + (int64_t)(i + q) * S + j);
-      load_rows<RT>(p + (i + q) * tl.R, pv);
-#pragma unroll
-      for (int k = 0; k < RT; ++k) {
-        const float c = pv[k] + tv;
-        if (c > a[k][q]) {
-          a[k][q] = c;
-          ia[k][q] = i + q;
-        }
-      }
-    }
-  }
-  for (int i = S4; i < S; ++i) {
-    const float tv =
-        i < n_s ? tl.s_T[i * S + j] : __ldg(mat + (int64_t)i * S + j);
-    load_rows<RT>(p + i * tl.R, pv);
 #pragma unroll
     for (int k = 0; k < RT; ++k) {
-      const float c = pv[k] + tv;
-      if (c > a[k][0]) {
-        a[k][0] = c;
-        ia[k][0] = i;
-      }
-    }
-  }
+      best[0][k] = a[k][0];
+      arg[0][k] = ia[k][0];
 #pragma unroll
-  for (int k = 0; k < RT; ++k) {
-    best[k] = a[k][0];
-    arg[k] = ia[k][0];
-#pragma unroll
-    for (int q = 1; q < 4; ++q) {
-      if (a[k][q] > best[k] || (a[k][q] == best[k] && ia[k][q] < arg[k])) {
-        best[k] = a[k][q];
-        arg[k] = ia[k][q];
+      for (int q = 1; q < 4; ++q) {
+        if (a[k][q] > best[0][k] ||
+            (a[k][q] == best[0][k] && ia[k][q] < arg[0][k])) {
+          best[0][k] = a[k][q];
+          arg[0][k] = ia[k][q];
+        }
       }
     }
   }
 }
 
 // K8c: K5's max-plus forward with the argmax predecessor of every state
-// written at every position (the identity at position 0 and at padding);
-// the last value row and the normalizers go out.
-template <int RT>
+// written at every position (the identity at position 0 and at padding):
+// uint8 pointers up to 256 states (SPT = 1), uint16 beyond; the last value
+// row and the normalizers go out.
+template <int SPT, int RT>
 __global__ void __launch_bounds__(kThreads)
     viterbi_ptrs_kernel(const float* __restrict__ obs,
                         const int32_t* __restrict__ lens,
                         const float* __restrict__ log_start,
                         const float* __restrict__ log_trans,
-                        uint8_t* __restrict__ ptr_out,
+                        void* __restrict__ ptr_void,
                         float* __restrict__ v_last,
                         float* __restrict__ dm_out, int64_t B, int64_t L,
-                        int S, int n_s) {
+                        int S, int n_s, int n_slots) {
+  using PtrT = std::conditional_t<(SPT > 1), uint16_t, uint8_t>;
+  PtrT* ptr_out = static_cast<PtrT*>(ptr_void);
   extern __shared__ __align__(16) float smem[];
-  Tile<RT> tl(smem, log_trans, lens, B, L, S, n_s);
-  const int j = tl.j;
-  float v[RT], o_next[RT];
+  Tile<SPT, RT> tl(smem, log_trans, lens, B, L, S, n_s);
+  float v[SPT][RT], o_next[SPT][RT], start_j[SPT];
 #pragma unroll
-  for (int k = 0; k < RT; ++k) {
-    v[k] = 0.0f;
-    o_next[k] = tl.len[k] > 0 ? obs[(tl.b0 + k) * L * S + j] : 0.0f;
+  for (int q = 0; q < SPT; ++q) {
+    start_j[q] = tl.has(q, S) ? log_start[tl.jq(q)] : 0.0f;
+#pragma unroll
+    for (int k = 0; k < RT; ++k) {
+      v[q][k] = 0.0f;
+      o_next[q][k] = tl.has(q, S) && tl.len[k] > 0
+                         ? obs[(tl.b0 + k) * L * S + tl.jq(q)]
+                         : 0.0f;
+    }
   }
-  const float start_j = tl.active ? log_start[j] : 0.0f;
 
   for (int64_t t = 0; t < L; ++t) {
     if (t >= tl.max_len) {
@@ -362,35 +537,44 @@ __global__ void __launch_bounds__(kThreads)
       for (int k = 0; k < RT; ++k) {
         if (!tl.live[k]) continue;
         const int64_t pos = (tl.b0 + k) * L + t;
-        ptr_out[pos * S + j] = (uint8_t)j;
-        if (j == 0) dm_out[pos] = 0.0f;
+#pragma unroll
+        for (int q = 0; q < SPT; ++q)
+          if (tl.has(q, S)) ptr_out[pos * S + tl.jq(q)] = (PtrT)tl.jq(q);
+        if (tl.j == 0) dm_out[pos] = 0.0f;
       }
       continue;
     }
-    float o[RT], u[RT];
-    int arg[RT];
+    float o[SPT][RT], u[SPT][RT];
+    int arg[SPT][RT];
 #pragma unroll
-    for (int k = 0; k < RT; ++k) {
-      o[k] = o_next[k];
-      o_next[k] = t + 1 < tl.len[k]
-                      ? obs[((tl.b0 + k) * L + t + 1) * S + j]
-                      : 0.0f;
-    }
-    if (t == 0) {
+    for (int q = 0; q < SPT; ++q)
 #pragma unroll
       for (int k = 0; k < RT; ++k) {
-        u[k] = start_j;
-        arg[k] = j;
+        o[q][k] = o_next[q][k];
+        o_next[q][k] = tl.has(q, S) && t + 1 < tl.len[k]
+                           ? obs[((tl.b0 + k) * L + t + 1) * S + tl.jq(q)]
+                           : 0.0f;
       }
+    if (t == 0) {
+#pragma unroll
+      for (int q = 0; q < SPT; ++q)
+#pragma unroll
+        for (int k = 0; k < RT; ++k) {
+          u[q][k] = start_j[q];
+          arg[q][k] = tl.jq(q);
+        }
     } else if (tl.active) {
-      maxplus_argmax<RT>(tl, log_trans, S, n_s, u, arg);
+      maxplus_argmax<SPT, RT>(tl, log_trans, S, n_s, n_slots, u, arg);
     }
     if (tl.active) {
 #pragma unroll
-      for (int k = 0; k < RT; ++k) {
-        u[k] = u[k] + o[k];
-        tl.s_u[(tl.row + k) * S + j] = u[k];
-      }
+      for (int q = 0; q < SPT; ++q)
+#pragma unroll
+        for (int k = 0; k < RT; ++k) {
+          if (!tl.has(q, S)) continue;
+          u[q][k] = u[q][k] + o[q][k];
+          tl.s_u[(tl.row + k) * S + tl.jq(q)] = u[q][k];
+        }
     }
     __syncthreads();
     tl.rows_max(S, kLogZero);
@@ -400,26 +584,34 @@ __global__ void __launch_bounds__(kThreads)
       for (int k = 0; k < RT; ++k) {
         const float m = tl.s_m[tl.row + k];
         const bool valid = t < tl.len[k];
-        if (valid) v[k] = u[k] - m;
-        tl.s_p[j * tl.R + tl.row + k] = v[k];
-        if (tl.live[k]) {
-          const int64_t pos = (tl.b0 + k) * L + t;
-          ptr_out[pos * S + j] = (uint8_t)(valid ? arg[k] : j);
-          if (j == 0) dm_out[pos] = valid ? m : 0.0f;
+        const int64_t pos = (tl.b0 + k) * L + t;
+#pragma unroll
+        for (int q = 0; q < SPT; ++q) {
+          if (!tl.has(q, S)) continue;
+          if (valid) v[q][k] = u[q][k] - m;
+          tl.s_p[tl.jq(q) * tl.R + tl.row + k] = v[q][k];
+          if (tl.live[k])
+            ptr_out[pos * S + tl.jq(q)] =
+                (PtrT)(valid ? arg[q][k] : tl.jq(q));
         }
+        if (tl.live[k] && tl.j == 0) dm_out[pos] = valid ? m : 0.0f;
       }
     }
     __syncthreads();
   }
 #pragma unroll
-  for (int k = 0; k < RT; ++k)
-    if (tl.live[k]) v_last[(tl.b0 + k) * S + j] = v[k];
+  for (int q = 0; q < SPT; ++q)
+#pragma unroll
+    for (int k = 0; k < RT; ++k)
+      if (tl.live[k] && tl.has(q, S))
+        v_last[(tl.b0 + k) * S + tl.jq(q)] = v[q][k];
 }
 
 // The chase: one thread per batch row walks the pointers back from the
 // first-hit argmax of its last value row; zero-length rows get path 0.
+template <typename PtrT>
 __global__ void __launch_bounds__(kChaseThreads)
-    pointer_chase_kernel(const uint8_t* __restrict__ ptrs,
+    pointer_chase_kernel(const PtrT* __restrict__ ptrs,
                          const float* __restrict__ v_last,
                          const int32_t* __restrict__ lens,
                          int32_t* __restrict__ path, int64_t B, int64_t L,
@@ -441,7 +633,7 @@ __global__ void __launch_bounds__(kChaseThreads)
       s = i;
     }
   }
-  const uint8_t* p = ptrs + b * L * S;
+  const PtrT* p = ptrs + b * L * S;
   out[L - 1] = s;
   for (int64_t t = L - 1; t > 0; --t) {
     s = p[t * S + s];
@@ -457,41 +649,77 @@ int tehmm_fwd_scaled(const void* obs, const void* lens,
                      const void* log_start, const void* trans_p,
                      void* alpha_out, void* dm_out, int64_t B, int64_t L,
                      int S, void* stream) {
-  return launch_scan(fwd_scaled_kernel<1>, fwd_scaled_kernel<2>, B, S,
-                     stream, (const float*)obs, (const int32_t*)lens,
-                     (const float*)log_start, (const float*)trans_p,
-                     (float*)alpha_out, (float*)dm_out, B, L, S);
+  TILE_KERNELS(ks, fwd_scaled_kernel);
+  return launch_scan(ks, B, S, stream, (const float*)obs,
+                     (const int32_t*)lens, (const float*)log_start,
+                     (const float*)nullptr, (const float*)trans_p,
+                     (float*)alpha_out, (float*)dm_out, (float*)nullptr, B,
+                     L, S);
+}
+
+// X1's carry mode: hats (values mode) or dm (carry-only mode) may be null.
+int tehmm_fwd_chunk_tile(const void* obs, const void* carry_in,
+                         const void* lens, const void* trans_p, void* hats,
+                         void* carry_out, void* dm, int64_t B, int64_t L,
+                         int S, void* stream) {
+  TILE_KERNELS(ks, fwd_scaled_kernel);
+  return launch_scan(ks, B, S, stream, (const float*)obs,
+                     (const int32_t*)lens, (const float*)nullptr,
+                     (const float*)carry_in, (const float*)trans_p,
+                     (float*)hats, (float*)dm, (float*)carry_out, B, L, S);
 }
 
 int tehmm_bwd_scaled(const void* obs, const void* lens, const void* trans_t,
                      void* beta_out, void* dm_out, int64_t B, int64_t L,
                      int S, void* stream) {
-  return launch_scan(bwd_scaled_kernel<1>, bwd_scaled_kernel<2>, B, S,
-                     stream, (const float*)obs, (const int32_t*)lens,
-                     (const float*)trans_t, (float*)beta_out,
-                     (float*)dm_out, B, L, S);
+  TILE_KERNELS(ks, bwd_scaled_kernel);
+  return launch_scan(ks, B, S, stream, (const float*)obs,
+                     (const int32_t*)lens, (const float*)nullptr,
+                     (const int32_t*)nullptr, (const float*)trans_t,
+                     (float*)beta_out, (float*)dm_out, (float*)nullptr, B,
+                     L, S);
 }
 
+// X2's carry mode (L >= 1).
+int tehmm_bwd_chunk_tile(const void* obs, const void* x_carry,
+                         const void* continuing, const void* lens,
+                         const void* trans_t, void* beta, void* x_out,
+                         int64_t B, int64_t L, int S, void* stream) {
+  TILE_KERNELS(ks, bwd_scaled_kernel);
+  return launch_scan(ks, B, S, stream, (const float*)obs,
+                     (const int32_t*)lens, (const float*)x_carry,
+                     (const int32_t*)continuing, (const float*)trans_t,
+                     (float*)beta, (float*)nullptr, (float*)x_out, B, L, S);
+}
+
+// ptr_out: uint8 for S <= 256, uint16 beyond.
 int tehmm_viterbi_ptrs(const void* obs, const void* lens,
                        const void* log_start, const void* log_trans,
                        void* ptr_out, void* v_last, void* dm_out, int64_t B,
                        int64_t L, int S, void* stream) {
-  return launch_scan(viterbi_ptrs_kernel<1>, viterbi_ptrs_kernel<2>, B, S,
-                     stream, (const float*)obs, (const int32_t*)lens,
-                     (const float*)log_start, (const float*)log_trans,
-                     (uint8_t*)ptr_out, (float*)v_last, (float*)dm_out, B,
-                     L, S);
+  TILE_KERNELS(ks, viterbi_ptrs_kernel);
+  return launch_scan(ks, B, S, stream, (const float*)obs,
+                     (const int32_t*)lens, (const float*)log_start,
+                     (const float*)log_trans, ptr_out, (float*)v_last,
+                     (float*)dm_out, B, L, S);
 }
 
 int tehmm_pointer_chase(const void* ptrs, const void* v_last,
                         const void* lens, void* path, int64_t B, int64_t L,
                         int S, void* stream) {
-  if (S < 1 || S > kThreads) return (int)cudaErrorInvalidValue;
+  if (S < 1 || states_per_thread(S) == 0) return (int)cudaErrorInvalidValue;
   const int64_t grid = (B + kChaseThreads - 1) / kChaseThreads;
-  pointer_chase_kernel<<<(unsigned)grid, kChaseThreads, 0,
-                         (cudaStream_t)stream>>>(
-      (const uint8_t*)ptrs, (const float*)v_last, (const int32_t*)lens,
-      (int32_t*)path, B, L, S);
+  if (S <= kThreads) {
+    pointer_chase_kernel<uint8_t><<<(unsigned)grid, kChaseThreads, 0,
+                                    (cudaStream_t)stream>>>(
+        (const uint8_t*)ptrs, (const float*)v_last, (const int32_t*)lens,
+        (int32_t*)path, B, L, S);
+  } else {
+    pointer_chase_kernel<uint16_t><<<(unsigned)grid, kChaseThreads, 0,
+                                     (cudaStream_t)stream>>>(
+        (const uint16_t*)ptrs, (const float*)v_last, (const int32_t*)lens,
+        (int32_t*)path, B, L, S);
+  }
   return (int)cudaGetLastError();
 }
 

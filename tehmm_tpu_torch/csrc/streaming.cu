@@ -33,7 +33,9 @@
 // written once); at S = 256 the 2 * S * S float32 operations per position
 // (about 0.5 ms for 256 rows of 1024 against 0.16 ms of bytes), and in
 // practice the chain of L dependent steps, each an S-term FMA (or
-// add-and-max) chain per output plus block-wide max reductions.
+// add-and-max) chain per output plus block-wide max reductions.  Past 256
+// states each block also re-reads the whole matrix from L2 every step
+// (4 MB at S = 1024), which sets the time there.
 //
 // Design: a block of 256 threads owns R = NG * RT batch rows for the whole
 // scan, NG = 256 / S row groups of S threads.  Thread (g, j) owns state j
@@ -57,7 +59,14 @@
 // ahead in the forward scan, where the row is needed after the product;
 // two in the backward kernel, where it is needed first), so their latency
 // hides behind the steps.  Steps past the longest row of a block skip the
-// product and only write the carried rows.
+// product and only write the carried rows.  Past 256 states a thread owns
+// 2 or 4 states of every row of its block, the block 2 or 4 rows, and the
+// matrix is staged block by block through shared memory every step, each
+// staged block serving all the rows (scan_tile.cuh).
+//
+// K3's carry mode (tehmm_viterbi_carry_tile) is K5 started from each
+// row's carry instead of log_start: every position, 0 included, applies
+// the max-plus step; the value rows and/or the last vector go out.
 //
 // Numerics: K5 is float32 add, subtract and max only, so it agrees bit for
 // bit with the plain torch version (ops/cuda_kernels.viterbi_values_plain)
@@ -91,26 +100,39 @@ struct MaxPlusOps {
   __device__ static float increment(float m) { return m; }
 };
 
-// The forward scan of K5 and K6a.  Position 0 takes ``start``; position
-// t >= 1 the product of the carried vector with M = trans; then the
-// observation row is combined in, the row renormalized by its max, and
-// the row and the normalizer's increment written out.
-template <int RT, typename Ops>
+// The forward scan of K5 and K6a, and K3's carry mode.  Position 0 takes
+// ``start``; position t >= 1 the product of the carried vector with
+// M = trans; then the observation row is combined in, the row
+// renormalized by its max, and the row and the normalizer's increment
+// written out.  With ``carry_in`` (K3) the carried vector starts as the
+// row's carry and every position, 0 included, applies the product;
+// ``rows_out``, ``dm_out`` and ``carry_out`` (the last vector) may each be
+// nullptr.
+template <int SPT, int RT, typename Ops>
 __device__ __forceinline__ void forward_scan(
     const float* __restrict__ obs, const int32_t* __restrict__ lens,
-    const float* __restrict__ start, const float* __restrict__ mat,
-    float* __restrict__ rows_out, float* __restrict__ dm_out, int64_t B,
-    int64_t L, int S, int n_s, float* smem) {
-  Tile<RT> tl(smem, mat, lens, B, L, S, n_s);
-  const int j = tl.j;
-  float p[RT], o_next[RT];
+    const float* __restrict__ start, const float* __restrict__ carry_in,
+    const float* __restrict__ mat, float* __restrict__ rows_out,
+    float* __restrict__ dm_out, float* __restrict__ carry_out, int64_t B,
+    int64_t L, int S, int n_s, int n_slots, float* smem) {
+  Tile<SPT, RT> tl(smem, mat, lens, B, L, S, n_s);
+  const bool carried = carry_in != nullptr;
+  float p[SPT][RT], o_next[SPT][RT], start_j[SPT];
 #pragma unroll
-  for (int k = 0; k < RT; ++k) {
-    p[k] = Ops::kCarry0;
-    if (tl.active) tl.s_p[j * tl.R + tl.row + k] = p[k];
-    o_next[k] = tl.len[k] > 0 ? obs[(tl.b0 + k) * L * S + j] : 0.0f;
+  for (int q = 0; q < SPT; ++q) {
+    const int jq = tl.jq(q);
+    const bool has = tl.has(q, S);
+    start_j[q] = has && !carried ? start[jq] : 0.0f;
+#pragma unroll
+    for (int k = 0; k < RT; ++k) {
+      p[q][k] = carried && has && tl.live[k]
+                    ? carry_in[(tl.b0 + k) * S + jq]
+                    : Ops::kCarry0;
+      if (has) tl.s_p[jq * tl.R + tl.row + k] = p[q][k];
+      o_next[q][k] =
+          has && tl.len[k] > 0 ? obs[(tl.b0 + k) * L * S + jq] : 0.0f;
+    }
   }
-  const float start_j = tl.active ? start[j] : 0.0f;
   __syncthreads();
 
   for (int64_t t = 0; t < L; ++t) {
@@ -120,31 +142,41 @@ __device__ __forceinline__ void forward_scan(
       for (int k = 0; k < RT; ++k) {
         if (!tl.live[k]) continue;
         const int64_t pos = (tl.b0 + k) * L + t;
-        rows_out[pos * S + j] = p[k];
-        if (j == 0) dm_out[pos] = 0.0f;
+        if (rows_out != nullptr)
+#pragma unroll
+          for (int q = 0; q < SPT; ++q)
+            if (tl.has(q, S)) rows_out[pos * S + tl.jq(q)] = p[q][k];
+        if (tl.j == 0 && dm_out != nullptr) dm_out[pos] = 0.0f;
       }
       continue;
     }
-    float o[RT], u[RT];
+    float o[SPT][RT], u[SPT][RT];
 #pragma unroll
-    for (int k = 0; k < RT; ++k) {
-      o[k] = o_next[k];
-      o_next[k] = t + 1 < tl.len[k]
-                      ? obs[((tl.b0 + k) * L + t + 1) * S + j]
-                      : 0.0f;
-    }
-    if (t == 0) {
+    for (int q = 0; q < SPT; ++q)
 #pragma unroll
-      for (int k = 0; k < RT; ++k) u[k] = start_j;
+      for (int k = 0; k < RT; ++k) {
+        o[q][k] = o_next[q][k];
+        o_next[q][k] = tl.has(q, S) && t + 1 < tl.len[k]
+                           ? obs[((tl.b0 + k) * L + t + 1) * S + tl.jq(q)]
+                           : 0.0f;
+      }
+    if (t == 0 && !carried) {
+#pragma unroll
+      for (int q = 0; q < SPT; ++q)
+#pragma unroll
+        for (int k = 0; k < RT; ++k) u[q][k] = start_j[q];
     } else if (tl.active) {
-      tl.template product<Ops>(mat, S, n_s, u);
+      tl.template product<Ops>(mat, S, n_s, n_slots, u);
     }
     if (tl.active) {
 #pragma unroll
-      for (int k = 0; k < RT; ++k) {
-        u[k] = Ops::emit(u[k], o[k]);
-        tl.s_u[(tl.row + k) * S + j] = u[k];
-      }
+      for (int q = 0; q < SPT; ++q)
+#pragma unroll
+        for (int k = 0; k < RT; ++k) {
+          if (!tl.has(q, S)) continue;
+          u[q][k] = Ops::emit(u[q][k], o[q][k]);
+          tl.s_u[(tl.row + k) * S + tl.jq(q)] = u[q][k];
+        }
     }
     __syncthreads();
     tl.rows_max(S, Ops::kFloor);
@@ -154,36 +186,52 @@ __device__ __forceinline__ void forward_scan(
       for (int k = 0; k < RT; ++k) {
         const float m = tl.s_m[tl.row + k];
         const bool valid = t < tl.len[k];
-        if (valid) p[k] = Ops::renorm(u[k], m);
-        tl.s_p[j * tl.R + tl.row + k] = p[k];
-        if (tl.live[k]) {
-          const int64_t pos = (tl.b0 + k) * L + t;
-          rows_out[pos * S + j] = p[k];
-          if (j == 0) dm_out[pos] = valid ? Ops::increment(m) : 0.0f;
+        const int64_t pos = (tl.b0 + k) * L + t;
+#pragma unroll
+        for (int q = 0; q < SPT; ++q) {
+          if (!tl.has(q, S)) continue;
+          if (valid) p[q][k] = Ops::renorm(u[q][k], m);
+          tl.s_p[tl.jq(q) * tl.R + tl.row + k] = p[q][k];
+          if (tl.live[k] && rows_out != nullptr)
+            rows_out[pos * S + tl.jq(q)] = p[q][k];
         }
+        if (tl.live[k] && tl.j == 0 && dm_out != nullptr)
+          dm_out[pos] = valid ? Ops::increment(m) : 0.0f;
       }
     }
     __syncthreads();
   }
+  if (carry_out != nullptr) {
+#pragma unroll
+    for (int q = 0; q < SPT; ++q)
+#pragma unroll
+      for (int k = 0; k < RT; ++k)
+        if (tl.has(q, S) && tl.live[k])
+          carry_out[(tl.b0 + k) * S + tl.jq(q)] = p[q][k];
+  }
 }
 
-// K5: max-normalized Viterbi value rows and their normalizers.
-template <int RT>
+// K5: max-normalized Viterbi value rows and their normalizers; with
+// ``carry_in``, K3 (value rows and / or the final carry of one chunk).
+template <int SPT, int RT>
 __global__ void __launch_bounds__(kThreads)
     viterbi_values_kernel(const float* __restrict__ obs,
                           const int32_t* __restrict__ lens,
                           const float* __restrict__ log_start,
+                          const float* __restrict__ carry_in,
                           const float* __restrict__ log_trans,
                           float* __restrict__ v_out,
-                          float* __restrict__ dm_out, int64_t B, int64_t L,
-                          int S, int n_s) {
+                          float* __restrict__ dm_out,
+                          float* __restrict__ carry_out, int64_t B,
+                          int64_t L, int S, int n_s, int n_slots) {
   extern __shared__ __align__(16) float smem[];
-  forward_scan<RT, MaxPlusOps>(obs, lens, log_start, log_trans, v_out,
-                               dm_out, B, L, S, n_s, smem);
+  forward_scan<SPT, RT, MaxPlusOps>(obs, lens, log_start, carry_in,
+                                    log_trans, v_out, dm_out, carry_out, B,
+                                    L, S, n_s, n_slots, smem);
 }
 
 // K6a: scaled forward probabilities (per-position max 1) and log m.
-template <int RT>
+template <int SPT, int RT>
 __global__ void __launch_bounds__(kThreads)
     fwd_prob_kernel(const float* __restrict__ obs_p,
                     const int32_t* __restrict__ lens,
@@ -191,10 +239,11 @@ __global__ void __launch_bounds__(kThreads)
                     const float* __restrict__ trans_p,
                     float* __restrict__ alpha_out,
                     float* __restrict__ dm_out, int64_t B, int64_t L, int S,
-                    int n_s) {
+                    int n_s, int n_slots) {
   extern __shared__ __align__(16) float smem[];
-  forward_scan<RT, ProbOps>(obs_p, lens, start_p, trans_p, alpha_out,
-                            dm_out, B, L, S, n_s, smem);
+  forward_scan<SPT, RT, ProbOps>(obs_p, lens, start_p, nullptr, trans_p,
+                                 alpha_out, dm_out, nullptr, B, L, S, n_s,
+                                 n_slots, smem);
 }
 
 // K6b: scaled backward probabilities.  beta[L - 1] is all-ones; beta[t]
@@ -202,65 +251,79 @@ __global__ void __launch_bounds__(kThreads)
 // normalized by its max; s = trans x, normalized by its max), and carries
 // beta[t + 1] elsewhere.  ``trans_t`` is the transposed matrix, so that
 // s_i = sum_j trans_t[j][i] x_j runs through the shared product loop.
-template <int RT>
+template <int SPT, int RT>
 __global__ void __launch_bounds__(kThreads)
     bwd_prob_kernel(const float* __restrict__ obs_p,
                     const int32_t* __restrict__ lens,
                     const float* __restrict__ trans_t,
                     float* __restrict__ beta_out, int64_t B, int64_t L,
-                    int S, int n_s) {
+                    int S, int n_s, int n_slots) {
   extern __shared__ __align__(16) float smem[];
-  Tile<RT> tl(smem, trans_t, lens, B, L, S, n_s);
-  const int j = tl.j;
+  Tile<SPT, RT> tl(smem, trans_t, lens, B, L, S, n_s);
   // A step consumes its observation row first thing, so the rows are
   // loaded two steps ahead: one step ahead leaves the load's latency on
   // the chain.
-  float b[RT], o_next[RT], o_next2[RT];
+  float b[SPT][RT], o_next[SPT][RT], o_next2[SPT][RT];
+  // the first step that runs reads position max_len - 1
+  const int64_t t1 = tl.max_len - 1;
 #pragma unroll
-  for (int k = 0; k < RT; ++k) {
-    b[k] = 1.0f;
-    // the first step that runs reads position max_len - 1
-    const int64_t t1 = tl.max_len - 1;
-    o_next[k] = t1 >= 1 && t1 < tl.len[k]
-                    ? obs_p[((tl.b0 + k) * L + t1) * S + j]
-                    : 0.0f;
-    o_next2[k] = t1 >= 2 && t1 - 1 < tl.len[k]
-                     ? obs_p[((tl.b0 + k) * L + t1 - 1) * S + j]
-                     : 0.0f;
-  }
+  for (int q = 0; q < SPT; ++q)
+#pragma unroll
+    for (int k = 0; k < RT; ++k) {
+      const int64_t base = (tl.b0 + k) * L * S + tl.jq(q);
+      b[q][k] = 1.0f;
+      o_next[q][k] = tl.has(q, S) && t1 >= 1 && t1 < tl.len[k]
+                         ? obs_p[base + t1 * S]
+                         : 0.0f;
+      o_next2[q][k] = tl.has(q, S) && t1 >= 2 && t1 - 1 < tl.len[k]
+                          ? obs_p[base + (t1 - 1) * S]
+                          : 0.0f;
+    }
 
   for (int64_t t = L - 1; t >= 0; --t) {
     if (t + 1 < tl.max_len) {
-      float o[RT], x[RT], s[RT];
+      float o[SPT][RT], x[SPT][RT], s[SPT][RT];
 #pragma unroll
-      for (int k = 0; k < RT; ++k) {
-        o[k] = o_next[k];
-        o_next[k] = o_next2[k];
-        o_next2[k] = t >= 2 && t - 1 < tl.len[k]
-                         ? obs_p[((tl.b0 + k) * L + t - 1) * S + j]
-                         : 0.0f;
-      }
-      if (tl.active) {
+      for (int q = 0; q < SPT; ++q)
 #pragma unroll
         for (int k = 0; k < RT; ++k) {
-          x[k] = __fmul_rn(o[k], b[k]);
-          tl.s_u[(tl.row + k) * S + j] = x[k];
+          o[q][k] = o_next[q][k];
+          o_next[q][k] = o_next2[q][k];
+          o_next2[q][k] =
+              tl.has(q, S) && t >= 2 && t - 1 < tl.len[k]
+                  ? obs_p[((tl.b0 + k) * L + t - 1) * S + tl.jq(q)]
+                  : 0.0f;
         }
+      if (tl.active) {
+#pragma unroll
+        for (int q = 0; q < SPT; ++q)
+#pragma unroll
+          for (int k = 0; k < RT; ++k) {
+            if (!tl.has(q, S)) continue;
+            x[q][k] = __fmul_rn(o[q][k], b[q][k]);
+            tl.s_u[(tl.row + k) * S + tl.jq(q)] = x[q][k];
+          }
       }
       __syncthreads();
       tl.rows_max(S, kProbFloor);
       __syncthreads();
       if (tl.active) {
 #pragma unroll
-        for (int k = 0; k < RT; ++k)
-          tl.s_p[j * tl.R + tl.row + k] =
-              ProbOps::renorm(x[k], tl.s_m[tl.row + k]);
+        for (int q = 0; q < SPT; ++q)
+#pragma unroll
+          for (int k = 0; k < RT; ++k)
+            if (tl.has(q, S))
+              tl.s_p[tl.jq(q) * tl.R + tl.row + k] =
+                  ProbOps::renorm(x[q][k], tl.s_m[tl.row + k]);
       }
       __syncthreads();
       if (tl.active) {
-        tl.template product<ProbOps>(trans_t, S, n_s, s);
+        tl.template product<ProbOps>(trans_t, S, n_s, n_slots, s);
 #pragma unroll
-        for (int k = 0; k < RT; ++k) tl.s_u[(tl.row + k) * S + j] = s[k];
+        for (int q = 0; q < SPT; ++q)
+#pragma unroll
+          for (int k = 0; k < RT; ++k)
+            if (tl.has(q, S)) tl.s_u[(tl.row + k) * S + tl.jq(q)] = s[q][k];
       }
       __syncthreads();
       tl.rows_max(S, kProbFloor);
@@ -269,12 +332,17 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
         for (int k = 0; k < RT; ++k)
           if (t + 1 < tl.len[k])
-            b[k] = ProbOps::renorm(s[k], tl.s_m[tl.row + k]);
+#pragma unroll
+            for (int q = 0; q < SPT; ++q)
+              b[q][k] = ProbOps::renorm(s[q][k], tl.s_m[tl.row + k]);
       }
     }
 #pragma unroll
-    for (int k = 0; k < RT; ++k)
-      if (tl.live[k]) beta_out[((tl.b0 + k) * L + t) * S + j] = b[k];
+    for (int q = 0; q < SPT; ++q)
+#pragma unroll
+      for (int k = 0; k < RT; ++k)
+        if (tl.live[k] && tl.has(q, S))
+          beta_out[((tl.b0 + k) * L + t) * S + tl.jq(q)] = b[q][k];
   }
 }
 
@@ -286,16 +354,33 @@ int tehmm_viterbi_values(const void* obs, const void* lens,
                          const void* log_start, const void* log_trans,
                          void* v_out, void* dm_out, int64_t B, int64_t L,
                          int S, void* stream) {
-  return launch_scan(viterbi_values_kernel<1>, viterbi_values_kernel<2>, B,
-                     S, stream, (const float*)obs, (const int32_t*)lens,
-                     (const float*)log_start, (const float*)log_trans,
-                     (float*)v_out, (float*)dm_out, B, L, S);
+  TILE_KERNELS(ks, viterbi_values_kernel);
+  return launch_scan(ks, B, S, stream,
+                     (const float*)obs, (const int32_t*)lens,
+                     (const float*)log_start, (const float*)nullptr,
+                     (const float*)log_trans, (float*)v_out,
+                     (float*)dm_out, (float*)nullptr, B, L, S);
+}
+
+// K3's carry mode: v_out (values) or carry_out (the final carry) may be
+// null.
+int tehmm_viterbi_carry_tile(const void* obs, const void* carry_in,
+                             const void* lens, const void* log_trans,
+                             void* v_out, void* carry_out, int64_t B,
+                             int64_t L, int S, void* stream) {
+  TILE_KERNELS(ks, viterbi_values_kernel);
+  return launch_scan(ks, B, S, stream,
+                     (const float*)obs, (const int32_t*)lens,
+                     (const float*)nullptr, (const float*)carry_in,
+                     (const float*)log_trans, (float*)v_out,
+                     (float*)nullptr, (float*)carry_out, B, L, S);
 }
 
 int tehmm_fwd_prob(const void* obs_p, const void* lens, const void* start_p,
                    const void* trans_p, void* alpha_out, void* dm_out,
                    int64_t B, int64_t L, int S, void* stream) {
-  return launch_scan(fwd_prob_kernel<1>, fwd_prob_kernel<2>, B, S, stream,
+  TILE_KERNELS(ks, fwd_prob_kernel);
+  return launch_scan(ks, B, S, stream,
                      (const float*)obs_p, (const int32_t*)lens,
                      (const float*)start_p, (const float*)trans_p,
                      (float*)alpha_out, (float*)dm_out, B, L, S);
@@ -304,7 +389,8 @@ int tehmm_fwd_prob(const void* obs_p, const void* lens, const void* start_p,
 int tehmm_bwd_prob(const void* obs_p, const void* lens, const void* trans_t,
                    void* beta_out, int64_t B, int64_t L, int S,
                    void* stream) {
-  return launch_scan(bwd_prob_kernel<1>, bwd_prob_kernel<2>, B, S, stream,
+  TILE_KERNELS(ks, bwd_prob_kernel);
+  return launch_scan(ks, B, S, stream,
                      (const float*)obs_p, (const int32_t*)lens,
                      (const float*)trans_t, (float*)beta_out, B, L, S);
 }

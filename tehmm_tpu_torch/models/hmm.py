@@ -65,6 +65,7 @@ from tehmm_tpu_torch.parallel.stitch import (
     _weight_batch,
     posterior_chunked,
     posterior_sweep,
+    scaled_rows,
     viterbi_chunked,
 )
 
@@ -83,12 +84,17 @@ def _pass_positions(params: HmmParams, gauss: GaussParams | None,
                     device: torch.device) -> int:
     """Positions per E-step pass for the engine ``"auto"`` takes
     (``ops.em.resolve_engine``): K1's budget only where K1 runs, the
-    [B, L, S] engines' budget otherwise."""
+    [B, L, S] engines' budget otherwise, scaled by 256 / S past 256
+    states (``scaled_rows``), so that no [B, L, S] tensor of a pass grows
+    past what it holds at S = 256 (4 GB each at S = 1024 with the
+    unscaled budget's 16 GB).  The E-step statistics are sums over
+    passes: a smaller pass moves them only by float32 reassociation."""
     engine = em_ops.resolve_engine(
         "auto", *params.log_em.shape,
         0 if gauss is None else gauss.num_tracks, device)
-    return (_MAX_PASS_POSITIONS_FUSED if engine == "cuda"
-            else _MAX_PASS_POSITIONS)
+    if engine == "cuda":
+        return _MAX_PASS_POSITIONS_FUSED
+    return scaled_rows(_MAX_PASS_POSITIONS, params.num_states)
 
 
 def _env_int(name: str) -> int | None:

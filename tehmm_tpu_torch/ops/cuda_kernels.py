@@ -28,6 +28,8 @@ bounds each on an H100 and how its design answers it):
   viterbi_pointers      K8c, ``viterbi_pallas``'s kernel
   pointer_chase         no Pallas kernel: ``viterbi_pallas``'s XLA
                         backtrace over the pointers
+  maxplus_sweeps        K9, ``tools/exp_maxplus_s256.py``'s
+                        ``_kernel_unrolled`` and ``_kernel_scratch_blocks``
   ===================== ==============================================
 
 ``viterbi_fused`` composes the first two into the symbols-in/path-out
@@ -35,16 +37,22 @@ decode of ``viterbi_fused_pallas_v4``; ``em_counts_fused`` composes
 K1's two into the symbols-in/statistics-out E-step of
 ``em_counts_fused_pallas_v4``; ``posterior_decode_fused`` composes K1's
 forward with the K4 decode into the symbols-in/path-out max-posterior
-decode of ``posterior_decode_fused_pallas_v4``.  The last seven
-(``csrc/streaming.cu``, ``csrc/scans.cu``) work on a precomputed
-observation tensor and take any S up to 256 (``STREAMING_MAX_STATES``)
-whatever T and V are: they keep only the transition matrix, as far as it
-fits, and the rows' state vectors in shared memory.
-``dp.viterbi_streaming``, ``dp.viterbi_backpointers``, the E-step engines
-``"cuda_v3"`` and ``"cuda_log"`` of ``ops/em.py`` and the stitched
-decoders past the fused kernels' envelopes (``parallel/stitch.py``) are
-built on them.  ``k1_fits``, ``k2_fits`` and ``k4_fits`` state the fused
-kernels' envelopes; their wrappers' checks and the routes ask them.
+decode of ``posterior_decode_fused_pallas_v4``.  The seven from
+``viterbi_values`` on (``csrc/streaming.cu``, ``csrc/scans.cu``, on the
+block tile of ``csrc/scan_tile.cuh``) work on a precomputed observation
+tensor and take any S up to 1024 (``STREAMING_MAX_STATES``) whatever T
+and V are: they keep the rows' state vectors and the transition matrix,
+as far as it fits (past 256 states a block of it at a time), in shared
+memory.  ``dp.viterbi_streaming``, ``dp.viterbi_backpointers``, the
+E-step engines ``"cuda_v3"`` and ``"cuda_log"`` of ``ops/em.py`` and the
+stitched decoders past the fused kernels' envelopes
+(``parallel/stitch.py``) are built on them.  ``k1_fits``, ``k2_fits``
+and ``k4_fits`` state the fused kernels' envelopes; their wrappers'
+checks and the routes ask them.  K3, X1 and X2 launch their one-warp
+kernels where ``sweep_fits`` (S <= 239) and the tile's carry modes
+beyond, each counted under its own name (``viterbi_chunk_tile``,
+``fwd_chunk_tile``, ``bwd_chunk_tile``), so the exact decoders, ``--pd``
+and every printed loglik run to S = 1024 too.
 
 Each wrapper checks device, dtype, shape and contiguity, and sits beside
 its plain-torch version.  A tensor on the CPU takes the plain version; a
@@ -103,7 +111,9 @@ LAUNCHES = {
         [k + v for k in STREAM_KERNELS for v in STREAM_VARIANTS]
         + ["viterbi_backtrace", "viterbi_chunk_values", "fwd_chunk",
            "bwd_chunk", "viterbi_values", "fwd_prob", "bwd_prob",
-           "fwd_scaled", "bwd_scaled", "viterbi_ptrs", "pointer_chase"]
+           "fwd_scaled", "bwd_scaled", "viterbi_ptrs", "pointer_chase",
+           "viterbi_chunk_tile", "fwd_chunk_tile", "bwd_chunk_tile",
+           "maxplus_resident", "maxplus_blocks"]
     )
 }
 
@@ -122,10 +132,11 @@ _K1_ENVELOPE_ITEM = (
 _POST_ENVELOPE_ITEM = (
     "ROADMAP Queue 2: K4, X1 and X2 beyond the shared-memory envelope"
 )
-# The streaming kernels (K5, K6): one thread per state in a block of 256.
-STREAMING_MAX_STATES = 256
+# The block tile of the scans over obs (K5-K8c, and the carry modes of
+# K3, X1 and X2): up to 4 states a thread in a block of 256.
+STREAMING_MAX_STATES = 1024
 _STREAMING_ENVELOPE_ITEM = (
-    "ROADMAP Queue 2: K5 and K6 beyond 256 states"
+    "ROADMAP Queue 2: the scan tile beyond 1024 states"
 )
 
 _lock = threading.Lock()
@@ -260,6 +271,16 @@ def load_library() -> ctypes.CDLL:
         lib.tehmm_viterbi_ptrs.argtypes = [ptr] * 7 + [i64, i64, i32, ptr]
         lib.tehmm_pointer_chase.restype = i32
         lib.tehmm_pointer_chase.argtypes = [ptr] * 4 + [i64, i64, i32, ptr]
+        lib.tehmm_viterbi_carry_tile.restype = i32
+        lib.tehmm_viterbi_carry_tile.argtypes = (
+            [ptr] * 6 + [i64, i64, i32, ptr])
+        lib.tehmm_fwd_chunk_tile.restype = i32
+        lib.tehmm_fwd_chunk_tile.argtypes = [ptr] * 7 + [i64, i64, i32, ptr]
+        lib.tehmm_bwd_chunk_tile.restype = i32
+        lib.tehmm_bwd_chunk_tile.argtypes = [ptr] * 7 + [i64, i64, i32, ptr]
+        lib.tehmm_maxplus_sweeps.restype = i32
+        lib.tehmm_maxplus_sweeps.argtypes = (
+            [ptr] * 3 + [i32, i64, i32, ptr])
         _lib = lib
         return lib
 
@@ -308,6 +329,29 @@ def _check_envelope(S: int, smem_floats: int, what: str,
             f"memory per block (limit {_SMEM_LIMIT}, and S <= "
             f"{MAX_STATES}); not ported yet ({item})"
         )
+
+
+def _check_tile(S: int, what: str) -> None:
+    """The scan tile's envelope (``STREAMING_MAX_STATES``): beyond it the
+    card's wrappers raise naming its item."""
+    if S > STREAMING_MAX_STATES:
+        raise NotImplementedError(
+            f"{what}: S={S} is over the {STREAMING_MAX_STATES} states the "
+            f"scan tile takes (4 a thread in a block of 256); not ported "
+            f"yet ({_STREAMING_ENVELOPE_ITEM})"
+        )
+
+
+def sweep_fits(S: int) -> bool:
+    """Whether the one-warp kernels of the carried sweeps (K3
+    ``viterbi_chunk_values_kernel``, X1 ``fwd_chunk_kernel``, X2
+    ``bwd_chunk_kernel``) take S states: all of the transition matrix and
+    one S-float row per warp of a 4-warp block in shared memory,
+    4 (S^2 + 4 S) bytes <= 232,448, so S <= 239.  Beyond it their
+    wrappers launch the scan tile's carry modes (``csrc/streaming.cu``,
+    ``csrc/scans.cu``), to S = 1024; the choice is by S alone, never
+    taken on a failure."""
+    return _fits(S, S * S + _WARPS_PER_BLOCK * S)
 
 
 def _check_index_range(t: torch.Tensor, hi: int, name: str) -> None:
@@ -497,8 +541,9 @@ def viterbi_backtrace(log_trans, rows, entry, end_state, lengths):
     latency of a dependent chain of S-wide argmaxes over value rows read
     from HBM/L2.  Design: one thread per row, trans in shared memory
     (what fits of it: beyond S = 241 the last rows are read through the
-    read-only path, so the kernel takes every S <= 256), strided batch
-    rows so the fused caller passes slices without copying.
+    read-only path, so the kernel takes every S <= 1024, the scan tile's
+    limit), strided batch rows so the fused caller passes slices without
+    copying.
     """
     B, L, S = rows.shape
     dev = rows.device
@@ -515,8 +560,7 @@ def viterbi_backtrace(log_trans, rows, entry, end_state, lengths):
     if _device_kind(dev) == "cpu":
         return viterbi_backtrace_plain(log_trans, rows, entry, end_state,
                                        lengths)
-    _check_envelope(S, min(S, _SMEM_LIMIT // (4 * S)) * S,
-                    "viterbi_backtrace")
+    _check_tile(S, "viterbi_backtrace")
     _check_index_range(end_state, S, "end_state")
     path = torch.empty((B, L), dtype=torch.int32, device=dev)
     entry_state = torch.empty((B,), dtype=torch.int32, device=dev)
@@ -551,8 +595,7 @@ def _chunk_values(log_trans, obs, v_hat_init, lengths, carry_only):
     if _device_kind(dev) == "cpu":
         plain = dp.viterbi_carry if carry_only else dp.viterbi_chunk_values
         return plain(log_trans, obs, v_hat_init, lengths)
-    _check_envelope(S, S * S + _WARPS_PER_BLOCK * S,
-                    "viterbi_chunk_values")
+    _check_tile(S, "viterbi_chunk_values")
     if carry_only:
         out = torch.empty((B, S), dtype=torch.float32, device=dev)
         v_ptr, carry_ptr = None, out.data_ptr()
@@ -561,13 +604,12 @@ def _chunk_values(log_trans, obs, v_hat_init, lengths, carry_only):
         v_ptr, carry_ptr = out.data_ptr(), None
     if B == 0:
         return out
-    lib = load_library()
-    rc = lib.tehmm_viterbi_chunk_values(
+    name, entry = (("viterbi_chunk_values", "tehmm_viterbi_chunk_values")
+                   if sweep_fits(S) else
+                   ("viterbi_chunk_tile", "tehmm_viterbi_carry_tile"))
+    _launch_streaming(name, entry, (
         obs.data_ptr(), v_hat_init.data_ptr(), lengths.data_ptr(),
-        log_trans.data_ptr(), v_ptr, carry_ptr, B, L, S, _stream(dev),
-    )
-    _raise_on(rc, lib, "viterbi_chunk_values")
-    LAUNCHES["viterbi_chunk_values"] += 1
+        log_trans.data_ptr(), v_ptr, carry_ptr, B, L, S), dev)
     return out
 
 
@@ -577,7 +619,11 @@ def viterbi_chunk_values(log_trans, obs, v_hat_init, lengths):
 
     Replaces ``viterbi_chunk_values_pallas`` (pallas_kernels.py:1492,
     kernel ``_make_viterbi_kernel_v3`` :1284).  Bound and design as
-    ``viterbi_fwd``, over precomputed obs."""
+    ``viterbi_fwd``, over precomputed obs, where ``sweep_fits(S)``;
+    beyond, K5's tile in carry mode (``csrc/streaming.cu``: the carry
+    is the row before position 0, every position applies the max-plus
+    step), counted as ``viterbi_chunk_tile``.  Bit-equal to the plain
+    version either way, so chunked sweeps equal one chunk."""
     return _chunk_values(log_trans, obs, v_hat_init, lengths, False)
 
 
@@ -1032,8 +1078,7 @@ def _fwd_chunk(log_trans, obs, a_hat_init, lengths, values):
     if _device_kind(dev) == "cpu":
         plain = dp.forward_chunk_values if values else dp.forward_final
         return plain(log_trans, obs, a_hat_init, lengths)
-    _check_envelope(S, S * S + _WARPS_PER_BLOCK * S, "forward chunk sweep",
-                    _POST_ENVELOPE_ITEM)
+    _check_tile(S, "forward chunk sweep")
     carry = torch.empty((B, S), dtype=torch.float32, device=dev)
     hats = torch.empty((B, L, S), dtype=torch.float32, device=dev) \
         if values else None
@@ -1041,15 +1086,13 @@ def _fwd_chunk(log_trans, obs, a_hat_init, lengths, values):
                                          device=dev)
     if B:
         trans_p = torch.exp(log_trans)
-        lib = load_library()
-        rc = lib.tehmm_fwd_chunk(
+        name, entry = (("fwd_chunk", "tehmm_fwd_chunk") if sweep_fits(S)
+                       else ("fwd_chunk_tile", "tehmm_fwd_chunk_tile"))
+        _launch_streaming(name, entry, (
             obs.data_ptr(), a_hat_init.data_ptr(), lengths.data_ptr(),
             trans_p.data_ptr(), None if hats is None else hats.data_ptr(),
             carry.data_ptr(), None if dm is None else dm.data_ptr(), B, L,
-            S, _stream(dev),
-        )
-        _raise_on(rc, lib, "fwd_chunk")
-        LAUNCHES["fwd_chunk"] += 1
+            S), dev)
     if values:
         return hats, carry
     return carry, dm.sum(dim=1)
@@ -1064,7 +1107,12 @@ def forward_chunk_values(log_trans, obs, a_hat_init, lengths):
     ``tehmm_tpu/ops/dp.py:480``.  Bound on an H100: the latency of one
     dependent log-space step per position (S expf, an S x S product from
     shared memory, S logf, a warp max).  Design: one warp per row, lane
-    <-> state, exp(trans) in shared memory, the carry in registers."""
+    <-> state, exp(trans) in shared memory, the carry in registers, where
+    ``sweep_fits(S)``; beyond, K7a's tile in carry mode (``csrc/scans.cu``
+    ``fwd_scaled_kernel``), counted as ``fwd_chunk_tile``.  Each kernel
+    sums every product in an order that depends on S alone, so a sweep
+    cut into chunks gives the bits of one chunk, and the two modes end in
+    the same carry."""
     return _fwd_chunk(log_trans, obs, a_hat_init, lengths, True)
 
 
@@ -1086,7 +1134,10 @@ def backward_chunk_values(log_trans, obs, x_carry, continuing, lengths):
 
     No Pallas counterpart: on the TPU this is the XLA scan of
     ``tehmm_tpu/ops/dp.py:507``.  Bound and design as
-    ``forward_chunk_values``, walking the chunk from its end."""
+    ``forward_chunk_values``, walking the chunk from its end; beyond
+    ``sweep_fits(S)`` K7b's tile in carry mode (``csrc/scans.cu``
+    ``bwd_scaled_kernel``: the boundary step and x_out inside the same
+    kernel), counted as ``bwd_chunk_tile``."""
     B, L, S = obs.shape
     dev = _check_sweep(log_trans, obs, x_carry, lengths, "x_carry")
     _check(continuing, "continuing", torch.bool, (B,), dev)
@@ -1095,22 +1146,23 @@ def backward_chunk_values(log_trans, obs, x_carry, continuing, lengths):
     if _device_kind(dev) == "cpu":
         return dp.backward_chunk_values(log_trans, obs, x_carry, continuing,
                                         lengths)
-    _check_envelope(S, S * S + _WARPS_PER_BLOCK * S, "backward chunk sweep",
-                    _POST_ENVELOPE_ITEM)
+    _check_tile(S, "backward chunk sweep")
     beta = torch.empty((B, L, S), dtype=torch.float32, device=dev)
     x_out = torch.empty((B, S), dtype=torch.float32, device=dev)
     if B == 0:
         return beta, x_out
-    trans_p = torch.exp(log_trans)
     cont = continuing.to(torch.int32)
-    lib = load_library()
-    rc = lib.tehmm_bwd_chunk(
+    if sweep_fits(S):
+        # the one-warp kernel stages exp(log_trans) transposed itself
+        name, entry = "bwd_chunk", "tehmm_bwd_chunk"
+        trans = torch.exp(log_trans)
+    else:
+        name, entry = "bwd_chunk_tile", "tehmm_bwd_chunk_tile"
+        trans = torch.exp(log_trans).T.contiguous()
+    _launch_streaming(name, entry, (
         obs.data_ptr(), x_carry.data_ptr(), cont.data_ptr(),
-        lengths.data_ptr(), trans_p.data_ptr(), beta.data_ptr(),
-        x_out.data_ptr(), B, L, S, _stream(dev),
-    )
-    _raise_on(rc, lib, "bwd_chunk")
-    LAUNCHES["bwd_chunk"] += 1
+        lengths.data_ptr(), trans.data_ptr(), beta.data_ptr(),
+        x_out.data_ptr(), B, L, S), dev)
     return beta, x_out
 
 
@@ -1137,12 +1189,8 @@ def _check_streaming(log_trans, obs, lengths, obs_name, what,
     _check_contiguous(lengths, "lengths")
     if L == 0:
         raise ValueError(f"{obs_name}: a scan needs at least one position")
-    if _device_kind(dev) == "cuda" and S > STREAMING_MAX_STATES:
-        raise NotImplementedError(
-            f"{what}: S={S} is over the {STREAMING_MAX_STATES} states one "
-            f"block of the streaming kernels takes; not ported yet "
-            f"({_STREAMING_ENVELOPE_ITEM})"
-        )
+    if _device_kind(dev) == "cuda":
+        _check_tile(S, what)
     return dev
 
 
@@ -1194,8 +1242,10 @@ def viterbi_values(log_start, log_trans, obs, lengths):
     rows for the whole scan, one thread per state and one row per thread
     (two where the card cannot hold the batch in one wave), the rows'
     vectors and as much of log_trans as fits in shared memory, the rest
-    of it read through the read-only path.  Takes S <= 256.  Bit-equal to
-    the plain version."""
+    of it read through the read-only path; past 256 states a thread owns
+    2 or 4 states and log_trans is staged through shared memory block by
+    block every step (``csrc/scan_tile.cuh``).  Takes S <= 1024.
+    Bit-equal to the plain version."""
     dev = _check_streaming(log_trans, obs, lengths, "obs", "viterbi_values",
                            log_start)
     if dev.type == "cpu":
@@ -1253,7 +1303,7 @@ def forward_prob(log_start, log_trans, obs_p, lengths):
     with each output's S-term float32 sum as four interleaved FMA chains
     added pairwise, in an order that depends on S alone (no tensor cores,
     no TF32, no atomics: repeats give the same bits; within float32
-    rounding of the plain version's matrix product).  Takes S <= 256."""
+    rounding of the plain version's matrix product).  Takes S <= 1024."""
     dev = _check_streaming(log_trans, obs_p, lengths, "obs_p",
                            "forward_prob", log_start)
     if dev.type == "cpu":
@@ -1303,7 +1353,7 @@ def backward_prob(log_trans, obs_p, lengths):
     ``_backward_kernel_v3`` :712), which streams a reversed, relaid copy
     of obs_p; this kernel reads obs_p as it is, from the end.  Bound and
     design as ``forward_prob``, with two max reductions per position.
-    Takes S <= 256."""
+    Takes S <= 1024."""
     dev = _check_streaming(log_trans, obs_p, lengths, "obs_p",
                            "backward_prob")
     if dev.type == "cpu":
@@ -1353,7 +1403,7 @@ def forward_scaled(log_start, log_trans, obs, lengths):
     row's log values in registers and their exp as the tile's state
     vectors; each output's sum is four interleaved FMA chains in an order
     that depends on S alone (repeats give the same bits).  Takes
-    S <= 256."""
+    S <= 1024."""
     dev = _check_streaming(log_trans, obs, lengths, "obs", "forward_scaled",
                            log_start)
     if dev.type == "cpu":
@@ -1394,7 +1444,7 @@ def backward_scaled(log_trans, obs, lengths):
     kernel ``_backward_kernel_v2`` :934), which returns beta_hat only.
     Bound and design as ``forward_scaled``, with two max reductions a
     step; the kernel is handed exp(log_trans) transposed and reads obs as
-    it is, from the end.  Takes S <= 256."""
+    it is, from the end.  Takes S <= 1024."""
     dev = _check_streaming(log_trans, obs, lengths, "obs", "backward_scaled")
     if dev.type == "cpu":
         return backward_scaled_plain(log_trans, obs, lengths)
@@ -1411,6 +1461,12 @@ def backward_scaled(log_trans, obs, lengths):
     return beta, log_d
 
 
+def pointer_dtype(S: int) -> torch.dtype:
+    """The pointers' type: uint8 holds every state of S <= 256, uint16
+    every state of the scan tile's S <= 1024."""
+    return torch.uint8 if S <= 256 else torch.uint16
+
+
 def viterbi_pointers_plain(log_start, log_trans, obs, lengths):
     """Plain version of ``viterbi_pointers``: ``viterbi_values_plain``'s
     loop with the first-hit argmax of every step kept."""
@@ -1419,7 +1475,7 @@ def viterbi_pointers_plain(log_start, log_trans, obs, lengths):
     lens = lengths.to(torch.int64)
     ident = torch.arange(S, device=dev).expand(B, S)
     v_hat = torch.zeros((B, S), dtype=torch.float32, device=dev)
-    ptrs = torch.empty((B, L, S), dtype=torch.uint8, device=dev)
+    ptrs = torch.empty((B, L, S), dtype=pointer_dtype(S), device=dev)
     dms = []
     for t in range(L):
         if t == 0:
@@ -1436,7 +1492,7 @@ def viterbi_pointers_plain(log_start, log_trans, obs, lengths):
 
 
 def viterbi_pointers(log_start, log_trans, obs, lengths):
-    """K8c: (ptrs uint8[B, L, S], v_last f32[B, S], dm f32[B, L]) from obs
+    """K8c: (ptrs [B, L, S], v_last f32[B, S], dm f32[B, L]) from obs
     f32[B, L, S] and int32 lengths [B].  ``viterbi_values``' max-plus
     forward (K5), writing at every position the argmax predecessor of
     every state, first hit (the lowest index) on ties, and at position 0
@@ -1446,19 +1502,20 @@ def viterbi_pointers(log_start, log_trans, obs, lengths):
     pointers (``pointer_chase``) and forms the score.
 
     Replaces ``viterbi_pallas``'s kernel (pallas_kernels.py:333, kernel
-    ``_viterbi_kernel`` :277), which writes int32 pointers; uint8 holds
-    every state of S <= 256.  Bound on an H100: the chain of L dependent
-    max-plus steps (the bytes of obs and of the pointers at S = 20).
+    ``_viterbi_kernel`` :277), which writes int32 pointers; these are
+    ``pointer_dtype(S)``: uint8 to S = 256, uint16 beyond.  Bound on an
+    H100: the chain of L dependent max-plus steps (the bytes of obs and
+    of the pointers at S = 20).
     Design (``csrc/scans.cu``): K5's tile and loop, its four partial
     maxima each kept with the index that set it and combined by value,
-    then by the lower index; bit-equal to the plain version.  Takes
-    S <= 256."""
+    then by the lower index (past 256 states one chain in row order with a
+    strict compare); bit-equal to the plain version.  Takes S <= 1024."""
     dev = _check_streaming(log_trans, obs, lengths, "obs",
                            "viterbi_pointers", log_start)
     if dev.type == "cpu":
         return viterbi_pointers_plain(log_start, log_trans, obs, lengths)
     B, L, S = obs.shape
-    ptrs = torch.empty((B, L, S), dtype=torch.uint8, device=dev)
+    ptrs = torch.empty((B, L, S), dtype=pointer_dtype(S), device=dev)
     v_last = torch.empty((B, S), dtype=torch.float32, device=dev)
     dm = torch.empty((B, L), dtype=torch.float32, device=dev)
     if B:
@@ -1478,14 +1535,15 @@ def pointer_chase_plain(ptrs, v_last, lengths):
     path = torch.empty((B, L), dtype=torch.int32, device=ptrs.device)
     path[:, L - 1] = state
     for t in range(L - 1, 0, -1):
-        state = ptrs[:, t].gather(1, state[:, None])[:, 0].to(torch.int64)
+        state = ptrs[:, t].to(torch.int64).gather(1, state[:, None])[:, 0]
         path[:, t - 1] = state
     return torch.where((lengths > 0)[:, None], path, 0)
 
 
 def pointer_chase(ptrs, v_last, lengths):
     """The backtrace of ``viterbi_pointers``: int32 path [B, L] from
-    uint8 pointers [B, L, S], the last value rows f32[B, S] and int32
+    pointers [B, L, S] (``pointer_dtype(S)``), the last value rows
+    f32[B, S] and int32
     lengths [B].  path[L-1] is the first-hit argmax of v_last, path[t-1]
     = ptrs[t, path[t]]; zero-length rows get path 0.  Padding pointers
     are the identity, so a path replicates its last valid state.
@@ -1496,7 +1554,7 @@ def pointer_chase(ptrs, v_last, lengths):
     the argmax and the whole walk in registers."""
     B, L, S = ptrs.shape
     dev = ptrs.device
-    _check(ptrs, "ptrs", torch.uint8, (B, L, S), dev)
+    _check(ptrs, "ptrs", pointer_dtype(S), (B, L, S), dev)
     _check(v_last, "v_last", torch.float32, (B, S), dev)
     _check(lengths, "lengths", torch.int32, (B,), dev)
     for t, name in ((ptrs, "ptrs"), (v_last, "v_last"),
@@ -1506,11 +1564,7 @@ def pointer_chase(ptrs, v_last, lengths):
         raise ValueError("ptrs: a chase needs at least one position")
     if _device_kind(dev) == "cpu":
         return pointer_chase_plain(ptrs, v_last, lengths)
-    if S > STREAMING_MAX_STATES:
-        raise NotImplementedError(
-            f"pointer_chase: S={S} is over the {STREAMING_MAX_STATES} "
-            f"states uint8 pointers hold; not ported yet "
-            f"({_STREAMING_ENVELOPE_ITEM})")
+    _check_tile(S, "pointer_chase")
     path = torch.empty((B, L), dtype=torch.int32, device=dev)
     if B:
         _launch_streaming(
@@ -1518,3 +1572,70 @@ def pointer_chase(ptrs, v_last, lengths):
             (ptrs.data_ptr(), v_last.data_ptr(), lengths.data_ptr(),
              path.data_ptr(), B, L, S), dev)
     return path
+
+
+# ---------------------------------------------------------------------
+# K9: the max-plus sweep experiment (tools/exp_maxplus_s256)
+# ---------------------------------------------------------------------
+
+MAXPLUS_SWEEPS = 64          # STEPS of the JAX tool
+MAXPLUS_MAX_STATES = 1024
+MAXPLUS_LAYOUTS = ("resident", "blocks")
+
+
+def maxplus_sweeps_plain(v, T):
+    """Plain version of ``maxplus_sweeps``: the JAX tool's ``_ref_sweep``
+    as a loop over sweeps (a [Sp, Sp, Bg] temporary a sweep)."""
+    for _ in range(MAXPLUS_SWEEPS):
+        best = (v[:, None, :] + T[:, :, None]).amax(dim=0)
+        v = best - best.amax(dim=0, keepdim=True)
+    return v
+
+
+def maxplus_sweeps(v, T, layout, blk=None):
+    """K9: 64 sweeps of best[j, b] = max_i(v[i, b] + T[i, j]), each less
+    its column max, on v f32[Sp, Bg] (state-major) and T f32[Sp, Sp];
+    returns the last v f32[Sp, Bg].  ``layout`` "resident" reads every
+    row of T in place (the first rows from shared memory, the rest
+    through the read-only path); "blocks" stages T through shared memory
+    in blocks of ``blk`` rows (8, 16 or 32).  Any Sp <= 1024, any Bg.
+
+    Replaces ``_kernel_unrolled`` (tools/exp_maxplus_s256.py:41,
+    pallas_call :115) and ``_kernel_scratch_blocks`` (:54, pallas_call
+    :120).  Bound on an H100: 2 Sp^2 Bg float32 instructions a sweep
+    against 4 Sp^2 bytes of T a sweep per block once T leaves shared
+    memory (Sp > 232).  Design (``csrc/maxplus.cu``): a block of 256
+    threads owns 8 columns for every sweep, a thread ceil(Sp / 256)
+    states of all 8, so every element of T it reads serves 8
+    accumulators.  Bit-equal to the plain version."""
+    if layout not in MAXPLUS_LAYOUTS:
+        raise ValueError(f"layout must be one of {MAXPLUS_LAYOUTS}, got "
+                         f"{layout!r}")
+    if layout == "blocks" and blk not in (8, 16, 32):
+        raise ValueError(f"blocks: blk must be 8, 16 or 32, got {blk!r}")
+    if layout == "resident" and blk is not None:
+        raise ValueError("resident: takes no blk")
+    Sp, Bg = v.shape
+    dev = v.device
+    _check(v, "v", torch.float32, (Sp, Bg), dev)
+    _check(T, "T", torch.float32, (Sp, Sp), dev)
+    _check_contiguous(v, "v")
+    _check_contiguous(T, "T")
+    if Sp == 0:
+        raise ValueError("v: needs at least one state")
+    if _device_kind(dev) == "cpu":
+        return maxplus_sweeps_plain(v, T)
+    if Sp > MAXPLUS_MAX_STATES:
+        raise NotImplementedError(
+            f"maxplus_sweeps: Sp={Sp} is over the {MAXPLUS_MAX_STATES} "
+            f"states a block of 256 threads takes (4 a thread)")
+    out = torch.empty_like(v)
+    if Bg:
+        name = "maxplus_" + layout
+        lib = load_library()
+        rc = lib.tehmm_maxplus_sweeps(v.data_ptr(), T.data_ptr(),
+                                      out.data_ptr(), Sp, Bg, blk or 0,
+                                      _stream(dev))
+        _raise_on(rc, lib, name)
+        LAUNCHES[name] += 1
+    return out

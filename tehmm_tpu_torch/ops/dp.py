@@ -491,7 +491,7 @@ def viterbi_streaming(
 
     Counterpart of ``viterbi_pallas_v3`` (tehmm_tpu/ops/pallas_kernels.py
     :1452): the value rows come from ``cuda_kernels.viterbi_values`` (K5;
-    its plain version on CPU tensors), any S up to 256.  The backtrace,
+    its plain version on CPU tensors), any S up to 1024.  The backtrace,
     an XLA scan outside the kernel in the JAX package, is
     ``cuda_kernels.viterbi_backtrace`` (the K2 backtrace kernel on the
     card, at every S the value kernel takes; its plain version, the
@@ -530,7 +530,8 @@ def viterbi_backpointers(
     :333): ``cuda_kernels.viterbi_pointers`` (K8c) writes the argmax
     predecessors and the last value row, ``cuda_kernels.pointer_chase``
     follows them back (the XLA scan of the JAX function); their plain
-    versions on CPU tensors.  Any S up to 256."""
+    versions on CPU tensors.  Any S up to 1024: the pointers are uint8 to
+    256 states and uint16 beyond (``cuda_kernels.pointer_dtype``)."""
     from tehmm_tpu_torch.ops import cuda_kernels as ck
 
     B, L, S = obs.shape

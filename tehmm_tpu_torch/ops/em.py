@@ -23,20 +23,21 @@ four engines:
   (``ops/cuda_kernels.forward_prob`` and ``backward_prob``) returns
   alpha_p and beta_p, exactly the factors the contractions consume, and
   the statistics are the same torch products as the plain engine's.  It
-  takes any S up to 256 at any T and V, and needs several [B, L, S]
+  takes any S up to 1024 at any T and V, and needs several [B, L, S]
   tensors of device memory where K1 needs one.  ``"auto"`` takes it past
   K1's envelope.
 * ``"cuda_log"`` is the JAX package's ``engine="xla"`` run on a card: the
   plain engine's log-space scans as kernels (``ops/cuda_kernels.
   forward_scaled`` and ``backward_scaled``, K7a/K8a and K7b/K8b), then
   the plain engine's epilogue.  On the CPU it is ``"plain"`` (the matmul
-  form).  It takes any S up to 256 at any T and V; nothing selects it but
+  form).  It takes any S up to 1024 at any T and V; nothing selects it but
   its name.
 
 ``"auto"`` (``resolve_engine``) is ``"plain"`` on the CPU; on the card it
 is ``"cuda"`` where K1's kernels take the model and ``"cuda_v3"`` beyond,
-as the JAX package takes its fused kernel where it fits and another
-engine beyond: on the card training never runs a plain E-step.
+to 1024 states, as the JAX package takes its fused kernel where it fits
+and another engine beyond: on the card training never runs a plain
+E-step.
 
 Segment weights (``obs_weights``, ``--segment --segLen``) scale each
 position's observation log-likelihood and its emission counts and
@@ -224,13 +225,17 @@ def resolve_engine(engine: str, S: int, T: int, V: int, G: int,
     """The engine ``"auto"`` stands for: ``"plain"`` off the card; on the
     card ``"cuda"`` where K1's kernels take S states, T tracks of V
     symbols and G gaussian tracks (``cuda_kernels.k1_fits``), else
-    ``"cuda_v3"`` (which raises its own envelope item past 256 states).
-    Any other engine is returned as it is."""
+    ``"cuda_v3"`` up to the scan tile's 1024 states, and past them it
+    raises NotImplementedError naming the tile's envelope item (never
+    ``"plain"`` on the card).  Any other engine is returned as it is."""
     if engine != "auto":
         return engine
     if device.type != "cuda":
         return "plain"
-    return "cuda" if ck.k1_fits(S, T, V, G) else "cuda_v3"
+    if ck.k1_fits(S, T, V, G):
+        return "cuda"
+    ck._check_tile(S, 'engine "auto"')
+    return "cuda_v3"
 
 
 def log_space_factors(alpha_hat, beta_hat, obs):

@@ -25,9 +25,11 @@ and the exact posteriors the chunk sweeps X1 (``forward_final``,
 ``forward_chunk_values``) and X2 (``backward_chunk_values``).  On the CPU
 the same calls take the plain-torch versions: the stitched Viterbi
 decode always K2's, the stitched max-posterior decode the log-space
-scans, as the JAX package does off the TPU.  The streaming routes take
-up to 256 states; the exact decoders stop at their kernels' envelopes
-and raise naming it.
+scans, as the JAX package does off the TPU.  The streaming routes and
+the exact decoders take up to 1024 states (K3, X1 and X2 through the
+scan tile's carry modes past 239) and raise beyond, naming the tile's
+envelope item; past 256 states the rows a pass holds scale by 256 / S
+(``scaled_rows``).
 
 Every decoder takes the gaussian tracks (``gauss_params``; the values
 come from each table's ``.values`` and chunk with the symbols) and the
@@ -133,6 +135,14 @@ def _first_obs(params, mats, vmats, wmats, gauss_params, dev):
     )[:, 0, :]
 
 
+def scaled_rows(n: int, S: int) -> int:
+    """A budget of ``n`` rows (or positions) per pass for [rows, L, S]
+    tensors, scaled by 256 / S past 256 states (at least 1), so that
+    each tensor of a pass holds no more than it does at S = 256.  Rows
+    are independent, so the passes' results do not depend on it."""
+    return n if S <= 256 else max(1, n * 256 // S)
+
+
 def viterbi_route(S: int, T: int, V: int, G: int,
                   device: torch.device) -> str:
     """The stitched Viterbi decode's path for a model of S states, T
@@ -179,6 +189,7 @@ def _decode_batch(
     G = 0 if values is None else values.shape[-1]
     route = viterbi_route(params.num_states, T, params.log_em.shape[2], G,
                           dev)
+    rows_per_pass = scaled_rows(rows_per_pass, params.num_states)
     for lo in range(0, n, rows_per_pass):
         hi = min(lo + rows_per_pass, n)
         lens = _to_device(lengths[lo:hi], dev)
@@ -352,7 +363,8 @@ def viterbi_chunked(
       halo: initial halo width; doubled per disagreeing boundary up to
         max_halo (targeted: only adjacent chunks re-decode).
       agree_frac: fraction of the halo used as the agreement window.
-      rows_per_pass: chunks decoded per kernel launch.
+      rows_per_pass: chunks decoded per kernel launch (scaled by 256 / S
+        past 256 states, ``scaled_rows``).
       weight_arrays: optional per-table f32[L] segment weights.
       gauss_params: gaussian-track emissions; values come from each
         table's ``.values`` and chunk with the symbols.
@@ -495,6 +507,7 @@ def _posterior_batch(
     G = 0 if values is None else values.shape[-1]
     route = maxpost_route(params.num_states, T, params.log_em.shape[2], G,
                           dev)
+    rows_per_pass = scaled_rows(rows_per_pass, params.num_states)
     for lo in range(0, n, rows_per_pass):
         hi = min(lo + rows_per_pass, n)
         lens = _to_device(lengths[lo:hi], dev)

@@ -61,6 +61,10 @@ CONFIGS = {
     "S64": (64, 10, 12, 1024, 1024),
     "S128": (128, 15, 16, 512, 1024),
     "S256": (256, 20, 16, 256, 1024),
+    # past the JAX tool's set, not run by default: the scan tile past 256
+    # states, half the rows at each doubling of S beyond S256
+    "S512": (512, 20, 16, 128, 1024),
+    "S1024": (1024, 20, 16, 64, 1024),
 }
 ESTEP_ENGINES = ("plain", "cuda", "cuda_v3", "cuda_log")
 DECODE_ENGINES = ("plain", "streaming", "fused", "pointers")

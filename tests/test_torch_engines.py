@@ -31,7 +31,8 @@ from tehmm_tpu_torch.models import params as tparams  # noqa: E402
 from tehmm_tpu_torch.ops import cuda_kernels as ck  # noqa: E402
 from tehmm_tpu_torch.ops import dp as tdp  # noqa: E402
 from tehmm_tpu_torch.ops import em as tem  # noqa: E402
-from tehmm_tpu_torch.tools import bench_engines, profile_estep  # noqa: E402
+from tehmm_tpu_torch.tools import (  # noqa: E402
+    bench_engines, profile_estep, time_scans)
 from tehmm_tpu_torch.utils.profiling import marginal_time  # noqa: E402
 
 CPU = torch.device("cpu")
@@ -463,6 +464,22 @@ def test_profile_estep_cuda_log_rows(tiny_config, capsys):
     assert all(row[k] > 0 for k in stages)
     assert row["sum_ms"] == pytest.approx(sum(row[k] for k in stages),
                                           abs=2e-3)
+
+
+@pytest.mark.parametrize("batch", [0, 3])
+def test_time_scans_rows(tiny_config, capsys, batch):
+    """``tools.time_scans``: the device line, then one row a shape with
+    every tile kernel's time (the plain versions here)."""
+    assert time_scans.main(["--configs", tiny_config, "--device", "cpu",
+                            "--reps", "1", "--batch", str(batch)]) == 0
+    out = capsys.readouterr().out
+    assert out.splitlines()[0] == "# device: cpu"
+    (row,) = _rows(out)
+    S, _T, _V, B, L = TINY
+    assert (row["config"], row["S"], row["B"], row["L"]) == (
+        tiny_config, S, batch or B, L)
+    assert all(row[k] > 0 for k in ("K5", "K6a", "K6b", "K7a", "K7b",
+                                    "K8c"))
 
 
 def test_tools_refuse_cuda_without_a_card():

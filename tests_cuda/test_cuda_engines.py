@@ -167,7 +167,7 @@ def test_envelope_raises_naming_its_item(device, rng):
     for call in (lambda: ck.viterbi_values(ls, lt, obs, lens),
                  lambda: ck.forward_prob(ls, lt, obs, lens),
                  lambda: ck.backward_prob(lt, obs, lens)):
-        with pytest.raises(NotImplementedError, match="K5 and K6 beyond"):
+        with pytest.raises(NotImplementedError, match="tile beyond 1024"):
             call()
 
 

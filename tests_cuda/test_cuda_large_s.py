@@ -1,0 +1,363 @@
+"""The scan tile past 256 states, on the card: K5 (``viterbi_values``),
+K6a/K6b (``forward_prob``, ``backward_prob``), K7a/K7b
+(``forward_scaled``, ``backward_scaled``), K8c (``viterbi_pointers``,
+uint16 pointers) and the chase, and the carry modes that run K3, X1 and
+X2 past their one-warp kernels' envelope (``ck.sweep_fits``: S <= 239).
+
+Past 256 states a thread owns 2 (S <= 512) or 4 states of each of its
+block's 2 or 4 rows and the matrix is staged through shared memory block
+by block every step, each staged block serving all the rows, each output's
+product four interleaved partial results as at S <= 256 (K8c's argmax one
+chain in row order): K5, K8c, the chase and K3 are float32
+add, subtract and max only and equal the plain versions bit for bit; the
+sum-product scans are held to the plain versions carried in float64 (K6
+within 2e-6, K7 and X1/X2 within 1e-5 plus 4 float32 ulps of the largest
+|obs|, the limit chip_smoke.py states for them), and two launches give
+the same bits.  S = 257, 300, 511 take two states a thread (the second
+only for the first S - 256 threads), 512 two of every thread, 767, 1023
+and 1024 four; S = 300 also runs with four rows a block (a batch past
+one wave of blocks)."""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from tehmm_tpu_torch.models.params import from_numpy  # noqa: E402
+from tehmm_tpu_torch.ops import cuda_kernels as ck  # noqa: E402
+from tehmm_tpu_torch.ops import dp  # noqa: E402
+from tehmm_tpu_torch.ops import em  # noqa: E402
+from tehmm_tpu_torch.parallel import stitch  # noqa: E402
+
+from test_cuda_engines import _loglik, _obs_inputs  # noqa: E402
+from test_cuda_kernels import _model  # noqa: E402
+
+pytestmark = pytest.mark.cuda
+
+STATES = [257, 300, 511, 512, 767, 1023, 1024]
+F64 = torch.float64
+F32_EPS = float(np.finfo(np.float32).eps)
+
+
+def _log_limit(obs):
+    """1e-5 plus 4 float32 ulps of the largest |obs|: a step rounds
+    obs + log(sum) and its max, each to half an ulp of |obs|."""
+    return 1e-5 + 4 * F32_EPS * float(obs.abs().max())
+
+
+@pytest.mark.parametrize("zero_frac", [0.0, 0.3])
+@pytest.mark.parametrize("L", [1, 23])
+@pytest.mark.parametrize("S", STATES)
+def test_viterbi_values_and_pointers_bit_equal(device, rng, S, L,
+                                               zero_frac):
+    ls, lt, obs, _p, _m, lens = _obs_inputs(rng, device, S, L, zero_frac)
+    before = dict(ck.LAUNCHES)
+    v, dm = ck.viterbi_values(ls, lt, obs, lens)
+    pv, pdm = ck.viterbi_values_plain(ls, lt, obs, lens)
+    assert torch.equal(v, pv) and torch.equal(dm, pdm)
+    ptrs, v_last, pdm2 = ck.viterbi_pointers(ls, lt, obs, lens)
+    want = ck.viterbi_pointers_plain(ls, lt, obs, lens)
+    assert ptrs.dtype == torch.uint16 == want[0].dtype
+    assert torch.equal(ptrs, want[0]) and torch.equal(v_last, want[1]) \
+        and torch.equal(pdm2, want[2])
+    assert torch.equal(v_last, v[:, -1]) and torch.equal(pdm2, dm)
+    path = ck.pointer_chase(ptrs, v_last, lens)
+    assert torch.equal(path, ck.pointer_chase_plain(ptrs, v_last, lens))
+    want_p, want_s = dp.viterbi(ls, lt, obs, lens)
+    assert torch.equal(path, want_p)
+    got_p, got_s = dp.viterbi_streaming(ls, lt, obs, lens)
+    assert torch.equal(got_p, want_p)
+    torch.testing.assert_close(got_s, want_s, rtol=1e-5, atol=1e-4)
+    for name in ("viterbi_values", "viterbi_ptrs", "pointer_chase"):
+        assert ck.LAUNCHES[name] > before[name], name
+    assert ck.LAUNCHES["viterbi_backtrace"] > before["viterbi_backtrace"]
+
+
+@pytest.mark.parametrize("zero_frac", [0.0, 0.3])
+@pytest.mark.parametrize("S", STATES)
+def test_sum_product_scans_match_plain(device, rng, S, zero_frac):
+    ls, lt, obs, obs_p, o_m, lens = _obs_inputs(rng, device, S, 23,
+                                                zero_frac)
+    alpha, dm = ck.forward_prob(ls, lt, obs_p, lens)
+    beta = ck.backward_prob(lt, obs_p, lens)
+    r_alpha, r_dm = ck.forward_prob_plain(ls, lt, obs_p, lens, dtype=F64)
+    torch.testing.assert_close(alpha, r_alpha.float(), rtol=0, atol=2e-6)
+    torch.testing.assert_close(dm, r_dm.float(), rtol=0, atol=1e-5)
+    torch.testing.assert_close(
+        beta, ck.backward_prob_plain(lt, obs_p, lens, dtype=F64).float(),
+        rtol=0, atol=2e-6)
+    p_alpha, p_dm = ck.forward_prob_plain(ls, lt, obs_p, lens)
+    torch.testing.assert_close(_loglik(alpha, dm, o_m, lens),
+                               _loglik(p_alpha, p_dm, o_m, lens),
+                               rtol=1e-5, atol=1e-5)
+    assert bool((alpha[lens == 0] == 1).all())
+    assert torch.equal(alpha, ck.forward_prob(ls, lt, obs_p, lens)[0])
+    assert torch.equal(beta, ck.backward_prob(lt, obs_p, lens))
+
+    lim = _log_limit(obs)
+    fwd = ck.forward_scaled(ls, lt, obs, lens)
+    ref = ck.forward_scaled_plain(ls, lt, obs, lens, dtype=F64)
+    torch.testing.assert_close(fwd[0], ref[0].float(), rtol=0, atol=lim)
+    torch.testing.assert_close(fwd[1], ref[1].float(), rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(fwd[2], ref[2].float(), rtol=1e-6, atol=1e-6)
+    bwd = ck.backward_scaled(lt, obs, lens)
+    ref = ck.backward_scaled_plain(lt, obs, lens, dtype=F64)
+    torch.testing.assert_close(bwd[0], ref[0].float(), rtol=0, atol=lim)
+    torch.testing.assert_close(bwd[1], ref[1].float(), rtol=1e-5, atol=1e-4)
+    assert bool((fwd[0][lens == 0] == 0).all())
+    for b, n in enumerate(lens.tolist()):
+        assert bool((bwd[0][b, max(n - 1, 0):] == 0).all())
+    assert all(torch.equal(a, b) for a, b in
+               zip(fwd, ck.forward_scaled(ls, lt, obs, lens)))
+    assert all(torch.equal(a, b) for a, b in
+               zip(bwd, ck.backward_scaled(lt, obs, lens)))
+
+
+def test_four_rows_a_block_past_one_wave(device, rng):
+    """At S = 300 a block holds two rows or four; a batch past one wave
+    of blocks at two (at most 132 SMs x 2 blocks x 2 rows; here 1200
+    rows) takes four, and the first rows keep the bits two rows a block
+    give them."""
+    S, L = 300, 9
+    ls, lt, obs, obs_p, _m, lens = _obs_inputs(rng, device, S, L, 0.3,
+                                               rows=240)
+    few = slice(0, 5)
+    obs5, obs_p5, lens5 = obs[few].contiguous(), obs_p[few].contiguous(), \
+        lens[few]
+    v = ck.viterbi_values(ls, lt, obs, lens)
+    assert torch.equal(v[0], ck.viterbi_values_plain(ls, lt, obs, lens)[0])
+    assert torch.equal(v[0][few], ck.viterbi_values(ls, lt, obs5, lens5)[0])
+    ptrs = ck.viterbi_pointers(ls, lt, obs, lens)
+    assert torch.equal(ptrs[0], ck.viterbi_pointers_plain(ls, lt, obs,
+                                                          lens)[0])
+    assert torch.equal(ptrs[0][few],
+                       ck.viterbi_pointers(ls, lt, obs5, lens5)[0])
+    for whole, part in (
+            (ck.forward_prob(ls, lt, obs_p, lens)[0],
+             ck.forward_prob(ls, lt, obs_p5, lens5)[0]),
+            (ck.backward_prob(lt, obs_p, lens),
+             ck.backward_prob(lt, obs_p5, lens5)),
+            (ck.forward_scaled(ls, lt, obs, lens)[0],
+             ck.forward_scaled(ls, lt, obs5, lens5)[0]),
+            (ck.backward_scaled(lt, obs, lens)[0],
+             ck.backward_scaled(lt, obs5, lens5)[0])):
+        assert torch.equal(whole[few], part)
+
+
+def test_pointers_take_the_lowest_state_on_ties(device):
+    """Equal candidates past 256 states: every pointer is state 0."""
+    S, L = 600, 5
+    lt = torch.full((S, S), float(np.log(1.0 / S)), device=device)
+    ls = torch.full((S,), float(np.log(1.0 / S)), device=device)
+    obs = torch.zeros((2, L, S), device=device)
+    lens = torch.tensor([L, 0], dtype=torch.int32, device=device)
+    ptrs, v_last, _dm = ck.viterbi_pointers(ls, lt, obs, lens)
+    want = ck.viterbi_pointers_plain(ls, lt, obs, lens)
+    assert torch.equal(ptrs, want[0]) and torch.equal(v_last, want[1])
+    assert bool((ptrs[0, 1:] == 0).all())
+    ident = torch.arange(S, device=device).to(torch.uint16)
+    assert bool((ptrs[1] == ident).all())
+
+
+def _sweep_inputs(rng, device, S, L, zero_frac=0.0):
+    ls, lt, obs, _p, _m, lens = _obs_inputs(rng, device, S, L, zero_frac)
+    init = torch.from_numpy(rng.randn(len(lens), S).astype(np.float32)) \
+        .to(device)
+    init = init - init.amax(dim=-1, keepdim=True)
+    cont = torch.zeros(len(lens), dtype=torch.bool, device=device)
+    cont[0] = True
+    return lt, obs, init, cont, lens
+
+
+@pytest.mark.parametrize("zero_frac", [0.0, 0.3])
+@pytest.mark.parametrize("S", [239, 240, 512, 1024])
+def test_carried_sweeps_match_plain(device, rng, S, zero_frac):
+    """K3 bit-equal to plain; X1 and X2 within the log-space limit of the
+    plain versions in float64; each launched under its own counter, the
+    one-warp kernel at S = 239 and the tile's carry mode from 240."""
+    lt, obs, init, cont, lens = _sweep_inputs(rng, device, S, 41, zero_frac)
+    tile = not ck.sweep_fits(S)
+    assert tile == (S >= 240)
+    before = dict(ck.LAUNCHES)
+    v = ck.viterbi_chunk_values(lt, obs, init, lens)
+    assert torch.equal(v, dp.viterbi_chunk_values(lt, obs, init, lens))
+    carry = ck.viterbi_carry(lt, obs, init, lens)
+    assert torch.equal(carry, dp.viterbi_carry(lt, obs, init, lens))
+    assert torch.equal(carry, v[:, -1])
+    lim = _log_limit(obs)
+    hats, a_carry = ck.forward_chunk_values(lt, obs, init, lens)
+    r_hats, r_carry = dp.forward_chunk_values(lt, obs, init, lens,
+                                              dtype=F64)
+    torch.testing.assert_close(hats, r_hats.float(), rtol=0, atol=lim)
+    torch.testing.assert_close(a_carry, r_carry.float(), rtol=0, atol=lim)
+    final, dm_sum = ck.forward_final(lt, obs, init, lens)
+    assert torch.equal(final, a_carry), "X1's two modes end apart"
+    torch.testing.assert_close(
+        dm_sum, dp.forward_final(lt, obs, init, lens, dtype=F64)[1].float(),
+        rtol=1e-6, atol=1e-4)
+    beta, x_out = ck.backward_chunk_values(lt, obs, init, cont, lens)
+    r_beta, r_x = dp.backward_chunk_values(lt, obs, init, cont, lens,
+                                           dtype=F64)
+    torch.testing.assert_close(beta, r_beta.float(), rtol=0, atol=lim)
+    torch.testing.assert_close(x_out, r_x.float(), rtol=0, atol=lim)
+    suffix = "_tile" if tile else ""
+    assert ck.LAUNCHES["viterbi_chunk" + ("_tile" if tile else "_values")] \
+        == before["viterbi_chunk" + ("_tile" if tile else "_values")] + 2
+    assert ck.LAUNCHES["fwd_chunk" + suffix] == \
+        before["fwd_chunk" + suffix] + 2
+    assert ck.LAUNCHES["bwd_chunk" + suffix] == \
+        before["bwd_chunk" + suffix] + 1
+    assert torch.equal(
+        ck.backward_chunk_values(lt, obs, init, cont, lens)[0], beta)
+
+
+@pytest.mark.parametrize("S", [239, 240, 512, 1024])
+def test_chunked_sweeps_equal_one_chunk(device, rng, S):
+    """A sweep cut into chunks gives the bits of one chunk over the whole
+    row: K3's values and carries, X1's hats and carries, X2's betas."""
+    lt, obs, init, cont, lens = _sweep_inputs(rng, device, S, 60)
+    lens = torch.tensor([60, 60, 33, 0, 1], dtype=torch.int32,
+                        device=device)
+    cuts = (0, 17, 40, 60)
+
+    def part_lens(lo, hi):
+        return torch.clamp(lens - lo, 0, hi - lo).to(torch.int32)
+
+    whole_v = ck.viterbi_chunk_values(lt, obs, init, lens)
+    whole_h, whole_c = ck.forward_chunk_values(lt, obs, init, lens)
+    v_carry, a_carry = init, init
+    for lo, hi in zip(cuts[:-1], cuts[1:]):
+        o = obs[:, lo:hi].contiguous()
+        pl = part_lens(lo, hi)
+        v = ck.viterbi_chunk_values(lt, o, v_carry, pl)
+        assert torch.equal(v, whole_v[:, lo:hi])
+        v_carry = ck.viterbi_carry(lt, o, v_carry, pl)
+        final, _dm = ck.forward_final(lt, o, a_carry, pl)
+        h, a_carry = ck.forward_chunk_values(lt, o, a_carry, pl)
+        assert torch.equal(h, whole_h[:, lo:hi])
+        assert torch.equal(final, a_carry)
+    assert torch.equal(v_carry, whole_v[:, -1])
+    assert torch.equal(a_carry, whole_c)
+    # X2 from the end: the carry of the chunk after is its x_out
+    whole_b, whole_x = ck.backward_chunk_values(lt, obs, init, cont, lens)
+    x_carry, continuing = init, cont
+    for lo, hi in reversed(list(zip(cuts[:-1], cuts[1:]))):
+        o = obs[:, lo:hi].contiguous()
+        b, x_carry = ck.backward_chunk_values(lt, o, x_carry, continuing,
+                                              part_lens(lo, hi))
+        assert torch.equal(b, whole_b[:, lo:hi])
+        continuing = lens > lo
+    assert torch.equal(x_carry, whole_x)
+
+
+def test_posterior_sweep_chunked_equals_one_chunk(device, rng):
+    """posterior_sweep (--pd's path) at S = 300 in chunks of 64 gives the
+    gamma bits of one chunk over each row, and score runs on the card."""
+    from tehmm_tpu_torch.io.trackdata import TrackTable
+    from tehmm_tpu_torch.models.hmm import MultitrackHmm
+
+    S = 300
+    params = from_numpy(*_model(rng, S, 3, 6), device)
+    syms = [rng.randint(0, 6, size=(n, 3)).astype(np.uint8)
+            for n in (300, 1, 130)]
+
+    def gammas(chunk_len):
+        out = [np.zeros((len(s), S), np.float32) for s in syms]
+
+        def consume(b, start, gamma):
+            out[b][start : start + len(gamma)] = gamma
+
+        stitch.posterior_sweep(params, syms, chunk_len, consume)
+        return out
+
+    before = dict(ck.LAUNCHES)
+    for c, w in zip(gammas(64), gammas(1 << 14)):
+        np.testing.assert_array_equal(c, w)
+    assert ck.LAUNCHES["fwd_chunk_tile"] > before["fwd_chunk_tile"]
+    assert ck.LAUNCHES["bwd_chunk_tile"] > before["bwd_chunk_tile"]
+    tabs = [TrackTable("chr1", 0, len(s), s) for s in syms]
+    on_cpu = from_numpy(*_model(np.random.RandomState(0), S, 3, 6), "cpu")
+    on_gpu = from_numpy(*_model(np.random.RandomState(0), S, 3, 6), device)
+    scores = [MultitrackHmm(p, None, {}, None).score(tabs, chunk_len=64)
+              for p in (on_gpu, on_cpu)]
+    np.testing.assert_allclose(scores[0], scores[1], rtol=1e-5)
+
+
+def test_decoders_past_256_states_equal_the_cpu(device, rng):
+    """At S = 300 the stitched and exact Viterbi give the CPU's paths and
+    the stitched and exact max-posterior agree with it on >= 99.9%."""
+    S = 300
+    tables = _model(rng, S, 3, 6)
+    syms = [rng.randint(1, 6, size=(n, 3)).astype(np.uint8)
+            for n in (1500, 601)]
+    on_gpu = from_numpy(*tables, device)
+    on_cpu = from_numpy(*tables, "cpu")
+    before = dict(ck.LAUNCHES)
+    for decode in (
+        lambda p: stitch.viterbi_chunked(p, syms, chunk_len=512,
+                                         halo=32)[0],
+        lambda p: stitch.viterbi_exact(p, syms, chunk_len=256),
+    ):
+        for g, c in zip(decode(on_gpu), decode(on_cpu)):
+            np.testing.assert_array_equal(g, c)
+    assert ck.LAUNCHES["viterbi_chunk_tile"] > before["viterbi_chunk_tile"]
+    for decode in (
+        lambda p: stitch.posterior_chunked(p, syms, chunk_len=512,
+                                           halo=32)[0],
+        lambda p: stitch.posterior_exact(p, syms, chunk_len=256),
+    ):
+        for g, c in zip(decode(on_gpu), decode(on_cpu)):
+            assert (g == c).mean() >= 0.999
+
+
+@pytest.mark.parametrize("S", [300, 1024])
+def test_auto_takes_cuda_v3_to_1024_states(device, rng, S):
+    ls, lt, lem, sym, lens = _model_inputs(rng, device, S)
+    from tehmm_tpu_torch.models.params import HmmParams
+
+    p = HmmParams(ls, lt, lem)
+    assert em.resolve_engine("auto", S, 3, 6, 0, device) == "cuda_v3"
+    before = dict(ck.LAUNCHES)
+    got = em.em_sufficient_stats(p, sym, lens)
+    assert ck.LAUNCHES["fwd_prob"] == before["fwd_prob"] + 1
+    want = em.em_sufficient_stats(p, sym, lens, engine="plain")
+    torch.testing.assert_close(got.loglik, want.loglik, rtol=1e-5, atol=0)
+    torch.testing.assert_close(got.trans, want.trans, rtol=1e-4, atol=1e-5)
+
+
+def _model_inputs(rng, device, S):
+    from test_cuda_kernels import _inputs
+
+    return _inputs(rng, device, S, 19)
+
+
+def test_envelope_raises_naming_its_item(device):
+    """Past 1024 states every tile wrapper, the carried sweeps' wrappers
+    past their one-warp kernels, the backtrace and ``"auto"`` raise
+    naming the tile's item."""
+    S = ck.STREAMING_MAX_STATES + 1
+    obs = torch.zeros((2, 3, S), device=device)
+    lt = torch.zeros((S, S), device=device)
+    ls = torch.zeros((S,), device=device)
+    carry = torch.zeros((2, S), device=device)
+    lens = torch.full((2,), 3, dtype=torch.int32, device=device)
+    cont = torch.zeros(2, dtype=torch.bool, device=device)
+    end = torch.zeros(2, dtype=torch.int32, device=device)
+    ptrs = torch.zeros((2, 3, S), dtype=torch.uint16, device=device)
+    for call in (lambda: ck.viterbi_values(ls, lt, obs, lens),
+                 lambda: ck.forward_prob(ls, lt, obs, lens),
+                 lambda: ck.backward_prob(lt, obs, lens),
+                 lambda: ck.forward_scaled(ls, lt, obs, lens),
+                 lambda: ck.backward_scaled(lt, obs, lens),
+                 lambda: ck.viterbi_pointers(ls, lt, obs, lens),
+                 lambda: ck.pointer_chase(ptrs, carry, lens),
+                 lambda: ck.viterbi_chunk_values(lt, obs, carry, lens),
+                 lambda: ck.viterbi_carry(lt, obs, carry, lens),
+                 lambda: ck.forward_chunk_values(lt, obs, carry, lens),
+                 lambda: ck.forward_final(lt, obs, carry, lens),
+                 lambda: ck.backward_chunk_values(lt, obs, carry, cont,
+                                                  lens),
+                 lambda: ck.viterbi_backtrace(lt, obs, carry, end, lens),
+                 lambda: em.resolve_engine("auto", S, 3, 6, 0, device)):
+        with pytest.raises(NotImplementedError, match="tile beyond 1024"):
+            call()

@@ -199,9 +199,13 @@ def test_outside_the_envelope_raises(device, rng):
     alpha = torch.ones((len(lens), 4, 300), device=device)
     with pytest.raises(NotImplementedError, match="K4, X1 and X2"):
         ck.post_decode(lt, lem, sym, lens, alpha)
-    obs = torch.zeros((len(lens), 4, 300), device=device)
-    carry = torch.zeros((len(lens), 300), device=device)
-    with pytest.raises(NotImplementedError, match="shared-memory envelope"):
+    # X1 and X2 run past their one-warp kernels on the scan tile, to the
+    # tile's 1024 states
+    S = ck.STREAMING_MAX_STATES + 1
+    lt = torch.zeros((S, S), device=device)
+    obs = torch.zeros((len(lens), 4, S), device=device)
+    carry = torch.zeros((len(lens), S), device=device)
+    with pytest.raises(NotImplementedError, match="tile beyond 1024"):
         ck.forward_final(lt, obs, carry, lens)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ck.backward_chunk_values(

@@ -178,7 +178,7 @@ def test_envelope_raises_naming_its_item(device):
     for call in (lambda: ck.forward_scaled(ls, lt, obs, lens),
                  lambda: ck.backward_scaled(lt, obs, lens),
                  lambda: ck.viterbi_pointers(ls, lt, obs, lens)):
-        with pytest.raises(NotImplementedError, match="K5 and K6 beyond"):
+        with pytest.raises(NotImplementedError, match="tile beyond 1024"):
             call()
 
 
