@@ -28,7 +28,19 @@ Phases (any failure raises, and the run exits non-zero):
    held to it too), the summed normalizers within 1e-6 relative and
    1e-6 absolute (each check's worst ratio of error to its limit
    printed), two launches bit-identical; the same X1/X2 check again on
-   8 draws, seeds 0-7 of its own generator.  Then K2's forward, K1 and
+   8 draws, seeds 0-7 of its own generator.  The piece-operator scan
+   (``ck.forward_loglik``: ``fwd_piece_ops``, ``fwd_piece_compose``; the
+   score's route) on a generator of its own at S=10, on 1 row of 4096
+   (the eval CLI's score launch), 4 rows of 4096 (ragged) and 1 row of
+   16384: each kernel and the whole scan against the plain versions in
+   float64 (probability rows and carries within the F3 limit, sums of k
+   normalizers within 1e-6 relative plus ``_sum_atol``), two launches
+   bit-identical, timed (each kernel's bound is the function's, X1's
+   carry-only one, with its own design bound beside it); then the
+   same-call A/B of the chain (X1 carry-only) against the pieces at S=10,
+   64, 168, 169 and 239 on 1 x 16384 and 4 x 4096 full rows, both held
+   to the float64 chain.  Then K2's
+   forward, K1 and
    the K4 decode with each optional observation stream (segment weights
    in [1, 64], 2 gaussian tracks with 10% missing values, both) at the
    same shapes:
@@ -90,9 +102,16 @@ Phases (any failure raises, and the run exits non-zero):
    20,000-position region the card's BED equals the CPU's (plain torch).
 3d. Max-posterior decoding, ``--pd`` and scoring through ``eval`` with
    phase 3's model: stitched ``--maxPost --bed`` on the whole chromosome
-   (K4, and the printed forward loglik through X1): the BED tiles it,
-   every stitch boundary agrees, base accuracy >= 0.9, and the loglik is
-   finite and at least phase 3's Viterbi path score (less 1e-6 of it).
+   (K4, and the printed forward loglik through the piece-operator scan):
+   the BED tiles it, every stitch boundary agrees, base accuracy >= 0.9,
+   and the loglik is finite and at least phase 3's Viterbi path score
+   (less 1e-6 of it); the same score again through the chain (X1
+   carry-only) and through the pieces, each split into kernels, obs
+   formation and ``block_of`` with its H2D copy and the loop, each
+   chunk's summed increments within the derived limit of the chain's
+   (the printed totals within a sanity bound); the score
+   stage launched the piece kernels and no X1, ``--pd``'s sweep X1/X2
+   and no piece kernel.
    On the 1,000,000-position region ``--maxPost --exact`` (X1/X2) and
    ``--no-exact`` (K4) agree on >= 99.999% of bases; on the
    20,000-position region the card and the CPU agree for ``--maxPost``
@@ -192,6 +211,12 @@ EM_STATES, EM_ITERS, EM_CHUNK = 10, 15, 16384
 K1_EM_ROWS = 256                     # rows of the K1 check at EM's shape
 K4_B, K4_L = 64, 4096 + 2 * 256      # one stitched max-posterior group
 X_B, X_L = 4, 4096                   # the chunk sweeps' check
+# the piece-operator scan: the eval CLI's score launch (one table, chunks
+# of 4096), the chunk sweeps' check, MultitrackHmm.score's default chunk;
+# its A/B against the chain at these S and (rows, L)
+PIECE_SHAPES = ((1, 4096), (X_B, X_L), (1, 16384))
+PIECE_AB_STATES = (10, 64, 168, 169, 239)
+PIECE_AB_SHAPES = ((1, 16384), (X_B, X_L))
 F3_SEEDS = 8                         # further draws of that check
 NEAR_TIE = 1e-5                      # K4: relative gap of a near-tie
 STREAM_VARIANTS = ("+w", "+g", "+wg")  # weights, gaussian tracks, both
@@ -235,6 +260,8 @@ SOURCES = {
     "bwd_chunk_tile": "tehmm_tpu_torch/csrc/scans.cu",
     "maxplus_resident": "tehmm_tpu_torch/csrc/maxplus.cu",
     "maxplus_blocks": "tehmm_tpu_torch/csrc/maxplus.cu",
+    "fwd_piece_ops": "tehmm_tpu_torch/csrc/posterior.cu",
+    "fwd_piece_compose": "tehmm_tpu_torch/csrc/posterior.cu",
 }
 REPLACES = {
     "viterbi_fwd": "tehmm_tpu/ops/pallas_kernels.py:2386",
@@ -263,10 +290,15 @@ REPLACES = {
     # K9's two layouts
     "maxplus_resident": "tools/exp_maxplus_s256.py:115",
     "maxplus_blocks": "tools/exp_maxplus_s256.py:120",
+    # X1's carry-only function as a piece-operator scan (the score)
+    "fwd_piece_ops": "tehmm_tpu/ops/dp.py:378",
+    "fwd_piece_compose": "tehmm_tpu/ops/dp.py:378",
 }
 DECODE_KERNELS = ("viterbi_fwd", "viterbi_backtrace", "viterbi_chunk_values")
 EM_KERNELS = ("em_fwd", "em_bwd_stats")
-POST_KERNELS = ("em_fwd", "post_decode", "fwd_chunk", "bwd_chunk")
+POST_KERNELS = ("em_fwd", "post_decode", "fwd_chunk", "bwd_chunk",
+                "fwd_piece_ops", "fwd_piece_compose")
+SCORE_STAGE = "score (piece-operator scan)"
 # 3e's paths: base resolution with a gaussian track (+g), segment mode
 # with the gaussian track (+wg) and with categorical tracks only (+w)
 GAUSS_BASE_KERNELS = ("viterbi_fwd+g", "viterbi_backtrace", "em_fwd+g",
@@ -306,6 +338,20 @@ ENVELOPE_MESSAGE = "beyond the shared-memory envelope"
 # to 1024 of them) and 1e-4 absolute
 F32_EPS = float(np.finfo(np.float32).eps)
 SCAN_ATOL, SCAN_OBS_ULPS, SCAN_CUM_RTOL = 1e-5, 4, 1e-5
+
+
+def _sum_atol(steps, S_, obs_max):
+    """The piece-operator scan's sums of ``steps`` normalizers against
+    float64 are held within 1e-6 relative plus this: each normalizer
+    carries the rounding of an S-term sum (S float32 ulps of it,
+    relative, so S ulps of 1 in its log) and of obs + log(sum) (an ulp of
+    the largest |obs|, ``obs_max``), and a piece's terms may cancel."""
+    return 1e-6 + steps * F32_EPS * (S_ + obs_max)
+
+
+def _f3_limit(obs_max):
+    """F3's limit for carries, rows and hats against plain in float64."""
+    return SCAN_ATOL + SCAN_OBS_ULPS * F32_EPS * obs_max
 
 
 def _smi() -> str:
@@ -393,6 +439,21 @@ def _bound(name, shape, valid, G=0, weighted=False) -> dict:
     elif base == "viterbi_chunk_tile":
         nbytes = 2 * rows + (B * S + B + S * S) * f
         ops = 2 * S * S + 3 * S
+    elif base == "fwd_piece_ops":      # S chains of X1's step a position
+        from tehmm_tpu_torch.ops.dp import PIECE
+
+        n_p = -(-L // PIECE)           # out: probability rows, log scales
+        nbytes = rows + (B + S * S) * f + B * n_p * S * (S * f + 8)
+        ops = S * (2 * S * S + 4 * S)
+    elif base == "fwd_piece_compose":  # X1's step a live piece (valid)
+        from tehmm_tpu_torch.ops.dp import PIECE
+
+        n_p = -(-L // PIECE)           # in: the operators and the carry
+        nbytes = B * n_p * (S * (S * f + 8) + 8) + (2 * B * S + B) * f
+        ops = 2 * S * S + 6 * S
+    elif base == "forward_final":      # X1's carry-only function: obs,
+        nbytes = rows + (2 * B * S + 2 * B + S * S) * f   # carry, sum
+        ops = 2 * S * S + 4 * S
     elif base in ("fwd_chunk", "bwd_chunk", "fwd_chunk_tile",
                   "bwd_chunk_tile"):   # log-space step
         nbytes = 2 * rows + (2 * B * S + 2 * B + S * S) * f
@@ -725,9 +786,11 @@ def _sweep_check(p, device, rng, label="X1/X2"):
 
 
 
-def phase_post_kernels(device, rng) -> dict:
+def phase_post_kernels(device, rng, seed) -> dict:
     """K4's decode and the chunk sweeps X1, X2 against their plain
-    versions, at the shapes the max-posterior path gives them."""
+    versions, at the shapes the max-posterior path gives them; then the
+    piece-operator scan (``phase_piece_scan``, on a generator of its own
+    so that the later phases draw the same data)."""
     import torch
 
     from tehmm_tpu_torch.ops import cuda_kernels as ck
@@ -826,6 +889,226 @@ def phase_post_kernels(device, rng) -> dict:
         print(f"[kernels] {name:22s} max_abs_err {r['max_abs_err']:.3g}  "
               f"kernel {r['ms']:10.3f} ms  plain {r['plain_ms']:10.3f} ms",
               flush=True)
+    out.update(phase_piece_scan(device, np.random.RandomState(seed + 5)))
+    return out
+
+
+def _piece_inputs(rng, device, S_, B, L, full=False):
+    """The decode model (S) or a sticky random one (other S), obs of B
+    rows of L from random symbols (one row: full length; four: full, 0,
+    1, random, or all full with ``full``), a carry (max 0)."""
+    import torch
+
+    from tehmm_tpu_torch.models.emission import track_log_likelihoods
+    from tehmm_tpu_torch.models.params import from_numpy
+
+    p = (_decode_model(rng, device) if S_ == S
+         else from_numpy(*_sticky_model(rng, S_, T, V), device))
+    lengths = np.asarray([L, 0, 1, rng.randint(2, L)][:B], np.int32)
+    if full:
+        lengths[:] = L
+    sym = torch.from_numpy(
+        rng.randint(0, V, size=(B, L, T)).astype(np.int32)).to(device)
+    obs = track_log_likelihoods(p.log_em, sym)
+    init = torch.from_numpy(rng.randn(B, S_).astype(np.float32)).to(device)
+    init = init - init.amax(dim=-1, keepdim=True)
+    return (p.log_trans, obs, init, torch.from_numpy(lengths).to(device),
+            lengths)
+
+
+def phase_piece_scan(device, rng) -> dict:
+    """X1's carry-only function as the piece-operator scan
+    (``ck.forward_loglik``: ``fwd_piece_ops``, ``fwd_piece_compose``)
+    against its plain versions in float64 at S, at PIECE_SHAPES: phase A's
+    probability rows within the F3 limit and log scales within 1e-6
+    relative plus ``_sum_atol`` of ``dp.piece_operators``; phase B, fed
+    the kernel's operators, the carry within the F3 limit and each
+    piece's increment within the same sum limit of ``dp.compose_pieces``;
+    the whole scan's carry within the F3 limit and summed increments
+    within the sum limit of the chain ``dp.forward_final``; two launches
+    bit-identical.  Then the same-call A/B of the chain
+    (``ck.forward_final``, X1 carry-only) and the pieces at PIECE_AB_STATES
+    x PIECE_AB_SHAPES (chain, pieces, pieces, chain; median of 5 each),
+    the two held to the float64 chain at the same limits.  Returns the
+    two kernels' rows, timed at the first of PIECE_SHAPES (the eval CLI's
+    launch: one table, chunks of 4096) and at the others."""
+    import torch
+
+    from tehmm_tpu_torch.ops import cuda_kernels as ck
+    from tehmm_tpu_torch.ops import dp
+
+    f64 = torch.float64
+    rows = {"fwd_piece_ops": {}, "fwd_piece_compose": {}}
+    for B_, L_ in PIECE_SHAPES:
+        lt, obs, init, lens, lengths = _piece_inputs(rng, device, S, B_, L_)
+        m = float(obs.abs().max())
+        lim = _f3_limit(m)
+        probs, n = ck.piece_operators(lt, obs, lens)
+        n_p = probs.shape[1]
+        live = (torch.arange(n_p, device=device)[None, :] * dp.PIECE
+                < lens[:, None].long())
+        want_p, want_n = dp.piece_operators(lt, obs, lens, dtype=f64)
+        err = {"A rows": _assert_close("fwd_piece_ops rows", probs[live],
+                                       want_p[live], 0.0, lim),
+               "A log scales": _assert_close(
+                   "fwd_piece_ops log scales", n[live], want_n[live], 1e-6,
+                   _sum_atol(dp.PIECE, S, m))}
+        ratio = {"A rows": _limit_ratio(probs[live], want_p[live], 0.0, lim),
+                 "A log scales": _limit_ratio(n[live], want_n[live], 1e-6,
+                                              _sum_atol(dp.PIECE, S, m))}
+        del want_p, want_n
+        carry, incs = ck.compose_pieces(probs, n, init, lens)
+        want_c, want_i = dp.compose_pieces(probs.double(), n, init.double(),
+                                           lens)
+        err["B carry"] = _assert_close("fwd_piece_compose carry", carry,
+                                       _ref64(want_c), 0.0, lim)
+        err["B increments"] = _assert_close(
+            "fwd_piece_compose increments", incs, want_i, 1e-6,
+            _sum_atol(1, S, m))
+        ratio["B carry"] = _limit_ratio(carry, _ref64(want_c), 0.0, lim)
+        ratio["B increments"] = _limit_ratio(incs, want_i, 1e-6,
+                                             _sum_atol(1, S, m))
+        got_c, got_dm = ck.forward_loglik(lt, obs, init, lens)
+        again = ck.forward_loglik(lt, obs, init, lens)
+        assert torch.equal(got_c, again[0]) and torch.equal(got_dm, again[1])
+        ref_c, ref_dm = dp.forward_final(lt, obs, init, lens, dtype=f64)
+        err["carry"] = _assert_close("piece scan carry", got_c,
+                                     _ref64(ref_c), 0.0, lim)
+        err["increments"] = _assert_close("piece scan increments", got_dm,
+                                          ref_dm, 1e-6,
+                                          _sum_atol(L_, S, m))
+        ratio["carry"] = _limit_ratio(got_c, _ref64(ref_c), 0.0, lim)
+        ratio["increments"] = _limit_ratio(got_dm, ref_dm, 1e-6,
+                                           _sum_atol(L_, S, m))
+        print(f"[kernels] piece-operator scan at S={S}, {B_} x {L_}: "
+              f"against plain in float64 (F3 limit {lim:.3g}; 1e-6 "
+              f"relative) [worst error/limit]: " + ", ".join(
+                  f"{k} {err[k]:.3g} [{ratio[k]:.3f}]" for k in err)
+              + "; repeat launches bit-identical", flush=True)
+        tag = f"{B_}x{L_}"
+        valid = int(np.minimum(lengths, L_).sum())
+        live_pieces = int(live.sum())
+        shape = (B_, L_, S, T, V)
+        # both kernels' rows carry the bound of the function they compute
+        # together, X1's carry-only function, whatever implements it;
+        # beside it each kernel's own design bound (phase A: S chains a
+        # position, S times the function's arithmetic)
+        function = _bound("forward_final", shape, valid)
+        timed = {
+            "fwd_piece_ops": dict(
+                ms=_median_ms(lambda: ck.piece_operators(lt, obs, lens), 5),
+                plain_ms=_median_ms(
+                    lambda: dp.piece_operators(lt, obs, lens), 3),
+                max_abs_err=max(err["A rows"], err["A log scales"]),
+                **function, **_design_bound("fwd_piece_ops", shape, valid)),
+            "fwd_piece_compose": dict(
+                ms=_median_ms(
+                    lambda: ck.compose_pieces(probs, n, init, lens), 5),
+                plain_ms=_median_ms(
+                    lambda: dp.compose_pieces(probs, n, init, lens), 3),
+                max_abs_err=max(err["B carry"], err["B increments"]),
+                **function,
+                **_design_bound("fwd_piece_compose", shape, live_pieces)),
+        }
+        whole = _median_ms(lambda: ck.forward_loglik(lt, obs, init, lens), 5)
+        for name, r in timed.items():
+            r.update(whole_ms=whole)
+            rows[name][tag] = r
+            print(f"[kernels] {name + ' ' + tag:30s} kernel {r['ms']:9.3f} "
+                  f"ms  plain {r['plain_ms']:9.3f} ms  design bound "
+                  f"{r['design_bound_ms']:.5f} ms ({r['design_bound_by']})",
+                  flush=True)
+        print(f"[kernels] piece-operator scan {tag}: forward_loglik "
+              f"{whole:.3f} ms; the function's bound (both kernels' "
+              f"bound_ms) {function['bound_ms']:.5f} ms "
+              f"({function['bound_by']})", flush=True)
+        del probs, n, want_c, want_i
+    out = {}
+    for name, by_shape in rows.items():
+        first = f"{PIECE_SHAPES[0][0]}x{PIECE_SHAPES[0][1]}"
+        out[name] = dict(by_shape[first])
+        for tag, r in by_shape.items():
+            if tag != first:
+                out[name].update({f"{k}_{tag}": r[k] for k in
+                                  ("ms", "plain_ms", "bound_ms",
+                                   "design_bound_ms", "whole_ms")})
+    out["fwd_piece_ops"]["ab"] = _piece_scan_ab(device, rng)
+    return out
+
+
+def _design_bound(name, shape, valid) -> dict:
+    """A piece kernel's own bound (``_bound``), under its own keys."""
+    b = _bound(name, shape, valid)
+    return dict(design_bound_ms=b["bound_ms"], design_bound_by=b["bound_by"])
+
+
+def _pieces(lt, obs, init, lens):
+    """The piece-operator scan's two kernels, whatever S
+    ``ck.forward_loglik`` would route (the A/B times them past it)."""
+    import torch
+
+    from tehmm_tpu_torch.ops import cuda_kernels as ck
+
+    carry, incs = ck.compose_pieces(*ck.piece_operators(lt, obs, lens),
+                                    init, lens)
+    return carry, incs.sum(dim=1).to(torch.float32)
+
+
+def _piece_scan_ab(device, rng) -> list:
+    """The chain (``ck.forward_final``: X1 carry-only, ``fwd_chunk``) and
+    the pieces (``_pieces``) on the same inputs, full rows, in one call:
+    chain, pieces, pieces, chain, each the median of 5; both held to the
+    float64 chain (carry within the F3 limit, increments within 1e-6
+    relative plus ``_sum_atol``).  At 168 and 169 states it reads the
+    crossover that ``ck.PIECE_SCAN_MAX_STATES`` keeps; the rows'
+    crossover (``ck.piece_scan_route``) is read by ``tools/time_score``."""
+    import torch
+
+    from tehmm_tpu_torch.ops import cuda_kernels as ck
+    from tehmm_tpu_torch.ops import dp
+
+    out = []
+    for S_ in PIECE_AB_STATES:
+        for B_, L_ in PIECE_AB_SHAPES:
+            lt, obs, init, lens, _ = _piece_inputs(rng, device, S_, B_, L_,
+                                                   full=True)
+            m = float(obs.abs().max())
+            lim = _f3_limit(m)
+            ref_c, ref_dm = dp.forward_final(lt, obs, init, lens,
+                                             dtype=torch.float64)
+            ratio = {}
+            for name, fn in (("chain", ck.forward_final),
+                             ("pieces", _pieces)):
+                c, dm = fn(lt, obs, init, lens)
+                _assert_close(f"{name} carry S={S_}", c, _ref64(ref_c), 0.0,
+                              lim)
+                atol = _sum_atol(L_, S_, m)
+                _assert_close(f"{name} increments S={S_}", dm, ref_dm, 1e-6,
+                              atol)
+                ratio[name] = (_limit_ratio(c, _ref64(ref_c), 0.0, lim),
+                               _limit_ratio(dm, ref_dm, 1e-6, atol))
+            t = {"chain": [], "pieces": []}
+            for name in ("chain", "pieces", "pieces", "chain"):
+                fn = ck.forward_final if name == "chain" else _pieces
+                t[name].append(_median_ms(lambda: fn(lt, obs, init, lens),
+                                          5))
+            row = dict(S=S_, rows=B_, L=L_, chain_ms=t["chain"],
+                       pieces_ms=t["pieces"],
+                       speedup=min(t["chain"]) / min(t["pieces"]),
+                       worst_ratio=ratio,
+                       route=("pieces" if ck.piece_scan_route(B_, S_)
+                              else "chain"))
+            out.append(row)
+            print(f"[piece A/B] S={S_} {B_} x {L_} (the score's route: "
+                  f"{row['route']}): chain {t['chain'][0]:.3f}"
+                  f" / {t['chain'][1]:.3f} ms, pieces {t['pieces'][0]:.3f} / "
+                  f"{t['pieces'][1]:.3f} ms ({row['speedup']:.2f}x); worst "
+                  f"error/limit (carry, increments) chain "
+                  f"{ratio['chain'][0]:.3f}, {ratio['chain'][1]:.3f}, "
+                  f"pieces {ratio['pieces'][0]:.3f}, "
+                  f"{ratio['pieces'][1]:.3f}", flush=True)
+            del lt, obs, init, lens, ref_c, ref_dm
+            torch.cuda.empty_cache()
     return out
 
 
@@ -1571,17 +1854,28 @@ class _Stages:
         self.seconds: dict[str, float] = {}
         self.calls: dict[str, int] = {}
         self.last: dict[str, object] = {}
+        self.first_call: dict[str, tuple] = {}
+        self.launched: dict[str, dict] = {}
         self._undo = []
 
-    def wrap(self, owner, attr, stage, sync=False, keep=False):
+    def wrap(self, owner, attr, stage, sync=False, keep=False,
+             keep_first_call=False, count=False):
         """``sync``: end the span with torch.cuda.synchronize(), so a
         call that only queues work on the card is charged its work.
         ``keep``: hold the last result in ``self.last`` (only for stages
-        read afterwards, so the spans hold no other tensor alive)."""
+        read afterwards, so the spans hold no other tensor alive);
+        ``keep_first_call``: hold the first call's arguments in
+        ``self.first_call``.  ``count``: sum each call's kernel launches
+        (``ck.LAUNCHES`` after less before) in ``self.launched``."""
+        from tehmm_tpu_torch.ops import cuda_kernels as ck
+
         fn = getattr(owner, attr)
         original = vars(owner)[attr]      # e.g. the classmethod itself
 
         def timed(*args, **kwargs):
+            if keep_first_call:
+                self.first_call.setdefault(stage, (args, kwargs))
+            before = dict(ck.LAUNCHES)
             t0 = time.perf_counter()
             result = fn(*args, **kwargs)
             if sync:
@@ -1593,6 +1887,10 @@ class _Stages:
             self.calls[stage] = self.calls.get(stage, 0) + 1
             if keep:
                 self.last[stage] = result
+            if count:
+                n = self.launched.setdefault(stage, dict.fromkeys(before, 0))
+                for k in n:
+                    n[k] += ck.LAUNCHES[k] - before[k]
             return result
 
         setattr(owner, attr, timed)
@@ -1750,9 +2048,11 @@ def phase_max_posterior(work, xml, truth, viterbi_score, region, small,
                 sync=True, keep=True)
     stages.wrap(port_eval, "posterior_exact", "decode (exact, X1/X2)",
                 sync=True)
-    stages.wrap(port_hmm.MultitrackHmm, "score", "score (X1)", sync=True)
+    stages.wrap(port_hmm.MultitrackHmm, "score", SCORE_STAGE, sync=True,
+                keep_first_call=True, count=True)
     stages.wrap(port_eval, "write_bed_intervals", "write BED")
-    stages.wrap(port_eval, "_write_pd_streaming", "--pd write", sync=True)
+    stages.wrap(port_eval, "_write_pd_streaming", "--pd write", sync=True,
+                count=True)
 
     def run(bed_path, *flags, dev=device):
         t0 = time.perf_counter()
@@ -1819,6 +2119,55 @@ def phase_max_posterior(work, xml, truth, viterbi_score, region, small,
     finally:
         stages.restore()
     launches = dict(ck.LAUNCHES)          # the card's runs of this phase
+    # the score at S <= 239 ran the piece-operator scan and no chain;
+    # posterior_sweep (--pd) ran the chains X1/X2, as before
+    ran = stages.launched[SCORE_STAGE]
+    assert ran["fwd_piece_ops"] and ran["fwd_piece_compose"] and not (
+        ran["fwd_chunk"] or ran["fwd_chunk_tile"]), f"score launched {ran}"
+    ran_pd = stages.launched["--pd write"]
+    assert ran_pd["fwd_chunk"] and ran_pd["bwd_chunk"] and not (
+        ran_pd["fwd_piece_ops"] or ran_pd["fwd_piece_compose"]), \
+        f"posterior_sweep launched {ran_pd}"
+    print(f"[post] launches of the score stage: "
+          f"{ {k: v for k, v in ran.items() if v} }; of --pd's sweep: "
+          f"{ {k: v for k, v in ran_pd.items() if v} }", flush=True)
+
+    # the 20 Mb score again, through the chain (X1 carry-only, the route
+    # before the piece-operator scan) and through the pieces, each split
+    (score_self, score_tables), score_kw = stages.first_call[SCORE_STAGE]
+    S_score = int(score_self.params.log_trans.shape[0])
+    chain, chain_split, chain_chunks = _score_split(
+        score_self, score_tables, score_kw, ck.forward_final)
+    pieces, pieces_split, piece_chunks = _score_split(
+        score_self, score_tables, score_kw, ck.forward_loglik)
+    del score_self, score_tables
+    assert pieces == score, (pieces, score)
+    ratio, lim_k = _chunk_ratio(chain_chunks, piece_chunks, S_score)
+    tot_c = float(chain_chunks["incs"].sum())
+    tot_p = float(piece_chunks["incs"].sum())
+    print(f"[post] {n}-position score, {len(lim_k)} chunks: each chunk's "
+          f"increments, pieces against chain, worst |difference|/limit "
+          f"{ratio:.4f} (limit 2 (1e-6 |d| + _sum_atol) + 2 F3: "
+          f"{float(lim_k.min()):.4g}-{float(lim_k.max()):.4g}); their "
+          f"float64 sums {tot_p!r} and {tot_c!r}", flush=True)
+    assert ratio <= 1.0, f"20 Mb score: a chunk's increments, {ratio}"
+    # the printed float32 totals, a sanity bound: streaming_loglik's
+    # float32 running total may round each chunk's add apart (an ulp
+    # each), 2e-6 of the increments, the carries' tail
+    chunk_len = score_kw.get("chunk_len", 1 << 14)
+    n_chunks = -(-n // chunk_len)
+    lim = (n_chunks * (float(np.spacing(np.float32(abs(chain)))) + 2e-6)
+           + 2e-6 * abs(chain) + 1e-4)
+    diff = abs(score - chain)
+    print(f"[post] {n}-position score: pieces {score!r}, chain {chain!r}: "
+          f"|difference| {diff:.6g} (sanity limit {lim:.6g}: {n_chunks} "
+          f"chunks' float32 running sum, 2e-6 of the increments, the "
+          f"carries' tail), {diff / abs(chain):.3g} relative", flush=True)
+    assert diff <= lim, f"20 Mb score: pieces {score}, chain {chain}"
+    for name, split in (("chain (X1 fwd_chunk)", chain_split),
+                        ("piece-operator scan", pieces_split)):
+        print(f"[post] score split, {name}: " + ", ".join(
+            f"{k} {v:.3f} s" for k, v in split.items()), flush=True)
 
     # the card against the CPU on a small region: every mode
     small_bed = _region_bed(work, "post_small.bed", lo, lo + small)
@@ -1861,6 +2210,72 @@ def phase_max_posterior(work, xml, truth, viterbi_score, region, small,
         print(f"[post] {stage:28s} {sec:9.3f}  {stages.calls[stage]}",
               flush=True)
     return launches
+
+
+def _chunk_ratio(chain, pieces, S_):
+    """The worst ratio, over chunks and rows, of |the pieces' summed
+    increments - the chain's| to its limit, and the limits [n_chunks, B]:
+    each route's sum is within 1e-6 relative plus ``_sum_atol`` of the
+    float64 chain from its incoming carry, and the two incoming carries
+    are within two F3 limits of each other, which move a chunk's sum by
+    as much (its max over states is 1-Lipschitz in the carry).  ``chain``
+    and ``pieces``: ``_score_split``'s chunks."""
+    d_c, d_p = chain["incs"], pieces["incs"]
+    assert d_c.shape == d_p.shape, (d_c.shape, d_p.shape)
+    m = chain["obs_max"].double()[:, None]
+    lim = (2 * (1e-6 * d_c.abs() + _sum_atol(chain["steps"][:, None], S_, m))
+           + 2 * _f3_limit(m))
+    return float(((d_p - d_c).abs() / lim).max()), lim
+
+
+def _score_split(model, tables, kwargs, route):
+    """(``model.score(tables, **kwargs)``, its seconds split, its chunks)
+    with ``route`` as the score's forward continuation
+    (``ck.forward_loglik``, or the chain ``ck.forward_final``).  The
+    split: total; kernels (the route's calls, synchronised); obs
+    formation (``obs_log_likelihoods``, synchronised); and the rest,
+    ``block_of`` with its H2D copy and the host loop (total less the
+    two).  The chunks: each call's summed increments in float64 [n_calls,
+    B], its chunk's largest |obs| [n_calls] and its steps, queued on the
+    card after the call's span (two small reductions a chunk, in the
+    rest)."""
+    import torch
+
+    from tehmm_tpu_torch.models import hmm as port_hmm
+    from tehmm_tpu_torch.ops import cuda_kernels as ck
+
+    stages = _Stages()
+    saved = ck.forward_loglik
+    ck.forward_loglik = route
+    stages.wrap(ck, "forward_loglik", "kernels", sync=True)
+    stages.wrap(port_hmm, "obs_log_likelihoods", "obs formation", sync=True)
+    timed, incs, obs_max, steps = ck.forward_loglik, [], [], []
+
+    def recorded(log_trans, obs, a_hat_init, lengths):
+        carry, dm = timed(log_trans, obs, a_hat_init, lengths)
+        incs.append(dm.double())
+        obs_max.append(obs.abs().amax())
+        steps.append(obs.shape[1])
+        return carry, dm
+
+    ck.forward_loglik = recorded
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ll = model.score(tables, **kwargs)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    finally:
+        stages.restore()
+        ck.forward_loglik = saved
+    split = dict(total=total, kernels=stages.seconds["kernels"],
+                 obs_formation=stages.seconds["obs formation"])
+    split["block_of_h2d_and_loop"] = \
+        total - split["kernels"] - split["obs_formation"]
+    chunks = dict(incs=torch.stack(incs), obs_max=torch.stack(obs_max),
+                  steps=torch.tensor(steps, dtype=torch.float64,
+                                     device=incs[0].device))
+    return ll, split, chunks
 
 
 def _em_log(path):
@@ -2646,7 +3061,7 @@ def main(argv=None) -> int:
     rng = np.random.RandomState(args.seed)
     kernels = phase_kernels(device, rng)
     kernels.update(phase_k1(device, rng))
-    kernels.update(phase_post_kernels(device, rng))
+    kernels.update(phase_post_kernels(device, rng, args.seed))
     # the stream checks draw from their own generator, so the data of
     # phase 3 on are the same draws with and without them
     kernels.update(phase_stream_kernels(

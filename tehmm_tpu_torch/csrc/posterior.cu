@@ -22,6 +22,9 @@
 //                       mode, dp.forward_final (:378).
 //   bwd_chunk_kernel    X2: the XLA scan of dp.backward_chunk_values
 //                       (tehmm_tpu/ops/dp.py:507).
+//   fwd_piece_ops_kernel, fwd_piece_compose_kernel
+//                       X1's carry-only function (dp.forward_final :378)
+//                       as a piece-operator scan: the score's route.
 //   X1 and X2 have no Pallas counterpart.
 //
 // What they compute, per batch row (one independent sequence):
@@ -61,6 +64,21 @@
 // (decode) log_em in shared memory, the row's state in registers and one
 // S-float exchange row per warp in shared memory.  A single chromosome is
 // one row, so one warp walks it; splitting a row is later work.
+//
+// The piece-operator scan splits the row instead (Sarkka &
+// Garcia-Fernandez; across devices the JAX package's parallel/seqpar.py
+// _chunk_operator :58 and _compose_and_reduce :77).  Phase A cuts the
+// chunk into pieces of ``piece`` positions (dp.PIECE, 128) and gives
+// each (row, piece, state i) a warp that runs X1's step over the piece
+// from e_i: its final a and the sum n_i of its normalizers are row i of
+// the piece's operator, log M[i, j] = a_j + n_i, so the longest chain is
+// 128 steps and a row of 16384 at S = 10 is 1280 warps, one wave.
+// Phase B, one warp per row, composes the row's pieces behind the
+// incoming carry: 128 more steps, each X1's step with the piece's
+// exp(a) rows as the matrix.  The arithmetic is S times the chain's;
+// what it buys is 256 dependent steps for 16384.  n and the increments
+// are summed in double, so the composition adds no float32 rounding of a
+// ~1e3 log scale to the carry or the loglik.
 //
 // Numerics: FP32 FMA on the CUDA cores, full-precision expf/logf (no
 // fast-math intrinsics), IEEE division, every clamp of the reference
@@ -335,6 +353,174 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32)
   }
 }
 
+// logdot_renorm's function and bits (each out_k the same fmaf chain over
+// i = 0..S-1) with its loops interchanged: a lane's SPL chains advance
+// together, one read of s_row[i] serving them all, so they overlap where
+// logdot_renorm runs them one after another.  The piece-operator scan's
+// step; X1 and X2 keep logdot_renorm.
+template <int SPL>
+__device__ __forceinline__ float logdot_renorm_lanes(
+    float* s_row, const float* s_m, const float (&in)[SPL], const float* add,
+    int S, int lane, float (&out)[SPL]) {
+#pragma unroll
+  for (int k = 0; k < SPL; ++k) {
+    const int j = lane + 32 * k;
+    if (j < S) s_row[j] = expf(in[k]);
+  }
+  __syncwarp();
+  float acc[SPL];
+#pragma unroll
+  for (int k = 0; k < SPL; ++k) acc[k] = 0.0f;
+  const float* col = s_m + lane;
+  for (int i = 0; i < S; ++i, col += S) {
+    const float x = s_row[i];
+#pragma unroll
+    for (int k = 0; k < SPL; ++k)
+      if (lane + 32 * k < S) acc[k] = fmaf(x, col[32 * k], acc[k]);
+  }
+  float lmax = -INFINITY;
+#pragma unroll
+  for (int k = 0; k < SPL; ++k) {
+    const int j = lane + 32 * k;
+    if (j < S) {
+      float l = acc[k] > 0.0f ? logf(acc[k]) : kLogZero;
+      if (add != nullptr) l = l + add[j];
+      out[k] = l;
+      lmax = fmaxf(lmax, l);
+    }
+  }
+  const float m = fmaxf(warp_max(lmax), kLogZero);
+  __syncwarp();  // every lane has read s_row and s_m for this step
+#pragma unroll
+  for (int k = 0; k < SPL; ++k)
+    if (lane + 32 * k < S) out[k] = out[k] - m;
+  return m;
+}
+
+__device__ __forceinline__ double warp_max_f64(double x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    x = fmax(x, __shfl_xor_sync(0xffffffffu, x, off));
+  return x;
+}
+
+// X1 carry-only as a piece-operator scan, phase A: each piece's
+// operator.  One warp per (row b, piece p, state i), w = (b * n_pieces +
+// p) * S + i, runs X1's step (logdot_renorm_lanes) over the piece's
+// positions [p * piece,
+// (p + 1) * piece) from e_i (0 at i, kLogZero elsewhere), steps at or
+// past the row's length not taken.  Writes probs[w, :] = exp(a) (max 1)
+// and log_scale[w] = the sum of the piece's normalizers, in double.
+// Pieces that start at or past the length write nothing: phase B skips
+// them.
+template <int SPL>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+    fwd_piece_ops_kernel(const float* __restrict__ obs,
+                         const int32_t* __restrict__ lens,
+                         const float* __restrict__ trans_p,
+                         float* __restrict__ probs,
+                         double* __restrict__ log_scale, int64_t B,
+                         int64_t L, int S, int piece, int64_t n_pieces) {
+  extern __shared__ float smem[];
+  float* s_trans = smem;                       // exp(log_trans) [S, S]
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  float* s_row = s_trans + (int64_t)S * S + (int64_t)warp * S;
+  stage(s_trans, trans_p, (int64_t)S * S);
+  __syncthreads();
+
+  const int64_t w = (int64_t)blockIdx.x * kWarpsPerBlock + warp;
+  if (w >= B * n_pieces * S) return;
+  const int i = (int)(w % S);
+  const int64_t b = w / S / n_pieces;
+  const int64_t t0 = (w / S % n_pieces) * piece;
+  const int64_t end = lens[b] < L ? (int64_t)lens[b] : L;
+  if (t0 >= end) return;                       // warp-uniform
+  const int64_t t1 = t0 + piece < end ? t0 + piece : end;
+  float a[SPL];
+#pragma unroll
+  for (int k = 0; k < SPL; ++k) a[k] = lane + 32 * k == i ? 0.0f : kLogZero;
+  double n = 0.0;
+  for (int64_t t = t0; t < t1; ++t) {
+    float nv[SPL];
+    const float m = logdot_renorm_lanes<SPL>(
+        s_row, s_trans, a, obs + (b * L + t) * S, S, lane, nv);
+#pragma unroll
+    for (int k = 0; k < SPL; ++k) a[k] = nv[k];
+    n += (double)m;
+  }
+#pragma unroll
+  for (int k = 0; k < SPL; ++k) {
+    const int j = lane + 32 * k;
+    if (j < S) probs[w * S + j] = expf(a[k]);
+  }
+  if (lane == 0) log_scale[w] = n;
+}
+
+// Phase B: one warp (a block) per row composes the pieces in order
+// behind carry_in.  Piece p takes x_i = a_i + log_scale[p, i] (double),
+// c = max x, and runs X1's step on exp(x - c) with the piece's
+// probability rows, staged into shared memory, as the matrix; incs[p] =
+// c + the step's normalizer (double; 0 for a piece at or past the
+// length, whose step is not taken).  carry_out [B, S].
+template <int SPL>
+__global__ void __launch_bounds__(32)
+    fwd_piece_compose_kernel(const float* __restrict__ probs,
+                             const double* __restrict__ log_scale,
+                             const float* __restrict__ carry_in,
+                             const int32_t* __restrict__ lens,
+                             float* __restrict__ carry_out,
+                             double* __restrict__ incs, int S, int piece,
+                             int64_t n_pieces) {
+  extern __shared__ float smem[];
+  float* s_m = smem;                           // the piece's rows [S, S]
+  float* s_row = s_m + (int64_t)S * S;
+  const int lane = threadIdx.x;
+  const int64_t b = blockIdx.x;
+  const int64_t SS = (int64_t)S * S;
+  const int64_t len = lens[b];
+  float a[SPL];
+#pragma unroll
+  for (int k = 0; k < SPL; ++k) {
+    const int j = lane + 32 * k;
+    if (j < S) a[k] = carry_in[b * S + j];
+  }
+  for (int64_t p = 0; p < n_pieces; ++p) {
+    const int64_t bp = b * n_pieces + p;
+    if (p * piece >= len) {                    // warp-uniform
+      if (lane == 0) incs[bp] = 0.0;
+      continue;
+    }
+    for (int64_t e = lane; e < SS; e += 32) s_m[e] = probs[bp * SS + e];
+    double x[SPL];
+    double xmax = -INFINITY;
+#pragma unroll
+    for (int k = 0; k < SPL; ++k) {
+      const int j = lane + 32 * k;
+      if (j < S) {
+        x[k] = (double)a[k] + log_scale[bp * S + j];
+        xmax = fmax(xmax, x[k]);
+      }
+    }
+    const double c = warp_max_f64(xmax);
+    float in[SPL];
+#pragma unroll
+    for (int k = 0; k < SPL; ++k)
+      if (lane + 32 * k < S) in[k] = (float)(x[k] - c);
+    __syncwarp();                              // s_m staged
+    // the step ends with a __syncwarp after every lane has read s_m and
+    // s_row, so the next piece may stage over them
+    const float m =
+        logdot_renorm_lanes<SPL>(s_row, s_m, in, nullptr, S, lane, a);
+    if (lane == 0) incs[bp] = c + (double)m;
+  }
+#pragma unroll
+  for (int k = 0; k < SPL; ++k) {
+    const int j = lane + 32 * k;
+    if (j < S) carry_out[b * S + j] = a[k];
+  }
+}
+
 unsigned grid_for(int64_t B) {
   return (unsigned)((B + kWarpsPerBlock - 1) / kWarpsPerBlock);
 }
@@ -373,6 +559,37 @@ int launch_fwd_chunk(const void* obs, const void* carry_in, const void* lens,
       (const float*)obs, (const float*)carry_in, (const int32_t*)lens,
       (const float*)trans_p, (float*)hats, (float*)carry_out, (float*)dm, B,
       L, S);
+  return (int)cudaGetLastError();
+}
+
+template <int SPL>
+int launch_piece_ops(const void* obs, const void* lens, const void* trans_p,
+                     void* probs, void* log_scale, int64_t B, int64_t L,
+                     int S, int piece, cudaStream_t stream) {
+  const int64_t n_pieces = (L + piece - 1) / piece;
+  const size_t smem = sweep_smem(S);
+  cudaError_t err = allow_smem(fwd_piece_ops_kernel<SPL>, smem);
+  if (err != cudaSuccess) return (int)err;
+  fwd_piece_ops_kernel<SPL>
+      <<<grid_for(B * n_pieces * S), kWarpsPerBlock * 32, smem, stream>>>(
+          (const float*)obs, (const int32_t*)lens, (const float*)trans_p,
+          (float*)probs, (double*)log_scale, B, L, S, piece, n_pieces);
+  return (int)cudaGetLastError();
+}
+
+template <int SPL>
+int launch_piece_compose(const void* probs, const void* log_scale,
+                         const void* carry_in, const void* lens,
+                         void* carry_out, void* incs, int64_t B, int64_t L,
+                         int S, int piece, cudaStream_t stream) {
+  const int64_t n_pieces = (L + piece - 1) / piece;
+  const size_t smem = sizeof(float) * ((size_t)S * S + (size_t)S);
+  cudaError_t err = allow_smem(fwd_piece_compose_kernel<SPL>, smem);
+  if (err != cudaSuccess) return (int)err;
+  fwd_piece_compose_kernel<SPL><<<(unsigned)B, 32, smem, stream>>>(
+      (const float*)probs, (const double*)log_scale, (const float*)carry_in,
+      (const int32_t*)lens, (float*)carry_out, (double*)incs, S, piece,
+      n_pieces);
   return (int)cudaGetLastError();
 }
 
@@ -438,6 +655,55 @@ int tehmm_fwd_chunk(const void* obs, const void* carry_in, const void* lens,
     case 8:
       return launch_fwd_chunk<8>(obs, carry_in, lens, trans_p, hats,
                                  carry_out, dm, B, L, S, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The piece-operator scan's two phases; ``piece`` is the positions a
+// piece (tehmm_tpu_torch/ops/dp.py PIECE), probs f32[B, n_pieces, S, S],
+// log_scale and incs f64[B, n_pieces], n_pieces = ceil(L / piece).
+int tehmm_fwd_piece_ops(const void* obs, const void* lens,
+                        const void* trans_p, void* probs, void* log_scale,
+                        int64_t B, int64_t L, int S, int piece,
+                        void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (states_per_lane(S)) {
+    case 1:
+      return launch_piece_ops<1>(obs, lens, trans_p, probs, log_scale, B, L,
+                                 S, piece, st);
+    case 2:
+      return launch_piece_ops<2>(obs, lens, trans_p, probs, log_scale, B, L,
+                                 S, piece, st);
+    case 4:
+      return launch_piece_ops<4>(obs, lens, trans_p, probs, log_scale, B, L,
+                                 S, piece, st);
+    case 8:
+      return launch_piece_ops<8>(obs, lens, trans_p, probs, log_scale, B, L,
+                                 S, piece, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+int tehmm_fwd_piece_compose(const void* probs, const void* log_scale,
+                            const void* carry_in, const void* lens,
+                            void* carry_out, void* incs, int64_t B,
+                            int64_t L, int S, int piece, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (states_per_lane(S)) {
+    case 1:
+      return launch_piece_compose<1>(probs, log_scale, carry_in, lens,
+                                     carry_out, incs, B, L, S, piece, st);
+    case 2:
+      return launch_piece_compose<2>(probs, log_scale, carry_in, lens,
+                                     carry_out, incs, B, L, S, piece, st);
+    case 4:
+      return launch_piece_compose<4>(probs, log_scale, carry_in, lens,
+                                     carry_out, incs, B, L, S, piece, st);
+    case 8:
+      return launch_piece_compose<8>(probs, log_scale, carry_in, lens,
+                                     carry_out, incs, B, L, S, piece, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -596,8 +596,9 @@ class MultitrackHmm:
 
         Exact for arbitrarily long tables: the forward alpha is carried
         across chunks of ``chunk_len`` (``dp.streaming_loglik``; on the
-        card one X1 launch in carry-only mode per chunk), so device
-        memory is O(tables x states) beside one chunk of obs (with the
+        card ``ck.forward_loglik``, the piece-operator scan, per chunk),
+        so device memory is O(tables x states) beside one chunk of obs
+        and its piece operators (with the
         gaussian tracks' term, and times the segment weights
         ``weight_arrays`` when given: the segment eval's printed score).
         ``mesh`` (the JAX package's sequence-parallel forward) raises: it
@@ -642,7 +643,7 @@ class MultitrackHmm:
                 for c in range(n_chunks)]
         ll = dp.streaming_loglik(
             self.params.log_start, self.params.log_trans, obs_chunks(),
-            lens, final_fn=ck.forward_final,
+            lens, final_fn=ck.forward_loglik,
         )
         return float(ll.sum())
 

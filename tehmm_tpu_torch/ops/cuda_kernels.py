@@ -17,6 +17,9 @@ bounds each on an H100 and how its design answers it):
   forward_chunk_values  X1: no Pallas kernel; the XLA scans of
   (and forward_final)   ``dp.forward_chunk_values`` (``dp.forward_final``)
   backward_chunk_values X2: no Pallas kernel; ``dp.backward_chunk_values``
+  forward_loglik        X1's carry-only function (``dp.forward_final``)
+                        as a piece-operator scan: ``fwd_piece_ops`` then
+                        ``fwd_piece_compose``; the score's route
   viterbi_values        K5, ``_viterbi_values_v3(carry_mode=False)`` under
                         ``viterbi_pallas_v3``
   forward_prob          K6a, ``forward_prob_pallas_v3``
@@ -52,7 +55,11 @@ checks and the routes ask them.  K3, X1 and X2 launch their one-warp
 kernels where ``sweep_fits`` (S <= 239) and the tile's carry modes
 beyond, each counted under its own name (``viterbi_chunk_tile``,
 ``fwd_chunk_tile``, ``bwd_chunk_tile``), so the exact decoders, ``--pd``
-and every printed loglik run to S = 1024 too.
+and every printed loglik run to S = 1024 too.  The printed loglik
+(``MultitrackHmm.score``) takes ``forward_loglik``, which splits each
+row into pieces where ``piece_scan_route`` says (to
+``PIECE_SCAN_MAX_STATES``, and to a number of rows that falls with S)
+and takes ``forward_final``'s kernels beyond.
 
 Each wrapper checks device, dtype, shape and contiguity, and sits beside
 its plain-torch version.  A tensor on the CPU takes the plain version; a
@@ -113,7 +120,8 @@ LAUNCHES = {
            "bwd_chunk", "viterbi_values", "fwd_prob", "bwd_prob",
            "fwd_scaled", "bwd_scaled", "viterbi_ptrs", "pointer_chase",
            "viterbi_chunk_tile", "fwd_chunk_tile", "bwd_chunk_tile",
-           "maxplus_resident", "maxplus_blocks"]
+           "maxplus_resident", "maxplus_blocks", "fwd_piece_ops",
+           "fwd_piece_compose"]
     )
 }
 
@@ -258,6 +266,12 @@ def load_library() -> ctypes.CDLL:
         lib.tehmm_fwd_chunk.argtypes = [ptr] * 7 + [i64, i64, i32, ptr]
         lib.tehmm_bwd_chunk.restype = i32
         lib.tehmm_bwd_chunk.argtypes = [ptr] * 7 + [i64, i64, i32, ptr]
+        lib.tehmm_fwd_piece_ops.restype = i32
+        lib.tehmm_fwd_piece_ops.argtypes = [ptr] * 5 + [i64, i64, i32, i32,
+                                                        ptr]
+        lib.tehmm_fwd_piece_compose.restype = i32
+        lib.tehmm_fwd_piece_compose.argtypes = (
+            [ptr] * 6 + [i64, i64, i32, i32, ptr])
         for fn in (lib.tehmm_viterbi_values, lib.tehmm_fwd_prob):
             fn.restype = i32
             fn.argtypes = [ptr] * 6 + [i64, i64, i32, ptr]
@@ -1123,6 +1137,137 @@ def forward_final(log_trans, obs, a_hat_init, lengths):
     increment; they are summed here in one reduction, not as a running
     sum in the warp, which keeps the loglik's accuracy on long inputs."""
     return _fwd_chunk(log_trans, obs, a_hat_init, lengths, False)
+
+
+# The piece-operator scan's operators of one launch stay under this
+# many bytes: rows go in groups (each row's bits are its own), so many
+# tables at large S do not take [B, n_pieces, S, S] at once.
+_PIECE_OPS_BYTES = 1 << 28
+# Which chunks ``forward_loglik`` gives the pieces.  Phase A's warps
+# each take X1's S^2 step, S of them a piece, so the pieces do S times
+# the chain's arithmetic and win only while the card hides it.  The
+# chain's time is one row's, whatever the rows, until they fill the
+# card; phase A's grows with the rows once its warps pass a wave.  So
+# (S at most, rows at most): the most rows of 4096 at which the pieces
+# still beat the chain at that S, with every row full (a chunk's most
+# work for the pieces), read by ``tools/time_score`` on an H100 (PERF.md);
+# an S between two entries takes the next entry's rows, since the
+# crossover falls as S grows.  Past 168 states phase A's block (T and 4
+# warps) fits an SM once: four rows of 4096 took the pieces 52.0 ms
+# against the chain's 39.0 at 169.  By the chunk's shape alone, never by
+# the card or a failure.
+PIECE_SCAN_MAX_ROWS = ((10, 384), (32, 96), (64, 32), (96, 16), (128, 8),
+                       (168, 4))
+PIECE_SCAN_MAX_STATES = PIECE_SCAN_MAX_ROWS[-1][0]
+
+
+def piece_scan_route(B: int, S: int) -> bool:
+    """Whether ``forward_loglik`` gives a chunk of ``B`` rows at ``S``
+    states to the pieces (else ``forward_final``'s kernels)."""
+    for max_s, max_rows in PIECE_SCAN_MAX_ROWS:
+        if S <= max_s:
+            return B <= max_rows
+    return False
+
+
+def _check_pieces(S, what):
+    if not sweep_fits(S):
+        raise NotImplementedError(
+            f"{what}: S={S} is past sweep_fits (S <= 239: the transition "
+            f"matrix and the exchange rows in one block's shared memory); "
+            f"forward_loglik takes the tile's carry mode there")
+
+
+def piece_operators(log_trans, obs, lengths):
+    """``fwd_piece_ops``: phase A of the piece-operator scan,
+    ``dp.piece_operators`` (its plain version, which the CPU takes), for
+    the pieces that start before a row's length; on the card the others
+    are left unwritten, since phase B skips them.  Returns (probs
+    f32[B, n_pieces, S, S], log_scale f64[B, n_pieces, S])."""
+    B, L, S = obs.shape
+    dev = obs.device
+    _check(log_trans, "log_trans", torch.float32, (S, S), dev)
+    _check(obs, "obs", torch.float32, (B, L, S), dev)
+    _check(lengths, "lengths", torch.int32, (B,), dev)
+    for t, name in ((log_trans, "log_trans"), (obs, "obs"),
+                    (lengths, "lengths")):
+        _check_contiguous(t, name)
+    if _device_kind(dev) == "cpu":
+        return dp.piece_operators(log_trans, obs, lengths)
+    _check_pieces(S, "piece operators")
+    n_p = -(-L // dp.PIECE)
+    probs = torch.empty((B, n_p, S, S), dtype=torch.float32, device=dev)
+    log_scale = torch.empty((B, n_p, S), dtype=torch.float64, device=dev)
+    trans_p = torch.exp(log_trans)
+    _launch_streaming("fwd_piece_ops", "tehmm_fwd_piece_ops", (
+        obs.data_ptr(), lengths.data_ptr(), trans_p.data_ptr(),
+        probs.data_ptr(), log_scale.data_ptr(), B, L, S, dp.PIECE), dev)
+    return probs, log_scale
+
+
+def compose_pieces(probs, log_scale, a_hat_init, lengths):
+    """``fwd_piece_compose``: phase B of the piece-operator scan,
+    ``dp.compose_pieces`` (its plain version, which the CPU takes).
+    Returns (final carry f32[B, S], increments f64[B, n_pieces])."""
+    B, n_p, S, _ = probs.shape
+    dev = probs.device
+    _check(probs, "probs", torch.float32, (B, n_p, S, S), dev)
+    _check(log_scale, "log_scale", torch.float64, (B, n_p, S), dev)
+    _check(a_hat_init, "a_hat_init", torch.float32, (B, S), dev)
+    _check(lengths, "lengths", torch.int32, (B,), dev)
+    for t, name in ((probs, "probs"), (log_scale, "log_scale"),
+                    (a_hat_init, "a_hat_init"), (lengths, "lengths")):
+        _check_contiguous(t, name)
+    if _device_kind(dev) == "cpu":
+        return dp.compose_pieces(probs, log_scale, a_hat_init, lengths)
+    _check_pieces(S, "piece composition")
+    carry = torch.empty((B, S), dtype=torch.float32, device=dev)
+    incs = torch.empty((B, n_p), dtype=torch.float64, device=dev)
+    _launch_streaming("fwd_piece_compose", "tehmm_fwd_piece_compose", (
+        probs.data_ptr(), log_scale.data_ptr(), a_hat_init.data_ptr(),
+        lengths.data_ptr(), carry.data_ptr(), incs.data_ptr(), B,
+        n_p * dp.PIECE, S, dp.PIECE), dev)
+    return carry, incs
+
+
+def forward_loglik(log_trans, obs, a_hat_init, lengths):
+    """X1's carry-only function, ``forward_final``'s signature, checks
+    and return values (final carry f32[B, S], the chunk's summed
+    normalizer increments f32[B]), as a sequence-parallel piece-operator
+    scan: the route of ``MultitrackHmm.score``.
+
+    Bound on an H100: ``forward_final``'s chain of Lc dependent steps on
+    one warp a row.  Design: ``fwd_piece_ops`` gives every (row, piece of
+    ``dp.PIECE`` positions, state) a warp that runs X1's step over the
+    piece from that state alone, which makes the piece's S x S operator;
+    ``fwd_piece_compose`` composes a row's pieces in order behind the
+    carry, one warp a row; the increments are summed in one reduction.
+    So the longest chain is 2 x 128 steps for a chunk of 16384, for S
+    times the chain's arithmetic.  Where ``piece_scan_route(B, S)``;
+    elsewhere ``forward_final``'s kernels (the chain, and past
+    ``sweep_fits`` the tile's carry mode).  On the CPU ``dp.forward_final``, the chain
+    (its plain version, the pieces by ``dp.forward_loglik_pieces``, is
+    what the kernels are held to)."""
+    B, L, S = obs.shape
+    dev = _check_sweep(log_trans, obs, a_hat_init, lengths, "a_hat_init")
+    if _device_kind(dev) == "cpu":
+        return dp.forward_final(log_trans, obs, a_hat_init, lengths)
+    if not piece_scan_route(B, S):
+        return _fwd_chunk(log_trans, obs, a_hat_init, lengths, False)
+    if B == 0 or L == 0:
+        return (a_hat_init.clone(),
+                torch.zeros((B,), dtype=torch.float32, device=dev))
+    n_p = -(-L // dp.PIECE)
+    rows = max(1, _PIECE_OPS_BYTES // (n_p * S * (4 * S + 8)))
+    carry, incs = [], []
+    for lo in range(0, B, rows):
+        part = slice(lo, lo + rows)
+        c, i = compose_pieces(*piece_operators(log_trans, obs[part],
+                                               lengths[part]),
+                              a_hat_init[part], lengths[part])
+        carry.append(c)
+        incs.append(i)
+    return (torch.cat(carry), torch.cat(incs).sum(dim=1).to(torch.float32))
 
 
 def backward_chunk_values(log_trans, obs, x_carry, continuing, lengths):

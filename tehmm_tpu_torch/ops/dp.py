@@ -233,8 +233,8 @@ def streaming_loglik(
     ``lengths_per_chunk``: optional iterable of int[B] valid lengths per
     chunk (rows may end mid-stream); zero-length rows get loglik 0.
     ``final_fn``: the forward continuation, ``forward_final`` by default
-    (the CUDA path passes ``ops.cuda_kernels.forward_final``, which
-    takes int32 lengths)."""
+    (the score passes ``ops.cuda_kernels.forward_loglik``, which takes
+    int32 lengths)."""
     final_fn = final_fn or forward_final
     it = iter(obs_chunks)
     lens_it = iter(lengths_per_chunk) if lengths_per_chunk is not None \
@@ -297,6 +297,108 @@ def forward_chunk_values(
                              t < lengths, matmul)
         hats.append(a_hat)
     return torch.stack(hats, dim=1), a_hat
+
+
+# ---------------------------------------------------------------------
+# the piece-operator scan: forward_final's function, sequence-parallel
+# within a chunk (Särkkä & García-Fernández; across devices the JAX
+# package's parallel/seqpar.py).  The plain version of the card's
+# fwd_piece_ops and fwd_piece_compose kernels (csrc/posterior.cu).
+# ---------------------------------------------------------------------
+
+# Positions a piece, here and in the kernels (the wrapper passes it): a
+# constant, so the bits depend on the inputs and S alone.  sqrt(16384)
+# balances the two phases at ``MultitrackHmm.score``'s default chunk.
+PIECE = 128
+
+
+def piece_operators(
+    log_trans: torch.Tensor,
+    obs: torch.Tensor,
+    lengths: torch.Tensor | None = None,
+    dtype: torch.dtype | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Phase A: each piece's operator.  The chunk's positions are cut
+    into pieces of PIECE; for each (row b, piece p, state i) the chain
+    of ``_fwd_step`` runs over the piece from e_i (0 at i, LOG_ZERO
+    elsewhere), steps at or past the row's length carried (a piece past
+    it is the identity).  Returns (probs [B, n_p, S, S], the probability
+    rows exp(a_hat) at max 1, and log_scale f64[B, n_p, S], the sum n_i
+    of row i's increments): in log space the operator is
+    log M[i, j] = log probs[i, j] + n_i.  The increments are summed in
+    float64, as the kernel does: a float32 n of a piece (|n| ~ 1e3)
+    would hold only ~6e-5 of it, an error that reaches the loglik and,
+    where rows mix, the carry."""
+    log_trans, obs = _cast(dtype, log_trans, obs)
+    B, Lc, S = obs.shape
+    lengths = torch.clamp(_lengths(lengths, B, Lc, obs.device), max=Lc)
+    n_p = -(-Lc // PIECE)
+    obs_p = torch.nn.functional.pad(obs, (0, 0, 0, n_p * PIECE - Lc))
+    obs_p = obs_p.reshape(B, n_p, PIECE, S)
+    trans_exp = torch.exp(log_trans)
+    eye = torch.full((S, S), LOG_ZERO, dtype=obs.dtype, device=obs.device)
+    eye.fill_diagonal_(0.0)
+    a_hat = eye.expand(B, n_p, S, S).reshape(-1, S)          # (b, p, i)
+    n = torch.zeros((B * n_p * S,), dtype=torch.float64, device=obs.device)
+    starts = torch.arange(n_p, device=obs.device) * PIECE
+    for t in range(PIECE):
+        valid = (starts[None, :] + t < lengths[:, None])[:, :, None]
+        valid = valid.expand(B, n_p, S).reshape(-1)
+        o = obs_p[:, :, t, None, :].expand(B, n_p, S, S).reshape(-1, S)
+        a_hat, dm = _fwd_step(log_trans, trans_exp, a_hat, o, valid, True)
+        n = n + dm.to(torch.float64)
+    return (torch.exp(a_hat).reshape(B, n_p, S, S),
+            n.reshape(B, n_p, S))
+
+
+def compose_pieces(
+    probs: torch.Tensor,
+    log_scale: torch.Tensor,
+    a_hat_init: torch.Tensor,
+    lengths: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Phase B: the pieces composed in order behind the incoming carry.
+    Piece p takes x_i = a_i + n_{p,i} (float64), c = max x, and runs the
+    forward step's log-dot with its probability rows as the matrix on
+    exp(x - c); its increment is c plus the step's normalizer.  Pieces
+    at or past a row's length are skipped (the carry passes through
+    unchanged, increment 0).  Returns (final carry [B, S], increments
+    f64[B, n_p])."""
+    B, n_p, S, _ = probs.shape
+    lengths = _lengths(lengths, B, n_p * PIECE, probs.device)
+    a_hat = a_hat_init.to(probs.dtype)
+    incs = []
+    for p in range(n_p):
+        live = p * PIECE < lengths
+        x = a_hat.to(torch.float64) + log_scale[:, p]
+        c = x.amax(dim=-1)
+        e = torch.exp((x - c[:, None]).to(probs.dtype))
+        s = torch.bmm(e[:, None, :], probs[:, p])[:, 0]
+        new_hat, m = _renorm(torch.where(s > 0, torch.log(s), LOG_ZERO))
+        a_hat = _mask_carry(new_hat, a_hat, live)
+        incs.append(torch.where(live, c + m.to(torch.float64), 0.0))
+    if not incs:
+        return a_hat, torch.zeros((B, 0), dtype=torch.float64,
+                                  device=probs.device)
+    return a_hat, torch.stack(incs, dim=1)
+
+
+def forward_loglik_pieces(
+    log_trans: torch.Tensor,
+    obs: torch.Tensor,
+    a_hat_init: torch.Tensor,
+    lengths: torch.Tensor | None = None,
+    dtype: torch.dtype | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``forward_final``'s function by the piece-operator scan: phase A
+    (``piece_operators``) then phase B (``compose_pieces``).  Returns
+    (final carry [B, S], the chunk's summed increments [B], summed in
+    float64 and returned in the inputs' dtype).  ``dtype``: see
+    ``_cast``."""
+    log_trans, obs, a_hat_init = _cast(dtype, log_trans, obs, a_hat_init)
+    probs, log_scale = piece_operators(log_trans, obs, lengths)
+    a_hat, incs = compose_pieces(probs, log_scale, a_hat_init, lengths)
+    return a_hat, incs.sum(dim=1).to(obs.dtype)
 
 
 def backward_chunk_values(
