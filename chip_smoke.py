@@ -12,7 +12,12 @@ Phases (any failure raises, and the run exits non-zero):
    kernels (K2, K3) at the decode's shapes (S=10 states, T=5 tracks, V=9
    symbols, B=512 rows of L=4608 = chunk 4096 + 2 x 256 halo, ragged
    lengths incl. 0 and 1): value rows, normalizers, carries and paths
-   bit-equal.  The E-step kernels (K1) at bench.py's shape (S=20, T=5,
+   bit-equal, K3 in its values, carry and checkpoint modes.  K3 also at
+   the shapes phase 3's ``--exact`` region gives it (a generator of its
+   own): the recompute of one chunk (1 x 4096) and of the region's group
+   (245 rows of 4096, each from its own carry), and the forward sweep
+   over the region in one checkpoint launch (1 x 1,003,520, a carry
+   every 4096), bit-equal to plain, timed with us a step.  The E-step kernels (K1) at bench.py's shape (S=20, T=5,
    V=8, B=2048, L=1024, ragged lengths incl. 0, 1 and 2): statistics and
    logliks within the JAX package's engine tolerances of the plain
    version and of the plain log-space E-step, and bit-identical across
@@ -98,7 +103,10 @@ Phases (any failure raises, and the run exits non-zero):
    ``train --supervised`` then stitched ``eval --bed`` on the whole
    chromosome; the BED tiles it, every stitch boundary agrees, and base
    accuracy against the planted truth is >= 0.9.  On a 1,000,000-position
-   region ``--exact`` and ``--no-exact`` write the same BED, and on a
+   region ``--exact`` and ``--no-exact`` write the same BED; the exact
+   decode's split (obs formation, forward sweep, recompute, backtrace,
+   the rest) is printed and K3 launched twice a group of chunks
+   (``stitch.exact_group_chunks``), not once a chunk in each sweep; on a
    20,000-position region the card's BED equals the CPU's (plain torch).
 3d. Max-posterior decoding, ``--pd`` and scoring through ``eval`` with
    phase 3's model: stitched ``--maxPost --bed`` on the whole chromosome
@@ -211,6 +219,13 @@ EM_STATES, EM_ITERS, EM_CHUNK = 10, 15, 16384
 K1_EM_ROWS = 256                     # rows of the K1 check at EM's shape
 K4_B, K4_L = 64, 4096 + 2 * 256      # one stitched max-posterior group
 X_B, X_L = 4, 4096                   # the chunk sweeps' check
+# K3 at the shapes of phase 3's --exact region (1,000,000 positions,
+# eval's chunks of 4096: 245 of them, one group): the recompute of one
+# chunk and of the group (a row per chunk, the last one 583 long), and
+# the forward sweep over the region in one checkpoint launch
+EXACT_REGION, EXACT_CHUNK = 1_000_000, 4096
+EXACT_CHUNKS = -(-(EXACT_REGION - 1) // EXACT_CHUNK)
+PLAIN_CHUNKS = 16                    # the plain chain timed over these
 # the piece-operator scan: the eval CLI's score launch (one table, chunks
 # of 4096), the chunk sweeps' check, MultitrackHmm.score's default chunk;
 # its A/B against the chain at these S and (rows, L)
@@ -243,6 +258,7 @@ SOURCES = {
     "viterbi_fwd": "tehmm_tpu_torch/csrc/viterbi.cu",
     "viterbi_backtrace": "tehmm_tpu_torch/csrc/viterbi.cu",
     "viterbi_chunk_values": "tehmm_tpu_torch/csrc/viterbi.cu",
+    "viterbi_checkpoints": "tehmm_tpu_torch/csrc/viterbi.cu",
     "em_fwd": "tehmm_tpu_torch/csrc/em_estep.cu",
     "em_bwd_stats": "tehmm_tpu_torch/csrc/em_estep.cu",
     "post_decode": "tehmm_tpu_torch/csrc/posterior.cu",
@@ -267,6 +283,9 @@ REPLACES = {
     "viterbi_fwd": "tehmm_tpu/ops/pallas_kernels.py:2386",
     "viterbi_backtrace": "tehmm_tpu/ops/pallas_kernels.py:2517",
     "viterbi_chunk_values": "tehmm_tpu/ops/pallas_kernels.py:1284",
+    # K3's checkpoint mode: the exact decoder's forward sweep (on the TPU
+    # the XLA scan dp.viterbi_carry, a launch a chunk; K3's function)
+    "viterbi_checkpoints": "tehmm_tpu/ops/pallas_kernels.py:1284",
     "em_fwd": "tehmm_tpu/ops/pallas_kernels.py:1777",
     "em_bwd_stats": "tehmm_tpu/ops/pallas_kernels.py:1931",
     "post_decode": "tehmm_tpu/ops/pallas_kernels.py:2765",
@@ -294,7 +313,8 @@ REPLACES = {
     "fwd_piece_ops": "tehmm_tpu/ops/dp.py:378",
     "fwd_piece_compose": "tehmm_tpu/ops/dp.py:378",
 }
-DECODE_KERNELS = ("viterbi_fwd", "viterbi_backtrace", "viterbi_chunk_values")
+DECODE_KERNELS = ("viterbi_fwd", "viterbi_backtrace", "viterbi_chunk_values",
+                  "viterbi_checkpoints")
 EM_KERNELS = ("em_fwd", "em_bwd_stats")
 POST_KERNELS = ("em_fwd", "post_decode", "fwd_chunk", "bwd_chunk",
                 "fwd_piece_ops", "fwd_piece_compose")
@@ -389,9 +409,10 @@ def _obs_ops(S, T, G, weighted):
     return ops
 
 
-def _bound(name, shape, valid, G=0, weighted=False) -> dict:
+def _bound(name, shape, valid, G=0, weighted=False, n_ck=0) -> dict:
     """bound_ms and bound_by of one call of kernel ``name`` at ``shape`` =
-    (B, L, S, T, V) with ``valid`` valid positions: the larger of the
+    (B, L, S, T, V) with ``valid`` valid positions (``n_ck``: the
+    checkpoints a row of K3's checkpoint mode writes): the larger of the
     bytes the function must move (each input read once, each output
     written once) over the HBM rate and its float32 operations (an exp
     or log counted as one) over the card's float32 peak; and library_ms:
@@ -413,6 +434,9 @@ def _bound(name, shape, valid, G=0, weighted=False) -> dict:
         ops = 2 * S
     elif base == "viterbi_chunk_values":
         nbytes = 2 * rows + (B * S + B + S * S) * f
+        ops = 2 * S * S + 3 * S
+    elif base == "viterbi_checkpoints":  # obs in, n_ck carries a row out
+        nbytes = rows + (B * S + B + S * S + B * n_ck * S) * f
         ops = 2 * S * S + 3 * S
     elif base == "em_fwd":             # obs_p, S x S product, scale
         nbytes = sym + tables + S * f + streams + rows + 2 * B * L * f
@@ -561,18 +585,22 @@ def phase_kernels(device, rng) -> dict:
     print(f"[kernels] fused decode: paths == dp.viterbi, score rel err "
           f"{rel:.3g}", flush=True)
 
-    # K3, both modes
+    # K3, every mode
     init = torch.from_numpy(
         rng.randn(B_ROWS, S).astype(np.float32)).to(device)
     k3_args = (p.log_trans, obs, init, lens)
     got = ck.viterbi_chunk_values(*k3_args)
     want = dp.viterbi_chunk_values(*k3_args)
     carry, want_c = ck.viterbi_carry(*k3_args), dp.viterbi_carry(*k3_args)
-    assert torch.equal(got, want) and torch.equal(carry, want_c), \
+    ckpt = ck.viterbi_checkpoints(*k3_args, 1024)
+    want_k = dp.viterbi_checkpoints(*k3_args, 1024)
+    assert torch.equal(got, want) and torch.equal(carry, want_c) \
+        and torch.equal(ckpt, want_k), \
         "viterbi_chunk_values disagrees with its plain version"
     out["viterbi_chunk_values"] = dict(
         max_abs_err=float(max((got - want).abs().max(),
-                              (carry - want_c).abs().max())),
+                              (carry - want_c).abs().max(),
+                              (ckpt - want_k).abs().max())),
         ms=_median_ms(lambda: ck.viterbi_chunk_values(*k3_args), 5),
         plain_ms=_median_ms(lambda: dp.viterbi_chunk_values(*k3_args), 3),
     )
@@ -582,10 +610,100 @@ def phase_kernels(device, rng) -> dict:
         "viterbi_backtrace", (B_ROWS, L_ROWS - 1, S, T, V),
         int(np.clip(lengths - 1, 0, None).sum())))
     out["viterbi_chunk_values"].update(
-        _bound("viterbi_chunk_values", shape, valid))
+        _bound("viterbi_chunk_values", shape, valid),
+        us_per_step=out["viterbi_chunk_values"]["ms"] * 1e3 / L_ROWS)
     for name, r in out.items():
         print(f"[kernels] {name:22s} bit-equal  kernel {r['ms']:10.3f} ms"
               f"  plain {r['plain_ms']:10.3f} ms", flush=True)
+    return out
+
+
+def phase_k3_main_shapes(device, rng) -> dict:
+    """K3 at the shapes phase 3's ``--exact`` region gives it: the
+    recompute of one chunk (1 x 4096) and of the region's one group (245
+    rows of 4096, each from its own carry, the last 583 long), and the
+    forward sweep over the region in one checkpoint launch (1 x 245 x
+    4096, 999,999 valid, a carry every 4096); each bit-equal to its plain
+    version, timed, with us a step (ms over the longest row's steps)
+    beside the bound.  The sweep is held chunk by chunk: the plain step
+    over every chunk from the kernel's carry entering it (all in one
+    call), which by induction is the plain chain; its ``plain_ms`` times
+    the plain chain on the first ``PLAIN_CHUNKS`` chunks
+    (``plain_positions``), which it must equal too.  A decode model and
+    inputs of its own generator."""
+    import torch
+
+    from tehmm_tpu_torch.models.emission import track_log_likelihoods
+    from tehmm_tpu_torch.ops import cuda_kernels as ck
+    from tehmm_tpu_torch.ops import dp
+
+    p = _decode_model(rng, device)
+
+    def inputs(B, L, lengths):
+        sym = torch.from_numpy(
+            rng.randint(1, V, size=(B, L, T)).astype(np.int32)).to(device)
+        obs = track_log_likelihoods(p.log_em, sym)
+        init = torch.from_numpy(rng.randn(B, S).astype(np.float32))
+        init = (init - init.amax(dim=-1, keepdim=True)).to(device)
+        lens = torch.from_numpy(np.asarray(lengths, np.int32)).to(device)
+        return (p.log_trans, obs, init, lens)
+
+    body = EXACT_REGION - 1
+    last = body - (EXACT_CHUNKS - 1) * EXACT_CHUNK
+    out = {}
+    for B, lengths in ((1, [EXACT_CHUNK]),
+                       (EXACT_CHUNKS,
+                        [EXACT_CHUNK] * (EXACT_CHUNKS - 1) + [last])):
+        args = inputs(B, EXACT_CHUNK, lengths)
+        got = ck.viterbi_chunk_values(*args)
+        want = dp.viterbi_chunk_values(*args)
+        assert torch.equal(got, want), \
+            f"viterbi_chunk_values disagrees with plain at {B} x 4096"
+        ms = _median_ms(lambda: ck.viterbi_chunk_values(*args), 5)
+        out[f"viterbi_chunk_values@{B}x{EXACT_CHUNK}"] = dict(
+            max_abs_err=float((got - want).abs().max()), ms=ms,
+            plain_ms=_median_ms(lambda: dp.viterbi_chunk_values(*args), 3),
+            us_per_step=ms * 1e3 / EXACT_CHUNK,
+            **_bound("viterbi_chunk_values", (B, EXACT_CHUNK, S, T, V),
+                     int(sum(lengths))))
+        del args, got, want
+
+    L = EXACT_CHUNKS * EXACT_CHUNK
+    args = inputs(1, L, [body])
+    lt, obs, init, lens = args
+    got = ck.viterbi_checkpoints(*args, EXACT_CHUNK)
+    # every chunk through the plain step from the kernel's carry entering
+    # it, all chunks as rows of one call: equal at every chunk, so by
+    # induction the kernel's carries are the plain chain's
+    entries = torch.cat([init[:, None], got[:, :-1]], dim=1)[0]
+    starts = torch.arange(EXACT_CHUNKS, device=device) * EXACT_CHUNK
+    want = dp.viterbi_carry(
+        lt, obs.view(EXACT_CHUNKS, EXACT_CHUNK, S), entries.contiguous(),
+        torch.clamp(body - starts, 0, EXACT_CHUNK).to(torch.int32))
+    assert torch.equal(got[0], want), \
+        "viterbi_checkpoints disagrees with its plain version"
+    # the plain chain itself (a Python loop a position: ~75 s over the
+    # whole row) on the first PLAIN_CHUNKS chunks, timed once
+    n_p = PLAIN_CHUNKS * EXACT_CHUNK
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    chain = dp.viterbi_checkpoints(lt, obs[:, :n_p].contiguous(), init,
+                                   torch.clamp(lens, max=n_p), EXACT_CHUNK)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    assert torch.equal(chain, got[:, :PLAIN_CHUNKS]), \
+        "viterbi_checkpoints disagrees with the plain chain"
+    ms = _median_ms(lambda: ck.viterbi_checkpoints(*args, EXACT_CHUNK), 5)
+    out["viterbi_checkpoints"] = dict(
+        max_abs_err=float((got[0] - want).abs().max()), ms=ms,
+        plain_ms=plain_ms, plain_positions=n_p, us_per_step=ms * 1e3 / body,
+        **_bound("viterbi_checkpoints", (1, L, S, T, V), body,
+                 n_ck=EXACT_CHUNKS))
+    for name, r in out.items():
+        print(f"[kernels] {name:30s} bit-equal  kernel {r['ms']:10.3f} ms"
+              f" ({r['us_per_step']:.4f} us a step, bound "
+              f"{r['bound_ms']:.4f} ms)  plain {r['plain_ms']:10.3f} ms",
+              flush=True)
     return out
 
 
@@ -1931,6 +2049,50 @@ def _region_bed(work, name, lo, hi):
     return path
 
 
+def _exact_stages():
+    """Spans around the exact Viterbi's calls, each ending synchronised:
+    the decode as a whole (with its launches), obs formation
+    (``stitch._span_obs``), the forward sweep (K3's checkpoint mode), the
+    recompute (K3's values mode) and the backtrace."""
+    from tehmm_tpu_torch.cli import eval as port_eval
+    from tehmm_tpu_torch.ops import cuda_kernels as ck
+    from tehmm_tpu_torch.parallel import stitch
+
+    stages = _Stages()
+    stages.wrap(port_eval, "viterbi_exact", "total", sync=True, count=True)
+    stages.wrap(stitch, "_span_obs", "obs formation", sync=True)
+    stages.wrap(ck, "viterbi_checkpoints", "forward sweep", sync=True)
+    stages.wrap(ck, "viterbi_chunk_values", "recompute", sync=True)
+    stages.wrap(ck, "viterbi_backtrace", "backtrace", sync=True)
+    return stages
+
+
+def _exact_split(stages, region, S_):
+    """Print the exact decode's split and hold its launches: K3 twice a
+    group (``stitch.exact_group_chunks`` at eval's chunk of 4096), not
+    once a chunk in each sweep; the backtrace once a chunk."""
+    from tehmm_tpu_torch.parallel import stitch
+
+    n_chunks = -(-(region - 1) // EXACT_CHUNK)
+    groups = -(-n_chunks // stitch.exact_group_chunks(1, EXACT_CHUNK, S_))
+    sec = stages.seconds
+    parts = ("obs formation", "forward sweep", "recompute", "backtrace")
+    rest = sec["total"] - sum(sec.get(k, 0.0) for k in parts)
+    print("[e2e] --exact split (s): " + ", ".join(
+        f"{k} {sec.get(k, 0.0):.4f} ({stages.calls.get(k, 0)} calls)"
+        for k in ("total",) + parts) + f", rest {rest:.4f}", flush=True)
+    n = stages.launched["total"]
+    print(f"[e2e] --exact launches: "
+          f"{ {k: v for k, v in n.items() if v} }; {n_chunks} chunks in "
+          f"{groups} group(s)", flush=True)
+    assert groups < n_chunks, (groups, n_chunks)
+    assert n["viterbi_checkpoints"] == groups \
+        and n["viterbi_chunk_values"] == groups, \
+        f"K3 launched {n['viterbi_checkpoints']} + " \
+        f"{n['viterbi_chunk_values']} times, not twice a group ({groups})"
+    assert n["viterbi_backtrace"] == n_chunks, n["viterbi_backtrace"]
+
+
 def phase_end_to_end(work, xml, truth_bed, truth, region, small,
                      device="cuda"):
     from tehmm_tpu_torch.cli import eval as port_eval
@@ -1983,12 +2145,20 @@ def phase_end_to_end(work, xml, truth_bed, truth, region, small,
     beds = {}
     for flag in ("--exact", "--no-exact"):
         out = os.path.join(work, f"region{flag}.bed")
+        split = _exact_stages() if flag == "--exact" else None
         t0 = time.perf_counter()
-        _run_cli(port_eval, [xml, model, region_bed, "--bed", out,
-                             "--device", device, flag])
+        try:
+            _run_cli(port_eval, [xml, model, region_bed, "--bed", out,
+                                 "--device", device, flag])
+        finally:
+            if split is not None:
+                split.restore()
         print(f"[e2e] {region}-position region {flag}: "
               f"{time.perf_counter() - t0:.2f} s", flush=True)
         beds[flag] = open(out).read()
+        if split is not None:
+            _exact_split(split, region,
+                         MultitrackHmm.load(model, "cpu").num_states)
     assert beds["--exact"] == beds["--no-exact"], \
         "--exact and --no-exact BED differ"
 
@@ -3060,6 +3230,9 @@ def main(argv=None) -> int:
     t_run = time.perf_counter()
     rng = np.random.RandomState(args.seed)
     kernels = phase_kernels(device, rng)
+    # K3 at phase 3's --exact shapes, on a generator of its own
+    kernels.update(phase_k3_main_shapes(
+        device, np.random.RandomState(args.seed + 6)))
     kernels.update(phase_k1(device, rng))
     kernels.update(phase_post_kernels(device, rng, args.seed))
     # the stream checks draw from their own generator, so the data of
@@ -3092,7 +3265,7 @@ def main(argv=None) -> int:
         ck.reset_launch_counts()
         torch.cuda.reset_peak_memory_stats()
         _acc, viterbi_score = phase_end_to_end(work, xml, truth_bed, truth,
-                                               1_000_000, 20_000)
+                                               EXACT_REGION, 20_000)
         decode_launches = dict(ck.LAUNCHES)
         print(f"[e2e] peak device memory allocated: "
               f"{torch.cuda.max_memory_allocated() / 1e6:.1f} MB",
@@ -3192,6 +3365,8 @@ def main(argv=None) -> int:
         elif base in tile_paths:
             launches[name] = sum(env_launches[path][base]
                                  for path in tile_paths[base])
+        elif base in DECODE_KERNELS and config not in engine_launches:
+            launches[name] = decode_launches[base]  # K3 at --exact's shapes
         elif config or base in STREAMING_KERNELS:
             launches[name] = \
                 engine_launches[config or ENGINE_CONFIGS[0]][base]

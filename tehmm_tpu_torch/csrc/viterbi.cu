@@ -17,23 +17,26 @@
 //   viterbi_backtrace_kernel    K2 backtrace, _viterbi_backtrace_kernel_v4
 //                               (:2517); also the exact decoder's
 //                               per-chunk backtrace
-//   viterbi_chunk_values_kernel K3, _make_viterbi_kernel_v3(carry_mode=
-//                               True) (:1284) under
-//                               viterbi_chunk_values_pallas (:1492); with
-//                               carry_only it is also the exact decoder's
-//                               forward carry sweep
+//   viterbi_sweep_lanes_kernel  K3, _make_viterbi_kernel_v3(carry_mode=
+//   viterbi_sweep_smem_kernel   True) (:1284) under
+//                               viterbi_chunk_values_pallas (:1492): the
+//                               exact decoder's recompute (value rows)
+//                               and, in the checkpoint mode, its forward
+//                               sweep (the carry leaving every chunk)
 //
 // What bounds them on an H100: the max-plus recurrence is a sequential
 // scan over positions with an S x S max-reduction per step, so each row
-// is a chain of dependent steps whose latency (shared-memory reads and a
-// warp shuffle reduction per step) sets the time; at S = 10 the
-// arithmetic is ~2*S*S = 200 flops per position and the HBM traffic is
-// the value rows written out (S floats per position).  The design keeps
-// every table (trans, and for K2 log_em and log_start) in shared memory,
-// one warp per batch row with lane <-> state, so rows run in parallel
-// across warps and SMs and no step touches HBM for a table.  It is the
-// simple right design; many rows per warp, cp.async/TMA staging of
-// symbols and uint8 symbols are later work.
+// is a chain of dependent steps whose latency sets the time; at S = 10
+// the arithmetic is ~2*S*S = 200 flops per position and the HBM traffic
+// is obs in and the value rows out (S floats each per position).  K2
+// keeps every table (trans, log_em, log_start) in shared memory, one warp
+// per batch row with lane <-> state, so rows run in parallel across warps
+// and SMs and no step touches HBM for a table.  K3 runs on one row of a
+// whole chromosome in its checkpoint mode (one warp for ~1M steps), so
+// its step is cut to its latency: to 32 states no shared memory, no
+// barrier and no warp reduction on the chain, and obs read ahead of
+// it; its recompute gives every (chunk, table) a warp, each from its
+// stored carry.
 //
 // Numerics: every operation on the value path is a float32 add,
 // subtract, max or (with the optional streams) a product rounded on its
@@ -154,18 +157,175 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32)
   }
 }
 
-// K3: value rows of one chunk from its incoming carry over precomputed
-// obs; every position applies a transition.  carry_out != nullptr
-// writes only the final carry (v_out is then nullptr).
+// K3, every mode: value rows (v_out), or the carry leaving every chunk of
+// `chunk` positions (ckpt [B, n_ck, S]; the carry mode is one chunk of L),
+// from each row's incoming carry over precomputed obs; every position
+// applies a transition.  Past a row's length the carry holds: the value
+// rows repeat it and the checkpoints take it.
+//
+// The step is a chain: each position needs the whole previous row.  Two
+// variants of it, chosen by S (ops/cuda_kernels.k3_step):
+//
+//   lanes (S <= 32)  lane j keeps column j of trans in registers, and
+//       every lane the whole row; lane j's new value goes to every lane
+//       by S shuffles, and each lane forms the normaliser and the
+//       renormalised row from them, so a step has no shared memory, no
+//       __syncwarp and no warp reduction;
+//   shared (33..239) the row and trans in shared memory (maxplus_best,
+//       renorm_store), as K2's forward.
+//
+// Both read obs ahead of the chain, so no global load sits between two
+// dependent steps, and both stop at the row's length:
+//
+//   lanes   each lane copies its own column of the next positions into a
+//           ring in shared memory with cp.async, kHalf positions at a
+//           time, two halves in flight (only the lane that copied an
+//           element reads it, so the copy needs no barrier);
+//   shared  each lane keeps its states' obs kAhead positions ahead in
+//           registers.
+//
+// Neither unrolls a tile of steps: a single warp walking a long row
+// streams its code from the instruction caches, so the step's code stays
+// small.
+
+// max over a[0..NS) by a pairwise tree (entries past S hold -inf, which
+// a max ignores, so the result is the max over the S states); NS is S
+// rounded up to a multiple of 4
+template <int NS>
+__device__ __forceinline__ float row_max(const float (&src)[NS]) {
+  float a[NS];
+#pragma unroll
+  for (int i = 0; i < NS; ++i) a[i] = src[i];
+#pragma unroll
+  for (int w = 1; w < NS; w <<= 1)
+#pragma unroll
+    for (int i = 0; i + w < NS; i += 2 * w) a[i] = fmaxf(a[i], a[i + w]);
+  return a[0];
+}
+
+// One step of the lanes variant: lane j's new value from the row and its
+// trans column, then the new row from every lane, renormalised in each.
+// Returns lane j's renormalised value.  Entries past S are -inf in the
+// row and in trans (and the lanes past S produce -inf), so they stay
+// -inf and never change a max.  The adds and subtractions round once
+// each and the max is exact, so the bits are dp._maxplus_step's.
+template <int NS>
+__device__ __forceinline__ float lanes_step(float (&row)[NS],
+                                            const float (&tc)[NS],
+                                            float o) {
+  float a[NS];
+#pragma unroll
+  for (int i = 0; i < NS; ++i) a[i] = row[i] + tc[i];
+  const float nv = row_max<NS>(a) + o;
+#pragma unroll
+  for (int i = 0; i < NS; ++i) a[i] = __shfl_sync(0xffffffffu, nv, i);
+  const float m = fmaxf(row_max<NS>(a), kLogZero);
+#pragma unroll
+  for (int i = 0; i < NS; ++i) row[i] = a[i] - m;
+  return nv - m;
+}
+
+constexpr int kHalf = 32;  // positions a lane stages at a time (lanes)
+constexpr int kAhead = 4;  // positions of obs held ahead (shared)
+
+// Copy this lane's column of positions [p0, min(p0 + kHalf, n)) into
+// its ring half and commit the copy (an empty group past n).
+__device__ __forceinline__ void stage_column(float* ring, const float* ob,
+                                             int64_t p0, int64_t n,
+                                             int S, bool mine) {
+  float* dst = ring + ((p0 / kHalf) & 1) * kHalf * 32;
+  if (mine)
+    for (int k = 0; k < kHalf && p0 + k < n; ++k)
+      cp_async4(dst + k * 32, ob + (p0 + k) * S);
+  cp_async_commit();
+}
+
+template <int NS>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+    viterbi_sweep_lanes_kernel(const float* __restrict__ obs,
+                               const float* __restrict__ carry,
+                               const int32_t* __restrict__ lens,
+                               const float* __restrict__ trans,
+                               float* __restrict__ v_out,
+                               float* __restrict__ ckpt, int64_t B,
+                               int64_t L, int S, int64_t chunk,
+                               int64_t n_ck) {
+  extern __shared__ float smem[];  // a ring of 2 kHalf x 32 floats a warp
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int64_t b = (int64_t)blockIdx.x * kWarpsPerBlock + warp;
+  if (b >= B) return;
+  const bool mine = lane < S;  // lanes past S carry -inf
+  float* ring = smem + warp * (2 * kHalf * 32) + lane;
+  if (!mine)  // their obs stay 0, so their values stay -inf
+    for (int k = 0; k < 2 * kHalf; ++k) ring[k * 32] = 0.0f;
+  float tc[NS];
+#pragma unroll
+  for (int i = 0; i < NS; ++i)
+    tc[i] = (mine && i < S) ? trans[(int64_t)i * S + lane] : -INFINITY;
+  float own = mine ? carry[b * S + lane] : -INFINITY;
+  float row[NS];  // the row, row[i] for i < S, -inf beyond
+#pragma unroll
+  for (int i = 0; i < NS; ++i) row[i] = __shfl_sync(0xffffffffu, own, i);
+
+  const int64_t n = max((int64_t)0, min((int64_t)lens[b], L));
+  const float* ob = obs + b * L * S + lane;
+  // the values' and checkpoints' next stores, walked by pointer
+  float* vb = v_out != nullptr ? v_out + b * L * S + lane : nullptr;
+  float* cb = ckpt != nullptr ? ckpt + b * n_ck * S + lane : nullptr;
+  float* const cb_end = cb != nullptr ? cb + n_ck * S : nullptr;
+  int64_t to_ck = chunk;  // steps to the next checkpoint
+  stage_column(ring, ob, 0, n, S, mine);
+  stage_column(ring, ob, kHalf, n, S, mine);
+  for (int64_t t0 = 0; t0 < n; t0 += kHalf) {
+    cp_async_wait<1>();  // this half is in; the next may be in flight
+    const float* src = ring + ((t0 / kHalf) & 1) * kHalf * 32;
+    const int steps = (int)min((int64_t)kHalf, n - t0);
+#pragma unroll 2
+    for (int k = 0; k < steps; ++k) {
+      own = lanes_step<NS>(row, tc, src[k * 32]);
+      if (vb != nullptr) {
+        if (mine) *vb = own;
+        vb += S;
+      }
+      if (cb != nullptr && --to_ck == 0) {
+        if (mine) *cb = own;
+        cb += S;
+        to_ck = chunk;
+      }
+    }
+    stage_column(ring, ob, t0 + 2 * kHalf, n, S, mine);
+  }
+  cp_async_wait<0>();
+  if (!mine) return;
+  if (vb != nullptr)
+    for (int64_t t = n; t < L; ++t, vb += S) *vb = own;
+  if (cb != nullptr)
+    for (; cb < cb_end; cb += S) *cb = own;
+}
+
+// this lane's obs of its states at position t (0 past n)
+template <int SPL>
+__device__ __forceinline__ void load_obs(float (&o)[SPL], const float* ob,
+                                         int64_t t, int64_t n, int S,
+                                         int lane) {
+#pragma unroll
+  for (int q = 0; q < SPL; ++q) {
+    const int j = lane + 32 * q;
+    o[q] = (j < S && t < n) ? ob[t * S + j] : 0.0f;
+  }
+}
+
 template <int SPL>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
-    viterbi_chunk_values_kernel(const float* __restrict__ obs,
-                                const float* __restrict__ carry,
-                                const int32_t* __restrict__ lens,
-                                const float* __restrict__ trans,
-                                float* __restrict__ v_out,
-                                float* __restrict__ carry_out, int64_t B,
-                                int64_t L, int S) {
+    viterbi_sweep_smem_kernel(const float* __restrict__ obs,
+                              const float* __restrict__ carry,
+                              const int32_t* __restrict__ lens,
+                              const float* __restrict__ trans,
+                              float* __restrict__ v_out,
+                              float* __restrict__ ckpt, int64_t B,
+                              int64_t L, int S, int64_t chunk,
+                              int64_t n_ck) {
   extern __shared__ float smem[];
   float* s_trans = smem;
   const int warp = threadIdx.x >> 5;
@@ -176,25 +336,46 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 
   const int64_t b = (int64_t)blockIdx.x * kWarpsPerBlock + warp;
   if (b >= B) return;
-  const int64_t len = lens[b];
+  const int64_t n = max((int64_t)0, min((int64_t)lens[b], L));
   for (int j = lane; j < S; j += 32) s_v[j] = carry[b * S + j];
   __syncwarp();
 
-  for (int64_t t = 0; t < L; ++t) {
-    const int64_t pos = b * L + t;
-    float nv[SPL];
-    maxplus_best<SPL>(s_v, s_trans, S, lane, nv);
+  const float* ob = obs + b * L * S;
+  int64_t next_ck = chunk, ck_i = 0;
+  float ahead[kAhead][SPL];  // slot d: the obs of position t0 + d
 #pragma unroll
-    for (int k = 0; k < SPL; ++k) {
-      const int j = lane + 32 * k;
-      if (j < S) nv[k] = nv[k] + obs[pos * S + j];
+  for (int d = 0; d < kAhead; ++d) load_obs<SPL>(ahead[d], ob, d, n, S, lane);
+  for (int64_t t0 = 0; t0 < n; t0 += kAhead) {
+#pragma unroll
+    for (int d = 0; d < kAhead; ++d) {
+      const int64_t t = t0 + d;
+      if (t < n) {
+        float nv[SPL];
+        maxplus_best<SPL>(s_v, s_trans, S, lane, nv);
+#pragma unroll
+        for (int q = 0; q < SPL; ++q)
+          if (lane + 32 * q < S) nv[q] = nv[q] + ahead[d][q];
+        load_obs<SPL>(ahead[d], ob, t + kAhead, n, S, lane);
+        renorm_store<SPL>(nv, s_v, S, lane, true,
+                          v_out != nullptr ? v_out + (b * L + t) * S
+                                           : nullptr,
+                          nullptr);
+        if (ckpt != nullptr && t + 1 == next_ck) {
+          for (int j = lane; j < S; j += 32)
+            ckpt[(b * n_ck + ck_i) * S + j] = s_v[j];
+          ++ck_i;
+          next_ck += chunk;
+        }
+      }
     }
-    renorm_store<SPL>(nv, s_v, S, lane, t < len,
-                      v_out != nullptr ? v_out + pos * S : nullptr,
-                      nullptr);
   }
-  if (carry_out != nullptr)
-    for (int j = lane; j < S; j += 32) carry_out[b * S + j] = s_v[j];
+  if (v_out != nullptr)
+    for (int64_t t = n; t < L; ++t)
+      for (int j = lane; j < S; j += 32) v_out[(b * L + t) * S + j] = s_v[j];
+  if (ckpt != nullptr)
+    for (; ck_i < n_ck; ++ck_i)
+      for (int j = lane; j < S; j += 32)
+        ckpt[(b * n_ck + ck_i) * S + j] = s_v[j];
 }
 
 // Backtrace from value rows: one thread per batch row walks back from
@@ -269,21 +450,49 @@ int launch_fwd(const void* sym, const void* lens, const void* start,
   return (int)cudaGetLastError();
 }
 
-template <int SPL>
-int launch_chunk_values(const void* obs, const void* carry,
-                        const void* lens, const void* trans, void* v_out,
-                        void* carry_out, int64_t B, int64_t L, int S,
-                        cudaStream_t stream) {
-  const size_t smem =
-      sizeof(float) * ((size_t)S * S + (size_t)kWarpsPerBlock * S);
-  cudaError_t err = allow_smem(viterbi_chunk_values_kernel<SPL>, smem);
-  if (err != cudaSuccess) return (int)err;
-  const int64_t grid = (B + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  viterbi_chunk_values_kernel<SPL><<<(unsigned)grid, kWarpsPerBlock * 32,
-                                     smem, stream>>>(
-      (const float*)obs, (const float*)carry, (const int32_t*)lens,
-      (const float*)trans, (float*)v_out, (float*)carry_out, B, L, S);
+struct SweepArgs {
+  const float* obs;
+  const float* carry;
+  const int32_t* lens;
+  const float* trans;
+  float* v_out;
+  float* ckpt;
+  int64_t B, L;
+  int S;
+  int64_t chunk, n_ck;
+};
+
+template <int NS>
+int launch_sweep_lanes(const SweepArgs& a, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * kWarpsPerBlock * 2 * kHalf * 32;
+  const int64_t grid = (a.B + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  viterbi_sweep_lanes_kernel<NS><<<(unsigned)grid, kWarpsPerBlock * 32,
+                                   smem, stream>>>(a.obs, a.carry, a.lens,
+                                             a.trans, a.v_out, a.ckpt, a.B,
+                                             a.L, a.S, a.chunk, a.n_ck);
   return (int)cudaGetLastError();
+}
+
+template <int SPL>
+int launch_sweep_smem(const SweepArgs& a, cudaStream_t stream) {
+  const size_t smem =
+      sizeof(float) * ((size_t)a.S * a.S + (size_t)kWarpsPerBlock * a.S);
+  cudaError_t err = allow_smem(viterbi_sweep_smem_kernel<SPL>, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int64_t grid = (a.B + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  viterbi_sweep_smem_kernel<SPL><<<(unsigned)grid, kWarpsPerBlock * 32,
+                                   smem, stream>>>(
+      a.obs, a.carry, a.lens, a.trans, a.v_out, a.ckpt, a.B, a.L, a.S,
+      a.chunk, a.n_ck);
+  return (int)cudaGetLastError();
+}
+
+SweepArgs sweep_args(const void* obs, const void* carry, const void* lens,
+                     const void* trans, void* v_out, void* ckpt, int64_t B,
+                     int64_t L, int S, int64_t chunk, int64_t n_ck) {
+  return SweepArgs{(const float*)obs, (const float*)carry,
+                   (const int32_t*)lens, (const float*)trans,
+                   (float*)v_out, (float*)ckpt, B, L, S, chunk, n_ck};
 }
 
 }  // namespace
@@ -320,24 +529,55 @@ int tehmm_viterbi_fwd(const void* sym, const void* lens, const void* start,
   }
 }
 
-int tehmm_viterbi_chunk_values(const void* obs, const void* carry,
-                               const void* lens, const void* trans,
-                               void* v_out, void* carry_out, int64_t B,
-                               int64_t L, int S, void* stream) {
+// K3's sweep, either step variant (ops/cuda_kernels.k3_step picks by S).
+// v_out: value rows [B, L, S], or ckpt: the carry leaving every chunk of
+// `chunk` positions [B, n_ck, S] (the other null).
+int tehmm_viterbi_sweep_lanes(const void* obs, const void* carry,
+                              const void* lens, const void* trans,
+                              void* v_out, void* ckpt, int64_t B, int64_t L,
+                              int S, int64_t chunk, int64_t n_ck,
+                              void* stream) {
+  const SweepArgs a = sweep_args(obs, carry, lens, trans, v_out, ckpt, B, L,
+                                 S, chunk, n_ck);
   cudaStream_t st = (cudaStream_t)stream;
-  switch (states_per_lane(S)) {
+  // the row's registers: S rounded up to a multiple of 4
+  switch ((S + 3) / 4) {
     case 1:
-      return launch_chunk_values<1>(obs, carry, lens, trans, v_out,
-                                    carry_out, B, L, S, st);
+      return launch_sweep_lanes<4>(a, st);
     case 2:
-      return launch_chunk_values<2>(obs, carry, lens, trans, v_out,
-                                    carry_out, B, L, S, st);
+      return launch_sweep_lanes<8>(a, st);
+    case 3:
+      return launch_sweep_lanes<12>(a, st);
     case 4:
-      return launch_chunk_values<4>(obs, carry, lens, trans, v_out,
-                                    carry_out, B, L, S, st);
+      return launch_sweep_lanes<16>(a, st);
+    case 5:
+      return launch_sweep_lanes<20>(a, st);
+    case 6:
+      return launch_sweep_lanes<24>(a, st);
+    case 7:
+      return launch_sweep_lanes<28>(a, st);
     case 8:
-      return launch_chunk_values<8>(obs, carry, lens, trans, v_out,
-                                    carry_out, B, L, S, st);
+      return launch_sweep_lanes<32>(a, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+int tehmm_viterbi_sweep_smem(const void* obs, const void* carry,
+                             const void* lens, const void* trans,
+                             void* v_out, void* ckpt, int64_t B, int64_t L,
+                             int S, int64_t chunk, int64_t n_ck,
+                             void* stream) {
+  const SweepArgs a = sweep_args(obs, carry, lens, trans, v_out, ckpt, B, L,
+                                 S, chunk, n_ck);
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (states_per_lane(S)) {  // the lanes step takes S <= 32
+    case 2:
+      return launch_sweep_smem<2>(a, st);
+    case 4:
+      return launch_sweep_smem<4>(a, st);
+    case 8:
+      return launch_sweep_smem<8>(a, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -10,7 +10,8 @@ bounds each on an H100 and how its design answers it):
   viterbi_fwd           K2 forward, ``_make_viterbi_fwd_kernel_v4``
   viterbi_backtrace     K2 backtrace, ``_viterbi_backtrace_kernel_v4``
   viterbi_chunk_values  K3, ``viterbi_chunk_values_pallas``
-  (and viterbi_carry)   (its ``carry_only`` mode)
+  (viterbi_carry,       (the carry mode, and the carries of many chunks
+  viterbi_checkpoints)  in one launch: the exact decoder's forward sweep)
   em_fwd                K1 forward, ``_make_forward_kernel_v4``
   em_bwd_stats          K1 reverse, ``_make_bwd_stats_kernel_v4``
   post_decode           K4 decode, ``_make_post_decode_kernel_v4``
@@ -116,7 +117,8 @@ STREAM_VARIANTS = ("", "+w", "+g", "+wg")
 LAUNCHES = {
     name: 0 for name in (
         [k + v for k in STREAM_KERNELS for v in STREAM_VARIANTS]
-        + ["viterbi_backtrace", "viterbi_chunk_values", "fwd_chunk",
+        + ["viterbi_backtrace", "viterbi_chunk_values",
+           "viterbi_checkpoints", "fwd_chunk",
            "bwd_chunk", "viterbi_values", "fwd_prob", "bwd_prob",
            "fwd_scaled", "bwd_scaled", "viterbi_ptrs", "pointer_chase",
            "viterbi_chunk_tile", "fwd_chunk_tile", "bwd_chunk_tile",
@@ -242,10 +244,10 @@ def load_library() -> ctypes.CDLL:
         lib.tehmm_viterbi_fwd.argtypes = (
             [ptr] * 7 + [i64, i64, i32, i32, i32] + streams + [ptr]
         )
-        lib.tehmm_viterbi_chunk_values.restype = i32
-        lib.tehmm_viterbi_chunk_values.argtypes = (
-            [ptr] * 6 + [i64, i64, i32, ptr]
-        )
+        for fn in (lib.tehmm_viterbi_sweep_lanes,
+                   lib.tehmm_viterbi_sweep_smem):
+            fn.restype = i32
+            fn.argtypes = [ptr] * 6 + [i64, i64, i32, i64, i64, ptr]
         lib.tehmm_viterbi_backtrace.restype = i32
         lib.tehmm_viterbi_backtrace.argtypes = [
             ptr, ptr, i64, ptr, i64, ptr, ptr, ptr, ptr, i64, i64, i32, ptr,
@@ -593,58 +595,122 @@ def viterbi_backtrace(log_trans, rows, entry, end_state, lengths):
 
 
 # ---------------------------------------------------------------------
-# K3 (values, or only the final carry)
+# K3: value rows, the final carry, or the carry leaving every chunk
 # ---------------------------------------------------------------------
 
-def _chunk_values(log_trans, obs, v_hat_init, lengths, carry_only):
+# K3's step, by S alone (csrc/viterbi.cu): "lanes" to this many states
+# (lane j holds trans column j and the whole row in registers, the new row
+# goes round by shuffles: nothing on the chain but registers and
+# shuffles), "shared" to ``sweep_fits``' 239 (the row and trans in shared
+# memory), "tile" beyond (the scan tile's carry mode, csrc/streaming.cu).
+# Each gives the plain version's bits, so the choice moves only time.
+K3_LANES_MAX_STATES = 32
+_K3_ENTRIES = {"lanes": "tehmm_viterbi_sweep_lanes",
+               "shared": "tehmm_viterbi_sweep_smem"}
+
+
+def k3_step(S: int) -> str:
+    """K3's step variant at S states: ``"lanes"``, ``"shared"`` or
+    ``"tile"`` (see ``K3_LANES_MAX_STATES``)."""
+    if S <= K3_LANES_MAX_STATES:
+        return "lanes"
+    return "shared" if sweep_fits(S) else "tile"
+
+
+def _k3_launch(name, log_trans, obs, v_hat_init, lengths, out, values,
+               chunk=0, n_ck=0):
+    """Launch K3 into ``out``: the value rows (``values``), else the
+    carry leaving every chunk of ``chunk`` positions, ``n_ck`` of them
+    (the tile takes only the carry mode: ``chunk`` = L, one)."""
     B, L, S = obs.shape
-    dev = obs.device
-    _check(log_trans, "log_trans", torch.float32, (S, S), dev)
-    _check(obs, "obs", torch.float32, (B, L, S), dev)
-    _check(v_hat_init, "v_hat_init", torch.float32, (B, S), dev)
-    _check(lengths, "lengths", torch.int32, (B,), dev)
-    for t, name in ((log_trans, "log_trans"), (obs, "obs"),
-                    (v_hat_init, "v_hat_init"), (lengths, "lengths")):
-        _check_contiguous(t, name)
-    if _device_kind(dev) == "cpu":
-        plain = dp.viterbi_carry if carry_only else dp.viterbi_chunk_values
-        return plain(log_trans, obs, v_hat_init, lengths)
-    _check_tile(S, "viterbi_chunk_values")
-    if carry_only:
-        out = torch.empty((B, S), dtype=torch.float32, device=dev)
-        v_ptr, carry_ptr = None, out.data_ptr()
+    step = k3_step(S)
+    ptrs = (obs.data_ptr(), v_hat_init.data_ptr(), lengths.data_ptr(),
+            log_trans.data_ptr(), out.data_ptr() if values else None,
+            None if values else out.data_ptr(), B, L, S)
+    if step == "tile":
+        _launch_streaming("viterbi_chunk_tile", "tehmm_viterbi_carry_tile",
+                          ptrs, obs.device)
     else:
-        out = torch.empty((B, L, S), dtype=torch.float32, device=dev)
-        v_ptr, carry_ptr = out.data_ptr(), None
-    if B == 0:
-        return out
-    name, entry = (("viterbi_chunk_values", "tehmm_viterbi_chunk_values")
-                   if sweep_fits(S) else
-                   ("viterbi_chunk_tile", "tehmm_viterbi_carry_tile"))
-    _launch_streaming(name, entry, (
-        obs.data_ptr(), v_hat_init.data_ptr(), lengths.data_ptr(),
-        log_trans.data_ptr(), v_ptr, carry_ptr, B, L, S), dev)
-    return out
+        _launch_streaming(name, _K3_ENTRIES[step], ptrs + (chunk, n_ck),
+                          obs.device)
 
 
 def viterbi_chunk_values(log_trans, obs, v_hat_init, lengths):
     """K3: every value row f32[B, Lc, S] of one chunk from its incoming
-    carry (``dp.viterbi_chunk_values`` semantics; int32 lengths).
+    carry (``dp.viterbi_chunk_values`` semantics; int32 lengths).  The
+    exact decoder's recompute: it gives every (chunk, table) of a group a
+    row, each from that chunk's stored carry.
 
     Replaces ``viterbi_chunk_values_pallas`` (pallas_kernels.py:1492,
-    kernel ``_make_viterbi_kernel_v3`` :1284).  Bound and design as
-    ``viterbi_fwd``, over precomputed obs, where ``sweep_fits(S)``;
-    beyond, K5's tile in carry mode (``csrc/streaming.cu``: the carry
-    is the row before position 0, every position applies the max-plus
-    step), counted as ``viterbi_chunk_tile``.  Bit-equal to the plain
-    version either way, so chunked sweeps equal one chunk."""
-    return _chunk_values(log_trans, obs, v_hat_init, lengths, False)
+    kernel ``_make_viterbi_kernel_v3`` :1284).  Bound on an H100: the
+    latency of one dependent max-plus step a position, one warp a row.
+    Design: the step of ``k3_step(S)`` (registers and shuffles to 32
+    states, shared memory to 239), obs read ahead of the chain (a
+    cp.async ring in shared memory, or registers a few positions ahead),
+    the row stopped at its length; past 239 states K5's tile in
+    carry mode (``csrc/streaming.cu``: the carry is the row before
+    position 0, every position applies the max-plus step), counted as
+    ``viterbi_chunk_tile``.  Bit-equal to the plain version either way,
+    so chunked sweeps equal one chunk."""
+    B, L, S = obs.shape
+    dev = _check_sweep(log_trans, obs, v_hat_init, lengths, "v_hat_init")
+    if _device_kind(dev) == "cpu":
+        return dp.viterbi_chunk_values(log_trans, obs, v_hat_init, lengths)
+    _check_tile(S, "viterbi_chunk_values")
+    out = torch.empty((B, L, S), dtype=torch.float32, device=dev)
+    if B:
+        _k3_launch("viterbi_chunk_values", log_trans, obs, v_hat_init,
+                   lengths, out, True)
+    return out
 
 
 def viterbi_carry(log_trans, obs, v_hat_init, lengths):
-    """K3 in carry-only mode: the final carry f32[B, S]
-    (``dp.viterbi_carry`` semantics; int32 lengths)."""
-    return _chunk_values(log_trans, obs, v_hat_init, lengths, True)
+    """K3 in carry mode: the final carry f32[B, S] (``dp.viterbi_carry``
+    semantics; int32 lengths), counted as ``viterbi_chunk_values``."""
+    B, L, S = obs.shape
+    dev = _check_sweep(log_trans, obs, v_hat_init, lengths, "v_hat_init")
+    if _device_kind(dev) == "cpu":
+        return dp.viterbi_carry(log_trans, obs, v_hat_init, lengths)
+    _check_tile(S, "viterbi_carry")
+    out = torch.empty((B, S), dtype=torch.float32, device=dev)
+    if B:
+        _k3_launch("viterbi_chunk_values", log_trans, obs, v_hat_init,
+                   lengths, out, False, L, 1)
+    return out
+
+
+def viterbi_checkpoints(log_trans, obs, v_hat_init, lengths, chunk):
+    """K3 in checkpoint mode: the carry leaving every chunk of ``chunk``
+    positions, f32[B, ceil(L / chunk), S] (``dp.viterbi_checkpoints``:
+    ``dp.viterbi_carry`` chained chunk by chunk; int32 lengths over all
+    L positions).  The exact decoder's forward sweep: one launch walks
+    each row over a whole group of chunks, where ``viterbi_carry`` took a
+    launch a chunk.  Counted as ``viterbi_checkpoints``; past 239 states
+    one launch of the tile's carry mode a chunk (``viterbi_chunk_tile``).
+    Bound and design as ``viterbi_chunk_values``."""
+    B, L, S = obs.shape
+    dev = _check_sweep(log_trans, obs, v_hat_init, lengths, "v_hat_init")
+    if chunk < 1:
+        raise ValueError(f"chunk: must be at least 1, got {chunk}")
+    if _device_kind(dev) == "cpu":
+        return dp.viterbi_checkpoints(log_trans, obs, v_hat_init, lengths,
+                                      chunk)
+    _check_tile(S, "viterbi_checkpoints")
+    n_ck = -(-L // chunk)
+    out = torch.empty((B, n_ck, S), dtype=torch.float32, device=dev)
+    if B == 0 or n_ck == 0:
+        return out
+    if k3_step(S) != "tile":
+        _k3_launch("viterbi_checkpoints", log_trans, obs, v_hat_init,
+                   lengths, out, False, chunk, n_ck)
+        return out
+    carry = v_hat_init
+    for k in range(n_ck):
+        part = obs[:, k * chunk:(k + 1) * chunk].contiguous()
+        lens = torch.clamp(lengths - k * chunk, 0, chunk).to(torch.int32)
+        carry = viterbi_carry(log_trans, part, carry, lens)
+        out[:, k] = carry
+    return out
 
 
 # ---------------------------------------------------------------------

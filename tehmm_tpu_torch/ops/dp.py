@@ -524,6 +524,29 @@ def viterbi_carry(
     return v_hat
 
 
+def viterbi_checkpoints(
+    log_trans: torch.Tensor,
+    obs: torch.Tensor,
+    v_hat_init: torch.Tensor,
+    lengths: torch.Tensor | None = None,
+    chunk: int = 1,
+) -> torch.Tensor:
+    """The carry leaving every chunk of ``chunk`` positions:
+    f32[B, ceil(L / chunk), S], row c the ``viterbi_carry`` of chunks
+    0..c chained (the exact decoder's forward sweep over a group of
+    chunks; ``lengths`` count valid positions over all L)."""
+    B, L, S = obs.shape
+    lengths = _lengths(lengths, B, L, obs.device)
+    v_hat, rows = v_hat_init, []
+    for c0 in range(0, L, chunk):
+        v_hat = viterbi_carry(log_trans, obs[:, c0:c0 + chunk], v_hat,
+                              torch.clamp(lengths - c0, 0, chunk))
+        rows.append(v_hat)
+    if not rows:
+        return obs.new_empty((B, 0, S))
+    return torch.stack(rows, dim=1)
+
+
 def viterbi_chunk_values(
     log_trans: torch.Tensor,
     obs: torch.Tensor,

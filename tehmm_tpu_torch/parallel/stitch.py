@@ -391,36 +391,57 @@ def _first_rows(arrays, width, dtype):
     ])
 
 
-def _exact_obs(params, mats, tables, gauss_params, weight_arrays, Lc):
-    """The exact decoders' obs: (obs_chunk(c) -> (obs f32[B, Lc, S] of
-    body positions [1 + c*Lc, 1 + (c+1)*Lc), int32 lengths on the
-    device, lengths on the host), obs f32[B, S] of position 0).  Symbols
-    and values are zero-padded, weights one-padded (padding is
-    length-masked), as in the JAX package."""
+def _span_obs(params, mats, vmats, wmats, true_lens, gauss_params, Lc,
+              c0, c1):
+    """obs f32[B, (c1 - c0) Lc, S] of body positions [1 + c0 Lc,
+    1 + c1 Lc) of every table: one symbol block, one H2D copy (with the
+    value and weight blocks), one ``obs_log_likelihoods``; with int32
+    valid positions [B] on the device and on the host.  Symbols and
+    values are zero-padded, weights one-padded (padding is
+    length-masked), as in the JAX package.  Obs is formed position by
+    position, so a span's rows are those of its chunks formed apart."""
     dev = params.device
-    B = len(mats)
-    T = mats[0].shape[1]
+    lo, width = 1 + c0 * Lc, (c1 - c0) * Lc
+    block = np.zeros((len(mats), width, mats[0].shape[1]),
+                     dtype=mats[0].dtype)
+    for b, m in enumerate(mats):
+        piece = m[lo : lo + width]
+        block[b, : len(piece)] = piece
+    obs = obs_log_likelihoods(
+        params.log_em, _to_device(block, dev), gauss_params,
+        None if vmats is None else _f32_to_device(
+            _block(vmats, lo, width), dev),
+        None if wmats is None else _f32_to_device(
+            _block(wmats, lo, width, 1.0), dev),
+    )
+    lens = np.clip(true_lens - lo, 0, width)
+    return obs, _to_device(lens, dev), lens
+
+
+def _exact_obs(params, mats, tables, gauss_params, weight_arrays, Lc):
+    """The exact decoders' obs: (obs_span(c0, c1) -> ``_span_obs`` of
+    chunks [c0, c1), obs f32[B, S] of position 0)."""
     true_lens = np.asarray([len(m) for m in mats], np.int64)
     vmats, wmats = _streams_of(tables, gauss_params, weight_arrays)
 
-    def obs_chunk(c):
-        lo = 1 + c * Lc
-        block = np.zeros((B, Lc, T), dtype=mats[0].dtype)
-        for b, m in enumerate(mats):
-            piece = m[lo : lo + Lc]
-            block[b, : len(piece)] = piece
-        obs = obs_log_likelihoods(
-            params.log_em, _to_device(block, dev), gauss_params,
-            None if vmats is None else _f32_to_device(
-                _block(vmats, lo, Lc), dev),
-            None if wmats is None else _f32_to_device(
-                _block(wmats, lo, Lc, 1.0), dev),
-        )
-        lens = np.clip(true_lens - lo, 0, Lc)
-        return obs, _to_device(lens, dev), lens
+    def obs_span(c0, c1):
+        return _span_obs(params, mats, vmats, wmats, true_lens,
+                         gauss_params, Lc, c0, c1)
 
-    return obs_chunk, _first_obs(params, mats, vmats, wmats, gauss_params,
-                                 dev)
+    return obs_span, _first_obs(params, mats, vmats, wmats, gauss_params,
+                                params.device)
+
+
+# The exact Viterbi's groups of chunks: a group's obs and its value rows,
+# two f32[B, chunks x Lc, S] tensors, stay under this many bytes.
+EXACT_GROUP_BYTES = 1 << 28
+
+
+def exact_group_chunks(B: int, Lc: int, S: int) -> int:
+    """Chunks of ``Lc`` positions that a group of ``viterbi_exact`` over
+    B tables holds at S states (at least one).  The budget is in bytes,
+    so groups shrink as S grows, as ``scaled_rows``'s passes do."""
+    return max(1, EXACT_GROUP_BYTES // (2 * 4 * max(B, 1) * Lc * S))
 
 
 def viterbi_exact(
@@ -434,17 +455,31 @@ def viterbi_exact(
     stores only the O(S) carry entering every chunk; the backtrace sweep
     recomputes each chunk's value rows from its stored carry and walks
     the optimal path backwards through them.  Bit-identical to the
-    monolithic decode for ANY model, with device memory bounded by one
-    chunk.  Sequential over chunks, batched across tables."""
+    monolithic decode for ANY model.
+
+    Chunks go in groups of ``exact_group_chunks`` (``EXACT_GROUP_BYTES``
+    bounds a group's obs and value rows, and so the device memory): each
+    group's
+    obs is formed in one call, the forward sweep is one K3 checkpoint
+    launch a group (``ck.viterbi_checkpoints``, the carry handed from
+    group to group), and the recompute one K3 launch a group whose rows
+    are every (table, chunk) of it, each from its chunk's stored carry
+    (``ck.viterbi_chunk_values``); then ``ck.viterbi_backtrace`` walks
+    the chunks in reverse on slices of those rows, and a group's path
+    comes to the host in one copy.  Batched across tables."""
     mats = [np.ascontiguousarray(getattr(t, "symbols", t)) for t in tables]
-    dev = params.device
     B = len(mats)
+    S = params.num_states
     true_lens = np.asarray([len(m) for m in mats], np.int64)
     Lb = int(true_lens.max()) - 1          # body = positions 1..L-1
     Lc = min(chunk_len, max(Lb, 1))
     n_chunks = max(0, -(-Lb // Lc))
-    obs_chunk, obs0 = _exact_obs(params, mats, tables, gauss_params,
-                                 weight_arrays, Lc)
+    per = exact_group_chunks(B, Lc, S)
+    groups = [(c0, min(c0 + per, n_chunks))
+              for c0 in range(0, n_chunks, per)]
+    obs_span, obs0 = _exact_obs(params, mats, tables, gauss_params,
+                                weight_arrays, Lc)
+    log_trans = params.log_trans.contiguous()
 
     # position 0 values (empty tables get inert zero rows — masked by
     # true_lens > 0 in the assembly below)
@@ -452,33 +487,46 @@ def viterbi_exact(
     m0 = torch.clamp(v0.amax(dim=-1, keepdim=True), min=-1e30)
     carry = v0 - m0
 
-    # ---- forward sweep: store the carry entering each chunk ----
-    entry_carries = []
-    for c in range(n_chunks):
-        entry_carries.append(carry)
-        obs, lens, _ = obs_chunk(c)
-        carry = ck.viterbi_carry(params.log_trans, obs, carry, lens)
+    # ---- forward sweep: the carry entering every chunk, a group a launch
+    entries = []                           # per group f32[B, n, S]
+    for c0, c1 in groups:
+        obs, lens, _ = obs_span(c0, c1)
+        ckpts = ck.viterbi_checkpoints(log_trans, obs, carry, lens, Lc)
+        entries.append(torch.cat([carry[:, None], ckpts[:, :-1]], dim=1))
+        carry = ckpts[:, -1].contiguous()
 
-    # ---- backtrace sweep ----
+    # ---- backtrace sweep: a group's chunks recomputed in one launch ----
     end_state = torch.argmax(carry, dim=-1).to(torch.int32)
     max_len = int(true_lens.max())
     if max_len == 0:                  # every table empty
         return [np.zeros(0, np.int32) for _ in range(B)]
     paths = np.zeros((B, max_len), np.int32)
-    for c in reversed(range(n_chunks)):
-        obs, lens, _ = obs_chunk(c)
-        v_hats = ck.viterbi_chunk_values(
-            params.log_trans, obs, entry_carries[c], lens
-        )
-        chunk_path, end_state = ck.viterbi_backtrace(
-            params.log_trans, v_hats, entry_carries[c], end_state, lens
-        )
-        lo = 1 + c * Lc
-        cp = chunk_path.cpu().numpy()
+    for g in reversed(range(len(groups))):
+        c0, c1 = groups[g]
+        n = c1 - c0
+        if g != len(groups) - 1:      # the last group's obs is still held
+            obs, _, _ = obs_span(c0, c1)
+        lo = 1 + c0 * Lc
+        starts = lo + Lc * np.arange(n)
+        chunk_lens = np.clip(true_lens[:, None] - starts[None, :], 0, Lc)
+        rows = ck.viterbi_chunk_values(
+            log_trans, obs.view(B * n, Lc, S), entries[g].view(B * n, S),
+            _to_device(chunk_lens.reshape(-1), params.device),
+        ).view(B, n, Lc, S)
+        lens_by_chunk = _to_device(chunk_lens.T, params.device)   # [n, B]
+        pieces = []
+        for k in reversed(range(n)):
+            path, end_state = ck.viterbi_backtrace(
+                log_trans, rows[:, k], entries[g][:, k], end_state,
+                lens_by_chunk[k])
+            pieces.append(path)
+        del rows
+        group_path = torch.stack(pieces[::-1], dim=1).view(B, n * Lc)
+        group_path = group_path.cpu().numpy()
         for b in range(B):
-            hi = min(lo + Lc, int(true_lens[b]))
+            hi = min(lo + n * Lc, int(true_lens[b]))
             if hi > lo:
-                paths[b, lo:hi] = cp[b, : hi - lo]
+                paths[b, lo:hi] = group_path[b, : hi - lo]
     paths[:, 0] = end_state.cpu().numpy()
     return [paths[b, : int(true_lens[b])].copy() for b in range(B)]
 
@@ -588,8 +636,11 @@ def posterior_sweep(
     Lb = int(true_lens.max()) - 1          # body = positions 1..L-1
     Lc = min(chunk_len, max(Lb, 1))
     n_chunks = max(0, -(-Lb // Lc))
-    obs_chunk, obs0 = _exact_obs(params, mats, tables, gauss_params,
-                                 weight_arrays, Lc)
+    obs_span, obs0 = _exact_obs(params, mats, tables, gauss_params,
+                                weight_arrays, Lc)
+
+    def obs_chunk(c):
+        return obs_span(c, c + 1)
 
     # position 0 values (empty tables get inert zero rows — masked by
     # true_lens > 0 below)

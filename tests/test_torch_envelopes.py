@@ -181,7 +181,9 @@ def test_sweep_fits_and_the_wrappers_choice(monkeypatch, S):
     ck.backward_chunk_values(lt, obs, carry,
                              torch.zeros(B, dtype=torch.bool), lens)
     if S <= 239:
-        want = [("viterbi_chunk_values", "tehmm_viterbi_chunk_values")] * 2 \
+        k3 = {"lanes": "tehmm_viterbi_sweep_lanes",
+              "shared": "tehmm_viterbi_sweep_smem"}[ck.k3_step(S)]
+        want = [("viterbi_chunk_values", k3)] * 2 \
             + [("fwd_chunk", "tehmm_fwd_chunk")] * 2 \
             + [("bwd_chunk", "tehmm_bwd_chunk")]
     else:

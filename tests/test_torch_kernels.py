@@ -75,7 +75,9 @@ def test_fwd_plain_values_match_pallas_rows(rng, make_hmm):
 
 
 def test_chunk_values_plain_matches_pallas(rng, make_hmm):
-    """K3: viterbi_chunk_values equals viterbi_chunk_values_pallas."""
+    """K3: viterbi_chunk_values equals viterbi_chunk_values_pallas; the
+    carry mode is its last row, and the checkpoint mode its rows at the
+    end of every chunk."""
     _, lt, lem, sym, lens = _setup(rng, make_hmm, L=23,
                                    lengths=[23, 11, 23])
     obs = np.asarray(track_log_likelihoods(jnp.asarray(lem),
@@ -91,6 +93,14 @@ def test_chunk_values_plain_matches_pallas(rng, make_hmm):
                                atol=1e-5)
     carry = ck.viterbi_carry(_t(lt), _t(obs), _t(init), _t(lens))
     np.testing.assert_array_equal(carry.numpy(), got.numpy()[:, -1])
+    L = obs.shape[1]
+    for chunk in (1, 5, 23, 30):
+        ckpts = ck.viterbi_checkpoints(_t(lt), _t(obs), _t(init), _t(lens),
+                                       chunk)
+        ends = [min(c + chunk, L) - 1 for c in range(0, L, chunk)]
+        np.testing.assert_allclose(ckpts.numpy(), np.asarray(want)[:, ends],
+                                   rtol=0, atol=1e-5)
+        np.testing.assert_array_equal(ckpts.numpy(), got.numpy()[:, ends])
 
 
 def test_cpu_tensors_take_the_plain_versions(rng, make_hmm):

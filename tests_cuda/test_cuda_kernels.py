@@ -99,6 +99,103 @@ def test_chunk_values_and_carry_bit_equal(device, rng, S):
     assert ck.LAUNCHES["viterbi_chunk_values"] == before + 2
 
 
+# K3's step variants (ck.k3_step): lanes to 32 states (the register
+# arrays of 8, 16 and 32), shared from 33 (1 to 8 states a lane) to 239;
+# rows of one, a few and a recompute group's 245
+K3_STATES = [1, 2, 10, 16, 17, 31, 32, 33, 64, 239]
+K3_ROWS = [1, 3, 245]
+K3_L, K3_CHUNK = 70, 16    # no multiple of the obs tiles (32 / SPL)
+
+
+@pytest.mark.parametrize("B", K3_ROWS)
+@pytest.mark.parametrize("S", K3_STATES)
+def test_k3_modes_bit_equal(device, S, B):
+    """K3's values, carry and checkpoint modes equal their plain versions
+    bit for bit, with ragged lengths (0, 1, 2, the whole row), and each
+    launches once under its counter."""
+    rng = np.random.RandomState(S * 1000 + B)
+    log_trans = torch.from_numpy(_model(rng, S, 2, 4, zero_frac=0.3)[1]) \
+        .to(device)
+    obs = torch.from_numpy(
+        (rng.randn(B, K3_L, S) * 3.0).astype(np.float32)).to(device)
+    lengths = rng.randint(0, K3_L + 1, size=B).astype(np.int32)
+    lengths[:4] = [K3_L - 3, 0, 1, 2][:B] if B < 4 else [K3_L, 0, 1, 2]
+    lens = torch.from_numpy(lengths).to(device)
+    init = torch.from_numpy(rng.randn(B, S).astype(np.float32)).to(device)
+    args = (log_trans, obs, init, lens)
+    before = dict(ck.LAUNCHES)
+    assert torch.equal(ck.viterbi_chunk_values(*args),
+                       dp.viterbi_chunk_values(*args))
+    assert torch.equal(ck.viterbi_carry(*args), dp.viterbi_carry(*args))
+    for chunk in (K3_CHUNK, 1, K3_L):
+        got = ck.viterbi_checkpoints(*args, chunk)
+        assert got.shape == (B, -(-K3_L // chunk), S)
+        assert torch.equal(got, dp.viterbi_checkpoints(*args, chunk))
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES["viterbi_chunk_values"] == \
+        before["viterbi_chunk_values"] + 2
+    assert ck.LAUNCHES["viterbi_checkpoints"] == \
+        before["viterbi_checkpoints"] + 3
+    assert ck.LAUNCHES["viterbi_chunk_tile"] == before["viterbi_chunk_tile"]
+
+
+def test_k3_checkpoints_of_one_long_row(device, rng):
+    """One row over many chunks, as the exact decoder's forward sweep
+    runs it: the checkpoints equal the carry chained chunk by chunk on
+    the card, and the last one the carry mode's."""
+    S, L, chunk = 10, 5000, 512
+    log_trans = torch.from_numpy(_model(rng, S, 2, 4)[1]).to(device)
+    obs = torch.from_numpy(
+        (rng.randn(1, L, S) * 3.0).astype(np.float32)).to(device)
+    lens = torch.tensor([L - 7], dtype=torch.int32, device=device)
+    init = torch.zeros((1, S), device=device)
+    got = ck.viterbi_checkpoints(log_trans, obs, init, lens, chunk)
+    carry = init
+    for k in range(got.shape[1]):
+        part = obs[:, k * chunk:(k + 1) * chunk].contiguous()
+        pl = torch.clamp(lens - k * chunk, 0, chunk).to(torch.int32)
+        carry = ck.viterbi_carry(log_trans, part, carry, pl)
+        assert torch.equal(got[:, k], carry)
+    assert torch.equal(got[:, -1],
+                       ck.viterbi_carry(log_trans, obs, init, lens))
+
+
+@pytest.mark.parametrize("per", [1, 3, None])
+def test_grouped_exact_on_the_card(device, rng, monkeypatch, per):
+    """The grouped exact decode (groups of 1 and 3 chunks, and the
+    default budget's one group) on the card equals the CPU's and the
+    stitched decode, and runs K3 twice a group."""
+    tables = _model(rng, 10, 5, 9)
+    trans = np.exp(tables[1]) * 0.2 + np.eye(10) * 0.8
+    tables[1] = np.log(trans / trans.sum(1, keepdims=True)).astype(
+        np.float32)
+    syms = [rng.randint(1, 9, size=(n, 5)).astype(np.uint8)
+            for n in (5000, 3001, 0, 1, 300)]
+    Lc = 512
+    n_chunks = -(-4999 // Lc)
+    if per is not None:
+        monkeypatch.setattr(stitch, "EXACT_GROUP_BYTES",
+                            per * 2 * 4 * len(syms) * Lc * 10)
+    groups = 1 if per is None else -(-n_chunks // per)
+    on_gpu = from_numpy(*tables, device)
+    before = dict(ck.LAUNCHES)
+    card = stitch.viterbi_exact(on_gpu, syms, chunk_len=Lc)
+    assert ck.LAUNCHES["viterbi_checkpoints"] == \
+        before["viterbi_checkpoints"] + groups
+    assert ck.LAUNCHES["viterbi_chunk_values"] == \
+        before["viterbi_chunk_values"] + groups
+    assert ck.LAUNCHES["viterbi_backtrace"] == \
+        before["viterbi_backtrace"] + n_chunks
+    cpu = stitch.viterbi_exact(from_numpy(*tables, "cpu"), syms,
+                               chunk_len=Lc)
+    stitched, report = stitch.viterbi_chunked(on_gpu, syms, chunk_len=Lc,
+                                              halo=64)
+    assert report.boundaries_ok
+    for c, x, s_ in zip(card, cpu, stitched):
+        np.testing.assert_array_equal(c, x)
+        np.testing.assert_array_equal(c, s_)
+
+
 def test_decoders_on_the_card_equal_the_cpu(device, rng):
     """Stitched and exact decodes of a multi-chunk input give the same
     paths on the card (kernels) as on the CPU (plain versions)."""
