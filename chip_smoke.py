@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py [--seed N] [--parent DIR]
 
 Phases (any failure raises, and the run exits non-zero):
 
@@ -17,7 +17,13 @@ Phases (any failure raises, and the run exits non-zero):
    own): the recompute of one chunk (1 x 4096) and of the region's group
    (245 rows of 4096, each from its own carry), and the forward sweep
    over the region in one checkpoint launch (1 x 1,003,520, a carry
-   every 4096), bit-equal to plain, timed with us a step.  The E-step kernels (K1) at bench.py's shape (S=20, T=5,
+   every 4096), bit-equal to plain, timed with us a step.  X1 likewise
+   at the shapes phase 3d's ``--maxPost --exact`` region gives it: the
+   recompute (1 x 4096, 245 x 4096, and 512 rows of 4608, ragged) and
+   the forward sweep in one checkpoint launch (1 x 1,003,520), each
+   within the F3 limit of its plain version carried in float64 (the
+   sweep chunk by chunk from its own carries, and against the float64
+   chain over its first chunks).  The E-step kernels (K1) at bench.py's shape (S=20, T=5,
    V=8, B=2048, L=1024, ragged lengths incl. 0, 1 and 2): statistics and
    logliks within the JAX package's engine tolerances of the plain
    version and of the plain log-space E-step, and bit-identical across
@@ -118,10 +124,17 @@ Phases (any failure raises, and the run exits non-zero):
    formation and ``block_of`` with its H2D copy and the loop, each
    chunk's summed increments within the derived limit of the chain's
    (the printed totals within a sanity bound); the score
-   stage launched the piece kernels and no X1, ``--pd``'s sweep X1/X2
-   and no piece kernel.
+   stage launched the piece kernels and no X1.
    On the 1,000,000-position region ``--maxPost --exact`` (X1/X2) and
-   ``--no-exact`` (K4) agree on >= 99.999% of bases; on the
+   ``--no-exact`` (K4) agree on >= 99.999% of bases; the exact decode's
+   split (obs formation, forward sweep, recompute, X2, gamma and
+   consume) is printed and X1 launched twice a group of chunks (the
+   checkpoint sweep and the recompute), X2 once a chunk and once for
+   position 0, as in ``--pd``'s sweep on the 100,000-position region;
+   with ``--parent DIR`` (a ``git archive`` of an earlier commit) that
+   checkout's eval CLI writes the region's ``--maxPost --exact`` BED and
+   the 100,000-position region's ``--pd`` file and BED byte for byte as
+   this one's; on the
    20,000-position region the card and the CPU agree for ``--maxPost``
    (both decoders: >= 99.999% of bases), ``--pd`` (same rows,
    probabilities within 1e-5) and every printed score (1e-5 relative);
@@ -263,6 +276,7 @@ SOURCES = {
     "em_bwd_stats": "tehmm_tpu_torch/csrc/em_estep.cu",
     "post_decode": "tehmm_tpu_torch/csrc/posterior.cu",
     "fwd_chunk": "tehmm_tpu_torch/csrc/posterior.cu",
+    "fwd_checkpoints": "tehmm_tpu_torch/csrc/posterior.cu",
     "bwd_chunk": "tehmm_tpu_torch/csrc/posterior.cu",
     "viterbi_values": "tehmm_tpu_torch/csrc/streaming.cu",
     "fwd_prob": "tehmm_tpu_torch/csrc/streaming.cu",
@@ -291,6 +305,9 @@ REPLACES = {
     "post_decode": "tehmm_tpu/ops/pallas_kernels.py:2765",
     # X1 and X2 have no Pallas counterpart: the XLA scans they replace
     "fwd_chunk": "tehmm_tpu/ops/dp.py:378",
+    # X1's checkpoint mode: the exact posteriors' forward sweep (on the TPU
+    # the XLA scan dp.forward_chunk_values a chunk, whose carry it chains)
+    "fwd_checkpoints": "tehmm_tpu/ops/dp.py:480",
     "bwd_chunk": "tehmm_tpu/ops/dp.py:507",
     # K5 (viterbi_pallas_v3's value sweep), K6a, K6b
     "viterbi_values": "tehmm_tpu/ops/pallas_kernels.py:1374",
@@ -316,8 +333,8 @@ REPLACES = {
 DECODE_KERNELS = ("viterbi_fwd", "viterbi_backtrace", "viterbi_chunk_values",
                   "viterbi_checkpoints")
 EM_KERNELS = ("em_fwd", "em_bwd_stats")
-POST_KERNELS = ("em_fwd", "post_decode", "fwd_chunk", "bwd_chunk",
-                "fwd_piece_ops", "fwd_piece_compose")
+POST_KERNELS = ("em_fwd", "post_decode", "fwd_chunk", "fwd_checkpoints",
+                "bwd_chunk", "fwd_piece_ops", "fwd_piece_compose")
 SCORE_STAGE = "score (piece-operator scan)"
 # 3e's paths: base resolution with a gaussian track (+g), segment mode
 # with the gaussian track (+wg) and with categorical tracks only (+w)
@@ -412,7 +429,7 @@ def _obs_ops(S, T, G, weighted):
 def _bound(name, shape, valid, G=0, weighted=False, n_ck=0) -> dict:
     """bound_ms and bound_by of one call of kernel ``name`` at ``shape`` =
     (B, L, S, T, V) with ``valid`` valid positions (``n_ck``: the
-    checkpoints a row of K3's checkpoint mode writes): the larger of the
+    checkpoints a row of K3's or X1's checkpoint mode writes): the larger of the
     bytes the function must move (each input read once, each output
     written once) over the HBM rate and its float32 operations (an exp
     or log counted as one) over the card's float32 peak; and library_ms:
@@ -477,6 +494,9 @@ def _bound(name, shape, valid, G=0, weighted=False, n_ck=0) -> dict:
         ops = 2 * S * S + 6 * S
     elif base == "forward_final":      # X1's carry-only function: obs,
         nbytes = rows + (2 * B * S + 2 * B + S * S) * f   # carry, sum
+        ops = 2 * S * S + 4 * S
+    elif base == "fwd_checkpoints":    # obs in, n_ck carries a row out
+        nbytes = rows + (B * S + B + S * S + B * n_ck * S) * f
         ops = 2 * S * S + 4 * S
     elif base in ("fwd_chunk", "bwd_chunk", "fwd_chunk_tile",
                   "bwd_chunk_tile"):   # log-space step
@@ -702,6 +722,109 @@ def phase_k3_main_shapes(device, rng) -> dict:
     for name, r in out.items():
         print(f"[kernels] {name:30s} bit-equal  kernel {r['ms']:10.3f} ms"
               f" ({r['us_per_step']:.4f} us a step, bound "
+              f"{r['bound_ms']:.4f} ms)  plain {r['plain_ms']:10.3f} ms",
+              flush=True)
+    return out
+
+
+def phase_x1_main_shapes(device, rng) -> dict:
+    """X1 at the shapes phase 3d's 1,000,000-position ``--maxPost
+    --exact`` region gives it: the recompute of one chunk (1 x 4096) and
+    of the region's one group (245 rows of 4096, each from its own carry,
+    the last 583 long), the ragged rows of phase 2's decode (B_ROWS x
+    L_ROWS), and the forward sweep over the region in one checkpoint
+    launch (1 x 245 x 4096, 999,999 valid, a carry every 4096); each held
+    to its plain version carried in float64 within the F3 limit, timed
+    against the float32 plain version, with us a step (ms over the
+    longest row's steps) beside the bound.  The sweep is held chunk by
+    chunk: the float64 plain step over every chunk from the kernel's
+    carry entering it (all in one call); its ``plain_ms`` times the
+    float32 plain chain on the first ``PLAIN_CHUNKS`` chunks
+    (``plain_positions``), and the kernel's first checkpoints are held to
+    the float64 chain over them too.  A decode model and inputs of its
+    own generator."""
+    import torch
+
+    from tehmm_tpu_torch.models.emission import track_log_likelihoods
+    from tehmm_tpu_torch.ops import cuda_kernels as ck
+    from tehmm_tpu_torch.ops import dp
+
+    p = _decode_model(rng, device)
+    f64 = torch.float64
+
+    def inputs(B, L, lengths):
+        sym = torch.from_numpy(
+            rng.randint(0, V, size=(B, L, T)).astype(np.int32)).to(device)
+        obs = track_log_likelihoods(p.log_em, sym)
+        init = torch.from_numpy(rng.randn(B, S).astype(np.float32))
+        init = (init - init.amax(dim=-1, keepdim=True)).to(device)
+        lens = torch.from_numpy(np.asarray(lengths, np.int32)).to(device)
+        return (p.log_trans, obs, init, lens)
+
+    body = EXACT_REGION - 1
+    last = body - (EXACT_CHUNKS - 1) * EXACT_CHUNK
+    ragged = rng.randint(0, L_ROWS + 1, size=B_ROWS)
+    ragged[:4] = [L_ROWS, 0, 1, 2]
+    out = {}
+    for B, L, lengths in ((1, EXACT_CHUNK, [EXACT_CHUNK]),
+                          (EXACT_CHUNKS, EXACT_CHUNK,
+                           [EXACT_CHUNK] * (EXACT_CHUNKS - 1) + [last]),
+                          (B_ROWS, L_ROWS, ragged)):
+        args = inputs(B, L, lengths)
+        lim = _f3_limit(float(args[1].abs().max()))
+        hats, carry = ck.forward_chunk_values(*args)
+        ref = dp.forward_chunk_values(*args, dtype=f64)
+        err = max(_assert_close(f"X1 values at {B} x {L}", hats.double(),
+                                ref[0], 0.0, lim),
+                  _assert_close(f"X1 carry at {B} x {L}", carry.double(),
+                                ref[1], 0.0, lim))
+        ms = _median_ms(lambda: ck.forward_chunk_values(*args), 5)
+        out[f"fwd_chunk@{B}x{L}"] = dict(
+            max_abs_err=err, limit=lim, ms=ms,
+            plain_ms=_median_ms(lambda: dp.forward_chunk_values(*args), 3),
+            us_per_step=ms * 1e3 / L,
+            **_bound("fwd_chunk", (B, L, S, T, V), int(sum(lengths))))
+        del args, hats, carry, ref
+
+    L = EXACT_CHUNKS * EXACT_CHUNK
+    args = inputs(1, L, [body])
+    lt, obs, init, lens = args
+    lim = _f3_limit(float(obs.abs().max()))
+    got = ck.forward_checkpoints(*args, EXACT_CHUNK)
+    # every chunk through the float64 plain step from the kernel's carry
+    # entering it, all chunks as rows of one call
+    entries = torch.cat([init[:, None], got[:, :-1]], dim=1)[0]
+    starts = torch.arange(EXACT_CHUNKS, device=device) * EXACT_CHUNK
+    want, _ = dp.forward_final(
+        lt, obs.view(EXACT_CHUNKS, EXACT_CHUNK, S), entries.contiguous(),
+        torch.clamp(body - starts, 0, EXACT_CHUNK).to(torch.int32),
+        dtype=f64)
+    err = _assert_close("X1 checkpoints, chunk by chunk", got[0].double(),
+                        want, 0.0, lim)
+    # the plain chain itself (a Python loop a position) on the first
+    # PLAIN_CHUNKS chunks: timed in float32, held in float64
+    n_p = PLAIN_CHUNKS * EXACT_CHUNK
+    head = (lt, obs[:, :n_p].contiguous(), init, torch.clamp(lens, max=n_p))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dp.forward_checkpoints(*head, EXACT_CHUNK)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    chain = dp.forward_checkpoints(lt.double(), head[1].double(),
+                                   init.double(), head[3], EXACT_CHUNK)
+    err = max(err, _assert_close("X1 checkpoints against the plain chain",
+                                 got[:, :PLAIN_CHUNKS].double(), chain, 0.0,
+                                 lim))
+    ms = _median_ms(lambda: ck.forward_checkpoints(*args, EXACT_CHUNK), 5)
+    out["fwd_checkpoints"] = dict(
+        max_abs_err=err, limit=lim, ms=ms, plain_ms=plain_ms,
+        plain_positions=n_p, us_per_step=ms * 1e3 / body,
+        **_bound("fwd_checkpoints", (1, L, S, T, V), body,
+                 n_ck=EXACT_CHUNKS))
+    for name, r in out.items():
+        print(f"[kernels] {name:30s} max_abs_err {r['max_abs_err']:.3g} "
+              f"(F3 {r['limit']:.3g})  kernel {r['ms']:10.3f} ms "
+              f"({r['us_per_step']:.4f} us a step, bound "
               f"{r['bound_ms']:.4f} ms)  plain {r['plain_ms']:10.3f} ms",
               flush=True)
     return out
@@ -2049,48 +2172,112 @@ def _region_bed(work, name, lo, hi):
     return path
 
 
-def _exact_stages():
-    """Spans around the exact Viterbi's calls, each ending synchronised:
-    the decode as a whole (with its launches), obs formation
-    (``stitch._span_obs``), the forward sweep (K3's checkpoint mode), the
-    recompute (K3's values mode) and the backtrace."""
+# the exact decoders' kernels in the order they run, with their stages
+EXACT_SPANS = (("viterbi_checkpoints", "forward sweep"),
+               ("viterbi_chunk_values", "recompute"),
+               ("viterbi_backtrace", "backtrace"))
+POST_EXACT_SPANS = (("forward_checkpoints", "forward sweep"),
+                    ("forward_chunk_values", "recompute"),
+                    ("backward_chunk_values", "X2"))
+
+
+def _split_stages(total, spans):
+    """Spans around an exact decoder's calls, each ending synchronised:
+    the decode as a whole (eval's ``total``, with its launches), obs
+    formation (``stitch._span_obs``), and each (``ck`` wrapper, stage)
+    of ``spans``."""
     from tehmm_tpu_torch.cli import eval as port_eval
     from tehmm_tpu_torch.ops import cuda_kernels as ck
     from tehmm_tpu_torch.parallel import stitch
 
     stages = _Stages()
-    stages.wrap(port_eval, "viterbi_exact", "total", sync=True, count=True)
+    stages.wrap(port_eval, total, "total", sync=True, count=True)
     stages.wrap(stitch, "_span_obs", "obs formation", sync=True)
-    stages.wrap(ck, "viterbi_checkpoints", "forward sweep", sync=True)
-    stages.wrap(ck, "viterbi_chunk_values", "recompute", sync=True)
-    stages.wrap(ck, "viterbi_backtrace", "backtrace", sync=True)
+    for attr, stage in spans:
+        stages.wrap(ck, attr, stage, sync=True)
     return stages
 
 
-def _exact_split(stages, region, S_):
-    """Print the exact decode's split and hold its launches: K3 twice a
-    group (``stitch.exact_group_chunks`` at eval's chunk of 4096), not
-    once a chunk in each sweep; the backtrace once a chunk."""
+def _chunks_and_groups(region, S_):
+    """The chunks of eval's 4096 over one region's body, and the groups
+    the exact decoders cut them into (``stitch.exact_group_chunks``):
+    fewer groups than chunks."""
     from tehmm_tpu_torch.parallel import stitch
 
     n_chunks = -(-(region - 1) // EXACT_CHUNK)
     groups = -(-n_chunks // stitch.exact_group_chunks(1, EXACT_CHUNK, S_))
+    assert groups < n_chunks, (groups, n_chunks)
+    return n_chunks, groups
+
+
+def _print_split(stages, label, spans, rest, region, S_):
+    """Print an exact decode's split (``rest``: the total less the
+    stages) and its launches; returns (launches, chunks, groups)."""
+    n_chunks, groups = _chunks_and_groups(region, S_)
     sec = stages.seconds
-    parts = ("obs formation", "forward sweep", "recompute", "backtrace")
-    rest = sec["total"] - sum(sec.get(k, 0.0) for k in parts)
-    print("[e2e] --exact split (s): " + ", ".join(
+    parts = ("obs formation",) + tuple(stage for _, stage in spans)
+    left = sec["total"] - sum(sec.get(k, 0.0) for k in parts)
+    print(f"{label} split (s): " + ", ".join(
         f"{k} {sec.get(k, 0.0):.4f} ({stages.calls.get(k, 0)} calls)"
-        for k in ("total",) + parts) + f", rest {rest:.4f}", flush=True)
+        for k in ("total",) + parts) + f", {rest} {left:.4f}", flush=True)
     n = stages.launched["total"]
-    print(f"[e2e] --exact launches: "
+    print(f"{label} launches: "
           f"{ {k: v for k, v in n.items() if v} }; {n_chunks} chunks in "
           f"{groups} group(s)", flush=True)
-    assert groups < n_chunks, (groups, n_chunks)
+    return n, n_chunks, groups
+
+
+def _exact_split(stages, region, S_):
+    """Print the exact decode's split and hold its launches: K3 twice a
+    group, not once a chunk in each sweep; the backtrace once a
+    chunk."""
+    n, n_chunks, groups = _print_split(stages, "[e2e] --exact", EXACT_SPANS,
+                                       "rest", region, S_)
     assert n["viterbi_checkpoints"] == groups \
         and n["viterbi_chunk_values"] == groups, \
         f"K3 launched {n['viterbi_checkpoints']} + " \
         f"{n['viterbi_chunk_values']} times, not twice a group ({groups})"
     assert n["viterbi_backtrace"] == n_chunks, n["viterbi_backtrace"]
+
+
+def _x1_groups(launched, region, S_, what):
+    """Hold one exact posterior sweep's launches: X1 twice a group (the
+    checkpoint sweep and the recompute), X2 once a chunk and once for
+    position 0, no piece kernel."""
+    n_chunks, groups = _chunks_and_groups(region, S_)
+    x1 = (launched["fwd_checkpoints"], launched["fwd_chunk"])
+    assert x1 == (groups, groups), \
+        f"{what}: X1 launched {x1[0]} + {x1[1]} times, not twice a group " \
+        f"({groups})"
+    assert launched["bwd_chunk"] == n_chunks + 1, \
+        f"{what}: X2 launched {launched['bwd_chunk']} times, not once a " \
+        f"chunk ({n_chunks}) and once for position 0"
+    assert not (launched["fwd_piece_ops"] or launched["fwd_piece_compose"]
+                or launched["fwd_chunk_tile"]), f"{what} launched {launched}"
+
+
+def _parent_outputs(parent, runs, work):
+    """Run the eval CLI of the checkout at ``parent`` (an earlier commit of
+    this repository, unpacked with ``git archive``) in one process of its
+    own on each (argv, output path) of ``runs``, the output path moved to
+    a file of its own, and return each output's bytes.  Its kernels build
+    into that checkout."""
+    outs = []
+    argvs = []
+    for k, (argv, path) in enumerate(runs):
+        out = os.path.join(work, f"parent_{k}_{os.path.basename(path)}")
+        argvs.append([out if a == path else a for a in argv])
+        outs.append(out)
+    code = ("import json, sys\n"
+            "from tehmm_tpu_torch.cli import eval as e\n"
+            "for argv in json.loads(sys.argv[1]):\n"
+            "    assert e.main(argv) == 0, argv\n")
+    env = dict(os.environ, PYTHONPATH=os.path.abspath(parent))
+    proc = subprocess.run([sys.executable, "-c", code, json.dumps(argvs)],
+                          cwd=parent, env=env, capture_output=True,
+                          text=True, timeout=900)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    return [open(o, "rb").read() for o in outs]
 
 
 def phase_end_to_end(work, xml, truth_bed, truth, region, small,
@@ -2145,7 +2332,8 @@ def phase_end_to_end(work, xml, truth_bed, truth, region, small,
     beds = {}
     for flag in ("--exact", "--no-exact"):
         out = os.path.join(work, f"region{flag}.bed")
-        split = _exact_stages() if flag == "--exact" else None
+        split = _split_stages("viterbi_exact", EXACT_SPANS) \
+            if flag == "--exact" else None
         t0 = time.perf_counter()
         try:
             _run_cli(port_eval, [xml, model, region_bed, "--bed", out,
@@ -2197,9 +2385,11 @@ def _read_pd(path):
 
 
 def phase_max_posterior(work, xml, truth, viterbi_score, region, small,
-                        pd_region, device="cuda"):
+                        pd_region, device="cuda", parent=None):
     """3d: max-posterior decoding, --pd and scoring through eval with
-    phase 3's supervised model."""
+    phase 3's supervised model.  ``parent``: a checkout of an earlier
+    commit, whose eval CLI must write the same ``--maxPost --exact`` BEDs
+    and ``--pd`` file byte for byte."""
     from tehmm_tpu_torch.cli import eval as port_eval
     from tehmm_tpu_torch.models import hmm as port_hmm
     from tehmm_tpu_torch.ops import cuda_kernels as ck
@@ -2224,10 +2414,12 @@ def phase_max_posterior(work, xml, truth, viterbi_score, region, small,
     stages.wrap(port_eval, "_write_pd_streaming", "--pd write", sync=True,
                 count=True)
 
+    same_as_parent = []                   # (argv, output) of each run
+
     def run(bed_path, *flags, dev=device):
+        argv = [xml, model, bed_path, *flags, "--device", dev]
         t0 = time.perf_counter()
-        printed = _run_cli(port_eval, [xml, model, bed_path, *flags,
-                                       "--device", dev])
+        printed = _run_cli(port_eval, argv)
         return float(printed), time.perf_counter() - t0
 
     try:
@@ -2254,10 +2446,26 @@ def phase_max_posterior(work, xml, truth, viterbi_score, region, small,
         paths = {}
         for flag in ("--exact", "--no-exact"):
             out = os.path.join(work, f"post_region{flag}.bed")
-            _, wall = run(region_bed, "--bed", out, "--maxPost", flag)
+            split = _split_stages("posterior_exact", POST_EXACT_SPANS) \
+                if flag == "--exact" else None
+            if flag == "--exact":
+                same_as_parent.append(([xml, model, region_bed, "--bed", out,
+                                        "--maxPost", flag, "--device",
+                                        device], out))
+            try:
+                _, wall = run(region_bed, "--bed", out, "--maxPost", flag)
+            finally:
+                if split is not None:
+                    split.restore()
             paths[flag] = _paint_region(out, lo, region, names)
             print(f"[post] {region}-position region --maxPost {flag}: "
                   f"{wall:.3f} s", flush=True)
+            if split is not None:
+                exact_ran, _, _ = _print_split(
+                    split, "[post] --maxPost --exact", POST_EXACT_SPANS,
+                    "gamma and consume", region, len(names))
+                _x1_groups(exact_ran, region, len(names),
+                           "--maxPost --exact")
         n_diff = int((paths["--exact"] != paths["--no-exact"]).sum())
         assert n_diff <= 1e-5 * region, \
             f"--exact and --no-exact differ on {n_diff} bases"
@@ -2270,6 +2478,11 @@ def phase_max_posterior(work, xml, truth, viterbi_score, region, small,
         run(pd_bed, "--pd", pd_out)
         exact_out = os.path.join(work, "post_pd_exact.bed")
         run(pd_bed, "--bed", exact_out, "--maxPost", "--exact")
+        same_as_parent += [
+            ([xml, model, pd_bed, "--pd", pd_out, "--device", device],
+             pd_out),
+            ([xml, model, pd_bed, "--bed", exact_out, "--maxPost", "--exact",
+              "--device", device], exact_out)]
         starts, probs = _read_pd(pd_out)
         assert np.array_equal(starts, lo + np.arange(pd_region))
         sums = np.abs(probs.sum(axis=1) - 1.0).max()
@@ -2288,16 +2501,25 @@ def phase_max_posterior(work, xml, truth, viterbi_score, region, small,
               f"BED on every row ({ties} printed ties)", flush=True)
     finally:
         stages.restore()
+    if parent is not None:
+        t0 = time.perf_counter()
+        theirs = _parent_outputs(parent, same_as_parent, work)
+        for (_argv, out), other in zip(same_as_parent, theirs):
+            mine = open(out, "rb").read()
+            assert mine == other, f"{os.path.basename(out)} differs from " \
+                f"the parent's ({len(mine)} against {len(other)} bytes)"
+            print(f"[post] {os.path.basename(out)}: {len(mine)} bytes, "
+                  f"byte-identical to the parent's ({parent})", flush=True)
+        print(f"[post] the parent's three runs: "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
     launches = dict(ck.LAUNCHES)          # the card's runs of this phase
     # the score at S <= 239 ran the piece-operator scan and no chain;
-    # posterior_sweep (--pd) ran the chains X1/X2, as before
+    # --pd's sweep X1 twice a group and X2 once a chunk
     ran = stages.launched[SCORE_STAGE]
     assert ran["fwd_piece_ops"] and ran["fwd_piece_compose"] and not (
         ran["fwd_chunk"] or ran["fwd_chunk_tile"]), f"score launched {ran}"
     ran_pd = stages.launched["--pd write"]
-    assert ran_pd["fwd_chunk"] and ran_pd["bwd_chunk"] and not (
-        ran_pd["fwd_piece_ops"] or ran_pd["fwd_piece_compose"]), \
-        f"posterior_sweep launched {ran_pd}"
+    _x1_groups(ran_pd, pd_region, len(names), "--pd's sweep")
     print(f"[post] launches of the score stage: "
           f"{ {k: v for k, v in ran.items() if v} }; of --pd's sweep: "
           f"{ {k: v for k, v in ran_pd.items() if v} }", flush=True)
@@ -3207,6 +3429,10 @@ def _phase_done(name, t_run):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--parent", default=None,
+                    help="a checkout of an earlier commit (git archive): "
+                         "3d holds its --maxPost --exact BEDs and --pd "
+                         "file to this one's byte for byte")
     args = ap.parse_args(argv)
 
     import torch
@@ -3230,9 +3456,12 @@ def main(argv=None) -> int:
     t_run = time.perf_counter()
     rng = np.random.RandomState(args.seed)
     kernels = phase_kernels(device, rng)
-    # K3 at phase 3's --exact shapes, on a generator of its own
+    # K3 at phase 3's --exact shapes, X1 at 3d's, on generators of their
+    # own
     kernels.update(phase_k3_main_shapes(
         device, np.random.RandomState(args.seed + 6)))
+    kernels.update(phase_x1_main_shapes(
+        device, np.random.RandomState(args.seed + 7)))
     kernels.update(phase_k1(device, rng))
     kernels.update(phase_post_kernels(device, rng, args.seed))
     # the stream checks draw from their own generator, so the data of
@@ -3274,8 +3503,10 @@ def main(argv=None) -> int:
 
         ck.reset_launch_counts()
         torch.cuda.reset_peak_memory_stats()
-        post_launches = phase_max_posterior(work, xml, truth, viterbi_score,
-                                            1_000_000, 20_000, 100_000)
+        post_launches = phase_max_posterior(
+            work, xml, truth, viterbi_score, 1_000_000, 20_000, 100_000,
+            parent=None if args.parent is None
+            else os.path.abspath(args.parent))
         print(f"[post] peak device memory allocated: "
               f"{torch.cuda.max_memory_allocated() / 1e6:.1f} MB",
               flush=True)
@@ -3367,6 +3598,9 @@ def main(argv=None) -> int:
                                  for path in tile_paths[base])
         elif base in DECODE_KERNELS and config not in engine_launches:
             launches[name] = decode_launches[base]  # K3 at --exact's shapes
+        elif base in POST_KERNELS and config and \
+                config not in engine_launches:
+            launches[name] = post_launches[base]    # X1 at 3d's shapes
         elif config or base in STREAMING_KERNELS:
             launches[name] = \
                 engine_launches[config or ENGINE_CONFIGS[0]][base]

@@ -3,8 +3,9 @@
 // maxplus.cu): one warp per batch row with lane <-> state, up to 8
 // states per lane, tables staged into shared memory by the whole block,
 // the one in-register observation routine (obs_log) with its optional
-// segment-weight and gaussian streams, and the cp.async staging of
-// matrix rows.  Everything is in an anonymous
+// segment-weight and gaussian streams, the cp.async staging of matrix
+// rows, and the long sweeps' obs read ahead of their chain (K3, X1) with
+// the exact tree max of their lanes steps.  Everything is in an anonymous
 // namespace: each source gets its own copy.
 
 #pragma once
@@ -186,6 +187,61 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// The long sweeps' obs read ahead of their chain (K3 in viterbi.cu, X1 in
+// posterior.cu): one warp walks a row whose every step needs the whole
+// previous row, so no global load may sit between two dependent steps.
+//
+//   lanes step   each lane copies its own column of the next positions
+//                into a ring in shared memory with cp.async, kHalf
+//                positions at a time, two halves in flight (only the lane
+//                that copied an element reads it, so the copy needs no
+//                barrier): stage_column;
+//   shared step  each lane keeps its states' obs kAhead positions ahead
+//                in registers: load_obs.
+constexpr int kHalf = 32;  // positions a lane stages at a time (lanes)
+constexpr int kAhead = 4;  // positions of obs held ahead (shared)
+
+// Copy this lane's column of positions [p0, min(p0 + kHalf, n)) into
+// its ring half and commit the copy (an empty group past n).  ``ring``
+// is the lane's first slot of 2 kHalf, 32 floats apart.
+__device__ __forceinline__ void stage_column(float* ring, const float* ob,
+                                             int64_t p0, int64_t n,
+                                             int S, bool mine) {
+  float* dst = ring + ((p0 / kHalf) & 1) * kHalf * 32;
+  if (mine)
+    for (int k = 0; k < kHalf && p0 + k < n; ++k)
+      cp_async4(dst + k * 32, ob + (p0 + k) * S);
+  cp_async_commit();
+}
+
+// this lane's obs of its states at position t (0 past n)
+template <int SPL>
+__device__ __forceinline__ void load_obs(float (&o)[SPL], const float* ob,
+                                         int64_t t, int64_t n, int S,
+                                         int lane) {
+#pragma unroll
+  for (int q = 0; q < SPL; ++q) {
+    const int j = lane + 32 * q;
+    o[q] = (j < S && t < n) ? ob[t * S + j] : 0.0f;
+  }
+}
+
+// max over a[0..NS) by a pairwise tree (entries past S hold -inf or a
+// value no larger than the caller's clamp, so the result is the max over
+// the S states); NS is S rounded up to a multiple of 4.  max is exact,
+// so any order gives the bits of a sequential max.
+template <int NS>
+__device__ __forceinline__ float row_max(const float (&src)[NS]) {
+  float a[NS];
+#pragma unroll
+  for (int i = 0; i < NS; ++i) a[i] = src[i];
+#pragma unroll
+  for (int w = 1; w < NS; w <<= 1)
+#pragma unroll
+    for (int i = 0; i + w < NS; i += 2 * w) a[i] = fmaxf(a[i], a[i + w]);
+  return a[0];
 }
 
 // Issue the copy of T's rows [i0, min(i0 + blk, Sp)) into dst (16-byte

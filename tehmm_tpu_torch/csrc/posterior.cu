@@ -17,9 +17,12 @@
 //                       :3015 under posterior_decode_fused_pallas_v4
 //                       :2911).  K4's forward is K1's em_fwd_kernel
 //                       (em_estep.cu), whose alpha_p rows it reads.
-//   fwd_chunk_kernel    X1: the XLA scans of dp.forward_chunk_values
+//   fwd_sweep_lanes_kernel, fwd_sweep_smem_kernel
+//                       X1: the XLA scans of dp.forward_chunk_values
 //                       (tehmm_tpu/ops/dp.py:480) and, in carry-only
-//                       mode, dp.forward_final (:378).
+//                       mode, dp.forward_final (:378); in the checkpoint
+//                       mode the exact posteriors' forward sweep (that
+//                       carry chained chunk by chunk, one launch a group).
 //   bwd_chunk_kernel    X2: the XLA scan of dp.backward_chunk_values
 //                       (tehmm_tpu/ops/dp.py:507).
 //   fwd_piece_ops_kernel, fwd_piece_compose_kernel
@@ -40,7 +43,8 @@
 //     m = max(max new, LOG_ZERO);  a <- new - m and dm = m where t < len,
 //     else a is carried and dm = 0.  Values mode writes every a; carry-only
 //     mode writes dm (the wrapper sums it in one reduction); both write
-//     the final carry.
+//     the final carry; the checkpoint mode writes the carry leaving every
+//     chunk of ``chunk`` positions of the row.
 //   X2, t = Lc-1..0, from x_carry (the next chunk's normalized obs + beta
 //     row):  the step from x is  s_i = sum_j exp(x_j) T[i, j],
 //     l_i = s_i > 0 ? log s_i : LOG_ZERO,  beta = l - max(max l, LOG_ZERO);
@@ -63,7 +67,29 @@
 // per row with lane <-> state (up to 8 states per lane), exp(trans) and
 // (decode) log_em in shared memory, the row's state in registers and one
 // S-float exchange row per warp in shared memory.  A single chromosome is
-// one row, so one warp walks it; splitting a row is later work.
+// one row, so one warp walks it.
+//
+// X1 walks a whole chromosome on one warp in its checkpoint mode (the
+// exact posteriors' forward sweep), so, as K3 (viterbi.cu), its step is
+// cut to its latency, in two variants chosen by S
+// (ops/cuda_kernels.x1_step):
+//
+//   lanes (S <= 32)  lane j keeps column j of exp(trans) in registers and
+//       forms expf of its own a_j; the row of expf values goes round by S
+//       shuffles, lane j runs its fmaf chain over them, and the new row
+//       goes round by S more for the max (common.cuh row_max): no shared
+//       memory, barrier or __syncwarp on the chain;
+//   shared (33..239) logdot_renorm, the row and exp(trans) in shared
+//       memory.
+//
+// Both read obs ahead of the chain (common.cuh: the lanes step a per-lane
+// cp.async ring, stage_column; the shared step kAhead positions in
+// registers, load_obs) and stop at the row's length, and both run the
+// same operations in the same order (the same expf, the fmaf chain over
+// i = 0..S-1 from 0, logf, the clamps, + obs before the max, the exact
+// max), so every mode of either gives the plain version's and the other
+// variant's bits.  The recompute of the exact posteriors gives every
+// (table, chunk) of a group a warp, each from its stored carry.
 //
 // The piece-operator scan splits the row instead (Sarkka &
 // Garcia-Fernandez; across devices the JAX package's parallel/seqpar.py
@@ -120,12 +146,13 @@ __device__ __forceinline__ int first_hit_argmax(const float (&v)[SPL], int S,
 // out_k = log(sum_i exp(in_i) M[i, j]) (LOG_ZERO where the sum is 0) for
 // this lane's states j = lane + 32k, with s_m[i * S + j] = M[i, j]; then
 // renormalized to max 0.  Returns the normalizer max(max out, LOG_ZERO).
-// ``add`` (may be nullptr) is added to each log-sum before the max.
-template <int SPL>
+// With kAdd, add[k] is added to each log-sum before the max.
+template <int SPL, bool kAdd>
 __device__ __forceinline__ float logdot_renorm(float* s_row, const float* s_m,
                                                const float (&in)[SPL],
-                                               const float* add, int S,
-                                               int lane, float (&out)[SPL]) {
+                                               const float (&add)[SPL],
+                                               int S, int lane,
+                                               float (&out)[SPL]) {
 #pragma unroll
   for (int k = 0; k < SPL; ++k) {
     const int j = lane + 32 * k;
@@ -141,7 +168,7 @@ __device__ __forceinline__ float logdot_renorm(float* s_row, const float* s_m,
       for (int i = 0; i < S; ++i)
         s = fmaf(s_row[i], s_m[(int64_t)i * S + j], s);
       float l = s > 0.0f ? logf(s) : kLogZero;
-      if (add != nullptr) l = l + add[j];
+      if (kAdd) l = l + add[k];
       out[k] = l;
       lmax = fmaxf(lmax, l);
     }
@@ -237,17 +264,125 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32)
   }
 }
 
-// X1: the log-space forward continuation over obs [B, Lc, S] from
-// carry_in [B, S].  hats (may be nullptr) [B, Lc, S] and dm (may be
-// nullptr) [B, Lc]; carry_out [B, S].
+// X1, every mode, either step: from each row's incoming carry [B, S] over
+// obs [B, L, S], every position applying a transition.  hats [B, L, S]
+// (values mode) and dm [B, L] (carry-only mode: each position's
+// normalizer, 0 past the length) may be null; ckpt [B, n_ck, S], the
+// carry leaving every chunk of ``chunk`` positions, is always written
+// (the final carry is the one chunk of L).  Past a row's length the
+// carry holds: hats repeat it and the checkpoints take it.
+
+// One step of the lanes variant.  Lane j holds a_j (``own``), e_j =
+// expf(a_j) and column j of exp(log_trans) (tc, 0 past S); lanes past S
+// hold a = -inf, e = 0 and obs -inf, so every sum gains exact zeros and
+// every max -inf from them.  Lane j's sum runs fmaf over i = 0..NS-1 from
+// 0, its log, clamp and + obs are logdot_renorm's, and the max is exact:
+// the bits are the shared step's.  Returns the normalizer.
+template <int NS>
+__device__ __forceinline__ float lanes_logdot_step(float& own, float& e,
+                                                   const float (&tc)[NS],
+                                                   float o) {
+  float s = 0.0f;
+#pragma unroll
+  for (int i = 0; i < NS; ++i)
+    s = fmaf(__shfl_sync(0xffffffffu, e, i), tc[i], s);
+  const float l = (s > 0.0f ? logf(s) : kLogZero) + o;
+  float r[NS];
+#pragma unroll
+  for (int i = 0; i < NS; ++i) r[i] = __shfl_sync(0xffffffffu, l, i);
+  const float m = fmaxf(row_max<NS>(r), kLogZero);
+  own = l - m;
+  e = expf(own);
+  return m;
+}
+
+template <int NS>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+    fwd_sweep_lanes_kernel(const float* __restrict__ obs,
+                           const float* __restrict__ carry,
+                           const int32_t* __restrict__ lens,
+                           const float* __restrict__ trans_p,
+                           float* __restrict__ hats, float* __restrict__ dm,
+                           float* __restrict__ ckpt, int64_t B, int64_t L,
+                           int S, int64_t chunk, int64_t n_ck) {
+  extern __shared__ float smem[];  // a ring of 2 kHalf x 32 floats a warp
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int64_t b = (int64_t)blockIdx.x * kWarpsPerBlock + warp;
+  if (b >= B) return;
+  const bool mine = lane < S;
+  float* ring = smem + warp * (2 * kHalf * 32) + lane;
+  if (!mine)  // their obs stay -inf, so their values stay -inf
+    for (int k = 0; k < 2 * kHalf; ++k) ring[k * 32] = -INFINITY;
+  float tc[NS];
+#pragma unroll
+  for (int i = 0; i < NS; ++i)
+    tc[i] = (mine && i < S) ? trans_p[(int64_t)i * S + lane] : 0.0f;
+  float own = mine ? carry[b * S + lane] : -INFINITY;
+  float e = expf(own);
+
+  const int64_t n = max((int64_t)0, min((int64_t)lens[b], L));
+  const float* ob = obs + b * L * S + lane;
+  // the next stores of each output, walked by pointer
+  float* hb = hats != nullptr ? hats + b * L * S + lane : nullptr;
+  float* db = dm != nullptr ? dm + b * L : nullptr;
+  float* cb = ckpt + b * n_ck * S + lane;
+  float* const cb_end = cb + n_ck * S;
+  int64_t to_ck = chunk;  // steps to the next checkpoint
+  stage_column(ring, ob, 0, n, S, mine);
+  stage_column(ring, ob, kHalf, n, S, mine);
+  for (int64_t t0 = 0; t0 < n; t0 += kHalf) {
+    cp_async_wait<1>();  // this half is in; the next may be in flight
+    const float* src = ring + ((t0 / kHalf) & 1) * kHalf * 32;
+    const int steps = (int)min((int64_t)kHalf, n - t0);
+#pragma unroll 2
+    for (int k = 0; k < steps; ++k) {
+      const float m = lanes_logdot_step<NS>(own, e, tc, src[k * 32]);
+      if (hb != nullptr) {
+        if (mine) *hb = own;
+        hb += S;
+      }
+      if (db != nullptr) {
+        if (lane == 0) *db = m;
+        ++db;
+      }
+      if (--to_ck == 0) {
+        if (mine) *cb = own;
+        cb += S;
+        to_ck = chunk;
+      }
+    }
+    stage_column(ring, ob, t0 + 2 * kHalf, n, S, mine);
+  }
+  cp_async_wait<0>();
+  if (db != nullptr && lane == 0)
+    for (int64_t t = n; t < L; ++t, ++db) *db = 0.0f;
+  if (!mine) return;
+  if (hb != nullptr)
+    for (int64_t t = n; t < L; ++t, hb += S) *hb = own;
+  for (; cb < cb_end; cb += S) *cb = own;
+}
+
+// this lane's states of a row to memory
+template <int SPL>
+__device__ __forceinline__ void store_row(float* dst, const float (&a)[SPL],
+                                          int S, int lane) {
+#pragma unroll
+  for (int k = 0; k < SPL; ++k) {
+    const int j = lane + 32 * k;
+    if (j < S) dst[j] = a[k];
+  }
+}
+
 template <int SPL>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
-    fwd_chunk_kernel(const float* __restrict__ obs,
-                     const float* __restrict__ carry_in,
-                     const int32_t* __restrict__ lens,
-                     const float* __restrict__ trans_p,
-                     float* __restrict__ hats, float* __restrict__ carry_out,
-                     float* __restrict__ dm, int64_t B, int64_t L, int S) {
+    fwd_sweep_smem_kernel(const float* __restrict__ obs,
+                          const float* __restrict__ carry,
+                          const int32_t* __restrict__ lens,
+                          const float* __restrict__ trans_p,
+                          float* __restrict__ hats, float* __restrict__ dm,
+                          float* __restrict__ ckpt, int64_t B, int64_t L,
+                          int S, int64_t chunk, int64_t n_ck) {
   extern __shared__ float smem[];
   float* s_trans = smem;                       // exp(log_trans) [S, S]
   const int warp = threadIdx.x >> 5;
@@ -258,36 +393,46 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 
   const int64_t b = (int64_t)blockIdx.x * kWarpsPerBlock + warp;
   if (b >= B) return;
-  const int64_t len = lens[b];
+  const int64_t n = max((int64_t)0, min((int64_t)lens[b], L));
   float a[SPL];
 #pragma unroll
   for (int k = 0; k < SPL; ++k) {
     const int j = lane + 32 * k;
-    if (j < S) a[k] = carry_in[b * S + j];
+    if (j < S) a[k] = carry[b * S + j];
   }
-  for (int64_t t = 0; t < L; ++t) {
-    const int64_t pos = b * L + t;
-    float m = 0.0f;
-    if (t < len) {                             // warp-uniform
-      float nv[SPL];
-      m = logdot_renorm<SPL>(s_row, s_trans, a, obs + pos * S, S, lane, nv);
+  const float* ob = obs + b * L * S;
+  int64_t next_ck = chunk, ck_i = 0;
+  float ahead[kAhead][SPL];  // slot d: the obs of position t0 + d
 #pragma unroll
-      for (int k = 0; k < SPL; ++k) a[k] = nv[k];
-    }
-    if (hats != nullptr) {
+  for (int d = 0; d < kAhead; ++d) load_obs<SPL>(ahead[d], ob, d, n, S, lane);
+  for (int64_t t0 = 0; t0 < n; t0 += kAhead) {
 #pragma unroll
-      for (int k = 0; k < SPL; ++k) {
-        const int j = lane + 32 * k;
-        if (j < S) hats[pos * S + j] = a[k];
+    for (int d = 0; d < kAhead; ++d) {
+      const int64_t t = t0 + d;
+      if (t < n) {
+        float nv[SPL];
+        const float m = logdot_renorm<SPL, true>(s_row, s_trans, a,
+                                                 ahead[d], S, lane, nv);
+        load_obs<SPL>(ahead[d], ob, t + kAhead, n, S, lane);
+#pragma unroll
+        for (int k = 0; k < SPL; ++k) a[k] = nv[k];
+        if (hats != nullptr) store_row<SPL>(hats + (b * L + t) * S, a, S, lane);
+        if (dm != nullptr && lane == 0) dm[b * L + t] = m;
+        if (t + 1 == next_ck) {
+          store_row<SPL>(ckpt + (b * n_ck + ck_i) * S, a, S, lane);
+          ++ck_i;
+          next_ck += chunk;
+        }
       }
     }
-    if (dm != nullptr && lane == 0) dm[pos] = m;
   }
-#pragma unroll
-  for (int k = 0; k < SPL; ++k) {
-    const int j = lane + 32 * k;
-    if (j < S) carry_out[b * S + j] = a[k];
-  }
+  if (hats != nullptr)
+    for (int64_t t = n; t < L; ++t)
+      store_row<SPL>(hats + (b * L + t) * S, a, S, lane);
+  if (dm != nullptr && lane == 0)
+    for (int64_t t = n; t < L; ++t) dm[b * L + t] = 0.0f;
+  for (; ck_i < n_ck; ++ck_i)
+    store_row<SPL>(ckpt + (b * n_ck + ck_i) * S, a, S, lane);
 }
 
 // X2: the log-space backward continuation over obs [B, Lc, S] from
@@ -323,7 +468,7 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32)
     // the step from x (taken at position t+1, or x_carry) to beta at t
     const bool valid = t == L - 1 ? continuing[b] != 0 : t + 1 < len;
     if (valid) {                               // warp-uniform
-      logdot_renorm<SPL>(s_row, s_transT, x, nullptr, S, lane, bv);
+      logdot_renorm<SPL, false>(s_row, s_transT, x, x, S, lane, bv);
     }
     const int64_t pos = b * L + t;
 #pragma unroll
@@ -357,7 +502,7 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 // i = 0..S-1) with its loops interchanged: a lane's SPL chains advance
 // together, one read of s_row[i] serving them all, so they overlap where
 // logdot_renorm runs them one after another.  The piece-operator scan's
-// step; X1 and X2 keep logdot_renorm.
+// step; X1's shared step and X2 keep logdot_renorm.
 template <int SPL>
 __device__ __forceinline__ float logdot_renorm_lanes(
     float* s_row, const float* s_m, const float (&in)[SPL], const float* add,
@@ -547,18 +692,46 @@ size_t sweep_smem(int S) {
   return sizeof(float) * ((size_t)S * S + (size_t)kWarpsPerBlock * S);
 }
 
+struct X1Args {
+  const float* obs;
+  const float* carry;
+  const int32_t* lens;
+  const float* trans_p;
+  float* hats;
+  float* dm;
+  float* ckpt;
+  int64_t B, L;
+  int S;
+  int64_t chunk, n_ck;
+};
+
+X1Args x1_args(const void* obs, const void* carry, const void* lens,
+               const void* trans_p, void* hats, void* dm, void* ckpt,
+               int64_t B, int64_t L, int S, int64_t chunk, int64_t n_ck) {
+  return X1Args{(const float*)obs, (const float*)carry,
+                (const int32_t*)lens, (const float*)trans_p, (float*)hats,
+                (float*)dm, (float*)ckpt, B, L, S, chunk, n_ck};
+}
+
+template <int NS>
+int launch_x1_lanes(const X1Args& a, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * kWarpsPerBlock * 2 * kHalf * 32;
+  fwd_sweep_lanes_kernel<NS><<<grid_for(a.B), kWarpsPerBlock * 32, smem,
+                               stream>>>(a.obs, a.carry, a.lens, a.trans_p,
+                                         a.hats, a.dm, a.ckpt, a.B, a.L,
+                                         a.S, a.chunk, a.n_ck);
+  return (int)cudaGetLastError();
+}
+
 template <int SPL>
-int launch_fwd_chunk(const void* obs, const void* carry_in, const void* lens,
-                     const void* trans_p, void* hats, void* carry_out,
-                     void* dm, int64_t B, int64_t L, int S,
-                     cudaStream_t stream) {
-  const size_t smem = sweep_smem(S);
-  cudaError_t err = allow_smem(fwd_chunk_kernel<SPL>, smem);
+int launch_x1_smem(const X1Args& a, cudaStream_t stream) {
+  const size_t smem = sweep_smem(a.S);
+  cudaError_t err = allow_smem(fwd_sweep_smem_kernel<SPL>, smem);
   if (err != cudaSuccess) return (int)err;
-  fwd_chunk_kernel<SPL><<<grid_for(B), kWarpsPerBlock * 32, smem, stream>>>(
-      (const float*)obs, (const float*)carry_in, (const int32_t*)lens,
-      (const float*)trans_p, (float*)hats, (float*)carry_out, (float*)dm, B,
-      L, S);
+  fwd_sweep_smem_kernel<SPL><<<grid_for(a.B), kWarpsPerBlock * 32, smem,
+                               stream>>>(a.obs, a.carry, a.lens, a.trans_p,
+                                         a.hats, a.dm, a.ckpt, a.B, a.L,
+                                         a.S, a.chunk, a.n_ck);
   return (int)cudaGetLastError();
 }
 
@@ -638,23 +811,57 @@ int tehmm_post_decode(const void* sym, const void* lens, const void* trans_p,
   }
 }
 
-int tehmm_fwd_chunk(const void* obs, const void* carry_in, const void* lens,
-                    const void* trans_p, void* hats, void* carry_out,
-                    void* dm, int64_t B, int64_t L, int S, void* stream) {
+// X1's sweep, either step variant (ops/cuda_kernels.x1_step picks by S):
+// hats [B, L, S] and dm [B, L] may be null; ckpt [B, n_ck, S] takes the
+// carry leaving every chunk of ``chunk`` positions.
+int tehmm_x1_sweep_lanes(const void* obs, const void* carry, const void* lens,
+                         const void* trans_p, void* hats, void* dm,
+                         void* ckpt, int64_t B, int64_t L, int S,
+                         int64_t chunk, int64_t n_ck, void* stream) {
+  const X1Args a = x1_args(obs, carry, lens, trans_p, hats, dm, ckpt, B, L,
+                           S, chunk, n_ck);
+  cudaStream_t st = (cudaStream_t)stream;
+  // the registers of a column and a row: S rounded up to a multiple of 4
+  switch ((S + 3) / 4) {
+    case 1:
+      return launch_x1_lanes<4>(a, st);
+    case 2:
+      return launch_x1_lanes<8>(a, st);
+    case 3:
+      return launch_x1_lanes<12>(a, st);
+    case 4:
+      return launch_x1_lanes<16>(a, st);
+    case 5:
+      return launch_x1_lanes<20>(a, st);
+    case 6:
+      return launch_x1_lanes<24>(a, st);
+    case 7:
+      return launch_x1_lanes<28>(a, st);
+    case 8:
+      return launch_x1_lanes<32>(a, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The shared step at every S to 256 (1 state a lane too: the tests force
+// it at S <= 32 to hold the lanes step to it).
+int tehmm_x1_sweep_smem(const void* obs, const void* carry, const void* lens,
+                        const void* trans_p, void* hats, void* dm,
+                        void* ckpt, int64_t B, int64_t L, int S,
+                        int64_t chunk, int64_t n_ck, void* stream) {
+  const X1Args a = x1_args(obs, carry, lens, trans_p, hats, dm, ckpt, B, L,
+                           S, chunk, n_ck);
   cudaStream_t st = (cudaStream_t)stream;
   switch (states_per_lane(S)) {
     case 1:
-      return launch_fwd_chunk<1>(obs, carry_in, lens, trans_p, hats,
-                                 carry_out, dm, B, L, S, st);
+      return launch_x1_smem<1>(a, st);
     case 2:
-      return launch_fwd_chunk<2>(obs, carry_in, lens, trans_p, hats,
-                                 carry_out, dm, B, L, S, st);
+      return launch_x1_smem<2>(a, st);
     case 4:
-      return launch_fwd_chunk<4>(obs, carry_in, lens, trans_p, hats,
-                                 carry_out, dm, B, L, S, st);
+      return launch_x1_smem<4>(a, st);
     case 8:
-      return launch_fwd_chunk<8>(obs, carry_in, lens, trans_p, hats,
-                                 carry_out, dm, B, L, S, st);
+      return launch_x1_smem<8>(a, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

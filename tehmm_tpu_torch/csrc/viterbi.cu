@@ -174,34 +174,12 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 //   shared (33..239) the row and trans in shared memory (maxplus_best,
 //       renorm_store), as K2's forward.
 //
-// Both read obs ahead of the chain, so no global load sits between two
-// dependent steps, and both stop at the row's length:
-//
-//   lanes   each lane copies its own column of the next positions into a
-//           ring in shared memory with cp.async, kHalf positions at a
-//           time, two halves in flight (only the lane that copied an
-//           element reads it, so the copy needs no barrier);
-//   shared  each lane keeps its states' obs kAhead positions ahead in
-//           registers.
-//
-// Neither unrolls a tile of steps: a single warp walking a long row
+// Both read obs ahead of the chain (common.cuh: the lanes step a cp.async
+// ring, stage_column; the shared step registers, load_obs), so no global
+// load sits between two dependent steps, and both stop at the row's
+// length.  X1's sweeps (posterior.cu) share these helpers.  Neither unrolls a tile of steps: a single warp walking a long row
 // streams its code from the instruction caches, so the step's code stays
 // small.
-
-// max over a[0..NS) by a pairwise tree (entries past S hold -inf, which
-// a max ignores, so the result is the max over the S states); NS is S
-// rounded up to a multiple of 4
-template <int NS>
-__device__ __forceinline__ float row_max(const float (&src)[NS]) {
-  float a[NS];
-#pragma unroll
-  for (int i = 0; i < NS; ++i) a[i] = src[i];
-#pragma unroll
-  for (int w = 1; w < NS; w <<= 1)
-#pragma unroll
-    for (int i = 0; i + w < NS; i += 2 * w) a[i] = fmaxf(a[i], a[i + w]);
-  return a[0];
-}
 
 // One step of the lanes variant: lane j's new value from the row and its
 // trans column, then the new row from every lane, renormalised in each.
@@ -223,21 +201,6 @@ __device__ __forceinline__ float lanes_step(float (&row)[NS],
 #pragma unroll
   for (int i = 0; i < NS; ++i) row[i] = a[i] - m;
   return nv - m;
-}
-
-constexpr int kHalf = 32;  // positions a lane stages at a time (lanes)
-constexpr int kAhead = 4;  // positions of obs held ahead (shared)
-
-// Copy this lane's column of positions [p0, min(p0 + kHalf, n)) into
-// its ring half and commit the copy (an empty group past n).
-__device__ __forceinline__ void stage_column(float* ring, const float* ob,
-                                             int64_t p0, int64_t n,
-                                             int S, bool mine) {
-  float* dst = ring + ((p0 / kHalf) & 1) * kHalf * 32;
-  if (mine)
-    for (int k = 0; k < kHalf && p0 + k < n; ++k)
-      cp_async4(dst + k * 32, ob + (p0 + k) * S);
-  cp_async_commit();
 }
 
 template <int NS>
@@ -302,18 +265,6 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32)
     for (int64_t t = n; t < L; ++t, vb += S) *vb = own;
   if (cb != nullptr)
     for (; cb < cb_end; cb += S) *cb = own;
-}
-
-// this lane's obs of its states at position t (0 past n)
-template <int SPL>
-__device__ __forceinline__ void load_obs(float (&o)[SPL], const float* ob,
-                                         int64_t t, int64_t n, int S,
-                                         int lane) {
-#pragma unroll
-  for (int q = 0; q < SPL; ++q) {
-    const int j = lane + 32 * q;
-    o[q] = (j < S && t < n) ? ob[t * S + j] : 0.0f;
-  }
 }
 
 template <int SPL>

@@ -16,7 +16,9 @@ bounds each on an H100 and how its design answers it):
   em_bwd_stats          K1 reverse, ``_make_bwd_stats_kernel_v4``
   post_decode           K4 decode, ``_make_post_decode_kernel_v4``
   forward_chunk_values  X1: no Pallas kernel; the XLA scans of
-  (and forward_final)   ``dp.forward_chunk_values`` (``dp.forward_final``)
+  (forward_final,       ``dp.forward_chunk_values`` (``dp.forward_final``;
+  forward_checkpoints)  the carries of many chunks in one launch: the
+                        exact posteriors' forward sweep)
   backward_chunk_values X2: no Pallas kernel; ``dp.backward_chunk_values``
   forward_loglik        X1's carry-only function (``dp.forward_final``)
                         as a piece-operator scan: ``fwd_piece_ops`` then
@@ -118,7 +120,7 @@ LAUNCHES = {
     name: 0 for name in (
         [k + v for k in STREAM_KERNELS for v in STREAM_VARIANTS]
         + ["viterbi_backtrace", "viterbi_chunk_values",
-           "viterbi_checkpoints", "fwd_chunk",
+           "viterbi_checkpoints", "fwd_chunk", "fwd_checkpoints",
            "bwd_chunk", "viterbi_values", "fwd_prob", "bwd_prob",
            "fwd_scaled", "bwd_scaled", "viterbi_ptrs", "pointer_chase",
            "viterbi_chunk_tile", "fwd_chunk_tile", "bwd_chunk_tile",
@@ -264,8 +266,9 @@ def load_library() -> ctypes.CDLL:
         lib.tehmm_post_decode.argtypes = (
             [ptr] * 6 + [i64, i64, i32, i32, i32] + streams + [ptr]
         )
-        lib.tehmm_fwd_chunk.restype = i32
-        lib.tehmm_fwd_chunk.argtypes = [ptr] * 7 + [i64, i64, i32, ptr]
+        for fn in (lib.tehmm_x1_sweep_lanes, lib.tehmm_x1_sweep_smem):
+            fn.restype = i32
+            fn.argtypes = [ptr] * 7 + [i64, i64, i32, i64, i64, ptr]
         lib.tehmm_bwd_chunk.restype = i32
         lib.tehmm_bwd_chunk.argtypes = [ptr] * 7 + [i64, i64, i32, ptr]
         lib.tehmm_fwd_piece_ops.restype = i32
@@ -360,7 +363,7 @@ def _check_tile(S: int, what: str) -> None:
 
 def sweep_fits(S: int) -> bool:
     """Whether the one-warp kernels of the carried sweeps (K3
-    ``viterbi_chunk_values_kernel``, X1 ``fwd_chunk_kernel``, X2
+    ``viterbi_sweep_*_kernel``, X1 ``fwd_sweep_*_kernel``, X2
     ``bwd_chunk_kernel``) take S states: all of the transition matrix and
     one S-float row per warp of a 4-warp block in shared memory,
     4 (S^2 + 4 S) bytes <= 232,448, so S <= 239.  Beyond it their
@@ -1152,6 +1155,40 @@ def _check_sweep(log_trans, obs, carry, lengths, carry_name):
     return dev
 
 
+# X1's step, by S alone (csrc/posterior.cu), as K3's (``k3_step``):
+# "lanes" to this many states (lane j holds exp(trans) column j in
+# registers and forms expf of its own state; the expf row and the new row
+# go round by shuffles), "shared" to ``sweep_fits``' 239
+# (``logdot_renorm``: the row and exp(trans) in shared memory), "tile"
+# beyond (K7a's tile in carry mode, csrc/scans.cu).  The lanes and shared
+# steps give the same bits, so the choice moves only time.
+X1_LANES_MAX_STATES = 32
+_X1_ENTRIES = {"lanes": "tehmm_x1_sweep_lanes",
+               "shared": "tehmm_x1_sweep_smem"}
+
+
+def x1_step(S: int) -> str:
+    """X1's step variant at S states: ``"lanes"``, ``"shared"`` or
+    ``"tile"`` (see ``X1_LANES_MAX_STATES``)."""
+    if S <= X1_LANES_MAX_STATES:
+        return "lanes"
+    return "shared" if sweep_fits(S) else "tile"
+
+
+def _x1_launch(name, log_trans, obs, a_hat_init, lengths, hats, dm, ckpt,
+               chunk, n_ck):
+    """Launch X1's one-warp step of ``x1_step(S)`` (not the tile): hats
+    (values mode) and dm (carry-only mode) may be None; ckpt takes the
+    carry leaving every chunk of ``chunk`` positions, n_ck of them."""
+    B, L, S = obs.shape
+    trans_p = torch.exp(log_trans)
+    _launch_streaming(name, _X1_ENTRIES[x1_step(S)], (
+        obs.data_ptr(), a_hat_init.data_ptr(), lengths.data_ptr(),
+        trans_p.data_ptr(), None if hats is None else hats.data_ptr(),
+        None if dm is None else dm.data_ptr(), ckpt.data_ptr(), B, L, S,
+        chunk, n_ck), obs.device)
+
+
 def _fwd_chunk(log_trans, obs, a_hat_init, lengths, values):
     B, L, S = obs.shape
     dev = _check_sweep(log_trans, obs, a_hat_init, lengths, "a_hat_init")
@@ -1164,15 +1201,16 @@ def _fwd_chunk(log_trans, obs, a_hat_init, lengths, values):
         if values else None
     dm = None if values else torch.empty((B, L), dtype=torch.float32,
                                          device=dev)
-    if B:
+    if B and x1_step(S) == "tile":
         trans_p = torch.exp(log_trans)
-        name, entry = (("fwd_chunk", "tehmm_fwd_chunk") if sweep_fits(S)
-                       else ("fwd_chunk_tile", "tehmm_fwd_chunk_tile"))
-        _launch_streaming(name, entry, (
+        _launch_streaming("fwd_chunk_tile", "tehmm_fwd_chunk_tile", (
             obs.data_ptr(), a_hat_init.data_ptr(), lengths.data_ptr(),
             trans_p.data_ptr(), None if hats is None else hats.data_ptr(),
             carry.data_ptr(), None if dm is None else dm.data_ptr(), B, L,
             S), dev)
+    elif B:   # the final carry is the checkpoint of one chunk of the row
+        _x1_launch("fwd_chunk", log_trans, obs, a_hat_init, lengths, hats,
+                   dm, carry, max(L, 1), 1)
     if values:
         return hats, carry
     return carry, dm.sum(dim=1)
@@ -1181,17 +1219,21 @@ def _fwd_chunk(log_trans, obs, a_hat_init, lengths, values):
 def forward_chunk_values(log_trans, obs, a_hat_init, lengths):
     """X1: every scaled alpha row f32[B, Lc, S] of one chunk and the
     final carry f32[B, S], from the incoming carry
-    (``dp.forward_chunk_values`` semantics; int32 lengths).
+    (``dp.forward_chunk_values`` semantics; int32 lengths).  The exact
+    posteriors' recompute: it gives every (table, chunk) of a group a
+    row, each from that chunk's stored carry.
 
     No Pallas counterpart: on the TPU this is the XLA scan of
     ``tehmm_tpu/ops/dp.py:480``.  Bound on an H100: the latency of one
-    dependent log-space step per position (S expf, an S x S product from
-    shared memory, S logf, a warp max).  Design: one warp per row, lane
-    <-> state, exp(trans) in shared memory, the carry in registers, where
-    ``sweep_fits(S)``; beyond, K7a's tile in carry mode (``csrc/scans.cu``
+    dependent log-space step per position (S expf, an S x S product, S
+    logf, a max), one warp a row.  Design: the step of ``x1_step(S)``
+    (registers and shuffles to 32 states, ``logdot_renorm`` in shared
+    memory to 239), obs read ahead of the chain (a cp.async ring in
+    shared memory, or registers a few positions ahead), the row stopped
+    at its length; beyond, K7a's tile in carry mode (``csrc/scans.cu``
     ``fwd_scaled_kernel``), counted as ``fwd_chunk_tile``.  Each kernel
     sums every product in an order that depends on S alone, so a sweep
-    cut into chunks gives the bits of one chunk, and the two modes end in
+    cut into chunks gives the bits of one chunk, and every mode ends in
     the same carry."""
     return _fwd_chunk(log_trans, obs, a_hat_init, lengths, True)
 
@@ -1203,6 +1245,41 @@ def forward_final(log_trans, obs, a_hat_init, lengths):
     increment; they are summed here in one reduction, not as a running
     sum in the warp, which keeps the loglik's accuracy on long inputs."""
     return _fwd_chunk(log_trans, obs, a_hat_init, lengths, False)
+
+
+def forward_checkpoints(log_trans, obs, a_hat_init, lengths, chunk):
+    """X1 in checkpoint mode: the carry leaving every chunk of ``chunk``
+    positions, f32[B, ceil(L / chunk), S] (``dp.forward_checkpoints``:
+    ``dp.forward_final``'s carry chained chunk by chunk; int32 lengths
+    over all L positions).  The exact posteriors' forward sweep: one
+    launch walks each row over a whole group of chunks, where
+    ``forward_final`` took a launch a chunk.  Counted as
+    ``fwd_checkpoints``; past 239 states one launch of the tile's carry
+    mode a chunk (``fwd_chunk_tile``).  Bound and design as
+    ``forward_chunk_values``; the same step, so the same carries."""
+    B, L, S = obs.shape
+    dev = _check_sweep(log_trans, obs, a_hat_init, lengths, "a_hat_init")
+    if chunk < 1:
+        raise ValueError(f"chunk: must be at least 1, got {chunk}")
+    if _device_kind(dev) == "cpu":
+        return dp.forward_checkpoints(log_trans, obs, a_hat_init, lengths,
+                                      chunk)
+    _check_tile(S, "forward_checkpoints")
+    n_ck = -(-L // chunk)
+    out = torch.empty((B, n_ck, S), dtype=torch.float32, device=dev)
+    if B == 0 or n_ck == 0:
+        return out
+    if x1_step(S) != "tile":
+        _x1_launch("fwd_checkpoints", log_trans, obs, a_hat_init, lengths,
+                   None, None, out, chunk, n_ck)
+        return out
+    carry = a_hat_init
+    for k in range(n_ck):
+        part = obs[:, k * chunk:(k + 1) * chunk].contiguous()
+        lens = torch.clamp(lengths - k * chunk, 0, chunk).to(torch.int32)
+        carry, _ = forward_final(log_trans, part, carry, lens)
+        out[:, k] = carry
+    return out
 
 
 # The piece-operator scan's operators of one launch stay under this
@@ -1218,11 +1295,13 @@ _PIECE_OPS_BYTES = 1 << 28
 # still beat the chain at that S, with every row full (a chunk's most
 # work for the pieces), read by ``tools/time_score`` on an H100 (PERF.md);
 # an S between two entries takes the next entry's rows, since the
-# crossover falls as S grows.  Past 168 states phase A's block (T and 4
+# crossover falls as S grows.  The entries to 32 states were read against
+# X1's lanes step (``x1_step``), which took the chain from ~2.8 to ~1.15
+# ms a chunk at S=10.  Past 168 states phase A's block (T and 4
 # warps) fits an SM once: four rows of 4096 took the pieces 52.0 ms
 # against the chain's 39.0 at 169.  By the chunk's shape alone, never by
 # the card or a failure.
-PIECE_SCAN_MAX_ROWS = ((10, 384), (32, 96), (64, 32), (96, 16), (128, 8),
+PIECE_SCAN_MAX_ROWS = ((10, 96), (32, 32), (64, 32), (96, 16), (128, 8),
                        (168, 4))
 PIECE_SCAN_MAX_STATES = PIECE_SCAN_MAX_ROWS[-1][0]
 

@@ -299,6 +299,29 @@ def forward_chunk_values(
     return torch.stack(hats, dim=1), a_hat
 
 
+def forward_checkpoints(
+    log_trans: torch.Tensor,
+    obs: torch.Tensor,
+    a_hat_init: torch.Tensor,
+    lengths: torch.Tensor | None = None,
+    chunk: int = 1,
+) -> torch.Tensor:
+    """The carry leaving every chunk of ``chunk`` positions:
+    f32[B, ceil(L / chunk), S], row c the ``forward_final`` carry of
+    chunks 0..c chained (the exact posteriors' forward sweep over a group
+    of chunks; ``lengths`` count valid positions over all L)."""
+    B, L, S = obs.shape
+    lengths = _lengths(lengths, B, L, obs.device)
+    a_hat, rows = a_hat_init, []
+    for c0 in range(0, L, chunk):
+        a_hat, _ = forward_final(log_trans, obs[:, c0:c0 + chunk], a_hat,
+                                 torch.clamp(lengths - c0, 0, chunk))
+        rows.append(a_hat)
+    if not rows:
+        return obs.new_empty((B, 0, S))
+    return torch.stack(rows, dim=1)
+
+
 # ---------------------------------------------------------------------
 # the piece-operator scan: forward_final's function, sequence-parallel
 # within a chunk (Särkkä & García-Fernández; across devices the JAX

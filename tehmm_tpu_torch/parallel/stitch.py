@@ -622,9 +622,21 @@ def posterior_sweep(
     chunk to chunk and recomputes each chunk's alphas from its stored
     carry.  The steps are those of the monolithic scans, so gamma (and
     its argmax) is bit-identical to a whole-table pass, with device
-    memory bounded by one chunk.  Sequential over chunks, batched across
-    tables; on the card the sweeps are X1 (``forward_final``,
-    ``forward_chunk_values``) and X2 (``backward_chunk_values``).
+    memory bounded by one group of chunks.  Batched across tables.
+
+    Chunks go in the groups of ``viterbi_exact`` (``exact_group_chunks``:
+    a group's obs and alpha rows under ``EXACT_GROUP_BYTES``): each
+    group's obs is formed in one call, the forward sweep is one X1
+    checkpoint launch a group (``ck.forward_checkpoints``, the carry
+    handed from group to group), and the backward pass takes the groups
+    in reverse: one X1 launch recomputes the alphas of every (table,
+    chunk) of the group from the stored carries
+    (``ck.forward_chunk_values``), then X2 (``ck.backward_chunk_values``)
+    runs once a chunk in reverse on that chunk's slice.  On the CPU the
+    plain versions' matrix product of one row may round apart from that
+    of many at S >= 16 (torch's matrix-vector against matrix-matrix
+    kernels), so there a grouped recompute can differ from a whole-table
+    pass in the last bit; the card's kernels sum every row alike.
 
     ``consume(table_idx, start, gamma_chunk)`` is called for every chunk
     in REVERSE time order with gamma f32[valid, S] (NumPy); the default
@@ -632,15 +644,17 @@ def posterior_sweep(
     mats = [np.ascontiguousarray(getattr(t, "symbols", t)) for t in tables]
     dev = params.device
     B = len(mats)
+    S = params.num_states
     true_lens = np.asarray([len(m) for m in mats], np.int64)
     Lb = int(true_lens.max()) - 1          # body = positions 1..L-1
     Lc = min(chunk_len, max(Lb, 1))
     n_chunks = max(0, -(-Lb // Lc))
+    per = exact_group_chunks(B, Lc, S)
+    groups = [(c0, min(c0 + per, n_chunks))
+              for c0 in range(0, n_chunks, per)]
     obs_span, obs0 = _exact_obs(params, mats, tables, gauss_params,
                                 weight_arrays, Lc)
-
-    def obs_chunk(c):
-        return obs_span(c, c + 1)
+    log_trans = params.log_trans.contiguous()
 
     # position 0 values (empty tables get inert zero rows — masked by
     # true_lens > 0 below)
@@ -648,13 +662,14 @@ def posterior_sweep(
     m0 = torch.clamp(a0.amax(dim=-1, keepdim=True), min=-1e30)
     a0_hat = a0 - m0
 
-    # ---- forward sweep: store the carry entering each chunk ----
-    entry_carries = []
+    # ---- forward sweep: the carry entering every chunk, a group a launch
+    entries = []                           # per group f32[B, n, S]
     carry = a0_hat
-    for c in range(n_chunks):
-        entry_carries.append(carry)
-        obs, lens, _ = obs_chunk(c)
-        carry, _ = ck.forward_final(params.log_trans, obs, carry, lens)
+    for c0, c1 in groups:
+        obs, lens, _ = obs_span(c0, c1)
+        ckpts = ck.forward_checkpoints(log_trans, obs, carry, lens, Lc)
+        entries.append(torch.cat([carry[:, None], ckpts[:, :-1]], dim=1))
+        carry = ckpts[:, -1].contiguous()
 
     paths = [np.zeros(L, np.int32) for L in map(int, true_lens)]
 
@@ -663,28 +678,41 @@ def posterior_sweep(
 
     consume = consume or default_consume
 
-    # ---- backward sweep with per-chunk gamma ----
-    S = params.num_states
+    # ---- backward sweep: a group's alphas recomputed in one launch, then
+    # X2 and gamma a chunk
     x_carry = torch.zeros((B, S), dtype=torch.float32, device=dev)
-    for c in reversed(range(n_chunks)):
-        obs, lens, lens_np = obs_chunk(c)
-        lo = 1 + c * Lc
-        continuing = torch.from_numpy(true_lens > lo + Lc).to(dev)
+    for g in reversed(range(len(groups))):
+        c0, c1 = groups[g]
+        n = c1 - c0
+        if g != len(groups) - 1:      # the last group's obs is still held
+            obs, _, _ = obs_span(c0, c1)
+        starts = 1 + Lc * np.arange(c0, c1)
+        chunk_lens = np.clip(true_lens[:, None] - starts[None, :], 0, Lc)
         a_hats, _ = ck.forward_chunk_values(
-            params.log_trans, obs, entry_carries[c], lens
-        )
-        b_hats, x_carry = ck.backward_chunk_values(
-            params.log_trans, obs, x_carry, continuing, lens
-        )
-        gamma = dp.posterior_scaled(a_hats, b_hats).cpu().numpy()
-        for b in range(B):
-            if lens_np[b] > 0:
-                consume(b, lo, gamma[b, : lens_np[b]])
+            log_trans, obs.view(B * n, Lc, S), entries[g].view(B * n, S),
+            _to_device(chunk_lens.reshape(-1), dev))
+        a_hats = a_hats.view(B, n, Lc, S)
+        obs = obs.view(B, n, Lc, S)
+        lens_by_chunk = _to_device(chunk_lens.T, dev)            # [n, B]
+        for k in reversed(range(n)):
+            lo = int(starts[k])
+            continuing = torch.from_numpy(true_lens > lo + Lc).to(dev)
+            # X2 reads obs inside its step: a fresh copy of the chunk's
+            # obs is in the card's L2, where the group's, read by the
+            # recompute before its alpha rows were written, has left it
+            b_hats, x_carry = ck.backward_chunk_values(
+                log_trans, obs[:, k].clone(), x_carry, continuing,
+                lens_by_chunk[k])
+            gamma = dp.posterior_scaled(a_hats[:, k], b_hats).cpu().numpy()
+            for b in range(B):
+                if chunk_lens[b, k] > 0:
+                    consume(b, lo, gamma[b, : chunk_lens[b, k]])
+        del a_hats
 
     # ---- position 0: gamma from a0 and the final x_carry ----
     # beta at position 0 = the step from x_carry, for rows longer than 1
     beta0 = ck.backward_chunk_values(
-        params.log_trans,
+        log_trans,
         torch.zeros((B, 1, S), dtype=torch.float32, device=dev), x_carry,
         torch.from_numpy(true_lens > 1).to(dev),
         torch.ones((B,), dtype=torch.int32, device=dev),

@@ -183,8 +183,10 @@ def test_sweep_fits_and_the_wrappers_choice(monkeypatch, S):
     if S <= 239:
         k3 = {"lanes": "tehmm_viterbi_sweep_lanes",
               "shared": "tehmm_viterbi_sweep_smem"}[ck.k3_step(S)]
+        x1 = {"lanes": "tehmm_x1_sweep_lanes",
+              "shared": "tehmm_x1_sweep_smem"}[ck.x1_step(S)]
         want = [("viterbi_chunk_values", k3)] * 2 \
-            + [("fwd_chunk", "tehmm_fwd_chunk")] * 2 \
+            + [("fwd_chunk", x1)] * 2 \
             + [("bwd_chunk", "tehmm_bwd_chunk")]
     else:
         want = [("viterbi_chunk_tile", "tehmm_viterbi_carry_tile")] * 2 \

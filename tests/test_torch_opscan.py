@@ -291,7 +291,8 @@ def test_forward_loglik_takes_the_pieces_to_their_crossover(monkeypatch, S):
                             ("fwd_piece_compose", "tehmm_fwd_piece_compose",
                              B)]
     elif ck.sweep_fits(S):
-        assert [x[:2] for x in launched] == [("fwd_chunk", "tehmm_fwd_chunk")]
+        assert [x[:2] for x in launched] == [("fwd_chunk",
+                                              "tehmm_x1_sweep_smem")]
     else:
         assert [x[:2] for x in launched] == [
             ("fwd_chunk_tile", "tehmm_fwd_chunk_tile")]
@@ -299,7 +300,7 @@ def test_forward_loglik_takes_the_pieces_to_their_crossover(monkeypatch, S):
 
 @pytest.mark.parametrize("S,rows", [
     (s, r + extra) for s, r in ck.PIECE_SCAN_MAX_ROWS for extra in (0, 1)]
-    + [(11, 96), (11, 97), (65, 17), (129, 5)])
+    + [(11, 32), (11, 33), (65, 17), (129, 5)])
 def test_forward_loglik_caps_the_pieces_rows(monkeypatch, S, rows):
     """At each S the pieces take a chunk of at most the rows of
     ``PIECE_SCAN_MAX_ROWS`` at the first entry at or above S (where they

@@ -470,10 +470,21 @@ def _pd_rows(path):
     return keys, np.asarray(vals)
 
 
-@pytest.mark.parametrize("chunk", ["4096", "700"])
-def test_cli_pd_and_scoring_match_reference(cli_dir, capsys, chunk):
+@pytest.mark.parametrize("chunk,per", [
+    pytest.param("4096", None, id="4096"),
+    pytest.param("700", None, id="700"),
+    pytest.param("700", 1, id="700-groups-of-1"),
+    pytest.param("700", 2, id="700-groups-of-2"),
+])
+def test_cli_pd_and_scoring_match_reference(cli_dir, capsys, monkeypatch,
+                                            chunk, per):
     """--pd: the same rows, probabilities within 1e-5; scoring with no
-    --bed: the JAX CLI's number within 1e-5 relative."""
+    --bed: the JAX CLI's number within 1e-5 relative.  ``per``: the
+    exact posteriors' groups cut to that many chunks (else the default
+    budget's one group)."""
+    if per is not None:
+        monkeypatch.setattr(tstitch, "exact_group_chunks",
+                            lambda B, Lc, S: per)
     pds, scores = {}, {}
     for name, cli in (("jax", jax_eval), ("port", port_eval)):
         out = str(cli_dir / f"{name}_pd.bed")

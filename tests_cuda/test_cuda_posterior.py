@@ -1,5 +1,6 @@
 """K4 (the max-posterior decode) and the chunk sweeps X1 and X2 against
-their plain-torch versions, on the card.
+their plain-torch versions, on the card; X1's lanes step against its
+shared step bit for bit, and the grouped exact posteriors.
 
 The kernels compute the plain versions' algorithms in float32 but sum
 their S-term products as FMA chains where the plain versions call a
@@ -141,6 +142,137 @@ def test_chunked_sweep_bit_equal_one_chunk(device, rng, S):
         np.testing.assert_allclose(c.sum(axis=1), 1.0, atol=1e-5)
     assert ck.LAUNCHES["fwd_chunk"] > before["fwd_chunk"]
     assert ck.LAUNCHES["bwd_chunk"] > before["bwd_chunk"]
+
+
+# X1's step variants (ck.x1_step): lanes to 32 states (the register
+# arrays of 4 to 32), shared beyond; rows of one, a few and a recompute
+# group's 245; a row length no multiple of the ring's halves (32) or the
+# shared step's obs slots (4)
+X1_LANES_STATES = [1, 2, 10, 16, 17, 31, 32]
+X1_SHARED_STATES = [33, 64, 239]
+X1_ROWS = [1, 3, 245]
+X1_L, X1_CHUNK = 70, 16
+EPS32 = float(np.finfo(np.float32).eps)
+
+
+def _x1_inputs(S, B):
+    rng = np.random.RandomState(S * 1000 + B)
+    log_trans = torch.from_numpy(_model(rng, S, 2, 4, zero_frac=0.3)[1])
+    obs = torch.from_numpy((rng.randn(B, X1_L, S) * 3.0).astype(np.float32))
+    lengths = rng.randint(0, X1_L + 1, size=B).astype(np.int32)
+    lengths[:4] = [X1_L - 3, 0, 1, 2][:B] if B < 4 else [X1_L, 0, 1, 2]
+    init = torch.from_numpy(rng.randn(B, S).astype(np.float32))
+    init = init - init.amax(dim=-1, keepdim=True)
+    return log_trans, obs, init, torch.from_numpy(lengths)
+
+
+def _x1_modes(args):
+    """Every mode of X1 on ``args``: values (hats, carry), carry-only
+    (carry, summed normalizers), checkpoints at three chunk sizes."""
+    hats, carry = ck.forward_chunk_values(*args)
+    final, dm = ck.forward_final(*args)
+    ckpts = [ck.forward_checkpoints(*args, c) for c in (X1_CHUNK, 1, X1_L)]
+    return [hats, carry, final, dm] + ckpts
+
+
+@pytest.mark.parametrize("B", X1_ROWS)
+@pytest.mark.parametrize("S", X1_LANES_STATES)
+def test_x1_lanes_equal_shared_bit_for_bit(device, monkeypatch, S, B):
+    """The lanes step gives the shared step's bits (forced at S <= 32,
+    where the shared step at one state a lane is the step X1 ran before
+    the lanes step) in all three modes, with ragged lengths; each mode
+    launches once under its counter."""
+    args = [t.to(device) for t in _x1_inputs(S, B)]
+    assert ck.x1_step(S) == "lanes"
+    before = dict(ck.LAUNCHES)
+    lanes = _x1_modes(args)
+    assert ck.LAUNCHES["fwd_chunk"] == before["fwd_chunk"] + 2
+    assert ck.LAUNCHES["fwd_checkpoints"] == before["fwd_checkpoints"] + 3
+    monkeypatch.setattr(ck, "x1_step", lambda S_: "shared")
+    shared = _x1_modes(args)
+    for got, want in zip(lanes, shared):
+        assert got.shape == want.shape
+        assert torch.equal(got, want)
+    assert torch.equal(lanes[1], lanes[2])     # the two modes' carries
+    assert torch.equal(lanes[6][:, -1], lanes[1])
+
+
+@pytest.mark.parametrize("S", X1_SHARED_STATES + [10])
+def test_x1_modes_within_f3_of_float64(device, S):
+    """Every mode against the plain version carried in float64: rows and
+    carries within F3 (1e-5 plus 4 float32 ulps of the largest |obs|),
+    the summed normalizers within 1e-6 relative and absolute."""
+    args = _x1_inputs(S, 245)
+    lim = 1e-5 + 4 * EPS32 * float(args[1].abs().max())
+    ref = [dp.forward_chunk_values(*args, dtype=torch.float64),
+           dp.forward_final(*args, dtype=torch.float64)]
+    got = _x1_modes([t.to(device) for t in args])
+    for name, g, w in (("hats", got[0], ref[0][0]),
+                       ("carry", got[1], ref[0][1]),
+                       ("carry-only carry", got[2], ref[1][0])):
+        _close(f"X1 {name}", g.cpu().double(), w, 0.0, lim)
+    _close("X1 dm sum", got[3].cpu().double(), ref[1][1], 1e-6, 1e-6)
+    for chunk, g in zip((X1_CHUNK, 1, X1_L), got[4:]):
+        want = dp.forward_checkpoints(*[t.double() if t.is_floating_point()
+                                        else t for t in args], chunk=chunk)
+        _close(f"X1 checkpoints of {chunk}", g.cpu().double(), want, 0.0,
+               lim)
+
+
+@pytest.mark.parametrize("S", [10, 32, 64])
+def test_x1_checkpoints_of_one_long_row(device, rng, S):
+    """One row over many chunks, as the exact posteriors' forward sweep
+    runs it: every checkpoint is the values mode's row at its chunk's
+    last position and the carry-only mode chained chunk by chunk."""
+    L, chunk = 5000, 512
+    log_trans = torch.from_numpy(_model(rng, S, 2, 4)[1]).to(device)
+    obs = torch.from_numpy(
+        (rng.randn(1, L, S) * 3.0).astype(np.float32)).to(device)
+    lens = torch.tensor([L - 7], dtype=torch.int32, device=device)
+    init = torch.zeros((1, S), device=device)
+    got = ck.forward_checkpoints(log_trans, obs, init, lens, chunk)
+    hats, carry = ck.forward_chunk_values(log_trans, obs, init, lens)
+    a = init
+    for k in range(got.shape[1]):
+        last = min((k + 1) * chunk, L) - 1
+        assert torch.equal(got[:, k], hats[:, last])
+        part = obs[:, k * chunk:(k + 1) * chunk].contiguous()
+        pl = torch.clamp(lens - k * chunk, 0, chunk).to(torch.int32)
+        a, _ = ck.forward_final(log_trans, part, a, pl)
+        assert torch.equal(got[:, k], a)
+    assert torch.equal(got[:, -1], carry)
+
+
+@pytest.mark.parametrize("S", [10, 64])
+def test_grouped_posterior_sweep_on_the_card(device, rng, monkeypatch, S):
+    """``posterior_sweep`` in groups of 1 and 3 chunks and in the default
+    budget's one group gives the same gamma bits; X1 runs twice a group
+    (the checkpoint sweep and the recompute), X2 once a chunk and once
+    for position 0."""
+    params = from_numpy(*_model(rng, S, 5, 9), device)
+    syms = [rng.randint(0, 9, size=(n, 5)).astype(np.uint8)
+            for n in (1500, 1, 700, 129, 0)]
+    Lc = 128
+    n_chunks = -(-1499 // Lc)
+    gammas = {}
+    for per in (1, 3, None):
+        budget = None if per is None else per * 2 * 4 * len(syms) * Lc * S
+        with monkeypatch.context() as m:
+            if budget is not None:
+                m.setattr(stitch, "EXACT_GROUP_BYTES", budget)
+            groups = -(-n_chunks // stitch.exact_group_chunks(
+                len(syms), Lc, S))
+            before = dict(ck.LAUNCHES)
+            gammas[per] = _gammas(params, syms, Lc)
+        ran = {k: ck.LAUNCHES[k] - before[k] for k in before}
+        assert ran["fwd_checkpoints"] == groups
+        assert ran["fwd_chunk"] == groups
+        assert ran["bwd_chunk"] == n_chunks + 1
+    assert groups == 1
+    for per in (1, 3):
+        for (g, p), (w, wp) in zip(zip(*gammas[per]), zip(*gammas[None])):
+            np.testing.assert_array_equal(g, w)
+            np.testing.assert_array_equal(p, wp)
 
 
 def test_decoders_and_score_on_the_card_equal_the_cpu(device, rng):
