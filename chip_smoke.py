@@ -23,7 +23,13 @@ Phases (any failure raises, and the run exits non-zero):
    the forward sweep in one checkpoint launch (1 x 1,003,520), each
    within the F3 limit of its plain version carried in float64 (the
    sweep chunk by chunk from its own carries, and against the float64
-   chain over its first chunks).  The E-step kernels (K1) at bench.py's shape (S=20, T=5,
+   chain over its first chunks).  X2 likewise: the beta recompute (1 x
+   4096, 245 x 4096 with each row's own ``continuing``, 512 rows of
+   4608, ragged) and the backward sweep in one checkpoint launch (1 x
+   1,003,520 from its end), each within the F3 limit of its plain
+   version carried in float64 (the sweep chunk by chunk from its own
+   stored x_carry, and against the float64 chain over its last chunks).
+   The E-step kernels (K1) at bench.py's shape (S=20, T=5,
    V=8, B=2048, L=1024, ragged lengths incl. 0, 1 and 2): statistics and
    logliks within the JAX package's engine tolerances of the plain
    version and of the plain log-space E-step, and bit-identical across
@@ -127,10 +133,11 @@ Phases (any failure raises, and the run exits non-zero):
    stage launched the piece kernels and no X1.
    On the 1,000,000-position region ``--maxPost --exact`` (X1/X2) and
    ``--no-exact`` (K4) agree on >= 99.999% of bases; the exact decode's
-   split (obs formation, forward sweep, recompute, X2, gamma and
-   consume) is printed and X1 launched twice a group of chunks (the
-   checkpoint sweep and the recompute), X2 once a chunk and once for
-   position 0, as in ``--pd``'s sweep on the 100,000-position region;
+   split (obs formation, forward sweep, recompute, backward sweep, beta
+   recompute, gamma and consume) is printed and X1 launched twice a
+   group of chunks (the checkpoint sweep and the recompute), X2 twice a
+   group (the backward checkpoint sweep and the beta recompute) and once
+   for position 0, as in ``--pd``'s sweep on the 100,000-position region;
    with ``--parent DIR`` (a ``git archive`` of an earlier commit) that
    checkout's eval CLI writes the region's ``--maxPost --exact`` BED and
    the 100,000-position region's ``--pd`` file and BED byte for byte as
@@ -238,7 +245,10 @@ X_B, X_L = 4, 4096                   # the chunk sweeps' check
 # the forward sweep over the region in one checkpoint launch
 EXACT_REGION, EXACT_CHUNK = 1_000_000, 4096
 EXACT_CHUNKS = -(-(EXACT_REGION - 1) // EXACT_CHUNK)
-PLAIN_CHUNKS = 16                    # the plain chain timed over these
+# the plain chain (a Python loop a position) is timed over these, once,
+# and the plain values modes once a shape: the host's time, which varies
+# most from machine to machine, is kept small
+PLAIN_CHUNKS = 4
 # the piece-operator scan: the eval CLI's score launch (one table, chunks
 # of 4096), the chunk sweeps' check, MultitrackHmm.score's default chunk;
 # its A/B against the chain at these S and (rows, L)
@@ -278,6 +288,7 @@ SOURCES = {
     "fwd_chunk": "tehmm_tpu_torch/csrc/posterior.cu",
     "fwd_checkpoints": "tehmm_tpu_torch/csrc/posterior.cu",
     "bwd_chunk": "tehmm_tpu_torch/csrc/posterior.cu",
+    "bwd_checkpoints": "tehmm_tpu_torch/csrc/posterior.cu",
     "viterbi_values": "tehmm_tpu_torch/csrc/streaming.cu",
     "fwd_prob": "tehmm_tpu_torch/csrc/streaming.cu",
     "bwd_prob": "tehmm_tpu_torch/csrc/streaming.cu",
@@ -309,6 +320,10 @@ REPLACES = {
     # the XLA scan dp.forward_chunk_values a chunk, whose carry it chains)
     "fwd_checkpoints": "tehmm_tpu/ops/dp.py:480",
     "bwd_chunk": "tehmm_tpu/ops/dp.py:507",
+    # X2's checkpoint mode: the exact posteriors' backward sweep (on the
+    # TPU the XLA scan dp.backward_chunk_values a chunk, whose x_out it
+    # chains from the last)
+    "bwd_checkpoints": "tehmm_tpu/ops/dp.py:507",
     # K5 (viterbi_pallas_v3's value sweep), K6a, K6b
     "viterbi_values": "tehmm_tpu/ops/pallas_kernels.py:1374",
     "fwd_prob": "tehmm_tpu/ops/pallas_kernels.py:815",
@@ -334,7 +349,8 @@ DECODE_KERNELS = ("viterbi_fwd", "viterbi_backtrace", "viterbi_chunk_values",
                   "viterbi_checkpoints")
 EM_KERNELS = ("em_fwd", "em_bwd_stats")
 POST_KERNELS = ("em_fwd", "post_decode", "fwd_chunk", "fwd_checkpoints",
-                "bwd_chunk", "fwd_piece_ops", "fwd_piece_compose")
+                "bwd_chunk", "bwd_checkpoints", "fwd_piece_ops",
+                "fwd_piece_compose")
 SCORE_STAGE = "score (piece-operator scan)"
 # 3e's paths: base resolution with a gaussian track (+g), segment mode
 # with the gaussian track (+wg) and with categorical tracks only (+w)
@@ -429,11 +445,12 @@ def _obs_ops(S, T, G, weighted):
 def _bound(name, shape, valid, G=0, weighted=False, n_ck=0) -> dict:
     """bound_ms and bound_by of one call of kernel ``name`` at ``shape`` =
     (B, L, S, T, V) with ``valid`` valid positions (``n_ck``: the
-    checkpoints a row of K3's or X1's checkpoint mode writes): the larger of the
-    bytes the function must move (each input read once, each output
-    written once) over the HBM rate and its float32 operations (an exp
-    or log counted as one) over the card's float32 peak; and library_ms:
-    no single PyTorch call computes any of these functions."""
+    checkpoints a row of K3's, X1's or X2's checkpoint mode writes): the
+    larger of the bytes the function must move (each input read once,
+    each output written once) over the HBM rate and its float32
+    operations (an exp or log counted as one) over the card's float32
+    peak; and library_ms: no single PyTorch call computes any of these
+    functions."""
     B, L, S, T, V = shape
     f = 4
     tables = (S * S + S * T * V) * f
@@ -497,6 +514,9 @@ def _bound(name, shape, valid, G=0, weighted=False, n_ck=0) -> dict:
         ops = 2 * S * S + 4 * S
     elif base == "fwd_checkpoints":    # obs in, n_ck carries a row out
         nbytes = rows + (B * S + B + S * S + B * n_ck * S) * f
+        ops = 2 * S * S + 4 * S
+    elif base == "bwd_checkpoints":    # obs, continuing in, n_ck x out
+        nbytes = rows + (B * S + 2 * B + S * S + B * n_ck * S) * f
         ops = 2 * S * S + 4 * S
     elif base in ("fwd_chunk", "bwd_chunk", "fwd_chunk_tile",
                   "bwd_chunk_tile"):   # log-space step
@@ -682,7 +702,7 @@ def phase_k3_main_shapes(device, rng) -> dict:
         ms = _median_ms(lambda: ck.viterbi_chunk_values(*args), 5)
         out[f"viterbi_chunk_values@{B}x{EXACT_CHUNK}"] = dict(
             max_abs_err=float((got - want).abs().max()), ms=ms,
-            plain_ms=_median_ms(lambda: dp.viterbi_chunk_values(*args), 3),
+            plain_ms=_median_ms(lambda: dp.viterbi_chunk_values(*args), 1),
             us_per_step=ms * 1e3 / EXACT_CHUNK,
             **_bound("viterbi_chunk_values", (B, EXACT_CHUNK, S, T, V),
                      int(sum(lengths))))
@@ -781,7 +801,7 @@ def phase_x1_main_shapes(device, rng) -> dict:
         ms = _median_ms(lambda: ck.forward_chunk_values(*args), 5)
         out[f"fwd_chunk@{B}x{L}"] = dict(
             max_abs_err=err, limit=lim, ms=ms,
-            plain_ms=_median_ms(lambda: dp.forward_chunk_values(*args), 3),
+            plain_ms=_median_ms(lambda: dp.forward_chunk_values(*args), 1),
             us_per_step=ms * 1e3 / L,
             **_bound("fwd_chunk", (B, L, S, T, V), int(sum(lengths))))
         del args, hats, carry, ref
@@ -820,6 +840,120 @@ def phase_x1_main_shapes(device, rng) -> dict:
         max_abs_err=err, limit=lim, ms=ms, plain_ms=plain_ms,
         plain_positions=n_p, us_per_step=ms * 1e3 / body,
         **_bound("fwd_checkpoints", (1, L, S, T, V), body,
+                 n_ck=EXACT_CHUNKS))
+    for name, r in out.items():
+        print(f"[kernels] {name:30s} max_abs_err {r['max_abs_err']:.3g} "
+              f"(F3 {r['limit']:.3g})  kernel {r['ms']:10.3f} ms "
+              f"({r['us_per_step']:.4f} us a step, bound "
+              f"{r['bound_ms']:.4f} ms)  plain {r['plain_ms']:10.3f} ms",
+              flush=True)
+    return out
+
+
+def phase_x2_main_shapes(device, rng) -> dict:
+    """X2 at the shapes phase 3d's 1,000,000-position ``--maxPost
+    --exact`` region gives it: the beta recompute of one chunk (1 x 4096)
+    and of the region's one group (245 rows of 4096, each from its own
+    x_carry, every row continuing past its chunk but the last, 583 long),
+    the ragged rows of phase 2's decode (B_ROWS x L_ROWS, each continuing
+    or not at random), and the backward sweep over the region in one
+    checkpoint launch (1 x 245 x 4096, 999,999 valid, an x_carry every
+    4096, the row ending there); each held to its plain version carried
+    in float64 within the F3 limit, timed against the float32 plain
+    version, with us a step (ms over the longest row's steps) beside the
+    bound.  The sweep is held chunk by chunk: the float64 plain values
+    mode over every chunk from the kernel's x_carry leaving the chunk
+    after it, with each chunk's own ``continuing`` (all in one call); its
+    ``plain_ms`` times the float32 plain chain on the last
+    ``PLAIN_CHUNKS`` chunks (``plain_positions``), and the kernel's last
+    checkpoints are held to the float64 chain over them too.  A decode
+    model and inputs of its own generator."""
+    import torch
+
+    from tehmm_tpu_torch.models.emission import track_log_likelihoods
+    from tehmm_tpu_torch.ops import cuda_kernels as ck
+    from tehmm_tpu_torch.ops import dp
+
+    p = _decode_model(rng, device)
+    f64 = torch.float64
+
+    def inputs(B, L, lengths, cont):
+        sym = torch.from_numpy(
+            rng.randint(0, V, size=(B, L, T)).astype(np.int32)).to(device)
+        obs = track_log_likelihoods(p.log_em, sym)
+        x_carry = torch.from_numpy(rng.randn(B, S).astype(np.float32))
+        x_carry = (x_carry - x_carry.amax(dim=-1, keepdim=True)).to(device)
+        cont = torch.from_numpy(np.asarray(cont, bool)).to(device)
+        lens = torch.from_numpy(np.asarray(lengths, np.int32)).to(device)
+        return (p.log_trans, obs, x_carry, cont, lens)
+
+    body = EXACT_REGION - 1
+    last = body - (EXACT_CHUNKS - 1) * EXACT_CHUNK
+    ragged = rng.randint(0, L_ROWS + 1, size=B_ROWS)
+    ragged[:4] = [L_ROWS, 0, 1, 2]
+    out = {}
+    for B, L, lengths, cont in (
+            (1, EXACT_CHUNK, [EXACT_CHUNK], [True]),
+            (EXACT_CHUNKS, EXACT_CHUNK,
+             [EXACT_CHUNK] * (EXACT_CHUNKS - 1) + [last],
+             [True] * (EXACT_CHUNKS - 1) + [False]),
+            (B_ROWS, L_ROWS, ragged, rng.rand(B_ROWS) < 0.5)):
+        args = inputs(B, L, lengths, cont)
+        lim = _f3_limit(float(args[1].abs().max()))
+        beta, x_out = ck.backward_chunk_values(*args)
+        ref = [_ref64(x) for x in
+               dp.backward_chunk_values(*args, dtype=f64)]
+        err = max(_assert_close(f"X2 values at {B} x {L}", beta.double(),
+                                ref[0], 0.0, lim),
+                  _assert_close(f"X2 x_out at {B} x {L}", x_out.double(),
+                                ref[1], 0.0, lim))
+        ms = _median_ms(lambda: ck.backward_chunk_values(*args), 5)
+        out[f"bwd_chunk@{B}x{L}"] = dict(
+            max_abs_err=err, limit=lim, ms=ms,
+            plain_ms=_median_ms(lambda: dp.backward_chunk_values(*args), 1),
+            us_per_step=ms * 1e3 / L,
+            **_bound("bwd_chunk", (B, L, S, T, V), int(sum(lengths))))
+        del args, beta, x_out, ref
+
+    L = EXACT_CHUNKS * EXACT_CHUNK
+    args = inputs(1, L, [body], [False])
+    lt, obs, x_carry, cont, lens = args
+    lim = _f3_limit(float(obs.abs().max()))
+    got = ck.backward_checkpoints(*args, EXACT_CHUNK)
+    # every chunk through the float64 plain values mode from the kernel's
+    # x_carry leaving the chunk after it, all chunks as rows of one call
+    exits = torch.cat([got[:, 1:], x_carry[:, None]], dim=1)[0]
+    starts = torch.arange(EXACT_CHUNKS, device=device) * EXACT_CHUNK
+    c_cont = torch.cat([body > starts[:-1] + EXACT_CHUNK, cont])
+    _, want = dp.backward_chunk_values(
+        lt, obs.view(EXACT_CHUNKS, EXACT_CHUNK, S), exits.contiguous(),
+        c_cont, torch.clamp(body - starts, 0, EXACT_CHUNK).to(torch.int32),
+        dtype=f64)
+    err = _assert_close("X2 checkpoints, chunk by chunk", got[0].double(),
+                        _ref64(want), 0.0, lim)
+    # the plain chain itself (a Python loop a position) on the last
+    # PLAIN_CHUNKS chunks, from the row's end: timed in float32, held in
+    # float64
+    n_p = PLAIN_CHUNKS * EXACT_CHUNK
+    c0 = L - n_p
+    tail = (lt, obs[:, c0:].contiguous(), x_carry, cont,
+            torch.clamp(lens - c0, 0, n_p).to(torch.int32))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dp.backward_checkpoints(*tail, EXACT_CHUNK)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    chain = dp.backward_checkpoints(lt.double(), tail[1].double(),
+                                    x_carry.double(), cont, tail[4],
+                                    EXACT_CHUNK)
+    err = max(err, _assert_close("X2 checkpoints against the plain chain",
+                                 got[:, -PLAIN_CHUNKS:].double(),
+                                 _ref64(chain), 0.0, lim))
+    ms = _median_ms(lambda: ck.backward_checkpoints(*args, EXACT_CHUNK), 5)
+    out["bwd_checkpoints"] = dict(
+        max_abs_err=err, limit=lim, ms=ms, plain_ms=plain_ms,
+        plain_positions=n_p, us_per_step=ms * 1e3 / body,
+        **_bound("bwd_checkpoints", (1, L, S, T, V), body,
                  n_ck=EXACT_CHUNKS))
     for name, r in out.items():
         print(f"[kernels] {name:30s} max_abs_err {r['max_abs_err']:.3g} "
@@ -2178,7 +2312,8 @@ EXACT_SPANS = (("viterbi_checkpoints", "forward sweep"),
                ("viterbi_backtrace", "backtrace"))
 POST_EXACT_SPANS = (("forward_checkpoints", "forward sweep"),
                     ("forward_chunk_values", "recompute"),
-                    ("backward_chunk_values", "X2"))
+                    ("backward_checkpoints", "backward sweep"),
+                    ("backward_chunk_values", "beta recompute"))
 
 
 def _split_stages(total, spans):
@@ -2198,22 +2333,24 @@ def _split_stages(total, spans):
     return stages
 
 
-def _chunks_and_groups(region, S_):
+def _chunks_and_groups(region, S_, tensors=2):
     """The chunks of eval's 4096 over one region's body, and the groups
-    the exact decoders cut them into (``stitch.exact_group_chunks``):
-    fewer groups than chunks."""
+    the exact decoders cut them into (``stitch.exact_group_chunks`` with
+    ``tensors`` a chunk: the exact Viterbi's two, the exact posteriors'
+    ``stitch.POSTERIOR_GROUP_TENSORS``): fewer groups than chunks."""
     from tehmm_tpu_torch.parallel import stitch
 
     n_chunks = -(-(region - 1) // EXACT_CHUNK)
-    groups = -(-n_chunks // stitch.exact_group_chunks(1, EXACT_CHUNK, S_))
+    groups = -(-n_chunks // stitch.exact_group_chunks(1, EXACT_CHUNK, S_,
+                                                       tensors))
     assert groups < n_chunks, (groups, n_chunks)
     return n_chunks, groups
 
 
-def _print_split(stages, label, spans, rest, region, S_):
+def _print_split(stages, label, spans, rest, region, S_, tensors=2):
     """Print an exact decode's split (``rest``: the total less the
     stages) and its launches; returns (launches, chunks, groups)."""
-    n_chunks, groups = _chunks_and_groups(region, S_)
+    n_chunks, groups = _chunks_and_groups(region, S_, tensors)
     sec = stages.seconds
     parts = ("obs formation",) + tuple(stage for _, stage in spans)
     left = sec["total"] - sum(sec.get(k, 0.0) for k in parts)
@@ -2242,16 +2379,21 @@ def _exact_split(stages, region, S_):
 
 def _x1_groups(launched, region, S_, what):
     """Hold one exact posterior sweep's launches: X1 twice a group (the
-    checkpoint sweep and the recompute), X2 once a chunk and once for
-    position 0, no piece kernel."""
-    n_chunks, groups = _chunks_and_groups(region, S_)
+    checkpoint sweep and the recompute), X2 twice a group (the backward
+    sweep and the beta recompute) and once for position 0, no piece
+    kernel."""
+    from tehmm_tpu_torch.parallel import stitch
+
+    _, groups = _chunks_and_groups(region, S_,
+                                   stitch.POSTERIOR_GROUP_TENSORS)
     x1 = (launched["fwd_checkpoints"], launched["fwd_chunk"])
     assert x1 == (groups, groups), \
         f"{what}: X1 launched {x1[0]} + {x1[1]} times, not twice a group " \
         f"({groups})"
-    assert launched["bwd_chunk"] == n_chunks + 1, \
-        f"{what}: X2 launched {launched['bwd_chunk']} times, not once a " \
-        f"chunk ({n_chunks}) and once for position 0"
+    x2 = (launched["bwd_checkpoints"], launched["bwd_chunk"])
+    assert x2 == (groups, groups + 1), \
+        f"{what}: X2 launched {x2[0]} + {x2[1]} times, not twice a group " \
+        f"({groups}) and once for position 0"
     assert not (launched["fwd_piece_ops"] or launched["fwd_piece_compose"]
                 or launched["fwd_chunk_tile"]), f"{what} launched {launched}"
 
@@ -2393,6 +2535,7 @@ def phase_max_posterior(work, xml, truth, viterbi_score, region, small,
     from tehmm_tpu_torch.cli import eval as port_eval
     from tehmm_tpu_torch.models import hmm as port_hmm
     from tehmm_tpu_torch.ops import cuda_kernels as ck
+    from tehmm_tpu_torch.parallel import stitch
 
     n = len(truth)
     lo = n // 4
@@ -2463,7 +2606,8 @@ def phase_max_posterior(work, xml, truth, viterbi_score, region, small,
             if split is not None:
                 exact_ran, _, _ = _print_split(
                     split, "[post] --maxPost --exact", POST_EXACT_SPANS,
-                    "gamma and consume", region, len(names))
+                    "gamma and consume", region, len(names),
+                    stitch.POSTERIOR_GROUP_TENSORS)
                 _x1_groups(exact_ran, region, len(names),
                            "--maxPost --exact")
         n_diff = int((paths["--exact"] != paths["--no-exact"]).sum())
@@ -2514,7 +2658,7 @@ def phase_max_posterior(work, xml, truth, viterbi_score, region, small,
               f"{time.perf_counter() - t0:.1f} s", flush=True)
     launches = dict(ck.LAUNCHES)          # the card's runs of this phase
     # the score at S <= 239 ran the piece-operator scan and no chain;
-    # --pd's sweep X1 twice a group and X2 once a chunk
+    # --pd's sweep X1 and X2 twice a group each, X2 once more
     ran = stages.launched[SCORE_STAGE]
     assert ran["fwd_piece_ops"] and ran["fwd_piece_compose"] and not (
         ran["fwd_chunk"] or ran["fwd_chunk_tile"]), f"score launched {ran}"
@@ -3462,6 +3606,8 @@ def main(argv=None) -> int:
         device, np.random.RandomState(args.seed + 6)))
     kernels.update(phase_x1_main_shapes(
         device, np.random.RandomState(args.seed + 7)))
+    kernels.update(phase_x2_main_shapes(
+        device, np.random.RandomState(args.seed + 8)))
     kernels.update(phase_k1(device, rng))
     kernels.update(phase_post_kernels(device, rng, args.seed))
     # the stream checks draw from their own generator, so the data of

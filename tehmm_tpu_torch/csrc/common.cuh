@@ -4,7 +4,7 @@
 // states per lane, tables staged into shared memory by the whole block,
 // the one in-register observation routine (obs_log) with its optional
 // segment-weight and gaussian streams, the cp.async staging of matrix
-// rows, and the long sweeps' obs read ahead of their chain (K3, X1) with
+// rows, and the long sweeps' obs read ahead of their chain (K3, X1, X2) with
 // the exact tree max of their lanes steps.  Everything is in an anonymous
 // namespace: each source gets its own copy.
 
@@ -189,17 +189,19 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// The long sweeps' obs read ahead of their chain (K3 in viterbi.cu, X1 in
-// posterior.cu): one warp walks a row whose every step needs the whole
-// previous row, so no global load may sit between two dependent steps.
+// The long sweeps' obs read ahead of their chain (K3 in viterbi.cu, X1
+// and X2 in posterior.cu): one warp walks a row whose every step needs the
+// whole previous row, so no global load may sit between two dependent
+// steps.
 //
 //   lanes step   each lane copies its own column of the next positions
 //                into a ring in shared memory with cp.async, kHalf
 //                positions at a time, two halves in flight (only the lane
 //                that copied an element reads it, so the copy needs no
-//                barrier): stage_column;
+//                barrier): stage_column, or stage_column_reverse for X2,
+//                which walks the row from its end;
 //   shared step  each lane keeps its states' obs kAhead positions ahead
-//                in registers: load_obs.
+//                in registers: load_obs, or load_obs_reverse.
 constexpr int kHalf = 32;  // positions a lane stages at a time (lanes)
 constexpr int kAhead = 4;  // positions of obs held ahead (shared)
 
@@ -225,6 +227,33 @@ __device__ __forceinline__ void load_obs(float (&o)[SPL], const float* ob,
   for (int q = 0; q < SPL; ++q) {
     const int j = lane + 32 * q;
     o[q] = (j < S && t < n) ? ob[t * S + j] : 0.0f;
+  }
+}
+
+// The same two for a walk from position n-1 down to 0: step r reads
+// position n-1-r.  stage_column_reverse copies this lane's column of steps
+// [r0, min(r0 + kHalf, n)) into its ring half (slot k: step r0 + k);
+// load_obs_reverse reads step r's obs (0 past n).
+__device__ __forceinline__ void stage_column_reverse(float* ring,
+                                                     const float* ob,
+                                                     int64_t r0, int64_t n,
+                                                     int S, bool mine) {
+  float* dst = ring + ((r0 / kHalf) & 1) * kHalf * 32;
+  if (mine)
+    for (int k = 0; k < kHalf && r0 + k < n; ++k)
+      cp_async4(dst + k * 32, ob + (n - 1 - r0 - k) * S);
+  cp_async_commit();
+}
+
+template <int SPL>
+__device__ __forceinline__ void load_obs_reverse(float (&o)[SPL],
+                                                 const float* ob, int64_t r,
+                                                 int64_t n, int S,
+                                                 int lane) {
+#pragma unroll
+  for (int q = 0; q < SPL; ++q) {
+    const int j = lane + 32 * q;
+    o[q] = (j < S && r < n) ? ob[(n - 1 - r) * S + j] : 0.0f;
   }
 }
 

@@ -23,8 +23,12 @@
 //                       mode, dp.forward_final (:378); in the checkpoint
 //                       mode the exact posteriors' forward sweep (that
 //                       carry chained chunk by chunk, one launch a group).
-//   bwd_chunk_kernel    X2: the XLA scan of dp.backward_chunk_values
-//                       (tehmm_tpu/ops/dp.py:507).
+//   bwd_sweep_lanes_kernel, bwd_sweep_smem_kernel
+//                       X2: the XLA scan of dp.backward_chunk_values
+//                       (tehmm_tpu/ops/dp.py:507); in the checkpoint mode
+//                       the exact posteriors' backward sweep (its x_out
+//                       chained chunk by chunk from the last, one launch
+//                       a group).
 //   fwd_piece_ops_kernel, fwd_piece_compose_kernel
 //                       X1's carry-only function (dp.forward_final :378)
 //                       as a piece-operator scan: the score's route.
@@ -52,11 +56,14 @@
 //     At t = Lc-1 beta comes from x_carry where the row continues past the
 //     chunk, else beta = 0; at t < Lc-1 it comes from the x of position
 //     t+1 where t+1 < len, else it is carried.  x at position 0 is x_out.
+//     The checkpoint mode walks a span of chunks as one row and writes
+//     the x of every chunk's first position, each chunk's last position
+//     taking beta = 0 where the row ends inside the span at or before it.
 //
 // One step, one copy of its code: each kernel runs its step in a single
-// loop, and X2 takes the boundary step (beta from x_carry) and x_out in
-// that same loop, so a sweep cut into chunks executes the same
-// instructions on the same values as one chunk over the whole row and is
+// loop, and X2 takes the boundary step (beta from x_carry) and x_out with
+// the same step functions, so a sweep cut into chunks runs the same
+// operations on the same values as one chunk over the whole row and is
 // bit-identical to it (the carries pass through memory exactly).
 //
 // What bounds them on an H100: each row is a chain of dependent steps (an
@@ -69,27 +76,29 @@
 // S-float exchange row per warp in shared memory.  A single chromosome is
 // one row, so one warp walks it.
 //
-// X1 walks a whole chromosome on one warp in its checkpoint mode (the
-// exact posteriors' forward sweep), so, as K3 (viterbi.cu), its step is
-// cut to its latency, in two variants chosen by S
-// (ops/cuda_kernels.x1_step):
+// X1 and X2 each walk a whole chromosome on one warp in their checkpoint
+// modes (the exact posteriors' forward and backward sweeps), so, as K3
+// (viterbi.cu), their steps are cut to their latency, in two variants
+// chosen by S (ops/cuda_kernels.x1_step, x2_step):
 //
-//   lanes (S <= 32)  lane j keeps column j of exp(trans) in registers and
-//       forms expf of its own a_j; the row of expf values goes round by S
-//       shuffles, lane j runs its fmaf chain over them, and the new row
-//       goes round by S more for the max (common.cuh row_max): no shared
-//       memory, barrier or __syncwarp on the chain;
+//   lanes (S <= 32)  lane j keeps column j (X1; X2: row j) of exp(trans)
+//       in registers and forms expf of its own state; the row of expf
+//       values goes round by S shuffles, lane j runs its fmaf chain over
+//       them, and the new row goes round by S more for the max (common.cuh
+//       row_max; X2 twice, for beta and for x, and past 16 states by a
+//       butterfly): no shared memory, barrier or __syncwarp on the chain;
 //   shared (33..239) logdot_renorm, the row and exp(trans) in shared
 //       memory.
 //
 // Both read obs ahead of the chain (common.cuh: the lanes step a per-lane
-// cp.async ring, stage_column; the shared step kAhead positions in
-// registers, load_obs) and stop at the row's length, and both run the
-// same operations in the same order (the same expf, the fmaf chain over
-// i = 0..S-1 from 0, logf, the clamps, + obs before the max, the exact
-// max), so every mode of either gives the plain version's and the other
-// variant's bits.  The recompute of the exact posteriors gives every
-// (table, chunk) of a group a warp, each from its stored carry.
+// cp.async ring, stage_column, or stage_column_reverse for X2's walk from
+// the end; the shared step kAhead positions in registers, load_obs or
+// load_obs_reverse) and stop at the row's length, and both run the same
+// operations in the same order (the same expf, the fmaf chain over i =
+// 0..S-1 from 0, logf, the clamps, + obs, the exact max), so every mode
+// of either gives the plain version's and the other variant's bits.  The
+// recomputes of the exact posteriors give every (table, chunk) of a group
+// a warp, each from its stored carry.
 //
 // The piece-operator scan splits the row instead (Sarkka &
 // Garcia-Fernandez; across devices the JAX package's parallel/seqpar.py
@@ -435,17 +444,176 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32)
     store_row<SPL>(ckpt + (b * n_ck + ck_i) * S, a, S, lane);
 }
 
-// X2: the log-space backward continuation over obs [B, Lc, S] from
-// x_carry [B, S]; continuing [B] (0/1).  beta [B, Lc, S], x_out [B, S].
+// X2, every mode, either step: each row walked from its end over obs
+// [B, L, S] from x_carry [B, S] (the normalized obs + beta row of the
+// position after L-1), continuing [B] (0/1: the row runs past L-1) and
+// lengths [B].  beta [B, L, S] (values mode) may be null; ckpt [B, n_ck,
+// S] takes x at the first position of every chunk of ``chunk`` positions,
+// row c the x_out of chunk c (values mode: chunk = L, one row, x_out).
+// The step to beta at t, from x at t+1, is taken where t = L-1 and the
+// row continues, or t < L-1 and t + 1 < len; elsewhere beta is 0 at a
+// chunk's last position and carried inside a chunk.  So a row holds a
+// constant beta from its end down to position len-1, and its x is formed
+// at every position below the length and, past it, only at the chunks'
+// first positions: the chain stops at the row's length.
+
+// The exact max over a row held one state a lane (lanes past S at or
+// below LOG_ZERO, the callers' clamp): to kGatherStates states the NS
+// values gathered by shuffles and a tree (common.cuh row_max), beyond a
+// butterfly over the warp (warp_max), whichever read faster on an H100
+// 80GB HBM3 (tools/time_x2's sweep, PERF.md: the gather 0.314 against
+// 0.368 us a step at S=10, the butterfly 0.451 against 0.478 at 32,
+// level at 20).  Any order of an exact max gives the same bits.
+constexpr int kGatherStates = 16;
+
+template <int NS>
+__device__ __forceinline__ float lanes_row_max(float v) {
+  if constexpr (NS <= kGatherStates) {
+    float r[NS];
+#pragma unroll
+    for (int j = 0; j < NS; ++j) r[j] = __shfl_sync(0xffffffffu, v, j);
+    return row_max<NS>(r);
+  } else {
+    return warp_max(v);
+  }
+}
+
+// The beta step of the lanes variant.  Lane i holds row i of
+// exp(log_trans) (tr, 0 past S) and e = expf(x_i) of the position after
+// (0 past S); lane i's sum runs fmaf over j = 0..NS-1 from 0, then its
+// log and clamp, and the max is exact: logdot_renorm<SPL, false>'s
+// operations on s_transT in its order, so the bits are the shared
+// step's.  Lanes past S sum 0 and take LOG_ZERO, the max's own clamp.
+template <int NS>
+__device__ __forceinline__ float lanes_beta_step(float e,
+                                                 const float (&tr)[NS]) {
+  float s = 0.0f;
+#pragma unroll
+  for (int j = 0; j < NS; ++j)
+    s = fmaf(__shfl_sync(0xffffffffu, e, j), tr[j], s);
+  const float l = s > 0.0f ? logf(s) : kLogZero;
+  return l - fmaxf(lanes_row_max<NS>(l), kLogZero);
+}
+
+// The x step of the lanes variant: (obs + beta) renormalized to max 0
+// (clamped at LOG_ZERO); lanes past S hold obs -inf, so x -inf.
+template <int NS>
+__device__ __forceinline__ float lanes_x_step(float o, float bv) {
+  const float x = o + bv;
+  return x - fmaxf(lanes_row_max<NS>(x), kLogZero);
+}
+
+template <int NS>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+    bwd_sweep_lanes_kernel(const float* __restrict__ obs,
+                           const float* __restrict__ x_carry,
+                           const int32_t* __restrict__ continuing,
+                           const int32_t* __restrict__ lens,
+                           const float* __restrict__ trans_p,
+                           float* __restrict__ beta, float* __restrict__ ckpt,
+                           int64_t B, int64_t L, int S, int64_t chunk,
+                           int64_t n_ck) {
+  extern __shared__ float smem[];  // a ring of 2 kHalf x 32 floats a warp
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int64_t b = (int64_t)blockIdx.x * kWarpsPerBlock + warp;
+  if (b >= B) return;
+  const bool mine = lane < S;
+  float* ring = smem + warp * (2 * kHalf * 32) + lane;
+  if (!mine)  // their obs stay -inf, so their x stays -inf
+    for (int k = 0; k < 2 * kHalf; ++k) ring[k * 32] = -INFINITY;
+  float tr[NS];
+#pragma unroll
+  for (int j = 0; j < NS; ++j)
+    tr[j] = (mine && j < S) ? trans_p[(int64_t)lane * S + j] : 0.0f;
+  float x = mine ? x_carry[b * S + lane] : -INFINITY;
+  float e = expf(x);
+  float bv = 0.0f;
+
+  const int64_t n = max((int64_t)0, min((int64_t)lens[b], L));
+  const bool cont = continuing[b] != 0;
+  const float* ob = obs + b * L * S + lane;
+  float* bb = beta != nullptr ? beta + b * L * S + lane : nullptr;
+  float* cb = ckpt + b * n_ck * S + lane;
+  // positions at or past the length, from the end (warp-uniform branches)
+  for (int64_t t = L - 1; t >= n; --t) {
+    if (t == L - 1)
+      bv = cont ? lanes_beta_step<NS>(e, tr) : 0.0f;
+    else if ((t + 1) % chunk == 0)
+      bv = 0.0f;
+    if (bb != nullptr && mine) bb[t * S] = bv;
+    if (t % chunk == 0) {
+      x = lanes_x_step<NS>(mine ? ob[t * S] : -INFINITY, bv);
+      if (mine) cb[t / chunk * S] = x;
+    }
+  }
+  if (n == 0) return;
+  // the chain, positions n-1 down to 0 (step r at n-1-r): at n-1 the step
+  // from x_carry where n = L and the row continues, else beta 0 at a
+  // chunk's last position or the carried beta; below, every step
+  bool take = n == L && cont;
+  if (!take && (n == L || n % chunk == 0)) bv = 0.0f;
+  float* bp = bb != nullptr ? bb + (n - 1) * S : nullptr;
+  float* cp = cb + (n - 1) / chunk * S;
+  int64_t to_ck = (n - 1) % chunk;  // steps to the next chunk's start
+  stage_column_reverse(ring, ob, 0, n, S, mine);
+  stage_column_reverse(ring, ob, kHalf, n, S, mine);
+  for (int64_t r0 = 0; r0 < n; r0 += kHalf) {
+    cp_async_wait<1>();  // this half is in; the next may be in flight
+    const float* src = ring + ((r0 / kHalf) & 1) * kHalf * 32;
+    const int steps = (int)min((int64_t)kHalf, n - r0);
+#pragma unroll 2
+    for (int k = 0; k < steps; ++k) {
+      if (take) bv = lanes_beta_step<NS>(e, tr);
+      take = true;
+      if (bp != nullptr) {
+        if (mine) *bp = bv;
+        bp -= S;
+      }
+      x = lanes_x_step<NS>(src[k * 32], bv);
+      e = expf(x);
+      if (to_ck-- == 0) {
+        if (mine) *cp = x;
+        cp -= S;
+        to_ck = chunk - 1;
+      }
+    }
+    stage_column_reverse(ring, ob, r0 + 2 * kHalf, n, S, mine);
+  }
+  cp_async_wait<0>();
+}
+
+// The x step of the shared variant: x = (obs + beta) - max(max(obs +
+// beta), LOG_ZERO) for this lane's states.
+template <int SPL>
+__device__ __forceinline__ void x_renorm(float (&x)[SPL],
+                                         const float (&o)[SPL],
+                                         const float (&bv)[SPL], int S,
+                                         int lane) {
+  float lmax = -INFINITY;
+#pragma unroll
+  for (int k = 0; k < SPL; ++k) {
+    if (lane + 32 * k < S) {
+      x[k] = o[k] + bv[k];
+      lmax = fmaxf(lmax, x[k]);
+    }
+  }
+  const float xm = fmaxf(warp_max(lmax), kLogZero);
+#pragma unroll
+  for (int k = 0; k < SPL; ++k)
+    if (lane + 32 * k < S) x[k] = x[k] - xm;
+}
+
 template <int SPL>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
-    bwd_chunk_kernel(const float* __restrict__ obs,
-                     const float* __restrict__ x_carry,
-                     const int32_t* __restrict__ continuing,
-                     const int32_t* __restrict__ lens,
-                     const float* __restrict__ trans_p,
-                     float* __restrict__ beta, float* __restrict__ x_out,
-                     int64_t B, int64_t L, int S) {
+    bwd_sweep_smem_kernel(const float* __restrict__ obs,
+                          const float* __restrict__ x_carry,
+                          const int32_t* __restrict__ continuing,
+                          const int32_t* __restrict__ lens,
+                          const float* __restrict__ trans_p,
+                          float* __restrict__ beta, float* __restrict__ ckpt,
+                          int64_t B, int64_t L, int S, int64_t chunk,
+                          int64_t n_ck) {
   extern __shared__ float smem[];
   float* s_transT = smem;                      // exp(log_trans).T [S, S]
   const int warp = threadIdx.x >> 5;
@@ -456,7 +624,8 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 
   const int64_t b = (int64_t)blockIdx.x * kWarpsPerBlock + warp;
   if (b >= B) return;
-  const int64_t len = lens[b];
+  const int64_t n = max((int64_t)0, min((int64_t)lens[b], L));
+  const bool cont = continuing[b] != 0;
   float x[SPL], bv[SPL];
 #pragma unroll
   for (int k = 0; k < SPL; ++k) {
@@ -464,37 +633,57 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32)
     bv[k] = 0.0f;
     if (j < S) x[k] = x_carry[b * S + j];
   }
-  for (int64_t t = L - 1; t >= 0; --t) {
-    // the step from x (taken at position t+1, or x_carry) to beta at t
-    const bool valid = t == L - 1 ? continuing[b] != 0 : t + 1 < len;
-    if (valid) {                               // warp-uniform
+  const float* ob = obs + b * L * S;
+  // positions at or past the length, from the end (warp-uniform branches)
+  for (int64_t t = L - 1; t >= n; --t) {
+    if (t == L - 1 && cont) {
       logdot_renorm<SPL, false>(s_row, s_transT, x, x, S, lane, bv);
-    }
-    const int64_t pos = b * L + t;
+    } else if (t == L - 1 || (t + 1) % chunk == 0) {
 #pragma unroll
-    for (int k = 0; k < SPL; ++k) {
-      const int j = lane + 32 * k;
-      if (j < S) beta[pos * S + j] = bv[k];
+      for (int k = 0; k < SPL; ++k) bv[k] = 0.0f;
     }
-    // the step to x at t: obs + beta, renormalized
-    float lmax = -INFINITY;
-#pragma unroll
-    for (int k = 0; k < SPL; ++k) {
-      const int j = lane + 32 * k;
-      if (j < S) {
-        x[k] = obs[pos * S + j] + bv[k];
-        lmax = fmaxf(lmax, x[k]);
-      }
+    if (beta != nullptr) store_row<SPL>(beta + (b * L + t) * S, bv, S, lane);
+    if (t % chunk == 0) {
+      float o[SPL];
+      load_obs<SPL>(o, ob, t, L, S, lane);
+      x_renorm<SPL>(x, o, bv, S, lane);
+      store_row<SPL>(ckpt + (b * n_ck + t / chunk) * S, x, S, lane);
     }
-    const float xm = fmaxf(warp_max(lmax), kLogZero);
-#pragma unroll
-    for (int k = 0; k < SPL; ++k)
-      if (lane + 32 * k < S) x[k] = x[k] - xm;
   }
+  if (n == 0) return;
+  // the chain, as the lanes variant's
+  bool take = n == L && cont;
+  if (!take && (n == L || n % chunk == 0)) {
 #pragma unroll
-  for (int k = 0; k < SPL; ++k) {
-    const int j = lane + 32 * k;
-    if (j < S) x_out[b * S + j] = x[k];
+    for (int k = 0; k < SPL; ++k) bv[k] = 0.0f;
+  }
+  int64_t ck_i = (n - 1) / chunk, to_ck = (n - 1) % chunk;
+  // slot d: the obs of step r + d, the window moved down a slot a step
+  // (in registers: the moves are cheap, and the loop body stays one step,
+  // unrolled twice, which read faster on an H100 than kAhead steps
+  // unrolled with a slot each; PERF.md)
+  float ahead[kAhead][SPL];
+#pragma unroll
+  for (int d = 0; d < kAhead; ++d)
+    load_obs_reverse<SPL>(ahead[d], ob, d, n, S, lane);
+#pragma unroll 2
+  for (int64_t r = 0; r < n; ++r) {
+    const int64_t t = n - 1 - r;
+    if (take)
+      logdot_renorm<SPL, false>(s_row, s_transT, x, x, S, lane, bv);
+    take = true;
+    if (beta != nullptr) store_row<SPL>(beta + (b * L + t) * S, bv, S, lane);
+    x_renorm<SPL>(x, ahead[0], bv, S, lane);
+#pragma unroll
+    for (int d = 0; d + 1 < kAhead; ++d)
+#pragma unroll
+      for (int k = 0; k < SPL; ++k) ahead[d][k] = ahead[d + 1][k];
+    load_obs_reverse<SPL>(ahead[kAhead - 1], ob, r + kAhead, n, S, lane);
+    if (to_ck-- == 0) {
+      store_row<SPL>(ckpt + (b * n_ck + ck_i) * S, x, S, lane);
+      --ck_i;
+      to_ck = chunk - 1;
+    }
   }
 }
 
@@ -766,18 +955,47 @@ int launch_piece_compose(const void* probs, const void* log_scale,
   return (int)cudaGetLastError();
 }
 
+struct X2Args {
+  const float* obs;
+  const float* x_carry;
+  const int32_t* continuing;
+  const int32_t* lens;
+  const float* trans_p;
+  float* beta;
+  float* ckpt;
+  int64_t B, L;
+  int S;
+  int64_t chunk, n_ck;
+};
+
+X2Args x2_args(const void* obs, const void* x_carry, const void* continuing,
+               const void* lens, const void* trans_p, void* beta, void* ckpt,
+               int64_t B, int64_t L, int S, int64_t chunk, int64_t n_ck) {
+  return X2Args{(const float*)obs,     (const float*)x_carry,
+                (const int32_t*)continuing, (const int32_t*)lens,
+                (const float*)trans_p, (float*)beta, (float*)ckpt, B, L, S,
+                chunk, n_ck};
+}
+
+template <int NS>
+int launch_x2_lanes(const X2Args& a, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * kWarpsPerBlock * 2 * kHalf * 32;
+  bwd_sweep_lanes_kernel<NS><<<grid_for(a.B), kWarpsPerBlock * 32, smem,
+                               stream>>>(a.obs, a.x_carry, a.continuing,
+                                         a.lens, a.trans_p, a.beta, a.ckpt,
+                                         a.B, a.L, a.S, a.chunk, a.n_ck);
+  return (int)cudaGetLastError();
+}
+
 template <int SPL>
-int launch_bwd_chunk(const void* obs, const void* x_carry,
-                     const void* continuing, const void* lens,
-                     const void* trans_p, void* beta, void* x_out, int64_t B,
-                     int64_t L, int S, cudaStream_t stream) {
-  const size_t smem = sweep_smem(S);
-  cudaError_t err = allow_smem(bwd_chunk_kernel<SPL>, smem);
+int launch_x2_smem(const X2Args& a, cudaStream_t stream) {
+  const size_t smem = sweep_smem(a.S);
+  cudaError_t err = allow_smem(bwd_sweep_smem_kernel<SPL>, smem);
   if (err != cudaSuccess) return (int)err;
-  bwd_chunk_kernel<SPL><<<grid_for(B), kWarpsPerBlock * 32, smem, stream>>>(
-      (const float*)obs, (const float*)x_carry, (const int32_t*)continuing,
-      (const int32_t*)lens, (const float*)trans_p, (float*)beta,
-      (float*)x_out, B, L, S);
+  bwd_sweep_smem_kernel<SPL><<<grid_for(a.B), kWarpsPerBlock * 32, smem,
+                               stream>>>(a.obs, a.x_carry, a.continuing,
+                                         a.lens, a.trans_p, a.beta, a.ckpt,
+                                         a.B, a.L, a.S, a.chunk, a.n_ck);
   return (int)cudaGetLastError();
 }
 
@@ -916,24 +1134,60 @@ int tehmm_fwd_piece_compose(const void* probs, const void* log_scale,
   }
 }
 
-int tehmm_bwd_chunk(const void* obs, const void* x_carry,
-                    const void* continuing, const void* lens,
-                    const void* trans_p, void* beta, void* x_out, int64_t B,
-                    int64_t L, int S, void* stream) {
+// X2's sweep, either step variant (ops/cuda_kernels.x2_step picks by S):
+// beta [B, L, S] may be null; ckpt [B, n_ck, S] takes x at the first
+// position of every chunk of ``chunk`` positions (the values mode's
+// x_out: chunk = L, n_ck = 1).
+int tehmm_x2_sweep_lanes(const void* obs, const void* x_carry,
+                         const void* continuing, const void* lens,
+                         const void* trans_p, void* beta, void* ckpt,
+                         int64_t B, int64_t L, int S, int64_t chunk,
+                         int64_t n_ck, void* stream) {
+  const X2Args a = x2_args(obs, x_carry, continuing, lens, trans_p, beta,
+                           ckpt, B, L, S, chunk, n_ck);
+  cudaStream_t st = (cudaStream_t)stream;
+  // the registers of a row: S rounded up to a multiple of 4
+  switch ((S + 3) / 4) {
+    case 1:
+      return launch_x2_lanes<4>(a, st);
+    case 2:
+      return launch_x2_lanes<8>(a, st);
+    case 3:
+      return launch_x2_lanes<12>(a, st);
+    case 4:
+      return launch_x2_lanes<16>(a, st);
+    case 5:
+      return launch_x2_lanes<20>(a, st);
+    case 6:
+      return launch_x2_lanes<24>(a, st);
+    case 7:
+      return launch_x2_lanes<28>(a, st);
+    case 8:
+      return launch_x2_lanes<32>(a, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The shared step at every S to 256 (1 state a lane too: the tests force
+// it at S <= 32 to hold the lanes step to it).
+int tehmm_x2_sweep_smem(const void* obs, const void* x_carry,
+                        const void* continuing, const void* lens,
+                        const void* trans_p, void* beta, void* ckpt,
+                        int64_t B, int64_t L, int S, int64_t chunk,
+                        int64_t n_ck, void* stream) {
+  const X2Args a = x2_args(obs, x_carry, continuing, lens, trans_p, beta,
+                           ckpt, B, L, S, chunk, n_ck);
   cudaStream_t st = (cudaStream_t)stream;
   switch (states_per_lane(S)) {
     case 1:
-      return launch_bwd_chunk<1>(obs, x_carry, continuing, lens, trans_p,
-                                 beta, x_out, B, L, S, st);
+      return launch_x2_smem<1>(a, st);
     case 2:
-      return launch_bwd_chunk<2>(obs, x_carry, continuing, lens, trans_p,
-                                 beta, x_out, B, L, S, st);
+      return launch_x2_smem<2>(a, st);
     case 4:
-      return launch_bwd_chunk<4>(obs, x_carry, continuing, lens, trans_p,
-                                 beta, x_out, B, L, S, st);
+      return launch_x2_smem<4>(a, st);
     case 8:
-      return launch_bwd_chunk<8>(obs, x_carry, continuing, lens, trans_p,
-                                 beta, x_out, B, L, S, st);
+      return launch_x2_smem<8>(a, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -20,6 +20,9 @@ bounds each on an H100 and how its design answers it):
   forward_checkpoints)  the carries of many chunks in one launch: the
                         exact posteriors' forward sweep)
   backward_chunk_values X2: no Pallas kernel; ``dp.backward_chunk_values``
+                        (``backward_checkpoints``: the x_carry entering
+                        every chunk of a span in one launch, the exact
+                        posteriors' backward sweep)
   forward_loglik        X1's carry-only function (``dp.forward_final``)
                         as a piece-operator scan: ``fwd_piece_ops`` then
                         ``fwd_piece_compose``; the score's route
@@ -121,11 +124,11 @@ LAUNCHES = {
         [k + v for k in STREAM_KERNELS for v in STREAM_VARIANTS]
         + ["viterbi_backtrace", "viterbi_chunk_values",
            "viterbi_checkpoints", "fwd_chunk", "fwd_checkpoints",
-           "bwd_chunk", "viterbi_values", "fwd_prob", "bwd_prob",
-           "fwd_scaled", "bwd_scaled", "viterbi_ptrs", "pointer_chase",
-           "viterbi_chunk_tile", "fwd_chunk_tile", "bwd_chunk_tile",
-           "maxplus_resident", "maxplus_blocks", "fwd_piece_ops",
-           "fwd_piece_compose"]
+           "bwd_chunk", "bwd_checkpoints", "viterbi_values", "fwd_prob",
+           "bwd_prob", "fwd_scaled", "bwd_scaled", "viterbi_ptrs",
+           "pointer_chase", "viterbi_chunk_tile", "fwd_chunk_tile",
+           "bwd_chunk_tile", "maxplus_resident", "maxplus_blocks",
+           "fwd_piece_ops", "fwd_piece_compose"]
     )
 }
 
@@ -269,8 +272,9 @@ def load_library() -> ctypes.CDLL:
         for fn in (lib.tehmm_x1_sweep_lanes, lib.tehmm_x1_sweep_smem):
             fn.restype = i32
             fn.argtypes = [ptr] * 7 + [i64, i64, i32, i64, i64, ptr]
-        lib.tehmm_bwd_chunk.restype = i32
-        lib.tehmm_bwd_chunk.argtypes = [ptr] * 7 + [i64, i64, i32, ptr]
+        for fn in (lib.tehmm_x2_sweep_lanes, lib.tehmm_x2_sweep_smem):
+            fn.restype = i32
+            fn.argtypes = [ptr] * 7 + [i64, i64, i32, i64, i64, ptr]
         lib.tehmm_fwd_piece_ops.restype = i32
         lib.tehmm_fwd_piece_ops.argtypes = [ptr] * 5 + [i64, i64, i32, i32,
                                                         ptr]
@@ -364,7 +368,7 @@ def _check_tile(S: int, what: str) -> None:
 def sweep_fits(S: int) -> bool:
     """Whether the one-warp kernels of the carried sweeps (K3
     ``viterbi_sweep_*_kernel``, X1 ``fwd_sweep_*_kernel``, X2
-    ``bwd_chunk_kernel``) take S states: all of the transition matrix and
+    ``bwd_sweep_*_kernel``) take S states: all of the transition matrix and
     one S-float row per warp of a 4-warp block in shared memory,
     4 (S^2 + 4 S) bytes <= 232,448, so S <= 239.  Beyond it their
     wrappers launch the scan tile's carry modes (``csrc/streaming.cu``,
@@ -1415,22 +1419,64 @@ def forward_loglik(log_trans, obs, a_hat_init, lengths):
     return (torch.cat(carry), torch.cat(incs).sum(dim=1).to(torch.float32))
 
 
+# X2's step, by S alone (csrc/posterior.cu), as X1's (``x1_step``):
+# "lanes" to this many states (lane i holds exp(trans) row i in registers
+# and forms expf of its own state; the expf row, beta and x go round by
+# shuffles), "shared" to ``sweep_fits``' 239 (``logdot_renorm``), "tile"
+# beyond (K7b's tile in carry mode, csrc/scans.cu).  The lanes and shared
+# steps give the same bits, so the choice moves only time.
+X2_LANES_MAX_STATES = 32
+_X2_ENTRIES = {"lanes": "tehmm_x2_sweep_lanes",
+               "shared": "tehmm_x2_sweep_smem"}
+
+
+def x2_step(S: int) -> str:
+    """X2's step variant at S states: ``"lanes"``, ``"shared"`` or
+    ``"tile"`` (see ``X2_LANES_MAX_STATES``)."""
+    if S <= X2_LANES_MAX_STATES:
+        return "lanes"
+    return "shared" if sweep_fits(S) else "tile"
+
+
+def _check_backward(log_trans, obs, x_carry, continuing, lengths):
+    dev = _check_sweep(log_trans, obs, x_carry, lengths, "x_carry")
+    _check(continuing, "continuing", torch.bool, (obs.shape[0],), dev)
+    return dev
+
+
+def _x2_launch(name, log_trans, obs, x_carry, continuing, lengths, beta,
+               ckpt, chunk, n_ck):
+    """Launch X2's one-warp step of ``x2_step(S)`` (not the tile): beta
+    (values mode) may be None; ckpt takes x at the first position of every
+    chunk of ``chunk`` positions, n_ck of them."""
+    B, L, S = obs.shape
+    trans_p = torch.exp(log_trans)
+    cont = continuing.to(torch.int32)
+    _launch_streaming(name, _X2_ENTRIES[x2_step(S)], (
+        obs.data_ptr(), x_carry.data_ptr(), cont.data_ptr(),
+        lengths.data_ptr(), trans_p.data_ptr(),
+        None if beta is None else beta.data_ptr(), ckpt.data_ptr(), B, L, S,
+        chunk, n_ck), obs.device)
+
+
 def backward_chunk_values(log_trans, obs, x_carry, continuing, lengths):
     """X2: every scaled beta row f32[B, Lc, S] of one chunk and x_out
     f32[B, S] (``dp.backward_chunk_values`` semantics; bool continuing,
-    int32 lengths).  The boundary step from ``x_carry`` and ``x_out`` run
-    inside the kernel, in the same loop as the in-chunk steps, so a sweep
-    cut into chunks gives the bits of one chunk over the whole row.
+    int32 lengths).  The exact posteriors' beta recompute: it gives every
+    (table, chunk) of a group a row, each from that chunk's stored
+    x_carry and with its own ``continuing``.
 
     No Pallas counterpart: on the TPU this is the XLA scan of
     ``tehmm_tpu/ops/dp.py:507``.  Bound and design as
-    ``forward_chunk_values``, walking the chunk from its end; beyond
-    ``sweep_fits(S)`` K7b's tile in carry mode (``csrc/scans.cu``
-    ``bwd_scaled_kernel``: the boundary step and x_out inside the same
-    kernel), counted as ``bwd_chunk_tile``."""
+    ``forward_chunk_values``, walking the chunk from its end (the step of
+    ``x2_step(S)``, obs read ahead in reverse, the chain stopped at the
+    row's length; the boundary step from ``x_carry`` and ``x_out`` by the
+    same step, so a sweep cut into chunks gives the bits of one chunk over
+    the whole row); beyond ``sweep_fits(S)`` K7b's tile in carry mode
+    (``csrc/scans.cu`` ``bwd_scaled_kernel``: the boundary step and x_out
+    inside the same kernel), counted as ``bwd_chunk_tile``."""
     B, L, S = obs.shape
-    dev = _check_sweep(log_trans, obs, x_carry, lengths, "x_carry")
-    _check(continuing, "continuing", torch.bool, (B,), dev)
+    dev = _check_backward(log_trans, obs, x_carry, continuing, lengths)
     if L == 0:
         raise ValueError("obs: a chunk needs at least one position")
     if _device_kind(dev) == "cpu":
@@ -1441,19 +1487,57 @@ def backward_chunk_values(log_trans, obs, x_carry, continuing, lengths):
     x_out = torch.empty((B, S), dtype=torch.float32, device=dev)
     if B == 0:
         return beta, x_out
+    if x2_step(S) != "tile":   # x_out is the checkpoint of one chunk
+        _x2_launch("bwd_chunk", log_trans, obs, x_carry, continuing,
+                   lengths, beta, x_out, L, 1)
+        return beta, x_out
     cont = continuing.to(torch.int32)
-    if sweep_fits(S):
-        # the one-warp kernel stages exp(log_trans) transposed itself
-        name, entry = "bwd_chunk", "tehmm_bwd_chunk"
-        trans = torch.exp(log_trans)
-    else:
-        name, entry = "bwd_chunk_tile", "tehmm_bwd_chunk_tile"
-        trans = torch.exp(log_trans).T.contiguous()
-    _launch_streaming(name, entry, (
+    trans_t = torch.exp(log_trans).T.contiguous()
+    _launch_streaming("bwd_chunk_tile", "tehmm_bwd_chunk_tile", (
         obs.data_ptr(), x_carry.data_ptr(), cont.data_ptr(),
-        lengths.data_ptr(), trans.data_ptr(), beta.data_ptr(),
+        lengths.data_ptr(), trans_t.data_ptr(), beta.data_ptr(),
         x_out.data_ptr(), B, L, S), dev)
     return beta, x_out
+
+
+def backward_checkpoints(log_trans, obs, x_carry, continuing, lengths,
+                         chunk):
+    """X2 in checkpoint mode: the x_out of every chunk of ``chunk``
+    positions, f32[B, ceil(L / chunk), S], row c the x_carry that chunk
+    c - 1 takes (``dp.backward_checkpoints``: ``dp.backward_chunk_values``
+    chained from the last chunk; int32 lengths over all L positions, bool
+    ``continuing``: the row runs past the span; inside it a chunk
+    continues where the row's length passes its end).  The exact
+    posteriors' backward sweep: one launch walks each row over a whole
+    group of chunks from its end, where ``backward_chunk_values`` took a
+    launch a chunk.  Counted as ``bwd_checkpoints``; past 239 states one
+    launch of the tile's carry mode a chunk (``bwd_chunk_tile``).  Bound
+    and design as ``backward_chunk_values``; the same step, so the same
+    carries."""
+    B, L, S = obs.shape
+    dev = _check_backward(log_trans, obs, x_carry, continuing, lengths)
+    if chunk < 1:
+        raise ValueError(f"chunk: must be at least 1, got {chunk}")
+    if _device_kind(dev) == "cpu":
+        return dp.backward_checkpoints(log_trans, obs, x_carry, continuing,
+                                       lengths, chunk)
+    _check_tile(S, "backward_checkpoints")
+    n_ck = -(-L // chunk)
+    out = torch.empty((B, n_ck, S), dtype=torch.float32, device=dev)
+    if B == 0 or n_ck == 0:
+        return out
+    if x2_step(S) != "tile":
+        _x2_launch("bwd_checkpoints", log_trans, obs, x_carry, continuing,
+                   lengths, None, out, chunk, n_ck)
+        return out
+    x = x_carry
+    for k in reversed(range(n_ck)):
+        part = obs[:, k * chunk:(k + 1) * chunk].contiguous()
+        lens = torch.clamp(lengths - k * chunk, 0, chunk).to(torch.int32)
+        cont = continuing if k == n_ck - 1 else lengths > (k + 1) * chunk
+        _, x = backward_chunk_values(log_trans, part, x, cont, lens)
+        out[:, k] = x
+    return out
 
 
 # ---------------------------------------------------------------------

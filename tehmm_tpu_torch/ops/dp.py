@@ -463,6 +463,37 @@ def backward_chunk_values(
     return beta_hat, x_out
 
 
+def backward_checkpoints(
+    log_trans: torch.Tensor,
+    obs: torch.Tensor,
+    x_carry: torch.Tensor,
+    continuing: torch.Tensor,
+    lengths: torch.Tensor | None = None,
+    chunk: int = 1,
+) -> torch.Tensor:
+    """The x_out of every chunk of ``chunk`` positions:
+    f32[B, ceil(L / chunk), S], row c that of ``backward_chunk_values``
+    chained from the last chunk to chunk c (the exact posteriors' backward
+    sweep over a group of chunks; ``lengths`` count valid positions over
+    all L, ``continuing`` says whether a row runs past the L positions, and
+    inside them chunk c continues where the row's length passes its
+    end)."""
+    B, L, S = obs.shape
+    lengths = _lengths(lengths, B, L, obs.device)
+    n_ck = -(-L // chunk)
+    x, rows = x_carry, [None] * n_ck
+    for c in reversed(range(n_ck)):
+        c0 = c * chunk
+        cont = continuing if c == n_ck - 1 else lengths > c0 + chunk
+        lens = torch.clamp(lengths - c0, 0, chunk)
+        _, x = backward_chunk_values(log_trans, obs[:, c0:c0 + chunk], x,
+                                     cont, lens)
+        rows[c] = x
+    if not rows:
+        return obs.new_empty((B, 0, S))
+    return torch.stack(rows, dim=1)
+
+
 def _maxplus_step(log_trans: torch.Tensor, v_hat: torch.Tensor,
                   obs_row: torch.Tensor, valid_t: torch.Tensor
                   ) -> torch.Tensor:

@@ -16,13 +16,14 @@ On CUDA tensors the decoders run the hand-written kernels
 (``ops/cuda_kernels``): stitched Viterbi the fused K2
 (``viterbi_fused``) where K2 takes the model and, beyond its envelope,
 obs and ``dp.viterbi_streaming`` (K5 and the backtrace kernel;
-``viterbi_route``); exact Viterbi K3 (``viterbi_carry``,
+``viterbi_route``); exact Viterbi K3 (``viterbi_checkpoints``,
 ``viterbi_chunk_values``) and the backtrace kernel; stitched
 max-posterior K4 (``posterior_decode_fused``) where K4 takes the model
 and, beyond, obs and the log-space scans K7a/K7b (``forward_scaled``,
 ``backward_scaled``) with ``dp.posterior_scaled`` (``maxpost_route``);
-and the exact posteriors the chunk sweeps X1 (``forward_final``,
-``forward_chunk_values``) and X2 (``backward_chunk_values``).  On the CPU
+and the exact posteriors the chunk sweeps X1 (``forward_checkpoints``,
+``forward_chunk_values``) and X2 (``backward_checkpoints``,
+``backward_chunk_values``).  On the CPU
 the same calls take the plain-torch versions: the stitched Viterbi
 decode always K2's, the stitched max-posterior decode the log-space
 scans, as the JAX package does off the TPU.  The streaming routes and
@@ -432,16 +433,20 @@ def _exact_obs(params, mats, tables, gauss_params, weight_arrays, Lc):
                                 params.device)
 
 
-# The exact Viterbi's groups of chunks: a group's obs and its value rows,
-# two f32[B, chunks x Lc, S] tensors, stay under this many bytes.
+# The exact decoders' groups of chunks: the f32[B, chunks x Lc, S]
+# tensors a group holds stay under this many bytes together: the exact
+# Viterbi's obs and value rows, the exact posteriors' obs, alpha rows,
+# beta rows and gamma (POSTERIOR_GROUP_TENSORS).
 EXACT_GROUP_BYTES = 1 << 28
+POSTERIOR_GROUP_TENSORS = 4
 
 
-def exact_group_chunks(B: int, Lc: int, S: int) -> int:
-    """Chunks of ``Lc`` positions that a group of ``viterbi_exact`` over
-    B tables holds at S states (at least one).  The budget is in bytes,
-    so groups shrink as S grows, as ``scaled_rows``'s passes do."""
-    return max(1, EXACT_GROUP_BYTES // (2 * 4 * max(B, 1) * Lc * S))
+def exact_group_chunks(B: int, Lc: int, S: int, tensors: int = 2) -> int:
+    """Chunks of ``Lc`` positions that a group over B tables holds at S
+    states (at least one) with ``tensors`` f32[B, chunks x Lc, S] tensors
+    (``viterbi_exact``'s two by default).  The budget is in bytes, so
+    groups shrink as S grows, as ``scaled_rows``'s passes do."""
+    return max(1, EXACT_GROUP_BYTES // (tensors * 4 * max(B, 1) * Lc * S))
 
 
 def viterbi_exact(
@@ -624,19 +629,23 @@ def posterior_sweep(
     its argmax) is bit-identical to a whole-table pass, with device
     memory bounded by one group of chunks.  Batched across tables.
 
-    Chunks go in the groups of ``viterbi_exact`` (``exact_group_chunks``:
-    a group's obs and alpha rows under ``EXACT_GROUP_BYTES``): each
-    group's obs is formed in one call, the forward sweep is one X1
-    checkpoint launch a group (``ck.forward_checkpoints``, the carry
-    handed from group to group), and the backward pass takes the groups
-    in reverse: one X1 launch recomputes the alphas of every (table,
-    chunk) of the group from the stored carries
-    (``ck.forward_chunk_values``), then X2 (``ck.backward_chunk_values``)
-    runs once a chunk in reverse on that chunk's slice.  On the CPU the
-    plain versions' matrix product of one row may round apart from that
-    of many at S >= 16 (torch's matrix-vector against matrix-matrix
-    kernels), so there a grouped recompute can differ from a whole-table
-    pass in the last bit; the card's kernels sum every row alike.
+    Chunks go in groups of ``exact_group_chunks`` (a group's obs, alpha
+    rows, beta rows and gamma under ``EXACT_GROUP_BYTES``): each group's
+    obs is formed in one call, the forward sweep is one X1 checkpoint
+    launch a group (``ck.forward_checkpoints``, the carry handed from
+    group to group), and the backward pass takes the groups in reverse:
+    one X2 checkpoint launch (``ck.backward_checkpoints``) gives the
+    x_carry entering every chunk of the group and the one handed to the
+    group before it; one X1 launch recomputes the alphas
+    (``ck.forward_chunk_values``) and one X2 launch the betas
+    (``ck.backward_chunk_values``) of every (table, chunk) of the group,
+    each from its chunk's stored carry (X2 with the chunk's own
+    ``continuing``); then gamma for the whole group, one copy to the
+    host.  On the CPU the plain versions' matrix product of one row may
+    round apart from that of many at S >= 16 (torch's matrix-vector
+    against matrix-matrix kernels), so there a grouped recompute can
+    differ from a whole-table pass in the last bit; the card's kernels
+    sum every row alike.
 
     ``consume(table_idx, start, gamma_chunk)`` is called for every chunk
     in REVERSE time order with gamma f32[valid, S] (NumPy); the default
@@ -649,7 +658,7 @@ def posterior_sweep(
     Lb = int(true_lens.max()) - 1          # body = positions 1..L-1
     Lc = min(chunk_len, max(Lb, 1))
     n_chunks = max(0, -(-Lb // Lc))
-    per = exact_group_chunks(B, Lc, S)
+    per = exact_group_chunks(B, Lc, S, POSTERIOR_GROUP_TENSORS)
     groups = [(c0, min(c0 + per, n_chunks))
               for c0 in range(0, n_chunks, per)]
     obs_span, obs0 = _exact_obs(params, mats, tables, gauss_params,
@@ -678,36 +687,38 @@ def posterior_sweep(
 
     consume = consume or default_consume
 
-    # ---- backward sweep: a group's alphas recomputed in one launch, then
-    # X2 and gamma a chunk
+    # ---- backward pass, a group at a time in reverse: X2's sweep, then
+    # the alphas and betas of every (table, chunk) in one launch each
     x_carry = torch.zeros((B, S), dtype=torch.float32, device=dev)
     for g in reversed(range(len(groups))):
         c0, c1 = groups[g]
         n = c1 - c0
         if g != len(groups) - 1:      # the last group's obs is still held
-            obs, _, _ = obs_span(c0, c1)
+            obs, lens, _ = obs_span(c0, c1)
         starts = 1 + Lc * np.arange(c0, c1)
+        ends = starts + Lc
+        ckpts = ck.backward_checkpoints(
+            log_trans, obs, x_carry,
+            torch.from_numpy(true_lens > ends[-1]).to(dev), lens, Lc)
+        exits = torch.cat([ckpts[:, 1:], x_carry[:, None]], dim=1)
+        x_carry = ckpts[:, 0].contiguous()
         chunk_lens = np.clip(true_lens[:, None] - starts[None, :], 0, Lc)
+        rows = obs.view(B * n, Lc, S)
+        row_lens = _to_device(chunk_lens.reshape(-1), dev)
         a_hats, _ = ck.forward_chunk_values(
-            log_trans, obs.view(B * n, Lc, S), entries[g].view(B * n, S),
-            _to_device(chunk_lens.reshape(-1), dev))
-        a_hats = a_hats.view(B, n, Lc, S)
-        obs = obs.view(B, n, Lc, S)
-        lens_by_chunk = _to_device(chunk_lens.T, dev)            # [n, B]
+            log_trans, rows, entries[g].view(B * n, S), row_lens)
+        b_hats, _ = ck.backward_chunk_values(
+            log_trans, rows, exits.view(B * n, S),
+            torch.from_numpy(
+                (true_lens[:, None] > ends[None, :]).reshape(-1)).to(dev),
+            row_lens)
+        gamma = dp.posterior_scaled(a_hats, b_hats).view(B, n, Lc, S)
+        del a_hats, b_hats
+        gamma = gamma.cpu().numpy()
         for k in reversed(range(n)):
-            lo = int(starts[k])
-            continuing = torch.from_numpy(true_lens > lo + Lc).to(dev)
-            # X2 reads obs inside its step: a fresh copy of the chunk's
-            # obs is in the card's L2, where the group's, read by the
-            # recompute before its alpha rows were written, has left it
-            b_hats, x_carry = ck.backward_chunk_values(
-                log_trans, obs[:, k].clone(), x_carry, continuing,
-                lens_by_chunk[k])
-            gamma = dp.posterior_scaled(a_hats[:, k], b_hats).cpu().numpy()
             for b in range(B):
                 if chunk_lens[b, k] > 0:
-                    consume(b, lo, gamma[b, : chunk_lens[b, k]])
-        del a_hats
+                    consume(b, int(starts[k]), gamma[b, k, : chunk_lens[b, k]])
 
     # ---- position 0: gamma from a0 and the final x_carry ----
     # beta at position 0 = the step from x_carry, for rows longer than 1

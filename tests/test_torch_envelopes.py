@@ -185,9 +185,11 @@ def test_sweep_fits_and_the_wrappers_choice(monkeypatch, S):
               "shared": "tehmm_viterbi_sweep_smem"}[ck.k3_step(S)]
         x1 = {"lanes": "tehmm_x1_sweep_lanes",
               "shared": "tehmm_x1_sweep_smem"}[ck.x1_step(S)]
+        x2 = {"lanes": "tehmm_x2_sweep_lanes",
+              "shared": "tehmm_x2_sweep_smem"}[ck.x2_step(S)]
         want = [("viterbi_chunk_values", k3)] * 2 \
             + [("fwd_chunk", x1)] * 2 \
-            + [("bwd_chunk", "tehmm_bwd_chunk")]
+            + [("bwd_chunk", x2)]
     else:
         want = [("viterbi_chunk_tile", "tehmm_viterbi_carry_tile")] * 2 \
             + [("fwd_chunk_tile", "tehmm_fwd_chunk_tile")] * 2 \

@@ -484,7 +484,7 @@ def test_cli_pd_and_scoring_match_reference(cli_dir, capsys, monkeypatch,
     budget's one group)."""
     if per is not None:
         monkeypatch.setattr(tstitch, "exact_group_chunks",
-                            lambda B, Lc, S: per)
+                            lambda B, Lc, S, tensors=2: per)
     pds, scores = {}, {}
     for name, cli in (("jax", jax_eval), ("port", port_eval)):
         out = str(cli_dir / f"{name}_pd.bed")

@@ -92,9 +92,11 @@ def test_checkpoints_check_the_chunk():
 # ---------------------------------------------------------------------
 
 def _budget(monkeypatch, n_chunks_a_group, B, S, Lc=CHUNK):
-    """Set the groups' byte budget to hold that many chunks."""
+    """Set the groups' byte budget to hold that many chunks of the
+    exact posteriors' tensors."""
     monkeypatch.setattr(tstitch, "EXACT_GROUP_BYTES",
-                        n_chunks_a_group * 2 * 4 * B * Lc * S)
+                        n_chunks_a_group * tstitch.POSTERIOR_GROUP_TENSORS
+                        * 4 * B * Lc * S)
 
 
 def _sweep(stitch, params, tables, **kw):
@@ -127,7 +129,8 @@ def test_grouped_posterior_sweep_equals_jax(rng, monkeypatch, per):
     _budget(monkeypatch, 1, len(syms), S)
     one_g, one_p = _sweep(tstitch, tp, syms)
     _budget(monkeypatch, per, len(syms), S)
-    assert tstitch.exact_group_chunks(len(syms), Lc, S) == per
+    assert tstitch.exact_group_chunks(
+        len(syms), Lc, S, tstitch.POSTERIOR_GROUP_TENSORS) == per
     got_g, got_p = _sweep(tstitch, tp, syms)
     for g, p, w, wp, og, op in zip(got_g, got_p, want_g, want_p, one_g,
                                    one_p):
@@ -176,8 +179,9 @@ def test_grouped_posterior_sweep_with_streams_equals_jax(rng, monkeypatch,
 def test_posterior_sweep_runs_x1_twice_a_group(rng, monkeypatch):
     """The forward sweep calls X1's checkpoint mode once a group and the
     recompute its values mode once a group (rows: every (table, chunk) of
-    the group); X2 runs once a chunk, in reverse, and once for position
-    0; X1's carry-only mode not at all."""
+    the group); X2 runs twice a group, its checkpoint mode (the backward
+    sweep) and its values mode (the beta recompute), and once for
+    position 0; X1's carry-only mode not at all."""
     S, T, V = 3, 2, 4
     tables = _sticky(rng, S, T, V)
     _, tp = _both(tables)
@@ -194,7 +198,8 @@ def test_posterior_sweep_runs_x1_twice_a_group(rng, monkeypatch):
         return call
 
     for name in ("forward_checkpoints", "forward_chunk_values",
-                 "forward_final", "backward_chunk_values"):
+                 "forward_final", "backward_checkpoints",
+                 "backward_chunk_values"):
         monkeypatch.setattr(ck, name, counted(name))
     # 300 body positions in chunks of 25: 12 chunks, groups of 5, 5, 2
     _budget(monkeypatch, 5, 2, S, 25)
@@ -203,7 +208,8 @@ def test_posterior_sweep_runs_x1_twice_a_group(rng, monkeypatch):
     assert names.count("forward_checkpoints") == 3
     assert names.count("forward_chunk_values") == 3
     assert names.count("forward_final") == 0
-    assert names.count("backward_chunk_values") == 12 + 1
+    assert names.count("backward_checkpoints") == 3
+    assert names.count("backward_chunk_values") == 3 + 1
     assert [(rows, L) for n, rows, L in calls
             if n == "forward_chunk_values"] == [(2 * 2, 25), (2 * 5, 25),
                                                 (2 * 5, 25)]
@@ -284,7 +290,8 @@ def test_time_x1_rows(capsys, monkeypatch):
         assert r["ms"] > 0 and r["us_per_step"] == r["ms"] * 1e3 / r["L"]
     split = rows[-1]["split_ms"]
     assert set(split) == {"obs", "forward sweep", "recompute", "X2", "rest"}
-    # 49 body positions in chunks of 8: 7 chunks, one group
+    # 49 body positions in chunks of 8: 7 chunks, one group; X2's sweep
+    # and its recompute once each, and position 0
     assert rows[-1]["calls"] == {"obs": 1, "forward sweep": 1,
-                                 "recompute": 1, "X2": 7 + 1}
+                                 "recompute": 1, "X2": 1 + 1 + 1}
     assert ck.x1_step(3) == "lanes"

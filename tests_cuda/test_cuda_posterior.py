@@ -1,6 +1,7 @@
 """K4 (the max-posterior decode) and the chunk sweeps X1 and X2 against
-their plain-torch versions, on the card; X1's lanes step against its
-shared step bit for bit, and the grouped exact posteriors.
+their plain-torch versions, on the card; X1's and X2's lanes steps
+against their shared steps bit for bit, and the grouped exact
+posteriors.
 
 The kernels compute the plain versions' algorithms in float32 but sum
 their S-term products as FMA chains where the plain versions call a
@@ -243,12 +244,94 @@ def test_x1_checkpoints_of_one_long_row(device, rng, S):
     assert torch.equal(got[:, -1], carry)
 
 
+# X2's step variants (ck.x2_step), on X1's inputs and states, each row
+# continuing past the span or not
+def _x2_inputs(S, B):
+    log_trans, obs, init, lengths = _x1_inputs(S, B)
+    cont = torch.from_numpy(np.random.RandomState(S + B).rand(B) < 0.5)
+    return log_trans, obs, init, cont, lengths
+
+
+def _x2_modes(args):
+    """Every mode of X2 on ``args``: values (beta, x_out), checkpoints at
+    three chunk sizes."""
+    beta, x_out = ck.backward_chunk_values(*args)
+    ckpts = [ck.backward_checkpoints(*args, c) for c in (X1_CHUNK, 1, X1_L)]
+    return [beta, x_out] + ckpts
+
+
+@pytest.mark.parametrize("B", X1_ROWS)
+@pytest.mark.parametrize("S", X1_LANES_STATES)
+def test_x2_lanes_equal_shared_bit_for_bit(device, monkeypatch, S, B):
+    """The lanes step gives the shared step's bits (forced at S <= 32,
+    where the shared step at one state a lane is the step X2 ran before
+    the lanes step) in both modes, with ragged lengths and rows that
+    continue or not; each mode launches once under its counter."""
+    args = [t.to(device) for t in _x2_inputs(S, B)]
+    assert ck.x2_step(S) == "lanes"
+    before = dict(ck.LAUNCHES)
+    lanes = _x2_modes(args)
+    assert ck.LAUNCHES["bwd_chunk"] == before["bwd_chunk"] + 1
+    assert ck.LAUNCHES["bwd_checkpoints"] == before["bwd_checkpoints"] + 3
+    monkeypatch.setattr(ck, "x2_step", lambda S_: "shared")
+    shared = _x2_modes(args)
+    for got, want in zip(lanes, shared):
+        assert got.shape == want.shape
+        assert torch.equal(got, want)
+    # a span of one chunk: its checkpoint is the values mode's x_out
+    assert torch.equal(lanes[4][:, 0], lanes[1])
+
+
+@pytest.mark.parametrize("S", X1_SHARED_STATES + [10])
+def test_x2_modes_within_f3_of_float64(device, S):
+    """Every mode against the plain version carried in float64: betas,
+    x_out and checkpoints within F3 (1e-5 plus 4 float32 ulps of the
+    largest |obs|)."""
+    args = _x2_inputs(S, 245)
+    lim = 1e-5 + 4 * EPS32 * float(args[1].abs().max())
+    f64 = [t.double() if t.is_floating_point() else t for t in args]
+    ref = dp.backward_chunk_values(*f64)
+    got = _x2_modes([t.to(device) for t in args])
+    _close("X2 beta", got[0].cpu().double(), ref[0], 0.0, lim)
+    _close("X2 x_out", got[1].cpu().double(), ref[1], 0.0, lim)
+    for chunk, g in zip((X1_CHUNK, 1, X1_L), got[2:]):
+        want = dp.backward_checkpoints(*f64, chunk=chunk)
+        _close(f"X2 checkpoints of {chunk}", g.cpu().double(), want, 0.0,
+               lim)
+
+
+@pytest.mark.parametrize("S", [10, 32, 64])
+def test_x2_checkpoints_of_one_long_row(device, rng, S):
+    """One row over many chunks, as the exact posteriors' backward sweep
+    runs it from the row's end: every checkpoint is the values mode's
+    chained chunk by chunk from the last, whose betas are those of the
+    values mode over the whole row, and the first is its x_out."""
+    L, chunk = 5000, 512
+    log_trans = torch.from_numpy(_model(rng, S, 2, 4)[1]).to(device)
+    obs = torch.from_numpy(
+        (rng.randn(1, L, S) * 3.0).astype(np.float32)).to(device)
+    lens = torch.tensor([L - 7], dtype=torch.int32, device=device)
+    cont = torch.tensor([False], device=device)
+    init = torch.zeros((1, S), device=device)
+    got = ck.backward_checkpoints(log_trans, obs, init, cont, lens, chunk)
+    beta, x_out = ck.backward_chunk_values(log_trans, obs, init, cont, lens)
+    x = init
+    for k in reversed(range(got.shape[1])):
+        part = obs[:, k * chunk:(k + 1) * chunk].contiguous()
+        pl = torch.clamp(lens - k * chunk, 0, chunk).to(torch.int32)
+        c = cont if k == got.shape[1] - 1 else lens > (k + 1) * chunk
+        b, x = ck.backward_chunk_values(log_trans, part, x, c, pl)
+        assert torch.equal(got[:, k], x)
+        assert torch.equal(b, beta[:, k * chunk:(k + 1) * chunk])
+    assert torch.equal(got[:, 0], x_out)
+
+
 @pytest.mark.parametrize("S", [10, 64])
 def test_grouped_posterior_sweep_on_the_card(device, rng, monkeypatch, S):
     """``posterior_sweep`` in groups of 1 and 3 chunks and in the default
     budget's one group gives the same gamma bits; X1 runs twice a group
-    (the checkpoint sweep and the recompute), X2 once a chunk and once
-    for position 0."""
+    (the checkpoint sweep and the recompute), X2 twice a group (the
+    backward sweep and the beta recompute) and once for position 0."""
     params = from_numpy(*_model(rng, S, 5, 9), device)
     syms = [rng.randint(0, 9, size=(n, 5)).astype(np.uint8)
             for n in (1500, 1, 700, 129, 0)]
@@ -256,18 +339,21 @@ def test_grouped_posterior_sweep_on_the_card(device, rng, monkeypatch, S):
     n_chunks = -(-1499 // Lc)
     gammas = {}
     for per in (1, 3, None):
-        budget = None if per is None else per * 2 * 4 * len(syms) * Lc * S
+        tensors = stitch.POSTERIOR_GROUP_TENSORS
+        budget = None if per is None \
+            else per * tensors * 4 * len(syms) * Lc * S
         with monkeypatch.context() as m:
             if budget is not None:
                 m.setattr(stitch, "EXACT_GROUP_BYTES", budget)
             groups = -(-n_chunks // stitch.exact_group_chunks(
-                len(syms), Lc, S))
+                len(syms), Lc, S, tensors))
             before = dict(ck.LAUNCHES)
             gammas[per] = _gammas(params, syms, Lc)
         ran = {k: ck.LAUNCHES[k] - before[k] for k in before}
         assert ran["fwd_checkpoints"] == groups
         assert ran["fwd_chunk"] == groups
-        assert ran["bwd_chunk"] == n_chunks + 1
+        assert ran["bwd_checkpoints"] == groups
+        assert ran["bwd_chunk"] == groups + 1
     assert groups == 1
     for per in (1, 3):
         for (g, p), (w, wp) in zip(zip(*gammas[per]), zip(*gammas[None])):
