@@ -33,7 +33,11 @@ Phases (any failure raises, and the run exits non-zero):
    V=8, B=2048, L=1024, ragged lengths incl. 0, 1 and 2): statistics and
    logliks within the JAX package's engine tolerances of the plain
    version and of the plain log-space E-step, and bit-identical across
-   two launches.  (K1 is checked again at the EM run's own shape in 3b.)
+   two launches; to 32 states the lanes kernels run (``ck.k1_step``),
+   and every output of both (alpha_p, dm, m_raw, start, pair, em, the
+   gaussian moments) is bit for bit the shared kernels', forced with
+   ``K1_LANES_MAX_STATES`` = 0 (timed beside; the ``kernels`` line names
+   the step).  (K1 is checked again at the EM run's own shape in 3b.)
    The K4 decode at the stitched max-posterior decode's shape (S=10,
    T=5, V=9, 64 rows of L=4608, ragged lengths incl. 0 and 1): paths
    agree on >= 99.999% of positions, every differing position a
@@ -139,8 +143,9 @@ Phases (any failure raises, and the run exits non-zero):
    group (the backward checkpoint sweep and the beta recompute) and once
    for position 0, as in ``--pd``'s sweep on the 100,000-position region;
    with ``--parent DIR`` (a ``git archive`` of an earlier commit) that
-   checkout's eval CLI writes the region's ``--maxPost --exact`` BED and
-   the 100,000-position region's ``--pd`` file and BED byte for byte as
+   checkout's eval CLI writes the whole chromosome's stitched
+   ``--maxPost`` BED, the region's ``--maxPost --exact`` BED and the
+   100,000-position region's ``--pd`` file and BED byte for byte as
    this one's; on the
    20,000-position region the card and the CPU agree for ``--maxPost``
    (both decoders: >= 99.999% of bases), ``--pd`` (same rows,
@@ -152,10 +157,17 @@ Phases (any failure raises, and the run exits non-zero):
    chromosome, 10 states, 15 iterations, chunks of 16384: every logged
    loglik finite and non-decreasing within 1e-4 |loglik|; K1 against
    its plain version at this shape (the learned model, 256 of the
-   staged rows of 16384, ragged lengths), at phase 2's tolerances; the
-   model decoded with ``eval --bed``; base accuracy after mapping each learned
-   state to its majority planted state (printed, not asserted); stage
-   times.
+   staged rows of 16384, ragged lengths), at phase 2's tolerances, and
+   the lanes kernels bit for bit the shared ones' (forced); K1's step,
+   the EM iterations' times (the median, largest and summed spacings of
+   the log's timestamps) and each K1 kernel's ms a call in the training
+   run beside its launches and bound; with ``--parent DIR`` that
+   checkout's train CLI and this one's, each alone in a process on the
+   same command, learn the same model (every member of the saved file)
+   on the same loglik trace, byte for byte, with both iteration times
+   printed; the model decoded with ``eval --bed``; base accuracy
+   after mapping each learned state to its majority planted state
+   (printed, not asserted); stage times.
 3c. The card against the CPU on a 50,000-position region: the same EM
    command on both; per-iteration logliks within 1e-5 relative, learned
    start probabilities within 1e-4 and every learned transition and
@@ -1036,6 +1048,39 @@ def _k1_against_plain(p, sym, lens):
     return err, once
 
 
+def _k1_lanes_against_shared(args, **st):
+    """K1's step on ``args`` (``ck.k1_step``) and, where it is the lanes
+    kernels, every output of both (alpha_p, dm, m_raw, start, pair, em
+    and the gaussian moments) held to the shared kernels', forced with
+    ``K1_LANES_MAX_STATES`` = 0, bit for bit.  Returns the step."""
+    import torch
+
+    from tehmm_tpu_torch.ops import cuda_kernels as ck
+    from tehmm_tpu_torch.tools.time_k1 import shared_k1
+
+    S_, T_, V_ = args[2].shape
+    G = 0 if st.get("gauss_values") is None else st["gauss_values"].shape[-1]
+    step = ck.k1_step(S_, T_, V_, G)
+    if step != "lanes":
+        return step
+
+    def outputs():
+        alpha, dm, m_raw = ck.em_fwd(*args, **st)
+        stats = ck.em_bwd_stats(*args[1:], alpha, m_raw, **st)
+        return [alpha, dm, m_raw, *stats[:3]] + \
+            (list(stats[3]) if len(stats) > 3 else [])
+
+    lanes = outputs()
+    with shared_k1():
+        shared = outputs()
+    names = ("alpha_p", "dm", "m_raw", "start", "pair", "em", "gn", "gx",
+             "gx2")
+    for name, a, b in zip(names, lanes, shared):
+        assert torch.equal(a, b), \
+            f"K1's lanes kernels and the shared ones differ in {name}"
+    return step
+
+
 def phase_k1(device, rng) -> dict:
     """K1 against its plain version (and the plain log-space E-step) at
     bench.py's shape, on a random model with dirichlet rows."""
@@ -1044,6 +1089,7 @@ def phase_k1(device, rng) -> dict:
     from tehmm_tpu_torch.models.params import from_numpy
     from tehmm_tpu_torch.ops import cuda_kernels as ck
     from tehmm_tpu_torch.ops import em
+    from tehmm_tpu_torch.tools.time_k1 import shared_k1
 
     S, T, V, B, L = K1_S, K1_T, K1_V, K1_B, K1_L
     log_em = np.zeros((S, T, V))
@@ -1059,19 +1105,26 @@ def phase_k1(device, rng) -> dict:
     lens = torch.from_numpy(lengths).to(device)
     args = (p.log_start, p.log_trans, p.log_em, sym, lens)
     err, _once = _k1_against_plain(p, sym, lens)
+    step = _k1_lanes_against_shared(args)
     alpha, _dm, m_raw = ck.em_fwd(*args)
     bwd_args = (p.log_trans, p.log_em, sym, lens, alpha, m_raw)
     out = {
         "em_fwd": dict(
-            max_abs_err=err["em_fwd"],
+            max_abs_err=err["em_fwd"], step=step,
             ms=_median_ms(lambda: ck.em_fwd(*args), 5),
             plain_ms=_median_ms(lambda: ck.em_fwd_plain(*args), 3)),
         "em_bwd_stats": dict(
-            max_abs_err=err["em_bwd_stats"],
+            max_abs_err=err["em_bwd_stats"], step=step,
             ms=_median_ms(lambda: ck.em_bwd_stats(*bwd_args), 5),
             plain_ms=_median_ms(
                 lambda: ck.em_bwd_stats_plain(*bwd_args), 3)),
     }
+    if step == "lanes":           # the shared kernels, forced, beside
+        with shared_k1():
+            out["em_fwd"]["shared_ms"] = _median_ms(
+                lambda: ck.em_fwd(*args), 5)
+            out["em_bwd_stats"]["shared_ms"] = _median_ms(
+                lambda: ck.em_bwd_stats(*bwd_args), 5)
     for name in EM_KERNELS:
         out[name].update(_bound(name, (B, L, S, T, V), int(lengths.sum())))
 
@@ -1088,7 +1141,8 @@ def phase_k1(device, rng) -> dict:
                       getattr(plain, n), r, a)
     estep_ms = _median_ms(lambda: ck.em_counts_fused(*args), 5)
     estep_plain_ms = _median_ms(lambda: ck.em_counts_fused_plain(*args), 3)
-    print(f"[kernels] K1 at S={S} T={T} V={V} B={B} L={L}: repeat runs "
+    print(f"[kernels] K1 at S={S} T={T} V={V} B={B} L={L}: the {step} "
+          f"kernels (bit for bit the shared ones', forced), repeat runs "
           f"bit-identical; E-step loglik rel err vs plain log-space "
           f"engine {rel:.3g}", flush=True)
     print(f"[kernels] {'E-step (em_counts_fused)':22s} kernels "
@@ -1096,8 +1150,9 @@ def phase_k1(device, rng) -> dict:
           flush=True)
     for name, r in out.items():
         print(f"[kernels] {name:22s} max_abs_err {r['max_abs_err']:.3g}  "
-              f"kernel {r['ms']:10.3f} ms  plain {r['plain_ms']:10.3f} ms",
-              flush=True)
+              f"kernel {r['ms']:10.3f} ms ({r['step']}; shared forced "
+              f"{r.get('shared_ms', float('nan')):.3f})  plain "
+              f"{r['plain_ms']:10.3f} ms", flush=True)
     return out
 
 
@@ -1600,6 +1655,7 @@ def phase_stream_kernels(device, rng) -> dict:
             for n, g, w in zip(("gn", "gx", "gx2"), got[3], want[3]):
                 _assert_close(f"em_bwd_stats{variant} {n}", g, w, 1e-4,
                               1e-4 * float(w.abs().max()))
+        step = _k1_lanes_against_shared(args1, **st)
         first = ck.em_counts_fused(*args1, **st)
         again = ck.em_counts_fused(*args1, **st)
         flat = (lambda r: list(r[:4]) + (list(r[4]) if len(r) > 4 else []))
@@ -1611,13 +1667,13 @@ def phase_stream_kernels(device, rng) -> dict:
         shape1 = (B1, L1, S1, T1, V1)
         G = STREAM_G if "g" in variant else 0
         out["em_fwd" + variant] = dict(
-            max_abs_err=err_fwd,
+            max_abs_err=err_fwd, step=step,
             ms=_median_ms(lambda: ck.em_fwd(*args1, **st), 5),
             plain_ms=_median_ms(lambda: ck.em_fwd_plain(*args1, **st), 3),
             **_bound("em_fwd", shape1, int(lengths1.sum()), G,
                      "w" in variant))
         out["em_bwd_stats" + variant] = dict(
-            max_abs_err=err_bwd,
+            max_abs_err=err_bwd, step=step,
             ms=_median_ms(lambda: ck.em_bwd_stats(*bwd, **st), 5),
             plain_ms=_median_ms(lambda: ck.em_bwd_stats_plain(*bwd, **st),
                                 3),
@@ -1625,6 +1681,7 @@ def phase_stream_kernels(device, rng) -> dict:
                      "w" in variant))
         del alpha, pa, dm, pdm, m_raw, pm, bwd
     print(f"[streams] K1 at S={S1} T={T1} V={V1} B={B1} L={L1} (ragged): "
+          f"the {step} kernels, bit for bit the shared ones' (forced), "
           f"within tolerance of plain (moments within 1e-4 of their "
           f"largest entry), repeat runs bit-identical, for "
           f"{', '.join(STREAM_VARIANTS)}", flush=True)
@@ -2398,28 +2455,54 @@ def _x1_groups(launched, region, S_, what):
                 or launched["fwd_chunk_tile"]), f"{what} launched {launched}"
 
 
+def _parent_cli(parent, cli, argvs):
+    """Run ``tehmm_tpu_torch.cli.<cli>`` of the checkout at ``parent`` (an
+    earlier commit of this repository, unpacked with ``git archive``) on
+    each argv, in one process of its own.  Its kernels build into that
+    checkout."""
+    code = ("import json, sys\n"
+            f"from tehmm_tpu_torch.cli import {cli} as c\n"
+            "for argv in json.loads(sys.argv[1]):\n"
+            "    assert c.main(argv) == 0, argv\n")
+    env = dict(os.environ, PYTHONPATH=os.path.abspath(parent))
+    proc = subprocess.run([sys.executable, "-c", code, json.dumps(argvs)],
+                          cwd=parent, env=env, capture_output=True,
+                          text=True, timeout=900)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+
+
 def _parent_outputs(parent, runs, work):
-    """Run the eval CLI of the checkout at ``parent`` (an earlier commit of
-    this repository, unpacked with ``git archive``) in one process of its
-    own on each (argv, output path) of ``runs``, the output path moved to
-    a file of its own, and return each output's bytes.  Its kernels build
-    into that checkout."""
+    """Run the parent's eval CLI (``_parent_cli``) on each (argv, output
+    path) of ``runs``, the output path moved to a file of its own, and
+    return each output's bytes."""
     outs = []
     argvs = []
     for k, (argv, path) in enumerate(runs):
         out = os.path.join(work, f"parent_{k}_{os.path.basename(path)}")
         argvs.append([out if a == path else a for a in argv])
         outs.append(out)
-    code = ("import json, sys\n"
-            "from tehmm_tpu_torch.cli import eval as e\n"
-            "for argv in json.loads(sys.argv[1]):\n"
-            "    assert e.main(argv) == 0, argv\n")
-    env = dict(os.environ, PYTHONPATH=os.path.abspath(parent))
-    proc = subprocess.run([sys.executable, "-c", code, json.dumps(argvs)],
-                          cwd=parent, env=env, capture_output=True,
-                          text=True, timeout=900)
-    assert proc.returncode == 0, proc.stderr[-4000:]
+    _parent_cli(parent, "eval", argvs)
     return [open(o, "rb").read() for o in outs]
+
+
+def _npz_members(path):
+    """Each member's bytes of a saved model (the zip's own dates aside)."""
+    import zipfile
+
+    with zipfile.ZipFile(path) as z:
+        return {name: z.read(name) for name in z.namelist()}
+
+
+def _iteration_times(log):
+    """An EM log's iteration times from its timestamps: the median
+    spacing (one iteration's wall time: E-step, M-step and the loglik's
+    read) and the largest, in ms, and the first to the last logged
+    iteration, in ms with their count (a stall shows there)."""
+    ts = [r["ts"] for r in _em_log(log)]
+    gaps = np.diff(ts) * 1e3
+    return (f"median {float(np.median(gaps)):.3f} ms, largest "
+            f"{float(gaps.max()):.3f} ms, {len(gaps)} in "
+            f"{(ts[-1] - ts[0]) * 1e3:.3f} ms")
 
 
 def phase_end_to_end(work, xml, truth_bed, truth, region, small,
@@ -2530,8 +2613,8 @@ def phase_max_posterior(work, xml, truth, viterbi_score, region, small,
                         pd_region, device="cuda", parent=None):
     """3d: max-posterior decoding, --pd and scoring through eval with
     phase 3's supervised model.  ``parent``: a checkout of an earlier
-    commit, whose eval CLI must write the same ``--maxPost --exact`` BEDs
-    and ``--pd`` file byte for byte."""
+    commit, whose eval CLI must write the same stitched ``--maxPost``
+    BED, ``--maxPost --exact`` BEDs and ``--pd`` file byte for byte."""
     from tehmm_tpu_torch.cli import eval as port_eval
     from tehmm_tpu_torch.models import hmm as port_hmm
     from tehmm_tpu_torch.ops import cuda_kernels as ck
@@ -2568,6 +2651,8 @@ def phase_max_posterior(work, xml, truth, viterbi_score, region, small,
     try:
         # the whole chromosome: stitched (automatic past 256K positions)
         score, wall = run(regions, "--bed", out_bed, "--maxPost")
+        same_as_parent.append(([xml, model, regions, "--bed", out_bed,
+                                "--maxPost", "--device", device], out_bed))
         _paths, report = stages.last["decode (stitched, K4)"]
         assert report.boundaries_ok, report
         print(f"[post] {n}-position --maxPost: printed loglik {score!r} "
@@ -2654,7 +2739,7 @@ def phase_max_posterior(work, xml, truth, viterbi_score, region, small,
                 f"the parent's ({len(mine)} against {len(other)} bytes)"
             print(f"[post] {os.path.basename(out)}: {len(mine)} bytes, "
                   f"byte-identical to the parent's ({parent})", flush=True)
-        print(f"[post] the parent's three runs: "
+        print(f"[post] the parent's {len(theirs)} runs: "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
     launches = dict(ck.LAUNCHES)          # the card's runs of this phase
     # the score at S <= 239 ran the piece-operator scan and no chain;
@@ -2827,11 +2912,14 @@ def _majority_accuracy(decoded, truth, n_learned):
     return float(counts.max(axis=1).sum() / len(truth))
 
 
-def phase_em(work, xml, truth, seed, device="cuda"):
+def phase_em(work, xml, truth, seed, device="cuda", parent=None):
     """3b: unsupervised EM through the CLI on the whole chromosome, K1
     against its plain version at this run's shape, then the decode of
-    the learned model.  Returns (the training run's launch counts, K1's
-    errors at this shape)."""
+    the learned model.  ``parent``: a checkout of an earlier commit,
+    whose train CLI must learn the same model (every member of the saved
+    file) on the same loglik trace, byte for byte.  Returns (the training
+    run's launch counts, K1's errors at this shape, each K1 kernel's ms a
+    call in the training run with its launches and bound)."""
     import torch
 
     from tehmm_tpu_torch.cli import eval as port_eval
@@ -2858,11 +2946,10 @@ def phase_em(work, xml, truth, seed, device="cuda"):
     torch.cuda.reset_peak_memory_stats()
     try:
         t0 = time.perf_counter()
-        _run_cli(port_train, [
-            xml, regions, model, "--numStates", str(EM_STATES),
-            "--iter", str(EM_ITERS), "--chunk", str(EM_CHUNK),
-            "--seed", str(seed), "--device", device, "--logJson", log,
-        ])
+        argv = [xml, regions, model, "--numStates", str(EM_STATES),
+                "--iter", str(EM_ITERS), "--chunk", str(EM_CHUNK),
+                "--seed", str(seed), "--device", device, "--logJson", log]
+        _run_cli(port_train, argv)
         t_train = time.perf_counter() - t0
     finally:
         stages.restore()
@@ -2878,14 +2965,58 @@ def phase_em(work, xml, truth, seed, device="cuda"):
           f"{lls[-1]:.6g} (non-decreasing within 1e-4 |loglik|)",
           flush=True)
     print(f"[em] loglik trace: {lls}", flush=True)
-    k1_err = _k1_at_em_shape(model, stages.last["stage batch (H2D)"][0],
-                             np.random.RandomState(seed))
+    staged = stages.last["stage batch (H2D)"][0]
+    learned = port_hmm.MultitrackHmm.load(model, "cpu")
+    S_, T_, V_ = learned.params.log_em.shape
+    shape = (*staged.shape[:2], S_, T_, V_)
+    run_shape = {}
+    for name in EM_KERNELS:
+        span = "  of which " + name
+        run_shape[name] = dict(
+            em_run_shape=list(shape),
+            em_run_shape_ms=stages.seconds[span] * 1e3 / stages.calls[span],
+            em_run_shape_launches=launches[name],
+            em_run_shape_bound_ms=_bound(name, shape, n)["bound_ms"])
+    print(f"[em] K1 step: {ck.k1_step(S_, T_, V_)}; EM iterations (the "
+          f"log's timestamps, under the stages' synchronising spans) "
+          f"{_iteration_times(log)}; at this run's shape "
+          f"{shape}: " + ", ".join(
+              f"{k} {r['em_run_shape_ms']:.3f} ms a call x "
+              f"{r['em_run_shape_launches']} (bound "
+              f"{r['em_run_shape_bound_ms']:.4f} ms)"
+              for k, r in run_shape.items()), flush=True)
+    if parent is not None:
+        # both checkouts' train CLIs on the same command, each bare in a
+        # process of its own: their iteration times compare like for like
+        here = os.path.dirname(os.path.abspath(__file__))
+        bare = {}
+        for name, root in (("this checkout", here), ("the parent", parent)):
+            t0 = time.perf_counter()
+            files = [os.path.join(work, f"bare_{len(bare)}_" +
+                                  os.path.basename(x)) for x in (model, log)]
+            _parent_cli(root, "train",
+                        [[files[[model, log].index(a)] if a in (model, log)
+                          else a for a in argv]])
+            assert _npz_members(model) == _npz_members(files[0]), \
+                f"the learned model differs from {name}'s bare run's"
+            their_lls = [r["loglik"] for r in _em_log(files[1])]
+            assert lls == their_lls, \
+                f"the loglik trace differs from {name}'s: {their_lls}"
+            bare[name] = (_iteration_times(files[1]),
+                          time.perf_counter() - t0)
+        print(f"[em] the learned model (every member of the file) and the "
+              f"loglik trace byte-identical to the parent's ({parent}) and "
+              f"to this checkout's own bare run", flush=True)
+        for name, (times, sec) in bare.items():
+            print(f"[em] {name}'s train CLI alone in a process: EM "
+                  f"iterations {times}; its run {sec:.1f} s", flush=True)
+    k1_err = _k1_at_em_shape(model, staged, np.random.RandomState(seed))
 
     t0 = time.perf_counter()
     _run_cli(port_eval, [xml, model, regions, "--bed", out_bed,
                          "--device", device])
     t_eval = time.perf_counter() - t0
-    names = port_hmm.MultitrackHmm.load(model, "cpu").state_names
+    names = learned.state_names
     decoded = _paint(out_bed, n, names)
     acc = _majority_accuracy(decoded, truth, len(names))
     print(f"[em] decoded with eval --bed: base accuracy {acc:.6f} after "
@@ -2904,7 +3035,7 @@ def phase_em(work, xml, truth, seed, device="cuda"):
     print(f"[em] {'eval CLI total':24s} {t_eval:9.3f}", flush=True)
     print(f"[em] peak device memory allocated during training: "
           f"{peak:.1f} MB", flush=True)
-    return launches, k1_err
+    return launches, k1_err, run_shape
 
 
 def _k1_at_em_shape(model_path, symbols, rng, rows=K1_EM_ROWS):
@@ -2923,9 +3054,12 @@ def _k1_at_em_shape(model_path, symbols, rng, rows=K1_EM_ROWS):
     lengths[:4] = [L, 0, 1, 2]
     lens = torch.from_numpy(lengths).to(sym.device)
     err, once = _k1_against_plain(p, sym, lens)
+    step = _k1_lanes_against_shared(
+        (p.log_start, p.log_trans, p.log_em, sym, lens))
     S, _T, V = p.log_em.shape
     print(f"[em] K1 at this run's shape (learned model, S={S} T={T} V={V}, "
-          f"{B} rows of L={L}, ragged): within tolerance of the plain "
+          f"{B} rows of L={L}, ragged): the {step} kernels, bit for bit "
+          f"the shared ones' (forced), within tolerance of the plain "
           f"version, repeat runs bit-identical", flush=True)
     for name in EM_KERNELS:
         print(f"[em] {name:22s} max_abs_err {err[name]:.3g}  kernel "
@@ -3575,8 +3709,10 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--parent", default=None,
                     help="a checkout of an earlier commit (git archive): "
-                         "3d holds its --maxPost --exact BEDs and --pd "
-                         "file to this one's byte for byte")
+                         "3d holds its stitched --maxPost BED, --maxPost "
+                         "--exact BEDs and --pd file, 3b its learned "
+                         "model and loglik trace, to this one's byte for "
+                         "byte")
     args = ap.parse_args(argv)
 
     import torch
@@ -3659,9 +3795,13 @@ def main(argv=None) -> int:
         _phase_done("3d", t_run)
 
         ck.reset_launch_counts()
-        em_launches, k1_em_err = phase_em(work, xml, truth, args.seed)
+        em_launches, k1_em_err, k1_em_shape = phase_em(
+            work, xml, truth, args.seed,
+            parent=None if args.parent is None
+            else os.path.abspath(args.parent))
         for name, e in k1_em_err.items():
             kernels[name]["max_abs_err_em_run_shape"] = e
+            kernels[name].update(k1_em_shape[name])
         _phase_done("3b", t_run)
 
         phase_em_card_vs_cpu(work, xml, n, 50_000, args.seed)

@@ -5,8 +5,8 @@
 // the one in-register observation routine (obs_log) with its optional
 // segment-weight and gaussian streams, the cp.async staging of matrix
 // rows, and the long sweeps' obs read ahead of their chain (K3, X1, X2) with
-// the exact tree max of their lanes steps.  Everything is in an anonymous
-// namespace: each source gets its own copy.
+// the exact maxes of the lanes steps (theirs and K1's).  Everything is in
+// an anonymous namespace: each source gets its own copy.
 
 #pragma once
 
@@ -80,11 +80,36 @@ __device__ __forceinline__ void gauss_feats(float v, float& m, float& xm,
   x2m = __fmul_rn(__fmul_rn(x, x), m);
 }
 
+// The gaussian term of one state's obs_log at one position, from its G
+// values v and the state's coefficients c [c0 | c1 | c2]:
+// (sum_g m c0) + (sum_g xm c1) + (sum_g x2m c2), each block summed in
+// track order g = 0..G-1 (models/gauss).
+__device__ __forceinline__ float gauss_term(const float* v, const float* c,
+                                            int G) {
+  float s0 = 0.0f, s1 = 0.0f, s2 = 0.0f;
+  for (int g = 0; g < G; ++g) {
+    float m, xm, x2m;
+    gauss_feats(v[g], m, xm, x2m);
+    const float t0 = __fmul_rn(m, c[g]);
+    const float t1 = __fmul_rn(xm, c[G + g]);
+    const float t2 = __fmul_rn(x2m, c[2 * G + g]);
+    if (g == 0) {
+      s0 = t0;
+      s1 = t1;
+      s2 = t2;
+    } else {
+      s0 = __fadd_rn(s0, t0);
+      s1 = __fadd_rn(s1, t1);
+      s2 = __fadd_rn(s2, t2);
+    }
+  }
+  return __fadd_rn(__fadd_rn(s0, s1), s2);
+}
+
 // obs_log of state j at flat position pos (symbols x):
 //   1. the categorical sum in track order t = 0..T-1
 //      (models/emission.track_log_likelihoods);
-//   2. plus the gaussian term (sum_g m c0) + (sum_g xm c1) + (sum_g x2m c2),
-//      each block summed in track order g = 0..G-1 (models/gauss);
+//   2. plus the gaussian term (gauss_term);
 //   3. times the segment weight.
 // Every product and sum is rounded on its own (__fmul_rn/__fadd_rn: nvcc
 // contracts nothing into an FMA), so the result is bit-equal to the plain
@@ -95,29 +120,9 @@ __device__ __forceinline__ float obs_log(const float* s_em, const int32_t* x,
   const float* row = s_em + (int64_t)j * T * V;
   float o = row[x[0]];
   for (int tt = 1; tt < T; ++tt) o += row[tt * V + x[tt]];
-  if (st.values != nullptr) {
-    const int G = st.G;
-    const float* v = st.values + pos * G;
-    const float* c = st.s_coef + (int64_t)j * 3 * G;
-    float s0 = 0.0f, s1 = 0.0f, s2 = 0.0f;
-    for (int g = 0; g < G; ++g) {
-      float m, xm, x2m;
-      gauss_feats(v[g], m, xm, x2m);
-      const float t0 = __fmul_rn(m, c[g]);
-      const float t1 = __fmul_rn(xm, c[G + g]);
-      const float t2 = __fmul_rn(x2m, c[2 * G + g]);
-      if (g == 0) {
-        s0 = t0;
-        s1 = t1;
-        s2 = t2;
-      } else {
-        s0 = __fadd_rn(s0, t0);
-        s1 = __fadd_rn(s1, t1);
-        s2 = __fadd_rn(s2, t2);
-      }
-    }
-    o = __fadd_rn(o, __fadd_rn(__fadd_rn(s0, s1), s2));
-  }
+  if (st.values != nullptr)
+    o = __fadd_rn(o, gauss_term(st.values + pos * st.G,
+                                st.s_coef + (int64_t)j * 3 * st.G, st.G));
   if (st.w != nullptr) o = __fmul_rn(o, st.w[pos]);
   return o;
 }
@@ -271,6 +276,28 @@ __device__ __forceinline__ float row_max(const float (&src)[NS]) {
 #pragma unroll
     for (int i = 0; i + w < NS; i += 2 * w) a[i] = fmaxf(a[i], a[i + w]);
   return a[0];
+}
+
+// The exact max over a row held one state a lane (lanes past S at or
+// below the callers' clamp): to kGatherStates states the NS values
+// gathered by shuffles and a tree (row_max), beyond a butterfly over the
+// warp (warp_max), whichever read faster on an H100 80GB HBM3
+// (tools/time_x2's sweep, PERF.md: the gather 0.314 against 0.368 us a
+// step at S=10, the butterfly 0.451 against 0.478 at 32, level at 20).
+// Any order of an exact max gives the same bits.  The lanes steps of X2
+// (posterior.cu) and K1 (em_estep.cu).
+constexpr int kGatherStates = 16;
+
+template <int NS>
+__device__ __forceinline__ float lanes_row_max(float v) {
+  if constexpr (NS <= kGatherStates) {
+    float r[NS];
+#pragma unroll
+    for (int j = 0; j < NS; ++j) r[j] = __shfl_sync(0xffffffffu, v, j);
+    return row_max<NS>(r);
+  } else {
+    return warp_max(v);
+  }
 }
 
 // Issue the copy of T's rows [i0, min(i0 + blk, Sp)) into dst (16-byte

@@ -457,27 +457,6 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 // at every position below the length and, past it, only at the chunks'
 // first positions: the chain stops at the row's length.
 
-// The exact max over a row held one state a lane (lanes past S at or
-// below LOG_ZERO, the callers' clamp): to kGatherStates states the NS
-// values gathered by shuffles and a tree (common.cuh row_max), beyond a
-// butterfly over the warp (warp_max), whichever read faster on an H100
-// 80GB HBM3 (tools/time_x2's sweep, PERF.md: the gather 0.314 against
-// 0.368 us a step at S=10, the butterfly 0.451 against 0.478 at 32,
-// level at 20).  Any order of an exact max gives the same bits.
-constexpr int kGatherStates = 16;
-
-template <int NS>
-__device__ __forceinline__ float lanes_row_max(float v) {
-  if constexpr (NS <= kGatherStates) {
-    float r[NS];
-#pragma unroll
-    for (int j = 0; j < NS; ++j) r[j] = __shfl_sync(0xffffffffu, v, j);
-    return row_max<NS>(r);
-  } else {
-    return warp_max(v);
-  }
-}
-
 // The beta step of the lanes variant.  Lane i holds row i of
 // exp(log_trans) (tr, 0 past S) and e = expf(x_i) of the position after
 // (0 past S); lane i's sum runs fmaf over j = 0..NS-1 from 0, then its

@@ -57,7 +57,9 @@ E-step engines ``"cuda_v3"`` and ``"cuda_log"`` of ``ops/em.py`` and the
 stitched decoders past the fused kernels' envelopes
 (``parallel/stitch.py``) are built on them.  ``k1_fits``, ``k2_fits``
 and ``k4_fits`` state the fused kernels' envelopes; their wrappers'
-checks and the routes ask them.  K3, X1 and X2 launch their one-warp
+checks and the routes ask them.  Inside its envelope K1 runs its lanes
+kernels to 32 states and its shared ones beyond (``k1_step``), with the
+same bits either way.  K3, X1 and X2 launch their one-warp
 kernels where ``sweep_fits`` (S <= 239) and the tile's carry modes
 beyond, each counted under its own name (``viterbi_chunk_tile``,
 ``fwd_chunk_tile``, ``bwd_chunk_tile``), so the exact decoders, ``--pd``
@@ -257,14 +259,17 @@ def load_library() -> ctypes.CDLL:
         lib.tehmm_viterbi_backtrace.argtypes = [
             ptr, ptr, i64, ptr, i64, ptr, ptr, ptr, ptr, i64, i64, i32, ptr,
         ]
-        lib.tehmm_em_fwd.restype = i32
-        lib.tehmm_em_fwd.argtypes = (
-            [ptr] * 8 + [i64, i64, i32, i32, i32] + streams + [ptr]
-        )
-        lib.tehmm_em_bwd_stats.restype = i32
-        lib.tehmm_em_bwd_stats.argtypes = (
-            [ptr] * 10 + [i64, i64, i32, i32, i32, i32] + streams + [ptr]
-        )
+        for fn in (lib.tehmm_em_fwd, lib.tehmm_em_fwd_lanes):
+            fn.restype = i32
+            fn.argtypes = (
+                [ptr] * 8 + [i64, i64, i32, i32, i32] + streams + [ptr])
+        for fn in (lib.tehmm_em_bwd_stats, lib.tehmm_em_bwd_stats_lanes):
+            fn.restype = i32
+            fn.argtypes = (
+                [ptr] * 10 + [i64, i64, i32, i32, i32, i32] + streams
+                + [ptr])
+        lib.tehmm_k1_lanes_smem_floats.restype = i64
+        lib.tehmm_k1_lanes_smem_floats.argtypes = [i32] * 6
         lib.tehmm_post_decode.restype = i32
         lib.tehmm_post_decode.argtypes = (
             [ptr] * 6 + [i64, i64, i32, i32, i32] + streams + [ptr]
@@ -789,6 +794,53 @@ def k1_fits(S: int, T: int, V: int, G: int = 0) -> bool:
     return _fits(S, fwd) and _fits(S, bwd)
 
 
+# K1's step, as K3's, X1's and X2's (``k3_step``): "lanes" to this many
+# states (csrc/em_estep.cu ``em_fwd_lanes_kernel`` and
+# ``em_bwd_stats_lanes_kernel``: exp(trans) in registers, the row round
+# by shuffles, the streams staged a half of ``_K1_HALF`` positions ahead
+# with cp.async), "shared" from 33 states to K1's envelope (the kernels
+# with the tables and the row in shared memory).  The lanes kernels give
+# the shared kernels' bits (the reverse at the same warps a block, so
+# every block's partial is the same), so the choice moves only time.
+K1_LANES_MAX_STATES = 32
+_K1_HALF = 32                   # kHalf in csrc/common.cuh
+_K1_ENTRIES = {"lanes": ("tehmm_em_fwd_lanes", "tehmm_em_bwd_stats_lanes"),
+               "shared": ("tehmm_em_fwd", "tehmm_em_bwd_stats")}
+
+
+def _k1_lanes_smem_floats(S: int, T: int, V: int, bwd_warps: int,
+                          G: int = 0) -> tuple[int, int]:
+    """Shared-memory floats per block of the lanes kernels (csrc/
+    em_estep.cu ``fwd_lanes_warp_floats``, ``bwd_lanes_warp_floats``):
+    log_em and the coefficients, and per warp a ring of two slots of
+    ``_K1_HALF`` positions (symbols, a weight and the gaussian values; in
+    the reverse alpha_p and m_raw too) and a half's obs_p, beside the
+    reverse's statistics (its pair [S, S] written over the ring at the
+    end).  The route is decided here, where no library need be built; the
+    card's tests hold these sizes to the library's own
+    (``tehmm_k1_lanes_smem_floats``, which the launches use)."""
+    tables = S * T * V + 3 * S * G
+    slot = _K1_HALF * (T + 1 + G)
+    fwd = tables + _WARPS_PER_BLOCK * (2 * slot + _K1_HALF * S)
+    scratch = max(2 * (slot + _K1_HALF * (S + 1)) + _K1_HALF * S, S * S)
+    return fwd, tables + bwd_warps * (S * T * V + S + 3 * S * G + scratch)
+
+
+def k1_step(S: int, T: int, V: int, G: int = 0) -> str:
+    """K1's step for a model of S states, T tracks of V symbols and G
+    gaussian tracks: ``"lanes"`` to ``K1_LANES_MAX_STATES`` where both
+    lanes kernels' rings fit beside the tables (always but for hundreds
+    of tracks), else ``"shared"``; past K1's envelope (``k1_fits``) it
+    raises naming its item."""
+    warps = _k1_bwd_warps(S, T, V, G)
+    _check_envelope(S, max(_k1_smem_floats(S, T, V, warps, G)), "K1",
+                    _K1_ENVELOPE_ITEM)
+    if S <= K1_LANES_MAX_STATES and _fits(
+            S, max(_k1_lanes_smem_floats(S, T, V, warps, G))):
+        return "lanes"
+    return "shared"
+
+
 def _k4_smem_floats(S: int, T: int, V: int, G: int = 0) -> int:
     """Shared-memory floats per block of K4's decode: the tables (with
     the gaussian coefficients) and one state row per warp."""
@@ -860,12 +912,15 @@ def em_fwd(log_start, log_trans, log_em, symbols, lengths,
 
     Replaces ``_make_forward_kernel_v4`` (pallas_kernels.py:1777).
     Bound on an H100: the latency of one dependent step per position (an
-    S x S matrix-vector product from shared memory, two warp max
-    reductions, T table lookups and 3G gaussian products), not bytes or
-    flops.  Design: one warp per row, lane <-> state, exp(trans), log_em,
-    exp(start) and the gaussian coefficients in shared memory, obs formed
-    in registers (weights and values read from global memory) and never
-    written out."""
+    S x S matrix-vector product, a row max and a divide), not bytes or
+    flops.  Design: one warp per row, lane <-> state, log_em and the
+    gaussian coefficients in shared memory, obs formed on the card and
+    never written out, in the step of ``k1_step``: to 32 states column j
+    of exp(trans) in lane j's registers, the row round by shuffles, the
+    symbols and streams staged with cp.async a half of 32 positions ahead
+    and a half's obs formed before its steps, the row stopped at its
+    length; beyond, exp(trans), exp(start) and the row in shared memory,
+    obs in the step.  Either gives the other's bits."""
     S, T, V = log_em.shape
     B, L, _T = symbols.shape
     dev = _check_k1_inputs(log_em, symbols, lengths, log_start=log_start,
@@ -882,17 +937,14 @@ def em_fwd(log_start, log_trans, log_em, symbols, lengths,
     m_raw = torch.empty((B, L), dtype=torch.float32, device=dev)
     if B == 0 or L == 0:
         return alpha, dm, m_raw
+    # past K1's envelope only K4 runs the forward: the shared kernel
+    step = k1_step(S, T, V, st.G) if k1_fits(S, T, V, st.G) else "shared"
     start_p, trans_p = torch.exp(log_start), torch.exp(log_trans)
-    lib = load_library()
     _coef, stream_args = st.args()
-    rc = lib.tehmm_em_fwd(
+    _launch_streaming("em_fwd" + st.suffix, _K1_ENTRIES[step][0], (
         symbols.data_ptr(), lengths.data_ptr(), start_p.data_ptr(),
         trans_p.data_ptr(), log_em.data_ptr(), alpha.data_ptr(),
-        dm.data_ptr(), m_raw.data_ptr(), B, L, S, T, V, *stream_args,
-        _stream(dev),
-    )
-    _raise_on(rc, lib, "em_fwd")
-    LAUNCHES["em_fwd" + st.suffix] += 1
+        dm.data_ptr(), m_raw.data_ptr(), B, L, S, T, V, *stream_args), dev)
     return alpha, dm, m_raw
 
 
@@ -956,14 +1008,18 @@ def em_bwd_stats(log_trans, log_em, symbols, lengths, alpha, m_raw,
     the moments; start counts and pairs are unweighted.
 
     Replaces ``_make_bwd_stats_kernel_v4`` (pallas_kernels.py:1931).
-    Bound: as ``em_fwd``, with a second S x S product per position (the
-    pair update), T scattered shared-memory adds and 3G moment adds.
-    Design: one warp per row walking from its last valid position down,
-    obs recomputed from the symbols (and the streams), each warp's
-    statistics in its own shared-memory accumulators (4, 2 or 1 warps per
-    block, the most that fit; lane j owns row j of the emission counts
-    and the moments); each block writes one partial, summed here over
-    blocks in a fixed order (no atomics: two runs give the same bits)."""
+    Bound: as ``em_fwd``, with a second divide and row max on the chain
+    and, off it, the pair update (a second S x S product), T scattered
+    shared-memory adds and 3G moment adds.  Design: one warp per row
+    walking from its last valid position down, obs recomputed from the
+    symbols (and the streams), each warp's statistics in its own
+    shared-memory accumulators (4, 2 or 1 warps per block, the most that
+    fit; lane j owns row j of the emission counts and the moments); each
+    block writes one partial, summed here over blocks in a fixed order
+    (no atomics: two runs give the same bits).  In the step of
+    ``k1_step`` (``em_fwd``'s; to 32 states lane j also keeps column j of
+    pair in registers and alpha_p and m_raw come through the ring, at the
+    same warps a block), so either gives the other's bits."""
     S, T, V = log_em.shape
     B, L, _T = symbols.shape
     dev = _check_k1_inputs(log_em, symbols, lengths, log_trans=log_trans,
@@ -985,17 +1041,14 @@ def em_bwd_stats(log_trans, log_em, symbols, lengths, alpha, m_raw,
                        device=dev)
     if B and L:
         trans_p = torch.exp(log_trans)
-        lib = load_library()
         _coef, stream_args = st.args()
-        rc = lib.tehmm_em_bwd_stats(
+        _launch_streaming("em_bwd_stats" + st.suffix,
+                          _K1_ENTRIES[k1_step(S, T, V, G)][1], (
             symbols.data_ptr(), lengths.data_ptr(), trans_p.data_ptr(),
             log_em.data_ptr(), alpha.data_ptr(), m_raw.data_ptr(),
             pair.data_ptr(), em.data_ptr(), start.data_ptr(),
             gmom.data_ptr() if G else None, B, L, S, T, V, warps,
-            *stream_args, _stream(dev),
-        )
-        _raise_on(rc, lib, "em_bwd_stats")
-        LAUNCHES["em_bwd_stats" + st.suffix] += 1
+            *stream_args), dev)
     elif B:
         pair, em, start, gmom = (torch.zeros_like(x)
                                  for x in (pair, em, start, gmom))

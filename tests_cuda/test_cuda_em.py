@@ -9,7 +9,9 @@ exp may differ by an ulp.  So the kernels are held to the plain versions
 within stated tolerances: alpha rows and scales to 1e-5, loglik to 1e-5
 relative, the statistics to the JAX package's engine tolerances (1e-4
 relative, 1e-5 to 1e-4 absolute; tests/test_pallas.py).  Two launches on
-the same input must give the same bits."""
+the same input must give the same bits.  To 32 states the lanes kernels
+run (``ck.k1_step``); they are held to the shared kernels, forced with
+``K1_LANES_MAX_STATES`` = 0, bit for bit on every output."""
 
 import numpy as np
 import pytest
@@ -21,6 +23,7 @@ from tehmm_tpu_torch.ops import cuda_kernels as ck  # noqa: E402
 from tehmm_tpu_torch.ops import em  # noqa: E402
 
 from test_cuda_kernels import _model  # noqa: E402
+from test_cuda_streams import _streams  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -120,3 +123,98 @@ def test_k1_bad_symbols_raise(device, rng):
     ls, lt, lem, sym, lens = _inputs(rng, device, 10, 8)
     with pytest.raises(ValueError, match="symbols"):
         ck.em_fwd(ls, lt, lem, sym + lem.shape[2], lens)
+
+
+# K1's step variants: every state count of the lanes kernels' registers
+# (S rounded up to 4, the gather of the row max to 16 states and the
+# butterfly beyond), every stream variant, ragged lengths on both sides
+# of the ring's halves (32 positions), B no multiple of the warps a block
+K1_LANES_STATES = [1, 2, 10, 16, 17, 20, 31, 32]
+K1_VARIANTS = ["", "+w", "+g", "+wg"]
+K1_LENGTHS = [0, 1, 31, 32, 33, 65]
+K1_T, K1_V, K1_G = 5, 9, 2
+
+
+def _k1_case(S, B, variant):
+    rng = np.random.RandomState(S * 100 + B)
+    L = max(K1_LENGTHS)
+    lengths = np.resize(np.asarray(K1_LENGTHS, np.int32), B)
+    lengths[len(K1_LENGTHS):] = rng.randint(0, L + 1,
+                                            size=B - len(K1_LENGTHS))
+    p = from_numpy(*_model(rng, S, K1_T, K1_V, zero_frac=0.3), "cuda")
+    sym = rng.randint(0, K1_V, size=(B, L, K1_T)).astype(np.int32)
+    args = (p.log_start, p.log_trans, p.log_em,
+            torch.from_numpy(sym).cuda(), torch.from_numpy(lengths).cuda())
+    return args, _streams(rng, "cuda", variant, B, L, S, K1_G)
+
+
+def _k1_outputs(args, st):
+    """Every output of both kernels: alpha_p, dm, m_raw, start, pair, em
+    and, with gaussian tracks, the three moments."""
+    alpha, dm, m_raw = ck.em_fwd(*args, **st)
+    stats = ck.em_bwd_stats(*args[1:], alpha, m_raw, **st)
+    moments = list(stats[3]) if len(stats) > 3 else []
+    return [alpha, dm, m_raw, *stats[:3]] + moments
+
+
+@pytest.mark.parametrize("B", [6, 13])
+@pytest.mark.parametrize("variant", K1_VARIANTS)
+@pytest.mark.parametrize("S", K1_LANES_STATES)
+def test_k1_lanes_equal_shared_bit_for_bit(device, monkeypatch, S, variant,
+                                           B):
+    """The lanes kernels give the shared kernels' bits (forced at S <=
+    32, where they are K1 as it ran before the lanes kernels) on every
+    output, are within the existing tolerances of the plain versions, and
+    launch once each under their variant's counter; two runs give the
+    same bits."""
+    args, st = _k1_case(S, B, variant)
+    G = K1_G if "g" in variant else 0
+    assert ck.k1_step(S, K1_T, K1_V, G) == "lanes"
+    before = dict(ck.LAUNCHES)
+    lanes = _k1_outputs(args, st)
+    assert ck.LAUNCHES["em_fwd" + variant] == before["em_fwd" + variant] + 1
+    assert ck.LAUNCHES["em_bwd_stats" + variant] == \
+        before["em_bwd_stats" + variant] + 1
+    again = _k1_outputs(args, st)
+    monkeypatch.setattr(ck, "K1_LANES_MAX_STATES", 0)
+    assert ck.k1_step(S, K1_T, K1_V, G) == "shared"
+    shared = _k1_outputs(args, st)
+    assert len(lanes) == (9 if G else 6)
+    for got, rerun, want in zip(lanes, again, shared):
+        assert got.shape == want.shape
+        assert torch.equal(got, want)
+        assert torch.equal(got, rerun)
+    alpha, dm, m_raw = ck.em_fwd_plain(*args, **st)
+    torch.testing.assert_close(lanes[0], alpha, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(lanes[1], dm, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(lanes[2], m_raw, rtol=1e-5, atol=1e-30)
+    want = ck.em_bwd_stats_plain(*args[1:], alpha, m_raw, **st)
+    for g, w in zip(lanes[3:6], want[:3]):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+    for g, w in zip(lanes[6:], want[3] if G else ()):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("S, T, V, G", [
+    (1, 5, 9, 0), (10, 5, 9, 2), (20, 5, 8, 0), (32, 5, 9, 2),
+    (32, 1, 2, 0), (2, 5, 145, 0), (2, 100, 145, 0), (8, 40, 4, 3)])
+def test_k1_lanes_smem_sizes_are_the_library_s(device, S, T, V, G):
+    """``k1_step``'s fit test sizes the lanes kernels' shared memory as
+    the library's launches do, in the forward and at the reverse's
+    warps a block."""
+    lib = ck.load_library()
+    warps = ck._k1_bwd_warps(S, T, V, G)
+    assert ck._k1_lanes_smem_floats(S, T, V, warps, G) == (
+        lib.tehmm_k1_lanes_smem_floats(S, T, V, G, 0, 0),
+        lib.tehmm_k1_lanes_smem_floats(S, T, V, G, 1, warps))
+
+
+@pytest.mark.parametrize("variant", K1_VARIANTS)
+@pytest.mark.parametrize("S", [1, 10, 32])
+def test_k4_forward_lanes_equal_shared(device, monkeypatch, S, variant):
+    """K4 runs K1's forward: its path with the lanes forward is the one
+    with the shared forward forced."""
+    args, st = _k1_case(S, 13, variant)
+    lanes = ck.posterior_decode_fused(*args, **st)
+    monkeypatch.setattr(ck, "K1_LANES_MAX_STATES", 0)
+    assert torch.equal(lanes, ck.posterior_decode_fused(*args, **st))
