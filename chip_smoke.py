@@ -12,12 +12,15 @@ Phases (any failure raises, and the run exits non-zero):
    kernels (K2, K3) at the decode's shapes (S=10 states, T=5 tracks, V=9
    symbols, B=512 rows of L=4608 = chunk 4096 + 2 x 256 halo, ragged
    lengths incl. 0 and 1): value rows, normalizers, carries and paths
-   bit-equal, K3 in its values, carry and checkpoint modes.  K3 also at
-   the shapes phase 3's ``--exact`` region gives it (a generator of its
-   own): the recompute of one chunk (1 x 4096) and of the region's group
-   (245 rows of 4096, each from its own carry), and the forward sweep
-   over the region in one checkpoint launch (1 x 1,003,520, a carry
-   every 4096), bit-equal to plain, timed with us a step.  X1 likewise
+   bit-equal, K3 in its values, carry, checkpoint and pointer modes, and
+   X3 (the exact decoder's backtrace from K3's pointers: the map of end
+   states, the compose, the chase) on the same rows.  K3 and X3 also at
+   the shapes phase 3's ``--exact`` region gives them (a generator of
+   their own): the pointer recompute, map, compose and chase of one
+   chunk (1 x 4096) and of the region's group (245 rows of 4096, each
+   from its own carry), and the forward sweep over the region in one
+   checkpoint launch (1 x 1,003,520, a carry every 4096), bit-equal to
+   plain, timed with us a step.  X1 likewise
    at the shapes phase 3d's ``--maxPost --exact`` region gives it: the
    recompute (1 x 4096, 245 x 4096, and 512 rows of 4608, ragged) and
    the forward sweep in one checkpoint launch (1 x 1,003,520), each
@@ -120,10 +123,11 @@ Phases (any failure raises, and the run exits non-zero):
    chromosome; the BED tiles it, every stitch boundary agrees, and base
    accuracy against the planted truth is >= 0.9.  On a 1,000,000-position
    region ``--exact`` and ``--no-exact`` write the same BED; the exact
-   decode's split (obs formation, forward sweep, recompute, backtrace,
-   the rest) is printed and K3 launched twice a group of chunks
-   (``stitch.exact_group_chunks``), not once a chunk in each sweep; on a
-   20,000-position region the card's BED equals the CPU's (plain torch).
+   decode's split (obs formation, forward sweep, pointer recompute, map,
+   compose, chase, the rest) is printed, and K3 launched twice a group
+   of chunks (``stitch.exact_group_chunks``) and X3's three kernels once
+   a group each, with no backtrace a chunk; on a 20,000-position region
+   the card's BED equals the CPU's (plain torch).
 3d. Max-posterior decoding, ``--pd`` and scoring through ``eval`` with
    phase 3's model: stitched ``--maxPost --bed`` on the whole chromosome
    (K4, and the printed forward loglik through the piece-operator scan):
@@ -143,7 +147,8 @@ Phases (any failure raises, and the run exits non-zero):
    group (the backward checkpoint sweep and the beta recompute) and once
    for position 0, as in ``--pd``'s sweep on the 100,000-position region;
    with ``--parent DIR`` (a ``git archive`` of an earlier commit) that
-   checkout's eval CLI writes the whole chromosome's stitched
+   checkout's eval CLI writes phase 3's ``--exact`` BED of the region,
+   the whole chromosome's stitched
    ``--maxPost`` BED, the region's ``--maxPost --exact`` BED and the
    100,000-position region's ``--pd`` file and BED byte for byte as
    this one's; on the
@@ -294,6 +299,10 @@ SOURCES = {
     "viterbi_backtrace": "tehmm_tpu_torch/csrc/viterbi.cu",
     "viterbi_chunk_values": "tehmm_tpu_torch/csrc/viterbi.cu",
     "viterbi_checkpoints": "tehmm_tpu_torch/csrc/viterbi.cu",
+    "viterbi_chunk_pointers": "tehmm_tpu_torch/csrc/viterbi.cu",
+    "chunk_entry_map": "tehmm_tpu_torch/csrc/viterbi.cu",
+    "chunk_compose": "tehmm_tpu_torch/csrc/viterbi.cu",
+    "chunk_chase": "tehmm_tpu_torch/csrc/viterbi.cu",
     "em_fwd": "tehmm_tpu_torch/csrc/em_estep.cu",
     "em_bwd_stats": "tehmm_tpu_torch/csrc/em_estep.cu",
     "post_decode": "tehmm_tpu_torch/csrc/posterior.cu",
@@ -323,6 +332,14 @@ REPLACES = {
     # K3's checkpoint mode: the exact decoder's forward sweep (on the TPU
     # the XLA scan dp.viterbi_carry, a launch a chunk; K3's function)
     "viterbi_checkpoints": "tehmm_tpu/ops/pallas_kernels.py:1284",
+    # K3's pointer mode: the exact decoder's recompute, which on the TPU
+    # is viterbi_chunk_values_pallas's value rows
+    "viterbi_chunk_pointers": "tehmm_tpu/ops/pallas_kernels.py:1284",
+    # X3: the exact decoder's backtrace, on the TPU the XLA scan
+    # dp.viterbi_backtrace_chunk a chunk
+    "chunk_entry_map": "tehmm_tpu/ops/dp.py:601",
+    "chunk_compose": "tehmm_tpu/ops/dp.py:601",
+    "chunk_chase": "tehmm_tpu/ops/dp.py:601",
     "em_fwd": "tehmm_tpu/ops/pallas_kernels.py:1777",
     "em_bwd_stats": "tehmm_tpu/ops/pallas_kernels.py:1931",
     "post_decode": "tehmm_tpu/ops/pallas_kernels.py:2765",
@@ -357,8 +374,13 @@ REPLACES = {
     "fwd_piece_ops": "tehmm_tpu/ops/dp.py:378",
     "fwd_piece_compose": "tehmm_tpu/ops/dp.py:378",
 }
-DECODE_KERNELS = ("viterbi_fwd", "viterbi_backtrace", "viterbi_chunk_values",
-                  "viterbi_checkpoints")
+# phase 3's path: the stitched K2 decode, and the exact decode's K3 (its
+# checkpoint and pointer modes) and X3; K3's values mode is off it (the
+# exact decoder's value rows are its route past 239 states, 3f's)
+DECODE_KERNELS = ("viterbi_fwd", "viterbi_backtrace", "viterbi_checkpoints",
+                  "viterbi_chunk_pointers", "chunk_entry_map",
+                  "chunk_compose", "chunk_chase")
+X3_KERNELS = ("chunk_entry_map", "chunk_compose", "chunk_chase")
 EM_KERNELS = ("em_fwd", "em_bwd_stats")
 POST_KERNELS = ("em_fwd", "post_decode", "fwd_chunk", "fwd_checkpoints",
                 "bwd_chunk", "bwd_checkpoints", "fwd_piece_ops",
@@ -484,6 +506,18 @@ def _bound(name, shape, valid, G=0, weighted=False, n_ck=0) -> dict:
     elif base == "viterbi_checkpoints":  # obs in, n_ck carries a row out
         nbytes = rows + (B * S + B + S * S + B * n_ck * S) * f
         ops = 2 * S * S + 3 * S
+    elif base == "viterbi_chunk_pointers":  # obs in, uint8 pointers out
+        nbytes = rows + B * L * S + (B * S + B + S * S) * f
+        ops = 2 * S * S + 3 * S
+    elif base == "chunk_entry_map":    # S pointers read a valid position
+        nbytes = valid * S + (B + B * S) * f   # each walk's), maps out
+        ops = S
+    elif base == "chunk_compose":      # a map entry read a chunk (shape
+        nbytes = (B * L + B * L + 2 * B) * f   # (tables, chunks, S)),
+        ops = 1                               # ends and entries out
+    elif base == "chunk_chase":        # a pointer read a valid position,
+        nbytes = valid + (2 * B + B * L) * f   # the path out
+        ops = 1
     elif base == "em_fwd":             # obs_p, S x S product, scale
         nbytes = sym + tables + S * f + streams + rows + 2 * B * L * f
         ops = 2 * S * S + obs + 6 * S
@@ -579,6 +613,58 @@ def _decode_model(rng, device):
                       device)
 
 
+def _pointer_rows(args, lengths, suffix=""):
+    """K3's pointer mode and X3's map, compose and chase on one shape's
+    rows (``args``: K3's log_trans, obs, carry and lengths; ``lengths``
+    the same on the host), the exact decoder's four launches a group:
+    each bit-equal to its plain version, timed beside it (the plain
+    versions once) and the bound, with us a step (ms over the longest
+    row's steps, the compose's over its chunks).  The compose takes the
+    maps as one table's chunks from state 0; the chase starts row r at
+    state r mod S."""
+    import torch
+
+    from tehmm_tpu_torch.ops import cuda_kernels as ck
+
+    lt, obs, init, lens = args
+    B, L, S_ = obs.shape
+    valid = int(np.clip(lengths, 0, L).sum())
+    ptrs = ck.viterbi_chunk_pointers(*args)
+    maps = ck.chunk_entry_map(ptrs, lens)
+    table = maps.view(1, B, S_)
+    ends = (torch.arange(B, device=lens.device) % S_).to(torch.int32)
+    shape = (B, L, S_, T, V)
+    calls = {
+        "viterbi_chunk_pointers": (
+            lambda: ck.viterbi_chunk_pointers(*args),
+            lambda: ck.viterbi_chunk_pointers_plain(*args), shape, valid),
+        "chunk_entry_map": (
+            lambda: ck.chunk_entry_map(ptrs, lens),
+            lambda: ck.chunk_entry_map_plain(ptrs, lens), shape, valid),
+        "chunk_compose": (
+            lambda: ck.chunk_compose(table, ends[:1]),
+            lambda: ck.chunk_compose_plain(table, ends[:1]),
+            (1, B, S_, T, V), B),
+        "chunk_chase": (
+            lambda: ck.chunk_chase(ptrs, ends, lens),
+            lambda: ck.chunk_chase_plain(ptrs, ends, lens), shape, valid),
+    }
+    out = {}
+    for name, (fn, plain, shp, n_valid) in calls.items():
+        got, want = fn(), plain()
+        if not isinstance(got, tuple):
+            got, want = (got,), (want,)
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), \
+            f"{name} disagrees with its plain version at {B} x {L}"
+        err = max(float((g.int() - w.int()).abs().max()) if g.numel()
+                  else 0.0 for g, w in zip(got, want))
+        ms = _median_ms(fn, 5)
+        out[name + suffix] = dict(
+            max_abs_err=err, ms=ms, plain_ms=_median_ms(plain, 1),
+            us_per_step=ms * 1e3 / shp[1], **_bound(name, shp, n_valid))
+    return out
+
+
 def phase_kernels(device, rng) -> dict:
     import torch
 
@@ -663,7 +749,11 @@ def phase_kernels(device, rng) -> dict:
         int(np.clip(lengths - 1, 0, None).sum())))
     out["viterbi_chunk_values"].update(
         _bound("viterbi_chunk_values", shape, valid),
-        us_per_step=out["viterbi_chunk_values"]["ms"] * 1e3 / L_ROWS)
+        us_per_step=out["viterbi_chunk_values"]["ms"] * 1e3 / L_ROWS,
+        note="values mode: no main path launches it below 240 states, "
+             "where the exact decoder's recompute is the pointer mode")
+    # K3's pointer mode and X3 on the same rows
+    out.update(_pointer_rows(k3_args, lengths))
     for name, r in out.items():
         print(f"[kernels] {name:22s} bit-equal  kernel {r['ms']:10.3f} ms"
               f"  plain {r['plain_ms']:10.3f} ms", flush=True)
@@ -671,18 +761,19 @@ def phase_kernels(device, rng) -> dict:
 
 
 def phase_k3_main_shapes(device, rng) -> dict:
-    """K3 at the shapes phase 3's ``--exact`` region gives it: the
-    recompute of one chunk (1 x 4096) and of the region's one group (245
-    rows of 4096, each from its own carry, the last 583 long), and the
-    forward sweep over the region in one checkpoint launch (1 x 245 x
-    4096, 999,999 valid, a carry every 4096); each bit-equal to its plain
-    version, timed, with us a step (ms over the longest row's steps)
-    beside the bound.  The sweep is held chunk by chunk: the plain step
-    over every chunk from the kernel's carry entering it (all in one
-    call), which by induction is the plain chain; its ``plain_ms`` times
-    the plain chain on the first ``PLAIN_CHUNKS`` chunks
-    (``plain_positions``), which it must equal too.  A decode model and
-    inputs of its own generator."""
+    """K3 and X3 at the shapes phase 3's ``--exact`` region gives them:
+    the backtrace of one chunk (1 x 4096) and of the region's one group
+    (245 rows of 4096, each from its own carry, the last 583 long): K3's
+    pointer mode, X3's map, compose (the 245 maps as one table's chunks)
+    and chase (``_pointer_rows``); and the forward sweep over the region
+    in one checkpoint launch (1 x 245 x 4096, 999,999 valid, a carry
+    every 4096); each bit-equal to its plain version, timed, with us a
+    step (ms over the longest row's steps) beside the bound.  The sweep
+    is held chunk by chunk: the plain step over every chunk from the
+    kernel's carry entering it (all in one call), which by induction is
+    the plain chain; its ``plain_ms`` times the plain chain on the first
+    ``PLAIN_CHUNKS`` chunks (``plain_positions``), which it must equal
+    too.  A decode model and inputs of its own generator."""
     import torch
 
     from tehmm_tpu_torch.models.emission import track_log_likelihoods
@@ -707,18 +798,9 @@ def phase_k3_main_shapes(device, rng) -> dict:
                        (EXACT_CHUNKS,
                         [EXACT_CHUNK] * (EXACT_CHUNKS - 1) + [last])):
         args = inputs(B, EXACT_CHUNK, lengths)
-        got = ck.viterbi_chunk_values(*args)
-        want = dp.viterbi_chunk_values(*args)
-        assert torch.equal(got, want), \
-            f"viterbi_chunk_values disagrees with plain at {B} x 4096"
-        ms = _median_ms(lambda: ck.viterbi_chunk_values(*args), 5)
-        out[f"viterbi_chunk_values@{B}x{EXACT_CHUNK}"] = dict(
-            max_abs_err=float((got - want).abs().max()), ms=ms,
-            plain_ms=_median_ms(lambda: dp.viterbi_chunk_values(*args), 1),
-            us_per_step=ms * 1e3 / EXACT_CHUNK,
-            **_bound("viterbi_chunk_values", (B, EXACT_CHUNK, S, T, V),
-                     int(sum(lengths))))
-        del args, got, want
+        out.update(_pointer_rows(args, np.asarray(lengths),
+                                 f"@{B}x{EXACT_CHUNK}"))
+        del args
 
     L = EXACT_CHUNKS * EXACT_CHUNK
     args = inputs(1, L, [body])
@@ -2365,8 +2447,9 @@ def _region_bed(work, name, lo, hi):
 
 # the exact decoders' kernels in the order they run, with their stages
 EXACT_SPANS = (("viterbi_checkpoints", "forward sweep"),
-               ("viterbi_chunk_values", "recompute"),
-               ("viterbi_backtrace", "backtrace"))
+               ("viterbi_chunk_pointers", "recompute (pointers)"),
+               ("chunk_entry_map", "map"), ("chunk_compose", "compose"),
+               ("chunk_chase", "chase"))
 POST_EXACT_SPANS = (("forward_checkpoints", "forward sweep"),
                     ("forward_chunk_values", "recompute"),
                     ("backward_checkpoints", "backward sweep"),
@@ -2422,16 +2505,21 @@ def _print_split(stages, label, spans, rest, region, S_, tensors=2):
 
 
 def _exact_split(stages, region, S_):
-    """Print the exact decode's split and hold its launches: K3 twice a
-    group, not once a chunk in each sweep; the backtrace once a
-    chunk."""
+    """Print the exact decode's split and hold its launches: below 240
+    states K3 twice a group (the checkpoint sweep and the pointer
+    recompute) and X3's map, compose and chase once a group each, a
+    fixed number a group whatever the chunks; no value rows and no
+    backtrace a chunk."""
     n, n_chunks, groups = _print_split(stages, "[e2e] --exact", EXACT_SPANS,
                                        "rest", region, S_)
-    assert n["viterbi_checkpoints"] == groups \
-        and n["viterbi_chunk_values"] == groups, \
-        f"K3 launched {n['viterbi_checkpoints']} + " \
-        f"{n['viterbi_chunk_values']} times, not twice a group ({groups})"
-    assert n["viterbi_backtrace"] == n_chunks, n["viterbi_backtrace"]
+    a_group = ("viterbi_checkpoints", "viterbi_chunk_pointers") + X3_KERNELS
+    ran = {k: n[k] for k in a_group}
+    assert all(v == groups for v in ran.values()), \
+        f"the exact decode launched {ran}, not once each a group ({groups})"
+    assert n["viterbi_backtrace"] == 0 and n["viterbi_chunk_values"] == 0, \
+        f"the exact decode launched the value-row backtrace: {n}"
+    print(f"[e2e] --exact: {len(a_group)} launches a group, "
+          f"{len(a_group) * groups} for {n_chunks} chunks", flush=True)
 
 
 def _x1_groups(launched, region, S_, what):
@@ -2549,14 +2637,14 @@ def phase_end_to_end(work, xml, truth_bed, truth, region, small,
     print(f"[e2e] base accuracy vs planted truth: {acc:.6f}", flush=True)
     assert acc >= 0.9, f"base accuracy {acc} < 0.9"
 
-    # exact (K3 + backtrace) and stitched (K2) agree on a region
+    # exact (K3 + X3) and stitched (K2) agree on a region
     lo = n // 4
     region_bed = os.path.join(work, "region.bed")
     with open(region_bed, "w") as fh:
         fh.write(f"chr1\t{lo}\t{lo + region}\n")
-    beds = {}
+    beds, outs = {}, {}
     for flag in ("--exact", "--no-exact"):
-        out = os.path.join(work, f"region{flag}.bed")
+        out = outs[flag] = os.path.join(work, f"region{flag}.bed")
         split = _split_stages("viterbi_exact", EXACT_SPANS) \
             if flag == "--exact" else None
         t0 = time.perf_counter()
@@ -2595,7 +2683,10 @@ def phase_end_to_end(work, xml, truth_bed, truth, region, small,
         print(f"[e2e] {stage:24s} {sec:9.3f}", flush=True)
     print(f"[e2e] {'train CLI total':24s} {t_train:9.3f}", flush=True)
     print(f"[e2e] {'eval CLI total':24s} {t_eval:9.3f}", flush=True)
-    return acc, float(score)
+    # the region's --exact run, for 3d's comparison with a parent checkout
+    exact_run = ([xml, model, region_bed, "--bed", outs["--exact"],
+                  "--device", device, "--exact"], outs["--exact"])
+    return acc, float(score), exact_run
 
 
 def _read_pd(path):
@@ -2610,11 +2701,14 @@ def _read_pd(path):
 
 
 def phase_max_posterior(work, xml, truth, viterbi_score, region, small,
-                        pd_region, device="cuda", parent=None):
+                        pd_region, device="cuda", parent=None,
+                        parent_runs=()):
     """3d: max-posterior decoding, --pd and scoring through eval with
     phase 3's supervised model.  ``parent``: a checkout of an earlier
     commit, whose eval CLI must write the same stitched ``--maxPost``
-    BED, ``--maxPost --exact`` BEDs and ``--pd`` file byte for byte."""
+    BED, ``--maxPost --exact`` BEDs and ``--pd`` file byte for byte, and
+    the outputs of ``parent_runs`` too ((argv, output) of earlier eval
+    runs: phase 3's ``--exact`` BED)."""
     from tehmm_tpu_torch.cli import eval as port_eval
     from tehmm_tpu_torch.models import hmm as port_hmm
     from tehmm_tpu_torch.ops import cuda_kernels as ck
@@ -2640,7 +2734,7 @@ def phase_max_posterior(work, xml, truth, viterbi_score, region, small,
     stages.wrap(port_eval, "_write_pd_streaming", "--pd write", sync=True,
                 count=True)
 
-    same_as_parent = []                   # (argv, output) of each run
+    same_as_parent = list(parent_runs)    # (argv, output) of each run
 
     def run(bed_path, *flags, dev=device):
         argv = [xml, model, bed_path, *flags, "--device", dev]
@@ -3709,10 +3803,10 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--parent", default=None,
                     help="a checkout of an earlier commit (git archive): "
-                         "3d holds its stitched --maxPost BED, --maxPost "
-                         "--exact BEDs and --pd file, 3b its learned "
-                         "model and loglik trace, to this one's byte for "
-                         "byte")
+                         "3d holds its --exact BED of phase 3's region, "
+                         "stitched --maxPost BED, --maxPost --exact BEDs "
+                         "and --pd file, 3b its learned model and loglik "
+                         "trace, to this one's byte for byte")
     args = ap.parse_args(argv)
 
     import torch
@@ -3775,8 +3869,8 @@ def main(argv=None) -> int:
 
         ck.reset_launch_counts()
         torch.cuda.reset_peak_memory_stats()
-        _acc, viterbi_score = phase_end_to_end(work, xml, truth_bed, truth,
-                                               EXACT_REGION, 20_000)
+        _acc, viterbi_score, exact_run = phase_end_to_end(
+            work, xml, truth_bed, truth, EXACT_REGION, 20_000)
         decode_launches = dict(ck.LAUNCHES)
         print(f"[e2e] peak device memory allocated: "
               f"{torch.cuda.max_memory_allocated() / 1e6:.1f} MB",
@@ -3788,7 +3882,7 @@ def main(argv=None) -> int:
         post_launches = phase_max_posterior(
             work, xml, truth, viterbi_score, 1_000_000, 20_000, 100_000,
             parent=None if args.parent is None
-            else os.path.abspath(args.parent))
+            else os.path.abspath(args.parent), parent_runs=[exact_run])
         print(f"[post] peak device memory allocated: "
               f"{torch.cuda.max_memory_allocated() / 1e6:.1f} MB",
               flush=True)
@@ -3882,8 +3976,11 @@ def main(argv=None) -> int:
         elif base in tile_paths:
             launches[name] = sum(env_launches[path][base]
                                  for path in tile_paths[base])
-        elif base in DECODE_KERNELS and config not in engine_launches:
-            launches[name] = decode_launches[base]  # K3 at --exact's shapes
+        elif (base in DECODE_KERNELS or base == "viterbi_chunk_values") \
+                and config not in engine_launches:
+            # K3 and X3 at --exact's shapes; K3's values mode, off the
+            # path since the pointer mode, with its count of 0
+            launches[name] = decode_launches[base]
         elif base in POST_KERNELS and config and \
                 config not in engine_launches:
             launches[name] = post_launches[base]    # X1 at 3d's shapes

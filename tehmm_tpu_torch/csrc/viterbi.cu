@@ -16,13 +16,20 @@
 //                               (:2600)
 //   viterbi_backtrace_kernel    K2 backtrace, _viterbi_backtrace_kernel_v4
 //                               (:2517); also the exact decoder's
-//                               per-chunk backtrace
+//                               per-chunk backtrace past 239 states
 //   viterbi_sweep_lanes_kernel  K3, _make_viterbi_kernel_v3(carry_mode=
 //   viterbi_sweep_smem_kernel   True) (:1284) under
-//                               viterbi_chunk_values_pallas (:1492): the
-//                               exact decoder's recompute (value rows)
-//                               and, in the checkpoint mode, its forward
-//                               sweep (the carry leaving every chunk)
+//                               viterbi_chunk_values_pallas (:1492): value
+//                               rows; in the checkpoint mode the exact
+//                               decoder's forward sweep (the carry
+//                               leaving every chunk), in the pointer
+//                               mode its recompute (first-hit pointers)
+//   chunk_entry_map_kernel      no Pallas kernel: the exact decoder's
+//   chunk_compose_kernel        backtrace (tehmm_tpu/ops/dp.py
+//   chunk_chase_kernel          viterbi_backtrace_chunk, an XLA scan a
+//                               chunk) from the pointer mode's pointers:
+//                               each chunk's map of end states, the maps
+//                               composed, every chunk chased
 //
 // What bounds them on an H100: the max-plus recurrence is a sequential
 // scan over positions with an S x S max-reduction per step, so each row
@@ -37,6 +44,12 @@
 // barrier and no warp reduction on the chain, and obs read ahead of
 // it; its recompute gives every (chunk, table) a warp, each from its
 // stored carry.
+//
+// The exact decoder's backtrace is chunk-parallel: the chain that cannot
+// be split is one end state a chunk (chunk_compose_kernel); every
+// position's walk back is a dependent byte load from shared memory,
+// each chunk's row on its own block (the map from all S end states at
+// once, then the chase from the known one).
 //
 // Numerics: every operation on the value path is a float32 add,
 // subtract, max or (with the optional streams) a product rounded on its
@@ -56,19 +69,28 @@ namespace {
 
 constexpr int kBacktraceThreads = 32;
 
-// best[k] = max_i(v[i] + trans[i, j]) for this lane's states j
+// best[k] = max_i(v[i] + trans[i, j]) for this lane's states j, and
+// where ``arg`` is given arg[k] = the first i that reaches it (a strict
+// '>' from i = 0, as the backtrace kernel's); the max's operations are
+// the same either way
 template <int SPL>
 __device__ __forceinline__ void maxplus_best(const float* s_v,
                                              const float* s_trans, int S,
-                                             int lane, float (&best)[SPL]) {
+                                             int lane, float (&best)[SPL],
+                                             int* arg = nullptr) {
 #pragma unroll
   for (int k = 0; k < SPL; ++k) {
     const int j = lane + 32 * k;
     if (j < S) {
       float b = s_v[0] + s_trans[j];
-      for (int i = 1; i < S; ++i)
-        b = fmaxf(b, s_v[i] + s_trans[(int64_t)i * S + j]);
+      int at = 0;
+      for (int i = 1; i < S; ++i) {
+        const float c = s_v[i] + s_trans[(int64_t)i * S + j];
+        if (arg != nullptr && c > b) at = i;
+        b = fmaxf(b, c);
+      }
       best[k] = b;
+      if (arg != nullptr) arg[k] = at;
     }
   }
 }
@@ -159,9 +181,15 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 
 // K3, every mode: value rows (v_out), or the carry leaving every chunk of
 // `chunk` positions (ckpt [B, n_ck, S]; the carry mode is one chunk of L),
-// from each row's incoming carry over precomputed obs; every position
-// applies a transition.  Past a row's length the carry holds: the value
-// rows repeat it and the checkpoints take it.
+// or (kPtr, ptr_out [B, L, S] uint8) at every position and for every
+// state j the first-hit argmax predecessor argmax_i(v[t-1, i] +
+// trans[i, j]), from each row's incoming carry over precomputed obs;
+// every position applies a transition.  Past a row's length the carry
+// holds: the value rows repeat it, the checkpoints take it and the
+// pointers are the identity.  The pointer mode's candidates are the
+// float32 sums the backtrace kernel forms from the value rows, and its
+// argmax is the backtrace's (first hit, lowest index), so a walk over
+// the pointers is the backtrace over the values.
 //
 // The step is a chain: each position needs the whole previous row.  Two
 // variants of it, chosen by S (ops/cuda_kernels.k3_step):
@@ -181,19 +209,46 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 // streams its code from the instruction caches, so the step's code stays
 // small.
 
+// The first i with a[i] the max over a[0..NS) (row_max's pairwise tree,
+// each node keeping the index of its value: the left node holds the lower
+// indices and keeps ties, a strict '>' takes the right one), so for
+// ordered values the first hit of a scan from i = 0 with a strict '>'.
+template <int NS>
+__device__ __forceinline__ int row_argmax(const float (&src)[NS]) {
+  float a[NS];
+  int k[NS];
+#pragma unroll
+  for (int i = 0; i < NS; ++i) {
+    a[i] = src[i];
+    k[i] = i;
+  }
+#pragma unroll
+  for (int w = 1; w < NS; w <<= 1)
+#pragma unroll
+    for (int i = 0; i + w < NS; i += 2 * w)
+      if (a[i + w] > a[i]) {
+        a[i] = a[i + w];
+        k[i] = k[i + w];
+      }
+  return k[0];
+}
+
 // One step of the lanes variant: lane j's new value from the row and its
 // trans column, then the new row from every lane, renormalised in each.
-// Returns lane j's renormalised value.  Entries past S are -inf in the
+// Returns lane j's renormalised value; with ``arg``, lane j's first-hit
+// argmax predecessor (row_argmax: entries past S are -inf and never
+// win).  Entries past S are -inf in the
 // row and in trans (and the lanes past S produce -inf), so they stay
 // -inf and never change a max.  The adds and subtractions round once
 // each and the max is exact, so the bits are dp._maxplus_step's.
 template <int NS>
 __device__ __forceinline__ float lanes_step(float (&row)[NS],
                                             const float (&tc)[NS],
-                                            float o) {
+                                            float o, int* arg = nullptr) {
   float a[NS];
 #pragma unroll
   for (int i = 0; i < NS; ++i) a[i] = row[i] + tc[i];
+  if (arg != nullptr) *arg = row_argmax<NS>(a);  // off the chain
   const float nv = row_max<NS>(a) + o;
 #pragma unroll
   for (int i = 0; i < NS; ++i) a[i] = __shfl_sync(0xffffffffu, nv, i);
@@ -203,14 +258,15 @@ __device__ __forceinline__ float lanes_step(float (&row)[NS],
   return nv - m;
 }
 
-template <int NS>
+template <int NS, bool kPtr>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
     viterbi_sweep_lanes_kernel(const float* __restrict__ obs,
                                const float* __restrict__ carry,
                                const int32_t* __restrict__ lens,
                                const float* __restrict__ trans,
                                float* __restrict__ v_out,
-                               float* __restrict__ ckpt, int64_t B,
+                               float* __restrict__ ckpt,
+                               uint8_t* __restrict__ ptr_out, int64_t B,
                                int64_t L, int S, int64_t chunk,
                                int64_t n_ck) {
   extern __shared__ float smem[];  // a ring of 2 kHalf x 32 floats a warp
@@ -237,6 +293,7 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32)
   float* vb = v_out != nullptr ? v_out + b * L * S + lane : nullptr;
   float* cb = ckpt != nullptr ? ckpt + b * n_ck * S + lane : nullptr;
   float* const cb_end = cb != nullptr ? cb + n_ck * S : nullptr;
+  uint8_t* pb = kPtr ? ptr_out + b * L * S + lane : nullptr;
   int64_t to_ck = chunk;  // steps to the next checkpoint
   stage_column(ring, ob, 0, n, S, mine);
   stage_column(ring, ob, kHalf, n, S, mine);
@@ -246,35 +303,47 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32)
     const int steps = (int)min((int64_t)kHalf, n - t0);
 #pragma unroll 2
     for (int k = 0; k < steps; ++k) {
-      own = lanes_step<NS>(row, tc, src[k * 32]);
-      if (vb != nullptr) {
-        if (mine) *vb = own;
-        vb += S;
-      }
-      if (cb != nullptr && --to_ck == 0) {
-        if (mine) *cb = own;
-        cb += S;
-        to_ck = chunk;
+      if constexpr (kPtr) {
+        int arg;
+        own = lanes_step<NS>(row, tc, src[k * 32], &arg);
+        if (mine) *pb = (uint8_t)arg;
+        pb += S;
+      } else {
+        own = lanes_step<NS>(row, tc, src[k * 32]);
+        if (vb != nullptr) {
+          if (mine) *vb = own;
+          vb += S;
+        }
+        if (cb != nullptr && --to_ck == 0) {
+          if (mine) *cb = own;
+          cb += S;
+          to_ck = chunk;
+        }
       }
     }
     stage_column(ring, ob, t0 + 2 * kHalf, n, S, mine);
   }
   cp_async_wait<0>();
   if (!mine) return;
+  if constexpr (kPtr) {
+    for (int64_t t = n; t < L; ++t, pb += S) *pb = (uint8_t)lane;
+    return;
+  }
   if (vb != nullptr)
     for (int64_t t = n; t < L; ++t, vb += S) *vb = own;
   if (cb != nullptr)
     for (; cb < cb_end; cb += S) *cb = own;
 }
 
-template <int SPL>
+template <int SPL, bool kPtr>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
     viterbi_sweep_smem_kernel(const float* __restrict__ obs,
                               const float* __restrict__ carry,
                               const int32_t* __restrict__ lens,
                               const float* __restrict__ trans,
                               float* __restrict__ v_out,
-                              float* __restrict__ ckpt, int64_t B,
+                              float* __restrict__ ckpt,
+                              uint8_t* __restrict__ ptr_out, int64_t B,
                               int64_t L, int S, int64_t chunk,
                               int64_t n_ck) {
   extern __shared__ float smem[];
@@ -302,7 +371,15 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32)
       const int64_t t = t0 + d;
       if (t < n) {
         float nv[SPL];
-        maxplus_best<SPL>(s_v, s_trans, S, lane, nv);
+        int arg[SPL];
+        maxplus_best<SPL>(s_v, s_trans, S, lane, nv,
+                          kPtr ? arg : nullptr);
+        if constexpr (kPtr) {
+#pragma unroll
+          for (int q = 0; q < SPL; ++q)
+            if (lane + 32 * q < S)
+              ptr_out[(b * L + t) * S + lane + 32 * q] = (uint8_t)arg[q];
+        }
 #pragma unroll
         for (int q = 0; q < SPL; ++q)
           if (lane + 32 * q < S) nv[q] = nv[q] + ahead[d][q];
@@ -320,6 +397,10 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32)
       }
     }
   }
+  if (ptr_out != nullptr)
+    for (int64_t t = n; t < L; ++t)
+      for (int j = lane; j < S; j += 32)
+        ptr_out[(b * L + t) * S + j] = (uint8_t)j;
   if (v_out != nullptr)
     for (int64_t t = n; t < L; ++t)
       for (int j = lane; j < S; j += 32) v_out[(b * L + t) * S + j] = s_v[j];
@@ -381,6 +462,153 @@ __global__ void __launch_bounds__(kBacktraceThreads)
   entry_state[b] = state;
 }
 
+// ---------------------------------------------------------------------
+// The exact decoder's backtrace from K3's pointers (rows: every (table,
+// chunk) of a group, each [L, S] uint8): chunk_entry_map_kernel walks
+// each row back from all S end states at once (a thread an end state),
+// giving the state at position -1 for each; chunk_compose_kernel
+// composes those maps from a group's end state back, a thread a table,
+// giving every chunk's end state; chunk_chase_kernel walks each row back
+// from its own end state and writes its path.  Bound on an H100: a walk
+// is a chain of dependent loads, one a position.  Design: a block a row
+// stages the row's pointers from its end in windows of kWindowBytes, two
+// in a cp.async ring, so each step is a byte load from shared memory and
+// not a round trip to L2; rows run in parallel, so a group's backtrace
+// is one row's walk long, and the sequential part is the n lookups a
+// table of the compose.  Past a row's length the state holds, as in the
+// backtrace kernel (K3 writes identity pointers there).
+constexpr int kWindowBytes = 16384;  // pointer bytes a window holds
+constexpr int kChaseThreads = 32;
+
+// A row's windows, walked from its end: window k holds positions
+// [lo, hi), hi = n - k W, lo = max(hi - W, 0).  The ring's slots hold
+// the window's bytes from a 16-byte boundary below its first one.
+struct PtrWindows {
+  const uint8_t* row;  // the row's pointer at position 0
+  const uint8_t* end;  // one past the tensor's last byte
+  int64_t n;           // positions walked, [0, n)
+  int S, W, slot;      // states; positions a window; bytes a slot
+};
+
+__host__ __device__ __forceinline__ int window_positions(int S) {
+  return kWindowBytes / S > 0 ? kWindowBytes / S : 1;
+}
+
+// a slot holds W S bytes from up to 15 bytes before the window, to a
+// 16-byte boundary past it; a multiple of 16
+__host__ __device__ __forceinline__ int window_slot(int S) {
+  return (window_positions(S) * S + 47) & ~15;
+}
+
+// Start window k's copy into slot k & 1 and commit it (an empty group
+// past position 0).  Pieces of 16 bytes with cp.async; the tensor's last
+// piece, where it ends short of 16 bytes, by plain loads.  Call with the
+// whole block.
+__device__ __forceinline__ void stage_window(uint8_t* ring,
+                                             const PtrWindows& w,
+                                             int64_t k) {
+  const int64_t hi = w.n - k * w.W;
+  if (hi > 0) {
+    const int64_t lo = hi - w.W > 0 ? hi - w.W : 0;
+    const uintptr_t a_hi = (uintptr_t)(w.row + hi * w.S);
+    const uintptr_t a0 = (uintptr_t)(w.row + lo * w.S) & ~(uintptr_t)15;
+    const uintptr_t end = (uintptr_t)w.end;
+    uint8_t* dst = ring + (k & 1) * w.slot;
+    for (uintptr_t p = a0 + 16 * threadIdx.x; p < a_hi;
+         p += 16 * blockDim.x) {
+      uint8_t* d = dst + (p - a0);
+      if (p + 16 <= end)
+        cp_async16(reinterpret_cast<float*>(d),
+                   reinterpret_cast<const float*>(p));
+      else
+        for (uintptr_t q = p; q < end; ++q)
+          d[q - p] = *reinterpret_cast<const uint8_t*>(q);
+    }
+  }
+  cp_async_commit();
+}
+
+// Walk the row back over [0, n) from each thread's state, window by
+// window; step(t, p) sees position t's pointers at p (p[state] is the
+// state at t - 1).  Call with the whole block.
+template <typename Step>
+__device__ __forceinline__ void walk_windows(uint8_t* ring,
+                                             const PtrWindows& w,
+                                             bool walks, Step step) {
+  const int64_t n_win = (w.n + w.W - 1) / w.W;
+  stage_window(ring, w, 0);
+  stage_window(ring, w, 1);
+  for (int64_t k = 0; k < n_win; ++k) {
+    cp_async_wait<1>();  // window k is in; k + 1 may be in flight
+    __syncthreads();     // every thread's pieces of it
+    const int64_t hi = w.n - k * w.W;
+    const int64_t lo = hi - w.W > 0 ? hi - w.W : 0;
+    const int d = (int)((uintptr_t)(w.row + lo * w.S) & 15);
+    const uint8_t* p = ring + (k & 1) * w.slot + d + (hi - 1 - lo) * w.S;
+    if (walks) {
+#pragma unroll 4
+      for (int64_t t = hi - 1; t >= lo; --t, p -= w.S) step(t, p);
+    }
+    __syncthreads();  // the slot may be refilled
+    stage_window(ring, w, k + 2);
+  }
+  cp_async_wait<0>();
+}
+
+__global__ void __launch_bounds__(256)
+    chunk_entry_map_kernel(const uint8_t* __restrict__ ptrs,
+                           const int32_t* __restrict__ lens,
+                           int32_t* __restrict__ map, int64_t R, int64_t L,
+                           int S) {
+  extern __shared__ __align__(16) uint8_t s_ring[];
+  const int64_t r = blockIdx.x;
+  const int64_t n = max((int64_t)0, min((int64_t)lens[r], L));
+  const PtrWindows w{ptrs + r * L * S, ptrs + R * L * S, n, S,
+                     window_positions(S), window_slot(S)};
+  const int s = threadIdx.x;
+  int state = s;
+  walk_windows(s_ring, w, s < S,
+               [&](int64_t, const uint8_t* p) { state = p[state]; });
+  if (s < S) map[r * S + s] = state;
+}
+
+__global__ void __launch_bounds__(128)
+    chunk_compose_kernel(const int32_t* __restrict__ map,
+                         const int32_t* __restrict__ end_state,
+                         int32_t* __restrict__ ends,
+                         int32_t* __restrict__ entry, int64_t B, int64_t n,
+                         int S) {
+  const int64_t b = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  int e = end_state[b];
+  for (int64_t c = n - 1; c >= 0; --c) {
+    ends[b * n + c] = e;
+    e = map[(b * n + c) * S + e];
+  }
+  entry[b] = e;
+}
+
+__global__ void __launch_bounds__(kChaseThreads)
+    chunk_chase_kernel(const uint8_t* __restrict__ ptrs,
+                       const int32_t* __restrict__ end_state,
+                       const int32_t* __restrict__ lens,
+                       int32_t* __restrict__ path, int64_t R, int64_t L,
+                       int S) {
+  extern __shared__ __align__(16) uint8_t s_ring[];
+  const int64_t r = blockIdx.x;
+  const int64_t n = max((int64_t)0, min((int64_t)lens[r], L));
+  const PtrWindows w{ptrs + r * L * S, ptrs + R * L * S, n, S,
+                     window_positions(S), window_slot(S)};
+  int state = end_state[r];
+  int32_t* out = path + r * L;
+  for (int64_t t = n + threadIdx.x; t < L; t += blockDim.x) out[t] = state;
+  walk_windows(s_ring, w, threadIdx.x == 0,
+               [&](int64_t t, const uint8_t* p) {
+                 out[t] = state;
+                 state = p[state];
+               });
+}
+
 template <int SPL>
 int launch_fwd(const void* sym, const void* lens, const void* start,
                const void* trans, const void* em, void* v_out,
@@ -401,6 +629,7 @@ int launch_fwd(const void* sym, const void* lens, const void* start,
   return (int)cudaGetLastError();
 }
 
+// K3's arguments: exactly one of v_out, ckpt and ptr_out is non-null
 struct SweepArgs {
   const float* obs;
   const float* carry;
@@ -408,6 +637,7 @@ struct SweepArgs {
   const float* trans;
   float* v_out;
   float* ckpt;
+  uint8_t* ptr_out;
   int64_t B, L;
   int S;
   int64_t chunk, n_ck;
@@ -415,35 +645,88 @@ struct SweepArgs {
 
 template <int NS>
 int launch_sweep_lanes(const SweepArgs& a, cudaStream_t stream) {
+  const auto kernel = a.ptr_out != nullptr
+                          ? viterbi_sweep_lanes_kernel<NS, true>
+                          : viterbi_sweep_lanes_kernel<NS, false>;
   const size_t smem = sizeof(float) * kWarpsPerBlock * 2 * kHalf * 32;
   const int64_t grid = (a.B + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  viterbi_sweep_lanes_kernel<NS><<<(unsigned)grid, kWarpsPerBlock * 32,
-                                   smem, stream>>>(a.obs, a.carry, a.lens,
-                                             a.trans, a.v_out, a.ckpt, a.B,
-                                             a.L, a.S, a.chunk, a.n_ck);
+  kernel<<<(unsigned)grid, kWarpsPerBlock * 32, smem, stream>>>(
+      a.obs, a.carry, a.lens, a.trans, a.v_out, a.ckpt, a.ptr_out, a.B, a.L,
+      a.S, a.chunk, a.n_ck);
   return (int)cudaGetLastError();
 }
 
 template <int SPL>
 int launch_sweep_smem(const SweepArgs& a, cudaStream_t stream) {
+  const auto kernel = a.ptr_out != nullptr
+                          ? viterbi_sweep_smem_kernel<SPL, true>
+                          : viterbi_sweep_smem_kernel<SPL, false>;
   const size_t smem =
       sizeof(float) * ((size_t)a.S * a.S + (size_t)kWarpsPerBlock * a.S);
-  cudaError_t err = allow_smem(viterbi_sweep_smem_kernel<SPL>, smem);
+  cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
   const int64_t grid = (a.B + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  viterbi_sweep_smem_kernel<SPL><<<(unsigned)grid, kWarpsPerBlock * 32,
-                                   smem, stream>>>(
-      a.obs, a.carry, a.lens, a.trans, a.v_out, a.ckpt, a.B, a.L, a.S,
-      a.chunk, a.n_ck);
+  kernel<<<(unsigned)grid, kWarpsPerBlock * 32, smem, stream>>>(
+      a.obs, a.carry, a.lens, a.trans, a.v_out, a.ckpt, a.ptr_out, a.B, a.L,
+      a.S, a.chunk, a.n_ck);
   return (int)cudaGetLastError();
 }
 
 SweepArgs sweep_args(const void* obs, const void* carry, const void* lens,
-                     const void* trans, void* v_out, void* ckpt, int64_t B,
-                     int64_t L, int S, int64_t chunk, int64_t n_ck) {
+                     const void* trans, void* v_out, void* ckpt,
+                     void* ptr_out, int64_t B, int64_t L, int S,
+                     int64_t chunk, int64_t n_ck) {
   return SweepArgs{(const float*)obs, (const float*)carry,
                    (const int32_t*)lens, (const float*)trans,
-                   (float*)v_out, (float*)ckpt, B, L, S, chunk, n_ck};
+                   (float*)v_out, (float*)ckpt, (uint8_t*)ptr_out,
+                   B, L, S, chunk, n_ck};
+}
+
+int sweep_lanes(const SweepArgs& a, cudaStream_t st) {
+  if ((a.v_out != nullptr) + (a.ckpt != nullptr) + (a.ptr_out != nullptr) !=
+      1)
+    return (int)cudaErrorInvalidValue;
+  // the row's registers: S rounded up to a multiple of 4
+  switch ((a.S + 3) / 4) {
+    case 1:
+      return launch_sweep_lanes<4>(a, st);
+    case 2:
+      return launch_sweep_lanes<8>(a, st);
+    case 3:
+      return launch_sweep_lanes<12>(a, st);
+    case 4:
+      return launch_sweep_lanes<16>(a, st);
+    case 5:
+      return launch_sweep_lanes<20>(a, st);
+    case 6:
+      return launch_sweep_lanes<24>(a, st);
+    case 7:
+      return launch_sweep_lanes<28>(a, st);
+    case 8:
+      return launch_sweep_lanes<32>(a, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+int sweep_smem(const SweepArgs& a, cudaStream_t st) {
+  if ((a.v_out != nullptr) + (a.ckpt != nullptr) + (a.ptr_out != nullptr) !=
+      1)
+    return (int)cudaErrorInvalidValue;
+  // to 32 states only where the shared step is forced (the lanes step
+  // takes them)
+  switch (states_per_lane(a.S)) {
+    case 1:
+      return launch_sweep_smem<1>(a, st);
+    case 2:
+      return launch_sweep_smem<2>(a, st);
+    case 4:
+      return launch_sweep_smem<4>(a, st);
+    case 8:
+      return launch_sweep_smem<8>(a, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -488,30 +771,9 @@ int tehmm_viterbi_sweep_lanes(const void* obs, const void* carry,
                               void* v_out, void* ckpt, int64_t B, int64_t L,
                               int S, int64_t chunk, int64_t n_ck,
                               void* stream) {
-  const SweepArgs a = sweep_args(obs, carry, lens, trans, v_out, ckpt, B, L,
-                                 S, chunk, n_ck);
-  cudaStream_t st = (cudaStream_t)stream;
-  // the row's registers: S rounded up to a multiple of 4
-  switch ((S + 3) / 4) {
-    case 1:
-      return launch_sweep_lanes<4>(a, st);
-    case 2:
-      return launch_sweep_lanes<8>(a, st);
-    case 3:
-      return launch_sweep_lanes<12>(a, st);
-    case 4:
-      return launch_sweep_lanes<16>(a, st);
-    case 5:
-      return launch_sweep_lanes<20>(a, st);
-    case 6:
-      return launch_sweep_lanes<24>(a, st);
-    case 7:
-      return launch_sweep_lanes<28>(a, st);
-    case 8:
-      return launch_sweep_lanes<32>(a, st);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return sweep_lanes(sweep_args(obs, carry, lens, trans, v_out, ckpt,
+                                nullptr, B, L, S, chunk, n_ck),
+                     (cudaStream_t)stream);
 }
 
 int tehmm_viterbi_sweep_smem(const void* obs, const void* carry,
@@ -519,19 +781,69 @@ int tehmm_viterbi_sweep_smem(const void* obs, const void* carry,
                              void* v_out, void* ckpt, int64_t B, int64_t L,
                              int S, int64_t chunk, int64_t n_ck,
                              void* stream) {
-  const SweepArgs a = sweep_args(obs, carry, lens, trans, v_out, ckpt, B, L,
-                                 S, chunk, n_ck);
-  cudaStream_t st = (cudaStream_t)stream;
-  switch (states_per_lane(S)) {  // the lanes step takes S <= 32
-    case 2:
-      return launch_sweep_smem<2>(a, st);
-    case 4:
-      return launch_sweep_smem<4>(a, st);
-    case 8:
-      return launch_sweep_smem<8>(a, st);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return sweep_smem(sweep_args(obs, carry, lens, trans, v_out, ckpt,
+                               nullptr, B, L, S, chunk, n_ck),
+                    (cudaStream_t)stream);
+}
+
+// K3's pointer mode, either step variant: ptr_out [B, L, S] uint8, the
+// first-hit argmax predecessor of every state at every position (the
+// identity at and past a row's length).
+int tehmm_viterbi_pointers_lanes(const void* obs, const void* carry,
+                                 const void* lens, const void* trans,
+                                 void* ptr_out, int64_t B, int64_t L, int S,
+                                 void* stream) {
+  return sweep_lanes(sweep_args(obs, carry, lens, trans, nullptr, nullptr,
+                                ptr_out, B, L, S, 0, 0),
+                     (cudaStream_t)stream);
+}
+
+int tehmm_viterbi_pointers_smem(const void* obs, const void* carry,
+                                const void* lens, const void* trans,
+                                void* ptr_out, int64_t B, int64_t L, int S,
+                                void* stream) {
+  return sweep_smem(sweep_args(obs, carry, lens, trans, nullptr, nullptr,
+                               ptr_out, B, L, S, 0, 0),
+                    (cudaStream_t)stream);
+}
+
+// The pointer backtrace's three launches (S <= 256, uint8 pointers
+// [R, L, S] 16-byte aligned; int32 lengths [R]).  map: the state at
+// position -1 of each row from each end state, int32 [R, S].
+int tehmm_chunk_entry_map(const void* ptrs, const void* lens, void* map,
+                          int64_t R, int64_t L, int S, void* stream) {
+  if (S < 1 || S > 256) return (int)cudaErrorInvalidValue;
+  const size_t smem = 2 * (size_t)window_slot(S);
+  const int threads = 32 * ((S + 31) / 32);
+  chunk_entry_map_kernel<<<(unsigned)R, threads, smem,
+                           (cudaStream_t)stream>>>(
+      (const uint8_t*)ptrs, (const int32_t*)lens, (int32_t*)map, R, L, S);
+  return (int)cudaGetLastError();
+}
+
+// compose: map [B, n, S] from end_state [B] back; ends [B, n] (each
+// chunk's end state), entry [B] (the state before the first chunk).
+int tehmm_chunk_compose(const void* map, const void* end_state, void* ends,
+                        void* entry, int64_t B, int64_t n, int S,
+                        void* stream) {
+  const int64_t grid = (B + 127) / 128;
+  chunk_compose_kernel<<<(unsigned)grid, 128, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)map, (const int32_t*)end_state, (int32_t*)ends,
+      (int32_t*)entry, B, n, S);
+  return (int)cudaGetLastError();
+}
+
+// chase: path [R, L] of each row from its end state [R].
+int tehmm_chunk_chase(const void* ptrs, const void* end_state,
+                      const void* lens, void* path, int64_t R, int64_t L,
+                      int S, void* stream) {
+  if (S < 1 || S > 256) return (int)cudaErrorInvalidValue;
+  const size_t smem = 2 * (size_t)window_slot(S);
+  chunk_chase_kernel<<<(unsigned)R, kChaseThreads, smem,
+                       (cudaStream_t)stream>>>(
+      (const uint8_t*)ptrs, (const int32_t*)end_state, (const int32_t*)lens,
+      (int32_t*)path, R, L, S);
+  return (int)cudaGetLastError();
 }
 
 int tehmm_viterbi_backtrace(const void* trans, const void* rows,

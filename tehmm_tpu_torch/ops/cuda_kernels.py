@@ -11,7 +11,14 @@ bounds each on an H100 and how its design answers it):
   viterbi_backtrace     K2 backtrace, ``_viterbi_backtrace_kernel_v4``
   viterbi_chunk_values  K3, ``viterbi_chunk_values_pallas``
   (viterbi_carry,       (the carry mode, and the carries of many chunks
-  viterbi_checkpoints)  in one launch: the exact decoder's forward sweep)
+  viterbi_checkpoints,  in one launch: the exact decoder's forward sweep;
+  viterbi_chunk_        the pointer mode, first-hit pointers in place of
+  pointers)             value rows: the exact decoder's recompute)
+  chunk_entry_map       X3: no Pallas kernel; ``dp.viterbi_backtrace_
+  chunk_compose         chunk``'s XLA scan a chunk, as the exact
+  chunk_chase           decoder's backtrace from K3's pointers: every
+                        chunk's map of end states, the maps composed,
+                        every chunk chased in parallel
   em_fwd                K1 forward, ``_make_forward_kernel_v4``
   em_bwd_stats          K1 reverse, ``_make_bwd_stats_kernel_v4``
   post_decode           K4 decode, ``_make_post_decode_kernel_v4``
@@ -125,7 +132,9 @@ LAUNCHES = {
     name: 0 for name in (
         [k + v for k in STREAM_KERNELS for v in STREAM_VARIANTS]
         + ["viterbi_backtrace", "viterbi_chunk_values",
-           "viterbi_checkpoints", "fwd_chunk", "fwd_checkpoints",
+           "viterbi_checkpoints", "viterbi_chunk_pointers",
+           "chunk_entry_map", "chunk_compose", "chunk_chase",
+           "fwd_chunk", "fwd_checkpoints",
            "bwd_chunk", "bwd_checkpoints", "viterbi_values", "fwd_prob",
            "bwd_prob", "fwd_scaled", "bwd_scaled", "viterbi_ptrs",
            "pointer_chase", "viterbi_chunk_tile", "fwd_chunk_tile",
@@ -155,6 +164,7 @@ STREAMING_MAX_STATES = 1024
 _STREAMING_ENVELOPE_ITEM = (
     "ROADMAP Queue 2: the scan tile beyond 1024 states"
 )
+_TILE_POINTERS_ITEM = "ROADMAP speed item 19: K3's pointer mode on the tile"
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -255,6 +265,17 @@ def load_library() -> ctypes.CDLL:
                    lib.tehmm_viterbi_sweep_smem):
             fn.restype = i32
             fn.argtypes = [ptr] * 6 + [i64, i64, i32, i64, i64, ptr]
+        for fn in (lib.tehmm_viterbi_pointers_lanes,
+                   lib.tehmm_viterbi_pointers_smem):
+            fn.restype = i32
+            fn.argtypes = [ptr] * 5 + [i64, i64, i32, ptr]
+        lib.tehmm_chunk_entry_map.restype = i32
+        lib.tehmm_chunk_entry_map.argtypes = [ptr] * 3 + [i64, i64, i32,
+                                                          ptr]
+        lib.tehmm_chunk_compose.restype = i32
+        lib.tehmm_chunk_compose.argtypes = [ptr] * 4 + [i64, i64, i32, ptr]
+        lib.tehmm_chunk_chase.restype = i32
+        lib.tehmm_chunk_chase.argtypes = [ptr] * 4 + [i64, i64, i32, ptr]
         lib.tehmm_viterbi_backtrace.restype = i32
         lib.tehmm_viterbi_backtrace.argtypes = [
             ptr, ptr, i64, ptr, i64, ptr, ptr, ptr, ptr, i64, i64, i32, ptr,
@@ -619,6 +640,8 @@ def viterbi_backtrace(log_trans, rows, entry, end_state, lengths):
 K3_LANES_MAX_STATES = 32
 _K3_ENTRIES = {"lanes": "tehmm_viterbi_sweep_lanes",
                "shared": "tehmm_viterbi_sweep_smem"}
+_K3_POINTER_ENTRIES = {"lanes": "tehmm_viterbi_pointers_lanes",
+                       "shared": "tehmm_viterbi_pointers_smem"}
 
 
 def k3_step(S: int) -> str:
@@ -629,16 +652,24 @@ def k3_step(S: int) -> str:
     return "shared" if sweep_fits(S) else "tile"
 
 
-def _k3_launch(name, log_trans, obs, v_hat_init, lengths, out, values,
+def _k3_launch(name, log_trans, obs, v_hat_init, lengths, out, mode,
                chunk=0, n_ck=0):
-    """Launch K3 into ``out``: the value rows (``values``), else the
-    carry leaving every chunk of ``chunk`` positions, ``n_ck`` of them
-    (the tile takes only the carry mode: ``chunk`` = L, one)."""
+    """Launch K3 into ``out`` in ``mode``: ``"values"`` (the value
+    rows), ``"carry"`` (the carry leaving every chunk of ``chunk``
+    positions, ``n_ck`` of them; the tile takes only this one, with
+    ``chunk`` = L) or ``"pointers"`` (the first-hit pointers; not on the
+    tile)."""
     B, L, S = obs.shape
     step = k3_step(S)
-    ptrs = (obs.data_ptr(), v_hat_init.data_ptr(), lengths.data_ptr(),
-            log_trans.data_ptr(), out.data_ptr() if values else None,
-            None if values else out.data_ptr(), B, L, S)
+    head = (obs.data_ptr(), v_hat_init.data_ptr(), lengths.data_ptr(),
+            log_trans.data_ptr())
+    if mode == "pointers":
+        _launch_streaming(name, _K3_POINTER_ENTRIES[step],
+                          head + (out.data_ptr(), B, L, S), obs.device)
+        return
+    values = mode == "values"
+    ptrs = head + (out.data_ptr() if values else None,
+                   None if values else out.data_ptr(), B, L, S)
     if step == "tile":
         _launch_streaming("viterbi_chunk_tile", "tehmm_viterbi_carry_tile",
                           ptrs, obs.device)
@@ -672,7 +703,7 @@ def viterbi_chunk_values(log_trans, obs, v_hat_init, lengths):
     out = torch.empty((B, L, S), dtype=torch.float32, device=dev)
     if B:
         _k3_launch("viterbi_chunk_values", log_trans, obs, v_hat_init,
-                   lengths, out, True)
+                   lengths, out, "values")
     return out
 
 
@@ -687,7 +718,7 @@ def viterbi_carry(log_trans, obs, v_hat_init, lengths):
     out = torch.empty((B, S), dtype=torch.float32, device=dev)
     if B:
         _k3_launch("viterbi_chunk_values", log_trans, obs, v_hat_init,
-                   lengths, out, False, L, 1)
+                   lengths, out, "carry", L, 1)
     return out
 
 
@@ -714,7 +745,7 @@ def viterbi_checkpoints(log_trans, obs, v_hat_init, lengths, chunk):
         return out
     if k3_step(S) != "tile":
         _k3_launch("viterbi_checkpoints", log_trans, obs, v_hat_init,
-                   lengths, out, False, chunk, n_ck)
+                   lengths, out, "carry", chunk, n_ck)
         return out
     carry = v_hat_init
     for k in range(n_ck):
@@ -723,6 +754,201 @@ def viterbi_checkpoints(log_trans, obs, v_hat_init, lengths, chunk):
         carry = viterbi_carry(log_trans, part, carry, lens)
         out[:, k] = carry
     return out
+
+
+def viterbi_chunk_pointers_plain(log_trans, obs, v_hat_init, lengths):
+    """Plain version of ``viterbi_chunk_pointers``:
+    ``dp.viterbi_chunk_values``' loop with the first-hit argmax of every
+    step's candidates kept (``torch.max``: the first maximal index)."""
+    B, L, S = obs.shape
+    lens = lengths.to(torch.int64)
+    ident = torch.arange(S, device=obs.device).expand(B, S)
+    ptrs = torch.empty((B, L, S), dtype=pointer_dtype(S), device=obs.device)
+    v_hat = v_hat_init
+    for t in range(L):
+        best, arg = (v_hat[:, :, None] + log_trans[None, :, :]).max(dim=1)
+        new_hat, _ = dp._renorm(best + obs[:, t])
+        valid_t = t < lens
+        v_hat = dp._mask_carry(new_hat, v_hat, valid_t)
+        ptrs[:, t] = torch.where(valid_t[:, None], arg, ident)
+    return ptrs
+
+
+def viterbi_chunk_pointers(log_trans, obs, v_hat_init, lengths):
+    """K3 in pointer mode: at every position of every row and for every
+    state j, the first-hit argmax predecessor argmax_i(v[t-1, i] +
+    trans[i, j]) over ``dp.viterbi_chunk_values``' value rows (row -1 the
+    carry ``v_hat_init``), ``pointer_dtype(S)`` [B, L, S]; the identity at
+    and past a row's length (int32 lengths).  Walking them back from a
+    state is ``dp.viterbi_backtrace_chunk`` on the value rows (the same
+    float32 candidates, ties to the lowest index).  The exact decoder's
+    recompute: one launch over every (table, chunk) of a group, 1 byte a
+    state a position in place of 4.
+
+    K3's kernels (``k3_step``) with the argmax kept beside the max, off the
+    chain (the lanes step's pairwise tree, the shared step's scan), so the
+    value chain's bits are the other modes'.  Bound and design as
+    ``viterbi_chunk_values``; counted as ``viterbi_chunk_pointers``.  The
+    tile (S > 239) has no pointer mode: it raises there."""
+    B, L, S = obs.shape
+    dev = _check_sweep(log_trans, obs, v_hat_init, lengths, "v_hat_init")
+    if _device_kind(dev) == "cpu":
+        return viterbi_chunk_pointers_plain(log_trans, obs, v_hat_init,
+                                            lengths)
+    if k3_step(S) == "tile":
+        raise NotImplementedError(
+            f"viterbi_chunk_pointers: S={S} takes K3's tile, which has no "
+            f"pointer mode; not ported yet ({_TILE_POINTERS_ITEM})")
+    out = torch.empty((B, L, S), dtype=pointer_dtype(S), device=dev)
+    if B:
+        _k3_launch("viterbi_chunk_pointers", log_trans, obs, v_hat_init,
+                   lengths, out, "pointers")
+    return out
+
+
+# ---------------------------------------------------------------------
+# X3: the exact decoder's backtrace from K3's pointers
+# ---------------------------------------------------------------------
+
+def _check_pointer_rows(ptrs, lengths, what):
+    """Checks shared by the map and the chase; returns the device.  On the
+    card the pointers are uint8 (S <= 256) and 16-byte aligned (the
+    kernels stage them in 16-byte pieces)."""
+    R, L, S = ptrs.shape
+    dev = ptrs.device
+    _check(ptrs, "ptrs", pointer_dtype(S), (R, L, S), dev)
+    _check(lengths, "lengths", torch.int32, (R,), dev)
+    for t, name in ((ptrs, "ptrs"), (lengths, "lengths")):
+        _check_contiguous(t, name)
+    if _device_kind(dev) == "cuda":
+        if S > MAX_STATES:
+            raise NotImplementedError(
+                f"{what}: S={S} has uint16 pointers, which only K3's tile "
+                f"would write; not ported yet ({_TILE_POINTERS_ITEM})")
+        if ptrs.data_ptr() % 16:
+            raise ValueError(f"{what}: ptrs must be 16-byte aligned")
+    return dev
+
+
+def chunk_entry_map_plain(ptrs, lengths):
+    """Plain version of ``chunk_entry_map``: a loop over positions from the
+    end, batched over rows and end states."""
+    R, L, S = ptrs.shape
+    lens = lengths.to(torch.int64)
+    state = torch.arange(S, device=ptrs.device).repeat(R, 1)
+    for t in range(L - 1, -1, -1):
+        prev = ptrs[:, t].to(torch.int64).gather(1, state)
+        state = torch.where((t < lens)[:, None], prev, state)
+    return state.to(torch.int32)
+
+
+def chunk_entry_map(ptrs, lengths):
+    """X3's map: int32 [R, S], for every row of pointers [R, L, S]
+    (``viterbi_chunk_pointers``; int32 lengths [R]) and every end state s,
+    the state at position -1 that the walk back from s at position L-1
+    reaches (state = ptrs[t, state] from t = L-1 down to 0, held at and
+    past the row's length).
+
+    No Pallas counterpart: the reference walks each chunk once, from its
+    one end state (``dp.viterbi_backtrace_chunk``, an XLA scan a chunk).
+    Bound on an H100: each walk is a chain of dependent loads, one a
+    position.  Design (``csrc/viterbi.cu``): a block a row, a thread an
+    end state, the row's pointers staged from its end in 16 KB windows
+    through a two-slot cp.async ring, so a step is a byte load from shared
+    memory; all rows at once."""
+    R, L, S = ptrs.shape
+    dev = _check_pointer_rows(ptrs, lengths, "chunk_entry_map")
+    if _device_kind(dev) == "cpu":
+        return chunk_entry_map_plain(ptrs, lengths)
+    out = torch.empty((R, S), dtype=torch.int32, device=dev)
+    if R:
+        _launch_streaming("chunk_entry_map", "tehmm_chunk_entry_map",
+                          (ptrs.data_ptr(), lengths.data_ptr(),
+                           out.data_ptr(), R, L, S), dev)
+    return out
+
+
+def chunk_compose_plain(maps, end_state):
+    """Plain version of ``chunk_compose``: a loop over chunks from the
+    last, batched over tables."""
+    B, n, _S = maps.shape
+    e = end_state.to(torch.int64)
+    ends = torch.empty((B, n), dtype=torch.int32, device=maps.device)
+    for c in range(n - 1, -1, -1):
+        ends[:, c] = e
+        e = maps[:, c].to(torch.int64).gather(1, e[:, None])[:, 0]
+    return ends, e.to(torch.int32)
+
+
+def chunk_compose(maps, end_state):
+    """X3's compose: (ends int32 [B, n], entry int32 [B]) from the maps
+    int32 [B, n, S] of a table's n consecutive chunks (``chunk_entry_map``)
+    and the state at the last chunk's end, int32 [B]: ends[:, n-1] is
+    that state, ends[:, c-1] = maps[:, c, ends[:, c]], and entry the state
+    before the first chunk (maps[:, 0, ends[:, 0]]).
+
+    The backtrace's one chain that cannot be split: n lookups a table.
+    Design: a thread a table, the maps read from L2 where the map kernel
+    left them; on the card, so the end states pass from the map to the
+    chase, and from group to group, with no copy to the host."""
+    B, n, S = maps.shape
+    dev = maps.device
+    _check(maps, "maps", torch.int32, (B, n, S), dev)
+    _check(end_state, "end_state", torch.int32, (B,), dev)
+    for t, name in ((maps, "maps"), (end_state, "end_state")):
+        _check_contiguous(t, name)
+    if _device_kind(dev) == "cpu":
+        return chunk_compose_plain(maps, end_state)
+    _check_index_range(end_state, S, "end_state")
+    ends = torch.empty((B, n), dtype=torch.int32, device=dev)
+    entry = torch.empty((B,), dtype=torch.int32, device=dev)
+    if B:
+        _launch_streaming("chunk_compose", "tehmm_chunk_compose",
+                          (maps.data_ptr(), end_state.data_ptr(),
+                           ends.data_ptr(), entry.data_ptr(), B, n, S), dev)
+    return ends, entry
+
+
+def chunk_chase_plain(ptrs, end_state, lengths):
+    """Plain version of ``chunk_chase``: a loop over positions from the
+    end, batched over rows."""
+    R, L, _S = ptrs.shape
+    lens = lengths.to(torch.int64)
+    state = end_state.to(torch.int64)
+    path = torch.empty((R, L), dtype=torch.int32, device=ptrs.device)
+    for t in range(L - 1, -1, -1):
+        path[:, t] = state
+        prev = ptrs[:, t].to(torch.int64).gather(1, state[:, None])[:, 0]
+        state = torch.where(t < lens, prev, state)
+    return path
+
+
+def chunk_chase(ptrs, end_state, lengths):
+    """X3's chase: the path int32 [R, L] of every row of pointers [R, L, S]
+    from its end state int32 [R] (``chunk_compose``'s ends): path[t] is
+    the state at t, path[t-1] = ptrs[t, path[t]] below the row's length
+    (int32 lengths [R]), the end state held at and past it.  With the
+    pointers of ``viterbi_chunk_pointers`` this is the path of
+    ``dp.viterbi_backtrace_chunk`` on the value rows.
+
+    No Pallas counterpart (``dp.viterbi_backtrace_chunk``, an XLA scan a
+    chunk).  Bound on an H100: one dependent load a position.  Design:
+    ``chunk_entry_map``'s block a row and staged windows, one thread
+    walking; every row at once."""
+    R, L, S = ptrs.shape
+    dev = _check_pointer_rows(ptrs, lengths, "chunk_chase")
+    _check(end_state, "end_state", torch.int32, (R,), dev)
+    _check_contiguous(end_state, "end_state")
+    if _device_kind(dev) == "cpu":
+        return chunk_chase_plain(ptrs, end_state, lengths)
+    _check_index_range(end_state, S, "end_state")
+    path = torch.empty((R, L), dtype=torch.int32, device=dev)
+    if R and L:
+        _launch_streaming("chunk_chase", "tehmm_chunk_chase",
+                          (ptrs.data_ptr(), end_state.data_ptr(),
+                           lengths.data_ptr(), path.data_ptr(), R, L, S),
+                          dev)
+    return path
 
 
 # ---------------------------------------------------------------------

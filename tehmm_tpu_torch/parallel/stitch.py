@@ -17,7 +17,9 @@ On CUDA tensors the decoders run the hand-written kernels
 (``viterbi_fused``) where K2 takes the model and, beyond its envelope,
 obs and ``dp.viterbi_streaming`` (K5 and the backtrace kernel;
 ``viterbi_route``); exact Viterbi K3 (``viterbi_checkpoints``,
-``viterbi_chunk_values``) and the backtrace kernel; stitched
+``viterbi_chunk_pointers``) and X3's backtrace from its pointers
+(``chunk_entry_map``, ``chunk_compose``, ``chunk_chase``; past 239
+states ``viterbi_chunk_values`` and the backtrace kernel); stitched
 max-posterior K4 (``posterior_decode_fused``) where K4 takes the model
 and, beyond, obs and the log-space scans K7a/K7b (``forward_scaled``,
 ``backward_scaled``) with ``dp.posterior_scaled`` (``maxpost_route``);
@@ -435,8 +437,10 @@ def _exact_obs(params, mats, tables, gauss_params, weight_arrays, Lc):
 
 # The exact decoders' groups of chunks: the f32[B, chunks x Lc, S]
 # tensors a group holds stay under this many bytes together: the exact
-# Viterbi's obs and value rows, the exact posteriors' obs, alpha rows,
-# beta rows and gamma (POSTERIOR_GROUP_TENSORS).
+# Viterbi's obs and value rows (below 240 states uint8 pointers in their
+# place, a quarter of the bytes; the groups are the same), the exact
+# posteriors' obs, alpha rows, beta rows and gamma
+# (POSTERIOR_GROUP_TENSORS).
 EXACT_GROUP_BYTES = 1 << 28
 POSTERIOR_GROUP_TENSORS = 4
 
@@ -449,6 +453,45 @@ def exact_group_chunks(B: int, Lc: int, S: int, tensors: int = 2) -> int:
     return max(1, EXACT_GROUP_BYTES // (tensors * 4 * max(B, 1) * Lc * S))
 
 
+def _chase_group(log_trans, obs, entries, chunk_lens, end_state, device):
+    """The backtrace of one group from first-hit pointers (K3 to 239
+    states): rows are the group's (table, chunk) pairs, obs f32[B n, Lc,
+    S], ``entries`` the carry entering each row f32[B n, S], ``chunk_lens``
+    each row's valid positions [B, n].  One launch each: K3's pointer
+    mode, the map of every row's end states, the maps composed from the
+    group's end state int32[B] back, every row chased from its own end
+    state.  Returns (path int32[B, n Lc], the state before the group)."""
+    B, n = chunk_lens.shape
+    lens = _to_device(chunk_lens.reshape(-1), device)
+    ptrs = ck.viterbi_chunk_pointers(log_trans, obs, entries, lens)
+    maps = ck.chunk_entry_map(ptrs, lens)
+    ends, entry_state = ck.chunk_compose(maps.view(B, n, -1), end_state)
+    path = ck.chunk_chase(ptrs, ends.view(-1), lens)
+    return path.view(B, -1), entry_state
+
+
+def _backtrace_group(log_trans, obs, entries, chunk_lens, end_state,
+                     device):
+    """``_chase_group``'s function past 239 states, where K3 runs the tile
+    and has no pointer mode: one recompute launch of value rows for the
+    group, then ``ck.viterbi_backtrace`` a chunk, the chunks in
+    reverse."""
+    B, n = chunk_lens.shape
+    Lc, S = obs.shape[1:]
+    rows = ck.viterbi_chunk_values(
+        log_trans, obs, entries, _to_device(chunk_lens.reshape(-1), device),
+    ).view(B, n, Lc, S)
+    entries = entries.view(B, n, S)
+    lens_by_chunk = _to_device(chunk_lens.T, device)          # [n, B]
+    pieces = []
+    for k in reversed(range(n)):
+        path, end_state = ck.viterbi_backtrace(
+            log_trans, rows[:, k], entries[:, k], end_state,
+            lens_by_chunk[k])
+        pieces.append(path)
+    return torch.stack(pieces[::-1], dim=1).view(B, n * Lc), end_state
+
+
 def viterbi_exact(
     params: HmmParams,
     tables: Sequence,
@@ -458,20 +501,22 @@ def viterbi_exact(
 ) -> list[np.ndarray]:
     """EXACT chunked Viterbi via checkpointed carries: a forward sweep
     stores only the O(S) carry entering every chunk; the backtrace sweep
-    recomputes each chunk's value rows from its stored carry and walks
-    the optimal path backwards through them.  Bit-identical to the
-    monolithic decode for ANY model.
+    recomputes each chunk from its stored carry and walks the optimal
+    path backwards.  Bit-identical to the monolithic decode for ANY
+    model.
 
     Chunks go in groups of ``exact_group_chunks`` (``EXACT_GROUP_BYTES``
     bounds a group's obs and value rows, and so the device memory): each
-    group's
-    obs is formed in one call, the forward sweep is one K3 checkpoint
-    launch a group (``ck.viterbi_checkpoints``, the carry handed from
-    group to group), and the recompute one K3 launch a group whose rows
-    are every (table, chunk) of it, each from its chunk's stored carry
-    (``ck.viterbi_chunk_values``); then ``ck.viterbi_backtrace`` walks
-    the chunks in reverse on slices of those rows, and a group's path
-    comes to the host in one copy.  Batched across tables."""
+    group's obs is formed in one call, the forward sweep is one K3
+    checkpoint launch a group (``ck.viterbi_checkpoints``, the carry
+    handed from group to group).  The backtrace takes the groups in
+    reverse, each in a fixed number of launches whose rows are every
+    (table, chunk) of it (``_chase_group``: K3's first-hit pointers, each
+    chunk's map of end states, the maps composed, every chunk chased),
+    and a group's path comes to the host in one copy.  Past 239 states,
+    where K3 is the tile's carry mode, the group's value rows and a
+    backtrace launch a chunk (``_backtrace_group``).  Batched across
+    tables."""
     mats = [np.ascontiguousarray(getattr(t, "symbols", t)) for t in tables]
     B = len(mats)
     S = params.num_states
@@ -500,11 +545,12 @@ def viterbi_exact(
         entries.append(torch.cat([carry[:, None], ckpts[:, :-1]], dim=1))
         carry = ckpts[:, -1].contiguous()
 
-    # ---- backtrace sweep: a group's chunks recomputed in one launch ----
+    # ---- backtrace sweep: a group at a time, the last first ----
     end_state = torch.argmax(carry, dim=-1).to(torch.int32)
     max_len = int(true_lens.max())
     if max_len == 0:                  # every table empty
         return [np.zeros(0, np.int32) for _ in range(B)]
+    back = _backtrace_group if ck.k3_step(S) == "tile" else _chase_group
     paths = np.zeros((B, max_len), np.int32)
     for g in reversed(range(len(groups))):
         c0, c1 = groups[g]
@@ -514,19 +560,9 @@ def viterbi_exact(
         lo = 1 + c0 * Lc
         starts = lo + Lc * np.arange(n)
         chunk_lens = np.clip(true_lens[:, None] - starts[None, :], 0, Lc)
-        rows = ck.viterbi_chunk_values(
+        group_path, end_state = back(
             log_trans, obs.view(B * n, Lc, S), entries[g].view(B * n, S),
-            _to_device(chunk_lens.reshape(-1), params.device),
-        ).view(B, n, Lc, S)
-        lens_by_chunk = _to_device(chunk_lens.T, params.device)   # [n, B]
-        pieces = []
-        for k in reversed(range(n)):
-            path, end_state = ck.viterbi_backtrace(
-                log_trans, rows[:, k], entries[g][:, k], end_state,
-                lens_by_chunk[k])
-            pieces.append(path)
-        del rows
-        group_path = torch.stack(pieces[::-1], dim=1).view(B, n * Lc)
+            chunk_lens, end_state, params.device)
         group_path = group_path.cpu().numpy()
         for b in range(B):
             hi = min(lo + n * Lc, int(true_lens[b]))

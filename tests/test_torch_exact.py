@@ -175,15 +175,8 @@ def test_grouped_exact_with_streams_equals_jax(rng, monkeypatch, per,
         assert np.asarray(w).tobytes() == g.tobytes()
 
 
-def test_exact_launches_two_k3_calls_a_group(rng, monkeypatch):
-    """The forward sweep calls the checkpoint mode once a group and the
-    recompute the values mode once a group (rows: every (table, chunk)
-    of the group); the backtrace runs once a chunk."""
-    S, T, V = 3, 2, 4
-    tables = _sticky(rng, S, T, V)
-    _, tp = _both(tables)
-    syms = [rng.randint(0, V, size=(n, T)).astype(np.uint8)
-            for n in (301, 120)]
+def _count_calls(monkeypatch, names):
+    """Record (wrapper, rows of its second argument) of each call."""
     calls = []
 
     def counted(name):
@@ -194,23 +187,73 @@ def test_exact_launches_two_k3_calls_a_group(rng, monkeypatch):
             return fn(*args)
         return call
 
-    for name in ("viterbi_checkpoints", "viterbi_chunk_values",
-                 "viterbi_carry", "viterbi_backtrace"):
+    for name in names:
         monkeypatch.setattr(ck, name, counted(name))
+    return calls
+
+
+EXACT_WRAPPERS = ("viterbi_checkpoints", "viterbi_chunk_values",
+                  "viterbi_chunk_pointers", "chunk_entry_map",
+                  "chunk_compose", "chunk_chase", "viterbi_carry",
+                  "viterbi_backtrace")
+
+
+def test_exact_launches_two_k3_calls_a_group(rng, monkeypatch):
+    """The forward sweep calls the checkpoint mode once a group and the
+    recompute the pointer mode once a group (rows: every (table, chunk)
+    of the group); the map, the compose and the chase run once a group
+    each, and below 240 states no value rows and no backtrace a chunk."""
+    S, T, V = 3, 2, 4
+    tables = _sticky(rng, S, T, V)
+    _, tp = _both(tables)
+    syms = [rng.randint(0, V, size=(n, T)).astype(np.uint8)
+            for n in (301, 120)]
+    calls = _count_calls(monkeypatch, EXACT_WRAPPERS)
     # 300 body positions in chunks of 25: 12 chunks, groups of 5, 5, 2
     _budget(monkeypatch, 5, 2, S, 25)
     got = tstitch.viterbi_exact(tp, syms, chunk_len=25)
     names = [n for n, _ in calls]
-    assert names.count("viterbi_checkpoints") == 3
-    assert names.count("viterbi_chunk_values") == 3
-    assert names.count("viterbi_carry") == 0
-    assert names.count("viterbi_backtrace") == 12
-    assert [rows for n, rows in calls if n == "viterbi_chunk_values"] == [
-        2 * 2, 2 * 5, 2 * 5]          # the groups in reverse
+    for name in ("viterbi_checkpoints", "viterbi_chunk_pointers",
+                 "chunk_entry_map", "chunk_compose", "chunk_chase"):
+        assert names.count(name) == 3, name
+    for name in ("viterbi_chunk_values", "viterbi_carry",
+                 "viterbi_backtrace"):
+        assert names.count(name) == 0, name
+    for name in ("viterbi_chunk_pointers", "chunk_entry_map",
+                 "chunk_chase"):          # the groups in reverse
+        assert [rows for n, rows in calls if n == name] == [
+            2 * 2, 2 * 5, 2 * 5], name
+    assert [rows for n, rows in calls if n == "chunk_compose"] == [2] * 3
     _budget(monkeypatch, 12, 2, S, 25)
     want = tstitch.viterbi_exact(tp, syms, chunk_len=25)
     for w, g in zip(want, got):
         np.testing.assert_array_equal(g, w)
+
+
+def test_exact_past_239_states_keeps_the_value_rows(rng, monkeypatch):
+    """Past 239 states K3 is the tile's carry mode, which has no pointer
+    mode: the backtrace recomputes value rows once a group and walks them
+    a chunk a launch, as before, and the paths are the JAX
+    ``viterbi_exact``'s."""
+    S, T, V = 240, 1, 3
+    tables = _sticky(rng, S, T, V)
+    jp, tp = _both(tables)
+    syms = [rng.randint(0, V, size=(n, T)).astype(np.uint8)
+            for n in (25, 12)]
+    calls = _count_calls(monkeypatch, EXACT_WRAPPERS)
+    # 24 body positions in chunks of 6: 4 chunks, groups of 3 and 1
+    _budget(monkeypatch, 3, 2, S, 6)
+    got = tstitch.viterbi_exact(tp, syms, chunk_len=6)
+    names = [n for n, _ in calls]
+    assert names.count("viterbi_checkpoints") == 2
+    assert names.count("viterbi_chunk_values") == 2
+    assert names.count("viterbi_backtrace") == 4
+    for name in ("viterbi_chunk_pointers", "chunk_entry_map",
+                 "chunk_compose", "chunk_chase"):
+        assert names.count(name) == 0, name
+    want = jstitch.viterbi_exact(jp, syms, chunk_len=6)
+    for w, g in zip(want, got):
+        assert np.asarray(w).tobytes() == g.tobytes()
 
 
 def test_default_budget_holds_the_region_in_one_group():
@@ -309,8 +352,8 @@ def test_k3_step_by_states(monkeypatch, S):
 
 def test_time_k3_rows(capsys, monkeypatch):
     """``tools.time_k3`` (shapes cut to size): the device line, then a
-    reading of each mode and shape, naming the step (the plain versions
-    here)."""
+    reading of each mode and shape, naming the step, and the backtrace
+    by both routes (the plain versions here)."""
     from tehmm_tpu_torch.tools import time_k3
 
     for name, value in (("CHUNK", 8), ("N_CHUNKS", 3), ("RAGGED_ROWS", 5),
@@ -321,9 +364,12 @@ def test_time_k3_rows(capsys, monkeypatch):
     lines = capsys.readouterr().out.splitlines()
     assert lines[0] == "# device: cpu"
     rows = [json.loads(line) for line in lines[1:]]
+    modes = ("recompute", "pointers", "map", "compose", "chase")
     assert [(r["mode"], r["B"], r["L"], r["step"]) for r in rows] == [
-        ("recompute", 1, 8, "lanes"), ("recompute", 3, 8, "lanes"),
-        ("recompute", 5, 9, "lanes"), ("sweep", 1, 24, "lanes")]
+        (mode, B, L, "lanes") for B, L in ((1, 8), (3, 8), (5, 9))
+        for mode in modes] + [("sweep", 1, 24, "lanes")] + \
+        [("backtrace", 1, 24, "lanes")] * 2
+    assert [r.get("route") for r in rows[-2:]] == ["values", "pointers"]
     for r in rows:
         assert r["ms"] > 0 and r["us_per_step"] == r["ms"] * 1e3 / r["L"]
     assert ck.k3_step(3) == "lanes"

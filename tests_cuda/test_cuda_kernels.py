@@ -164,7 +164,9 @@ def test_k3_checkpoints_of_one_long_row(device, rng):
 def test_grouped_exact_on_the_card(device, rng, monkeypatch, per):
     """The grouped exact decode (groups of 1 and 3 chunks, and the
     default budget's one group) on the card equals the CPU's and the
-    stitched decode, and runs K3 twice a group."""
+    stitched decode, and runs K3 twice a group (the checkpoint and the
+    pointer modes) and X3's map, compose and chase once a group each,
+    with no value-row backtrace."""
     tables = _model(rng, 10, 5, 9)
     trans = np.exp(tables[1]) * 0.2 + np.eye(10) * 0.8
     tables[1] = np.log(trans / trans.sum(1, keepdims=True)).astype(
@@ -180,12 +182,11 @@ def test_grouped_exact_on_the_card(device, rng, monkeypatch, per):
     on_gpu = from_numpy(*tables, device)
     before = dict(ck.LAUNCHES)
     card = stitch.viterbi_exact(on_gpu, syms, chunk_len=Lc)
-    assert ck.LAUNCHES["viterbi_checkpoints"] == \
-        before["viterbi_checkpoints"] + groups
-    assert ck.LAUNCHES["viterbi_chunk_values"] == \
-        before["viterbi_chunk_values"] + groups
-    assert ck.LAUNCHES["viterbi_backtrace"] == \
-        before["viterbi_backtrace"] + n_chunks
+    for name in ("viterbi_checkpoints", "viterbi_chunk_pointers",
+                 "chunk_entry_map", "chunk_compose", "chunk_chase"):
+        assert ck.LAUNCHES[name] == before[name] + groups, name
+    for name in ("viterbi_chunk_values", "viterbi_backtrace"):
+        assert ck.LAUNCHES[name] == before[name], name
     cpu = stitch.viterbi_exact(from_numpy(*tables, "cpu"), syms,
                                chunk_len=Lc)
     stitched, report = stitch.viterbi_chunked(on_gpu, syms, chunk_len=Lc,
