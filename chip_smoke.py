@@ -41,11 +41,15 @@ Phases (any failure raises, and the run exits non-zero):
    gaussian moments) is bit for bit the shared kernels', forced with
    ``K1_LANES_MAX_STATES`` = 0 (timed beside; the ``kernels`` line names
    the step).  (K1 is checked again at the EM run's own shape in 3b.)
-   The K4 decode at the stitched max-posterior decode's shape (S=10,
-   T=5, V=9, 64 rows of L=4608, ragged lengths incl. 0 and 1): paths
-   agree on >= 99.999% of positions, every differing position a
-   near-tie (the plain version's top two alpha_p * b within 1e-5
-   relative), two launches bit-identical.  The chunk sweeps X1 and X2
+   The K4 decode at the stitched max-posterior decode's shapes (S=10,
+   T=5, V=9, rows of L=4608, ragged lengths incl. 0 and 1: 64, the pass
+   before 512, and the pass of ``stitch.MAXPOST_ROWS_PER_PASS``, 512):
+   to 32 states the lanes kernel runs (``ck.k4_step``), bit for bit the
+   shared kernel's (forced with ``K4_LANES_MAX_STATES`` = 0, timed
+   beside it); paths agree with the plain version on >= 99.999% of
+   positions, every differing position a near-tie (the plain version's
+   top two alpha_p * b within 1e-5 relative), two launches
+   bit-identical.  The chunk sweeps X1 and X2
    on obs of 4 rows of 4096 (ragged): hats, carries, betas and x_out
    within 1e-5 plus 4 float32 ulps of the largest |obs| of the plain
    versions carried in float64 (the F3 limit; the float32 plain version
@@ -70,7 +74,8 @@ Phases (any failure raises, and the run exits non-zero):
    same shapes:
    K2's value rows, normalizers and paths bit-equal, K1 at the same
    tolerances (gaussian moments within 1e-4 of each moment's largest
-   entry) and bit-identical across two launches, K4 as above.  Times of
+   entry) and bit-identical across two launches, K4 as above (at 64 and
+   512 rows).  Times of
    both sides for every kernel and variant, beside the least time the
    card could take for the same work.  The streaming kernels K5
    (``viterbi_values``), K6a (``fwd_prob``) and K6b (``bwd_prob``) on the
@@ -133,7 +138,12 @@ Phases (any failure raises, and the run exits non-zero):
    (K4, and the printed forward loglik through the piece-operator scan):
    the BED tiles it, every stitch boundary agrees, base accuracy >= 0.9,
    and the loglik is finite and at least phase 3's Viterbi path score
-   (less 1e-6 of it); the same score again through the chain (X1
+   (less 1e-6 of it); the stitched decode's split (chunk forming, H2D,
+   K1's forward, K4's decode, D2H, the stitch and the rest) is printed
+   and K4 launched once a pass of 512 rows; the decode again as the
+   parent ran it (64 rows a pass, the shared decode forced), split the
+   same way, gives the same paths; the same score again through the
+   chain (X1
    carry-only) and through the pieces, each split into kernels, obs
    formation and ``block_of`` with its H2D copy and the loop, each
    chunk's summed increments within the derived limit of the chain's
@@ -151,7 +161,8 @@ Phases (any failure raises, and the run exits non-zero):
    the whole chromosome's stitched
    ``--maxPost`` BED, the region's ``--maxPost --exact`` BED and the
    100,000-position region's ``--pd`` file and BED byte for byte as
-   this one's; on the
+   this one's (and in 3e the stitched ``--maxPost`` BEDs with the
+   gaussian stream, +g, and in segment mode, +wg and +w); on the
    20,000-position region the card and the CPU agree for ``--maxPost``
    (both decoders: >= 99.999% of bases), ``--pd`` (same rows,
    probabilities within 1e-5) and every printed score (1e-5 relative);
@@ -306,6 +317,7 @@ SOURCES = {
     "em_fwd": "tehmm_tpu_torch/csrc/em_estep.cu",
     "em_bwd_stats": "tehmm_tpu_torch/csrc/em_estep.cu",
     "post_decode": "tehmm_tpu_torch/csrc/posterior.cu",
+    "post_decode_lanes": "tehmm_tpu_torch/csrc/posterior.cu",
     "fwd_chunk": "tehmm_tpu_torch/csrc/posterior.cu",
     "fwd_checkpoints": "tehmm_tpu_torch/csrc/posterior.cu",
     "bwd_chunk": "tehmm_tpu_torch/csrc/posterior.cu",
@@ -343,6 +355,8 @@ REPLACES = {
     "em_fwd": "tehmm_tpu/ops/pallas_kernels.py:1777",
     "em_bwd_stats": "tehmm_tpu/ops/pallas_kernels.py:1931",
     "post_decode": "tehmm_tpu/ops/pallas_kernels.py:2765",
+    # K4's decode to 32 states (its lanes kernel)
+    "post_decode_lanes": "tehmm_tpu/ops/pallas_kernels.py:2765",
     # X1 and X2 have no Pallas counterpart: the XLA scans they replace
     "fwd_chunk": "tehmm_tpu/ops/dp.py:378",
     # X1's checkpoint mode: the exact posteriors' forward sweep (on the TPU
@@ -382,15 +396,19 @@ DECODE_KERNELS = ("viterbi_fwd", "viterbi_backtrace", "viterbi_checkpoints",
                   "chunk_compose", "chunk_chase")
 X3_KERNELS = ("chunk_entry_map", "chunk_compose", "chunk_chase")
 EM_KERNELS = ("em_fwd", "em_bwd_stats")
-POST_KERNELS = ("em_fwd", "post_decode", "fwd_chunk", "fwd_checkpoints",
-                "bwd_chunk", "bwd_checkpoints", "fwd_piece_ops",
-                "fwd_piece_compose")
+# 3d's path: K4 (K1's forward and, at S=10, the lanes decode), the exact
+# posteriors' X1 and X2, the score's piece-operator scan; K4's shared
+# decode (33 states to its envelope) is off it
+POST_KERNELS = ("em_fwd", "post_decode_lanes", "fwd_chunk",
+                "fwd_checkpoints", "bwd_chunk", "bwd_checkpoints",
+                "fwd_piece_ops", "fwd_piece_compose")
 SCORE_STAGE = "score (piece-operator scan)"
 # 3e's paths: base resolution with a gaussian track (+g), segment mode
 # with the gaussian track (+wg) and with categorical tracks only (+w)
 GAUSS_BASE_KERNELS = ("viterbi_fwd+g", "viterbi_backtrace", "em_fwd+g",
-                      "em_bwd_stats+g", "post_decode+g")
-SEGMENT_KERNELS = ("em_fwd", "em_bwd_stats", "viterbi_fwd", "post_decode")
+                      "em_bwd_stats+g", "post_decode_lanes+g")
+SEGMENT_KERNELS = ("em_fwd", "em_bwd_stats", "viterbi_fwd",
+                   "post_decode_lanes")
 # 2e: the engine-comparison path; phase 2 checks K5/K6, K7/K8 and the
 # backtrace under dp.viterbi_streaming at each of its shapes
 STREAMING_KERNELS = ("viterbi_values", "fwd_prob", "bwd_prob",
@@ -525,7 +543,8 @@ def _bound(name, shape, valid, G=0, weighted=False, n_ck=0) -> dict:
         nbytes = (sym + tables + streams + rows + B * L * f
                   + (S + S * S + S * T * V + 3 * S * G) * f)
         ops = 4 * S * S + obs + S * T + 6 * S * G + 10 * S
-    elif base == "post_decode":        # obs_p, b step, argmax
+    elif base in ("post_decode", "post_decode_lanes"):
+        # obs_p, b step, argmax
         nbytes = sym + tables + streams + rows + B * L * f
         ops = 2 * S * S + obs + 8 * S
     elif base in ("maxplus_resident", "maxplus_blocks"):
@@ -1298,6 +1317,73 @@ def _sweep_check(p, device, rng, label="X1/X2"):
 
 
 
+def _k4_check(args, label, **st):
+    """K4's decode on K1's forward rows at one shape, as
+    ``posterior_decode_fused`` calls it: the lanes kernel (``ck.k4_step``)
+    bit for bit the shared kernel's (forced), two launches bit-identical,
+    0 at padding, and the paths within the near-tie rule of the plain
+    version (>= 99.999% of positions equal, every differing one a
+    near-tie).  Returns (dec_args, lanes path, plain path, differing
+    positions, valid positions, largest differing gap)."""
+    import torch
+
+    from tehmm_tpu_torch.ops import cuda_kernels as ck
+    from tehmm_tpu_torch.tools.time_k1 import shared_k4
+
+    _ls, lt, lem, sym, lens = args
+    S_, T_, V_ = lem.shape
+    G = 0 if st.get("gauss_values") is None else STREAM_G
+    assert ck.k4_step(S_, T_, V_, G) == "lanes", "K4 left its lanes step"
+    alpha = ck.em_fwd(*args, **st)[0]
+    dec = (lt, lem, sym, lens, alpha)
+    got = ck.post_decode(*dec, **st)
+    assert torch.equal(got, ck.post_decode(*dec, **st)), \
+        f"two {label} launches differ"
+    with shared_k4():
+        shared = ck.post_decode(*dec, **st)
+    assert torch.equal(got, shared), \
+        f"{label}: the lanes decode differs from the shared one on " \
+        f"{int((got != shared).sum())} positions"
+    want, margin = ck.post_decode_plain(*dec, with_margin=True, **st)
+    L_ = sym.shape[1]
+    valid = torch.arange(L_, device=sym.device)[None, :] < lens[:, None]
+    assert not bool((got[~valid] != 0).any()), f"{label} not 0 at padding"
+    differ = (got != want) & valid
+    n_diff, n_valid = int(differ.sum()), int(valid.sum())
+    worst = float(margin[differ].max()) if n_diff else 0.0
+    assert 1.0 - n_diff / n_valid >= 0.99999, \
+        f"{label} differs from plain on {n_diff} of {n_valid} positions"
+    assert worst <= NEAR_TIE, \
+        f"{label} differs from plain where the top two are {worst} apart"
+    return dec, got, want, n_diff, n_valid, worst
+
+
+def _k4_rows(dec, got, want, n_diff, shape, valid, G=0, **st):
+    """The ``kernels`` entries of K4's lanes decode and of its shared one
+    (forced) at one shape: each timed (median of 5) beside the plain
+    version (median of 3) and the bound, with us a step."""
+    from tehmm_tpu_torch.ops import cuda_kernels as ck
+    from tehmm_tpu_torch.tools.time_k1 import shared_k4
+
+    L_ = shape[1]
+    bound = _bound("post_decode", shape, valid, G, "obs_weights" in st
+                   and st["obs_weights"] is not None)
+    ms = _median_ms(lambda: ck.post_decode(*dec, **st), 5)
+    with shared_k4():
+        shared_ms = _median_ms(lambda: ck.post_decode(*dec, **st), 5)
+    plain_ms = _median_ms(lambda: ck.post_decode_plain(*dec, **st), 3)
+    lanes = dict(max_abs_err=float((got - want).abs().max()),
+                 differing_positions=n_diff, step="lanes", ms=ms,
+                 us_per_step=ms * 1e3 / L_, shared_ms=shared_ms,
+                 shared_us_per_step=shared_ms * 1e3 / L_,
+                 plain_ms=plain_ms, **bound)
+    shared = dict(max_abs_err=lanes["max_abs_err"],
+                  differing_positions=n_diff, step="shared (forced)",
+                  ms=shared_ms, us_per_step=shared_ms * 1e3 / L_,
+                  plain_ms=plain_ms, **bound)
+    return lanes, shared
+
+
 def phase_post_kernels(device, rng, seed) -> dict:
     """K4's decode and the chunk sweeps X1, X2 against their plain
     versions, at the shapes the max-posterior path gives them; then the
@@ -1307,6 +1393,7 @@ def phase_post_kernels(device, rng, seed) -> dict:
 
     from tehmm_tpu_torch.ops import cuda_kernels as ck
     from tehmm_tpu_torch.ops import dp
+    from tehmm_tpu_torch.parallel import stitch
 
     p = _decode_model(rng, device)
     lengths = rng.randint(0, K4_L + 1, size=K4_B).astype(np.int32)
@@ -1319,36 +1406,47 @@ def phase_post_kernels(device, rng, seed) -> dict:
     out = {}
 
     # K4: the decode on K1's forward rows, as posterior_decode_fused
-    # calls it
-    alpha = ck.em_fwd(*args)[0]
-    dec_args = (p.log_trans, p.log_em, sym, lens, alpha)
-    got = ck.post_decode(*dec_args)
-    assert torch.equal(got, ck.post_decode(*dec_args)), \
-        "two post_decode launches differ"
+    # calls it: the lanes kernel, bit for bit the shared one (forced), at
+    # the pass before 512 rows (K4_B) and at the pass (ragged, a
+    # generator of its own so that the later phases draw the same data)
+    dec_args, got, want, n_diff, n_valid, worst = _k4_check(args, "K4")
     assert torch.equal(got, ck.posterior_decode_fused(*args)), \
         "posterior_decode_fused differs from em_fwd + post_decode"
-    want, margin = ck.post_decode_plain(*dec_args, with_margin=True)
-    valid = torch.arange(K4_L, device=device)[None, :] < lens[:, None]
-    assert not bool((got[~valid] != 0).any()), "K4 path not 0 at padding"
-    differ = (got != want) & valid
-    n_diff, n_valid = int(differ.sum()), int(valid.sum())
-    agree = 1.0 - n_diff / n_valid
-    worst = float(margin[differ].max()) if n_diff else 0.0
-    assert agree >= 0.99999, f"K4 agrees with plain on {agree} of positions"
-    assert worst <= NEAR_TIE, \
-        f"K4 differs from plain where the top two are {worst} apart"
     print(f"[kernels] K4 decode at S={S} T={T} V={V}, {K4_B} rows of "
-          f"L={K4_L} (ragged): {n_diff} of {n_valid} positions differ from "
+          f"L={K4_L} (ragged): the lanes kernel bit for bit the shared "
+          f"one's (forced); {n_diff} of {n_valid} positions differ from "
           f"the plain version, each a near-tie (largest top-two gap "
           f"{worst:.3g} relative); repeat launches bit-identical",
           flush=True)
-    out["post_decode"] = dict(
-        max_abs_err=float((got - want).abs().max()),
-        differing_positions=n_diff,
-        ms=_median_ms(lambda: ck.post_decode(*dec_args), 5),
-        plain_ms=_median_ms(lambda: ck.post_decode_plain(*dec_args), 3),
-        fused_ms=_median_ms(lambda: ck.posterior_decode_fused(*args), 5),
-    )
+    out["post_decode_lanes"], out["post_decode"] = _k4_rows(
+        dec_args, got, want, n_diff, (K4_B, K4_L, S, T, V),
+        int(lengths.sum()))
+    out["post_decode_lanes"]["fused_ms"] = _median_ms(
+        lambda: ck.posterior_decode_fused(*args), 5)
+    out["post_decode"]["note"] = (
+        "the shared decode forced at S=10; its route is 33 states to "
+        "K4's envelope, which no main path reaches")
+    del dec_args, got, want
+    prng = np.random.RandomState(seed + 9)
+    B5 = stitch.MAXPOST_ROWS_PER_PASS["fused"]
+    lengths5 = _ragged(prng, B5, K4_L)
+    sym5 = torch.from_numpy(
+        prng.randint(0, V, size=(B5, K4_L, T)).astype(np.int32)).to(device)
+    args5 = (p.log_start, p.log_trans, p.log_em, sym5,
+             torch.from_numpy(lengths5).to(device))
+    dec5, got5, want5, n_diff5, n_valid5, worst5 = _k4_check(args5, "K4")
+    name5 = f"post_decode_lanes@{B5}x{K4_L}"
+    out[name5] = _k4_rows(dec5, got5, want5, n_diff5, (B5, K4_L, S, T, V),
+                          int(lengths5.sum()))[0]
+    print(f"[kernels] K4 decode at {B5} rows of L={K4_L} (ragged): the "
+          f"lanes kernel bit for bit the shared one's; {n_diff5} of "
+          f"{n_valid5} positions differ from plain, each a near-tie "
+          f"({worst5:.3g}); lanes {out[name5]['ms']:.3f} ms "
+          f"({out[name5]['us_per_step']:.4f} us a step), shared "
+          f"{out[name5]['shared_ms']:.3f} ms, at {K4_B} rows lanes "
+          f"{out['post_decode_lanes']['ms']:.3f} ms, shared "
+          f"{out['post_decode']['ms']:.3f} ms", flush=True)
+    del dec5, got5, want5, args5, sym5
 
     # X1 and X2 on obs of a few long rows, ragged, against the plain
     # versions carried in float64 at the F3 limit; then the same check on
@@ -1386,15 +1484,13 @@ def phase_post_kernels(device, rng, seed) -> dict:
         plain_ms=_median_ms(
             lambda: dp.backward_chunk_values(lt, obs, init, cont, xl), 3),
     )
-    out["post_decode"].update(_bound("post_decode", (K4_B, K4_L, S, T, V),
-                                     int(lengths.sum())))
     for name in ("fwd_chunk", "bwd_chunk"):
         out[name].update(_bound(name, (X_B, X_L, S, T, V),
                                 int(x_lens.sum())))
     print(f"[kernels] X1/X2 at S={S}, {X_B} rows of {X_L} (ragged): within "
           f"tolerance of the plain versions, repeat launches "
           f"bit-identical; K4 fused (em_fwd + decode) "
-          f"{out['post_decode']['fused_ms']:.3f} ms, X1 carry-only "
+          f"{out['post_decode_lanes']['fused_ms']:.3f} ms, X1 carry-only "
           f"{out['fwd_chunk']['carry_only_ms']:.3f} ms (plain "
           f"{out['fwd_chunk']['carry_only_plain_ms']:.3f} ms)", flush=True)
     for name, r in out.items():
@@ -1661,6 +1757,7 @@ def phase_stream_kernels(device, rng) -> dict:
     from tehmm_tpu_torch.models.params import from_numpy
     from tehmm_tpu_torch.ops import cuda_kernels as ck
     from tehmm_tpu_torch.ops import dp
+    from tehmm_tpu_torch.parallel import stitch
 
     out = {}
 
@@ -1768,47 +1865,43 @@ def phase_stream_kernels(device, rng) -> dict:
           f"largest entry), repeat runs bit-identical, for "
           f"{', '.join(STREAM_VARIANTS)}", flush=True)
 
-    # K4's decode at the stitched max-posterior decode's shape
+    # K4's decode at the stitched max-posterior decode's shape (the pass
+    # before 512 rows), lanes and shared
     lengths4 = _ragged(rng, K4_B, K4_L)
     sym4 = torch.from_numpy(
         rng.randint(0, V, size=(K4_B, K4_L, T)).astype(np.int32)
     ).to(device)
     lens4 = torch.from_numpy(lengths4).to(device)
     args4 = (p.log_start, p.log_trans, p.log_em, sym4, lens4)
-    valid = torch.arange(K4_L, device=device)[None, :] < lens4[:, None]
+    # and at the pass (ragged), bit for bit only
+    B5 = stitch.MAXPOST_ROWS_PER_PASS["fused"]
+    lengths5 = _ragged(rng, B5, K4_L)
+    sym5 = torch.from_numpy(
+        rng.randint(0, V, size=(B5, K4_L, T)).astype(np.int32)).to(device)
+    args5 = (p.log_start, p.log_trans, p.log_em, sym5,
+             torch.from_numpy(lengths5).to(device))
     for variant in STREAM_VARIANTS:
         st = _stream_inputs(rng, device, variant, K4_B, K4_L, S)
-        alpha = ck.em_fwd(*args4, **st)[0]
-        dec = (p.log_trans, p.log_em, sym4, lens4, alpha)
-        got = ck.post_decode(*dec, **st)
-        assert torch.equal(got, ck.post_decode(*dec, **st)), \
-            f"two post_decode{variant} launches differ"
+        G = STREAM_G if "g" in variant else 0
+        dec, got, want, n_diff, n_valid, worst = _k4_check(
+            args4, "post_decode" + variant, **st)
         assert torch.equal(got, ck.posterior_decode_fused(*args4, **st))
-        want, margin = ck.post_decode_plain(*dec, with_margin=True, **st)
-        assert not bool((got[~valid] != 0).any())
-        differ = (got != want) & valid
-        n_diff, n_valid = int(differ.sum()), int(valid.sum())
-        worst = float(margin[differ].max()) if n_diff else 0.0
-        assert 1.0 - n_diff / n_valid >= 0.99999, \
-            f"post_decode{variant} differs from plain on {n_diff} positions"
-        assert worst <= NEAR_TIE, \
-            f"post_decode{variant} differs where the top two are {worst} " \
-            f"apart"
-        out["post_decode" + variant] = dict(
-            max_abs_err=float((got - want).abs().max()),
-            differing_positions=n_diff,
-            ms=_median_ms(lambda: ck.post_decode(*dec, **st), 5),
-            plain_ms=_median_ms(
-                lambda: ck.post_decode_plain(*dec, **st), 3),
-            fused_ms=_median_ms(
-                lambda: ck.posterior_decode_fused(*args4, **st), 5),
-            **_bound("post_decode", (K4_B, K4_L, S, T, V),
-                     int(lengths4.sum()), STREAM_G if "g" in variant else 0,
-                     "w" in variant))
-        print(f"[streams] K4 decode{variant}: {n_diff} of {n_valid} "
+        out["post_decode_lanes" + variant], out["post_decode" + variant] = \
+            _k4_rows(dec, got, want, n_diff, (K4_B, K4_L, S, T, V),
+                     int(lengths4.sum()), G, **st)
+        out["post_decode_lanes" + variant]["fused_ms"] = _median_ms(
+            lambda: ck.posterior_decode_fused(*args4, **st), 5)
+        del dec, got, want
+        st5 = _stream_inputs(rng, device, variant, B5, K4_L, S)
+        _dec, _got, _want, n_diff5, n_valid5, worst5 = _k4_check(
+            args5, f"post_decode{variant} at {B5} rows", **st5)
+        del _dec, _got, _want, st5
+        print(f"[streams] K4 decode{variant}: the lanes kernel bit for bit "
+              f"the shared one's (forced) at {K4_B} and {B5} rows; "
+              f"{n_diff} of {n_valid} and {n_diff5} of {n_valid5} "
               f"positions differ from plain, each a near-tie (largest "
-              f"top-two gap {worst:.3g}); repeat launches bit-identical",
-              flush=True)
+              f"top-two gaps {worst:.3g}, {worst5:.3g}); repeat launches "
+              f"bit-identical", flush=True)
     for name, r in out.items():
         print(f"[streams] {name:22s} max_abs_err {r['max_abs_err']:.3g}  "
               f"kernel {r['ms']:10.3f} ms  plain {r['plain_ms']:10.3f} ms",
@@ -2456,6 +2549,59 @@ POST_EXACT_SPANS = (("forward_checkpoints", "forward sweep"),
                     ("backward_chunk_values", "beta recompute"))
 
 
+# the stitched max-posterior decode's stages (a pass: chunk forming, H2D,
+# K1's forward, K4's decode, D2H), each span ending synchronised; "stitch
+# and the rest" is the decode's total less them
+STITCH_STAGES = ("chunk forming", "H2D", "em_fwd", "decode", "D2H")
+
+
+def _stitched_split():
+    """Spans around the stitched max-posterior decode's calls into each
+    stage (``STITCH_STAGES``), counting the kernels' launches."""
+    from tehmm_tpu_torch.ops import cuda_kernels as ck
+    from tehmm_tpu_torch.parallel import stitch
+
+    stages = _Stages()
+    stages.wrap(stitch, "batch_chunks", "chunk forming")
+    stages.wrap(stitch, "_to_device", "H2D", sync=True)
+    stages.wrap(stitch, "_f32_to_device", "H2D", sync=True)
+    stages.wrap(ck, "em_fwd", "em_fwd", sync=True, count=True)
+    stages.wrap(ck, "post_decode", "decode", sync=True, count=True)
+    stages.wrap(stitch, "_to_host", "D2H")
+    return stages
+
+
+def _print_stitched_split(label, stages, total):
+    """Print one stitched decode's split; returns its K4 launches."""
+    sec = stages.seconds
+    rest = total - sum(sec.get(k, 0.0) for k in STITCH_STAGES)
+    n = stages.launched.get("decode", {})
+    k4 = {k: v for k, v in n.items() if v}
+    print(f"[post] stitched decode split, {label} (s): total {total:.4f}, "
+          + ", ".join(f"{k} {sec.get(k, 0.0):.4f} "
+                      f"({stages.calls.get(k, 0)} calls)"
+                      for k in STITCH_STAGES)
+          + f", stitch and the rest {rest:.4f}; K4 launches {k4}",
+          flush=True)
+    return k4
+
+
+def _check_parent(parent, runs, work, tag):
+    """Hold each output of ``runs`` ((argv, output) of this checkout's
+    eval runs) to the parent's eval CLI's on the same argv, byte for
+    byte."""
+    t0 = time.perf_counter()
+    theirs = _parent_outputs(parent, runs, work)
+    for (_argv, out), other in zip(runs, theirs):
+        mine = open(out, "rb").read()
+        assert mine == other, f"{os.path.basename(out)} differs from " \
+            f"the parent's ({len(mine)} against {len(other)} bytes)"
+        print(f"[{tag}] {os.path.basename(out)}: {len(mine)} bytes, "
+              f"byte-identical to the parent's ({parent})", flush=True)
+    print(f"[{tag}] the parent's {len(theirs)} runs: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def _split_stages(total, spans):
     """Spans around an exact decoder's calls, each ending synchronised:
     the decode as a whole (eval's ``total``, with its launches), obs
@@ -2709,10 +2855,13 @@ def phase_max_posterior(work, xml, truth, viterbi_score, region, small,
     BED, ``--maxPost --exact`` BEDs and ``--pd`` file byte for byte, and
     the outputs of ``parent_runs`` too ((argv, output) of earlier eval
     runs: phase 3's ``--exact`` BED)."""
+    import torch
+
     from tehmm_tpu_torch.cli import eval as port_eval
     from tehmm_tpu_torch.models import hmm as port_hmm
     from tehmm_tpu_torch.ops import cuda_kernels as ck
     from tehmm_tpu_torch.parallel import stitch
+    from tehmm_tpu_torch.tools.time_k1 import shared_k4
 
     n = len(truth)
     lo = n // 4
@@ -2725,7 +2874,7 @@ def phase_max_posterior(work, xml, truth, viterbi_score, region, small,
     stages = _Stages()
     stages.wrap(port_eval, "load_track_data", "load")
     stages.wrap(port_hmm, "posterior_chunked", "decode (stitched, K4)",
-                sync=True, keep=True)
+                sync=True, keep=True, keep_first_call=True)
     stages.wrap(port_eval, "posterior_exact", "decode (exact, X1/X2)",
                 sync=True)
     stages.wrap(port_hmm.MultitrackHmm, "score", SCORE_STAGE, sync=True,
@@ -2743,12 +2892,30 @@ def phase_max_posterior(work, xml, truth, viterbi_score, region, small,
         return float(printed), time.perf_counter() - t0
 
     try:
-        # the whole chromosome: stitched (automatic past 256K positions)
-        score, wall = run(regions, "--bed", out_bed, "--maxPost")
+        # the whole chromosome: stitched (automatic past 256K positions),
+        # its decode split into its stages
+        split = _stitched_split()
+        try:
+            score, wall = run(regions, "--bed", out_bed, "--maxPost")
+        finally:
+            split.restore()
         same_as_parent.append(([xml, model, regions, "--bed", out_bed,
                                 "--maxPost", "--device", device], out_bed))
-        _paths, report = stages.last["decode (stitched, K4)"]
+        paths_20mb, report = stages.last["decode (stitched, K4)"]
         assert report.boundaries_ok, report
+        rows = stitch.MAXPOST_ROWS_PER_PASS["fused"]
+        k4 = _print_stitched_split(
+            f"{rows} rows a pass, the lanes decode", split,
+            stages.seconds["decode (stitched, K4)"])
+        # a launch of K1's forward and of K4's lanes decode a pass, more
+        # only for the retries' re-decodes
+        passes = -(-report.n_chunks // rows)
+        ran = k4.get("post_decode_lanes", 0)
+        assert set(k4) == {"post_decode_lanes"} and (
+            ran == passes if report.retries == 0 else ran > passes), \
+            f"K4 launched {k4} for {report.n_chunks} chunks in passes of " \
+            f"{rows} ({report.retries} retries)"
+        assert split.launched["em_fwd"]["em_fwd"] == ran
         print(f"[post] {n}-position --maxPost: printed loglik {score!r} "
               f"(Viterbi "
               f"path score {viterbi_score!r}); {report}; eval CLI "
@@ -2825,17 +2992,37 @@ def phase_max_posterior(work, xml, truth, viterbi_score, region, small,
     finally:
         stages.restore()
     if parent is not None:
-        t0 = time.perf_counter()
-        theirs = _parent_outputs(parent, same_as_parent, work)
-        for (_argv, out), other in zip(same_as_parent, theirs):
-            mine = open(out, "rb").read()
-            assert mine == other, f"{os.path.basename(out)} differs from " \
-                f"the parent's ({len(mine)} against {len(other)} bytes)"
-            print(f"[post] {os.path.basename(out)}: {len(mine)} bytes, "
-                  f"byte-identical to the parent's ({parent})", flush=True)
-        print(f"[post] the parent's {len(theirs)} runs: "
-              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        _check_parent(parent, same_as_parent, work, "post")
     launches = dict(ck.LAUNCHES)          # the card's runs of this phase
+
+    # the 20 Mb stitched decode again as the parent ran it, 64 rows a
+    # pass with K4's shared decode forced (its launches are not the main
+    # path's, so after the count above): its split, the same paths
+    (dec_args, dec_kw) = stages.first_call["decode (stitched, K4)"]
+    split = _stitched_split()
+    try:
+        with shared_k4():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            old_paths, old_report = port_hmm.posterior_chunked(
+                *dec_args, **dict(dec_kw, rows_per_pass=64))
+            torch.cuda.synchronize()
+            t_old = time.perf_counter() - t0
+    finally:
+        split.restore()
+    del dec_args, dec_kw
+    k4_old = _print_stitched_split("64 rows a pass, the shared decode "
+                                   "(forced), as the parent ran it",
+                                   split, t_old)
+    assert k4_old == {"post_decode": -(-report.n_chunks // 64)} \
+        or report.retries, k4_old
+    assert old_report == report and all(
+        np.array_equal(a, b) for a, b in zip(old_paths, paths_20mb)), \
+        "the stitched decode's paths differ between the two passes"
+    print(f"[post] {n}-position stitched decode: the same paths and "
+          f"report at {rows} rows a pass (lanes) and at 64 (shared)",
+          flush=True)
+    del old_paths, paths_20mb
     # the score at S <= 239 ran the piece-operator scan and no chain;
     # --pd's sweep X1 and X2 twice a group each, X2 once more
     ran = stages.launched[SCORE_STAGE]
@@ -3416,6 +3603,7 @@ def phase_envelopes(work, xml, n, seed, device="cuda"):
         assert all(launches[path][k] for k in names), (path, launches[path])
     assert not launches["viterbi"]["viterbi_fwd"] \
         and not launches["maxpost"]["post_decode"] \
+        and not launches["maxpost"]["post_decode_lanes"] \
         and not launches["maxpost"]["em_fwd"]
     # on the card: the exact Viterbi == the stitched one; --pd's argmax ==
     # the stitched max-posterior but at near-ties
@@ -3533,13 +3721,14 @@ def make_gauss_track(work, rng, truth):
 
 
 def phase_gauss_base(work, xml, truth_bed, truth, small, region, em_region,
-                     seed, device="cuda"):
+                     seed, device="cuda", parent=None):
     """3e, base resolution: ``train --supervised`` and the stitched
     ``eval --bed`` of the whole chromosome with the gaussian track (K2
     with the gaussian stream), stitched ``--maxPost`` on a region (K1's
-    forward and K4 with it) and EM on a smaller region (K1 with it); then
-    the card against the CPU for the Viterbi decode and the EM.  Returns
-    the main path's launch counts."""
+    forward and K4 with it; with ``parent``, that checkout's eval CLI
+    must write its BED byte for byte) and EM on a smaller region (K1 with
+    it); then the card against the CPU for the Viterbi decode and the EM.
+    Returns the main path's launch counts."""
     from tehmm_tpu_torch.cli import eval as port_eval
     from tehmm_tpu_torch.cli import train as port_train
     from tehmm_tpu_torch.models.hmm import MultitrackHmm
@@ -3571,10 +3760,11 @@ def phase_gauss_base(work, xml, truth_bed, truth, small, region, em_region,
         stages.restore()
     # --maxPost (K4 with the gaussian stream) on a region
     mp_out = os.path.join(work, "gauss_maxpost.bed")
+    mp_argv = [xml, model, _region_bed(work, "gauss_mp.bed", lo, lo + region),
+               "--bed", mp_out, "--maxPost", "--no-exact", "--device",
+               device]
     t0 = time.perf_counter()
-    mp_score = float(_run_cli(port_eval, [
-        xml, model, _region_bed(work, "gauss_mp.bed", lo, lo + region),
-        "--bed", mp_out, "--maxPost", "--no-exact", "--device", device]))
+    mp_score = float(_run_cli(port_eval, mp_argv))
     t_mp = time.perf_counter() - t0
     # EM with the gaussian track (K1 with the gaussian stream)
     em_bed = _region_bed(work, "gauss_em.bed", lo, lo + em_region)
@@ -3609,6 +3799,8 @@ def phase_gauss_base(work, xml, truth_bed, truth, small, region, em_region,
     print(f"[gauss] {region}-position region --maxPost (stitched): printed "
           f"loglik {mp_score!r}, base accuracy {mp_acc:.6f}, eval CLI "
           f"{t_mp:.3f} s", flush=True)
+    if parent is not None:
+        _check_parent(parent, [(mp_argv, mp_out)], work, "gauss")
     g_ll, c_ll = ([r["loglik"] for r in _em_log(em_logs[d])]
                   for d in (device, "cpu"))
     assert len(g_ll) == len(c_ll) and np.isfinite(g_ll).all()
@@ -3652,11 +3844,12 @@ def _segment(work, xml, lo, hi, name):
         return segs, sum(1 for _ in fh)
 
 
-def phase_segments(work, xml, truth, seed, device="cuda"):
+def phase_segments(work, xml, truth, seed, device="cuda", parent=None):
     """3e, segment mode on the whole chromosome: ``segment_tracks``,
     ``train --segment --segLen`` (K1 with both streams), ``eval
     --segment --segLen --bed`` (K2 with both) and ``--maxPost`` (K4 with
-    both).  Returns the main path's launch counts."""
+    both; with ``parent``, that checkout's eval CLI must write its BED
+    byte for byte).  Returns the main path's launch counts."""
     from tehmm_tpu_torch.cli import eval as port_eval
     from tehmm_tpu_torch.cli import segment_tracks as port_seg
     from tehmm_tpu_torch.cli import train as port_train
@@ -3699,12 +3892,13 @@ def phase_segments(work, xml, truth, seed, device="cuda"):
         scores = {}
         for mode, flags in (("Viterbi", []), ("--maxPost", ["--maxPost"])):
             out = os.path.join(work, f"seg_decoded{len(scores)}.bed")
+            argv = [xml, model, segs, "--segment", "--segLen", "--bed", out,
+                    "--no-exact", "--device", device, *flags]
             t0 = time.perf_counter()
-            scores[mode] = float(_run_cli(port_eval, [
-                xml, model, segs, "--segment", "--segLen", "--bed", out,
-                "--no-exact", "--device", device, *flags]))
+            scores[mode] = float(_run_cli(port_eval, argv))
             walls[f"eval {mode} CLI"] = time.perf_counter() - t0
             scores[mode + " bed"] = out
+            scores[mode + " argv"] = argv
     finally:
         stages.restore()
     launches = dict(ck.LAUNCHES)
@@ -3730,6 +3924,9 @@ def phase_segments(work, xml, truth, seed, device="cuda"):
               f"each learned state to its majority planted state",
               flush=True)
     print(f"[seg] Viterbi decode: {report}", flush=True)
+    if parent is not None:
+        _check_parent(parent, [(scores["--maxPost argv"],
+                                scores["--maxPost bed"])], work, "seg")
     print("[seg] stage                      seconds  calls", flush=True)
     for stage, sec in stages.seconds.items():
         print(f"[seg] {stage:26s} {sec:9.3f}  {stages.calls[stage]}",
@@ -3740,12 +3937,14 @@ def phase_segments(work, xml, truth, seed, device="cuda"):
 
 
 def phase_segments_card_vs_cpu(work, xml_seg, xml_cat, n, region, seed,
-                               device="cuda"):
+                               device="cuda", parent=None):
     """3e, segment mode on the card against the CPU on a region: the
     same ``train --segment --segLen`` and ``eval --segment --segLen``
     (Viterbi and ``--maxPost``, stitched) with the gaussian track, then
-    with the categorical tracks only.  Returns the launch counts of the
-    categorical card runs (their own path: the weight stream alone)."""
+    with the categorical tracks only (with ``parent``, that checkout's
+    eval CLI must write the card's categorical ``--maxPost`` BED byte
+    for byte).  Returns the launch counts of the categorical card runs
+    (their own path: the weight stream alone)."""
     from tehmm_tpu_torch.cli import eval as port_eval
     from tehmm_tpu_torch.cli import train as port_train
     from tehmm_tpu_torch.ops import cuda_kernels as ck
@@ -3753,6 +3952,7 @@ def phase_segments_card_vs_cpu(work, xml_seg, xml_cat, n, region, seed,
     lo = n // 2
     names = [str(i) for i in range(SEG_STATES)]
     cat_launches = None
+    same_as_parent = []
     for tag, xml in (("gauss", xml_seg), ("categorical", xml_cat)):
         segs, n_segs = _segment(work, xml, lo, lo + region,
                                 f"seg_small_{tag}.bed")
@@ -3770,10 +3970,12 @@ def phase_segments_card_vs_cpu(work, xml_seg, xml_cat, n, region, seed,
             for flags in ([], ["--maxPost"]):
                 out = os.path.join(work, f"seg_small_{tag}_{dev}"
                                          f"{len(paths)}.bed")
-                _run_cli(port_eval, [xml, model, segs, "--segment",
-                                     "--segLen", "--bed", out, "--no-exact",
-                                     "--device", dev, *flags])
+                argv = [xml, model, segs, "--segment", "--segLen", "--bed",
+                        out, "--no-exact", "--device", dev, *flags]
+                _run_cli(port_eval, argv)
                 paths.append(_paint_region(out, lo, region, names))
+                if tag == "categorical" and dev == device and flags:
+                    same_as_parent.append((argv, out))
             if tag == "categorical" and dev == device:
                 cat_launches = dict(ck.LAUNCHES)
             runs[dev] = ([r["loglik"] for r in _em_log(log)], paths)
@@ -3790,6 +3992,8 @@ def phase_segments_card_vs_cpu(work, xml_seg, xml_cat, n, region, seed,
               f"{n_segs} segments: {len(g_ll)} EM iterations each, loglik "
               f"rel err {rel:.3g}; BED agrees on {agree[0]:.6f} (Viterbi) "
               f"and {agree[1]:.6f} (--maxPost) of bases", flush=True)
+    if parent is not None:
+        _check_parent(parent, same_as_parent, work, "seg-small")
     return cat_launches
 
 
@@ -3806,7 +4010,8 @@ def main(argv=None) -> int:
                          "3d holds its --exact BED of phase 3's region, "
                          "stitched --maxPost BED, --maxPost --exact BEDs "
                          "and --pd file, 3b its learned model and loglik "
-                         "trace, to this one's byte for byte")
+                         "trace, 3e its stitched --maxPost BEDs (+g, +wg, "
+                         "+w), to this one's byte for byte")
     args = ap.parse_args(argv)
 
     import torch
@@ -3908,14 +4113,18 @@ def main(argv=None) -> int:
         print(f"[gauss] gaussian track: {n // GAUSS_RECORD} records, "
               f"{time.perf_counter() - t0:.1f} s to write", flush=True)
         ck.reset_launch_counts()
+        parent = None if args.parent is None \
+            else os.path.abspath(args.parent)
         gauss_launches = phase_gauss_base(work, xml_g, truth_bed, truth,
                                           20_000, 1_000_000, 50_000,
-                                          args.seed)
+                                          args.seed, parent=parent)
         _phase_done("3e, base resolution", t_run)
         ck.reset_launch_counts()
-        seg_launches = phase_segments(work, xml_seg, truth, args.seed)
+        seg_launches = phase_segments(work, xml_seg, truth, args.seed,
+                                      parent=parent)
         cat_launches = phase_segments_card_vs_cpu(work, xml_seg, xml_cat, n,
-                                                  200_000, args.seed)
+                                                  200_000, args.seed,
+                                                  parent=parent)
         _phase_done("3e, segments", t_run)
     for config, counts in engine_launches.items():
         print(f"[launches] engine-comparison path (2e) at {config}: "
@@ -3983,7 +4192,10 @@ def main(argv=None) -> int:
             launches[name] = decode_launches[base]
         elif base in POST_KERNELS and config and \
                 config not in engine_launches:
-            launches[name] = post_launches[base]    # X1 at 3d's shapes
+            launches[name] = post_launches[base]    # X1, K4 at 3d's shapes
+        elif base == "post_decode":
+            # K4's shared decode, forced at S=10: 3d's count of it, 0
+            launches[name] = post_launches[base]
         elif config or base in STREAMING_KERNELS:
             launches[name] = \
                 engine_launches[config or ENGINE_CONFIGS[0]][base]

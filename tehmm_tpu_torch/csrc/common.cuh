@@ -4,9 +4,10 @@
 // states per lane, tables staged into shared memory by the whole block,
 // the one in-register observation routine (obs_log) with its optional
 // segment-weight and gaussian streams, the cp.async staging of matrix
-// rows, and the long sweeps' obs read ahead of their chain (K3, X1, X2) with
-// the exact maxes of the lanes steps (theirs and K1's).  Everything is in
-// an anonymous namespace: each source gets its own copy.
+// rows, the long sweeps' obs read ahead of their chain (K3, X1, X2) with
+// the exact maxes of the lanes steps (theirs, K1's and K4's), and the
+// staging ring of the lanes kernels that form obs themselves (K1, K4).
+// Everything is in an anonymous namespace: each source gets its own copy.
 
 #pragma once
 
@@ -285,7 +286,7 @@ __device__ __forceinline__ float row_max(const float (&src)[NS]) {
 // (tools/time_x2's sweep, PERF.md: the gather 0.314 against 0.368 us a
 // step at S=10, the butterfly 0.451 against 0.478 at 32, level at 20).
 // Any order of an exact max gives the same bits.  The lanes steps of X2
-// (posterior.cu) and K1 (em_estep.cu).
+// and K4's decode (posterior.cu) and K1 (em_estep.cu).
 constexpr int kGatherStates = 16;
 
 template <int NS>
@@ -298,6 +299,133 @@ __device__ __forceinline__ float lanes_row_max(float v) {
   } else {
     return warp_max(v);
   }
+}
+
+// The lanes kernels' staging ring (K1's in em_estep.cu, K4's decode in
+// posterior.cu; S <= 32, one state a lane): each warp stages its row's
+// streams into a ring of two slots of kHalf positions with cp.async, the
+// lanes taking every 32nd word of each stream's block, so every lane
+// reads every word after a __syncwarp.  A slot holds, in this order:
+// symbols [kHalf][T], segment weights [kHalf] (its room kept without the
+// stream), gaussian values [kHalf][G] and, in the reverse walks, alpha_p
+// rows [kHalf][S] (and K1's m_raw [kHalf]), each position at its offset
+// from the slot's first.
+
+// x / y with IEEE float division's bits, for a divisor y that is a normal
+// float (the lanes kernels' divisors are clamped at 1e-37 or 1e-30 and
+// finite) and a finite x, without the float divide's slow-path branch:
+// with it the forward step at S=10 took 0.46 us on an H100 80GB HBM3,
+// with this 0.32 (tools/time_k1, PERF.md).  A double reciprocal
+// estimate, two Newton steps (~2^-53) and a Markstein correction give the
+// quotient within an ulp of double, and a quotient of two floats lies at
+// least 2^-50 of itself from a float rounding boundary or exactly on one
+// (then the correction makes it exact), so rounding it to float gives
+// the IEEE quotient.
+__device__ __forceinline__ float div_rn(float x, float y) {
+  const double xd = x, yd = y;
+  double r;
+  asm("rcp.approx.ftz.f64 %0, %1;" : "=d"(r) : "d"(yd));
+  double e = fma(-yd, r, 1.0);
+  r = fma(r, e, r);
+  e = fma(-yd, r, 1.0);
+  r = fma(r, e, r);
+  const double q = xd * r;
+  return (float)fma(fma(-yd, q, xd), r, q);
+}
+
+// Floats of one slot, with ``rows`` floats a position past the streams:
+// 0 (K1's forward), S + 1 (K1's reverse: alpha_p and m_raw) or S (K4's
+// decode: alpha_p).
+__host__ __device__ __forceinline__ int64_t slot_floats(int S, int T, int G,
+                                                        int rows) {
+  return (int64_t)kHalf * (T + 1 + G + rows);
+}
+
+// Issue the copy of n 4-byte words from src to dst, each lane every 32nd.
+__device__ __forceinline__ void copy_words(float* dst, const void* src,
+                                           int64_t n, int lane) {
+  const float* s = static_cast<const float*>(src);
+  for (int64_t e = lane; e < n; e += 32) cp_async4(dst + e, s + e);
+}
+
+// Stage the ``cnt`` positions from flat position ``pos`` (0 or fewer:
+// nothing) into ``slot`` and commit the copy.  alpha: the reverse walks'
+// alpha_p rows (K1's reverse, K4's decode), else nullptr; mraw: K1's
+// reverse's m_raw after them, else nullptr.
+__device__ __forceinline__ void stage_slot(float* slot, int64_t pos,
+                                           int64_t cnt, const int32_t* sym,
+                                           int S, int T,
+                                           const ObsStreams& st,
+                                           const float* alpha,
+                                           const float* mraw, int lane) {
+  if (cnt > 0) {
+    const int G = st.values != nullptr ? st.G : 0;
+    float* w = slot + kHalf * T;
+    float* v = w + kHalf;
+    copy_words(slot, sym + pos * T, cnt * T, lane);
+    if (st.w != nullptr) copy_words(w, st.w + pos, cnt, lane);
+    if (G > 0) copy_words(v, st.values + pos * G, cnt * G, lane);
+    if (alpha != nullptr) {
+      float* a = v + kHalf * G;
+      copy_words(a, alpha + pos * S, cnt * S, lane);
+      if (mraw != nullptr) copy_words(a + kHalf * S, mraw + pos, cnt, lane);
+    }
+  }
+  cp_async_commit();
+}
+
+// obs_log of every state at one position, as common.cuh obs_log computes
+// each (the same operations in the same order, so the same bits), with the
+// loops over tracks and states interchanged so the states' sums advance
+// together: o[j] for j < S.
+template <int NS>
+__device__ __forceinline__ void obs_row(const float* s_em, const int32_t* x,
+                                        int S, int T, int V, const float* v,
+                                        const float* s_coef, int G,
+                                        const float* w, float (&o)[NS]) {
+  const int64_t TV = (int64_t)T * V;
+  const float* e = s_em + x[0];
+#pragma unroll
+  for (int j = 0; j < NS; ++j) o[j] = j < S ? e[j * TV] : 0.0f;
+  for (int tt = 1; tt < T; ++tt) {
+    e = s_em + tt * V + x[tt];
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+      if (j < S) o[j] += e[j * TV];
+  }
+#pragma unroll
+  for (int j = 0; j < NS; ++j) {
+    if (j < S && v != nullptr)
+      o[j] = __fadd_rn(o[j], gauss_term(v, s_coef + (int64_t)j * 3 * G, G));
+    if (j < S && w != nullptr) o[j] = __fmul_rn(o[j], *w);
+  }
+}
+
+// obs_p = exp(obs_log - max obs_log) of the slot's first ``cnt``
+// positions into col [kHalf][S], lane k taking position k: obs_probs<1>'s
+// operations (its max is exact, so any order gives its bits) with no
+// shuffle, the states' sums side by side.  Returns lane k's max (0 past
+// cnt).
+template <int NS>
+__device__ __forceinline__ float slot_obs(const float* slot, int cnt,
+                                          const float* s_em, int S, int T,
+                                          int V, const ObsStreams& st,
+                                          int lane, float* col) {
+  if (lane >= cnt) return 0.0f;
+  const int G = st.values != nullptr ? st.G : 0;
+  const float* ws = slot + kHalf * T;
+  float o[NS];
+  obs_row<NS>(s_em, reinterpret_cast<const int32_t*>(slot) + lane * T, S,
+              T, V, G > 0 ? ws + kHalf + lane * G : nullptr, st.s_coef, G,
+              st.w != nullptr ? ws + lane : nullptr, o);
+  float o_m = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < NS; ++j)
+    if (j < S) o_m = fmaxf(o_m, o[j]);
+#pragma unroll
+  for (int j = 0; j < NS; ++j)
+    if (j < S) col[lane * S + j] = expf(o[j] - o_m);
+  return o_m;
 }
 
 // Issue the copy of T's rows [i0, min(i0 + blk, Sp)) into dst (16-byte

@@ -341,135 +341,17 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 // The lanes variants (S <= 32, one state a lane): the same function and
 // the same bits as the kernels above at one state a lane.
 //
-// Each warp stages its row's streams into a ring of two slots of kHalf
-// positions (common.cuh) with cp.async, the lanes taking every 32nd word
-// of each stream's block, so every lane reads every word after a
-// __syncwarp.  A slot holds, in this order: symbols [kHalf][T], segment
-// weights [kHalf] (its room kept without the stream), gaussian values
-// [kHalf][G] and, in the reverse kernel, alpha_p rows [kHalf][S] and
-// m_raw [kHalf], each position at its offset from the slot's first.
+// Each warp stages its row's streams through the lanes kernels' ring
+// (common.cuh stage_slot; in the reverse kernel alpha_p rows and m_raw
+// too), forms a half's obs_p from it (slot_obs) and divides by div_rn.
 // ---------------------------------------------------------------------
-
-// x / y with IEEE float division's bits, for a divisor y that is a normal
-// float (the lanes kernels' divisors are clamped at 1e-37 or 1e-30 and
-// finite) and a finite x, without the float divide's slow-path branch:
-// with it the forward step at S=10 took 0.46 us on an H100 80GB HBM3,
-// with this 0.32 (tools/time_k1, PERF.md).  A double reciprocal
-// estimate, two Newton steps (~2^-53) and a Markstein correction give the
-// quotient within an ulp of double, and a quotient of two floats lies at
-// least 2^-50 of itself from a float rounding boundary or exactly on one
-// (then the correction makes it exact), so rounding it to float gives
-// the IEEE quotient.
-__device__ __forceinline__ float div_rn(float x, float y) {
-  const double xd = x, yd = y;
-  double r;
-  asm("rcp.approx.ftz.f64 %0, %1;" : "=d"(r) : "d"(yd));
-  double e = fma(-yd, r, 1.0);
-  r = fma(r, e, r);
-  e = fma(-yd, r, 1.0);
-  r = fma(r, e, r);
-  const double q = xd * r;
-  return (float)fma(fma(-yd, q, xd), r, q);
-}
-
-// Floats of one slot: the reverse kernel (``rows``) adds alpha_p and m_raw.
-__host__ __device__ __forceinline__ int64_t slot_floats(int S, int T, int G,
-                                                        bool rows) {
-  return (int64_t)kHalf * (T + 1 + G + (rows ? S + 1 : 0));
-}
-
-// Issue the copy of n 4-byte words from src to dst, each lane every 32nd.
-__device__ __forceinline__ void copy_words(float* dst, const void* src,
-                                           int64_t n, int lane) {
-  const float* s = static_cast<const float*>(src);
-  for (int64_t e = lane; e < n; e += 32) cp_async4(dst + e, s + e);
-}
-
-// Stage the ``cnt`` positions from flat position ``pos`` (0 or fewer:
-// nothing) into ``slot`` and commit the copy.  alpha and mraw: the
-// reverse kernel's rows, else nullptr.
-__device__ __forceinline__ void stage_slot(float* slot, int64_t pos,
-                                           int64_t cnt, const int32_t* sym,
-                                           int S, int T,
-                                           const ObsStreams& st,
-                                           const float* alpha,
-                                           const float* mraw, int lane) {
-  if (cnt > 0) {
-    const int G = st.values != nullptr ? st.G : 0;
-    float* w = slot + kHalf * T;
-    float* v = w + kHalf;
-    copy_words(slot, sym + pos * T, cnt * T, lane);
-    if (st.w != nullptr) copy_words(w, st.w + pos, cnt, lane);
-    if (G > 0) copy_words(v, st.values + pos * G, cnt * G, lane);
-    if (alpha != nullptr) {
-      float* a = v + kHalf * G;
-      copy_words(a, alpha + pos * S, cnt * S, lane);
-      copy_words(a + kHalf * S, mraw + pos, cnt, lane);
-    }
-  }
-  cp_async_commit();
-}
-
-// obs_log of every state at one position, as common.cuh obs_log computes
-// each (the same operations in the same order, so the same bits), with the
-// loops over tracks and states interchanged so the states' sums advance
-// together: o[j] for j < S.
-template <int NS>
-__device__ __forceinline__ void obs_row(const float* s_em, const int32_t* x,
-                                        int S, int T, int V, const float* v,
-                                        const float* s_coef, int G,
-                                        const float* w, float (&o)[NS]) {
-  const int64_t TV = (int64_t)T * V;
-  const float* e = s_em + x[0];
-#pragma unroll
-  for (int j = 0; j < NS; ++j) o[j] = j < S ? e[j * TV] : 0.0f;
-  for (int tt = 1; tt < T; ++tt) {
-    e = s_em + tt * V + x[tt];
-#pragma unroll
-    for (int j = 0; j < NS; ++j)
-      if (j < S) o[j] += e[j * TV];
-  }
-#pragma unroll
-  for (int j = 0; j < NS; ++j) {
-    if (j < S && v != nullptr)
-      o[j] = __fadd_rn(o[j], gauss_term(v, s_coef + (int64_t)j * 3 * G, G));
-    if (j < S && w != nullptr) o[j] = __fmul_rn(o[j], *w);
-  }
-}
-
-// obs_p = exp(obs_log - max obs_log) of the slot's first ``cnt``
-// positions into col [kHalf][S], lane k taking position k: obs_probs<1>'s
-// operations (its max is exact, so any order gives its bits) with no
-// shuffle, the states' sums side by side.  Returns lane k's max (0 past
-// cnt).
-template <int NS>
-__device__ __forceinline__ float slot_obs(const float* slot, int cnt,
-                                          const float* s_em, int S, int T,
-                                          int V, const ObsStreams& st,
-                                          int lane, float* col) {
-  if (lane >= cnt) return 0.0f;
-  const int G = st.values != nullptr ? st.G : 0;
-  const float* ws = slot + kHalf * T;
-  float o[NS];
-  obs_row<NS>(s_em, reinterpret_cast<const int32_t*>(slot) + lane * T, S,
-              T, V, G > 0 ? ws + kHalf + lane * G : nullptr, st.s_coef, G,
-              st.w != nullptr ? ws + lane : nullptr, o);
-  float o_m = -INFINITY;
-#pragma unroll
-  for (int j = 0; j < NS; ++j)
-    if (j < S) o_m = fmaxf(o_m, o[j]);
-#pragma unroll
-  for (int j = 0; j < NS; ++j)
-    if (j < S) col[lane * S + j] = expf(o[j] - o_m);
-  return o_m;
-}
 
 // Floats of one warp's region of the forward: the ring and obs_p
 // [kHalf][S].
 __host__ __device__ __forceinline__ int64_t fwd_lanes_warp_floats(int S,
                                                                   int T,
                                                                   int G) {
-  return 2 * slot_floats(S, T, G, false) + (int64_t)kHalf * S;
+  return 2 * slot_floats(S, T, G, 0) + (int64_t)kHalf * S;
 }
 
 // K1 forward, lanes variant.  Lane j holds column j of exp(log_trans) in
@@ -498,7 +380,7 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32)
   st.s_coef = s_em + S * TV;                   // gaussian coefficients
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int64_t slot_f = slot_floats(S, T, G, false);
+  const int64_t slot_f = slot_floats(S, T, G, 0);
   float* ring = st.s_coef + coef_floats(S, st.values, st.G) +
                 warp * fwd_lanes_warp_floats(S, T, G);
   float* col = ring + 2 * slot_f;              // obs_p [kHalf][S]
@@ -587,7 +469,7 @@ __host__ __device__ __forceinline__ int64_t bwd_lanes_warp_floats(int S,
                                                                   int T,
                                                                   int V,
                                                                   int G) {
-  const int64_t ring = 2 * slot_floats(S, T, G, true) + (int64_t)kHalf * S;
+  const int64_t ring = 2 * slot_floats(S, T, G, S + 1) + (int64_t)kHalf * S;
   const int64_t SS = (int64_t)S * S;
   return bwd_lanes_stats_floats(S, T, V, G) + (ring > SS ? ring : SS);
 }
@@ -632,7 +514,7 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32, NS <= 20 ? 4 : 3)
   const int64_t SG3 = (int64_t)S * 3 * G;
   const int64_t stats_f = bwd_lanes_stats_floats(S, T, V, G);
   const int64_t region = bwd_lanes_warp_floats(S, T, V, G);
-  const int64_t slot_f = slot_floats(S, T, G, true);
+  const int64_t slot_f = slot_floats(S, T, G, S + 1);
   float* s_em = smem;                          // log_em [S, T, V]
   st.s_coef = s_em + S * TV;                   // gaussian coefficients
   float* s_warps = st.s_coef + SG3;            // one region per warp

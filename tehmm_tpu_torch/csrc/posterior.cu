@@ -12,10 +12,13 @@
 //
 // Kernels and what they replace:
 //
-//   post_decode_kernel  K4 decode, _make_post_decode_kernel_v4
+//   post_decode_lanes_kernel, post_decode_kernel
+//                       K4 decode, _make_post_decode_kernel_v4
 //                       (tehmm_tpu/ops/pallas_kernels.py:2765, launched at
 //                       :3015 under posterior_decode_fused_pallas_v4
-//                       :2911).  K4's forward is K1's em_fwd_kernel
+//                       :2911), the lanes variant to 32 states and the
+//                       shared one from 33 to K4's envelope
+//                       (ops/cuda_kernels.k4_step).  K4's forward is K1's
 //                       (em_estep.cu), whose alpha_p rows it reads.
 //   fwd_sweep_lanes_kernel, fwd_sweep_smem_kernel
 //                       X1: the XLA scans of dp.forward_chunk_values
@@ -99,6 +102,16 @@
 // of either gives the plain version's and the other variant's bits.  The
 // recomputes of the exact posteriors give every (table, chunk) of a group
 // a warp, each from its stored carry.
+//
+// K4's decode walks every chunk of a stitched decode from its end, a
+// warp a row, so its step too is cut to its latency to 32 states
+// (post_decode_lanes_kernel, K1's reverse lanes kernel without the
+// statistics): exp(trans) in registers, the row round by shuffles, the
+// divides by div_rn, the symbols, the streams and alpha_p staged a half
+// ahead through common.cuh's ring and a half's obs formed before its
+// steps, and the argmax, which nothing on the chain needs, left to the
+// half's end; past 32 states post_decode_kernel, obs, the argmax and the
+// b product from shared memory in the step.
 //
 // The piece-operator scan splits the row instead (Sarkka &
 // Garcia-Fernandez; across devices the JAX package's parallel/seqpar.py
@@ -271,6 +284,127 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32)
       if (lane + 32 * k < S) bv[k] = sb[k] / nm;
     __syncwarp();  // s_xn is free for the next step
   }
+}
+
+// Floats of one warp's region of the lanes decode: the ring (a slot
+// holding alpha_p rows after the streams) and a half's obs_p [kHalf][S],
+// each entry, once read, taking alpha_p b.
+__host__ __device__ __forceinline__ int64_t decode_lanes_warp_floats(int S,
+                                                                     int T,
+                                                                     int G) {
+  return 2 * slot_floats(S, T, G, S) + (int64_t)kHalf * S;
+}
+
+// Shared-memory floats a block of the lanes decode takes: log_em and the
+// gaussian coefficients, then a region a warp.
+int64_t decode_lanes_smem_floats(int S, int T, int V, int G) {
+  return (int64_t)S * T * V + (int64_t)S * 3 * G +
+         kWarpsPerBlock * decode_lanes_warp_floats(S, T, G);
+}
+
+// K4 decode, lanes variant (S <= 32, one state a lane), with
+// post_decode_kernel's inputs, outputs and bits.  Lane i holds row i of
+// exp(log_trans) in registers (tr, 0 past S) and b_i (0 past S).  A step
+// is em_bwd_stats_lanes_kernel's b step with no statistics: x = obs_p b,
+// xm = max(max x, 1e-37) (exact), xn = x / xm (div_rn); xn goes round by
+// NS shuffles into lane i's fmaf chain over j = 0..NS-1 from 0
+// (post_decode_kernel's operands in its order; the terms past S are
+// exact zeros), and b <- that / max(max, 1e-37) (div_rn).  Off the
+// chain, each step stores alpha_p b into the obs_p entry it has just read
+// (lane j, state j); at the half's end lane k takes position k's
+// first-hit argmax, a scan over j = 0..S-1 with strict > (the lowest
+// state on ties, first_hit_argmax's choice), and the half's states go
+// out in one store.  The symbols, the streams and the alpha_p rows come
+// through the ring in reverse from the row's last valid position, and a
+// half's obs_p is formed before its steps (slot_obs); positions at or
+// past the row's length get 0.  The bounds ask for 4 blocks an SM to 20
+// states and 3 beyond (at 4, ptxas spilled from 24 states), more than a
+// pass of 512 rows (128 blocks) needs to run in one wave.
+template <int NS>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32, NS <= 20 ? 4 : 3)
+    post_decode_lanes_kernel(const int32_t* __restrict__ sym,
+                             const int32_t* __restrict__ lens,
+                             const float* __restrict__ trans_p,
+                             const float* __restrict__ em,
+                             const float* __restrict__ alpha,
+                             int32_t* __restrict__ path, int64_t B,
+                             int64_t L, int S, int T, int V, ObsStreams st) {
+  extern __shared__ float smem[];
+  const int64_t TV = (int64_t)T * V;
+  const int G = st.values != nullptr ? st.G : 0;
+  const int64_t slot_f = slot_floats(S, T, G, S);
+  float* s_em = smem;                          // log_em [S, T, V]
+  st.s_coef = s_em + S * TV;                   // gaussian coefficients
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  float* ring = st.s_coef + coef_floats(S, st.values, st.G) +
+                warp * decode_lanes_warp_floats(S, T, G);
+  float* col = ring + 2 * slot_f;              // obs_p, then alpha_p b
+  stage(s_em, em, S * TV);
+  stage_coef(st, S);
+  __syncthreads();
+
+  const int64_t b = (int64_t)blockIdx.x * kWarpsPerBlock + warp;
+  if (b >= B) return;
+  const bool mine = lane < S;
+  const int me = mine ? lane : S - 1;
+  float tr[NS];
+#pragma unroll
+  for (int j = 0; j < NS; ++j)
+    tr[j] = (mine && j < S) ? trans_p[(int64_t)lane * S + j] : 0.0f;
+  float bv = mine ? 1.0f : 0.0f;
+  const int64_t n = max((int64_t)0, min((int64_t)lens[b], L));
+  const int64_t row = b * L;
+  int32_t* prow = path + row;
+  for (int64_t p = n + lane; p < L; p += 32) prow[p] = 0;
+  // half h: positions [max(n - (h+1) kHalf, 0), n - h kHalf)
+  auto lo_of = [&](int64_t r0) { return max((int64_t)0, n - r0 - kHalf); };
+  stage_slot(ring, row + lo_of(0), n - lo_of(0), sym, S, T, st, alpha,
+             nullptr, lane);
+  stage_slot(ring + slot_f, row + lo_of(kHalf), n - kHalf - lo_of(kHalf),
+             sym, S, T, st, alpha, nullptr, lane);
+  for (int64_t r0 = 0; r0 < n; r0 += kHalf) {
+    cp_async_wait<1>();  // this half is in; the next may be in flight
+    __syncwarp();        // and every lane's words of it
+    float* slot = ring + ((r0 / kHalf) & 1) * slot_f;
+    const float* as = slot + kHalf * (T + 1 + G);   // alpha_p rows
+    const int64_t lo = lo_of(r0);
+    const int cnt = (int)(n - r0 - lo);
+    slot_obs<NS>(slot, cnt, s_em, S, T, V, st, lane, col);
+    __syncwarp();        // col is whole
+#pragma unroll 2
+    for (int k = cnt - 1; k >= 0; --k) {       // positions lo + k, down
+      const float x = (mine ? col[k * S + me] : 0.0f) * bv;
+      if (mine) col[k * S + lane] = as[k * S + lane] * bv;
+      const float xm = fmaxf(lanes_row_max<NS>(x), 1e-37f);
+      const float xn = div_rn(x, xm);
+      // b <- T xn / max(max T xn, 1e-37)
+      float sb = 0.0f;
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+        sb = fmaf(tr[j], __shfl_sync(0xffffffffu, xn, j), sb);
+      const float nm = fmaxf(lanes_row_max<NS>(sb), 1e-37f);
+      bv = div_rn(sb, nm);
+    }
+    __syncwarp();        // the half's alpha_p b rows are whole
+    if (lane < cnt) {
+      const float* ab = col + lane * S;
+      float best = -INFINITY;
+      int arg = S;
+      for (int j = 0; j < S; ++j) {
+        if (ab[j] > best) {
+          best = ab[j];
+          arg = j;
+        }
+      }
+      prow[lo + lane] = arg;
+    }
+    __syncwarp();        // every lane has read the slot and col: refill
+    const int64_t r2 = r0 + 2 * kHalf;
+    stage_slot(slot, row + lo_of(r2), n - r2 - lo_of(r2), sym, S, T, st,
+               alpha, nullptr, lane);
+  }
+  cp_async_wait<0>();
 }
 
 // X1, every mode, either step: from each row's incoming carry [B, S] over
@@ -856,6 +990,23 @@ int launch_decode(const void* sym, const void* lens, const void* trans_p,
   return (int)cudaGetLastError();
 }
 
+template <int NS>
+int launch_decode_lanes(const void* sym, const void* lens,
+                        const void* trans_p, const void* em,
+                        const void* alpha, void* path, int64_t B, int64_t L,
+                        int S, int T, int V, const ObsStreams& st,
+                        cudaStream_t stream) {
+  const size_t smem = sizeof(float) * decode_lanes_smem_floats(S, T, V, st.G);
+  cudaError_t err = allow_smem(post_decode_lanes_kernel<NS>, smem);
+  if (err != cudaSuccess) return (int)err;
+  post_decode_lanes_kernel<NS><<<grid_for(B), kWarpsPerBlock * 32, smem,
+                                 stream>>>(
+      (const int32_t*)sym, (const int32_t*)lens, (const float*)trans_p,
+      (const float*)em, (const float*)alpha, (int32_t*)path, B, L, S, T, V,
+      st);
+  return (int)cudaGetLastError();
+}
+
 size_t sweep_smem(int S) {
   return sizeof(float) * ((size_t)S * S + (size_t)kWarpsPerBlock * S);
 }
@@ -1006,6 +1157,43 @@ int tehmm_post_decode(const void* sym, const void* lens, const void* trans_p,
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+// K4's decode, lanes variant (ops/cuda_kernels.k4_step picks it to 32
+// states): tehmm_post_decode's arguments.
+int tehmm_post_decode_lanes(const void* sym, const void* lens,
+                            const void* trans_p, const void* em,
+                            const void* alpha, void* path, int64_t B,
+                            int64_t L, int S, int T, int V, const void* w,
+                            const void* values, const void* coef, int G,
+                            void* stream) {
+  cudaStream_t cs = (cudaStream_t)stream;
+  const ObsStreams st = make_streams(w, values, coef, G);
+  // the registers of a row: S rounded up to a multiple of 4
+  switch ((S + 3) / 4) {
+#define K4_LANES_CASE(q)                                                  \
+  case q:                                                                 \
+    return launch_decode_lanes<4 * q>(sym, lens, trans_p, em, alpha, path, \
+                                      B, L, S, T, V, st, cs);
+    K4_LANES_CASE(1)
+    K4_LANES_CASE(2)
+    K4_LANES_CASE(3)
+    K4_LANES_CASE(4)
+    K4_LANES_CASE(5)
+    K4_LANES_CASE(6)
+    K4_LANES_CASE(7)
+    K4_LANES_CASE(8)
+#undef K4_LANES_CASE
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The shared-memory floats a block of the lanes decode takes at S states,
+// T tracks of V symbols and G gaussian tracks: ops/cuda_kernels.k4_step's
+// fit test is held to it.
+int64_t tehmm_k4_lanes_smem_floats(int S, int T, int V, int G) {
+  return decode_lanes_smem_floats(S, T, V, G);
 }
 
 // X1's sweep, either step variant (ops/cuda_kernels.x1_step picks by S):

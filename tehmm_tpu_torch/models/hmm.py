@@ -552,13 +552,14 @@ class MultitrackHmm:
         tables: Sequence[TrackTable],
         chunk_len: int = 1 << 14,
         halo: int = 256,
-        rows_per_pass: int = 64,
+        rows_per_pass: int | None = None,
         weight_arrays: Sequence[np.ndarray] | None = None,
     ) -> list[np.ndarray]:
         """Max-posterior (per-position argmax gamma) paths for each
         table: halo chunks with the Viterbi stitcher's boundary check and
         targeted widening, falling back to the exact carried-alpha/beta
-        decoder (``parallel.stitch.posterior_chunked``).
+        decoder (``parallel.stitch.posterior_chunked``; ``rows_per_pass``
+        None takes its route's pass).
         ``weight_arrays``: segment weights (``--segment --segLen``)."""
         paths, _report = posterior_chunked(
             self.params, tables, chunk_len=chunk_len, halo=halo,

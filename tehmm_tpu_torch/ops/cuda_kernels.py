@@ -22,6 +22,7 @@ bounds each on an H100 and how its design answers it):
   em_fwd                K1 forward, ``_make_forward_kernel_v4``
   em_bwd_stats          K1 reverse, ``_make_bwd_stats_kernel_v4``
   post_decode           K4 decode, ``_make_post_decode_kernel_v4``
+                        (``post_decode_lanes`` counts its lanes kernel)
   forward_chunk_values  X1: no Pallas kernel; the XLA scans of
   (forward_final,       ``dp.forward_chunk_values`` (``dp.forward_final``;
   forward_checkpoints)  the carries of many chunks in one launch: the
@@ -65,8 +66,9 @@ stitched decoders past the fused kernels' envelopes
 (``parallel/stitch.py``) are built on them.  ``k1_fits``, ``k2_fits``
 and ``k4_fits`` state the fused kernels' envelopes; their wrappers'
 checks and the routes ask them.  Inside its envelope K1 runs its lanes
-kernels to 32 states and its shared ones beyond (``k1_step``), with the
-same bits either way.  K3, X1 and X2 launch their one-warp
+kernels to 32 states and its shared ones beyond (``k1_step``), and K4's
+decode its lanes kernel to 32 states and its shared one beyond
+(``k4_step``), with the same bits either way.  K3, X1 and X2 launch their one-warp
 kernels where ``sweep_fits`` (S <= 239) and the tile's carry modes
 beyond, each counted under its own name (``viterbi_chunk_tile``,
 ``fwd_chunk_tile``, ``bwd_chunk_tile``), so the exact decoders, ``--pd``
@@ -126,7 +128,8 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "tehmm_tpu_torch")
 
 # Launch counts per kernel (plain integers; reset_launch_counts zeroes).
 # The kernels with the optional streams count each variant apart.
-STREAM_KERNELS = ("viterbi_fwd", "em_fwd", "em_bwd_stats", "post_decode")
+STREAM_KERNELS = ("viterbi_fwd", "em_fwd", "em_bwd_stats", "post_decode",
+                  "post_decode_lanes")
 STREAM_VARIANTS = ("", "+w", "+g", "+wg")
 LAUNCHES = {
     name: 0 for name in (
@@ -291,10 +294,12 @@ def load_library() -> ctypes.CDLL:
                 + [ptr])
         lib.tehmm_k1_lanes_smem_floats.restype = i64
         lib.tehmm_k1_lanes_smem_floats.argtypes = [i32] * 6
-        lib.tehmm_post_decode.restype = i32
-        lib.tehmm_post_decode.argtypes = (
-            [ptr] * 6 + [i64, i64, i32, i32, i32] + streams + [ptr]
-        )
+        for fn in (lib.tehmm_post_decode, lib.tehmm_post_decode_lanes):
+            fn.restype = i32
+            fn.argtypes = (
+                [ptr] * 6 + [i64, i64, i32, i32, i32] + streams + [ptr])
+        lib.tehmm_k4_lanes_smem_floats.restype = i64
+        lib.tehmm_k4_lanes_smem_floats.argtypes = [i32] * 4
         for fn in (lib.tehmm_x1_sweep_lanes, lib.tehmm_x1_sweep_smem):
             fn.restype = i32
             fn.argtypes = [ptr] * 7 + [i64, i64, i32, i64, i64, ptr]
@@ -1082,6 +1087,44 @@ def k4_fits(S: int, T: int, V: int, G: int = 0) -> bool:
     return _fits(S, fwd) and _fits(S, _k4_smem_floats(S, T, V, G))
 
 
+# K4's decode step, as K1's (``k1_step``): "lanes" to this many states
+# (csrc/posterior.cu ``post_decode_lanes_kernel``: exp(trans) in
+# registers, the row round by shuffles, the symbols, streams and alpha_p
+# staged a half of ``_K1_HALF`` positions ahead through K1's ring, the
+# argmax at the half's end), "shared" from 33 states to K4's envelope
+# (``post_decode_kernel``).  Either gives the other's bits; each counts
+# its launches under its own name: (counter, entry) by step.
+K4_LANES_MAX_STATES = 32
+_K4_ENTRIES = {"lanes": ("post_decode_lanes", "tehmm_post_decode_lanes"),
+               "shared": ("post_decode", "tehmm_post_decode")}
+
+
+def _k4_lanes_smem_floats(S: int, T: int, V: int, G: int = 0) -> int:
+    """Shared-memory floats per block of the lanes decode (csrc/
+    posterior.cu ``decode_lanes_smem_floats``): log_em and the
+    coefficients, and per warp a ring of two slots of ``_K1_HALF``
+    positions (symbols, a weight, the gaussian values and an alpha_p
+    row) and a half's obs_p.  The card's tests hold it to the library's
+    own (``tehmm_k4_lanes_smem_floats``, which the launches use)."""
+    slot = _K1_HALF * (T + 1 + G + S)
+    return (S * T * V + 3 * S * G
+            + _WARPS_PER_BLOCK * (2 * slot + _K1_HALF * S))
+
+
+def k4_step(S: int, T: int, V: int, G: int = 0) -> str:
+    """K4's decode step for a model of S states, T tracks of V symbols
+    and G gaussian tracks: ``"lanes"`` to ``K4_LANES_MAX_STATES`` where
+    the lanes kernel's ring fits beside the tables (always but for
+    hundreds of tracks), else ``"shared"``; past the decode's envelope it
+    raises naming its item."""
+    _check_envelope(S, _k4_smem_floats(S, T, V, G), "post_decode",
+                    _POST_ENVELOPE_ITEM)
+    if S <= K4_LANES_MAX_STATES and _fits(
+            S, _k4_lanes_smem_floats(S, T, V, G)):
+        return "lanes"
+    return "shared"
+
+
 def _check_k1_inputs(log_em, symbols, lengths, **tables) -> torch.device:
     B, L, T = symbols.shape
     S, _, V = log_em.shape
@@ -1369,13 +1412,18 @@ def post_decode(log_trans, log_em, symbols, lengths, alpha,
 
     Replaces ``_make_post_decode_kernel_v4`` (pallas_kernels.py:2765).
     Bound on an H100: the latency of one dependent step per position (an
-    S x S product from shared memory, an argmax and two max reductions
-    across the warp, T table lookups and 3G gaussian products), not bytes
-    or flops.  Design: K1's reverse kernel without the statistics: one
-    warp per row, lane <-> state, exp(trans), log_em and the gaussian
-    coefficients in shared memory, obs recomputed from the symbols and
-    streams, alpha_p read once; true float32 where the TPU kernel split
-    its dots into bf16 passes."""
+    S x S product, two max reductions across the warp and two divides),
+    not bytes or flops.  Design: K1's reverse kernel without the
+    statistics: one warp per row, lane <-> state, log_em and the gaussian
+    coefficients in shared memory, obs formed on the card from the
+    symbols and streams, alpha_p read once, in the step of ``k4_step``:
+    to 32 states row i of exp(trans) in lane i's registers, the row round
+    by shuffles, the symbols, streams and alpha_p staged with cp.async a
+    half of 32 positions ahead in reverse, a half's obs formed before its
+    steps and its argmaxes after them (counted as ``post_decode_lanes``);
+    beyond, exp(trans) and the row in shared memory, obs and the argmax
+    in the step.  Either gives the other's bits; true float32 where the
+    TPU kernel split its dots into bf16 passes."""
     S, T, V = log_em.shape
     B, L, _T = symbols.shape
     dev = _check_k1_inputs(log_em, symbols, lengths, log_trans=log_trans,
@@ -1385,22 +1433,18 @@ def post_decode(log_trans, log_em, symbols, lengths, alpha,
         return post_decode_plain(log_trans, log_em, symbols, lengths, alpha,
                                  obs_weights=st.w, gauss_params=st.gauss,
                                  gauss_values=st.values)
-    _check_envelope(S, _k4_smem_floats(S, T, V, st.G), "post_decode",
-                    _POST_ENVELOPE_ITEM)
+    step = k4_step(S, T, V, st.G)
     _check_index_range(symbols, V, "symbols")
     path = torch.empty((B, L), dtype=torch.int32, device=dev)
     if B == 0 or L == 0:
         return path
     trans_p = torch.exp(log_trans)
-    lib = load_library()
     _coef, stream_args = st.args()
-    rc = lib.tehmm_post_decode(
+    counter, entry = _K4_ENTRIES[step]
+    _launch_streaming(counter + st.suffix, entry, (
         symbols.data_ptr(), lengths.data_ptr(), trans_p.data_ptr(),
         log_em.data_ptr(), alpha.data_ptr(), path.data_ptr(), B, L, S, T,
-        V, *stream_args, _stream(dev),
-    )
-    _raise_on(rc, lib, "post_decode")
-    LAUNCHES["post_decode" + st.suffix] += 1
+        V, *stream_args), dev)
     return path
 
 

@@ -84,6 +84,11 @@ def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
     ).to(device)
 
 
+def _to_host(t: torch.Tensor) -> np.ndarray:
+    """A pass's paths back on the host."""
+    return t.cpu().numpy()
+
+
 def _f32_to_device(a: np.ndarray | None, device: torch.device):
     """Host float array (or None) -> float32 tensor on ``device``."""
     if a is None:
@@ -576,18 +581,29 @@ def viterbi_exact(
 # max-posterior decoding
 # ---------------------------------------------------------------------
 
+# The stitched max-posterior decode's rows a pass by route, where the
+# caller gives none: K4 ("fused") takes the Viterbi decoder's 512, one
+# wave of its warp-a-row kernels on an H100 (128 blocks of 4 warps on
+# 132 SMs; 64, the JAX default, filled 16); "scans" keeps that 64, whose
+# [rows, L, S] obs, alpha and beta tensors grow with S.  Both are scaled
+# by ``scaled_rows`` past 256 states.  Rows are independent, so the
+# paths do not depend on the pass.
+MAXPOST_ROWS_PER_PASS = {"fused": 512, "scans": 64}
+
+
 def _posterior_batch(
     params: HmmParams,
     symbols: np.ndarray,
     lengths: np.ndarray,
-    rows_per_pass: int,
+    rows_per_pass: int | None,
     gauss_params=None,
     values: np.ndarray | None = None,
     weights: np.ndarray | None = None,
 ) -> np.ndarray:
     """argmax-gamma over a chunk batch [n, L, T], ``rows_per_pass`` rows
-    per pass, along ``maxpost_route``: K4 (``posterior_decode_fused``:
-    symbols in, path out, no gamma in memory), or the log-space scans and
+    per pass (None: the route's ``MAXPOST_ROWS_PER_PASS``), along
+    ``maxpost_route``: K4 (``posterior_decode_fused``: symbols in, path
+    out, no gamma in memory), or the log-space scans and
     ``posterior_scaled`` (kernels on the card, plain on the CPU).
     Returns int32 paths [n, L], 0 beyond each length."""
     n, L, T = symbols.shape
@@ -596,6 +612,8 @@ def _posterior_batch(
     G = 0 if values is None else values.shape[-1]
     route = maxpost_route(params.num_states, T, params.log_em.shape[2], G,
                           dev)
+    if rows_per_pass is None:
+        rows_per_pass = MAXPOST_ROWS_PER_PASS[route]
     rows_per_pass = scaled_rows(rows_per_pass, params.num_states)
     for lo in range(0, n, rows_per_pass):
         hi = min(lo + rows_per_pass, n)
@@ -617,7 +635,7 @@ def _posterior_batch(
             bh, _ = ck.backward_scaled(log_trans, obs, lens)
             paths = torch.argmax(dp.posterior_scaled(ah, bh), dim=-1)
             del obs, ah, bh
-        rows = paths.cpu().numpy()
+        rows = _to_host(paths)
         valid = np.arange(L)[None, :] < lengths[lo:hi, None]
         out[lo:hi] = np.where(valid, rows, 0)
     return out
@@ -630,7 +648,7 @@ def posterior_chunked(
     halo: int = 256,
     max_halo: int = 1 << 14,
     agree_frac: float = 0.5,
-    rows_per_pass: int = 64,
+    rows_per_pass: int | None = None,
     gauss_params=None,
     weight_arrays: Sequence[np.ndarray] | None = None,
 ) -> tuple[list[np.ndarray], StitchReport]:
@@ -638,7 +656,9 @@ def posterior_chunked(
     ``viterbi_chunked`` (see _stitched_decode): halo chunks, the
     all-boundary agreement check, targeted widening, and the exact
     carried-alpha/beta decoder (``posterior_exact``) as the fallback.
-    Returns one int32[L] argmax-gamma path per table."""
+    ``rows_per_pass``: chunks decoded a pass (None: the route's,
+    ``MAXPOST_ROWS_PER_PASS``).  Returns one int32[L] argmax-gamma path
+    per table."""
     def decode_rows(symbols, lens, wbatch, vbatch):
         return _posterior_batch(params, symbols, lens, rows_per_pass,
                                 gauss_params, vbatch, wbatch)

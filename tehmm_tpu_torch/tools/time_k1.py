@@ -1,12 +1,13 @@
-"""Times K1, the fused E-step's two kernels, at the shapes its main paths
-give it.
+"""Times K1, the fused E-step's two kernels, and K4's decode (whose
+forward is K1's) at the shapes their main paths give them.
 
     python -m tehmm_tpu_torch.tools.time_k1 [--states 10,20,32] [--reps 5]
         [--device cuda|cpu]
 
 At S states (T=5 tracks; ``bench_engines.make_inputs``' draw), one JSON
 line a kernel (``em_fwd``, then ``em_bwd_stats`` on that forward's
-alpha_p and m_raw) and shape, after a line naming the device:
+alpha_p and m_raw, or ``post_decode`` on its alpha_p) and shape, after a
+line naming the device:
 
 - ``em``: ``chip_smoke.py`` 3b's EM, the 20,000,000-position chromosome
   in chunks of 16384 (V=9): 1221 rows, the last 11,520 long, at every S;
@@ -15,8 +16,12 @@ alpha_p and m_raw) and shape, after a line naming the device:
 - ``segments``: 3e's segment-mode EM (V=9, the 355,789 segments in 22
   rows of 16384, the last 11,725 long) with its weights (in [1, 64]), at
   S=10;
+- ``decode64`` and ``decode512``: the stitched max-posterior decode's
+  passes (V=9, chunks of 4096 with two halos of 256: full rows of 4608),
+  64 rows (the pass before 512) and 512, at every S: ``em_fwd`` and
+  ``post_decode`` (``"step"`` names the decode's, ``ck.k4_step``);
 - at S <= 32, where the checkout has ``ck.k1_step``, the same with the
-  shared kernels forced (``"step": "shared (forced)"``).
+  shared kernels forced (``"step": "shared (forced)"``: K1's and K4's).
 
 Each reading is the median ms of ``reps`` synchronised calls, with us a
 step (ms over the longest row's steps).  The file imports only the
@@ -44,9 +49,14 @@ T = 5
 # name: (rows, row length, the last row's length); V and S by shape
 SHAPES = {"em": (1221, 16384, 20_000_000 - 1220 * 16384),
           "bench": (2048, 1024, 1024),
-          "segments": (22, 16384, 355_789 - 21 * 16384)}
-SHAPE_V = {"em": 9, "bench": 8, "segments": 9}
+          "segments": (22, 16384, 355_789 - 21 * 16384),
+          "decode64": (64, 4608, 4608),
+          "decode512": (512, 4608, 4608)}
+SHAPE_V = {"em": 9, "bench": 8, "segments": 9, "decode64": 9,
+           "decode512": 9}
 SHAPE_S = {"bench": 20, "segments": 10}      # only at these S
+# the kernels timed at a shape: K1's two, or K4's forward and decode
+DECODE_SHAPES = ("decode64", "decode512")
 
 
 def _inputs(shape, S, device):
@@ -74,18 +84,36 @@ def shared_k1():
         ck.K1_LANES_MAX_STATES = real
 
 
-def _step(S, V):
-    """The step K1 takes at S states and V symbols ("parent" in a
-    checkout without ``ck.k1_step``)."""
-    return ck.k1_step(S, T, V) if hasattr(ck, "k1_step") else "parent"
+@contextlib.contextmanager
+def shared_k4():
+    """K4's shared decode forced inside (``K4_LANES_MAX_STATES`` = 0;
+    nothing to force in a checkout without it)."""
+    if not hasattr(ck, "K4_LANES_MAX_STATES"):
+        yield
+        return
+    real, ck.K4_LANES_MAX_STATES = ck.K4_LANES_MAX_STATES, 0
+    try:
+        yield
+    finally:
+        ck.K4_LANES_MAX_STATES = real
+
+
+def _step(S, shape):
+    """The step K1 (K4's decode at the decode shapes) takes at S states
+    and the shape's V ("parent" in a checkout without ``ck.k1_step`` or
+    ``ck.k4_step``)."""
+    name = "k4_step" if shape in DECODE_SHAPES else "k1_step"
+    step = getattr(ck, name, None)
+    return step(S, T, SHAPE_V[shape]) if step else "parent"
 
 
 def readings(S, device, reps, forced=False):
-    with shared_k1() if forced else contextlib.nullcontext():
+    with (shared_k1() if forced else contextlib.nullcontext()), \
+            (shared_k4() if forced else contextlib.nullcontext()):
         for shape in SHAPES:
             if SHAPE_S.get(shape, S) != S:
                 continue
-            step = "shared (forced)" if forced else _step(S, SHAPE_V[shape])
+            step = "shared (forced)" if forced else _step(S, shape)
             args, w = _inputs(shape, S, device)
             B, L, _ = SHAPES[shape]
 
@@ -93,19 +121,28 @@ def readings(S, device, reps, forced=False):
                 return ck.em_fwd(*args, obs_weights=w)
 
             alpha, _dm, m_raw = fwd()      # the first call builds
-            bwd_args = (*args[1:], alpha, m_raw)
+            if shape in DECODE_SHAPES:
+                dec_args = (*args[1:], alpha)
 
-            def bwd():
-                return ck.em_bwd_stats(*bwd_args, obs_weights=w)
+                def second():
+                    return ck.post_decode(*dec_args)
 
-            bwd()
-            for kernel, fn in (("em_fwd", fwd), ("em_bwd_stats", bwd)):
+                kernels = (("em_fwd", fwd), ("post_decode", second))
+            else:
+                bwd_args = (*args[1:], alpha, m_raw)
+
+                def second():
+                    return ck.em_bwd_stats(*bwd_args, obs_weights=w)
+
+                kernels = (("em_fwd", fwd), ("em_bwd_stats", second))
+            second()
+            for kernel, fn in kernels:
                 ms = median_ms(fn, device, reps)
                 yield {"kernel": kernel, "shape": shape, "S": S, "B": B,
                        "L": L, "T": T, "V": SHAPE_V[shape],
                        "stream": "" if w is None else "+w", "step": step,
                        "ms": ms, "us_per_step": ms * 1e3 / L}
-            del args, w, alpha, m_raw, bwd_args
+            del args, w, alpha, m_raw, kernels, second
             if device.type == "cuda":
                 torch.cuda.empty_cache()
 
@@ -119,7 +156,7 @@ def main(argv=None) -> int:
     device = resolve_device(args.device)
     print(bench_engines.device_line(device), flush=True)
     for S in (int(s) for s in args.states.split(",")):
-        forced = any(_step(S, SHAPE_V[shape]) == "lanes"
+        forced = any(_step(S, shape) == "lanes"
                      for shape in SHAPES if SHAPE_S.get(shape, S) == S)
         for row in readings(S, device, args.reps):
             print(json.dumps(row), flush=True)

@@ -251,12 +251,14 @@ def test_plain_matches_float64(rng, variant):
 
 def test_time_k1_rows(capsys, monkeypatch):
     """``tools.time_k1`` (shapes cut to size): the device line, then a
-    reading of each kernel at each shape, the lanes step and, at S <= 32,
-    the shared step forced (the plain versions here)."""
+    reading of each kernel at each shape (K1's two, or K4's forward and
+    decode at the decode shapes), the lanes step and, at S <= 32, the
+    shared steps forced (the plain versions here)."""
     from tehmm_tpu_torch.tools import time_k1
 
     monkeypatch.setattr(time_k1, "SHAPES", {
-        "em": (4, 40, 33), "bench": (3, 9, 9), "segments": (2, 40, 31)})
+        "em": (4, 40, 33), "bench": (3, 9, 9), "segments": (2, 40, 31),
+        "decode64": (2, 37, 37), "decode512": (5, 37, 37)})
     assert time_k1.main(["--states", "10,20,40", "--reps", "1",
                          "--device", "cpu"]) == 0
     lines = capsys.readouterr().out.splitlines()
@@ -264,14 +266,18 @@ def test_time_k1_rows(capsys, monkeypatch):
     rows = [json.loads(line) for line in lines[1:]]
     want = []
     for S in (10, 20, 40):
-        shapes = ["em"] + {10: ["segments"], 20: ["bench"]}.get(S, [])
+        shapes = ["em"] + {10: ["segments"], 20: ["bench"]}.get(S, []) \
+            + ["decode64", "decode512"]
         steps = ["lanes", "shared (forced)"] if S <= 32 else ["shared"]
         want += [(shape, S, step, kernel) for step in steps
                  for shape in shapes
-                 for kernel in ("em_fwd", "em_bwd_stats")]
+                 for kernel in (("em_fwd", "post_decode")
+                                if shape.startswith("decode")
+                                else ("em_fwd", "em_bwd_stats"))]
     assert [(r["shape"], r["S"], r["step"], r["kernel"]) for r in rows] \
         == want
     for r in rows:
         assert r["ms"] > 0 and r["us_per_step"] == r["ms"] * 1e3 / r["L"]
         assert r["stream"] == ("+w" if r["shape"] == "segments" else "")
-    assert ck.K1_LANES_MAX_STATES == 32        # restored after forcing
+    # restored after forcing
+    assert ck.K1_LANES_MAX_STATES == 32 and ck.K4_LANES_MAX_STATES == 32

@@ -59,7 +59,11 @@ def test_k4_matches_plain(device, rng, S, L, zero_frac):
     fused = ck.posterior_decode_fused(*args)
     assert torch.equal(fused, got)
     assert bool((fused[lens == 0] == 0).all())
-    assert ck.LAUNCHES["post_decode"] == before["post_decode"] + 2
+    # the lanes kernel to 32 states, the shared one beyond
+    name = "post_decode_lanes" if S <= 32 else "post_decode"
+    assert ck.k4_step(S, lem.shape[1], lem.shape[2]) == \
+        ("lanes" if S <= 32 else "shared")
+    assert ck.LAUNCHES[name] == before[name] + 2
     # the log-space posteriors' argmax on the plain obs, as the CPU path
     obs = emission.track_log_likelihoods(lem, sym)
     ah, _, _ = dp.forward_scaled(ls, lt, obs, lens)
@@ -73,6 +77,109 @@ def test_k4_repeat_runs_bit_identical(device, rng):
     args = _inputs(rng, device, 10, 500, T=5, V=9)
     assert torch.equal(ck.posterior_decode_fused(*args),
                        ck.posterior_decode_fused(*args))
+
+
+# K4's lanes decode: every register count (S rounded up to 4), the
+# gather of the row max to 16 states and the butterfly beyond; ragged
+# lengths on both sides of the ring's halves (32 positions); 1 row, 64
+# (the pass before 512) and 512 (the pass); every stream variant
+K4_LANES_STATES = [1, 2, 3, 10, 16, 17, 20, 31, 32]
+K4_VARIANTS = ["", "+w", "+g", "+wg"]
+K4_L, K4_T, K4_V, K4_G = 100, 5, 9, 2
+K4_ROWS = [1, 64, 512]
+
+
+def _k4_case(S, B, variant):
+    from test_cuda_streams import _streams
+
+    rng = np.random.RandomState(S * 1000 + B)
+    edge = np.asarray([K4_L, 0, 1, 31, 32, 33], np.int32)
+    lengths = rng.randint(0, K4_L + 1, size=B).astype(np.int32)
+    lengths[:min(B, len(edge))] = edge[:B]
+    p = from_numpy(*_model(rng, S, K4_T, K4_V, zero_frac=0.3), "cuda")
+    sym = rng.randint(0, K4_V, size=(B, K4_L, K4_T)).astype(np.int32)
+    args = (p.log_start, p.log_trans, p.log_em,
+            torch.from_numpy(sym).cuda(), torch.from_numpy(lengths).cuda())
+    return args, _streams(rng, "cuda", variant, B, K4_L, S, K4_G)
+
+
+@pytest.mark.parametrize("B", K4_ROWS)
+@pytest.mark.parametrize("variant", K4_VARIANTS)
+@pytest.mark.parametrize("S", K4_LANES_STATES)
+def test_k4_lanes_equal_shared_bit_for_bit(device, monkeypatch, S, variant,
+                                           B):
+    """The lanes decode gives the shared kernel's path (forced at S <=
+    32, where it is K4's decode as it ran before the lanes kernel) bit
+    for bit on K1's forward rows, agrees with the plain version but at
+    near-ties, launches once a call under its variant's counter, and two
+    launches give the same bits."""
+    args, st = _k4_case(S, B, variant)
+    G = K4_G if "g" in variant else 0
+    assert ck.k4_step(S, K4_T, K4_V, G) == "lanes"
+    alpha = ck.em_fwd(*args, **st)[0]
+    dec = (*args[1:], alpha)
+    before = dict(ck.LAUNCHES)
+    lanes = ck.post_decode(*dec, **st)
+    again = ck.post_decode(*dec, **st)
+    assert ck.LAUNCHES["post_decode_lanes" + variant] == \
+        before["post_decode_lanes" + variant] + 2
+    assert ck.LAUNCHES["post_decode" + variant] == \
+        before["post_decode" + variant]
+    monkeypatch.setattr(ck, "K4_LANES_MAX_STATES", 0)
+    assert ck.k4_step(S, K4_T, K4_V, G) == "shared"
+    shared = ck.post_decode(*dec, **st)
+    assert ck.LAUNCHES["post_decode" + variant] == \
+        before["post_decode" + variant] + 1
+    assert torch.equal(lanes, shared)
+    assert torch.equal(lanes, again)
+    lens = args[4]
+    valid = torch.arange(K4_L, device=device)[None, :] < lens[:, None]
+    assert not bool((lanes[~valid] != 0).any())
+    want, margin = ck.post_decode_plain(*dec, with_margin=True, **st)
+    assert_paths_agree(lanes, want, margin)
+
+
+@pytest.mark.parametrize("B", [1, 64])
+@pytest.mark.parametrize("S", [2, 3, 10, 17, 32])
+def test_k4_lanes_first_hit_on_ties(device, monkeypatch, S, B):
+    """Uniform transitions and emissions keep b at exactly 1, so each
+    position's choice is the argmax of the alpha_p row given: rows of
+    small integers tie at most positions, and the lanes decode, the
+    shared one and the plain version all take the lowest tied state."""
+    rng = np.random.RandomState(S + B)
+    L = 70
+    lt = torch.full((S, S), float(np.log(np.float32(1.0 / S))),
+                    device=device)
+    lem = torch.zeros((S, K4_T, K4_V), device=device)
+    sym = torch.from_numpy(rng.randint(0, K4_V, size=(B, L, K4_T)).astype(
+        np.int32)).to(device)
+    lengths = rng.randint(0, L + 1, size=B).astype(np.int32)
+    lengths[0] = L
+    lens = torch.from_numpy(lengths).to(device)
+    alpha_np = rng.randint(0, 3, size=(B, L, S)).astype(np.float32)
+    alpha = torch.from_numpy(alpha_np).to(device)
+    lanes = ck.post_decode(lt, lem, sym, lens, alpha)
+    monkeypatch.setattr(ck, "K4_LANES_MAX_STATES", 0)
+    shared = ck.post_decode(lt, lem, sym, lens, alpha)
+    assert torch.equal(lanes, shared)
+    first = np.where(np.arange(L)[None, :] < lengths[:, None],
+                     alpha_np.argmax(axis=-1), 0)
+    np.testing.assert_array_equal(lanes.cpu().numpy(), first)
+    plain = ck.post_decode_plain(lt, lem, sym, lens, alpha)
+    assert torch.equal(lanes, plain)
+    ties = (alpha_np == alpha_np.max(axis=-1, keepdims=True)).sum(-1) > 1
+    assert ties.mean() > 0.3 or S < 3
+
+
+@pytest.mark.parametrize("S, T, V, G", [
+    (1, 5, 9, 0), (10, 5, 9, 2), (20, 5, 8, 0), (32, 5, 9, 2),
+    (32, 1, 2, 0), (2, 5, 145, 0), (2, 120, 145, 0), (8, 40, 4, 3)])
+def test_k4_lanes_smem_sizes_are_the_library_s(device, S, T, V, G):
+    """``k4_step``'s fit test sizes the lanes decode's shared memory as
+    the library's launches do."""
+    lib = ck.load_library()
+    assert ck._k4_lanes_smem_floats(S, T, V, G) == \
+        lib.tehmm_k4_lanes_smem_floats(S, T, V, G)
 
 
 def _sweep_inputs(rng, device, S, L, zero_frac=0.0):

@@ -238,6 +238,7 @@ def test_stitched_decoders_past_the_fused_envelopes(device, rng):
     got = stitch.posterior_chunked(on_gpu, syms, chunk_len=512, halo=32)[0]
     assert ck.LAUNCHES["fwd_scaled"] > before["fwd_scaled"]
     assert ck.LAUNCHES["post_decode"] == before["post_decode"]
+    assert ck.LAUNCHES["post_decode_lanes"] == before["post_decode_lanes"]
     for g, c in zip(got, stitch.posterior_chunked(on_cpu, syms,
                                                   chunk_len=512,
                                                   halo=32)[0]):
