@@ -12,7 +12,12 @@ Phases (any failure raises, and the run exits non-zero):
    kernels (K2, K3) at the decode's shapes (S=10 states, T=5 tracks, V=9
    symbols, B=512 rows of L=4608 = chunk 4096 + 2 x 256 halo, ragged
    lengths incl. 0 and 1): value rows, normalizers, carries and paths
-   bit-equal, K3 in its values, carry, checkpoint and pointer modes, and
+   bit-equal; K2's forward (to 32 states its lanes kernel, ``ck.k2_step``)
+   in both modes (value rows, and the pointer mode's first-hit pointers
+   and last rows) bit for bit the plain versions and the shared kernel
+   forced (timed beside it), the value-row backtrace on its rows and
+   X3's chase over its pointers (K2's backtrace) the same path on every
+   row; K3 in its values, carry, checkpoint and pointer modes, and
    X3 (the exact decoder's backtrace from K3's pointers: the map of end
    states, the compose, the chase) on the same rows.  K3 and X3 also at
    the shapes phase 3's ``--exact`` region gives them (a generator of
@@ -126,7 +131,11 @@ Phases (any failure raises, and the run exits non-zero):
    20,000,000-position chromosome (4 categorical BED tracks + FASTA),
    ``train --supervised`` then stitched ``eval --bed`` on the whole
    chromosome; the BED tiles it, every stitch boundary agrees, and base
-   accuracy against the planted truth is >= 0.9.  On a 1,000,000-position
+   accuracy against the planted truth is >= 0.9; the stitched decode's
+   split (chunk forming, H2D, K2's forward, the chase, D2H, the stitch
+   and the rest) is printed, K2's lanes forward (pointer mode) and the
+   chase launched once a pass of 512 rows, and phase 3 launched no
+   value-row backtrace and no shared K2 forward.  On a 1,000,000-position
    region ``--exact`` and ``--no-exact`` write the same BED; the exact
    decode's split (obs formation, forward sweep, pointer recompute, map,
    compose, chase, the rest) is printed, and K3 launched twice a group
@@ -156,13 +165,17 @@ Phases (any failure raises, and the run exits non-zero):
    group of chunks (the checkpoint sweep and the recompute), X2 twice a
    group (the backward checkpoint sweep and the beta recompute) and once
    for position 0, as in ``--pd``'s sweep on the 100,000-position region;
-   with ``--parent DIR`` (a ``git archive`` of an earlier commit) that
-   checkout's eval CLI writes phase 3's ``--exact`` BED of the region,
-   the whole chromosome's stitched
+   with ``--parent DIR`` (a ``git archive`` of an earlier commit, built
+   in the background from the start of phase 2; its eval runs go on in
+   the background beside the phases after the one that made their
+   outputs, from 3c on, so a run with ``--parent`` is not one to read
+   those phases' times from) that checkout's eval CLI writes phase 3's
+   stitched BED of the chromosome and ``--exact`` BED of the region, the
+   whole chromosome's stitched
    ``--maxPost`` BED, the region's ``--maxPost --exact`` BED and the
    100,000-position region's ``--pd`` file and BED byte for byte as
-   this one's (and in 3e the stitched ``--maxPost`` BEDs with the
-   gaussian stream, +g, and in segment mode, +wg and +w); on the
+   this one's (and in 3e the stitched Viterbi and ``--maxPost`` BEDs
+   with the gaussian stream, +g, and in segment mode, +wg and +w); on the
    20,000-position region the card and the CPU agree for ``--maxPost``
    (both decoders: >= 99.999% of bases), ``--pd`` (same rows,
    probabilities within 1e-5) and every printed score (1e-5 relative);
@@ -307,6 +320,7 @@ ENV_CPU_ROWS = 4
 H100_BYTES_PER_S, H100_F32_PER_S = 3.35e12, 67e12
 SOURCES = {
     "viterbi_fwd": "tehmm_tpu_torch/csrc/viterbi.cu",
+    "viterbi_fwd_lanes": "tehmm_tpu_torch/csrc/viterbi.cu",
     "viterbi_backtrace": "tehmm_tpu_torch/csrc/viterbi.cu",
     "viterbi_chunk_values": "tehmm_tpu_torch/csrc/viterbi.cu",
     "viterbi_checkpoints": "tehmm_tpu_torch/csrc/viterbi.cu",
@@ -339,7 +353,13 @@ SOURCES = {
 }
 REPLACES = {
     "viterbi_fwd": "tehmm_tpu/ops/pallas_kernels.py:2386",
+    # K2's forward to 32 states (its lanes kernel)
+    "viterbi_fwd_lanes": "tehmm_tpu/ops/pallas_kernels.py:2386",
+    # the value-row backtrace, K2's before its pointer mode (timed on K2's
+    # rows)
     "viterbi_backtrace": "tehmm_tpu/ops/pallas_kernels.py:2517",
+    # K2's backtrace: X3's chase over the pointer mode's pointers
+    "chunk_chase@K2": "tehmm_tpu/ops/pallas_kernels.py:2517",
     "viterbi_chunk_values": "tehmm_tpu/ops/pallas_kernels.py:1284",
     # K3's checkpoint mode: the exact decoder's forward sweep (on the TPU
     # the XLA scan dp.viterbi_carry, a launch a chunk; K3's function)
@@ -388,12 +408,16 @@ REPLACES = {
     "fwd_piece_ops": "tehmm_tpu/ops/dp.py:378",
     "fwd_piece_compose": "tehmm_tpu/ops/dp.py:378",
 }
-# phase 3's path: the stitched K2 decode, and the exact decode's K3 (its
+# phase 3's path: the stitched K2 decode (at S=10 the lanes forward in
+# its pointer mode, then X3's chase), and the exact decode's K3 (its
 # checkpoint and pointer modes) and X3; K3's values mode is off it (the
-# exact decoder's value rows are its route past 239 states, 3f's)
-DECODE_KERNELS = ("viterbi_fwd", "viterbi_backtrace", "viterbi_checkpoints",
+# exact decoder's value rows are its route past 239 states, 3f's), and so
+# are K2's shared forward (33 states to its envelope) and the value-row
+# backtrace (K5's route and the exact decoder past 239 states)
+DECODE_KERNELS = ("viterbi_fwd_lanes", "viterbi_checkpoints",
                   "viterbi_chunk_pointers", "chunk_entry_map",
                   "chunk_compose", "chunk_chase")
+OFF_DECODE_PATH = ("viterbi_fwd", "viterbi_backtrace")
 X3_KERNELS = ("chunk_entry_map", "chunk_compose", "chunk_chase")
 EM_KERNELS = ("em_fwd", "em_bwd_stats")
 # 3d's path: K4 (K1's forward and, at S=10, the lanes decode), the exact
@@ -405,9 +429,9 @@ POST_KERNELS = ("em_fwd", "post_decode_lanes", "fwd_chunk",
 SCORE_STAGE = "score (piece-operator scan)"
 # 3e's paths: base resolution with a gaussian track (+g), segment mode
 # with the gaussian track (+wg) and with categorical tracks only (+w)
-GAUSS_BASE_KERNELS = ("viterbi_fwd+g", "viterbi_backtrace", "em_fwd+g",
+GAUSS_BASE_KERNELS = ("viterbi_fwd_lanes+g", "chunk_chase", "em_fwd+g",
                       "em_bwd_stats+g", "post_decode_lanes+g")
-SEGMENT_KERNELS = ("em_fwd", "em_bwd_stats", "viterbi_fwd",
+SEGMENT_KERNELS = ("em_fwd", "em_bwd_stats", "viterbi_fwd_lanes",
                    "post_decode_lanes")
 # 2e: the engine-comparison path; phase 2 checks K5/K6, K7/K8 and the
 # backtrace under dp.viterbi_streaming at each of its shapes
@@ -434,6 +458,10 @@ ENVELOPE_KERNELS = {"fit": ("fwd_prob", "bwd_prob"),
                     "pd": ("fwd_chunk_tile", "bwd_chunk_tile"),
                     "score": ("fwd_chunk_tile",)}
 ENGINE_ITERS = 1                     # marginal_time chains of 1 and 6
+# --parent's comparisons, by the phase whose outputs they hold: 3, the
+# chromosome's stitched BED and the region's --exact BED; 3d, its four
+# files; 3b, the learned model and loglik trace; 3e, the stitched Viterbi
+# and --maxPost BEDs with the gaussian track and in segment mode
 ENVELOPE_MESSAGE = "beyond the shared-memory envelope"
 # phase 2's limits for the log-space scans K7/K8 against their plain
 # version carried in float64: log values within SCAN_ATOL plus
@@ -512,8 +540,13 @@ def _bound(name, shape, valid, G=0, weighted=False, n_ck=0) -> dict:
     rows = B * L * S * f
     obs = _obs_ops(S, T, G, weighted)
     base = name.split("+")[0].split("@")[0]
-    if base == "viterbi_fwd":          # max-plus step, obs, renormalise
+    if base in ("viterbi_fwd", "viterbi_fwd_lanes"):
+        # max-plus step, obs, renormalise; value rows and dm out
         nbytes = sym + tables + S * f + streams + rows + B * L * f
+        ops = 2 * S * S + obs + 2 * S
+    elif base == "viterbi_fwd_pointers":   # the same; uint8 pointers, the
+        nbytes = (sym + tables + S * f + streams + B * L * S   # last row
+                  + B * S * f + B * L * f)                     # and dm out
         ops = 2 * S * S + obs + 2 * S
     elif base == "viterbi_backtrace":  # S adds and compares a position
         nbytes = S * S * f + rows + (B * S + 3 * B + B * L) * f
@@ -684,6 +717,76 @@ def _pointer_rows(args, lengths, suffix=""):
     return out
 
 
+def _k2_forward_rows(args, shape, valid, G=0, weighted=False, **st):
+    """K2's forward at one shape, both modes (``args``: its five tables
+    and inputs; ``st``: the optional streams): the kernel of ``k2_step``
+    (to 32 states the lanes one) against the plain versions and against
+    the shared kernel forced, value rows, normalizers, pointers and last
+    rows bit for bit, each timed (median of 5) beside its plain version
+    (median of 3, the values mode's once) and the bound.  Returns the
+    rows of both kernels (``viterbi_fwd_lanes`` and ``viterbi_fwd``, the
+    stream variant's suffix on each): ``ms``, ``plain_ms`` and the bound
+    the pointer mode's, the main path's; ``values_ms``,
+    ``plain_values_ms`` and ``values_bound_ms`` the values mode's."""
+    import torch
+
+    from tehmm_tpu_torch.ops import cuda_kernels as ck
+    from tehmm_tpu_torch.tools.time_k1 import shared_k2
+
+    B, L, S_, T_, V_ = shape
+    suffix = "+" + ("w" if weighted else "") + ("g" if G else "")
+    suffix = "" if suffix == "+" else suffix
+    step = ck.k2_step(S_, T_, V_, G)
+
+    def values():
+        return ck.viterbi_fwd(*args, **st)
+
+    def pointers():
+        return ck.viterbi_fwd_pointers(*args, **st)
+
+    got = {step: (*values(), *pointers())}
+    plain = (*ck.viterbi_fwd_plain(*args, **st),
+             *ck.viterbi_fwd_pointers_plain(*args, **st))
+    names = ("value rows", "dm", "pointers", "last row", "pointer dm")
+    for k, (a, b) in enumerate(zip(got[step], plain)):
+        assert torch.equal(a, b), \
+            f"viterbi_fwd{suffix} ({step}) {names[k]} != plain"
+    assert torch.equal(got[step][3], got[step][0][:, -1])
+    err = float(max((got[step][0] - plain[0]).abs().max(),
+                    (got[step][1] - plain[1]).abs().max()))
+    plain_ms = _median_ms(
+        lambda: ck.viterbi_fwd_pointers_plain(*args, **st), 3)
+    plain_values_ms = _median_ms(lambda: ck.viterbi_fwd_plain(*args, **st),
+                                 1)
+    del plain
+    bound = _bound("viterbi_fwd_pointers", shape, valid, G, weighted)
+    values_bound = _bound("viterbi_fwd" + suffix, shape, valid, G, weighted)
+    out = {}
+    for forced in (False, True) if step == "lanes" else (False,):
+        with (shared_k2() if forced else contextlib.nullcontext()):
+            if forced:
+                got["shared"] = (*values(), *pointers())
+                for k, (a, b) in enumerate(zip(got["shared"],
+                                               got["lanes"])):
+                    assert torch.equal(a, b), \
+                        f"viterbi_fwd{suffix} lanes {names[k]} != the " \
+                        f"shared kernel's (forced)"
+            name = "viterbi_fwd" if forced or step == "shared" \
+                else "viterbi_fwd_lanes"
+            ms = _median_ms(pointers, 5)
+            out[name + suffix] = dict(
+                max_abs_err=err, step="shared (forced)" if forced else step,
+                ms=ms, values_ms=_median_ms(values, 5), plain_ms=plain_ms,
+                plain_values_ms=plain_values_ms,
+                values_bound_ms=values_bound["bound_ms"],
+                us_per_step=ms * 1e3 / L, **bound)
+    print(f"[kernels] K2 forward{suffix} at {B} x {L}, S={S_}: the {step} "
+          f"kernel's value rows, dm, pointers and last rows bit-equal to "
+          f"plain" + (" and to the shared kernel's (forced)"
+                      if step == "lanes" else ""), flush=True)
+    return out
+
+
 def phase_kernels(device, rng) -> dict:
     import torch
 
@@ -701,19 +804,17 @@ def phase_kernels(device, rng) -> dict:
     fwd_args = (p.log_start, p.log_trans, p.log_em, sym, lens)
     out = {}
 
-    # K2 forward
-    v, dm = ck.viterbi_fwd(*fwd_args)
-    pv, pdm = ck.viterbi_fwd_plain(*fwd_args)
-    assert torch.equal(v, pv) and torch.equal(dm, pdm), \
-        "viterbi_fwd disagrees with its plain version"
-    out["viterbi_fwd"] = dict(
-        max_abs_err=float(max((v - pv).abs().max(), (dm - pdm).abs().max())),
-        ms=_median_ms(lambda: ck.viterbi_fwd(*fwd_args), 5),
-        plain_ms=_median_ms(lambda: ck.viterbi_fwd_plain(*fwd_args), 3),
-    )
+    # K2 forward: the lanes kernel (k2_step at S=10) and the shared one
+    # forced, in both modes
+    shape, valid = (B_ROWS, L_ROWS, S, T, V), int(lengths.sum())
+    out.update(_k2_forward_rows(fwd_args, shape, valid))
+    v, _ = ck.viterbi_fwd(*fwd_args)
+    ptrs, last, _ = ck.viterbi_fwd_pointers(*fwd_args)
 
-    # K2 backtrace, on the forward's rows as viterbi_fused calls it
-    end = torch.argmax(v[:, -1], dim=-1).to(torch.int32)
+    # the value-row backtrace on the forward's rows, as viterbi_fused
+    # called it before the chase (K5's route and the exact decoder past
+    # 239 states call it still)
+    end = torch.argmax(last, dim=-1).to(torch.int32)
     body_lens = torch.clamp(lens - 1, min=0)
     rows, entry = v[:, 1:], v[:, 0]
     bt_args = (p.log_trans, rows, entry, end, body_lens)
@@ -728,7 +829,23 @@ def phase_kernels(device, rng) -> dict:
         ms=_median_ms(lambda: ck.viterbi_backtrace(*bt_args), 5),
         plain_ms=_median_ms(
             lambda: ck.viterbi_backtrace_plain(*plain_args), 3),
+        note="off the stitched decode (its backtrace is the chase "
+             "below); launches: 2e's streaming route at S20",
     )
+    # K2's backtrace: the chase over the pointer mode's pointers from the
+    # same end states, the backtrace's path on every row
+    chased = ck.chunk_chase(ptrs, end, lens)
+    assert torch.equal(chased, ck.chunk_chase_plain(ptrs, end, lens)), \
+        "chunk_chase disagrees with its plain version on K2's pointers"
+    assert torch.equal(chased, torch.cat([got[1][:, None], got[0]], 1)), \
+        "the chase over K2's pointers != the value-row backtrace"
+    ms = _median_ms(lambda: ck.chunk_chase(ptrs, end, lens), 5)
+    out["chunk_chase@K2"] = dict(
+        max_abs_err=0.0, ms=ms,
+        plain_ms=_median_ms(lambda: ck.chunk_chase_plain(ptrs, end, lens),
+                            3),
+        us_per_step=ms * 1e3 / L_ROWS, **_bound("chunk_chase", shape, valid))
+    del ptrs, last, chased
 
     # K2 as a whole against dp.viterbi on the plain obs
     path, score = ck.viterbi_fused(*fwd_args)
@@ -761,8 +878,6 @@ def phase_kernels(device, rng) -> dict:
         ms=_median_ms(lambda: ck.viterbi_chunk_values(*k3_args), 5),
         plain_ms=_median_ms(lambda: dp.viterbi_chunk_values(*k3_args), 3),
     )
-    shape, valid = (B_ROWS, L_ROWS, S, T, V), int(lengths.sum())
-    out["viterbi_fwd"].update(_bound("viterbi_fwd", shape, valid))
     out["viterbi_backtrace"].update(_bound(
         "viterbi_backtrace", (B_ROWS, L_ROWS - 1, S, T, V),
         int(np.clip(lengths - 1, 0, None).sum())))
@@ -1772,32 +1887,21 @@ def phase_stream_kernels(device, rng) -> dict:
     args = (p.log_start, p.log_trans, p.log_em, sym, lens)
     for variant in STREAM_VARIANTS:
         st = _stream_inputs(rng, device, variant, B_ROWS, L_ROWS, S)
-        v, dm = ck.viterbi_fwd(*args, **st)
-        pv, pdm = ck.viterbi_fwd_plain(*args, **st)
-        assert torch.equal(v, pv) and torch.equal(dm, pdm), \
-            f"viterbi_fwd{variant} disagrees with its plain version"
+        out.update(_k2_forward_rows(
+            args, (B_ROWS, L_ROWS, S, T, V), int(lengths.sum()),
+            STREAM_G if "g" in variant else 0, "w" in variant, **st))
         path, _score = ck.viterbi_fused(*args, **st)
         obs = obs_log_likelihoods(p.log_em, sym, st["gauss_params"],
                                   st["gauss_values"], st["obs_weights"])
         want_p, _ = dp.viterbi(p.log_start, p.log_trans, obs, lens)
         assert torch.equal(path, want_p), \
             f"viterbi_fused{variant} path != dp.viterbi"
-        del obs, want_p
-        out["viterbi_fwd" + variant] = dict(
-            max_abs_err=float(max((v - pv).abs().max(),
-                                  (dm - pdm).abs().max())),
-            ms=_median_ms(lambda: ck.viterbi_fwd(*args, **st), 5),
-            plain_ms=_median_ms(lambda: ck.viterbi_fwd_plain(*args, **st),
-                                3),
-            **_bound("viterbi_fwd" + variant, (B_ROWS, L_ROWS, S, T, V),
-                     int(lengths.sum()), STREAM_G if "g" in variant else 0,
-                     "w" in variant),
-        )
-        del v, pv, dm, pdm
+        del obs, want_p, path
     print(f"[streams] K2 forward at S={S} T={T} V={V}, {B_ROWS} rows of "
           f"L={L_ROWS} (ragged), weights in [{W_LO:g}, {W_HI:g}], "
           f"{STREAM_G} gaussian tracks (10% missing): value rows, "
-          f"normalizers and paths bit-equal to plain for "
+          f"normalizers, pointers, last rows and paths bit-equal to plain "
+          f"(and the lanes kernel's to the shared one's, forced) for "
           f"{', '.join(STREAM_VARIANTS)}", flush=True)
 
     # K1 at bench.py's shape
@@ -2549,57 +2653,86 @@ POST_EXACT_SPANS = (("forward_checkpoints", "forward sweep"),
                     ("backward_chunk_values", "beta recompute"))
 
 
-# the stitched max-posterior decode's stages (a pass: chunk forming, H2D,
-# K1's forward, K4's decode, D2H), each span ending synchronised; "stitch
-# and the rest" is the decode's total less them
-STITCH_STAGES = ("chunk forming", "H2D", "em_fwd", "decode", "D2H")
+# the stitched decodes' stages (a pass: chunk forming, H2D, the kernels,
+# D2H), each span ending synchronised; "stitch and the rest" is the
+# decode's total less them.  The kernels' (ck wrapper, stage) by decode:
+# max-posterior, K1's forward and K4's decode; Viterbi, K2's forward in
+# pointer mode and the chase
+STITCH_KERNELS = {
+    "post": (("em_fwd", "em_fwd"), ("post_decode", "decode")),
+    "e2e": (("viterbi_fwd_pointers", "K2 forward"), ("chunk_chase", "chase")),
+    # the Viterbi decode as the parent ran it (``_viterbi_fused_as_parent``)
+    "e2e parent": (("viterbi_fwd", "K2 forward"),
+                   ("viterbi_backtrace", "backtrace")),
+}
 
 
-def _stitched_split():
-    """Spans around the stitched max-posterior decode's calls into each
-    stage (``STITCH_STAGES``), counting the kernels' launches."""
+def _viterbi_fused_as_parent(log_start, log_trans, log_em, symbols,
+                             lengths, obs_weights=None, gauss_params=None,
+                             gauss_values=None):
+    """``ck.viterbi_fused`` as it was before its pointer mode: K2's value
+    rows (``ck.viterbi_fwd``), then the value-row backtrace
+    (``ck.viterbi_backtrace``) from the last row's first-hit argmax over
+    positions L-1..1, position 0's state its entry state; the same paths
+    and score."""
+    import torch
+
+    from tehmm_tpu_torch.ops import cuda_kernels as ck
+
+    L = symbols.shape[1]
+    v_hats, dm = ck.viterbi_fwd(log_start, log_trans, log_em, symbols,
+                                lengths, obs_weights, gauss_params,
+                                gauss_values)
+    last = v_hats[:, L - 1]
+    end_state = torch.argmax(last, dim=-1).to(torch.int32)
+    body, first = ck.viterbi_backtrace(
+        log_trans, v_hats[:, 1:], v_hats[:, 0], end_state,
+        torch.clamp(lengths - 1, min=0).to(torch.int32))
+    path = torch.cat([first[:, None], body], dim=1)
+    nonempty = lengths > 0
+    score = torch.where(nonempty, last.amax(dim=-1) + dm.sum(dim=1), 0.0)
+    return torch.where(nonempty[:, None], path, 0), score
+
+
+def _stitch_stages(decode):
+    return (("chunk forming", "H2D")
+            + tuple(stage for _, stage in STITCH_KERNELS[decode]) + ("D2H",))
+
+
+def _stitched_split(decode="post"):
+    """Spans around a stitched decode's calls into each stage
+    (``_stitch_stages``), counting the kernels' launches."""
     from tehmm_tpu_torch.ops import cuda_kernels as ck
     from tehmm_tpu_torch.parallel import stitch
 
     stages = _Stages()
+    stages.decode = decode
     stages.wrap(stitch, "batch_chunks", "chunk forming")
     stages.wrap(stitch, "_to_device", "H2D", sync=True)
     stages.wrap(stitch, "_f32_to_device", "H2D", sync=True)
-    stages.wrap(ck, "em_fwd", "em_fwd", sync=True, count=True)
-    stages.wrap(ck, "post_decode", "decode", sync=True, count=True)
+    for attr, stage in STITCH_KERNELS[decode]:
+        stages.wrap(ck, attr, stage, sync=True, count=True)
     stages.wrap(stitch, "_to_host", "D2H")
     return stages
 
 
 def _print_stitched_split(label, stages, total):
-    """Print one stitched decode's split; returns its K4 launches."""
+    """Print one stitched decode's split (tagged by its decode); returns
+    each kernel stage's launches (the kernels that ran, by stage)."""
+    names = _stitch_stages(stages.decode)
     sec = stages.seconds
-    rest = total - sum(sec.get(k, 0.0) for k in STITCH_STAGES)
-    n = stages.launched.get("decode", {})
-    k4 = {k: v for k, v in n.items() if v}
-    print(f"[post] stitched decode split, {label} (s): total {total:.4f}, "
+    rest = total - sum(sec.get(k, 0.0) for k in names)
+    ran = {stage: {k: v for k, v in stages.launched.get(stage, {}).items()
+                   if v}
+           for _, stage in STITCH_KERNELS[stages.decode]}
+    print(f"[{stages.decode.split()[0]}] stitched decode split, {label} "
+          f"(s): total "
+          f"{total:.4f}, "
           + ", ".join(f"{k} {sec.get(k, 0.0):.4f} "
-                      f"({stages.calls.get(k, 0)} calls)"
-                      for k in STITCH_STAGES)
-          + f", stitch and the rest {rest:.4f}; K4 launches {k4}",
+                      f"({stages.calls.get(k, 0)} calls)" for k in names)
+          + f", stitch and the rest {rest:.4f}; launches {ran}",
           flush=True)
-    return k4
-
-
-def _check_parent(parent, runs, work, tag):
-    """Hold each output of ``runs`` ((argv, output) of this checkout's
-    eval runs) to the parent's eval CLI's on the same argv, byte for
-    byte."""
-    t0 = time.perf_counter()
-    theirs = _parent_outputs(parent, runs, work)
-    for (_argv, out), other in zip(runs, theirs):
-        mine = open(out, "rb").read()
-        assert mine == other, f"{os.path.basename(out)} differs from " \
-            f"the parent's ({len(mine)} against {len(other)} bytes)"
-        print(f"[{tag}] {os.path.basename(out)}: {len(mine)} bytes, "
-              f"byte-identical to the parent's ({parent})", flush=True)
-    print(f"[{tag}] the parent's {len(theirs)} runs: "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return ran
 
 
 def _split_stages(total, spans):
@@ -2689,34 +2822,131 @@ def _x1_groups(launched, region, S_, what):
                 or launched["fwd_chunk_tile"]), f"{what} launched {launched}"
 
 
-def _parent_cli(parent, cli, argvs):
+# the parent checkout's build, started in the background at start-up
+# (``_start_parent_build``) and waited for before its first CLI run, and
+# its CLI runs in the background (``jobs``)
+_PARENT_BUILD: dict = {}
+
+
+def _parent_env(parent):
+    return dict(os.environ, PYTHONPATH=os.path.abspath(parent))
+
+
+def _start_parent_build(parent):
+    """Build the parent checkout's kernels and native helpers in a process
+    of its own, beside phase 2 (into that checkout, as its CLIs would at
+    first use)."""
+    code = ("from tehmm_tpu_torch import native\n"
+            "from tehmm_tpu_torch.ops import cuda_kernels as ck\n"
+            "native.available()\n"
+            "ck.load_library()\n")
+    log = open(os.path.join(parent, "parent_build.log"), "w")
+    _PARENT_BUILD.update(
+        proc=subprocess.Popen([sys.executable, "-c", code], cwd=parent,
+                              env=_parent_env(parent), stdout=log,
+                              stderr=subprocess.STDOUT),
+        log=log, t0=time.perf_counter())
+
+
+def _wait_parent_build():
+    """Wait for the background build (once); it must have succeeded."""
+    proc = _PARENT_BUILD.get("proc")
+    if proc is None or "rc" in _PARENT_BUILD:
+        return
+    t0 = time.perf_counter()
+    _PARENT_BUILD["rc"] = proc.wait(timeout=900)
+    _PARENT_BUILD["log"].close()
+    print(f"[parent] build in the background: exit "
+          f"{_PARENT_BUILD['rc']}, {t0 - _PARENT_BUILD['t0']:.1f} s before "
+          f"its first use, waited {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    assert _PARENT_BUILD["rc"] == 0, "the parent checkout's build failed"
+
+
+def _stop_parent_processes():
+    """End the background build and parent runs that still run (a failed
+    run)."""
+    for proc in [_PARENT_BUILD.get("proc")] + _PARENT_BUILD.get("jobs", []):
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def _parent_cli(parent, cli, argvs, wait=True, stderr=None):
     """Run ``tehmm_tpu_torch.cli.<cli>`` of the checkout at ``parent`` (an
     earlier commit of this repository, unpacked with ``git archive``) on
-    each argv, in one process of its own.  Its kernels build into that
-    checkout."""
+    each argv, in one process of its own, after its build; with ``wait``
+    False return the process (its errors to ``stderr``), which
+    ``_stop_parent_processes`` ends if the run fails first."""
+    _wait_parent_build()
     code = ("import json, sys\n"
             f"from tehmm_tpu_torch.cli import {cli} as c\n"
             "for argv in json.loads(sys.argv[1]):\n"
             "    assert c.main(argv) == 0, argv\n")
-    env = dict(os.environ, PYTHONPATH=os.path.abspath(parent))
-    proc = subprocess.run([sys.executable, "-c", code, json.dumps(argvs)],
-                          cwd=parent, env=env, capture_output=True,
-                          text=True, timeout=900)
+    cmd = [sys.executable, "-c", code, json.dumps(argvs)]
+    if not wait:
+        proc = subprocess.Popen(cmd, cwd=parent, env=_parent_env(parent),
+                                stdout=subprocess.DEVNULL, stderr=stderr)
+        _PARENT_BUILD.setdefault("jobs", []).append(proc)
+        return proc
+    proc = subprocess.run(cmd, cwd=parent, env=_parent_env(parent),
+                          capture_output=True, text=True, timeout=900)
     assert proc.returncode == 0, proc.stderr[-4000:]
 
 
-def _parent_outputs(parent, runs, work):
-    """Run the parent's eval CLI (``_parent_cli``) on each (argv, output
-    path) of ``runs``, the output path moved to a file of its own, and
-    return each output's bytes."""
-    outs = []
-    argvs = []
-    for k, (argv, path) in enumerate(runs):
-        out = os.path.join(work, f"parent_{k}_{os.path.basename(path)}")
-        argvs.append([out if a == path else a for a in argv])
-        outs.append(out)
-    _parent_cli(parent, "eval", argvs)
-    return [open(o, "rb").read() for o in outs]
+class _ParentRuns:
+    """``--parent``'s comparisons of eval outputs.  The phases queue
+    their eval runs ((argv, output), ``add``); ``launch`` starts the
+    parent's eval CLI on each queued batch, a background process a batch
+    (each output path moved to a file of its own); ``finish`` launches
+    what is queued, waits for every batch and holds each output to this
+    checkout's byte for byte.  The caller launches between phases, so a
+    batch overlaps only the phases after it, never a timed train run."""
+
+    def __init__(self, parent, work):
+        self.parent, self.work = parent, work
+        self.queued, self.jobs = [], []
+
+    def add(self, runs, tag):
+        self.queued.append((list(runs), tag))
+
+    def launch(self):
+        if not self.queued:
+            return
+        _wait_parent_build()
+        for runs, tag in self.queued:
+            theirs = [os.path.join(self.work, f"parent_{tag}_{k}_"
+                                              f"{os.path.basename(path)}")
+                      for k, (_argv, path) in enumerate(runs)]
+            argvs = [[o if a == path else a for a in argv]
+                     for (argv, path), o in zip(runs, theirs)]
+            err = tempfile.TemporaryFile()
+            proc = _parent_cli(self.parent, "eval", argvs, wait=False,
+                               stderr=err)
+            self.jobs.append((runs, theirs, tag, proc, err,
+                              time.perf_counter()))
+        self.queued = []
+
+    def finish(self):
+        self.launch()
+        for runs, theirs, tag, proc, err, t0 in self.jobs:
+            rc = proc.wait(timeout=900)
+            err.seek(0)
+            assert rc == 0, err.read()[-4000:].decode(errors="replace")
+            err.close()
+            for (_argv, out), other in zip(runs, theirs):
+                mine = open(out, "rb").read()
+                other = open(other, "rb").read()
+                assert mine == other, \
+                    f"{os.path.basename(out)} differs from the parent's " \
+                    f"({len(mine)} against {len(other)} bytes)"
+                print(f"[{tag}] {os.path.basename(out)}: {len(mine)} bytes, "
+                      f"byte-identical to the parent's ({self.parent})",
+                      flush=True)
+            print(f"[{tag}] the parent's {len(runs)} runs: done "
+                  f"{time.perf_counter() - t0:.1f} s after their start",
+                  flush=True)
+        self.jobs = []
 
 
 def _npz_members(path):
@@ -2757,24 +2987,42 @@ def phase_end_to_end(work, xml, truth_bed, truth, region, small,
     stages.wrap(MultitrackHmm, "supervised", "train: count + M-step")
     stages.wrap(MultitrackHmm, "save", "train: save")
     stages.wrap(port_eval, "load_track_data", "eval: load")
-    stages.wrap(MultitrackHmm, "decode_tables", "eval: decode", keep=True)
+    stages.wrap(MultitrackHmm, "decode_tables", "eval: decode", keep=True,
+                keep_first_call=True)
     stages.wrap(port_eval, "path_log_score", "eval: path score")
     stages.wrap(port_eval, "write_bed_intervals", "eval: write")
+    eval_argv = [xml, model, regions, "--bed", out_bed, "--device", device]
+    split = None
     try:
         t0 = time.perf_counter()
         _run_cli(port_train, [xml, truth_bed, model, "--supervised",
                               "--device", device])
         t_train = time.perf_counter() - t0
+        # the stitched decode split into its stages
+        split = _stitched_split("e2e")
         t0 = time.perf_counter()
-        score = _run_cli(port_eval, [xml, model, regions, "--bed", out_bed,
-                                     "--device", device])
+        score = _run_cli(port_eval, eval_argv)
         t_eval = time.perf_counter() - t0
     finally:
+        if split is not None:
+            split.restore()
         stages.restore()
     paths, report = stages.last["eval: decode"]
     assert report.boundaries_ok, report
     print(f"[e2e] eval printed path score {score}; {report}", flush=True)
     assert np.isfinite(float(score))
+    # K2's forward (the lanes kernel's pointer mode) and the chase once a
+    # pass of 512 rows each, more only for the retries' re-decodes
+    ran = _print_stitched_split(
+        "512 rows a pass, K2's lanes forward (pointers) and the chase",
+        split, stages.seconds["eval: decode"])
+    passes = -(-report.n_chunks // 512)
+    fwd = ran["K2 forward"].get("viterbi_fwd_lanes", 0)
+    assert set(ran["K2 forward"]) == {"viterbi_fwd_lanes"} and \
+        ran["chase"] == {"chunk_chase": fwd} and (
+            fwd == passes if report.retries == 0 else fwd > passes), \
+        f"K2 launched {ran} for {report.n_chunks} chunks in passes of 512 " \
+        f"({report.retries} retries)"
 
     names = MultitrackHmm.load(model, "cpu").state_names
     decoded = _paint(out_bed, n, names)
@@ -2829,10 +3077,55 @@ def phase_end_to_end(work, xml, truth_bed, truth, region, small,
         print(f"[e2e] {stage:24s} {sec:9.3f}", flush=True)
     print(f"[e2e] {'train CLI total':24s} {t_train:9.3f}", flush=True)
     print(f"[e2e] {'eval CLI total':24s} {t_eval:9.3f}", flush=True)
-    # the region's --exact run, for 3d's comparison with a parent checkout
+    # the chromosome's stitched run and the region's --exact run, for
+    # 3d's comparison with a parent checkout
     exact_run = ([xml, model, region_bed, "--bed", outs["--exact"],
                   "--device", device, "--exact"], outs["--exact"])
-    return acc, float(score), exact_run
+    # the stitched decode as the parent ran it, for after the count of
+    # this phase's launches
+    return acc, float(score), [(eval_argv, out_bed), exact_run], \
+        lambda: _viterbi_as_parent(stages, paths, report)
+
+
+def _viterbi_as_parent(stages, paths, report):
+    """Phase 3's stitched decode again, on the same tables, as the parent
+    ran it (``_viterbi_fused_as_parent``: K2's shared forward forced,
+    value rows, the value-row backtrace), split the same way: the same
+    paths and report, and K2's forward and the backtrace once a pass."""
+    import torch
+
+    from tehmm_tpu_torch.models.hmm import MultitrackHmm
+    from tehmm_tpu_torch.ops import cuda_kernels as ck
+    from tehmm_tpu_torch.tools.time_k1 import shared_k2
+
+    dec_args, dec_kw = stages.first_call.pop("eval: decode")
+    split = _stitched_split("e2e parent")
+    fused, ck.viterbi_fused = ck.viterbi_fused, _viterbi_fused_as_parent
+    try:
+        with shared_k2():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            old_paths, old_report = MultitrackHmm.decode_tables(*dec_args,
+                                                               **dec_kw)
+            torch.cuda.synchronize()
+            t_old = time.perf_counter() - t0
+    finally:
+        ck.viterbi_fused = fused
+        split.restore()
+    del dec_args, dec_kw
+    ran = _print_stitched_split("512 rows a pass, K2's shared forward "
+                                "(forced) and the value-row backtrace, as "
+                                "the parent ran it", split, t_old)
+    passes = -(-report.n_chunks // 512)
+    assert ran == {"K2 forward": {"viterbi_fwd": passes},
+                   "backtrace": {"viterbi_backtrace": passes}} \
+        or report.retries, ran
+    assert old_report == report and all(
+        np.array_equal(a, b) for a, b in zip(old_paths, paths)), \
+        "the stitched decode's paths differ between the two routes"
+    print(f"[e2e] {sum(len(p) for p in paths)}-position stitched decode: "
+          f"the same paths and report through the pointers and the chase "
+          f"and through the value rows and the backtrace", flush=True)
 
 
 def _read_pd(path):
@@ -2850,11 +3143,12 @@ def phase_max_posterior(work, xml, truth, viterbi_score, region, small,
                         pd_region, device="cuda", parent=None,
                         parent_runs=()):
     """3d: max-posterior decoding, --pd and scoring through eval with
-    phase 3's supervised model.  ``parent``: a checkout of an earlier
-    commit, whose eval CLI must write the same stitched ``--maxPost``
-    BED, ``--maxPost --exact`` BEDs and ``--pd`` file byte for byte, and
-    the outputs of ``parent_runs`` too ((argv, output) of earlier eval
-    runs: phase 3's ``--exact`` BED)."""
+    phase 3's supervised model.  ``parent``: the run's ``_ParentRuns``,
+    given the runs whose outputs a checkout of an earlier commit must
+    write byte for byte: ``parent_runs`` ((argv, output) of earlier eval
+    runs: phase 3's stitched BED and ``--exact`` BED) and this phase's
+    stitched ``--maxPost`` BED, ``--maxPost --exact`` BEDs and ``--pd``
+    file."""
     import torch
 
     from tehmm_tpu_torch.cli import eval as port_eval
@@ -2906,7 +3200,7 @@ def phase_max_posterior(work, xml, truth, viterbi_score, region, small,
         rows = stitch.MAXPOST_ROWS_PER_PASS["fused"]
         k4 = _print_stitched_split(
             f"{rows} rows a pass, the lanes decode", split,
-            stages.seconds["decode (stitched, K4)"])
+            stages.seconds["decode (stitched, K4)"])["decode"]
         # a launch of K1's forward and of K4's lanes decode a pass, more
         # only for the retries' re-decodes
         passes = -(-report.n_chunks // rows)
@@ -2992,7 +3286,7 @@ def phase_max_posterior(work, xml, truth, viterbi_score, region, small,
     finally:
         stages.restore()
     if parent is not None:
-        _check_parent(parent, same_as_parent, work, "post")
+        parent.add(same_as_parent, "post")
     launches = dict(ck.LAUNCHES)          # the card's runs of this phase
 
     # the 20 Mb stitched decode again as the parent ran it, 64 rows a
@@ -3013,7 +3307,7 @@ def phase_max_posterior(work, xml, truth, viterbi_score, region, small,
     del dec_args, dec_kw
     k4_old = _print_stitched_split("64 rows a pass, the shared decode "
                                    "(forced), as the parent ran it",
-                                   split, t_old)
+                                   split, t_old)["decode"]
     assert k4_old == {"post_decode": -(-report.n_chunks // 64)} \
         or report.retries, k4_old
     assert old_report == report and all(
@@ -3725,10 +4019,11 @@ def phase_gauss_base(work, xml, truth_bed, truth, small, region, em_region,
     """3e, base resolution: ``train --supervised`` and the stitched
     ``eval --bed`` of the whole chromosome with the gaussian track (K2
     with the gaussian stream), stitched ``--maxPost`` on a region (K1's
-    forward and K4 with it; with ``parent``, that checkout's eval CLI
-    must write its BED byte for byte) and EM on a smaller region (K1 with
-    it); then the card against the CPU for the Viterbi decode and the EM.
-    Returns the main path's launch counts."""
+    forward and K4 with it) and EM on a smaller region (K1 with it); then
+    the card against the CPU for the Viterbi decode and the EM; with
+    ``parent`` (the run's ``_ParentRuns``) a checkout of an earlier
+    commit's eval CLI must write the stitched Viterbi and ``--maxPost``
+    BEDs byte for byte.  Returns the main path's launch counts."""
     from tehmm_tpu_torch.cli import eval as port_eval
     from tehmm_tpu_torch.cli import train as port_train
     from tehmm_tpu_torch.models.hmm import MultitrackHmm
@@ -3753,8 +4048,9 @@ def phase_gauss_base(work, xml, truth_bed, truth, small, region, em_region,
                               "--device", device])
         t_train = time.perf_counter() - t0
         t0 = time.perf_counter()
-        score = float(_run_cli(port_eval, [xml, model, regions, "--bed",
-                                           out_bed, "--device", device]))
+        eval_argv = [xml, model, regions, "--bed", out_bed, "--device",
+                     device]
+        score = float(_run_cli(port_eval, eval_argv))
         t_eval = time.perf_counter() - t0
     finally:
         stages.restore()
@@ -3800,7 +4096,7 @@ def phase_gauss_base(work, xml, truth_bed, truth, small, region, em_region,
           f"loglik {mp_score!r}, base accuracy {mp_acc:.6f}, eval CLI "
           f"{t_mp:.3f} s", flush=True)
     if parent is not None:
-        _check_parent(parent, [(mp_argv, mp_out)], work, "gauss")
+        parent.add([(eval_argv, out_bed), (mp_argv, mp_out)], "gauss")
     g_ll, c_ll = ([r["loglik"] for r in _em_log(em_logs[d])]
                   for d in (device, "cpu"))
     assert len(g_ll) == len(c_ll) and np.isfinite(g_ll).all()
@@ -3848,8 +4144,9 @@ def phase_segments(work, xml, truth, seed, device="cuda", parent=None):
     """3e, segment mode on the whole chromosome: ``segment_tracks``,
     ``train --segment --segLen`` (K1 with both streams), ``eval
     --segment --segLen --bed`` (K2 with both) and ``--maxPost`` (K4 with
-    both; with ``parent``, that checkout's eval CLI must write its BED
-    byte for byte).  Returns the main path's launch counts."""
+    both; with ``parent``, the run's ``_ParentRuns``, a checkout of an
+    earlier commit's eval CLI must write both BEDs byte for byte).
+    Returns the main path's launch counts."""
     from tehmm_tpu_torch.cli import eval as port_eval
     from tehmm_tpu_torch.cli import segment_tracks as port_seg
     from tehmm_tpu_torch.cli import train as port_train
@@ -3925,8 +4222,8 @@ def phase_segments(work, xml, truth, seed, device="cuda", parent=None):
               flush=True)
     print(f"[seg] Viterbi decode: {report}", flush=True)
     if parent is not None:
-        _check_parent(parent, [(scores["--maxPost argv"],
-                                scores["--maxPost bed"])], work, "seg")
+        parent.add([(scores[m + " argv"], scores[m + " bed"])
+                    for m in ("Viterbi", "--maxPost")], "seg")
     print("[seg] stage                      seconds  calls", flush=True)
     for stage, sec in stages.seconds.items():
         print(f"[seg] {stage:26s} {sec:9.3f}  {stages.calls[stage]}",
@@ -3941,9 +4238,10 @@ def phase_segments_card_vs_cpu(work, xml_seg, xml_cat, n, region, seed,
     """3e, segment mode on the card against the CPU on a region: the
     same ``train --segment --segLen`` and ``eval --segment --segLen``
     (Viterbi and ``--maxPost``, stitched) with the gaussian track, then
-    with the categorical tracks only (with ``parent``, that checkout's
-    eval CLI must write the card's categorical ``--maxPost`` BED byte
-    for byte).  Returns the launch counts of the categorical card runs
+    with the categorical tracks only (with ``parent``, the run's
+    ``_ParentRuns``, a checkout of an earlier commit's eval CLI must
+    write the card's categorical Viterbi and ``--maxPost`` BEDs byte for
+    byte).  Returns the launch counts of the categorical card runs
     (their own path: the weight stream alone)."""
     from tehmm_tpu_torch.cli import eval as port_eval
     from tehmm_tpu_torch.cli import train as port_train
@@ -3974,7 +4272,7 @@ def phase_segments_card_vs_cpu(work, xml_seg, xml_cat, n, region, seed,
                         out, "--no-exact", "--device", dev, *flags]
                 _run_cli(port_eval, argv)
                 paths.append(_paint_region(out, lo, region, names))
-                if tag == "categorical" and dev == device and flags:
+                if tag == "categorical" and dev == device:
                     same_as_parent.append((argv, out))
             if tag == "categorical" and dev == device:
                 cat_launches = dict(ck.LAUNCHES)
@@ -3993,7 +4291,7 @@ def phase_segments_card_vs_cpu(work, xml_seg, xml_cat, n, region, seed,
               f"rel err {rel:.3g}; BED agrees on {agree[0]:.6f} (Viterbi) "
               f"and {agree[1]:.6f} (--maxPost) of bases", flush=True)
     if parent is not None:
-        _check_parent(parent, same_as_parent, work, "seg-small")
+        parent.add(same_as_parent, "seg-small")
     return cat_launches
 
 
@@ -4007,11 +4305,12 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--parent", default=None,
                     help="a checkout of an earlier commit (git archive): "
-                         "3d holds its --exact BED of phase 3's region, "
+                         "3d holds phase 3's stitched BED of the "
+                         "chromosome and --exact BED of its region, 3d's "
                          "stitched --maxPost BED, --maxPost --exact BEDs "
                          "and --pd file, 3b its learned model and loglik "
-                         "trace, 3e its stitched --maxPost BEDs (+g, +wg, "
-                         "+w), to this one's byte for byte")
+                         "trace, 3e its stitched Viterbi and --maxPost "
+                         "BEDs (+g, +wg, +w), to this one's byte for byte")
     args = ap.parse_args(argv)
 
     import torch
@@ -4032,6 +4331,20 @@ def main(argv=None) -> int:
           f"{time.perf_counter() - t0:.2f} s -> {ck.library_path()}",
           flush=True)
 
+    parent = None if args.parent is None else os.path.abspath(args.parent)
+    try:
+        return _run(args, device, smi, parent)
+    finally:
+        _stop_parent_processes()
+
+
+def _run(args, device, smi, parent) -> int:
+    import torch
+
+    from tehmm_tpu_torch.ops import cuda_kernels as ck
+
+    if parent is not None:
+        _start_parent_build(parent)
     t_run = time.perf_counter()
     rng = np.random.RandomState(args.seed)
     kernels = phase_kernels(device, rng)
@@ -4067,6 +4380,9 @@ def main(argv=None) -> int:
 
     n = N_POSITIONS
     with tempfile.TemporaryDirectory(prefix="tehmm_chip_smoke_") as work:
+        # the parent's eval runs; launch and finish do nothing without one
+        checks = _ParentRuns(parent, work)
+        queue = None if parent is None else checks
         t0 = time.perf_counter()
         xml, truth_bed, truth = make_dataset(work, rng, n)
         print(f"[e2e] dataset: {n} positions, {T} tracks, "
@@ -4074,9 +4390,11 @@ def main(argv=None) -> int:
 
         ck.reset_launch_counts()
         torch.cuda.reset_peak_memory_stats()
-        _acc, viterbi_score, exact_run = phase_end_to_end(
+        _acc, viterbi_score, viterbi_runs, as_parent = phase_end_to_end(
             work, xml, truth_bed, truth, EXACT_REGION, 20_000)
         decode_launches = dict(ck.LAUNCHES)
+        as_parent()
+        del as_parent
         print(f"[e2e] peak device memory allocated: "
               f"{torch.cuda.max_memory_allocated() / 1e6:.1f} MB",
               flush=True)
@@ -4086,8 +4404,7 @@ def main(argv=None) -> int:
         torch.cuda.reset_peak_memory_stats()
         post_launches = phase_max_posterior(
             work, xml, truth, viterbi_score, 1_000_000, 20_000, 100_000,
-            parent=None if args.parent is None
-            else os.path.abspath(args.parent), parent_runs=[exact_run])
+            parent=queue, parent_runs=viterbi_runs)
         print(f"[post] peak device memory allocated: "
               f"{torch.cuda.max_memory_allocated() / 1e6:.1f} MB",
               flush=True)
@@ -4095,9 +4412,10 @@ def main(argv=None) -> int:
 
         ck.reset_launch_counts()
         em_launches, k1_em_err, k1_em_shape = phase_em(
-            work, xml, truth, args.seed,
-            parent=None if args.parent is None
-            else os.path.abspath(args.parent))
+            work, xml, truth, args.seed, parent=parent)
+        # the parent's runs of 3 and 3d beside the phases from 3c on (3b
+        # times train runs, each alone in a process)
+        checks.launch()
         for name, e in k1_em_err.items():
             kernels[name]["max_abs_err_em_run_shape"] = e
             kernels[name].update(k1_em_shape[name])
@@ -4113,18 +4431,20 @@ def main(argv=None) -> int:
         print(f"[gauss] gaussian track: {n // GAUSS_RECORD} records, "
               f"{time.perf_counter() - t0:.1f} s to write", flush=True)
         ck.reset_launch_counts()
-        parent = None if args.parent is None \
-            else os.path.abspath(args.parent)
         gauss_launches = phase_gauss_base(work, xml_g, truth_bed, truth,
                                           20_000, 1_000_000, 50_000,
-                                          args.seed, parent=parent)
+                                          args.seed,
+                                          parent=queue)
+        checks.launch()
         _phase_done("3e, base resolution", t_run)
         ck.reset_launch_counts()
         seg_launches = phase_segments(work, xml_seg, truth, args.seed,
-                                      parent=parent)
-        cat_launches = phase_segments_card_vs_cpu(work, xml_seg, xml_cat, n,
-                                                  200_000, args.seed,
-                                                  parent=parent)
+                                      parent=queue)
+        checks.launch()
+        cat_launches = phase_segments_card_vs_cpu(
+            work, xml_seg, xml_cat, n, 200_000, args.seed,
+            parent=queue)
+        checks.finish()
         _phase_done("3e, segments", t_run)
     for config, counts in engine_launches.items():
         print(f"[launches] engine-comparison path (2e) at {config}: "
@@ -4165,6 +4485,16 @@ def main(argv=None) -> int:
         missing += [f"{k} (3f, {path})" for k in names
                     if env_launches[path][k] == 0]
     assert not missing, f"kernels never launched on their path: {missing}"
+    off = {k: decode_launches[k] for k in OFF_DECODE_PATH}
+    assert not any(off.values()), f"phase 3 launched {off}"
+    # phase 3's chases: the exact decoder's, one a group (as its map), and
+    # K2's, one a stitched pass (as its forward)
+    x3_chases = decode_launches["chunk_entry_map"]
+    k2_chases = decode_launches["chunk_chase"] - x3_chases
+    k2_forwards = decode_launches["viterbi_fwd_lanes"] + \
+        decode_launches["viterbi_fwd"]
+    assert k2_chases == k2_forwards, \
+        f"phase 3: {k2_chases} chases beside K2's {k2_forwards} forwards"
     launches = {k: decode_launches[k] for k in DECODE_KERNELS}
     launches.update({k: em_launches[k] for k in EM_KERNELS})
     launches.update({k: post_launches[k] for k in POST_KERNELS
@@ -4185,6 +4515,8 @@ def main(argv=None) -> int:
         elif base in tile_paths:
             launches[name] = sum(env_launches[path][base]
                                  for path in tile_paths[base])
+        elif base == "chunk_chase" and config not in engine_launches:
+            launches[name] = k2_chases if config == "K2" else x3_chases
         elif (base in DECODE_KERNELS or base == "viterbi_chunk_values") \
                 and config not in engine_launches:
             # K3 and X3 at --exact's shapes; K3's values mode, off the
@@ -4196,16 +4528,26 @@ def main(argv=None) -> int:
         elif base == "post_decode":
             # K4's shared decode, forced at S=10: 3d's count of it, 0
             launches[name] = post_launches[base]
+        elif base == "viterbi_fwd":
+            # K2's shared forward, forced at S=10: phase 3's count, 0
+            launches[name] = decode_launches[base]
+        elif base == "viterbi_backtrace":
+            # off the stitched decode: its launches on 2e's streaming route
+            launches[name] = \
+                engine_launches[config or ENGINE_CONFIGS[0]][base]
         elif config or base in STREAMING_KERNELS:
             launches[name] = \
                 engine_launches[config or ENGINE_CONFIGS[0]][base]
     assert not any(m.split(".")[0] in ("jax", "jaxlib", "tehmm_tpu")
                    for m in sys.modules), "jax or tehmm_tpu was imported"
 
+    def base_of(name):
+        return name.split("+")[0].split("@")[0]
+
     print(json.dumps({"kernels": [
-        dict(name=name, route="cuda",
-             source=SOURCES[name.split("+")[0].split("@")[0]],
-             replaces=REPLACES[name.split("+")[0].split("@")[0]],
+        dict(name=name, route="cuda", source=SOURCES[base_of(name)],
+             replaces=REPLACES.get(name.split("+")[0],
+                                   REPLACES[base_of(name)]),
              launches=launches[name], **r)
         for name, r in kernels.items()
     ]}))

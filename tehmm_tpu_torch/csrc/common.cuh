@@ -6,7 +6,8 @@
 // segment-weight and gaussian streams, the cp.async staging of matrix
 // rows, the long sweeps' obs read ahead of their chain (K3, X1, X2) with
 // the exact maxes of the lanes steps (theirs, K1's and K4's), and the
-// staging ring of the lanes kernels that form obs themselves (K1, K4).
+// staging ring of the lanes kernels that form obs themselves (K1, K2's
+// forward, K4).
 // Everything is in an anonymous namespace: each source gets its own copy.
 
 #pragma once
@@ -301,9 +302,10 @@ __device__ __forceinline__ float lanes_row_max(float v) {
   }
 }
 
-// The lanes kernels' staging ring (K1's in em_estep.cu, K4's decode in
-// posterior.cu; S <= 32, one state a lane): each warp stages its row's
-// streams into a ring of two slots of kHalf positions with cp.async, the
+// The lanes kernels' staging ring (K1's in em_estep.cu, K2's forward in
+// viterbi.cu, K4's decode in posterior.cu; S <= 32, one state a lane):
+// each warp stages its row's streams into a ring of two slots of kHalf
+// positions with cp.async, the
 // lanes taking every 32nd word of each stream's block, so every lane
 // reads every word after a __syncwarp.  A slot holds, in this order:
 // symbols [kHalf][T], segment weights [kHalf] (its room kept without the
@@ -401,6 +403,21 @@ __device__ __forceinline__ void obs_row(const float* s_em, const int32_t* x,
   }
 }
 
+// obs_log of every state at the slot's position ``lane`` (obs_row over
+// the slot's symbols and streams): o[j] for j < S.  slot_obs forms obs_p
+// from it; K2's lanes forward (viterbi.cu) keeps it as it is.
+template <int NS>
+__device__ __forceinline__ void slot_obs_row(const float* slot,
+                                             const float* s_em, int S, int T,
+                                             int V, const ObsStreams& st,
+                                             int lane, float (&o)[NS]) {
+  const int G = st.values != nullptr ? st.G : 0;
+  const float* ws = slot + kHalf * T;
+  obs_row<NS>(s_em, reinterpret_cast<const int32_t*>(slot) + lane * T, S,
+              T, V, G > 0 ? ws + kHalf + lane * G : nullptr, st.s_coef, G,
+              st.w != nullptr ? ws + lane : nullptr, o);
+}
+
 // obs_p = exp(obs_log - max obs_log) of the slot's first ``cnt``
 // positions into col [kHalf][S], lane k taking position k: obs_probs<1>'s
 // operations (its max is exact, so any order gives its bits) with no
@@ -412,12 +429,8 @@ __device__ __forceinline__ float slot_obs(const float* slot, int cnt,
                                           int V, const ObsStreams& st,
                                           int lane, float* col) {
   if (lane >= cnt) return 0.0f;
-  const int G = st.values != nullptr ? st.G : 0;
-  const float* ws = slot + kHalf * T;
   float o[NS];
-  obs_row<NS>(s_em, reinterpret_cast<const int32_t*>(slot) + lane * T, S,
-              T, V, G > 0 ? ws + kHalf + lane * G : nullptr, st.s_coef, G,
-              st.w != nullptr ? ws + lane : nullptr, o);
+  slot_obs_row<NS>(slot, s_em, S, T, V, st, lane, o);
   float o_m = -INFINITY;
 #pragma unroll
   for (int j = 0; j < NS; ++j)

@@ -11,12 +11,16 @@
 // Kernels and the TPU kernels they replace
 // (tehmm_tpu/ops/pallas_kernels.py):
 //
-//   viterbi_fwd_kernel          K2 forward, _make_viterbi_fwd_kernel_v4
-//                               (:2386) under viterbi_fused_pallas_v4
-//                               (:2600)
-//   viterbi_backtrace_kernel    K2 backtrace, _viterbi_backtrace_kernel_v4
-//                               (:2517); also the exact decoder's
-//                               per-chunk backtrace past 239 states
+//   viterbi_fwd_lanes_kernel    K2 forward, _make_viterbi_fwd_kernel_v4
+//   viterbi_fwd_kernel          (:2386) under viterbi_fused_pallas_v4
+//                               (:2600): value rows, or in the pointer
+//                               mode first-hit pointers, which
+//                               chunk_chase_kernel walks (K2's backtrace,
+//                               _viterbi_backtrace_kernel_v4 :2517)
+//   viterbi_backtrace_kernel    a backtrace over value rows: under K5
+//                               (dp.viterbi_streaming) and the exact
+//                               decoder's per-chunk backtrace past 239
+//                               states
 //   viterbi_sweep_lanes_kernel  K3, _make_viterbi_kernel_v3(carry_mode=
 //   viterbi_sweep_smem_kernel   True) (:1284) under
 //                               viterbi_chunk_values_pallas (:1492): value
@@ -36,20 +40,21 @@
 // is a chain of dependent steps whose latency sets the time; at S = 10
 // the arithmetic is ~2*S*S = 200 flops per position and the HBM traffic
 // is obs in and the value rows out (S floats each per position).  K2
-// keeps every table (trans, log_em, log_start) in shared memory, one warp
-// per batch row with lane <-> state, so rows run in parallel across warps
-// and SMs and no step touches HBM for a table.  K3 runs on one row of a
-// whole chromosome in its checkpoint mode (one warp for ~1M steps), so
-// its step is cut to its latency: to 32 states no shared memory, no
-// barrier and no warp reduction on the chain, and obs read ahead of
-// it; its recompute gives every (chunk, table) a warp, each from its
-// stored carry.
+// and K3 give a batch row a warp with lane <-> state, so rows run in
+// parallel across warps and SMs, and cut the step to its latency: to 32
+// states (the lanes kernels) no shared memory, no barrier and no warp
+// reduction on the chain, and obs read ahead of it (K2 forms them from
+// symbols staged a half ahead, K3 reads them); beyond, the row and the
+// tables in shared memory.  K3 runs on one row of a whole chromosome in
+// its checkpoint mode (one warp for ~1M steps); its recompute gives
+// every (chunk, table) a warp, each from its stored carry.
 //
 // The exact decoder's backtrace is chunk-parallel: the chain that cannot
 // be split is one end state a chunk (chunk_compose_kernel); every
 // position's walk back is a dependent byte load from shared memory,
 // each chunk's row on its own block (the map from all S end states at
-// once, then the chase from the known one).
+// once, then the chase from the known one).  K2's backtrace is the
+// chase alone, from the argmax of each row's last value row.
 //
 // Numerics: every operation on the value path is a float32 add,
 // subtract, max or (with the optional streams) a product rounded on its
@@ -121,11 +126,17 @@ __device__ __forceinline__ void renorm_store(const float (&nv)[SPL],
   __syncwarp();
 }
 
-// K2 forward: symbols in, max-normalized value rows + normalizers out.
-// obs_j (common.cuh obs_log: sum_t log_em[j, t, x_t], plus the gaussian
-// term, times the segment weight) is formed per step in registers and
-// never written to memory.
-template <int SPL>
+// K2 forward, shared variant (S from 33 to K2's envelope; to 32 only
+// where forced: viterbi_fwd_lanes_kernel below takes them): symbols in,
+// max-normalized value rows + normalizers out, or (kPtr) in place of the
+// value rows the pointer mode's first-hit argmax predecessors ptr_out [B,
+// L, S] uint8 (maxplus_best's arg: the candidates v_hat[t-1, i] + trans[i,
+// j] the backtrace kernel forms from the value rows, the lowest index on
+// ties; the identity at position 0 and past the row's length) and the
+// last row last_out [B, S].  obs_j (common.cuh obs_log: sum_t log_em[j,
+// t, x_t], plus the gaussian term, times the segment weight) is formed
+// per step in registers and never written to memory.
+template <int SPL, bool kPtr>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
     viterbi_fwd_kernel(const int32_t* __restrict__ sym,
                        const int32_t* __restrict__ lens,
@@ -133,6 +144,8 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32)
                        const float* __restrict__ trans,
                        const float* __restrict__ em,
                        float* __restrict__ v_out,
+                       uint8_t* __restrict__ ptr_out,
+                       float* __restrict__ last_out,
                        float* __restrict__ dm_out, int64_t B, int64_t L,
                        int S, int T, int V, ObsStreams st) {
   extern __shared__ float smem[];
@@ -162,21 +175,32 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32)
     const int64_t pos = b * L + t;
     const int32_t* x = sym + pos * T;
     float nv[SPL];
+    int arg[SPL];
     if (t == 0) {
 #pragma unroll
       for (int k = 0; k < SPL; ++k)
         if (lane + 32 * k < S) nv[k] = s_start[lane + 32 * k];
     } else {
-      maxplus_best<SPL>(s_v, s_trans, S, lane, nv);
+      maxplus_best<SPL>(s_v, s_trans, S, lane, nv, kPtr ? arg : nullptr);
+    }
+    if constexpr (kPtr) {
+      const bool step = t > 0 && t < len;
+#pragma unroll
+      for (int k = 0; k < SPL; ++k) {
+        const int j = lane + 32 * k;
+        if (j < S) ptr_out[pos * S + j] = (uint8_t)(step ? arg[k] : j);
+      }
     }
 #pragma unroll
     for (int k = 0; k < SPL; ++k) {
       const int j = lane + 32 * k;
       if (j < S) nv[k] = nv[k] + obs_log(s_em, x, T, V, j, pos, st);
     }
-    renorm_store<SPL>(nv, s_v, S, lane, t < len, v_out + pos * S,
-                      dm_out + pos);
+    renorm_store<SPL>(nv, s_v, S, lane, t < len,
+                      kPtr ? nullptr : v_out + pos * S, dm_out + pos);
   }
+  if constexpr (kPtr)
+    for (int j = lane; j < S; j += 32) last_out[b * S + j] = s_v[j];
 }
 
 // K3, every mode: value rows (v_out), or the carry leaving every chunk of
@@ -233,6 +257,22 @@ __device__ __forceinline__ int row_argmax(const float (&src)[NS]) {
   return k[0];
 }
 
+// The new row from every lane's value nv (lanes past S: -inf): the row
+// (row[i] = nv_i - m) and lane j's nv - m, m = max(max_i nv_i, LOG_ZERO)
+// (renorm_store's normaliser; with ``m_out``, stored there).
+template <int NS>
+__device__ __forceinline__ float lanes_renorm(float (&row)[NS], float nv,
+                                              float* m_out = nullptr) {
+  float a[NS];
+#pragma unroll
+  for (int i = 0; i < NS; ++i) a[i] = __shfl_sync(0xffffffffu, nv, i);
+  const float m = fmaxf(row_max<NS>(a), kLogZero);
+#pragma unroll
+  for (int i = 0; i < NS; ++i) row[i] = a[i] - m;
+  if (m_out != nullptr) *m_out = m;
+  return nv - m;
+}
+
 // One step of the lanes variant: lane j's new value from the row and its
 // trans column, then the new row from every lane, renormalised in each.
 // Returns lane j's renormalised value; with ``arg``, lane j's first-hit
@@ -244,18 +284,13 @@ __device__ __forceinline__ int row_argmax(const float (&src)[NS]) {
 template <int NS>
 __device__ __forceinline__ float lanes_step(float (&row)[NS],
                                             const float (&tc)[NS],
-                                            float o, int* arg = nullptr) {
+                                            float o, int* arg = nullptr,
+                                            float* m_out = nullptr) {
   float a[NS];
 #pragma unroll
   for (int i = 0; i < NS; ++i) a[i] = row[i] + tc[i];
   if (arg != nullptr) *arg = row_argmax<NS>(a);  // off the chain
-  const float nv = row_max<NS>(a) + o;
-#pragma unroll
-  for (int i = 0; i < NS; ++i) a[i] = __shfl_sync(0xffffffffu, nv, i);
-  const float m = fmaxf(row_max<NS>(a), kLogZero);
-#pragma unroll
-  for (int i = 0; i < NS; ++i) row[i] = a[i] - m;
-  return nv - m;
+  return lanes_renorm<NS>(row, row_max<NS>(a) + o, m_out);
 }
 
 template <int NS, bool kPtr>
@@ -408,6 +443,149 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32)
     for (; ck_i < n_ck; ++ck_i)
       for (int j = lane; j < S; j += 32)
         ckpt[(b * n_ck + ck_i) * S + j] = s_v[j];
+}
+
+// K2 forward, lanes variant (S <= 32, one state a lane), with
+// viterbi_fwd_kernel's inputs, outputs and bits in either mode.  Its step
+// is K3's (lanes_step): lane j holds column j of trans in registers (tc,
+// -inf past S) and the whole row (row, -inf past S), the new row goes
+// round by NS shuffles and each lane renormalises it, so the chain has no
+// shared memory, no warp reduction and no __syncwarp.  Position 0 is the
+// start row plus obs (lanes_renorm), not a max-plus step.  The symbols
+// and streams come through the lanes kernels' ring (common.cuh
+// stage_slot) a half of kHalf positions ahead, and a half's obs are
+// formed before its steps, lane k position k (slot_obs_row: obs_log's
+// operations in its order, so its bits), into the warp's col [kHalf][S];
+// a half's normalisers go out after its steps, lane k position k.  The
+// pointer mode takes each step's first-hit argmax (row_argmax over the
+// step's candidates row[i] + tc[i], the backtrace kernel's float32 sums)
+// off the chain.  The row stops at its length: past it the value rows
+// repeat the last row (a zero row for a zero-length row), dm is 0 and
+// the pointers are the identity, written after the chain.
+__host__ __device__ __forceinline__ int64_t k2_lanes_warp_floats(int S,
+                                                                 int T,
+                                                                 int G) {
+  return 2 * slot_floats(S, T, G, 0) + (int64_t)kHalf * S;
+}
+
+// Shared-memory floats a block of the lanes forward takes: log_em and
+// the gaussian coefficients, then a ring and a half's obs a warp.
+int64_t k2_lanes_smem_floats(int S, int T, int V, int G) {
+  return (int64_t)S * T * V + (int64_t)S * 3 * G +
+         kWarpsPerBlock * k2_lanes_warp_floats(S, T, G);
+}
+
+template <int NS, bool kPtr>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+    viterbi_fwd_lanes_kernel(const int32_t* __restrict__ sym,
+                             const int32_t* __restrict__ lens,
+                             const float* __restrict__ start,
+                             const float* __restrict__ trans,
+                             const float* __restrict__ em,
+                             float* __restrict__ v_out,
+                             uint8_t* __restrict__ ptr_out,
+                             float* __restrict__ last_out,
+                             float* __restrict__ dm_out, int64_t B,
+                             int64_t L, int S, int T, int V,
+                             ObsStreams st) {
+  extern __shared__ float smem[];
+  const int64_t TV = (int64_t)T * V;
+  const int G = st.values != nullptr ? st.G : 0;
+  const int64_t slot_f = slot_floats(S, T, G, 0);
+  float* s_em = smem;                          // log_em [S, T, V]
+  st.s_coef = s_em + S * TV;                   // gaussian coefficients
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  float* ring = st.s_coef + coef_floats(S, st.values, st.G) +
+                warp * k2_lanes_warp_floats(S, T, G);
+  float* col = ring + 2 * slot_f;              // obs [kHalf][S]
+  stage(s_em, em, S * TV);
+  stage_coef(st, S);
+  __syncthreads();
+
+  const int64_t b = (int64_t)blockIdx.x * kWarpsPerBlock + warp;
+  if (b >= B) return;
+  const bool mine = lane < S;                  // lanes past S carry -inf
+  const int me = mine ? lane : S - 1;
+  float tc[NS];
+#pragma unroll
+  for (int i = 0; i < NS; ++i)
+    tc[i] = (mine && i < S) ? trans[(int64_t)i * S + lane] : -INFINITY;
+  const float sv = mine ? start[lane] : -INFINITY;
+  float row[NS];  // zero-length rows carry the zero row
+#pragma unroll
+  for (int i = 0; i < NS; ++i) row[i] = i < S ? 0.0f : -INFINITY;
+  float own = mine ? 0.0f : -INFINITY;
+
+  const int64_t n = max((int64_t)0, min((int64_t)lens[b], L));
+  const int64_t rb = b * L;
+  // the value rows' or pointers' next store, walked by pointer
+  float* vp = kPtr ? nullptr : v_out + rb * S + lane;
+  uint8_t* pp = kPtr ? ptr_out + rb * S + lane : nullptr;
+  float m_k = 0.0f;                            // the normaliser of step lane
+  stage_slot(ring, rb, min(n, (int64_t)kHalf), sym, S, T, st, nullptr,
+             nullptr, lane);
+  stage_slot(ring + slot_f, rb + kHalf, min(n - kHalf, (int64_t)kHalf),
+             sym, S, T, st, nullptr, nullptr, lane);
+  for (int64_t t0 = 0; t0 < n; t0 += kHalf) {
+    cp_async_wait<1>();  // this half is in; the next may be in flight
+    __syncwarp();        // and every lane's words of it
+    float* slot = ring + ((t0 / kHalf) & 1) * slot_f;
+    const int cnt = (int)min((int64_t)kHalf, n - t0);
+    if (lane < cnt) {
+      float o[NS];
+      slot_obs_row<NS>(slot, s_em, S, T, V, st, lane, o);
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+        if (j < S) col[lane * S + j] = o[j];
+    }
+    __syncwarp();        // col is whole, and every lane has read the slot
+    stage_slot(slot, rb + t0 + 2 * kHalf,
+               min(n - t0 - 2 * kHalf, (int64_t)kHalf), sym, S, T, st,
+               nullptr, nullptr, lane);
+    int k = 0;
+    if (t0 == 0) {       // position 0: the start row plus obs
+      float m;
+      own = lanes_renorm<NS>(row, sv + (mine ? col[me] : 0.0f), &m);
+      m_k = lane == 0 ? m : m_k;
+      if constexpr (kPtr) {
+        if (mine) *pp = (uint8_t)lane;
+        pp += S;
+      } else {
+        if (mine) *vp = own;
+        vp += S;
+      }
+      k = 1;
+    }
+#pragma unroll 2
+    for (; k < cnt; ++k) {
+      float m;
+      const float o = mine ? col[k * S + me] : 0.0f;
+      if constexpr (kPtr) {
+        int arg;
+        own = lanes_step<NS>(row, tc, o, &arg, &m);
+        if (mine) *pp = (uint8_t)arg;
+        pp += S;
+      } else {
+        own = lanes_step<NS>(row, tc, o, nullptr, &m);
+        if (mine) *vp = own;
+        vp += S;
+      }
+      m_k = k == lane ? m : m_k;
+    }
+    if (lane < cnt) dm_out[rb + t0 + lane] = m_k;
+    __syncwarp();        // every lane has read col
+  }
+  cp_async_wait<0>();
+  // past the length: dm 0, and the carried row or the identity
+  for (int64_t t = n + lane; t < L; t += 32) dm_out[rb + t] = 0.0f;
+  if (!mine) return;
+  if constexpr (kPtr) {
+    for (int64_t t = n; t < L; ++t, pp += S) *pp = (uint8_t)lane;
+    last_out[b * S + lane] = own;
+  } else {
+    for (int64_t t = n; t < L; ++t, vp += S) *vp = own;
+  }
 }
 
 // Backtrace from value rows: one thread per batch row walks back from
@@ -609,24 +787,107 @@ __global__ void __launch_bounds__(kChaseThreads)
                });
 }
 
+// K2's forward arguments: v_out (the value rows), or ptr_out and
+// last_out (the pointer mode), the other null
+struct K2Args {
+  const int32_t* sym;
+  const int32_t* lens;
+  const float* start;
+  const float* trans;
+  const float* em;
+  float* v_out;
+  uint8_t* ptr_out;
+  float* last_out;
+  float* dm_out;
+  int64_t B, L;
+  int S, T, V;
+  ObsStreams st;
+};
+
+int64_t fwd_grid(int64_t B) {
+  return (B + kWarpsPerBlock - 1) / kWarpsPerBlock;
+}
+
 template <int SPL>
-int launch_fwd(const void* sym, const void* lens, const void* start,
-               const void* trans, const void* em, void* v_out,
-               void* dm_out, int64_t B, int64_t L, int S, int T, int V,
-               const ObsStreams& st, cudaStream_t stream) {
+int launch_fwd(const K2Args& a, cudaStream_t stream) {
+  const auto kernel = a.ptr_out != nullptr ? viterbi_fwd_kernel<SPL, true>
+                                           : viterbi_fwd_kernel<SPL, false>;
   const size_t smem =
-      sizeof(float) * ((size_t)S * S + (size_t)S * T * V + (size_t)S +
-                       coef_floats(S, st.values, st.G) +
-                       (size_t)kWarpsPerBlock * S);
-  cudaError_t err = allow_smem(viterbi_fwd_kernel<SPL>, smem);
+      sizeof(float) * ((size_t)a.S * a.S + (size_t)a.S * a.T * a.V +
+                       (size_t)a.S + coef_floats(a.S, a.st.values, a.st.G) +
+                       (size_t)kWarpsPerBlock * a.S);
+  cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  const int64_t grid = (B + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  viterbi_fwd_kernel<SPL><<<(unsigned)grid, kWarpsPerBlock * 32, smem,
-                            stream>>>(
-      (const int32_t*)sym, (const int32_t*)lens, (const float*)start,
-      (const float*)trans, (const float*)em, (float*)v_out,
-      (float*)dm_out, B, L, S, T, V, st);
+  kernel<<<(unsigned)fwd_grid(a.B), kWarpsPerBlock * 32, smem, stream>>>(
+      a.sym, a.lens, a.start, a.trans, a.em, a.v_out, a.ptr_out, a.last_out,
+      a.dm_out, a.B, a.L, a.S, a.T, a.V, a.st);
   return (int)cudaGetLastError();
+}
+
+template <int NS>
+int launch_fwd_lanes(const K2Args& a, cudaStream_t stream) {
+  const auto kernel = a.ptr_out != nullptr
+                          ? viterbi_fwd_lanes_kernel<NS, true>
+                          : viterbi_fwd_lanes_kernel<NS, false>;
+  const size_t smem =
+      sizeof(float) * k2_lanes_smem_floats(a.S, a.T, a.V, a.st.G);
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<(unsigned)fwd_grid(a.B), kWarpsPerBlock * 32, smem, stream>>>(
+      a.sym, a.lens, a.start, a.trans, a.em, a.v_out, a.ptr_out, a.last_out,
+      a.dm_out, a.B, a.L, a.S, a.T, a.V, a.st);
+  return (int)cudaGetLastError();
+}
+
+K2Args k2_args(const void* sym, const void* lens, const void* start,
+               const void* trans, const void* em, void* v_out,
+               void* ptr_out, void* last_out, void* dm_out, int64_t B,
+               int64_t L, int S, int T, int V, const void* w,
+               const void* values, const void* coef, int G) {
+  return K2Args{(const int32_t*)sym, (const int32_t*)lens,
+                (const float*)start, (const float*)trans, (const float*)em,
+                (float*)v_out, (uint8_t*)ptr_out, (float*)last_out,
+                (float*)dm_out, B, L, S, T, V,
+                make_streams(w, values, coef, G)};
+}
+
+int fwd_shared(const K2Args& a, cudaStream_t st) {
+  switch (states_per_lane(a.S)) {
+    case 1:
+      return launch_fwd<1>(a, st);
+    case 2:
+      return launch_fwd<2>(a, st);
+    case 4:
+      return launch_fwd<4>(a, st);
+    case 8:
+      return launch_fwd<8>(a, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+int fwd_lanes(const K2Args& a, cudaStream_t st) {
+  // the row's registers: S rounded up to a multiple of 4
+  switch ((a.S + 3) / 4) {
+    case 1:
+      return launch_fwd_lanes<4>(a, st);
+    case 2:
+      return launch_fwd_lanes<8>(a, st);
+    case 3:
+      return launch_fwd_lanes<12>(a, st);
+    case 4:
+      return launch_fwd_lanes<16>(a, st);
+    case 5:
+      return launch_fwd_lanes<20>(a, st);
+    case 6:
+      return launch_fwd_lanes<24>(a, st);
+    case 7:
+      return launch_fwd_lanes<28>(a, st);
+    case 8:
+      return launch_fwd_lanes<32>(a, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 // K3's arguments: exactly one of v_out, ckpt and ptr_out is non-null
@@ -737,30 +998,66 @@ const char* tehmm_cuda_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// w, values and coef may be null (no segment weights / gaussian tracks).
+// K2's forward, either variant (ops/cuda_kernels.k2_step picks by S):
+// value rows v_out [B, L, S] and dm_out [B, L].  w, values and coef may
+// be null (no segment weights / gaussian tracks).
 int tehmm_viterbi_fwd(const void* sym, const void* lens, const void* start,
                       const void* trans, const void* em, void* v_out,
                       void* dm_out, int64_t B, int64_t L, int S, int T,
                       int V, const void* w, const void* values,
                       const void* coef, int G, void* stream) {
-  cudaStream_t cs = (cudaStream_t)stream;
-  const ObsStreams st = make_streams(w, values, coef, G);
-  switch (states_per_lane(S)) {
-    case 1:
-      return launch_fwd<1>(sym, lens, start, trans, em, v_out, dm_out, B,
-                           L, S, T, V, st, cs);
-    case 2:
-      return launch_fwd<2>(sym, lens, start, trans, em, v_out, dm_out, B,
-                           L, S, T, V, st, cs);
-    case 4:
-      return launch_fwd<4>(sym, lens, start, trans, em, v_out, dm_out, B,
-                           L, S, T, V, st, cs);
-    case 8:
-      return launch_fwd<8>(sym, lens, start, trans, em, v_out, dm_out, B,
-                           L, S, T, V, st, cs);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return fwd_shared(k2_args(sym, lens, start, trans, em, v_out, nullptr,
+                            nullptr, dm_out, B, L, S, T, V, w, values, coef,
+                            G),
+                    (cudaStream_t)stream);
+}
+
+int tehmm_viterbi_fwd_lanes(const void* sym, const void* lens,
+                            const void* start, const void* trans,
+                            const void* em, void* v_out, void* dm_out,
+                            int64_t B, int64_t L, int S, int T, int V,
+                            const void* w, const void* values,
+                            const void* coef, int G, void* stream) {
+  return fwd_lanes(k2_args(sym, lens, start, trans, em, v_out, nullptr,
+                           nullptr, dm_out, B, L, S, T, V, w, values, coef,
+                           G),
+                   (cudaStream_t)stream);
+}
+
+// K2's forward in pointer mode, either variant: ptr_out [B, L, S] uint8
+// (the first-hit argmax predecessor of every state at every position; the
+// identity at position 0 and past a row's length), last_out [B, S] (the
+// last value row) and dm_out [B, L].
+int tehmm_viterbi_fwd_ptrs(const void* sym, const void* lens,
+                           const void* start, const void* trans,
+                           const void* em, void* ptr_out, void* last_out,
+                           void* dm_out, int64_t B, int64_t L, int S, int T,
+                           int V, const void* w, const void* values,
+                           const void* coef, int G, void* stream) {
+  return fwd_shared(k2_args(sym, lens, start, trans, em, nullptr, ptr_out,
+                            last_out, dm_out, B, L, S, T, V, w, values, coef,
+                            G),
+                    (cudaStream_t)stream);
+}
+
+int tehmm_viterbi_fwd_ptrs_lanes(const void* sym, const void* lens,
+                                 const void* start, const void* trans,
+                                 const void* em, void* ptr_out,
+                                 void* last_out, void* dm_out, int64_t B,
+                                 int64_t L, int S, int T, int V,
+                                 const void* w, const void* values,
+                                 const void* coef, int G, void* stream) {
+  return fwd_lanes(k2_args(sym, lens, start, trans, em, nullptr, ptr_out,
+                           last_out, dm_out, B, L, S, T, V, w, values, coef,
+                           G),
+                   (cudaStream_t)stream);
+}
+
+// The shared-memory floats a block of K2's lanes forward takes at S
+// states, T tracks of V symbols and G gaussian tracks: ops/cuda_kernels.
+// k2_step's fit test is held to it.
+int64_t tehmm_k2_lanes_smem_floats(int S, int T, int V, int G) {
+  return k2_lanes_smem_floats(S, T, V, G);
 }
 
 // K3's sweep, either step variant (ops/cuda_kernels.k3_step picks by S).

@@ -8,7 +8,12 @@ bounds each on an H100 and how its design answers it):
   wrapper               replaces (tehmm_tpu/ops/pallas_kernels.py)
   ===================== ==============================================
   viterbi_fwd           K2 forward, ``_make_viterbi_fwd_kernel_v4``
-  viterbi_backtrace     K2 backtrace, ``_viterbi_backtrace_kernel_v4``
+  (viterbi_fwd_         (``viterbi_fwd_lanes`` counts its lanes kernel;
+  pointers)             the pointer mode: first-hit pointers in place
+                        of value rows, which ``chunk_chase`` walks as
+                        K2's backtrace, ``_viterbi_backtrace_kernel_v4``)
+  viterbi_backtrace     a backtrace over value rows: under K5 and the
+                        exact decoder past 239 states
   viterbi_chunk_values  K3, ``viterbi_chunk_values_pallas``
   (viterbi_carry,       (the carry mode, and the carries of many chunks
   viterbi_checkpoints,  in one launch: the exact decoder's forward sweep;
@@ -49,8 +54,9 @@ bounds each on an H100 and how its design answers it):
                         ``_kernel_unrolled`` and ``_kernel_scratch_blocks``
   ===================== ==============================================
 
-``viterbi_fused`` composes the first two into the symbols-in/path-out
-decode of ``viterbi_fused_pallas_v4``; ``em_counts_fused`` composes
+``viterbi_fused`` composes K2's forward in pointer mode and
+``chunk_chase`` into the symbols-in/path-out decode of
+``viterbi_fused_pallas_v4``; ``em_counts_fused`` composes
 K1's two into the symbols-in/statistics-out E-step of
 ``em_counts_fused_pallas_v4``; ``posterior_decode_fused`` composes K1's
 forward with the K4 decode into the symbols-in/path-out max-posterior
@@ -66,9 +72,10 @@ stitched decoders past the fused kernels' envelopes
 (``parallel/stitch.py``) are built on them.  ``k1_fits``, ``k2_fits``
 and ``k4_fits`` state the fused kernels' envelopes; their wrappers'
 checks and the routes ask them.  Inside its envelope K1 runs its lanes
-kernels to 32 states and its shared ones beyond (``k1_step``), and K4's
-decode its lanes kernel to 32 states and its shared one beyond
-(``k4_step``), with the same bits either way.  K3, X1 and X2 launch their one-warp
+kernels to 32 states and its shared ones beyond (``k1_step``), K2's
+forward (``k2_step``) and K4's decode (``k4_step``) their lanes kernel
+to 32 states and their shared one beyond, with the same bits either
+way.  K3, X1 and X2 launch their one-warp
 kernels where ``sweep_fits`` (S <= 239) and the tile's carry modes
 beyond, each counted under its own name (``viterbi_chunk_tile``,
 ``fwd_chunk_tile``, ``bwd_chunk_tile``), so the exact decoders, ``--pd``
@@ -128,8 +135,8 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "tehmm_tpu_torch")
 
 # Launch counts per kernel (plain integers; reset_launch_counts zeroes).
 # The kernels with the optional streams count each variant apart.
-STREAM_KERNELS = ("viterbi_fwd", "em_fwd", "em_bwd_stats", "post_decode",
-                  "post_decode_lanes")
+STREAM_KERNELS = ("viterbi_fwd", "viterbi_fwd_lanes", "em_fwd",
+                  "em_bwd_stats", "post_decode", "post_decode_lanes")
 STREAM_VARIANTS = ("", "+w", "+g", "+wg")
 LAUNCHES = {
     name: 0 for name in (
@@ -260,10 +267,17 @@ def load_library() -> ctypes.CDLL:
         lib.tehmm_cuda_error_string.restype = ctypes.c_char_p
         lib.tehmm_cuda_error_string.argtypes = [i32]
         streams = [ptr, ptr, ptr, i32]        # w, values, coef, G
-        lib.tehmm_viterbi_fwd.restype = i32
-        lib.tehmm_viterbi_fwd.argtypes = (
-            [ptr] * 7 + [i64, i64, i32, i32, i32] + streams + [ptr]
-        )
+        for fn in (lib.tehmm_viterbi_fwd, lib.tehmm_viterbi_fwd_lanes):
+            fn.restype = i32
+            fn.argtypes = (
+                [ptr] * 7 + [i64, i64, i32, i32, i32] + streams + [ptr])
+        for fn in (lib.tehmm_viterbi_fwd_ptrs,
+                   lib.tehmm_viterbi_fwd_ptrs_lanes):
+            fn.restype = i32
+            fn.argtypes = (
+                [ptr] * 8 + [i64, i64, i32, i32, i32] + streams + [ptr])
+        lib.tehmm_k2_lanes_smem_floats.restype = i64
+        lib.tehmm_k2_lanes_smem_floats.argtypes = [i32] * 4
         for fn in (lib.tehmm_viterbi_sweep_lanes,
                    lib.tehmm_viterbi_sweep_smem):
             fn.restype = i32
@@ -512,6 +526,48 @@ def k2_fits(S: int, T: int, V: int, G: int = 0) -> bool:
     return _fits(S, _k2_smem_floats(S, T, V, G))
 
 
+# K2's forward step, as K4's decode (``k4_step``): "lanes" to this many
+# states (csrc/viterbi.cu ``viterbi_fwd_lanes_kernel``: K3's lanes step,
+# trans column j and the whole row in lane j's registers, the row round by
+# shuffles; the symbols and streams staged a half of ``_K1_HALF``
+# positions ahead through K1's ring and a half's obs formed before its
+# steps), "shared" from 33 states to K2's envelope (``viterbi_fwd_kernel``:
+# the row and every table in shared memory, obs in the step).  Either
+# gives the other's bits, in both modes; each counts its launches under
+# its own name: counter by step, then the entry by (step, mode).
+K2_LANES_MAX_STATES = 32
+_K2_COUNTERS = {"lanes": "viterbi_fwd_lanes", "shared": "viterbi_fwd"}
+_K2_ENTRIES = {("lanes", "values"): "tehmm_viterbi_fwd_lanes",
+               ("shared", "values"): "tehmm_viterbi_fwd",
+               ("lanes", "pointers"): "tehmm_viterbi_fwd_ptrs_lanes",
+               ("shared", "pointers"): "tehmm_viterbi_fwd_ptrs"}
+
+
+def _k2_lanes_smem_floats(S: int, T: int, V: int, G: int = 0) -> int:
+    """Shared-memory floats per block of K2's lanes forward (csrc/
+    viterbi.cu ``k2_lanes_smem_floats``): log_em and the coefficients,
+    and per warp a ring of two slots of ``_K1_HALF`` positions (symbols,
+    a weight and the gaussian values) and a half's obs.  The card's tests
+    hold it to the library's own (``tehmm_k2_lanes_smem_floats``, which
+    the launches use)."""
+    slot = _K1_HALF * (T + 1 + G)
+    return (S * T * V + 3 * S * G
+            + _WARPS_PER_BLOCK * (2 * slot + _K1_HALF * S))
+
+
+def k2_step(S: int, T: int, V: int, G: int = 0) -> str:
+    """K2's forward step for a model of S states, T tracks of V symbols
+    and G gaussian tracks: ``"lanes"`` to ``K2_LANES_MAX_STATES`` where
+    the lanes kernel's ring fits beside the tables (always but for
+    hundreds of tracks), else ``"shared"``; past K2's envelope it raises
+    naming its item."""
+    _check_envelope(S, _k2_smem_floats(S, T, V, G), "viterbi_fwd")
+    if S <= K2_LANES_MAX_STATES and _fits(
+            S, _k2_lanes_smem_floats(S, T, V, G)):
+        return "lanes"
+    return "shared"
+
+
 def viterbi_fwd_plain(log_start, log_trans, log_em, symbols, lengths,
                       obs_weights=None, gauss_params=None,
                       gauss_values=None):
@@ -523,19 +579,22 @@ def viterbi_fwd_plain(log_start, log_trans, log_em, symbols, lengths,
     return viterbi_values_plain(log_start, log_trans, obs, lengths)
 
 
-def viterbi_fwd(log_start, log_trans, log_em, symbols, lengths,
-                obs_weights=None, gauss_params=None, gauss_values=None):
-    """K2 forward: (v_hats f32[B, L, S], dm f32[B, L]) from int32
-    symbols [B, L, T] and int32 lengths [B], with the optional segment
-    weights and gaussian tracks.  Row t is the max-normalized value row
-    at position t; dm[b, t] is its normalizer (0 at padding).
+def viterbi_fwd_pointers_plain(log_start, log_trans, log_em, symbols,
+                               lengths, obs_weights=None, gauss_params=None,
+                               gauss_values=None):
+    """Plain version of ``viterbi_fwd_pointers``: the same obs, then
+    ``viterbi_pointers_plain`` (``viterbi_values_plain``'s loop with the
+    first-hit argmax of every step's candidates kept)."""
+    obs = _streams(symbols, log_em.shape[0], obs_weights, gauss_params,
+                   gauss_values).obs(log_em, symbols)
+    return viterbi_pointers_plain(log_start, log_trans, obs, lengths)
 
-    Replaces ``_make_viterbi_fwd_kernel_v4`` (pallas_kernels.py:2386).
-    Bound on an H100: the latency of one dependent max-plus step per
-    position (S x S shared-memory max-reduction, T symbol loads, a warp
-    shuffle), not bytes or flops.  Design: one warp per row, lane <->
-    state, tables in shared memory, obs formed in registers and never
-    written out."""
+
+def _k2_forward(mode, log_start, log_trans, log_em, symbols, lengths,
+                obs_weights, gauss_params, gauss_values):
+    """Either mode of K2's forward (``"values"`` or ``"pointers"``): the
+    checks, then on the CPU the plain version, on the card the kernel of
+    ``k2_step`` into new outputs, in the entry's order."""
     B, L, T = symbols.shape
     S, _, V = log_em.shape
     dev = symbols.device
@@ -550,28 +609,78 @@ def viterbi_fwd(log_start, log_trans, log_em, symbols, lengths,
         _check_contiguous(t, name)
     st = _streams(symbols, S, obs_weights, gauss_params, gauss_values)
     if _device_kind(dev) == "cpu":
-        return viterbi_fwd_plain(log_start, log_trans, log_em, symbols,
-                                 lengths, st.w, st.gauss, st.values)
-    _check_envelope(S, _k2_smem_floats(S, T, V, st.G), "viterbi_fwd")
+        plain = viterbi_fwd_plain if mode == "values" \
+            else viterbi_fwd_pointers_plain
+        return plain(log_start, log_trans, log_em, symbols, lengths, st.w,
+                     st.gauss, st.values)
+    step = k2_step(S, T, V, st.G)
     _check_index_range(symbols, V, "symbols")
-    v_hats = torch.empty((B, L, S), dtype=torch.float32, device=dev)
-    dm = torch.empty((B, L), dtype=torch.float32, device=dev)
-    if B == 0 or L == 0:
-        return v_hats, dm
-    lib = load_library()
-    _coef, stream_args = st.args()
-    rc = lib.tehmm_viterbi_fwd(
-        symbols.data_ptr(), lengths.data_ptr(), log_start.data_ptr(),
-        log_trans.data_ptr(), log_em.data_ptr(), v_hats.data_ptr(),
-        dm.data_ptr(), B, L, S, T, V, *stream_args, _stream(dev),
-    )
-    _raise_on(rc, lib, "viterbi_fwd")
-    LAUNCHES["viterbi_fwd" + st.suffix] += 1
-    return v_hats, dm
+    f32 = dict(dtype=torch.float32, device=dev)
+    if mode == "values":
+        outs = (torch.empty((B, L, S), **f32), torch.empty((B, L), **f32))
+    else:
+        outs = (torch.empty((B, L, S), dtype=pointer_dtype(S), device=dev),
+                torch.empty((B, S), **f32), torch.empty((B, L), **f32))
+    if B:
+        _coef, stream_args = st.args()
+        _launch_streaming(
+            _K2_COUNTERS[step] + st.suffix, _K2_ENTRIES[step, mode],
+            (symbols.data_ptr(), lengths.data_ptr(), log_start.data_ptr(),
+             log_trans.data_ptr(), log_em.data_ptr(),
+             *(t.data_ptr() for t in outs), B, L, S, T, V, *stream_args),
+            dev)
+    return outs
+
+
+def viterbi_fwd(log_start, log_trans, log_em, symbols, lengths,
+                obs_weights=None, gauss_params=None, gauss_values=None):
+    """K2 forward: (v_hats f32[B, L, S], dm f32[B, L]) from int32
+    symbols [B, L, T] and int32 lengths [B], with the optional segment
+    weights and gaussian tracks.  Row t is the max-normalized value row
+    at position t; dm[b, t] is its normalizer (0 at padding).
+
+    Replaces ``_make_viterbi_fwd_kernel_v4`` (pallas_kernels.py:2386).
+    Bound on an H100: the latency of one dependent max-plus step per
+    position (an S x S max-reduction, then the row's max), not bytes or
+    flops.  Design: one warp per row, lane <-> state, log_em and the
+    gaussian coefficients in shared memory, obs formed on the card and
+    never written out, in the step of ``k2_step``: to 32 states column j
+    of trans in lane j's registers, the row round by shuffles, the
+    symbols and streams staged with cp.async a half of 32 positions ahead
+    and a half's obs formed before its steps, the row stopped at its
+    length; beyond, trans, start and the row in shared memory, obs in the
+    step.  Either gives the other's bits."""
+    return _k2_forward("values", log_start, log_trans, log_em, symbols,
+                       lengths, obs_weights, gauss_params, gauss_values)
+
+
+def viterbi_fwd_pointers(log_start, log_trans, log_em, symbols, lengths,
+                         obs_weights=None, gauss_params=None,
+                         gauss_values=None):
+    """K2 forward in pointer mode: (ptrs uint8 [B, L, S], last f32[B, S],
+    dm f32[B, L]) from ``viterbi_fwd``'s inputs.  At every position t >= 1
+    below a row's length and for every state j, ptrs[b, t, j] is the
+    first-hit argmax predecessor argmax_i(v_hats[b, t-1, i] + trans[i, j])
+    over ``viterbi_fwd``'s value rows (the float32 candidates of the
+    value-row backtrace, ties to the lowest index), the identity at
+    position 0 and at or past the length; ``last`` is ``v_hats[:, L-1]``
+    (the last valid row, carried; a zero row for a zero-length row) and
+    dm ``viterbi_fwd``'s.  No value row is written: 1 byte a state a
+    position in place of 4.  Walking the pointers back from a state
+    (``chunk_chase``) is the value-row backtrace.
+
+    The kernels of ``viterbi_fwd`` (``k2_step``), counted under the same
+    names, with the argmax kept beside the max off the chain (the lanes
+    step's pairwise tree, the shared step's scan), so the value chain's
+    bits are the values mode's.  uint8 holds every state of K2's
+    envelope (S <= 256)."""
+    return _k2_forward("pointers", log_start, log_trans, log_em, symbols,
+                       lengths, obs_weights, gauss_params, gauss_values)
 
 
 # ---------------------------------------------------------------------
-# K2 backtrace (also the exact decoder's per-chunk backtrace)
+# the value-row backtrace (K2's before its pointer mode; under K5, and the
+# exact decoder's per-chunk backtrace past 239 states)
 # ---------------------------------------------------------------------
 
 viterbi_backtrace_plain = dp.viterbi_backtrace_chunk
@@ -590,8 +699,10 @@ def viterbi_backtrace(log_trans, rows, entry, end_state, lengths):
     Returns (path int32[B, L], entry_state int32[B]) — the state at
     position -1 — with the semantics of ``dp.viterbi_backtrace_chunk``.
 
-    Replaces ``_viterbi_backtrace_kernel_v4`` (pallas_kernels.py:2517)
-    and the exact decoder's per-position backtrace loop.  Bound: the
+    The backtrace of ``_viterbi_backtrace_kernel_v4``
+    (pallas_kernels.py:2517) over value rows: ``dp.viterbi_streaming``'s
+    (K5's route, past K2's envelope) and the exact decoder's a chunk past
+    239 states; ``viterbi_fused`` chases pointers instead.  Bound: the
     latency of a dependent chain of S-wide argmaxes over value rows read
     from HBM/L2.  Design: one thread per row, trans in shared memory
     (what fits of it: beyond S = 241 the last rows are read through the
@@ -966,23 +1077,22 @@ def viterbi_fused(log_start, log_trans, log_em, symbols, lengths,
     ``viterbi_fused_pallas_v4``: (path int32[B, L], score f32[B]).  The
     optional streams reach the forward; the backtrace reads no obs.
 
-    The forward writes value rows; the backtrace starts from the
-    first-hit argmax of the last row and walks positions L-1..1 against
-    rows 0..L-2, so position 0's state comes back as the entry state.
-    Paths equal ``dp.viterbi``'s; the score is max(last row) + sum(dm)
-    (a tree-order sum, so it matches ``dp.viterbi``'s sequential one to
-    float32 rounding).  Zero-length rows get path 0 and score 0."""
-    B, L, _T = symbols.shape
-    v_hats, dm = viterbi_fwd(log_start, log_trans, log_em, symbols,
-                             lengths, obs_weights, gauss_params,
-                             gauss_values)
-    last = v_hats[:, L - 1]
+    The forward writes first-hit pointers (``viterbi_fwd_pointers``);
+    the backtrace is X3's chase (``chunk_chase``: a block a row, the
+    pointers staged from the row's end) from the first-hit argmax of the
+    last value row, over the rows' own lengths.  Position 0's pointers
+    are the identity, so the chase's last read there keeps its state, the
+    one position 1's pointer gave it.  This replaces
+    ``_viterbi_backtrace_kernel_v4`` (pallas_kernels.py:2517), which walks
+    value rows.  Paths equal ``dp.viterbi``'s; the score is max(last row)
+    + sum(dm) (a tree-order sum, so it matches ``dp.viterbi``'s
+    sequential one to float32 rounding).  Zero-length rows get path 0 and
+    score 0."""
+    ptrs, last, dm = viterbi_fwd_pointers(
+        log_start, log_trans, log_em, symbols, lengths, obs_weights,
+        gauss_params, gauss_values)
     end_state = torch.argmax(last, dim=-1).to(torch.int32)
-    body_lens = torch.clamp(lengths - 1, min=0).to(torch.int32)
-    body, first = viterbi_backtrace(
-        log_trans, v_hats[:, 1:], v_hats[:, 0], end_state, body_lens
-    )
-    path = torch.cat([first[:, None], body], dim=1)
+    path = chunk_chase(ptrs, end_state, lengths)
     nonempty = lengths > 0
     score = torch.where(nonempty, last.amax(dim=-1) + dm.sum(dim=1), 0.0)
     path = torch.where(nonempty[:, None], path, 0)

@@ -213,7 +213,7 @@ def _decode_batch(
             obs = obs_log_likelihoods(params.log_em, sym, g, v, w)
             paths, _ = dp.viterbi_streaming(params.log_start,
                                             params.log_trans, obs, lens)
-        rows = paths.cpu().numpy()
+        rows = _to_host(paths)
         valid = np.arange(L)[None, :] < lengths[lo:hi, None]
         out[lo:hi] = np.where(valid, rows, 0)
     return out

@@ -1,5 +1,6 @@
-"""Times K1, the fused E-step's two kernels, and K4's decode (whose
-forward is K1's) at the shapes their main paths give them.
+"""Times K1, the fused E-step's two kernels, K4's decode (whose
+forward is K1's) and K2, the stitched Viterbi decode, at the shapes their
+main paths give them.
 
     python -m tehmm_tpu_torch.tools.time_k1 [--states 10,20,32] [--reps 5]
         [--device cuda|cpu]
@@ -16,12 +17,19 @@ line naming the device:
 - ``segments``: 3e's segment-mode EM (V=9, the 355,789 segments in 22
   rows of 16384, the last 11,725 long) with its weights (in [1, 64]), at
   S=10;
-- ``decode64`` and ``decode512``: the stitched max-posterior decode's
-  passes (V=9, chunks of 4096 with two halos of 256: full rows of 4608),
-  64 rows (the pass before 512) and 512, at every S: ``em_fwd`` and
-  ``post_decode`` (``"step"`` names the decode's, ``ck.k4_step``);
+- ``decode64`` and ``decode512``: the stitched decodes' passes (V=9,
+  chunks of 4096 with two halos of 256: full rows of 4608), 64 rows (the
+  max-posterior pass before 512) and 512, at every S: ``em_fwd`` and
+  ``post_decode`` (``"step"`` names the decode's, ``ck.k4_step``), then
+  K2 (``"step"``: ``ck.k2_step``): ``viterbi_fwd`` (value rows),
+  ``viterbi_fwd_pointers`` (its pointer mode) and ``chunk_chase`` over
+  those pointers from the last row's argmax, ``viterbi_backtrace`` over
+  the value rows from the same end states, and ``viterbi_fused`` whole
+  (the pointer mode and the chase; in a checkout without the pointer
+  mode, the value rows and the backtrace, and no pointer rows);
 - at S <= 32, where the checkout has ``ck.k1_step``, the same with the
-  shared kernels forced (``"step": "shared (forced)"``: K1's and K4's).
+  shared kernels forced (``"step": "shared (forced)"``: K1's, K4's and
+  K2's).
 
 Each reading is the median ms of ``reps`` synchronised calls, with us a
 step (ms over the longest row's steps).  The file imports only the
@@ -55,7 +63,8 @@ SHAPES = {"em": (1221, 16384, 20_000_000 - 1220 * 16384),
 SHAPE_V = {"em": 9, "bench": 8, "segments": 9, "decode64": 9,
            "decode512": 9}
 SHAPE_S = {"bench": 20, "segments": 10}      # only at these S
-# the kernels timed at a shape: K1's two, or K4's forward and decode
+# the kernels timed at a shape: K1's two, or K4's forward and decode and
+# K2's
 DECODE_SHAPES = ("decode64", "decode512")
 
 
@@ -74,42 +83,70 @@ def _inputs(shape, S, device):
 
 
 @contextlib.contextmanager
+def _forced(name):
+    """``ck.<name>`` set to 0 inside, which forces that kernel's shared
+    step (nothing to force in a checkout without it)."""
+    if not hasattr(ck, name):
+        yield
+        return
+    real = getattr(ck, name)
+    setattr(ck, name, 0)
+    try:
+        yield
+    finally:
+        setattr(ck, name, real)
+
+
 def shared_k1():
     """K1's shared kernels forced inside (``K1_LANES_MAX_STATES`` = 0),
     as the card's tests force them."""
-    real, ck.K1_LANES_MAX_STATES = ck.K1_LANES_MAX_STATES, 0
-    try:
-        yield
-    finally:
-        ck.K1_LANES_MAX_STATES = real
+    return _forced("K1_LANES_MAX_STATES")
 
 
-@contextlib.contextmanager
 def shared_k4():
-    """K4's shared decode forced inside (``K4_LANES_MAX_STATES`` = 0;
-    nothing to force in a checkout without it)."""
-    if not hasattr(ck, "K4_LANES_MAX_STATES"):
-        yield
-        return
-    real, ck.K4_LANES_MAX_STATES = ck.K4_LANES_MAX_STATES, 0
-    try:
-        yield
-    finally:
-        ck.K4_LANES_MAX_STATES = real
+    """K4's shared decode forced inside (``K4_LANES_MAX_STATES`` = 0)."""
+    return _forced("K4_LANES_MAX_STATES")
 
 
-def _step(S, shape):
-    """The step K1 (K4's decode at the decode shapes) takes at S states
-    and the shape's V ("parent" in a checkout without ``ck.k1_step`` or
-    ``ck.k4_step``)."""
-    name = "k4_step" if shape in DECODE_SHAPES else "k1_step"
+def shared_k2():
+    """K2's shared forward forced inside (``K2_LANES_MAX_STATES`` = 0)."""
+    return _forced("K2_LANES_MAX_STATES")
+
+
+def _step(S, shape, name=None):
+    """The step K1 (K4's decode at the decode shapes; ``name`` another
+    ``ck`` step function) takes at S states and the shape's V ("parent"
+    in a checkout without it)."""
+    name = name or ("k4_step" if shape in DECODE_SHAPES else "k1_step")
     step = getattr(ck, name, None)
     return step(S, T, SHAPE_V[shape]) if step else "parent"
 
 
+def _k2_kernels(args):
+    """K2's (name, call) at one pass's inputs: the forward in both modes,
+    the chase and the value-row backtrace from the same end states, and
+    the fused decode (without the pointer mode, the checkout's older
+    route: no pointer rows)."""
+    v, _dm = ck.viterbi_fwd(*args)
+    end = torch.argmax(v[:, -1], dim=-1).to(torch.int32)
+    lens = args[4]
+    body = (args[1], v[:, 1:], v[:, 0], end,
+            torch.clamp(lens - 1, min=0).to(torch.int32))
+    kernels = [("viterbi_fwd", lambda: ck.viterbi_fwd(*args))]
+    if hasattr(ck, "viterbi_fwd_pointers"):
+        ptrs = ck.viterbi_fwd_pointers(*args)[0]
+        kernels += [
+            ("viterbi_fwd_pointers", lambda: ck.viterbi_fwd_pointers(*args)),
+            ("chunk_chase", lambda: ck.chunk_chase(ptrs, end, lens))]
+    kernels += [("viterbi_backtrace", lambda: ck.viterbi_backtrace(*body)),
+                ("viterbi_fused", lambda: ck.viterbi_fused(*args))]
+    return kernels
+
+
 def readings(S, device, reps, forced=False):
     with (shared_k1() if forced else contextlib.nullcontext()), \
-            (shared_k4() if forced else contextlib.nullcontext()):
+            (shared_k4() if forced else contextlib.nullcontext()), \
+            (shared_k2() if forced else contextlib.nullcontext()):
         for shape in SHAPES:
             if SHAPE_S.get(shape, S) != S:
                 continue
@@ -127,7 +164,11 @@ def readings(S, device, reps, forced=False):
                 def second():
                     return ck.post_decode(*dec_args)
 
-                kernels = (("em_fwd", fwd), ("post_decode", second))
+                kernels = [("em_fwd", fwd), ("post_decode", second)]
+                k2_step = "shared (forced)" if forced else \
+                    _step(S, shape, "k2_step")
+                kernels += [(name, fn, k2_step)
+                            for name, fn in _k2_kernels(args)]
             else:
                 bwd_args = (*args[1:], alpha, m_raw)
 
@@ -136,11 +177,12 @@ def readings(S, device, reps, forced=False):
 
                 kernels = (("em_fwd", fwd), ("em_bwd_stats", second))
             second()
-            for kernel, fn in kernels:
+            for kernel, fn, *its_step in kernels:
                 ms = median_ms(fn, device, reps)
                 yield {"kernel": kernel, "shape": shape, "S": S, "B": B,
                        "L": L, "T": T, "V": SHAPE_V[shape],
-                       "stream": "" if w is None else "+w", "step": step,
+                       "stream": "" if w is None else "+w",
+                       "step": its_step[0] if its_step else step,
                        "ms": ms, "us_per_step": ms * 1e3 / L}
             del args, w, alpha, m_raw, kernels, second
             if device.type == "cuda":
@@ -157,7 +199,8 @@ def main(argv=None) -> int:
     print(bench_engines.device_line(device), flush=True)
     for S in (int(s) for s in args.states.split(",")):
         forced = any(_step(S, shape) == "lanes"
-                     for shape in SHAPES if SHAPE_S.get(shape, S) == S)
+                     for shape in SHAPES if SHAPE_S.get(shape, S) == S) \
+            or _step(S, DECODE_SHAPES[0], "k2_step") == "lanes"
         for row in readings(S, device, args.reps):
             print(json.dumps(row), flush=True)
         for row in (readings(S, device, args.reps, forced=True)

@@ -251,9 +251,11 @@ def test_plain_matches_float64(rng, variant):
 
 def test_time_k1_rows(capsys, monkeypatch):
     """``tools.time_k1`` (shapes cut to size): the device line, then a
-    reading of each kernel at each shape (K1's two, or K4's forward and
-    decode at the decode shapes), the lanes step and, at S <= 32, the
-    shared steps forced (the plain versions here)."""
+    reading of each kernel at each shape (K1's two, or at the decode
+    shapes K4's forward and decode, then K2's forward in both modes, the
+    chase, the value-row backtrace and the fused decode), the lanes step
+    and, at S <= 32, the shared steps forced (the plain versions
+    here)."""
     from tehmm_tpu_torch.tools import time_k1
 
     monkeypatch.setattr(time_k1, "SHAPES", {
@@ -271,7 +273,7 @@ def test_time_k1_rows(capsys, monkeypatch):
         steps = ["lanes", "shared (forced)"] if S <= 32 else ["shared"]
         want += [(shape, S, step, kernel) for step in steps
                  for shape in shapes
-                 for kernel in (("em_fwd", "post_decode")
+                 for kernel in (("em_fwd", "post_decode") + K2_TIMED
                                 if shape.startswith("decode")
                                 else ("em_fwd", "em_bwd_stats"))]
     assert [(r["shape"], r["S"], r["step"], r["kernel"]) for r in rows] \
@@ -281,3 +283,8 @@ def test_time_k1_rows(capsys, monkeypatch):
         assert r["stream"] == ("+w" if r["shape"] == "segments" else "")
     # restored after forcing
     assert ck.K1_LANES_MAX_STATES == 32 and ck.K4_LANES_MAX_STATES == 32
+    assert ck.K2_LANES_MAX_STATES == 32
+
+
+K2_TIMED = ("viterbi_fwd", "viterbi_fwd_pointers", "chunk_chase",
+            "viterbi_backtrace", "viterbi_fused")

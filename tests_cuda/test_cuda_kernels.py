@@ -75,9 +75,112 @@ def test_fwd_and_backtrace_bit_equal(device, rng, S, L):
     want_p, want_s = dp.viterbi(args[0], log_trans, obs, lengths)
     assert torch.equal(path, want_p)
     torch.testing.assert_close(score, want_s, rtol=1e-5, atol=1e-4)
-    assert ck.LAUNCHES["viterbi_fwd"] == before["viterbi_fwd"] + 2
+    # the forward under its step's counter (values, then the fused
+    # decode's pointer mode); the fused decode's backtrace is the chase
+    fwd = _K2_COUNTER[ck.k2_step(S, 3, 6)]
+    assert ck.LAUNCHES[fwd] == before[fwd] + 2
     assert ck.LAUNCHES["viterbi_backtrace"] == \
-        before["viterbi_backtrace"] + 2
+        before["viterbi_backtrace"] + 1
+    assert ck.LAUNCHES["chunk_chase"] == before["chunk_chase"] + 1
+
+
+_K2_COUNTER = {"lanes": "viterbi_fwd_lanes", "shared": "viterbi_fwd"}
+# K2's lanes forward at every S to 32 (register arrays of 4 to 32), rows
+# of 100 positions: three whole halves of the ring and a part one
+K2_L = 100
+# integer tables: every sum exact, so equal candidates tie
+K2_TIE_STATES = [1, 2, 10, 17, 32]
+
+
+def _tie_inputs(rng, device, S, L, T=3, V=6):
+    *_, sym, lens = _inputs(rng, device, S, L, T, V)
+    ints = [torch.from_numpy(rng.randint(lo, 1, size=shape).astype(
+        np.float32)).to(device)
+        for lo, shape in ((-2, (S,)), (-3, (S, S)), (-2, (S, T, V)))]
+    return (*ints, sym, lens)
+
+
+def _k2_both_modes(args):
+    """(value rows, dm, pointers, last, dm of the pointer mode)."""
+    return (*ck.viterbi_fwd(*args), *ck.viterbi_fwd_pointers(*args))
+
+
+@pytest.mark.parametrize("S,ties", [(S, False) for S in range(1, 33)]
+                         + [(S, True) for S in K2_TIE_STATES if S <= 32])
+def test_k2_lanes_equal_shared_and_plain(device, monkeypatch, S, ties):
+    """K2's lanes forward, both modes, with ragged lengths (the whole row,
+    0, 1 and 2): value rows and dm bit-equal to the plain version and to
+    the shared kernel forced; pointers, last row and dm equal to the
+    plain pointer forward's and to the shared kernel's pointer mode.
+    Each kernel launches under its own counter."""
+    rng = np.random.RandomState(S)
+    args = _tie_inputs(rng, device, S, K2_L) if ties else \
+        _inputs(rng, device, S, K2_L, zero_frac=0.3)
+    assert ck.k2_step(S, 3, 6) == "lanes"
+    before = dict(ck.LAUNCHES)
+    lanes = _k2_both_modes(args)
+    assert ck.LAUNCHES["viterbi_fwd_lanes"] == \
+        before["viterbi_fwd_lanes"] + 2
+    plain = (*ck.viterbi_fwd_plain(*args),
+             *ck.viterbi_fwd_pointers_plain(*args))
+    monkeypatch.setattr(ck, "K2_LANES_MAX_STATES", 0)
+    shared = _k2_both_modes(args)
+    assert ck.LAUNCHES["viterbi_fwd"] == before["viterbi_fwd"] + 2
+    names = ("value rows", "dm", "pointers", "last", "pointer mode dm")
+    for name, a, b, c in zip(names, lanes, plain, shared):
+        assert a.dtype == b.dtype and torch.equal(a, b), name
+        assert torch.equal(a, c), name
+    assert torch.equal(lanes[1], lanes[4])
+    assert torch.equal(lanes[3], lanes[0][:, -1])
+
+
+@pytest.mark.parametrize("ties", [False, True], ids=["random", "ties"])
+@pytest.mark.parametrize("S", [33, 64, 229])
+def test_k2_shared_pointers_equal_plain(device, rng, S, ties):
+    """The shared kernel's pointer mode at 2, 2 and 8 states a lane (229:
+    K2's envelope's edge at T=3, V=6): pointers, last row and dm equal
+    to the plain pointer forward's, and its dm and last row to the value
+    mode's."""
+    args = _tie_inputs(rng, device, S, 37) if ties else \
+        _inputs(rng, device, S, 37, zero_frac=0.3)
+    assert ck.k2_step(S, 3, 6) == "shared"
+    got = _k2_both_modes(args)
+    want = ck.viterbi_fwd_pointers_plain(*args)
+    for name, a, b in zip(("pointers", "last", "dm"), got[2:], want):
+        assert torch.equal(a, b), name
+    assert torch.equal(got[1], got[4]) and \
+        torch.equal(got[3], got[0][:, -1])
+
+
+@pytest.mark.parametrize("S", [3, 10, 32, 33, 100, 200])
+def test_k2_chase_equals_the_value_row_backtrace(device, rng, S):
+    """The fused decode's backtrace, the chase over K2's pointers from the
+    last row's first-hit argmax, gives ``viterbi_backtrace_kernel``'s
+    path over K2's value rows on every row (the end state held past each
+    length, as the backtrace holds it), and ``viterbi_fused`` that path
+    (0 for the zero-length row)."""
+    args = _inputs(rng, device, S, K2_L, zero_frac=0.3)
+    log_trans, lengths = args[1], args[4]
+    v, _ = ck.viterbi_fwd(*args)
+    ptrs, last, _ = ck.viterbi_fwd_pointers(*args)
+    end = torch.argmax(last, dim=-1).to(torch.int32)
+    chased = ck.chunk_chase(ptrs, end, lengths)
+    body, first = ck.viterbi_backtrace(
+        log_trans, v[:, 1:], v[:, 0], end,
+        torch.clamp(lengths - 1, min=0).to(torch.int32))
+    want = torch.cat([first[:, None], body], dim=1)
+    assert torch.equal(chased, want)
+    path, _ = ck.viterbi_fused(*args)
+    assert torch.equal(path, torch.where((lengths > 0)[:, None], want, 0))
+
+
+@pytest.mark.parametrize("S,T,V,G", [(1, 1, 2, 0), (10, 5, 9, 0),
+                                     (10, 5, 9, 2), (32, 5, 9, 1),
+                                     (20, 12, 17, 3)])
+def test_k2_lanes_smem_sizes_are_the_library_s(device, S, T, V, G):
+    lib = ck.load_library()
+    assert ck._k2_lanes_smem_floats(S, T, V, G) == \
+        lib.tehmm_k2_lanes_smem_floats(S, T, V, G)
 
 
 @pytest.mark.parametrize("S", STATES)

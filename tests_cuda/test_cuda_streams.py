@@ -57,7 +57,11 @@ def _case(rng, device, S, L, variant, G):
 @pytest.mark.parametrize("S", STATES)
 def test_k2_streams_bit_equal(device, rng, S, variant, G):
     args, st = _case(rng, device, S, 37, variant, G)
-    before = ck.LAUNCHES["viterbi_fwd" + variant]
+    # the lanes forward to 32 states, the shared one beyond
+    step = ck.k2_step(S, 3, 6, G if "g" in variant else 0)
+    name = ("viterbi_fwd_lanes" if step == "lanes" else "viterbi_fwd") \
+        + variant
+    before = ck.LAUNCHES[name]
     v, dm = ck.viterbi_fwd(*args, **st)
     pv, pdm = ck.viterbi_fwd_plain(*args, **st)
     assert torch.equal(v, pv) and torch.equal(dm, pdm)
@@ -69,7 +73,41 @@ def test_k2_streams_bit_equal(device, rng, S, variant, G):
               for k, x in st.items()}
     want_path, _ = ck.viterbi_fused(*cpu, **cpu_st)
     assert torch.equal(path.cpu(), want_path)
-    assert ck.LAUNCHES["viterbi_fwd" + variant] == before + 2
+    assert ck.LAUNCHES[name] == before + 2
+
+
+@pytest.mark.parametrize("variant", [""] + VARIANTS)
+@pytest.mark.parametrize("B", [64, 512])
+def test_k2_fused_equals_dp_viterbi(device, B, variant):
+    """The stitched decode's passes (64 and 512 rows) at the decode
+    configuration's width (S=10, T=5, V=9), ragged: ``viterbi_fused``
+    (the lanes forward's pointers, then the chase) gives ``dp.viterbi``'s
+    paths on the plain obs, and its score within float32 rounding of the
+    normalizers' sum."""
+    from tehmm_tpu_torch.models.emission import obs_log_likelihoods
+    from tehmm_tpu_torch.ops import dp
+
+    rng = np.random.RandomState(B)
+    L = 1200
+    S, T, V = 10, 5, 9
+    ls, lt, lem, _sym, _lens = _inputs(rng, device, S, 2, T, V)
+    lengths = rng.randint(0, L + 1, size=B).astype(np.int32)
+    lengths[:4] = [L, 0, 1, 2]
+    sym = torch.from_numpy(
+        rng.randint(0, V, size=(B, L, T)).astype(np.int32)).to(device)
+    lens = torch.from_numpy(lengths).to(device)
+    st = _streams(rng, device, variant, B, L, S, 2)
+    before = dict(ck.LAUNCHES)
+    path, score = ck.viterbi_fused(ls, lt, lem, sym, lens, **st)
+    assert ck.LAUNCHES["viterbi_fwd_lanes" + variant] == \
+        before["viterbi_fwd_lanes" + variant] + 1
+    assert ck.LAUNCHES["chunk_chase"] == before["chunk_chase"] + 1
+    assert ck.LAUNCHES["viterbi_backtrace"] == before["viterbi_backtrace"]
+    obs = obs_log_likelihoods(lem, sym, st["gauss_params"],
+                              st["gauss_values"], st["obs_weights"])
+    want_p, want_s = dp.viterbi(ls, lt, obs, lens)
+    assert torch.equal(path, want_p)
+    torch.testing.assert_close(score, want_s, rtol=1e-5, atol=1e-3)
 
 
 @pytest.mark.parametrize("G", [1, 3])
