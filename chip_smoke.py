@@ -100,14 +100,21 @@ Phases (any failure raises, and the run exits non-zero):
    (``viterbi_ptrs``) with its chase (``pointer_chase``): pointers, last
    rows, normalizers and paths bit-equal to plain, paths == dp.viterbi.
    All of this also at bench_engines' S512 (T=20, V=16, B=128) and S1024
-   (B=64) shapes, past 256 states (uint16 pointers).  K9
+   (B=64) shapes, past 256 states (uint16 pointers), where K7a/K7b run
+   the cluster tile (``fwd_scaled_cluster``, ``bwd_scaled_cluster``):
+   every output bit for bit the staged tile's, forced
+   (``ck.SCAN_CLUSTER_MAX_STATES`` = 0), each tile timed (the staged
+   tile's rows under the old names, the cluster tile's with the staged
+   time beside).  K9
    (``maxplus_sweeps``) at Sp=256, 512, 1024 x Bg=128 on the JAX tool's
    draw: both layouts (the blocks layout at 8, 16 and 32 rows a block)
    bit-equal to plain, timed.  The carried sweeps past their one-warp
-   kernels, K3, X1 and X2 on the tile's carry modes at S=512 and 1024
-   (4 rows of 4096): K3 bit-equal, X1/X2 at the F3 limit of plain in
-   float64, X1's two modes one carry, a sweep cut into three chunks
-   bit-equal to one.
+   kernels, K3, X1 and X2 on the tile's carry modes at S=257, 512 and
+   1024 (4 rows of 4096, ragged): K3 bit-equal, X1/X2 at the F3 limit of
+   plain in float64, X1's two modes one carry, a sweep cut into three
+   chunks bit-equal to one; X1's and X2's carry modes run the cluster
+   tile, every output (both of X1's modes) bit for bit the staged tile's,
+   forced, and both timed.
 2e. The engine-comparison path through its tools' entry points, at the
    full width of all four ``bench_engines`` shapes (S=20, 64, 128, 256):
    ``tools.bench_engines`` with the E-step engines plain, cuda (K1),
@@ -213,14 +220,16 @@ Phases (any failure raises, and the run exits non-zero):
    positions (4M x 256 / S): logliks within 1e-5 relative; with a sticky
    random model on 64 regions of 15,625 positions (1,000,000) the
    stitched Viterbi (obs, K5, backtrace), the exact Viterbi (K3 on the
-   tile; == the stitched paths), the stitched max-posterior (K7a/K7b),
-   ``posterior_sweep`` (``--pd``'s path: X1/X2 on the tile) and the
-   score (X1 on the tile); the CPU on 46,875 of those positions (15,625
-   for ``--pd`` and the score): Viterbi paths equal; max-posterior and
-   ``--pd``'s argmax (against the CPU's, and on the card against each
-   other) equal on >= 99.999% of positions, every differing one a
-   near-tie (printed with its gap); gammas within 1e-5, scores within
-   1e-5 relative.
+   tile; == the stitched paths), the stitched max-posterior (K7a/K7b on
+   the cluster tile), ``posterior_sweep`` (``--pd``'s path: X1/X2 on the
+   cluster tile) and the score (X1 on the cluster tile), none of them
+   launching the staged tile's K7a/K7b or carry modes; the CPU, in a
+   process of its own beside 3e (its train and the decoders; held to the
+   card's after 3e), on 46,875 of those positions (15,625 for ``--pd``
+   and the score): Viterbi paths equal; max-posterior and ``--pd``'s
+   argmax (against the CPU's, and on the card against each other) equal
+   on >= 99.999% of positions, every differing one a near-tie (printed
+   with its gap); gammas within 1e-5, scores within 1e-5 relative.
 3e. Gaussian tracks and segment mode on the same chromosome, with one
    gaussian BED track (a record per 500 bases, its value ~ N(mu[state],
    1)).  Base resolution (the phase-3 tracks and the gaussian track):
@@ -346,6 +355,10 @@ SOURCES = {
     "viterbi_chunk_tile": "tehmm_tpu_torch/csrc/streaming.cu",
     "fwd_chunk_tile": "tehmm_tpu_torch/csrc/scans.cu",
     "bwd_chunk_tile": "tehmm_tpu_torch/csrc/scans.cu",
+    "fwd_scaled_cluster": "tehmm_tpu_torch/csrc/scans.cu",
+    "bwd_scaled_cluster": "tehmm_tpu_torch/csrc/scans.cu",
+    "fwd_chunk_cluster": "tehmm_tpu_torch/csrc/scans.cu",
+    "bwd_chunk_cluster": "tehmm_tpu_torch/csrc/scans.cu",
     "maxplus_resident": "tehmm_tpu_torch/csrc/maxplus.cu",
     "maxplus_blocks": "tehmm_tpu_torch/csrc/maxplus.cu",
     "fwd_piece_ops": "tehmm_tpu_torch/csrc/posterior.cu",
@@ -401,6 +414,11 @@ REPLACES = {
     "viterbi_chunk_tile": "tehmm_tpu/ops/pallas_kernels.py:1284",
     "fwd_chunk_tile": "tehmm_tpu/ops/dp.py:378",
     "bwd_chunk_tile": "tehmm_tpu/ops/dp.py:507",
+    # the same four past 256 states on the cluster tile
+    "fwd_scaled_cluster": "tehmm_tpu/ops/pallas_kernels.py:493",
+    "bwd_scaled_cluster": "tehmm_tpu/ops/pallas_kernels.py:1012",
+    "fwd_chunk_cluster": "tehmm_tpu/ops/dp.py:378",
+    "bwd_chunk_cluster": "tehmm_tpu/ops/dp.py:507",
     # K9's two layouts
     "maxplus_resident": "tools/exp_maxplus_s256.py:115",
     "maxplus_blocks": "tools/exp_maxplus_s256.py:120",
@@ -438,6 +456,12 @@ SEGMENT_KERNELS = ("em_fwd", "em_bwd_stats", "viterbi_fwd_lanes",
 STREAMING_KERNELS = ("viterbi_values", "fwd_prob", "bwd_prob",
                      "fwd_scaled", "bwd_scaled", "viterbi_ptrs",
                      "pointer_chase")
+# past 256 states K7a/K7b run the cluster tile in their place (the staged
+# tile forced only to compare and time it)
+CLUSTER_OF = {"fwd_scaled": "fwd_scaled_cluster",
+              "bwd_scaled": "bwd_scaled_cluster",
+              "fwd_chunk_tile": "fwd_chunk_cluster",
+              "bwd_chunk_tile": "bwd_chunk_cluster"}
 ENGINE_CONFIGS = ("S20", "S64", "S128", "S256")
 # the scan tile past 256 states (bench_engines' extra configurations):
 # phase 2 holds its kernels to plain there, 2e runs the tools there
@@ -448,15 +472,20 @@ WIDE_ENGINES = ("plain,cuda_v3,cuda_log", "plain,streaming,pointers",
 # each Sp
 MAXPLUS_SP, MAXPLUS_BG, MAXPLUS_BLKS = (256, 512, 1024), 128, (8, 16, 32)
 # the carried sweeps on the tile's carry modes, X_B rows of X_L
-WIDE_SWEEP_STATES = (512, 1024)
+WIDE_SWEEP_STATES = (257, 512, 1024)
 SWEEP_CUTS = (0, 1000, 2500, X_L)    # a sweep cut into three chunks
 # 3f's paths and the kernels each must run
 ENVELOPE_KERNELS = {"fit": ("fwd_prob", "bwd_prob"),
                     "viterbi": ("viterbi_values", "viterbi_backtrace"),
                     "exact": ("viterbi_chunk_tile", "viterbi_backtrace"),
-                    "maxpost": ("fwd_scaled", "bwd_scaled"),
-                    "pd": ("fwd_chunk_tile", "bwd_chunk_tile"),
-                    "score": ("fwd_chunk_tile",)}
+                    "maxpost": ("fwd_scaled_cluster", "bwd_scaled_cluster"),
+                    "pd": ("fwd_chunk_cluster", "bwd_chunk_cluster"),
+                    "score": ("fwd_chunk_cluster",)}
+# and the staged tile's log-space scans, which the cluster tile replaced
+# on those paths
+OFF_ENVELOPE_PATH = {"maxpost": ("fwd_scaled", "bwd_scaled"),
+                     "pd": ("fwd_chunk_tile", "bwd_chunk_tile"),
+                     "score": ("fwd_chunk_tile",)}
 ENGINE_ITERS = 1                     # marginal_time chains of 1 and 6
 # --parent's comparisons, by the phase whose outputs they hold: 3, the
 # chromosome's stitched BED and the region's --exact BED; 3d, its four
@@ -617,7 +646,8 @@ def _bound(name, shape, valid, G=0, weighted=False, n_ck=0) -> dict:
         nbytes = rows + (B * S + 2 * B + S * S + B * n_ck * S) * f
         ops = 2 * S * S + 4 * S
     elif base in ("fwd_chunk", "bwd_chunk", "fwd_chunk_tile",
-                  "bwd_chunk_tile"):   # log-space step
+                  "bwd_chunk_tile", "fwd_chunk_cluster",
+                  "bwd_chunk_cluster"):   # log-space step
         nbytes = 2 * rows + (2 * B * S + 2 * B + S * S) * f
         ops = 2 * S * S + 4 * S
     elif base in ("viterbi_values", "fwd_prob"):
@@ -627,11 +657,13 @@ def _bound(name, shape, valid, G=0, weighted=False, n_ck=0) -> dict:
     elif base == "bwd_prob":           # two maxes and rescales a step
         nbytes = 2 * rows + (B + S * S) * f
         ops = 2 * S * S + 7 * S
-    elif base == "fwd_scaled":         # exp, product, log, obs, max, sub
+    elif base in ("fwd_scaled", "fwd_scaled_cluster"):
+        # exp, product, log, obs, max, sub
         nbytes = 2 * rows + (B * L + B + S * S + S) * f
         ops = 2 * S * S + 6 * S
-    elif base == "bwd_scaled":         # obs, max, sub, exp, product, log,
-        nbytes = 2 * rows + (B * L + B + S * S) * f   # max, sub, dm
+    elif base in ("bwd_scaled", "bwd_scaled_cluster"):
+        # obs, max, sub, exp, product, log, max, sub, dm
+        nbytes = 2 * rows + (B * L + B + S * S) * f
         ops = 2 * S * S + 8 * S
     elif base == "viterbi_ptrs":       # add-and-compare product, pointers
         ptr = 1 if S <= 256 else 2     # out (uint8, or uint16 past 256)
@@ -2013,6 +2045,34 @@ def phase_stream_kernels(device, rng) -> dict:
     return out
 
 
+def _scan_rows(out, name, suffix, S_, got, call, plain, err, shape, valid):
+    """The rows of a log-space scan (``name``: ``fwd_scaled``,
+    ``bwd_scaled``, ``fwd_chunk_tile`` or ``bwd_chunk_tile``) whose
+    outputs ``got`` came from ``call``: past 256 states the cluster tile
+    ran (``CLUSTER_OF[name]``, with the staged tile's time beside it), and
+    the staged tile, forced, must give the same bits; ``name`` is then
+    the staged tile's row."""
+    import torch
+
+    from tehmm_tpu_torch.ops import cuda_kernels as ck
+    from tehmm_tpu_torch.tools.time_scans import staged_tile
+
+    plain_ms = _median_ms(plain, 3)
+    ms = _median_ms(call, 5)
+    if ck.scan_route(S_) == "cluster":
+        with staged_tile():
+            staged = call()
+            staged_ms = _median_ms(call, 5)
+        assert all(torch.equal(a, b) for a, b in zip(got, staged)), \
+            f"{name}: the cluster tile != the staged tile at {shape}"
+        out[CLUSTER_OF[name] + suffix] = dict(
+            max_abs_err=err, ms=ms, staged_ms=staged_ms, plain_ms=plain_ms,
+            **_bound(CLUSTER_OF[name], shape, valid))
+        ms = staged_ms
+    out[name + suffix] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                              **_bound(name, shape, valid))
+
+
 def phase_streaming_kernels(device, rng, seed) -> dict:
     """K5, K6a, K6b, the backtrace of ``dp.viterbi_streaming``, K8c and
     its chase, K7a/K8a and K7b/K8b against their plain versions on the
@@ -2127,11 +2187,10 @@ def phase_streaming_kernels(device, rng, seed) -> dict:
         del ref
         f32_fs = float((fwd[0] - ck.forward_scaled_plain(*s_args)[0])
                        .abs().max())
-        out["fwd_scaled" + suffix] = dict(
-            max_abs_err=err_fs,
-            ms=_median_ms(lambda: ck.forward_scaled(*s_args), 5),
-            plain_ms=_median_ms(lambda: ck.forward_scaled_plain(*s_args), 3),
-            **_bound("fwd_scaled", shape, valid))
+        _scan_rows(out, "fwd_scaled", suffix, S_, fwd,
+                   lambda: ck.forward_scaled(*s_args),
+                   lambda: ck.forward_scaled_plain(*s_args), err_fs,
+                   shape, valid)
         del fwd
         bwd = ck.backward_scaled(*s_args[1:])
         assert all(torch.equal(a, b) for a, b in
@@ -2146,19 +2205,20 @@ def phase_streaming_kernels(device, rng, seed) -> dict:
         del ref
         f32_bs = float((bwd[0] - ck.backward_scaled_plain(*s_args[1:])[0])
                        .abs().max())
-        out["bwd_scaled" + suffix] = dict(
-            max_abs_err=err_bs,
-            ms=_median_ms(lambda: ck.backward_scaled(*s_args[1:]), 5),
-            plain_ms=_median_ms(
-                lambda: ck.backward_scaled_plain(*s_args[1:]), 3),
-            **_bound("bwd_scaled", shape, valid))
+        _scan_rows(out, "bwd_scaled", suffix, S_, bwd,
+                   lambda: ck.backward_scaled(*s_args[1:]),
+                   lambda: ck.backward_scaled_plain(*s_args[1:]), err_bs,
+                   shape, valid)
         del bwd, s_args
         print(f"[streaming] K7/K8 at {config}: pointers, last rows, "
               f"normalizers and chased paths bit-equal to plain and paths "
               f"== dp.viterbi; alpha_hat / beta_hat within {lim:.3g} of "
               f"plain in float64 ({err_fs:.3g}, {err_bs:.3g}; of plain in "
               f"float32 {f32_fs:.3g}, {f32_bs:.3g}), repeat launches "
-              f"bit-identical", flush=True)
+              f"bit-identical" + (
+                  "; the cluster tile's outputs bit for bit the staged "
+                  "tile's (forced)" if ck.scan_route(S_) == "cluster"
+                  else ""), flush=True)
 
         # K6: within tolerance, repeats bit-identical
         obs_p, o_m = dp.scaled_obs_prob(obs)
@@ -2307,6 +2367,7 @@ def phase_wide_sweeps(device, rng) -> dict:
     from tehmm_tpu_torch.models.params import from_numpy
     from tehmm_tpu_torch.ops import cuda_kernels as ck
     from tehmm_tpu_torch.ops import dp
+    from tehmm_tpu_torch.tools.time_scans import staged_tile
 
     out = {}
     f64 = torch.float64
@@ -2374,35 +2435,54 @@ def phase_wide_sweeps(device, rng) -> dict:
             plain_ms=_median_ms(
                 lambda: dp.viterbi_chunk_values(lt, obs, init, lens), 3),
             **_bound("viterbi_chunk_tile", shape, valid))
-        out["fwd_chunk_tile" + suffix] = dict(
-            max_abs_err=max(err["X1 hats"], err["X1 carry"]),
-            ms=_median_ms(lambda: ck.forward_chunk_values(lt, obs, init,
-                                                          lens), 5),
-            plain_ms=_median_ms(
-                lambda: dp.forward_chunk_values(lt, obs, init, lens), 3),
-            **_bound("fwd_chunk_tile", shape, valid))
-        out["bwd_chunk_tile" + suffix] = dict(
-            max_abs_err=max(err["X2 beta"], err["X2 x_out"]),
-            ms=_median_ms(lambda: ck.backward_chunk_values(
-                lt, obs, init, cont, lens), 5),
-            plain_ms=_median_ms(lambda: dp.backward_chunk_values(
-                lt, obs, init, cont, lens), 3),
-            **_bound("bwd_chunk_tile", shape, valid))
+        # X1's modes and X2's on the cluster tile: the staged tile's bits
+        # (forward_final's here; the values modes' in _scan_rows)
+        if ck.scan_route(S_) == "cluster":
+            with staged_tile():
+                assert all(torch.equal(a, b) for a, b in zip(
+                    (final, dm_sum), ck.forward_final(lt, obs, init, lens))
+                ), f"X1 carry-only: the cluster tile != staged S={S_}"
+        _scan_rows(out, "fwd_chunk_tile", suffix, S_, (hats, a_carry),
+                   lambda: ck.forward_chunk_values(lt, obs, init, lens),
+                   lambda: dp.forward_chunk_values(lt, obs, init, lens),
+                   max(err["X1 hats"], err["X1 carry"]), shape, valid)
+        _scan_rows(out, "bwd_chunk_tile", suffix, S_, (beta, x_out),
+                   lambda: ck.backward_chunk_values(lt, obs, init, cont,
+                                                    lens),
+                   lambda: dp.backward_chunk_values(lt, obs, init, cont,
+                                                    lens),
+                   max(err["X2 beta"], err["X2 x_out"]), shape, valid)
         print(f"[sweeps] K3/X1/X2 on the tile at S={S_}, {X_B} rows of "
               f"{X_L} (ragged): K3 bit-equal to plain; X1/X2 within {lim:.3g}"
               f" of plain in float64 [worst error/limit]: " + ", ".join(
                   f"{n} {err[n]:.3g} [{ratio[n]:.3f}]" for n in names)
               + f"; X1's two modes one carry; cut at {SWEEP_CUTS[1:-1]} "
-              f"== one chunk, bit for bit", flush=True)
+              f"== one chunk, bit for bit; X1's and X2's every output on "
+              f"the cluster tile bit for bit the staged tile's (forced)",
+              flush=True)
         for name in ("viterbi_chunk_tile", "fwd_chunk_tile",
-                     "bwd_chunk_tile"):
+                     "bwd_chunk_tile", "fwd_chunk_cluster",
+                     "bwd_chunk_cluster"):
             r = out[name + suffix]
-            print(f"[sweeps] {name + suffix:26s} kernel {r['ms']:9.3f} ms  "
-                  f"plain {r['plain_ms']:9.3f} ms  bound "
-                  f"{r['bound_ms']:.3f} ms ({r['bound_by']})", flush=True)
+            staged = f"  staged {r['staged_ms']:9.3f} ms" \
+                if "staged_ms" in r else ""
+            print(f"[sweeps] {name + suffix:26s} kernel {r['ms']:9.3f} ms "
+                  f"{staged} plain {r['plain_ms']:9.3f} ms  bound "
+                  f"{r['bound_ms']:.3f} ms ({r['bound_by']}); us a step "
+                  f"{r['ms'] * 1e3 / X_L:.2f}", flush=True)
         del p, sym, obs, v, hats, beta
         torch.cuda.empty_cache()
     return out
+
+
+def _engine_kernels(config):
+    """The kernels 2e must launch at ``config``: the streaming ones and
+    the backtrace, K7a/K7b on the cluster tile past 256 states."""
+    from tehmm_tpu_torch.tools import bench_engines
+
+    past = bench_engines.CONFIGS[config][0] > 256
+    return tuple(CLUSTER_OF[k] if past and k in CLUSTER_OF else k
+                 for k in STREAMING_KERNELS + ("viterbi_backtrace",))
 
 
 def _tool_rows(text):
@@ -3755,6 +3835,146 @@ def _windowed_gap(params, table, x, half=2048):
     return float((top[0] - top[1]) / top[0])
 
 
+def _env_fit(work, xml, n, seed, dev):
+    """3f's train through ``"auto"`` on ``dev``: (its logliks, wall
+    seconds)."""
+    from tehmm_tpu_torch.cli import train as port_train
+
+    lo = n // 3
+    bed = _region_bed(work, f"env_fit_{dev}.bed", lo, lo + ENV_FIT_REGION)
+    log = os.path.join(work, f"env_fit_{dev}.jsonl")
+    t0 = time.perf_counter()
+    _run_cli(port_train, [
+        xml, bed, os.path.join(work, f"env_fit_{dev}.npz"),
+        "--numStates", str(ENV_STATES), "--iter", str(ENV_FIT_ITERS),
+        "--chunk", str(ENV_FIT_CHUNK), "--seed", str(seed), "--device",
+        dev, "--logJson", log])
+    return (np.asarray([r["loglik"] for r in _em_log(log)]),
+            time.perf_counter() - t0)
+
+
+def _env_tables(xml, n, count):
+    """The first ``count`` of 3f's ENV_TABLES regions, loaded."""
+    from tehmm_tpu_torch.io import TrackList, load_track_data
+
+    lo = n // 5
+    regions = [("chr1", lo + k * ENV_TABLE_LEN, lo + (k + 1) * ENV_TABLE_LEN)
+               for k in range(count)]
+    return load_track_data(TrackList(xml), regions).tables
+
+
+def _env_model(seed):
+    return _sticky_model(np.random.RandomState(seed + 3), ENV_STATES, T, 9)
+
+
+def _env_runs(model, dev, tabs, pd_tabs, exact=True, launches=None):
+    """(name -> (result, seconds)) of every decoder of 3f on ``tabs`` on
+    ``dev`` (the CPU ENV_CPU_ROWS rows a pass); ``--pd``'s sweep and the
+    score on ``pd_tabs``; each run's launch counts into ``launches``."""
+    import torch
+
+    from tehmm_tpu_torch.models import hmm as port_hmm
+    from tehmm_tpu_torch.models.params import from_numpy
+    from tehmm_tpu_torch.ops import cuda_kernels as ck
+    from tehmm_tpu_torch.parallel import stitch
+
+    params = from_numpy(*model, dev)
+    hmm_model = port_hmm.MultitrackHmm(params, None, {}, None)
+    rows = {"rows_per_pass": ENV_CPU_ROWS} if dev == "cpu" else {}
+
+    def pd(tb):
+        paths = [np.zeros(len(t.symbols), np.int32) for t in tb]
+        keep = [np.zeros((len(t.symbols), ENV_STATES), np.float32)
+                for t in tb[:ENV_PD_TABLES]]
+
+        def consume(b, start, gamma):
+            paths[b][start : start + len(gamma)] = gamma.argmax(axis=-1)
+            if b < ENV_PD_TABLES:
+                keep[b][start : start + len(gamma)] = gamma
+
+        stitch.posterior_sweep(params, tb, ENV_PD_CHUNK, consume)
+        return paths, keep
+
+    calls = [
+        ("viterbi", lambda: _checked(stitch.viterbi_chunked(
+            params, tabs, **rows))),
+        ("exact", lambda: stitch.viterbi_exact(params, tabs)),
+        ("maxpost", lambda: _checked(stitch.posterior_chunked(
+            params, tabs, **rows))),
+        ("pd", lambda: pd(pd_tabs)),
+        ("score", lambda: hmm_model.score(pd_tabs)),
+    ]
+    got = {}
+    for name, call in calls:
+        if name == "exact" and not exact:
+            continue
+        ck.reset_launch_counts()
+        t0 = time.perf_counter()
+        result = call()
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            launches[name] = dict(ck.LAUNCHES)
+        got[name] = (result, time.perf_counter() - t0)
+    del params, hmm_model
+    if dev != "cpu":
+        torch.cuda.empty_cache()
+    return got
+
+
+def _env_cpu_main(spec_json):
+    """3f's CPU references in a process of their own (``_EnvCpuRuns``):
+    train through ``"auto"``, then the decoders, ``--pd``'s sweep and the
+    score on the first regions; results pickled to the spec's ``out``."""
+    import pickle
+
+    spec = json.loads(spec_json)
+    fit = _env_fit(spec["work"], spec["xml"], spec["n"], spec["seed"],
+                   "cpu")
+    sub = _env_tables(spec["xml"], spec["n"], ENV_CPU_TABLES)
+    cpu = _env_runs(_env_model(spec["seed"]), "cpu", sub,
+                    sub[:ENV_PD_TABLES], exact=False)
+    with open(spec["out"] + ".tmp", "wb") as fh:
+        pickle.dump({"fit": fit, "runs": cpu}, fh)
+    os.replace(spec["out"] + ".tmp", spec["out"])
+
+
+class _EnvCpuRuns:
+    """3f's CPU references (its train and the decoders, ``--pd``'s sweep
+    and the score on the first regions; the host alone, ~200 s) in a
+    process of their own, started with 3f and held to the card's results
+    after 3e, as ``_ParentRuns`` runs the parent's eval runs beside the
+    later phases.  Every check and limit is 3f's own."""
+
+    def __init__(self, work, xml, n, seed):
+        self.out = os.path.join(work, "env_cpu.pkl")
+        self.err = tempfile.TemporaryFile()
+        spec = dict(work=work, xml=xml, n=n, seed=seed, out=self.out)
+        here = os.path.dirname(os.path.abspath(__file__))
+        code = ("import sys\n"
+                f"sys.path.insert(0, {here!r})\n"
+                "import chip_smoke\n"
+                "chip_smoke._env_cpu_main(sys.argv[1])\n")
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", code, json.dumps(spec)],
+            stdout=subprocess.DEVNULL, stderr=self.err)
+        _PARENT_BUILD.setdefault("jobs", []).append(self.proc)
+
+    def result(self):
+        import pickle
+
+        t0 = time.perf_counter()
+        rc = self.proc.wait(timeout=1200)
+        self.err.seek(0)
+        assert rc == 0, self.err.read()[-4000:].decode(errors="replace")
+        self.err.close()
+        print(f"[envelopes] the CPU references: done "
+              f"{time.perf_counter() - self.t0:.1f} s after their start, "
+              f"waited {time.perf_counter() - t0:.1f} s", flush=True)
+        with open(self.out, "rb") as fh:
+            return pickle.load(fh)
+
+
 def phase_envelopes(work, xml, n, seed, device="cuda"):
     """3f: every route past the fused kernels' envelopes at the scan
     tile's full width, ENV_STATES states, on the planted chromosome (T=5,
@@ -3765,50 +3985,39 @@ def phase_envelopes(work, xml, n, seed, device="cuda"):
     random model, on ENV_TABLES regions of ENV_TABLE_LEN positions on the
     card: the stitched Viterbi (obs, K5 and the backtrace kernel), the
     exact Viterbi (``--exact``: K3 on the tile and the backtrace; its
-    paths equal the stitched ones), the stitched max-posterior (K7a/K7b),
-    ``posterior_sweep`` in chunks of ENV_PD_CHUNK (``--pd``'s path: X1
-    and X2 on the tile; its argmax equal to the stitched max-posterior on
-    >= 99.999% of the positions, each differing one a near-tie) and
-    ``MultitrackHmm.score`` (X1 on the tile).
-    The CPU runs the stitched decoders on the first ENV_CPU_TABLES
-    regions and ``--pd``'s sweep and the score on the first
-    ENV_PD_TABLES, ENV_CPU_ROWS rows a pass (the exact Viterbi is held
-    through the card's: exact == stitched on the card, stitched == the
-    CPU's): Viterbi paths equal; max-posterior paths and --pd's argmax
-    equal on >= 99.999% of the positions, every differing position printed
-    with its top-two posterior gap, which must be under NEAR_TIE; gammas
-    within 1e-5, scores within 1e-5 relative.  Returns the launch counts
-    of each run on the card."""
+    paths equal the stitched ones), the stitched max-posterior (K7a/K7b
+    on the cluster tile), ``posterior_sweep`` in chunks of ENV_PD_CHUNK
+    (``--pd``'s path: X1 and X2 on the cluster tile; its argmax equal to
+    the stitched max-posterior on >= 99.999% of the positions, each
+    differing one a near-tie) and ``MultitrackHmm.score`` (X1 on the
+    cluster tile); none of these launches the staged tile's K7a/K7b or
+    X1's or X2's carry modes.
+    The CPU runs the train, the stitched decoders on the first
+    ENV_CPU_TABLES regions and ``--pd``'s sweep and the score on the first
+    ENV_PD_TABLES, ENV_CPU_ROWS rows a pass, in a process of its own
+    (``_EnvCpuRuns``) beside the phases after this one; ``finish`` (after
+    3e) holds them to the card's (the exact Viterbi through the card's:
+    exact == stitched on the card, stitched == the CPU's): Viterbi paths
+    equal; max-posterior paths and --pd's argmax equal on >= 99.999% of
+    the positions, every differing position printed with its top-two
+    posterior gap, which must be under NEAR_TIE; gammas within 1e-5,
+    scores within 1e-5 relative.  Returns (the launch counts of each run
+    on the card, ``finish``)."""
     import torch
 
-    from tehmm_tpu_torch.cli import train as port_train
-    from tehmm_tpu_torch.io import TrackList, load_track_data
     from tehmm_tpu_torch.models import hmm as port_hmm
     from tehmm_tpu_torch.models.params import from_numpy
     from tehmm_tpu_torch.ops import cuda_kernels as ck
-    from tehmm_tpu_torch.parallel import stitch
 
+    cpu_runs = _EnvCpuRuns(work, xml, n, seed)
     launches = {}
     # train through "auto"
-    lo = n // 3
-    bed = _region_bed(work, "env_fit.bed", lo, lo + ENV_FIT_REGION)
-    logs = {}
-    for dev in (device, "cpu"):
-        log = os.path.join(work, f"env_fit_{dev}.jsonl")
-        ck.reset_launch_counts()
-        t0 = time.perf_counter()
-        _run_cli(port_train, [
-            xml, bed, os.path.join(work, f"env_fit_{dev}.npz"),
-            "--numStates", str(ENV_STATES), "--iter", str(ENV_FIT_ITERS),
-            "--chunk", str(ENV_FIT_CHUNK), "--seed", str(seed), "--device",
-            dev, "--logJson", log])
-        wall = time.perf_counter() - t0
-        if dev == device:
-            launches["fit"] = dict(ck.LAUNCHES)
-        logs[dev] = np.asarray([r["loglik"] for r in _em_log(log)])
-        print(f"[envelopes] train at S={ENV_STATES} on {ENV_FIT_REGION} "
-              f"positions on {dev}: {wall:.2f} s, logliks "
-              f"{logs[dev].tolist()}", flush=True)
+    ck.reset_launch_counts()
+    card_logs, wall = _env_fit(work, xml, n, seed, device)
+    launches["fit"] = dict(ck.LAUNCHES)
+    print(f"[envelopes] train at S={ENV_STATES} on {ENV_FIT_REGION} "
+          f"positions on {device}: {wall:.2f} s, logliks "
+          f"{card_logs.tolist()}", flush=True)
     fit = launches["fit"]
     assert fit["fwd_prob"] and fit["bwd_prob"] and not fit["em_fwd"], \
         f"auto did not take cuda_v3 past K1's envelope: {fit}"
@@ -3819,73 +4028,17 @@ def phase_envelopes(work, xml, n, seed, device="cuda"):
     assert budget == port_hmm._MAX_PASS_POSITIONS * 256 // ENV_STATES, \
         f"pass budget {budget} at S={ENV_STATES}"
     del fit_params
-    assert len(logs[device]) == len(logs["cpu"]) >= ENV_FIT_ITERS - 1
-    rel = float(np.max(np.abs(logs[device] - logs["cpu"])
-                       / np.abs(logs["cpu"])))
-    assert rel <= 1e-5, f"train: card and CPU logliks differ by {rel}"
-    print(f"[envelopes] auto -> cuda_v3 ({fit['fwd_prob']} fwd_prob, "
-          f"{fit['bwd_prob']} bwd_prob, 0 em_fwd launches), {budget} "
-          f"positions a pass; loglik rel err card vs CPU {rel:.3g}",
-          flush=True)
 
     # the decoders, --pd's sweep and the score
-    lo = n // 5
-    regions = [("chr1", lo + k * ENV_TABLE_LEN, lo + (k + 1) * ENV_TABLE_LEN)
-               for k in range(ENV_TABLES)]
-    tables = load_track_data(TrackList(xml), regions).tables
+    tables = _env_tables(xml, n, ENV_TABLES)
     T_, V_ = tables[0].symbols.shape[1], 9
     assert T_ == T and max(int(t.symbols.max()) for t in tables) < V_
-    model = _sticky_model(np.random.RandomState(seed + 3), ENV_STATES, T_,
-                          V_)
+    model = _env_model(seed)
     assert not ck.k2_fits(ENV_STATES, T_, V_) \
         and not ck.k4_fits(ENV_STATES, T_, V_) \
-        and not ck.sweep_fits(ENV_STATES)
-
-    def runs(dev, tabs, pd_tabs, exact=True):
-        """(name -> (result, seconds)) of every decoder on ``tabs``;
-        ``--pd``'s sweep and the score on ``pd_tabs``."""
-        params = from_numpy(*model, dev)
-        hmm_model = port_hmm.MultitrackHmm(params, None, {}, None)
-        rows = {} if dev == device else {"rows_per_pass": ENV_CPU_ROWS}
-
-        def pd(tb):
-            paths = [np.zeros(len(t.symbols), np.int32) for t in tb]
-            keep = [np.zeros((len(t.symbols), ENV_STATES), np.float32)
-                    for t in tb[:ENV_PD_TABLES]]
-
-            def consume(b, start, gamma):
-                paths[b][start : start + len(gamma)] = gamma.argmax(axis=-1)
-                if b < ENV_PD_TABLES:
-                    keep[b][start : start + len(gamma)] = gamma
-
-            stitch.posterior_sweep(params, tb, ENV_PD_CHUNK, consume)
-            return paths, keep
-
-        calls = [
-            ("viterbi", lambda: _checked(stitch.viterbi_chunked(
-                params, tabs, **rows))),
-            ("exact", lambda: stitch.viterbi_exact(params, tabs)),
-            ("maxpost", lambda: _checked(stitch.posterior_chunked(
-                params, tabs, **rows))),
-            ("pd", lambda: pd(pd_tabs)),
-            ("score", lambda: hmm_model.score(pd_tabs)),
-        ]
-        got = {}
-        for name, call in calls:
-            if name == "exact" and not exact:
-                continue
-            ck.reset_launch_counts()
-            t0 = time.perf_counter()
-            result = call()
-            if dev == device:
-                torch.cuda.synchronize()
-                launches[name] = dict(ck.LAUNCHES)
-            got[name] = (result, time.perf_counter() - t0)
-        del params, hmm_model
-        torch.cuda.empty_cache()
-        return got
-
-    card = runs(device, tables, tables)
+        and not ck.sweep_fits(ENV_STATES) \
+        and ck.scan_route(ENV_STATES) == "cluster"
+    card = _env_runs(model, device, tables, tables, launches=launches)
     n_card = ENV_TABLES * ENV_TABLE_LEN
     for name, (_r, secs) in card.items():
         print(f"[envelopes] {name} at S={ENV_STATES} on {ENV_TABLES} regions"
@@ -3895,6 +4048,9 @@ def phase_envelopes(work, xml, n, seed, device="cuda"):
               flush=True)
     for path, names in ENVELOPE_KERNELS.items():
         assert all(launches[path][k] for k in names), (path, launches[path])
+    for path, names in OFF_ENVELOPE_PATH.items():
+        assert not any(launches[path][k] for k in names), \
+            (path, launches[path])
     assert not launches["viterbi"]["viterbi_fwd"] \
         and not launches["maxpost"]["post_decode"] \
         and not launches["maxpost"]["post_decode_lanes"] \
@@ -3930,34 +4086,50 @@ def phase_envelopes(work, xml, n, seed, device="cuda"):
           f" --pd's argmax differs from the stitched max-posterior on "
           f"{mp_diff} of {n_card} positions, each a near-tie; score "
           f"{card['score'][0]:.6f}", flush=True)
-
-    # the CPU on the first regions (the exact Viterbi through the card's:
-    # exact == stitched on the card, stitched == the CPU's)
     sub = tables[:ENV_CPU_TABLES]
-    cpu = runs("cpu", sub, sub[:ENV_PD_TABLES], exact=False)
-    for name, (_r, secs) in cpu.items():
-        print(f"[envelopes] {name} on the CPU, {len(sub)} regions: "
-              f"{secs:.2f} s", flush=True)
-    for g, c in zip(card["viterbi"][0], cpu["viterbi"][0]):
-        assert np.array_equal(g, c), "card and CPU Viterbi paths differ"
-    n_sub = sum(len(t.symbols) for t in sub)
-    n_diff = (near_ties("maxpost card vs CPU", card["maxpost"][0],
-                        cpu["maxpost"][0], sub)
-              + near_ties("pd argmax card vs CPU", pd_card_paths,
-                          cpu["pd"][0][0], sub))
-    for g, c in zip(pd_card_gamma, cpu["pd"][0][1]):
-        _assert_close("--pd gamma card vs CPU", torch.from_numpy(g),
-                      torch.from_numpy(c), 0.0, 1e-5)
     sub_score = port_hmm.MultitrackHmm(from_numpy(*model, device), None,
                                        {}, None).score(sub[:ENV_PD_TABLES])
-    s_rel = abs(sub_score - cpu["score"][0]) / abs(cpu["score"][0])
-    assert s_rel <= 1e-5, f"scores differ by {s_rel} relative"
-    print(f"[envelopes] CPU on {n_sub} positions ({ENV_PD_TABLES} "
-          f"region(s) for --pd and the score): Viterbi == card; "
-          f"max-posterior and --pd argmax differ on {n_diff} positions, "
-          f"each a near-tie; --pd gammas within 1e-5; "
-          f"score rel err {s_rel:.3g}", flush=True)
-    return launches
+    del tables
+    torch.cuda.empty_cache()
+
+    def finish():
+        """The CPU's results (from their own process) against the
+        card's."""
+        ref = cpu_runs.result()
+        cpu_logs, cpu_wall = ref["fit"]
+        print(f"[envelopes] train at S={ENV_STATES} on {ENV_FIT_REGION} "
+              f"positions on cpu: {cpu_wall:.2f} s, logliks "
+              f"{cpu_logs.tolist()}", flush=True)
+        assert len(card_logs) == len(cpu_logs) >= ENV_FIT_ITERS - 1
+        rel = float(np.max(np.abs(card_logs - cpu_logs) / np.abs(cpu_logs)))
+        assert rel <= 1e-5, f"train: card and CPU logliks differ by {rel}"
+        print(f"[envelopes] auto -> cuda_v3 ({fit['fwd_prob']} fwd_prob, "
+              f"{fit['bwd_prob']} bwd_prob, 0 em_fwd launches), {budget} "
+              f"positions a pass; loglik rel err card vs CPU {rel:.3g}",
+              flush=True)
+        cpu = ref["runs"]
+        for name, (_r, secs) in cpu.items():
+            print(f"[envelopes] {name} on the CPU, {len(sub)} regions: "
+                  f"{secs:.2f} s", flush=True)
+        for g, c in zip(card["viterbi"][0], cpu["viterbi"][0]):
+            assert np.array_equal(g, c), "card and CPU Viterbi paths differ"
+        n_sub = sum(len(t.symbols) for t in sub)
+        n_diff = (near_ties("maxpost card vs CPU", card["maxpost"][0],
+                            cpu["maxpost"][0], sub)
+                  + near_ties("pd argmax card vs CPU", pd_card_paths,
+                              cpu["pd"][0][0], sub))
+        for g, c in zip(pd_card_gamma, cpu["pd"][0][1]):
+            _assert_close("--pd gamma card vs CPU", torch.from_numpy(g),
+                          torch.from_numpy(c), 0.0, 1e-5)
+        s_rel = abs(sub_score - cpu["score"][0]) / abs(cpu["score"][0])
+        assert s_rel <= 1e-5, f"scores differ by {s_rel} relative"
+        print(f"[envelopes] CPU on {n_sub} positions ({ENV_PD_TABLES} "
+              f"region(s) for --pd and the score): Viterbi == card; "
+              f"max-posterior and --pd argmax differ on {n_diff} positions, "
+              f"each a near-tie; --pd gammas within 1e-5; "
+              f"score rel err {s_rel:.3g}", flush=True)
+
+    return launches, finish
 
 
 def _checked(result):
@@ -4371,6 +4543,7 @@ def _run(args, device, smi, parent) -> int:
                                    np.random.RandomState(args.seed + 4))
     kernels.update({k: r for k, r in sweep_rows.items()
                     if k.endswith(f"@S{ENV_STATES}")})
+    del sweep_rows
     torch.cuda.empty_cache()
     _phase_done("2", t_run)
     engine_launches = phase_engines(args.seed)
@@ -4423,8 +4596,9 @@ def _run(args, device, smi, parent) -> int:
 
         phase_em_card_vs_cpu(work, xml, n, 50_000, args.seed)
         _phase_done("3c", t_run)
-        env_launches = phase_envelopes(work, xml, n, args.seed)
-        _phase_done("3f", t_run)
+        # its CPU references run on beside 3e; env_finish holds them
+        env_launches, env_finish = phase_envelopes(work, xml, n, args.seed)
+        _phase_done("3f, the card", t_run)
 
         t0 = time.perf_counter()
         xml_g, xml_seg, xml_cat = make_gauss_track(work, rng, truth)
@@ -4446,6 +4620,8 @@ def _run(args, device, smi, parent) -> int:
             parent=queue)
         checks.finish()
         _phase_done("3e, segments", t_run)
+        env_finish()
+        _phase_done("3f, the CPU references", t_run)
     for config, counts in engine_launches.items():
         print(f"[launches] engine-comparison path (2e) at {config}: "
               f"{ {k: n for k, n in counts.items() if n} }", flush=True)
@@ -4470,8 +4646,12 @@ def _run(args, device, smi, parent) -> int:
                 if cat_launches[k + "+w"] == 0]
     missing += [f"{k} (2e, {config})"
                 for config in ENGINE_CONFIGS + WIDE_CONFIGS
-                for k in STREAMING_KERNELS + ("viterbi_backtrace",)
+                for k in _engine_kernels(config)
                 if engine_launches[config][k] == 0]
+    staged = {(config, k): engine_launches[config][k]
+              for config in WIDE_CONFIGS for k in ("fwd_scaled", "bwd_scaled")
+              if engine_launches[config][k]}
+    assert not staged, f"2e launched the staged tile's K7a/K7b: {staged}"
     for Sp, counts in maxplus_launches.items():
         print(f"[launches] K9 tool (2m) at Sp={Sp}: "
               f"{ {k: n for k, n in counts.items() if n} }", flush=True)
@@ -4504,7 +4684,9 @@ def _run(args, device, smi, parent) -> int:
     # the tile's carry modes at ENV_STATES: 3f's exact Viterbi, --pd's
     # sweep and the score
     tile_paths = {"viterbi_chunk_tile": ("exact",),
-                  "fwd_chunk_tile": ("pd", "score"), "bwd_chunk_tile": ("pd",)}
+                  "fwd_chunk_tile": ("pd", "score"), "bwd_chunk_tile": ("pd",),
+                  "fwd_chunk_cluster": ("pd", "score"),
+                  "bwd_chunk_cluster": ("pd",)}
     for name in kernels:
         base, _, config = name.partition("@")
         if "+" in name:

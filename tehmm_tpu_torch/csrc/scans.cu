@@ -22,6 +22,10 @@
 //                        _backward_kernel (:187) under
 //                        backward_scaled_pallas (:222): K7b's function is
 //                        K8b's without the normalizers
+//   fwd_scaled_cluster_kernel, bwd_scaled_cluster_kernel
+//                        the same two functions, carry modes included,
+//                        from 257 to 1024 states on the cluster tile
+//                        (scan_cluster.cuh), with the same bits
 //   viterbi_ptrs_kernel  K8c, _viterbi_kernel (:277) under viterbi_pallas
 //                        (:333)
 //   pointer_chase_kernel the XLA backtrace of viterbi_pallas (:381-388),
@@ -49,8 +53,11 @@
 // What bounds them on an H100: as streaming.cu's scans, the chain of L
 // dependent steps; each step adds one expf and one logf per cell (the
 // backward: a second max reduction) to K6's S-term product; past 256
-// states the re-read of the matrix from L2 every step.  The chase is one
-// dependent pointer load per position.
+// states, on the staged tile, the re-read of the matrix from L2 every
+// step, and on the cluster tile the product over a block's slice (R S^2
+// / C FMAs a block a step) and two cluster barriers a step (the
+// backward: three).  The chase is one dependent pointer load per
+// position.
 //
 // Design: scan_tile.cuh's tile (a block of 256 threads owns a tile of rows
 // for the whole scan, one thread per state to S = 256 and 2 or 4 beyond,
@@ -66,7 +73,10 @@
 // each row's carry, every position a product step) and X2 (K7b, whose
 // step at the chunk's last position takes exp of the carry and whose
 // x_out is renormalized after position 0) run the same loops, so a sweep
-// cut into chunks executes the same instructions as one chunk.
+// cut into chunks executes the same instructions as one chunk.  From 257
+// to 1024 states the forward and backward (and their carry modes) run the
+// cluster tile instead (scan_cluster.cuh, which says why and how): the
+// entries take the tile the caller names, ``cluster``.
 //
 // Numerics: each product is summed in K6's fixed order, four interleaved
 // FMA chains added pairwise, that depends on S alone (no atomics, no
@@ -81,7 +91,7 @@
 
 #include <type_traits>
 
-#include "scan_tile.cuh"
+#include "scan_cluster.cuh"
 
 namespace {
 
@@ -393,6 +403,216 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// K7a/K8a past 256 states on the cluster tile (scan_cluster.cuh): the
+// function and the bits of fwd_scaled_kernel, carry mode included.  A
+// step: the product over the block's slice, u = log(s) + obs, the
+// cluster's row max (an exchange), a = u - m, exp(a) into every block's
+// state vector (a second).
+template <int R>
+__global__ void __launch_bounds__(kClusterThreads, 1)
+    fwd_scaled_cluster_kernel(const float* __restrict__ obs,
+                              const int32_t* __restrict__ lens,
+                              const float* __restrict__ log_start,
+                              const float* __restrict__ carry_in,
+                              const float* __restrict__ trans_p,
+                              float* __restrict__ alpha_out,
+                              float* __restrict__ dm_out,
+                              float* __restrict__ carry_out, int64_t B,
+                              int64_t L, int S, int n_res) {
+  extern __shared__ __align__(16) float smem[];
+  using Tile = ClusterTile<R>;
+  constexpr int kOwn = Tile::kOwn;
+  Tile tl(smem, trans_p, lens, B, L, S, n_res, 1);
+  const bool carried = carry_in != nullptr;
+  // where this thread's cells are in obs and the [B, S] rows
+  int64_t cell[kOwn];
+  float a[kOwn], o_next[kOwn];
+  const float start_j = tl.has_col && !carried ? log_start[tl.gj] : 0.0f;
+#pragma unroll
+  for (int m = 0; m < kOwn; ++m) {
+    cell[m] = tl.b0 + tl.own_k[m];
+    a[m] = carried && tl.own_has[m] && tl.own_live[m]
+               ? carry_in[cell[m] * S + tl.gj]
+               : 0.0f;
+    o_next[m] = tl.own_has[m] && tl.own_len[m] > 0
+                    ? obs[cell[m] * L * S + tl.gj]
+                    : 0.0f;
+  }
+  if (carried) tl.fill_state(carry_in, B);
+  const bool writes_dm = tl.rank == 0 && tl.col == 0 && dm_out != nullptr;
+
+  for (int64_t t = 0; t < L; ++t) {
+    if ((t > 0 || carried) && t >= tl.max_len) {
+      // every row of the cluster is past its end: carried rows, zeros
+#pragma unroll
+      for (int m = 0; m < kOwn; ++m) {
+        if (!tl.own_live[m]) continue;
+        const int64_t pos = cell[m] * L + t;
+        if (alpha_out != nullptr && tl.own_has[m])
+          alpha_out[pos * S + tl.gj] = a[m];
+        if (writes_dm) dm_out[pos] = 0.0f;
+      }
+      continue;
+    }
+    float o[kOwn], u[kOwn], mx[kOwn], e[kOwn];
+#pragma unroll
+    for (int m = 0; m < kOwn; ++m) {
+      o[m] = o_next[m];
+      o_next[m] = tl.own_has[m] && t + 1 < tl.own_len[m]
+                      ? obs[(cell[m] * L + t + 1) * S + tl.gj]
+                      : 0.0f;
+    }
+    const bool first = t == 0 && !carried;
+    if (first) {
+#pragma unroll
+      for (int m = 0; m < kOwn; ++m)
+        u[m] = tl.own_len[m] > 0 ? start_j + o[m] : kLogZero;
+    } else {
+      float s[R], so[kOwn];
+      tl.template product<ProbOps>(s);
+      tl.own(s, so);
+#pragma unroll
+      for (int m = 0; m < kOwn; ++m)
+        u[m] = (so[m] > 0.0f ? logf(so[m]) : kLogZero) + o[m];
+    }
+    tl.template rows_max<0>(u, mx, kLogZero);
+#pragma unroll
+    for (int m = 0; m < kOwn; ++m) {
+      // position 0 is renormalized in every row, as the reference does
+      const bool valid = first || t < tl.own_len[m];
+      if (valid) a[m] = u[m] - mx[m];
+      e[m] = expf(a[m]);
+      if (!tl.own_live[m]) continue;
+      const int64_t pos = cell[m] * L + t;
+      if (alpha_out != nullptr && tl.own_has[m])
+        alpha_out[pos * S + tl.gj] = a[m];
+      if (writes_dm) dm_out[pos] = valid ? mx[m] : 0.0f;
+    }
+    tl.broadcast(e);
+  }
+  if (carry_out != nullptr) {
+#pragma unroll
+    for (int m = 0; m < kOwn; ++m)
+      if (tl.own_has[m] && tl.own_live[m])
+        carry_out[cell[m] * S + tl.gj] = a[m];
+  }
+  tl.finish();
+}
+
+// K7b/K8b past 256 states on the cluster tile: the function and the bits
+// of bwd_scaled_kernel, carry mode included.  A step: x = obs + beta, the
+// cluster's max xm (an exchange), exp(x - xm) into every block's state
+// vector (a second), the product over the block's slice, log, the
+// cluster's max nm (a third).  The two maxima have a buffer and an
+// mbarrier each.
+template <int R>
+__global__ void __launch_bounds__(kClusterThreads, 1)
+    bwd_scaled_cluster_kernel(const float* __restrict__ obs,
+                              const int32_t* __restrict__ lens,
+                              const float* __restrict__ x_carry,
+                              const int32_t* __restrict__ continuing,
+                              const float* __restrict__ trans_t,
+                              float* __restrict__ beta_out,
+                              float* __restrict__ dm_out,
+                              float* __restrict__ x_out, int64_t B,
+                              int64_t L, int S, int n_res) {
+  extern __shared__ __align__(16) float smem[];
+  using Tile = ClusterTile<R>;
+  constexpr int kOwn = Tile::kOwn;
+  Tile tl(smem, trans_t, lens, B, L, S, n_res, 2);
+  const bool carried = x_carry != nullptr;
+  int64_t cell[kOwn];
+  float b[kOwn], o_next[kOwn], o_next2[kOwn];
+  bool cont[kOwn];
+  // the first in-chunk step that runs reads position max_len - 1
+  const int64_t t1 = tl.max_len - 1;
+#pragma unroll
+  for (int m = 0; m < kOwn; ++m) {
+    cell[m] = tl.b0 + tl.own_k[m];
+    cont[m] = carried && tl.own_live[m] && continuing[cell[m]] != 0;
+    const int64_t base = cell[m] * L * S + tl.gj;
+    b[m] = 0.0f;
+    o_next[m] = tl.own_has[m] && t1 >= 1 && t1 < tl.own_len[m]
+                    ? obs[base + t1 * S]
+                    : 0.0f;
+    o_next2[m] = tl.own_has[m] && t1 >= 2 && t1 - 1 < tl.own_len[m]
+                     ? obs[base + (t1 - 1) * S]
+                     : 0.0f;
+  }
+  const bool writes_dm = tl.rank == 0 && tl.col == 0 && dm_out != nullptr;
+
+  for (int64_t t = L - 1; t >= 0; --t) {
+    float d[kOwn];
+#pragma unroll
+    for (int m = 0; m < kOwn; ++m) d[m] = 0.0f;
+    if (carried && t == L - 1) {
+      // the boundary step: exp(x_carry) through the product
+      float s[R], so[kOwn], nm[kOwn];
+      tl.fill_state(x_carry, B);
+      tl.template product<ProbOps>(s);
+      tl.own(s, so);
+#pragma unroll
+      for (int m = 0; m < kOwn; ++m)
+        so[m] = so[m] > 0.0f ? logf(so[m]) : kLogZero;
+      tl.template rows_max<1>(so, nm, kLogZero);
+#pragma unroll
+      for (int m = 0; m < kOwn; ++m)
+        if (cont[m]) b[m] = so[m] - nm[m];
+    } else if (t + 1 < tl.max_len) {
+      float o[kOwn], x[kOwn], xm[kOwn], e[kOwn], s[R], so[kOwn], nm[kOwn];
+#pragma unroll
+      for (int m = 0; m < kOwn; ++m) {
+        o[m] = o_next[m];
+        o_next[m] = o_next2[m];
+        o_next2[m] = tl.own_has[m] && t >= 2 && t - 1 < tl.own_len[m]
+                         ? obs[(cell[m] * L + t - 1) * S + tl.gj]
+                         : 0.0f;
+        x[m] = o[m] + b[m];
+      }
+      tl.template rows_max<0>(x, xm, kLogZero);
+#pragma unroll
+      for (int m = 0; m < kOwn; ++m) e[m] = expf(x[m] - xm[m]);
+      tl.broadcast(e);
+      tl.template product<ProbOps>(s);
+      tl.own(s, so);
+#pragma unroll
+      for (int m = 0; m < kOwn; ++m)
+        so[m] = so[m] > 0.0f ? logf(so[m]) : kLogZero;
+      tl.template rows_max<1>(so, nm, kLogZero);
+#pragma unroll
+      for (int m = 0; m < kOwn; ++m) {
+        if (t + 1 < tl.own_len[m]) {
+          b[m] = so[m] - nm[m];
+          d[m] = xm[m] + nm[m];
+        }
+      }
+    }
+#pragma unroll
+    for (int m = 0; m < kOwn; ++m) {
+      if (!tl.own_live[m]) continue;
+      const int64_t pos = cell[m] * L + t;
+      if (tl.own_has[m]) beta_out[pos * S + tl.gj] = b[m];
+      if (writes_dm) dm_out[pos] = d[m];
+    }
+  }
+  if (carried) {
+    // x_out = obs[0] + beta[0], less its max
+    float x[kOwn], xm[kOwn];
+#pragma unroll
+    for (int m = 0; m < kOwn; ++m)
+      x[m] = (tl.own_has[m] && tl.own_live[m]
+                  ? obs[cell[m] * L * S + tl.gj]
+                  : 0.0f) +
+             b[m];
+    tl.template rows_max<0>(x, xm, kLogZero);
+#pragma unroll
+    for (int m = 0; m < kOwn; ++m)
+      if (tl.own_has[m] && tl.own_live[m])
+        x_out[cell[m] * S + tl.gj] = x[m] - xm[m];
+  }
+  tl.finish();
+}
+
 // best[q][k] = max_i (s_p[i][row + k] + M[i][jq(q)]) and arg[q][k] its
 // first-hit i.  Narrow: the rows of M below n_s from shared memory and the
 // rest through the read-only path, four partial maxima over i = 0, 1, 2, 3
@@ -641,55 +861,105 @@ __global__ void __launch_bounds__(kChaseThreads)
   }
 }
 
+// The forward's launch: the cluster tile where ``cluster`` (257 to 1024
+// states), else scan_tile.cuh's (the staged wide tile past 256 states).
+int launch_fwd(int cluster, const float* obs, const int32_t* lens,
+               const float* log_start, const float* carry_in,
+               const float* trans_p, float* alpha_out, float* dm_out,
+               float* carry_out, int64_t B, int64_t L, int S,
+               void* stream) {
+  if (cluster) {
+    CLUSTER_KERNELS(ks, fwd_scaled_cluster_kernel);
+    return launch_cluster_scan(ks, B, S, 1, stream, obs, lens, log_start,
+                               carry_in, trans_p, alpha_out, dm_out,
+                               carry_out, B, L, S);
+  }
+  TILE_KERNELS(ks, fwd_scaled_kernel);
+  return launch_scan(ks, B, S, stream, obs, lens, log_start, carry_in,
+                     trans_p, alpha_out, dm_out, carry_out, B, L, S);
+}
+
+int launch_bwd(int cluster, const float* obs, const int32_t* lens,
+               const float* x_carry, const int32_t* continuing,
+               const float* trans_t, float* beta_out, float* dm_out,
+               float* x_out, int64_t B, int64_t L, int S, void* stream) {
+  if (cluster) {
+    CLUSTER_KERNELS(ks, bwd_scaled_cluster_kernel);
+    return launch_cluster_scan(ks, B, S, 2, stream, obs, lens, x_carry,
+                               continuing, trans_t, beta_out, dm_out, x_out,
+                               B, L, S);
+  }
+  TILE_KERNELS(ks, bwd_scaled_kernel);
+  return launch_scan(ks, B, S, stream, obs, lens, x_carry, continuing,
+                     trans_t, beta_out, dm_out, x_out, B, L, S);
+}
+
 }  // namespace
 
 extern "C" {
 
+// ``cluster``: the cluster tile (257 to 1024 states), else the block tile.
 int tehmm_fwd_scaled(const void* obs, const void* lens,
                      const void* log_start, const void* trans_p,
                      void* alpha_out, void* dm_out, int64_t B, int64_t L,
-                     int S, void* stream) {
-  TILE_KERNELS(ks, fwd_scaled_kernel);
-  return launch_scan(ks, B, S, stream, (const float*)obs,
-                     (const int32_t*)lens, (const float*)log_start,
-                     (const float*)nullptr, (const float*)trans_p,
-                     (float*)alpha_out, (float*)dm_out, (float*)nullptr, B,
-                     L, S);
+                     int S, int cluster, void* stream) {
+  return launch_fwd(cluster, (const float*)obs, (const int32_t*)lens,
+                    (const float*)log_start, nullptr, (const float*)trans_p,
+                    (float*)alpha_out, (float*)dm_out, nullptr, B, L, S,
+                    stream);
 }
 
 // X1's carry mode: hats (values mode) or dm (carry-only mode) may be null.
 int tehmm_fwd_chunk_tile(const void* obs, const void* carry_in,
                          const void* lens, const void* trans_p, void* hats,
                          void* carry_out, void* dm, int64_t B, int64_t L,
-                         int S, void* stream) {
-  TILE_KERNELS(ks, fwd_scaled_kernel);
-  return launch_scan(ks, B, S, stream, (const float*)obs,
-                     (const int32_t*)lens, (const float*)nullptr,
-                     (const float*)carry_in, (const float*)trans_p,
-                     (float*)hats, (float*)dm, (float*)carry_out, B, L, S);
+                         int S, int cluster, void* stream) {
+  return launch_fwd(cluster, (const float*)obs, (const int32_t*)lens,
+                    nullptr, (const float*)carry_in, (const float*)trans_p,
+                    (float*)hats, (float*)dm, (float*)carry_out, B, L, S,
+                    stream);
 }
 
 int tehmm_bwd_scaled(const void* obs, const void* lens, const void* trans_t,
                      void* beta_out, void* dm_out, int64_t B, int64_t L,
-                     int S, void* stream) {
-  TILE_KERNELS(ks, bwd_scaled_kernel);
-  return launch_scan(ks, B, S, stream, (const float*)obs,
-                     (const int32_t*)lens, (const float*)nullptr,
-                     (const int32_t*)nullptr, (const float*)trans_t,
-                     (float*)beta_out, (float*)dm_out, (float*)nullptr, B,
-                     L, S);
+                     int S, int cluster, void* stream) {
+  return launch_bwd(cluster, (const float*)obs, (const int32_t*)lens,
+                    nullptr, nullptr, (const float*)trans_t,
+                    (float*)beta_out, (float*)dm_out, nullptr, B, L, S,
+                    stream);
 }
 
 // X2's carry mode (L >= 1).
 int tehmm_bwd_chunk_tile(const void* obs, const void* x_carry,
                          const void* continuing, const void* lens,
                          const void* trans_t, void* beta, void* x_out,
-                         int64_t B, int64_t L, int S, void* stream) {
-  TILE_KERNELS(ks, bwd_scaled_kernel);
-  return launch_scan(ks, B, S, stream, (const float*)obs,
-                     (const int32_t*)lens, (const float*)x_carry,
-                     (const int32_t*)continuing, (const float*)trans_t,
-                     (float*)beta, (float*)nullptr, (float*)x_out, B, L, S);
+                         int64_t B, int64_t L, int S, int cluster,
+                         void* stream) {
+  return launch_bwd(cluster, (const float*)obs, (const int32_t*)lens,
+                    (const float*)x_carry, (const int32_t*)continuing,
+                    (const float*)trans_t, (float*)beta, nullptr,
+                    (float*)x_out, B, L, S, stream);
+}
+
+// The cluster tile's plan at S states and B rows (``backward``: K7b's
+// two max buffers) into out[12]: C, Sc, R, n_res, n_reg, smem bytes,
+// clusters, then the active clusters at each R of kClusterRows.
+int tehmm_scan_cluster_plan(int S, int64_t B, int backward, int64_t* out) {
+  ClusterPlan pl;
+  cudaError_t err;
+  if (backward) {
+    CLUSTER_KERNELS(ks, bwd_scaled_cluster_kernel);
+    err = make_cluster_plan(ks, S, B, 2, &pl);
+  } else {
+    CLUSTER_KERNELS(ks, fwd_scaled_cluster_kernel);
+    err = make_cluster_plan(ks, S, B, 1, &pl);
+  }
+  if (err != cudaSuccess) return (int)err;
+  const int64_t v[7] = {pl.C, pl.Sc, pl.R, pl.n_res, pl.n_reg,
+                        (int64_t)pl.smem, pl.clusters};
+  for (int i = 0; i < 7; ++i) out[i] = v[i];
+  for (int i = 0; i < kClusterRs; ++i) out[7 + i] = pl.active[i];
+  return 0;
 }
 
 // ptr_out: uint8 for S <= 256, uint16 beyond.

@@ -79,7 +79,11 @@ way.  K3, X1 and X2 launch their one-warp
 kernels where ``sweep_fits`` (S <= 239) and the tile's carry modes
 beyond, each counted under its own name (``viterbi_chunk_tile``,
 ``fwd_chunk_tile``, ``bwd_chunk_tile``), so the exact decoders, ``--pd``
-and every printed loglik run to S = 1024 too.  The printed loglik
+and every printed loglik run to S = 1024 too.  From 257 states the
+log-space scans (``forward_scaled``, ``backward_scaled`` and X1's and
+X2's carry modes) run the cluster tile of ``csrc/scan_cluster.cuh``
+(``scan_route``; ``SCAN_CLUSTER_MAX_STATES`` = 0 forces the staged tile),
+counted under ``*_cluster`` names, with the same bits.  The printed loglik
 (``MultitrackHmm.score``) takes ``forward_loglik``, which splits each
 row into pieces where ``piece_scan_route`` says (to
 ``PIECE_SCAN_MAX_STATES``, and to a number of rows that falls with S)
@@ -148,7 +152,9 @@ LAUNCHES = {
            "bwd_chunk", "bwd_checkpoints", "viterbi_values", "fwd_prob",
            "bwd_prob", "fwd_scaled", "bwd_scaled", "viterbi_ptrs",
            "pointer_chase", "viterbi_chunk_tile", "fwd_chunk_tile",
-           "bwd_chunk_tile", "maxplus_resident", "maxplus_blocks",
+           "bwd_chunk_tile", "fwd_scaled_cluster", "fwd_chunk_cluster",
+           "bwd_scaled_cluster", "bwd_chunk_cluster",
+           "maxplus_resident", "maxplus_blocks",
            "fwd_piece_ops", "fwd_piece_compose"]
     )
 }
@@ -175,6 +181,27 @@ _STREAMING_ENVELOPE_ITEM = (
     "ROADMAP Queue 2: the scan tile beyond 1024 states"
 )
 _TILE_POINTERS_ITEM = "ROADMAP speed item 19: K3's pointer mode on the tile"
+
+# The log-space scans past 256 states (K7a/K8a, K7b/K8b and X1's and X2's
+# carry modes, csrc/scans.cu) run the cluster tile (csrc/scan_cluster.cuh)
+# from 257 states to this many, and the staged wide tile of
+# csrc/scan_tile.cuh beyond it, to 1024.  Both give the same bits, so the
+# choice moves only time; 0 forces the staged tile (tests and tools set it
+# and restore it).  K5, K6a/b, K8c and K3's carry mode stay on the staged
+# tile.
+SCAN_CLUSTER_MAX_STATES = 1024
+# The cluster tile's plan (csrc/scan_cluster.cuh ``make_cluster_plan``):
+# a block of 256 threads owns up to 64 states of the cluster's R rows
+# (R from _CLUSTER_ROWS), each thread up to _CLUSTER_REG_ROWS[R] slice
+# rows in registers.
+_CLUSTER_COLS, _CLUSTER_WARPS = 64, 8
+_CLUSTER_ROWS = (1, 2, 4, 8, 12)
+_CLUSTER_REG_ROWS = {1: 64, 2: 64, 4: 64, 8: 64, 12: 80}
+# each of the four scans' counters on the block tile -> on the cluster tile
+_CLUSTER_COUNTERS = {"fwd_scaled": "fwd_scaled_cluster",
+                     "fwd_chunk_tile": "fwd_chunk_cluster",
+                     "bwd_scaled": "bwd_scaled_cluster",
+                     "bwd_chunk_tile": "bwd_chunk_cluster"}
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -332,9 +359,13 @@ def load_library() -> ctypes.CDLL:
         lib.tehmm_bwd_prob.restype = i32
         lib.tehmm_bwd_prob.argtypes = [ptr] * 4 + [i64, i64, i32, ptr]
         lib.tehmm_fwd_scaled.restype = i32
-        lib.tehmm_fwd_scaled.argtypes = [ptr] * 6 + [i64, i64, i32, ptr]
+        lib.tehmm_fwd_scaled.argtypes = [ptr] * 6 + [i64, i64, i32, i32,
+                                                     ptr]
         lib.tehmm_bwd_scaled.restype = i32
-        lib.tehmm_bwd_scaled.argtypes = [ptr] * 5 + [i64, i64, i32, ptr]
+        lib.tehmm_bwd_scaled.argtypes = [ptr] * 5 + [i64, i64, i32, i32,
+                                                     ptr]
+        lib.tehmm_scan_cluster_plan.restype = i32
+        lib.tehmm_scan_cluster_plan.argtypes = [i32, i64, i32, ptr]
         lib.tehmm_viterbi_ptrs.restype = i32
         lib.tehmm_viterbi_ptrs.argtypes = [ptr] * 7 + [i64, i64, i32, ptr]
         lib.tehmm_pointer_chase.restype = i32
@@ -343,9 +374,11 @@ def load_library() -> ctypes.CDLL:
         lib.tehmm_viterbi_carry_tile.argtypes = (
             [ptr] * 6 + [i64, i64, i32, ptr])
         lib.tehmm_fwd_chunk_tile.restype = i32
-        lib.tehmm_fwd_chunk_tile.argtypes = [ptr] * 7 + [i64, i64, i32, ptr]
+        lib.tehmm_fwd_chunk_tile.argtypes = [ptr] * 7 + [i64, i64, i32,
+                                                         i32, ptr]
         lib.tehmm_bwd_chunk_tile.restype = i32
-        lib.tehmm_bwd_chunk_tile.argtypes = [ptr] * 7 + [i64, i64, i32, ptr]
+        lib.tehmm_bwd_chunk_tile.argtypes = [ptr] * 7 + [i64, i64, i32,
+                                                         i32, ptr]
         lib.tehmm_maxplus_sweeps.restype = i32
         lib.tehmm_maxplus_sweeps.argtypes = (
             [ptr] * 3 + [i32, i64, i32, ptr])
@@ -1640,7 +1673,7 @@ def _fwd_chunk(log_trans, obs, a_hat_init, lengths, values):
                                          device=dev)
     if B and x1_step(S) == "tile":
         trans_p = torch.exp(log_trans)
-        _launch_streaming("fwd_chunk_tile", "tehmm_fwd_chunk_tile", (
+        _launch_scan("fwd_chunk_tile", "tehmm_fwd_chunk_tile", S, (
             obs.data_ptr(), a_hat_init.data_ptr(), lengths.data_ptr(),
             trans_p.data_ptr(), None if hats is None else hats.data_ptr(),
             carry.data_ptr(), None if dm is None else dm.data_ptr(), B, L,
@@ -1668,10 +1701,11 @@ def forward_chunk_values(log_trans, obs, a_hat_init, lengths):
     memory to 239), obs read ahead of the chain (a cp.async ring in
     shared memory, or registers a few positions ahead), the row stopped
     at its length; beyond, K7a's tile in carry mode (``csrc/scans.cu``
-    ``fwd_scaled_kernel``), counted as ``fwd_chunk_tile``.  Each kernel
-    sums every product in an order that depends on S alone, so a sweep
-    cut into chunks gives the bits of one chunk, and every mode ends in
-    the same carry."""
+    ``fwd_scaled_kernel``), counted as ``fwd_chunk_tile``, and from 257
+    states the cluster tile's (counted as ``fwd_chunk_cluster``).  Each
+    kernel sums every product in an order that depends on S alone, so a
+    sweep cut into chunks gives the bits of one chunk, and every mode ends
+    in the same carry."""
     return _fwd_chunk(log_trans, obs, a_hat_init, lengths, True)
 
 
@@ -1907,7 +1941,8 @@ def backward_chunk_values(log_trans, obs, x_carry, continuing, lengths):
     same step, so a sweep cut into chunks gives the bits of one chunk over
     the whole row); beyond ``sweep_fits(S)`` K7b's tile in carry mode
     (``csrc/scans.cu`` ``bwd_scaled_kernel``: the boundary step and x_out
-    inside the same kernel), counted as ``bwd_chunk_tile``."""
+    inside the same kernel), counted as ``bwd_chunk_tile``; from 257
+    states the cluster tile's (``bwd_chunk_cluster``)."""
     B, L, S = obs.shape
     dev = _check_backward(log_trans, obs, x_carry, continuing, lengths)
     if L == 0:
@@ -1926,7 +1961,7 @@ def backward_chunk_values(log_trans, obs, x_carry, continuing, lengths):
         return beta, x_out
     cont = continuing.to(torch.int32)
     trans_t = torch.exp(log_trans).T.contiguous()
-    _launch_streaming("bwd_chunk_tile", "tehmm_bwd_chunk_tile", (
+    _launch_scan("bwd_chunk_tile", "tehmm_bwd_chunk_tile", S, (
         obs.data_ptr(), x_carry.data_ptr(), cont.data_ptr(),
         lengths.data_ptr(), trans_t.data_ptr(), beta.data_ptr(),
         x_out.data_ptr(), B, L, S), dev)
@@ -2180,6 +2215,87 @@ def backward_prob(log_trans, obs_p, lengths):
 # K7/K8: the log-space scaled scans and the pointer-writing Viterbi
 # ---------------------------------------------------------------------
 
+def scan_route(S: int) -> str:
+    """The log-space scans' tile at S states (``forward_scaled``,
+    ``backward_scaled`` and X1's and X2's carry modes): ``"narrow"`` (the
+    block tile, to 256 states), ``"cluster"`` (the cluster tile, from 257
+    to ``SCAN_CLUSTER_MAX_STATES``), else ``"staged"`` (the block tile's
+    wide form, to 1024)."""
+    if S <= 256:
+        return "narrow"
+    return "cluster" if S <= SCAN_CLUSTER_MAX_STATES else "staged"
+
+
+def cluster_plan(S: int, B: int, backward: bool, active) -> dict:
+    """The cluster tile's plan at S states and B rows, as csrc/
+    scan_cluster.cuh ``make_cluster_plan`` makes it: C = ceil(S / 64)
+    blocks a cluster, each owning Sc = ceil(S / C) states rounded up to 4;
+    R rows a cluster; the block's column slice of the matrix, its rows
+    below n_res in shared memory and the n_reg after them (to S & ~3) in
+    registers, the last S % 4 in shared memory; smem bytes a block (the
+    mbarriers, the state vectors [C Sc][R], the slice, the maxima of 8
+    warps and of the cluster's C blocks, two buffers of those in the
+    backward, and the lengths);
+    clusters of the grid.  ``active(R, smem)`` is the card's active
+    clusters of the kernel at R (the launch asks
+    ``cudaOccupancyMaxActiveClusters``).  R is the fewest rows whose
+    clusters the card holds in one wave, else the most that fit; an R fits
+    where n_reg <= 4 * ``_CLUSTER_REG_ROWS[R]`` (256, 320 at R = 12) and a
+    cluster is active.  Raises where none fits."""
+    if not 256 < S <= STREAMING_MAX_STATES:
+        raise ValueError(f"the cluster tile takes 257 to "
+                         f"{STREAMING_MAX_STATES} states, got {S}")
+    C = -(-S // _CLUSTER_COLS)
+    Sc = (-(-S // C) + 3) & ~3
+    S4 = S & ~3
+    n_max = 2 if backward else 1
+    plan, chosen_active = None, 0
+    for R in _CLUSTER_ROWS:
+        fixed = (8 + C * Sc * R + (S & 3) * Sc + _CLUSTER_WARPS * R
+                 + n_max * C * R + R + 1)
+        room = _SMEM_LIMIT // 4 - fixed
+        if room < 0:
+            continue
+        n_res = min(S4, (room // Sc) & ~3)
+        if S4 - n_res > 4 * _CLUSTER_REG_ROWS[R]:
+            continue
+        smem = 4 * (fixed + n_res * Sc)
+        n = active(R, smem)
+        if n < 1:
+            continue
+        # the first R that fits, replaced while it spills past one wave
+        if plan is None or plan["clusters"] > chosen_active:
+            plan = dict(C=C, Sc=Sc, R=R, n_res=n_res, n_reg=S4 - n_res,
+                        smem=smem, clusters=-(-B // R))
+            chosen_active = n
+    if plan is None:
+        raise RuntimeError(f"the cluster tile has no plan at S={S}")
+    return plan
+
+
+def library_cluster_plan(S: int, B: int, backward: bool) -> dict:
+    """The plan the card's launch takes (``tehmm_scan_cluster_plan``):
+    ``cluster_plan``'s keys and ``active``, the card's active clusters at
+    each R of ``_CLUSTER_ROWS``.  Needs the card."""
+    lib = load_library()
+    out = (ctypes.c_int64 * (7 + len(_CLUSTER_ROWS)))()
+    _raise_on(lib.tehmm_scan_cluster_plan(S, B, int(backward), out), lib,
+              "the cluster tile's plan")
+    keys = ("C", "Sc", "R", "n_res", "n_reg", "smem", "clusters")
+    plan = dict(zip(keys, (int(v) for v in out[:7])))
+    plan["active"] = [int(v) for v in out[7:]]
+    return plan
+
+
+def _launch_scan(name, entry, S, args, dev):
+    """Launch one of the log-space scans' four entries: the cluster tile
+    where ``scan_route(S)`` says so, counted under ``name``'s cluster
+    counter, else the block tile, counted under ``name``."""
+    cluster = scan_route(S) == "cluster"
+    _launch_streaming(_CLUSTER_COUNTERS[name] if cluster else name, entry,
+                      (*args, int(cluster)), dev)
+
+
 def forward_scaled_plain(log_start, log_trans, obs, lengths,
                          dtype=torch.float32):
     """Plain version of ``forward_scaled``: ``dp.forward_scaled`` (the
@@ -2209,19 +2325,23 @@ def forward_scaled(log_start, log_trans, obs, lengths):
     (``csrc/scans.cu``): K6a's tile (``csrc/scan_tile.cuh``) with the
     row's log values in registers and their exp as the tile's state
     vectors; each output's sum is four interleaved FMA chains in an order
-    that depends on S alone (repeats give the same bits).  Takes
-    S <= 1024."""
+    that depends on S alone (repeats give the same bits).  From 257
+    states (``scan_route``) the cluster tile (``csrc/scan_cluster.cuh``,
+    counted as ``fwd_scaled_cluster``): a cluster of up to 16 blocks
+    shares a row group's states, each block's slice of exp(log_trans)
+    resident for the whole scan and the state vector exchanged through
+    distributed shared memory, with the same bits.  Takes S <= 1024."""
     dev = _check_streaming(log_trans, obs, lengths, "obs", "forward_scaled",
                            log_start)
-    if dev.type == "cpu":
+    if _device_kind(dev) == "cpu":
         return forward_scaled_plain(log_start, log_trans, obs, lengths)
     B, L, S = obs.shape
     alpha = torch.empty((B, L, S), dtype=torch.float32, device=dev)
     dm = torch.empty((B, L), dtype=torch.float32, device=dev)
     if B:
         trans_p = torch.exp(log_trans)
-        _launch_streaming(
-            "fwd_scaled", "tehmm_fwd_scaled",
+        _launch_scan(
+            "fwd_scaled", "tehmm_fwd_scaled", S,
             (obs.data_ptr(), lengths.data_ptr(), log_start.data_ptr(),
              trans_p.data_ptr(), alpha.data_ptr(), dm.data_ptr(), B, L, S),
             dev)
@@ -2251,17 +2371,18 @@ def backward_scaled(log_trans, obs, lengths):
     kernel ``_backward_kernel_v2`` :934), which returns beta_hat only.
     Bound and design as ``forward_scaled``, with two max reductions a
     step; the kernel is handed exp(log_trans) transposed and reads obs as
-    it is, from the end.  Takes S <= 1024."""
+    it is, from the end; from 257 states on the cluster tile (counted as
+    ``bwd_scaled_cluster``).  Takes S <= 1024."""
     dev = _check_streaming(log_trans, obs, lengths, "obs", "backward_scaled")
-    if dev.type == "cpu":
+    if _device_kind(dev) == "cpu":
         return backward_scaled_plain(log_trans, obs, lengths)
     B, L, S = obs.shape
     beta = torch.empty((B, L, S), dtype=torch.float32, device=dev)
     dm = torch.empty((B, L), dtype=torch.float32, device=dev)
     if B:
         trans_pt = torch.exp(log_trans).T.contiguous()
-        _launch_streaming(
-            "bwd_scaled", "tehmm_bwd_scaled",
+        _launch_scan(
+            "bwd_scaled", "tehmm_bwd_scaled", S,
             (obs.data_ptr(), lengths.data_ptr(), trans_pt.data_ptr(),
              beta.data_ptr(), dm.data_ptr(), B, L, S), dev)
     log_d = torch.flip(torch.cumsum(torch.flip(dm, [1]), dim=1), [1])

@@ -1,23 +1,34 @@
 """Times the scan tile's kernels alone, on ``bench_engines``' shapes.
 
     python -m tehmm_tpu_torch.tools.time_scans [--configs S20,S64]
-        [--batch B] [--reps 5] [--device cuda|cpu]
+        [--batch B] [--sweeps 512,1024] [--sweep-rows 4]
+        [--sweep-length 4096] [--reps 5] [--device cuda|cpu]
 
 K5 (``viterbi_values``), K6a/K6b (``forward_prob``, ``backward_prob``),
 K7a/K7b (``forward_scaled``, ``backward_scaled``) and K8c
 (``viterbi_pointers``) on the obs tensor of each ``bench_engines.CONFIGS``
 shape (every row full length; ``--batch`` replaces the shape's rows, to
-reach the tile's other row choice).  The first line names the device;
-then one JSON object a shape: the shape and each kernel's median ms of
-``reps`` synchronised calls.  It uses nothing but the wrappers and
+reach the tile's other row choice).  Past 256 states K7a and K7b run the
+cluster tile, and are timed again with the staged wide tile forced
+(``K7a_staged``, ``K7b_staged``: ``cuda_kernels.SCAN_CLUSTER_MAX_STATES``
+set to 0, then restored).  ``--sweeps`` times X1's and X2's carry modes
+(``forward_chunk_values``, ``backward_chunk_values``) at each S on
+``--sweep-rows`` full rows of ``--sweep-length`` (3f's ``--pd`` and score
+shapes), the same two ways, and on the card the forward's cluster plan
+(``plan``).  Each kernel's ``*_us`` is its microseconds a step (a
+position).  The first line names the device; then one JSON
+object a shape: the shape and each kernel's median ms of ``reps``
+synchronised calls.  It uses nothing but the wrappers and
 ``bench_engines``' inputs, so the same file times an older checkout of
-the port for a comparison in one process each.  On the CPU each wrapper
+the port for a comparison in one process each (where the checkout has no
+cluster tile, no ``_staged`` keys are written).  On the CPU each wrapper
 runs its plain version: the lines then time nothing of the card.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import sys
 import time
@@ -26,6 +37,7 @@ import numpy as np
 import torch
 
 from tehmm_tpu_torch.models.emission import track_log_likelihoods
+from tehmm_tpu_torch.models.params import from_numpy
 from tehmm_tpu_torch.ops import cuda_kernels as ck
 from tehmm_tpu_torch.ops import dp
 from tehmm_tpu_torch.tools import bench_engines
@@ -43,6 +55,44 @@ def median_ms(fn, device, reps):
             torch.cuda.synchronize(device)
         times.append((time.perf_counter() - t0) * 1e3)
     return float(np.median(times))
+
+
+@contextlib.contextmanager
+def staged_tile():
+    """The staged wide tile forced for the log-space scans past 256
+    states (``SCAN_CLUSTER_MAX_STATES`` = 0), restored after; nothing in a
+    checkout without the cluster tile."""
+    old = getattr(ck, "SCAN_CLUSTER_MAX_STATES", None)
+    if old is not None:
+        ck.SCAN_CLUSTER_MAX_STATES = 0
+    try:
+        yield
+    finally:
+        if old is not None:
+            ck.SCAN_CLUSTER_MAX_STATES = old
+
+
+def _time(row, calls, device, reps, L, staged):
+    """Each call's median ms into ``row`` (and its us a step for those
+    named in ``staged``), then again with the staged tile forced for
+    those, under ``name_staged``, where the checkout has the cluster
+    tile; on the card then also the forward's cluster plan (rows and
+    clusters, and the clusters the card holds at each R)."""
+    for name, fn in calls.items():
+        fn()  # the first call builds and opts in to shared memory
+        row[name] = median_ms(fn, device, reps)
+    has_cluster = hasattr(ck, "SCAN_CLUSTER_MAX_STATES")
+    if staged and has_cluster and device.type == "cuda":
+        row["plan"] = ck.library_cluster_plan(row.get("S", row.get("sweep")),
+                                              row["B"], False)
+    for name in staged:
+        row[name + "_us"] = row[name] * 1e3 / L
+        if has_cluster:
+            with staged_tile():
+                calls[name]()
+                row[name + "_staged"] = median_ms(calls[name], device, reps)
+            row[name + "_staged_us"] = row[name + "_staged"] * 1e3 / L
+    return row
 
 
 def time_config(config, batch, device, reps):
@@ -63,23 +113,57 @@ def time_config(config, batch, device, reps):
         "K8c": lambda: ck.viterbi_pointers(ls, lt, obs, lens),
     }
     row = {"config": config, "S": S, "B": B, "L": L}
-    for name, fn in calls.items():
-        fn()  # the first call builds and opts in to shared memory
-        row[name] = median_ms(fn, device, reps)
-    return row
+    return _time(row, calls, device, reps, L,
+                 ("K7a", "K7b") if S > 256 else ())
+
+
+def time_sweeps(S, B, L, device, reps, T=5, V=9):
+    """X1's and X2's carry modes (values) at S states on B full rows of
+    L, from a carry (a random row less its max) on a sticky random model
+    of T tracks of V symbols, its obs from random symbols."""
+    rng = np.random.RandomState(S)
+    trans = rng.dirichlet(np.ones(S), size=S) * 0.05 + np.eye(S) * 0.95
+    log_em = np.zeros((S, T, V))
+    for t in range(T):
+        log_em[:, t, 1:] = np.log(rng.dirichlet(np.ones(V - 1), size=S))
+    p = from_numpy(np.log(np.full(S, 1.0 / S)), np.log(trans), log_em,
+                   device)
+    sym = torch.from_numpy(
+        rng.randint(0, V, size=(B, L, T)).astype(np.int32)).to(device)
+    obs = track_log_likelihoods(p.log_em, sym)
+    del sym
+    init = torch.from_numpy(rng.randn(B, S).astype(np.float32)).to(device)
+    init = init - init.amax(dim=-1, keepdim=True)
+    lens = torch.full((B,), L, dtype=torch.int32, device=device)
+    cont = torch.zeros(B, dtype=torch.bool, device=device)
+    lt = p.log_trans
+    calls = {
+        "X1": lambda: ck.forward_chunk_values(lt, obs, init, lens),
+        "X2": lambda: ck.backward_chunk_values(lt, obs, init, cont, lens),
+    }
+    row = {"sweep": S, "B": B, "L": L}
+    return _time(row, calls, device, reps, L, ("X1", "X2"))
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--configs", default="S20,S64,S128,S256")
     ap.add_argument("--batch", type=int, default=0)
+    ap.add_argument("--sweeps", default="",
+                    help="comma-separated S for X1's and X2's carry modes")
+    ap.add_argument("--sweep-rows", type=int, default=4)
+    ap.add_argument("--sweep-length", type=int, default=4096)
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     device = resolve_device(args.device)
     print(bench_engines.device_line(device), flush=True)
-    for config in args.configs.split(","):
+    for config in filter(None, args.configs.split(",")):
         print(json.dumps(time_config(config, args.batch, device, args.reps)),
+              flush=True)
+    for S in filter(None, args.sweeps.split(",")):
+        print(json.dumps(time_sweeps(int(S), args.sweep_rows,
+                                     args.sweep_length, device, args.reps)),
               flush=True)
     return 0
 

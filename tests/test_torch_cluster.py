@@ -1,0 +1,175 @@
+"""The cluster tile of the log-space scans past 256 states on the CPU:
+its plan (``cuda_kernels.cluster_plan``, the mirror of csrc/
+scan_cluster.cuh ``make_cluster_plan``), the route by S
+(``scan_route``, ``SCAN_CLUSTER_MAX_STATES``) and the launches of
+``forward_scaled``, ``backward_scaled`` and X1's and X2's carry modes,
+faked (no card here).  The kernels themselves are held to the staged
+tile bit for bit on the card (tests_cuda/test_cuda_large_s.py,
+test_cuda_scans.py); the plain versions past 256 states to the JAX
+package in tests/test_torch_scans.py and tests/test_torch_envelopes.py."""
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from tehmm_tpu_torch.ops import cuda_kernels as ck  # noqa: E402
+
+SMEM_LIMIT = 232448     # bytes a block may opt in to on an H100
+R_BYTES = 4             # a state value of one row
+H100_SMS = 132
+
+
+def _active(C):
+    """Clusters of C blocks an H100 could hold at one block an SM: a
+    stand-in for cudaOccupancyMaxActiveClusters."""
+    return lambda R, smem: H100_SMS // C
+
+
+@pytest.mark.parametrize("backward", [False, True])
+@pytest.mark.parametrize("B", [1, 4, 64, 128, 1000])
+def test_plan_fits_every_state_count(B, backward):
+    """From 257 to 1024 states: C = ceil(S / 64) blocks of Sc <= 64
+    states (a multiple of 4: a block's part of the state vector is whole
+    16-byte pieces) cover S, the last block at least one; the slice's rows
+    split into shared memory (a multiple of 4) and registers (at most 64
+    a thread, 80 at 12 rows) to S & ~3; the shared memory fits a block's
+    227 KB; R is the fewest rows whose clusters fit in one wave, else the
+    most."""
+    for S in range(257, 1025):
+        C = -(-S // 64)
+        active = H100_SMS // C
+        plan = ck.cluster_plan(S, B, backward, _active(C))
+        assert plan["C"] == C <= 16
+        assert plan["Sc"] == (-(-S // C) + 3) // 4 * 4 <= 64
+        assert plan["Sc"] * R_BYTES % 16 == 0
+        assert C * plan["Sc"] >= S > (C - 1) * plan["Sc"]
+        assert plan["n_res"] % 4 == 0
+        assert plan["n_res"] + plan["n_reg"] == S & ~3
+        assert 0 <= plan["n_reg"] <= (320 if plan["R"] == 12 else 256)
+        assert plan["smem"] <= SMEM_LIMIT
+        R = plan["R"]
+        assert plan["clusters"] == -(-B // R)
+        fits = [r for r in (1, 2, 4, 8, 12) if -(-B // r) <= active]
+        assert R == (fits[0] if fits else 12), (S, B)
+        # the state vectors, the slice and the maxima in the bytes
+        n_max = 2 if backward else 1
+        floats = 8 + C * plan["Sc"] * R + plan["n_res"] * plan["Sc"] \
+            + (S & 3) * plan["Sc"] + 8 * R + n_max * C * R + R + 1
+        assert plan["smem"] == 4 * floats
+
+
+@pytest.mark.parametrize("S,n_reg", [(768, 0), (800, 0), (1000, 224),
+                                     (1024, 248)])
+def test_plan_holds_the_slice_past_shared_memory_in_registers(S, n_reg):
+    """Eight rows a cluster: to about 800 states every block's slice sits
+    in shared memory beside the state vectors; at 1000 to 1024 the rows
+    that do not fit (a quarter) are held in registers."""
+    plan = ck.cluster_plan(S, 64, False, _active(-(-S // 64)))
+    assert plan["R"] == 8 and plan["n_reg"] == n_reg
+
+
+def test_plan_takes_the_most_rows_past_one_wave_and_raises_without_one():
+    plan = ck.cluster_plan(1024, 10_000, True, lambda R, smem: 8)
+    assert plan["R"] == 12 and plan["clusters"] == 834
+    # the S1024 bench shape, 64 rows, in the 7 clusters of 16 an H100
+    # holds: 12 rows a cluster, one wave
+    plan = ck.cluster_plan(1024, 64, False, lambda R, smem: 7)
+    assert plan["R"] == 12 and plan["clusters"] == 6 and plan["n_reg"] == 316
+    # an R the card cannot hold at all is never chosen
+    plan = ck.cluster_plan(600, 3, False,
+                           lambda R, smem: 0 if R < 4 else 2)
+    assert plan["R"] == 4 and plan["clusters"] == 1
+    with pytest.raises(RuntimeError, match="no plan"):
+        ck.cluster_plan(600, 3, False, lambda R, smem: 0)
+    for S in (256, 1025):
+        with pytest.raises(ValueError, match="257 to 1024"):
+            ck.cluster_plan(S, 3, False, lambda R, smem: 1)
+
+
+@pytest.mark.parametrize("S,route", [(1, "narrow"), (256, "narrow"),
+                                     (257, "cluster"), (1024, "cluster")])
+def test_scan_route_by_states(monkeypatch, S, route):
+    """The block tile to 256 states, the cluster tile beyond; 0 in
+    ``SCAN_CLUSTER_MAX_STATES`` forces the staged tile past 256."""
+    assert ck.SCAN_CLUSTER_MAX_STATES == 1024
+    assert ck.scan_route(S) == route
+    monkeypatch.setattr(ck, "SCAN_CLUSTER_MAX_STATES", 0)
+    assert ck.scan_route(S) == ("narrow" if S <= 256 else "staged")
+
+
+def _fake_card(monkeypatch):
+    launched = []
+    monkeypatch.setattr(ck, "_device_kind", lambda dev: "cuda")
+    monkeypatch.setattr(ck, "_launch_streaming",
+                        lambda name, entry, args, dev:
+                        launched.append((name, entry, args[-1])))
+    return launched
+
+
+@pytest.mark.parametrize("force_staged", [False, True])
+@pytest.mark.parametrize("S", [10, 256, 257, 640, 1024])
+def test_launches_are_counted_by_tile(monkeypatch, S, force_staged):
+    """Each of the four entries launches once a call (X1's and X2's
+    checkpoint modes past 239 states once a chunk), with the cluster flag
+    and under the cluster tile's own counter from 257 states, under the
+    block tile's counter below and where the staged tile is forced."""
+    launched = _fake_card(monkeypatch)
+    if force_staged:
+        monkeypatch.setattr(ck, "SCAN_CLUSTER_MAX_STATES", 0)
+    B, L, chunk = 3, 10, 4
+    lt, ls = torch.zeros((S, S)), torch.zeros(S)
+    obs, carry = torch.zeros((B, L, S)), torch.zeros((B, S))
+    lens = torch.full((B,), L, dtype=torch.int32)
+    cont = torch.ones(B, dtype=torch.bool)
+    ck.forward_scaled(ls, lt, obs, lens)
+    ck.backward_scaled(lt, obs, lens)
+    cluster = int(S > 256 and not force_staged)
+    suffix = ("_cluster", "_cluster") if cluster else ("", "_tile")
+    want = [("fwd_scaled" + suffix[0], "tehmm_fwd_scaled", cluster),
+            ("bwd_scaled" + suffix[0], "tehmm_bwd_scaled", cluster)]
+    if not ck.sweep_fits(S):
+        ck.forward_chunk_values(lt, obs, carry, lens)
+        ck.forward_checkpoints(lt, obs, carry, lens, chunk)
+        ck.backward_chunk_values(lt, obs, carry, cont, lens)
+        ck.backward_checkpoints(lt, obs, carry, cont, lens, chunk)
+        fwd = ("fwd_chunk" + suffix[1], "tehmm_fwd_chunk_tile", cluster)
+        bwd = ("bwd_chunk" + suffix[1], "tehmm_bwd_chunk_tile", cluster)
+        want += [fwd] * (1 + 3) + [bwd] * (1 + 3)
+    assert launched == want
+
+
+def test_the_forcing_constant_is_restored(monkeypatch):
+    """Tests and tools set ``SCAN_CLUSTER_MAX_STATES`` and restore it."""
+    from tehmm_tpu_torch.tools import time_scans
+
+    with time_scans.staged_tile():
+        assert ck.SCAN_CLUSTER_MAX_STATES == 0
+        assert ck.scan_route(1024) == "staged"
+    assert ck.SCAN_CLUSTER_MAX_STATES == 1024
+    with pytest.raises(KeyError):
+        with time_scans.staged_tile():
+            raise KeyError("a failed run")
+    assert ck.SCAN_CLUSTER_MAX_STATES == 1024
+
+
+def test_time_scans_sweep_rows(capsys):
+    """``tools.time_scans --sweeps``: one row an S with X1's and X2's
+    carry modes, each with its us a step and again with the staged tile
+    forced (the plain versions here); the constant is restored."""
+    import json
+
+    from tehmm_tpu_torch.tools import time_scans
+
+    assert time_scans.main(["--configs", "", "--sweeps", "260", "--device",
+                            "cpu", "--reps", "1", "--sweep-rows", "2",
+                            "--sweep-length", "5"]) == 0
+    out = capsys.readouterr().out.splitlines()
+    assert out[0] == "# device: cpu"
+    (row,) = [json.loads(line) for line in out[1:]]
+    assert (row["sweep"], row["B"], row["L"]) == (260, 2, 5)
+    for k in ("X1", "X2"):
+        assert row[k] > 0 and row[k + "_staged"] > 0
+        assert row[k + "_us"] == pytest.approx(row[k] * 1e3 / 5)
+        assert row[k + "_staged_us"] == pytest.approx(
+            row[k + "_staged"] * 1e3 / 5)
+    assert ck.SCAN_CLUSTER_MAX_STATES == 1024

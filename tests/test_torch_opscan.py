@@ -293,9 +293,10 @@ def test_forward_loglik_takes_the_pieces_to_their_crossover(monkeypatch, S):
     elif ck.sweep_fits(S):
         assert [x[:2] for x in launched] == [("fwd_chunk",
                                               "tehmm_x1_sweep_smem")]
-    else:
+    else:   # past 256 states on the cluster tile
         assert [x[:2] for x in launched] == [
-            ("fwd_chunk_tile", "tehmm_fwd_chunk_tile")]
+            ("fwd_chunk_cluster" if S > 256 else "fwd_chunk_tile",
+             "tehmm_fwd_chunk_tile")]
 
 
 @pytest.mark.parametrize("S,rows", [

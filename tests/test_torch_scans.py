@@ -71,6 +71,8 @@ CASES = {
     "ragged": dict(S=5, L=37, lengths=[37, 20, 7, 1, 0]),
     "zero_trans": dict(S=5, L=40, lengths=[40, 13, 1, 0], zero_frac=0.3),
     "S72": dict(S=72, L=9, lengths=[9, 5, 1, 0], T=1),
+    # past 256 states: the cluster tile's S on the card
+    "S260": dict(S=260, L=6, lengths=[6, 3, 1, 0], T=1),
 }
 
 
@@ -137,7 +139,7 @@ def test_viterbi_pointers_match_jax(rng, make_hmm, case, jax_fn):
     want_p, want_s = fn(_j(ls), _j(lt), _j(obs), _j(lens))
     args = (_t(ls), _t(lt), _t(obs), _t(lens))
     ptrs, v_last, dm = ck.viterbi_pointers(*args)
-    assert ptrs.dtype == torch.uint8
+    assert ptrs.dtype == ck.pointer_dtype(CASES[case]["S"])   # uint8 to 256
     v, vdm = ck.viterbi_values_plain(*args)
     assert torch.equal(v_last, v[:, -1]) and torch.equal(dm, vdm)
     path, score = tdp.viterbi_backpointers(*args)

@@ -253,10 +253,14 @@ def test_x1_step_by_states(monkeypatch, S):
     ck.forward_final(*args)
     ck.forward_checkpoints(*args, chunk)
     if step == "tile":
-        tile = ("fwd_chunk_tile", "tehmm_fwd_chunk_tile")
+        # past 256 states the cluster tile, under its own counter
+        cluster = int(ck.scan_route(S) == "cluster")
+        assert cluster == (S > 256)
+        tile = ("fwd_chunk_cluster" if cluster else "fwd_chunk_tile",
+                "tehmm_fwd_chunk_tile")
         assert [x[:2] for x in launched] == [tile] * (2 + 3)
-        assert [x[2] for x in launched] == [(B, L, S)] * 2 + \
-            [(B, 4, S), (B, 4, S), (B, 2, S)]
+        assert [x[2] for x in launched] == [(B, L, S, cluster)] * 2 + \
+            [(B, 4, S, cluster), (B, 4, S, cluster), (B, 2, S, cluster)]
     else:
         entry = {"lanes": "tehmm_x1_sweep_lanes",
                  "shared": "tehmm_x1_sweep_smem"}[step]

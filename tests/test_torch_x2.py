@@ -149,10 +149,15 @@ def test_x2_step_by_states(monkeypatch, S):
     ck.backward_chunk_values(*args)
     ck.backward_checkpoints(*args, chunk)
     if step == "tile":
-        tile = ("bwd_chunk_tile", "tehmm_bwd_chunk_tile")
+        # past 256 states the cluster tile, under its own counter
+        cluster = int(ck.scan_route(S) == "cluster")
+        assert cluster == (S > 256)
+        tile = ("bwd_chunk_cluster" if cluster else "bwd_chunk_tile",
+                "tehmm_bwd_chunk_tile")
         assert [x[:2] for x in launched] == [tile] * (1 + 3)
-        assert [x[2] for x in launched] == [(B, L, S), (B, 2, S),
-                                            (B, 4, S), (B, 4, S)]
+        assert [x[2] for x in launched] == [
+            (B, L, S, cluster), (B, 2, S, cluster), (B, 4, S, cluster),
+            (B, 4, S, cluster)]
     else:
         entry = {"lanes": "tehmm_x2_sweep_lanes",
                  "shared": "tehmm_x2_sweep_smem"}[step]

@@ -16,7 +16,13 @@ within 2e-6, K7 and X1/X2 within 1e-5 plus 4 float32 ulps of the largest
 the same bits.  S = 257, 300, 511 take two states a thread (the second
 only for the first S - 256 threads), 512 two of every thread, 767, 1023
 and 1024 four; S = 300 also runs with four rows a block (a batch past
-one wave of blocks)."""
+one wave of blocks).
+
+From 257 states K7a/K7b and X1's and X2's carry modes run the cluster
+tile (csrc/scan_cluster.cuh): each must equal the staged tile (forced,
+``ck.SCAN_CLUSTER_MAX_STATES`` = 0) bit for bit, at every S, row count
+(one wave of clusters and past it) and length, and a launch the card
+refuses raises."""
 
 import numpy as np
 import pytest
@@ -200,7 +206,8 @@ def test_carried_sweeps_match_plain(device, rng, S, zero_frac):
                                            dtype=F64)
     torch.testing.assert_close(beta, r_beta.float(), rtol=0, atol=lim)
     torch.testing.assert_close(x_out, r_x.float(), rtol=0, atol=lim)
-    suffix = "_tile" if tile else ""
+    # X1's and X2's carry modes past 256 states on the cluster tile
+    suffix = ("_cluster" if S > 256 else "_tile") if tile else ""
     assert ck.LAUNCHES["viterbi_chunk" + ("_tile" if tile else "_values")] \
         == before["viterbi_chunk" + ("_tile" if tile else "_values")] + 2
     assert ck.LAUNCHES["fwd_chunk" + suffix] == \
@@ -273,8 +280,9 @@ def test_posterior_sweep_chunked_equals_one_chunk(device, rng):
     before = dict(ck.LAUNCHES)
     for c, w in zip(gammas(64), gammas(1 << 14)):
         np.testing.assert_array_equal(c, w)
-    assert ck.LAUNCHES["fwd_chunk_tile"] > before["fwd_chunk_tile"]
-    assert ck.LAUNCHES["bwd_chunk_tile"] > before["bwd_chunk_tile"]
+    # at S = 300 X1's and X2's carry modes run the cluster tile
+    assert ck.LAUNCHES["fwd_chunk_cluster"] > before["fwd_chunk_cluster"]
+    assert ck.LAUNCHES["bwd_chunk_cluster"] > before["bwd_chunk_cluster"]
     tabs = [TrackTable("chr1", 0, len(s), s) for s in syms]
     on_cpu = from_numpy(*_model(np.random.RandomState(0), S, 3, 6), "cpu")
     on_gpu = from_numpy(*_model(np.random.RandomState(0), S, 3, 6), device)
@@ -361,3 +369,200 @@ def test_envelope_raises_naming_its_item(device):
                  lambda: em.resolve_engine("auto", S, 3, 6, 0, device)):
         with pytest.raises(NotImplementedError, match="tile beyond 1024"):
             call()
+
+
+# ---------------------------------------------------------------------
+# the cluster tile against the staged tile, bit for bit
+# ---------------------------------------------------------------------
+
+CLUSTER_STATES = [257, 300, 511, 512, 640, 1000, 1023, 1024]
+CLUSTER_ROWS = [1, 4, 64, 128]
+
+
+def _cluster_inputs(rng, device, S, B, L, zero_frac):
+    """A random model (``zero_frac`` of the transitions zero) and obs of
+    B rows of L, ragged: L, 0, 1, then lengths drawn in [0, L]."""
+    ls, lt, lem = (torch.from_numpy(x).to(device) for x in
+                   _model(rng, S, 3, 6, zero_frac))
+    sym = torch.from_numpy(
+        rng.randint(0, 6, size=(B, L, 3)).astype(np.int32)).to(device)
+    from tehmm_tpu_torch.models.emission import track_log_likelihoods
+
+    obs = track_log_likelihoods(lem, sym)
+    lengths = rng.randint(0, L + 1, size=B).astype(np.int32)
+    lengths[:3] = [L, 0, 1][:B]
+    init = torch.from_numpy(rng.randn(B, S).astype(np.float32)).to(device)
+    init = init - init.amax(dim=-1, keepdim=True)
+    # a row continues past the chunk only where it fills it
+    cont = torch.from_numpy((rng.rand(B) < 0.5) & (lengths == L)).to(device)
+    return ls, lt, obs, torch.from_numpy(lengths).to(device), init, cont
+
+
+def _both_tiles(monkeypatch, fn):
+    """fn() on the cluster tile, then on the staged tile forced; each
+    tile's counters moved as they should."""
+    before = dict(ck.LAUNCHES)
+    got = fn()
+    cluster = {k for k in ck.LAUNCHES if ck.LAUNCHES[k] != before[k]}
+    with monkeypatch.context() as m:
+        m.setattr(ck, "SCAN_CLUSTER_MAX_STATES", 0)
+        before = dict(ck.LAUNCHES)
+        want = fn()
+        staged = {k for k in ck.LAUNCHES if ck.LAUNCHES[k] != before[k]}
+    assert ck.SCAN_CLUSTER_MAX_STATES == 1024
+    assert cluster and all(k.endswith("_cluster") for k in cluster)
+    assert staged and not any(k.endswith("_cluster") for k in staged)
+    return got, want
+
+
+def _equal(got, want):
+    return all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("zero_frac", [0.0, 0.3])
+@pytest.mark.parametrize("B", CLUSTER_ROWS)
+@pytest.mark.parametrize("S", CLUSTER_STATES)
+def test_cluster_scans_equal_the_staged_tile(device, rng, monkeypatch, S, B,
+                                             zero_frac):
+    """K7a/K8a (alpha_hat, log_c, loglik) and K7b/K8b (beta_hat, log_d):
+    the cluster tile's bits are the staged tile's."""
+    ls, lt, obs, lens, _i, _c = _cluster_inputs(rng, device, S, B, 13,
+                                                zero_frac)
+    got, want = _both_tiles(
+        monkeypatch, lambda: ck.forward_scaled(ls, lt, obs, lens))
+    assert _equal(got, want)
+    got, want = _both_tiles(
+        monkeypatch, lambda: ck.backward_scaled(lt, obs, lens))
+    assert _equal(got, want)
+
+
+@pytest.mark.parametrize("zero_frac", [0.0, 0.3])
+@pytest.mark.parametrize("B", CLUSTER_ROWS)
+@pytest.mark.parametrize("S", CLUSTER_STATES)
+def test_cluster_carry_modes_equal_the_staged_tile(device, rng, monkeypatch,
+                                                   S, B, zero_frac):
+    """X1's carry mode (values and carry-only) and X2's (values and
+    x_out, each row with its own ``continuing``): the cluster tile's bits
+    are the staged tile's."""
+    _ls, lt, obs, lens, init, cont = _cluster_inputs(rng, device, S, B, 13,
+                                                     zero_frac)
+    for fn in (lambda: ck.forward_chunk_values(lt, obs, init, lens),
+               lambda: ck.forward_final(lt, obs, init, lens),
+               lambda: ck.backward_chunk_values(lt, obs, init, cont, lens)):
+        got, want = _both_tiles(monkeypatch, fn)
+        assert _equal(got, want)
+
+
+@pytest.mark.parametrize("S", [300, 1024])
+def test_cluster_tile_past_one_wave(device, rng, monkeypatch, S):
+    """More rows than the card holds clusters of the most rows at once:
+    the plan keeps 12 rows a cluster and the grid runs in waves, with the
+    staged tile's bits and each row's bits those of a launch of its
+    own."""
+    plan = ck.library_cluster_plan(S, 1, False)
+    B = 12 * plan["active"][-1] + 5
+    ls, lt, obs, lens, _i, _c = _cluster_inputs(rng, device, S, B, 7, 0.3)
+    wide = ck.library_cluster_plan(S, B, False)
+    assert wide["R"] == 12 and wide["clusters"] > wide["active"][-1]
+    got, want = _both_tiles(
+        monkeypatch, lambda: ck.forward_scaled(ls, lt, obs, lens))
+    assert _equal(got, want)
+    got_b, want_b = _both_tiles(
+        monkeypatch, lambda: ck.backward_scaled(lt, obs, lens))
+    assert _equal(got_b, want_b)
+    few = slice(B - 3, B)
+    alone = ck.forward_scaled(ls, lt, obs[few].contiguous(), lens[few])
+    assert torch.equal(alone[0], got[0][few])
+    alone = ck.backward_scaled(lt, obs[few].contiguous(), lens[few])
+    assert torch.equal(alone[0], got_b[0][few])
+
+
+@pytest.mark.parametrize("S", [257, 640, 1024])
+def test_cluster_sweep_cut_into_chunks_equals_one_chunk(device, rng, S):
+    """On the cluster tile a sweep cut into chunks gives one chunk's
+    bits: X1's hats and carries, X2's betas and x_out."""
+    _ls, lt, obs, _l, init, cont = _cluster_inputs(rng, device, S, 5, 60,
+                                                   0.3)
+    lens = torch.tensor([60, 60, 33, 0, 1], dtype=torch.int32,
+                        device=device)
+    cont = torch.tensor([True, False, False, False, False], device=device)
+    cuts = (0, 17, 40, 60)
+    whole_h, whole_c = ck.forward_chunk_values(lt, obs, init, lens)
+    carry = init
+    for lo, hi in zip(cuts[:-1], cuts[1:]):
+        pl = torch.clamp(lens - lo, 0, hi - lo).to(torch.int32)
+        h, carry = ck.forward_chunk_values(lt, obs[:, lo:hi].contiguous(),
+                                           carry, pl)
+        assert torch.equal(h, whole_h[:, lo:hi])
+    assert torch.equal(carry, whole_c)
+    whole_b, whole_x = ck.backward_chunk_values(lt, obs, init, cont, lens)
+    x, continuing = init, cont
+    for lo, hi in reversed(list(zip(cuts[:-1], cuts[1:]))):
+        pl = torch.clamp(lens - lo, 0, hi - lo).to(torch.int32)
+        b, x = ck.backward_chunk_values(lt, obs[:, lo:hi].contiguous(), x,
+                                        continuing, pl)
+        assert torch.equal(b, whole_b[:, lo:hi])
+        continuing = lens > lo
+    assert torch.equal(x, whole_x)
+
+
+@pytest.mark.parametrize("S", [640, 1000])
+def test_cluster_scans_match_plain_in_float64(device, rng, S):
+    """Where the existing float64 checks have no S of their own: K7a/K7b
+    and X1/X2 on the cluster tile within the log-space limit (1e-5 plus 4
+    float32 ulps of the largest |obs|) of the plain versions carried in
+    float64."""
+    ls, lt, obs, lens, init, cont = _cluster_inputs(rng, device, S, 5, 23,
+                                                    0.3)
+    lim = _log_limit(obs)
+    fwd = ck.forward_scaled(ls, lt, obs, lens)
+    ref = ck.forward_scaled_plain(ls, lt, obs, lens, dtype=F64)
+    torch.testing.assert_close(fwd[0], ref[0].float(), rtol=0, atol=lim)
+    bwd = ck.backward_scaled(lt, obs, lens)
+    ref = ck.backward_scaled_plain(lt, obs, lens, dtype=F64)
+    torch.testing.assert_close(bwd[0], ref[0].float(), rtol=0, atol=lim)
+    hats, carry = ck.forward_chunk_values(lt, obs, init, lens)
+    r_hats, r_carry = dp.forward_chunk_values(lt, obs, init, lens,
+                                              dtype=F64)
+    torch.testing.assert_close(hats, r_hats.float(), rtol=0, atol=lim)
+    torch.testing.assert_close(carry, r_carry.float(), rtol=0, atol=lim)
+    beta, x_out = ck.backward_chunk_values(lt, obs, init, cont, lens)
+    r_beta, r_x = dp.backward_chunk_values(lt, obs, init, cont, lens,
+                                           dtype=F64)
+    torch.testing.assert_close(beta, r_beta.float(), rtol=0, atol=lim)
+    torch.testing.assert_close(x_out, r_x.float(), rtol=0, atol=lim)
+
+
+@pytest.mark.parametrize("backward", [False, True])
+@pytest.mark.parametrize("B", [1, 4, 64, 128, 4096])
+@pytest.mark.parametrize("S", CLUSTER_STATES)
+def test_cluster_plan_is_the_libraries(device, S, B, backward):
+    """The Python plan, given the card's active clusters at each R, is the
+    plan the launch takes; it fits the card's shared memory."""
+    lib = ck.library_cluster_plan(S, B, backward)
+    active = dict(zip(ck._CLUSTER_ROWS, lib.pop("active")))
+    assert ck.cluster_plan(S, B, backward,
+                           lambda R, smem: active[R]) == lib
+    assert lib["smem"] <= 232448 and active[lib["R"]] >= 1
+
+
+def test_a_refused_cluster_launch_raises(device):
+    """The cluster entry at S <= 256 has no plan: the launch is refused
+    and the wrapper's launch raises, with nothing counted and nothing run
+    in its place."""
+    S, B, L = 200, 2, 3
+    obs = torch.zeros((B, L, S), device=device)
+    lens = torch.full((B,), L, dtype=torch.int32, device=device)
+    ls = torch.zeros(S, device=device)
+    tp = torch.ones((S, S), device=device)
+    alpha = torch.full((B, L, S), 7.0, device=device)
+    dm = torch.empty((B, L), device=device)
+    before = dict(ck.LAUNCHES)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        ck._launch_streaming(
+            "fwd_scaled_cluster", "tehmm_fwd_scaled",
+            (obs.data_ptr(), lens.data_ptr(), ls.data_ptr(), tp.data_ptr(),
+             alpha.data_ptr(), dm.data_ptr(), B, L, S, 1), device)
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES == before
+    assert bool((alpha == 7.0).all())

@@ -243,3 +243,23 @@ def test_stitched_decoders_past_the_fused_envelopes(device, rng):
                                                   chunk_len=512,
                                                   halo=32)[0]):
         assert (g == c).mean() >= 0.999
+
+
+@pytest.mark.parametrize("S", [256, 257])
+def test_scans_take_the_cluster_tile_from_257_states(device, rng, S):
+    """K7a/K7b on the block tile to 256 states, on the cluster tile from
+    257 (``ck.scan_route``), each counted under its own name, both within
+    the log-space limit of the plain versions carried in float64."""
+    ls, lt, obs, lens = _obs_inputs(rng, device, S, 29, 0.3, rows=3)
+    before = dict(ck.LAUNCHES)
+    fwd = ck.forward_scaled(ls, lt, obs, lens)
+    bwd = ck.backward_scaled(lt, obs, lens)
+    moved = {k for k in ck.LAUNCHES if ck.LAUNCHES[k] != before[k]}
+    assert moved == ({"fwd_scaled_cluster", "bwd_scaled_cluster"}
+                     if S > 256 else {"fwd_scaled", "bwd_scaled"})
+    lim = 1e-5 + 4 * float(np.finfo(np.float32).eps) \
+        * float(obs.abs().max())
+    ref = ck.forward_scaled_plain(ls, lt, obs, lens, dtype=torch.float64)
+    torch.testing.assert_close(fwd[0], ref[0].float(), rtol=0, atol=lim)
+    ref = ck.backward_scaled_plain(lt, obs, lens, dtype=torch.float64)
+    torch.testing.assert_close(bwd[0], ref[0].float(), rtol=0, atol=lim)
