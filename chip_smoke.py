@@ -100,9 +100,11 @@ Phases (any failure raises, and the run exits non-zero):
    (``viterbi_ptrs``) with its chase (``pointer_chase``): pointers, last
    rows, normalizers and paths bit-equal to plain, paths == dp.viterbi.
    All of this also at bench_engines' S512 (T=20, V=16, B=128) and S1024
-   (B=64) shapes, past 256 states (uint16 pointers), where K7a/K7b run
-   the cluster tile (``fwd_scaled_cluster``, ``bwd_scaled_cluster``):
-   every output bit for bit the staged tile's, forced
+   (B=64) shapes, past 256 states (uint16 pointers), where K5, K7a/K7b
+   and K8c run the cluster tile (``viterbi_values_cluster``,
+   ``fwd_scaled_cluster``, ``bwd_scaled_cluster``,
+   ``viterbi_ptrs_cluster``): every output bit for bit the staged
+   tile's, forced
    (``ck.SCAN_CLUSTER_MAX_STATES`` = 0), each tile timed (the staged
    tile's rows under the old names, the cluster tile's with the staged
    time beside).  K9
@@ -112,9 +114,9 @@ Phases (any failure raises, and the run exits non-zero):
    kernels, K3, X1 and X2 on the tile's carry modes at S=257, 512 and
    1024 (4 rows of 4096, ragged): K3 bit-equal, X1/X2 at the F3 limit of
    plain in float64, X1's two modes one carry, a sweep cut into three
-   chunks bit-equal to one; X1's and X2's carry modes run the cluster
-   tile, every output (both of X1's modes) bit for bit the staged tile's,
-   forced, and both timed.
+   chunks bit-equal to one; K3's, X1's and X2's carry modes run the
+   cluster tile, every output (both of K3's and X1's modes) bit for bit
+   the staged tile's, forced, and both timed.
 2e. The engine-comparison path through its tools' entry points, at the
    full width of all four ``bench_engines`` shapes (S=20, 64, 128, 256):
    ``tools.bench_engines`` with the E-step engines plain, cuda (K1),
@@ -219,13 +221,16 @@ Phases (any failure raises, and the run exits non-zero):
    through ``"auto"``, which takes cuda_v3 (K6) with passes of 1M
    positions (4M x 256 / S): logliks within 1e-5 relative; with a sticky
    random model on 64 regions of 15,625 positions (1,000,000) the
-   stitched Viterbi (obs, K5, backtrace), the exact Viterbi (K3 on the
-   tile; == the stitched paths), the stitched max-posterior (K7a/K7b on
-   the cluster tile), ``posterior_sweep`` (``--pd``'s path: X1/X2 on the
-   cluster tile) and the score (X1 on the cluster tile), none of them
-   launching the staged tile's K7a/K7b or carry modes; the CPU, in a
-   process of its own beside 3e (its train and the decoders; held to the
-   card's after 3e), on 46,875 of those positions (15,625 for ``--pd``
+   stitched Viterbi (obs, K5 on the cluster tile, backtrace), the exact
+   Viterbi (K3's carry mode on the cluster tile; == the stitched paths),
+   the stitched max-posterior (K7a/K7b on the cluster tile),
+   ``posterior_sweep`` (``--pd``'s path: X1/X2 on the cluster tile) and
+   the score (X1 on the cluster tile), none of them launching the staged
+   tile's K5, K7a/K7b or carry modes; both Viterbi decoders again with
+   the staged tile forced (the same paths, both times printed); the CPU,
+   in a process of its own beside 3c, 3f and 3e (its train and the
+   decoders; held to the card's after 3e), on 46,875 of those positions
+   (15,625 for ``--pd``
    and the score): Viterbi paths equal; max-posterior and ``--pd``'s
    argmax (against the CPU's, and on the card against each other) equal
    on >= 99.999% of positions, every differing one a near-tie (printed
@@ -359,6 +364,9 @@ SOURCES = {
     "bwd_scaled_cluster": "tehmm_tpu_torch/csrc/scans.cu",
     "fwd_chunk_cluster": "tehmm_tpu_torch/csrc/scans.cu",
     "bwd_chunk_cluster": "tehmm_tpu_torch/csrc/scans.cu",
+    "viterbi_values_cluster": "tehmm_tpu_torch/csrc/streaming.cu",
+    "viterbi_chunk_cluster": "tehmm_tpu_torch/csrc/streaming.cu",
+    "viterbi_ptrs_cluster": "tehmm_tpu_torch/csrc/scans.cu",
     "maxplus_resident": "tehmm_tpu_torch/csrc/maxplus.cu",
     "maxplus_blocks": "tehmm_tpu_torch/csrc/maxplus.cu",
     "fwd_piece_ops": "tehmm_tpu_torch/csrc/posterior.cu",
@@ -419,6 +427,10 @@ REPLACES = {
     "bwd_scaled_cluster": "tehmm_tpu/ops/pallas_kernels.py:1012",
     "fwd_chunk_cluster": "tehmm_tpu/ops/dp.py:378",
     "bwd_chunk_cluster": "tehmm_tpu/ops/dp.py:507",
+    # K5, K3's carry mode and K8c past 256 states on the cluster tile
+    "viterbi_values_cluster": "tehmm_tpu/ops/pallas_kernels.py:1374",
+    "viterbi_chunk_cluster": "tehmm_tpu/ops/pallas_kernels.py:1284",
+    "viterbi_ptrs_cluster": "tehmm_tpu/ops/pallas_kernels.py:333",
     # K9's two layouts
     "maxplus_resident": "tools/exp_maxplus_s256.py:115",
     "maxplus_blocks": "tools/exp_maxplus_s256.py:120",
@@ -456,12 +468,16 @@ SEGMENT_KERNELS = ("em_fwd", "em_bwd_stats", "viterbi_fwd_lanes",
 STREAMING_KERNELS = ("viterbi_values", "fwd_prob", "bwd_prob",
                      "fwd_scaled", "bwd_scaled", "viterbi_ptrs",
                      "pointer_chase")
-# past 256 states K7a/K7b run the cluster tile in their place (the staged
-# tile forced only to compare and time it)
+# past 256 states K7a/K7b, X1's and X2's carry modes, K5, K3's carry mode
+# and K8c run the cluster tile in their place (the staged tile forced only
+# to compare and time it)
 CLUSTER_OF = {"fwd_scaled": "fwd_scaled_cluster",
               "bwd_scaled": "bwd_scaled_cluster",
               "fwd_chunk_tile": "fwd_chunk_cluster",
-              "bwd_chunk_tile": "bwd_chunk_cluster"}
+              "bwd_chunk_tile": "bwd_chunk_cluster",
+              "viterbi_values": "viterbi_values_cluster",
+              "viterbi_chunk_tile": "viterbi_chunk_cluster",
+              "viterbi_ptrs": "viterbi_ptrs_cluster"}
 ENGINE_CONFIGS = ("S20", "S64", "S128", "S256")
 # the scan tile past 256 states (bench_engines' extra configurations):
 # phase 2 holds its kernels to plain there, 2e runs the tools there
@@ -476,14 +492,17 @@ WIDE_SWEEP_STATES = (257, 512, 1024)
 SWEEP_CUTS = (0, 1000, 2500, X_L)    # a sweep cut into three chunks
 # 3f's paths and the kernels each must run
 ENVELOPE_KERNELS = {"fit": ("fwd_prob", "bwd_prob"),
-                    "viterbi": ("viterbi_values", "viterbi_backtrace"),
-                    "exact": ("viterbi_chunk_tile", "viterbi_backtrace"),
+                    "viterbi": ("viterbi_values_cluster",
+                                "viterbi_backtrace"),
+                    "exact": ("viterbi_chunk_cluster", "viterbi_backtrace"),
                     "maxpost": ("fwd_scaled_cluster", "bwd_scaled_cluster"),
                     "pd": ("fwd_chunk_cluster", "bwd_chunk_cluster"),
                     "score": ("fwd_chunk_cluster",)}
-# and the staged tile's log-space scans, which the cluster tile replaced
-# on those paths
-OFF_ENVELOPE_PATH = {"maxpost": ("fwd_scaled", "bwd_scaled"),
+# and the staged tile's scans, which the cluster tile replaced on those
+# paths
+OFF_ENVELOPE_PATH = {"viterbi": ("viterbi_values",),
+                     "exact": ("viterbi_chunk_tile",),
+                     "maxpost": ("fwd_scaled", "bwd_scaled"),
                      "pd": ("fwd_chunk_tile", "bwd_chunk_tile"),
                      "score": ("fwd_chunk_tile",)}
 ENGINE_ITERS = 1                     # marginal_time chains of 1 and 6
@@ -621,7 +640,7 @@ def _bound(name, shape, valid, G=0, weighted=False, n_ck=0) -> dict:
         return dict(bound_ms=max(t_bytes, t_ops) * 1e3,
                     bound_by="bytes" if t_bytes >= t_ops else "operations",
                     library_ms=None)
-    elif base == "viterbi_chunk_tile":
+    elif base in ("viterbi_chunk_tile", "viterbi_chunk_cluster"):
         nbytes = 2 * rows + (B * S + B + S * S) * f
         ops = 2 * S * S + 3 * S
     elif base == "fwd_piece_ops":      # S chains of X1's step a position
@@ -650,7 +669,7 @@ def _bound(name, shape, valid, G=0, weighted=False, n_ck=0) -> dict:
                   "bwd_chunk_cluster"):   # log-space step
         nbytes = 2 * rows + (2 * B * S + 2 * B + S * S) * f
         ops = 2 * S * S + 4 * S
-    elif base in ("viterbi_values", "fwd_prob"):
+    elif base in ("viterbi_values", "viterbi_values_cluster", "fwd_prob"):
         # obs in, rows and normalizers out; product, obs, max, rescale
         nbytes = 2 * rows + (B * L + B + S * S + S) * f
         ops = 2 * S * S + 4 * S
@@ -665,7 +684,8 @@ def _bound(name, shape, valid, G=0, weighted=False, n_ck=0) -> dict:
         # obs, max, sub, exp, product, log, max, sub, dm
         nbytes = 2 * rows + (B * L + B + S * S) * f
         ops = 2 * S * S + 8 * S
-    elif base == "viterbi_ptrs":       # add-and-compare product, pointers
+    elif base in ("viterbi_ptrs", "viterbi_ptrs_cluster"):
+        # add-and-compare product, pointers
         ptr = 1 if S <= 256 else 2     # out (uint8, or uint16 past 256)
         nbytes = rows + ptr * B * L * S + (B * S + B * L + B + S * S + S) * f
         ops = 2 * S * S + 4 * S
@@ -2046,12 +2066,11 @@ def phase_stream_kernels(device, rng) -> dict:
 
 
 def _scan_rows(out, name, suffix, S_, got, call, plain, err, shape, valid):
-    """The rows of a log-space scan (``name``: ``fwd_scaled``,
-    ``bwd_scaled``, ``fwd_chunk_tile`` or ``bwd_chunk_tile``) whose
-    outputs ``got`` came from ``call``: past 256 states the cluster tile
-    ran (``CLUSTER_OF[name]``, with the staged tile's time beside it), and
-    the staged tile, forced, must give the same bits; ``name`` is then
-    the staged tile's row."""
+    """The rows of a cluster scan (``name``, a key of ``CLUSTER_OF``)
+    whose outputs ``got`` (a tuple) came from ``call``: past 256 states
+    the cluster tile ran (``CLUSTER_OF[name]``, with the staged tile's
+    time beside it), and the staged tile, forced, must give the same bits;
+    ``name`` is then the staged tile's row."""
     import torch
 
     from tehmm_tpu_torch.ops import cuda_kernels as ck
@@ -2115,12 +2134,11 @@ def phase_streaming_kernels(device, rng, seed) -> dict:
         rel = float(((score - want_s).abs()
                      / want_s.abs().clamp(min=1.0)).max())
         assert rel < 1e-5, f"viterbi_streaming score rel err {rel}"
-        out["viterbi_values" + suffix] = dict(
-            max_abs_err=float(max((v - pv).abs().max(),
-                                  (dm - pdm).abs().max())),
-            ms=_median_ms(lambda: ck.viterbi_values(*v_args), 5),
-            plain_ms=_median_ms(lambda: ck.viterbi_values_plain(*v_args), 3),
-            **_bound("viterbi_values", shape, valid))
+        _scan_rows(out, "viterbi_values", suffix, S_, (v, dm),
+                   lambda: ck.viterbi_values(*v_args),
+                   lambda: ck.viterbi_values_plain(*v_args),
+                   float(max((v - pv).abs().max(), (dm - pdm).abs().max())),
+                   shape, valid)
         # the backtrace as viterbi_streaming calls it, on K5's rows
         end = torch.argmax(v[:, L - 1], dim=-1).to(torch.int32)
         bt_args = (p.log_trans, v[:, 1:], v[:, 0], end,
@@ -2153,12 +2171,10 @@ def phase_streaming_kernels(device, rng, seed) -> dict:
             f"pointer_chase disagrees with its plain version at {config}"
         assert torch.equal(chased, want_p), \
             f"the chased path != dp.viterbi at {config}"
-        out["viterbi_ptrs" + suffix] = dict(
-            max_abs_err=0.0,
-            ms=_median_ms(lambda: ck.viterbi_pointers(*v_args), 5),
-            plain_ms=_median_ms(lambda: ck.viterbi_pointers_plain(*v_args),
-                                3),
-            **_bound("viterbi_ptrs", shape, valid))
+        _scan_rows(out, "viterbi_ptrs", suffix, S_, ptrs,
+                   lambda: ck.viterbi_pointers(*v_args),
+                   lambda: ck.viterbi_pointers_plain(*v_args), 0.0, shape,
+                   valid)
         out["pointer_chase" + suffix] = dict(
             max_abs_err=0.0,
             ms=_median_ms(lambda: ck.pointer_chase(*c_args), 5),
@@ -2272,12 +2288,18 @@ def phase_streaming_kernels(device, rng, seed) -> dict:
               f"rel err {rel:.3g}); K6 within 2e-6 of plain in float64 "
               f"(alpha_p {err_f:.3g}, beta_p {err_b:.3g}; of plain in "
               f"float32 {f32_f:.3g}, {f32_b:.3g}; row loglik abs err "
-              f"{ll_rel:.3g}), repeat launches bit-identical", flush=True)
+              f"{ll_rel:.3g}), repeat launches bit-identical" + (
+                  "; K5's and K8c's outputs on the cluster tile bit for "
+                  "bit the staged tile's (forced)"
+                  if ck.scan_route(S_) == "cluster" else ""), flush=True)
         torch.cuda.empty_cache()
     for name, r in out.items():
+        staged = f"  staged {r['staged_ms']:9.3f} ms" \
+            if "staged_ms" in r else ""
         print(f"[streaming] {name:22s} max_abs_err {r['max_abs_err']:.3g}  "
-              f"kernel {r['ms']:9.3f} ms  plain {r['plain_ms']:9.3f} ms  "
-              f"bound {r['bound_ms']:.3f} ms ({r['bound_by']})", flush=True)
+              f"kernel {r['ms']:9.3f} ms{staged}  plain "
+              f"{r['plain_ms']:9.3f} ms  bound {r['bound_ms']:.3f} ms "
+              f"({r['bound_by']})", flush=True)
     return out
 
 
@@ -2428,20 +2450,21 @@ def phase_wide_sweeps(device, rng) -> dict:
         assert torch.equal(x_c, x_out)
         valid = int(lengths.sum())
         shape = (X_B, X_L, S_, T, V)
-        out["viterbi_chunk_tile" + suffix] = dict(
-            max_abs_err=0.0,
-            ms=_median_ms(lambda: ck.viterbi_chunk_values(lt, obs, init,
-                                                          lens), 5),
-            plain_ms=_median_ms(
-                lambda: dp.viterbi_chunk_values(lt, obs, init, lens), 3),
-            **_bound("viterbi_chunk_tile", shape, valid))
-        # X1's modes and X2's on the cluster tile: the staged tile's bits
-        # (forward_final's here; the values modes' in _scan_rows)
+        # K3's carry mode, X1's modes and X2's on the cluster tile: the
+        # staged tile's bits (the carry-only modes' here; the values
+        # modes' in _scan_rows)
         if ck.scan_route(S_) == "cluster":
             with staged_tile():
+                assert torch.equal(carry, ck.viterbi_carry(lt, obs, init,
+                                                           lens)), \
+                    f"K3 carry-only: the cluster tile != staged S={S_}"
                 assert all(torch.equal(a, b) for a, b in zip(
                     (final, dm_sum), ck.forward_final(lt, obs, init, lens))
                 ), f"X1 carry-only: the cluster tile != staged S={S_}"
+        _scan_rows(out, "viterbi_chunk_tile", suffix, S_, (v,),
+                   lambda: (ck.viterbi_chunk_values(lt, obs, init, lens),),
+                   lambda: dp.viterbi_chunk_values(lt, obs, init, lens),
+                   0.0, shape, valid)
         _scan_rows(out, "fwd_chunk_tile", suffix, S_, (hats, a_carry),
                    lambda: ck.forward_chunk_values(lt, obs, init, lens),
                    lambda: dp.forward_chunk_values(lt, obs, init, lens),
@@ -2457,12 +2480,12 @@ def phase_wide_sweeps(device, rng) -> dict:
               f" of plain in float64 [worst error/limit]: " + ", ".join(
                   f"{n} {err[n]:.3g} [{ratio[n]:.3f}]" for n in names)
               + f"; X1's two modes one carry; cut at {SWEEP_CUTS[1:-1]} "
-              f"== one chunk, bit for bit; X1's and X2's every output on "
-              f"the cluster tile bit for bit the staged tile's (forced)",
-              flush=True)
+              f"== one chunk, bit for bit; K3's, X1's and X2's every "
+              f"output on the cluster tile bit for bit the staged tile's "
+              f"(forced)", flush=True)
         for name in ("viterbi_chunk_tile", "fwd_chunk_tile",
-                     "bwd_chunk_tile", "fwd_chunk_cluster",
-                     "bwd_chunk_cluster"):
+                     "bwd_chunk_tile", "viterbi_chunk_cluster",
+                     "fwd_chunk_cluster", "bwd_chunk_cluster"):
             r = out[name + suffix]
             staged = f"  staged {r['staged_ms']:9.3f} ms" \
                 if "staged_ms" in r else ""
@@ -2477,7 +2500,8 @@ def phase_wide_sweeps(device, rng) -> dict:
 
 def _engine_kernels(config):
     """The kernels 2e must launch at ``config``: the streaming ones and
-    the backtrace, K7a/K7b on the cluster tile past 256 states."""
+    the backtrace, K5, K7a/K7b and K8c on the cluster tile past 256
+    states."""
     from tehmm_tpu_torch.tools import bench_engines
 
     past = bench_engines.CONFIGS[config][0] > 256
@@ -3867,10 +3891,11 @@ def _env_model(seed):
     return _sticky_model(np.random.RandomState(seed + 3), ENV_STATES, T, 9)
 
 
-def _env_runs(model, dev, tabs, pd_tabs, exact=True, launches=None):
+def _env_runs(model, dev, tabs, pd_tabs, launches=None, only=None):
     """(name -> (result, seconds)) of every decoder of 3f on ``tabs`` on
     ``dev`` (the CPU ENV_CPU_ROWS rows a pass); ``--pd``'s sweep and the
-    score on ``pd_tabs``; each run's launch counts into ``launches``."""
+    score on ``pd_tabs``; each run's launch counts into ``launches``;
+    ``only``: the names to run (all by default)."""
     import torch
 
     from tehmm_tpu_torch.models import hmm as port_hmm
@@ -3906,7 +3931,7 @@ def _env_runs(model, dev, tabs, pd_tabs, exact=True, launches=None):
     ]
     got = {}
     for name, call in calls:
-        if name == "exact" and not exact:
+        if only is not None and name not in only:
             continue
         ck.reset_launch_counts()
         t0 = time.perf_counter()
@@ -3932,7 +3957,8 @@ def _env_cpu_main(spec_json):
                    "cpu")
     sub = _env_tables(spec["xml"], spec["n"], ENV_CPU_TABLES)
     cpu = _env_runs(_env_model(spec["seed"]), "cpu", sub,
-                    sub[:ENV_PD_TABLES], exact=False)
+                    sub[:ENV_PD_TABLES],
+                    only=("viterbi", "maxpost", "pd", "score"))
     with open(spec["out"] + ".tmp", "wb") as fh:
         pickle.dump({"fit": fit, "runs": cpu}, fh)
     os.replace(spec["out"] + ".tmp", spec["out"])
@@ -3940,10 +3966,10 @@ def _env_cpu_main(spec_json):
 
 class _EnvCpuRuns:
     """3f's CPU references (its train and the decoders, ``--pd``'s sweep
-    and the score on the first regions; the host alone, ~200 s) in a
-    process of their own, started with 3f and held to the card's results
-    after 3e, as ``_ParentRuns`` runs the parent's eval runs beside the
-    later phases.  Every check and limit is 3f's own."""
+    and the score on the first regions; the host alone, ~200-330 s) in a
+    process of their own, started before 3c and held to the card's
+    results after 3e, as ``_ParentRuns`` runs the parent's eval runs
+    beside the later phases.  Every check and limit is 3f's own."""
 
     def __init__(self, work, xml, n, seed):
         self.out = os.path.join(work, "env_cpu.pkl")
@@ -3975,7 +4001,7 @@ class _EnvCpuRuns:
             return pickle.load(fh)
 
 
-def phase_envelopes(work, xml, n, seed, device="cuda"):
+def phase_envelopes(work, xml, n, seed, cpu_runs, device="cuda"):
     """3f: every route past the fused kernels' envelopes at the scan
     tile's full width, ENV_STATES states, on the planted chromosome (T=5,
     V=9), card against CPU.  ``train`` through the E-step's ``"auto"`` on
@@ -3983,19 +4009,21 @@ def phase_envelopes(work, xml, n, seed, device="cuda"):
     and sizes its passes for it, scaled to 256 / S (asserted), and the
     logliks equal the CPU's within 1e-5 relative.  Then, with a sticky
     random model, on ENV_TABLES regions of ENV_TABLE_LEN positions on the
-    card: the stitched Viterbi (obs, K5 and the backtrace kernel), the
-    exact Viterbi (``--exact``: K3 on the tile and the backtrace; its
-    paths equal the stitched ones), the stitched max-posterior (K7a/K7b
-    on the cluster tile), ``posterior_sweep`` in chunks of ENV_PD_CHUNK
-    (``--pd``'s path: X1 and X2 on the cluster tile; its argmax equal to
-    the stitched max-posterior on >= 99.999% of the positions, each
-    differing one a near-tie) and ``MultitrackHmm.score`` (X1 on the
-    cluster tile); none of these launches the staged tile's K7a/K7b or
-    X1's or X2's carry modes.
+    card: the stitched Viterbi (obs, K5 on the cluster tile and the
+    backtrace kernel), the exact Viterbi (``--exact``: K3's carry mode on
+    the cluster tile and the backtrace; its paths equal the stitched
+    ones), the stitched max-posterior (K7a/K7b on the cluster tile),
+    ``posterior_sweep`` in chunks of ENV_PD_CHUNK (``--pd``'s path: X1 and
+    X2 on the cluster tile; its argmax equal to the stitched max-posterior
+    on >= 99.999% of the positions, each differing one a near-tie) and
+    ``MultitrackHmm.score`` (X1 on the cluster tile); none of these
+    launches the staged tile's K5, K3 carry mode, K7a/K7b or X1's or X2's
+    carry modes.
     The CPU runs the train, the stitched decoders on the first
     ENV_CPU_TABLES regions and ``--pd``'s sweep and the score on the first
     ENV_PD_TABLES, ENV_CPU_ROWS rows a pass, in a process of its own
-    (``_EnvCpuRuns``) beside the phases after this one; ``finish`` (after
+    (``cpu_runs``, an ``_EnvCpuRuns`` started before 3c) beside 3c, this
+    phase and 3e; ``finish`` (after
     3e) holds them to the card's (the exact Viterbi through the card's:
     exact == stitched on the card, stitched == the CPU's): Viterbi paths
     equal; max-posterior paths and --pd's argmax equal on >= 99.999% of
@@ -4009,7 +4037,6 @@ def phase_envelopes(work, xml, n, seed, device="cuda"):
     from tehmm_tpu_torch.models.params import from_numpy
     from tehmm_tpu_torch.ops import cuda_kernels as ck
 
-    cpu_runs = _EnvCpuRuns(work, xml, n, seed)
     launches = {}
     # train through "auto"
     ck.reset_launch_counts()
@@ -4051,6 +4078,27 @@ def phase_envelopes(work, xml, n, seed, device="cuda"):
     for path, names in OFF_ENVELOPE_PATH.items():
         assert not any(launches[path][k] for k in names), \
             (path, launches[path])
+    # the Viterbi paths again with the staged tile forced (the parent's
+    # route for K5 and K3's carry mode): the same paths, and their card
+    # seconds beside the cluster tile's (this run second, on warm caches)
+    from tehmm_tpu_torch.tools.time_scans import staged_tile
+
+    forced = {}
+    with staged_tile():
+        staged = _env_runs(model, device, tables, tables, launches=forced,
+                           only=("viterbi", "exact"))
+    for name, kernel in (("viterbi", "viterbi_values"),
+                         ("exact", "viterbi_chunk_tile")):
+        for g, e in zip(card[name][0], staged[name][0]):
+            assert np.array_equal(g, e), \
+                f"{name}: the cluster tile's paths != the staged tile's"
+        assert forced[name][kernel] and not forced[name][CLUSTER_OF[kernel]]
+        print(f"[envelopes] {name} at S={ENV_STATES} with the staged tile "
+              f"forced: {staged[name][1]:.2f} s against the cluster "
+              f"tile's {card[name][1]:.2f} s; the same paths; launches "
+              f"{ {k: v for k, v in forced[name].items() if v} }",
+              flush=True)
+    del staged
     assert not launches["viterbi"]["viterbi_fwd"] \
         and not launches["maxpost"]["post_decode"] \
         and not launches["maxpost"]["post_decode_lanes"] \
@@ -4594,10 +4642,13 @@ def _run(args, device, smi, parent) -> int:
             kernels[name].update(k1_em_shape[name])
         _phase_done("3b", t_run)
 
+        # 3f's CPU references, in a process of their own beside 3c, 3f and
+        # 3e; env_finish holds them to the card's
+        env_cpu = _EnvCpuRuns(work, xml, n, args.seed)
         phase_em_card_vs_cpu(work, xml, n, 50_000, args.seed)
         _phase_done("3c", t_run)
-        # its CPU references run on beside 3e; env_finish holds them
-        env_launches, env_finish = phase_envelopes(work, xml, n, args.seed)
+        env_launches, env_finish = phase_envelopes(work, xml, n, args.seed,
+                                                   env_cpu)
         _phase_done("3f, the card", t_run)
 
         t0 = time.perf_counter()
@@ -4649,9 +4700,12 @@ def _run(args, device, smi, parent) -> int:
                 for k in _engine_kernels(config)
                 if engine_launches[config][k] == 0]
     staged = {(config, k): engine_launches[config][k]
-              for config in WIDE_CONFIGS for k in ("fwd_scaled", "bwd_scaled")
+              for config in WIDE_CONFIGS
+              for k in ("viterbi_values", "fwd_scaled", "bwd_scaled",
+                        "viterbi_ptrs")
               if engine_launches[config][k]}
-    assert not staged, f"2e launched the staged tile's K7a/K7b: {staged}"
+    assert not staged, \
+        f"2e launched the staged tile's K5, K7a/K7b or K8c: {staged}"
     for Sp, counts in maxplus_launches.items():
         print(f"[launches] K9 tool (2m) at Sp={Sp}: "
               f"{ {k: n for k, n in counts.items() if n} }", flush=True)
@@ -4684,6 +4738,7 @@ def _run(args, device, smi, parent) -> int:
     # the tile's carry modes at ENV_STATES: 3f's exact Viterbi, --pd's
     # sweep and the score
     tile_paths = {"viterbi_chunk_tile": ("exact",),
+                  "viterbi_chunk_cluster": ("exact",),
                   "fwd_chunk_tile": ("pd", "score"), "bwd_chunk_tile": ("pd",),
                   "fwd_chunk_cluster": ("pd", "score"),
                   "bwd_chunk_cluster": ("pd",)}
@@ -4713,13 +4768,16 @@ def _run(args, device, smi, parent) -> int:
         elif base == "viterbi_fwd":
             # K2's shared forward, forced at S=10: phase 3's count, 0
             launches[name] = decode_launches[base]
-        elif base == "viterbi_backtrace":
-            # off the stitched decode: its launches on 2e's streaming route
+        elif config or base in STREAMING_KERNELS \
+                or base == "viterbi_backtrace":
+            # 2e's launches (the backtrace: off the stitched decode, on
+            # 2e's streaming route), and at ENV_STATES also 3f's (K5 and
+            # the backtrace on its Viterbi paths, K6 on its train, K7 on
+            # its max-posterior)
             launches[name] = \
                 engine_launches[config or ENGINE_CONFIGS[0]][base]
-        elif config or base in STREAMING_KERNELS:
-            launches[name] = \
-                engine_launches[config or ENGINE_CONFIGS[0]][base]
+            if config == f"S{ENV_STATES}":
+                launches[name] += sum(n[base] for n in env_launches.values())
     assert not any(m.split(".")[0] in ("jax", "jaxlib", "tehmm_tpu")
                    for m in sys.modules), "jax or tehmm_tpu was imported"
 

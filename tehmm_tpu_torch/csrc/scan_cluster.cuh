@@ -1,10 +1,12 @@
 // The cluster tile: the scans over a precomputed observation tensor past
 // 256 states, with a row group's states split over the blocks of a thread
-// block cluster (scans.cu: K7a/K8a and K7b/K8b, and the carry modes that
-// run X1 and X2 past their shared-memory envelope).  K5, K6a/b, K8c and
-// K3's carry mode stay on scan_tile.cuh's staged wide tile; the tile
-// below is written so that they can move onto it (a product over the
-// block's slice, the cluster's row max, the state vector's broadcast).
+// block cluster: scans.cu's K7a/K8a and K7b/K8b, the carry modes that
+// run X1 and X2 past their shared-memory envelope, and K8c;
+// streaming.cu's K5 and K3's carry mode.  K6a/b stay on scan_tile.cuh's
+// staged wide tile.  The products are generic over the semiring (``Ops``:
+// sum-product on exp(a) for the log-space scans, max-plus for the
+// Viterbi's), and K8c's keeps the first-hit argmax beside every partial
+// maximum (``product_argmax``).
 //
 // What held the staged tile back: one block owns 2 or 4 rows and stages
 // the whole S x S matrix (4 MB at S = 1024) from L2 through its shared
@@ -27,12 +29,14 @@
 // a quarter-warp shares its part, so its state-vector reads are
 // broadcasts; the four lanes of a column combine their chains by two
 // shuffles.  A thread owns the cells (its column, rows part + 4 m).
-//   Every block holds the whole state vector exp(a) [S][R] of its rows.
-// A step: the product over the block's slice; the row max reduced across
-// the cluster (warp shuffles, each block's partial stored with st.async
-// into every block's shared memory, completing on that block's mbarrier,
-// the max of the C partials); then each block writes exp of its new cells
-// into its own part of the state vector and copies that part into every
+//   Every block holds the whole state vector [S][R] of its rows: exp(a)
+// for the sum-product, the renormalized log values for max-plus.  A step:
+// the product over the block's slice; the row max reduced across the
+// cluster (warp shuffles, each block's partial stored with st.async into
+// every block's shared memory, completing on that block's mbarrier, the
+// max of the C partials); then each block writes its new cells (their
+// exp for the sum-product) into its own part of the state vector and
+// copies that part into every
 // other block's with one bulk copy each (cp.async.bulk, completing on the
 // receiver's mbarrier).  No cluster barrier runs inside the scan: a block
 // sends the next step's partial max only after its product has read the
@@ -47,8 +51,11 @@
 // Tile::product): four fmaf chains, chain p over the rows i = p mod 4 below
 // S & ~3 in increasing i, chain 0 then the last S % 4 rows, combined as
 // (a0 + a1) + (a2 + a3); maxima are exact in any order; expf and logf as
-// they are.  So every output equals the staged tile's bit for bit, at any
-// R and C.
+// they are.  K8c's argmax is the staged tile's first hit (its one chain
+// in row order, strict >): each chain here visits its rows in increasing
+// i with a strict >, so it keeps its lowest index, and the four chains of
+// a column combine by value and then by the lower index.  So every output
+// equals the staged tile's bit for bit, at any R and C.
 //
 // Everything is in an anonymous namespace: each source gets its own copy.
 
@@ -307,21 +314,18 @@ struct ClusterTile {
     ++phase[b];
   }
 
-  // s[k] = sum_i s_P[i][k] M[i][gj] for every row k, in the wide tile's
-  // order (four chains, combined (a0 + a1) + (a2 + a3)); every lane of the
-  // column gets every row's sum.  Call with the whole block.
-  template <typename Ops>
-  __device__ __forceinline__ void product(float (&s)[R]) const {
-    float a[R];
-#pragma unroll
-    for (int k = 0; k < R; ++k) a[k] = Ops::init();
+  // step(i, pv, tv) for every slice row i of this thread's chain in
+  // increasing i: pv the R state-vector values of state i, tv M[i][gj].
+  // The rows below n_res from shared memory, U a group with their loads in
+  // flight together; the register rows; on part 0 the last S % 4 rows.
+  template <typename Step>
+  __device__ __forceinline__ void fold(Step step) const {
     const int c = has_col ? col : 0;
     const float* t = s_T4 + c * 4 + part;
     const float* p = s_P + part * R;
     const int tq = Sc * 4;  // a step of q in s_T4 (shared offsets fit int)
     const int nq = n_res / 4;
     int q = 0;
-    // U rows of the chain a group: their loads in flight together
     constexpr int U = R > 8 ? 2 : 4;
     for (; q + U <= nq; q += U) {
       float tv[U], pv[U][R];
@@ -331,35 +335,44 @@ struct ClusterTile {
         load_state<R>(p + (q + g) * 4 * R, pv[g]);
       }
 #pragma unroll
-      for (int g = 0; g < U; ++g)
-#pragma unroll
-        for (int k = 0; k < R; ++k) a[k] = Ops::step(a[k], pv[g][k], tv[g]);
+      for (int g = 0; g < U; ++g) step(4 * (q + g) + part, pv[g], tv[g]);
     }
     for (; q < nq; ++q) {
       float pv[R];
       const float tv = t[q * tq];
       load_state<R>(p + q * 4 * R, pv);
-#pragma unroll
-      for (int k = 0; k < R; ++k) a[k] = Ops::step(a[k], pv[k], tv);
+      step(4 * q + part, pv, tv);
     }
 #pragma unroll
     for (int r = 0; r < kRegRows; ++r) {
       if (r < n_reg4) {
         float pv[R];
         load_state<R>(s_P + (n_res + 4 * r + part) * R, pv);
-#pragma unroll
-        for (int k = 0; k < R; ++k) a[k] = Ops::step(a[k], pv[k], treg[r]);
+        step(n_res + 4 * r + part, pv, treg[r]);
       }
     }
     if (part == 0) {
       for (int i = S & ~3; i < S; ++i) {
         float pv[R];
         load_state<R>(s_P + (int64_t)i * R, pv);
-        const float tv = s_tl[(i & 3) * Sc + c];
-#pragma unroll
-        for (int k = 0; k < R; ++k) a[k] = Ops::step(a[k], pv[k], tv);
+        step(i, pv, s_tl[(i & 3) * Sc + c]);
       }
     }
+  }
+
+  // s[k] = sum_i s_P[i][k] M[i][gj] for every row k (Ops' semiring), in
+  // the wide tile's order (four chains, combined (a0 + a1) + (a2 + a3));
+  // every lane of the column gets every row's sum.  Call with the whole
+  // block.
+  template <typename Ops>
+  __device__ __forceinline__ void product(float (&s)[R]) const {
+    float a[R];
+#pragma unroll
+    for (int k = 0; k < R; ++k) a[k] = Ops::init();
+    fold([&](int, const float (&pv)[R], float tv) {
+#pragma unroll
+      for (int k = 0; k < R; ++k) a[k] = Ops::step(a[k], pv[k], tv);
+    });
 #pragma unroll
     for (int k = 0; k < R; ++k) {
       const float x =
@@ -368,9 +381,46 @@ struct ClusterTile {
     }
   }
 
+  // best[k] = max_i (s_P[i][k] + M[i][gj]) for every row k and arg[k] its
+  // first hit, the lowest such i (S where every term is -inf): each chain
+  // keeps the lowest index of its maximum (rows in increasing i, strict
+  // >), and the four chains of the column combine by value, then by the
+  // lower index, which is the order's first hit whatever the pairing.
+  // Every lane of the column gets both.  Call with the whole block.
+  __device__ __forceinline__ void product_argmax(float (&best)[R],
+                                                 int (&arg)[R]) const {
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      best[k] = -INFINITY;
+      arg[k] = S;
+    }
+    fold([&](int i, const float (&pv)[R], float tv) {
+#pragma unroll
+      for (int k = 0; k < R; ++k) {
+        const float c = pv[k] + tv;
+        if (c > best[k]) {
+          best[k] = c;
+          arg[k] = i;
+        }
+      }
+    });
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+#pragma unroll
+      for (int off = 8; off <= 16; off *= 2) {
+        const float b = __shfl_xor_sync(0xffffffffu, best[k], off);
+        const int i = __shfl_xor_sync(0xffffffffu, arg[k], off);
+        if (b > best[k] || (b == best[k] && i < arg[k])) {
+          best[k] = b;
+          arg[k] = i;
+        }
+      }
+    }
+  }
+
   // v[m] = s[own_k[m]]: a thread's own rows of a column's values.
-  __device__ __forceinline__ void own(const float (&s)[R],
-                                      float (&v)[kOwn]) const {
+  template <typename T>
+  __device__ __forceinline__ void own(const T (&s)[R], T (&v)[kOwn]) const {
 #pragma unroll
     for (int k = 0; k < R; ++k)
       if ((k & 3) == part) v[k >> 2] = s[k];
@@ -437,15 +487,17 @@ struct ClusterTile {
     wait(kP);
   }
 
-  // Every state of s_P from a [B, S] row per cluster row, exp'ed (0 for a
-  // row past the batch); no exchange.  Call with the whole block; it
-  // synchronizes.
+  // Every state of s_P from a [B, S] row of log values per cluster row,
+  // as Ops' product reads them (Ops::from_log: exp for the sum-product,
+  // the values themselves for max-plus; a row past the batch reads 0);
+  // no exchange.  Call with the whole block; it synchronizes.
+  template <typename Ops>
   __device__ __forceinline__ void fill_state(const float* __restrict__ x,
                                              int64_t B) const {
     for (int64_t n = threadIdx.x; n < (int64_t)S * R;
          n += kClusterThreads) {
       const int i = (int)(n / R), k = (int)(n % R);
-      s_P[n] = expf(b0 + k < B ? x[(b0 + k) * S + i] : 0.0f);
+      s_P[n] = Ops::from_log(b0 + k < B ? x[(b0 + k) * S + i] : 0.0f);
     }
     __syncthreads();
   }
@@ -531,6 +583,22 @@ cudaError_t make_cluster_plan(const Fn (&ks)[kClusterRs], int S, int64_t B,
     }
   }
   return pl->R == 0 ? cudaErrorNotSupported : cudaSuccess;
+}
+
+// The plan of ``ks`` written out as the plan entries return it: C, Sc,
+// R, n_res, n_reg, smem bytes, clusters, then the active clusters at each
+// R of kClusterRows (out[7 + kClusterRs]).
+template <typename Fn>
+int write_cluster_plan(const Fn (&ks)[kClusterRs], int S, int64_t B,
+                       int n_max, int64_t* out) {
+  ClusterPlan pl;
+  const cudaError_t err = make_cluster_plan(ks, S, B, n_max, &pl);
+  if (err != cudaSuccess) return (int)err;
+  const int64_t v[7] = {pl.C, pl.Sc, pl.R, pl.n_res, pl.n_reg,
+                        (int64_t)pl.smem, pl.clusters};
+  for (int i = 0; i < 7; ++i) out[i] = v[i];
+  for (int i = 0; i < kClusterRs; ++i) out[7 + i] = pl.active[i];
+  return 0;
 }
 
 // Launches ks at the plan's R as a grid of clusters of C blocks; a

@@ -60,6 +60,9 @@ struct ProbOps {
     return __fmul_rn(u, __fdiv_rn(1.0f, m));
   }
   __device__ static float increment(float m) { return logf(m); }
+  // the state-vector entry of a log value (the log-space scans' products
+  // run on exp(a); scan_cluster.cuh fill_state)
+  __device__ static float from_log(float v) { return expf(v); }
 };
 
 // The RT state-vector values of one state for this thread's rows.

@@ -28,6 +28,9 @@
 //                        (scan_cluster.cuh), with the same bits
 //   viterbi_ptrs_kernel  K8c, _viterbi_kernel (:277) under viterbi_pallas
 //                        (:333)
+//   viterbi_ptrs_cluster_kernel
+//                        the same function from 257 to 1024 states on the
+//                        cluster tile, with the same bits
 //   pointer_chase_kernel the XLA backtrace of viterbi_pallas (:381-388),
 //                        no Pallas kernel
 //
@@ -55,9 +58,9 @@
 // backward: a second max reduction) to K6's S-term product; past 256
 // states, on the staged tile, the re-read of the matrix from L2 every
 // step, and on the cluster tile the product over a block's slice (R S^2
-// / C FMAs a block a step) and two cluster barriers a step (the
-// backward: three).  The chase is one dependent pointer load per
-// position.
+// / C FMAs, or add-and-compares, a block a step) and two exchanges across
+// the cluster a step (the backward: three).  The chase is one dependent
+// pointer load per position.
 //
 // Design: scan_tile.cuh's tile (a block of 256 threads owns a tile of rows
 // for the whole scan, one thread per state to S = 256 and 2 or 4 beyond,
@@ -74,9 +77,9 @@
 // step at the chunk's last position takes exp of the carry and whose
 // x_out is renormalized after position 0) run the same loops, so a sweep
 // cut into chunks executes the same instructions as one chunk.  From 257
-// to 1024 states the forward and backward (and their carry modes) run the
-// cluster tile instead (scan_cluster.cuh, which says why and how): the
-// entries take the tile the caller names, ``cluster``.
+// to 1024 states the forward and backward (and their carry modes) and the
+// Viterbi run the cluster tile instead (scan_cluster.cuh, which says why
+// and how): the entries take the tile the caller names, ``cluster``.
 //
 // Numerics: each product is summed in K6's fixed order, four interleaved
 // FMA chains added pairwise, that depends on S alone (no atomics, no
@@ -438,7 +441,7 @@ __global__ void __launch_bounds__(kClusterThreads, 1)
                     ? obs[cell[m] * L * S + tl.gj]
                     : 0.0f;
   }
-  if (carried) tl.fill_state(carry_in, B);
+  if (carried) tl.template fill_state<ProbOps>(carry_in, B);
   const bool writes_dm = tl.rank == 0 && tl.col == 0 && dm_out != nullptr;
 
   for (int64_t t = 0; t < L; ++t) {
@@ -548,7 +551,7 @@ __global__ void __launch_bounds__(kClusterThreads, 1)
     if (carried && t == L - 1) {
       // the boundary step: exp(x_carry) through the product
       float s[R], so[kOwn], nm[kOwn];
-      tl.fill_state(x_carry, B);
+      tl.template fill_state<ProbOps>(x_carry, B);
       tl.template product<ProbOps>(s);
       tl.own(s, so);
 #pragma unroll
@@ -827,6 +830,98 @@ __global__ void __launch_bounds__(kThreads)
         v_last[(tl.b0 + k) * S + tl.jq(q)] = v[q][k];
 }
 
+// K8c past 256 states on the cluster tile (scan_cluster.cuh): the function
+// and the bits of viterbi_ptrs_kernel, uint16 pointers.  A step: the
+// max-plus product over the block's slice with the first-hit argmax beside
+// every partial maximum (ClusterTile::product_argmax; at position 0
+// log_start and the identity), u = best + obs, the cluster's row max (an
+// exchange), v = u - m on valid positions, v into every block's state
+// vector (a second).  Every block holds the whole state vector, so no
+// argmax crosses blocks.
+template <int R>
+__global__ void __launch_bounds__(kClusterThreads, 1)
+    viterbi_ptrs_cluster_kernel(const float* __restrict__ obs,
+                                const int32_t* __restrict__ lens,
+                                const float* __restrict__ log_start,
+                                const float* __restrict__ log_trans,
+                                void* __restrict__ ptr_void,
+                                float* __restrict__ v_last,
+                                float* __restrict__ dm_out, int64_t B,
+                                int64_t L, int S, int n_res) {
+  uint16_t* ptr_out = static_cast<uint16_t*>(ptr_void);
+  extern __shared__ __align__(16) float smem[];
+  using Tile = ClusterTile<R>;
+  constexpr int kOwn = Tile::kOwn;
+  Tile tl(smem, log_trans, lens, B, L, S, n_res, 1);
+  int64_t cell[kOwn];
+  float v[kOwn], o_next[kOwn];
+  const float start_j = tl.has_col ? log_start[tl.gj] : 0.0f;
+  const uint16_t ident = (uint16_t)tl.gj;
+#pragma unroll
+  for (int m = 0; m < kOwn; ++m) {
+    cell[m] = tl.b0 + tl.own_k[m];
+    v[m] = 0.0f;
+    o_next[m] = tl.own_has[m] && tl.own_len[m] > 0
+                    ? obs[cell[m] * L * S + tl.gj]
+                    : 0.0f;
+  }
+  const bool writes_dm = tl.rank == 0 && tl.col == 0;
+
+  for (int64_t t = 0; t < L; ++t) {
+    if (t >= tl.max_len) {
+      // every row of the cluster is past its end: identity pointers, zeros
+#pragma unroll
+      for (int m = 0; m < kOwn; ++m) {
+        if (!tl.own_live[m]) continue;
+        const int64_t pos = cell[m] * L + t;
+        if (tl.own_has[m]) ptr_out[pos * S + tl.gj] = ident;
+        if (writes_dm) dm_out[pos] = 0.0f;
+      }
+      continue;
+    }
+    float o[kOwn], u[kOwn], mx[kOwn];
+    int arg[kOwn];
+#pragma unroll
+    for (int m = 0; m < kOwn; ++m) {
+      o[m] = o_next[m];
+      o_next[m] = tl.own_has[m] && t + 1 < tl.own_len[m]
+                      ? obs[(cell[m] * L + t + 1) * S + tl.gj]
+                      : 0.0f;
+    }
+    if (t == 0) {
+#pragma unroll
+      for (int m = 0; m < kOwn; ++m) {
+        u[m] = start_j;
+        arg[m] = tl.gj;
+      }
+    } else {
+      float best[R];
+      int idx[R];
+      tl.product_argmax(best, idx);
+      tl.own(best, u);
+      tl.own(idx, arg);
+    }
+#pragma unroll
+    for (int m = 0; m < kOwn; ++m) u[m] = u[m] + o[m];
+    tl.template rows_max<0>(u, mx, kLogZero);
+#pragma unroll
+    for (int m = 0; m < kOwn; ++m) {
+      const bool valid = t < tl.own_len[m];
+      if (valid) v[m] = u[m] - mx[m];
+      if (!tl.own_live[m]) continue;
+      const int64_t pos = cell[m] * L + t;
+      if (tl.own_has[m])
+        ptr_out[pos * S + tl.gj] = valid ? (uint16_t)arg[m] : ident;
+      if (writes_dm) dm_out[pos] = valid ? mx[m] : 0.0f;
+    }
+    tl.broadcast(v);
+  }
+#pragma unroll
+  for (int m = 0; m < kOwn; ++m)
+    if (tl.own_has[m] && tl.own_live[m]) v_last[cell[m] * S + tl.gj] = v[m];
+  tl.finish();
+}
+
 // The chase: one thread per batch row walks the pointers back from the
 // first-hit argmax of its last value row; zero-length rows get path 0.
 template <typename PtrT>
@@ -898,6 +993,9 @@ int launch_bwd(int cluster, const float* obs, const int32_t* lens,
 
 extern "C" {
 
+// streaming.cu: K5's cluster plan
+int tehmm_viterbi_values_cluster_plan(int S, int64_t B, int64_t* out);
+
 // ``cluster``: the cluster tile (257 to 1024 states), else the block tile.
 int tehmm_fwd_scaled(const void* obs, const void* lens,
                      const void* log_start, const void* trans_p,
@@ -941,32 +1039,37 @@ int tehmm_bwd_chunk_tile(const void* obs, const void* x_carry,
                     (float*)x_out, B, L, S, stream);
 }
 
-// The cluster tile's plan at S states and B rows (``backward``: K7b's
-// two max buffers) into out[12]: C, Sc, R, n_res, n_reg, smem bytes,
-// clusters, then the active clusters at each R of kClusterRows.
-int tehmm_scan_cluster_plan(int S, int64_t B, int backward, int64_t* out) {
-  ClusterPlan pl;
-  cudaError_t err;
-  if (backward) {
+// The cluster tile's plan of kernel ``kind`` (0 K7a/K8a, 1 K7b/K8b with
+// its two max buffers, 2 K5 and K3's carry mode, 3 K8c) at S states and B
+// rows into out[12] (write_cluster_plan).
+int tehmm_scan_cluster_plan(int S, int64_t B, int kind, int64_t* out) {
+  if (kind == 1) {
     CLUSTER_KERNELS(ks, bwd_scaled_cluster_kernel);
-    err = make_cluster_plan(ks, S, B, 2, &pl);
-  } else {
-    CLUSTER_KERNELS(ks, fwd_scaled_cluster_kernel);
-    err = make_cluster_plan(ks, S, B, 1, &pl);
+    return write_cluster_plan(ks, S, B, 2, out);
   }
-  if (err != cudaSuccess) return (int)err;
-  const int64_t v[7] = {pl.C, pl.Sc, pl.R, pl.n_res, pl.n_reg,
-                        (int64_t)pl.smem, pl.clusters};
-  for (int i = 0; i < 7; ++i) out[i] = v[i];
-  for (int i = 0; i < kClusterRs; ++i) out[7 + i] = pl.active[i];
-  return 0;
+  if (kind == 2) return tehmm_viterbi_values_cluster_plan(S, B, out);
+  if (kind == 3) {
+    CLUSTER_KERNELS(ks, viterbi_ptrs_cluster_kernel);
+    return write_cluster_plan(ks, S, B, 1, out);
+  }
+  CLUSTER_KERNELS(ks, fwd_scaled_cluster_kernel);
+  return write_cluster_plan(ks, S, B, 1, out);
 }
 
-// ptr_out: uint8 for S <= 256, uint16 beyond.
+// ptr_out: uint8 for S <= 256, uint16 beyond; ``cluster``: the cluster
+// tile (257 to 1024 states), else the block tile.
 int tehmm_viterbi_ptrs(const void* obs, const void* lens,
                        const void* log_start, const void* log_trans,
                        void* ptr_out, void* v_last, void* dm_out, int64_t B,
-                       int64_t L, int S, void* stream) {
+                       int64_t L, int S, int cluster, void* stream) {
+  if (cluster) {
+    CLUSTER_KERNELS(ks, viterbi_ptrs_cluster_kernel);
+    return launch_cluster_scan(ks, B, S, 1, stream, (const float*)obs,
+                               (const int32_t*)lens,
+                               (const float*)log_start,
+                               (const float*)log_trans, ptr_out,
+                               (float*)v_last, (float*)dm_out, B, L, S);
+  }
   TILE_KERNELS(ks, viterbi_ptrs_kernel);
   return launch_scan(ks, B, S, stream, (const float*)obs,
                      (const int32_t*)lens, (const float*)log_start,

@@ -14,7 +14,13 @@
 //
 //   viterbi_values_kernel  K5, _make_viterbi_kernel_v3(carry_mode=False)
 //                          (:1284) under _viterbi_values_v3 (:1374) and
-//                          viterbi_pallas_v3 (:1453)
+//                          viterbi_pallas_v3 (:1453); in carry mode K3,
+//                          viterbi_chunk_values_pallas (:1492) past 239
+//                          states
+//   viterbi_values_cluster_kernel
+//                          the same function, carry mode included, from
+//                          257 to 1024 states on the cluster tile
+//                          (scan_cluster.cuh), with the same bits
 //   fwd_prob_kernel        K6a, _forward_kernel_v3 (:627) under
 //                          forward_prob_pallas_v3 (:815)
 //   bwd_prob_kernel        K6b, _backward_kernel_v3 (:712) under
@@ -34,8 +40,10 @@
 // (about 0.5 ms for 256 rows of 1024 against 0.16 ms of bytes), and in
 // practice the chain of L dependent steps, each an S-term FMA (or
 // add-and-max) chain per output plus block-wide max reductions.  Past 256
-// states each block also re-reads the whole matrix from L2 every step
-// (4 MB at S = 1024), which sets the time there.
+// states, on the staged tile (K6), each block also re-reads the whole
+// matrix from L2 every step (4 MB at S = 1024), which sets the time there;
+// on the cluster tile (K5, K3) the product over a block's slice (R S^2 / C
+// add-and-max a block a step) and two exchanges across the cluster a step.
 //
 // Design: a block of 256 threads owns R = NG * RT batch rows for the whole
 // scan, NG = 256 / S row groups of S threads.  Thread (g, j) owns state j
@@ -62,7 +70,12 @@
 // product and only write the carried rows.  Past 256 states a thread owns
 // 2 or 4 states of every row of its block, the block 2 or 4 rows, and the
 // matrix is staged block by block through shared memory every step, each
-// staged block serving all the rows (scan_tile.cuh).
+// staged block serving all the rows (scan_tile.cuh): K6a/b's tile.  K5
+// and K3's carry mode run the cluster tile instead from 257 to 1024
+// states (scan_cluster.cuh, which says why and how: each block keeps its
+// column slice of log_trans resident; the state vector holds the
+// renormalized log values themselves); their entries take the tile the
+// caller names, ``cluster``.
 //
 // K3's carry mode (tehmm_viterbi_carry_tile) is K5 started from each
 // row's carry instead of log_start: every position, 0 included, applies
@@ -82,7 +95,7 @@
 //
 // All global index arithmetic is 64-bit.
 
-#include "scan_tile.cuh"
+#include "scan_cluster.cuh"
 
 namespace {
 
@@ -98,6 +111,8 @@ struct MaxPlusOps {
   __device__ static float emit(float base, float o) { return base + o; }
   __device__ static float renorm(float u, float m) { return u - m; }
   __device__ static float increment(float m) { return m; }
+  // the state vector holds the log values themselves
+  __device__ static float from_log(float v) { return v; }
 };
 
 // The forward scan of K5 and K6a, and K3's carry mode.  Position 0 takes
@@ -230,6 +245,98 @@ __global__ void __launch_bounds__(kThreads)
                                     L, S, n_s, n_slots, smem);
 }
 
+// K5 and K3's carry mode past 256 states on the cluster tile
+// (scan_cluster.cuh): the function and the bits of viterbi_values_kernel.
+// A step: the max-plus product over the block's slice of log_trans (at
+// position 0 without a carry, log_start instead), u = best + obs, the
+// cluster's row max (an exchange), p = u - m on valid positions, p into
+// every block's state vector (a second).  A row of length 0 stays
+// all-zero with dm 0: position 0 is renormalized only where it is valid.
+template <int R>
+__global__ void __launch_bounds__(kClusterThreads, 1)
+    viterbi_values_cluster_kernel(const float* __restrict__ obs,
+                                  const int32_t* __restrict__ lens,
+                                  const float* __restrict__ log_start,
+                                  const float* __restrict__ carry_in,
+                                  const float* __restrict__ log_trans,
+                                  float* __restrict__ v_out,
+                                  float* __restrict__ dm_out,
+                                  float* __restrict__ carry_out, int64_t B,
+                                  int64_t L, int S, int n_res) {
+  extern __shared__ __align__(16) float smem[];
+  using Tile = ClusterTile<R>;
+  constexpr int kOwn = Tile::kOwn;
+  Tile tl(smem, log_trans, lens, B, L, S, n_res, 1);
+  const bool carried = carry_in != nullptr;
+  int64_t cell[kOwn];
+  float p[kOwn], o_next[kOwn];
+  const float start_j = tl.has_col && !carried ? log_start[tl.gj] : 0.0f;
+#pragma unroll
+  for (int m = 0; m < kOwn; ++m) {
+    cell[m] = tl.b0 + tl.own_k[m];
+    p[m] = carried && tl.own_has[m] && tl.own_live[m]
+               ? carry_in[cell[m] * S + tl.gj]
+               : MaxPlusOps::kCarry0;
+    o_next[m] = tl.own_has[m] && tl.own_len[m] > 0
+                    ? obs[cell[m] * L * S + tl.gj]
+                    : 0.0f;
+  }
+  if (carried) tl.template fill_state<MaxPlusOps>(carry_in, B);
+  const bool writes_dm = tl.rank == 0 && tl.col == 0 && dm_out != nullptr;
+
+  for (int64_t t = 0; t < L; ++t) {
+    if (t >= tl.max_len) {
+      // every row of the cluster is past its end: carried rows, zeros
+#pragma unroll
+      for (int m = 0; m < kOwn; ++m) {
+        if (!tl.own_live[m]) continue;
+        const int64_t pos = cell[m] * L + t;
+        if (v_out != nullptr && tl.own_has[m]) v_out[pos * S + tl.gj] = p[m];
+        if (writes_dm) dm_out[pos] = 0.0f;
+      }
+      continue;
+    }
+    float o[kOwn], u[kOwn], mx[kOwn];
+#pragma unroll
+    for (int m = 0; m < kOwn; ++m) {
+      o[m] = o_next[m];
+      o_next[m] = tl.own_has[m] && t + 1 < tl.own_len[m]
+                      ? obs[(cell[m] * L + t + 1) * S + tl.gj]
+                      : 0.0f;
+    }
+    if (t == 0 && !carried) {
+#pragma unroll
+      for (int m = 0; m < kOwn; ++m) u[m] = start_j;
+    } else {
+      float s[R];
+      tl.template product<MaxPlusOps>(s);
+      tl.own(s, u);
+    }
+#pragma unroll
+    for (int m = 0; m < kOwn; ++m) u[m] = MaxPlusOps::emit(u[m], o[m]);
+    tl.template rows_max<0>(u, mx, MaxPlusOps::kFloor);
+#pragma unroll
+    for (int m = 0; m < kOwn; ++m) {
+      const bool valid = t < tl.own_len[m];
+      if (valid) p[m] = MaxPlusOps::renorm(u[m], mx[m]);
+      if (!tl.own_live[m]) continue;
+      const int64_t pos = cell[m] * L + t;
+      if (v_out != nullptr && tl.own_has[m]) v_out[pos * S + tl.gj] = p[m];
+      if (writes_dm)
+        dm_out[pos] = valid ? MaxPlusOps::increment(mx[m]) : 0.0f;
+    }
+    tl.broadcast(p);
+  }
+  if (carry_out != nullptr) {
+#pragma unroll
+    for (int m = 0; m < kOwn; ++m)
+      if (tl.own_has[m] && tl.own_live[m])
+        carry_out[cell[m] * S + tl.gj] = p[m];
+  }
+  tl.finish();
+}
+
+
 // K6a: scaled forward probabilities (per-position max 1) and log m.
 template <int SPT, int RT>
 __global__ void __launch_bounds__(kThreads)
@@ -346,20 +453,38 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// K5's launch (with ``carry_in``, K3's carry mode): the cluster tile
+// where ``cluster`` (257 to 1024 states), else scan_tile.cuh's.
+int launch_viterbi_values(int cluster, const float* obs, const int32_t* lens,
+                          const float* log_start, const float* carry_in,
+                          const float* log_trans, float* v_out,
+                          float* dm_out, float* carry_out, int64_t B,
+                          int64_t L, int S, void* stream) {
+  if (cluster) {
+    CLUSTER_KERNELS(ks, viterbi_values_cluster_kernel);
+    return launch_cluster_scan(ks, B, S, 1, stream, obs, lens, log_start,
+                               carry_in, log_trans, v_out, dm_out,
+                               carry_out, B, L, S);
+  }
+  TILE_KERNELS(ks, viterbi_values_kernel);
+  return launch_scan(ks, B, S, stream, obs, lens, log_start, carry_in,
+                     log_trans, v_out, dm_out, carry_out, B, L, S);
+}
+
 }  // namespace
 
 extern "C" {
 
+// ``cluster``: the cluster tile (257 to 1024 states), else the block tile.
 int tehmm_viterbi_values(const void* obs, const void* lens,
                          const void* log_start, const void* log_trans,
                          void* v_out, void* dm_out, int64_t B, int64_t L,
-                         int S, void* stream) {
-  TILE_KERNELS(ks, viterbi_values_kernel);
-  return launch_scan(ks, B, S, stream,
-                     (const float*)obs, (const int32_t*)lens,
-                     (const float*)log_start, (const float*)nullptr,
-                     (const float*)log_trans, (float*)v_out,
-                     (float*)dm_out, (float*)nullptr, B, L, S);
+                         int S, int cluster, void* stream) {
+  return launch_viterbi_values(cluster, (const float*)obs,
+                               (const int32_t*)lens, (const float*)log_start,
+                               nullptr, (const float*)log_trans,
+                               (float*)v_out, (float*)dm_out, nullptr, B, L,
+                               S, stream);
 }
 
 // K3's carry mode: v_out (values) or carry_out (the final carry) may be
@@ -367,13 +492,20 @@ int tehmm_viterbi_values(const void* obs, const void* lens,
 int tehmm_viterbi_carry_tile(const void* obs, const void* carry_in,
                              const void* lens, const void* log_trans,
                              void* v_out, void* carry_out, int64_t B,
-                             int64_t L, int S, void* stream) {
-  TILE_KERNELS(ks, viterbi_values_kernel);
-  return launch_scan(ks, B, S, stream,
-                     (const float*)obs, (const int32_t*)lens,
-                     (const float*)nullptr, (const float*)carry_in,
-                     (const float*)log_trans, (float*)v_out,
-                     (float*)nullptr, (float*)carry_out, B, L, S);
+                             int64_t L, int S, int cluster, void* stream) {
+  return launch_viterbi_values(cluster, (const float*)obs,
+                               (const int32_t*)lens, nullptr,
+                               (const float*)carry_in,
+                               (const float*)log_trans, (float*)v_out,
+                               nullptr, (float*)carry_out, B, L, S, stream);
+}
+
+// K5's (and K3's carry mode's) cluster plan at S states and B rows
+// (scan_cluster.cuh write_cluster_plan); scans.cu's
+// tehmm_scan_cluster_plan returns it.
+int tehmm_viterbi_values_cluster_plan(int S, int64_t B, int64_t* out) {
+  CLUSTER_KERNELS(ks, viterbi_values_cluster_kernel);
+  return write_cluster_plan(ks, S, B, 1, out);
 }
 
 int tehmm_fwd_prob(const void* obs_p, const void* lens, const void* start_p,

@@ -81,9 +81,10 @@ beyond, each counted under its own name (``viterbi_chunk_tile``,
 ``fwd_chunk_tile``, ``bwd_chunk_tile``), so the exact decoders, ``--pd``
 and every printed loglik run to S = 1024 too.  From 257 states the
 log-space scans (``forward_scaled``, ``backward_scaled`` and X1's and
-X2's carry modes) run the cluster tile of ``csrc/scan_cluster.cuh``
-(``scan_route``; ``SCAN_CLUSTER_MAX_STATES`` = 0 forces the staged tile),
-counted under ``*_cluster`` names, with the same bits.  The printed loglik
+X2's carry modes), K5, K3's carry mode and K8c run the cluster tile of
+``csrc/scan_cluster.cuh`` (``scan_route``; ``SCAN_CLUSTER_MAX_STATES`` = 0
+forces the staged tile), counted under ``*_cluster`` names, with the same
+bits.  The printed loglik
 (``MultitrackHmm.score``) takes ``forward_loglik``, which splits each
 row into pieces where ``piece_scan_route`` says (to
 ``PIECE_SCAN_MAX_STATES``, and to a number of rows that falls with S)
@@ -154,7 +155,8 @@ LAUNCHES = {
            "pointer_chase", "viterbi_chunk_tile", "fwd_chunk_tile",
            "bwd_chunk_tile", "fwd_scaled_cluster", "fwd_chunk_cluster",
            "bwd_scaled_cluster", "bwd_chunk_cluster",
-           "maxplus_resident", "maxplus_blocks",
+           "viterbi_values_cluster", "viterbi_chunk_cluster",
+           "viterbi_ptrs_cluster", "maxplus_resident", "maxplus_blocks",
            "fwd_piece_ops", "fwd_piece_compose"]
     )
 }
@@ -182,13 +184,13 @@ _STREAMING_ENVELOPE_ITEM = (
 )
 _TILE_POINTERS_ITEM = "ROADMAP speed item 19: K3's pointer mode on the tile"
 
-# The log-space scans past 256 states (K7a/K8a, K7b/K8b and X1's and X2's
-# carry modes, csrc/scans.cu) run the cluster tile (csrc/scan_cluster.cuh)
-# from 257 states to this many, and the staged wide tile of
-# csrc/scan_tile.cuh beyond it, to 1024.  Both give the same bits, so the
-# choice moves only time; 0 forces the staged tile (tests and tools set it
-# and restore it).  K5, K6a/b, K8c and K3's carry mode stay on the staged
-# tile.
+# The scans over obs past 256 states (K7a/K8a, K7b/K8b and X1's and X2's
+# carry modes and K8c, csrc/scans.cu; K5 and K3's carry mode,
+# csrc/streaming.cu) run the cluster tile (csrc/scan_cluster.cuh) from 257
+# states to this many, and the staged wide tile of csrc/scan_tile.cuh
+# beyond it, to 1024.  Both give the same bits, so the choice moves only
+# time; 0 forces the staged tile for all seven (tests and tools set it and
+# restore it).  K6a/b stay on the staged tile.
 SCAN_CLUSTER_MAX_STATES = 1024
 # The cluster tile's plan (csrc/scan_cluster.cuh ``make_cluster_plan``):
 # a block of 256 threads owns up to 64 states of the cluster's R rows
@@ -197,11 +199,19 @@ SCAN_CLUSTER_MAX_STATES = 1024
 _CLUSTER_COLS, _CLUSTER_WARPS = 64, 8
 _CLUSTER_ROWS = (1, 2, 4, 8, 12)
 _CLUSTER_REG_ROWS = {1: 64, 2: 64, 4: 64, 8: 64, 12: 80}
-# each of the four scans' counters on the block tile -> on the cluster tile
+# each cluster scan's counter on the block tile -> on the cluster tile
 _CLUSTER_COUNTERS = {"fwd_scaled": "fwd_scaled_cluster",
                      "fwd_chunk_tile": "fwd_chunk_cluster",
                      "bwd_scaled": "bwd_scaled_cluster",
-                     "bwd_chunk_tile": "bwd_chunk_cluster"}
+                     "bwd_chunk_tile": "bwd_chunk_cluster",
+                     "viterbi_values": "viterbi_values_cluster",
+                     "viterbi_chunk_tile": "viterbi_chunk_cluster",
+                     "viterbi_ptrs": "viterbi_ptrs_cluster"}
+# the cluster kernels whose plans the card's plan entry gives
+# (``tehmm_scan_cluster_plan``'s ``kind``): K7a/K8a (and X1's carry mode),
+# K7b/K8b (and X2's; two max buffers), K5 (and K3's carry mode), K8c
+CLUSTER_PLAN_KINDS = ("fwd_scaled", "bwd_scaled", "viterbi_values",
+                      "viterbi_ptrs")
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -353,9 +363,11 @@ def load_library() -> ctypes.CDLL:
         lib.tehmm_fwd_piece_compose.restype = i32
         lib.tehmm_fwd_piece_compose.argtypes = (
             [ptr] * 6 + [i64, i64, i32, i32, ptr])
-        for fn in (lib.tehmm_viterbi_values, lib.tehmm_fwd_prob):
-            fn.restype = i32
-            fn.argtypes = [ptr] * 6 + [i64, i64, i32, ptr]
+        lib.tehmm_fwd_prob.restype = i32
+        lib.tehmm_fwd_prob.argtypes = [ptr] * 6 + [i64, i64, i32, ptr]
+        lib.tehmm_viterbi_values.restype = i32
+        lib.tehmm_viterbi_values.argtypes = [ptr] * 6 + [i64, i64, i32, i32,
+                                                         ptr]
         lib.tehmm_bwd_prob.restype = i32
         lib.tehmm_bwd_prob.argtypes = [ptr] * 4 + [i64, i64, i32, ptr]
         lib.tehmm_fwd_scaled.restype = i32
@@ -367,12 +379,13 @@ def load_library() -> ctypes.CDLL:
         lib.tehmm_scan_cluster_plan.restype = i32
         lib.tehmm_scan_cluster_plan.argtypes = [i32, i64, i32, ptr]
         lib.tehmm_viterbi_ptrs.restype = i32
-        lib.tehmm_viterbi_ptrs.argtypes = [ptr] * 7 + [i64, i64, i32, ptr]
+        lib.tehmm_viterbi_ptrs.argtypes = [ptr] * 7 + [i64, i64, i32, i32,
+                                                       ptr]
         lib.tehmm_pointer_chase.restype = i32
         lib.tehmm_pointer_chase.argtypes = [ptr] * 4 + [i64, i64, i32, ptr]
         lib.tehmm_viterbi_carry_tile.restype = i32
         lib.tehmm_viterbi_carry_tile.argtypes = (
-            [ptr] * 6 + [i64, i64, i32, ptr])
+            [ptr] * 6 + [i64, i64, i32, i32, ptr])
         lib.tehmm_fwd_chunk_tile.restype = i32
         lib.tehmm_fwd_chunk_tile.argtypes = [ptr] * 7 + [i64, i64, i32,
                                                          i32, ptr]
@@ -820,8 +833,8 @@ def _k3_launch(name, log_trans, obs, v_hat_init, lengths, out, mode,
     ptrs = head + (out.data_ptr() if values else None,
                    None if values else out.data_ptr(), B, L, S)
     if step == "tile":
-        _launch_streaming("viterbi_chunk_tile", "tehmm_viterbi_carry_tile",
-                          ptrs, obs.device)
+        _launch_scan("viterbi_chunk_tile", "tehmm_viterbi_carry_tile", S,
+                     ptrs, obs.device)
     else:
         _launch_streaming(name, _K3_ENTRIES[step], ptrs + (chunk, n_ck),
                           obs.device)
@@ -842,8 +855,10 @@ def viterbi_chunk_values(log_trans, obs, v_hat_init, lengths):
     the row stopped at its length; past 239 states K5's tile in
     carry mode (``csrc/streaming.cu``: the carry is the row before
     position 0, every position applies the max-plus step), counted as
-    ``viterbi_chunk_tile``.  Bit-equal to the plain version either way,
-    so chunked sweeps equal one chunk."""
+    ``viterbi_chunk_tile``, and from 257 states K5's cluster tile in carry
+    mode (``scan_route``), counted as ``viterbi_chunk_cluster``.
+    Bit-equal to the plain version either way, so chunked sweeps equal one
+    chunk."""
     B, L, S = obs.shape
     dev = _check_sweep(log_trans, obs, v_hat_init, lengths, "v_hat_init")
     if _device_kind(dev) == "cpu":
@@ -878,8 +893,9 @@ def viterbi_checkpoints(log_trans, obs, v_hat_init, lengths, chunk):
     L positions).  The exact decoder's forward sweep: one launch walks
     each row over a whole group of chunks, where ``viterbi_carry`` took a
     launch a chunk.  Counted as ``viterbi_checkpoints``; past 239 states
-    one launch of the tile's carry mode a chunk (``viterbi_chunk_tile``).
-    Bound and design as ``viterbi_chunk_values``."""
+    one launch of the tile's carry mode a chunk (``viterbi_chunk_tile``;
+    from 257 states ``viterbi_chunk_cluster``).  Bound and design as
+    ``viterbi_chunk_values``."""
     B, L, S = obs.shape
     dev = _check_sweep(log_trans, obs, v_hat_init, lengths, "v_hat_init")
     if chunk < 1:
@@ -2084,20 +2100,22 @@ def viterbi_values(log_start, log_trans, obs, lengths):
     rows for the whole scan, one thread per state and one row per thread
     (two where the card cannot hold the batch in one wave), the rows'
     vectors and as much of log_trans as fits in shared memory, the rest
-    of it read through the read-only path; past 256 states a thread owns
-    2 or 4 states and log_trans is staged through shared memory block by
-    block every step (``csrc/scan_tile.cuh``).  Takes S <= 1024.
-    Bit-equal to the plain version."""
+    of it read through the read-only path; from 257 states (``scan_route``)
+    the cluster tile (``csrc/scan_cluster.cuh``, counted as
+    ``viterbi_values_cluster``): a cluster of up to 16 blocks owns up to
+    12 rows, each block a column slice of log_trans kept resident and the
+    whole state vector, two exchanges across the cluster a step.  Takes S
+    <= 1024.  Bit-equal to the plain version."""
     dev = _check_streaming(log_trans, obs, lengths, "obs", "viterbi_values",
                            log_start)
-    if dev.type == "cpu":
+    if _device_kind(dev) == "cpu":
         return viterbi_values_plain(log_start, log_trans, obs, lengths)
     B, L, S = obs.shape
     v_hats = torch.empty((B, L, S), dtype=torch.float32, device=dev)
     dm = torch.empty((B, L), dtype=torch.float32, device=dev)
     if B:
-        _launch_streaming(
-            "viterbi_values", "tehmm_viterbi_values",
+        _launch_scan(
+            "viterbi_values", "tehmm_viterbi_values", S,
             (obs.data_ptr(), lengths.data_ptr(), log_start.data_ptr(),
              log_trans.data_ptr(), v_hats.data_ptr(), dm.data_ptr(), B, L,
              S), dev)
@@ -2216,26 +2234,37 @@ def backward_prob(log_trans, obs_p, lengths):
 # ---------------------------------------------------------------------
 
 def scan_route(S: int) -> str:
-    """The log-space scans' tile at S states (``forward_scaled``,
-    ``backward_scaled`` and X1's and X2's carry modes): ``"narrow"`` (the
-    block tile, to 256 states), ``"cluster"`` (the cluster tile, from 257
-    to ``SCAN_CLUSTER_MAX_STATES``), else ``"staged"`` (the block tile's
-    wide form, to 1024)."""
+    """The tile of the seven cluster scans at S states
+    (``forward_scaled``, ``backward_scaled``, X1's and X2's carry modes,
+    ``viterbi_values``, K3's carry mode and ``viterbi_pointers``):
+    ``"narrow"`` (the block tile, to 256 states), ``"cluster"`` (the
+    cluster tile, from 257 to ``SCAN_CLUSTER_MAX_STATES``), else
+    ``"staged"`` (the block tile's wide form, to 1024)."""
     if S <= 256:
         return "narrow"
     return "cluster" if S <= SCAN_CLUSTER_MAX_STATES else "staged"
 
 
-def cluster_plan(S: int, B: int, backward: bool, active) -> dict:
-    """The cluster tile's plan at S states and B rows, as csrc/
-    scan_cluster.cuh ``make_cluster_plan`` makes it: C = ceil(S / 64)
+def _plan_kind(kernel) -> int:
+    """``kernel``'s index in ``CLUSTER_PLAN_KINDS``; a bool names the
+    backward (True) or the forward (False)."""
+    if isinstance(kernel, str):
+        return CLUSTER_PLAN_KINDS.index(kernel)
+    return int(bool(kernel))
+
+
+def cluster_plan(S: int, B: int, kernel, active) -> dict:
+    """The plan of cluster kernel ``kernel`` (one of
+    ``CLUSTER_PLAN_KINDS``, or a bool: the backward's or the forward's) at
+    S states and B rows, as csrc/scan_cluster.cuh ``make_cluster_plan``
+    makes it: C = ceil(S / 64)
     blocks a cluster, each owning Sc = ceil(S / C) states rounded up to 4;
     R rows a cluster; the block's column slice of the matrix, its rows
     below n_res in shared memory and the n_reg after them (to S & ~3) in
     registers, the last S % 4 in shared memory; smem bytes a block (the
     mbarriers, the state vectors [C Sc][R], the slice, the maxima of 8
     warps and of the cluster's C blocks, two buffers of those in the
-    backward, and the lengths);
+    backward, and the lengths; K5's and K8c's plans are the forward's);
     clusters of the grid.  ``active(R, smem)`` is the card's active
     clusters of the kernel at R (the launch asks
     ``cudaOccupancyMaxActiveClusters``).  R is the fewest rows whose
@@ -2248,7 +2277,7 @@ def cluster_plan(S: int, B: int, backward: bool, active) -> dict:
     C = -(-S // _CLUSTER_COLS)
     Sc = (-(-S // C) + 3) & ~3
     S4 = S & ~3
-    n_max = 2 if backward else 1
+    n_max = 2 if _plan_kind(kernel) == 1 else 1
     plan, chosen_active = None, 0
     for R in _CLUSTER_ROWS:
         fixed = (8 + C * Sc * R + (S & 3) * Sc + _CLUSTER_WARPS * R
@@ -2273,14 +2302,15 @@ def cluster_plan(S: int, B: int, backward: bool, active) -> dict:
     return plan
 
 
-def library_cluster_plan(S: int, B: int, backward: bool) -> dict:
-    """The plan the card's launch takes (``tehmm_scan_cluster_plan``):
-    ``cluster_plan``'s keys and ``active``, the card's active clusters at
-    each R of ``_CLUSTER_ROWS``.  Needs the card."""
+def library_cluster_plan(S: int, B: int, kernel) -> dict:
+    """The plan the card's launch of ``kernel`` (as in ``cluster_plan``)
+    takes (``tehmm_scan_cluster_plan``): ``cluster_plan``'s keys and
+    ``active``, the card's active clusters of that kernel at each R of
+    ``_CLUSTER_ROWS``.  Needs the card."""
     lib = load_library()
     out = (ctypes.c_int64 * (7 + len(_CLUSTER_ROWS)))()
-    _raise_on(lib.tehmm_scan_cluster_plan(S, B, int(backward), out), lib,
-              "the cluster tile's plan")
+    _raise_on(lib.tehmm_scan_cluster_plan(S, B, _plan_kind(kernel), out),
+              lib, "the cluster tile's plan")
     keys = ("C", "Sc", "R", "n_res", "n_reg", "smem", "clusters")
     plan = dict(zip(keys, (int(v) for v in out[:7])))
     plan["active"] = [int(v) for v in out[7:]]
@@ -2288,9 +2318,10 @@ def library_cluster_plan(S: int, B: int, backward: bool) -> dict:
 
 
 def _launch_scan(name, entry, S, args, dev):
-    """Launch one of the log-space scans' four entries: the cluster tile
-    where ``scan_route(S)`` says so, counted under ``name``'s cluster
-    counter, else the block tile, counted under ``name``."""
+    """Launch one of the cluster tile's seven scans (``_CLUSTER_COUNTERS``)
+    through its entry: the cluster tile where ``scan_route(S)`` says so,
+    counted under ``name``'s cluster counter, else the block tile,
+    counted under ``name``; the entry takes the choice as its flag."""
     cluster = scan_route(S) == "cluster"
     _launch_streaming(_CLUSTER_COUNTERS[name] if cluster else name, entry,
                       (*args, int(cluster)), dev)
@@ -2436,19 +2467,22 @@ def viterbi_pointers(log_start, log_trans, obs, lengths):
     of the pointers at S = 20).
     Design (``csrc/scans.cu``): K5's tile and loop, its four partial
     maxima each kept with the index that set it and combined by value,
-    then by the lower index (past 256 states one chain in row order with a
-    strict compare); bit-equal to the plain version.  Takes S <= 1024."""
+    then by the lower index; from 257 states (``scan_route``) K5's cluster
+    tile, whose four chains a column do the same (counted as
+    ``viterbi_ptrs_cluster``); on the staged tile one chain in row order
+    with a strict compare.  Bit-equal to the plain version.  Takes S <=
+    1024."""
     dev = _check_streaming(log_trans, obs, lengths, "obs",
                            "viterbi_pointers", log_start)
-    if dev.type == "cpu":
+    if _device_kind(dev) == "cpu":
         return viterbi_pointers_plain(log_start, log_trans, obs, lengths)
     B, L, S = obs.shape
     ptrs = torch.empty((B, L, S), dtype=pointer_dtype(S), device=dev)
     v_last = torch.empty((B, S), dtype=torch.float32, device=dev)
     dm = torch.empty((B, L), dtype=torch.float32, device=dev)
     if B:
-        _launch_streaming(
-            "viterbi_ptrs", "tehmm_viterbi_ptrs",
+        _launch_scan(
+            "viterbi_ptrs", "tehmm_viterbi_ptrs", S,
             (obs.data_ptr(), lengths.data_ptr(), log_start.data_ptr(),
              log_trans.data_ptr(), ptrs.data_ptr(), v_last.data_ptr(),
              dm.data_ptr(), B, L, S), dev)

@@ -8,14 +8,15 @@ K5 (``viterbi_values``), K6a/K6b (``forward_prob``, ``backward_prob``),
 K7a/K7b (``forward_scaled``, ``backward_scaled``) and K8c
 (``viterbi_pointers``) on the obs tensor of each ``bench_engines.CONFIGS``
 shape (every row full length; ``--batch`` replaces the shape's rows, to
-reach the tile's other row choice).  Past 256 states K7a and K7b run the
-cluster tile, and are timed again with the staged wide tile forced
-(``K7a_staged``, ``K7b_staged``: ``cuda_kernels.SCAN_CLUSTER_MAX_STATES``
-set to 0, then restored).  ``--sweeps`` times X1's and X2's carry modes
-(``forward_chunk_values``, ``backward_chunk_values``) at each S on
-``--sweep-rows`` full rows of ``--sweep-length`` (3f's ``--pd`` and score
-shapes), the same two ways, and on the card the forward's cluster plan
-(``plan``).  Each kernel's ``*_us`` is its microseconds a step (a
+reach the tile's other row choice).  Past 256 states K5, K7a, K7b and K8c
+run the cluster tile, and are timed again with the staged wide tile
+forced (``K5_staged``, ``K7a_staged``, ``K7b_staged``, ``K8c_staged``:
+``cuda_kernels.SCAN_CLUSTER_MAX_STATES`` set to 0, then restored).
+``--sweeps`` times K3's, X1's and X2's carry modes
+(``viterbi_chunk_values``, ``forward_chunk_values``,
+``backward_chunk_values``) at each S on ``--sweep-rows`` full rows of
+``--sweep-length`` (3f's ``--exact``, ``--pd`` and score shapes), the same
+two ways, and on the card the forward's cluster plan (``plan``).  Each kernel's ``*_us`` is its microseconds a step (a
 position).  The first line names the device; then one JSON
 object a shape: the shape and each kernel's median ms of ``reps``
 synchronised calls.  It uses nothing but the wrappers and
@@ -59,7 +60,7 @@ def median_ms(fn, device, reps):
 
 @contextlib.contextmanager
 def staged_tile():
-    """The staged wide tile forced for the log-space scans past 256
+    """The staged wide tile forced for the cluster scans past 256
     states (``SCAN_CLUSTER_MAX_STATES`` = 0), restored after; nothing in a
     checkout without the cluster tile."""
     old = getattr(ck, "SCAN_CLUSTER_MAX_STATES", None)
@@ -114,12 +115,12 @@ def time_config(config, batch, device, reps):
     }
     row = {"config": config, "S": S, "B": B, "L": L}
     return _time(row, calls, device, reps, L,
-                 ("K7a", "K7b") if S > 256 else ())
+                 ("K5", "K7a", "K7b", "K8c") if S > 256 else ())
 
 
 def time_sweeps(S, B, L, device, reps, T=5, V=9):
-    """X1's and X2's carry modes (values) at S states on B full rows of
-    L, from a carry (a random row less its max) on a sticky random model
+    """K3's, X1's and X2's carry modes (values) at S states on B full rows
+    of L, from a carry (a random row less its max) on a sticky random model
     of T tracks of V symbols, its obs from random symbols."""
     rng = np.random.RandomState(S)
     trans = rng.dirichlet(np.ones(S), size=S) * 0.05 + np.eye(S) * 0.95
@@ -140,9 +141,10 @@ def time_sweeps(S, B, L, device, reps, T=5, V=9):
     calls = {
         "X1": lambda: ck.forward_chunk_values(lt, obs, init, lens),
         "X2": lambda: ck.backward_chunk_values(lt, obs, init, cont, lens),
+        "K3": lambda: ck.viterbi_chunk_values(lt, obs, init, lens),
     }
     row = {"sweep": S, "B": B, "L": L}
-    return _time(row, calls, device, reps, L, ("X1", "X2"))
+    return _time(row, calls, device, reps, L, ("X1", "X2", "K3"))
 
 
 def main(argv=None) -> int:
@@ -150,7 +152,8 @@ def main(argv=None) -> int:
     ap.add_argument("--configs", default="S20,S64,S128,S256")
     ap.add_argument("--batch", type=int, default=0)
     ap.add_argument("--sweeps", default="",
-                    help="comma-separated S for X1's and X2's carry modes")
+                    help="comma-separated S for K3's, X1's and X2's carry "
+                         "modes")
     ap.add_argument("--sweep-rows", type=int, default=4)
     ap.add_argument("--sweep-length", type=int, default=4096)
     ap.add_argument("--reps", type=int, default=5)

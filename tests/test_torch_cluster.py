@@ -1,9 +1,9 @@
-"""The cluster tile of the log-space scans past 256 states on the CPU:
-its plan (``cuda_kernels.cluster_plan``, the mirror of csrc/
-scan_cluster.cuh ``make_cluster_plan``), the route by S
-(``scan_route``, ``SCAN_CLUSTER_MAX_STATES``) and the launches of
-``forward_scaled``, ``backward_scaled`` and X1's and X2's carry modes,
-faked (no card here).  The kernels themselves are held to the staged
+"""The cluster tile of the scans past 256 states on the CPU: its plan
+(``cuda_kernels.cluster_plan``, the mirror of csrc/scan_cluster.cuh
+``make_cluster_plan``), the route by S (``scan_route``,
+``SCAN_CLUSTER_MAX_STATES``) and the launches of ``forward_scaled``,
+``backward_scaled``, X1's and X2's carry modes, ``viterbi_values`` (K5),
+K3's carry mode and ``viterbi_pointers`` (K8c), faked (no card here).  The kernels themselves are held to the staged
 tile bit for bit on the card (tests_cuda/test_cuda_large_s.py,
 test_cuda_scans.py); the plain versions past 256 states to the JAX
 package in tests/test_torch_scans.py and tests/test_torch_envelopes.py."""
@@ -153,9 +153,9 @@ def test_the_forcing_constant_is_restored(monkeypatch):
 
 
 def test_time_scans_sweep_rows(capsys):
-    """``tools.time_scans --sweeps``: one row an S with X1's and X2's
-    carry modes, each with its us a step and again with the staged tile
-    forced (the plain versions here); the constant is restored."""
+    """``tools.time_scans --sweeps``: one row an S with K3's, X1's and
+    X2's carry modes, each with its us a step and again with the staged
+    tile forced (the plain versions here); the constant is restored."""
     import json
 
     from tehmm_tpu_torch.tools import time_scans
@@ -167,9 +167,92 @@ def test_time_scans_sweep_rows(capsys):
     assert out[0] == "# device: cpu"
     (row,) = [json.loads(line) for line in out[1:]]
     assert (row["sweep"], row["B"], row["L"]) == (260, 2, 5)
-    for k in ("X1", "X2"):
+    for k in ("X1", "X2", "K3"):
         assert row[k] > 0 and row[k + "_staged"] > 0
         assert row[k + "_us"] == pytest.approx(row[k] * 1e3 / 5)
         assert row[k + "_staged_us"] == pytest.approx(
             row[k + "_staged"] * 1e3 / 5)
+    assert ck.SCAN_CLUSTER_MAX_STATES == 1024
+
+
+VITERBI_COUNTERS = {"viterbi_values": "viterbi_values_cluster",
+                    "viterbi_chunk_tile": "viterbi_chunk_cluster",
+                    "viterbi_ptrs": "viterbi_ptrs_cluster"}
+
+
+@pytest.mark.parametrize("force_staged", [False, True])
+@pytest.mark.parametrize("S", [10, 240, 256, 257, 640, 1024])
+def test_viterbi_launches_are_counted_by_tile(monkeypatch, S, force_staged):
+    """K5, K3's carry mode (values, carry and checkpoints: once a chunk)
+    and K8c launch with the cluster flag and under the cluster tile's
+    counters from 257 states, under the block tile's below and where the
+    staged tile is forced; K3 below 240 states takes its one-warp
+    kernels."""
+    launched = _fake_card(monkeypatch)
+    if force_staged:
+        monkeypatch.setattr(ck, "SCAN_CLUSTER_MAX_STATES", 0)
+    B, L, chunk = 3, 10, 4
+    lt, ls = torch.zeros((S, S)), torch.zeros(S)
+    obs, carry = torch.zeros((B, L, S)), torch.zeros((B, S))
+    lens = torch.full((B,), L, dtype=torch.int32)
+    ck.viterbi_values(ls, lt, obs, lens)
+    ck.viterbi_pointers(ls, lt, obs, lens)
+    cluster = int(S > 256 and not force_staged)
+
+    def name(k):
+        return VITERBI_COUNTERS[k] if cluster else k
+
+    want = [(name("viterbi_values"), "tehmm_viterbi_values", cluster),
+            (name("viterbi_ptrs"), "tehmm_viterbi_ptrs", cluster)]
+    if not ck.sweep_fits(S):
+        ck.viterbi_chunk_values(lt, obs, carry, lens)
+        ck.viterbi_carry(lt, obs, carry, lens)
+        ck.viterbi_checkpoints(lt, obs, carry, lens, chunk)
+        want += [(name("viterbi_chunk_tile"), "tehmm_viterbi_carry_tile",
+                  cluster)] * (2 + 3)
+    assert launched == want
+    assert set(VITERBI_COUNTERS.values()) <= set(ck.LAUNCHES)
+    assert {k: ck._CLUSTER_COUNTERS[k] for k in VITERBI_COUNTERS} \
+        == VITERBI_COUNTERS
+
+
+@pytest.mark.parametrize("B", [1, 4, 64, 128, 1000])
+def test_viterbi_plans_are_the_forwards(B):
+    """K5 (with K3's carry mode) and K8c keep one max buffer and the
+    forward's register rows: from 257 to 1024 states their plans are
+    K7a's, given the same active clusters; a bool still names the
+    forward or the backward."""
+    assert ck.CLUSTER_PLAN_KINDS == ("fwd_scaled", "bwd_scaled",
+                                     "viterbi_values", "viterbi_ptrs")
+    assert [ck._plan_kind(k) for k in (False, True) + ck.CLUSTER_PLAN_KINDS] \
+        == [0, 1, 0, 1, 2, 3]
+    for S in range(257, 1025):
+        active = _active(-(-S // 64))
+        want = ck.cluster_plan(S, B, False, active)
+        assert ck.cluster_plan(S, B, "fwd_scaled", active) == want
+        for kernel in ("viterbi_values", "viterbi_ptrs"):
+            assert ck.cluster_plan(S, B, kernel, active) == want, (S, kernel)
+    assert ck.cluster_plan(1024, B, "bwd_scaled", _active(16)) \
+        == ck.cluster_plan(1024, B, True, _active(16))
+
+
+def test_time_scans_times_the_viterbi_kernels_both_ways(monkeypatch,
+                                                         capsys):
+    """``tools.time_scans`` past 256 states: K5 and K8c beside K7a and
+    K7b, each timed again with the staged tile forced (the plain versions
+    here); the constant is restored."""
+    import json
+
+    from tehmm_tpu_torch.tools import bench_engines, time_scans
+
+    monkeypatch.setitem(bench_engines.CONFIGS, "tiny260", (260, 1, 3, 2, 4))
+    assert time_scans.main(["--configs", "tiny260", "--device", "cpu",
+                            "--reps", "1"]) == 0
+    out = capsys.readouterr().out.splitlines()
+    (row,) = [json.loads(line) for line in out[1:]]
+    assert (row["S"], row["B"], row["L"]) == (260, 2, 4)
+    for k in ("K5", "K7a", "K7b", "K8c"):
+        assert row[k] > 0 and row[k + "_staged"] > 0
+        assert row[k + "_us"] == pytest.approx(row[k] * 1e3 / 4)
+    assert "K6a_staged" not in row
     assert ck.SCAN_CLUSTER_MAX_STATES == 1024

@@ -161,6 +161,8 @@ VITERBI_CASES = {
     "ragged": dict(S=6, L=41, lengths=[41, 17, 1, 0], V=5),
     "past_64_states": dict(S=72, L=9, lengths=[9, 9], T=1),
     "zero_trans": dict(S=5, L=40, lengths=[40, 13], zero_frac=0.3),
+    # past 256 states: the cluster tile's S on the card
+    "S260": dict(S=260, L=6, lengths=[6, 3, 1, 0], T=1),
 }
 
 

@@ -324,7 +324,8 @@ def test_k3_step_by_states(monkeypatch, S):
     """The step is chosen by S alone: registers and shuffles to 32
     states, shared memory to ``sweep_fits``' 239, the tile beyond; each
     mode launches once, the checkpoint mode counted under its own name
-    (the tile's carry mode once a chunk)."""
+    (the tile's carry mode once a chunk, on the cluster tile from 257
+    states, with the cluster flag)."""
     launched = _fake_card(monkeypatch)
     B, L, chunk = 3, 10, 4
     step = ck.k3_step(S)
@@ -337,10 +338,12 @@ def test_k3_step_by_states(monkeypatch, S):
     ck.viterbi_carry(*args)
     ck.viterbi_checkpoints(*args, chunk)
     if step == "tile":
-        tile = ("viterbi_chunk_tile", "tehmm_viterbi_carry_tile")
+        cluster = int(S > 256)
+        tile = ("viterbi_chunk_" + ("cluster" if cluster else "tile"),
+                "tehmm_viterbi_carry_tile")
         assert [x[:2] for x in launched] == [tile] * (2 + 3)
-        assert [x[2] for x in launched] == [(B, L, S)] * 2 + \
-            [(B, 4, S), (B, 4, S), (B, 2, S)]
+        assert [x[2] for x in launched] == [(B, L, S, cluster)] * 2 + \
+            [(B, 4, S, cluster), (B, 4, S, cluster), (B, 2, S, cluster)]
     else:
         entry = {"lanes": "tehmm_viterbi_sweep_lanes",
                  "shared": "tehmm_viterbi_sweep_smem"}[step]

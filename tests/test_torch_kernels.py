@@ -103,6 +103,29 @@ def test_chunk_values_plain_matches_pallas(rng, make_hmm):
         np.testing.assert_array_equal(ckpts.numpy(), got.numpy()[:, ends])
 
 
+def test_chunk_values_plain_matches_pallas_past_256_states(rng, make_hmm):
+    """K3 at S = 260, where the card runs K5's cluster tile in carry mode:
+    the value rows equal viterbi_chunk_values_pallas's (ragged, a
+    zero-length row), the carry mode is their last row and the checkpoint
+    mode their rows at the end of every chunk."""
+    _, lt, lem, sym, lens = _setup(rng, make_hmm, S=260, T=1, L=7,
+                                   lengths=[7, 4, 1, 0])
+    obs = np.asarray(track_log_likelihoods(jnp.asarray(lem),
+                                           jnp.asarray(sym)))
+    init = np.random.RandomState(4).randn(4, 260).astype(np.float32)
+    init -= init.max(axis=-1, keepdims=True)
+    want = np.asarray(pk.viterbi_chunk_values_pallas(
+        jnp.asarray(lt), jnp.asarray(obs), jnp.asarray(init),
+        jnp.asarray(lens),
+    ))
+    args = (_t(lt), _t(obs), _t(init), _t(lens))
+    got = ck.viterbi_chunk_values(*args)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5)
+    assert torch.equal(ck.viterbi_carry(*args), got[:, -1])
+    ckpts = ck.viterbi_checkpoints(*args, 3)
+    np.testing.assert_array_equal(ckpts.numpy(), got.numpy()[:, [2, 5, 6]])
+
+
 def test_cpu_tensors_take_the_plain_versions(rng, make_hmm):
     """Each wrapper on CPU tensors returns exactly its plain version and
     builds nothing."""

@@ -18,11 +18,12 @@ only for the first S - 256 threads), 512 two of every thread, 767, 1023
 and 1024 four; S = 300 also runs with four rows a block (a batch past
 one wave of blocks).
 
-From 257 states K7a/K7b and X1's and X2's carry modes run the cluster
-tile (csrc/scan_cluster.cuh): each must equal the staged tile (forced,
-``ck.SCAN_CLUSTER_MAX_STATES`` = 0) bit for bit, at every S, row count
-(one wave of clusters and past it) and length, and a launch the card
-refuses raises."""
+From 257 states K7a/K7b, X1's and X2's carry modes, K5, K3's carry mode
+and K8c run the cluster tile (csrc/scan_cluster.cuh): each must equal the
+staged tile (forced, ``ck.SCAN_CLUSTER_MAX_STATES`` = 0) bit for bit, at
+every S, row count (one wave of clusters and past it) and length (K5, K3
+and K8c also plain's, K8c on ties too), and a launch the card refuses
+raises."""
 
 import numpy as np
 import pytest
@@ -74,7 +75,9 @@ def test_viterbi_values_and_pointers_bit_equal(device, rng, S, L,
     got_p, got_s = dp.viterbi_streaming(ls, lt, obs, lens)
     assert torch.equal(got_p, want_p)
     torch.testing.assert_close(got_s, want_s, rtol=1e-5, atol=1e-4)
-    for name in ("viterbi_values", "viterbi_ptrs", "pointer_chase"):
+    # K5 and K8c on the cluster tile past 256 states
+    for name in ("viterbi_values_cluster", "viterbi_ptrs_cluster",
+                 "pointer_chase"):
         assert ck.LAUNCHES[name] > before[name], name
     assert ck.LAUNCHES["viterbi_backtrace"] > before["viterbi_backtrace"]
 
@@ -206,10 +209,10 @@ def test_carried_sweeps_match_plain(device, rng, S, zero_frac):
                                            dtype=F64)
     torch.testing.assert_close(beta, r_beta.float(), rtol=0, atol=lim)
     torch.testing.assert_close(x_out, r_x.float(), rtol=0, atol=lim)
-    # X1's and X2's carry modes past 256 states on the cluster tile
+    # K3's, X1's and X2's carry modes past 256 states on the cluster tile
     suffix = ("_cluster" if S > 256 else "_tile") if tile else ""
-    assert ck.LAUNCHES["viterbi_chunk" + ("_tile" if tile else "_values")] \
-        == before["viterbi_chunk" + ("_tile" if tile else "_values")] + 2
+    k3 = "viterbi_chunk" + (suffix or "_values")
+    assert ck.LAUNCHES[k3] == before[k3] + 2
     assert ck.LAUNCHES["fwd_chunk" + suffix] == \
         before["fwd_chunk" + suffix] + 2
     assert ck.LAUNCHES["bwd_chunk" + suffix] == \
@@ -308,7 +311,11 @@ def test_decoders_past_256_states_equal_the_cpu(device, rng):
     ):
         for g, c in zip(decode(on_gpu), decode(on_cpu)):
             np.testing.assert_array_equal(g, c)
-    assert ck.LAUNCHES["viterbi_chunk_tile"] > before["viterbi_chunk_tile"]
+    # K5 and K3's carry mode on the cluster tile
+    assert ck.LAUNCHES["viterbi_chunk_cluster"] \
+        > before["viterbi_chunk_cluster"]
+    assert ck.LAUNCHES["viterbi_values_cluster"] \
+        > before["viterbi_values_cluster"]
     for decode in (
         lambda p: stitch.posterior_chunked(p, syms, chunk_len=512,
                                            halo=32)[0],
@@ -566,3 +573,165 @@ def test_a_refused_cluster_launch_raises(device):
     torch.cuda.synchronize()
     assert ck.LAUNCHES == before
     assert bool((alpha == 7.0).all())
+
+
+# ---------------------------------------------------------------------
+# K5, K3's carry mode and K8c on the cluster tile
+# ---------------------------------------------------------------------
+
+@pytest.mark.parametrize("zero_frac", [0.0, 0.3])
+@pytest.mark.parametrize("B", CLUSTER_ROWS)
+@pytest.mark.parametrize("S", CLUSTER_STATES)
+def test_cluster_viterbi_equals_the_staged_tile(device, rng, monkeypatch, S,
+                                                B, zero_frac):
+    """K5 (value rows, dm) and K8c (uint16 pointers, v_last, dm): the
+    cluster tile's bits are the staged tile's and plain's."""
+    ls, lt, obs, lens, _i, _c = _cluster_inputs(rng, device, S, B, 13,
+                                                zero_frac)
+    got, want = _both_tiles(
+        monkeypatch, lambda: ck.viterbi_values(ls, lt, obs, lens))
+    assert _equal(got, want)
+    assert _equal(got, ck.viterbi_values_plain(ls, lt, obs, lens))
+    got_p, want_p = _both_tiles(
+        monkeypatch, lambda: ck.viterbi_pointers(ls, lt, obs, lens))
+    assert got_p[0].dtype == torch.uint16
+    assert _equal(got_p, want_p)
+    assert _equal(got_p, ck.viterbi_pointers_plain(ls, lt, obs, lens))
+    assert torch.equal(got_p[1], got[0][:, -1])
+    assert torch.equal(got_p[2], got[1])
+
+
+@pytest.mark.parametrize("zero_frac", [0.0, 0.3])
+@pytest.mark.parametrize("B", CLUSTER_ROWS)
+@pytest.mark.parametrize("S", CLUSTER_STATES)
+def test_cluster_k3_carry_mode_equals_the_staged_tile(device, rng,
+                                                      monkeypatch, S, B,
+                                                      zero_frac):
+    """K3's carry mode (value rows, and the carry alone): the cluster
+    tile's bits are the staged tile's and plain's."""
+    _ls, lt, obs, lens, init, _c = _cluster_inputs(rng, device, S, B, 13,
+                                                   zero_frac)
+    for fn, plain in (
+            (lambda: ck.viterbi_chunk_values(lt, obs, init, lens),
+             lambda: dp.viterbi_chunk_values(lt, obs, init, lens)),
+            (lambda: ck.viterbi_carry(lt, obs, init, lens),
+             lambda: dp.viterbi_carry(lt, obs, init, lens))):
+        got, want = _both_tiles(monkeypatch, lambda: (fn(),))
+        assert _equal(got, want) and torch.equal(got[0], plain())
+
+
+@pytest.mark.parametrize("S", [300, 1024])
+def test_cluster_viterbi_past_one_wave(device, rng, monkeypatch, S):
+    """More rows than the card holds clusters of the most rows at once:
+    K5, K8c and K3's carry mode keep the staged tile's bits, and each
+    row's bits are those of a launch of its own."""
+    plan = ck.library_cluster_plan(S, 1, "viterbi_ptrs")
+    B = 12 * plan["active"][-1] + 5
+    ls, lt, obs, lens, init, _c = _cluster_inputs(rng, device, S, B, 7, 0.3)
+    for kernel in ("viterbi_values", "viterbi_ptrs"):
+        wide = ck.library_cluster_plan(S, B, kernel)
+        assert wide["R"] == 12 and wide["clusters"] > wide["active"][-1]
+    few = slice(B - 3, B)
+    for fn in (lambda o, n, c: ck.viterbi_values(ls, lt, o, n),
+               lambda o, n, c: ck.viterbi_pointers(ls, lt, o, n),
+               lambda o, n, c: (ck.viterbi_chunk_values(lt, o, c, n),)):
+        got, want = _both_tiles(monkeypatch, lambda: fn(obs, lens, init))
+        assert _equal(got, want)
+        alone = fn(obs[few].contiguous(), lens[few], init[few].contiguous())
+        assert _equal(alone, (g[few] for g in got))
+
+
+@pytest.mark.parametrize("S", [257, 600, 1024])
+def test_cluster_pointers_take_the_lowest_state_on_ties(device, rng,
+                                                       monkeypatch, S):
+    """Ties on the cluster tile: equal candidates (every pointer is state
+    0, as on the staged tile), and integer tables whose ties fall on every
+    chain and every block of the slice; first hit, bit for bit the staged
+    tile's and plain's."""
+    L = 5
+    lt = torch.full((S, S), float(np.log(1.0 / S)), device=device)
+    ls = torch.full((S,), float(np.log(1.0 / S)), device=device)
+    obs = torch.zeros((2, L, S), device=device)
+    lens = torch.tensor([L, 0], dtype=torch.int32, device=device)
+    got, want = _both_tiles(
+        monkeypatch, lambda: ck.viterbi_pointers(ls, lt, obs, lens))
+    assert _equal(got, want)
+    assert _equal(got, ck.viterbi_pointers_plain(ls, lt, obs, lens))
+    assert bool((got[0][0, 1:] == 0).all())
+    ident = torch.arange(S, device=device).to(torch.uint16)
+    assert bool((got[0][1] == ident).all())
+    # integer log values: many equal candidates at every position
+    lt = torch.from_numpy(-rng.randint(0, 3, size=(S, S)).astype(
+        np.float32)).to(device)
+    obs = torch.from_numpy(-rng.randint(0, 2, size=(3, 9, S)).astype(
+        np.float32)).to(device)
+    lens = torch.tensor([9, 4, 1], dtype=torch.int32, device=device)
+    got, want = _both_tiles(
+        monkeypatch, lambda: ck.viterbi_pointers(ls, lt, obs, lens))
+    assert _equal(got, want)
+    assert _equal(got, ck.viterbi_pointers_plain(ls, lt, obs, lens))
+    assert bool((got[0][0, 1:].to(torch.int32) < S).all())
+
+
+@pytest.mark.parametrize("S", [257, 640, 1024])
+def test_cluster_k3_cut_into_chunks_equals_one_chunk(device, rng, S):
+    """K3's carry mode on the cluster tile: a sweep cut into chunks gives
+    one chunk's value rows and carries."""
+    _ls, lt, obs, _l, init, _c = _cluster_inputs(rng, device, S, 5, 60,
+                                                 0.3)
+    lens = torch.tensor([60, 60, 33, 0, 1], dtype=torch.int32,
+                        device=device)
+    before = dict(ck.LAUNCHES)
+    whole = ck.viterbi_chunk_values(lt, obs, init, lens)
+    carry = init
+    for lo, hi in zip((0, 17, 40), (17, 40, 60)):
+        pl = torch.clamp(lens - lo, 0, hi - lo).to(torch.int32)
+        o = obs[:, lo:hi].contiguous()
+        assert torch.equal(ck.viterbi_chunk_values(lt, o, carry, pl),
+                           whole[:, lo:hi])
+        carry = ck.viterbi_carry(lt, o, carry, pl)
+    assert torch.equal(carry, whole[:, -1])
+    assert ck.LAUNCHES["viterbi_chunk_cluster"] \
+        == before["viterbi_chunk_cluster"] + 7
+    assert ck.LAUNCHES["viterbi_chunk_tile"] == before["viterbi_chunk_tile"]
+
+
+@pytest.mark.parametrize("kernel", ["viterbi_values", "viterbi_ptrs"])
+@pytest.mark.parametrize("B", [1, 4, 64, 128, 4096])
+@pytest.mark.parametrize("S", CLUSTER_STATES)
+def test_viterbi_cluster_plans_are_the_libraries(device, S, B, kernel):
+    """K5's (K3's carry mode's) and K8c's plans: the Python plan, given
+    the card's active clusters of that kernel at each R, is the plan its
+    launch takes."""
+    lib = ck.library_cluster_plan(S, B, kernel)
+    active = dict(zip(ck._CLUSTER_ROWS, lib.pop("active")))
+    assert ck.cluster_plan(S, B, kernel,
+                           lambda R, smem: active[R]) == lib
+    assert lib["smem"] <= 232448 and active[lib["R"]] >= 1
+
+
+@pytest.mark.parametrize("entry,counter", [
+    ("tehmm_viterbi_values", "viterbi_values_cluster"),
+    ("tehmm_viterbi_ptrs", "viterbi_ptrs_cluster")])
+def test_a_refused_viterbi_cluster_launch_raises(device, entry, counter):
+    """K5's and K8c's cluster entries at S <= 256 have no plan: the launch
+    is refused and raises, nothing counted, nothing run in its place."""
+    S, B, L = 200, 2, 3
+    obs = torch.zeros((B, L, S), device=device)
+    lens = torch.full((B,), L, dtype=torch.int32, device=device)
+    ls = torch.zeros(S, device=device)
+    lt = torch.zeros((S, S), device=device)
+    rows = torch.full((B, L, S), 7.0, device=device)
+    last = torch.full((B, S), 7.0, device=device)
+    dm = torch.empty((B, L), device=device)
+    outs = (rows.data_ptr(), dm.data_ptr()) if entry.endswith("values") \
+        else (rows.data_ptr(), last.data_ptr(), dm.data_ptr())
+    before = dict(ck.LAUNCHES)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        ck._launch_streaming(
+            counter, entry,
+            (obs.data_ptr(), lens.data_ptr(), ls.data_ptr(), lt.data_ptr(),
+             *outs, B, L, S, 1), device)
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES == before
+    assert bool((rows == 7.0).all()) and bool((last == 7.0).all())
