@@ -100,14 +100,16 @@ Phases (any failure raises, and the run exits non-zero):
    (``viterbi_ptrs``) with its chase (``pointer_chase``): pointers, last
    rows, normalizers and paths bit-equal to plain, paths == dp.viterbi.
    All of this also at bench_engines' S512 (T=20, V=16, B=128) and S1024
-   (B=64) shapes, past 256 states (uint16 pointers), where K5, K7a/K7b
-   and K8c run the cluster tile (``viterbi_values_cluster``,
-   ``fwd_scaled_cluster``, ``bwd_scaled_cluster``,
-   ``viterbi_ptrs_cluster``): every output bit for bit the staged
-   tile's, forced
+   (B=64) shapes, past 256 states (uint16 pointers), where K5, K6a/K6b,
+   K7a/K7b and K8c run the cluster tile (``viterbi_values_cluster``,
+   ``fwd_prob_cluster``, ``bwd_prob_cluster``, ``fwd_scaled_cluster``,
+   ``bwd_scaled_cluster``, ``viterbi_ptrs_cluster``): every output bit
+   for bit the staged tile's, forced
    (``ck.SCAN_CLUSTER_MAX_STATES`` = 0), each tile timed (the staged
    tile's rows under the old names, the cluster tile's with the staged
-   time beside).  K9
+   time beside).  K6a and K6b also at 3f's train shape (S=1024, one row
+   of 20,000: ``@3f_fit``), both tiles, bit for bit, within 2e-6 of plain
+   in float64.  K9
    (``maxplus_sweeps``) at Sp=256, 512, 1024 x Bg=128 on the JAX tool's
    draw: both layouts (the blocks layout at 8, 16 and 32 rows a block)
    bit-equal to plain, timed.  The carried sweeps past their one-warp
@@ -218,7 +220,8 @@ Phases (any failure raises, and the run exits non-zero):
    restarts.
 3f. Past the fused kernels' envelopes at the scan tile's full width,
    1024 states, card against CPU: ``train`` on a 20,000-position region
-   through ``"auto"``, which takes cuda_v3 (K6) with passes of 1M
+   through ``"auto"``, which takes cuda_v3 (K6a/K6b on the cluster tile,
+   the staged tile's K6 not launched) with passes of 1M
    positions (4M x 256 / S): logliks within 1e-5 relative; with a sticky
    random model on 64 regions of 15,625 positions (1,000,000) the
    stitched Viterbi (obs, K5 on the cluster tile, backtrace), the exact
@@ -353,6 +356,8 @@ SOURCES = {
     "viterbi_values": "tehmm_tpu_torch/csrc/streaming.cu",
     "fwd_prob": "tehmm_tpu_torch/csrc/streaming.cu",
     "bwd_prob": "tehmm_tpu_torch/csrc/streaming.cu",
+    "fwd_prob_cluster": "tehmm_tpu_torch/csrc/streaming.cu",
+    "bwd_prob_cluster": "tehmm_tpu_torch/csrc/streaming.cu",
     "fwd_scaled": "tehmm_tpu_torch/csrc/scans.cu",
     "bwd_scaled": "tehmm_tpu_torch/csrc/scans.cu",
     "viterbi_ptrs": "tehmm_tpu_torch/csrc/scans.cu",
@@ -431,6 +436,9 @@ REPLACES = {
     "viterbi_values_cluster": "tehmm_tpu/ops/pallas_kernels.py:1374",
     "viterbi_chunk_cluster": "tehmm_tpu/ops/pallas_kernels.py:1284",
     "viterbi_ptrs_cluster": "tehmm_tpu/ops/pallas_kernels.py:333",
+    # K6a and K6b past 256 states on the cluster tile
+    "fwd_prob_cluster": "tehmm_tpu/ops/pallas_kernels.py:815",
+    "bwd_prob_cluster": "tehmm_tpu/ops/pallas_kernels.py:885",
     # K9's two layouts
     "maxplus_resident": "tools/exp_maxplus_s256.py:115",
     "maxplus_blocks": "tools/exp_maxplus_s256.py:120",
@@ -468,16 +476,21 @@ SEGMENT_KERNELS = ("em_fwd", "em_bwd_stats", "viterbi_fwd_lanes",
 STREAMING_KERNELS = ("viterbi_values", "fwd_prob", "bwd_prob",
                      "fwd_scaled", "bwd_scaled", "viterbi_ptrs",
                      "pointer_chase")
-# past 256 states K7a/K7b, X1's and X2's carry modes, K5, K3's carry mode
-# and K8c run the cluster tile in their place (the staged tile forced only
-# to compare and time it)
+# past 256 states K7a/K7b, X1's and X2's carry modes, K5, K3's carry mode,
+# K8c, K6a and K6b run the cluster tile in their place (the staged tile
+# forced only to compare and time it)
 CLUSTER_OF = {"fwd_scaled": "fwd_scaled_cluster",
               "bwd_scaled": "bwd_scaled_cluster",
               "fwd_chunk_tile": "fwd_chunk_cluster",
               "bwd_chunk_tile": "bwd_chunk_cluster",
               "viterbi_values": "viterbi_values_cluster",
               "viterbi_chunk_tile": "viterbi_chunk_cluster",
-              "viterbi_ptrs": "viterbi_ptrs_cluster"}
+              "viterbi_ptrs": "viterbi_ptrs_cluster",
+              "fwd_prob": "fwd_prob_cluster",
+              "bwd_prob": "bwd_prob_cluster"}
+# K6a and K6b at 3f's train shape (one row of ENV_FIT_REGION at
+# ENV_STATES): their rows' suffix
+K6_FIT = "3f_fit"
 ENGINE_CONFIGS = ("S20", "S64", "S128", "S256")
 # the scan tile past 256 states (bench_engines' extra configurations):
 # phase 2 holds its kernels to plain there, 2e runs the tools there
@@ -491,7 +504,7 @@ MAXPLUS_SP, MAXPLUS_BG, MAXPLUS_BLKS = (256, 512, 1024), 128, (8, 16, 32)
 WIDE_SWEEP_STATES = (257, 512, 1024)
 SWEEP_CUTS = (0, 1000, 2500, X_L)    # a sweep cut into three chunks
 # 3f's paths and the kernels each must run
-ENVELOPE_KERNELS = {"fit": ("fwd_prob", "bwd_prob"),
+ENVELOPE_KERNELS = {"fit": ("fwd_prob_cluster", "bwd_prob_cluster"),
                     "viterbi": ("viterbi_values_cluster",
                                 "viterbi_backtrace"),
                     "exact": ("viterbi_chunk_cluster", "viterbi_backtrace"),
@@ -500,7 +513,8 @@ ENVELOPE_KERNELS = {"fit": ("fwd_prob", "bwd_prob"),
                     "score": ("fwd_chunk_cluster",)}
 # and the staged tile's scans, which the cluster tile replaced on those
 # paths
-OFF_ENVELOPE_PATH = {"viterbi": ("viterbi_values",),
+OFF_ENVELOPE_PATH = {"fit": ("fwd_prob", "bwd_prob"),
+                     "viterbi": ("viterbi_values",),
                      "exact": ("viterbi_chunk_tile",),
                      "maxpost": ("fwd_scaled", "bwd_scaled"),
                      "pd": ("fwd_chunk_tile", "bwd_chunk_tile"),
@@ -669,11 +683,13 @@ def _bound(name, shape, valid, G=0, weighted=False, n_ck=0) -> dict:
                   "bwd_chunk_cluster"):   # log-space step
         nbytes = 2 * rows + (2 * B * S + 2 * B + S * S) * f
         ops = 2 * S * S + 4 * S
-    elif base in ("viterbi_values", "viterbi_values_cluster", "fwd_prob"):
+    elif base in ("viterbi_values", "viterbi_values_cluster", "fwd_prob",
+                  "fwd_prob_cluster"):
         # obs in, rows and normalizers out; product, obs, max, rescale
         nbytes = 2 * rows + (B * L + B + S * S + S) * f
         ops = 2 * S * S + 4 * S
-    elif base == "bwd_prob":           # two maxes and rescales a step
+    elif base in ("bwd_prob", "bwd_prob_cluster"):
+        # two maxes and rescales a step
         nbytes = 2 * rows + (B + S * S) * f
         ops = 2 * S * S + 7 * S
     elif base in ("fwd_scaled", "fwd_scaled_cluster"):
@@ -2262,11 +2278,10 @@ def phase_streaming_kernels(device, rng, seed) -> dict:
         empty = lens == 0
         assert bool((alpha[empty] == 1).all()) \
             and bool((dm[empty] == 0).all()), "empty rows not ones/zeros"
-        out["fwd_prob" + suffix] = dict(
-            max_abs_err=err_f,
-            ms=_median_ms(lambda: ck.forward_prob(*f_args), 5),
-            plain_ms=_median_ms(lambda: ck.forward_prob_plain(*f_args), 3),
-            **_bound("fwd_prob", shape, valid))
+        _scan_rows(out, "fwd_prob", suffix, S_, (alpha, dm),
+                   lambda: ck.forward_prob(*f_args),
+                   lambda: ck.forward_prob_plain(*f_args), err_f, shape,
+                   valid)
         del alpha, p_alpha, dm, p_dm
         b_args = (p.log_trans, obs_p, lens)
         beta = ck.backward_prob(*b_args)
@@ -2277,11 +2292,10 @@ def phase_streaming_kernels(device, rng, seed) -> dict:
                               0.0, 2e-6)
         del r_beta
         f32_b = float((beta - ck.backward_prob_plain(*b_args)).abs().max())
-        out["bwd_prob" + suffix] = dict(
-            max_abs_err=err_b,
-            ms=_median_ms(lambda: ck.backward_prob(*b_args), 5),
-            plain_ms=_median_ms(lambda: ck.backward_prob_plain(*b_args), 3),
-            **_bound("bwd_prob", shape, valid))
+        _scan_rows(out, "bwd_prob", suffix, S_, (beta,),
+                   lambda: (ck.backward_prob(*b_args),),
+                   lambda: ck.backward_prob_plain(*b_args), err_b, shape,
+                   valid)
         del beta, obs_p, o_m
         print(f"[streaming] K5/K6 at {config} (S={S_} B={B} L={L}, ragged): "
               f"K5 rows, normalizers, backtrace and paths bit-equal (score "
@@ -2289,8 +2303,8 @@ def phase_streaming_kernels(device, rng, seed) -> dict:
               f"(alpha_p {err_f:.3g}, beta_p {err_b:.3g}; of plain in "
               f"float32 {f32_f:.3g}, {f32_b:.3g}; row loglik abs err "
               f"{ll_rel:.3g}), repeat launches bit-identical" + (
-                  "; K5's and K8c's outputs on the cluster tile bit for "
-                  "bit the staged tile's (forced)"
+                  "; K5's, K8c's and K6's outputs on the cluster tile bit "
+                  "for bit the staged tile's (forced)"
                   if ck.scan_route(S_) == "cluster" else ""), flush=True)
         torch.cuda.empty_cache()
     for name, r in out.items():
@@ -2300,6 +2314,66 @@ def phase_streaming_kernels(device, rng, seed) -> dict:
               f"kernel {r['ms']:9.3f} ms{staged}  plain "
               f"{r['plain_ms']:9.3f} ms  bound {r['bound_ms']:.3f} ms "
               f"({r['bound_by']})", flush=True)
+    return out
+
+
+def phase_k6_fit_shape(device, seed) -> dict:
+    """K6a and K6b at 3f's train shape: one row of ENV_FIT_REGION
+    positions at ENV_STATES states (``bench_engines``' model and symbols
+    of that width).  The cluster tile's outputs bit for bit the staged
+    tile's (forced), within 2e-6 (dm 1e-5) of plain carried in float64;
+    the cluster tile timed as phase 2 times it, the staged tile and the
+    plain version once each (a launch of either takes seconds here).
+    Rows ``name@K6_FIT``."""
+    import torch
+
+    from tehmm_tpu_torch.models.emission import track_log_likelihoods
+    from tehmm_tpu_torch.ops import cuda_kernels as ck
+    from tehmm_tpu_torch.ops import dp
+    from tehmm_tpu_torch.tools import bench_engines
+    from tehmm_tpu_torch.tools.time_scans import staged_tile
+
+    S_, T_, V_, _B, _L = bench_engines.CONFIGS[f"S{ENV_STATES}"]
+    L = ENV_FIT_REGION
+    p, sym = bench_engines.make_inputs(S_, T_, V_, 1, L, device, seed)
+    obs_p, _o_m = dp.scaled_obs_prob(track_log_likelihoods(p.log_em, sym))
+    del sym
+    lens = torch.full((1,), L, dtype=torch.int32, device=device)
+    shape = (1, L, S_, T_, V_)
+    args = {"fwd_prob": (p.log_start, p.log_trans, obs_p, lens),
+            "bwd_prob": (p.log_trans, obs_p, lens)}
+    calls = {"fwd_prob": (ck.forward_prob, ck.forward_prob_plain),
+             "bwd_prob": (lambda *a: (ck.backward_prob(*a),),
+                          lambda *a, **k: (ck.backward_prob_plain(*a, **k),))}
+    out = {}
+    for name, (kernel, plain) in calls.items():
+        a = args[name]
+        got = kernel(*a)
+        ms = _median_ms(lambda: kernel(*a), 5)
+        with staged_tile():
+            staged_ms = _median_ms(lambda: kernel(*a), 1)
+            staged = kernel(*a)
+        assert all(torch.equal(g, w) for g, w in zip(got, staged)), \
+            f"{name}: the cluster tile != the staged tile at {shape}"
+        del staged
+        ref = plain(*a, dtype=torch.float64)
+        err = max(_assert_close(f"{name} at 3f's train shape", g, r, 0.0,
+                                2e-6 if i == 0 else 1e-5)
+                  for i, (g, r) in enumerate(zip(got, ref)))
+        del ref, got
+        plain_ms = _median_ms(lambda: plain(*a), 1)
+        out[f"{CLUSTER_OF[name]}@{K6_FIT}"] = dict(
+            max_abs_err=err, ms=ms, staged_ms=staged_ms, plain_ms=plain_ms,
+            **_bound(CLUSTER_OF[name], shape, L))
+        out[f"{name}@{K6_FIT}"] = dict(
+            max_abs_err=err, ms=staged_ms, plain_ms=plain_ms,
+            **_bound(name, shape, L))
+        print(f"[k6 fit] {name} at 3f's train shape (S={S_}, 1 x {L}): "
+              f"the cluster tile {ms:.3f} ms ({ms * 1e3 / L:.3f} us a "
+              f"step), the staged tile forced {staged_ms:.3f} ms, bit for "
+              f"bit; within {err:.3g} of plain in float64 (plain "
+              f"{plain_ms:.3f} ms)", flush=True)
+    torch.cuda.empty_cache()
     return out
 
 
@@ -4046,7 +4120,8 @@ def phase_envelopes(work, xml, n, seed, cpu_runs, device="cuda"):
           f"positions on {device}: {wall:.2f} s, logliks "
           f"{card_logs.tolist()}", flush=True)
     fit = launches["fit"]
-    assert fit["fwd_prob"] and fit["bwd_prob"] and not fit["em_fwd"], \
+    assert fit["fwd_prob_cluster"] and fit["bwd_prob_cluster"] \
+        and not fit["em_fwd"], \
         f"auto did not take cuda_v3 past K1's envelope: {fit}"
     # and sizes its passes for cuda_v3's [B, L, S] tensors at this S
     fit_params = from_numpy(*_sticky_model(np.random.RandomState(seed),
@@ -4151,8 +4226,9 @@ def phase_envelopes(work, xml, n, seed, cpu_runs, device="cuda"):
         assert len(card_logs) == len(cpu_logs) >= ENV_FIT_ITERS - 1
         rel = float(np.max(np.abs(card_logs - cpu_logs) / np.abs(cpu_logs)))
         assert rel <= 1e-5, f"train: card and CPU logliks differ by {rel}"
-        print(f"[envelopes] auto -> cuda_v3 ({fit['fwd_prob']} fwd_prob, "
-              f"{fit['bwd_prob']} bwd_prob, 0 em_fwd launches), {budget} "
+        print(f"[envelopes] auto -> cuda_v3 ({fit['fwd_prob_cluster']} "
+              f"fwd_prob_cluster, {fit['bwd_prob_cluster']} "
+              f"bwd_prob_cluster, 0 em_fwd launches), {budget} "
               f"positions a pass; loglik rel err card vs CPU {rel:.3g}",
               flush=True)
         cpu = ref["runs"]
@@ -4586,6 +4662,7 @@ def _run(args, device, smi, parent) -> int:
     kernels.update(phase_streaming_kernels(
         device, np.random.RandomState(args.seed + 2), args.seed))
     torch.cuda.empty_cache()
+    kernels.update(phase_k6_fit_shape(device, args.seed))
     kernels.update(phase_maxplus(device))
     sweep_rows = phase_wide_sweeps(device,
                                    np.random.RandomState(args.seed + 4))
@@ -4701,11 +4778,11 @@ def _run(args, device, smi, parent) -> int:
                 if engine_launches[config][k] == 0]
     staged = {(config, k): engine_launches[config][k]
               for config in WIDE_CONFIGS
-              for k in ("viterbi_values", "fwd_scaled", "bwd_scaled",
-                        "viterbi_ptrs")
+              for k in ("viterbi_values", "fwd_prob", "bwd_prob",
+                        "fwd_scaled", "bwd_scaled", "viterbi_ptrs")
               if engine_launches[config][k]}
     assert not staged, \
-        f"2e launched the staged tile's K5, K7a/K7b or K8c: {staged}"
+        f"2e launched the staged tile's K5, K6, K7a/K7b or K8c: {staged}"
     for Sp, counts in maxplus_launches.items():
         print(f"[launches] K9 tool (2m) at Sp={Sp}: "
               f"{ {k: n for k, n in counts.items() if n} }", flush=True)
@@ -4752,6 +4829,8 @@ def _run(args, device, smi, parent) -> int:
         elif base in tile_paths:
             launches[name] = sum(env_launches[path][base]
                                  for path in tile_paths[base])
+        elif config == K6_FIT:
+            launches[name] = env_launches["fit"][base]   # 3f's train
         elif base == "chunk_chase" and config not in engine_launches:
             launches[name] = k2_chases if config == "K2" else x3_chases
         elif (base in DECODE_KERNELS or base == "viterbi_chunk_values") \

@@ -2,11 +2,11 @@
 // 256 states, with a row group's states split over the blocks of a thread
 // block cluster: scans.cu's K7a/K8a and K7b/K8b, the carry modes that
 // run X1 and X2 past their shared-memory envelope, and K8c;
-// streaming.cu's K5 and K3's carry mode.  K6a/b stay on scan_tile.cuh's
-// staged wide tile.  The products are generic over the semiring (``Ops``:
-// sum-product on exp(a) for the log-space scans, max-plus for the
-// Viterbi's), and K8c's keeps the first-hit argmax beside every partial
-// maximum (``product_argmax``).
+// streaming.cu's K5, K3's carry mode, K6a and K6b.  The products are
+// generic over the semiring (``Ops``: sum-product on exp(a) for the
+// log-space scans and on the scaled probabilities themselves for K6,
+// max-plus for the Viterbi's), and K8c's keeps the first-hit argmax beside
+// every partial maximum (``product_argmax``).
 //
 // What held the staged tile back: one block owns 2 or 4 rows and stages
 // the whole S x S matrix (4 MB at S = 1024) from L2 through its shared
@@ -30,7 +30,8 @@
 // broadcasts; the four lanes of a column combine their chains by two
 // shuffles.  A thread owns the cells (its column, rows part + 4 m).
 //   Every block holds the whole state vector [S][R] of its rows: exp(a)
-// for the sum-product, the renormalized log values for max-plus.  A step:
+// for the log-space scans, p for K6, the renormalized log values for
+// max-plus.  A step:
 // the product over the block's slice; the row max reduced across the
 // cluster (warp shuffles, each block's partial stored with st.async into
 // every block's shared memory, completing on that block's mbarrier, the

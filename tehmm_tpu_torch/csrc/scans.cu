@@ -993,8 +993,8 @@ int launch_bwd(int cluster, const float* obs, const int32_t* lens,
 
 extern "C" {
 
-// streaming.cu: K5's cluster plan
-int tehmm_viterbi_values_cluster_plan(int S, int64_t B, int64_t* out);
+// streaming.cu: K5's, K6a's and K6b's cluster plans
+int tehmm_streaming_cluster_plan(int S, int64_t B, int kind, int64_t* out);
 
 // ``cluster``: the cluster tile (257 to 1024 states), else the block tile.
 int tehmm_fwd_scaled(const void* obs, const void* lens,
@@ -1040,20 +1040,22 @@ int tehmm_bwd_chunk_tile(const void* obs, const void* x_carry,
 }
 
 // The cluster tile's plan of kernel ``kind`` (0 K7a/K8a, 1 K7b/K8b with
-// its two max buffers, 2 K5 and K3's carry mode, 3 K8c) at S states and B
-// rows into out[12] (write_cluster_plan).
+// its two max buffers, 2 K5 and K3's carry mode, 3 K8c, 4 K6a, 5 K6b with
+// its two) at S states and B rows into out[12] (write_cluster_plan).
 int tehmm_scan_cluster_plan(int S, int64_t B, int kind, int64_t* out) {
+  if (kind == 0) {
+    CLUSTER_KERNELS(ks, fwd_scaled_cluster_kernel);
+    return write_cluster_plan(ks, S, B, 1, out);
+  }
   if (kind == 1) {
     CLUSTER_KERNELS(ks, bwd_scaled_cluster_kernel);
     return write_cluster_plan(ks, S, B, 2, out);
   }
-  if (kind == 2) return tehmm_viterbi_values_cluster_plan(S, B, out);
   if (kind == 3) {
     CLUSTER_KERNELS(ks, viterbi_ptrs_cluster_kernel);
     return write_cluster_plan(ks, S, B, 1, out);
   }
-  CLUSTER_KERNELS(ks, fwd_scaled_cluster_kernel);
-  return write_cluster_plan(ks, S, B, 1, out);
+  return tehmm_streaming_cluster_plan(S, B, kind, out);
 }
 
 // ptr_out: uint8 for S <= 256, uint16 beyond; ``cluster``: the cluster

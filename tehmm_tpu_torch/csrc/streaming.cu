@@ -25,6 +25,9 @@
 //                          forward_prob_pallas_v3 (:815)
 //   bwd_prob_kernel        K6b, _backward_kernel_v3 (:712) under
 //                          backward_prob_pallas_v3 (:885)
+//   fwd_prob_cluster_kernel, bwd_prob_cluster_kernel
+//                          the same two functions from 257 to 1024
+//                          states on the cluster tile, with the same bits
 //
 // What they compute: a scan over the positions of every batch row whose
 // step is an S x S matrix-vector product in a semiring (max-plus for K5,
@@ -40,10 +43,11 @@
 // (about 0.5 ms for 256 rows of 1024 against 0.16 ms of bytes), and in
 // practice the chain of L dependent steps, each an S-term FMA (or
 // add-and-max) chain per output plus block-wide max reductions.  Past 256
-// states, on the staged tile (K6), each block also re-reads the whole
-// matrix from L2 every step (4 MB at S = 1024), which sets the time there;
-// on the cluster tile (K5, K3) the product over a block's slice (R S^2 / C
-// add-and-max a block a step) and two exchanges across the cluster a step.
+// states, on the staged tile, each block also re-reads the whole matrix
+// from L2 every step (4 MB at S = 1024), which sets the time there; on the
+// cluster tile the product over a block's slice (R S^2 / C FMAs, or
+// add-and-max, a block a step) and two exchanges across the cluster a step
+// (K6b: three).
 //
 // Design: a block of 256 threads owns R = NG * RT batch rows for the whole
 // scan, NG = 256 / S row groups of S threads.  Thread (g, j) owns state j
@@ -70,12 +74,13 @@
 // product and only write the carried rows.  Past 256 states a thread owns
 // 2 or 4 states of every row of its block, the block 2 or 4 rows, and the
 // matrix is staged block by block through shared memory every step, each
-// staged block serving all the rows (scan_tile.cuh): K6a/b's tile.  K5
-// and K3's carry mode run the cluster tile instead from 257 to 1024
-// states (scan_cluster.cuh, which says why and how: each block keeps its
-// column slice of log_trans resident; the state vector holds the
-// renormalized log values themselves); their entries take the tile the
-// caller names, ``cluster``.
+// staged block serving all the rows (scan_tile.cuh).  From 257 to 1024
+// states every kernel here runs the cluster tile instead
+// (scan_cluster.cuh, which says why and how: each block keeps its column
+// slice of the matrix resident; K5's state vector holds the renormalized
+// log values themselves, K6's the scaled probabilities); the staged tile
+// is kept for comparison and past SCAN_CLUSTER_MAX_STATES, and every entry
+// takes the tile the caller names, ``cluster``.
 //
 // K3's carry mode (tehmm_viterbi_carry_tile) is K5 started from each
 // row's carry instead of log_start: every position, 0 included, applies
@@ -85,13 +90,14 @@
 // bit with the plain torch version (ops/cuda_kernels.viterbi_values_plain)
 // and its paths are dp.viterbi's.  K6 sums each product in a fixed order,
 // four interleaved FMA chains added pairwise, that depends on S alone (no
-// atomics, no tensor cores, no TF32): two runs, at either RT, give the
-// same bits, and the result is within float32 rounding of the plain
-// version's matrix product.  The observation multiply and
-// the 1/m scale are roundings of their own (u * (1 / m), never u / m),
-// the max floors are 1e-37, rows of length 0 stay all-ones (K6) or
-// all-zero (K5) with zero normalizers, and scaled probabilities that
-// underflow float32 flush toward zero, all as in the TPU kernels.
+// atomics, no tensor cores, no TF32): two runs, at either RT and on
+// either tile past 256 states, give the same bits, and the result is
+// within float32 rounding of the plain version's matrix product.  The
+// observation multiply and the 1/m scale are roundings of their own
+// (u * (1 / m), never u / m), the max floors are 1e-37, rows of length 0
+// stay all-ones (K6) or all-zero (K5) with zero normalizers, and scaled
+// probabilities that underflow float32 flush toward zero, all as in the
+// TPU kernels.
 //
 // All global index arithmetic is 64-bit.
 
@@ -245,43 +251,40 @@ __global__ void __launch_bounds__(kThreads)
                                     L, S, n_s, n_slots, smem);
 }
 
-// K5 and K3's carry mode past 256 states on the cluster tile
-// (scan_cluster.cuh): the function and the bits of viterbi_values_kernel.
-// A step: the max-plus product over the block's slice of log_trans (at
-// position 0 without a carry, log_start instead), u = best + obs, the
-// cluster's row max (an exchange), p = u - m on valid positions, p into
-// every block's state vector (a second).  A row of length 0 stays
-// all-zero with dm 0: position 0 is renormalized only where it is valid.
-template <int R>
-__global__ void __launch_bounds__(kClusterThreads, 1)
-    viterbi_values_cluster_kernel(const float* __restrict__ obs,
-                                  const int32_t* __restrict__ lens,
-                                  const float* __restrict__ log_start,
-                                  const float* __restrict__ carry_in,
-                                  const float* __restrict__ log_trans,
-                                  float* __restrict__ v_out,
-                                  float* __restrict__ dm_out,
-                                  float* __restrict__ carry_out, int64_t B,
-                                  int64_t L, int S, int n_res) {
-  extern __shared__ __align__(16) float smem[];
+// The forward scan of K5 and K6a, and K3's carry mode, past 256 states on
+// the cluster tile (scan_cluster.cuh): the function and the bits of
+// forward_scan.  A step: the product over the block's slice of M = trans
+// (at position 0 without a carry, ``start`` instead), the observation
+// combined in, the cluster's row max (an exchange), the row renormalized
+// by it on valid positions, the row into every block's state vector (a
+// second).  A row of length 0 keeps its carry (Ops::kCarry0) with dm 0:
+// position 0 is renormalized only where it is valid.  ``carry_in``,
+// ``rows_out``, ``dm_out`` and ``carry_out`` as in forward_scan.
+template <int R, typename Ops>
+__device__ __forceinline__ void forward_cluster_scan(
+    const float* __restrict__ obs, const int32_t* __restrict__ lens,
+    const float* __restrict__ start, const float* __restrict__ carry_in,
+    const float* __restrict__ mat, float* __restrict__ rows_out,
+    float* __restrict__ dm_out, float* __restrict__ carry_out, int64_t B,
+    int64_t L, int S, int n_res, float* smem) {
   using Tile = ClusterTile<R>;
   constexpr int kOwn = Tile::kOwn;
-  Tile tl(smem, log_trans, lens, B, L, S, n_res, 1);
+  Tile tl(smem, mat, lens, B, L, S, n_res, 1);
   const bool carried = carry_in != nullptr;
   int64_t cell[kOwn];
   float p[kOwn], o_next[kOwn];
-  const float start_j = tl.has_col && !carried ? log_start[tl.gj] : 0.0f;
+  const float start_j = tl.has_col && !carried ? start[tl.gj] : 0.0f;
 #pragma unroll
   for (int m = 0; m < kOwn; ++m) {
     cell[m] = tl.b0 + tl.own_k[m];
     p[m] = carried && tl.own_has[m] && tl.own_live[m]
                ? carry_in[cell[m] * S + tl.gj]
-               : MaxPlusOps::kCarry0;
+               : Ops::kCarry0;
     o_next[m] = tl.own_has[m] && tl.own_len[m] > 0
                     ? obs[cell[m] * L * S + tl.gj]
                     : 0.0f;
   }
-  if (carried) tl.template fill_state<MaxPlusOps>(carry_in, B);
+  if (carried) tl.template fill_state<Ops>(carry_in, B);
   const bool writes_dm = tl.rank == 0 && tl.col == 0 && dm_out != nullptr;
 
   for (int64_t t = 0; t < L; ++t) {
@@ -291,7 +294,8 @@ __global__ void __launch_bounds__(kClusterThreads, 1)
       for (int m = 0; m < kOwn; ++m) {
         if (!tl.own_live[m]) continue;
         const int64_t pos = cell[m] * L + t;
-        if (v_out != nullptr && tl.own_has[m]) v_out[pos * S + tl.gj] = p[m];
+        if (rows_out != nullptr && tl.own_has[m])
+          rows_out[pos * S + tl.gj] = p[m];
         if (writes_dm) dm_out[pos] = 0.0f;
       }
       continue;
@@ -309,21 +313,21 @@ __global__ void __launch_bounds__(kClusterThreads, 1)
       for (int m = 0; m < kOwn; ++m) u[m] = start_j;
     } else {
       float s[R];
-      tl.template product<MaxPlusOps>(s);
+      tl.template product<Ops>(s);
       tl.own(s, u);
     }
 #pragma unroll
-    for (int m = 0; m < kOwn; ++m) u[m] = MaxPlusOps::emit(u[m], o[m]);
-    tl.template rows_max<0>(u, mx, MaxPlusOps::kFloor);
+    for (int m = 0; m < kOwn; ++m) u[m] = Ops::emit(u[m], o[m]);
+    tl.template rows_max<0>(u, mx, Ops::kFloor);
 #pragma unroll
     for (int m = 0; m < kOwn; ++m) {
       const bool valid = t < tl.own_len[m];
-      if (valid) p[m] = MaxPlusOps::renorm(u[m], mx[m]);
+      if (valid) p[m] = Ops::renorm(u[m], mx[m]);
       if (!tl.own_live[m]) continue;
       const int64_t pos = cell[m] * L + t;
-      if (v_out != nullptr && tl.own_has[m]) v_out[pos * S + tl.gj] = p[m];
-      if (writes_dm)
-        dm_out[pos] = valid ? MaxPlusOps::increment(mx[m]) : 0.0f;
+      if (rows_out != nullptr && tl.own_has[m])
+        rows_out[pos * S + tl.gj] = p[m];
+      if (writes_dm) dm_out[pos] = valid ? Ops::increment(mx[m]) : 0.0f;
     }
     tl.broadcast(p);
   }
@@ -334,6 +338,26 @@ __global__ void __launch_bounds__(kClusterThreads, 1)
         carry_out[cell[m] * S + tl.gj] = p[m];
   }
   tl.finish();
+}
+
+// K5 and K3's carry mode past 256 states on the cluster tile: the
+// function and the bits of viterbi_values_kernel (max-plus on the
+// renormalized log values; a row of length 0 stays all-zero).
+template <int R>
+__global__ void __launch_bounds__(kClusterThreads, 1)
+    viterbi_values_cluster_kernel(const float* __restrict__ obs,
+                                  const int32_t* __restrict__ lens,
+                                  const float* __restrict__ log_start,
+                                  const float* __restrict__ carry_in,
+                                  const float* __restrict__ log_trans,
+                                  float* __restrict__ v_out,
+                                  float* __restrict__ dm_out,
+                                  float* __restrict__ carry_out, int64_t B,
+                                  int64_t L, int S, int n_res) {
+  extern __shared__ __align__(16) float smem[];
+  forward_cluster_scan<R, MaxPlusOps>(obs, lens, log_start, carry_in,
+                                      log_trans, v_out, dm_out, carry_out,
+                                      B, L, S, n_res, smem);
 }
 
 
@@ -351,6 +375,24 @@ __global__ void __launch_bounds__(kThreads)
   forward_scan<SPT, RT, ProbOps>(obs_p, lens, start_p, nullptr, trans_p,
                                  alpha_out, dm_out, nullptr, B, L, S, n_s,
                                  n_slots, smem);
+}
+
+// K6a past 256 states on the cluster tile: the function and the bits of
+// fwd_prob_kernel.  The state vector holds p itself (no expf); a row of
+// length 0 stays all-ones.
+template <int R>
+__global__ void __launch_bounds__(kClusterThreads, 1)
+    fwd_prob_cluster_kernel(const float* __restrict__ obs_p,
+                            const int32_t* __restrict__ lens,
+                            const float* __restrict__ start_p,
+                            const float* __restrict__ trans_p,
+                            float* __restrict__ alpha_out,
+                            float* __restrict__ dm_out, int64_t B,
+                            int64_t L, int S, int n_res) {
+  extern __shared__ __align__(16) float smem[];
+  forward_cluster_scan<R, ProbOps>(obs_p, lens, start_p, nullptr, trans_p,
+                                   alpha_out, dm_out, nullptr, B, L, S,
+                                   n_res, smem);
 }
 
 // K6b: scaled backward probabilities.  beta[L - 1] is all-ones; beta[t]
@@ -453,6 +495,73 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// K6b past 256 states on the cluster tile: the function and the bits of
+// bwd_prob_kernel.  b starts at 1.  A step (where t + 1 < the cluster's
+// longest row): x = obs_p[t + 1] * b, the cluster's max xm (an exchange),
+// x * (1 / xm) into every block's state vector (a second), the
+// sum-product over the block's slice of trans_t, the cluster's max nm (a
+// third), b = s * (1 / nm) where t + 1 < the row's length.  beta goes out
+// at every t.  The two maxima have a buffer and an mbarrier each.
+template <int R>
+__global__ void __launch_bounds__(kClusterThreads, 1)
+    bwd_prob_cluster_kernel(const float* __restrict__ obs_p,
+                            const int32_t* __restrict__ lens,
+                            const float* __restrict__ trans_t,
+                            float* __restrict__ beta_out, int64_t B,
+                            int64_t L, int S, int n_res) {
+  extern __shared__ __align__(16) float smem[];
+  using Tile = ClusterTile<R>;
+  constexpr int kOwn = Tile::kOwn;
+  Tile tl(smem, trans_t, lens, B, L, S, n_res, 2);
+  int64_t cell[kOwn];
+  // the observation rows two steps ahead, as in bwd_prob_kernel
+  float b[kOwn], o_next[kOwn], o_next2[kOwn];
+  // the first step that runs reads position max_len - 1
+  const int64_t t1 = tl.max_len - 1;
+#pragma unroll
+  for (int m = 0; m < kOwn; ++m) {
+    cell[m] = tl.b0 + tl.own_k[m];
+    const int64_t base = cell[m] * L * S + tl.gj;
+    b[m] = 1.0f;
+    o_next[m] = tl.own_has[m] && t1 >= 1 && t1 < tl.own_len[m]
+                    ? obs_p[base + t1 * S]
+                    : 0.0f;
+    o_next2[m] = tl.own_has[m] && t1 >= 2 && t1 - 1 < tl.own_len[m]
+                     ? obs_p[base + (t1 - 1) * S]
+                     : 0.0f;
+  }
+
+  for (int64_t t = L - 1; t >= 0; --t) {
+    if (t + 1 < tl.max_len) {
+      float o[kOwn], x[kOwn], xm[kOwn], e[kOwn], s[R], so[kOwn], nm[kOwn];
+#pragma unroll
+      for (int m = 0; m < kOwn; ++m) {
+        o[m] = o_next[m];
+        o_next[m] = o_next2[m];
+        o_next2[m] = tl.own_has[m] && t >= 2 && t - 1 < tl.own_len[m]
+                         ? obs_p[(cell[m] * L + t - 1) * S + tl.gj]
+                         : 0.0f;
+        x[m] = __fmul_rn(o[m], b[m]);
+      }
+      tl.template rows_max<0>(x, xm, kProbFloor);
+#pragma unroll
+      for (int m = 0; m < kOwn; ++m) e[m] = ProbOps::renorm(x[m], xm[m]);
+      tl.broadcast(e);
+      tl.template product<ProbOps>(s);
+      tl.own(s, so);
+      tl.template rows_max<1>(so, nm, kProbFloor);
+#pragma unroll
+      for (int m = 0; m < kOwn; ++m)
+        if (t + 1 < tl.own_len[m]) b[m] = ProbOps::renorm(so[m], nm[m]);
+    }
+#pragma unroll
+    for (int m = 0; m < kOwn; ++m)
+      if (tl.own_live[m] && tl.own_has[m])
+        beta_out[(cell[m] * L + t) * S + tl.gj] = b[m];
+  }
+  tl.finish();
+}
+
 // K5's launch (with ``carry_in``, K3's carry mode): the cluster tile
 // where ``cluster`` (257 to 1024 states), else scan_tile.cuh's.
 int launch_viterbi_values(int cluster, const float* obs, const int32_t* lens,
@@ -500,17 +609,37 @@ int tehmm_viterbi_carry_tile(const void* obs, const void* carry_in,
                                nullptr, (float*)carry_out, B, L, S, stream);
 }
 
-// K5's (and K3's carry mode's) cluster plan at S states and B rows
-// (scan_cluster.cuh write_cluster_plan); scans.cu's
-// tehmm_scan_cluster_plan returns it.
-int tehmm_viterbi_values_cluster_plan(int S, int64_t B, int64_t* out) {
-  CLUSTER_KERNELS(ks, viterbi_values_cluster_kernel);
-  return write_cluster_plan(ks, S, B, 1, out);
+// The cluster plans of streaming.cu's kernels at S states and B rows
+// (scan_cluster.cuh write_cluster_plan), by scans.cu's
+// tehmm_scan_cluster_plan ``kind``: 2 K5 (and K3's carry mode), 4 K6a, 5
+// K6b (two max buffers).
+int tehmm_streaming_cluster_plan(int S, int64_t B, int kind, int64_t* out) {
+  if (kind == 2) {
+    CLUSTER_KERNELS(ks, viterbi_values_cluster_kernel);
+    return write_cluster_plan(ks, S, B, 1, out);
+  }
+  if (kind == 4) {
+    CLUSTER_KERNELS(ks, fwd_prob_cluster_kernel);
+    return write_cluster_plan(ks, S, B, 1, out);
+  }
+  if (kind == 5) {
+    CLUSTER_KERNELS(ks, bwd_prob_cluster_kernel);
+    return write_cluster_plan(ks, S, B, 2, out);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
+// ``cluster``: the cluster tile (257 to 1024 states), else the block tile.
 int tehmm_fwd_prob(const void* obs_p, const void* lens, const void* start_p,
                    const void* trans_p, void* alpha_out, void* dm_out,
-                   int64_t B, int64_t L, int S, void* stream) {
+                   int64_t B, int64_t L, int S, int cluster, void* stream) {
+  if (cluster) {
+    CLUSTER_KERNELS(ks, fwd_prob_cluster_kernel);
+    return launch_cluster_scan(ks, B, S, 1, stream, (const float*)obs_p,
+                               (const int32_t*)lens, (const float*)start_p,
+                               (const float*)trans_p, (float*)alpha_out,
+                               (float*)dm_out, B, L, S);
+  }
   TILE_KERNELS(ks, fwd_prob_kernel);
   return launch_scan(ks, B, S, stream,
                      (const float*)obs_p, (const int32_t*)lens,
@@ -519,8 +648,14 @@ int tehmm_fwd_prob(const void* obs_p, const void* lens, const void* start_p,
 }
 
 int tehmm_bwd_prob(const void* obs_p, const void* lens, const void* trans_t,
-                   void* beta_out, int64_t B, int64_t L, int S,
+                   void* beta_out, int64_t B, int64_t L, int S, int cluster,
                    void* stream) {
+  if (cluster) {
+    CLUSTER_KERNELS(ks, bwd_prob_cluster_kernel);
+    return launch_cluster_scan(ks, B, S, 2, stream, (const float*)obs_p,
+                               (const int32_t*)lens, (const float*)trans_t,
+                               (float*)beta_out, B, L, S);
+  }
   TILE_KERNELS(ks, bwd_prob_kernel);
   return launch_scan(ks, B, S, stream,
                      (const float*)obs_p, (const int32_t*)lens,

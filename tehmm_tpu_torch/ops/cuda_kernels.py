@@ -81,10 +81,11 @@ beyond, each counted under its own name (``viterbi_chunk_tile``,
 ``fwd_chunk_tile``, ``bwd_chunk_tile``), so the exact decoders, ``--pd``
 and every printed loglik run to S = 1024 too.  From 257 states the
 log-space scans (``forward_scaled``, ``backward_scaled`` and X1's and
-X2's carry modes), K5, K3's carry mode and K8c run the cluster tile of
-``csrc/scan_cluster.cuh`` (``scan_route``; ``SCAN_CLUSTER_MAX_STATES`` = 0
-forces the staged tile), counted under ``*_cluster`` names, with the same
-bits.  The printed loglik
+X2's carry modes), K5, K3's carry mode, K8c and the probability-space
+scans K6a and K6b (``forward_prob``, ``backward_prob``) run the cluster
+tile of ``csrc/scan_cluster.cuh`` (``scan_route``;
+``SCAN_CLUSTER_MAX_STATES`` = 0 forces the staged tile), counted under
+``*_cluster`` names, with the same bits.  The printed loglik
 (``MultitrackHmm.score``) takes ``forward_loglik``, which splits each
 row into pieces where ``piece_scan_route`` says (to
 ``PIECE_SCAN_MAX_STATES``, and to a number of rows that falls with S)
@@ -156,7 +157,8 @@ LAUNCHES = {
            "bwd_chunk_tile", "fwd_scaled_cluster", "fwd_chunk_cluster",
            "bwd_scaled_cluster", "bwd_chunk_cluster",
            "viterbi_values_cluster", "viterbi_chunk_cluster",
-           "viterbi_ptrs_cluster", "maxplus_resident", "maxplus_blocks",
+           "viterbi_ptrs_cluster", "fwd_prob_cluster", "bwd_prob_cluster",
+           "maxplus_resident", "maxplus_blocks",
            "fwd_piece_ops", "fwd_piece_compose"]
     )
 }
@@ -184,13 +186,13 @@ _STREAMING_ENVELOPE_ITEM = (
 )
 _TILE_POINTERS_ITEM = "ROADMAP speed item 19: K3's pointer mode on the tile"
 
-# The scans over obs past 256 states (K7a/K8a, K7b/K8b and X1's and X2's
-# carry modes and K8c, csrc/scans.cu; K5 and K3's carry mode,
-# csrc/streaming.cu) run the cluster tile (csrc/scan_cluster.cuh) from 257
-# states to this many, and the staged wide tile of csrc/scan_tile.cuh
-# beyond it, to 1024.  Both give the same bits, so the choice moves only
-# time; 0 forces the staged tile for all seven (tests and tools set it and
-# restore it).  K6a/b stay on the staged tile.
+# The nine scans over obs past 256 states (K7a/K8a, K7b/K8b and X1's and
+# X2's carry modes and K8c, csrc/scans.cu; K5 and K3's carry mode, K6a and
+# K6b, csrc/streaming.cu) run the cluster tile (csrc/scan_cluster.cuh)
+# from 257 states to this many, and the staged wide tile of
+# csrc/scan_tile.cuh beyond it, to 1024.  Both give the same bits, so the
+# choice moves only time; 0 forces the staged tile for all nine (tests and
+# tools set it and restore it).
 SCAN_CLUSTER_MAX_STATES = 1024
 # The cluster tile's plan (csrc/scan_cluster.cuh ``make_cluster_plan``):
 # a block of 256 threads owns up to 64 states of the cluster's R rows
@@ -206,12 +208,16 @@ _CLUSTER_COUNTERS = {"fwd_scaled": "fwd_scaled_cluster",
                      "bwd_chunk_tile": "bwd_chunk_cluster",
                      "viterbi_values": "viterbi_values_cluster",
                      "viterbi_chunk_tile": "viterbi_chunk_cluster",
-                     "viterbi_ptrs": "viterbi_ptrs_cluster"}
+                     "viterbi_ptrs": "viterbi_ptrs_cluster",
+                     "fwd_prob": "fwd_prob_cluster",
+                     "bwd_prob": "bwd_prob_cluster"}
 # the cluster kernels whose plans the card's plan entry gives
 # (``tehmm_scan_cluster_plan``'s ``kind``): K7a/K8a (and X1's carry mode),
-# K7b/K8b (and X2's; two max buffers), K5 (and K3's carry mode), K8c
+# K7b/K8b (and X2's), K5 (and K3's carry mode), K8c, K6a, K6b
 CLUSTER_PLAN_KINDS = ("fwd_scaled", "bwd_scaled", "viterbi_values",
-                      "viterbi_ptrs")
+                      "viterbi_ptrs", "fwd_prob", "bwd_prob")
+# the kinds whose step takes two row maxima, each with a buffer of its own
+_CLUSTER_TWO_MAXIMA = ("bwd_scaled", "bwd_prob")
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -364,12 +370,12 @@ def load_library() -> ctypes.CDLL:
         lib.tehmm_fwd_piece_compose.argtypes = (
             [ptr] * 6 + [i64, i64, i32, i32, ptr])
         lib.tehmm_fwd_prob.restype = i32
-        lib.tehmm_fwd_prob.argtypes = [ptr] * 6 + [i64, i64, i32, ptr]
+        lib.tehmm_fwd_prob.argtypes = [ptr] * 6 + [i64, i64, i32, i32, ptr]
         lib.tehmm_viterbi_values.restype = i32
         lib.tehmm_viterbi_values.argtypes = [ptr] * 6 + [i64, i64, i32, i32,
                                                          ptr]
         lib.tehmm_bwd_prob.restype = i32
-        lib.tehmm_bwd_prob.argtypes = [ptr] * 4 + [i64, i64, i32, ptr]
+        lib.tehmm_bwd_prob.argtypes = [ptr] * 4 + [i64, i64, i32, i32, ptr]
         lib.tehmm_fwd_scaled.restype = i32
         lib.tehmm_fwd_scaled.argtypes = [ptr] * 6 + [i64, i64, i32, i32,
                                                      ptr]
@@ -2163,18 +2169,22 @@ def forward_prob(log_start, log_trans, obs_p, lengths):
     with each output's S-term float32 sum as four interleaved FMA chains
     added pairwise, in an order that depends on S alone (no tensor cores,
     no TF32, no atomics: repeats give the same bits; within float32
-    rounding of the plain version's matrix product).  Takes S <= 1024."""
+    rounding of the plain version's matrix product).  From 257 states
+    (``scan_route``) the cluster tile (counted as ``fwd_prob_cluster``):
+    each block's slice of exp(log_trans) resident, p itself the state
+    vector, two exchanges across the cluster a step, with the staged
+    tile's bits.  Takes S <= 1024."""
     dev = _check_streaming(log_trans, obs_p, lengths, "obs_p",
                            "forward_prob", log_start)
-    if dev.type == "cpu":
+    if _device_kind(dev) == "cpu":
         return forward_prob_plain(log_start, log_trans, obs_p, lengths)
     B, L, S = obs_p.shape
     alpha = torch.empty((B, L, S), dtype=torch.float32, device=dev)
     dm = torch.empty((B, L), dtype=torch.float32, device=dev)
     if B:
         start_p, trans_p = torch.exp(log_start), torch.exp(log_trans)
-        _launch_streaming(
-            "fwd_prob", "tehmm_fwd_prob",
+        _launch_scan(
+            "fwd_prob", "tehmm_fwd_prob", S,
             (obs_p.data_ptr(), lengths.data_ptr(), start_p.data_ptr(),
              trans_p.data_ptr(), alpha.data_ptr(), dm.data_ptr(), B, L, S),
             dev)
@@ -2212,18 +2222,19 @@ def backward_prob(log_trans, obs_p, lengths):
     Replaces ``backward_prob_pallas_v3`` (pallas_kernels.py:885, kernel
     ``_backward_kernel_v3`` :712), which streams a reversed, relaid copy
     of obs_p; this kernel reads obs_p as it is, from the end.  Bound and
-    design as ``forward_prob``, with two max reductions per position.
-    Takes S <= 1024."""
+    design as ``forward_prob``, with two max reductions per position (on
+    the cluster tile from 257 states, counted as ``bwd_prob_cluster``,
+    three exchanges a step).  Takes S <= 1024."""
     dev = _check_streaming(log_trans, obs_p, lengths, "obs_p",
                            "backward_prob")
-    if dev.type == "cpu":
+    if _device_kind(dev) == "cpu":
         return backward_prob_plain(log_trans, obs_p, lengths)
     B, L, S = obs_p.shape
     beta = torch.empty((B, L, S), dtype=torch.float32, device=dev)
     if B:
         trans_pt = torch.exp(log_trans).T.contiguous()
-        _launch_streaming(
-            "bwd_prob", "tehmm_bwd_prob",
+        _launch_scan(
+            "bwd_prob", "tehmm_bwd_prob", S,
             (obs_p.data_ptr(), lengths.data_ptr(), trans_pt.data_ptr(),
              beta.data_ptr(), B, L, S), dev)
     return beta
@@ -2234,9 +2245,10 @@ def backward_prob(log_trans, obs_p, lengths):
 # ---------------------------------------------------------------------
 
 def scan_route(S: int) -> str:
-    """The tile of the seven cluster scans at S states
+    """The tile of the nine cluster scans at S states
     (``forward_scaled``, ``backward_scaled``, X1's and X2's carry modes,
-    ``viterbi_values``, K3's carry mode and ``viterbi_pointers``):
+    ``viterbi_values``, K3's carry mode, ``viterbi_pointers``,
+    ``forward_prob`` and ``backward_prob``):
     ``"narrow"`` (the block tile, to 256 states), ``"cluster"`` (the
     cluster tile, from 257 to ``SCAN_CLUSTER_MAX_STATES``), else
     ``"staged"`` (the block tile's wide form, to 1024)."""
@@ -2264,7 +2276,8 @@ def cluster_plan(S: int, B: int, kernel, active) -> dict:
     registers, the last S % 4 in shared memory; smem bytes a block (the
     mbarriers, the state vectors [C Sc][R], the slice, the maxima of 8
     warps and of the cluster's C blocks, two buffers of those in the
-    backward, and the lengths; K5's and K8c's plans are the forward's);
+    backwards K7b and K6b, and the lengths; K5's, K8c's and K6a's plans
+    are the forward's);
     clusters of the grid.  ``active(R, smem)`` is the card's active
     clusters of the kernel at R (the launch asks
     ``cudaOccupancyMaxActiveClusters``).  R is the fewest rows whose
@@ -2277,7 +2290,8 @@ def cluster_plan(S: int, B: int, kernel, active) -> dict:
     C = -(-S // _CLUSTER_COLS)
     Sc = (-(-S // C) + 3) & ~3
     S4 = S & ~3
-    n_max = 2 if _plan_kind(kernel) == 1 else 1
+    n_max = 2 if CLUSTER_PLAN_KINDS[_plan_kind(kernel)] \
+        in _CLUSTER_TWO_MAXIMA else 1
     plan, chosen_active = None, 0
     for R in _CLUSTER_ROWS:
         fixed = (8 + C * Sc * R + (S & 3) * Sc + _CLUSTER_WARPS * R
@@ -2318,7 +2332,7 @@ def library_cluster_plan(S: int, B: int, kernel) -> dict:
 
 
 def _launch_scan(name, entry, S, args, dev):
-    """Launch one of the cluster tile's seven scans (``_CLUSTER_COUNTERS``)
+    """Launch one of the cluster tile's nine scans (``_CLUSTER_COUNTERS``)
     through its entry: the cluster tile where ``scan_route(S)`` says so,
     counted under ``name``'s cluster counter, else the block tile,
     counted under ``name``; the entry takes the choice as its flag."""

@@ -8,16 +8,19 @@ K5 (``viterbi_values``), K6a/K6b (``forward_prob``, ``backward_prob``),
 K7a/K7b (``forward_scaled``, ``backward_scaled``) and K8c
 (``viterbi_pointers``) on the obs tensor of each ``bench_engines.CONFIGS``
 shape (every row full length; ``--batch`` replaces the shape's rows, to
-reach the tile's other row choice).  Past 256 states K5, K7a, K7b and K8c
-run the cluster tile, and are timed again with the staged wide tile
-forced (``K5_staged``, ``K7a_staged``, ``K7b_staged``, ``K8c_staged``:
-``cuda_kernels.SCAN_CLUSTER_MAX_STATES`` set to 0, then restored).
-``--sweeps`` times K3's, X1's and X2's carry modes
-(``viterbi_chunk_values``, ``forward_chunk_values``,
+reach the tile's other row choice).  Past 256 states all six run the
+cluster tile, and are timed again with the staged wide tile forced
+(``K5_staged``, ``K6a_staged``, ``K6b_staged``, ``K7a_staged``,
+``K7b_staged``, ``K8c_staged``: ``cuda_kernels.SCAN_CLUSTER_MAX_STATES``
+set to 0, then restored).  ``--sweeps`` times K3's, X1's and X2's carry
+modes (``viterbi_chunk_values``, ``forward_chunk_values``,
 ``backward_chunk_values``) at each S on ``--sweep-rows`` full rows of
-``--sweep-length`` (3f's ``--exact``, ``--pd`` and score shapes), the same
-two ways, and on the card the forward's cluster plan (``plan``).  Each kernel's ``*_us`` is its microseconds a step (a
-position).  The first line names the device; then one JSON
+``--sweep-length`` (3f's ``--exact``, ``--pd`` and score shapes), the
+same two ways.  On the card a row past 256 states has each timed
+kernel's cluster plan (``plans``, where the checkout's
+``cuda_kernels.CLUSTER_PLAN_KINDS`` has its kind).  Each kernel's
+``*_us`` is its microseconds a step (a position).  The first line names
+the device; then one JSON
 object a shape: the shape and each kernel's median ms of ``reps``
 synchronised calls.  It uses nothing but the wrappers and
 ``bench_engines``' inputs, so the same file times an older checkout of
@@ -73,19 +76,30 @@ def staged_tile():
             ck.SCAN_CLUSTER_MAX_STATES = old
 
 
+# the cluster plan kind of each kernel the tool times (the carry modes
+# run their scan's kernel)
+PLAN_KINDS = {"K5": "viterbi_values", "K6a": "fwd_prob", "K6b": "bwd_prob",
+              "K7a": "fwd_scaled", "K7b": "bwd_scaled", "K8c": "viterbi_ptrs",
+              "X1": "fwd_scaled", "X2": "bwd_scaled", "K3": "viterbi_values"}
+
+
 def _time(row, calls, device, reps, L, staged):
     """Each call's median ms into ``row`` (and its us a step for those
     named in ``staged``), then again with the staged tile forced for
     those, under ``name_staged``, where the checkout has the cluster
-    tile; on the card then also the forward's cluster plan (rows and
-    clusters, and the clusters the card holds at each R)."""
+    tile; on the card then also each of those kernels' cluster plan (rows
+    and clusters, and the clusters the card holds at each R) where the
+    checkout has its kind."""
     for name, fn in calls.items():
         fn()  # the first call builds and opts in to shared memory
         row[name] = median_ms(fn, device, reps)
     has_cluster = hasattr(ck, "SCAN_CLUSTER_MAX_STATES")
     if staged and has_cluster and device.type == "cuda":
-        row["plan"] = ck.library_cluster_plan(row.get("S", row.get("sweep")),
-                                              row["B"], False)
+        S = row.get("S", row.get("sweep"))
+        kinds = getattr(ck, "CLUSTER_PLAN_KINDS", ())
+        row["plans"] = {
+            name: ck.library_cluster_plan(S, row["B"], PLAN_KINDS[name])
+            for name in staged if PLAN_KINDS.get(name) in kinds}
     for name in staged:
         row[name + "_us"] = row[name] * 1e3 / L
         if has_cluster:
@@ -115,7 +129,7 @@ def time_config(config, batch, device, reps):
     }
     row = {"config": config, "S": S, "B": B, "L": L}
     return _time(row, calls, device, reps, L,
-                 ("K5", "K7a", "K7b", "K8c") if S > 256 else ())
+                 tuple(calls) if S > 256 else ())
 
 
 def time_sweeps(S, B, L, device, reps, T=5, V=9):

@@ -3,11 +3,14 @@
 ``make_cluster_plan``), the route by S (``scan_route``,
 ``SCAN_CLUSTER_MAX_STATES``) and the launches of ``forward_scaled``,
 ``backward_scaled``, X1's and X2's carry modes, ``viterbi_values`` (K5),
-K3's carry mode and ``viterbi_pointers`` (K8c), faked (no card here).  The kernels themselves are held to the staged
+K3's carry mode, ``viterbi_pointers`` (K8c), ``forward_prob`` (K6a) and
+``backward_prob`` (K6b), and ``cuda_v3``'s E-step, faked (no card here).
+The kernels themselves are held to the staged
 tile bit for bit on the card (tests_cuda/test_cuda_large_s.py,
 test_cuda_scans.py); the plain versions past 256 states to the JAX
 package in tests/test_torch_scans.py and tests/test_torch_envelopes.py."""
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -109,7 +112,7 @@ def _fake_card(monkeypatch):
 @pytest.mark.parametrize("force_staged", [False, True])
 @pytest.mark.parametrize("S", [10, 256, 257, 640, 1024])
 def test_launches_are_counted_by_tile(monkeypatch, S, force_staged):
-    """Each of the four entries launches once a call (X1's and X2's
+    """Each of the six entries launches once a call (X1's and X2's
     checkpoint modes past 239 states once a chunk), with the cluster flag
     and under the cluster tile's own counter from 257 states, under the
     block tile's counter below and where the staged tile is forced."""
@@ -123,10 +126,14 @@ def test_launches_are_counted_by_tile(monkeypatch, S, force_staged):
     cont = torch.ones(B, dtype=torch.bool)
     ck.forward_scaled(ls, lt, obs, lens)
     ck.backward_scaled(lt, obs, lens)
+    ck.forward_prob(ls, lt, obs, lens)
+    ck.backward_prob(lt, obs, lens)
     cluster = int(S > 256 and not force_staged)
     suffix = ("_cluster", "_cluster") if cluster else ("", "_tile")
     want = [("fwd_scaled" + suffix[0], "tehmm_fwd_scaled", cluster),
-            ("bwd_scaled" + suffix[0], "tehmm_bwd_scaled", cluster)]
+            ("bwd_scaled" + suffix[0], "tehmm_bwd_scaled", cluster),
+            ("fwd_prob" + suffix[0], "tehmm_fwd_prob", cluster),
+            ("bwd_prob" + suffix[0], "tehmm_bwd_prob", cluster)]
     if not ck.sweep_fits(S):
         ck.forward_chunk_values(lt, obs, carry, lens)
         ck.forward_checkpoints(lt, obs, carry, lens, chunk)
@@ -223,9 +230,10 @@ def test_viterbi_plans_are_the_forwards(B):
     K7a's, given the same active clusters; a bool still names the
     forward or the backward."""
     assert ck.CLUSTER_PLAN_KINDS == ("fwd_scaled", "bwd_scaled",
-                                     "viterbi_values", "viterbi_ptrs")
+                                     "viterbi_values", "viterbi_ptrs",
+                                     "fwd_prob", "bwd_prob")
     assert [ck._plan_kind(k) for k in (False, True) + ck.CLUSTER_PLAN_KINDS] \
-        == [0, 1, 0, 1, 2, 3]
+        == [0, 1, 0, 1, 2, 3, 4, 5]
     for S in range(257, 1025):
         active = _active(-(-S // 64))
         want = ck.cluster_plan(S, B, False, active)
@@ -251,8 +259,63 @@ def test_time_scans_times_the_viterbi_kernels_both_ways(monkeypatch,
     out = capsys.readouterr().out.splitlines()
     (row,) = [json.loads(line) for line in out[1:]]
     assert (row["S"], row["B"], row["L"]) == (260, 2, 4)
-    for k in ("K5", "K7a", "K7b", "K8c"):
+    for k in ("K5", "K6a", "K6b", "K7a", "K7b", "K8c"):
         assert row[k] > 0 and row[k + "_staged"] > 0
         assert row[k + "_us"] == pytest.approx(row[k] * 1e3 / 4)
-    assert "K6a_staged" not in row
+    assert "plans" not in row            # the card's plans: none here
     assert ck.SCAN_CLUSTER_MAX_STATES == 1024
+
+
+PROB_COUNTERS = {"fwd_prob": "fwd_prob_cluster",
+                 "bwd_prob": "bwd_prob_cluster"}
+
+
+@pytest.mark.parametrize("B", [1, 4, 64, 128, 1000])
+def test_prob_plans_are_the_log_space_scans(B):
+    """K6a keeps one max buffer, K6b two (its step's two row maxima, each
+    with its own buffer and mbarrier): from 257 to 1024 states their plans
+    are K7a's and K7b's, given the same active clusters, and K6b's shared
+    memory is K6a's plus one more buffer of the cluster's C x R partial
+    maxima wherever both take the same rows."""
+    assert {k: ck._CLUSTER_COUNTERS[k] for k in PROB_COUNTERS} \
+        == PROB_COUNTERS
+    assert set(PROB_COUNTERS.values()) <= set(ck.LAUNCHES)
+    for S in range(257, 1025):
+        active = _active(-(-S // 64))
+        fwd = ck.cluster_plan(S, B, "fwd_prob", active)
+        bwd = ck.cluster_plan(S, B, "bwd_prob", active)
+        assert fwd == ck.cluster_plan(S, B, "fwd_scaled", active), S
+        assert bwd == ck.cluster_plan(S, B, "bwd_scaled", active), S
+        if fwd["R"] == bwd["R"] and fwd["n_res"] == bwd["n_res"]:
+            assert bwd["smem"] - fwd["smem"] == 4 * fwd["C"] * fwd["R"]
+
+
+@pytest.mark.parametrize("force_staged", [False, True])
+@pytest.mark.parametrize("S", [10, 256, 257, 1024])
+def test_cuda_v3_estep_launches_k6_by_tile(monkeypatch, S, force_staged):
+    """The E-step engine ``cuda_v3`` (what ``"auto"`` takes past K1's
+    envelope) launches K6a and K6b once each a pass: on the cluster tile
+    from 257 states, the block tile below and where the staged tile is
+    forced (launches faked, the plain version's results in their place)."""
+    from tehmm_tpu_torch.models.params import HmmParams
+    from tehmm_tpu_torch.ops import em
+
+    launched = []
+    monkeypatch.setattr(ck, "_device_kind", lambda dev: "cuda")
+
+    def fake(name, entry, args, dev):
+        launched.append((name, entry, args[-1]))
+    monkeypatch.setattr(ck, "_launch_streaming", fake)
+    if force_staged:
+        monkeypatch.setattr(ck, "SCAN_CLUSTER_MAX_STATES", 0)
+    B, L = 2, 5
+    p = HmmParams(torch.full((S,), -float(np.log(S))),
+                  torch.full((S, S), -float(np.log(S))),
+                  torch.full((S, 2, 3), -float(np.log(3))))
+    sym = torch.ones((B, L, 2), dtype=torch.int32)
+    lens = torch.full((B,), L, dtype=torch.int32)
+    em.em_sufficient_stats(p, sym, lens, engine="cuda_v3")
+    cluster = int(S > 256 and not force_staged)
+    suffix = "_cluster" if cluster else ""
+    assert launched == [("fwd_prob" + suffix, "tehmm_fwd_prob", cluster),
+                        ("bwd_prob" + suffix, "tehmm_bwd_prob", cluster)]

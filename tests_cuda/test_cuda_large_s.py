@@ -18,12 +18,12 @@ only for the first S - 256 threads), 512 two of every thread, 767, 1023
 and 1024 four; S = 300 also runs with four rows a block (a batch past
 one wave of blocks).
 
-From 257 states K7a/K7b, X1's and X2's carry modes, K5, K3's carry mode
-and K8c run the cluster tile (csrc/scan_cluster.cuh): each must equal the
-staged tile (forced, ``ck.SCAN_CLUSTER_MAX_STATES`` = 0) bit for bit, at
-every S, row count (one wave of clusters and past it) and length (K5, K3
-and K8c also plain's, K8c on ties too), and a launch the card refuses
-raises."""
+From 257 states K7a/K7b, X1's and X2's carry modes, K5, K3's carry mode,
+K8c, K6a and K6b run the cluster tile (csrc/scan_cluster.cuh): each must
+equal the staged tile (forced, ``ck.SCAN_CLUSTER_MAX_STATES`` = 0) bit for
+bit, at every S, row count (one wave of clusters and past it) and length
+(K5, K3 and K8c also plain's, K8c on ties too; K6 within 2e-6 of plain in
+float64), and a launch the card refuses raises."""
 
 import numpy as np
 import pytest
@@ -334,7 +334,11 @@ def test_auto_takes_cuda_v3_to_1024_states(device, rng, S):
     assert em.resolve_engine("auto", S, 3, 6, 0, device) == "cuda_v3"
     before = dict(ck.LAUNCHES)
     got = em.em_sufficient_stats(p, sym, lens)
-    assert ck.LAUNCHES["fwd_prob"] == before["fwd_prob"] + 1
+    # K6a and K6b on the cluster tile past 256 states
+    for name in ("fwd_prob_cluster", "bwd_prob_cluster"):
+        assert ck.LAUNCHES[name] == before[name] + 1, name
+    assert ck.LAUNCHES["fwd_prob"] == before["fwd_prob"]
+    assert ck.LAUNCHES["bwd_prob"] == before["bwd_prob"]
     want = em.em_sufficient_stats(p, sym, lens, engine="plain")
     torch.testing.assert_close(got.loglik, want.loglik, rtol=1e-5, atol=0)
     torch.testing.assert_close(got.trans, want.trans, rtol=1e-4, atol=1e-5)
@@ -735,3 +739,134 @@ def test_a_refused_viterbi_cluster_launch_raises(device, entry, counter):
     torch.cuda.synchronize()
     assert ck.LAUNCHES == before
     assert bool((rows == 7.0).all()) and bool((last == 7.0).all())
+
+
+# ---------------------------------------------------------------------
+# K6a and K6b on the cluster tile
+# ---------------------------------------------------------------------
+
+def _prob_inputs(rng, device, S, B, L, zero_frac):
+    """_cluster_inputs' model and ragged rows as obs_p, with blank rows
+    (all-zero obs: every state equally likely) at row 1 (length 0) and,
+    past four rows, row 3."""
+    ls, lt, obs, lens, _i, _c = _cluster_inputs(rng, device, S, B, L,
+                                                zero_frac)
+    for b in (1, 3):
+        if b < B and (b == 1 or B > 4):
+            obs[b] = 0.0
+    obs_p, o_m = dp.scaled_obs_prob(obs)
+    return ls, lt, obs_p, o_m, lens
+
+
+def _prob_calls(ls, lt, obs_p, lens):
+    return (lambda: ck.forward_prob(ls, lt, obs_p, lens),
+            lambda: (ck.backward_prob(lt, obs_p, lens),))
+
+
+@pytest.mark.parametrize("zero_frac", [0.0, 0.3])
+@pytest.mark.parametrize("B", CLUSTER_ROWS)
+@pytest.mark.parametrize("S", CLUSTER_STATES)
+def test_cluster_prob_scans_equal_the_staged_tile(device, rng, monkeypatch,
+                                                  S, B, zero_frac):
+    """K6a (alpha_p, dm) and K6b (beta_p): the cluster tile's bits are the
+    staged tile's and a second launch's, within 2e-6 (dm 1e-5) of plain
+    carried in float64; a row of length 0 stays all ones with dm 0, and
+    beta_p is all ones from each row's last valid position on."""
+    ls, lt, obs_p, _o_m, lens = _prob_inputs(rng, device, S, B, 13,
+                                             zero_frac)
+    fwd, bwd = _prob_calls(ls, lt, obs_p, lens)
+    got, want = _both_tiles(monkeypatch, fwd)
+    assert _equal(got, want) and _equal(got, fwd())
+    alpha, dm = got
+    r_alpha, r_dm = ck.forward_prob_plain(ls, lt, obs_p, lens, dtype=F64)
+    torch.testing.assert_close(alpha, r_alpha.float(), rtol=0, atol=2e-6)
+    torch.testing.assert_close(dm, r_dm.float(), rtol=0, atol=1e-5)
+    assert bool((alpha[lens == 0] == 1).all()) \
+        and bool((dm[lens == 0] == 0).all())
+    got, want = _both_tiles(monkeypatch, bwd)
+    assert _equal(got, want) and _equal(got, bwd())
+    (beta,) = got
+    torch.testing.assert_close(
+        beta, ck.backward_prob_plain(lt, obs_p, lens, dtype=F64).float(),
+        rtol=0, atol=2e-6)
+    for b, n in enumerate(lens.tolist()):
+        assert bool((beta[b, max(n - 1, 0):] == 1).all())
+
+
+@pytest.mark.parametrize("S", [300, 1024])
+def test_cluster_prob_scans_past_one_wave(device, rng, monkeypatch, S):
+    """More rows than the card holds clusters of the most rows at once:
+    K6a and K6b keep the staged tile's bits, and each row's bits are those
+    of a launch of its own."""
+    for kind in ("fwd_prob", "bwd_prob"):
+        plan = ck.library_cluster_plan(S, 1, kind)
+        B = 12 * plan["active"][-1] + 5
+        wide = ck.library_cluster_plan(S, B, kind)
+        assert wide["R"] == 12 and wide["clusters"] > wide["active"][-1]
+    ls, lt, obs_p, _o_m, lens = _prob_inputs(rng, device, S, B, 7, 0.3)
+    few = slice(B - 3, B)
+    alone = _prob_calls(ls, lt, obs_p[few].contiguous(), lens[few])
+    for fn, fn_alone in zip(_prob_calls(ls, lt, obs_p, lens), alone):
+        got, want = _both_tiles(monkeypatch, fn)
+        assert _equal(got, want)
+        assert _equal(fn_alone(), (g[few] for g in got))
+
+
+@pytest.mark.parametrize("S", [257, 1024])
+def test_cluster_prob_scans_on_one_long_row(device, rng, monkeypatch, S):
+    """One row a cluster over many positions, as ``"auto"`` runs K6 on a
+    training region: the staged tile's bits, and within 2e-6 of plain in
+    float64."""
+    ls, lt, obs_p, _o_m, lens = _prob_inputs(rng, device, S, 1, 700, 0.0)
+    assert lens.tolist() == [700]
+    fwd, bwd = _prob_calls(ls, lt, obs_p, lens)
+    got, want = _both_tiles(monkeypatch, fwd)
+    assert _equal(got, want)
+    r_alpha, _r_dm = ck.forward_prob_plain(ls, lt, obs_p, lens, dtype=F64)
+    torch.testing.assert_close(got[0], r_alpha.float(), rtol=0, atol=2e-6)
+    got, want = _both_tiles(monkeypatch, bwd)
+    assert _equal(got, want)
+    torch.testing.assert_close(
+        got[0], ck.backward_prob_plain(lt, obs_p, lens, dtype=F64).float(),
+        rtol=0, atol=2e-6)
+
+
+@pytest.mark.parametrize("kernel", ["fwd_prob", "bwd_prob"])
+@pytest.mark.parametrize("B", [1, 4, 64, 128, 4096])
+@pytest.mark.parametrize("S", CLUSTER_STATES)
+def test_prob_cluster_plans_are_the_libraries(device, S, B, kernel):
+    """K6a's and K6b's plans (K6b with two max buffers): the Python plan,
+    given the card's active clusters of that kernel at each R, is the
+    plan its launch takes."""
+    lib = ck.library_cluster_plan(S, B, kernel)
+    active = dict(zip(ck._CLUSTER_ROWS, lib.pop("active")))
+    assert ck.cluster_plan(S, B, kernel,
+                           lambda R, smem: active[R]) == lib
+    assert lib["smem"] <= 232448 and active[lib["R"]] >= 1
+
+
+@pytest.mark.parametrize("entry,counter", [
+    ("tehmm_fwd_prob", "fwd_prob_cluster"),
+    ("tehmm_bwd_prob", "bwd_prob_cluster")])
+def test_a_refused_prob_cluster_launch_raises(device, entry, counter):
+    """K6a's and K6b's cluster entries at S <= 256 have no plan: the
+    launch is refused and raises, nothing counted, nothing run in its
+    place."""
+    S, B, L = 200, 2, 3
+    obs_p = torch.ones((B, L, S), device=device)
+    lens = torch.full((B,), L, dtype=torch.int32, device=device)
+    sp = torch.ones(S, device=device)
+    tp = torch.ones((S, S), device=device)
+    rows = torch.full((B, L, S), 7.0, device=device)
+    dm = torch.full((B, L), 7.0, device=device)
+    args = (obs_p.data_ptr(), lens.data_ptr(), sp.data_ptr(),
+            tp.data_ptr(), rows.data_ptr(), dm.data_ptr()) \
+        if entry == "tehmm_fwd_prob" \
+        else (obs_p.data_ptr(), lens.data_ptr(), tp.data_ptr(),
+              rows.data_ptr())
+    before = dict(ck.LAUNCHES)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        ck._launch_streaming(counter, entry, (*args, B, L, S, 1), device)
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES == before
+    assert bool((rows == 7.0).all()) and bool((dm == 7.0).all())
