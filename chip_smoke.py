@@ -381,9 +381,12 @@ REPLACES = {
     "viterbi_fwd": "tehmm_tpu/ops/pallas_kernels.py:2386",
     # K2's forward to 32 states (its lanes kernel)
     "viterbi_fwd_lanes": "tehmm_tpu/ops/pallas_kernels.py:2386",
-    # the value-row backtrace, K2's before its pointer mode (timed on K2's
-    # rows)
-    "viterbi_backtrace": "tehmm_tpu/ops/pallas_kernels.py:2517",
+    # the value-row backtrace: the XLA backtrace of viterbi_pallas_v3
+    # (no Pallas; timed also on K2's rows, its route before the pointer
+    # mode), and a chunk the exact decoder's past 239 states
+    # (dp.viterbi_backtrace_chunk, an XLA scan)
+    "viterbi_backtrace": "tehmm_tpu/ops/pallas_kernels.py:1475",
+    "viterbi_backtrace@3f_exact": "tehmm_tpu/ops/dp.py:601",
     # K2's backtrace: X3's chase over the pointer mode's pointers
     "chunk_chase@K2": "tehmm_tpu/ops/pallas_kernels.py:2517",
     "viterbi_chunk_values": "tehmm_tpu/ops/pallas_kernels.py:1284",
@@ -2377,6 +2380,69 @@ def phase_k6_fit_shape(device, seed) -> dict:
     return out
 
 
+# the value-row backtrace's shapes on 3f's Viterbi paths at ENV_STATES:
+# the stitched decode's passes (scaled_rows(512, S) chunks of 4,096 and
+# two halos of 256) and the exact decode's one group (ENV_TABLES chunks
+# of ENV_TABLE_LEN - 1): (name suffix, rows, value rows a row)
+BT_3F_SHAPES = (("3f_stitched", 128, 4607), ("3f_exact", ENV_TABLES,
+                                               ENV_TABLE_LEN - 1))
+BT_3F_PATHS = {"3f_stitched": "viterbi", "3f_exact": "exact"}
+
+
+def phase_backtrace_3f_shapes(device, seed) -> dict:
+    """The value-row backtrace at 3f's two shapes (BT_3F_SHAPES), on K5's
+    rows of full-length regions of 3f's sticky model with random symbols,
+    as ``dp.viterbi_streaming`` passes them: paths and entry states bit
+    for bit the plain version's; the kernel timed as phase 2 times it,
+    the plain version once (its steps are a few small launches each).
+    Rows ``viterbi_backtrace@<suffix>``."""
+    import torch
+
+    from tehmm_tpu_torch.models.emission import track_log_likelihoods
+    from tehmm_tpu_torch.models.params import from_numpy
+    from tehmm_tpu_torch.ops import cuda_kernels as ck
+
+    out = {}
+    rng = np.random.RandomState(seed + 5)
+    T_, V_ = T, 9
+    p = from_numpy(*_sticky_model(rng, ENV_STATES, T_, V_), device)
+    for suffix, B, Lb in BT_3F_SHAPES:
+        L = Lb + 1
+        sym = torch.from_numpy(rng.randint(0, V_, size=(B, L, T_))
+                               .astype(np.int32)).to(device)
+        obs = track_log_likelihoods(p.log_em, sym)
+        del sym
+        lens = torch.full((B,), L, dtype=torch.int32, device=device)
+        v, _dm = ck.viterbi_values(p.log_start, p.log_trans, obs, lens)
+        del obs, _dm
+        end = torch.argmax(v[:, L - 1], dim=-1).to(torch.int32)
+        args = (p.log_trans, v[:, 1:], v[:, 0], end, lens - 1)
+        plain_args = (p.log_trans, v[:, 1:].contiguous(),
+                      v[:, 0].contiguous(), end, lens - 1)
+        got = ck.viterbi_backtrace(*args)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = ck.viterbi_backtrace_plain(*plain_args)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), \
+            f"viterbi_backtrace disagrees with its plain version at {suffix}"
+        ms = _median_ms(lambda: ck.viterbi_backtrace(*args), 5)
+        out[f"viterbi_backtrace@{suffix}"] = dict(
+            max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+            **_bound("viterbi_backtrace", (B, Lb, ENV_STATES, T_, V_),
+                     B * Lb))
+        print(f"[backtrace 3f] {suffix} (S={ENV_STATES}, {B} x {Lb}): "
+              f"paths and entry states bit-equal to plain; kernel "
+              f"{ms:.3f} ms ({ms * 1e3 / Lb:.4f} us a step), plain "
+              f"{plain_ms:.3f} ms, bound "
+              f"{out[f'viterbi_backtrace@{suffix}']['bound_ms']:.4f} ms",
+              flush=True)
+        del v, got, want, args, plain_args
+        torch.cuda.empty_cache()
+    return out
+
+
 def phase_maxplus(device) -> dict:
     """K9: ``maxplus_sweeps`` in both layouts (the blocks layout at each
     row-block size) against the plain version at Sp x MAXPLUS_BG on the
@@ -3965,11 +4031,41 @@ def _env_model(seed):
     return _sticky_model(np.random.RandomState(seed + 3), ENV_STATES, T, 9)
 
 
-def _env_runs(model, dev, tabs, pd_tabs, launches=None, only=None):
+@contextlib.contextmanager
+def _timed_backtraces(spans):
+    """CUDA events around every ``ck.viterbi_backtrace`` call on the
+    current stream (the wrapper's launches are there), appended to
+    ``spans`` as (start, end); the wrapper restored after."""
+    import torch
+
+    from tehmm_tpu_torch.ops import cuda_kernels as ck
+
+    real = ck.viterbi_backtrace
+
+    def timed(*args):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        result = real(*args)
+        end.record()
+        spans.append((start, end))
+        return result
+
+    ck.viterbi_backtrace = timed
+    try:
+        yield
+    finally:
+        ck.viterbi_backtrace = real
+
+
+def _env_runs(model, dev, tabs, pd_tabs, launches=None, only=None,
+              bt_secs=None):
     """(name -> (result, seconds)) of every decoder of 3f on ``tabs`` on
     ``dev`` (the CPU ENV_CPU_ROWS rows a pass); ``--pd``'s sweep and the
     score on ``pd_tabs``; each run's launch counts into ``launches``;
-    ``only``: the names to run (all by default)."""
+    ``only``: the names to run (all by default); on the card
+    ``bt_secs[name]``: the device seconds of its value-row backtrace
+    calls (CUDA events around each)."""
     import torch
 
     from tehmm_tpu_torch.models import hmm as port_hmm
@@ -4008,12 +4104,17 @@ def _env_runs(model, dev, tabs, pd_tabs, launches=None, only=None):
         if only is not None and name not in only:
             continue
         ck.reset_launch_counts()
+        spans = []
         t0 = time.perf_counter()
-        result = call()
+        with _timed_backtraces(spans) if bt_secs is not None \
+                else contextlib.nullcontext():
+            result = call()
         if dev != "cpu":
             torch.cuda.synchronize()
             launches[name] = dict(ck.LAUNCHES)
         got[name] = (result, time.perf_counter() - t0)
+        if bt_secs is not None:
+            bt_secs[name] = sum(a.elapsed_time(b) for a, b in spans) / 1e3
     del params, hmm_model
     if dev != "cpu":
         torch.cuda.empty_cache()
@@ -4140,12 +4241,17 @@ def phase_envelopes(work, xml, n, seed, cpu_runs, device="cuda"):
         and not ck.k4_fits(ENV_STATES, T_, V_) \
         and not ck.sweep_fits(ENV_STATES) \
         and ck.scan_route(ENV_STATES) == "cluster"
-    card = _env_runs(model, device, tables, tables, launches=launches)
+    bt_secs = {}
+    card = _env_runs(model, device, tables, tables, launches=launches,
+                     bt_secs=bt_secs)
     n_card = ENV_TABLES * ENV_TABLE_LEN
     for name, (_r, secs) in card.items():
+        bt = launches[name]["viterbi_backtrace"]
+        of_it = f" (the value-row backtrace {bt_secs[name]:.4f} s of it, " \
+            f"{bt} launches)" if bt else ""
         print(f"[envelopes] {name} at S={ENV_STATES} on {ENV_TABLES} regions"
               f" of {ENV_TABLE_LEN} ({n_card} positions) on the card: "
-              f"{secs:.2f} s; launches "
+              f"{secs:.2f} s{of_it}; launches "
               f"{ {k: v for k, v in launches[name].items() if v} }",
               flush=True)
     for path, names in ENVELOPE_KERNELS.items():
@@ -4663,6 +4769,7 @@ def _run(args, device, smi, parent) -> int:
         device, np.random.RandomState(args.seed + 2), args.seed))
     torch.cuda.empty_cache()
     kernels.update(phase_k6_fit_shape(device, args.seed))
+    kernels.update(phase_backtrace_3f_shapes(device, args.seed))
     kernels.update(phase_maxplus(device))
     sweep_rows = phase_wide_sweeps(device,
                                    np.random.RandomState(args.seed + 4))
@@ -4831,6 +4938,9 @@ def _run(args, device, smi, parent) -> int:
                                  for path in tile_paths[base])
         elif config == K6_FIT:
             launches[name] = env_launches["fit"][base]   # 3f's train
+        elif base == "viterbi_backtrace" and config in BT_3F_PATHS:
+            # 3f's stitched and exact Viterbi decodes
+            launches[name] = env_launches[BT_3F_PATHS[config]][base]
         elif base == "chunk_chase" and config not in engine_launches:
             launches[name] = k2_chases if config == "K2" else x3_chases
         elif (base in DECODE_KERNELS or base == "viterbi_chunk_values") \

@@ -17,10 +17,12 @@
 //                               mode first-hit pointers, which
 //                               chunk_chase_kernel walks (K2's backtrace,
 //                               _viterbi_backtrace_kernel_v4 :2517)
-//   viterbi_backtrace_kernel    a backtrace over value rows: under K5
-//                               (dp.viterbi_streaming) and the exact
-//                               decoder's per-chunk backtrace past 239
-//                               states
+//   viterbi_backtrace_kernel    the XLA backtrace of viterbi_pallas_v3
+//                               (:1475) over K5's value rows
+//                               (dp.viterbi_streaming), and past 239
+//                               states the exact decoder's a chunk
+//                               (dp.viterbi_backtrace_chunk): a warp a
+//                               row, a warp-wide first-hit argmax a step
 //   viterbi_sweep_lanes_kernel  K3, _make_viterbi_kernel_v3(carry_mode=
 //   viterbi_sweep_smem_kernel   True) (:1284) under
 //                               viterbi_chunk_values_pallas (:1492): value
@@ -71,8 +73,6 @@
 #include "common.cuh"
 
 namespace {
-
-constexpr int kBacktraceThreads = 32;
 
 // best[k] = max_i(v[i] + trans[i, j]) for this lane's states j, and
 // where ``arg`` is given arg[k] = the first i that reaches it (a strict
@@ -588,14 +588,143 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32)
   }
 }
 
-// Backtrace from value rows: one thread per batch row walks back from
-// its end state; prev = argmax_i(v[t-1, i] + trans[i, state]), first
-// hit, held at state for t >= length.  Row t-1 of position 0 is the
-// entry row.  Writes path[b, t] and the state at position -1.  The first
-// n_s rows of trans are in shared memory (all of them up to S = 241); the
-// rest are read through the read-only path from global memory.
-__global__ void __launch_bounds__(kBacktraceThreads)
-    viterbi_backtrace_kernel(const float* __restrict__ trans,
+// Backtrace from value rows: each batch row walks back from its end
+// state, prev = argmax_i(v[t-1, i] + trans[i, state]), first hit, held
+// at state for t >= length; row t-1 of position 0 is the entry row.
+// Writes path[b, t] and the state at position -1.
+//
+// Replaces the XLA backtrace of viterbi_pallas_v3
+// (tehmm_tpu/ops/pallas_kernels.py:1475, under K5's route past K2's
+// envelope) and, a chunk, dp.viterbi_backtrace_chunk (tehmm_tpu/ops/
+// dp.py:601, the exact decoder past 239 states).  Bound on an H100: the
+// function moves the value rows once (B L S floats) and does S adds and
+// compares a position, far under a microsecond at these shapes; what
+// sets the time is the chain of L dependent S-wide argmaxes a row, each
+// step's row of trans chosen by the step before.  Design: a warp a row,
+// so a block's rows and the card's SMs run their chains side by side,
+// and a step is one warp-wide argmax.  Each lane forms c_i = v[t-1, i] +
+// transT[state, i], the plain version's float add, over its states:
+// trans^T, so the step reads one contiguous row, as the JAX scan reads
+// trans_T[state] (its rows padded to S4 = S rounded up to 4 floats).
+// The lane's first hit is a pairwise tree over its states in increasing
+// order; then the warp takes the greatest value by one redux.sync on an
+// order-preserving key and the lowest index that holds it by a second:
+// exactly the serial first-hit scan's choice (ties and all-LOG_ZERO
+// columns to the lowest index), and every lane ends the step holding the
+// new state, with no barrier on the chain.  The value rows do not depend
+// on the chain: the warp copies the rows ahead into a ring of kBtSlots
+// slots of P positions with cp.async, walked from the row's end, so the
+// step waits on nothing but trans^T's row.  Where trans^T fits in shared
+// memory beside one warp's ring (S <= 236) the block stages it once and
+// its rows share it, and lane l owns states l + 32 k (one shared load
+// each).  Beyond, the row is read from L2 (4 MB in all at S = 1024), the
+// step's one dependent load, and lane l owns the quads 4 l + 128 k + e,
+// read by 16-byte loads and copied by 16-byte cp.async where the rows
+// are 16-byte aligned: a quarter of the memory instructions, which at
+// these widths set the step (on shared memory, below 237 states, single
+// states ran faster).
+// The path goes out 32 positions at a time, one store a lane.
+constexpr int kBtSlots = 4;      // ring slots a warp; three in flight
+constexpr int kBtMaxWarps = 16;  // rows a block
+
+// states a chunk: 1 where trans^T is staged, a quad where it is read
+// from L2
+template <bool kStaged>
+__host__ __device__ constexpr int bt_chunk() {
+  return kStaged ? 1 : 4;
+}
+
+// chunks a lane: S <= 32 CW NC
+inline int bt_chunks_per_lane(int S, int cw) {
+  int nc = 1;
+  while (32 * cw * nc < S) nc *= 2;
+  return nc;
+}
+
+__host__ __device__ __forceinline__ int padded_states(int S) {
+  return (S + 3) & ~3;
+}
+
+// A float's key for an unsigned max: greater floats get greater keys,
+// +0 and -0 one key (they compare equal)
+__device__ __forceinline__ unsigned ordered_key(float x) {
+  const unsigned u = __float_as_uint(x == 0.0f ? 0.0f : x);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+// argmax_i(vrow[i] + trow[i]), the first hit, for the whole warp; lane l
+// owns states CW l + 32 CW k + e; both rows 16-byte aligned where CW is
+// 4, trow in shared memory where staged, else global
+template <int NC, bool kStaged>
+__device__ __forceinline__ int warp_first_argmax(const float* vrow,
+                                                 const float* trow, int S,
+                                                 int lane) {
+  constexpr int CW = bt_chunk<kStaged>(), E = CW * NC;
+  float c[E];
+  int at[E];
+#pragma unroll
+  for (int k = 0; k < NC; ++k) {
+    const int j = CW * lane + 32 * CW * k;
+    if constexpr (CW == 1) {
+      c[k] = j < S ? vrow[j] + trow[j] : -INFINITY;
+      at[k] = j;
+    } else {
+      float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f), t = v;
+      if (j < S) {
+        v = *reinterpret_cast<const float4*>(vrow + j);
+        t = __ldg(reinterpret_cast<const float4*>(trow + j));
+      }
+      c[4 * k] = j < S ? v.x + t.x : -INFINITY;
+      c[4 * k + 1] = j + 1 < S ? v.y + t.y : -INFINITY;
+      c[4 * k + 2] = j + 2 < S ? v.z + t.z : -INFINITY;
+      c[4 * k + 3] = j + 3 < S ? v.w + t.w : -INFINITY;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) at[4 * k + e] = j + e;
+    }
+  }
+  // pairs of neighbouring runs, the lower states on the left: the right
+  // only where strictly greater (a pad, -inf, never beats a state)
+#pragma unroll
+  for (int w = 1; w < E; w *= 2) {
+#pragma unroll
+    for (int k = 0; k + w < E; k += 2 * w) {
+      if (c[k + w] > c[k]) {
+        c[k] = c[k + w];
+        at[k] = at[k + w];
+      }
+    }
+  }
+  const unsigned key = CW * lane < S ? ordered_key(c[0]) : 0u;
+  const unsigned top = __reduce_max_sync(0xffffffffu, key);
+  return (int)__reduce_min_sync(0xffffffffu,
+                                key == top ? (unsigned)at[0] : 0xffffffffu);
+}
+
+// Start the copies of a row's states into a ring row: each lane its own
+// states, 16 bytes a copy where a lane owns quads and both S and the row
+// allow it
+template <int NC, bool kStaged>
+__device__ __forceinline__ void copy_value_row(float* dst, const float* src,
+                                               int S, int lane) {
+  constexpr int CW = bt_chunk<kStaged>();
+  if (CW == 4 && (S & 3) == 0 && ((uintptr_t)src & 15) == 0) {
+#pragma unroll
+    for (int k = 0; k < NC; ++k) {
+      const int j = 4 * lane + 128 * k;
+      if (j < S) cp_async16(dst + j, src + j);
+    }
+  } else {
+#pragma unroll
+    for (int m = 0; m < CW * NC; ++m) {
+      const int j = CW * lane + 32 * CW * (m / CW) + m % CW;
+      if (j < S) cp_async4(dst + j, src + j);
+    }
+  }
+}
+
+template <int NC, bool kStaged>
+__global__ void __launch_bounds__(kBtMaxWarps * 32)
+    viterbi_backtrace_kernel(const float* __restrict__ trans_t,
                              const float* __restrict__ rows,
                              int64_t row_stride,
                              const float* __restrict__ entry,
@@ -604,40 +733,125 @@ __global__ void __launch_bounds__(kBacktraceThreads)
                              const int32_t* __restrict__ lens,
                              int32_t* __restrict__ path,
                              int32_t* __restrict__ entry_state, int64_t B,
-                             int64_t L, int S, int n_s) {
-  extern __shared__ float s_trans[];
-  stage(s_trans, trans, (int64_t)n_s * S);
-  __syncthreads();
+                             int64_t L, int S, int P) {
+  extern __shared__ __align__(16) float s_bt[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int S4 = padded_states(S);
+  const int64_t SS = kStaged ? (int64_t)S * S4 : 0;
+  if constexpr (kStaged) {
+    const float4* src = reinterpret_cast<const float4*>(trans_t);
+    float4* dst = reinterpret_cast<float4*>(s_bt);
+    for (int64_t i = threadIdx.x; i < SS / 4; i += blockDim.x)
+      dst[i] = __ldg(src + i);
+    __syncthreads();
+  }
+  const float* tt = kStaged ? s_bt : trans_t;
+  float* ring = s_bt + SS + (int64_t)warp * kBtSlots * P * S4;
 
-  const int64_t b = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int64_t b = (int64_t)blockIdx.x * (blockDim.x >> 5) + warp;
   if (b >= B) return;
-  const int64_t len = lens[b];
+  const int64_t n = max((int64_t)0, min((int64_t)lens[b], L));
   const float* rb = rows + b * row_stride;
+  const float* eb = entry + b * entry_stride;
+  int32_t* out = path + b * L;
   int state = end_state[b];
-  for (int64_t t = L - 1; t >= 0; --t) {
-    path[b * L + t] = state;
-    if (t < len) {
-      const float* vp = t > 0 ? rb + (t - 1) * S : entry + b * entry_stride;
-      float best = vp[0] + s_trans[state];
-      int arg = 0;
-      for (int i = 1; i < n_s; ++i) {
-        const float c = vp[i] + s_trans[(int64_t)i * S + state];
-        if (c > best) {
-          best = c;
-          arg = i;
-        }
-      }
-      for (int i = n_s; i < S; ++i) {
-        const float c = vp[i] + __ldg(trans + (int64_t)i * S + state);
-        if (c > best) {
-          best = c;
-          arg = i;
-        }
-      }
-      state = arg;
+  // past the walk's last group of 32 positions the end state holds
+  const int64_t top = n > 0 ? ((n - 1) & ~(int64_t)31) + 32 : 0;
+  for (int64_t t = top + lane; t < L; t += 32) out[t] = state;
+
+  // slot k holds steps [k P, k P + P); step s reads row n - 2 - s (the
+  // entry row at -1), at S4 floats a position
+  const auto issue = [&](int64_t k) {
+    float* slot = ring + (k % kBtSlots) * P * S4;
+    for (int q = 0; q < P; ++q) {
+      const int64_t s = k * P + q;
+      if (s >= n) break;
+      const int64_t p = n - 2 - s;
+      copy_value_row<NC, kStaged>(slot + q * S4, p >= 0 ? rb + p * S : eb,
+                                  S, lane);
+    }
+    cp_async_commit();
+  };
+  const int64_t n_slots = (n + P - 1) / P;
+  for (int k = 0; k < kBtSlots - 1; ++k) issue(k);
+  int mine = state;  // the state at position t for t & 31 == lane
+  for (int64_t k = 0; k < n_slots; ++k) {
+    __syncwarp();  // slot k - 1's reads come before its refill
+    issue(k + kBtSlots - 1);
+    cp_async_wait<kBtSlots - 1>();
+    __syncwarp();  // and slot k's reads after its copies
+    const float* slot = ring + (k % kBtSlots) * P * S4;
+    const int q_end = (int)min((int64_t)P, n - k * P);
+    for (int q = 0; q < q_end; ++q) {
+      const int64_t t = n - 1 - (k * P + q);
+      if (lane == (int)(t & 31)) mine = state;
+      if ((t & 31) == 0 && t + lane < L) out[t + lane] = mine;
+      state = warp_first_argmax<NC, kStaged>(
+          slot + q * S4, tt + (int64_t)state * S4, S, lane);
     }
   }
-  entry_state[b] = state;
+  cp_async_wait<0>();
+  if (lane == 0) entry_state[b] = state;
+}
+
+// The backtrace's launch: trans^T staged where it fits beside one warp's
+// ring of P >= 2 positions; P about 4 KB of a row a slot (to 16
+// positions); R rows a block, enough that one block an SM holds B rows
+// where shared memory allows.
+struct BtPlan {
+  bool staged;
+  int nc, P, R;
+  size_t smem;
+  int64_t grid;
+};
+
+inline BtPlan bt_plan(int S, int64_t B, int sms) {
+  BtPlan pl;
+  const int64_t S4 = padded_states(S);
+  const int64_t room = kSmemLimit / (int64_t)sizeof(float);
+  const int64_t per_pos = (int64_t)kBtSlots * S4;  // a warp's ring a position
+  pl.staged = S * S4 + 2 * per_pos <= room;
+  pl.nc = bt_chunks_per_lane(S, pl.staged ? bt_chunk<true>()
+                                          : bt_chunk<false>());
+  const int64_t free = room - (pl.staged ? S * S4 : 0);
+  int64_t P = 1024 / S;
+  P = P < 1 ? 1 : (P > 16 ? 16 : P);
+  if (P > free / per_pos) P = free / per_pos;
+  pl.P = (int)P;
+  const int64_t fit = free / (P * per_pos);
+  int64_t R = (B + sms - 1) / sms;
+  R = R < 1 ? 1 : R;
+  R = R > kBtMaxWarps ? kBtMaxWarps : R;
+  pl.R = (int)(R > fit ? fit : R);
+  pl.smem = sizeof(float) * ((pl.staged ? (size_t)(S * S4) : 0) +
+                             (size_t)pl.R * P * per_pos);
+  pl.grid = (B + pl.R - 1) / pl.R;
+  return pl;
+}
+
+struct BtArgs {
+  const float* trans_t;
+  const float* rows;
+  int64_t row_stride;
+  const float* entry;
+  int64_t entry_stride;
+  const int32_t* end_state;
+  const int32_t* lens;
+  int32_t* path;
+  int32_t* entry_state;
+  int64_t B, L;
+  int S;
+};
+
+template <int NC, bool kStaged>
+int launch_backtrace(const BtArgs& a, const BtPlan& pl, cudaStream_t st) {
+  const auto kernel = viterbi_backtrace_kernel<NC, kStaged>;
+  cudaError_t err = allow_smem(kernel, pl.smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<(unsigned)pl.grid, pl.R * 32, pl.smem, st>>>(
+      a.trans_t, a.rows, a.row_stride, a.entry, a.entry_stride,
+      a.end_state, a.lens, a.path, a.entry_state, a.B, a.L, a.S, pl.P);
+  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------
@@ -1143,25 +1357,47 @@ int tehmm_chunk_chase(const void* ptrs, const void* end_state,
   return (int)cudaGetLastError();
 }
 
-int tehmm_viterbi_backtrace(const void* trans, const void* rows,
+// The value-row backtrace; trans_t is trans^T with its rows padded to
+// S4 = S rounded up to 4 floats, [S, S4] dense.
+int tehmm_viterbi_backtrace(const void* trans_t, const void* rows,
                             int64_t row_stride, const void* entry,
                             int64_t entry_stride, const void* end_state,
                             const void* lens, void* path, void* entry_state,
                             int64_t B, int64_t L, int S, void* stream) {
-  if (S < 1) return (int)cudaErrorInvalidValue;
-  const int fit = kSmemLimit / (int)(sizeof(float) * S);
-  const int n_s = fit < S ? fit : S;  // at least 1: row 0 is read from it
-  const size_t smem = sizeof(float) * (size_t)n_s * S;
-  cudaError_t err = allow_smem(viterbi_backtrace_kernel, smem);
+  if (S < 1 || S > 1024) return (int)cudaErrorInvalidValue;
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return (int)err;
-  const int64_t grid = (B + kBacktraceThreads - 1) / kBacktraceThreads;
-  viterbi_backtrace_kernel<<<(unsigned)grid, kBacktraceThreads, smem,
-                             (cudaStream_t)stream>>>(
-      (const float*)trans, (const float*)rows, row_stride,
-      (const float*)entry, entry_stride, (const int32_t*)end_state,
-      (const int32_t*)lens, (int32_t*)path, (int32_t*)entry_state, B, L,
-      S, n_s);
-  return (int)cudaGetLastError();
+  const BtPlan pl = bt_plan(S, B, sms);
+  const BtArgs a{(const float*)trans_t, (const float*)rows, row_stride,
+                 (const float*)entry,   entry_stride,
+                 (const int32_t*)end_state, (const int32_t*)lens,
+                 (int32_t*)path, (int32_t*)entry_state, B, L, S};
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (pl.staged) {
+    switch (pl.nc) {
+      case 1:
+        return launch_backtrace<1, true>(a, pl, st);
+      case 2:
+        return launch_backtrace<2, true>(a, pl, st);
+      case 4:
+        return launch_backtrace<4, true>(a, pl, st);
+      case 8:
+        return launch_backtrace<8, true>(a, pl, st);
+    }
+  } else {
+    switch (pl.nc) {
+      case 2:
+        return launch_backtrace<2, false>(a, pl, st);
+      case 4:
+        return launch_backtrace<4, false>(a, pl, st);
+      case 8:
+        return launch_backtrace<8, false>(a, pl, st);
+    }
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

@@ -751,16 +751,23 @@ def viterbi_backtrace(log_trans, rows, entry, end_state, lengths):
     Returns (path int32[B, L], entry_state int32[B]) — the state at
     position -1 — with the semantics of ``dp.viterbi_backtrace_chunk``.
 
-    The backtrace of ``_viterbi_backtrace_kernel_v4``
-    (pallas_kernels.py:2517) over value rows: ``dp.viterbi_streaming``'s
-    (K5's route, past K2's envelope) and the exact decoder's a chunk past
-    239 states; ``viterbi_fused`` chases pointers instead.  Bound: the
-    latency of a dependent chain of S-wide argmaxes over value rows read
-    from HBM/L2.  Design: one thread per row, trans in shared memory
-    (what fits of it: beyond S = 241 the last rows are read through the
-    read-only path, so the kernel takes every S <= 1024, the scan tile's
-    limit), strided batch rows so the fused caller passes slices without
-    copying.
+    The XLA backtrace of ``viterbi_pallas_v3`` (pallas_kernels.py:1475)
+    over K5's value rows (``dp.viterbi_streaming``, past K2's envelope),
+    and past 239 states the exact decoder's a chunk
+    (``dp.viterbi_backtrace_chunk``); ``viterbi_fused`` chases pointers
+    instead.  Bound: a chain of L dependent S-wide argmaxes a row, each
+    step's column of trans chosen by the step before (the bytes, the
+    value rows once, take far less).  Design (``csrc/viterbi.cu``): a
+    warp a row; each lane forms the plain version's float sums over its
+    states of trans^T's row (``log_trans.t()`` with rows padded to a
+    multiple of 4 floats, made here: one contiguous row a step), a
+    pairwise first-hit tree, then two ``redux.sync`` (the greatest value,
+    the lowest index holding it), so ties go to the lowest state as
+    ``torch.argmax``'s; the value rows read ahead through a cp.async
+    ring; trans^T staged in shared memory to 236 states (a lane's states
+    l + 32 k) and read from L2 beyond (its quads 4 l + 128 k + e, 16
+    bytes a load), so every S to 1024, the scan tile's limit.  Strided
+    batch rows, so callers pass slices without copying.
     """
     B, L, S = rows.shape
     dev = rows.device
@@ -784,8 +791,11 @@ def viterbi_backtrace(log_trans, rows, entry, end_state, lengths):
     if B == 0:
         return path, entry_state
     lib = load_library()
+    # trans^T, each row padded to a multiple of 4 floats (16-byte rows)
+    trans_t = torch.nn.functional.pad(log_trans.t(), (0, -S % 4),
+                                      value=float("-inf")).contiguous()
     rc = lib.tehmm_viterbi_backtrace(
-        log_trans.data_ptr(), rows.data_ptr(), row_stride,
+        trans_t.data_ptr(), rows.data_ptr(), row_stride,
         entry.data_ptr(), entry_stride, end_state.data_ptr(),
         lengths.data_ptr(), path.data_ptr(), entry_state.data_ptr(),
         B, L, S, _stream(dev),

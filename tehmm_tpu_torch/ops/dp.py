@@ -672,9 +672,9 @@ def viterbi_streaming(
     :1452): the value rows come from ``cuda_kernels.viterbi_values`` (K5;
     its plain version on CPU tensors), any S up to 1024.  The backtrace,
     an XLA scan outside the kernel in the JAX package, is
-    ``cuda_kernels.viterbi_backtrace`` (the K2 backtrace kernel on the
-    card, at every S the value kernel takes; its plain version, the
-    batched torch loop ``viterbi_backtrace_chunk``, on CPU tensors)."""
+    ``cuda_kernels.viterbi_backtrace`` (on the card a warp a row, at
+    every S the value kernel takes; its plain version, the batched torch
+    loop ``viterbi_backtrace_chunk``, on CPU tensors)."""
     from tehmm_tpu_torch.ops import cuda_kernels as ck
 
     B, L, S = obs.shape

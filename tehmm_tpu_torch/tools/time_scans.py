@@ -2,14 +2,18 @@
 
     python -m tehmm_tpu_torch.tools.time_scans [--configs S20,S64]
         [--batch B] [--sweeps 512,1024] [--sweep-rows 4]
-        [--sweep-length 4096] [--reps 5] [--device cuda|cpu]
+        [--sweep-length 4096] [--backtraces 128x4608x1024]
+        [--reps 5] [--device cuda|cpu]
 
 K5 (``viterbi_values``), K6a/K6b (``forward_prob``, ``backward_prob``),
 K7a/K7b (``forward_scaled``, ``backward_scaled``) and K8c
 (``viterbi_pointers``) on the obs tensor of each ``bench_engines.CONFIGS``
 shape (every row full length; ``--batch`` replaces the shape's rows, to
-reach the tile's other row choice).  Past 256 states all six run the
-cluster tile, and are timed again with the staged wide tile forced
+reach the tile's other row choice), and ``bt``, the value-row backtrace
+(``viterbi_backtrace``) on K5's rows as ``dp.viterbi_streaming`` passes
+them, with ``bt_us`` its microseconds a step; ``--backtraces`` times it
+alone at B x L x S points on K5's rows of a sticky random model.  Past
+256 states all six run the cluster tile, and are timed again with the staged wide tile forced
 (``K5_staged``, ``K6a_staged``, ``K6b_staged``, ``K7a_staged``,
 ``K7b_staged``, ``K8c_staged``: ``cuda_kernels.SCAN_CLUSTER_MAX_STATES``
 set to 0, then restored).  ``--sweeps`` times K3's, X1's and X2's carry
@@ -127,15 +131,26 @@ def time_config(config, batch, device, reps):
         "K7b": lambda: ck.backward_scaled(lt, obs, lens),
         "K8c": lambda: ck.viterbi_pointers(ls, lt, obs, lens),
     }
+    staged = tuple(calls) if S > 256 else ()
+    calls["bt"] = _backtrace_call(ls, lt, obs, lens)
     row = {"config": config, "S": S, "B": B, "L": L}
-    return _time(row, calls, device, reps, L,
-                 tuple(calls) if S > 256 else ())
+    _time(row, calls, device, reps, L, staged)
+    row["bt_us"] = row["bt"] * 1e3 / max(L - 1, 1)
+    return row
 
 
-def time_sweeps(S, B, L, device, reps, T=5, V=9):
-    """K3's, X1's and X2's carry modes (values) at S states on B full rows
-    of L, from a carry (a random row less its max) on a sticky random model
-    of T tracks of V symbols, its obs from random symbols."""
+def _backtrace_call(ls, lt, obs, lens):
+    """A call of the value-row backtrace as ``dp.viterbi_streaming`` makes
+    it, on K5's rows of ``obs`` from the last row's argmax."""
+    v, _dm = ck.viterbi_values(ls, lt, obs, lens)
+    end = torch.argmax(v[:, -1], dim=-1).to(torch.int32)
+    args = (lt, v[:, 1:], v[:, 0], end, lens - 1)
+    return lambda: ck.viterbi_backtrace(*args)
+
+
+def _sticky_inputs(S, B, L, device, T=5, V=9):
+    """(params, obs f32[B, L, S], rng) of a sticky random model of T
+    tracks of V symbols at S states, its obs from random symbols."""
     rng = np.random.RandomState(S)
     trans = rng.dirichlet(np.ones(S), size=S) * 0.05 + np.eye(S) * 0.95
     log_em = np.zeros((S, T, V))
@@ -145,8 +160,14 @@ def time_sweeps(S, B, L, device, reps, T=5, V=9):
                    device)
     sym = torch.from_numpy(
         rng.randint(0, V, size=(B, L, T)).astype(np.int32)).to(device)
-    obs = track_log_likelihoods(p.log_em, sym)
-    del sym
+    return p, track_log_likelihoods(p.log_em, sym), rng
+
+
+def time_sweeps(S, B, L, device, reps):
+    """K3's, X1's and X2's carry modes (values) at S states on B full rows
+    of L, from a carry (a random row less its max) on the sticky random
+    model of ``_sticky_inputs``."""
+    p, obs, rng = _sticky_inputs(S, B, L, device)
     init = torch.from_numpy(rng.randn(B, S).astype(np.float32)).to(device)
     init = init - init.amax(dim=-1, keepdim=True)
     lens = torch.full((B,), L, dtype=torch.int32, device=device)
@@ -161,6 +182,20 @@ def time_sweeps(S, B, L, device, reps, T=5, V=9):
     return _time(row, calls, device, reps, L, ("X1", "X2", "K3"))
 
 
+def time_backtrace(S, B, L, device, reps):
+    """The value-row backtrace as ``dp.viterbi_streaming`` calls it, on
+    K5's rows of B full rows of L at S states of the sticky random model
+    (3f's passes: 128 x 4,608 stitched, 64 x 15,625 exact, at S=1024)."""
+    p, obs, _rng = _sticky_inputs(S, B, L, device)
+    lens = torch.full((B,), L, dtype=torch.int32, device=device)
+    call = _backtrace_call(p.log_start, p.log_trans, obs, lens)
+    del obs
+    row = {"backtrace": S, "B": B, "L": L}
+    _time(row, {"bt": call}, device, reps, L, ())
+    row["bt_us"] = row["bt"] * 1e3 / max(L - 1, 1)
+    return row
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--configs", default="S20,S64,S128,S256")
@@ -170,6 +205,9 @@ def main(argv=None) -> int:
                          "modes")
     ap.add_argument("--sweep-rows", type=int, default=4)
     ap.add_argument("--sweep-length", type=int, default=4096)
+    ap.add_argument("--backtraces", default="",
+                    help="comma-separated BxLxS points of the value-row "
+                         "backtrace, e.g. 128x4608x1024")
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
@@ -181,6 +219,10 @@ def main(argv=None) -> int:
     for S in filter(None, args.sweeps.split(",")):
         print(json.dumps(time_sweeps(int(S), args.sweep_rows,
                                      args.sweep_length, device, args.reps)),
+              flush=True)
+    for point in filter(None, args.backtraces.split(",")):
+        B, L, S = (int(x) for x in point.split("x"))
+        print(json.dumps(time_backtrace(S, B, L, device, args.reps)),
               flush=True)
     return 0
 

@@ -23,6 +23,10 @@ CASES = [
     (10, 1, [1, 1], 0.0),
     (3, 17, [17, 9, 2], 0.5),                # LOG_ZERO transitions
     (10, 17, [17, 9, 2], 0.5),
+    # past one state a lane of the card's backtrace (lanes own l + 32 k),
+    # and past its shared-memory route (quads 4 l + 128 k + e from L2)
+    (40, 13, [13, 6, 1, 0], 0.5),
+    (257, 7, [7, 3, 1, 0], 0.5),
 ]
 
 

@@ -64,10 +64,11 @@ def _assert_stats(got, want):
 
 
 def _obs_case(rng, make_hmm, S, L, lengths, T=2, V=4, zero_frac=0.0,
-              blank_rows=()):
+              blank_rows=(), ties=False):
     """(log_start, log_trans, obs f32[B, L, S], int32 lengths) as
     tests/test_pallas.py makes them; ``blank_rows`` get an all-zero obs
-    (its zero-length row)."""
+    (its zero-length row); ``ties``: uniform transitions and a constant
+    obs, so that past position 0 every argmax is a tie of all S states."""
     ls, lt, lem = make_hmm(S, T, V, zero_trans_frac=zero_frac)
     obs = np.stack([
         oracle.obs_log_likelihoods(lem, rng.randint(1, V, size=(L, T)))
@@ -75,6 +76,9 @@ def _obs_case(rng, make_hmm, S, L, lengths, T=2, V=4, zero_frac=0.0,
     ]).astype(np.float32)
     for b in blank_rows:
         obs[b] = 0.0
+    if ties:
+        lt = np.full((S, S), -np.log(S))
+        obs[:] = -1.5
     return (np.asarray(ls, np.float32), np.asarray(lt, np.float32), obs,
             np.asarray(lengths, np.int32))
 
@@ -163,6 +167,8 @@ VITERBI_CASES = {
     "zero_trans": dict(S=5, L=40, lengths=[40, 13], zero_frac=0.3),
     # past 256 states: the cluster tile's S on the card
     "S260": dict(S=260, L=6, lengths=[6, 3, 1, 0], T=1),
+    # every argmax a tie: the lowest state wins in each Viterbi
+    "ties": dict(S=70, L=9, lengths=[9, 4, 1], T=1, ties=True),
 }
 
 
@@ -471,7 +477,8 @@ def test_profile_estep_cuda_log_rows(tiny_config, capsys):
 @pytest.mark.parametrize("batch", [0, 3])
 def test_time_scans_rows(tiny_config, capsys, batch):
     """``tools.time_scans``: the device line, then one row a shape with
-    every tile kernel's time (the plain versions here)."""
+    every tile kernel's time and the value-row backtrace's (the plain
+    versions here)."""
     assert time_scans.main(["--configs", tiny_config, "--device", "cpu",
                             "--reps", "1", "--batch", str(batch)]) == 0
     out = capsys.readouterr().out
@@ -481,7 +488,23 @@ def test_time_scans_rows(tiny_config, capsys, batch):
     assert (row["config"], row["S"], row["B"], row["L"]) == (
         tiny_config, S, batch or B, L)
     assert all(row[k] > 0 for k in ("K5", "K6a", "K6b", "K7a", "K7b",
-                                    "K8c"))
+                                    "K8c", "bt"))
+    assert row["bt_us"] == pytest.approx(row["bt"] * 1e3 / (L - 1))
+
+
+def test_time_scans_backtrace_rows(capsys):
+    """``tools.time_scans --backtraces``: one row a B x L x S point with
+    the value-row backtrace's time and its us a step (the plain version
+    here)."""
+    assert time_scans.main(["--configs", "", "--backtraces", "3x6x5,1x2x7",
+                            "--device", "cpu", "--reps", "1"]) == 0
+    out = capsys.readouterr().out
+    rows = _rows(out)
+    assert [(r["backtrace"], r["B"], r["L"]) for r in rows] == [
+        (5, 3, 6), (7, 1, 2)]
+    for r in rows:
+        assert r["bt"] > 0
+        assert r["bt_us"] == pytest.approx(r["bt"] * 1e3 / (r["L"] - 1))
 
 
 def test_tools_refuse_cuda_without_a_card():

@@ -138,10 +138,11 @@ def test_batches_within_and_beyond_one_wave(device, rng, S, rows):
         lt, obs_p[few].contiguous(), lens[few]))
 
 
-@pytest.mark.parametrize("S", [241, 242, 256])
+@pytest.mark.parametrize("S", [235, 236, 237, 241, 242, 256])
 def test_backtrace_beyond_shared_memory(device, rng, S):
-    """From S = 242 the backtrace kernel reads the last rows of log_trans
-    from global memory; its paths stay the plain version's."""
+    """From S = 237 the backtrace kernel reads trans^T's rows from L2 in
+    place of shared memory; its paths stay the plain version's, on K5's
+    value rows as ``dp.viterbi_streaming`` passes them."""
     ls, lt, obs, _p, _m, lens = _obs_inputs(rng, device, S, 37,
                                             zero_frac=0.3, rows=8)
     v, _dm = ck.viterbi_values(ls, lt, obs, lens)
