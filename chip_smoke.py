@@ -107,18 +107,26 @@ Phases (any failure raises, and the run exits non-zero):
    for bit the staged tile's, forced
    (``ck.SCAN_CLUSTER_MAX_STATES`` = 0), each tile timed (the staged
    tile's rows under the old names, the cluster tile's with the staged
-   time beside).  K6a and K6b also at 3f's train shape (S=1024, one row
+   time beside).  To 256 states K7a/K8a and K7b/K8b run their own kernels
+   (``ck.log_scan_route``: the lanes step to 32 states, the rows kernels
+   beyond; ``fwd_scaled_lanes``, ``fwd_scaled_rows``, ...): every output
+   bit for bit the block tile's, forced (``ck.LOG_SCAN_MAX_STATES`` = 0),
+   its time beside (``tile_ms``; the block tile's rows under the old
+   names).  K6a
+   and K6b also at 3f's train shape (S=1024, one row
    of 20,000: ``@3f_fit``), both tiles, bit for bit, within 2e-6 of plain
    in float64.  K9
    (``maxplus_sweeps``) at Sp=256, 512, 1024 x Bg=128 on the JAX tool's
    draw: both layouts (the blocks layout at 8, 16 and 32 rows a block)
    bit-equal to plain, timed.  The carried sweeps past their one-warp
-   kernels, K3, X1 and X2 on the tile's carry modes at S=257, 512 and
-   1024 (4 rows of 4096, ragged): K3 bit-equal, X1/X2 at the F3 limit of
-   plain in float64, X1's two modes one carry, a sweep cut into three
-   chunks bit-equal to one; K3's, X1's and X2's carry modes run the
-   cluster tile, every output (both of K3's and X1's modes) bit for bit
-   the staged tile's, forced, and both timed.
+   kernels, K3, X1 and X2 on the tile's carry modes at S=240, 256, 257,
+   512 and 1024 (4 rows of 4096, ragged): K3 bit-equal, X1/X2 at the F3
+   limit of plain in float64, X1's two modes one carry, a sweep cut into
+   three chunks bit-equal to one; at 240 and 256 X1's and X2's carry
+   modes run the rows kernels, every output (both of X1's modes) bit for
+   bit the block tile's, forced, and both timed; past 256 K3's, X1's and
+   X2's run the cluster tile, every output (both of K3's and X1's modes)
+   bit for bit the staged tile's, forced, and both timed.
 2e. The engine-comparison path through its tools' entry points, at the
    full width of all four ``bench_engines`` shapes (S=20, 64, 128, 256):
    ``tools.bench_engines`` with the E-step engines plain, cuda (K1),
@@ -369,6 +377,12 @@ SOURCES = {
     "bwd_scaled_cluster": "tehmm_tpu_torch/csrc/scans.cu",
     "fwd_chunk_cluster": "tehmm_tpu_torch/csrc/scans.cu",
     "bwd_chunk_cluster": "tehmm_tpu_torch/csrc/scans.cu",
+    "fwd_scaled_lanes": "tehmm_tpu_torch/csrc/scans.cu",
+    "fwd_scaled_rows": "tehmm_tpu_torch/csrc/scans.cu",
+    "bwd_scaled_lanes": "tehmm_tpu_torch/csrc/scans.cu",
+    "bwd_scaled_rows": "tehmm_tpu_torch/csrc/scans.cu",
+    "fwd_chunk_rows": "tehmm_tpu_torch/csrc/scans.cu",
+    "bwd_chunk_rows": "tehmm_tpu_torch/csrc/scans.cu",
     "viterbi_values_cluster": "tehmm_tpu_torch/csrc/streaming.cu",
     "viterbi_chunk_cluster": "tehmm_tpu_torch/csrc/streaming.cu",
     "viterbi_ptrs_cluster": "tehmm_tpu_torch/csrc/scans.cu",
@@ -435,6 +449,13 @@ REPLACES = {
     "bwd_scaled_cluster": "tehmm_tpu/ops/pallas_kernels.py:1012",
     "fwd_chunk_cluster": "tehmm_tpu/ops/dp.py:378",
     "bwd_chunk_cluster": "tehmm_tpu/ops/dp.py:507",
+    # the same four to 256 states on the lanes step and the rows kernels
+    "fwd_scaled_lanes": "tehmm_tpu/ops/pallas_kernels.py:493",
+    "fwd_scaled_rows": "tehmm_tpu/ops/pallas_kernels.py:493",
+    "bwd_scaled_lanes": "tehmm_tpu/ops/pallas_kernels.py:1012",
+    "bwd_scaled_rows": "tehmm_tpu/ops/pallas_kernels.py:1012",
+    "fwd_chunk_rows": "tehmm_tpu/ops/dp.py:378",
+    "bwd_chunk_rows": "tehmm_tpu/ops/dp.py:507",
     # K5, K3's carry mode and K8c past 256 states on the cluster tile
     "viterbi_values_cluster": "tehmm_tpu/ops/pallas_kernels.py:1374",
     "viterbi_chunk_cluster": "tehmm_tpu/ops/pallas_kernels.py:1284",
@@ -479,6 +500,11 @@ SEGMENT_KERNELS = ("em_fwd", "em_bwd_stats", "viterbi_fwd_lanes",
 STREAMING_KERNELS = ("viterbi_values", "fwd_prob", "bwd_prob",
                      "fwd_scaled", "bwd_scaled", "viterbi_ptrs",
                      "pointer_chase")
+# to 256 states K7a/K7b and X1's and X2's carry modes run their own
+# kernels (the lanes step, the rows kernels: ck.log_scan_route), each under
+# its own counter (ck.scan_counter), the block tile forced only to compare
+# and time it
+LOG_SCANS = ("fwd_scaled", "bwd_scaled", "fwd_chunk_tile", "bwd_chunk_tile")
 # past 256 states K7a/K7b, X1's and X2's carry modes, K5, K3's carry mode,
 # K8c, K6a and K6b run the cluster tile in their place (the staged tile
 # forced only to compare and time it)
@@ -503,8 +529,10 @@ WIDE_ENGINES = ("plain,cuda_v3,cuda_log", "plain,streaming,pointers",
 # K9: phase 2 at Sp x MAXPLUS_BG, bit-equal to plain; 2m runs the tool at
 # each Sp
 MAXPLUS_SP, MAXPLUS_BG, MAXPLUS_BLKS = (256, 512, 1024), 128, (8, 16, 32)
-# the carried sweeps on the tile's carry modes, X_B rows of X_L
-WIDE_SWEEP_STATES = (257, 512, 1024)
+# the carried sweeps past their one-warp kernels, X_B rows of X_L: K3's
+# carry mode on the block tile and X1's and X2's on the rows kernels at 240
+# and 256 states, all three on the cluster tile beyond
+WIDE_SWEEP_STATES = (240, 256, 257, 512, 1024)
 SWEEP_CUTS = (0, 1000, 2500, X_L)    # a sweep cut into three chunks
 # 3f's paths and the kernels each must run
 ENVELOPE_KERNELS = {"fit": ("fwd_prob_cluster", "bwd_prob_cluster"),
@@ -683,7 +711,8 @@ def _bound(name, shape, valid, G=0, weighted=False, n_ck=0) -> dict:
         ops = 2 * S * S + 4 * S
     elif base in ("fwd_chunk", "bwd_chunk", "fwd_chunk_tile",
                   "bwd_chunk_tile", "fwd_chunk_cluster",
-                  "bwd_chunk_cluster"):   # log-space step
+                  "bwd_chunk_cluster", "fwd_chunk_rows",
+                  "bwd_chunk_rows"):   # log-space step
         nbytes = 2 * rows + (2 * B * S + 2 * B + S * S) * f
         ops = 2 * S * S + 4 * S
     elif base in ("viterbi_values", "viterbi_values_cluster", "fwd_prob",
@@ -695,11 +724,13 @@ def _bound(name, shape, valid, G=0, weighted=False, n_ck=0) -> dict:
         # two maxes and rescales a step
         nbytes = 2 * rows + (B + S * S) * f
         ops = 2 * S * S + 7 * S
-    elif base in ("fwd_scaled", "fwd_scaled_cluster"):
+    elif base in ("fwd_scaled", "fwd_scaled_cluster", "fwd_scaled_lanes",
+                  "fwd_scaled_rows"):
         # exp, product, log, obs, max, sub
         nbytes = 2 * rows + (B * L + B + S * S + S) * f
         ops = 2 * S * S + 6 * S
-    elif base in ("bwd_scaled", "bwd_scaled_cluster"):
+    elif base in ("bwd_scaled", "bwd_scaled_cluster", "bwd_scaled_lanes",
+                  "bwd_scaled_rows"):
         # obs, max, sub, exp, product, log, max, sub, dm
         nbytes = 2 * rows + (B * L + B + S * S) * f
         ops = 2 * S * S + 8 * S
@@ -2089,14 +2120,31 @@ def _scan_rows(out, name, suffix, S_, got, call, plain, err, shape, valid):
     whose outputs ``got`` (a tuple) came from ``call``: past 256 states
     the cluster tile ran (``CLUSTER_OF[name]``, with the staged tile's
     time beside it), and the staged tile, forced, must give the same bits;
-    ``name`` is then the staged tile's row."""
+    ``name`` is then the staged tile's row.  To 256 states the log-space
+    scans and X1's and X2's carry modes ran their own kernels
+    (``ck.scan_counter``: ``fwd_scaled_lanes``, ``fwd_scaled_rows``, ...,
+    with the block tile's time beside, ``tile_ms``), and the block tile,
+    forced, must give the same bits; ``name`` is then the block tile's
+    row."""
     import torch
 
     from tehmm_tpu_torch.ops import cuda_kernels as ck
-    from tehmm_tpu_torch.tools.time_scans import staged_tile
+    from tehmm_tpu_torch.tools.time_scans import block_tile, staged_tile
 
     plain_ms = _median_ms(plain, 3)
     ms = _median_ms(call, 5)
+    if name in LOG_SCANS and S_ <= 256:
+        with block_tile():
+            tile = call()
+            tile_ms = _median_ms(call, 5)
+        assert all(torch.equal(a, b) for a, b in zip(got, tile)), \
+            f"{name}: the {ck.log_scan_route(S_)} kernel != the block " \
+            f"tile at {shape}"
+        own = ck.scan_counter(name, S_)
+        out[own + suffix] = dict(
+            max_abs_err=err, ms=ms, tile_ms=tile_ms, plain_ms=plain_ms,
+            **_bound(own, shape, valid))
+        ms = tile_ms
     if ck.scan_route(S_) == "cluster":
         with staged_tile():
             staged = call()
@@ -2253,7 +2301,8 @@ def phase_streaming_kernels(device, rng, seed) -> dict:
               f"bit-identical" + (
                   "; the cluster tile's outputs bit for bit the staged "
                   "tile's (forced)" if ck.scan_route(S_) == "cluster"
-                  else ""), flush=True)
+                  else f"; the {ck.log_scan_route(S_)} kernels' outputs bit "
+                  f"for bit the block tile's (forced)"), flush=True)
 
         # K6: within tolerance, repeats bit-identical
         obs_p, o_m = dp.scaled_obs_prob(obs)
@@ -2313,6 +2362,8 @@ def phase_streaming_kernels(device, rng, seed) -> dict:
     for name, r in out.items():
         staged = f"  staged {r['staged_ms']:9.3f} ms" \
             if "staged_ms" in r else ""
+        if "tile_ms" in r:
+            staged = f"  block tile {r['tile_ms']:9.3f} ms"
         print(f"[streaming] {name:22s} max_abs_err {r['max_abs_err']:.3g}  "
               f"kernel {r['ms']:9.3f} ms{staged}  plain "
               f"{r['plain_ms']:9.3f} ms  bound {r['bound_ms']:.3f} ms "
@@ -2522,14 +2573,16 @@ def phase_wide_sweeps(device, rng) -> dict:
     random) of a sticky random model at T, V.  K3 bit-equal to plain; X1
     and X2 against plain in float64 at the F3 limit; X1's two modes end
     in one carry; each sweep cut at SWEEP_CUTS gives the bits of one
-    chunk.  Results under ``name@S<S>``."""
+    chunk; to 256 states X1's and X2's every output (both of X1's modes)
+    bit for bit the block tile's, forced, past 256 K3's, X1's and X2's
+    the staged tile's.  Results under ``name@S<S>``."""
     import torch
 
     from tehmm_tpu_torch.models.emission import track_log_likelihoods
     from tehmm_tpu_torch.models.params import from_numpy
     from tehmm_tpu_torch.ops import cuda_kernels as ck
     from tehmm_tpu_torch.ops import dp
-    from tehmm_tpu_torch.tools.time_scans import staged_tile
+    from tehmm_tpu_torch.tools.time_scans import block_tile, staged_tile
 
     out = {}
     f64 = torch.float64
@@ -2601,6 +2654,12 @@ def phase_wide_sweeps(device, rng) -> dict:
                 assert all(torch.equal(a, b) for a, b in zip(
                     (final, dm_sum), ck.forward_final(lt, obs, init, lens))
                 ), f"X1 carry-only: the cluster tile != staged S={S_}"
+        elif ck.log_scan_route(S_) == "rows":
+            with block_tile():
+                assert all(torch.equal(a, b) for a, b in zip(
+                    (final, dm_sum), ck.forward_final(lt, obs, init, lens))
+                ), f"X1 carry-only: the rows kernel != the block tile " \
+                   f"S={S_}"
         _scan_rows(out, "viterbi_chunk_tile", suffix, S_, (v,),
                    lambda: (ck.viterbi_chunk_values(lt, obs, init, lens),),
                    lambda: dp.viterbi_chunk_values(lt, obs, init, lens),
@@ -2620,15 +2679,23 @@ def phase_wide_sweeps(device, rng) -> dict:
               f" of plain in float64 [worst error/limit]: " + ", ".join(
                   f"{n} {err[n]:.3g} [{ratio[n]:.3f}]" for n in names)
               + f"; X1's two modes one carry; cut at {SWEEP_CUTS[1:-1]} "
-              f"== one chunk, bit for bit; K3's, X1's and X2's every "
-              f"output on the cluster tile bit for bit the staged tile's "
-              f"(forced)", flush=True)
+              f"== one chunk, bit for bit; " + (
+                  "K3's, X1's and X2's every output on the cluster tile bit "
+                  "for bit the staged tile's (forced)"
+                  if ck.scan_route(S_) == "cluster" else
+                  "X1's and X2's every output on the rows kernel bit for "
+                  "bit the block tile's (forced)"), flush=True)
         for name in ("viterbi_chunk_tile", "fwd_chunk_tile",
                      "bwd_chunk_tile", "viterbi_chunk_cluster",
-                     "fwd_chunk_cluster", "bwd_chunk_cluster"):
+                     "fwd_chunk_cluster", "bwd_chunk_cluster",
+                     "fwd_chunk_rows", "bwd_chunk_rows"):
+            if name + suffix not in out:
+                continue
             r = out[name + suffix]
             staged = f"  staged {r['staged_ms']:9.3f} ms" \
                 if "staged_ms" in r else ""
+            if "tile_ms" in r:
+                staged = f"  block tile {r['tile_ms']:9.3f} ms"
             print(f"[sweeps] {name + suffix:26s} kernel {r['ms']:9.3f} ms "
                   f"{staged} plain {r['plain_ms']:9.3f} ms  bound "
                   f"{r['bound_ms']:.3f} ms ({r['bound_by']}); us a step "
@@ -2640,12 +2707,15 @@ def phase_wide_sweeps(device, rng) -> dict:
 
 def _engine_kernels(config):
     """The kernels 2e must launch at ``config``: the streaming ones and
-    the backtrace, K5, K7a/K7b and K8c on the cluster tile past 256
-    states."""
+    the backtrace, each scan under the counter of its route at the
+    config's S (``ck.scan_counter``: K5, K6a/K6b, K7a/K7b and K8c on the
+    cluster tile past 256 states, K7a/K7b on the lanes step or the rows
+    kernels to 256)."""
+    from tehmm_tpu_torch.ops import cuda_kernels as ck
     from tehmm_tpu_torch.tools import bench_engines
 
-    past = bench_engines.CONFIGS[config][0] > 256
-    return tuple(CLUSTER_OF[k] if past and k in CLUSTER_OF else k
+    S_ = bench_engines.CONFIGS[config][0]
+    return tuple(ck.scan_counter(k, S_) if k in CLUSTER_OF else k
                  for k in STREAMING_KERNELS + ("viterbi_backtrace",))
 
 
@@ -2711,7 +2781,8 @@ def phase_engines(seed) -> dict:
             torch.cuda.empty_cache()
         launches[config] = counts
     for engine, kernels in (("cuda_v3", ("fwd_prob", "bwd_prob")),
-                            ("cuda_log", ("fwd_scaled", "bwd_scaled"))):
+                            ("cuda_log", ("fwd_scaled_rows",
+                                          "bwd_scaled_rows"))):
         ck.reset_launch_counts()
         text = _run_cli(profile_estep, [
             "S64", "--iters", str(ENGINE_ITERS), "--seed", str(seed),
@@ -4774,7 +4845,7 @@ def _run(args, device, smi, parent) -> int:
     sweep_rows = phase_wide_sweeps(device,
                                    np.random.RandomState(args.seed + 4))
     kernels.update({k: r for k, r in sweep_rows.items()
-                    if k.endswith(f"@S{ENV_STATES}")})
+                    if k.endswith((f"@S{ENV_STATES}", "@S240", "@S256"))})
     del sweep_rows
     torch.cuda.empty_cache()
     _phase_done("2", t_run)
@@ -4890,6 +4961,10 @@ def _run(args, device, smi, parent) -> int:
               if engine_launches[config][k]}
     assert not staged, \
         f"2e launched the staged tile's K5, K6, K7a/K7b or K8c: {staged}"
+    block = {(config, k): engine_launches[config][k]
+             for config in ENGINE_CONFIGS for k in ("fwd_scaled", "bwd_scaled")
+             if engine_launches[config][k]}
+    assert not block, f"2e launched the block tile's K7a/K7b: {block}"
     for Sp, counts in maxplus_launches.items():
         print(f"[launches] K9 tool (2m) at Sp={Sp}: "
               f"{ {k: n for k, n in counts.items() if n} }", flush=True)
@@ -4925,7 +5000,9 @@ def _run(args, device, smi, parent) -> int:
                   "viterbi_chunk_cluster": ("exact",),
                   "fwd_chunk_tile": ("pd", "score"), "bwd_chunk_tile": ("pd",),
                   "fwd_chunk_cluster": ("pd", "score"),
-                  "bwd_chunk_cluster": ("pd",)}
+                  "bwd_chunk_cluster": ("pd",),
+                  "fwd_chunk_rows": ("pd", "score"),
+                  "bwd_chunk_rows": ("pd",)}
     for name in kernels:
         base, _, config = name.partition("@")
         if "+" in name:
@@ -4958,9 +5035,11 @@ def _run(args, device, smi, parent) -> int:
             # K2's shared forward, forced at S=10: phase 3's count, 0
             launches[name] = decode_launches[base]
         elif config or base in STREAMING_KERNELS \
-                or base == "viterbi_backtrace":
+                or base in ("viterbi_backtrace", "fwd_scaled_lanes",
+                            "bwd_scaled_lanes"):
             # 2e's launches (the backtrace: off the stitched decode, on
-            # 2e's streaming route), and at ENV_STATES also 3f's (K5 and
+            # 2e's streaming route; K7a/K7b at S20 on the lanes step), and
+            # at ENV_STATES also 3f's (K5 and
             # the backtrace on its Viterbi paths, K6 on its train, K7 on
             # its max-posterior)
             launches[name] = \

@@ -41,6 +41,18 @@ constexpr int kMaxSpt = 4;             // states per thread: S <= 1024
 constexpr int kWideBlk = 32;           // matrix rows a staged block
 constexpr float kProbFloor = 1e-37f;
 
+// The kernel a scan's entry launches, its last int (``tile``): the block
+// tile (its staged wide form past 256 states) or the cluster tile, for all
+// nine scans over obs; the lanes step or the rows kernels (scan_rows.cuh)
+// for the log-space scans and their carry modes to 256 states.
+// ops/cuda_kernels.py ``_TILE_FLAGS`` holds the same numbers by route.
+enum ScanTile : int {
+  kTileBlock = 0,
+  kTileCluster = 1,
+  kTileLanes = 2,
+  kTileRows = 3,
+};
+
 // Sum-product in float32: K6's scaled probabilities, and the products of
 // the log-space scans (scans.cu) on exp(state vector).
 struct ProbOps {

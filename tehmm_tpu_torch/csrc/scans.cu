@@ -22,6 +22,14 @@
 //                        _backward_kernel (:187) under
 //                        backward_scaled_pallas (:222): K7b's function is
 //                        K8b's without the normalizers
+//   fwd_scaled_lanes_kernel, bwd_scaled_lanes_kernel
+//                        the same two functions, carry modes included, to
+//                        32 states, a warp a row (scan_rows.cuh), with the
+//                        same bits
+//   fwd_scaled_rows_kernel, bwd_scaled_rows_kernel
+//                        the same two functions, carry modes included,
+//                        from 33 to 256 states (scan_rows.cuh), with the
+//                        same bits
 //   fwd_scaled_cluster_kernel, bwd_scaled_cluster_kernel
 //                        the same two functions, carry modes included,
 //                        from 257 to 1024 states on the cluster tile
@@ -54,13 +62,21 @@
 // Viterbi, the identity pointer, so paths replicate the last valid state.
 //
 // What bounds them on an H100: as streaming.cu's scans, the chain of L
-// dependent steps; each step adds one expf and one logf per cell (the
-// backward: a second max reduction) to K6's S-term product; past 256
-// states, on the staged tile, the re-read of the matrix from L2 every
-// step, and on the cluster tile the product over a block's slice (R S^2
-// / C FMAs, or add-and-compares, a block a step) and two exchanges across
-// the cluster a step (the backward: three).  The chase is one dependent
-// pointer load per position.
+// dependent steps; each step R S^2 FMAs over the R rows a block holds,
+// plus one expf and one logf per cell (the backward: a second max
+// reduction); the bytes of obs in and of the rows and normalizers out.
+// The forward and backward to 256 states: the block tile loaded a matrix
+// element and a state-vector element from shared memory for every FMA
+// and took three (five) block-wide barriers a step; their own kernels
+// (scan_rows.cuh) load a float4 of the matrix (or hold it in registers)
+// for 4 R FMAs, keep the first 32 to 128 matrix rows in registers and
+// the rest in shared memory, and take two (three) barriers of a block of
+// R rows, or none in a warp a row to 32 states.  Past 256 states, on the
+// staged tile, the re-read of the matrix from L2 every step, and on the
+// cluster tile the product over a block's slice (R S^2 / C FMAs, or
+// add-and-compares, a block a step) and two exchanges across the cluster
+// a step (the backward: three).  The chase is one dependent pointer load
+// per position.
 //
 // Design: scan_tile.cuh's tile (a block of 256 threads owns a tile of rows
 // for the whole scan, one thread per state to S = 256 and 2 or 4 beyond,
@@ -76,10 +92,13 @@
 // each row's carry, every position a product step) and X2 (K7b, whose
 // step at the chunk's last position takes exp of the carry and whose
 // x_out is renormalized after position 0) run the same loops, so a sweep
-// cut into chunks executes the same instructions as one chunk.  From 257
-// to 1024 states the forward and backward (and their carry modes) and the
-// Viterbi run the cluster tile instead (scan_cluster.cuh, which says why
-// and how): the entries take the tile the caller names, ``cluster``.
+// cut into chunks executes the same instructions as one chunk.  To 256
+// states the forward and backward (and their carry modes) run their own
+// kernels instead (scan_rows.cuh, which says why and how: the lanes step
+// to 32 states, the rows kernels beyond); from 257 to 1024 states they
+// and the Viterbi run the cluster tile (scan_cluster.cuh): the entries
+// take the kernel the caller names, ``tile`` (launch_fwd) or
+// ``cluster``.
 //
 // Numerics: each product is summed in K6's fixed order, four interleaved
 // FMA chains added pairwise, that depends on S alone (no atomics, no
@@ -95,6 +114,7 @@
 #include <type_traits>
 
 #include "scan_cluster.cuh"
+#include "scan_rows.cuh"
 
 namespace {
 
@@ -403,6 +423,368 @@ __global__ void __launch_bounds__(kThreads)
             x_out[(tl.b0 + k) * S + tl.jq(q)] =
                 x[q][k] - tl.s_m[tl.row + k];
     }
+  }
+}
+
+// K7a/K8a to 32 states, a warp a row (scan_rows.cuh, lanes): the function
+// and the bits of fwd_scaled_kernel, carry mode included.  Lane j holds
+// column j of exp(log_trans), a_j and e_j = expf(a_j) (lanes past S: e =
+// 0); a step is lanes_product, log, + obs, the exact row max and a - m.
+template <int NS>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+    fwd_scaled_lanes_kernel(const float* __restrict__ obs,
+                            const int32_t* __restrict__ lens,
+                            const float* __restrict__ log_start,
+                            const float* __restrict__ carry_in,
+                            const float* __restrict__ trans_p,
+                            float* __restrict__ alpha_out,
+                            float* __restrict__ dm_out,
+                            float* __restrict__ carry_out, int64_t B,
+                            int64_t L, int S) {
+  extern __shared__ __align__(16) float smem[];  // a ring a warp
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int64_t b = (int64_t)blockIdx.x * kWarpsPerBlock + warp;
+  if (b >= B) return;
+  const bool mine = lane < S;
+  const bool tail = (S & 3) != 0;
+  const bool carried = carry_in != nullptr;
+  float* ring = smem + warp * (2 * kHalf * 32) + lane;
+  float mc[NS];
+#pragma unroll
+  for (int i = 0; i < NS; ++i)
+    mc[i] = mine && i < S ? trans_p[(int64_t)i * S + lane] : 0.0f;
+  float a = carried && mine ? carry_in[b * S + lane] : 0.0f;
+  float e = mine ? expf(a) : 0.0f;
+  const float start = mine && !carried ? log_start[lane] : 0.0f;
+  const int64_t n = max((int64_t)0, min((int64_t)lens[b], L));
+  const float* ob = obs + b * L * S + lane;
+  // the next stores of each output, walked by pointer
+  float* hb = alpha_out != nullptr ? alpha_out + b * L * S + lane : nullptr;
+  float* db = dm_out != nullptr ? dm_out + b * L : nullptr;
+  stage_column(ring, ob, 0, n, S, mine);
+  stage_column(ring, ob, kHalf, n, S, mine);
+  for (int64_t t0 = 0; t0 < n; t0 += kHalf) {
+    cp_async_wait<1>();  // this half is in; the next may be in flight
+    const float* src = ring + ((t0 / kHalf) & 1) * kHalf * 32;
+    const int steps = (int)min((int64_t)kHalf, n - t0);
+    for (int k = 0; k < steps; ++k) {
+      const float o = src[k * 32];
+      float u;
+      if (!carried && t0 + k == 0) {
+        u = start + o;
+      } else {
+        const float s = lanes_product<NS>(e, mc, tail);
+        u = (s > 0.0f ? logf(s) : kLogZero) + o;
+      }
+      const float m = lanes_max<NS>(u, mine);
+      a = u - m;
+      e = mine ? expf(a) : 0.0f;
+      if (hb != nullptr) {
+        if (mine) *hb = a;
+        hb += S;
+      }
+      if (db != nullptr) {
+        if (lane == 0) *db = m;
+        ++db;
+      }
+    }
+    stage_column(ring, ob, t0 + 2 * kHalf, n, S, mine);
+  }
+  cp_async_wait<0>();
+  int64_t t = n;
+  if (!carried && n == 0) {
+    // position 0 of a zero-length row: every u is LOG_ZERO, so a = 0 and
+    // dm = LOG_ZERO, as the reference renormalizes it
+    a = 0.0f;
+    if (hb != nullptr) {
+      if (mine) *hb = a;
+      hb += S;
+    }
+    if (db != nullptr) {
+      if (lane == 0) *db = kLogZero;
+      ++db;
+    }
+    t = 1;
+  }
+  // past the row's length: the carried row, zero normalizers
+  for (; t < L; ++t) {
+    if (hb != nullptr) {
+      if (mine) *hb = a;
+      hb += S;
+    }
+    if (db != nullptr) {
+      if (lane == 0) *db = 0.0f;
+      ++db;
+    }
+  }
+  if (carry_out != nullptr && mine) carry_out[b * S + lane] = a;
+}
+
+// K7b/K8b to 32 states, a warp a row: the function and the bits of
+// bwd_scaled_kernel, carry mode included.  Lane j holds column j of
+// trans_t (row j of exp(log_trans)).  From position n - 1 of a row of
+// length n up, beta is that of the boundary step (X2's carry mode) or 0,
+// with normalizer 0; below, the chain: x = obs[t + 1] + beta[t + 1], its
+// exact max xm, e = expf(x - xm), lanes_product, log, its max nm, beta[t]
+// = s - nm and dm[t] = xm + nm.
+template <int NS>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+    bwd_scaled_lanes_kernel(const float* __restrict__ obs,
+                            const int32_t* __restrict__ lens,
+                            const float* __restrict__ x_carry,
+                            const int32_t* __restrict__ continuing,
+                            const float* __restrict__ trans_t,
+                            float* __restrict__ beta_out,
+                            float* __restrict__ dm_out,
+                            float* __restrict__ x_out, int64_t B, int64_t L,
+                            int S) {
+  extern __shared__ __align__(16) float smem[];  // a ring a warp
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int64_t b = (int64_t)blockIdx.x * kWarpsPerBlock + warp;
+  if (b >= B) return;
+  const bool mine = lane < S;
+  const bool tail = (S & 3) != 0;
+  float* ring = smem + warp * (2 * kHalf * 32) + lane;
+  float mc[NS];
+#pragma unroll
+  for (int i = 0; i < NS; ++i)
+    mc[i] = mine && i < S ? trans_t[(int64_t)i * S + lane] : 0.0f;
+  const int64_t n = max((int64_t)0, min((int64_t)lens[b], L));
+  const float* ob = obs + b * L * S + lane;
+  float bv = 0.0f;
+  if (x_carry != nullptr) {
+    // the boundary step at position L - 1: exp(x_carry) through the
+    // product, beta where the row continues
+    const float e = mine ? expf(x_carry[b * S + lane]) : 0.0f;
+    float s = lanes_product<NS>(e, mc, tail);
+    s = s > 0.0f ? logf(s) : kLogZero;
+    const float nm = lanes_max<NS>(s, mine);
+    if (continuing[b] != 0) bv = s - nm;
+  }
+  float* bb = beta_out + b * L * S + lane;
+  float* db = dm_out != nullptr ? dm_out + b * L : nullptr;
+  for (int64_t t = max(n - 1, (int64_t)0); t < L; ++t) {
+    if (mine) bb[t * S] = bv;
+    if (db != nullptr && lane == 0) db[t] = 0.0f;
+  }
+  // the chain: step r at t = n - 2 - r reads position t + 1 = n - 1 - r
+  stage_column_reverse(ring, ob, 0, n, S, mine);
+  stage_column_reverse(ring, ob, kHalf, n, S, mine);
+  for (int64_t r0 = 0; r0 < n - 1; r0 += kHalf) {
+    cp_async_wait<1>();  // this half is in; the next may be in flight
+    const float* src = ring + ((r0 / kHalf) & 1) * kHalf * 32;
+    const int steps = (int)min((int64_t)kHalf, n - 1 - r0);
+    for (int k = 0; k < steps; ++k) {
+      const int64_t t = n - 2 - (r0 + k);
+      const float x = src[k * 32] + bv;
+      const float xm = lanes_max<NS>(x, mine);
+      const float e = mine ? expf(x - xm) : 0.0f;
+      float s = lanes_product<NS>(e, mc, tail);
+      s = s > 0.0f ? logf(s) : kLogZero;
+      const float nm = lanes_max<NS>(s, mine);
+      bv = s - nm;
+      if (mine) bb[t * S] = bv;
+      if (db != nullptr && lane == 0) db[t] = xm + nm;
+    }
+    stage_column_reverse(ring, ob, r0 + 2 * kHalf, n, S, mine);
+  }
+  cp_async_wait<0>();
+  if (x_out != nullptr) {
+    // x_out = obs[0] + beta[0], less its max
+    const float x = (mine ? ob[0] : 0.0f) + bv;
+    const float xm = lanes_max<NS>(x, mine);
+    if (mine) x_out[b * S + lane] = x - xm;
+  }
+}
+
+// K7a/K8a from 33 to 256 states (scan_rows.cuh, rows): the function and
+// the bits of fwd_scaled_kernel, carry mode included.  A step: the product
+// over the block's R rows, u = log(s) + obs, the row max (one barrier),
+// a = u - m, exp(a) into the state vectors (a second).
+template <int R, int KR>
+__global__ void __launch_bounds__(kRowsMaxThreads)
+    fwd_scaled_rows_kernel(const float* __restrict__ obs,
+                           const int32_t* __restrict__ lens,
+                           const float* __restrict__ log_start,
+                           const float* __restrict__ carry_in,
+                           const float* __restrict__ trans_p,
+                           float* __restrict__ alpha_out,
+                           float* __restrict__ dm_out,
+                           float* __restrict__ carry_out, int64_t B,
+                           int64_t L, int S) {
+  extern __shared__ __align__(16) float smem[];
+  RowsTile<R, KR> tl(smem, trans_p, lens, B, L, S);
+  const bool carried = carry_in != nullptr;
+  const bool has = tl.has;
+  const int j = tl.j;
+  const float start_j = has && !carried ? log_start[j] : 0.0f;
+  float a[R], e[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    a[r] = carried && has && tl.live[r] ? carry_in[(tl.b0 + r) * S + j]
+                                        : 0.0f;
+    e[r] = expf(a[r]);
+  }
+  // the steps that run; past them every row of the block is past its end
+  const int64_t steps = carried ? tl.max_len : max(tl.max_len, 1);
+  tl.template stage<false>(obs, L, 0, steps);
+  tl.template stage<false>(obs, L, kRowsHalf, steps);
+  if (carried) tl.put(e);
+  __syncthreads();
+  for (int64_t t0 = 0; t0 < steps; t0 += kRowsHalf) {
+    cp_async_wait<1>();  // this half is in; the next may be in flight
+    const int n = (int)min((int64_t)kRowsHalf, steps - t0);
+    for (int k = 0; k < n; ++k) {
+      const int64_t t = t0 + k;
+      float o[R], u[R], m[R];
+      tl.template ring_obs<false>(L, t, o);
+      const bool first = t == 0 && !carried;
+      if (first) {
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+          u[r] = tl.len[r] > 0 ? start_j + o[r] : kLogZero;
+      } else {
+        float s[R];
+        tl.product(s);
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+          u[r] = (s[r] > 0.0f ? logf(s[r]) : kLogZero) + o[r];
+      }
+      tl.row_max(u, m, 0);
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        // position 0 is renormalized in every row, as the reference does
+        const bool valid = first || t < tl.len[r];
+        if (valid) a[r] = u[r] - m[r];
+        e[r] = expf(a[r]);
+        if (!tl.live[r]) continue;
+        const int64_t pos = (tl.b0 + r) * L + t;
+        if (alpha_out != nullptr && has) alpha_out[pos * S + j] = a[r];
+        if (dm_out != nullptr && j == 0) dm_out[pos] = valid ? m[r] : 0.0f;
+      }
+      tl.put(e);
+      __syncthreads();
+    }
+    tl.template stage<false>(obs, L, t0 + 2 * kRowsHalf, steps);
+  }
+  cp_async_wait<0>();
+  for (int64_t t = steps; t < L; ++t) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if (!tl.live[r]) continue;
+      const int64_t pos = (tl.b0 + r) * L + t;
+      if (alpha_out != nullptr && has) alpha_out[pos * S + j] = a[r];
+      if (dm_out != nullptr && j == 0) dm_out[pos] = 0.0f;
+    }
+  }
+  if (carry_out != nullptr && has) {
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      if (tl.live[r]) carry_out[(tl.b0 + r) * S + j] = a[r];
+  }
+}
+
+// K7b/K8b from 33 to 256 states: the function and the bits of
+// bwd_scaled_kernel, carry mode included.  Step s at t = L - 1 - s: x =
+// obs[t + 1] + beta, its row max xm (one barrier), exp(x - xm) into the
+// state vectors (a second), the product, log, the row max nm (a third);
+// the two maxima have a partial buffer each.
+template <int R, int KR>
+__global__ void __launch_bounds__(kRowsMaxThreads)
+    bwd_scaled_rows_kernel(const float* __restrict__ obs,
+                           const int32_t* __restrict__ lens,
+                           const float* __restrict__ x_carry,
+                           const int32_t* __restrict__ continuing,
+                           const float* __restrict__ trans_t,
+                           float* __restrict__ beta_out,
+                           float* __restrict__ dm_out,
+                           float* __restrict__ x_out, int64_t B, int64_t L,
+                           int S) {
+  extern __shared__ __align__(16) float smem[];
+  RowsTile<R, KR> tl(smem, trans_t, lens, B, L, S);
+  const bool carried = x_carry != nullptr;
+  const bool has = tl.has;
+  const int j = tl.j;
+  float bv[R];
+  bool cont[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    bv[r] = 0.0f;
+    cont[r] = carried && tl.live[r] && continuing[tl.b0 + r] != 0;
+  }
+  tl.template stage<true>(obs, L, 0, L);
+  tl.template stage<true>(obs, L, kRowsHalf, L);
+  for (int64_t s0 = 0; s0 < L; s0 += kRowsHalf) {
+    cp_async_wait<1>();  // this half is in; the next may be in flight
+    const int n = (int)min((int64_t)kRowsHalf, L - s0);
+    for (int k = 0; k < n; ++k) {
+      const int64_t t = L - 1 - (s0 + k);
+      float dv[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) dv[r] = 0.0f;
+      if (carried && t == L - 1) {
+        // the boundary step: exp(x_carry) through the product
+        float e[R], s[R], nm[R];
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+          e[r] = expf(has && tl.live[r] ? x_carry[(tl.b0 + r) * S + j]
+                                        : 0.0f);
+        tl.put(e);
+        __syncthreads();
+        tl.product(s);
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+          s[r] = s[r] > 0.0f ? logf(s[r]) : kLogZero;
+        tl.row_max(s, nm, 1);
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+          if (cont[r]) bv[r] = s[r] - nm[r];
+      } else if (t + 1 < tl.max_len) {
+        float o[R], x[R], xm[R], e[R], s[R], nm[R];
+        tl.template ring_obs<true>(L, s0 + k, o);
+#pragma unroll
+        for (int r = 0; r < R; ++r) x[r] = o[r] + bv[r];
+        tl.row_max(x, xm, 0);
+#pragma unroll
+        for (int r = 0; r < R; ++r) e[r] = expf(x[r] - xm[r]);
+        tl.put(e);
+        __syncthreads();
+        tl.product(s);
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+          s[r] = s[r] > 0.0f ? logf(s[r]) : kLogZero;
+        tl.row_max(s, nm, 1);
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          if (t + 1 < tl.len[r]) {
+            bv[r] = s[r] - nm[r];
+            dv[r] = xm[r] + nm[r];
+          }
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        if (!tl.live[r]) continue;
+        const int64_t pos = (tl.b0 + r) * L + t;
+        if (has) beta_out[pos * S + j] = bv[r];
+        if (dm_out != nullptr && j == 0) dm_out[pos] = dv[r];
+      }
+    }
+    tl.template stage<true>(obs, L, s0 + 2 * kRowsHalf, L);
+  }
+  cp_async_wait<0>();
+  if (carried) {
+    // x_out = obs[0] + beta[0], less its max
+    float x[R], xm[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      x[r] = tl.obs_at(obs, L, r, 0, has && tl.live[r]) + bv[r];
+    tl.row_max(x, xm, 0);
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      if (has && tl.live[r]) x_out[(tl.b0 + r) * S + j] = x[r] - xm[r];
   }
 }
 
@@ -956,33 +1338,55 @@ __global__ void __launch_bounds__(kChaseThreads)
   }
 }
 
-// The forward's launch: the cluster tile where ``cluster`` (257 to 1024
-// states), else scan_tile.cuh's (the staged wide tile past 256 states).
-int launch_fwd(int cluster, const float* obs, const int32_t* lens,
+// The log-space scans' launches by ``tile`` (scan_tile.cuh ScanTile):
+// the block tile (the staged wide tile past 256 states), the cluster tile
+// (257 to 1024 states), the lanes step (to 32), the rows kernels (33 to
+// 256).
+int launch_fwd(int tile, const float* obs, const int32_t* lens,
                const float* log_start, const float* carry_in,
                const float* trans_p, float* alpha_out, float* dm_out,
                float* carry_out, int64_t B, int64_t L, int S,
                void* stream) {
-  if (cluster) {
+  if (tile == kTileCluster) {
     CLUSTER_KERNELS(ks, fwd_scaled_cluster_kernel);
     return launch_cluster_scan(ks, B, S, 1, stream, obs, lens, log_start,
                                carry_in, trans_p, alpha_out, dm_out,
                                carry_out, B, L, S);
+  }
+  if (tile == kTileLanes) {
+    LANES_KERNELS(ks, fwd_scaled_lanes_kernel);
+    return launch_lanes(ks, B, S, stream, obs, lens, log_start, carry_in,
+                        trans_p, alpha_out, dm_out, carry_out, B, L, S);
+  }
+  if (tile == kTileRows) {
+    ROWS_KERNELS(ks, fwd_scaled_rows_kernel);
+    return launch_rows(ks, B, S, stream, obs, lens, log_start, carry_in,
+                       trans_p, alpha_out, dm_out, carry_out, B, L, S);
   }
   TILE_KERNELS(ks, fwd_scaled_kernel);
   return launch_scan(ks, B, S, stream, obs, lens, log_start, carry_in,
                      trans_p, alpha_out, dm_out, carry_out, B, L, S);
 }
 
-int launch_bwd(int cluster, const float* obs, const int32_t* lens,
+int launch_bwd(int tile, const float* obs, const int32_t* lens,
                const float* x_carry, const int32_t* continuing,
                const float* trans_t, float* beta_out, float* dm_out,
                float* x_out, int64_t B, int64_t L, int S, void* stream) {
-  if (cluster) {
+  if (tile == kTileCluster) {
     CLUSTER_KERNELS(ks, bwd_scaled_cluster_kernel);
     return launch_cluster_scan(ks, B, S, 2, stream, obs, lens, x_carry,
                                continuing, trans_t, beta_out, dm_out, x_out,
                                B, L, S);
+  }
+  if (tile == kTileLanes) {
+    LANES_KERNELS(ks, bwd_scaled_lanes_kernel);
+    return launch_lanes(ks, B, S, stream, obs, lens, x_carry, continuing,
+                        trans_t, beta_out, dm_out, x_out, B, L, S);
+  }
+  if (tile == kTileRows) {
+    ROWS_KERNELS(ks, bwd_scaled_rows_kernel);
+    return launch_rows(ks, B, S, stream, obs, lens, x_carry, continuing,
+                       trans_t, beta_out, dm_out, x_out, B, L, S);
   }
   TILE_KERNELS(ks, bwd_scaled_kernel);
   return launch_scan(ks, B, S, stream, obs, lens, x_carry, continuing,
@@ -996,12 +1400,12 @@ extern "C" {
 // streaming.cu: K5's, K6a's and K6b's cluster plans
 int tehmm_streaming_cluster_plan(int S, int64_t B, int kind, int64_t* out);
 
-// ``cluster``: the cluster tile (257 to 1024 states), else the block tile.
+// ``tile``: launch_fwd's.
 int tehmm_fwd_scaled(const void* obs, const void* lens,
                      const void* log_start, const void* trans_p,
                      void* alpha_out, void* dm_out, int64_t B, int64_t L,
-                     int S, int cluster, void* stream) {
-  return launch_fwd(cluster, (const float*)obs, (const int32_t*)lens,
+                     int S, int tile, void* stream) {
+  return launch_fwd(tile, (const float*)obs, (const int32_t*)lens,
                     (const float*)log_start, nullptr, (const float*)trans_p,
                     (float*)alpha_out, (float*)dm_out, nullptr, B, L, S,
                     stream);
@@ -1011,8 +1415,8 @@ int tehmm_fwd_scaled(const void* obs, const void* lens,
 int tehmm_fwd_chunk_tile(const void* obs, const void* carry_in,
                          const void* lens, const void* trans_p, void* hats,
                          void* carry_out, void* dm, int64_t B, int64_t L,
-                         int S, int cluster, void* stream) {
-  return launch_fwd(cluster, (const float*)obs, (const int32_t*)lens,
+                         int S, int tile, void* stream) {
+  return launch_fwd(tile, (const float*)obs, (const int32_t*)lens,
                     nullptr, (const float*)carry_in, (const float*)trans_p,
                     (float*)hats, (float*)dm, (float*)carry_out, B, L, S,
                     stream);
@@ -1020,8 +1424,8 @@ int tehmm_fwd_chunk_tile(const void* obs, const void* carry_in,
 
 int tehmm_bwd_scaled(const void* obs, const void* lens, const void* trans_t,
                      void* beta_out, void* dm_out, int64_t B, int64_t L,
-                     int S, int cluster, void* stream) {
-  return launch_bwd(cluster, (const float*)obs, (const int32_t*)lens,
+                     int S, int tile, void* stream) {
+  return launch_bwd(tile, (const float*)obs, (const int32_t*)lens,
                     nullptr, nullptr, (const float*)trans_t,
                     (float*)beta_out, (float*)dm_out, nullptr, B, L, S,
                     stream);
@@ -1031,9 +1435,9 @@ int tehmm_bwd_scaled(const void* obs, const void* lens, const void* trans_t,
 int tehmm_bwd_chunk_tile(const void* obs, const void* x_carry,
                          const void* continuing, const void* lens,
                          const void* trans_t, void* beta, void* x_out,
-                         int64_t B, int64_t L, int S, int cluster,
+                         int64_t B, int64_t L, int S, int tile,
                          void* stream) {
-  return launch_bwd(cluster, (const float*)obs, (const int32_t*)lens,
+  return launch_bwd(tile, (const float*)obs, (const int32_t*)lens,
                     (const float*)x_carry, (const int32_t*)continuing,
                     (const float*)trans_t, (float*)beta, nullptr,
                     (float*)x_out, B, L, S, stream);
@@ -1056,6 +1460,27 @@ int tehmm_scan_cluster_plan(int S, int64_t B, int kind, int64_t* out) {
     return write_cluster_plan(ks, S, B, 1, out);
   }
   return tehmm_streaming_cluster_plan(S, B, kind, out);
+}
+
+// The rows kernels' plan (make_rows_plan) of the forward (``backward`` 0)
+// or the backward at S states and B rows into out[8]: R, KR, threads,
+// SMs, the blocks an SM holds at R = 1, 2 and 4, the shared bytes at R.
+int tehmm_rows_plan(int S, int64_t B, int backward, int64_t* out) {
+  RowsPlan plan;
+  cudaError_t err;
+  if (backward) {
+    ROWS_KERNELS(ks, bwd_scaled_rows_kernel);
+    err = make_rows_plan(ks, B, S, &plan);
+  } else {
+    ROWS_KERNELS(ks, fwd_scaled_rows_kernel);
+    err = make_rows_plan(ks, B, S, &plan);
+  }
+  if (err != cudaSuccess) return (int)err;
+  const int64_t v[8] = {plan.R, plan.KR, plan.threads, plan.sms,
+                        plan.per_sm[0], plan.per_sm[1], plan.per_sm[2],
+                        (int64_t)plan.smem};
+  for (int k = 0; k < 8; ++k) out[k] = v[k];
+  return 0;
 }
 
 // ptr_out: uint8 for S <= 256, uint16 beyond; ``cluster``: the cluster

@@ -78,7 +78,7 @@ to 32 states and their shared one beyond, with the same bits either
 way.  K3, X1 and X2 launch their one-warp
 kernels where ``sweep_fits`` (S <= 239) and the tile's carry modes
 beyond, each counted under its own name (``viterbi_chunk_tile``,
-``fwd_chunk_tile``, ``bwd_chunk_tile``), so the exact decoders, ``--pd``
+``fwd_chunk_rows``, ``bwd_chunk_rows`` to 256 states), so the exact decoders, ``--pd``
 and every printed loglik run to S = 1024 too.  From 257 states the
 log-space scans (``forward_scaled``, ``backward_scaled`` and X1's and
 X2's carry modes), K5, K3's carry mode, K8c and the probability-space
@@ -89,7 +89,13 @@ tile of ``csrc/scan_cluster.cuh`` (``scan_route``;
 (``MultitrackHmm.score``) takes ``forward_loglik``, which splits each
 row into pieces where ``piece_scan_route`` says (to
 ``PIECE_SCAN_MAX_STATES``, and to a number of rows that falls with S)
-and takes ``forward_final``'s kernels beyond.
+and takes ``forward_final``'s kernels beyond.  To 256 states the four
+log-space scans (``forward_scaled``, ``backward_scaled`` and X1's and X2's
+carry modes) take their own kernels instead of the block tile
+(``log_scan_route``: the lanes step to 32 states, the rows kernels of
+``csrc/scan_rows.cuh`` beyond; ``LOG_SCAN_MAX_STATES`` = 0 forces the
+block tile), each counted under a name of its own (``scan_counter``:
+``fwd_scaled_lanes``, ``fwd_scaled_rows``, ...), with the same bits.
 
 Each wrapper checks device, dtype, shape and contiguity, and sits beside
 its plain-torch version.  A tensor on the CPU takes the plain version; a
@@ -158,6 +164,8 @@ LAUNCHES = {
            "bwd_scaled_cluster", "bwd_chunk_cluster",
            "viterbi_values_cluster", "viterbi_chunk_cluster",
            "viterbi_ptrs_cluster", "fwd_prob_cluster", "bwd_prob_cluster",
+           "fwd_scaled_lanes", "fwd_scaled_rows", "bwd_scaled_lanes",
+           "bwd_scaled_rows", "fwd_chunk_rows", "bwd_chunk_rows",
            "maxplus_resident", "maxplus_blocks",
            "fwd_piece_ops", "fwd_piece_compose"]
     )
@@ -218,6 +226,25 @@ CLUSTER_PLAN_KINDS = ("fwd_scaled", "bwd_scaled", "viterbi_values",
                       "viterbi_ptrs", "fwd_prob", "bwd_prob")
 # the kinds whose step takes two row maxima, each with a buffer of its own
 _CLUSTER_TWO_MAXIMA = ("bwd_scaled", "bwd_prob")
+# The log-space scans (K7a/K8a, K7b/K8b) and X1's and X2's carry modes run
+# their own kernels to this many states (csrc/scan_rows.cuh,
+# ``log_scan_route``): the lanes step, a warp a row, to 32 states, the rows
+# kernels beyond; past it, to 256 states, the block tile.  All give the
+# same bits, so the choice moves only time; 0 forces the block tile for
+# the four at S <= 256 (tests and tools set it and restore it).
+LOG_SCAN_MAX_STATES = 256
+# each log-space scan's counter on the block tile -> on the lanes step and
+# on the rows kernels (the carry modes take the tile only past
+# ``sweep_fits``' 239 states, so only the rows kernels)
+_LOG_SCAN_COUNTERS = {
+    "fwd_scaled": {"lanes": "fwd_scaled_lanes", "rows": "fwd_scaled_rows"},
+    "bwd_scaled": {"lanes": "bwd_scaled_lanes", "rows": "bwd_scaled_rows"},
+    "fwd_chunk_tile": {"rows": "fwd_chunk_rows"},
+    "bwd_chunk_tile": {"rows": "bwd_chunk_rows"}}
+# the nine scans' entries' ``tile`` flag of each route (csrc/scan_tile.cuh
+# ``ScanTile``)
+_TILE_FLAGS = {"narrow": 0, "staged": 0, "cluster": 1, "lanes": 2,
+               "rows": 3}
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -384,6 +411,8 @@ def load_library() -> ctypes.CDLL:
                                                      ptr]
         lib.tehmm_scan_cluster_plan.restype = i32
         lib.tehmm_scan_cluster_plan.argtypes = [i32, i64, i32, ptr]
+        lib.tehmm_rows_plan.restype = i32
+        lib.tehmm_rows_plan.argtypes = [i32, i64, i32, ptr]
         lib.tehmm_viterbi_ptrs.restype = i32
         lib.tehmm_viterbi_ptrs.argtypes = [ptr] * 7 + [i64, i64, i32, i32,
                                                        ptr]
@@ -1662,7 +1691,8 @@ def _check_sweep(log_trans, obs, carry, lengths, carry_name):
 # registers and forms expf of its own state; the expf row and the new row
 # go round by shuffles), "shared" to ``sweep_fits``' 239
 # (``logdot_renorm``: the row and exp(trans) in shared memory), "tile"
-# beyond (K7a's tile in carry mode, csrc/scans.cu).  The lanes and shared
+# beyond (K7a in carry mode, csrc/scans.cu, on the kernel of
+# ``log_scan_route``: the rows kernel to 256 states).  The lanes and shared
 # steps give the same bits, so the choice moves only time.
 X1_LANES_MAX_STATES = 32
 _X1_ENTRIES = {"lanes": "tehmm_x1_sweep_lanes",
@@ -1732,9 +1762,11 @@ def forward_chunk_values(log_trans, obs, a_hat_init, lengths):
     (registers and shuffles to 32 states, ``logdot_renorm`` in shared
     memory to 239), obs read ahead of the chain (a cp.async ring in
     shared memory, or registers a few positions ahead), the row stopped
-    at its length; beyond, K7a's tile in carry mode (``csrc/scans.cu``
-    ``fwd_scaled_kernel``), counted as ``fwd_chunk_tile``, and from 257
-    states the cluster tile's (counted as ``fwd_chunk_cluster``).  Each
+    at its length; beyond, to 256 states, K7a's rows kernel in carry mode
+    (``csrc/scans.cu`` ``fwd_scaled_rows_kernel``, ``log_scan_route``),
+    counted as ``fwd_chunk_rows`` (the block tile's, forced, as
+    ``fwd_chunk_tile``), and from 257 states the cluster tile's (counted
+    as ``fwd_chunk_cluster``).  Each
     kernel sums every product in an order that depends on S alone, so a
     sweep cut into chunks gives the bits of one chunk, and every mode ends
     in the same carry."""
@@ -1757,8 +1789,8 @@ def forward_checkpoints(log_trans, obs, a_hat_init, lengths, chunk):
     over all L positions).  The exact posteriors' forward sweep: one
     launch walks each row over a whole group of chunks, where
     ``forward_final`` took a launch a chunk.  Counted as
-    ``fwd_checkpoints``; past 239 states one launch of the tile's carry
-    mode a chunk (``fwd_chunk_tile``).  Bound and design as
+    ``fwd_checkpoints``; past 239 states one launch of the carry mode a
+    chunk (``scan_counter``: ``fwd_chunk_rows`` to 256 states).  Bound and design as
     ``forward_chunk_values``; the same step, so the same carries."""
     B, L, S = obs.shape
     dev = _check_sweep(log_trans, obs, a_hat_init, lengths, "a_hat_init")
@@ -1922,7 +1954,8 @@ def forward_loglik(log_trans, obs, a_hat_init, lengths):
 # "lanes" to this many states (lane i holds exp(trans) row i in registers
 # and forms expf of its own state; the expf row, beta and x go round by
 # shuffles), "shared" to ``sweep_fits``' 239 (``logdot_renorm``), "tile"
-# beyond (K7b's tile in carry mode, csrc/scans.cu).  The lanes and shared
+# beyond (K7b in carry mode, csrc/scans.cu, on the kernel of
+# ``log_scan_route``).  The lanes and shared
 # steps give the same bits, so the choice moves only time.
 X2_LANES_MAX_STATES = 32
 _X2_ENTRIES = {"lanes": "tehmm_x2_sweep_lanes",
@@ -1973,8 +2006,10 @@ def backward_chunk_values(log_trans, obs, x_carry, continuing, lengths):
     same step, so a sweep cut into chunks gives the bits of one chunk over
     the whole row); beyond ``sweep_fits(S)`` K7b's tile in carry mode
     (``csrc/scans.cu`` ``bwd_scaled_kernel``: the boundary step and x_out
-    inside the same kernel), counted as ``bwd_chunk_tile``; from 257
-    states the cluster tile's (``bwd_chunk_cluster``)."""
+    inside the same kernel; to 256 states ``bwd_scaled_rows_kernel``,
+    ``log_scan_route``), counted as ``bwd_chunk_rows`` (the block tile's,
+    forced, as ``bwd_chunk_tile``); from 257 states the cluster tile's
+    (``bwd_chunk_cluster``)."""
     B, L, S = obs.shape
     dev = _check_backward(log_trans, obs, x_carry, continuing, lengths)
     if L == 0:
@@ -2011,7 +2046,8 @@ def backward_checkpoints(log_trans, obs, x_carry, continuing, lengths,
     posteriors' backward sweep: one launch walks each row over a whole
     group of chunks from its end, where ``backward_chunk_values`` took a
     launch a chunk.  Counted as ``bwd_checkpoints``; past 239 states one
-    launch of the tile's carry mode a chunk (``bwd_chunk_tile``).  Bound
+    launch of the carry mode a chunk (``scan_counter``: ``bwd_chunk_rows``
+    to 256 states).  Bound
     and design as ``backward_chunk_values``; the same step, so the same
     carries."""
     B, L, S = obs.shape
@@ -2259,9 +2295,11 @@ def scan_route(S: int) -> str:
     (``forward_scaled``, ``backward_scaled``, X1's and X2's carry modes,
     ``viterbi_values``, K3's carry mode, ``viterbi_pointers``,
     ``forward_prob`` and ``backward_prob``):
-    ``"narrow"`` (the block tile, to 256 states), ``"cluster"`` (the
-    cluster tile, from 257 to ``SCAN_CLUSTER_MAX_STATES``), else
-    ``"staged"`` (the block tile's wide form, to 1024)."""
+    ``"narrow"`` (the block tile, to 256 states, where the four log-space
+    scans take their own kernels instead: ``log_scan_route``),
+    ``"cluster"`` (the cluster tile, from 257 to
+    ``SCAN_CLUSTER_MAX_STATES``), else ``"staged"`` (the block tile's wide
+    form, to 1024)."""
     if S <= 256:
         return "narrow"
     return "cluster" if S <= SCAN_CLUSTER_MAX_STATES else "staged"
@@ -2341,14 +2379,56 @@ def library_cluster_plan(S: int, B: int, kernel) -> dict:
     return plan
 
 
+def library_rows_plan(S: int, B: int, backward: bool = False) -> dict:
+    """The plan the card's launch of the forward's (or the backward's)
+    rows kernels takes at S states and B rows (``tehmm_rows_plan``): R,
+    KR, threads, the card's SMs, ``per_sm`` (the blocks an SM holds at R
+    = 1, 2 and 4) and the shared bytes at R.  Needs the card."""
+    lib = load_library()
+    out = (ctypes.c_int64 * 8)()
+    _raise_on(lib.tehmm_rows_plan(S, B, int(backward), out), lib,
+              "the rows kernels' plan")
+    R, KR, threads, sms, p1, p2, p4, smem = (int(v) for v in out)
+    return dict(R=R, KR=KR, threads=threads, sms=sms,
+                per_sm={1: p1, 2: p2, 4: p4}, smem=smem)
+
+
+def log_scan_route(S: int) -> str:
+    """The kernel of the log-space scans and X1's and X2's carry modes at S
+    states: ``"lanes"`` to 32 states and ``"rows"`` to 256 (the edges of
+    the two kernels), each to ``LOG_SCAN_MAX_STATES``; ``"narrow"`` (the
+    block tile, forced) to 256 beyond it; past 256 states
+    ``scan_route(S)``."""
+    if S > 256:
+        return scan_route(S)
+    if S > LOG_SCAN_MAX_STATES:
+        return "narrow"
+    return "lanes" if S <= 32 else "rows"
+
+
+def scan_counter(name: str, S: int) -> str:
+    """The counter a launch of scan ``name`` (its block tile's counter, a
+    key of ``_CLUSTER_COUNTERS``) at S states adds to: the route's own
+    (``log_scan_route`` for the four log-space scans, ``scan_route`` for
+    the others), ``name`` itself on the block tile."""
+    if name in _LOG_SCAN_COUNTERS:
+        route = log_scan_route(S)
+        if route in ("lanes", "rows"):
+            return _LOG_SCAN_COUNTERS[name][route]
+    else:
+        route = scan_route(S)
+    return _CLUSTER_COUNTERS[name] if route == "cluster" else name
+
+
 def _launch_scan(name, entry, S, args, dev):
     """Launch one of the cluster tile's nine scans (``_CLUSTER_COUNTERS``)
-    through its entry: the cluster tile where ``scan_route(S)`` says so,
-    counted under ``name``'s cluster counter, else the block tile,
-    counted under ``name``; the entry takes the choice as its flag."""
-    cluster = scan_route(S) == "cluster"
-    _launch_streaming(_CLUSTER_COUNTERS[name] if cluster else name, entry,
-                      (*args, int(cluster)), dev)
+    through its entry, with the ``tile`` flag of its route (for the four
+    log-space scans ``log_scan_route(S)``, for the others
+    ``scan_route(S)``), counted under ``scan_counter(name, S)``."""
+    route = log_scan_route(S) if name in _LOG_SCAN_COUNTERS \
+        else scan_route(S)
+    _launch_streaming(scan_counter(name, S), entry,
+                      (*args, _TILE_FLAGS[route]), dev)
 
 
 def forward_scaled_plain(log_start, log_trans, obs, lengths,
@@ -2375,17 +2455,28 @@ def forward_scaled(log_start, log_trans, obs, lengths):
     Replaces ``forward_scaled_pallas_v2`` (pallas_kernels.py:493, kernel
     ``_forward_kernel_v2`` :402) and ``forward_scaled_pallas`` (:131,
     kernel ``_forward_kernel`` :75), one function in two TPU layouts.
-    Bound on an H100: the chain of L dependent steps, each K6a's S-term
-    product plus one expf and one logf per cell.  Design
-    (``csrc/scans.cu``): K6a's tile (``csrc/scan_tile.cuh``) with the
-    row's log values in registers and their exp as the tile's state
-    vectors; each output's sum is four interleaved FMA chains in an order
-    that depends on S alone (repeats give the same bits).  From 257
-    states (``scan_route``) the cluster tile (``csrc/scan_cluster.cuh``,
-    counted as ``fwd_scaled_cluster``): a cluster of up to 16 blocks
-    shares a row group's states, each block's slice of exp(log_trans)
-    resident for the whole scan and the state vector exchanged through
-    distributed shared memory, with the same bits.  Takes S <= 1024."""
+    Bound on an H100: L dependent steps, each R x S^2 FMAs over the rows
+    R a step holds plus one expf and one logf per cell; the bytes of obs
+    in and alpha_hat and dm out.  Design (``csrc/scans.cu``, route
+    ``log_scan_route``): to 32 states the lanes step
+    (``fwd_scaled_lanes_kernel``: a warp a row, column j of exp(log_trans)
+    in lane j's registers, exp(a) round the warp by shuffles, no shared
+    memory or barrier in the chain; counted as ``fwd_scaled_lanes``); from
+    33 to 256 the rows kernel (``fwd_scaled_rows_kernel``,
+    ``csrc/scan_rows.cuh``, counted as ``fwd_scaled_rows``: a block of R
+    rows, each thread one FMA chain of four columns of all R rows, so a
+    float4 of the matrix serves 4 R FMAs, the matrix's first rows in
+    registers and the rest in shared memory, two barriers a step; R by
+    the card's occupancy, ``library_rows_plan``).  Each
+    output's sum is four interleaved FMA chains in an order that depends
+    on S alone, the block tile's (``fwd_scaled_kernel``, forced with
+    ``LOG_SCAN_MAX_STATES`` = 0, counted as ``fwd_scaled``), so every
+    route gives the same bits.  From 257 states (``scan_route``) the cluster tile
+    (``csrc/scan_cluster.cuh``, counted as ``fwd_scaled_cluster``): a
+    cluster of up to 16 blocks shares a row group's states, each block's
+    slice of exp(log_trans) resident for the whole scan and the state
+    vector exchanged through distributed shared memory, with the same
+    bits.  Takes S <= 1024."""
     dev = _check_streaming(log_trans, obs, lengths, "obs", "forward_scaled",
                            log_start)
     if _device_kind(dev) == "cpu":
@@ -2424,10 +2515,14 @@ def backward_scaled(log_trans, obs, lengths):
     Replaces ``backward_scaled_pallas`` (pallas_kernels.py:222, kernel
     ``_backward_kernel`` :187) and ``backward_hat_pallas_v2`` (:1012,
     kernel ``_backward_kernel_v2`` :934), which returns beta_hat only.
-    Bound and design as ``forward_scaled``, with two max reductions a
-    step; the kernel is handed exp(log_trans) transposed and reads obs as
-    it is, from the end; from 257 states on the cluster tile (counted as
-    ``bwd_scaled_cluster``).  Takes S <= 1024."""
+    Bound and design as ``forward_scaled`` (``bwd_scaled_lanes_kernel``,
+    ``bwd_scaled_rows_kernel``, counted as ``bwd_scaled_lanes`` and
+    ``bwd_scaled_rows``, the block tile as ``bwd_scaled``), with two max
+    reductions a step (the rows kernel: three barriers); the kernel is
+    handed exp(log_trans) transposed, so lane j of the lanes step holds
+    row j of exp(log_trans), and reads obs as it is, from the end; from
+    257 states on the cluster tile (counted as ``bwd_scaled_cluster``).
+    Takes S <= 1024."""
     dev = _check_streaming(log_trans, obs, lengths, "obs", "backward_scaled")
     if _device_kind(dev) == "cpu":
         return backward_scaled_plain(log_trans, obs, lengths)

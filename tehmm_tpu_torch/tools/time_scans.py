@@ -16,20 +16,28 @@ alone at B x L x S points on K5's rows of a sticky random model.  Past
 256 states all six run the cluster tile, and are timed again with the staged wide tile forced
 (``K5_staged``, ``K6a_staged``, ``K6b_staged``, ``K7a_staged``,
 ``K7b_staged``, ``K8c_staged``: ``cuda_kernels.SCAN_CLUSTER_MAX_STATES``
-set to 0, then restored).  ``--sweeps`` times K3's, X1's and X2's carry
+set to 0, then restored).  To 256 states K7a and K7b run their own
+kernels (``cuda_kernels.log_scan_route``: the lanes step, the rows
+kernels) and are timed again with the block tile forced (``K7a_tile``,
+``K7b_tile``: ``cuda_kernels.LOG_SCAN_MAX_STATES`` set to 0, then
+restored).  ``--sweeps`` times K3's, X1's and X2's carry
 modes (``viterbi_chunk_values``, ``forward_chunk_values``,
 ``backward_chunk_values``) at each S on ``--sweep-rows`` full rows of
 ``--sweep-length`` (3f's ``--exact``, ``--pd`` and score shapes), the
-same two ways.  On the card a row past 256 states has each timed
-kernel's cluster plan (``plans``, where the checkout's
-``cuda_kernels.CLUSTER_PLAN_KINDS`` has its kind).  Each kernel's
+same two ways past 256 states, and to 256 X1's and X2's with the block
+tile forced too (``X1_tile``, ``X2_tile``).  On the card a row past
+256 states has each timed kernel's cluster plan (``plans``, where the
+checkout's ``cuda_kernels.CLUSTER_PLAN_KINDS`` has its kind), and one
+from 33 to 256 the rows a block each of K7a and K7b (or X1 and X2) took
+(``rows_R``, ``cuda_kernels.library_rows_plan``).  Each kernel's
 ``*_us`` is its microseconds a step (a position).  The first line names
 the device; then one JSON
 object a shape: the shape and each kernel's median ms of ``reps``
 synchronised calls.  It uses nothing but the wrappers and
 ``bench_engines``' inputs, so the same file times an older checkout of
 the port for a comparison in one process each (where the checkout has no
-cluster tile, no ``_staged`` keys are written).  On the CPU each wrapper
+cluster tile, no ``_staged`` keys are written, and without the log-space
+scans' own kernels no ``_tile`` keys).  On the CPU each wrapper
 runs its plain version: the lines then time nothing of the card.
 """
 
@@ -80,6 +88,21 @@ def staged_tile():
             ck.SCAN_CLUSTER_MAX_STATES = old
 
 
+@contextlib.contextmanager
+def block_tile():
+    """The block tile forced for the log-space scans and X1's and X2's
+    carry modes to 256 states (``LOG_SCAN_MAX_STATES`` = 0), restored
+    after; nothing in a checkout without their own kernels."""
+    old = getattr(ck, "LOG_SCAN_MAX_STATES", None)
+    if old is not None:
+        ck.LOG_SCAN_MAX_STATES = 0
+    try:
+        yield
+    finally:
+        if old is not None:
+            ck.LOG_SCAN_MAX_STATES = old
+
+
 # the cluster plan kind of each kernel the tool times (the carry modes
 # run their scan's kernel)
 PLAN_KINDS = {"K5": "viterbi_values", "K6a": "fwd_prob", "K6b": "bwd_prob",
@@ -87,19 +110,34 @@ PLAN_KINDS = {"K5": "viterbi_values", "K6a": "fwd_prob", "K6b": "bwd_prob",
               "X1": "fwd_scaled", "X2": "bwd_scaled", "K3": "viterbi_values"}
 
 
-def _time(row, calls, device, reps, L, staged):
+def _time(row, calls, device, reps, L, staged, tile=()):
     """Each call's median ms into ``row`` (and its us a step for those
-    named in ``staged``), then again with the staged tile forced for
-    those, under ``name_staged``, where the checkout has the cluster
-    tile; on the card then also each of those kernels' cluster plan (rows
-    and clusters, and the clusters the card holds at each R) where the
-    checkout has its kind."""
+    named in ``staged`` or ``tile``), then again with the staged tile
+    forced for those in ``staged``, under ``name_staged``, where the
+    checkout has the cluster tile, and with the block tile forced for those
+    in ``tile``, under ``name_tile``, where it has the log-space scans' own
+    kernels; on the card then also each of the ``staged`` kernels'
+    cluster plan (rows and clusters, and the clusters the card holds at
+    each R) where the checkout has its kind, and the rows a block each of
+    the ``tile`` kernels took where it ran the rows kernels (``rows_R``)."""
     for name, fn in calls.items():
         fn()  # the first call builds and opts in to shared memory
         row[name] = median_ms(fn, device, reps)
+    S = row.get("S", row.get("sweep"))
+    if tile and device.type == "cuda" and hasattr(ck, "library_rows_plan") \
+            and ck.log_scan_route(S) == "rows":
+        row["rows_R"] = {
+            name: ck.library_rows_plan(S, row["B"], name in ("K7b", "X2"))["R"]
+            for name in tile}
+    if hasattr(ck, "LOG_SCAN_MAX_STATES"):
+        for name in tile:
+            row[name + "_us"] = row[name] * 1e3 / L
+            with block_tile():
+                calls[name]()
+                row[name + "_tile"] = median_ms(calls[name], device, reps)
+            row[name + "_tile_us"] = row[name + "_tile"] * 1e3 / L
     has_cluster = hasattr(ck, "SCAN_CLUSTER_MAX_STATES")
     if staged and has_cluster and device.type == "cuda":
-        S = row.get("S", row.get("sweep"))
         kinds = getattr(ck, "CLUSTER_PLAN_KINDS", ())
         row["plans"] = {
             name: ck.library_cluster_plan(S, row["B"], PLAN_KINDS[name])
@@ -132,9 +170,10 @@ def time_config(config, batch, device, reps):
         "K8c": lambda: ck.viterbi_pointers(ls, lt, obs, lens),
     }
     staged = tuple(calls) if S > 256 else ()
+    tile = ("K7a", "K7b") if S <= 256 else ()
     calls["bt"] = _backtrace_call(ls, lt, obs, lens)
     row = {"config": config, "S": S, "B": B, "L": L}
-    _time(row, calls, device, reps, L, staged)
+    _time(row, calls, device, reps, L, staged, tile)
     row["bt_us"] = row["bt"] * 1e3 / max(L - 1, 1)
     return row
 
@@ -179,7 +218,15 @@ def time_sweeps(S, B, L, device, reps):
         "K3": lambda: ck.viterbi_chunk_values(lt, obs, init, lens),
     }
     row = {"sweep": S, "B": B, "L": L}
-    return _time(row, calls, device, reps, L, ("X1", "X2", "K3"))
+    if S > 256:
+        return _time(row, calls, device, reps, L, ("X1", "X2", "K3"))
+    # to 256 states the carry modes past their one-warp kernels: X1's and
+    # X2's on the rows kernels (K3's on the block tile)
+    row = _time(row, calls, device, reps, L, (),
+                () if ck.sweep_fits(S) else ("X1", "X2"))
+    for name in calls:
+        row[name + "_us"] = row[name] * 1e3 / L
+    return row
 
 
 def time_backtrace(S, B, L, device, reps):

@@ -100,6 +100,67 @@ def test_scan_route_by_states(monkeypatch, S, route):
     assert ck.scan_route(S) == ("narrow" if S <= 256 else "staged")
 
 
+@pytest.mark.parametrize("S,route", [
+    (1, "lanes"), (32, "lanes"), (33, "rows"), (239, "rows"), (240, "rows"),
+    (256, "rows"), (257, "cluster"), (1024, "cluster")])
+def test_log_scan_route_by_states(monkeypatch, S, route):
+    """K7a/K7b and X1's and X2's carry modes: the lanes step to 32 states,
+    the rows kernels to 256, the cluster tile beyond (``scan_route``); 0
+    in ``LOG_SCAN_MAX_STATES`` forces the block tile to 256 and leaves the
+    cluster tile past it."""
+    assert ck.LOG_SCAN_MAX_STATES == 256
+    assert ck.log_scan_route(S) == route
+    monkeypatch.setattr(ck, "LOG_SCAN_MAX_STATES", 0)
+    assert ck.log_scan_route(S) == ("narrow" if S <= 256 else "cluster")
+    monkeypatch.setattr(ck, "SCAN_CLUSTER_MAX_STATES", 0)
+    assert ck.log_scan_route(S) == ("narrow" if S <= 256 else "staged")
+
+
+@pytest.mark.parametrize("S,forced,name,want", [
+    (20, False, "fwd_scaled", "fwd_scaled_lanes"),
+    (32, False, "bwd_scaled", "bwd_scaled_lanes"),
+    (33, False, "fwd_scaled", "fwd_scaled_rows"),
+    (256, False, "bwd_scaled", "bwd_scaled_rows"),
+    (240, False, "fwd_chunk_tile", "fwd_chunk_rows"),
+    (256, False, "bwd_chunk_tile", "bwd_chunk_rows"),
+    (64, True, "fwd_scaled", "fwd_scaled"),
+    (20, True, "bwd_scaled", "bwd_scaled"),
+    (256, True, "fwd_chunk_tile", "fwd_chunk_tile"),
+    (257, False, "fwd_scaled", "fwd_scaled_cluster"),
+    (257, True, "bwd_chunk_tile", "bwd_chunk_cluster"),
+    (256, False, "fwd_prob", "fwd_prob"),
+    (240, False, "viterbi_chunk_tile", "viterbi_chunk_tile"),
+    (512, False, "viterbi_ptrs", "viterbi_ptrs_cluster")])
+def test_scan_counter_by_route(monkeypatch, S, forced, name, want):
+    """Each route counts under a name of its own: the log-space scans'
+    lanes step and rows kernels, the block tile (forced, or for the other
+    scans to 256 states) under the scan's own name, the cluster tile under
+    its counter; every name is one of ``LAUNCHES``."""
+    if forced:
+        monkeypatch.setattr(ck, "LOG_SCAN_MAX_STATES", 0)
+    assert ck.scan_counter(name, S) == want
+    assert want in ck.LAUNCHES
+
+
+def test_tile_flags_are_the_c_enum():
+    """``_TILE_FLAGS`` holds csrc/scan_tile.cuh's ``ScanTile`` numbers: the
+    block tile (and its staged form), the cluster tile, the lanes step,
+    the rows kernels."""
+    import os
+    import re
+
+    with open(os.path.join(os.path.dirname(ck.__file__), os.pardir, "csrc",
+                           "scan_tile.cuh")) as fh:
+        text = fh.read()
+    body = re.search(r"enum ScanTile : int \{(.*?)\};", text, re.S).group(1)
+    enum = {k: int(v) for k, v in re.findall(r"kTile(\w+) = (\d+)", body)}
+    assert enum == {"Block": 0, "Cluster": 1, "Lanes": 2, "Rows": 3}
+    assert ck._TILE_FLAGS == {
+        "narrow": enum["Block"], "staged": enum["Block"],
+        "cluster": enum["Cluster"], "lanes": enum["Lanes"],
+        "rows": enum["Rows"]}
+
+
 def _fake_card(monkeypatch):
     launched = []
     monkeypatch.setattr(ck, "_device_kind", lambda dev: "cuda")
@@ -115,7 +176,10 @@ def test_launches_are_counted_by_tile(monkeypatch, S, force_staged):
     """Each of the six entries launches once a call (X1's and X2's
     checkpoint modes past 239 states once a chunk), with the cluster flag
     and under the cluster tile's own counter from 257 states, under the
-    block tile's counter below and where the staged tile is forced."""
+    block tile's counter below and where the staged tile is forced; to 256
+    states the four log-space scans with the flag of their own kernels
+    (2 the lanes step to 32 states, 3 the rows kernels beyond), each under
+    a counter of its own."""
     launched = _fake_card(monkeypatch)
     if force_staged:
         monkeypatch.setattr(ck, "SCAN_CLUSTER_MAX_STATES", 0)
@@ -130,8 +194,11 @@ def test_launches_are_counted_by_tile(monkeypatch, S, force_staged):
     ck.backward_prob(lt, obs, lens)
     cluster = int(S > 256 and not force_staged)
     suffix = ("_cluster", "_cluster") if cluster else ("", "_tile")
-    want = [("fwd_scaled" + suffix[0], "tehmm_fwd_scaled", cluster),
-            ("bwd_scaled" + suffix[0], "tehmm_bwd_scaled", cluster),
+    log = cluster if S > 256 else (2 if S <= 32 else 3)
+    own = "_lanes" if S <= 32 else "_rows"
+    scaled, carried = suffix if S > 256 else (own, own)
+    want = [("fwd_scaled" + scaled, "tehmm_fwd_scaled", log),
+            ("bwd_scaled" + scaled, "tehmm_bwd_scaled", log),
             ("fwd_prob" + suffix[0], "tehmm_fwd_prob", cluster),
             ("bwd_prob" + suffix[0], "tehmm_bwd_prob", cluster)]
     if not ck.sweep_fits(S):
@@ -139,10 +206,61 @@ def test_launches_are_counted_by_tile(monkeypatch, S, force_staged):
         ck.forward_checkpoints(lt, obs, carry, lens, chunk)
         ck.backward_chunk_values(lt, obs, carry, cont, lens)
         ck.backward_checkpoints(lt, obs, carry, cont, lens, chunk)
-        fwd = ("fwd_chunk" + suffix[1], "tehmm_fwd_chunk_tile", cluster)
-        bwd = ("bwd_chunk" + suffix[1], "tehmm_bwd_chunk_tile", cluster)
+        fwd = ("fwd_chunk" + carried, "tehmm_fwd_chunk_tile", log)
+        bwd = ("bwd_chunk" + carried, "tehmm_bwd_chunk_tile", log)
         want += [fwd] * (1 + 3) + [bwd] * (1 + 3)
     assert launched == want
+
+
+@pytest.mark.parametrize("force", [None, "tile"])
+@pytest.mark.parametrize("S", [10, 32, 33, 240, 256])
+def test_log_scans_take_their_own_kernels_to_256_states(monkeypatch, S,
+                                                         force):
+    """To 256 states the four log-space scans launch with the tile flag of
+    their route (2 the lanes step, 3 the rows kernels, 0 the block tile
+    where ``LOG_SCAN_MAX_STATES`` forces it), each under the route's own
+    counter (the block tile's where forced); K6 keeps the block tile."""
+    launched = _fake_card(monkeypatch)
+    if force:
+        monkeypatch.setattr(ck, "LOG_SCAN_MAX_STATES", 0)
+    B, L = 3, 10
+    lt, ls = torch.zeros((S, S)), torch.zeros(S)
+    obs, carry = torch.zeros((B, L, S)), torch.zeros((B, S))
+    lens = torch.full((B,), L, dtype=torch.int32)
+    cont = torch.ones(B, dtype=torch.bool)
+    ck.forward_scaled(ls, lt, obs, lens)
+    ck.backward_scaled(lt, obs, lens)
+    ck.forward_prob(ls, lt, obs, lens)
+    if S >= 240:
+        ck.forward_chunk_values(lt, obs, carry, lens)
+        ck.backward_chunk_values(lt, obs, carry, cont, lens)
+    if force:
+        flag, own, chunk = 0, "", "_tile"
+    else:
+        flag, own = (2, "_lanes") if S <= 32 else (3, "_rows")
+        chunk = own
+    want = [("fwd_scaled" + own, "tehmm_fwd_scaled", flag),
+            ("bwd_scaled" + own, "tehmm_bwd_scaled", flag),
+            ("fwd_prob", "tehmm_fwd_prob", 0)]
+    if S >= 240:
+        want += [("fwd_chunk" + chunk, "tehmm_fwd_chunk_tile", flag),
+                 ("bwd_chunk" + chunk, "tehmm_bwd_chunk_tile", flag)]
+    assert launched == want
+
+
+def test_the_log_scan_constants_are_restored():
+    """Tests and tools set ``LOG_SCAN_MAX_STATES`` and restore it, after a
+    failure too."""
+    from tehmm_tpu_torch.tools import time_scans
+
+    with time_scans.block_tile():
+        assert ck.LOG_SCAN_MAX_STATES == 0
+        assert ck.log_scan_route(64) == "narrow"
+    assert ck.LOG_SCAN_MAX_STATES == 256
+    with pytest.raises(KeyError):
+        with time_scans.block_tile():
+            raise KeyError("a failed run")
+    assert ck.LOG_SCAN_MAX_STATES == 256
 
 
 def test_the_forcing_constant_is_restored(monkeypatch):

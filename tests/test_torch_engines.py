@@ -478,7 +478,8 @@ def test_profile_estep_cuda_log_rows(tiny_config, capsys):
 def test_time_scans_rows(tiny_config, capsys, batch):
     """``tools.time_scans``: the device line, then one row a shape with
     every tile kernel's time and the value-row backtrace's (the plain
-    versions here)."""
+    versions here), and K7a's and K7b's again with the block tile forced
+    (``_tile``), each with its us a step; the constant is restored."""
     assert time_scans.main(["--configs", tiny_config, "--device", "cpu",
                             "--reps", "1", "--batch", str(batch)]) == 0
     out = capsys.readouterr().out
@@ -488,8 +489,11 @@ def test_time_scans_rows(tiny_config, capsys, batch):
     assert (row["config"], row["S"], row["B"], row["L"]) == (
         tiny_config, S, batch or B, L)
     assert all(row[k] > 0 for k in ("K5", "K6a", "K6b", "K7a", "K7b",
-                                    "K8c", "bt"))
+                                    "K8c", "bt", "K7a_tile", "K7b_tile"))
     assert row["bt_us"] == pytest.approx(row["bt"] * 1e3 / (L - 1))
+    for k in ("K7a", "K7b", "K7a_tile", "K7b_tile"):
+        assert row[k + "_us"] == pytest.approx(row[k] * 1e3 / L)
+    assert ck.LOG_SCAN_MAX_STATES == 256
 
 
 def test_time_scans_backtrace_rows(capsys):

@@ -293,9 +293,9 @@ def test_forward_loglik_takes_the_pieces_to_their_crossover(monkeypatch, S):
     elif ck.sweep_fits(S):
         assert [x[:2] for x in launched] == [("fwd_chunk",
                                               "tehmm_x1_sweep_smem")]
-    else:   # past 256 states on the cluster tile
+    else:   # past 256 states on the cluster tile, to 256 the rows kernel
         assert [x[:2] for x in launched] == [
-            ("fwd_chunk_cluster" if S > 256 else "fwd_chunk_tile",
+            ("fwd_chunk_cluster" if S > 256 else "fwd_chunk_rows",
              "tehmm_fwd_chunk_tile")]
 
 

@@ -66,10 +66,14 @@ def _j(a):
     return jnp.asarray(np.asarray(a))
 
 
-# ragged rows incl. 0 and 1, zero transitions, past 64 states
+# ragged rows incl. 0 and 1, zero transitions, either side of 32 states,
+# past 64 states
 CASES = {
     "ragged": dict(S=5, L=37, lengths=[37, 20, 7, 1, 0]),
     "zero_trans": dict(S=5, L=40, lengths=[40, 13, 1, 0], zero_frac=0.3),
+    # the card's lanes step to 32 states, its rows kernels from 33
+    "S32": dict(S=32, L=11, lengths=[11, 6, 1, 0], zero_frac=0.3),
+    "S33": dict(S=33, L=11, lengths=[11, 6, 1, 0], zero_frac=0.3),
     "S72": dict(S=72, L=9, lengths=[9, 5, 1, 0], T=1),
     # past 256 states: the cluster tile's S on the card
     "S260": dict(S=260, L=6, lengths=[6, 3, 1, 0], T=1),

@@ -253,14 +253,18 @@ def test_x1_step_by_states(monkeypatch, S):
     ck.forward_final(*args)
     ck.forward_checkpoints(*args, chunk)
     if step == "tile":
-        # past 256 states the cluster tile, under its own counter
+        # past 256 states the cluster tile, to 256 the rows kernel, each
+        # under its own counter
         cluster = int(ck.scan_route(S) == "cluster")
         assert cluster == (S > 256)
-        tile = ("fwd_chunk_cluster" if cluster else "fwd_chunk_tile",
+        # the entry's tile flag: the cluster tile's 1, to 256 states the
+        # rows kernel's 3 (``log_scan_route``)
+        flag = 1 if cluster else 3
+        tile = ("fwd_chunk_cluster" if cluster else "fwd_chunk_rows",
                 "tehmm_fwd_chunk_tile")
         assert [x[:2] for x in launched] == [tile] * (2 + 3)
-        assert [x[2] for x in launched] == [(B, L, S, cluster)] * 2 + \
-            [(B, 4, S, cluster), (B, 4, S, cluster), (B, 2, S, cluster)]
+        assert [x[2] for x in launched] == [(B, L, S, flag)] * 2 + \
+            [(B, 4, S, flag), (B, 4, S, flag), (B, 2, S, flag)]
     else:
         entry = {"lanes": "tehmm_x1_sweep_lanes",
                  "shared": "tehmm_x1_sweep_smem"}[step]

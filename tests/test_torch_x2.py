@@ -149,15 +149,19 @@ def test_x2_step_by_states(monkeypatch, S):
     ck.backward_chunk_values(*args)
     ck.backward_checkpoints(*args, chunk)
     if step == "tile":
-        # past 256 states the cluster tile, under its own counter
+        # past 256 states the cluster tile, to 256 the rows kernel, each
+        # under its own counter
         cluster = int(ck.scan_route(S) == "cluster")
         assert cluster == (S > 256)
-        tile = ("bwd_chunk_cluster" if cluster else "bwd_chunk_tile",
+        # the entry's tile flag: the cluster tile's 1, to 256 states the
+        # rows kernel's 3 (``log_scan_route``)
+        flag = 1 if cluster else 3
+        tile = ("bwd_chunk_cluster" if cluster else "bwd_chunk_rows",
                 "tehmm_bwd_chunk_tile")
         assert [x[:2] for x in launched] == [tile] * (1 + 3)
         assert [x[2] for x in launched] == [
-            (B, L, S, cluster), (B, 2, S, cluster), (B, 4, S, cluster),
-            (B, 4, S, cluster)]
+            (B, L, S, flag), (B, 2, S, flag), (B, 4, S, flag),
+            (B, 4, S, flag)]
     else:
         entry = {"lanes": "tehmm_x2_sweep_lanes",
                  "shared": "tehmm_x2_sweep_smem"}[step]

@@ -199,12 +199,13 @@ def test_aligned_chunks_give_the_carry_of_one_chunk(device, rng):
 @pytest.mark.parametrize("S,rows,kernel", [
     (ck.PIECE_SCAN_MAX_STATES + 1, 7, "fwd_chunk"),
     (64, 33, "fwd_chunk"), (168, 5, "fwd_chunk"),
-    (240, 7, "fwd_chunk_tile")])
+    (240, 7, "fwd_chunk_rows")])
 def test_past_the_crossover_takes_the_chain(device, rng, S, rows, kernel):
     """Past ``PIECE_SCAN_MAX_STATES``, or past the rows
     ``piece_scan_route`` gives the pieces at S, ``forward_loglik``
     launches ``forward_final``'s kernel, X1's chain, and at S = 240,
-    past ``sweep_fits``, the tile's carry mode; no piece kernel."""
+    past ``sweep_fits``, the carry mode on the rows kernel; no piece
+    kernel and no block tile."""
     lt, obs, init, lens = _inputs(rng, device, S, 300)
     take = torch.arange(rows, device=device) % len(lens)
     obs, init, lens = (obs[take].contiguous(), init[take].contiguous(),
@@ -214,7 +215,7 @@ def test_past_the_crossover_takes_the_chain(device, rng, S, rows, kernel):
     got = ck.forward_loglik(lt, obs, init, lens)
     assert ck.LAUNCHES[kernel] == before[kernel] + 1
     for name in ("fwd_piece_ops", "fwd_piece_compose", "fwd_chunk",
-                 "fwd_chunk_tile"):
+                 "fwd_chunk_tile", "fwd_chunk_rows"):
         if name != kernel:
             assert ck.LAUNCHES[name] == before[name]
     want = ck.forward_final(lt, obs, init, lens)
