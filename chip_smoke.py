@@ -107,12 +107,12 @@ Phases (any failure raises, and the run exits non-zero):
    for bit the staged tile's, forced
    (``ck.SCAN_CLUSTER_MAX_STATES`` = 0), each tile timed (the staged
    tile's rows under the old names, the cluster tile's with the staged
-   time beside).  To 256 states K7a/K8a and K7b/K8b run their own kernels
-   (``ck.log_scan_route``: the lanes step to 32 states, the rows kernels
-   beyond; ``fwd_scaled_lanes``, ``fwd_scaled_rows``, ...): every output
-   bit for bit the block tile's, forced (``ck.LOG_SCAN_MAX_STATES`` = 0),
-   its time beside (``tile_ms``; the block tile's rows under the old
-   names).  K6a
+   time beside).  To 256 states K7a/K8a, K7b/K8b, K6a and K6b run their
+   own kernels (``ck.log_scan_route``: the lanes step to 32 states, the
+   rows kernels beyond; ``fwd_scaled_lanes``, ``fwd_prob_rows``, ...):
+   every output bit for bit the block tile's, forced
+   (``ck.LOG_SCAN_MAX_STATES`` = 0), its time beside (``tile_ms``; the
+   block tile's rows under the old names).  K6a
    and K6b also at 3f's train shape (S=1024, one row
    of 20,000: ``@3f_fit``), both tiles, bit for bit, within 2e-6 of plain
    in float64.  K9
@@ -366,6 +366,10 @@ SOURCES = {
     "bwd_prob": "tehmm_tpu_torch/csrc/streaming.cu",
     "fwd_prob_cluster": "tehmm_tpu_torch/csrc/streaming.cu",
     "bwd_prob_cluster": "tehmm_tpu_torch/csrc/streaming.cu",
+    "fwd_prob_lanes": "tehmm_tpu_torch/csrc/streaming.cu",
+    "fwd_prob_rows": "tehmm_tpu_torch/csrc/streaming.cu",
+    "bwd_prob_lanes": "tehmm_tpu_torch/csrc/streaming.cu",
+    "bwd_prob_rows": "tehmm_tpu_torch/csrc/streaming.cu",
     "fwd_scaled": "tehmm_tpu_torch/csrc/scans.cu",
     "bwd_scaled": "tehmm_tpu_torch/csrc/scans.cu",
     "viterbi_ptrs": "tehmm_tpu_torch/csrc/scans.cu",
@@ -463,6 +467,11 @@ REPLACES = {
     # K6a and K6b past 256 states on the cluster tile
     "fwd_prob_cluster": "tehmm_tpu/ops/pallas_kernels.py:815",
     "bwd_prob_cluster": "tehmm_tpu/ops/pallas_kernels.py:885",
+    # K6a and K6b to 256 states on the lanes step and the rows kernels
+    "fwd_prob_lanes": "tehmm_tpu/ops/pallas_kernels.py:815",
+    "fwd_prob_rows": "tehmm_tpu/ops/pallas_kernels.py:815",
+    "bwd_prob_lanes": "tehmm_tpu/ops/pallas_kernels.py:885",
+    "bwd_prob_rows": "tehmm_tpu/ops/pallas_kernels.py:885",
     # K9's two layouts
     "maxplus_resident": "tools/exp_maxplus_s256.py:115",
     "maxplus_blocks": "tools/exp_maxplus_s256.py:120",
@@ -500,11 +509,12 @@ SEGMENT_KERNELS = ("em_fwd", "em_bwd_stats", "viterbi_fwd_lanes",
 STREAMING_KERNELS = ("viterbi_values", "fwd_prob", "bwd_prob",
                      "fwd_scaled", "bwd_scaled", "viterbi_ptrs",
                      "pointer_chase")
-# to 256 states K7a/K7b and X1's and X2's carry modes run their own
-# kernels (the lanes step, the rows kernels: ck.log_scan_route), each under
-# its own counter (ck.scan_counter), the block tile forced only to compare
-# and time it
-LOG_SCANS = ("fwd_scaled", "bwd_scaled", "fwd_chunk_tile", "bwd_chunk_tile")
+# to 256 states K7a/K7b, X1's and X2's carry modes and K6a/K6b run their
+# own kernels (the lanes step, the rows kernels: ck.log_scan_route), each
+# under its own counter (ck.scan_counter), the block tile forced only to
+# compare and time it
+LOG_SCANS = ("fwd_scaled", "bwd_scaled", "fwd_chunk_tile", "bwd_chunk_tile",
+             "fwd_prob", "bwd_prob")
 # past 256 states K7a/K7b, X1's and X2's carry modes, K5, K3's carry mode,
 # K8c, K6a and K6b run the cluster tile in their place (the staged tile
 # forced only to compare and time it)
@@ -716,11 +726,12 @@ def _bound(name, shape, valid, G=0, weighted=False, n_ck=0) -> dict:
         nbytes = 2 * rows + (2 * B * S + 2 * B + S * S) * f
         ops = 2 * S * S + 4 * S
     elif base in ("viterbi_values", "viterbi_values_cluster", "fwd_prob",
-                  "fwd_prob_cluster"):
+                  "fwd_prob_cluster", "fwd_prob_lanes", "fwd_prob_rows"):
         # obs in, rows and normalizers out; product, obs, max, rescale
         nbytes = 2 * rows + (B * L + B + S * S + S) * f
         ops = 2 * S * S + 4 * S
-    elif base in ("bwd_prob", "bwd_prob_cluster"):
+    elif base in ("bwd_prob", "bwd_prob_cluster", "bwd_prob_lanes",
+                  "bwd_prob_rows"):
         # two maxes and rescales a step
         nbytes = 2 * rows + (B + S * S) * f
         ops = 2 * S * S + 7 * S
@@ -2121,8 +2132,8 @@ def _scan_rows(out, name, suffix, S_, got, call, plain, err, shape, valid):
     the cluster tile ran (``CLUSTER_OF[name]``, with the staged tile's
     time beside it), and the staged tile, forced, must give the same bits;
     ``name`` is then the staged tile's row.  To 256 states the log-space
-    scans and X1's and X2's carry modes ran their own kernels
-    (``ck.scan_counter``: ``fwd_scaled_lanes``, ``fwd_scaled_rows``, ...,
+    scans, X1's and X2's carry modes and K6a/K6b ran their own kernels
+    (``ck.scan_counter``: ``fwd_scaled_lanes``, ``fwd_prob_rows``, ...,
     with the block tile's time beside, ``tile_ms``), and the block tile,
     forced, must give the same bits; ``name`` is then the block tile's
     row."""
@@ -2357,7 +2368,9 @@ def phase_streaming_kernels(device, rng, seed) -> dict:
               f"{ll_rel:.3g}), repeat launches bit-identical" + (
                   "; K5's, K8c's and K6's outputs on the cluster tile bit "
                   "for bit the staged tile's (forced)"
-                  if ck.scan_route(S_) == "cluster" else ""), flush=True)
+                  if ck.scan_route(S_) == "cluster"
+                  else f"; K6's {ck.log_scan_route(S_)} kernels' outputs bit "
+                  f"for bit the block tile's (forced)"), flush=True)
         torch.cuda.empty_cache()
     for name, r in out.items():
         staged = f"  staged {r['staged_ms']:9.3f} ms" \
@@ -2709,8 +2722,8 @@ def _engine_kernels(config):
     """The kernels 2e must launch at ``config``: the streaming ones and
     the backtrace, each scan under the counter of its route at the
     config's S (``ck.scan_counter``: K5, K6a/K6b, K7a/K7b and K8c on the
-    cluster tile past 256 states, K7a/K7b on the lanes step or the rows
-    kernels to 256)."""
+    cluster tile past 256 states, K7a/K7b and K6a/K6b on the lanes step
+    or the rows kernels to 256)."""
     from tehmm_tpu_torch.ops import cuda_kernels as ck
     from tehmm_tpu_torch.tools import bench_engines
 
@@ -2780,7 +2793,7 @@ def phase_engines(seed) -> dict:
                     f"{config}: E-step logliks differ by {rel} relative"
             torch.cuda.empty_cache()
         launches[config] = counts
-    for engine, kernels in (("cuda_v3", ("fwd_prob", "bwd_prob")),
+    for engine, kernels in (("cuda_v3", ("fwd_prob_rows", "bwd_prob_rows")),
                             ("cuda_log", ("fwd_scaled_rows",
                                           "bwd_scaled_rows"))):
         ck.reset_launch_counts()
@@ -4962,9 +4975,11 @@ def _run(args, device, smi, parent) -> int:
     assert not staged, \
         f"2e launched the staged tile's K5, K6, K7a/K7b or K8c: {staged}"
     block = {(config, k): engine_launches[config][k]
-             for config in ENGINE_CONFIGS for k in ("fwd_scaled", "bwd_scaled")
+             for config in ENGINE_CONFIGS
+             for k in ("fwd_scaled", "bwd_scaled", "fwd_prob", "bwd_prob")
              if engine_launches[config][k]}
-    assert not block, f"2e launched the block tile's K7a/K7b: {block}"
+    assert not block, \
+        f"2e launched the block tile's K7a/K7b or K6a/K6b: {block}"
     for Sp, counts in maxplus_launches.items():
         print(f"[launches] K9 tool (2m) at Sp={Sp}: "
               f"{ {k: n for k, n in counts.items() if n} }", flush=True)
@@ -5036,9 +5051,11 @@ def _run(args, device, smi, parent) -> int:
             launches[name] = decode_launches[base]
         elif config or base in STREAMING_KERNELS \
                 or base in ("viterbi_backtrace", "fwd_scaled_lanes",
-                            "bwd_scaled_lanes"):
+                            "bwd_scaled_lanes", "fwd_prob_lanes",
+                            "bwd_prob_lanes"):
             # 2e's launches (the backtrace: off the stitched decode, on
-            # 2e's streaming route; K7a/K7b at S20 on the lanes step), and
+            # 2e's streaming route; K7a/K7b and K6a/K6b at S20 on the
+            # lanes step), and
             # at ENV_STATES also 3f's (K5 and
             # the backtrace on its Viterbi paths, K6 on its train, K7 on
             # its max-posterior)

@@ -1,6 +1,7 @@
-// The log-space scans' own steps to 256 states (scans.cu: K7a/K8a, K7b/K8b
-// and the carry modes that run X1 and X2 from 240 to 256 states), in
-// place of scan_tile.cuh's block tile there.
+// The scans' own steps to 256 states, in place of scan_tile.cuh's block
+// tile there: the log-space scans (scans.cu: K7a/K8a, K7b/K8b and the
+// carry modes that run X1 and X2 from 240 to 256 states) and the
+// probability-space scans of the E-step (streaming.cu: K6a, K6b).
 //
 // What held the block tile back at these shapes (PERF.md): one
 // state a thread, so every FMA loaded one matrix element and one
@@ -11,10 +12,11 @@
 // matrix rows read from L2 every step.
 //
 //   lanes (S <= 32)  a warp a row, lane j state j: column j of the matrix
-//     the kernel is handed in registers, e = expf(a) round the warp by S
-//     shuffles, the row max exact across lanes (common.cuh
-//     lanes_row_max); obs read ahead through common.cuh's ring.  No
-//     shared memory in the chain and no barrier.
+//     the kernel is handed in registers, the state vector (K7's e =
+//     expf(a), K6's p itself) round the warp by S shuffles, the row max
+//     exact across lanes (common.cuh lanes_row_max); obs read ahead
+//     through common.cuh's ring.  No shared memory in the chain and no
+//     barrier.
 //   rows (33 to 256 states)  a block owns R rows (1, 2 or 4) for the
 //     whole scan, 32 ceil(S / 4 / 8) threads: each thread runs one chain
 //     (the matrix rows i = q mod 4) of four adjacent columns for all R
@@ -40,9 +42,11 @@
 // Tile::product, narrow): four fmaf chains, chain p over the rows i = p
 // mod 4 below S & ~3 in increasing i, chain 0 then the last S % 4 rows in
 // increasing i, combined as (a0 + a1) + (a2 + a3); terms past S are exact
-// zeros added to a non-negative sum; maxima are exact in any order; expf,
-// logf and the LOG_ZERO clamps as they are.  So every output equals the
-// block tile's bit for bit, at any R.
+// zeros added to a non-negative sum; maxima are exact in any order and
+// floored as the caller's block tile floors them (LOG_ZERO in log space,
+// 1e-37 for K6's probabilities); expf, logf, the LOG_ZERO clamps and
+// K6's u * (1 / m) as they are.  So every output equals the block tile's
+// bit for bit, at any R.
 //
 // Everything is in an anonymous namespace: each source gets its own copy.
 
@@ -87,10 +91,10 @@ __device__ __forceinline__ float lanes_product(float e, const float (&mc)[NS],
   return __fadd_rn(__fadd_rn(c[0], c[1]), __fadd_rn(c[2], c[3]));
 }
 
-// the row's exact max over the lanes below S, floored at LOG_ZERO
+// the row's exact max over the lanes below S, floored at ``floor``
 template <int NS>
-__device__ __forceinline__ float lanes_max(float v, bool mine) {
-  return fmaxf(lanes_row_max<NS>(mine ? v : -INFINITY), kLogZero);
+__device__ __forceinline__ float lanes_max(float v, bool mine, float floor) {
+  return fmaxf(lanes_row_max<NS>(mine ? v : -INFINITY), floor);
 }
 
 // ---------------------------------------------------------------------
@@ -301,10 +305,10 @@ struct RowsTile {
     }
   }
 
-  // m[r] = max(max over the row's states of v[r], LOG_ZERO), through
+  // m[r] = max(max over the row's states of v[r], floor), through
   // partial buffer ``buf``.  Call with the whole block; it synchronizes.
   __device__ __forceinline__ void row_max(const float (&v)[R], float (&m)[R],
-                                          int buf) const {
+                                          int buf, float floor) const {
     float* p = mx + buf * R * kRowsMaxWarps;
 #pragma unroll
     for (int r = 0; r < R; ++r) {
@@ -319,7 +323,7 @@ struct RowsTile {
           *reinterpret_cast<const float4*>(p + r * kRowsMaxWarps + 4);
       const float x = fmaxf(fmaxf(fmaxf(a.x, a.y), fmaxf(a.z, a.w)),
                             fmaxf(fmaxf(b.x, b.y), fmaxf(b.z, b.w)));
-      m[r] = fmaxf(x, kLogZero);
+      m[r] = fmaxf(x, floor);
     }
   }
 
@@ -462,6 +466,22 @@ cudaError_t make_rows_plan(const Fn (&ks)[3][kRowsRs], int64_t B, int S,
     }
   }
   return cudaSuccess;
+}
+
+// The plan of the rows kernels ks at S states and B rows into out[8]: R,
+// KR, threads, SMs, the blocks an SM holds at R = 1, 2 and 4, the shared
+// bytes at R.
+template <typename Fn>
+int write_rows_plan(const Fn (&ks)[3][kRowsRs], int64_t B, int S,
+                    int64_t* out) {
+  RowsPlan plan;
+  const cudaError_t err = make_rows_plan(ks, B, S, &plan);
+  if (err != cudaSuccess) return (int)err;
+  const int64_t v[8] = {plan.R, plan.KR, plan.threads, plan.sms,
+                        plan.per_sm[0], plan.per_sm[1], plan.per_sm[2],
+                        (int64_t)plan.smem};
+  for (int k = 0; k < 8; ++k) out[k] = v[k];
+  return 0;
 }
 
 // Launches the rows kernel of ks at S on its plan (make_rows_plan).

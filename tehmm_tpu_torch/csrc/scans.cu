@@ -477,7 +477,7 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32)
         const float s = lanes_product<NS>(e, mc, tail);
         u = (s > 0.0f ? logf(s) : kLogZero) + o;
       }
-      const float m = lanes_max<NS>(u, mine);
+      const float m = lanes_max<NS>(u, mine, kLogZero);
       a = u - m;
       e = mine ? expf(a) : 0.0f;
       if (hb != nullptr) {
@@ -560,7 +560,7 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32)
     const float e = mine ? expf(x_carry[b * S + lane]) : 0.0f;
     float s = lanes_product<NS>(e, mc, tail);
     s = s > 0.0f ? logf(s) : kLogZero;
-    const float nm = lanes_max<NS>(s, mine);
+    const float nm = lanes_max<NS>(s, mine, kLogZero);
     if (continuing[b] != 0) bv = s - nm;
   }
   float* bb = beta_out + b * L * S + lane;
@@ -579,11 +579,11 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32)
     for (int k = 0; k < steps; ++k) {
       const int64_t t = n - 2 - (r0 + k);
       const float x = src[k * 32] + bv;
-      const float xm = lanes_max<NS>(x, mine);
+      const float xm = lanes_max<NS>(x, mine, kLogZero);
       const float e = mine ? expf(x - xm) : 0.0f;
       float s = lanes_product<NS>(e, mc, tail);
       s = s > 0.0f ? logf(s) : kLogZero;
-      const float nm = lanes_max<NS>(s, mine);
+      const float nm = lanes_max<NS>(s, mine, kLogZero);
       bv = s - nm;
       if (mine) bb[t * S] = bv;
       if (db != nullptr && lane == 0) db[t] = xm + nm;
@@ -594,7 +594,7 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32)
   if (x_out != nullptr) {
     // x_out = obs[0] + beta[0], less its max
     const float x = (mine ? ob[0] : 0.0f) + bv;
-    const float xm = lanes_max<NS>(x, mine);
+    const float xm = lanes_max<NS>(x, mine, kLogZero);
     if (mine) x_out[b * S + lane] = x - xm;
   }
 }
@@ -652,7 +652,7 @@ __global__ void __launch_bounds__(kRowsMaxThreads)
         for (int r = 0; r < R; ++r)
           u[r] = (s[r] > 0.0f ? logf(s[r]) : kLogZero) + o[r];
       }
-      tl.row_max(u, m, 0);
+      tl.row_max(u, m, 0, kLogZero);
 #pragma unroll
       for (int r = 0; r < R; ++r) {
         // position 0 is renormalized in every row, as the reference does
@@ -737,7 +737,7 @@ __global__ void __launch_bounds__(kRowsMaxThreads)
 #pragma unroll
         for (int r = 0; r < R; ++r)
           s[r] = s[r] > 0.0f ? logf(s[r]) : kLogZero;
-        tl.row_max(s, nm, 1);
+        tl.row_max(s, nm, 1, kLogZero);
 #pragma unroll
         for (int r = 0; r < R; ++r)
           if (cont[r]) bv[r] = s[r] - nm[r];
@@ -746,7 +746,7 @@ __global__ void __launch_bounds__(kRowsMaxThreads)
         tl.template ring_obs<true>(L, s0 + k, o);
 #pragma unroll
         for (int r = 0; r < R; ++r) x[r] = o[r] + bv[r];
-        tl.row_max(x, xm, 0);
+        tl.row_max(x, xm, 0, kLogZero);
 #pragma unroll
         for (int r = 0; r < R; ++r) e[r] = expf(x[r] - xm[r]);
         tl.put(e);
@@ -755,7 +755,7 @@ __global__ void __launch_bounds__(kRowsMaxThreads)
 #pragma unroll
         for (int r = 0; r < R; ++r)
           s[r] = s[r] > 0.0f ? logf(s[r]) : kLogZero;
-        tl.row_max(s, nm, 1);
+        tl.row_max(s, nm, 1, kLogZero);
 #pragma unroll
         for (int r = 0; r < R; ++r) {
           if (t + 1 < tl.len[r]) {
@@ -781,7 +781,7 @@ __global__ void __launch_bounds__(kRowsMaxThreads)
 #pragma unroll
     for (int r = 0; r < R; ++r)
       x[r] = tl.obs_at(obs, L, r, 0, has && tl.live[r]) + bv[r];
-    tl.row_max(x, xm, 0);
+    tl.row_max(x, xm, 0, kLogZero);
 #pragma unroll
     for (int r = 0; r < R; ++r)
       if (has && tl.live[r]) x_out[(tl.b0 + r) * S + j] = x[r] - xm[r];
@@ -1397,8 +1397,10 @@ int launch_bwd(int tile, const float* obs, const int32_t* lens,
 
 extern "C" {
 
-// streaming.cu: K5's, K6a's and K6b's cluster plans
+// streaming.cu: K5's, K6a's and K6b's cluster plans, K6a's and K6b's rows
+// plans
 int tehmm_streaming_cluster_plan(int S, int64_t B, int kind, int64_t* out);
+int tehmm_streaming_rows_plan(int S, int64_t B, int kind, int64_t* out);
 
 // ``tile``: launch_fwd's.
 int tehmm_fwd_scaled(const void* obs, const void* lens,
@@ -1462,25 +1464,19 @@ int tehmm_scan_cluster_plan(int S, int64_t B, int kind, int64_t* out) {
   return tehmm_streaming_cluster_plan(S, B, kind, out);
 }
 
-// The rows kernels' plan (make_rows_plan) of the forward (``backward`` 0)
-// or the backward at S states and B rows into out[8]: R, KR, threads,
-// SMs, the blocks an SM holds at R = 1, 2 and 4, the shared bytes at R.
-int tehmm_rows_plan(int S, int64_t B, int backward, int64_t* out) {
-  RowsPlan plan;
-  cudaError_t err;
-  if (backward) {
-    ROWS_KERNELS(ks, bwd_scaled_rows_kernel);
-    err = make_rows_plan(ks, B, S, &plan);
-  } else {
+// The rows kernels' plan (scan_rows.cuh write_rows_plan) of kernel
+// ``kind`` (0 K7a/K8a and X1's carry mode, 1 K7b/K8b and X2's, 2 K6a, 3
+// K6b) at S states and B rows into out[8].
+int tehmm_rows_plan(int S, int64_t B, int kind, int64_t* out) {
+  if (kind == 0) {
     ROWS_KERNELS(ks, fwd_scaled_rows_kernel);
-    err = make_rows_plan(ks, B, S, &plan);
+    return write_rows_plan(ks, B, S, out);
   }
-  if (err != cudaSuccess) return (int)err;
-  const int64_t v[8] = {plan.R, plan.KR, plan.threads, plan.sms,
-                        plan.per_sm[0], plan.per_sm[1], plan.per_sm[2],
-                        (int64_t)plan.smem};
-  for (int k = 0; k < 8; ++k) out[k] = v[k];
-  return 0;
+  if (kind == 1) {
+    ROWS_KERNELS(ks, bwd_scaled_rows_kernel);
+    return write_rows_plan(ks, B, S, out);
+  }
+  return tehmm_streaming_rows_plan(S, B, kind, out);
 }
 
 // ptr_out: uint8 for S <= 256, uint16 beyond; ``cluster``: the cluster

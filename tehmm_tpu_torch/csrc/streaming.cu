@@ -28,6 +28,12 @@
 //   fwd_prob_cluster_kernel, bwd_prob_cluster_kernel
 //                          the same two functions from 257 to 1024
 //                          states on the cluster tile, with the same bits
+//   fwd_prob_lanes_kernel, bwd_prob_lanes_kernel
+//                          the same two functions to 32 states, a warp a
+//                          row (scan_rows.cuh), with the same bits
+//   fwd_prob_rows_kernel, bwd_prob_rows_kernel
+//                          the same two functions from 33 to 256 states
+//                          (scan_rows.cuh), with the same bits
 //
 // What they compute: a scan over the positions of every batch row whose
 // step is an S x S matrix-vector product in a semiring (max-plus for K5,
@@ -79,8 +85,14 @@
 // (scan_cluster.cuh, which says why and how: each block keeps its column
 // slice of the matrix resident; K5's state vector holds the renormalized
 // log values themselves, K6's the scaled probabilities); the staged tile
-// is kept for comparison and past SCAN_CLUSTER_MAX_STATES, and every entry
-// takes the tile the caller names, ``cluster``.
+// is kept for comparison and past SCAN_CLUSTER_MAX_STATES.  To 256 states
+// K6a and K6b run their own kernels instead (scan_rows.cuh, which says
+// why and how: the lanes step to 32 states, a warp a row with no shared
+// memory or barrier in the chain; the rows kernels beyond, a float4 of the
+// matrix for 4 R FMAs, all of it on chip, two barriers a step in K6a and
+// three in K6b); the block tile is kept for comparison.  The K6 entries
+// take the kernel the caller names, ``tile`` (scan_tile.cuh ScanTile),
+// K5's ``cluster``.
 //
 // K3's carry mode (tehmm_viterbi_carry_tile) is K5 started from each
 // row's carry instead of log_start: every position, 0 included, applies
@@ -90,8 +102,9 @@
 // bit with the plain torch version (ops/cuda_kernels.viterbi_values_plain)
 // and its paths are dp.viterbi's.  K6 sums each product in a fixed order,
 // four interleaved FMA chains added pairwise, that depends on S alone (no
-// atomics, no tensor cores, no TF32): two runs, at either RT and on
-// either tile past 256 states, give the same bits, and the result is
+// atomics, no tensor cores, no TF32): two runs, at either RT, on either
+// tile past 256 states and on K6's own kernels to 256 states (at any R),
+// give the same bits, and the result is
 // within float32 rounding of the plain version's matrix product.  The
 // observation multiply and the 1/m scale are roundings of their own
 // (u * (1 / m), never u / m), the max floors are 1e-37, rows of length 0
@@ -102,6 +115,7 @@
 // All global index arithmetic is 64-bit.
 
 #include "scan_cluster.cuh"
+#include "scan_rows.cuh"
 
 namespace {
 
@@ -562,6 +576,257 @@ __global__ void __launch_bounds__(kClusterThreads, 1)
   tl.finish();
 }
 
+// K6a to 32 states, a warp a row (scan_rows.cuh, lanes): the function
+// and the bits of fwd_prob_kernel.  Lane j holds column j of trans_p and
+// p_j (0 past S); a step over the row's valid positions is u = s * obs_p
+// (position 0: start_p * obs_p), s the lanes_product of p, the exact row
+// max m floored at 1e-37 and p = u * (1 / m).  dm = log m is off the
+// chain: lane k keeps the m of step k of the ring's half and takes its log
+// when the half is done.  Past the row's length p is carried with dm 0,
+// so a row of length 0 is all ones.
+template <int NS>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+    fwd_prob_lanes_kernel(const float* __restrict__ obs_p,
+                          const int32_t* __restrict__ lens,
+                          const float* __restrict__ start_p,
+                          const float* __restrict__ trans_p,
+                          float* __restrict__ alpha_out,
+                          float* __restrict__ dm_out, int64_t B, int64_t L,
+                          int S) {
+  extern __shared__ __align__(16) float smem[];  // a ring a warp
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int64_t b = (int64_t)blockIdx.x * kWarpsPerBlock + warp;
+  if (b >= B) return;
+  const bool mine = lane < S;
+  const bool tail = (S & 3) != 0;
+  float* ring = smem + warp * (2 * kHalf * 32) + lane;
+  float mc[NS];
+#pragma unroll
+  for (int i = 0; i < NS; ++i)
+    mc[i] = mine && i < S ? trans_p[(int64_t)i * S + lane] : 0.0f;
+  const float start = mine ? start_p[lane] : 0.0f;
+  float p = mine ? ProbOps::kCarry0 : 0.0f;
+  const int64_t n = max((int64_t)0, min((int64_t)lens[b], L));
+  const float* ob = obs_p + b * L * S + lane;
+  float* hb = alpha_out + b * L * S + lane;  // the next row, by pointer
+  float* db = dm_out + b * L;
+  float mk = 0.0f;  // lane k: the row max of step k of this half
+  stage_column(ring, ob, 0, n, S, mine);
+  stage_column(ring, ob, kHalf, n, S, mine);
+  for (int64_t t0 = 0; t0 < n; t0 += kHalf) {
+    cp_async_wait<1>();  // this half is in; the next may be in flight
+    const float* src = ring + ((t0 / kHalf) & 1) * kHalf * 32;
+    const int steps = (int)min((int64_t)kHalf, n - t0);
+    for (int k = 0; k < steps; ++k) {
+      const float o = src[k * 32];
+      const float base = t0 + k == 0 ? start : lanes_product<NS>(p, mc, tail);
+      const float u = ProbOps::emit(base, o);
+      const float m = lanes_max<NS>(u, mine, kProbFloor);
+      p = mine ? ProbOps::renorm(u, m) : 0.0f;
+      if (mine) *hb = p;
+      hb += S;
+      mk = lane == k ? m : mk;
+    }
+    if (lane < steps) db[t0 + lane] = ProbOps::increment(mk);
+    stage_column(ring, ob, t0 + 2 * kHalf, n, S, mine);
+  }
+  cp_async_wait<0>();
+  // past the row's length: the carried row, zero normalizers
+  for (int64_t t = n; t < L; ++t) {
+    if (mine) *hb = p;
+    hb += S;
+    if (lane == 0) db[t] = 0.0f;
+  }
+}
+
+// K6b to 32 states, a warp a row: the function and the bits of
+// bwd_prob_kernel.  Lane j holds column j of trans_t (row j of trans_p)
+// and b_j.  beta is 1 from position n - 1 of a row of length n up; below,
+// the chain: x = obs_p[t + 1] * b, its exact max xm, e = x * (1 / xm),
+// s the lanes_product of e, its max nm, beta[t] = s * (1 / nm), both
+// maxima floored at 1e-37.
+template <int NS>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+    bwd_prob_lanes_kernel(const float* __restrict__ obs_p,
+                          const int32_t* __restrict__ lens,
+                          const float* __restrict__ trans_t,
+                          float* __restrict__ beta_out, int64_t B, int64_t L,
+                          int S) {
+  extern __shared__ __align__(16) float smem[];  // a ring a warp
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int64_t b = (int64_t)blockIdx.x * kWarpsPerBlock + warp;
+  if (b >= B) return;
+  const bool mine = lane < S;
+  const bool tail = (S & 3) != 0;
+  float* ring = smem + warp * (2 * kHalf * 32) + lane;
+  float mc[NS];
+#pragma unroll
+  for (int i = 0; i < NS; ++i)
+    mc[i] = mine && i < S ? trans_t[(int64_t)i * S + lane] : 0.0f;
+  const int64_t n = max((int64_t)0, min((int64_t)lens[b], L));
+  const float* ob = obs_p + b * L * S + lane;
+  float* bb = beta_out + b * L * S + lane;
+  float bv = 1.0f;
+  if (mine)
+    for (int64_t t = max(n - 1, (int64_t)0); t < L; ++t) bb[t * S] = bv;
+  // the chain: step r at t = n - 2 - r reads position t + 1 = n - 1 - r
+  stage_column_reverse(ring, ob, 0, n, S, mine);
+  stage_column_reverse(ring, ob, kHalf, n, S, mine);
+  for (int64_t r0 = 0; r0 < n - 1; r0 += kHalf) {
+    cp_async_wait<1>();  // this half is in; the next may be in flight
+    const float* src = ring + ((r0 / kHalf) & 1) * kHalf * 32;
+    const int steps = (int)min((int64_t)kHalf, n - 1 - r0);
+    for (int k = 0; k < steps; ++k) {
+      const int64_t t = n - 2 - (r0 + k);
+      const float x = __fmul_rn(src[k * 32], bv);
+      const float xm = lanes_max<NS>(x, mine, kProbFloor);
+      const float e = mine ? ProbOps::renorm(x, xm) : 0.0f;
+      const float s = lanes_product<NS>(e, mc, tail);
+      const float nm = lanes_max<NS>(s, mine, kProbFloor);
+      bv = ProbOps::renorm(s, nm);
+      if (mine) bb[t * S] = bv;
+    }
+    stage_column_reverse(ring, ob, r0 + 2 * kHalf, n, S, mine);
+  }
+  cp_async_wait<0>();
+}
+
+// K6a from 33 to 256 states (scan_rows.cuh, rows): the function and the
+// bits of fwd_prob_kernel.  A step over the block's valid positions: the
+// product over its R rows (position 0: start_p), u = s * obs_p, the row
+// max (one barrier), p = u * (1 / m) where the position is valid, p into
+// the state vectors (a second).  Rows of length 0 never step: all ones.
+// dm = log m is off the chain: lane k R + r of warp 0 keeps row r's m of
+// step k of the ring's half and takes its log when the half is done.  At
+// one row a block and 16 register rows of the matrix (64 to 127 states)
+// the kernel keeps to 128 registers, so that an SM holds eight blocks of
+// 64 threads and S64's 1,024 rows fit one wave at R = 1.
+template <int R, int KR>
+__global__ void __launch_bounds__(kRowsMaxThreads,
+                                  R == 1 && KR == 16 ? 2 : 1)
+    fwd_prob_rows_kernel(const float* __restrict__ obs_p,
+                         const int32_t* __restrict__ lens,
+                         const float* __restrict__ start_p,
+                         const float* __restrict__ trans_p,
+                         float* __restrict__ alpha_out,
+                         float* __restrict__ dm_out, int64_t B, int64_t L,
+                         int S) {
+  extern __shared__ __align__(16) float smem[];
+  RowsTile<R, KR> tl(smem, trans_p, lens, B, L, S);
+  const bool has = tl.has;
+  const int j = tl.j;
+  const float start_j = has ? start_p[j] : 0.0f;
+  float p[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) p[r] = ProbOps::kCarry0;
+  float mk = 0.0f;  // lane k R + r: row r's m at step k of this half, or 0
+  // the steps that run; past them every row of the block is past its end
+  const int64_t steps = tl.max_len;
+  tl.template stage<false>(obs_p, L, 0, steps);
+  tl.template stage<false>(obs_p, L, kRowsHalf, steps);
+  for (int64_t t0 = 0; t0 < steps; t0 += kRowsHalf) {
+    cp_async_wait<1>();  // this half is in; the next may be in flight
+    const int n = (int)min((int64_t)kRowsHalf, steps - t0);
+    for (int k = 0; k < n; ++k) {
+      const int64_t t = t0 + k;
+      float o[R], u[R], m[R];
+      tl.template ring_obs<false>(L, t, o);
+      if (t == 0) {
+#pragma unroll
+        for (int r = 0; r < R; ++r) u[r] = ProbOps::emit(start_j, o[r]);
+      } else {
+        float s[R];
+        tl.product(s);
+#pragma unroll
+        for (int r = 0; r < R; ++r) u[r] = ProbOps::emit(s[r], o[r]);
+      }
+      tl.row_max(u, m, 0, kProbFloor);
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const bool valid = t < tl.len[r];
+        if (valid) p[r] = ProbOps::renorm(u[r], m[r]);
+        if (tl.lane == k * R + r) mk = valid ? m[r] : 0.0f;
+        if (tl.live[r] && has)
+          alpha_out[((tl.b0 + r) * L + t) * S + j] = p[r];
+      }
+      tl.put(p);
+      __syncthreads();
+    }
+    if (tl.warp == 0 && tl.lane < n * R) {
+      const int64_t b = tl.b0 + tl.lane % R;
+      if (b < B)
+        dm_out[b * L + t0 + tl.lane / R] =
+            mk > 0.0f ? ProbOps::increment(mk) : 0.0f;
+    }
+    tl.template stage<false>(obs_p, L, t0 + 2 * kRowsHalf, steps);
+  }
+  cp_async_wait<0>();
+  for (int64_t t = steps; t < L; ++t) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if (!tl.live[r]) continue;
+      const int64_t pos = (tl.b0 + r) * L + t;
+      if (has) alpha_out[pos * S + j] = p[r];
+      if (j == 0) dm_out[pos] = 0.0f;
+    }
+  }
+}
+
+// K6b from 33 to 256 states: the function and the bits of bwd_prob_kernel.
+// Step s at t = L - 1 - s, where t + 1 < the block's longest row: x =
+// obs_p[t + 1] * b, its row max xm (one barrier), x * (1 / xm) into the
+// state vectors (a second), the product over trans_t, its row max nm (a
+// third), b = s * (1 / nm) where t + 1 < the row's length; the two maxima
+// have a partial buffer each.  beta goes out at every t.
+template <int R, int KR>
+__global__ void __launch_bounds__(kRowsMaxThreads)
+    bwd_prob_rows_kernel(const float* __restrict__ obs_p,
+                         const int32_t* __restrict__ lens,
+                         const float* __restrict__ trans_t,
+                         float* __restrict__ beta_out, int64_t B, int64_t L,
+                         int S) {
+  extern __shared__ __align__(16) float smem[];
+  RowsTile<R, KR> tl(smem, trans_t, lens, B, L, S);
+  const bool has = tl.has;
+  const int j = tl.j;
+  float bv[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) bv[r] = 1.0f;
+  tl.template stage<true>(obs_p, L, 0, L);
+  tl.template stage<true>(obs_p, L, kRowsHalf, L);
+  for (int64_t s0 = 0; s0 < L; s0 += kRowsHalf) {
+    cp_async_wait<1>();  // this half is in; the next may be in flight
+    const int n = (int)min((int64_t)kRowsHalf, L - s0);
+    for (int k = 0; k < n; ++k) {
+      const int64_t t = L - 1 - (s0 + k);
+      if (t + 1 < tl.max_len) {
+        float o[R], x[R], xm[R], e[R], s[R], nm[R];
+        tl.template ring_obs<true>(L, s0 + k, o);
+#pragma unroll
+        for (int r = 0; r < R; ++r) x[r] = __fmul_rn(o[r], bv[r]);
+        tl.row_max(x, xm, 0, kProbFloor);
+#pragma unroll
+        for (int r = 0; r < R; ++r) e[r] = ProbOps::renorm(x[r], xm[r]);
+        tl.put(e);
+        __syncthreads();
+        tl.product(s);
+        tl.row_max(s, nm, 1, kProbFloor);
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+          if (t + 1 < tl.len[r]) bv[r] = ProbOps::renorm(s[r], nm[r]);
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+        if (tl.live[r] && has)
+          beta_out[((tl.b0 + r) * L + t) * S + j] = bv[r];
+    }
+    tl.template stage<true>(obs_p, L, s0 + 2 * kRowsHalf, L);
+  }
+  cp_async_wait<0>();
+}
+
 // K5's launch (with ``carry_in``, K3's carry mode): the cluster tile
 // where ``cluster`` (257 to 1024 states), else scan_tile.cuh's.
 int launch_viterbi_values(int cluster, const float* obs, const int32_t* lens,
@@ -629,37 +894,71 @@ int tehmm_streaming_cluster_plan(int S, int64_t B, int kind, int64_t* out) {
   return (int)cudaErrorInvalidValue;
 }
 
-// ``cluster``: the cluster tile (257 to 1024 states), else the block tile.
+// The rows kernels' plan of ``kind`` (scans.cu tehmm_rows_plan's: 2 K6a,
+// 3 K6b) at S states and B rows into out[8] (write_rows_plan).
+int tehmm_streaming_rows_plan(int S, int64_t B, int kind, int64_t* out) {
+  if (kind == 2) {
+    ROWS_KERNELS(ks, fwd_prob_rows_kernel);
+    return write_rows_plan(ks, B, S, out);
+  }
+  if (kind == 3) {
+    ROWS_KERNELS(ks, bwd_prob_rows_kernel);
+    return write_rows_plan(ks, B, S, out);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// ``tile`` (scan_tile.cuh ScanTile): the block tile, the cluster tile
+// (257 to 1024 states), the lanes step (to 32), the rows kernels (33 to
+// 256).
 int tehmm_fwd_prob(const void* obs_p, const void* lens, const void* start_p,
                    const void* trans_p, void* alpha_out, void* dm_out,
-                   int64_t B, int64_t L, int S, int cluster, void* stream) {
-  if (cluster) {
+                   int64_t B, int64_t L, int S, int tile, void* stream) {
+  const float* o = (const float*)obs_p;
+  const int32_t* n = (const int32_t*)lens;
+  const float* sp = (const float*)start_p;
+  const float* tp = (const float*)trans_p;
+  float* a = (float*)alpha_out;
+  float* dm = (float*)dm_out;
+  if (tile == kTileCluster) {
     CLUSTER_KERNELS(ks, fwd_prob_cluster_kernel);
-    return launch_cluster_scan(ks, B, S, 1, stream, (const float*)obs_p,
-                               (const int32_t*)lens, (const float*)start_p,
-                               (const float*)trans_p, (float*)alpha_out,
-                               (float*)dm_out, B, L, S);
+    return launch_cluster_scan(ks, B, S, 1, stream, o, n, sp, tp, a, dm, B,
+                               L, S);
+  }
+  if (tile == kTileLanes) {
+    LANES_KERNELS(ks, fwd_prob_lanes_kernel);
+    return launch_lanes(ks, B, S, stream, o, n, sp, tp, a, dm, B, L, S);
+  }
+  if (tile == kTileRows) {
+    ROWS_KERNELS(ks, fwd_prob_rows_kernel);
+    return launch_rows(ks, B, S, stream, o, n, sp, tp, a, dm, B, L, S);
   }
   TILE_KERNELS(ks, fwd_prob_kernel);
-  return launch_scan(ks, B, S, stream,
-                     (const float*)obs_p, (const int32_t*)lens,
-                     (const float*)start_p, (const float*)trans_p,
-                     (float*)alpha_out, (float*)dm_out, B, L, S);
+  return launch_scan(ks, B, S, stream, o, n, sp, tp, a, dm, B, L, S);
 }
 
 int tehmm_bwd_prob(const void* obs_p, const void* lens, const void* trans_t,
-                   void* beta_out, int64_t B, int64_t L, int S, int cluster,
+                   void* beta_out, int64_t B, int64_t L, int S, int tile,
                    void* stream) {
-  if (cluster) {
+  const float* o = (const float*)obs_p;
+  const int32_t* n = (const int32_t*)lens;
+  const float* tt = (const float*)trans_t;
+  float* beta = (float*)beta_out;
+  if (tile == kTileCluster) {
     CLUSTER_KERNELS(ks, bwd_prob_cluster_kernel);
-    return launch_cluster_scan(ks, B, S, 2, stream, (const float*)obs_p,
-                               (const int32_t*)lens, (const float*)trans_t,
-                               (float*)beta_out, B, L, S);
+    return launch_cluster_scan(ks, B, S, 2, stream, o, n, tt, beta, B, L,
+                               S);
+  }
+  if (tile == kTileLanes) {
+    LANES_KERNELS(ks, bwd_prob_lanes_kernel);
+    return launch_lanes(ks, B, S, stream, o, n, tt, beta, B, L, S);
+  }
+  if (tile == kTileRows) {
+    ROWS_KERNELS(ks, bwd_prob_rows_kernel);
+    return launch_rows(ks, B, S, stream, o, n, tt, beta, B, L, S);
   }
   TILE_KERNELS(ks, bwd_prob_kernel);
-  return launch_scan(ks, B, S, stream,
-                     (const float*)obs_p, (const int32_t*)lens,
-                     (const float*)trans_t, (float*)beta_out, B, L, S);
+  return launch_scan(ks, B, S, stream, o, n, tt, beta, B, L, S);
 }
 
 }  // extern "C"

@@ -91,11 +91,13 @@ row into pieces where ``piece_scan_route`` says (to
 ``PIECE_SCAN_MAX_STATES``, and to a number of rows that falls with S)
 and takes ``forward_final``'s kernels beyond.  To 256 states the four
 log-space scans (``forward_scaled``, ``backward_scaled`` and X1's and X2's
-carry modes) take their own kernels instead of the block tile
-(``log_scan_route``: the lanes step to 32 states, the rows kernels of
-``csrc/scan_rows.cuh`` beyond; ``LOG_SCAN_MAX_STATES`` = 0 forces the
-block tile), each counted under a name of its own (``scan_counter``:
-``fwd_scaled_lanes``, ``fwd_scaled_rows``, ...), with the same bits.
+carry modes) and the probability-space scans K6a and K6b
+(``forward_prob``, ``backward_prob``) take their own kernels instead of
+the block tile (``log_scan_route``: the lanes step to 32 states, the rows
+kernels of ``csrc/scan_rows.cuh`` beyond; ``LOG_SCAN_MAX_STATES`` = 0
+forces the block tile), each counted under a name of its own
+(``scan_counter``: ``fwd_scaled_lanes``, ``fwd_prob_rows``, ...), with
+the same bits.
 
 Each wrapper checks device, dtype, shape and contiguity, and sits beside
 its plain-torch version.  A tensor on the CPU takes the plain version; a
@@ -166,6 +168,8 @@ LAUNCHES = {
            "viterbi_ptrs_cluster", "fwd_prob_cluster", "bwd_prob_cluster",
            "fwd_scaled_lanes", "fwd_scaled_rows", "bwd_scaled_lanes",
            "bwd_scaled_rows", "fwd_chunk_rows", "bwd_chunk_rows",
+           "fwd_prob_lanes", "fwd_prob_rows", "bwd_prob_lanes",
+           "bwd_prob_rows",
            "maxplus_resident", "maxplus_blocks",
            "fwd_piece_ops", "fwd_piece_compose"]
     )
@@ -226,21 +230,28 @@ CLUSTER_PLAN_KINDS = ("fwd_scaled", "bwd_scaled", "viterbi_values",
                       "viterbi_ptrs", "fwd_prob", "bwd_prob")
 # the kinds whose step takes two row maxima, each with a buffer of its own
 _CLUSTER_TWO_MAXIMA = ("bwd_scaled", "bwd_prob")
-# The log-space scans (K7a/K8a, K7b/K8b) and X1's and X2's carry modes run
-# their own kernels to this many states (csrc/scan_rows.cuh,
-# ``log_scan_route``): the lanes step, a warp a row, to 32 states, the rows
+# The log-space scans (K7a/K8a, K7b/K8b), X1's and X2's carry modes and
+# the probability-space scans (K6a, K6b) run their own kernels to this
+# many states (csrc/scan_rows.cuh, ``log_scan_route``, a name from the
+# first four): the lanes step, a warp a row, to 32 states, the rows
 # kernels beyond; past it, to 256 states, the block tile.  All give the
 # same bits, so the choice moves only time; 0 forces the block tile for
-# the four at S <= 256 (tests and tools set it and restore it).
+# the six at S <= 256 (tests and tools set it and restore it).
 LOG_SCAN_MAX_STATES = 256
-# each log-space scan's counter on the block tile -> on the lanes step and
+# each of those scans' counter on the block tile -> on the lanes step and
 # on the rows kernels (the carry modes take the tile only past
 # ``sweep_fits``' 239 states, so only the rows kernels)
 _LOG_SCAN_COUNTERS = {
     "fwd_scaled": {"lanes": "fwd_scaled_lanes", "rows": "fwd_scaled_rows"},
     "bwd_scaled": {"lanes": "bwd_scaled_lanes", "rows": "bwd_scaled_rows"},
     "fwd_chunk_tile": {"rows": "fwd_chunk_rows"},
-    "bwd_chunk_tile": {"rows": "bwd_chunk_rows"}}
+    "bwd_chunk_tile": {"rows": "bwd_chunk_rows"},
+    "fwd_prob": {"lanes": "fwd_prob_lanes", "rows": "fwd_prob_rows"},
+    "bwd_prob": {"lanes": "bwd_prob_lanes", "rows": "bwd_prob_rows"}}
+# the rows kernels whose plans the card's plan entry gives
+# (``tehmm_rows_plan``'s ``kind``): K7a/K8a (and X1's carry mode), K7b/K8b
+# (and X2's), K6a, K6b
+ROWS_PLAN_KINDS = ("fwd_scaled", "bwd_scaled", "fwd_prob", "bwd_prob")
 # the nine scans' entries' ``tile`` flag of each route (csrc/scan_tile.cuh
 # ``ScanTile``)
 _TILE_FLAGS = {"narrow": 0, "staged": 0, "cluster": 1, "lanes": 2,
@@ -2211,15 +2222,25 @@ def forward_prob(log_start, log_trans, obs_p, lengths):
     zero, as in the TPU kernel.
 
     Replaces ``forward_prob_pallas_v3`` (pallas_kernels.py:815, kernel
-    ``_forward_kernel_v3`` :627).  Bound and design as ``viterbi_values``,
-    with each output's S-term float32 sum as four interleaved FMA chains
-    added pairwise, in an order that depends on S alone (no tensor cores,
-    no TF32, no atomics: repeats give the same bits; within float32
-    rounding of the plain version's matrix product).  From 257 states
-    (``scan_route``) the cluster tile (counted as ``fwd_prob_cluster``):
-    each block's slice of exp(log_trans) resident, p itself the state
-    vector, two exchanges across the cluster a step, with the staged
-    tile's bits.  Takes S <= 1024."""
+    ``_forward_kernel_v3`` :627).  Bound as ``viterbi_values``, with each
+    output's S-term float32 sum as four interleaved FMA chains added
+    pairwise, in an order that depends on S alone (no tensor cores, no
+    TF32, no atomics: repeats give the same bits; within float32 rounding
+    of the plain version's matrix product).  Design (``csrc/streaming.cu``,
+    route ``log_scan_route``): to 32 states the lanes step
+    (``fwd_prob_lanes_kernel``: a warp a row, column j of exp(log_trans)
+    in lane j's registers, p round the warp by shuffles, no shared memory
+    or barrier in the chain; counted as ``fwd_prob_lanes``); from 33 to
+    256 the rows kernel (``fwd_prob_rows_kernel``, ``csrc/scan_rows.cuh``,
+    counted as ``fwd_prob_rows``: a block of R rows, a float4 of the
+    matrix for 4 R FMAs, two barriers a step; R by the card's occupancy,
+    ``library_rows_plan``), each with the bits of the block tile
+    (``fwd_prob_kernel``, forced with ``LOG_SCAN_MAX_STATES`` = 0, counted
+    as ``fwd_prob``).  From 257 states (``scan_route``) the cluster tile
+    (counted as ``fwd_prob_cluster``): each block's slice of
+    exp(log_trans) resident, p itself the state vector, two exchanges
+    across the cluster a step, with the staged tile's bits.  Takes S <=
+    1024."""
     dev = _check_streaming(log_trans, obs_p, lengths, "obs_p",
                            "forward_prob", log_start)
     if _device_kind(dev) == "cpu":
@@ -2268,9 +2289,13 @@ def backward_prob(log_trans, obs_p, lengths):
     Replaces ``backward_prob_pallas_v3`` (pallas_kernels.py:885, kernel
     ``_backward_kernel_v3`` :712), which streams a reversed, relaid copy
     of obs_p; this kernel reads obs_p as it is, from the end.  Bound and
-    design as ``forward_prob``, with two max reductions per position (on
-    the cluster tile from 257 states, counted as ``bwd_prob_cluster``,
-    three exchanges a step).  Takes S <= 1024."""
+    design as ``forward_prob``, with two max reductions per position: to
+    32 states ``bwd_prob_lanes_kernel`` (counted as ``bwd_prob_lanes``),
+    from 33 to 256 ``bwd_prob_rows_kernel`` (``bwd_prob_rows``, three
+    barriers a step), the block tile's ``bwd_prob_kernel`` forced with
+    ``LOG_SCAN_MAX_STATES`` = 0 (``bwd_prob``); on the cluster tile from
+    257 states, counted as ``bwd_prob_cluster``, three exchanges a step.
+    Takes S <= 1024."""
     dev = _check_streaming(log_trans, obs_p, lengths, "obs_p",
                            "backward_prob")
     if _device_kind(dev) == "cpu":
@@ -2295,8 +2320,9 @@ def scan_route(S: int) -> str:
     (``forward_scaled``, ``backward_scaled``, X1's and X2's carry modes,
     ``viterbi_values``, K3's carry mode, ``viterbi_pointers``,
     ``forward_prob`` and ``backward_prob``):
-    ``"narrow"`` (the block tile, to 256 states, where the four log-space
-    scans take their own kernels instead: ``log_scan_route``),
+    ``"narrow"`` (the block tile, to 256 states, where the log-space
+    scans, X1's and X2's carry modes and K6a and K6b take their own
+    kernels instead: ``log_scan_route``),
     ``"cluster"`` (the cluster tile, from 257 to
     ``SCAN_CLUSTER_MAX_STATES``), else ``"staged"`` (the block tile's wide
     form, to 1024)."""
@@ -2379,14 +2405,18 @@ def library_cluster_plan(S: int, B: int, kernel) -> dict:
     return plan
 
 
-def library_rows_plan(S: int, B: int, backward: bool = False) -> dict:
-    """The plan the card's launch of the forward's (or the backward's)
-    rows kernels takes at S states and B rows (``tehmm_rows_plan``): R,
-    KR, threads, the card's SMs, ``per_sm`` (the blocks an SM holds at R
-    = 1, 2 and 4) and the shared bytes at R.  Needs the card."""
+def library_rows_plan(S: int, B: int, kernel="fwd_scaled") -> dict:
+    """The plan the card's launch of rows kernel ``kernel`` (one of
+    ``ROWS_PLAN_KINDS``, or its index there: a bool names the log-space
+    backward or forward) takes at S states and B rows
+    (``tehmm_rows_plan``): R, KR, threads, the card's SMs, ``per_sm`` (the
+    blocks an SM holds at R = 1, 2 and 4) and the shared bytes at R.
+    Needs the card."""
+    kind = ROWS_PLAN_KINDS.index(kernel) if isinstance(kernel, str) \
+        else int(kernel)
     lib = load_library()
     out = (ctypes.c_int64 * 8)()
-    _raise_on(lib.tehmm_rows_plan(S, B, int(backward), out), lib,
+    _raise_on(lib.tehmm_rows_plan(S, B, kind, out), lib,
               "the rows kernels' plan")
     R, KR, threads, sms, p1, p2, p4, smem = (int(v) for v in out)
     return dict(R=R, KR=KR, threads=threads, sms=sms,
@@ -2394,11 +2424,12 @@ def library_rows_plan(S: int, B: int, backward: bool = False) -> dict:
 
 
 def log_scan_route(S: int) -> str:
-    """The kernel of the log-space scans and X1's and X2's carry modes at S
-    states: ``"lanes"`` to 32 states and ``"rows"`` to 256 (the edges of
-    the two kernels), each to ``LOG_SCAN_MAX_STATES``; ``"narrow"`` (the
-    block tile, forced) to 256 beyond it; past 256 states
-    ``scan_route(S)``."""
+    """The kernel of the scans with their own kernels to 256 states (the
+    log-space scans, X1's and X2's carry modes, and K6a and K6b: the keys
+    of ``_LOG_SCAN_COUNTERS``) at S states: ``"lanes"`` to 32 states and
+    ``"rows"`` to 256 (the edges of the two kernels), each to
+    ``LOG_SCAN_MAX_STATES``; ``"narrow"`` (the block tile, forced) to 256
+    beyond it; past 256 states ``scan_route(S)``."""
     if S > 256:
         return scan_route(S)
     if S > LOG_SCAN_MAX_STATES:
@@ -2409,8 +2440,9 @@ def log_scan_route(S: int) -> str:
 def scan_counter(name: str, S: int) -> str:
     """The counter a launch of scan ``name`` (its block tile's counter, a
     key of ``_CLUSTER_COUNTERS``) at S states adds to: the route's own
-    (``log_scan_route`` for the four log-space scans, ``scan_route`` for
-    the others), ``name`` itself on the block tile."""
+    (``log_scan_route`` for the six scans with their own kernels to 256
+    states, ``scan_route`` for the others), ``name`` itself on the block
+    tile."""
     if name in _LOG_SCAN_COUNTERS:
         route = log_scan_route(S)
         if route in ("lanes", "rows"):
@@ -2422,9 +2454,10 @@ def scan_counter(name: str, S: int) -> str:
 
 def _launch_scan(name, entry, S, args, dev):
     """Launch one of the cluster tile's nine scans (``_CLUSTER_COUNTERS``)
-    through its entry, with the ``tile`` flag of its route (for the four
-    log-space scans ``log_scan_route(S)``, for the others
-    ``scan_route(S)``), counted under ``scan_counter(name, S)``."""
+    through its entry, with the ``tile`` flag of its route (for the six
+    scans with their own kernels to 256 states ``log_scan_route(S)``, for
+    the others ``scan_route(S)``), counted under ``scan_counter(name,
+    S)``."""
     route = log_scan_route(S) if name in _LOG_SCAN_COUNTERS \
         else scan_route(S)
     _launch_streaming(scan_counter(name, S), entry,

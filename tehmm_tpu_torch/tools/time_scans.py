@@ -16,11 +16,11 @@ alone at B x L x S points on K5's rows of a sticky random model.  Past
 256 states all six run the cluster tile, and are timed again with the staged wide tile forced
 (``K5_staged``, ``K6a_staged``, ``K6b_staged``, ``K7a_staged``,
 ``K7b_staged``, ``K8c_staged``: ``cuda_kernels.SCAN_CLUSTER_MAX_STATES``
-set to 0, then restored).  To 256 states K7a and K7b run their own
+set to 0, then restored).  To 256 states K6a, K6b, K7a and K7b run their own
 kernels (``cuda_kernels.log_scan_route``: the lanes step, the rows
-kernels) and are timed again with the block tile forced (``K7a_tile``,
-``K7b_tile``: ``cuda_kernels.LOG_SCAN_MAX_STATES`` set to 0, then
-restored).  ``--sweeps`` times K3's, X1's and X2's carry
+kernels) and are timed again with the block tile forced (``K6a_tile``,
+``K6b_tile``, ``K7a_tile``, ``K7b_tile``:
+``cuda_kernels.LOG_SCAN_MAX_STATES`` set to 0, then restored).  ``--sweeps`` times K3's, X1's and X2's carry
 modes (``viterbi_chunk_values``, ``forward_chunk_values``,
 ``backward_chunk_values``) at each S on ``--sweep-rows`` full rows of
 ``--sweep-length`` (3f's ``--exact``, ``--pd`` and score shapes), the
@@ -28,17 +28,19 @@ same two ways past 256 states, and to 256 X1's and X2's with the block
 tile forced too (``X1_tile``, ``X2_tile``).  On the card a row past
 256 states has each timed kernel's cluster plan (``plans``, where the
 checkout's ``cuda_kernels.CLUSTER_PLAN_KINDS`` has its kind), and one
-from 33 to 256 the rows a block each of K7a and K7b (or X1 and X2) took
-(``rows_R``, ``cuda_kernels.library_rows_plan``).  Each kernel's
-``*_us`` is its microseconds a step (a position).  The first line names
-the device; then one JSON
-object a shape: the shape and each kernel's median ms of ``reps``
-synchronised calls.  It uses nothing but the wrappers and
+from 33 to 256 the rows a block each of K6a, K6b, K7a and K7b (or X1
+and X2) took where it ran the rows kernels (``rows_R``,
+``cuda_kernels.library_rows_plan``).  Each kernel's ``*_us`` is its
+microseconds a step (a position).  The first line names the device;
+then one JSON object a shape: the shape and each kernel's median ms of
+``reps`` synchronised calls.  It uses nothing but the wrappers and
 ``bench_engines``' inputs, so the same file times an older checkout of
 the port for a comparison in one process each (where the checkout has no
 cluster tile, no ``_staged`` keys are written, and without the log-space
-scans' own kernels no ``_tile`` keys).  On the CPU each wrapper
-runs its plain version: the lines then time nothing of the card.
+scans' own kernels no ``_tile`` keys; where it runs K6 on the block
+tile, ``K6a_tile`` and ``K6b_tile`` time that tile twice).  On the CPU
+each wrapper runs its plain version: the lines then time nothing of the
+card.
 """
 
 from __future__ import annotations
@@ -104,10 +106,28 @@ def block_tile():
 
 
 # the cluster plan kind of each kernel the tool times (the carry modes
-# run their scan's kernel)
+# run their scan's kernel), which is also the rows plan kind of those with
+# rows kernels, and the block tile's counter of each of those
 PLAN_KINDS = {"K5": "viterbi_values", "K6a": "fwd_prob", "K6b": "bwd_prob",
               "K7a": "fwd_scaled", "K7b": "bwd_scaled", "K8c": "viterbi_ptrs",
               "X1": "fwd_scaled", "X2": "bwd_scaled", "K3": "viterbi_values"}
+COUNTERS = {"K6a": "fwd_prob", "K6b": "bwd_prob", "K7a": "fwd_scaled",
+            "K7b": "bwd_scaled", "X1": "fwd_chunk_tile",
+            "X2": "bwd_chunk_tile"}
+# the rows plan kinds of a checkout whose ``library_rows_plan`` takes a
+# bool (the log-space backward or forward)
+_LOG_ROWS_KINDS = ("fwd_scaled", "bwd_scaled")
+
+
+def _rows_R(S, B, names):
+    """The rows a block each of ``names`` took at S states and B rows,
+    for those whose launch ran the rows kernels (``scan_counter``), by
+    the index of its kind in the checkout's ``ROWS_PLAN_KINDS``."""
+    kinds = getattr(ck, "ROWS_PLAN_KINDS", _LOG_ROWS_KINDS)
+    return {name: ck.library_rows_plan(
+                S, B, kinds.index(PLAN_KINDS[name]))["R"]
+            for name in names
+            if ck.scan_counter(COUNTERS[name], S).endswith("_rows")}
 
 
 def _time(row, calls, device, reps, L, staged, tile=()):
@@ -124,11 +144,8 @@ def _time(row, calls, device, reps, L, staged, tile=()):
         fn()  # the first call builds and opts in to shared memory
         row[name] = median_ms(fn, device, reps)
     S = row.get("S", row.get("sweep"))
-    if tile and device.type == "cuda" and hasattr(ck, "library_rows_plan") \
-            and ck.log_scan_route(S) == "rows":
-        row["rows_R"] = {
-            name: ck.library_rows_plan(S, row["B"], name in ("K7b", "X2"))["R"]
-            for name in tile}
+    if tile and device.type == "cuda" and hasattr(ck, "library_rows_plan"):
+        row["rows_R"] = _rows_R(S, row["B"], tile)
     if hasattr(ck, "LOG_SCAN_MAX_STATES"):
         for name in tile:
             row[name + "_us"] = row[name] * 1e3 / L
@@ -170,7 +187,7 @@ def time_config(config, batch, device, reps):
         "K8c": lambda: ck.viterbi_pointers(ls, lt, obs, lens),
     }
     staged = tuple(calls) if S > 256 else ()
-    tile = ("K7a", "K7b") if S <= 256 else ()
+    tile = ("K6a", "K6b", "K7a", "K7b") if S <= 256 else ()
     calls["bt"] = _backtrace_call(ls, lt, obs, lens)
     row = {"config": config, "S": S, "B": B, "L": L}
     _time(row, calls, device, reps, L, staged, tile)

@@ -128,14 +128,20 @@ def test_log_scan_route_by_states(monkeypatch, S, route):
     (256, True, "fwd_chunk_tile", "fwd_chunk_tile"),
     (257, False, "fwd_scaled", "fwd_scaled_cluster"),
     (257, True, "bwd_chunk_tile", "bwd_chunk_cluster"),
-    (256, False, "fwd_prob", "fwd_prob"),
+    (256, False, "fwd_prob", "fwd_prob_rows"),
+    (20, False, "fwd_prob", "fwd_prob_lanes"),
+    (32, False, "bwd_prob", "bwd_prob_lanes"),
+    (33, False, "bwd_prob", "bwd_prob_rows"),
+    (64, True, "fwd_prob", "fwd_prob"),
+    (256, True, "bwd_prob", "bwd_prob"),
+    (257, False, "bwd_prob", "bwd_prob_cluster"),
     (240, False, "viterbi_chunk_tile", "viterbi_chunk_tile"),
     (512, False, "viterbi_ptrs", "viterbi_ptrs_cluster")])
 def test_scan_counter_by_route(monkeypatch, S, forced, name, want):
-    """Each route counts under a name of its own: the log-space scans'
-    lanes step and rows kernels, the block tile (forced, or for the other
-    scans to 256 states) under the scan's own name, the cluster tile under
-    its counter; every name is one of ``LAUNCHES``."""
+    """Each route counts under a name of its own: the lanes step and rows
+    kernels of the log-space scans and of K6a/K6b, the block tile (forced,
+    or for the other scans to 256 states) under the scan's own name, the
+    cluster tile under its counter; every name is one of ``LAUNCHES``."""
     if forced:
         monkeypatch.setattr(ck, "LOG_SCAN_MAX_STATES", 0)
     assert ck.scan_counter(name, S) == want
@@ -161,6 +167,51 @@ def test_tile_flags_are_the_c_enum():
         "rows": enum["Rows"]}
 
 
+def test_rows_plan_kinds_are_the_c_entries():
+    """``ROWS_PLAN_KINDS`` is the order of ``tehmm_rows_plan``'s kinds:
+    scans.cu's two log-space rows kernels, then streaming.cu's K6a and
+    K6b, each the rows kernel of its block tile's counter."""
+    import os
+    import re
+
+    csrc = os.path.join(os.path.dirname(ck.__file__), os.pardir, "csrc")
+    kinds = {}
+    for name in ("scans.cu", "streaming.cu"):
+        with open(os.path.join(csrc, name)) as fh:
+            text = fh.read()
+        kinds.update((int(k), v) for k, v in re.findall(
+            r"if \(kind == (\d)\) \{\s*ROWS_KERNELS\(ks, (\w+)_rows_kernel\)",
+            text))
+    assert kinds == {0: "fwd_scaled", 1: "bwd_scaled", 2: "fwd_prob",
+                     3: "bwd_prob"}
+    assert ck.ROWS_PLAN_KINDS == tuple(kinds[k] for k in range(4))
+    assert all(ck._LOG_SCAN_COUNTERS[k]["rows"] == k + "_rows"
+               for k in ck.ROWS_PLAN_KINDS)
+
+
+@pytest.mark.parametrize("kernel,kind", [
+    ("fwd_scaled", 0), ("bwd_scaled", 1), ("fwd_prob", 2), ("bwd_prob", 3),
+    (False, 0), (True, 1), (3, 3)])
+def test_library_rows_plan_asks_for_its_kind(monkeypatch, kernel, kind):
+    """``library_rows_plan`` hands the C entry the kind of the kernel it
+    is named (or its index; a bool the log-space backward or forward) and
+    reads the plan back (the library faked)."""
+    asked = []
+
+    class FakeLib:
+        def tehmm_rows_plan(self, S, B, k, out):
+            asked.append((S, B, k))
+            for i, v in enumerate((2, 16, 128, 132, 8, 6, 3, 65536)):
+                out[i] = v
+            return 0
+
+    monkeypatch.setattr(ck, "load_library", FakeLib)
+    assert ck.library_rows_plan(100, 700, kernel) == dict(
+        R=2, KR=16, threads=128, sms=132, per_sm={1: 8, 2: 6, 4: 3},
+        smem=65536)
+    assert asked == [(100, 700, kind)]
+
+
 def _fake_card(monkeypatch):
     launched = []
     monkeypatch.setattr(ck, "_device_kind", lambda dev: "cuda")
@@ -177,9 +228,9 @@ def test_launches_are_counted_by_tile(monkeypatch, S, force_staged):
     checkpoint modes past 239 states once a chunk), with the cluster flag
     and under the cluster tile's own counter from 257 states, under the
     block tile's counter below and where the staged tile is forced; to 256
-    states the four log-space scans with the flag of their own kernels
-    (2 the lanes step to 32 states, 3 the rows kernels beyond), each under
-    a counter of its own."""
+    states the four log-space scans and K6a/K6b with the flag of their own
+    kernels (2 the lanes step to 32 states, 3 the rows kernels beyond),
+    each under a counter of its own."""
     launched = _fake_card(monkeypatch)
     if force_staged:
         monkeypatch.setattr(ck, "SCAN_CLUSTER_MAX_STATES", 0)
@@ -199,8 +250,8 @@ def test_launches_are_counted_by_tile(monkeypatch, S, force_staged):
     scaled, carried = suffix if S > 256 else (own, own)
     want = [("fwd_scaled" + scaled, "tehmm_fwd_scaled", log),
             ("bwd_scaled" + scaled, "tehmm_bwd_scaled", log),
-            ("fwd_prob" + suffix[0], "tehmm_fwd_prob", cluster),
-            ("bwd_prob" + suffix[0], "tehmm_bwd_prob", cluster)]
+            ("fwd_prob" + scaled, "tehmm_fwd_prob", log),
+            ("bwd_prob" + scaled, "tehmm_bwd_prob", log)]
     if not ck.sweep_fits(S):
         ck.forward_chunk_values(lt, obs, carry, lens)
         ck.forward_checkpoints(lt, obs, carry, lens, chunk)
@@ -216,10 +267,10 @@ def test_launches_are_counted_by_tile(monkeypatch, S, force_staged):
 @pytest.mark.parametrize("S", [10, 32, 33, 240, 256])
 def test_log_scans_take_their_own_kernels_to_256_states(monkeypatch, S,
                                                          force):
-    """To 256 states the four log-space scans launch with the tile flag of
-    their route (2 the lanes step, 3 the rows kernels, 0 the block tile
-    where ``LOG_SCAN_MAX_STATES`` forces it), each under the route's own
-    counter (the block tile's where forced); K6 keeps the block tile."""
+    """To 256 states the four log-space scans and K6a/K6b launch with the
+    tile flag of their route (2 the lanes step, 3 the rows kernels, 0 the
+    block tile where ``LOG_SCAN_MAX_STATES`` forces it), each under the
+    route's own counter (the block tile's where forced)."""
     launched = _fake_card(monkeypatch)
     if force:
         monkeypatch.setattr(ck, "LOG_SCAN_MAX_STATES", 0)
@@ -231,6 +282,7 @@ def test_log_scans_take_their_own_kernels_to_256_states(monkeypatch, S,
     ck.forward_scaled(ls, lt, obs, lens)
     ck.backward_scaled(lt, obs, lens)
     ck.forward_prob(ls, lt, obs, lens)
+    ck.backward_prob(lt, obs, lens)
     if S >= 240:
         ck.forward_chunk_values(lt, obs, carry, lens)
         ck.backward_chunk_values(lt, obs, carry, cont, lens)
@@ -241,7 +293,8 @@ def test_log_scans_take_their_own_kernels_to_256_states(monkeypatch, S,
         chunk = own
     want = [("fwd_scaled" + own, "tehmm_fwd_scaled", flag),
             ("bwd_scaled" + own, "tehmm_bwd_scaled", flag),
-            ("fwd_prob", "tehmm_fwd_prob", 0)]
+            ("fwd_prob" + own, "tehmm_fwd_prob", flag),
+            ("bwd_prob" + own, "tehmm_bwd_prob", flag)]
     if S >= 240:
         want += [("fwd_chunk" + chunk, "tehmm_fwd_chunk_tile", flag),
                  ("bwd_chunk" + chunk, "tehmm_bwd_chunk_tile", flag)]
@@ -413,8 +466,9 @@ def test_prob_plans_are_the_log_space_scans(B):
 def test_cuda_v3_estep_launches_k6_by_tile(monkeypatch, S, force_staged):
     """The E-step engine ``cuda_v3`` (what ``"auto"`` takes past K1's
     envelope) launches K6a and K6b once each a pass: on the cluster tile
-    from 257 states, the block tile below and where the staged tile is
-    forced (launches faked, the plain version's results in their place)."""
+    from 257 states, the staged tile where it is forced past 256, the
+    lanes step to 32 states and the rows kernels to 256 (launches faked,
+    the plain version's results in their place)."""
     from tehmm_tpu_torch.models.params import HmmParams
     from tehmm_tpu_torch.ops import em
 
@@ -434,6 +488,29 @@ def test_cuda_v3_estep_launches_k6_by_tile(monkeypatch, S, force_staged):
     lens = torch.full((B,), L, dtype=torch.int32)
     em.em_sufficient_stats(p, sym, lens, engine="cuda_v3")
     cluster = int(S > 256 and not force_staged)
-    suffix = "_cluster" if cluster else ""
-    assert launched == [("fwd_prob" + suffix, "tehmm_fwd_prob", cluster),
-                        ("bwd_prob" + suffix, "tehmm_bwd_prob", cluster)]
+    suffix, flag = ("_cluster" if cluster else "", cluster)
+    if S <= 256:
+        suffix, flag = ("_lanes", 2) if S <= 32 else ("_rows", 3)
+    assert launched == [("fwd_prob" + suffix, "tehmm_fwd_prob", flag),
+                        ("bwd_prob" + suffix, "tehmm_bwd_prob", flag)]
+
+
+@pytest.mark.parametrize("S", [10, 256])
+def test_cuda_v3_estep_block_tile_forced(monkeypatch, S):
+    """With ``LOG_SCAN_MAX_STATES`` = 0 the ``cuda_v3`` E-step launches
+    the block tile's K6a and K6b to 256 states, under their own names
+    and with flag 0 (launches faked)."""
+    from tehmm_tpu_torch.models.params import HmmParams
+    from tehmm_tpu_torch.ops import em
+
+    launched = _fake_card(monkeypatch)
+    monkeypatch.setattr(ck, "LOG_SCAN_MAX_STATES", 0)
+    B, L = 2, 5
+    p = HmmParams(torch.full((S,), -float(np.log(S))),
+                  torch.full((S, S), -float(np.log(S))),
+                  torch.full((S, 2, 3), -float(np.log(3))))
+    sym = torch.ones((B, L, 2), dtype=torch.int32)
+    lens = torch.full((B,), L, dtype=torch.int32)
+    em.em_sufficient_stats(p, sym, lens, engine="cuda_v3")
+    assert launched == [("fwd_prob", "tehmm_fwd_prob", 0),
+                        ("bwd_prob", "tehmm_bwd_prob", 0)]

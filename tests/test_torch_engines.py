@@ -89,6 +89,10 @@ PROB_CASES = {
     "multigroup": dict(S=9, L=12, lengths=[12, 1, 7, 12, 3]),
     "zero_trans_and_empty_row": dict(S=5, L=40, lengths=[40, 0],
                                      zero_frac=0.3, blank_rows=(1,)),
+    # the edges of K6's lanes step (to 32 states) and rows kernels (from
+    # 33), ragged with rows of length 0 and 1
+    "lanes_edge": dict(S=32, L=11, lengths=[11, 0, 1, 6], zero_frac=0.3),
+    "rows_edge": dict(S=33, L=11, lengths=[1, 11, 0, 7], zero_frac=0.3),
 }
 
 
@@ -478,8 +482,9 @@ def test_profile_estep_cuda_log_rows(tiny_config, capsys):
 def test_time_scans_rows(tiny_config, capsys, batch):
     """``tools.time_scans``: the device line, then one row a shape with
     every tile kernel's time and the value-row backtrace's (the plain
-    versions here), and K7a's and K7b's again with the block tile forced
-    (``_tile``), each with its us a step; the constant is restored."""
+    versions here), and K6a's, K6b's, K7a's and K7b's again with the block
+    tile forced (``_tile``), each with its us a step; no ``rows_R`` off the
+    card; the constant is restored."""
     assert time_scans.main(["--configs", tiny_config, "--device", "cpu",
                             "--reps", "1", "--batch", str(batch)]) == 0
     out = capsys.readouterr().out
@@ -488,12 +493,37 @@ def test_time_scans_rows(tiny_config, capsys, batch):
     S, _T, _V, B, L = TINY
     assert (row["config"], row["S"], row["B"], row["L"]) == (
         tiny_config, S, batch or B, L)
-    assert all(row[k] > 0 for k in ("K5", "K6a", "K6b", "K7a", "K7b",
-                                    "K8c", "bt", "K7a_tile", "K7b_tile"))
+    own = ("K6a", "K6b", "K7a", "K7b")
+    assert all(row[k] > 0 for k in ("K5", "K8c", "bt") + own)
     assert row["bt_us"] == pytest.approx(row["bt"] * 1e3 / (L - 1))
-    for k in ("K7a", "K7b", "K7a_tile", "K7b_tile"):
+    for k in own + tuple(k + "_tile" for k in own):
+        assert row[k] > 0
         assert row[k + "_us"] == pytest.approx(row[k] * 1e3 / L)
+    assert "rows_R" not in row
     assert ck.LOG_SCAN_MAX_STATES == 256
+
+
+@pytest.mark.parametrize("S,force,want", [
+    (64, False, {"K6a": 2, "K6b": 3, "K7a": 0, "K7b": 1}),
+    (256, False, {"K6a": 2, "K6b": 3, "K7a": 0, "K7b": 1}),
+    (20, False, {}), (64, True, {})])
+def test_time_scans_rows_R_asks_each_kernels_kind(monkeypatch, S, force,
+                                                  want):
+    """``rows_R``: the rows a block of each of K6a, K6b, K7a and K7b that
+    ran the rows kernels, read from the plan of its own kind (the card's
+    plan faked); none on the lanes step or the forced block tile."""
+    asked = {}
+
+    def plan(S_, B, kind):
+        asked[kind] = (S_, B)
+        return {"R": 10 + kind}
+
+    monkeypatch.setattr(ck, "library_rows_plan", plan)
+    if force:
+        monkeypatch.setattr(ck, "LOG_SCAN_MAX_STATES", 0)
+    got = time_scans._rows_R(S, 7, ("K6a", "K6b", "K7a", "K7b"))
+    assert got == {name: 10 + kind for name, kind in want.items()}
+    assert asked == {kind: (S, 7) for kind in want.values()}
 
 
 def test_time_scans_backtrace_rows(capsys):

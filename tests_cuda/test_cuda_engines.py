@@ -80,8 +80,9 @@ def test_prob_scans_match_plain(device, rng, S, L, zero_frac):
     before = dict(ck.LAUNCHES)
     alpha, dm = ck.forward_prob(ls, lt, obs_p, lens)
     beta = ck.backward_prob(lt, obs_p, lens)
-    assert ck.LAUNCHES["fwd_prob"] == before["fwd_prob"] + 1
-    assert ck.LAUNCHES["bwd_prob"] == before["bwd_prob"] + 1
+    for name in ("fwd_prob", "bwd_prob"):
+        own = ck.scan_counter(name, S)
+        assert ck.LAUNCHES[own] == before[own] + 1
     p_alpha, p_dm = ck.forward_prob_plain(ls, lt, obs_p, lens)
     p_beta = ck.backward_prob_plain(lt, obs_p, lens)
     torch.testing.assert_close(alpha, p_alpha, rtol=0, atol=2e-6)
@@ -181,8 +182,9 @@ def test_cuda_v3_engine_matches_plain_engine(device, rng, S):
     p = HmmParams(ls, lt, lem)
     before = dict(ck.LAUNCHES)
     got = em.em_sufficient_stats(p, sym, lens, engine="cuda_v3")
-    assert ck.LAUNCHES["fwd_prob"] == before["fwd_prob"] + 1
-    assert ck.LAUNCHES["bwd_prob"] == before["bwd_prob"] + 1
+    for name in ("fwd_prob", "bwd_prob"):
+        own = ck.scan_counter(name, S)
+        assert ck.LAUNCHES[own] == before[own] + 1
     want = em.em_sufficient_stats(p, sym, lens, engine="plain")
     torch.testing.assert_close(got.loglik, want.loglik, rtol=1e-5, atol=0)
     for name, atol in (("start", 1e-5), ("trans", 1e-5), ("em", 1e-4)):
