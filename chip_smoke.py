@@ -107,9 +107,11 @@ Phases (any failure raises, and the run exits non-zero):
    for bit the staged tile's, forced
    (``ck.SCAN_CLUSTER_MAX_STATES`` = 0), each tile timed (the staged
    tile's rows under the old names, the cluster tile's with the staged
-   time beside).  To 256 states K7a/K8a, K7b/K8b, K6a and K6b run their
-   own kernels (``ck.log_scan_route``: the lanes step to 32 states, the
-   rows kernels beyond; ``fwd_scaled_lanes``, ``fwd_prob_rows``, ...):
+   time beside).  To 256 states K7a/K8a, K7b/K8b, K6a, K6b, K5 and K8c
+   run their own kernels (``ck.log_scan_route``: the lanes step to 32
+   states, the rows kernels beyond; ``fwd_scaled_lanes``,
+   ``fwd_prob_rows``, ``viterbi_values_rows``, ``viterbi_ptrs_lanes``,
+   ...):
    every output bit for bit the block tile's, forced
    (``ck.LOG_SCAN_MAX_STATES`` = 0), its time beside (``tile_ms``; the
    block tile's rows under the old names).  K6a
@@ -122,11 +124,12 @@ Phases (any failure raises, and the run exits non-zero):
    kernels, K3, X1 and X2 on the tile's carry modes at S=240, 256, 257,
    512 and 1024 (4 rows of 4096, ragged): K3 bit-equal, X1/X2 at the F3
    limit of plain in float64, X1's two modes one carry, a sweep cut into
-   three chunks bit-equal to one; at 240 and 256 X1's and X2's carry
-   modes run the rows kernels, every output (both of X1's modes) bit for
-   bit the block tile's, forced, and both timed; past 256 K3's, X1's and
-   X2's run the cluster tile, every output (both of K3's and X1's modes)
-   bit for bit the staged tile's, forced, and both timed.
+   three chunks bit-equal to one; at 240 and 256 K3's, X1's and X2's
+   carry modes run the rows kernels (``viterbi_chunk_rows``,
+   ``fwd_chunk_rows``, ``bwd_chunk_rows``), every output (both of K3's
+   and X1's modes) bit for bit the block tile's, forced, and both timed; past
+   256 K3's, X1's and X2's run the cluster tile, every output (both of K3's and
+   X1's modes) bit for bit the staged tile's, forced, and both timed.
 2e. The engine-comparison path through its tools' entry points, at the
    full width of all four ``bench_engines`` shapes (S=20, 64, 128, 256):
    ``tools.bench_engines`` with the E-step engines plain, cuda (K1),
@@ -370,6 +373,11 @@ SOURCES = {
     "fwd_prob_rows": "tehmm_tpu_torch/csrc/streaming.cu",
     "bwd_prob_lanes": "tehmm_tpu_torch/csrc/streaming.cu",
     "bwd_prob_rows": "tehmm_tpu_torch/csrc/streaming.cu",
+    "viterbi_values_lanes": "tehmm_tpu_torch/csrc/streaming.cu",
+    "viterbi_values_rows": "tehmm_tpu_torch/csrc/streaming.cu",
+    "viterbi_chunk_rows": "tehmm_tpu_torch/csrc/streaming.cu",
+    "viterbi_ptrs_lanes": "tehmm_tpu_torch/csrc/scans.cu",
+    "viterbi_ptrs_rows": "tehmm_tpu_torch/csrc/scans.cu",
     "fwd_scaled": "tehmm_tpu_torch/csrc/scans.cu",
     "bwd_scaled": "tehmm_tpu_torch/csrc/scans.cu",
     "viterbi_ptrs": "tehmm_tpu_torch/csrc/scans.cu",
@@ -472,6 +480,16 @@ REPLACES = {
     "fwd_prob_rows": "tehmm_tpu/ops/pallas_kernels.py:815",
     "bwd_prob_lanes": "tehmm_tpu/ops/pallas_kernels.py:885",
     "bwd_prob_rows": "tehmm_tpu/ops/pallas_kernels.py:885",
+    # K5 (viterbi_pallas_v3's value sweep, _viterbi_values_v3 :1374, its
+    # kernel _make_viterbi_kernel_v3 :1284), K3's carry mode past 239
+    # states (:1284) and K8c (viterbi_pallas :333, its kernel
+    # _viterbi_kernel :277) to 256 states on the lanes step and the rows
+    # kernels
+    "viterbi_values_lanes": "tehmm_tpu/ops/pallas_kernels.py:1374",
+    "viterbi_values_rows": "tehmm_tpu/ops/pallas_kernels.py:1374",
+    "viterbi_chunk_rows": "tehmm_tpu/ops/pallas_kernels.py:1284",
+    "viterbi_ptrs_lanes": "tehmm_tpu/ops/pallas_kernels.py:333",
+    "viterbi_ptrs_rows": "tehmm_tpu/ops/pallas_kernels.py:333",
     # K9's two layouts
     "maxplus_resident": "tools/exp_maxplus_s256.py:115",
     "maxplus_blocks": "tools/exp_maxplus_s256.py:120",
@@ -509,12 +527,14 @@ SEGMENT_KERNELS = ("em_fwd", "em_bwd_stats", "viterbi_fwd_lanes",
 STREAMING_KERNELS = ("viterbi_values", "fwd_prob", "bwd_prob",
                      "fwd_scaled", "bwd_scaled", "viterbi_ptrs",
                      "pointer_chase")
-# to 256 states K7a/K7b, X1's and X2's carry modes and K6a/K6b run their
-# own kernels (the lanes step, the rows kernels: ck.log_scan_route), each
-# under its own counter (ck.scan_counter), the block tile forced only to
-# compare and time it
+# to 256 states all nine scans over obs (K7a/K7b, X1's and X2's carry
+# modes, K6a/K6b, K5, K3's carry mode and K8c) run their own kernels (the
+# lanes step, the rows kernels: ck.log_scan_route), each under its own
+# counter (ck.scan_counter), the block tile forced only to compare and
+# time it
 LOG_SCANS = ("fwd_scaled", "bwd_scaled", "fwd_chunk_tile", "bwd_chunk_tile",
-             "fwd_prob", "bwd_prob")
+             "fwd_prob", "bwd_prob", "viterbi_values", "viterbi_ptrs",
+             "viterbi_chunk_tile")
 # past 256 states K7a/K7b, X1's and X2's carry modes, K5, K3's carry mode,
 # K8c, K6a and K6b run the cluster tile in their place (the staged tile
 # forced only to compare and time it)
@@ -539,9 +559,9 @@ WIDE_ENGINES = ("plain,cuda_v3,cuda_log", "plain,streaming,pointers",
 # K9: phase 2 at Sp x MAXPLUS_BG, bit-equal to plain; 2m runs the tool at
 # each Sp
 MAXPLUS_SP, MAXPLUS_BG, MAXPLUS_BLKS = (256, 512, 1024), 128, (8, 16, 32)
-# the carried sweeps past their one-warp kernels, X_B rows of X_L: K3's
-# carry mode on the block tile and X1's and X2's on the rows kernels at 240
-# and 256 states, all three on the cluster tile beyond
+# the carried sweeps past their one-warp kernels, X_B rows of X_L: K3's,
+# X1's and X2's carry modes on the rows kernels at 240 and 256 states, on
+# the cluster tile beyond
 WIDE_SWEEP_STATES = (240, 256, 257, 512, 1024)
 SWEEP_CUTS = (0, 1000, 2500, X_L)    # a sweep cut into three chunks
 # 3f's paths and the kernels each must run
@@ -695,7 +715,8 @@ def _bound(name, shape, valid, G=0, weighted=False, n_ck=0) -> dict:
         return dict(bound_ms=max(t_bytes, t_ops) * 1e3,
                     bound_by="bytes" if t_bytes >= t_ops else "operations",
                     library_ms=None)
-    elif base in ("viterbi_chunk_tile", "viterbi_chunk_cluster"):
+    elif base in ("viterbi_chunk_tile", "viterbi_chunk_cluster",
+                  "viterbi_chunk_rows"):
         nbytes = 2 * rows + (B * S + B + S * S) * f
         ops = 2 * S * S + 3 * S
     elif base == "fwd_piece_ops":      # S chains of X1's step a position
@@ -725,7 +746,8 @@ def _bound(name, shape, valid, G=0, weighted=False, n_ck=0) -> dict:
                   "bwd_chunk_rows"):   # log-space step
         nbytes = 2 * rows + (2 * B * S + 2 * B + S * S) * f
         ops = 2 * S * S + 4 * S
-    elif base in ("viterbi_values", "viterbi_values_cluster", "fwd_prob",
+    elif base in ("viterbi_values", "viterbi_values_cluster",
+                  "viterbi_values_lanes", "viterbi_values_rows", "fwd_prob",
                   "fwd_prob_cluster", "fwd_prob_lanes", "fwd_prob_rows"):
         # obs in, rows and normalizers out; product, obs, max, rescale
         nbytes = 2 * rows + (B * L + B + S * S + S) * f
@@ -745,7 +767,8 @@ def _bound(name, shape, valid, G=0, weighted=False, n_ck=0) -> dict:
         # obs, max, sub, exp, product, log, max, sub, dm
         nbytes = 2 * rows + (B * L + B + S * S) * f
         ops = 2 * S * S + 8 * S
-    elif base in ("viterbi_ptrs", "viterbi_ptrs_cluster"):
+    elif base in ("viterbi_ptrs", "viterbi_ptrs_cluster",
+                  "viterbi_ptrs_lanes", "viterbi_ptrs_rows"):
         # add-and-compare product, pointers
         ptr = 1 if S <= 256 else 2     # out (uint8, or uint16 past 256)
         nbytes = rows + ptr * B * L * S + (B * S + B * L + B + S * S + S) * f
@@ -2131,9 +2154,9 @@ def _scan_rows(out, name, suffix, S_, got, call, plain, err, shape, valid):
     whose outputs ``got`` (a tuple) came from ``call``: past 256 states
     the cluster tile ran (``CLUSTER_OF[name]``, with the staged tile's
     time beside it), and the staged tile, forced, must give the same bits;
-    ``name`` is then the staged tile's row.  To 256 states the log-space
-    scans, X1's and X2's carry modes and K6a/K6b ran their own kernels
-    (``ck.scan_counter``: ``fwd_scaled_lanes``, ``fwd_prob_rows``, ...,
+    ``name`` is then the staged tile's row.  To 256 states every scan of
+    ``LOG_SCANS`` ran its own kernels (``ck.scan_counter``:
+    ``fwd_scaled_lanes``, ``fwd_prob_rows``, ``viterbi_ptrs_rows``, ...,
     with the block tile's time beside, ``tile_ms``), and the block tile,
     forced, must give the same bits; ``name`` is then the block tile's
     row."""
@@ -2369,8 +2392,9 @@ def phase_streaming_kernels(device, rng, seed) -> dict:
                   "; K5's, K8c's and K6's outputs on the cluster tile bit "
                   "for bit the staged tile's (forced)"
                   if ck.scan_route(S_) == "cluster"
-                  else f"; K6's {ck.log_scan_route(S_)} kernels' outputs bit "
-                  f"for bit the block tile's (forced)"), flush=True)
+                  else f"; K5's, K8c's and K6's {ck.log_scan_route(S_)} "
+                  f"kernels' outputs bit for bit the block tile's (forced)"),
+              flush=True)
         torch.cuda.empty_cache()
     for name, r in out.items():
         staged = f"  staged {r['staged_ms']:9.3f} ms" \
@@ -2586,9 +2610,9 @@ def phase_wide_sweeps(device, rng) -> dict:
     random) of a sticky random model at T, V.  K3 bit-equal to plain; X1
     and X2 against plain in float64 at the F3 limit; X1's two modes end
     in one carry; each sweep cut at SWEEP_CUTS gives the bits of one
-    chunk; to 256 states X1's and X2's every output (both of X1's modes)
-    bit for bit the block tile's, forced, past 256 K3's, X1's and X2's
-    the staged tile's.  Results under ``name@S<S>``."""
+    chunk; to 256 states K3's, X1's and X2's every output (both of K3's
+    and X1's modes) bit for bit the block tile's, forced, past 256 the
+    staged tile's.  Results under ``name@S<S>``."""
     import torch
 
     from tehmm_tpu_torch.models.emission import track_log_likelihoods
@@ -2669,6 +2693,10 @@ def phase_wide_sweeps(device, rng) -> dict:
                 ), f"X1 carry-only: the cluster tile != staged S={S_}"
         elif ck.log_scan_route(S_) == "rows":
             with block_tile():
+                assert torch.equal(carry, ck.viterbi_carry(lt, obs, init,
+                                                           lens)), \
+                    f"K3 carry-only: the rows kernel != the block tile " \
+                    f"S={S_}"
                 assert all(torch.equal(a, b) for a, b in zip(
                     (final, dm_sum), ck.forward_final(lt, obs, init, lens))
                 ), f"X1 carry-only: the rows kernel != the block tile " \
@@ -2696,12 +2724,13 @@ def phase_wide_sweeps(device, rng) -> dict:
                   "K3's, X1's and X2's every output on the cluster tile bit "
                   "for bit the staged tile's (forced)"
                   if ck.scan_route(S_) == "cluster" else
-                  "X1's and X2's every output on the rows kernel bit for "
-                  "bit the block tile's (forced)"), flush=True)
+                  "K3's, X1's and X2's every output on the rows kernels bit "
+                  "for bit the block tile's (forced)"), flush=True)
         for name in ("viterbi_chunk_tile", "fwd_chunk_tile",
                      "bwd_chunk_tile", "viterbi_chunk_cluster",
                      "fwd_chunk_cluster", "bwd_chunk_cluster",
-                     "fwd_chunk_rows", "bwd_chunk_rows"):
+                     "viterbi_chunk_rows", "fwd_chunk_rows",
+                     "bwd_chunk_rows"):
             if name + suffix not in out:
                 continue
             r = out[name + suffix]
@@ -4976,10 +5005,11 @@ def _run(args, device, smi, parent) -> int:
         f"2e launched the staged tile's K5, K6, K7a/K7b or K8c: {staged}"
     block = {(config, k): engine_launches[config][k]
              for config in ENGINE_CONFIGS
-             for k in ("fwd_scaled", "bwd_scaled", "fwd_prob", "bwd_prob")
+             for k in ("fwd_scaled", "bwd_scaled", "fwd_prob", "bwd_prob",
+                       "viterbi_values", "viterbi_ptrs")
              if engine_launches[config][k]}
     assert not block, \
-        f"2e launched the block tile's K7a/K7b or K6a/K6b: {block}"
+        f"2e launched the block tile's K7a/K7b, K6a/K6b, K5 or K8c: {block}"
     for Sp, counts in maxplus_launches.items():
         print(f"[launches] K9 tool (2m) at Sp={Sp}: "
               f"{ {k: n for k, n in counts.items() if n} }", flush=True)
@@ -5017,7 +5047,8 @@ def _run(args, device, smi, parent) -> int:
                   "fwd_chunk_cluster": ("pd", "score"),
                   "bwd_chunk_cluster": ("pd",),
                   "fwd_chunk_rows": ("pd", "score"),
-                  "bwd_chunk_rows": ("pd",)}
+                  "bwd_chunk_rows": ("pd",),
+                  "viterbi_chunk_rows": ("exact",)}
     for name in kernels:
         base, _, config = name.partition("@")
         if "+" in name:
@@ -5052,10 +5083,11 @@ def _run(args, device, smi, parent) -> int:
         elif config or base in STREAMING_KERNELS \
                 or base in ("viterbi_backtrace", "fwd_scaled_lanes",
                             "bwd_scaled_lanes", "fwd_prob_lanes",
-                            "bwd_prob_lanes"):
+                            "bwd_prob_lanes", "viterbi_values_lanes",
+                            "viterbi_ptrs_lanes"):
             # 2e's launches (the backtrace: off the stitched decode, on
-            # 2e's streaming route; K7a/K7b and K6a/K6b at S20 on the
-            # lanes step), and
+            # 2e's streaming route; K7a/K7b, K6a/K6b, K5 and K8c at S20 on
+            # the lanes step), and
             # at ENV_STATES also 3f's (K5 and
             # the backtrace on its Viterbi paths, K6 on its train, K7 on
             # its max-posterior)

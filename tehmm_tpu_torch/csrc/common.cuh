@@ -302,6 +302,70 @@ __device__ __forceinline__ float lanes_row_max(float v) {
   }
 }
 
+// The max-plus lanes step (S <= 32, lane j state j, every lane the
+// whole row): K2's forward and K3 (viterbi.cu), K5 (streaming.cu) and
+// K8c (scans.cu) to 32 states.
+
+// The first i with a[i] the max over a[0..NS) (row_max's pairwise tree,
+// each node keeping the index of its value: the left node holds the lower
+// indices and keeps ties, a strict '>' takes the right one), so for
+// ordered values the first hit of a scan from i = 0 with a strict '>'.
+template <int NS>
+__device__ __forceinline__ int row_argmax(const float (&src)[NS]) {
+  float a[NS];
+  int k[NS];
+#pragma unroll
+  for (int i = 0; i < NS; ++i) {
+    a[i] = src[i];
+    k[i] = i;
+  }
+#pragma unroll
+  for (int w = 1; w < NS; w <<= 1)
+#pragma unroll
+    for (int i = 0; i + w < NS; i += 2 * w)
+      if (a[i + w] > a[i]) {
+        a[i] = a[i + w];
+        k[i] = k[i + w];
+      }
+  return k[0];
+}
+
+// The new row from every lane's value nv (lanes past S: -inf): the row
+// (row[i] = nv_i - m) and lane j's nv - m, m = max(max_i nv_i, LOG_ZERO)
+// (renorm_store's normaliser; with ``m_out``, stored there).
+template <int NS>
+__device__ __forceinline__ float lanes_renorm(float (&row)[NS], float nv,
+                                              float* m_out = nullptr) {
+  float a[NS];
+#pragma unroll
+  for (int i = 0; i < NS; ++i) a[i] = __shfl_sync(0xffffffffu, nv, i);
+  const float m = fmaxf(row_max<NS>(a), kLogZero);
+#pragma unroll
+  for (int i = 0; i < NS; ++i) row[i] = a[i] - m;
+  if (m_out != nullptr) *m_out = m;
+  return nv - m;
+}
+
+// One step of the lanes variant: lane j's new value from the row and its
+// trans column, then the new row from every lane, renormalised in each.
+// Returns lane j's renormalised value; with ``arg``, lane j's first-hit
+// argmax predecessor (row_argmax: entries past S are -inf and never
+// win).  Entries past S are -inf in the
+// row and in trans (and the lanes past S produce -inf), so they stay
+// -inf and never change a max.  The adds and subtractions round once
+// each and the max is exact, so the bits are dp._maxplus_step's.
+template <int NS>
+__device__ __forceinline__ float lanes_step(float (&row)[NS],
+                                            const float (&tc)[NS],
+                                            float o, int* arg = nullptr,
+                                            float* m_out = nullptr) {
+  float a[NS];
+#pragma unroll
+  for (int i = 0; i < NS; ++i) a[i] = row[i] + tc[i];
+  if (arg != nullptr) *arg = row_argmax<NS>(a);  // off the chain
+  return lanes_renorm<NS>(row, row_max<NS>(a) + o, m_out);
+}
+
 // The lanes kernels' staging ring (K1's in em_estep.cu, K2's forward in
 // viterbi.cu, K4's decode in posterior.cu; S <= 32, one state a lane):
 // each warp stages its row's streams into a ring of two slots of kHalf

@@ -1,7 +1,9 @@
 // The scans' own steps to 256 states, in place of scan_tile.cuh's block
 // tile there: the log-space scans (scans.cu: K7a/K8a, K7b/K8b and the
-// carry modes that run X1 and X2 from 240 to 256 states) and the
-// probability-space scans of the E-step (streaming.cu: K6a, K6b).
+// carry modes that run X1 and X2 from 240 to 256 states), the
+// probability-space scans of the E-step (streaming.cu: K6a, K6b) and the
+// max-plus scans (streaming.cu: K5 and its carry mode, K3 from 240 to
+// 256 states; scans.cu: K8c).
 //
 // What held the block tile back at these shapes (PERF.md): one
 // state a thread, so every FMA loaded one matrix element and one
@@ -31,6 +33,9 @@
 //     so its barriers couple only its own R rows: two a step in the
 //     forward (the row max's partials, then the state vector), three in
 //     the backward (two maxima); a warp's partial max is one redux.sync.
+//     The max-plus scans run the same chains with an add and a max a term
+//     (product_max), K8c with the row that set each partial max beside it
+//     (product_argmax), on state vectors of the log values themselves.
 //     obs goes through a ring in shared memory, each thread copying its
 //     own column kRowsHalf positions at a time with cp.async (as
 //     common.cuh stage_column), two halves in flight.  R is the fewest
@@ -46,7 +51,13 @@
 // floored as the caller's block tile floors them (LOG_ZERO in log space,
 // 1e-37 for K6's probabilities); expf, logf, the LOG_ZERO clamps and
 // K6's u * (1 / m) as they are.  So every output equals the block tile's
-// bit for bit, at any R.
+// bit for bit, at any R.  The max-plus products are exact in any order
+// (each add rounds once, the max not at all); the matrix's pad columns
+// (past S) are -inf and feed only the states past S, which no output or
+// max reads, and no pad row is read; a pointer is the lowest row among
+// equal candidates (a strict > in increasing row within a chain, the
+// lower row across chains), as the block tile's.  K3's max-plus lanes step
+// (common.cuh lanes_step) keeps -inf past S in the row and the matrix.
 //
 // Everything is in an anonymous namespace: each source gets its own copy.
 
@@ -173,7 +184,7 @@ struct RowsTile {
 
   __device__ RowsTile(float* smem, const float* __restrict__ mat,
                       const int32_t* __restrict__ lens, int64_t B,
-                      int64_t L, int S_) {
+                      int64_t L, int S_, float pad = 0.0f) {
     S = S_;
     Sp = (S + 3) & ~3;
     S4 = S & ~3;
@@ -197,14 +208,14 @@ struct RowsTile {
     const int n_t = (S - n_reg) * Sp;
     for (int n = tid; n < n_t; n += nt) {
       const int i = n / Sp, c = n - i * Sp;
-      t_s[n] = c < S ? mat[(int64_t)(n_reg + i) * S + c] : 0.0f;
+      t_s[n] = c < S ? mat[(int64_t)(n_reg + i) * S + c] : pad;
     }
 #pragma unroll
     for (int k = 0; k < KR; ++k)
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         const int col = 4 * gc + c;
-        tr[k][c] = col < S ? mat[(int64_t)(4 * k + q) * S + col] : 0.0f;
+        tr[k][c] = col < S ? mat[(int64_t)(4 * k + q) * S + col] : pad;
       }
     for (int n = tid; n < 2 * R * kRowsMaxWarps; n += nt) mx[n] = -INFINITY;
     b0 = (int64_t)blockIdx.x * R;
@@ -233,22 +244,19 @@ struct RowsTile {
       for (int r = 0; r < R; ++r) acc[c][r] = fmaf(ev[r], t[c], acc[c][r]);
   }
 
-  // s[r] = sum_i e_s[i][r] M[i][j] for each row, in the block tile's order
-  // (header).  Call with the whole block.
-  __device__ __forceinline__ void product(float (&s)[R]) const {
-    float acc[4][R];
-#pragma unroll
-    for (int c = 0; c < 4; ++c)
-#pragma unroll
-      for (int r = 0; r < R; ++r) acc[c][r] = 0.0f;
+  // fn(i - q, t, ev) for every matrix row i of this thread's chain (q:
+  // the rows i = q mod 4 below S & ~3, then for chain 0 the last S % 4) in
+  // increasing i: t[c] = M[i][4 gc + c], ev[r] = e_s[i][r].  The rows
+  // from n_reg come from shared memory, four groups a pass with their
+  // operands loaded before the calls.
+  template <typename Fn>
+  __device__ __forceinline__ void sweep(Fn fn) const {
 #pragma unroll
     for (int k = 0; k < KR; ++k) {
       float ev[R];
       load_rows<R>(e_s + (4 * k + q) * R, ev);
-      fold(acc, tr[k], ev);
+      fn(4 * k, tr[k], ev);
     }
-    // the rows from n_reg below S & ~3 from shared memory, four groups a
-    // pass with their operands loaded before the FMAs
     const float* tc = T_s + q * Sp + 4 * gc;
     const float* ec = e_s + (n_reg + q) * R;
     int i0 = 0;
@@ -265,14 +273,14 @@ struct RowsTile {
         load_rows<R>(ec + (i0 + 4 * p) * R, ev[p]);
       }
 #pragma unroll
-      for (int p = 0; p < 4; ++p) fold(acc, t[p], ev[p]);
+      for (int p = 0; p < 4; ++p) fn(n_reg + i0 + 4 * p, t[p], ev[p]);
     }
     for (; i0 < S4 - n_reg; i0 += 4) {
       const float4 v = *reinterpret_cast<const float4*>(tc + i0 * Sp);
       const float t[4] = {v.x, v.y, v.z, v.w};
       float ev[R];
       load_rows<R>(ec + i0 * R, ev);
-      fold(acc, t, ev);
+      fn(n_reg + i0, t, ev);
     }
     if (q == 0) {
       for (int i = S4; i < S; ++i) {
@@ -281,12 +289,18 @@ struct RowsTile {
         const float t[4] = {v.x, v.y, v.z, v.w};
         float ev[R];
         load_rows<R>(e_s + i * R, ev);
-        fold(acc, t, ev);
+        fn(i, t, ev);
       }
     }
-    // chains q and q ^ 1 (lanes 8 apart) add, each lane keeping the
-    // columns c & 1 = q & 1; then q and q ^ 2 (16 apart), each keeping its
-    // own column c = q
+  }
+
+  // s[r] = op over the four chains of acc[.][r] at this thread's own
+  // column: chains q and q ^ 1 (lanes 8 apart) combine, each lane keeping
+  // the columns c & 1 = q & 1; then q and q ^ 2 (16 apart), each keeping
+  // its own column c = q.  Call with the whole warp.
+  template <typename Op>
+  __device__ __forceinline__ void combine_chains(const float (&acc)[4][R],
+                                                 float (&s)[R], Op op) const {
     const bool odd = q & 1, high = q & 2;
     float h[2][R];
 #pragma unroll
@@ -295,13 +309,119 @@ struct RowsTile {
       for (int r = 0; r < R; ++r) {
         const float keep = odd ? acc[2 * p + 1][r] : acc[2 * p][r];
         const float send = odd ? acc[2 * p][r] : acc[2 * p + 1][r];
-        h[p][r] = __fadd_rn(keep, __shfl_xor_sync(0xffffffffu, send, 8));
+        h[p][r] = op(keep, __shfl_xor_sync(0xffffffffu, send, 8));
       }
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       const float keep = high ? h[1][r] : h[0][r];
       const float send = high ? h[0][r] : h[1][r];
-      s[r] = __fadd_rn(keep, __shfl_xor_sync(0xffffffffu, send, 16));
+      s[r] = op(keep, __shfl_xor_sync(0xffffffffu, send, 16));
+    }
+  }
+
+  // s[r] = sum_i e_s[i][r] M[i][j] for each row, in the block tile's order
+  // (header).  Call with the whole block.
+  __device__ __forceinline__ void product(float (&s)[R]) const {
+    float acc[4][R];
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+#pragma unroll
+      for (int r = 0; r < R; ++r) acc[c][r] = 0.0f;
+    sweep([&](int, const float (&t)[4], const float (&ev)[R]) {
+      fold(acc, t, ev);
+    });
+    combine_chains(acc, s, [](float a, float b) { return __fadd_rn(a, b); });
+  }
+
+  // The max-plus product of K5 and K3's carry mode: s[r] = max_i (e_s[i][r]
+  // + M[i][j]) for each row, the state vectors holding the log values v
+  // themselves; each chain's partial max, then the chains' max.  Every
+  // add rounds once and the max is exact, so the bits are the block
+  // tile's in any order.  Call with the whole block.
+  __device__ __forceinline__ void product_max(float (&s)[R]) const {
+    float acc[4][R];
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+#pragma unroll
+      for (int r = 0; r < R; ++r) acc[c][r] = -INFINITY;
+    sweep([&](int, const float (&t)[4], const float (&ev)[R]) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+          acc[c][r] = fmaxf(acc[c][r], ev[r] + t[c]);
+    });
+    combine_chains(acc, s, [](float a, float b) { return fmaxf(a, b); });
+  }
+
+  // (v, i) takes (w, k) where w is larger, or equal with the lower row
+  __device__ __forceinline__ static void take_first(float& v, int& i, float w,
+                                                    int k) {
+    if (w > v || (w == v && k < i)) {
+      v = w;
+      i = k;
+    }
+  }
+
+  // K8c's product: s[r] as product_max's and a[r] its first-hit i (the
+  // lowest row on ties).  Beside each partial max a chain keeps the row
+  // that set it (a strict > in increasing i, so the chain's first hit;
+  // the row less q, a constant of the unrolled loop, q added after), and
+  // the chains combine by value, then by the lower row, as the block
+  // tile's four chains do.  The value a chain keeps is that of its first
+  // hit, so s[r] is the candidate at a[r], the block tile's bits.  The
+  // maxima's chain does not wait on the index's select.  Call with the
+  // whole block.
+  __device__ __forceinline__ void product_argmax(float (&s)[R],
+                                                 int (&a)[R]) const {
+    float acc[4][R];
+    int arg[4][R];
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        acc[c][r] = -INFINITY;
+        arg[c][r] = S - q;  // S where no candidate beats -inf
+      }
+    sweep([&](int i, const float (&t)[4], const float (&ev)[R]) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const float x = ev[r] + t[c];
+          const bool hit = x > acc[c][r];
+          arg[c][r] = hit ? i : arg[c][r];
+          acc[c][r] = hit ? x : acc[c][r];
+        }
+    });
+    const bool odd = q & 1, high = q & 2;
+    float h[2][R];
+    int hi[2][R];
+#pragma unroll
+    for (int p = 0; p < 2; ++p)
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        float v = odd ? acc[2 * p + 1][r] : acc[2 * p][r];
+        int i = (odd ? arg[2 * p + 1][r] : arg[2 * p][r]) + q;
+        const float w = __shfl_xor_sync(
+            0xffffffffu, odd ? acc[2 * p][r] : acc[2 * p + 1][r], 8);
+        const int k = __shfl_xor_sync(
+            0xffffffffu, (odd ? arg[2 * p][r] : arg[2 * p + 1][r]) + q, 8);
+        take_first(v, i, w, k);
+        h[p][r] = v;
+        hi[p][r] = i;
+      }
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      float v = high ? h[1][r] : h[0][r];
+      int i = high ? hi[1][r] : hi[0][r];
+      const float w =
+          __shfl_xor_sync(0xffffffffu, high ? h[0][r] : h[1][r], 16);
+      const int k =
+          __shfl_xor_sync(0xffffffffu, high ? hi[0][r] : hi[1][r], 16);
+      take_first(v, i, w, k);
+      s[r] = v;
+      a[r] = i;
     }
   }
 

@@ -36,6 +36,11 @@
 //                        (scan_cluster.cuh), with the same bits
 //   viterbi_ptrs_kernel  K8c, _viterbi_kernel (:277) under viterbi_pallas
 //                        (:333)
+//   viterbi_ptrs_lanes_kernel, viterbi_ptrs_rows_kernel
+//                        the same function to 32 states (K3's max-plus
+//                        lanes step, pointer mode) and from 33 to 256
+//                        (scan_rows.cuh, product_argmax), with the same
+//                        bits
 //   viterbi_ptrs_cluster_kernel
 //                        the same function from 257 to 1024 states on the
 //                        cluster tile, with the same bits
@@ -95,10 +100,10 @@
 // cut into chunks executes the same instructions as one chunk.  To 256
 // states the forward and backward (and their carry modes) run their own
 // kernels instead (scan_rows.cuh, which says why and how: the lanes step
-// to 32 states, the rows kernels beyond); from 257 to 1024 states they
-// and the Viterbi run the cluster tile (scan_cluster.cuh): the entries
-// take the kernel the caller names, ``tile`` (launch_fwd) or
-// ``cluster``.
+// to 32 states, the rows kernels beyond), and so does the Viterbi; from
+// 257 to 1024 states they and the Viterbi run the cluster tile
+// (scan_cluster.cuh): the entries take the kernel the caller names,
+// ``tile`` (scan_tile.cuh ScanTile).
 //
 // Numerics: each product is summed in K6's fixed order, four interleaved
 // FMA chains added pairwise, that depends on S alone (no atomics, no
@@ -1304,6 +1309,167 @@ __global__ void __launch_bounds__(kClusterThreads, 1)
   tl.finish();
 }
 
+// K8c to 32 states, a warp a row (scan_rows.cuh, lanes): the function and
+// the bits of viterbi_ptrs_kernel, uint8 pointers.  K3's lanes step in its
+// pointer mode (common.cuh lanes_step): lane j holds column j of
+// log_trans and every lane the whole row (-inf past S); a step's
+// first-hit argmax (row_argmax over the candidates, the lowest i on ties;
+// the -inf pads never win) is off the chain.  Position 0 is log_start +
+// obs, renormalized, with the identity pointer.  dm as in
+// viterbi_values_lanes_kernel; past the row's length the identity
+// pointer and dm 0; v_last is the last row (0 for a row of length 0).
+template <int NS>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+    viterbi_ptrs_lanes_kernel(const float* __restrict__ obs,
+                              const int32_t* __restrict__ lens,
+                              const float* __restrict__ log_start,
+                              const float* __restrict__ log_trans,
+                              uint8_t* __restrict__ ptr_out,
+                              float* __restrict__ v_last,
+                              float* __restrict__ dm_out, int64_t B,
+                              int64_t L, int S) {
+  extern __shared__ __align__(16) float smem[];  // a ring a warp
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int64_t b = (int64_t)blockIdx.x * kWarpsPerBlock + warp;
+  if (b >= B) return;
+  const bool mine = lane < S;  // lanes past S carry -inf
+  float* ring = smem + warp * (2 * kHalf * 32) + lane;
+  if (!mine)  // their obs stay 0, so their values stay -inf
+    for (int k = 0; k < 2 * kHalf; ++k) ring[k * 32] = 0.0f;
+  float tc[NS];
+#pragma unroll
+  for (int i = 0; i < NS; ++i)
+    tc[i] = mine && i < S ? log_trans[(int64_t)i * S + lane] : -INFINITY;
+  float own = mine ? 0.0f : -INFINITY;
+  float row[NS];  // set at position 0
+  const float start = mine ? log_start[lane] : -INFINITY;
+  const int64_t n = max((int64_t)0, min((int64_t)lens[b], L));
+  const float* ob = obs + b * L * S + lane;
+  uint8_t* pb = ptr_out + b * L * S + lane;  // the next pointer
+  float* db = dm_out + b * L;
+  float mk = 0.0f;  // lane k: the row max of step k of this half
+  stage_column(ring, ob, 0, n, S, mine);
+  stage_column(ring, ob, kHalf, n, S, mine);
+  for (int64_t t0 = 0; t0 < n; t0 += kHalf) {
+    cp_async_wait<1>();  // this half is in; the next may be in flight
+    const float* src = ring + ((t0 / kHalf) & 1) * kHalf * 32;
+    const int steps = (int)min((int64_t)kHalf, n - t0);
+    auto emit = [&](int k, int arg, float m) {
+      if (mine) *pb = (uint8_t)arg;
+      pb += S;
+      mk = lane == k ? m : mk;
+    };
+    int k = 0;
+    if (t0 == 0) {
+      float m;
+      own = lanes_renorm<NS>(row, start + src[0], &m);
+      emit(0, lane, m);
+      k = 1;
+    }
+    for (; k < steps; ++k) {
+      float m;
+      int arg;
+      own = lanes_step<NS>(row, tc, src[k * 32], &arg, &m);
+      emit(k, arg, m);
+    }
+    if (lane < steps) db[t0 + lane] = mk;
+    stage_column(ring, ob, t0 + 2 * kHalf, n, S, mine);
+  }
+  cp_async_wait<0>();
+  // past the row's length: identity pointers, zero normalizers
+  for (int64_t t = n; t < L; ++t) {
+    if (mine) *pb = (uint8_t)lane;
+    pb += S;
+    if (lane == 0) db[t] = 0.0f;
+  }
+  if (mine) v_last[b * S + lane] = own;
+}
+
+// K8c from 33 to 256 states (scan_rows.cuh, rows): the function and the
+// bits of viterbi_ptrs_kernel, uint8 pointers.  A step over the block's
+// valid positions: the max-plus product with its first-hit argmax over
+// the block's R rows (RowsTile::product_argmax; position 0: log_start and
+// the identity), u = best + obs, the row max m floored at LOG_ZERO (one
+// barrier), v = u - m and the argmax pointer where the position is valid
+// (else the identity), v into the state vectors (a second).  The state
+// vectors hold the log values v themselves, the matrix's pads are -inf.
+// Past the block's longest row the identity pointers and dm 0; v_last is
+// the last row (0 for a row of length 0).
+template <int R, int KR>
+__global__ void __launch_bounds__(kRowsMaxThreads,
+                                  R == 1 && KR == 16 ? 2 : 1)
+    viterbi_ptrs_rows_kernel(const float* __restrict__ obs,
+                             const int32_t* __restrict__ lens,
+                             const float* __restrict__ log_start,
+                             const float* __restrict__ log_trans,
+                             uint8_t* __restrict__ ptr_out,
+                             float* __restrict__ v_last,
+                             float* __restrict__ dm_out, int64_t B,
+                             int64_t L, int S) {
+  extern __shared__ __align__(16) float smem[];
+  RowsTile<R, KR> tl(smem, log_trans, lens, B, L, S, -INFINITY);
+  const bool has = tl.has;
+  const int j = tl.j;
+  const float start_j = has ? log_start[j] : 0.0f;
+  float v[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) v[r] = 0.0f;
+  // the steps that run; past them every row of the block is past its end
+  const int64_t steps = tl.max_len;
+  tl.template stage<false>(obs, L, 0, steps);
+  tl.template stage<false>(obs, L, kRowsHalf, steps);
+  for (int64_t t0 = 0; t0 < steps; t0 += kRowsHalf) {
+    cp_async_wait<1>();  // this half is in; the next may be in flight
+    const int n = (int)min((int64_t)kRowsHalf, steps - t0);
+    for (int k = 0; k < n; ++k) {
+      const int64_t t = t0 + k;
+      float o[R], u[R], m[R];
+      int arg[R];
+      tl.template ring_obs<false>(L, t, o);
+      if (t == 0) {
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          u[r] = start_j + o[r];
+          arg[r] = j;
+        }
+      } else {
+        tl.product_argmax(u, arg);
+#pragma unroll
+        for (int r = 0; r < R; ++r) u[r] = u[r] + o[r];
+      }
+      tl.row_max(u, m, 0, kLogZero);
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const bool valid = t < tl.len[r];
+        if (valid) v[r] = u[r] - m[r];
+        if (!tl.live[r]) continue;
+        const int64_t pos = (tl.b0 + r) * L + t;
+        if (has) ptr_out[pos * S + j] = (uint8_t)(valid ? arg[r] : j);
+        if (j == 0) dm_out[pos] = valid ? m[r] : 0.0f;
+      }
+      tl.put(v);
+      __syncthreads();
+    }
+    tl.template stage<false>(obs, L, t0 + 2 * kRowsHalf, steps);
+  }
+  cp_async_wait<0>();
+  for (int64_t t = steps; t < L; ++t) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if (!tl.live[r]) continue;
+      const int64_t pos = (tl.b0 + r) * L + t;
+      if (has) ptr_out[pos * S + j] = (uint8_t)j;
+      if (j == 0) dm_out[pos] = 0.0f;
+    }
+  }
+  if (has) {
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      if (tl.live[r]) v_last[(tl.b0 + r) * S + j] = v[r];
+  }
+}
+
 // The chase: one thread per batch row walks the pointers back from the
 // first-hit argmax of its last value row; zero-length rows get path 0.
 template <typename PtrT>
@@ -1466,7 +1632,8 @@ int tehmm_scan_cluster_plan(int S, int64_t B, int kind, int64_t* out) {
 
 // The rows kernels' plan (scan_rows.cuh write_rows_plan) of kernel
 // ``kind`` (0 K7a/K8a and X1's carry mode, 1 K7b/K8b and X2's, 2 K6a, 3
-// K6b) at S states and B rows into out[8].
+// K6b, 4 K5 and K3's carry mode, 5 K8c) at S states and B rows into
+// out[8].
 int tehmm_rows_plan(int S, int64_t B, int kind, int64_t* out) {
   if (kind == 0) {
     ROWS_KERNELS(ks, fwd_scaled_rows_kernel);
@@ -1476,28 +1643,44 @@ int tehmm_rows_plan(int S, int64_t B, int kind, int64_t* out) {
     ROWS_KERNELS(ks, bwd_scaled_rows_kernel);
     return write_rows_plan(ks, B, S, out);
   }
+  if (kind == 5) {
+    ROWS_KERNELS(ks, viterbi_ptrs_rows_kernel);
+    return write_rows_plan(ks, B, S, out);
+  }
   return tehmm_streaming_rows_plan(S, B, kind, out);
 }
 
-// ptr_out: uint8 for S <= 256, uint16 beyond; ``cluster``: the cluster
-// tile (257 to 1024 states), else the block tile.
+// ptr_out: uint8 for S <= 256, uint16 beyond; ``tile`` (scan_tile.cuh
+// ScanTile): the block tile, the cluster tile (257 to 1024 states), the
+// lanes step (to 32), the rows kernels (33 to 256).
 int tehmm_viterbi_ptrs(const void* obs, const void* lens,
                        const void* log_start, const void* log_trans,
                        void* ptr_out, void* v_last, void* dm_out, int64_t B,
-                       int64_t L, int S, int cluster, void* stream) {
-  if (cluster) {
+                       int64_t L, int S, int tile, void* stream) {
+  const float* o = (const float*)obs;
+  const int32_t* n = (const int32_t*)lens;
+  const float* ls = (const float*)log_start;
+  const float* lt = (const float*)log_trans;
+  float* vl = (float*)v_last;
+  float* dm = (float*)dm_out;
+  if (tile == kTileCluster) {
     CLUSTER_KERNELS(ks, viterbi_ptrs_cluster_kernel);
-    return launch_cluster_scan(ks, B, S, 1, stream, (const float*)obs,
-                               (const int32_t*)lens,
-                               (const float*)log_start,
-                               (const float*)log_trans, ptr_out,
-                               (float*)v_last, (float*)dm_out, B, L, S);
+    return launch_cluster_scan(ks, B, S, 1, stream, o, n, ls, lt, ptr_out,
+                               vl, dm, B, L, S);
+  }
+  if (tile == kTileLanes) {
+    LANES_KERNELS(ks, viterbi_ptrs_lanes_kernel);
+    return launch_lanes(ks, B, S, stream, o, n, ls, lt, (uint8_t*)ptr_out,
+                        vl, dm, B, L, S);
+  }
+  if (tile == kTileRows) {
+    ROWS_KERNELS(ks, viterbi_ptrs_rows_kernel);
+    return launch_rows(ks, B, S, stream, o, n, ls, lt, (uint8_t*)ptr_out,
+                       vl, dm, B, L, S);
   }
   TILE_KERNELS(ks, viterbi_ptrs_kernel);
-  return launch_scan(ks, B, S, stream, (const float*)obs,
-                     (const int32_t*)lens, (const float*)log_start,
-                     (const float*)log_trans, ptr_out, (float*)v_last,
-                     (float*)dm_out, B, L, S);
+  return launch_scan(ks, B, S, stream, o, n, ls, lt, ptr_out, vl, dm, B, L,
+                     S);
 }
 
 int tehmm_pointer_chase(const void* ptrs, const void* v_last,

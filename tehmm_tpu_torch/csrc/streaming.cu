@@ -34,6 +34,10 @@
 //   fwd_prob_rows_kernel, bwd_prob_rows_kernel
 //                          the same two functions from 33 to 256 states
 //                          (scan_rows.cuh), with the same bits
+//   viterbi_values_lanes_kernel, viterbi_values_rows_kernel
+//                          K5 and its carry mode to 32 states (K3's
+//                          max-plus lanes step) and from 33 to 256
+//                          (scan_rows.cuh), with the same bits
 //
 // What they compute: a scan over the positions of every batch row whose
 // step is an S x S matrix-vector product in a semiring (max-plus for K5,
@@ -90,9 +94,10 @@
 // why and how: the lanes step to 32 states, a warp a row with no shared
 // memory or barrier in the chain; the rows kernels beyond, a float4 of the
 // matrix for 4 R FMAs, all of it on chip, two barriers a step in K6a and
-// three in K6b); the block tile is kept for comparison.  The K6 entries
-// take the kernel the caller names, ``tile`` (scan_tile.cuh ScanTile),
-// K5's ``cluster``.
+// three in K6b); so do K5 and its carry mode (K3's max-plus lanes step,
+// the rows kernels' max-plus product, two barriers a step); the block
+// tile is kept for comparison.  The entries take the kernel the caller
+// names, ``tile`` (scan_tile.cuh ScanTile).
 //
 // K3's carry mode (tehmm_viterbi_carry_tile) is K5 started from each
 // row's carry instead of log_start: every position, 0 included, applies
@@ -827,18 +832,206 @@ __global__ void __launch_bounds__(kRowsMaxThreads)
   cp_async_wait<0>();
 }
 
-// K5's launch (with ``carry_in``, K3's carry mode): the cluster tile
-// where ``cluster`` (257 to 1024 states), else scan_tile.cuh's.
-int launch_viterbi_values(int cluster, const float* obs, const int32_t* lens,
+// K5 and K3's carry mode to 32 states, a warp a row (scan_rows.cuh,
+// lanes): the function and the bits of viterbi_values_kernel.  K3's
+// lanes step (common.cuh lanes_step): lane j holds column j of log_trans
+// in registers and every lane the whole row (-inf past S), a step is the
+// max-plus product, + obs, the row gathered by shuffles and renormalized
+// in every lane.  Position 0 without a carry is log_start + obs, renormalized
+// (lanes_renorm).  dm is off the chain: lane k keeps the m of step k of
+// the ring's half and stores it when the half is done.  Past the row's
+// length the row is carried with dm 0, so a row of length 0 keeps its
+// carry (0 without one).  ``carry_in``, ``v_out``, ``dm_out`` and
+// ``carry_out`` as in forward_scan.
+template <int NS>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+    viterbi_values_lanes_kernel(const float* __restrict__ obs,
+                                const int32_t* __restrict__ lens,
+                                const float* __restrict__ log_start,
+                                const float* __restrict__ carry_in,
+                                const float* __restrict__ log_trans,
+                                float* __restrict__ v_out,
+                                float* __restrict__ dm_out,
+                                float* __restrict__ carry_out, int64_t B,
+                                int64_t L, int S) {
+  extern __shared__ __align__(16) float smem[];  // a ring a warp
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int64_t b = (int64_t)blockIdx.x * kWarpsPerBlock + warp;
+  if (b >= B) return;
+  const bool mine = lane < S;  // lanes past S carry -inf
+  const bool carried = carry_in != nullptr;
+  float* ring = smem + warp * (2 * kHalf * 32) + lane;
+  if (!mine)  // their obs stay 0, so their values stay -inf
+    for (int k = 0; k < 2 * kHalf; ++k) ring[k * 32] = 0.0f;
+  float tc[NS];
+#pragma unroll
+  for (int i = 0; i < NS; ++i)
+    tc[i] = mine && i < S ? log_trans[(int64_t)i * S + lane] : -INFINITY;
+  float own = !mine ? -INFINITY
+                    : (carried ? carry_in[b * S + lane] : MaxPlusOps::kCarry0);
+  float row[NS];  // the row, row[i] for i < S, -inf beyond
+#pragma unroll
+  for (int i = 0; i < NS; ++i) row[i] = __shfl_sync(0xffffffffu, own, i);
+  const float start = mine && !carried ? log_start[lane] : -INFINITY;
+  const int64_t n = max((int64_t)0, min((int64_t)lens[b], L));
+  const float* ob = obs + b * L * S + lane;
+  // the next stores of each output, walked by pointer
+  float* vb = v_out != nullptr ? v_out + b * L * S + lane : nullptr;
+  float* db = dm_out != nullptr ? dm_out + b * L : nullptr;
+  float mk = 0.0f;  // lane k: the row max of step k of this half
+  stage_column(ring, ob, 0, n, S, mine);
+  stage_column(ring, ob, kHalf, n, S, mine);
+  for (int64_t t0 = 0; t0 < n; t0 += kHalf) {
+    cp_async_wait<1>();  // this half is in; the next may be in flight
+    const float* src = ring + ((t0 / kHalf) & 1) * kHalf * 32;
+    const int steps = (int)min((int64_t)kHalf, n - t0);
+    auto emit = [&](int k, float m) {
+      if (vb != nullptr) {
+        if (mine) *vb = own;
+        vb += S;
+      }
+      mk = lane == k ? m : mk;
+    };
+    int k = 0;
+    if (t0 == 0 && !carried) {
+      float m;
+      own = lanes_renorm<NS>(row, start + src[0], &m);
+      emit(0, m);
+      k = 1;
+    }
+    for (; k < steps; ++k) {
+      float m;
+      own = lanes_step<NS>(row, tc, src[k * 32], nullptr, &m);
+      emit(k, m);
+    }
+    if (db != nullptr && lane < steps) db[t0 + lane] = mk;
+    stage_column(ring, ob, t0 + 2 * kHalf, n, S, mine);
+  }
+  cp_async_wait<0>();
+  // past the row's length: the carried row, zero normalizers
+  for (int64_t t = n; t < L; ++t) {
+    if (vb != nullptr) {
+      if (mine) *vb = own;
+      vb += S;
+    }
+    if (db != nullptr && lane == 0) db[t] = 0.0f;
+  }
+  if (carry_out != nullptr && mine) carry_out[b * S + lane] = own;
+}
+
+// K5 and K3's carry mode from 33 to 256 states (scan_rows.cuh, rows): the
+// function and the bits of viterbi_values_kernel.  The state vectors hold
+// the renormalized log values v themselves, the matrix's pads are -inf.
+// A step over the block's valid positions: the max-plus product over its
+// R rows (RowsTile::product_max; position 0 without a carry: log_start),
+// u = s + obs, the row max m floored at LOG_ZERO (one barrier), v = u - m
+// where the position is valid, v into the state vectors (a second); dm is
+// m itself, stored beside the row.  With ``carry_in`` the vectors start
+// as the rows' carries and every position applies the product.  Rows of
+// length 0 keep their carry (0 without one) with dm 0.  ``v_out``,
+// ``dm_out`` and ``carry_out`` may each be null.  Register use as
+// fwd_prob_rows_kernel's: eight blocks of 64 threads an SM at one row a
+// block from 64 to 127 states.
+template <int R, int KR>
+__global__ void __launch_bounds__(kRowsMaxThreads,
+                                  R == 1 && KR == 16 ? 2 : 1)
+    viterbi_values_rows_kernel(const float* __restrict__ obs,
+                               const int32_t* __restrict__ lens,
+                               const float* __restrict__ log_start,
+                               const float* __restrict__ carry_in,
+                               const float* __restrict__ log_trans,
+                               float* __restrict__ v_out,
+                               float* __restrict__ dm_out,
+                               float* __restrict__ carry_out, int64_t B,
+                               int64_t L, int S) {
+  extern __shared__ __align__(16) float smem[];
+  RowsTile<R, KR> tl(smem, log_trans, lens, B, L, S, -INFINITY);
+  const bool carried = carry_in != nullptr;
+  const bool has = tl.has;
+  const int j = tl.j;
+  const float start_j = has && !carried ? log_start[j] : 0.0f;
+  float v[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+    v[r] = carried && has && tl.live[r] ? carry_in[(tl.b0 + r) * S + j]
+                                        : MaxPlusOps::kCarry0;
+  // the steps that run; past them every row of the block is past its end
+  const int64_t steps = tl.max_len;
+  tl.template stage<false>(obs, L, 0, steps);
+  tl.template stage<false>(obs, L, kRowsHalf, steps);
+  if (carried) tl.put(v);
+  __syncthreads();
+  for (int64_t t0 = 0; t0 < steps; t0 += kRowsHalf) {
+    cp_async_wait<1>();  // this half is in; the next may be in flight
+    const int n = (int)min((int64_t)kRowsHalf, steps - t0);
+    for (int k = 0; k < n; ++k) {
+      const int64_t t = t0 + k;
+      float o[R], u[R], m[R];
+      tl.template ring_obs<false>(L, t, o);
+      if (t == 0 && !carried) {
+#pragma unroll
+        for (int r = 0; r < R; ++r) u[r] = start_j + o[r];
+      } else {
+        tl.product_max(u);
+#pragma unroll
+        for (int r = 0; r < R; ++r) u[r] = u[r] + o[r];
+      }
+      tl.row_max(u, m, 0, MaxPlusOps::kFloor);
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const bool valid = t < tl.len[r];
+        if (valid) v[r] = u[r] - m[r];
+        if (!tl.live[r]) continue;
+        const int64_t pos = (tl.b0 + r) * L + t;
+        if (v_out != nullptr && has) v_out[pos * S + j] = v[r];
+        if (dm_out != nullptr && j == 0) dm_out[pos] = valid ? m[r] : 0.0f;
+      }
+      tl.put(v);
+      __syncthreads();
+    }
+    tl.template stage<false>(obs, L, t0 + 2 * kRowsHalf, steps);
+  }
+  cp_async_wait<0>();
+  for (int64_t t = steps; t < L; ++t) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if (!tl.live[r]) continue;
+      const int64_t pos = (tl.b0 + r) * L + t;
+      if (v_out != nullptr && has) v_out[pos * S + j] = v[r];
+      if (dm_out != nullptr && j == 0) dm_out[pos] = 0.0f;
+    }
+  }
+  if (carry_out != nullptr && has) {
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      if (tl.live[r]) carry_out[(tl.b0 + r) * S + j] = v[r];
+  }
+}
+
+// K5's launch (with ``carry_in``, K3's carry mode) by ``tile``
+// (scan_tile.cuh ScanTile): the block tile, the cluster tile (257 to 1024
+// states), the lanes step (to 32), the rows kernels (33 to 256).
+int launch_viterbi_values(int tile, const float* obs, const int32_t* lens,
                           const float* log_start, const float* carry_in,
                           const float* log_trans, float* v_out,
                           float* dm_out, float* carry_out, int64_t B,
                           int64_t L, int S, void* stream) {
-  if (cluster) {
+  if (tile == kTileCluster) {
     CLUSTER_KERNELS(ks, viterbi_values_cluster_kernel);
     return launch_cluster_scan(ks, B, S, 1, stream, obs, lens, log_start,
                                carry_in, log_trans, v_out, dm_out,
                                carry_out, B, L, S);
+  }
+  if (tile == kTileLanes) {
+    LANES_KERNELS(ks, viterbi_values_lanes_kernel);
+    return launch_lanes(ks, B, S, stream, obs, lens, log_start, carry_in,
+                        log_trans, v_out, dm_out, carry_out, B, L, S);
+  }
+  if (tile == kTileRows) {
+    ROWS_KERNELS(ks, viterbi_values_rows_kernel);
+    return launch_rows(ks, B, S, stream, obs, lens, log_start, carry_in,
+                       log_trans, v_out, dm_out, carry_out, B, L, S);
   }
   TILE_KERNELS(ks, viterbi_values_kernel);
   return launch_scan(ks, B, S, stream, obs, lens, log_start, carry_in,
@@ -849,25 +1042,24 @@ int launch_viterbi_values(int cluster, const float* obs, const int32_t* lens,
 
 extern "C" {
 
-// ``cluster``: the cluster tile (257 to 1024 states), else the block tile.
+// ``tile``: launch_viterbi_values'.
 int tehmm_viterbi_values(const void* obs, const void* lens,
                          const void* log_start, const void* log_trans,
                          void* v_out, void* dm_out, int64_t B, int64_t L,
-                         int S, int cluster, void* stream) {
-  return launch_viterbi_values(cluster, (const float*)obs,
-                               (const int32_t*)lens, (const float*)log_start,
-                               nullptr, (const float*)log_trans,
-                               (float*)v_out, (float*)dm_out, nullptr, B, L,
-                               S, stream);
+                         int S, int tile, void* stream) {
+  return launch_viterbi_values(tile, (const float*)obs, (const int32_t*)lens,
+                               (const float*)log_start, nullptr,
+                               (const float*)log_trans, (float*)v_out,
+                               (float*)dm_out, nullptr, B, L, S, stream);
 }
 
 // K3's carry mode: v_out (values) or carry_out (the final carry) may be
-// null.
+// null; ``tile`` as tehmm_viterbi_values'.
 int tehmm_viterbi_carry_tile(const void* obs, const void* carry_in,
                              const void* lens, const void* log_trans,
                              void* v_out, void* carry_out, int64_t B,
-                             int64_t L, int S, int cluster, void* stream) {
-  return launch_viterbi_values(cluster, (const float*)obs,
+                             int64_t L, int S, int tile, void* stream) {
+  return launch_viterbi_values(tile, (const float*)obs,
                                (const int32_t*)lens, nullptr,
                                (const float*)carry_in,
                                (const float*)log_trans, (float*)v_out,
@@ -895,7 +1087,8 @@ int tehmm_streaming_cluster_plan(int S, int64_t B, int kind, int64_t* out) {
 }
 
 // The rows kernels' plan of ``kind`` (scans.cu tehmm_rows_plan's: 2 K6a,
-// 3 K6b) at S states and B rows into out[8] (write_rows_plan).
+// 3 K6b, 4 K5 and K3's carry mode) at S states and B rows into out[8]
+// (write_rows_plan).
 int tehmm_streaming_rows_plan(int S, int64_t B, int kind, int64_t* out) {
   if (kind == 2) {
     ROWS_KERNELS(ks, fwd_prob_rows_kernel);
@@ -903,6 +1096,10 @@ int tehmm_streaming_rows_plan(int S, int64_t B, int kind, int64_t* out) {
   }
   if (kind == 3) {
     ROWS_KERNELS(ks, bwd_prob_rows_kernel);
+    return write_rows_plan(ks, B, S, out);
+  }
+  if (kind == 4) {
+    ROWS_KERNELS(ks, viterbi_values_rows_kernel);
     return write_rows_plan(ks, B, S, out);
   }
   return (int)cudaErrorInvalidValue;

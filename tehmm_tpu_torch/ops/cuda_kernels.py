@@ -77,27 +77,28 @@ forward (``k2_step``) and K4's decode (``k4_step``) their lanes kernel
 to 32 states and their shared one beyond, with the same bits either
 way.  K3, X1 and X2 launch their one-warp
 kernels where ``sweep_fits`` (S <= 239) and the tile's carry modes
-beyond, each counted under its own name (``viterbi_chunk_tile``,
-``fwd_chunk_rows``, ``bwd_chunk_rows`` to 256 states), so the exact decoders, ``--pd``
-and every printed loglik run to S = 1024 too.  From 257 states the
-log-space scans (``forward_scaled``, ``backward_scaled`` and X1's and
-X2's carry modes), K5, K3's carry mode, K8c and the probability-space
-scans K6a and K6b (``forward_prob``, ``backward_prob``) run the cluster
+beyond, each counted under its own name (``viterbi_chunk_rows``,
+``fwd_chunk_rows``, ``bwd_chunk_rows`` to 256 states), so the exact
+decoders, ``--pd`` and every printed loglik run to S = 1024 too.  From 257
+states the log-space scans (``forward_scaled``, ``backward_scaled`` and X1's
+and X2's carry modes), K5, K3's carry mode, K8c and the probability-space scans
+K6a and K6b (``forward_prob``, ``backward_prob``) run the cluster
 tile of ``csrc/scan_cluster.cuh`` (``scan_route``;
 ``SCAN_CLUSTER_MAX_STATES`` = 0 forces the staged tile), counted under
 ``*_cluster`` names, with the same bits.  The printed loglik
 (``MultitrackHmm.score``) takes ``forward_loglik``, which splits each
 row into pieces where ``piece_scan_route`` says (to
 ``PIECE_SCAN_MAX_STATES``, and to a number of rows that falls with S)
-and takes ``forward_final``'s kernels beyond.  To 256 states the four
-log-space scans (``forward_scaled``, ``backward_scaled`` and X1's and X2's
-carry modes) and the probability-space scans K6a and K6b
-(``forward_prob``, ``backward_prob``) take their own kernels instead of
-the block tile (``log_scan_route``: the lanes step to 32 states, the rows
-kernels of ``csrc/scan_rows.cuh`` beyond; ``LOG_SCAN_MAX_STATES`` = 0
-forces the block tile), each counted under a name of its own
-(``scan_counter``: ``fwd_scaled_lanes``, ``fwd_prob_rows``, ...), with
-the same bits.
+and takes ``forward_final``'s kernels beyond.  To 256 states all nine
+scans over obs (the four log-space scans, ``forward_scaled``,
+``backward_scaled`` and X1's and X2's carry modes; the probability-space
+scans K6a and K6b, ``forward_prob``, ``backward_prob``; the max-plus
+``viterbi_values``, K3's carry mode and ``viterbi_pointers``) take their
+own kernels instead of the block tile (``log_scan_route``: the lanes step to 32
+states, the rows kernels of ``csrc/scan_rows.cuh`` beyond;
+``LOG_SCAN_MAX_STATES`` = 0 forces the block tile), each counted under a name
+of its own (``scan_counter``: ``fwd_scaled_lanes``, ``fwd_prob_rows``, ...),
+with the same bits.
 
 Each wrapper checks device, dtype, shape and contiguity, and sits beside
 its plain-torch version.  A tensor on the CPU takes the plain version; a
@@ -169,7 +170,8 @@ LAUNCHES = {
            "fwd_scaled_lanes", "fwd_scaled_rows", "bwd_scaled_lanes",
            "bwd_scaled_rows", "fwd_chunk_rows", "bwd_chunk_rows",
            "fwd_prob_lanes", "fwd_prob_rows", "bwd_prob_lanes",
-           "bwd_prob_rows",
+           "bwd_prob_rows", "viterbi_values_lanes", "viterbi_values_rows",
+           "viterbi_ptrs_lanes", "viterbi_ptrs_rows", "viterbi_chunk_rows",
            "maxplus_resident", "maxplus_blocks",
            "fwd_piece_ops", "fwd_piece_compose"]
     )
@@ -230,13 +232,14 @@ CLUSTER_PLAN_KINDS = ("fwd_scaled", "bwd_scaled", "viterbi_values",
                       "viterbi_ptrs", "fwd_prob", "bwd_prob")
 # the kinds whose step takes two row maxima, each with a buffer of its own
 _CLUSTER_TWO_MAXIMA = ("bwd_scaled", "bwd_prob")
-# The log-space scans (K7a/K8a, K7b/K8b), X1's and X2's carry modes and
-# the probability-space scans (K6a, K6b) run their own kernels to this
-# many states (csrc/scan_rows.cuh, ``log_scan_route``, a name from the
-# first four): the lanes step, a warp a row, to 32 states, the rows
-# kernels beyond; past it, to 256 states, the block tile.  All give the
-# same bits, so the choice moves only time; 0 forces the block tile for
-# the six at S <= 256 (tests and tools set it and restore it).
+# All nine scans over obs (the log-space scans K7a/K8a and K7b/K8b, X1's
+# and X2's carry modes, the probability-space scans K6a and K6b, the
+# max-plus K5, K3's carry mode and K8c) run their own kernels to this many
+# states (csrc/scan_rows.cuh, ``log_scan_route``, a name from the first
+# four): the lanes step, a warp a row, to 32 states, the rows kernels
+# beyond; past it, to 256 states, the block tile.  All give the same bits,
+# so the choice moves only time; 0 forces the block tile for the nine at
+# S <= 256 (tests and tools set it and restore it).
 LOG_SCAN_MAX_STATES = 256
 # each of those scans' counter on the block tile -> on the lanes step and
 # on the rows kernels (the carry modes take the tile only past
@@ -247,11 +250,17 @@ _LOG_SCAN_COUNTERS = {
     "fwd_chunk_tile": {"rows": "fwd_chunk_rows"},
     "bwd_chunk_tile": {"rows": "bwd_chunk_rows"},
     "fwd_prob": {"lanes": "fwd_prob_lanes", "rows": "fwd_prob_rows"},
-    "bwd_prob": {"lanes": "bwd_prob_lanes", "rows": "bwd_prob_rows"}}
+    "bwd_prob": {"lanes": "bwd_prob_lanes", "rows": "bwd_prob_rows"},
+    "viterbi_values": {"lanes": "viterbi_values_lanes",
+                       "rows": "viterbi_values_rows"},
+    "viterbi_ptrs": {"lanes": "viterbi_ptrs_lanes",
+                     "rows": "viterbi_ptrs_rows"},
+    "viterbi_chunk_tile": {"rows": "viterbi_chunk_rows"}}
 # the rows kernels whose plans the card's plan entry gives
 # (``tehmm_rows_plan``'s ``kind``): K7a/K8a (and X1's carry mode), K7b/K8b
-# (and X2's), K6a, K6b
-ROWS_PLAN_KINDS = ("fwd_scaled", "bwd_scaled", "fwd_prob", "bwd_prob")
+# (and X2's), K6a, K6b, K5 (and K3's carry mode), K8c
+ROWS_PLAN_KINDS = ("fwd_scaled", "bwd_scaled", "fwd_prob", "bwd_prob",
+                   "viterbi_values", "viterbi_ptrs")
 # the nine scans' entries' ``tile`` flag of each route (csrc/scan_tile.cuh
 # ``ScanTile``)
 _TILE_FLAGS = {"narrow": 0, "staged": 0, "cluster": 1, "lanes": 2,
@@ -908,11 +917,13 @@ def viterbi_chunk_values(log_trans, obs, v_hat_init, lengths):
     Design: the step of ``k3_step(S)`` (registers and shuffles to 32
     states, shared memory to 239), obs read ahead of the chain (a
     cp.async ring in shared memory, or registers a few positions ahead),
-    the row stopped at its length; past 239 states K5's tile in
+    the row stopped at its length; past 239 states K5's rows kernel in
     carry mode (``csrc/streaming.cu``: the carry is the row before
     position 0, every position applies the max-plus step), counted as
-    ``viterbi_chunk_tile``, and from 257 states K5's cluster tile in carry
-    mode (``scan_route``), counted as ``viterbi_chunk_cluster``.
+    ``viterbi_chunk_rows`` (the block tile, forced with
+    ``LOG_SCAN_MAX_STATES`` = 0, as ``viterbi_chunk_tile``), and from 257
+    states K5's cluster tile in carry mode (``scan_route``), counted as
+    ``viterbi_chunk_cluster``.
     Bit-equal to the plain version either way, so chunked sweeps equal one
     chunk."""
     B, L, S = obs.shape
@@ -949,8 +960,8 @@ def viterbi_checkpoints(log_trans, obs, v_hat_init, lengths, chunk):
     L positions).  The exact decoder's forward sweep: one launch walks
     each row over a whole group of chunks, where ``viterbi_carry`` took a
     launch a chunk.  Counted as ``viterbi_checkpoints``; past 239 states
-    one launch of the tile's carry mode a chunk (``viterbi_chunk_tile``;
-    from 257 states ``viterbi_chunk_cluster``).  Bound and design as
+    one launch of K5's carry mode a chunk (``viterbi_chunk_rows``; from
+    257 states ``viterbi_chunk_cluster``).  Bound and design as
     ``viterbi_chunk_values``."""
     B, L, S = obs.shape
     dev = _check_sweep(log_trans, obs, v_hat_init, lengths, "v_hat_init")
@@ -2159,12 +2170,20 @@ def viterbi_values(log_start, log_trans, obs, lengths):
     rows time-major, [L, B, S] and [L, B].  Bound on an H100: the bytes of
     obs and the rows at S = 20, the 2 S^2 add-and-max operations per
     position at S = 256; in practice the chain of L dependent steps.
-    Design (``csrc/streaming.cu``): a block of 256 threads owns a tile of
-    rows for the whole scan, one thread per state and one row per thread
-    (two where the card cannot hold the batch in one wave), the rows'
-    vectors and as much of log_trans as fits in shared memory, the rest
-    of it read through the read-only path; from 257 states (``scan_route``)
-    the cluster tile (``csrc/scan_cluster.cuh``, counted as
+    Design (``csrc/streaming.cu``, route ``log_scan_route``): to 32 states
+    the lanes step (``viterbi_values_lanes_kernel``, counted as
+    ``viterbi_values_lanes``: K3's max-plus step, a warp a row, column j
+    of log_trans in lane j's registers, the whole row in every lane, no
+    shared memory or barrier in the chain); from 33 to 256 the rows kernel
+    (``viterbi_values_rows_kernel``, ``csrc/scan_rows.cuh``, counted as
+    ``viterbi_values_rows``: a block of R rows, each thread one chain of
+    partial maxima of four columns of all R rows, the matrix's first rows
+    in registers and the rest in shared memory, its pads -inf, two
+    barriers a step).  The max is exact and each add rounds once, so every
+    route gives the bits of the block tile (``viterbi_values_kernel``, a
+    thread a state, forced with ``LOG_SCAN_MAX_STATES`` = 0, counted as
+    ``viterbi_values``).  From 257 states (``scan_route``) the cluster
+    tile (``csrc/scan_cluster.cuh``, counted as
     ``viterbi_values_cluster``): a cluster of up to 16 blocks owns up to
     12 rows, each block a column slice of log_trans kept resident and the
     whole state vector, two exchanges across the cluster a step.  Takes S
@@ -2320,9 +2339,8 @@ def scan_route(S: int) -> str:
     (``forward_scaled``, ``backward_scaled``, X1's and X2's carry modes,
     ``viterbi_values``, K3's carry mode, ``viterbi_pointers``,
     ``forward_prob`` and ``backward_prob``):
-    ``"narrow"`` (the block tile, to 256 states, where the log-space
-    scans, X1's and X2's carry modes and K6a and K6b take their own
-    kernels instead: ``log_scan_route``),
+    ``"narrow"`` (the block tile, to 256 states, where all nine take
+    their own kernels instead: ``log_scan_route``),
     ``"cluster"`` (the cluster tile, from 257 to
     ``SCAN_CLUSTER_MAX_STATES``), else ``"staged"`` (the block tile's wide
     form, to 1024)."""
@@ -2407,8 +2425,9 @@ def library_cluster_plan(S: int, B: int, kernel) -> dict:
 
 def library_rows_plan(S: int, B: int, kernel="fwd_scaled") -> dict:
     """The plan the card's launch of rows kernel ``kernel`` (one of
-    ``ROWS_PLAN_KINDS``, or its index there: a bool names the log-space
-    backward or forward) takes at S states and B rows
+    ``ROWS_PLAN_KINDS``, K3's carry mode's that of ``viterbi_values``, or
+    its index there: a bool names the log-space backward or forward)
+    takes at S states and B rows
     (``tehmm_rows_plan``): R, KR, threads, the card's SMs, ``per_sm`` (the
     blocks an SM holds at R = 1, 2 and 4) and the shared bytes at R.
     Needs the card."""
@@ -2424,9 +2443,10 @@ def library_rows_plan(S: int, B: int, kernel="fwd_scaled") -> dict:
 
 
 def log_scan_route(S: int) -> str:
-    """The kernel of the scans with their own kernels to 256 states (the
-    log-space scans, X1's and X2's carry modes, and K6a and K6b: the keys
-    of ``_LOG_SCAN_COUNTERS``) at S states: ``"lanes"`` to 32 states and
+    """The kernel of the nine scans over obs at S states (the log-space
+    scans, X1's and X2's carry modes, K6a and K6b, K5, K3's carry mode and
+    K8c: the keys of ``_LOG_SCAN_COUNTERS``, each with its own kernels to
+    256 states): ``"lanes"`` to 32 states and
     ``"rows"`` to 256 (the edges of the two kernels), each to
     ``LOG_SCAN_MAX_STATES``; ``"narrow"`` (the block tile, forced) to 256
     beyond it; past 256 states ``scan_route(S)``."""
@@ -2439,29 +2459,21 @@ def log_scan_route(S: int) -> str:
 
 def scan_counter(name: str, S: int) -> str:
     """The counter a launch of scan ``name`` (its block tile's counter, a
-    key of ``_CLUSTER_COUNTERS``) at S states adds to: the route's own
-    (``log_scan_route`` for the six scans with their own kernels to 256
-    states, ``scan_route`` for the others), ``name`` itself on the block
-    tile."""
-    if name in _LOG_SCAN_COUNTERS:
-        route = log_scan_route(S)
-        if route in ("lanes", "rows"):
-            return _LOG_SCAN_COUNTERS[name][route]
-    else:
-        route = scan_route(S)
+    key of ``_CLUSTER_COUNTERS`` and of ``_LOG_SCAN_COUNTERS``) at S
+    states adds to: the route's own (``log_scan_route``), ``name`` itself
+    on the block tile."""
+    route = log_scan_route(S)
+    if route in ("lanes", "rows"):
+        return _LOG_SCAN_COUNTERS[name][route]
     return _CLUSTER_COUNTERS[name] if route == "cluster" else name
 
 
 def _launch_scan(name, entry, S, args, dev):
-    """Launch one of the cluster tile's nine scans (``_CLUSTER_COUNTERS``)
-    through its entry, with the ``tile`` flag of its route (for the six
-    scans with their own kernels to 256 states ``log_scan_route(S)``, for
-    the others ``scan_route(S)``), counted under ``scan_counter(name,
-    S)``."""
-    route = log_scan_route(S) if name in _LOG_SCAN_COUNTERS \
-        else scan_route(S)
+    """Launch one of the nine scans over obs (``_CLUSTER_COUNTERS``)
+    through its entry, with the ``tile`` flag of its route
+    (``log_scan_route(S)``), counted under ``scan_counter(name, S)``."""
     _launch_streaming(scan_counter(name, S), entry,
-                      (*args, _TILE_FLAGS[route]), dev)
+                      (*args, _TILE_FLAGS[log_scan_route(S)]), dev)
 
 
 def forward_scaled_plain(log_start, log_trans, obs, lengths,
@@ -2617,12 +2629,19 @@ def viterbi_pointers(log_start, log_trans, obs, lengths):
     ``pointer_dtype(S)``: uint8 to S = 256, uint16 beyond.  Bound on an
     H100: the chain of L dependent max-plus steps (the bytes of obs and
     of the pointers at S = 20).
-    Design (``csrc/scans.cu``): K5's tile and loop, its four partial
-    maxima each kept with the index that set it and combined by value,
-    then by the lower index; from 257 states (``scan_route``) K5's cluster
-    tile, whose four chains a column do the same (counted as
-    ``viterbi_ptrs_cluster``); on the staged tile one chain in row order
-    with a strict compare.  Bit-equal to the plain version.  Takes S <=
+    Design (``csrc/scans.cu``, route ``log_scan_route``): to 32 states K3's
+    lanes step in its pointer mode (``viterbi_ptrs_lanes_kernel``, counted
+    as ``viterbi_ptrs_lanes``: the first-hit argmax of a step's candidates
+    off the chain); from 33 to 256 K5's rows kernel with the argmax
+    (``viterbi_ptrs_rows_kernel``, counted as ``viterbi_ptrs_rows``: each
+    chain's partial maxima kept with the row that set each, strict > in
+    increasing row, the chains combined by value, then by the lower row);
+    the block tile (``viterbi_ptrs_kernel``, forced with
+    ``LOG_SCAN_MAX_STATES`` = 0, counted as ``viterbi_ptrs``) does the same
+    with its four partial maxima, so the bits are one; from 257 states
+    (``scan_route``) K5's cluster tile, whose four chains a column do the same
+    (counted as ``viterbi_ptrs_cluster``); on the staged tile one chain in row
+    order with a strict compare.  Bit-equal to the plain version.  Takes S <=
     1024."""
     dev = _check_streaming(log_trans, obs, lengths, "obs",
                            "viterbi_pointers", log_start)

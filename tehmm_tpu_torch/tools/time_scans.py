@@ -16,29 +16,30 @@ alone at B x L x S points on K5's rows of a sticky random model.  Past
 256 states all six run the cluster tile, and are timed again with the staged wide tile forced
 (``K5_staged``, ``K6a_staged``, ``K6b_staged``, ``K7a_staged``,
 ``K7b_staged``, ``K8c_staged``: ``cuda_kernels.SCAN_CLUSTER_MAX_STATES``
-set to 0, then restored).  To 256 states K6a, K6b, K7a and K7b run their own
-kernels (``cuda_kernels.log_scan_route``: the lanes step, the rows
-kernels) and are timed again with the block tile forced (``K6a_tile``,
-``K6b_tile``, ``K7a_tile``, ``K7b_tile``:
-``cuda_kernels.LOG_SCAN_MAX_STATES`` set to 0, then restored).  ``--sweeps`` times K3's, X1's and X2's carry
-modes (``viterbi_chunk_values``, ``forward_chunk_values``,
+set to 0, then restored).  To 256 states all six run their own kernels
+(``cuda_kernels.log_scan_route``: the lanes step, the rows kernels) and
+are timed again with the block tile forced (``K5_tile``, ``K6a_tile``,
+``K6b_tile``, ``K7a_tile``, ``K7b_tile``, ``K8c_tile``:
+``cuda_kernels.LOG_SCAN_MAX_STATES`` set to 0, then restored).
+``--sweeps`` times K3's, X1's and X2's carry modes
+(``viterbi_chunk_values``, ``forward_chunk_values``,
 ``backward_chunk_values``) at each S on ``--sweep-rows`` full rows of
 ``--sweep-length`` (3f's ``--exact``, ``--pd`` and score shapes), the
-same two ways past 256 states, and to 256 X1's and X2's with the block
-tile forced too (``X1_tile``, ``X2_tile``).  On the card a row past
-256 states has each timed kernel's cluster plan (``plans``, where the
-checkout's ``cuda_kernels.CLUSTER_PLAN_KINDS`` has its kind), and one
-from 33 to 256 the rows a block each of K6a, K6b, K7a and K7b (or X1
-and X2) took where it ran the rows kernels (``rows_R``,
-``cuda_kernels.library_rows_plan``).  Each kernel's ``*_us`` is its
-microseconds a step (a position).  The first line names the device;
+same two ways past 256 states, and from 240 to 256 (past K3's, X1's and
+X2's one-warp kernels) with the block tile forced too (``K3_tile``,
+``X1_tile``, ``X2_tile``).  On the card a row past 256 states has each
+timed kernel's cluster plan (``plans``, where the checkout's
+``cuda_kernels.CLUSTER_PLAN_KINDS`` has its kind), and one from 33 to
+256 the rows a block each kernel took where it ran the rows kernels
+(``rows_R``, ``cuda_kernels.library_rows_plan``).  Each kernel's
+``*_us`` is its microseconds a step (a position).  The first line names the device;
 then one JSON object a shape: the shape and each kernel's median ms of
 ``reps`` synchronised calls.  It uses nothing but the wrappers and
 ``bench_engines``' inputs, so the same file times an older checkout of
 the port for a comparison in one process each (where the checkout has no
 cluster tile, no ``_staged`` keys are written, and without the log-space
-scans' own kernels no ``_tile`` keys; where it runs K6 on the block
-tile, ``K6a_tile`` and ``K6b_tile`` time that tile twice).  On the CPU
+scans' own kernels no ``_tile`` keys; where it runs a scan on the block
+tile, its ``_tile`` key times that tile twice).  On the CPU
 each wrapper runs its plain version: the lines then time nothing of the
 card.
 """
@@ -92,9 +93,9 @@ def staged_tile():
 
 @contextlib.contextmanager
 def block_tile():
-    """The block tile forced for the log-space scans and X1's and X2's
-    carry modes to 256 states (``LOG_SCAN_MAX_STATES`` = 0), restored
-    after; nothing in a checkout without their own kernels."""
+    """The block tile forced for the scans with their own kernels to 256
+    states (``LOG_SCAN_MAX_STATES`` = 0), restored after; nothing in a
+    checkout without them."""
     old = getattr(ck, "LOG_SCAN_MAX_STATES", None)
     if old is not None:
         ck.LOG_SCAN_MAX_STATES = 0
@@ -111,9 +112,10 @@ def block_tile():
 PLAN_KINDS = {"K5": "viterbi_values", "K6a": "fwd_prob", "K6b": "bwd_prob",
               "K7a": "fwd_scaled", "K7b": "bwd_scaled", "K8c": "viterbi_ptrs",
               "X1": "fwd_scaled", "X2": "bwd_scaled", "K3": "viterbi_values"}
-COUNTERS = {"K6a": "fwd_prob", "K6b": "bwd_prob", "K7a": "fwd_scaled",
-            "K7b": "bwd_scaled", "X1": "fwd_chunk_tile",
-            "X2": "bwd_chunk_tile"}
+COUNTERS = {"K5": "viterbi_values", "K6a": "fwd_prob", "K6b": "bwd_prob",
+            "K7a": "fwd_scaled", "K7b": "bwd_scaled", "K8c": "viterbi_ptrs",
+            "X1": "fwd_chunk_tile", "X2": "bwd_chunk_tile",
+            "K3": "viterbi_chunk_tile"}
 # the rows plan kinds of a checkout whose ``library_rows_plan`` takes a
 # bool (the log-space backward or forward)
 _LOG_ROWS_KINDS = ("fwd_scaled", "bwd_scaled")
@@ -187,7 +189,7 @@ def time_config(config, batch, device, reps):
         "K8c": lambda: ck.viterbi_pointers(ls, lt, obs, lens),
     }
     staged = tuple(calls) if S > 256 else ()
-    tile = ("K6a", "K6b", "K7a", "K7b") if S <= 256 else ()
+    tile = ("K5", "K6a", "K6b", "K7a", "K7b", "K8c") if S <= 256 else ()
     calls["bt"] = _backtrace_call(ls, lt, obs, lens)
     row = {"config": config, "S": S, "B": B, "L": L}
     _time(row, calls, device, reps, L, staged, tile)
@@ -237,10 +239,10 @@ def time_sweeps(S, B, L, device, reps):
     row = {"sweep": S, "B": B, "L": L}
     if S > 256:
         return _time(row, calls, device, reps, L, ("X1", "X2", "K3"))
-    # to 256 states the carry modes past their one-warp kernels: X1's and
-    # X2's on the rows kernels (K3's on the block tile)
+    # to 256 states the carry modes past their one-warp kernels on the
+    # rows kernels
     row = _time(row, calls, device, reps, L, (),
-                () if ck.sweep_fits(S) else ("X1", "X2"))
+                () if ck.sweep_fits(S) else ("X1", "X2", "K3"))
     for name in calls:
         row[name + "_us"] = row[name] * 1e3 / L
     return row

@@ -104,16 +104,30 @@ def test_scan_route_by_states(monkeypatch, S, route):
     (1, "lanes"), (32, "lanes"), (33, "rows"), (239, "rows"), (240, "rows"),
     (256, "rows"), (257, "cluster"), (1024, "cluster")])
 def test_log_scan_route_by_states(monkeypatch, S, route):
-    """K7a/K7b and X1's and X2's carry modes: the lanes step to 32 states,
-    the rows kernels to 256, the cluster tile beyond (``scan_route``); 0
-    in ``LOG_SCAN_MAX_STATES`` forces the block tile to 256 and leaves the
-    cluster tile past it."""
+    """All nine scans over obs: the lanes step to 32 states, the rows
+    kernels to 256, the cluster tile beyond (``scan_route``); 0 in
+    ``LOG_SCAN_MAX_STATES`` forces the block tile to 256 and leaves the
+    cluster tile past it.  K5, K8c and K3's carry mode (past its one-warp
+    kernels' 239 states) count under their route's counters, the block
+    tile's names where it is forced."""
     assert ck.LOG_SCAN_MAX_STATES == 256
     assert ck.log_scan_route(S) == route
+    assert set(ck._LOG_SCAN_COUNTERS) == set(ck._CLUSTER_COUNTERS)
+    viterbi = ["viterbi_values", "viterbi_ptrs"] + (
+        [] if ck.sweep_fits(S) else ["viterbi_chunk_tile"])
+    own = {"lanes": "_lanes", "rows": "_rows", "cluster": "_cluster"}[route]
+    for name in viterbi:
+        want = name.replace("_tile", "") + own
+        assert ck.scan_counter(name, S) == want
+        assert want in ck.LAUNCHES
     monkeypatch.setattr(ck, "LOG_SCAN_MAX_STATES", 0)
     assert ck.log_scan_route(S) == ("narrow" if S <= 256 else "cluster")
+    for name in viterbi:
+        assert ck.scan_counter(name, S) == (
+            name if S <= 256 else ck._CLUSTER_COUNTERS[name])
     monkeypatch.setattr(ck, "SCAN_CLUSTER_MAX_STATES", 0)
     assert ck.log_scan_route(S) == ("narrow" if S <= 256 else "staged")
+    assert all(ck.scan_counter(name, S) == name for name in viterbi)
 
 
 @pytest.mark.parametrize("S,forced,name,want", [
@@ -135,12 +149,21 @@ def test_log_scan_route_by_states(monkeypatch, S, route):
     (64, True, "fwd_prob", "fwd_prob"),
     (256, True, "bwd_prob", "bwd_prob"),
     (257, False, "bwd_prob", "bwd_prob_cluster"),
-    (240, False, "viterbi_chunk_tile", "viterbi_chunk_tile"),
+    (240, False, "viterbi_chunk_tile", "viterbi_chunk_rows"),
+    (256, False, "viterbi_chunk_tile", "viterbi_chunk_rows"),
+    (240, True, "viterbi_chunk_tile", "viterbi_chunk_tile"),
+    (20, False, "viterbi_values", "viterbi_values_lanes"),
+    (32, False, "viterbi_ptrs", "viterbi_ptrs_lanes"),
+    (33, False, "viterbi_values", "viterbi_values_rows"),
+    (256, False, "viterbi_ptrs", "viterbi_ptrs_rows"),
+    (20, True, "viterbi_values", "viterbi_values"),
+    (128, True, "viterbi_ptrs", "viterbi_ptrs"),
+    (257, False, "viterbi_values", "viterbi_values_cluster"),
     (512, False, "viterbi_ptrs", "viterbi_ptrs_cluster")])
 def test_scan_counter_by_route(monkeypatch, S, forced, name, want):
     """Each route counts under a name of its own: the lanes step and rows
-    kernels of the log-space scans and of K6a/K6b, the block tile (forced,
-    or for the other scans to 256 states) under the scan's own name, the
+    kernels of the log-space scans, of K6a/K6b and of K5, K8c and K3's
+    carry mode, the block tile (forced) under the scan's own name, the
     cluster tile under its counter; every name is one of ``LAUNCHES``."""
     if forced:
         monkeypatch.setattr(ck, "LOG_SCAN_MAX_STATES", 0)
@@ -169,8 +192,9 @@ def test_tile_flags_are_the_c_enum():
 
 def test_rows_plan_kinds_are_the_c_entries():
     """``ROWS_PLAN_KINDS`` is the order of ``tehmm_rows_plan``'s kinds:
-    scans.cu's two log-space rows kernels, then streaming.cu's K6a and
-    K6b, each the rows kernel of its block tile's counter."""
+    scans.cu's two log-space rows kernels, streaming.cu's K6a and K6b,
+    streaming.cu's K5 (and K3's carry mode), scans.cu's K8c, each the rows
+    kernel of its block tile's counter."""
     import os
     import re
 
@@ -183,15 +207,16 @@ def test_rows_plan_kinds_are_the_c_entries():
             r"if \(kind == (\d)\) \{\s*ROWS_KERNELS\(ks, (\w+)_rows_kernel\)",
             text))
     assert kinds == {0: "fwd_scaled", 1: "bwd_scaled", 2: "fwd_prob",
-                     3: "bwd_prob"}
-    assert ck.ROWS_PLAN_KINDS == tuple(kinds[k] for k in range(4))
+                     3: "bwd_prob", 4: "viterbi_values", 5: "viterbi_ptrs"}
+    assert ck.ROWS_PLAN_KINDS == tuple(kinds[k] for k in range(6))
     assert all(ck._LOG_SCAN_COUNTERS[k]["rows"] == k + "_rows"
                for k in ck.ROWS_PLAN_KINDS)
 
 
 @pytest.mark.parametrize("kernel,kind", [
     ("fwd_scaled", 0), ("bwd_scaled", 1), ("fwd_prob", 2), ("bwd_prob", 3),
-    (False, 0), (True, 1), (3, 3)])
+    ("viterbi_values", 4), ("viterbi_ptrs", 5), (False, 0), (True, 1),
+    (3, 3)])
 def test_library_rows_plan_asks_for_its_kind(monkeypatch, kernel, kind):
     """``library_rows_plan`` hands the C entry the kind of the kernel it
     is named (or its index; a bool the log-space backward or forward) and
@@ -358,36 +383,47 @@ VITERBI_COUNTERS = {"viterbi_values": "viterbi_values_cluster",
                     "viterbi_ptrs": "viterbi_ptrs_cluster"}
 
 
-@pytest.mark.parametrize("force_staged", [False, True])
+@pytest.mark.parametrize("force", [None, "staged", "block"])
 @pytest.mark.parametrize("S", [10, 240, 256, 257, 640, 1024])
-def test_viterbi_launches_are_counted_by_tile(monkeypatch, S, force_staged):
+def test_viterbi_launches_are_counted_by_tile(monkeypatch, S, force):
     """K5, K3's carry mode (values, carry and checkpoints: once a chunk)
-    and K8c launch with the cluster flag and under the cluster tile's
-    counters from 257 states, under the block tile's below and where the
-    staged tile is forced; K3 below 240 states takes its one-warp
-    kernels."""
+    and K8c launch with the ``tile`` flag of their route and under its
+    counters: to 32 states the lanes step (2, ``*_lanes``), to 256 the
+    rows kernels (3, ``*_rows``; K3's carry mode only from 240 states,
+    ``viterbi_chunk_rows``: below, K3 takes its one-warp kernels), from
+    257 the cluster tile (1, ``*_cluster``); the block tile (0, the
+    scans' own names) to 256 states where ``LOG_SCAN_MAX_STATES`` is 0,
+    and the staged tile (0) past 256 where ``SCAN_CLUSTER_MAX_STATES``
+    is."""
     launched = _fake_card(monkeypatch)
-    if force_staged:
+    if force == "staged":
         monkeypatch.setattr(ck, "SCAN_CLUSTER_MAX_STATES", 0)
+    if force == "block":
+        monkeypatch.setattr(ck, "LOG_SCAN_MAX_STATES", 0)
     B, L, chunk = 3, 10, 4
     lt, ls = torch.zeros((S, S)), torch.zeros(S)
     obs, carry = torch.zeros((B, L, S)), torch.zeros((B, S))
     lens = torch.full((B,), L, dtype=torch.int32)
     ck.viterbi_values(ls, lt, obs, lens)
     ck.viterbi_pointers(ls, lt, obs, lens)
-    cluster = int(S > 256 and not force_staged)
+    if S > 256:
+        flag, own = (0, "") if force == "staged" else (1, "_cluster")
+    elif force == "block":
+        flag, own = 0, ""
+    else:
+        flag, own = (2, "_lanes") if S <= 32 else (3, "_rows")
 
     def name(k):
-        return VITERBI_COUNTERS[k] if cluster else k
+        return k if not own else k.replace("_tile", "") + own
 
-    want = [(name("viterbi_values"), "tehmm_viterbi_values", cluster),
-            (name("viterbi_ptrs"), "tehmm_viterbi_ptrs", cluster)]
+    want = [(name("viterbi_values"), "tehmm_viterbi_values", flag),
+            (name("viterbi_ptrs"), "tehmm_viterbi_ptrs", flag)]
     if not ck.sweep_fits(S):
         ck.viterbi_chunk_values(lt, obs, carry, lens)
         ck.viterbi_carry(lt, obs, carry, lens)
         ck.viterbi_checkpoints(lt, obs, carry, lens, chunk)
         want += [(name("viterbi_chunk_tile"), "tehmm_viterbi_carry_tile",
-                  cluster)] * (2 + 3)
+                  flag)] * (2 + 3)
     assert launched == want
     assert set(VITERBI_COUNTERS.values()) <= set(ck.LAUNCHES)
     assert {k: ck._CLUSTER_COUNTERS[k] for k in VITERBI_COUNTERS} \

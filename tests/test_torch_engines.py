@@ -173,6 +173,10 @@ VITERBI_CASES = {
     "S260": dict(S=260, L=6, lengths=[6, 3, 1, 0], T=1),
     # every argmax a tie: the lowest state wins in each Viterbi
     "ties": dict(S=70, L=9, lengths=[9, 4, 1], T=1, ties=True),
+    # the edges of K5's and K8c's lanes step (to 32 states) and rows
+    # kernels (from 33), ragged with rows of length 0 and 1
+    "S32": dict(S=32, L=11, lengths=[11, 0, 1, 6], zero_frac=0.3),
+    "S33": dict(S=33, L=11, lengths=[1, 11, 0, 7], zero_frac=0.3),
 }
 
 
@@ -482,8 +486,8 @@ def test_profile_estep_cuda_log_rows(tiny_config, capsys):
 def test_time_scans_rows(tiny_config, capsys, batch):
     """``tools.time_scans``: the device line, then one row a shape with
     every tile kernel's time and the value-row backtrace's (the plain
-    versions here), and K6a's, K6b's, K7a's and K7b's again with the block
-    tile forced (``_tile``), each with its us a step; no ``rows_R`` off the
+    versions here), and every tile kernel's again with the block tile
+    forced (``_tile``), each with its us a step; no ``rows_R`` off the
     card; the constant is restored."""
     assert time_scans.main(["--configs", tiny_config, "--device", "cpu",
                             "--reps", "1", "--batch", str(batch)]) == 0
@@ -493,8 +497,8 @@ def test_time_scans_rows(tiny_config, capsys, batch):
     S, _T, _V, B, L = TINY
     assert (row["config"], row["S"], row["B"], row["L"]) == (
         tiny_config, S, batch or B, L)
-    own = ("K6a", "K6b", "K7a", "K7b")
-    assert all(row[k] > 0 for k in ("K5", "K8c", "bt") + own)
+    own = ("K5", "K6a", "K6b", "K7a", "K7b", "K8c")
+    assert all(row[k] > 0 for k in ("bt",) + own)
     assert row["bt_us"] == pytest.approx(row["bt"] * 1e3 / (L - 1))
     for k in own + tuple(k + "_tile" for k in own):
         assert row[k] > 0
@@ -503,15 +507,22 @@ def test_time_scans_rows(tiny_config, capsys, batch):
     assert ck.LOG_SCAN_MAX_STATES == 256
 
 
-@pytest.mark.parametrize("S,force,want", [
-    (64, False, {"K6a": 2, "K6b": 3, "K7a": 0, "K7b": 1}),
-    (256, False, {"K6a": 2, "K6b": 3, "K7a": 0, "K7b": 1}),
-    (20, False, {}), (64, True, {})])
+TILE_NAMES = ("K5", "K6a", "K6b", "K7a", "K7b", "K8c")
+TILE_KINDS = {"K5": 4, "K6a": 2, "K6b": 3, "K7a": 0, "K7b": 1, "K8c": 5}
+
+
+@pytest.mark.parametrize("S,force,names,want", [
+    (64, False, TILE_NAMES, TILE_KINDS),
+    (256, False, TILE_NAMES, TILE_KINDS),
+    (240, False, ("X1", "X2", "K3"), {"X1": 0, "X2": 1, "K3": 4}),
+    (20, False, TILE_NAMES, {}), (64, True, TILE_NAMES, {}),
+    (256, True, ("X1", "X2", "K3"), {})])
 def test_time_scans_rows_R_asks_each_kernels_kind(monkeypatch, S, force,
-                                                  want):
-    """``rows_R``: the rows a block of each of K6a, K6b, K7a and K7b that
-    ran the rows kernels, read from the plan of its own kind (the card's
-    plan faked); none on the lanes step or the forced block tile."""
+                                                  names, want):
+    """``rows_R``: the rows a block of each kernel timed (K5, K6a, K6b,
+    K7a, K7b and K8c, or the carry modes K3, X1 and X2) that ran the rows
+    kernels, read from the plan of its own kind (the card's plan faked;
+    K3's that of K5); none on the lanes step or the forced block tile."""
     asked = {}
 
     def plan(S_, B, kind):
@@ -521,7 +532,7 @@ def test_time_scans_rows_R_asks_each_kernels_kind(monkeypatch, S, force,
     monkeypatch.setattr(ck, "library_rows_plan", plan)
     if force:
         monkeypatch.setattr(ck, "LOG_SCAN_MAX_STATES", 0)
-    got = time_scans._rows_R(S, 7, ("K6a", "K6b", "K7a", "K7b"))
+    got = time_scans._rows_R(S, 7, names)
     assert got == {name: 10 + kind for name, kind in want.items()}
     assert asked == {kind: (S, 7) for kind in want.values()}
 

@@ -190,11 +190,10 @@ def test_sweep_fits_and_the_wrappers_choice(monkeypatch, S):
         want = [("viterbi_chunk_values", k3)] * 2 \
             + [("fwd_chunk", x1)] * 2 \
             + [("bwd_chunk", x2)]
-    else:   # K3's, X1's and X2's past 256 states on the cluster tile;
-        # to 256 K3's on the block tile, X1's and X2's on the rows kernels
-        cluster = "_cluster" if S > 256 else "_tile"
+    else:   # K3's, X1's and X2's past 256 states on the cluster tile,
+        # to 256 on the rows kernels
         rows = "_cluster" if S > 256 else "_rows"
-        want = [("viterbi_chunk" + cluster, "tehmm_viterbi_carry_tile")] * 2 \
+        want = [("viterbi_chunk" + rows, "tehmm_viterbi_carry_tile")] * 2 \
             + [("fwd_chunk" + rows, "tehmm_fwd_chunk_tile")] * 2 \
             + [("bwd_chunk" + rows, "tehmm_bwd_chunk_tile")]
     assert launched == want

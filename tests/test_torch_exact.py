@@ -324,8 +324,9 @@ def test_k3_step_by_states(monkeypatch, S):
     """The step is chosen by S alone: registers and shuffles to 32
     states, shared memory to ``sweep_fits``' 239, the tile beyond; each
     mode launches once, the checkpoint mode counted under its own name
-    (the tile's carry mode once a chunk, on the cluster tile from 257
-    states, with the cluster flag)."""
+    (K5's carry mode once a chunk: to 256 states on its rows kernel, with
+    the rows flag, on the cluster tile from 257, with the cluster
+    flag)."""
     launched = _fake_card(monkeypatch)
     B, L, chunk = 3, 10, 4
     step = ck.k3_step(S)
@@ -338,12 +339,12 @@ def test_k3_step_by_states(monkeypatch, S):
     ck.viterbi_carry(*args)
     ck.viterbi_checkpoints(*args, chunk)
     if step == "tile":
-        cluster = int(S > 256)
-        tile = ("viterbi_chunk_" + ("cluster" if cluster else "tile"),
+        flag = 1 if S > 256 else 3
+        tile = ("viterbi_chunk_" + ("cluster" if S > 256 else "rows"),
                 "tehmm_viterbi_carry_tile")
         assert [x[:2] for x in launched] == [tile] * (2 + 3)
-        assert [x[2] for x in launched] == [(B, L, S, cluster)] * 2 + \
-            [(B, 4, S, cluster), (B, 4, S, cluster), (B, 2, S, cluster)]
+        assert [x[2] for x in launched] == [(B, L, S, flag)] * 2 + \
+            [(B, 4, S, flag), (B, 4, S, flag), (B, 2, S, flag)]
     else:
         entry = {"lanes": "tehmm_viterbi_sweep_lanes",
                  "shared": "tehmm_viterbi_sweep_smem"}[step]

@@ -210,11 +210,10 @@ def test_carried_sweeps_match_plain(device, rng, S, zero_frac):
     torch.testing.assert_close(beta, r_beta.float(), rtol=0, atol=lim)
     torch.testing.assert_close(x_out, r_x.float(), rtol=0, atol=lim)
     # K3's, X1's and X2's carry modes past 256 states on the cluster tile,
-    # to 256 X1's and X2's on the rows kernels (``ck.scan_counter``)
-    suffix = ("_cluster" if S > 256 else "_tile") if tile else ""
-    k3 = "viterbi_chunk" + (suffix or "_values")
-    x1, x2 = (ck.scan_counter(k, S) if tile else k[:9]
-              for k in ("fwd_chunk_tile", "bwd_chunk_tile"))
+    # to 256 on the rows kernels (``ck.scan_counter``)
+    warp = {"viterbi_chunk_tile": "viterbi_chunk_values",
+            "fwd_chunk_tile": "fwd_chunk", "bwd_chunk_tile": "bwd_chunk"}
+    k3, x1, x2 = (ck.scan_counter(k, S) if tile else warp[k] for k in warp)
     assert ck.LAUNCHES[k3] == before[k3] + 2
     assert ck.LAUNCHES[x1] == before[x1] + 2
     assert ck.LAUNCHES[x2] == before[x2] + 1
