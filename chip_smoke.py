@@ -269,12 +269,31 @@ Phases (any failure raises, and the run exits non-zero):
    CPU in segment mode, with the gaussian track and with the categorical
    tracks only (the weight stream alone): EM logliks within 1e-5
    relative, BED agreeing on >= 99.9% of bases.  Stage times.
+3w. The workflow tools, in-process through the dispatcher
+   (``tehmm_tpu_torch.__main__``), on a planted chromosome of their own
+   (1,000,000 positions, the same 10 states, 5 tracks and 9 symbols,
+   drawn from a generator of its own into a subdirectory):
+   ``benchmark --device cuda`` with ``sup`` (supervised) and ``em10``
+   (10 states, 5 EM iterations: K1, then K2's lanes forward and the
+   chase) -- both entries without error, ``sup``'s base accuracy >= 0.9,
+   ``em10``'s printed and in [0, 1] -- and ``sup`` again on ``--device
+   cpu``: the same ``pred.bed`` byte for byte and the same summary
+   entry but the seconds; ``compare-bed-states`` of phase 3's stitched
+   BED against its truth, whose base accuracy is phase 3's own within
+   1e-9; ``fit-state-names`` of ``em10``'s prediction (every interval
+   kept under the printed map, which names states 1:1 onto the truth's
+   and leaves one unnamed only where every truth name it overlaps is
+   taken; the benchmark's renamed BED byte for byte); ``view`` of
+   ``sup``'s model, the same text on the card and the
+   CPU; ``bed-tools stats`` of phase 3's BED (its bases sum to the
+   chromosome); ``python -m tehmm_tpu_torch`` with no tool exits 2,
+   ``--help`` 0, an unknown tool 2, and ``import-model`` exits naming
+   its ROADMAP item.  Stage times.
 4. The launch counters, zeroed just before each tool run of 2e and 2m,
    phase 3, 3d, 3b's training run, 3f's training run and five decodes,
-   and 3e's
-   base-resolution, segment and categorical segment runs and read just
-   after each, show every kernel and stream variant of each path ran on
-   it.
+   3e's base-resolution, segment and categorical segment runs, and 3w,
+   and read just after each, show every kernel and stream variant of
+   each path ran on it.
 
 The last lines are a JSON object of per-kernel results, the card's name
 and power limit, and ``{"ok": true, "device": {...}}``.  Without CUDA it
@@ -522,6 +541,13 @@ GAUSS_BASE_KERNELS = ("viterbi_fwd_lanes+g", "chunk_chase", "em_fwd+g",
                       "em_bwd_stats+g", "post_decode_lanes+g")
 SEGMENT_KERNELS = ("em_fwd", "em_bwd_stats", "viterbi_fwd_lanes",
                    "post_decode_lanes")
+# 3w: the workflow tools on a chromosome of their own; benchmark's em10
+# trains through K1, and both its configs decode through K2's lanes
+# forward in pointer mode and the chase
+WORKFLOW_POSITIONS = 1_000_000
+WORKFLOW_EM_ITERS = 5
+WORKFLOW_KERNELS = ("em_fwd", "em_bwd_stats", "viterbi_fwd_lanes",
+                    "chunk_chase")
 # 2e: the engine-comparison path; phase 2 checks K5/K6, K7/K8 and the
 # backtrace under dp.viterbi_streaming at each of its shapes
 STREAMING_KERNELS = ("viterbi_values", "fwd_prob", "bwd_prob",
@@ -619,16 +645,24 @@ def _smi() -> str:
     return out.splitlines()[0]
 
 
-def _median_ms(fn, runs: int) -> float:
+def _timed(fn):
+    """(fn(), its ms), synchronised before and after as a sample of
+    ``_median_ms``."""
     import torch
 
-    times = []
-    for _ in range(runs):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result = fn()
+    torch.cuda.synchronize()
+    return result, (time.perf_counter() - t0) * 1e3
+
+
+def _median_ms(fn, runs: int, samples=()) -> float:
+    """Median ms of ``runs`` calls, ``samples`` (ms of calls already
+    timed by ``_timed``) counted among them."""
+    times = list(samples)
+    while len(times) < runs:
+        times.append(_timed(fn)[1])
     return float(np.median(times))
 
 
@@ -859,7 +893,8 @@ def _k2_forward_rows(args, shape, valid, G=0, weighted=False, **st):
     (to 32 states the lanes one) against the plain versions and against
     the shared kernel forced, value rows, normalizers, pointers and last
     rows bit for bit, each timed (median of 5) beside its plain version
-    (median of 3, the values mode's once) and the bound.  Returns the
+    (median of 3, the values mode's once; the check's own plain calls
+    among them) and the bound.  Returns the
     rows of both kernels (``viterbi_fwd_lanes`` and ``viterbi_fwd``, the
     stream variant's suffix on each): ``ms``, ``plain_ms`` and the bound
     the pointer mode's, the main path's; ``values_ms``,
@@ -881,8 +916,13 @@ def _k2_forward_rows(args, shape, valid, G=0, weighted=False, **st):
         return ck.viterbi_fwd_pointers(*args, **st)
 
     got = {step: (*values(), *pointers())}
-    plain = (*ck.viterbi_fwd_plain(*args, **st),
-             *ck.viterbi_fwd_pointers_plain(*args, **st))
+    # the plain calls of the check are timing samples too: four plain
+    # forwards a stream, not six
+    plain_values, plain_values_ms = _timed(
+        lambda: ck.viterbi_fwd_plain(*args, **st))
+    plain_pointers, first_ms = _timed(
+        lambda: ck.viterbi_fwd_pointers_plain(*args, **st))
+    plain = (*plain_values, *plain_pointers)
     names = ("value rows", "dm", "pointers", "last row", "pointer dm")
     for k, (a, b) in enumerate(zip(got[step], plain)):
         assert torch.equal(a, b), \
@@ -891,9 +931,7 @@ def _k2_forward_rows(args, shape, valid, G=0, weighted=False, **st):
     err = float(max((got[step][0] - plain[0]).abs().max(),
                     (got[step][1] - plain[1]).abs().max()))
     plain_ms = _median_ms(
-        lambda: ck.viterbi_fwd_pointers_plain(*args, **st), 3)
-    plain_values_ms = _median_ms(lambda: ck.viterbi_fwd_plain(*args, **st),
-                                 1)
+        lambda: ck.viterbi_fwd_pointers_plain(*args, **st), 3, [first_ms])
     del plain
     bound = _bound("viterbi_fwd_pointers", shape, valid, G, weighted)
     values_bound = _bound("viterbi_fwd" + suffix, shape, valid, G, weighted)
@@ -4810,6 +4848,153 @@ def phase_segments_card_vs_cpu(work, xml_seg, xml_cat, n, region, seed,
     return cat_launches
 
 
+def phase_workflow(work, phase3, seed, device="cuda",
+                   n=WORKFLOW_POSITIONS):
+    """3w: the workflow tools through the dispatcher's ``main``, in this
+    process (one holder of the card, the build and the counters).
+    ``phase3``: (stitched BED, truth BED, base accuracy, positions) of
+    phase 3.  -> the launch counts of the phase."""
+    from tehmm_tpu_torch import __main__ as tools
+    from tehmm_tpu_torch.cli.compare_bed_states import base_level_confusion
+    from tehmm_tpu_torch.cli.unported import SLICE_TOOLS
+    from tehmm_tpu_torch.io import read_bed_intervals
+    from tehmm_tpu_torch.ops import cuda_kernels as ck
+
+    wdir = os.path.join(work, "workflow")
+    os.makedirs(wdir)
+    seconds = {}
+    t0 = time.perf_counter()
+    xml, truth_bed, _truth = make_dataset(
+        wdir, np.random.RandomState(seed + 9), n)
+    regions = _region_bed(wdir, "regions.bed", 0, n)
+    seconds["dataset"] = time.perf_counter() - t0
+
+    def run(stage, argv):
+        t0 = time.perf_counter()
+        out = _run_cli(tools, argv)
+        seconds[stage] = time.perf_counter() - t0
+        return out
+
+    # 1. benchmark on the card, and its supervised config on the CPU
+    configs = ["--config", "sup:--supervised", "--config",
+               f"em10:--numStates {S} --iter {WORKFLOW_EM_ITERS} "
+               f"--seed {seed}"]
+    summary, dirs = {}, {}
+    for tag, dev, cfg in (("card", device, configs),
+                          ("cpu", "cpu", configs[:2])):
+        dirs[tag] = os.path.join(wdir, f"bench_{tag}")
+        table = run(f"benchmark ({tag})",
+                    ["benchmark", xml, truth_bed, regions, dirs[tag],
+                     "--device", dev, *cfg])
+        print("\n".join(f"[workflow] {tag}: {ln}"
+                        for ln in table.splitlines()), flush=True)
+        with open(os.path.join(dirs[tag], "summary.json")) as fh:
+            summary[tag] = {r["name"]: r for r in json.load(fh)}
+    assert list(summary["card"]) == ["sup", "em10"] and \
+        list(summary["cpu"]) == ["sup"], summary
+    errors = {(tag, name): r["error"] for tag, rs in summary.items()
+              for name, r in rs.items() if "error" in r}
+    assert not errors, f"3w benchmark configs failed: {errors}"
+    sup, em = summary["card"]["sup"], summary["card"]["em10"]
+    assert sup["base_accuracy"] >= 0.9, \
+        f"3w sup base accuracy {sup['base_accuracy']} < 0.9"
+    assert 0.0 <= em["base_accuracy"] <= 1.0, em["base_accuracy"]
+
+    def entry(r):
+        return {k: v for k, v in r.items() if not k.endswith("_seconds")}
+
+    assert entry(sup) == entry(summary["cpu"]["sup"]), \
+        "3w: sup's summary entry differs between the card and the CPU"
+    beds = [open(os.path.join(dirs[tag], "sup.pred.bed"), "rb").read()
+            for tag in ("card", "cpu")]
+    assert beds[0] == beds[1], "3w: sup.pred.bed differs card vs CPU"
+    print(f"[workflow] sup base accuracy {sup['base_accuracy']:.6f} "
+          f"(card == CPU: pred.bed {len(beds[0])} bytes, summary entry); "
+          f"em10 ({WORKFLOW_EM_ITERS} EM iterations) base accuracy "
+          f"{em['base_accuracy']:.6f}", flush=True)
+
+    # 2. compare-bed-states of phase 3's stitched BED
+    bed3, truth3, acc3, n3 = phase3
+    res = json.loads(run("compare-bed-states",
+                         ["compare-bed-states", truth3, bed3, "--json"]))
+    assert abs(res["base_accuracy"] - acc3) <= 1e-9, \
+        f"compare-bed-states {res['base_accuracy']} != phase 3's {acc3}"
+    print(f"[workflow] compare-bed-states of phase 3's BED: base accuracy "
+          f"{res['base_accuracy']:.9f} (phase 3: {acc3:.9f})", flush=True)
+
+    # 3. fit-state-names of em10's prediction: each interval kept, its
+    # name the printed map's; the map 1:1 onto truth names, and a state
+    # it leaves unnamed only where every truth name it overlaps is taken
+    # (the greedy is maximal)
+    pred = os.path.join(dirs["card"], "em10.pred.bed")
+    named = os.path.join(wdir, "em10.named.bed")
+    printed = run("fit-state-names",
+                  ["fit-state-names", truth_bed, pred, named, "--printMap"])
+    mapping = dict(ln.split("\t") for ln in printed.splitlines())
+    truth_ivs = read_bed_intervals(truth_bed, ncol=4)
+    truth_names = {r[3] for r in truth_ivs}
+    before = read_bed_intervals(pred, ncol=4)
+    after = read_bed_intervals(named, ncol=4)
+    assert [r[:3] + (mapping.get(r[3], r[3]),) for r in before] == after, \
+        "fit-state-names dropped, moved or misnamed intervals"
+    onto = {p: t for p, t in mapping.items() if t in truth_names}
+    assert len(set(onto.values())) == len(onto), mapping
+    overlaps = base_level_confusion(truth_ivs, before)
+    unnamed = {r[3] for r in before} - set(onto)
+    for p in unnamed:
+        free = {t for (t, q), v in overlaps.items()
+                if q == p and t is not None and v} - set(onto.values())
+        assert not free, f"fit-state-names left {p} unnamed beside {free}"
+    with open(named, "rb") as a, \
+            open(os.path.join(dirs["card"], "em10.fit.bed"), "rb") as b:
+        assert a.read() == b.read(), "fit-state-names != benchmark's"
+    covered = sum(e - s for _c, s, e, name in after if name in truth_names)
+    print(f"[workflow] fit-state-names: {len(after)} intervals kept, "
+          f"{len(onto)} of {len(onto) + len(unnamed)} states named onto "
+          f"the truth's, {covered / n:.6f} of the bases; map "
+          + ", ".join(f"{p}->{t}" for p, t in sorted(mapping.items())),
+          flush=True)
+
+    # 4. view of sup's model, on the card and the CPU
+    model = os.path.join(dirs["card"], "sup.mod.npz")
+    texts = [run(f"view ({dev})", ["view", model, "--device", dev])
+             for dev in (device, "cpu")]
+    assert texts[0] == texts[1], "view prints differently card vs CPU"
+    assert texts[0].startswith(f"states ({len(truth_names)}):"), \
+        texts[0][:200]
+
+    # 5. bed-tools stats, and the dispatcher's own exits
+    stats = json.loads(run("bed-tools stats",
+                           ["bed-tools", "stats", bed3]))
+    assert sum(v["total_bases"] for v in stats.values()) == n3, stats
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "tehmm_tpu_torch"],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 2 and "tools:" in proc.stdout, \
+        (proc.returncode, proc.stdout, proc.stderr)
+    with contextlib.redirect_stdout(io.StringIO()), \
+            contextlib.redirect_stderr(io.StringIO()):
+        assert tools.main(["--help"]) == 0
+        assert tools.main(["no-such-tool"]) == 2
+        try:
+            tools.main(["import-model", "model.hmm"])
+        except SystemExit as e:
+            assert SLICE_TOOLS in str(e.code), e.code
+        else:
+            raise AssertionError("import-model did not exit")
+    seconds["dispatcher exits"] = time.perf_counter() - t0
+    print(f"[workflow] bed-tools stats of phase 3's BED: {len(stats)} "
+          f"states over {n3} bases; python -m tehmm_tpu_torch: no tool "
+          "2, --help 0, unknown 2, import-model names its ROADMAP item",
+          flush=True)
+    print("[workflow] stage                    seconds", flush=True)
+    for stage, sec in seconds.items():
+        print(f"[workflow] {stage:24s} {sec:9.3f}", flush=True)
+    return dict(ck.LAUNCHES)
+
+
 def _phase_done(name, t_run):
     print(f"[time] phase {name} done at {time.perf_counter() - t_run:.1f} s "
           f"of the run", flush=True)
@@ -4908,7 +5093,7 @@ def _run(args, device, smi, parent) -> int:
 
         ck.reset_launch_counts()
         torch.cuda.reset_peak_memory_stats()
-        _acc, viterbi_score, viterbi_runs, as_parent = phase_end_to_end(
+        acc3, viterbi_score, viterbi_runs, as_parent = phase_end_to_end(
             work, xml, truth_bed, truth, EXACT_REGION, 20_000)
         decode_launches = dict(ck.LAUNCHES)
         as_parent()
@@ -4968,6 +5153,11 @@ def _run(args, device, smi, parent) -> int:
             parent=queue)
         checks.finish()
         _phase_done("3e, segments", t_run)
+        ck.reset_launch_counts()
+        workflow_launches = phase_workflow(
+            work, (os.path.join(work, "decoded.bed"), truth_bed, acc3, n),
+            args.seed)
+        _phase_done("3w", t_run)
         env_finish()
         _phase_done("3f, the CPU references", t_run)
     for config, counts in engine_launches.items():
@@ -4983,6 +5173,9 @@ def _run(args, device, smi, parent) -> int:
     print(f"[launches] segment path (3e): {seg_launches}", flush=True)
     print(f"[launches] categorical segment path (3e, card runs): "
           f"{cat_launches}", flush=True)
+    print(f"[launches] workflow path (3w): "
+          f"{ {k: n for k, n in workflow_launches.items() if n} }",
+          flush=True)
     missing = [k for k in DECODE_KERNELS if decode_launches[k] == 0]
     missing += [k for k in EM_KERNELS if em_launches[k] == 0]
     missing += [f"{k} (3d)" for k in POST_KERNELS if post_launches[k] == 0]
@@ -4992,6 +5185,8 @@ def _run(args, device, smi, parent) -> int:
                 if seg_launches[k + "+wg"] == 0]
     missing += [f"{k}+w (3e)" for k in SEGMENT_KERNELS
                 if cat_launches[k + "+w"] == 0]
+    missing += [f"{k} (3w)" for k in WORKFLOW_KERNELS
+                if workflow_launches[k] == 0]
     missing += [f"{k} (2e, {config})"
                 for config in ENGINE_CONFIGS + WIDE_CONFIGS
                 for k in _engine_kernels(config)

@@ -56,6 +56,10 @@ _MODULES = {
         "cli.unported", "cli.train", "cli.eval", "cli.segment_tracks",
         "utils.profiling", "tools", "tools.bench_engines",
         "tools.profile_estep",
+        "cli.compare_bed_states", "cli.fit_state_names", "cli.bed_tools",
+        "cli.clean_external", "cli.set_track_scaling", "cli.track_dump",
+        "analysis", "cli.view", "cli.benchmark", "cli.track_ranking",
+        "__main__", "entrypoints",
     )
 }
 
